@@ -100,3 +100,11 @@ def random_variants(rng, n, max_len=12):
             alt = random_allele(rng, 1, max_len)
         out.append((chrom, pos, ref, alt))
     return out
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skipped "
+        "on hosts without one",
+    )
