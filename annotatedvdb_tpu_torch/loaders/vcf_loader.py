@@ -4,7 +4,8 @@ Port of ``annotatedvdb_tpu/loaders/vcf_loader.py::TpuVcfLoader`` with its
 serial runner.  Per chunk: the Python tokenizer's arrays are uploaded with
 ``non_blocking`` copies from pinned buffers, the annotate step (the CUDA
 kernel on a card, the plain torch version on the CPU) and the allele hash
-are enqueued, and the host processes the PREVIOUS chunk while the device
+are enqueued — on a card one launch of the fused kernel computes both —
+and the host processes the PREVIOUS chunk while the device
 works — dedup within the batch (one identity sort per chromosome),
 membership against the store (numpy or the torch probe), egress strings
 for the rows that insert, segment build, then append -> persist ->
@@ -27,8 +28,8 @@ import torch
 from annotatedvdb_tpu_torch import oracle
 from annotatedvdb_tpu_torch.io import egress
 from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader, VcfChunk
-from annotatedvdb_tpu_torch.models.pipeline import annotate_fn
-from annotatedvdb_tpu_torch.ops.hashing import allele_hash, to_uint32
+from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from annotatedvdb_tpu_torch.ops.vrs import VrsDigestGenerator
 from annotatedvdb_tpu_torch.oracle.binindex import closed_form_bin
 from annotatedvdb_tpu_torch.runtime import resolve_device, to_device
@@ -231,13 +232,11 @@ class VcfLoader:
         return chunk, handles, delta
 
     def _dispatch_chunk(self, chunk: VcfChunk) -> dict:
-        """Upload the chunk and enqueue annotate + hash without waiting."""
-        batch = chunk.batch
-        dev = [to_device(x, self.device) for x in batch]
-        return {
-            "ann": annotate_fn(self.device)(*dev),
-            "h": allele_hash(dev[2], dev[3], dev[4], dev[5]),
-        }
+        """Upload the chunk and enqueue annotate + hash without waiting
+        (one kernel launch on a card; the plain versions on the CPU)."""
+        dev = [to_device(x, self.device) for x in chunk.batch]
+        ann, h = annotate_hash_fn(self.device)(*dev)
+        return {"ann": ann, "h": h}
 
     def _consume_entry(self, entry, alg_id, commit, resume_line, mapping_fh,
                        fail_at, persist, path, test) -> bool:

@@ -6,6 +6,12 @@ whole batch: normalization, end location, variant class and bin index.
 runs the hand-written kernel (``ops/annotate_cuda.py``).  ``annotate_fn``
 picks the kernel for a CUDA device and the plain version for the CPU.
 
+The insert load also needs each row's allele-identity hash, which the
+reference computes in a second device step.  ``annotate_hash_fn`` returns
+the annotate step together with the hash: on a CUDA device one launch of
+the fused kernel computes both; on the CPU the plain annotate step and the
+plain ``ops/hashing.py::allele_hash``.
+
 Calls are asynchronous on CUDA: the kernel is enqueued on the current
 stream and the caller's host work overlaps it until a result is copied
 back — the loader does that one chunk behind dispatch.
@@ -19,6 +25,7 @@ import torch
 
 from annotatedvdb_tpu_torch.ops.annotate import annotate_kernel
 from annotatedvdb_tpu_torch.ops.binindex import bin_index_kernel
+from annotatedvdb_tpu_torch.ops.hashing import allele_hash
 from annotatedvdb_tpu_torch.types import AnnotatedBatch
 
 
@@ -46,14 +53,29 @@ def annotate_pipeline(chrom, pos, ref, alt, ref_len, alt_len) -> AnnotatedBatch:
     )
 
 
-def annotate_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len) -> AnnotatedBatch:
-    """Same step through the fused CUDA kernel (CUDA tensors only)."""
+def annotate_hash_pipeline(chrom, pos, ref, alt, ref_len, alt_len) -> tuple:
+    """Plain annotate step and plain allele hash: ``(AnnotatedBatch, [N]
+    int64 hash)``."""
+    return (annotate_pipeline(chrom, pos, ref, alt, ref_len, alt_len),
+            allele_hash(ref, alt, ref_len, alt_len))
+
+
+def annotate_hash_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len) -> tuple:
+    """Annotate step and allele hash from one launch of the fused CUDA
+    kernel (CUDA tensors only): ``(AnnotatedBatch, [N] int32 hash bits)``."""
     from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
 
     del chrom
     if ref.device.type != "cuda":
         raise ValueError(f"annotate_pipeline_cuda needs CUDA tensors, got {ref.device}")
-    return AnnotatedBatch(**annotate_bin(pos, ref, alt, ref_len, alt_len))
+    out = annotate_bin(pos, ref, alt, ref_len, alt_len)
+    h = out.pop("allele_hash")
+    return AnnotatedBatch(**out), h
+
+
+def annotate_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len) -> AnnotatedBatch:
+    """Same step through the fused CUDA kernel (CUDA tensors only)."""
+    return annotate_hash_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len)[0]
 
 
 #: fields whose parity is required on every row; the others only where
@@ -77,16 +99,20 @@ def parity_mismatches(want: AnnotatedBatch, got: AnnotatedBatch) -> list:
 
 
 def verify_cuda_kernel(device: torch.device) -> None:
-    """Warm-up check: the kernel against the plain version on a probe
-    batch, on the card.  Raises on a mismatch; an exception from the build
-    or the launch propagates unchanged."""
+    """Warm-up check: the kernel on the card against the plain version on
+    the host, on a probe batch of 257 rows at width 49 (two full tiles and
+    a ragged one).  The annotate fields must keep the selection contract
+    and the hash must agree on every row.  Raises on a mismatch; an
+    exception from the build or the launch propagates unchanged."""
     from annotatedvdb_tpu_torch.io.synth import synthetic_batch
 
-    probe = synthetic_batch(256, width=16)
-    args = [torch.from_numpy(x).to(device) for x in probe]
-    want = annotate_pipeline(*args)
-    got = annotate_pipeline_cuda(*args)
+    probe = [torch.from_numpy(x) for x in synthetic_batch(257, width=49)]
+    want, want_h = annotate_hash_pipeline(*probe)
+    got, got_h = annotate_hash_pipeline_cuda(*(x.to(device) for x in probe))
+    got = AnnotatedBatch(*(x.cpu() for x in got))
     bad = parity_mismatches(want, got)
+    if not torch.equal(got_h.cpu().to(torch.int64) & 0xFFFFFFFF, want_h):
+        bad.append("allele_hash")
     if bad:
         raise RuntimeError(
             f"annotate_bin kernel disagrees with the plain version on the "
@@ -98,6 +124,18 @@ _VERIFIED: set = set()
 _VERIFY_LOCK = threading.Lock()
 
 
+def _verified(device: torch.device) -> torch.device:
+    """``device`` once :func:`verify_cuda_kernel` has passed on it (checked
+    once per process and device)."""
+    key = str(device)
+    if key not in _VERIFIED:
+        with _VERIFY_LOCK:
+            if key not in _VERIFIED:
+                verify_cuda_kernel(device)
+                _VERIFIED.add(key)
+    return device
+
+
 def annotate_fn(device: torch.device):
     """The annotate step for ``device``: the CUDA kernel (checked once per
     process and device by :func:`verify_cuda_kernel`) on a CUDA device,
@@ -107,11 +145,19 @@ def annotate_fn(device: torch.device):
         return annotate_pipeline
     if device.type != "cuda":
         raise ValueError(f"no annotate step for device {device}")
-    key = str(device)
-    if key not in _VERIFIED:
-        with _VERIFY_LOCK:
-            if key not in _VERIFIED:
-                verify_cuda_kernel(device)
-                _VERIFIED.add(key)
+    _verified(device)
     return annotate_pipeline_cuda
 
+
+def annotate_hash_fn(device: torch.device):
+    """The annotate step plus the allele hash for ``device``: one launch of
+    the fused kernel (checked as in :func:`annotate_fn`) on a CUDA device,
+    the plain versions on the CPU.  Each returns ``(AnnotatedBatch,
+    hash)``; ``ops.hashing.to_uint32`` reads either hash to the host."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return annotate_hash_pipeline
+    if device.type != "cuda":
+        raise ValueError(f"no annotate step for device {device}")
+    _verified(device)
+    return annotate_hash_pipeline_cuda

@@ -6,6 +6,8 @@ at first use, never at import, into ``build/kernels/`` at the root of the
 checkout; the library name carries a digest of the source and the flags,
 so an edited source rebuilds and a stale library is never loaded.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
+``defines`` (``-D`` macros) build a design variant of a source into a
+library of its own; the port itself always loads the plain build.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,14 +46,18 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def library_path(name: str) -> str:
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> str:
     """Where ``name``'s library lives for the current source and flags."""
     with open(os.path.join(CSRC_DIR, KERNELS[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(defines)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:16]}.so")
 
 
-def build(names=None) -> dict:
+def build(names=None, defines=()) -> dict:
     """Compile every missing library among ``names`` (default: all), one
     ``nvcc`` process per source started together.  Returns
     ``{name: compiler log}`` for the libraries built by this call (the
@@ -61,12 +67,12 @@ def build(names=None) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if os.path.exists(out):
             continue
         tmp = f"{out}.tmp{os.getpid()}"
         procs[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+            [_nvcc(), *_flags(defines), "-o", tmp,
              os.path.join(CSRC_DIR, KERNELS[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -84,11 +90,12 @@ def build(names=None) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            build([name])
-            lib = _loaded[name] = ctypes.CDLL(library_path(name))
+            build([name], defines)
+            lib = _loaded[key] = ctypes.CDLL(library_path(name, defines))
         return lib

@@ -9,7 +9,10 @@ never a wrong answer.
 torch's uint32 arithmetic is partial, so the state is int64 masked to 32
 bits after every step (``(h ^ b) < 2**32`` and the prime is below
 ``2**25``, so the product never leaves int64), and the result comes back
-to the host as a uint32 numpy array.
+to the host as a uint32 numpy array.  On the card the insert load takes
+the hash from the fused ``annotate_bin`` kernel (``ops/annotate_cuda.py``),
+which returns it as the uint32's bits in an int32 tensor; this function is
+its plain version and the CPU path.
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ FNV_OFFSET = 2166136261
 FNV_PRIME = 16777619
 _MASK32 = 0xFFFFFFFF
 
+#: calls of :func:`allele_hash` by device type, so a run can show that its
+#: card path never fell back to the plain hash
+CALLS = {"cpu": 0, "cuda": 0}
+
 
 def allele_hash(ref, alt, ref_len, alt_len) -> torch.Tensor:
     """[N] int64 tensor holding the uint32 hash of each allele identity.
@@ -28,6 +35,8 @@ def allele_hash(ref, alt, ref_len, alt_len) -> torch.Tensor:
     Pad bytes are zeros and lengths are hashed first, so e.g. ref 'AA' /
     alt 'A' and ref 'A' / alt 'AA' hash differently even though their
     padded concatenations match."""
+    kind = ref.device.type
+    CALLS[kind] = CALLS.get(kind, 0) + 1
     h = torch.full(ref.shape[:1], FNV_OFFSET, dtype=torch.int64,
                    device=ref.device)
 
@@ -43,6 +52,16 @@ def allele_hash(ref, alt, ref_len, alt_len) -> torch.Tensor:
     return h
 
 
+def hash_bits(h: torch.Tensor) -> torch.Tensor:
+    """int32 tensor of the bits of :func:`allele_hash`'s uint32 values, the
+    dtype the kernel returns."""
+    return (h - ((h >> 31) << 32)).to(torch.int32)
+
+
 def to_uint32(h: torch.Tensor) -> np.ndarray:
-    """Host uint32 array from :func:`allele_hash`'s int64 tensor."""
-    return h.cpu().numpy().astype(np.uint32)
+    """Host uint32 array from :func:`allele_hash`'s int64 tensor or the
+    kernel's int32 bits."""
+    host = h.cpu().numpy()
+    if host.dtype == np.int32:
+        return host.view(np.uint32).copy()
+    return host.astype(np.uint32)

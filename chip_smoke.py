@@ -7,14 +7,19 @@ checks it, phase by phase, each phase printing one JSON line:
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``;
 3. kernels  — each kernel against its plain PyTorch version on the card
-              (seeded edge rows + 1,048,576 random rows, exact under the
-              selection contract), and its time at the load's chunk shape
-              (65,536 rows, W = 49) beside the plain version's and the
-              memory bound;
+              (seeded edge rows at W = 16, 49 and 96, 1,048,576 random
+              rows, a ragged last tile and unaligned bases; exact under
+              the selection contract, the allele hash exact on every
+              row), and its time at the load's chunk shape (65,536 rows,
+              W = 49) and at 1,048,576 rows beside the plain version's
+              and the memory bound; then the plain allele hash alone on
+              the card, the work the fused kernel took over;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
-              CLI's ``main``), with every kernel launch counter reset just
-              before and read just after;
+              CLI's ``main``), with every kernel launch counter and the
+              plain hash's call counter reset just before and read just
+              after (the card path must never call the plain hash), and
+              the loader's stage seconds;
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
@@ -29,6 +34,7 @@ checkout around this file; run as ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -42,6 +48,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 WIDTH = 49
 CHUNK_ROWS = 65_536
+BIG_ROWS = 1 << 20
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores
 
@@ -101,7 +108,7 @@ def random_batch(seed, n, width, over_frac=0.05):
     kind = rng.integers(0, 7, n)
     ref = bases[rng.integers(0, 4, (n, width))]
     alt = bases[rng.integers(0, 4, (n, width))]
-    span = rng.integers(2, width, n).astype(np.int32)
+    span = rng.integers(2, max(width, 3), n).astype(np.int32)
     rl = np.ones(n, np.int32)
     al = np.ones(n, np.int32)
     rl = np.where((kind == 1) | (kind == 2) | (kind == 5), span, rl)
@@ -251,15 +258,84 @@ def write_phase5_vcf(path, n_lines, old_lines, old_rows, seed=5):
 # ---------------------------------------------------------------- phases
 
 
+def offset_copy(torch, x, device, offset):
+    """``x`` on the card as a contiguous view ``offset`` elements into a
+    larger buffer: a non-zero storage offset, so an unaligned base."""
+    flat = torch.zeros(x.size + offset, dtype=torch.from_numpy(x[:0]).dtype,
+                       device=device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+    return view
+
+
+def annotate_bound(torch, fields, pos, ref, alt, rl, al, prefix):
+    """Bytes the fused step must move (inputs read once, outputs written
+    once) and the integer operations these inputs need: the scans' byte
+    compares up to where they stop, the hash's xor and multiply per byte,
+    and a fixed per-row epilogue."""
+    n, w = ref.shape
+    out_bytes = sum(torch.empty((), dtype=d).element_size() for _, d in fields)
+    nbytes = n * (2 * w + 12) + n * out_bytes
+    rlw = np.minimum(rl, w)
+    mnv = (rl == al) & ~((rl == 1) & (al == 1))
+    ops = int(n * 48 + 2 * (np.minimum(prefix + 1, w)).sum()
+              + 2 * np.where(mnv, rlw, 0).sum()
+              + 2 * np.maximum(np.minimum(rlw - 1, w), 0).sum()
+              + 2 * (2 * w + 2) * n)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": n, "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _run(fn, inputs, iters):
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+
+
+def call_ms(torch, fn, inputs, iters):
+    """Device-timeline time per call between CUDA events, cycling through
+    the ``inputs`` sets: the kernel plus any gap the host's launch
+    overhead leaves between calls."""
+    _run(fn, inputs, 2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _run(fn, inputs, iters)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(torch, fn, inputs, iters):
+    """Summed device time of every kernel a call launches (profiler), per
+    call; None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _run(fn, inputs, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _run(fn, inputs, iters)
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages())
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
 def kernel_phase(torch, device):
     """Phase 3: every kernel against its plain version; returns the kernel
     table rows (launches filled in after phase 4)."""
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
     from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        EVERY_ROW,
         FIELDS,
         annotate_bin,
         annotate_bin_reference,
     )
+    from annotatedvdb_tpu_torch.ops.hashing import allele_hash
 
     def to_dev(args):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in args]
@@ -274,7 +350,7 @@ def kernel_phase(torch, device):
             a = want[name].to(torch.int64)
             b = got[name].to(torch.int64)
             diff = (a - b).abs()
-            if name not in ("host_fallback", "needs_digest"):
+            if name not in EVERY_ROW:
                 diff = torch.where(ok, diff, torch.zeros_like(diff))
             err = int(diff.max()) if diff.numel() else 0
             worst = max(worst, err)
@@ -282,14 +358,23 @@ def kernel_phase(torch, device):
                 bad.append(name)
         return worst, bad, want
 
+    big = [random_batch(3, BIG_ROWS, WIDTH), random_batch(4, BIG_ROWS, WIDTH)]
+    unaligned = random_batch(6, CHUNK_ROWS, WIDTH)
     checks = []
     for label, args in (
-        ("edge-w16", edge_batch(16)), ("edge-w49", edge_batch(WIDTH)),
-        ("edge-w96", edge_batch(96)),
-        ("random-1m-w49", random_batch(3, 1 << 20, WIDTH)),
+        ("edge-w16", to_dev(edge_batch(16))),
+        ("edge-w49", to_dev(edge_batch(WIDTH))),
+        ("edge-w96", to_dev(edge_batch(96))),
+        ("random-1m-w49", to_dev(big[0])),
+        ("ragged-65537-w49", to_dev(random_batch(5, CHUNK_ROWS + 1, WIDTH))),
+        # ref and alt at byte offsets 3 and 7, the scalars one element in
+        ("unaligned-65536-w49", [
+            offset_copy(torch, x, device, off)
+            for x, off in zip(unaligned, (1, 3, 7, 1, 1))]),
     ):
-        worst, bad, want = compare(to_dev(args))
+        worst, bad, want = compare(args)
         checks.append({"inputs": label, "rows": int(args[0].shape[0]),
+                       "storage_offsets": [int(a.storage_offset()) for a in args],
                        "max_abs_err": worst, "mismatched": bad,
                        "host_fallback_rows": int(want["host_fallback"].sum())})
         if bad:
@@ -297,87 +382,93 @@ def kernel_phase(torch, device):
                                  f"version on {label}: {bad}")
     # the annotate step's own warm-up check (kernel vs plain on a probe
     # batch) runs here, before the launch counters are reset for phase 4
-    annotate_fn(device)
+    annotate_hash_fn(device)
 
-    # timing at the load's chunk shape; ten distinct input sets (> 50 MB
-    # of L2) so each launch reads its inputs from device memory
+    # timing at the load's chunk shape on ten distinct input sets (> 50 MB
+    # of L2, so each launch reads its inputs from device memory), and at
+    # 1,048,576 rows on two sets of 115 MB each
     sets = [to_dev(random_batch(10 + i, CHUNK_ROWS, WIDTH)) for i in range(10)]
+    big_sets = [to_dev(b) for b in big]
+    del big
 
-    def warm(fn):
-        for args in sets[:2]:
-            fn(*args)
-        torch.cuda.synchronize()
+    def timed(order, inputs):
+        """``order`` of (name, fn, iters), in turns; per name, the runs'
+        device and call ms."""
+        runs = {}
+        for name, fn, iters in order:
+            runs.setdefault(name, []).append({
+                "device_ms": device_ms(torch, fn, inputs, iters),
+                "call_ms": call_ms(torch, fn, inputs, iters)})
+        return runs
 
-    def call_ms(fn, iters):
-        """Device-timeline time per call between CUDA events: the kernel
-        plus any gap the host's launch overhead leaves between calls."""
-        warm(fn)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(iters):
-            fn(*sets[i % len(sets)])
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / iters
+    def best(runs):
+        dev = [r["device_ms"] for r in runs if r["device_ms"] is not None]
+        return min(dev) if dev else min(r["call_ms"] for r in runs)
 
-    def device_ms(fn, iters):
-        """Summed device time of every kernel a call launches (profiler),
-        per call; None when the profiler sees no device time."""
-        from torch.profiler import ProfilerActivity, profile
-
-        warm(fn)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*sets[i % len(sets)])
-            torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in prof.key_averages())
-        return total_us / 1e3 / iters if total_us > 0 else None
+    def plain_hash(pos, ref, alt, rl, al):
+        return allele_hash(ref, alt, rl, al)
 
     # in turns: plain, kernel, kernel, plain
-    runs = {"plain": [], "kernel": []}
-    for name, fn, iters in (
-        ("plain", annotate_bin_reference, 20), ("kernel", annotate_bin, 200),
-        ("kernel", annotate_bin, 200), ("plain", annotate_bin_reference, 20),
-    ):
-        runs[name].append({"device_ms": device_ms(fn, iters),
-                           "call_ms": call_ms(fn, iters)})
+    runs = timed((("plain", annotate_bin_reference, 20),
+                  ("kernel", annotate_bin, 200), ("kernel", annotate_bin, 200),
+                  ("plain", annotate_bin_reference, 20)), sets)
+    runs_big = timed((("plain", annotate_bin_reference, 4),
+                      ("kernel", annotate_bin, 50), ("kernel", annotate_bin, 50),
+                      ("plain", annotate_bin_reference, 4)), big_sets)
+    hash_runs = timed((("plain_hash", plain_hash, 20),
+                       ("plain_hash", plain_hash, 20)), sets)["plain_hash"]
 
-    def best(name):
-        dev = [r["device_ms"] for r in runs[name] if r["device_ms"] is not None]
-        return min(dev) if dev else min(r["call_ms"] for r in runs[name])
+    def bound(inputs):
+        host = [x.cpu().numpy() for x in inputs]
+        prefix = annotate_bin_reference(*inputs)["prefix_len"].cpu().numpy()
+        return annotate_bound(torch, FIELDS, *host, prefix.astype(np.int64))
 
-    # the bound: bytes each row must move (inputs read once, outputs
-    # written once) and the compare/scalar operations these inputs need
-    pos, ref, alt, rl, al = (x.cpu().numpy() for x in sets[0])
-    out = annotate_bin_reference(*sets[0])
-    n = pos.shape[0]
-    out_bytes = sum(torch.empty((), dtype=d).element_size() for _, d in FIELDS)
-    nbytes = n * (2 * WIDTH + 12) + n * out_bytes
-    prefix = out["prefix_len"].cpu().numpy().astype(np.int64)
-    rlw = np.minimum(rl, WIDTH)
-    mnv = (rl == al) & ~((rl == 1) & (al == 1))
-    ops = int(n * 48 + 2 * (np.minimum(prefix + 1, WIDTH)).sum()
-              + 2 * np.where(mnv, rlw, 0).sum()
-              + 2 * np.maximum(np.minimum(rlw - 1, WIDTH), 0).sum())
-    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    b_chunk, b_big = bound(sets[0]), bound(big_sets[0])
+    ms, ms_big = best(runs["kernel"]), best(runs_big["kernel"])
+    lib = annotate_cuda._library()
     row = {
         "name": "annotate_bin", "route": "cuda",
         "source": "annotatedvdb_tpu_torch/csrc/annotate_bin.cu",
         "replaces": "annotatedvdb_tpu/ops/annotate_pallas.py:206",
         "launches": None,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": best("kernel"), "plain_ms": best("plain"),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": ms, "plain_ms": best(runs["plain"]),
+        "bound_ms": b_chunk["bound_ms"], "bound_by": b_chunk["bound_by"],
         "library_ms": None,
     }
-    emit("kernels", checks=checks, rows_timed=n, width=WIDTH,
-         timing_runs=runs,
-         bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    emit("kernels", checks=checks, width=WIDTH,
+         tile_rows=lib.annotate_bin_tile_rows(),
+         blocks_per_sm=lib.annotate_bin_blocks_per_sm(WIDTH),
+         chunk={**b_chunk, "ms": ms, "bound_share": b_chunk["bound_ms"] / ms,
+                "timing_runs": runs},
+         big={**b_big, "ms": ms_big, "plain_ms": best(runs_big["plain"]),
+              "bound_share": b_big["bound_ms"] / ms_big,
+              "timing_runs": runs_big})
+    emit("plain_hash", rows=CHUNK_ROWS, width=WIDTH, ms=best(hash_runs),
+         timing_runs=hash_runs)
     return [row]
+
+
+@contextlib.contextmanager
+def loader_stages(sink):
+    """Collect the stage seconds of every VcfLoader.load_file call made
+    inside into ``sink`` (the CLI builds its loader itself)."""
+    from annotatedvdb_tpu_torch.loaders.vcf_loader import VcfLoader
+
+    original = VcfLoader.load_file
+
+    def load_file(self, *args, **kwargs):
+        try:
+            return original(self, *args, **kwargs)
+        finally:
+            for name, sec in self.timer.seconds.items():
+                sink[name] = sink.get(name, 0.0) + sec
+
+    VcfLoader.load_file = load_file
+    try:
+        yield sink
+    finally:
+        VcfLoader.load_file = original
 
 
 def ledger_records(store_dir, kind):
@@ -406,10 +497,11 @@ def store_bytes(store_dir):
     return out
 
 
-def load_phases(torch, platform, n4, n5, n6, launches) -> dict:
+def load_phases(torch, platform, n4, n5, n6, launches, hash_calls) -> dict:
     """Phases 4-6 on ``platform`` ("cuda" on the card; "cpu" rehearses the
-    same control flow at a small size).  ``launches`` is the kernel launch
-    counter dict, already reset; it is read right after the phase-4 load.
+    same control flow at a small size).  ``launches`` (the kernel launch
+    counters) and ``hash_calls`` (the plain hash's calls by device type)
+    are already reset; both are read right after the phase-4 load.
     Raises AssertionError on any failed check."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.loaders import VcfLoader
@@ -442,11 +534,12 @@ def load_phases(torch, platform, n4, n5, n6, launches) -> dict:
     # 4. the main path: the CLI load
     store4 = os.path.join(WORK, "store")
     t0 = time.perf_counter()
-    rc = load_vcf(["--fileName", vcf4, "--storeDir", store4, "--commit",
-                   "--logAfter", "0", "--platform", platform])
+    with loader_stages({}) as stages:
+        rc = load_vcf(["--fileName", vcf4, "--storeDir", store4, "--commit",
+                       "--logAfter", "0", "--platform", platform])
     sync()
     wall = time.perf_counter() - t0
-    launched = dict(launches)
+    launched, hashed = dict(launches), dict(hash_calls)
     assert rc == 0, f"load-vcf exited {rc}"
     counters = ledger_records(store4, "finish")[-1]["counters"]
     chunks = len(ledger_records(store4, "checkpoint"))
@@ -455,6 +548,8 @@ def load_phases(torch, platform, n4, n5, n6, launches) -> dict:
          malformed=counters.get("malformed"), chunks=chunks, wall_s=wall,
          lines_per_s=counters["line"] / wall,
          variants_per_s=counters["variant"] / wall, launches=launched,
+         plain_hash_calls=hashed, dispatch_s=stages.get("dispatch"),
+         annotate_s=stages.get("annotate"), stage_seconds=stages,
          predicted_duplicates=dup4, predicted_inserts=ins4, vcf_seconds=gen_s)
     assert chunks > 0
     assert counters["line"] == n4 and counters.get("malformed") == 1, counters
@@ -512,7 +607,7 @@ def load_phases(torch, platform, n4, n5, n6, launches) -> dict:
          mapping_equal=map_dev == map_cpu, device_s=s_dev, cpu_s=s_cpu)
     assert not differ and map_dev == map_cpu, (
         f"device and CPU stores differ in {differ or ['mapping']}")
-    return {"launches": launched, "chunks": chunks}
+    return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks}
 
 
 def main() -> int:
@@ -522,7 +617,7 @@ def main() -> int:
         return fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
     sys.path.insert(0, ROOT)
     try:
-        from annotatedvdb_tpu_torch.ops import annotate_cuda, build
+        from annotatedvdb_tpu_torch.ops import annotate_cuda, build, hashing
         from annotatedvdb_tpu_torch.runtime import resolve_device
     except ImportError as err:
         return fail(f"the annotatedvdb_tpu_torch package is not beside this "
@@ -552,16 +647,21 @@ def main() -> int:
         # 3. kernels against their plain versions
         table = kernel_phase(torch, device)
         # 4-6. the load, the probed reload and the card-vs-CPU parity
-        for name in annotate_cuda.LAUNCHES:
-            annotate_cuda.LAUNCHES[name] = 0
+        for counts in (annotate_cuda.LAUNCHES, hashing.CALLS):
+            for name in counts:
+                counts[name] = 0
         results = load_phases(torch, "cuda", 2_000_000, 500_000, 50_000,
-                              launches=annotate_cuda.LAUNCHES)
+                              launches=annotate_cuda.LAUNCHES,
+                              hash_calls=hashing.CALLS)
     except AssertionError as err:
         return fail(str(err))
     table[0]["launches"] = results["launches"]["annotate_bin"]
     if results["launches"]["annotate_bin"] < results["chunks"]:
         return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
                     f" times for {results['chunks']} chunks")
+    if results["plain_hash_calls"].get("cuda"):
+        return fail(f"the load called the plain allele_hash on the card "
+                    f"{results['plain_hash_calls']['cuda']} times")
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

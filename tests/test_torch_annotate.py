@@ -4,10 +4,12 @@
 plain version the CUDA kernel is held against on the card) versus the
 reference's ``annotate_kernel_jit``, its numpy twin ``annotate_kernel_np``
 and the Pallas kernel ``annotate_bin_pallas`` in interpret mode (as
-``tests/test_annotate_pallas.py`` runs it).  Inputs come from numpy with
-a seed; the comparison is exact (tolerance 0) under the selection
-contract: ``host_fallback`` and ``needs_digest`` on every row, the other
-fields where ``host_fallback`` is False.
+``tests/test_annotate_pallas.py`` runs it), followed by the reference's
+next device step, ``allele_hash_jit``, and its twin ``allele_hash_np``.
+Inputs come from numpy with a seed; the comparison is exact (tolerance 0)
+under the selection contract: ``host_fallback``, ``needs_digest`` and
+``allele_hash`` on every row, the other fields where ``host_fallback`` is
+False.
 """
 
 import numpy as np
@@ -17,21 +19,21 @@ import torch
 from annotatedvdb_tpu.ops.annotate import annotate_kernel_jit, annotate_kernel_np
 from annotatedvdb_tpu.ops.annotate_pallas import annotate_bin_pallas
 from annotatedvdb_tpu.ops.binindex import bin_index_kernel_jit
+from annotatedvdb_tpu.ops.hashing import allele_hash_jit, allele_hash_np
 from annotatedvdb_tpu.types import VariantBatch
 
 from annotatedvdb_tpu_torch.models.pipeline import annotate_fn, annotate_pipeline
 from annotatedvdb_tpu_torch.ops.annotate import annotate_kernel
 from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+    EVERY_ROW,
     FIELDS,
     LAUNCHES,
     annotate_bin,
     annotate_bin_reference,
 )
+from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from test_annotate import HARD_VARIANTS
 from test_annotate_pallas import EDGE_VARIANTS
-
-EVERY_ROW = ("host_fallback", "needs_digest")
-
 
 def _random_batch(seed: int, n: int, width: int, over_frac: float = 0.05):
     """Seeded [n, width] batch of SNV / MNV / inversion / insertion /
@@ -83,6 +85,20 @@ def _random_batch(seed: int, n: int, width: int, over_frac: float = 0.05):
     return pos, ref, alt, rl, al
 
 
+def _long_batch(seed: int, n: int, width: int):
+    """:func:`_random_batch` with a quarter of the rows given true lengths
+    of 250-700 (over-width, and past 255 so only ``len & 0xFF`` reaches the
+    hash)."""
+    pos, ref, alt, rl, al = _random_batch(seed, n, width)
+    rng = np.random.default_rng(seed + 1000)
+    long_ref = rng.random(n) < 0.25
+    long_alt = rng.random(n) < 0.25
+    rl = np.where(long_ref, rng.integers(250, 700, n), rl).astype(np.int32)
+    al = np.where(long_alt, rng.integers(250, 700, n), al).astype(np.int32)
+    rl[:3], al[:3] = [255, 256, 511], [256, 257, 1]
+    return pos, ref, alt, rl, al
+
+
 def _reference_outputs(pos, ref, alt, rl, al):
     jit = {k: np.asarray(v) for k, v in
            annotate_kernel_jit(pos, ref, alt, rl, al).items()}
@@ -118,6 +134,10 @@ CASES = [
     ("random-w8", lambda: _random_batch(1, 512, 8)),
     ("random-w16", lambda: _random_batch(2, 512, 16)),
     ("random-w49", lambda: _random_batch(3, 512, 49)),
+    ("random-w1", lambda: _random_batch(5, 300, 1)),
+    ("random-w96", lambda: _random_batch(6, 300, 96)),
+    ("long-w8", lambda: _long_batch(7, 300, 8)),
+    ("long-w49", lambda: _long_batch(8, 300, 49)),
 ]
 
 
@@ -133,13 +153,21 @@ def test_annotate_kernel_matches_jit_and_numpy_twin(name, make):
 
 @pytest.mark.parametrize("name,make", CASES, ids=[c[0] for c in CASES])
 def test_annotate_bin_reference_matches_pallas_interpret(name, make):
+    """The 13 outputs of the plain version against the Pallas kernel plus
+    the reference's hash (its jitted kernel and its numpy twin)."""
     args = make()
+    _pos, ref, alt, rl, al = args
     pal = {k: np.asarray(v) for k, v in annotate_bin_pallas(
         *args, block_n=128, interpret=True).items()}
-    got = {k: v.numpy() for k, v in annotate_bin_reference(*_torch_args(*args)).items()}
-    assert list(got) == [f for f, _ in FIELDS]
+    pal["allele_hash"] = np.asarray(allele_hash_jit(ref, alt, rl, al))
+    twin = _reference_outputs(*args)
+    twin["allele_hash"] = allele_hash_np(ref, alt, rl, al)
+    out = annotate_bin_reference(*_torch_args(*args))
+    assert [(k, v.dtype) for k, v in out.items()] == list(FIELDS)
+    got = {k: v.numpy() for k, v in out.items()}
+    got["allele_hash"] = to_uint32(out["allele_hash"])
     _assert_contract(pal, got, [f for f, _ in FIELDS])
-    _assert_contract(_reference_outputs(*args), got, [f for f, _ in FIELDS])
+    _assert_contract(twin, got, [f for f, _ in FIELDS])
 
 
 def test_wrapper_takes_plain_version_on_cpu_tensors():

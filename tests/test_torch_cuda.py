@@ -6,17 +6,24 @@ hence ``--noconftest``)::
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 The kernel is held against its plain PyTorch version on the same CUDA
-tensors, exactly (tolerance 0) under the selection contract, and the
-wrapper's refusals are checked.  ``chip_smoke.py`` runs the same
-comparison at the load's real sizes."""
+tensors, exactly (tolerance 0) under the selection contract, with the
+allele hash exact on every row, over the copy paths of its staging: full
+tiles, a ragged last tile, a single row, unaligned bases (tensors with a
+storage offset), width 1 and the widest width it takes.  The wrapper's
+refusals are checked, and the load's dispatch on the card is shown to take
+the hash from the kernel.  ``chip_smoke.py`` runs the same comparison at
+the load's real sizes."""
 
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from annotatedvdb_tpu_torch.ops import hashing
 from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+    EVERY_ROW,
     FIELDS,
     LAUNCHES,
     MAX_WIDTH,
@@ -36,23 +43,58 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("width", [8, 16, 49, 96])
-@pytest.mark.parametrize("inputs", ["edge", "random"])
-def test_kernel_matches_plain_version(cuda, inputs, width):
-    rows = edge_batch(width) if inputs == "edge" else random_batch(width, 4099, width)
-    args = [torch.from_numpy(x).to(cuda) for x in rows]
+def _offset_copy(x: np.ndarray, device, offset: int) -> torch.Tensor:
+    """``x`` on the card as a contiguous view ``offset`` elements into a
+    larger buffer (a non-zero storage offset, an unaligned base)."""
+    flat = torch.zeros(x.size + offset, dtype=torch.from_numpy(x[:0]).dtype,
+                       device=device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+def _assert_kernel_matches(args):
     before = LAUNCHES["annotate_bin"]
     got = annotate_bin(*args)
     want = annotate_bin_reference(*args)
     torch.cuda.synchronize()
     assert LAUNCHES["annotate_bin"] == before + 1
     ok = ~want["host_fallback"]
+    assert list(got) == [name for name, _ in FIELDS]
     for name, dtype in FIELDS:
         assert got[name].dtype == dtype
-        if name in ("host_fallback", "needs_digest"):
+        if name in EVERY_ROW:
             assert torch.equal(got[name], want[name]), name
         else:
             assert torch.equal(got[name][ok], want[name][ok]), name
+
+
+@pytest.mark.parametrize("width", [1, 8, 16, 49, 96, MAX_WIDTH])
+@pytest.mark.parametrize("inputs", ["edge", "random"])
+def test_kernel_matches_plain_version(cuda, inputs, width):
+    rows = edge_batch(width) if inputs == "edge" else random_batch(width, 4099, width)
+    _assert_kernel_matches([torch.from_numpy(x).to(cuda) for x in rows])
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 65_537])
+def test_kernel_ragged_last_tile(cuda, rows):
+    _assert_kernel_matches([torch.from_numpy(x).to(cuda)
+                            for x in random_batch(rows, rows, 49)])
+
+
+@pytest.mark.parametrize("width", [1, 49, 96])
+@pytest.mark.parametrize("offsets", [(1, 3, 7), (0, 5, 16), (2, 15, 1)])
+def test_kernel_unaligned_bases(cuda, width, offsets):
+    """ref and alt start at byte offsets of their own (so the bulk copies'
+    heads and tails differ between them); the scalars too."""
+    scalar_off, ref_off, alt_off = offsets
+    pos, ref, alt, rl, al = random_batch(17 + width, 1000, width)
+    _assert_kernel_matches([
+        _offset_copy(pos, cuda, scalar_off), _offset_copy(ref, cuda, ref_off),
+        _offset_copy(alt, cuda, alt_off), _offset_copy(rl, cuda, scalar_off),
+        _offset_copy(al, cuda, scalar_off),
+    ])
 
 
 def test_wrapper_refuses_bad_inputs(cuda):
@@ -67,3 +109,21 @@ def test_wrapper_refuses_bad_inputs(cuda):
         annotate_bin(pos, wide, wide, rl, al)
     empty = annotate_bin(pos[:0], ref[:0], alt[:0], rl[:0], al[:0])
     assert all(v.numel() == 0 for v in empty.values())
+
+
+def test_dispatch_takes_the_hash_from_the_kernel(cuda):
+    """The load's annotate-and-hash step on the card: one launch, no call
+    of the plain hash, the same uint32 values as the plain hash."""
+    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+
+    batch = synthetic_batch(3000, width=49)
+    fn = annotate_hash_fn(cuda)
+    calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+    ann, h = fn(*(torch.from_numpy(x).to(cuda) for x in batch))
+    torch.cuda.synchronize()
+    assert hashing.CALLS == calls
+    assert LAUNCHES["annotate_bin"] == launches + 1
+    want = hashing.allele_hash(*(torch.from_numpy(x) for x in batch[2:]))
+    np.testing.assert_array_equal(hashing.to_uint32(h), hashing.to_uint32(want))
+    assert ann.bin_level.device.type == "cuda"

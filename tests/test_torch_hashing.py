@@ -3,7 +3,9 @@
 ``ops.hashing.allele_hash`` (int64 torch state masked to 32 bits) versus
 ``allele_hash_np`` and ``allele_hash_jit`` on seeded allele matrices,
 lengths above 255 included (only ``len & 0xFF`` is hashed).  Exact
-comparison (tolerance 0)."""
+comparison (tolerance 0).  Also: the int32 bit form the fused CUDA kernel
+returns reads back to the same uint32 values, and on CPU tensors the
+loader's dispatch still computes the hash with the plain version."""
 
 import numpy as np
 import pytest
@@ -11,7 +13,7 @@ import torch
 
 from annotatedvdb_tpu.ops.hashing import allele_hash_jit, allele_hash_np
 
-from annotatedvdb_tpu_torch.ops.hashing import allele_hash, to_uint32
+from annotatedvdb_tpu_torch.ops.hashing import CALLS, allele_hash, hash_bits, to_uint32
 
 
 def _alleles(seed: int, n: int, width: int):
@@ -25,7 +27,7 @@ def _alleles(seed: int, n: int, width: int):
     return ref, alt, rl, al
 
 
-@pytest.mark.parametrize("width", [1, 8, 49])
+@pytest.mark.parametrize("width", [1, 8, 49, 96])
 def test_allele_hash_matches_numpy_and_jit(width):
     ref, alt, rl, al = _alleles(width, 1000, width)
     got = to_uint32(allele_hash(*(torch.from_numpy(x) for x in (ref, alt, rl, al))))
@@ -40,3 +42,44 @@ def test_length_byte_wraps_at_256():
                               torch.tensor([3, 259], dtype=torch.int32),
                               torch.tensor([1, 1], dtype=torch.int32)))
     assert h[0] == h[1]
+
+
+@pytest.mark.parametrize("width", [1, 49])
+def test_hash_bits_read_back_as_the_same_uint32(width):
+    ref, alt, rl, al = _alleles(100 + width, 500, width)
+    h = allele_hash(*(torch.from_numpy(x) for x in (ref, alt, rl, al)))
+    bits = hash_bits(h)
+    assert bits.dtype == torch.int32
+    want = allele_hash_np(ref, alt, rl, al)
+    assert (want >= 2**31).any() and (want < 2**31).any()
+    np.testing.assert_array_equal(to_uint32(bits), want)
+    np.testing.assert_array_equal(bits.numpy().view(np.uint32), want)
+
+
+def test_cpu_dispatch_calls_the_plain_hash(tmp_path):
+    """On CPU tensors the loader's dispatch takes the hash from the plain
+    ``allele_hash`` (one call per chunk) and never launches the kernel."""
+    from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import LAUNCHES
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    vcf = tmp_path / "mini.vcf"
+    rows = ["##fileformat=VCFv4.2",
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"]
+    rows += [f"1\t{100 + 7 * i}\trs{i}\t{'ACGT'[i % 4]}\t{'CGTA'[i % 4]}"
+             f"{'A' * (i % 3)}\t.\t.\t." for i in range(40)]
+    rows.append(f"1\t1000\t.\tA{'C' * 70}\tA\t.\t.\t.")  # over the width
+    vcf.write_text("\n".join(rows) + "\n")
+    loader = VcfLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
+                       log=lambda *a: None, device="cpu")
+    chunk = next(iter(VcfBatchReader(str(vcf), batch_size=64, width=49)))
+    before, launches = dict(CALLS), dict(LAUNCHES)
+    handles = loader._dispatch_chunk(chunk)
+    assert CALLS["cpu"] == before["cpu"] + 1
+    assert CALLS["cuda"] == before["cuda"] and LAUNCHES == launches
+    b = chunk.batch
+    np.testing.assert_array_equal(
+        to_uint32(handles["h"]),
+        allele_hash_np(b.ref, b.alt, b.ref_len, b.alt_len))
