@@ -41,7 +41,7 @@
 // The prefix and inversion scans compare four bytes a step the same way:
 // their trip counts differ from row to row, so a warp runs as long as its
 // longest row, and on mixed rows (one SNV in seven) bytewise scans set the
-// kernel's time (chip_kernel_variants.py, variant scan-bytes).
+// kernel's time.
 // The serial FNV chain (100 dependent steps at W = 49) is hidden behind
 // the other warps on the SM, not inside the thread.
 //
@@ -53,13 +53,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef AVDB_TILE_ROWS
-#define AVDB_TILE_ROWS 128
-#endif
-
 namespace {
 
-constexpr int kTileRows = AVDB_TILE_ROWS;  // rows per tile = threads per block
+constexpr int kTileRows = 128;  // rows per tile = threads per block
 constexpr int kStages = 2;
 constexpr int kMaxWidth = 192;
 // per allele buffer: the 0..15-byte alignment shift, the tile, and the
@@ -249,9 +245,6 @@ __device__ __forceinline__ uint32_t word_at(const uint8_t* smem,
 // aligned 32-bit words and re-aligned with funnel shifts.
 __device__ __forceinline__ uint32_t fnv_row(uint32_t h, const uint8_t* smem,
                                             uint32_t off, int w) {
-#ifdef AVDB_HASH_BYTES  // design variant: one shared-memory load a byte
-  for (int i = 0; i < w; ++i) h = fnv(h, smem[off + i]);
-#else
   const uint32_t* q = reinterpret_cast<const uint32_t*>(smem) + (off >> 2);
   const uint32_t sh = (off & 3u) * 8u;
   uint32_t lo = q[0];
@@ -269,7 +262,6 @@ __device__ __forceinline__ uint32_t fnv_row(uint32_t h, const uint8_t* smem,
     uint32_t v = __funnelshift_r(lo, q[(i >> 2) + 1], sh);
     for (; i < w; ++i, v >>= 8) h = fnv(h, v & 0xFFu);
   }
-#endif
   return h;
 }
 
@@ -294,19 +286,6 @@ __device__ __forceinline__ void annotate_row(const Params& p,
   const bool snv = rlen == 1 && alen == 1;
   const bool mnv = rlen == alen && !snv;
 
-#ifdef AVDB_SCAN_BYTES  // design variant: both scans one byte a step
-  int32_t prefix = 0;
-  if (!snv) {
-    while (prefix < w && prefix < rlen && prefix < alen &&
-           r[prefix] == a[prefix]) {
-      ++prefix;
-    }
-  }
-  bool inversion = mnv;
-  for (int i = 0; inversion && i < w && i < rlen; ++i) {
-    inversion = r[i] == a[clampi(alen - 1 - i, 0, w - 1)];
-  }
-#else
   // ---- left-normalization: length of the shared leading run, four bytes
   // a step (the first differing byte ends it)
   int32_t prefix = 0;
@@ -342,7 +321,6 @@ __device__ __forceinline__ void annotate_row(const Params& p,
       inversion = r[i] == a[clampi(alen - 1 - i, 0, w - 1)];
     }
   }
-#endif
   const int32_t nr = rlen - prefix;
   const int32_t na = alen - prefix;
 
@@ -508,13 +486,13 @@ extern "C" int annotate_bin_blocks_per_sm(int w) {
   return cached;
 }
 
-// Launches on `stream` with at most `max_blocks_per_sm` blocks on each SM
-// (0 = as many as fit); returns a cudaError_t (0 = ok).  `out` receives
+// Launches on `stream` with as many blocks on each SM as fit; returns a
+// cudaError_t (0 = ok).  `out` receives
 // the 13 fields in the layout of `Word` and `Byte` above.
 extern "C" int annotate_bin_launch(const void* pos, const void* ref,
                                    const void* alt, const void* rlen,
                                    const void* alen, int n, int w, void* out,
-                                   int max_blocks_per_sm, void* stream) {
+                                   void* stream) {
   if (n <= 0 || w < 1 || w > kMaxWidth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -527,14 +505,11 @@ extern "C" int annotate_bin_launch(const void* pos, const void* ref,
                                  dev);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int per_sm = annotate_bin_blocks_per_sm(w);
+  const int per_sm = annotate_bin_blocks_per_sm(w);
   if (per_sm == 0) {
     err = cudaGetLastError();
     return static_cast<int>(err != cudaSuccess ? err
                                                : cudaErrorInvalidConfiguration);
-  }
-  if (max_blocks_per_sm > 0 && max_blocks_per_sm < per_sm) {
-    per_sm = max_blocks_per_sm;
   }
   const int ntiles = (n + kTileRows - 1) / kTileRows;
   // every block walks the same number of tiles

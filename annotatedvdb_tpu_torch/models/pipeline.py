@@ -4,13 +4,17 @@ Port of ``annotatedvdb_tpu/models/pipeline.py``.  One call annotates a
 whole batch: normalization, end location, variant class and bin index.
 ``annotate_pipeline`` is the plain-torch version; ``annotate_pipeline_cuda``
 runs the hand-written kernel (``ops/annotate_cuda.py``).  ``annotate_fn``
-picks the kernel for a CUDA device and the plain version for the CPU.
+picks the kernel for a CUDA device and the plain version for the CPU; it
+is the reference's entry point for the annotate step alone, which its VEP
+loader calls (the port's VCF loader does not).
 
 The insert load also needs each row's allele-identity hash, which the
 reference computes in a second device step.  ``annotate_hash_fn`` returns
 the annotate step together with the hash: on a CUDA device one launch of
 the fused kernel computes both; on the CPU the plain annotate step and the
-plain ``ops/hashing.py::allele_hash``.
+plain ``ops/hashing.py::allele_hash``.  Either way the hash comes back as
+the uint32 values' bits in an int32 tensor (``ops.hashing.to_uint32``
+reads it to the host).
 
 Calls are asynchronous on CUDA: the kernel is enqueued on the current
 stream and the caller's host work overlaps it until a result is copied
@@ -25,7 +29,7 @@ import torch
 
 from annotatedvdb_tpu_torch.ops.annotate import annotate_kernel
 from annotatedvdb_tpu_torch.ops.binindex import bin_index_kernel
-from annotatedvdb_tpu_torch.ops.hashing import allele_hash
+from annotatedvdb_tpu_torch.ops.hashing import allele_hash, hash_bits
 from annotatedvdb_tpu_torch.types import AnnotatedBatch
 
 
@@ -55,9 +59,9 @@ def annotate_pipeline(chrom, pos, ref, alt, ref_len, alt_len) -> AnnotatedBatch:
 
 def annotate_hash_pipeline(chrom, pos, ref, alt, ref_len, alt_len) -> tuple:
     """Plain annotate step and plain allele hash: ``(AnnotatedBatch, [N]
-    int64 hash)``."""
+    int32 hash bits)``."""
     return (annotate_pipeline(chrom, pos, ref, alt, ref_len, alt_len),
-            allele_hash(ref, alt, ref_len, alt_len))
+            hash_bits(allele_hash(ref, alt, ref_len, alt_len)))
 
 
 def annotate_hash_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len) -> tuple:
@@ -111,7 +115,7 @@ def verify_cuda_kernel(device: torch.device) -> None:
     got, got_h = annotate_hash_pipeline_cuda(*(x.to(device) for x in probe))
     got = AnnotatedBatch(*(x.cpu() for x in got))
     bad = parity_mismatches(want, got)
-    if not torch.equal(got_h.cpu().to(torch.int64) & 0xFFFFFFFF, want_h):
+    if not torch.equal(got_h.cpu(), want_h):
         bad.append("allele_hash")
     if bad:
         raise RuntimeError(
@@ -136,28 +140,27 @@ def _verified(device: torch.device) -> torch.device:
     return device
 
 
-def annotate_fn(device: torch.device):
-    """The annotate step for ``device``: the CUDA kernel (checked once per
-    process and device by :func:`verify_cuda_kernel`) on a CUDA device,
-    the plain version on the CPU."""
+def _for_device(device, plain, cuda):
+    """``plain`` on the CPU; ``cuda`` on a CUDA device once the kernel has
+    passed :func:`verify_cuda_kernel` there."""
     device = torch.device(device)
     if device.type == "cpu":
-        return annotate_pipeline
+        return plain
     if device.type != "cuda":
         raise ValueError(f"no annotate step for device {device}")
     _verified(device)
-    return annotate_pipeline_cuda
+    return cuda
+
+
+def annotate_fn(device: torch.device):
+    """The annotate step for ``device``: the CUDA kernel on a CUDA device,
+    the plain version on the CPU."""
+    return _for_device(device, annotate_pipeline, annotate_pipeline_cuda)
 
 
 def annotate_hash_fn(device: torch.device):
     """The annotate step plus the allele hash for ``device``: one launch of
-    the fused kernel (checked as in :func:`annotate_fn`) on a CUDA device,
-    the plain versions on the CPU.  Each returns ``(AnnotatedBatch,
-    hash)``; ``ops.hashing.to_uint32`` reads either hash to the host."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return annotate_hash_pipeline
-    if device.type != "cuda":
-        raise ValueError(f"no annotate step for device {device}")
-    _verified(device)
-    return annotate_hash_pipeline_cuda
+    the fused kernel on a CUDA device, the plain versions on the CPU.  Each
+    returns ``(AnnotatedBatch, [N] int32 hash bits)``."""
+    return _for_device(device, annotate_hash_pipeline,
+                       annotate_hash_pipeline_cuda)

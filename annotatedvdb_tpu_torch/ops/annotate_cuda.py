@@ -72,30 +72,28 @@ _NDIMS = (1, 2, 2, 1, 1)
 _lib = None
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the library's C interface; checks its width limit."""
-    lib.annotate_bin_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                 ctypes.c_int, ctypes.c_void_p]
-    )
-    lib.annotate_bin_launch.restype = ctypes.c_int
-    for fn in ("annotate_bin_tile_rows", "annotate_bin_max_width"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.annotate_bin_blocks_per_sm.argtypes = [ctypes.c_int]
-    lib.annotate_bin_blocks_per_sm.restype = ctypes.c_int
-    if lib.annotate_bin_max_width() != MAX_WIDTH:
-        raise RuntimeError("annotate_bin: library width limit disagrees "
-                           "with the wrapper")
-    return lib
-
-
 def _library() -> ctypes.CDLL:
+    """The kernel's library with its C interface declared (built at first
+    use); checks its width limit."""
     global _lib
     if _lib is None:
         from annotatedvdb_tpu_torch.ops.build import load
 
-        _lib = _bind(load("annotate_bin"))
+        lib = load("annotate_bin")
+        lib.annotate_bin_launch.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        )
+        lib.annotate_bin_launch.restype = ctypes.c_int
+        for fn in ("annotate_bin_tile_rows", "annotate_bin_max_width"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.annotate_bin_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.annotate_bin_blocks_per_sm.restype = ctypes.c_int
+        if lib.annotate_bin_max_width() != MAX_WIDTH:
+            raise RuntimeError("annotate_bin: library width limit disagrees "
+                               "with the wrapper")
+        _lib = lib
     return _lib
 
 
@@ -154,22 +152,6 @@ def _outputs(n: int, device) -> tuple:
                  for name, word, i, dtype in _CARVE}
 
 
-def _launch(lib, pos, ref, alt, ref_len, alt_len, max_blocks_per_sm=0) -> dict:
-    """One launch of ``lib``'s kernel on checked CUDA inputs."""
-    n, w = ref.shape
-    buf, out = _outputs(n, ref.device)
-    if n == 0:
-        return out
-    rc = lib.annotate_bin_launch(
-        pos.data_ptr(), ref.data_ptr(), alt.data_ptr(), ref_len.data_ptr(),
-        alt_len.data_ptr(), n, w, buf.data_ptr(), max_blocks_per_sm,
-        torch.cuda.current_stream(ref.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"annotate_bin: kernel launch failed (cudaError {rc})")
-    return out
-
-
 def annotate_bin(pos, ref, alt, ref_len, alt_len) -> dict:
     """Fused annotate + bin index + allele hash for one batch:
     ``pos``/``ref_len``/``alt_len`` [N] int32, ``ref``/``alt`` [N, W] uint8
@@ -182,7 +164,16 @@ def annotate_bin(pos, ref, alt, ref_len, alt_len) -> dict:
     if ref.device.type != "cuda":
         raise ValueError(f"annotate_bin: unsupported device {ref.device}")
     _check(pos, ref, alt, ref_len, alt_len)
-    out = _launch(_library(), pos, ref, alt, ref_len, alt_len)
-    if ref.shape[0]:
-        LAUNCHES["annotate_bin"] += 1
+    n, w = ref.shape
+    buf, out = _outputs(n, ref.device)
+    if n == 0:
+        return out
+    rc = _library().annotate_bin_launch(
+        pos.data_ptr(), ref.data_ptr(), alt.data_ptr(), ref_len.data_ptr(),
+        alt_len.data_ptr(), n, w, buf.data_ptr(),
+        torch.cuda.current_stream(ref.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"annotate_bin: kernel launch failed (cudaError {rc})")
+    LAUNCHES["annotate_bin"] += 1
     return out

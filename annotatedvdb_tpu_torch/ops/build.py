@@ -6,8 +6,6 @@ at first use, never at import, into ``build/kernels/`` at the root of the
 checkout; the library name carries a digest of the source and the flags,
 so an edited source rebuilds and a stale library is never loaded.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
-``defines`` (``-D`` macros) build a design variant of a source into a
-library of its own; the port itself always loads the plain build.
 """
 
 from __future__ import annotations
@@ -32,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: dict[tuple, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,18 +44,14 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _flags(defines) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines=()) -> str:
+def library_path(name: str) -> str:
     """Where ``name``'s library lives for the current source and flags."""
     with open(os.path.join(CSRC_DIR, KERNELS[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(defines)).encode())
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:16]}.so")
 
 
-def build(names=None, defines=()) -> dict:
+def build(names=None) -> dict:
     """Compile every missing library among ``names`` (default: all), one
     ``nvcc`` process per source started together.  Returns
     ``{name: compiler log}`` for the libraries built by this call (the
@@ -67,12 +61,12 @@ def build(names=None, defines=()) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name, defines)
+        out = library_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.tmp{os.getpid()}"
         procs[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *_flags(defines), "-o", tmp,
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
              os.path.join(CSRC_DIR, KERNELS[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -90,12 +84,11 @@ def build(names=None, defines=()) -> dict:
     return logs
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed."""
-    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(key)
+        lib = _loaded.get(name)
         if lib is None:
-            build([name], defines)
-            lib = _loaded[key] = ctypes.CDLL(library_path(name, defines))
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(library_path(name))
         return lib

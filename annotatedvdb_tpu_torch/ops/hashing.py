@@ -12,7 +12,8 @@ bits after every step (``(h ^ b) < 2**32`` and the prime is below
 to the host as a uint32 numpy array.  On the card the insert load takes
 the hash from the fused ``annotate_bin`` kernel (``ops/annotate_cuda.py``),
 which returns it as the uint32's bits in an int32 tensor; this function is
-its plain version and the CPU path.
+its plain version and the CPU path, and :func:`hash_bits` gives its result
+the kernel's form, so the loader reads one form from either device.
 """
 
 from __future__ import annotations
@@ -59,9 +60,7 @@ def hash_bits(h: torch.Tensor) -> torch.Tensor:
 
 
 def to_uint32(h: torch.Tensor) -> np.ndarray:
-    """Host uint32 array from :func:`allele_hash`'s int64 tensor or the
-    kernel's int32 bits."""
-    host = h.cpu().numpy()
-    if host.dtype == np.int32:
-        return host.view(np.uint32).copy()
-    return host.astype(np.uint32)
+    """Host uint32 array (a copy) from the hash's int32 bits."""
+    if h.dtype != torch.int32:
+        raise TypeError(f"to_uint32 reads int32 hash bits, not {h.dtype}")
+    return h.cpu().numpy().view(np.uint32).copy()

@@ -4,8 +4,9 @@
 ``allele_hash_np`` and ``allele_hash_jit`` on seeded allele matrices,
 lengths above 255 included (only ``len & 0xFF`` is hashed).  Exact
 comparison (tolerance 0).  Also: the int32 bit form the fused CUDA kernel
-returns reads back to the same uint32 values, and on CPU tensors the
-loader's dispatch still computes the hash with the plain version."""
+returns (and the CPU step hands on) reads back to the same uint32 values,
+and on CPU tensors the loader's dispatch still computes the hash with the
+plain version."""
 
 import numpy as np
 import pytest
@@ -30,7 +31,8 @@ def _alleles(seed: int, n: int, width: int):
 @pytest.mark.parametrize("width", [1, 8, 49, 96])
 def test_allele_hash_matches_numpy_and_jit(width):
     ref, alt, rl, al = _alleles(width, 1000, width)
-    got = to_uint32(allele_hash(*(torch.from_numpy(x) for x in (ref, alt, rl, al))))
+    got = to_uint32(hash_bits(allele_hash(*(torch.from_numpy(x)
+                                            for x in (ref, alt, rl, al)))))
     assert got.dtype == np.uint32
     np.testing.assert_array_equal(got, allele_hash_np(ref, alt, rl, al))
     np.testing.assert_array_equal(got, np.asarray(allele_hash_jit(ref, alt, rl, al)))
@@ -38,9 +40,9 @@ def test_allele_hash_matches_numpy_and_jit(width):
 
 def test_length_byte_wraps_at_256():
     ref = np.zeros((2, 4), np.uint8)
-    h = to_uint32(allele_hash(torch.from_numpy(ref), torch.from_numpy(ref),
-                              torch.tensor([3, 259], dtype=torch.int32),
-                              torch.tensor([1, 1], dtype=torch.int32)))
+    h = allele_hash(torch.from_numpy(ref), torch.from_numpy(ref),
+                    torch.tensor([3, 259], dtype=torch.int32),
+                    torch.tensor([1, 1], dtype=torch.int32))
     assert h[0] == h[1]
 
 
@@ -54,6 +56,12 @@ def test_hash_bits_read_back_as_the_same_uint32(width):
     assert (want >= 2**31).any() and (want < 2**31).any()
     np.testing.assert_array_equal(to_uint32(bits), want)
     np.testing.assert_array_equal(bits.numpy().view(np.uint32), want)
+
+
+def test_to_uint32_reads_only_the_bit_form():
+    h = allele_hash(*(torch.from_numpy(x) for x in _alleles(7, 16, 8)))
+    with pytest.raises(TypeError, match="int32"):
+        to_uint32(h)
 
 
 def test_cpu_dispatch_calls_the_plain_hash(tmp_path):
@@ -77,6 +85,7 @@ def test_cpu_dispatch_calls_the_plain_hash(tmp_path):
     chunk = next(iter(VcfBatchReader(str(vcf), batch_size=64, width=49)))
     before, launches = dict(CALLS), dict(LAUNCHES)
     handles = loader._dispatch_chunk(chunk)
+    assert handles["h"].dtype == torch.int32  # the kernel's form
     assert CALLS["cpu"] == before["cpu"] + 1
     assert CALLS["cuda"] == before["cuda"] and LAUNCHES == launches
     b = chunk.batch

@@ -21,7 +21,6 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "chip_kernel_variants.py")
 
 
 def test_imports_with_jax_blocked():
