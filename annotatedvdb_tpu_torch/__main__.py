@@ -11,6 +11,9 @@ import sys
 COMMANDS = {
     "load-vcf": ("annotatedvdb_tpu_torch.cli.load_vcf",
                  "load a VCF into the store (on the card by default)"),
+    "load-vep": ("annotatedvdb_tpu_torch.cli.load_vep",
+                 "annotate stored variants from VEP JSON results "
+                 "(on the card by default)"),
 }
 
 

@@ -1,3 +1,4 @@
 from .vcf_loader import VcfLoader
+from .vep_loader import VepLoader
 
-__all__ = ["VcfLoader"]
+__all__ = ["VcfLoader", "VepLoader"]

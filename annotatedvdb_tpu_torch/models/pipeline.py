@@ -1,24 +1,20 @@
-"""The annotate step of the insert load, and its per-device selection.
+"""The loaders' device step, and its per-device selection.
 
 Port of ``annotatedvdb_tpu/models/pipeline.py``.  One call annotates a
-whole batch: normalization, end location, variant class and bin index.
-``annotate_pipeline`` is the plain-torch version; ``annotate_pipeline_cuda``
-runs the hand-written kernel (``ops/annotate_cuda.py``).  ``annotate_fn``
-picks the kernel for a CUDA device and the plain version for the CPU; it
-is the reference's entry point for the annotate step alone, which its VEP
-loader calls (the port's VCF loader does not).
-
-The insert load also needs each row's allele-identity hash, which the
-reference computes in a second device step.  ``annotate_hash_fn`` returns
-the annotate step together with the hash: on a CUDA device one launch of
-the fused kernel computes both; on the CPU the plain annotate step and the
-plain ``ops/hashing.py::allele_hash``.  Either way the hash comes back as
-the uint32 values' bits in an int32 tensor (``ops.hashing.to_uint32``
-reads it to the host).
+whole batch — normalization, end location, variant class and bin index —
+and hashes its allele identities, which the reference computes in a second
+device step.  ``annotate_hash_fn(device)`` returns the step for a device:
+on a CUDA device one launch of the fused hand-written kernel
+(``ops/annotate_cuda.py``) computes both; on the CPU the plain-torch
+``annotate_pipeline`` and ``ops/hashing.py::allele_hash``.  Either way the
+hash comes back as the uint32 values' bits in an int32 tensor
+(``ops.hashing.to_uint32`` reads it to the host).  Both loaders call it:
+the VCF insert load for every field, the VEP update load for the hash,
+``prefix_len`` and ``host_fallback``.
 
 Calls are asynchronous on CUDA: the kernel is enqueued on the current
 stream and the caller's host work overlaps it until a result is copied
-back — the loader does that one chunk behind dispatch.
+back.
 """
 
 from __future__ import annotations
@@ -71,15 +67,12 @@ def annotate_hash_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len) -> tuple
 
     del chrom
     if ref.device.type != "cuda":
-        raise ValueError(f"annotate_pipeline_cuda needs CUDA tensors, got {ref.device}")
+        raise ValueError(
+            f"annotate_hash_pipeline_cuda needs CUDA tensors, got {ref.device}"
+        )
     out = annotate_bin(pos, ref, alt, ref_len, alt_len)
     h = out.pop("allele_hash")
     return AnnotatedBatch(**out), h
-
-
-def annotate_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len) -> AnnotatedBatch:
-    """Same step through the fused CUDA kernel (CUDA tensors only)."""
-    return annotate_hash_pipeline_cuda(chrom, pos, ref, alt, ref_len, alt_len)[0]
 
 
 #: fields whose parity is required on every row; the others only where
@@ -140,27 +133,15 @@ def _verified(device: torch.device) -> torch.device:
     return device
 
 
-def _for_device(device, plain, cuda):
-    """``plain`` on the CPU; ``cuda`` on a CUDA device once the kernel has
-    passed :func:`verify_cuda_kernel` there."""
+def annotate_hash_fn(device: torch.device):
+    """The annotate step plus the allele hash for ``device``: the plain
+    versions on the CPU; one launch of the fused kernel on a CUDA device,
+    once the kernel has passed :func:`verify_cuda_kernel` there.  Each
+    returns ``(AnnotatedBatch, [N] int32 hash bits)``."""
     device = torch.device(device)
     if device.type == "cpu":
-        return plain
+        return annotate_hash_pipeline
     if device.type != "cuda":
         raise ValueError(f"no annotate step for device {device}")
     _verified(device)
-    return cuda
-
-
-def annotate_fn(device: torch.device):
-    """The annotate step for ``device``: the CUDA kernel on a CUDA device,
-    the plain version on the CPU."""
-    return _for_device(device, annotate_pipeline, annotate_pipeline_cuda)
-
-
-def annotate_hash_fn(device: torch.device):
-    """The annotate step plus the allele hash for ``device``: one launch of
-    the fused kernel on a CUDA device, the plain versions on the CPU.  Each
-    returns ``(AnnotatedBatch, [N] int32 hash bits)``."""
-    return _for_device(device, annotate_hash_pipeline,
-                       annotate_hash_pipeline_cuda)
+    return annotate_hash_pipeline_cuda

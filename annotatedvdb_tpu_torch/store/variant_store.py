@@ -13,11 +13,17 @@ either package loads in the other.  The replacement for the reference's
 - membership checks are searchsorted joins against each segment; large
   joins run ``ops/dedup.lookup_in_sorted`` in torch against a copy of the
   segment's identity columns held on the device;
-- persistence is incremental: ``save`` writes only new or dirty segments.
+- persistence is incremental: ``save`` writes only new or dirty segments;
+- update loads address rows by global id (a shard's segments, oldest
+  first, numbered consecutively): ``lookup`` resolves identities to ids,
+  ``update_annotation`` deep-merges JSONB values into them (the
+  reference's ``jsonb_merge``), ``set_col`` sets numeric columns, and the
+  segments they touch become dirty.
 
-Not ported here (later slices): updates, undo, compaction, cooperative
-writers (a serve worker's memtable flush committing into the same
-directory), the out-of-core memmap tier and the mesh placement block.
+Not ported here (later slices): undo, compaction, cooperative writers (a
+serve worker's memtable flush committing into the same directory), the
+native VEP transform's raw-JSON values, the out-of-core memmap tier and
+the mesh placement block.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from annotatedvdb_tpu_torch.types import chromosome_label
 from annotatedvdb_tpu_torch.utils import io as tio
+from annotatedvdb_tpu_torch.utils.strings import deep_update
 
 
 class StoreCorruptError(ValueError):
@@ -79,6 +86,9 @@ _NUMERIC_COLUMNS = [
     ("needs_digest", np.bool_),
     ("row_algorithm_id", np.int32),
 ]
+
+# Columns that define a row's identity (and its place in the sorted order).
+_IDENTITY_COLUMNS = ("pos", "h", "ref_len", "alt_len")
 
 # Device-probe thresholds for AVDB_DEVICE_LOOKUP=auto on a CUDA device.
 # Below them host numpy wins: the query columns must ship to the device per
@@ -455,6 +465,12 @@ class Segment:
         found, index = lookup_in_sorted(*cache, *query)
         return found.cpu().numpy(), index.cpu().numpy()
 
+    def obj_dense(self, name: str) -> np.ndarray:
+        """Object column, materialized into the segment if still all-None."""
+        if self.obj[name] is None:
+            self.obj[name] = np.full((self.n,), None, object)
+        return self.obj[name]
+
 
 def _obj_array(values, order: np.ndarray | None, n: int) -> np.ndarray | None:
     """Object column from per-row values; None when the column is all-None
@@ -486,6 +502,151 @@ class ChromosomeShard:
     @property
     def n(self) -> int:
         return sum(s.n for s in self.segments)
+
+    # -- per-row access by global id ----------------------------------------
+    # Global ids number the rows of the segments in list order.  They stay
+    # valid until the segment list changes (append, merge).
+
+    def _starts(self) -> np.ndarray:
+        """Global id of each segment's first row, and the row count last."""
+        return np.concatenate(
+            [[0], np.cumsum([s.n for s in self.segments])]
+        ).astype(np.int64)
+
+    def _locate(self, ids) -> tuple[np.ndarray, np.ndarray]:
+        """Global ids -> (segment index, local offset), vectorized."""
+        ids = np.asarray(ids, np.int64)
+        starts = self._starts()
+        seg = np.searchsorted(starts, ids, side="right") - 1
+        return seg, ids - starts[seg]
+
+    def get_col(self, name: str, ids) -> np.ndarray:
+        seg, off = self._locate(ids)
+        out = np.empty(seg.shape, dtype=dict(_NUMERIC_COLUMNS)[name])
+        for si in np.unique(seg):
+            m = seg == si
+            out[m] = self.segments[si].cols[name][off[m]]
+        return out
+
+    def set_col(self, name: str, ids, values) -> None:
+        if name in _IDENTITY_COLUMNS:
+            raise ValueError(f"identity column {name} is immutable")
+        seg, off = self._locate(ids)
+        values = np.broadcast_to(np.asarray(values), seg.shape)
+        for si in np.unique(seg):
+            m = seg == si
+            s = self.segments[si]
+            s.cols[name][off[m]] = values[m]
+            s.dirty = True
+
+    def set_flag(self, index: np.ndarray, column: str, values) -> None:
+        """:meth:`set_col` on the rows of ``index`` that were found
+        (``index >= 0``); ``values`` is a scalar or parallel to ``index``."""
+        index = np.asarray(index, np.int64)
+        mask = index >= 0
+        self.set_col(
+            column, index[mask],
+            np.asarray(values)[mask] if np.ndim(values) else values,
+        )
+
+    def get_ann(self, column: str, i):
+        """One row's JSONB value (None when unset) — the stored object
+        itself, not a copy."""
+        seg, off = self._locate([i])
+        col = self.segments[int(seg[0])].obj[column]
+        return None if col is None else col[int(off[0])]
+
+    def lookup(self, pos, h, ref, alt, ref_len, alt_len,
+               device: torch.device | None = None, stats: dict | None = None):
+        """Vectorized membership: (found [N] bool, global id [N] int64).
+
+        Oldest segment wins when an identity appears in several segments
+        (first-wins duplicate policy).  Each segment probe takes the path
+        :meth:`Segment.probe` chooses for ``device`` and counts it in
+        ``stats``."""
+        found = np.zeros(pos.shape, np.bool_)
+        index = np.full(pos.shape, -1, np.int64)
+        if not self.segments:
+            return found, index
+        qkey = combined_key(pos, h)
+        if qkey.size == 0:
+            return found, index
+        # range pruning: a segment whose key range misses the query range
+        # cannot match
+        qlo, qhi = qkey.min(), qkey.max()
+        starts = self._starts()
+        for si, seg in enumerate(self.segments):
+            if seg.n == 0 or seg.key_max < qlo or seg.key_min > qhi:
+                continue
+            if found.all():
+                break
+            f, idx = seg.probe(qkey, pos, h, ref, alt, ref_len, alt_len,
+                               device=device, stats=stats)
+            take = f & ~found
+            index = np.where(take, idx.astype(np.int64) + starts[si], index)
+            found |= f
+        return found, index
+
+    def update_annotation(self, index: np.ndarray, column: str,
+                          values, merge: bool = True) -> int:
+        """Set/merge a JSONB column at given global ids; returns the update
+        count (ids < 0 are skipped).
+
+        ``merge=True`` applies jsonb_merge deep-merge semantics (patch wins,
+        into the stored dict in place); ``merge=False`` replaces.  Rows with
+        no stored value are assigned with one scatter per segment; only rows
+        that merge pay per-row work.  Duplicate ids within one call keep
+        strict in-order semantics (the second occurrence merges into the
+        first's result)."""
+        index = np.asarray(index, np.int64)
+        if index.size == 0:
+            return 0
+        vals = np.empty(index.shape, object)
+        # element-wise: bulk list -> object-array assignment would probe
+        # each element for nested sequences
+        for k, v in enumerate(values):
+            vals[k] = v
+        valid = index >= 0
+        count = int(valid.sum())
+        if count == 0:
+            return 0
+        if not valid.all():
+            index, vals = index[valid], vals[valid]
+        seg_idx, off = self._locate(index)
+        for si in np.unique(seg_idx):
+            s = self.segments[int(si)]
+            fresh_col = s.obj[column] is None  # never materialized: every
+            col = s.obj_dense(column)          # target row is fresh
+            m = seg_idx == si
+            offs, vs = off[m], vals[m]
+            s.dirty = True
+            has_dups = np.unique(offs).size != offs.size
+            if fresh_col and not has_dups:
+                col[offs] = vs
+                continue
+            if has_dups:
+                # order is observable: later values merge into earlier
+                # results
+                for j, v in zip(offs.tolist(), vs):
+                    cur = col[j]
+                    if merge and isinstance(cur, dict) and isinstance(v, dict):
+                        deep_update(cur, v)
+                    else:
+                        col[j] = v
+                continue
+            cur = col[offs]
+            if merge:
+                replace = np.fromiter(
+                    (not isinstance(c, dict) or not isinstance(v, dict)
+                     for c, v in zip(cur, vs)),
+                    bool, offs.size,
+                )
+            else:
+                replace = np.ones(offs.size, bool)
+            col[offs[replace]] = vs[replace]
+            for c, v in zip(cur[~replace], vs[~replace]):
+                deep_update(c, v)
+        return count
 
     # -- mutation -----------------------------------------------------------
 
@@ -578,6 +739,24 @@ class VariantStore:
     @property
     def n(self) -> int:
         return sum(s.n for s in self.shards.values())
+
+    def pin_for_updates(self, device: torch.device) -> int:
+        """Upload the identity columns of every segment of at least
+        DEVICE_SEGMENT_MIN rows to ``device``'s membership cache: update
+        loads (VEP/CADD/QC) probe a static store many times, so the one
+        upload amortizes over the whole file, and a cached segment's probes
+        then run on the card (:meth:`Segment.wants_device`).  Nothing on the
+        CPU or with ``AVDB_DEVICE_LOOKUP=off``.  Returns the segments
+        pinned."""
+        if device.type != "cuda" or device_lookup_mode() == "off":
+            return 0
+        pinned = 0
+        for shard in self.shards.values():
+            for seg in shard.segments:
+                if seg.n >= DEVICE_SEGMENT_MIN:
+                    seg._ensure_device_cache(device)
+                    pinned += 1
+        return pinned
 
     # -- persistence --------------------------------------------------------
     #

@@ -21,3 +21,14 @@ def to_numeric(value):
         return float(value)
     except ValueError:
         return value
+
+
+def deep_update(base: dict, patch: dict) -> dict:
+    """Recursive dict merge, patch wins; mirrors the server-side
+    ``jsonb_merge()`` the reference leans on (``vep_variant_loader.py:227``)."""
+    for key, value in patch.items():
+        if isinstance(value, dict) and isinstance(base.get(key), dict):
+            deep_update(base[key], value)
+        else:
+            base[key] = value
+    return base

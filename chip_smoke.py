@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives ``annotatedvdb_tpu_torch``'s VCF insert load on ``cuda:0`` and
-checks it, phase by phase, each phase printing one JSON line:
+Drives ``annotatedvdb_tpu_torch``'s VCF insert load and VEP annotation
+update on ``cuda:0`` and checks them, phase by phase, each phase printing
+one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``;
@@ -23,8 +24,23 @@ checks it, phase by phase, each phase printing one JSON line:
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
-6. parity   — the first 50,000 lines loaded on the card and on the CPU:
-              the persisted store bytes must be identical.
+6. parity   — the first 50,000 lines loaded on the card and on the CPU,
+              then updated from 12,500 VEP results for the variants of
+              their first half (``load-vep``, the ranking file re-ranked
+              on load and saved on each of 5 learned combos): the
+              persisted store bytes and the saved ranking files must be
+              identical, the VEP counters the ones the generator predicts;
+7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
+              consequences from the seed ranking each, regulatory, motif
+              and intergenic blocks and colocated frequencies on shares,
+              ~2% for alleles the store lacks, 20 novel combos, one
+              malformed line) updates phase 4's store through
+              ``python -m annotatedvdb_tpu_torch load-vep --commit`` (the
+              CLI's ``main``), counters reset just before and read just
+              after: counters as predicted, every planted combo learned,
+              one ``annotate_bin`` launch per identity batch, no plain
+              hash on the card; then the kernel's time at that batch
+              shape.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -255,6 +271,156 @@ def write_phase5_vcf(path, n_lines, old_lines, old_rows, seed=5):
     return int(old_rows[pick].sum()), int(new_rows.sum())
 
 
+# ------------------------------------------------------------ VEP writer
+
+IMPACTS = ("HIGH", "MODERATE", "LOW", "MODIFIER")
+BIOTYPES = ("protein_coding", "lncRNA", "nonsense_mediated_decay",
+            "processed_pseudogene", "miRNA")
+POPULATIONS = ("af", "afr", "amr", "eas", "eur", "sas", "aa", "ea",
+               "gnomad", "gnomad_afr", "gnomad_amr", "gnomad_nfe")
+
+
+def vep_key(ref, alt):
+    """VEP's allele key: the alt past the shared prefix, '-' when empty
+    (SNVs untouched)."""
+    if len(ref) == 1 and len(alt) == 1:
+        return alt
+    p = 0
+    while p < len(ref) and p < len(alt) and ref[p] == alt[p]:
+        p += 1
+    return (alt[p:] or "-") if p else alt
+
+
+def novel_combos(ranker, n, seed):
+    """``n`` distinct consequence combos (VEP vocabulary) that ``ranker``
+    does not hold: two high-impact terms and one modifier term each."""
+    import random
+
+    from annotatedvdb_tpu_torch.conseq import ConseqGroup
+
+    rnd = random.Random(seed)
+    high, mod = ConseqGroup.HIGH_IMPACT.value, ConseqGroup.MODIFIER.value
+    out, seen = [], set()
+    while len(out) < n:
+        terms = rnd.sample(high, 2) + [rnd.choice(mod)]
+        canon = ",".join(sorted(terms))
+        if canon not in seen and ranker.rank_of(canon) is None:
+            seen.add(canon)
+            out.append(terms)
+    return out
+
+
+def vep_doc(rnd, combos, chrom, pos, vid, ref, alt_col):
+    """One VEP result (``--json --everything`` shape) for one input line:
+    1-6 transcript consequences whose combos come from ``combos``,
+    regulatory, motif and intergenic blocks on shares of results, and on
+    about half a colocated variant with GnomAD, 1000 Genomes and ESP
+    frequencies (a COSMIC entry before it on some)."""
+    alts = [a for a in alt_col.split(",") if a != "."]
+    keys = [vep_key(ref, a) for a in alts] or ["-"]
+    end = pos + len(ref) - 1
+    allele_string = "/".join([ref] + alt_col.split(","))
+    tcs = []
+    for _ in range(rnd.randint(1, 6)):
+        tcs.append({
+            "variant_allele": rnd.choice(keys),
+            "consequence_terms": list(rnd.choice(combos)),
+            "impact": rnd.choice(IMPACTS),
+            "gene_id": f"ENSG{rnd.randrange(10**11):011d}",
+            "gene_symbol": f"GENE{rnd.randrange(5000)}",
+            "transcript_id": f"ENST{rnd.randrange(10**11):011d}",
+            "biotype": rnd.choice(BIOTYPES),
+            "strand": rnd.choice((1, -1)),
+            "cadd_phred": round(rnd.random() * 40, 3),
+            "cadd_raw": round(rnd.random() * 8 - 2, 6),
+        })
+        if rnd.random() < 0.4:
+            tcs[-1]["distance"] = rnd.randrange(5000)
+    doc = {
+        "input": f"{chrom}\t{pos}\t{vid}\t{ref}\t{alt_col}",
+        "id": vid, "seq_region_name": chrom, "start": pos, "end": end,
+        "strand": 1, "allele_string": allele_string,
+        "assembly_name": "GRCh38",
+        "most_severe_consequence": tcs[0]["consequence_terms"][0],
+        "transcript_consequences": tcs,
+    }
+    if rnd.random() < 0.3:
+        doc["regulatory_feature_consequences"] = [{
+            "variant_allele": keys[0], "biotype": "promoter",
+            "regulatory_feature_id": f"ENSR{rnd.randrange(10**11):011d}",
+            "consequence_terms": ["regulatory_region_variant"],
+            "impact": "MODIFIER"}]
+    if rnd.random() < 0.1:
+        doc["motif_feature_consequences"] = [{
+            "variant_allele": keys[0], "motif_name": f"ENSPFM{rnd.randrange(999)}",
+            "motif_score_change": round(rnd.random() - 0.5, 3),
+            "consequence_terms": ["TF_binding_site_variant"],
+            "impact": "MODIFIER"}]
+    if rnd.random() < 0.1:
+        doc["intergenic_consequences"] = [{
+            "variant_allele": keys[0], "consequence_terms": ["intergenic_variant"],
+            "impact": "MODIFIER"}]
+    if rnd.random() < 0.5:
+        covars = []
+        if rnd.random() < 0.2:
+            covars.append({"id": f"COSV{rnd.randrange(10**8)}",
+                           "allele_string": "COSMIC_MUTATION",
+                           "start": pos, "end": end, "strand": 1,
+                           "somatic": 1})
+        covars.append({
+            "id": vid if vid != "." else f"rs{rnd.randrange(10**9)}",
+            "allele_string": allele_string, "start": pos, "end": end,
+            "strand": 1, "minor_allele": keys[0],
+            "minor_allele_freq": round(rnd.random() / 2, 4),
+            "frequencies": {k: {p: round(rnd.random(), 4) for p in POPULATIONS}
+                            for k in keys},
+        })
+        doc["colocated_variants"] = covars
+    return doc
+
+
+def write_vep_json(path, lines, n_results, seed, n_novel):
+    """A VEP JSON file of ``n_results`` results for the variants of
+    ``lines`` (VCF data lines, position-sorted; each taken at most once, in
+    order): ~2% of them for an allele the store does not hold, ``n_novel``
+    combos outside the seed ranking planted at evenly spaced results, one
+    malformed line in the middle.  Returns the counters the update load
+    must report and the planted combos."""
+    import random
+
+    from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
+
+    rnd = random.Random(seed)
+    ranker = ConsequenceRanker()
+    combos = [c.split(",") for c in ranker.rankings]
+    novel = novel_combos(ranker, n_novel, seed)
+    plant = {int(i): terms for i, terms in zip(
+        np.linspace(0, n_results - 1, n_novel + 2)[1:-1], novel)}
+    pick = sorted(rnd.sample(range(len(lines)), n_results))
+    want = {"line": n_results + 1, "rejected": 1, "update": 0,
+            "not_found": 0, "skipped": 0}
+    with open(path, "w") as fh:
+        for r, li in enumerate(pick):
+            chrom, pos, vid, ref, alt_col = lines[li].split("\t", 5)[:5]
+            alts = alt_col.split(",")
+            if alt_col != "." and rnd.random() < 0.02:
+                # the same site with an allele the store does not hold
+                alt_col = next(b for b in "ACGT" if b != ref[0] and b not in alts)
+                alts = [alt_col]
+                want["not_found"] += 1
+            else:
+                want["skipped"] += alts.count(".")
+                want["update"] += len(alts) - alts.count(".")
+            doc = vep_doc(rnd, combos, chrom, int(pos), vid, ref, alt_col)
+            if r in plant:
+                doc["transcript_consequences"][0]["consequence_terms"] = plant[r]
+            fh.write(json.dumps(doc) + "\n")
+            if r == n_results // 2:
+                fh.write('{"input": "22\\t1\\t.\\tA\\tC", "transcript_consequences": [\n')
+    want["variant"] = want["update"] + want["not_found"]
+    return want, [",".join(sorted(t)) for t in novel]
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -450,25 +616,50 @@ def kernel_phase(torch, device):
 
 
 @contextlib.contextmanager
-def loader_stages(sink):
-    """Collect the stage seconds of every VcfLoader.load_file call made
-    inside into ``sink`` (the CLI builds its loader itself)."""
-    from annotatedvdb_tpu_torch.loaders.vcf_loader import VcfLoader
-
-    original = VcfLoader.load_file
+def captured_loaders(cls):
+    """Every ``cls`` loader whose ``load_file`` runs inside, in call order
+    (the CLIs build their loaders themselves)."""
+    seen = []
+    original = cls.load_file
 
     def load_file(self, *args, **kwargs):
-        try:
-            return original(self, *args, **kwargs)
-        finally:
-            for name, sec in self.timer.seconds.items():
-                sink[name] = sink.get(name, 0.0) + sec
+        seen.append(self)
+        return original(self, *args, **kwargs)
 
-    VcfLoader.load_file = load_file
+    cls.load_file = load_file
+    try:
+        yield seen
+    finally:
+        cls.load_file = original
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, sink):
+    """Seconds of every call of ``owner.name`` (a method or a classmethod)
+    made inside, appended to ``sink``."""
+    raw = owner.__dict__[name]
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    setattr(owner, name, wrapper)
     try:
         yield sink
     finally:
-        VcfLoader.load_file = original
+        setattr(owner, name, raw)
+
+
+def stage_seconds(timers):
+    out = {}
+    for timer in timers:
+        for name, sec in timer.seconds.items():
+            out[name] = out.get(name, 0.0) + sec
+    return out
 
 
 def ledger_records(store_dir, kind):
@@ -497,14 +688,16 @@ def store_bytes(store_dir):
     return out
 
 
-def load_phases(torch, platform, n4, n5, n6, launches, hash_calls) -> dict:
+def load_phases(torch, platform, n4, n5, n6, n7, launches, hash_calls) -> dict:
     """Phases 4-6 on ``platform`` ("cuda" on the card; "cpu" rehearses the
-    same control flow at a small size).  ``launches`` (the kernel launch
-    counters) and ``hash_calls`` (the plain hash's calls by device type)
-    are already reset; both are read right after the phase-4 load.
-    Raises AssertionError on any failed check."""
+    same control flow at a small size), and phase 7's input.  ``launches``
+    (the kernel launch counters) and ``hash_calls`` (the plain hash's calls
+    by device type) are already reset; both are read right after the
+    phase-4 load.  Raises AssertionError on any failed check."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
-    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
+    from annotatedvdb_tpu_torch.conseq.ranker import DEFAULT_RANKING_FILE
+    from annotatedvdb_tpu_torch.loaders import VcfLoader, VepLoader
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
 
@@ -519,6 +712,8 @@ def load_phases(torch, platform, n4, n5, n6, launches, hash_calls) -> dict:
     vcf4 = os.path.join(WORK, "chr22.first.vcf")
     vcf5 = os.path.join(WORK, "chr22.second.vcf")
     vcf6 = os.path.join(WORK, "chr22.head.vcf")
+    vep6 = os.path.join(WORK, "chr22.head.vep.json")
+    vep7 = os.path.join(WORK, "chr22.vep.json")
     t0 = time.perf_counter()
     lines4, rows4, dup_lines = write_phase4_vcf(vcf4, n4)
     dup5, new5 = write_phase5_vcf(vcf5, n5, lines4, rows4)
@@ -527,6 +722,12 @@ def load_phases(torch, platform, n4, n5, n6, launches, hash_calls) -> dict:
         data = (ln for ln in src if not ln.startswith("#"))
         dst.writelines(next(data) for _ in range(n6))
     gen_s = time.perf_counter() - t0
+    # phase 6's VEP results: variants of the first half of its lines (all
+    # in its stores); phase 7's: variants of the whole phase-4 file
+    t0 = time.perf_counter()
+    want6, _ = write_vep_json(vep6, lines4[: n6 // 2], n6 // 4, seed=6, n_novel=5)
+    want7, novel7 = write_vep_json(vep7, lines4, n7, seed=7, n_novel=20)
+    vep_gen_s = time.perf_counter() - t0
     dup4 = int(rows4[dup_lines].sum())
     ins4 = int(rows4.sum())
     del lines4
@@ -534,13 +735,14 @@ def load_phases(torch, platform, n4, n5, n6, launches, hash_calls) -> dict:
     # 4. the main path: the CLI load
     store4 = os.path.join(WORK, "store")
     t0 = time.perf_counter()
-    with loader_stages({}) as stages:
+    with captured_loaders(VcfLoader) as loaders:
         rc = load_vcf(["--fileName", vcf4, "--storeDir", store4, "--commit",
                        "--logAfter", "0", "--platform", platform])
     sync()
     wall = time.perf_counter() - t0
     launched, hashed = dict(launches), dict(hash_calls)
     assert rc == 0, f"load-vcf exited {rc}"
+    stages = stage_seconds(ld.timer for ld in loaders)
     counters = ledger_records(store4, "finish")[-1]["counters"]
     chunks = len(ledger_records(store4, "checkpoint"))
     emit("load", lines=counters["line"], variants=counters["variant"],
@@ -588,26 +790,150 @@ def load_phases(torch, platform, n4, n5, n6, launches, hash_calls) -> dict:
     assert loader.probe_stats.get("device") and not loader.probe_stats.get("host"), (
         f"reload: membership probes did not all run on the device: "
         f"{loader.probe_stats}")
+    del store, loader, cached
 
-    # 6. device vs CPU, end to end
+    # 6. device vs CPU, end to end: the VCF load, then the VEP update of
+    # its store (ranking file re-ranked on load, saved on each learned
+    # combo)
     out = {}
     for plat in (platform, "cpu"):
         d = os.path.join(WORK, f"store.{len(out)}.{plat}")
+        ranks = os.path.join(WORK, f"ranks.{len(out)}.{plat}")
+        os.makedirs(ranks)
+        shutil.copy(DEFAULT_RANKING_FILE, os.path.join(ranks, "ranks.txt"))
         t0 = time.perf_counter()
         rc = load_vcf(["--fileName", vcf6, "--storeDir", d, "--commit",
                        "--logAfter", "0", "--platform", plat])
         assert rc == 0, f"phase 6 load on {plat} exited {rc}"
         with open(vcf6 + ".mapping", "rb") as f:
             mapping = f.read()
-        out[len(out)] = (store_bytes(d), mapping, time.perf_counter() - t0)
-    (files_dev, map_dev, s_dev), (files_cpu, map_cpu, s_cpu) = out[0], out[1]
+        with captured_loaders(VepLoader) as vep_loaders:
+            rc = load_vep(["--fileName", vep6, "--storeDir", d, "--commit",
+                           "--logAfter", "0", "--datasource", "dbSNP",
+                           "--rankingFile", os.path.join(ranks, "ranks.txt"),
+                           "--rankOnLoad", "--saveOnAddConsequence",
+                           "--platform", plat])
+        assert rc == 0, f"phase 6 VEP load on {plat} exited {rc}"
+        got6 = {k: vep_loaders[0].counters.get(k, 0) for k in want6}
+        assert got6 == want6, f"phase 6 VEP load on {plat}: {got6}, predicted {want6}"
+        saved = {}
+        for name in sorted(os.listdir(ranks)):
+            with open(os.path.join(ranks, name), "rb") as f:
+                saved[name] = f.read()
+        out[len(out)] = (store_bytes(d), mapping, saved, time.perf_counter() - t0)
+    (files_dev, map_dev, ranks_dev, s_dev), (files_cpu, map_cpu, ranks_cpu, s_cpu) = (
+        out[0], out[1])
     differ = sorted(k for k in set(files_dev) | set(files_cpu)
                     if files_dev.get(k) != files_cpu.get(k))
-    emit("parity", lines=n6, files=len(files_dev), differ=differ,
-         mapping_equal=map_dev == map_cpu, device_s=s_dev, cpu_s=s_cpu)
+    emit("parity", lines=n6, vep_results=want6["line"] - 1, vep_counters=want6,
+         files=len(files_dev), differ=differ, mapping_equal=map_dev == map_cpu,
+         ranking_files=sorted(ranks_dev), ranking_files_equal=ranks_dev == ranks_cpu,
+         device_s=s_dev, cpu_s=s_cpu)
     assert not differ and map_dev == map_cpu, (
         f"device and CPU stores differ in {differ or ['mapping']}")
-    return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks}
+    assert ranks_dev == ranks_cpu and len(ranks_dev) == 6, (
+        f"device and CPU saved ranking files differ: {sorted(ranks_dev)} / "
+        f"{sorted(ranks_cpu)}")
+    return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks,
+            "store": store4, "vep": vep7, "want": want7, "novel": novel7,
+            "vep_seconds": vep_gen_s}
+
+
+def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
+    """Phase 7 on ``platform``: the VEP update of phase 4's store through
+    the CLI.  ``launches`` and ``hash_calls`` are already reset; both are
+    read right after the load.  Raises AssertionError on any failed
+    check."""
+    from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
+    from annotatedvdb_tpu_torch.loaders import VepLoader
+    from annotatedvdb_tpu_torch.runtime import resolve_device
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    device = resolve_device(platform)
+    want, novel = prep["want"], prep["novel"]
+    t0 = time.perf_counter()
+    with captured_loaders(VepLoader) as loaders, \
+            timed_calls(VariantStore, "load", []) as store_load_s, \
+            timed_calls(VariantStore, "save", []) as store_save_s:
+        rc = load_vep(["--fileName", prep["vep"], "--storeDir", prep["store"],
+                       "--commit", "--logAfter", "0", "--datasource", "dbSNP",
+                       "--platform", platform])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, hashed = dict(launches), dict(hash_calls)
+    assert rc == 0, f"load-vep exited {rc}"
+    (loader,) = loaders
+    got = {k: loader.counters.get(k, 0) for k in want}
+    batches = loader.identity_batches
+    rows = loader.identity_timer.items.get("dispatch", 0)
+    identity = loader.identity_timer.seconds
+    pinned = [s for sh in loader.store.shards.values() for s in sh.segments
+              if s._device is not None]
+    results = want["line"] - 1
+    emit("vep", results=results, wall_s=wall, results_per_s=results / wall,
+         loader_wall_s=loader.timer.wall_seconds,
+         store_load_s=sum(store_load_s), store_save_s=sum(store_save_s),
+         stage_seconds=dict(loader.timer.seconds),
+         identity_batches=batches, rows=rows, rows_per_batch=rows / batches,
+         dispatch_s=identity.get("dispatch"), copy_back_s=identity.get("copy_back"),
+         counters=got, predicted=want, added=len(loader.parser.ranker.added),
+         planted=len(novel), probes=loader.probe_stats,
+         pinned_segments=len(pinned), pinned_rows=sum(s.n for s in pinned),
+         queue_stalls=loader.queue_stalls, launches=launched,
+         plain_hash_calls=hashed, vep_seconds=prep["vep_seconds"])
+    assert got == want, f"vep: counters {got}, predicted {want}"
+    assert sorted(loader.parser.ranker.added) == sorted(novel), (
+        f"vep: learned {loader.parser.ranker.added}, planted {novel}")
+    assert batches > 0
+    if device.type == "cuda":
+        assert launched["annotate_bin"] == batches, (
+            f"vep: annotate_bin launched {launched['annotate_bin']} times for "
+            f"{batches} identity batches")
+        assert not hashed.get("cuda"), (
+            f"vep: the load called the plain allele_hash on the card "
+            f"{hashed['cuda']} times")
+    return {"launches": launched, "identity_batches": batches,
+            "rows_per_batch": rows / batches}
+
+
+def vep_kernel_timing(torch, device, rows) -> dict:
+    """``annotate_bin`` at the VEP load's identity-batch shape: ten
+    load-like input sets (``io/synth.py``, 85% SNVs) of ``rows`` rows at
+    W = 49, device ms (profiler) and call ms (CUDA events), kernel and
+    plain version in turns, beside the bound."""
+    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        FIELDS,
+        annotate_bin,
+        annotate_bin_reference,
+    )
+
+    sets = [[torch.from_numpy(np.ascontiguousarray(x)).to(device)
+             for x in synthetic_batch(rows, width=WIDTH, seed=20 + i)[1:]]
+            for i in range(10)]
+    runs = {}
+    for name, fn, iters in (("plain", annotate_bin_reference, 20),
+                            ("kernel", annotate_bin, 200),
+                            ("kernel", annotate_bin, 200),
+                            ("plain", annotate_bin_reference, 20)):
+        runs.setdefault(name, []).append({
+            "device_ms": device_ms(torch, fn, sets, iters),
+            "call_ms": call_ms(torch, fn, sets, iters)})
+
+    def best(rs):
+        dev = [r["device_ms"] for r in rs if r["device_ms"] is not None]
+        return min(dev) if dev else min(r["call_ms"] for r in rs)
+
+    host = [x.cpu().numpy() for x in sets[0]]
+    prefix = annotate_bin_reference(*sets[0])["prefix_len"].cpu().numpy()
+    bound = annotate_bound(torch, FIELDS, *host, prefix.astype(np.int64))
+    ms = best(runs["kernel"])
+    out = {**bound, "ms": ms, "plain_ms": best(runs["plain"]),
+           "call_ms": min(r["call_ms"] for r in runs["kernel"]),
+           "bound_share": bound["bound_ms"] / ms, "timing_runs": runs}
+    emit("vep_kernel", **out)
+    return out
 
 
 def main() -> int:
@@ -622,6 +948,7 @@ def main() -> int:
     except ImportError as err:
         return fail(f"the annotatedvdb_tpu_torch package is not beside this "
                     f"script ({err})")
+    t_start = time.perf_counter()
     device = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -643,25 +970,39 @@ def main() -> int:
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln]
                 for k, v in logs.items()})
 
+    def reset():
+        for counts in (annotate_cuda.LAUNCHES, hashing.CALLS):
+            for name in counts:
+                counts[name] = 0
+
     try:
         # 3. kernels against their plain versions
         table = kernel_phase(torch, device)
         # 4-6. the load, the probed reload and the card-vs-CPU parity
-        for counts in (annotate_cuda.LAUNCHES, hashing.CALLS):
-            for name in counts:
-                counts[name] = 0
+        reset()
         results = load_phases(torch, "cuda", 2_000_000, 500_000, 50_000,
-                              launches=annotate_cuda.LAUNCHES,
+                              200_000, launches=annotate_cuda.LAUNCHES,
                               hash_calls=hashing.CALLS)
+        if results["launches"]["annotate_bin"] != results["chunks"]:
+            return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
+                        f" times for {results['chunks']} chunks")
+        if results["plain_hash_calls"].get("cuda"):
+            return fail(f"the load called the plain allele_hash on the card "
+                        f"{results['plain_hash_calls']['cuda']} times")
+        # 7. the VEP update of phase 4's store
+        reset()
+        vep = vep_phase(torch, "cuda", results, launches=annotate_cuda.LAUNCHES,
+                        hash_calls=hashing.CALLS)
+        vep_kernel = vep_kernel_timing(torch, device, round(vep["rows_per_batch"]))
     except AssertionError as err:
         return fail(str(err))
-    table[0]["launches"] = results["launches"]["annotate_bin"]
-    if results["launches"]["annotate_bin"] != results["chunks"]:
-        return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
-                    f" times for {results['chunks']} chunks")
-    if results["plain_hash_calls"].get("cuda"):
-        return fail(f"the load called the plain allele_hash on the card "
-                    f"{results['plain_hash_calls']['cuda']} times")
+    emit("smoke", seconds=time.perf_counter() - t_start)
+    vcf_launches = results["launches"]["annotate_bin"]
+    vep_launches = vep["launches"]["annotate_bin"]
+    table[0].update(launches=vcf_launches + vep_launches,
+                    launches_vcf_load=vcf_launches, launches_vep_load=vep_launches,
+                    vep_batch_rows=vep_kernel["rows"], vep_batch_ms=vep_kernel["ms"],
+                    vep_batch_bound_ms=vep_kernel["bound_ms"])
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ from annotatedvdb_tpu.ops.binindex import bin_index_kernel_jit
 from annotatedvdb_tpu.ops.hashing import allele_hash_jit, allele_hash_np
 from annotatedvdb_tpu.types import VariantBatch
 
-from annotatedvdb_tpu_torch.models.pipeline import annotate_fn, annotate_pipeline
+from annotatedvdb_tpu_torch.models.pipeline import (
+    annotate_hash_fn,
+    annotate_hash_pipeline,
+)
 from annotatedvdb_tpu_torch.ops.annotate import annotate_kernel
 from annotatedvdb_tpu_torch.ops.annotate_cuda import (
     EVERY_ROW,
@@ -182,4 +185,8 @@ def test_wrapper_takes_plain_version_on_cpu_tensors():
 
 
 def test_annotate_fn_picks_plain_pipeline_on_cpu():
-    assert annotate_fn(torch.device("cpu")) is annotate_pipeline
+    """The loaders' step on the CPU is the plain pipeline plus the plain
+    hash, launching nothing; any other non-CUDA device is refused."""
+    assert annotate_hash_fn(torch.device("cpu")) is annotate_hash_pipeline
+    with pytest.raises(ValueError, match="no annotate step"):
+        annotate_hash_fn(torch.device("meta"))

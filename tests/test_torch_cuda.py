@@ -11,8 +11,10 @@ allele hash exact on every row, over the copy paths of its staging: full
 tiles, a ragged last tile, a single row, unaligned bases (tensors with a
 storage offset), width 1 and the widest width it takes.  The wrapper's
 refusals are checked, and the load's dispatch on the card is shown to take
-the hash from the kernel.  ``chip_smoke.py`` runs the same comparison at
-the load's real sizes."""
+the hash from the kernel.  The VEP update on the card must write the store
+the same update writes on the CPU, with one kernel launch per identity
+batch, and the rank table's lookup on the card must equal its host lookup.
+``chip_smoke.py`` runs the same comparisons at the loads' real sizes."""
 
 import os
 import sys
@@ -31,7 +33,13 @@ from annotatedvdb_tpu_torch.ops.annotate_cuda import (
     annotate_bin_reference,
 )
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import edge_batch, random_batch  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    edge_batch,
+    random_batch,
+    store_bytes,
+    write_phase4_vcf,
+    write_vep_json,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +136,68 @@ def test_dispatch_takes_the_hash_from_the_kernel(cuda):
     np.testing.assert_array_equal(hashing.to_uint32(h),
                                   hashing.to_uint32(hashing.hash_bits(want)))
     assert ann.bin_level.device.type == "cuda"
+
+
+def test_rank_table_lookup_on_card_matches_host(cuda):
+    """The rank table's searchsorted on the card, after a learn-on-miss
+    re-rank, over every table mask, the same masks with the unknown-term
+    bit 63 set, and seeded random masks."""
+    from annotatedvdb_tpu_torch.conseq import ConsequenceRanker, RankTable
+
+    ranker = ConsequenceRanker()
+    ranker.find_matching_consequence(
+        ["stop_gained", "NMD_transcript_variant", "intron_variant"])
+    table = RankTable(ranker, cuda)
+    rng = np.random.default_rng(5)
+    rand = rng.integers(0, 1 << 40, 1000).astype(np.uint64)
+    top = np.uint64(1) << np.uint64(63)
+    masks = np.concatenate([table._masks, table._masks | top, rand])
+    hi = (masks >> np.uint64(32)).astype(np.uint32)
+    lo = (masks & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    got = table.lookup_device(hi, lo)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  table.lookup_host(masks).astype(np.int32))
+    assert (got[: len(table._masks)] >= 0).all()
+
+
+def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The VEP update of one store on the card and on the CPU: the same
+    counters and store bytes; on the card one kernel launch per identity
+    batch, membership probed on the card, no plain hash."""
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
+    from annotatedvdb_tpu_torch.loaders import VepLoader
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+    from annotatedvdb_tpu_torch.utils.quarantine import QuarantineSink
+
+    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    vcf, vep = str(tmp_path / "v.vcf"), str(tmp_path / "v.vep.json")
+    lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
+    want, novel = write_vep_json(vep, lines, 5_000, seed=9, n_novel=3)
+    out = {}
+    for plat in ("cuda", "cpu"):
+        d = str(tmp_path / f"store_{plat}")
+        assert load_vcf(["--fileName", vcf, "--storeDir", d, "--commit",
+                         "--logAfter", "0", "--platform", "cpu"]) == 0
+        if plat == "cuda":
+            monkeypatch.setenv("AVDB_DEVICE_LOOKUP", "always")
+        store = VariantStore.load(d)
+        sink = QuarantineSink(d, vep, "load-vep")
+        loader = VepLoader(store, AlgorithmLedger(f"{d}/ledger.jsonl"),
+                           ConsequenceRanker(), datasource="dbSNP",
+                           log=lambda *a: None, quarantine=sink, device=plat)
+        calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+        counters = loader.load_file(vep, commit=True)
+        sink.close()
+        store.save(d)
+        monkeypatch.delenv("AVDB_DEVICE_LOOKUP", raising=False)
+        assert {k: counters.get(k, 0) for k in want} == want
+        assert sorted(loader.parser.ranker.added) == sorted(novel)
+        if plat == "cuda":
+            assert LAUNCHES["annotate_bin"] - launches == loader.identity_batches > 0
+            assert hashing.CALLS["cuda"] == calls["cuda"]
+            assert set(loader.probe_stats) == {"device"}
+        out[plat] = store_bytes(d)
+    assert out["cuda"] == out["cpu"]

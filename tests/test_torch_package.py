@@ -33,12 +33,27 @@ def test_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "assert not any(m == 'annotatedvdb_tpu' or m.startswith('annotatedvdb_tpu.')\n"
         "               for m in sys.modules), 'the JAX package was imported'\n"
-        "print(len(names))\n"
+        "print('\\n'.join(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25
+    names = set(proc.stdout.split())
+    assert len(names) >= 25
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in VEP_SLICE} <= names
+
+
+#: the VEP update slice's modules
+VEP_SLICE = ("conseq.groups", "conseq.ranker", "conseq.table", "io.vep",
+             "io.prefetch", "utils.pipeline", "loaders.vep_loader",
+             "cli.load_vep")
+
+
+def test_source_list_covers_the_vep_slice():
+    """The per-file import check below walks every module of the slice."""
+    sources = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for m in VEP_SLICE:
+        assert m.replace(".", os.sep) + ".py" in sources, m
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),
