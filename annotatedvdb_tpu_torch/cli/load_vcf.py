@@ -96,6 +96,7 @@ def main(argv=None):
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
+    from annotatedvdb_tpu_torch.utils.profiling import stall_summary
     from annotatedvdb_tpu_torch.utils.quarantine import (
         ErrorBudget,
         QuarantineSink,
@@ -152,12 +153,17 @@ def main(argv=None):
         if args.commit:
             store.save(args.storeDir)
     finally:
+        loader.close()
         loader.quarantine.close()
     if args.commit:
         log(f"COMMITTED {counters}")
     else:
         log(f"ROLLING BACK (dry run) {counters}")
     log(f"stage breakdown: {loader.timer.summary()}")
+    if loader.queue_stalls:
+        log(f"queue stalls: "
+            f"{stall_summary(loader.queue_stalls, loader.timer.wall_seconds)}")
+    log(f"device idle fraction: {loader.device_idle_fraction}")
     print(counters["alg_id"])  # undo handle, like load_vcf_file.py:220
     return 0
 

@@ -1,10 +1,12 @@
 """Host-side VCF ingest: text chunks -> VariantBatch + per-row sidecar.
 
-Copy of ``annotatedvdb_tpu/io/vcf.py`` with the Python tokenizer only: the
-native C++ tokenizer, its zero-copy FREQ sidecar and the prefetch spine
-are not ported yet.  Chunk boundaries depend on the engine, so stores
-written by the two packages agree byte for byte when the reference runs
-``engine="python"`` (``AVDB_INGEST_ENGINE=python``) with the same batch
+Copy of ``annotatedvdb_tpu/io/vcf.py``: both engines (the native C++
+tokenizer of ``native/`` by default, the Python tokenizer under
+``AVDB_INGEST_ENGINE=python``), the zero-copy FREQ sidecar
+(:func:`freq_sidecar`) and the prefetch spine (:meth:`iter_prefetched`).
+Chunk boundaries depend on the engine (the native scanner also ends a
+chunk at each read window), so a store written by either package equals
+the other's byte for byte when both read with the same engine and batch
 size.
 
 Replaces the reference's per-line ``VcfEntryParser``
@@ -33,6 +35,9 @@ from __future__ import annotations
 
 import gzip
 import io
+import json
+import math
+import re
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -116,6 +121,68 @@ def parse_freq(info: dict, n_alts: int) -> list:
     return out
 
 
+# \Z anchors, not $: '$' also matches before a trailing newline
+_INT_RE = re.compile(r"[+-]?\d+\Z", re.ASCII)
+_FLOAT_RE = re.compile(
+    r"[+-]?(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?\Z", re.ASCII
+)
+# population-name charset whose json.dumps rendering is the name verbatim
+# between quotes (printable ASCII, no '"'/'\\', nothing ensure_ascii would
+# escape); anything else takes the exact json.dumps fallback
+_FREQ_KEY_RE = re.compile(r"[A-Za-z0-9 _.,:/|\-]+\Z", re.ASCII)
+
+
+def freq_sidecar(info_str: str, n_alts: int) -> list:
+    """Per-alt FREQ sidecar as stored-JSONB text, straight from the raw
+    INFO span (the native engine's frequencies column).
+
+    Returns a list of ``RawJson``/None, one per alt, where each text is
+    byte-identical to ``json.dumps(parse_freq(parse_info(info_str), n)[i])``
+    — the bytes ``store.variant_store.sidecar_line`` writes for the dict.
+    The segment writer splices these verbatim, so FREQ never round-trips
+    through a Python dict per row.  Only the FREQ token is extracted (the
+    last one wins, as in a dict)."""
+    from annotatedvdb_tpu_torch.store.variant_store import RawJson
+
+    s = info_str.replace("\\x2c", ",").replace("\\x59", "/").replace("#", ":")
+    raw = None
+    for item in s.split(";"):
+        if item.startswith("FREQ="):
+            raw = item[5:]
+    if raw is None:
+        return [None] * n_alts
+    pops = {}
+    for pop in raw.split("|"):
+        if ":" in pop:
+            name, freqs = pop.split(":", 1)
+            pops[name] = freqs.split(",")
+    if not pops:
+        return [None] * n_alts
+    keys = {
+        name: (f'"{name}"' if _FREQ_KEY_RE.match(name)
+               else json.dumps(name))
+        for name in pops
+    }
+    out = []
+    for alt_index in range(1, n_alts + 1):
+        parts = []
+        for name, values in pops.items():
+            if alt_index < len(values) and values[alt_index] not in (".", "0"):
+                v = values[alt_index]
+                if _INT_RE.match(v):
+                    val = str(int(v))
+                elif _FLOAT_RE.match(v) and math.isfinite(fv := float(v)):
+                    # repr IS json.dumps' float rendering; overflow
+                    # ('1e400') takes the fallback, which writes Infinity
+                    # exactly like the dict path
+                    val = repr(fv)
+                else:
+                    val = json.dumps(to_numeric(v))
+                parts.append(f'{keys[name]}: {{"gmaf": {val}}}')
+        out.append(RawJson("{" + ", ".join(parts) + "}") if parts else None)
+    return out
+
+
 @dataclass
 class VcfChunk:
     """One ingest batch: device arrays + host sidecar (aligned by row).
@@ -131,9 +198,10 @@ class VcfChunk:
     ref_snp: list              # 'rs...' string or None, per row
     variant_id: list           # ID column or metaseq-style id, per row
     is_multi_allelic: np.ndarray
-    frequencies: list          # per-row dict or None (FREQ field)
+    frequencies: list          # per-row dict, RawJson or None (FREQ field)
     line_number: np.ndarray    # 1-based source line, per row
     counters: dict = field(default_factory=dict)
+    rs_position: list = field(default_factory=list)  # INFO RSPOS, per row
     #: int64 refsnp number per row (ID "rs<digits>" first, else INFO RS=,
     #: else -1) — lets the insert path store rs ids without materializing
     #: any per-row sidecar string (``loaders/vcf_loader.py`` append stage)
@@ -148,42 +216,100 @@ class VcfChunk:
     #: bool per row: INFO carries a FREQ entry.  The insert path skips the
     #: frequencies column entirely for chunks with no flagged row.
     has_freq: np.ndarray | None = None
+    #: uint32 allele-identity hash per row, computed by the native tokenizer
+    #: during the scan (the bit-exact twin of ``ops.hashing.allele_hash``
+    #: over the width-bounded arrays); a view of the chunk's buffer.  None
+    #: from the Python engine.  Over-width rows still need the host
+    #: full-string re-hash, as with every engine.
+    h_native: np.ndarray | None = None
 
 
 class VcfBatchReader:
-    """Stream a VCF into fixed-size per-alt row chunks (Python tokenizer).
+    """Stream a VCF into fixed-size per-alt row chunks.
 
     ``batch_size`` rows per chunk (the final chunk is smaller); rows on
     unplaceable contigs are skipped and counted, mirroring the reference's
-    standard-chromosome-only loads.  ``AVDB_INGEST_ENGINE=native`` (the
-    JAX package's C++ tokenizer) is refused: it is not ported yet.  The
-    site columns the update loaders read (QUAL, FILTER, FORMAT, the INFO
-    dict) come with them.
+    standard-chromosome-only loads.
+
+    ``engine`` (``AVDB_INGEST_ENGINE`` when ``auto`` is passed): ``auto``
+    reads with the native C++ tokenizer unless an accession map is given
+    (the native tokenizer resolves chromosome codes itself), ``native``
+    forces it (and refuses a map), ``python`` forces the Python scanner.
+    A native build that fails raises with the compiler's stderr: ``auto``
+    never falls back to the Python scanner.
     """
 
     def __init__(self, path: str, batch_size: int = 1 << 16, width: int = 49,
-                 chromosome_map: dict | None = None, on_reject=None):
-        import os
-
+                 chromosome_map: dict | None = None, engine: str = "auto",
+                 on_reject=None):
         self.path = path
         self.batch_size = batch_size
         self.width = width
         self.chromosome_map = chromosome_map
         #: ``on_reject(line_no, raw_line, reason)`` for malformed lines —
-        #: the quarantine hook (the Python scanner sees every line's
-        #: content)
+        #: the quarantine hook.  Only the Python scanner sees line content
+        #: (the native tokenizer reports counts, not spans); loaders check
+        #: :attr:`rejects_captured` and budget-count from the chunk's
+        #: malformed counter when content capture is unavailable.
         self.on_reject = on_reject
-        engine = os.environ.get("AVDB_INGEST_ENGINE", "auto")
-        if engine == "native":
-            raise NotImplementedError(
-                "AVDB_INGEST_ENGINE=native: the native tokenizer is not yet "
-                "ported; the port reads VCFs with the Python tokenizer"
-            )
-        if engine not in ("auto", "python"):
+        if engine == "auto":
+            import os
+
+            engine = os.environ.get("AVDB_INGEST_ENGINE", "auto")
+        if engine not in ("auto", "python", "native"):
             raise ValueError(f"unknown engine {engine!r}")
+        self.engine = engine
+
+    @property
+    def rejects_captured(self) -> bool:
+        """Whether malformed lines will reach ``on_reject`` with content."""
+        return self.on_reject is not None and not self._use_native()
+
+    def _use_native(self) -> bool:
+        """The engine this reader scans with; builds the native library on
+        first use (raising when the build fails)."""
+        if self.engine == "python":
+            return False
+        if self.chromosome_map is not None:
+            if self.engine == "native":
+                raise RuntimeError(
+                    "native ingest engine cannot apply a chromosome_map; "
+                    "use engine='python' (or 'auto') with accession maps"
+                )
+            return False
+        from annotatedvdb_tpu_torch import native
+
+        native.load()
+        return True
 
     def __iter__(self) -> Iterator[VcfChunk]:
+        if self._use_native():
+            from annotatedvdb_tpu_torch.native.vcf import iter_native_chunks
+
+            return iter_native_chunks(self.path, self.batch_size, self.width)
         return self._iter_python()
+
+    def iter_prefetched(self, timer, depth: int = 2,
+                        shuffle_seed: int | None = None,
+                        tagged: bool = False):
+        """Chunk iterator with the scan on a background ingest thread: the
+        first stage of the overlapped load executor.  ``depth`` bounds the
+        unconsumed chunks (backpressure blocks the scan).  Chunks are safe
+        to hand across the thread boundary: both engines emit self-owned
+        arrays, and sidecar columns only reference immutable window bytes.
+
+        ``tagged`` yields ``(seq, chunk)`` pairs; ``shuffle_seed`` (with
+        ``tagged``) arms shuffled chunk scheduling (see
+        :class:`~annotatedvdb_tpu_torch.io.prefetch.ChunkPrefetcher`).
+        ``timer`` gets the scan seconds as its ``ingest`` stage, on the
+        ingest thread.  Callers that stop early must ``close()`` the
+        returned prefetcher."""
+        from annotatedvdb_tpu_torch.io.prefetch import ChunkPrefetcher
+
+        return ChunkPrefetcher(
+            self, depth=depth, shuffle_seed=shuffle_seed, tagged=tagged,
+            timer=timer, name="vcf-ingest",
+        )
 
     def _iter_python(self) -> Iterator[VcfChunk]:
         rows: list = []
@@ -267,6 +393,7 @@ class VcfBatchReader:
                             line_no,
                             has_freq,
                             id_verbatim,
+                            info.get("RSPOS"),
                         )
                     )
         if rows or any(counters.values()):
@@ -304,6 +431,7 @@ class VcfBatchReader:
             frequencies=[r[7] for r in rows],
             line_number=np.array([r[8] for r in rows], dtype=np.int64),
             counters=dict(counters),
+            rs_position=[r[11] for r in rows],
         )
 
 

@@ -1,26 +1,41 @@
 """End-to-end VCF insert load on a torch device.
 
-Port of ``annotatedvdb_tpu/loaders/vcf_loader.py::TpuVcfLoader`` with its
-serial runner.  Per chunk: the Python tokenizer's arrays are uploaded with
-``non_blocking`` copies from pinned buffers, the annotate step (the CUDA
-kernel on a card, the plain torch version on the CPU) and the allele hash
-are enqueued — on a card one launch of the fused kernel computes both —
-and the host processes the PREVIOUS chunk while the device
-works — dedup within the batch (one identity sort per chromosome),
-membership against the store (numpy or the torch probe), egress strings
-for the rows that insert, segment build, then append -> persist ->
-checkpoint -> maintain, the order of the reference's store writer.
+Port of ``annotatedvdb_tpu/loaders/vcf_loader.py::TpuVcfLoader`` in its
+default configuration: the native C++ tokenizer, the overlapped executor
+and the async store writer.  Four stages run on their own threads, each
+boundary a bounded in-order queue:
 
-The stores this loader writes are byte-identical to the reference's for
-the same VCF, batch size and Python tokenizer
-(``tests/test_torch_load_vcf.py``).  Not ported yet: the overlapped
-executor and prefetch spine, the native tokenizer, the packed transport,
-the mesh path, reference-genome validation and display attributes.
+- ingest (``VcfBatchReader.iter_prefetched``): the tokenizer's scan (the
+  C call releases the GIL);
+- dispatch: pinned non-blocking uploads, one ``annotate_bin`` launch and
+  non-blocking copies of the columns the host reads into pinned memory,
+  all on one CUDA stream per loader, closed by one recorded event (the
+  plain torch versions on the CPU);
+- process (the caller's thread): waits on the chunk's event, then dedup
+  within the batch (one identity sort per chromosome), membership against
+  the in-flight and stored segments (numpy or the torch probe), egress
+  strings for the rows that insert, segment build;
+- the store writer: append -> persist -> checkpoint -> maintain.
+
+``AVDB_PIPELINE=serial`` runs the same per-chunk steps on one thread
+(double-buffered: chunk k+1 is dispatched before chunk k is processed),
+and ``AVDB_ASYNC_STORE=0`` commits on the process thread; every mode
+writes the same bytes.  The stores this loader writes are byte-identical
+to the reference's for the same VCF, batch size and engine
+(``tests/test_torch_pipeline_modes.py``, ``tests/test_torch_load_vcf.py``).
+Not ported yet: the packed transport and width-bucketed dispatch, the
+mesh path, reference-genome validation and display attributes.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
+import os
+import sys
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,11 +51,36 @@ from annotatedvdb_tpu_torch.runtime import resolve_device, to_device
 from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
 from annotatedvdb_tpu_torch.store.variant_store import Segment, combined_key
 from annotatedvdb_tpu_torch.types import AnnotatedBatch, VariantBatch
-from annotatedvdb_tpu_torch.utils.profiling import bulk_load_gc
+from annotatedvdb_tpu_torch.utils.profiling import DeviceOccupancy, bulk_load_gc
 
 #: the ledger's ``script`` label for insert loads — the reference's, so
 #: stores written by either package carry one provenance vocabulary
 LEDGER_SCRIPT = "TpuVcfLoader.load_file"
+
+#: the device step's columns the process stage reads (plus the hash when
+#: the chunk carries no tokenizer hash)
+COPY_BACK = ("bin_level", "leaf_bin", "needs_digest", "host_fallback")
+
+#: the quarantine's summary reason for malformed lines the native engine
+#: counted without their content (the reference's text, byte for byte)
+UNCAPTURED_REASON = (
+    "malformed VCF line(s); native engine captured no content "
+    "— re-run with AVDB_INGEST_ENGINE=python to quarantine them"
+)
+
+
+class _LoadCtx(NamedTuple):
+    """Per-load consume context threaded through the pipeline runners."""
+
+    alg_id: int
+    commit: bool
+    resume_line: int
+    mapping_fh: object
+    fail_at: str | None
+    persist: object
+    path: str
+    async_store: bool
+    test: bool
 
 
 def _slim_annotated(n: int, bin_level, leaf_bin, needs_digest,
@@ -59,9 +99,21 @@ def _slim_annotated(n: int, bin_level, leaf_bin, needs_digest,
     )
 
 
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """Non-blocking copy of a device tensor into fresh pinned host memory,
+    on the current stream."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
 class VcfLoader:
     """Insert-or-skip VCF loads into a :class:`VariantStore` on ``device``
-    (``cuda:0`` by default; ``"cpu"`` runs the plain torch versions)."""
+    (``cuda:0`` by default; ``"cpu"`` runs the plain torch versions).
+    Call :meth:`close` when done: it stops the store-writer thread."""
+
+    PIPELINE_DEPTH = 2  # unconsumed chunks per stage boundary (backpressure)
+    MAX_INFLIGHT_COMMITS = 2  # bounds pending-segment memory + probe work
 
     def __init__(
         self,
@@ -103,7 +155,7 @@ class VcfLoader:
             if genome_build.lower() in BUILD_LENGTHS else None
         )
         self._cadence = ProgressCadence(self.log, log_after)
-        #: per-stage host wall-clock attribution
+        #: per-stage busy seconds, per thread (``sum > wall`` = overlap)
         self.timer = StageTimer()
         self.counters = {
             "line": 0, "variant": 0, "skipped": 0, "duplicates": 0, "update": 0,
@@ -111,6 +163,24 @@ class VcfLoader:
         #: membership probes by path ("device" = torch probe, "host" =
         #: numpy) — observability only, never persisted
         self.probe_stats: dict[str, int] = {}
+        #: union coverage of per-chunk device in-flight windows (reset per
+        #: file); ``device_idle_fraction`` is the last file's 1 - busy/wall
+        self._occ = DeviceOccupancy()
+        self.device_idle_fraction: float | None = None
+        #: backpressure accounting per stage boundary (ingest / dispatch /
+        #: store-writer), accumulated across files: ``producer_block_s`` =
+        #: that boundary's consumer was the bottleneck, ``consumer_wait_s``
+        #: = its producer starved it
+        self.queue_stalls: dict[str, dict] = {}
+        # async store writer: built segments queue to one writer thread
+        # (append -> persist -> checkpoint -> maintain) while this thread
+        # processes the next chunk.  Entries are (future, payload); payload
+        # segments double as the pending membership set
+        # (_membership_segments)
+        self._inflight: collections.deque = collections.deque()
+        self._writer_pool = None
+        #: the dispatch stage's CUDA stream (created on first dispatch)
+        self._stream = None
         # quarantine sink + error budget: malformed input lines are
         # preserved replayably and counted against --maxErrors; the sink's
         # budget is authoritative when present
@@ -119,14 +189,30 @@ class VcfLoader:
             quarantine.budget if quarantine is not None
             else ErrorBudget(max_errors)
         )
+        self._rejects_captured = False
 
     def _reject(self, line_no, raw, reason) -> None:
-        """Quarantine one rejected input line.  Raises ErrorBudgetExceeded
-        past --maxErrors."""
+        """Quarantine one rejected input line (may run on the ingest
+        thread; the sink and budget are thread-safe).  Raises
+        ErrorBudgetExceeded past --maxErrors."""
         if self.quarantine is not None:
             self.quarantine.reject(line_no, raw, reason)
         else:
             self._budget.add(1, context=f"line {line_no}: {reason}")
+
+    def _reject_uncaptured(self, n: int, reason: str) -> None:
+        if n <= 0:
+            return
+        if self.quarantine is not None:
+            self.quarantine.reject_uncaptured(n, reason)
+        else:
+            self._budget.add(n, context=reason)
+
+    def _stall_rec(self, name: str) -> dict:
+        return self.queue_stalls.setdefault(name, {
+            "items": 0, "producer_block_s": 0.0, "consumer_wait_s": 0.0,
+            "max_depth": 0,
+        })
 
     @property
     def is_adsp(self) -> bool:
@@ -150,7 +236,14 @@ class VcfLoader:
         chunk holding that variant id is processed (earlier chunks commit
         first).  ``persist`` (callable) runs before each ledger checkpoint
         so the durable store never lags the resume cursor (the CLI passes
-        ``store.save``)."""
+        ``store.save``).
+
+        Execution mode: ``AVDB_PIPELINE`` ``overlapped`` (default) or
+        ``serial``; ``AVDB_ASYNC_STORE=0`` commits on the process thread
+        instead of the writer thread.  The reader's chunk size is
+        ``AVDB_INGEST_CHUNK_ROWS`` when set, else ``batch_size``."""
+        from annotatedvdb_tpu_torch.io.prefetch import ingest_chunk_rows
+
         alg_id = self.ledger.begin(
             LEDGER_SCRIPT,
             {"file": path, "datasource": self.datasource, "test": test},
@@ -160,19 +253,39 @@ class VcfLoader:
         if resume_line:
             self.log(f"resuming {path} after committed line {resume_line}")
         mapping_fh = open(mapping_path, "w") if mapping_path else None
+        async_store = commit and os.environ.get("AVDB_ASYNC_STORE", "1") != "0"
+        overlapped = os.environ.get(
+            "AVDB_PIPELINE", "overlapped"
+        ).lower() != "serial"
+        ctx = _LoadCtx(alg_id, commit, resume_line, mapping_fh, fail_at,
+                       persist, path, async_store, test)
         try:
+            # this file's device-idle headline must not absorb earlier
+            # files loaded through the same loader
+            self._occ = DeviceOccupancy()
+            wall0 = self.timer.wall_seconds
             reader = VcfBatchReader(
                 path,
-                batch_size=self.batch_size,
+                batch_size=ingest_chunk_rows(self.batch_size),
                 width=self.store.width,
                 chromosome_map=self.chromosome_map,
                 on_reject=self._reject,
             )
+            # content-capturing rejects reach _reject directly (Python
+            # scanner); native-engine loads budget-count from the chunks'
+            # malformed counters instead (_consume_entry).  Resolving the
+            # engine here builds the native library on this thread, so a
+            # failed build raises before any stage starts
+            self._rejects_captured = reader.rejects_captured
             with self.timer.wall():
-                self._run_serial(
-                    reader, alg_id, commit, resume_line, mapping_fh,
-                    fail_at, persist, path, test,
-                )
+                if overlapped:
+                    self._run_overlapped(reader, ctx)
+                else:
+                    self._run_serial(reader, ctx)
+                self._drain_inflight()
+            self.device_idle_fraction = self._occ.idle_fraction(
+                self.timer.wall_seconds - wall0
+            )
             self.ledger.finish(alg_id, dict(self.counters))
             # terminal counter line: short files must still log totals
             self._cadence.finish(
@@ -182,16 +295,24 @@ class VcfLoader:
             if self._budget.count:
                 # rejected-row total, recorded on success AND abort
                 self.counters["rejected"] = self._budget.count
-            if mapping_fh:
-                mapping_fh.close()
+            try:
+                # earlier chunks' queued commits land even when a later
+                # chunk raised (failAt: everything before the fault
+                # commits, the fault's own chunk does not)
+                self._drain_inflight()
+            finally:
+                if mapping_fh:
+                    mapping_fh.close()
         self.counters["alg_id"] = alg_id
         return dict(self.counters)
 
-    def _run_serial(self, reader, alg_id, commit, resume_line, mapping_fh,
-                    fail_at, persist, path, test) -> None:
-        """Double-buffered loop: chunk k+1's device work is enqueued before
-        chunk k's host processing copies its results back, so device compute
-        and transfers overlap host work."""
+    # -- pipeline runners ---------------------------------------------------
+
+    def _run_serial(self, reader: VcfBatchReader, ctx: _LoadCtx) -> None:
+        """Single-thread double-buffered loop: chunk k+1's device work is
+        enqueued before chunk k's results are read back, so device compute
+        and transfers still overlap host work — but ingest, dispatch and
+        process share this thread's clock."""
         chunks = iter(reader)
         pending = None
         while True:
@@ -199,19 +320,81 @@ class VcfLoader:
                 chunk = next(chunks, None)
             entry = None
             if chunk is not None:
-                entry = self._dispatch_entry(chunk, resume_line)
-            if pending is not None and self._consume_entry(
-                    pending, alg_id, commit, resume_line, mapping_fh,
-                    fail_at, persist, path, test):
+                entry = self._dispatch_entry(
+                    self._entry_from_chunk(chunk, ctx.resume_line)
+                )
+            if pending is not None and self._consume_entry(pending, ctx):
                 break
             pending = entry
             if chunk is None:
                 break
 
-    def _dispatch_entry(self, chunk: VcfChunk, resume_line: int) -> tuple:
-        """Counter delta of one chunk (applied only when it is consumed, so
-        checkpoints never count an uncommitted chunk) and its enqueued
-        device work (None for counters-only and fully replayed chunks)."""
+    def _run_overlapped(self, reader: VcfBatchReader, ctx: _LoadCtx) -> None:
+        """Overlapped executor: ingest thread -> dispatch thread -> this
+        (process) thread -> store-writer thread, each boundary a bounded
+        queue.
+
+        Chunks travel seq-tagged: the prefetcher may emit them SHUFFLED
+        (``AVDB_INGEST_SHUFFLE_SEED``) and dispatch is order-independent,
+        but a :class:`Resequencer` restores source order before this
+        consumer — so counters, identity first-wins, checkpoint cursors
+        and ``--maxErrors`` accounting all apply in chunk order."""
+        from annotatedvdb_tpu_torch.io.prefetch import (
+            ingest_prefetch_depth,
+            ingest_shuffle_seed,
+        )
+        from annotatedvdb_tpu_torch.utils.pipeline import (
+            BoundedStage,
+            Resequencer,
+            merge_stage_stats,
+        )
+
+        depth = ingest_prefetch_depth(self.PIPELINE_DEPTH)
+        ingest = reader.iter_prefetched(
+            depth=depth, timer=self.timer,
+            shuffle_seed=ingest_shuffle_seed(), tagged=True,
+        )
+        dispatch = BoundedStage(
+            ingest,
+            fn=lambda tagged: (
+                tagged[0],
+                self._dispatch_entry(
+                    self._entry_from_chunk(tagged[1], ctx.resume_line)
+                ),
+            ),
+            depth=depth,
+            name="vcf-dispatch",
+        )
+        try:
+            for entry in Resequencer(dispatch):
+                if self._consume_entry(entry, ctx):
+                    break
+        finally:
+            # stop both producers promptly (a failed load must not leave a
+            # tokenizer thread scanning a multi-GB file); dispatched device
+            # work is abandoned, and un-applied chunks never touched the
+            # counters.  UPSTREAM first: the dispatch thread may be blocked
+            # pulling from ingest, and ingest.close() unblocks it
+            ingest.close()
+            dispatch.close()
+            merge_stage_stats(self.queue_stalls, "ingest", ingest.stats)
+            merge_stage_stats(self.queue_stalls, "dispatch", dispatch.stats)
+            # a stage error whose envelope never reached this consumer
+            # (dropped by the close) is the abort's ROOT CAUSE — log it
+            # unless it is the very exception already propagating
+            propagating = sys.exc_info()[1]
+            for name, stage in (("ingest", ingest), ("dispatch", dispatch)):
+                if stage.error is not None and stage.error is not propagating:
+                    self.log(
+                        f"pipeline {name} stage failed during teardown: "
+                        f"{stage.error!r}"
+                    )
+
+    def _entry_from_chunk(self, chunk: VcfChunk, resume_line: int) -> tuple:
+        """Ingest-side accounting for one chunk: the counter delta that
+        travels with it (applied only when the chunk is consumed, so
+        checkpoints never count an uncommitted chunk) and whether it needs
+        device dispatch at all."""
         delta = {
             "line": chunk.counters.get("line", 0),
             "skipped": (
@@ -220,71 +403,188 @@ class VcfLoader:
             ),
             "malformed": chunk.counters.get("malformed", 0),
         }
-        handles = None
+        needs_dispatch = True
         if chunk.batch.n == 0:
-            pass  # trailing counters-only chunk
+            needs_dispatch = False  # trailing counters-only chunk
         elif resume_line and chunk.line_number[-1] <= resume_line:
             # fully-replayed chunk: count it skipped, never dispatch
             delta["skipped"] += chunk.batch.n
-        else:
+            needs_dispatch = False
+        return chunk, delta, needs_dispatch
+
+    def _dispatch_entry(self, entry: tuple) -> tuple:
+        """Dispatch stage: enqueue the chunk's device work (no result is
+        waited for here — see ``_dispatch_chunk``)."""
+        chunk, delta, needs_dispatch = entry
+        handles = None
+        if needs_dispatch:
             with self.timer.stage("dispatch"):
                 handles = self._dispatch_chunk(chunk)
+            # the device in-flight window opens at enqueue; _process_chunk
+            # closes it when the results are ready (DeviceOccupancy)
+            handles["t0"] = time.perf_counter()
         return chunk, handles, delta
 
     def _dispatch_chunk(self, chunk: VcfChunk) -> dict:
-        """Upload the chunk and enqueue annotate + hash without waiting
-        (one kernel launch on a card; the plain versions on the CPU)."""
-        dev = [to_device(x, self.device) for x in chunk.batch]
-        ann, h = annotate_hash_fn(self.device)(*dev)
-        return {"ann": ann, "h": h}
+        """Enqueue the chunk's device step without waiting: on a card,
+        pinned non-blocking uploads, one ``annotate_bin`` launch and
+        non-blocking copies of the ``COPY_BACK`` columns (and the hash when
+        the chunk carries no tokenizer hash) into fresh pinned host
+        tensors, all on this loader's stream, then one event recorded
+        there.  The process stage waits on that event alone, never on the
+        device as a whole, so it does not queue behind the next chunk's
+        work.  On the CPU the plain versions run here and the event is
+        None.  The lazy sidecar columns are never touched on this thread."""
+        on_card = self.device.type == "cuda"
+        if on_card and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream) if on_card else contextlib.nullcontext():
+            # the first call checks the kernel against the plain version
+            # (raises on a mismatch, failing the load)
+            step = annotate_hash_fn(self.device)
+            ann, h = step(*(to_device(x, self.device) for x in chunk.batch))
+            cols = {name: getattr(ann, name) for name in COPY_BACK}
+            if chunk.h_native is None:
+                cols["h"] = h
+            if not on_card:
+                return {"cols": cols, "event": None}
+            cols = {name: _pinned_copy(t) for name, t in cols.items()}
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return {"cols": cols, "event": event}
 
-    def _consume_entry(self, entry, alg_id, commit, resume_line, mapping_fh,
-                       fail_at, persist, path, test) -> bool:
-        """Apply one chunk's counter delta, process + commit it, checkpoint.
-        Returns True when the load should stop (test mode)."""
+    def _consume_entry(self, entry: tuple, ctx: _LoadCtx) -> bool:
+        """Process one dispatched chunk on the consumer thread: apply its
+        counter delta, process + commit it, checkpoint.  Returns True when
+        the load should stop (test mode)."""
         chunk, handles, delta = entry
         for key, v in delta.items():
             self.counters[key] = self.counters.get(key, 0) + v
+        if delta["malformed"] and not self._rejects_captured:
+            # native tokenizer: malformed lines were counted without
+            # content — budget-check them HERE, on the process thread in
+            # chunk order, so --maxErrors trips at the same input line
+            # however the prefetcher scheduled the chunks
+            self._reject_uncaptured(delta["malformed"], UNCAPTURED_REASON)
         if handles is None:
             return False
-        if fail_at is not None and fail_at in chunk.variant_id:
-            raise RuntimeError(f"failAt variant reached: {fail_at}")
-        payload = self._process_chunk(chunk, handles, alg_id, commit,
-                                      resume_line, mapping_fh)
+        if ctx.fail_at is not None and ctx.fail_at in chunk.variant_id:
+            raise RuntimeError(f"failAt variant reached: {ctx.fail_at}")
+        self._prune_inflight()
+        payload = self._process_chunk(
+            chunk, handles, ctx.alg_id, ctx.commit, ctx.resume_line,
+            ctx.mapping_fh, defer_commit=ctx.async_store,
+        )
         self._cadence.maybe_log(
             self.counters["line"], self.counters, self.timer.summary()
         )
-        if commit:
-            # the reference's store-writer order: append, persist +
-            # checkpoint, THEN cascade-merge (merging persisted segments
-            # references their files instead of rewriting them)
-            line = int(chunk.line_number[-1])
-            counters = dict(self.counters)
-            payload = payload or []
-            with self.timer.stage("append", items=sum(s.n for _c, s in payload)):
-                for code, seg in payload:
-                    self.store.shard(code).append_segment(seg)
+        line = int(chunk.line_number[-1])
+        if ctx.commit and ctx.async_store:
+            # checkpoint even for insert-less chunks (an all-duplicate
+            # chunk must still advance the resume cursor)
+            self._enqueue_commit(payload, ctx.persist, ctx.alg_id, ctx.path,
+                                 line)
+        elif ctx.commit:
             with self.timer.stage("persist"):
-                if persist is not None:
-                    persist()
-                self.ledger.checkpoint(alg_id, path, line, counters)
-            with self.timer.stage("maintain"):
-                for code in {c for c, _seg in payload}:
-                    self.store.shard(code).maintain()
-        if test:
+                if ctx.persist is not None:
+                    ctx.persist()
+                self.ledger.checkpoint(ctx.alg_id, ctx.path, line,
+                                       dict(self.counters))
+        if ctx.test:
             self.log("test mode: stopping after first batch")
             return True
         return False
 
+    # -- async store writer --------------------------------------------------
+
+    def _writer(self):
+        if self._writer_pool is None:
+            import concurrent.futures
+
+            self._writer_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="avdbc-store"
+            )
+        return self._writer_pool
+
+    def _commit_job(self, payload, persist, alg_id, path, line, counters):
+        """Writer-thread store commit for one chunk: append its segments,
+        persist + checkpoint, THEN cascade-merge (merging persisted
+        segments references their files instead of rewriting them)."""
+        with self.timer.stage("append", items=sum(seg.n for _c, seg in payload)):
+            for code, seg in payload:
+                self.store.shard(code).append_segment(seg)
+        with self.timer.stage("persist"):
+            if persist is not None:
+                persist()
+            self.ledger.checkpoint(alg_id, path, line, counters)
+        with self.timer.stage("maintain"):
+            for code in {c for c, _seg in payload}:
+                self.store.shard(code).maintain()
+
+    def _enqueue_commit(self, payload, persist, alg_id, path, line) -> None:
+        """Queue one chunk's store commit; the bounded in-flight depth
+        applies backpressure by blocking on the oldest job (blocked seconds
+        land in the ``store-writer`` stall record: the writer is the
+        bottleneck)."""
+        fut = self._writer().submit(
+            self._commit_job, payload or [], persist, alg_id, path, line,
+            dict(self.counters),
+        )
+        self._inflight.append((fut, payload or []))
+        rec = self._stall_rec("store-writer")
+        rec["items"] += 1
+        rec["max_depth"] = max(rec["max_depth"], len(self._inflight))
+        if len(self._inflight) > self.MAX_INFLIGHT_COMMITS:
+            t0 = time.perf_counter()
+            while len(self._inflight) > self.MAX_INFLIGHT_COMMITS:
+                self._inflight[0][0].result()
+                self._inflight.popleft()
+            rec["producer_block_s"] = round(
+                rec["producer_block_s"] + (time.perf_counter() - t0), 4
+            )
+
+    def _prune_inflight(self) -> None:
+        """Drop completed commits (surfacing writer exceptions promptly)."""
+        while self._inflight and self._inflight[0][0].done():
+            fut, _ = self._inflight.popleft()
+            fut.result()
+
+    def _drain_inflight(self) -> None:
+        while self._inflight:
+            fut, _ = self._inflight.popleft()
+            fut.result()
+
+    def close(self) -> None:
+        """Stop the store-writer thread after its queued commits
+        (idempotent; the loader is reusable until closed)."""
+        if self._writer_pool is not None:
+            self._writer_pool.shutdown(wait=True)
+            self._writer_pool = None
+
     def _membership_segments(self, code: int) -> list:
+        """Segments to probe for membership of chromosome ``code``: pending
+        (enqueued, possibly not yet appended) first, then a snapshot of the
+        shard's list.  Only the writer thread mutates the shard's list, and
+        it appends a segment before its job completes, so pending-then-
+        snapshot misses none (a duplicate of a row from the previous one or
+        two chunks is found in flight)."""
+        segs = [
+            seg
+            for _fut, payload in self._inflight
+            for c, seg in payload
+            if c == code
+        ]
         shard = self.store.shards.get(int(code))
-        return list(shard.segments) if shard is not None else []
+        if shard is not None:
+            segs.extend(list(shard.segments))
+        return segs
 
     def _process_chunk(self, chunk: VcfChunk, handles: dict, alg_id, commit,
-                       resume_line, mapping_fh):
-        """Copy the chunk's device results back, filter to inserts, build
-        the sorted segments; returns ``[(chrom code, Segment), ...]`` for
-        the caller to commit (None when nothing inserts)."""
+                       resume_line, mapping_fh, defer_commit: bool = False):
+        """Read the chunk's device results, filter to inserts, build the
+        sorted segments.  With ``defer_commit`` the built segments are
+        RETURNED as ``[(chrom code, Segment), ...]`` for the store writer;
+        otherwise they are appended (and merged) here."""
         batch = chunk.batch
         if self._chrom_lengths is not None:
             oob = batch.pos.astype(np.int64) > self._chrom_lengths[
@@ -300,21 +600,29 @@ class VcfLoader:
                     f"{n_oob} positions beyond chromosome bounds, e.g. "
                     f"{chunk.variant_id[i]}"
                 )
-        # ---- copy back only the fields the store path consumes
+        # ---- wait for this chunk's device step (its event only) and read
+        # the host copies of the fields the store path consumes
         with self.timer.stage("annotate", items=batch.n):
-            ann_d = handles["ann"]
-            h = to_uint32(handles["h"])
-            host_rows = ann_d.host_fallback.cpu().numpy()
+            if handles["event"] is not None:
+                handles["event"].synchronize()
+            cols = handles["cols"]
+            h = (chunk.h_native if chunk.h_native is not None
+                 else to_uint32(cols["h"]))
+            host_rows = cols["host_fallback"].numpy()
             # long alleles are truncated in the device arrays: re-hash them
             # from the original strings so identity never collides on a
-            # shared prefix
-            for i in np.where(host_rows)[0]:
-                h[i] = _fnv32_str(chunk.refs[i], chunk.alts[i])
+            # shared prefix.  Copy-on-write: h_native is a view of the
+            # chunk's buffer
+            fb = np.where(host_rows)[0]
+            if fb.size:
+                h = h.copy()
+                for i in fb:
+                    h[i] = _fnv32_str(chunk.refs[i], chunk.alts[i])
             ann = _slim_annotated(
-                batch.n, ann_d.bin_level.cpu().numpy(),
-                ann_d.leaf_bin.cpu().numpy(),
-                ann_d.needs_digest.cpu().numpy(), host_rows,
+                batch.n, cols["bin_level"].numpy(), cols["leaf_bin"].numpy(),
+                cols["needs_digest"].numpy(), host_rows,
             )
+        self._occ.record(handles["t0"], time.perf_counter())
         # replayed rows within a partially-committed chunk
         replay = chunk.line_number <= resume_line
 
@@ -509,6 +817,13 @@ class VcfLoader:
                     )
                     payload.append((code, seg))
                     offset += k
+            if not defer_commit:
+                with self.timer.stage("append", items=int(sel.size)):
+                    for code, seg in payload:
+                        shard = self.store.shard(code)
+                        shard.append_segment(seg)
+                        shard.maintain()
+                payload = None
         self.counters["variant"] += int(sel.size)
 
         if mapping_fh is not None:

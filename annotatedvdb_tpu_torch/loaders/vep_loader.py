@@ -196,7 +196,8 @@ class VepLoader:
         self.store.pin_for_updates(self.device)
         n_added_before = len(self.parser.ranker.added)
         with self.timer.wall(), _open_bytes(path) as fh:
-            pre = ChunkPrefetcher(_blocks(fh, test), self.timer)
+            pre = ChunkPrefetcher(_blocks(fh, test), timer=self.timer,
+                                  name="vep-ingest")
             try:
                 for text in pre:
                     with self.timer.stage("process"):

@@ -1,0 +1,458 @@
+// avdb_native: host-side ingest runtime for the TPU variant-annotation
+// framework.
+//
+// The reference's ingest is a per-line Python VcfEntryParser
+// (Util/lib/python/parsers/vcf_parser.py:76-231) feeding a per-variant hot
+// loop; its only "native" ingest is mmap + gzip (load_vcf_file.py:99-102).
+// Here the tokenizer itself is native: it scans a decompressed text chunk,
+// expands multi-allelic sites, and writes the device-ready columnar batch
+// (chromosome codes, positions, width-bounded allele bytes + true lengths)
+// straight into caller-provided numpy buffers — no per-row Python objects.
+//
+// Contract (mirrors io/vcf.py VcfBatchReader's Python engine):
+//   - lines starting '#' and blank lines are skipped;
+//   - CHROM strips a "chr" prefix, "MT" folds to "M"; codes are 1..22,
+//     X=23, Y=24, M=25; code 0 (unplaceable contig) skips the line and
+//     counts skipped_contig;
+//   - ALT splits on ','; a "." alt is skipped and counts skipped_alt;
+//   - only COMPLETE lines are consumed (a multi-allelic site never
+//     straddles chunks); the caller re-feeds the unconsumed tail;
+//   - string-typed columns (ID, INFO, QUAL/FILTER/FORMAT, REF/ALT over the
+//     device width) come back as (offset, length) spans into the caller's
+//     buffer so Python materializes only what it needs.
+//
+// Build: g++ -O3 -shared -fPIC (see native/__init__.py).
+
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+inline int8_t chrom_code(const char* s, int len) {
+    if (len >= 3 && s[0] == 'c' && s[1] == 'h' && s[2] == 'r') {
+        s += 3;
+        len -= 3;
+    }
+    if (len == 1) {
+        switch (s[0]) {
+            case 'X': return 23;
+            case 'Y': return 24;
+            case 'M': return 25;
+            default: break;
+        }
+        if (s[0] >= '1' && s[0] <= '9') return static_cast<int8_t>(s[0] - '0');
+        return 0;
+    }
+    if (len == 2) {
+        if (s[0] == 'M' && s[1] == 'T') return 25;
+        if (s[0] >= '1' && s[0] <= '2' && s[1] >= '0' && s[1] <= '9') {
+            int v = (s[0] - '0') * 10 + (s[1] - '0');
+            if (v >= 10 && v <= 22) return static_cast<int8_t>(v);
+        }
+    }
+    return 0;
+}
+
+// parse a non-negative decimal; returns -1 on any non-digit byte
+inline int64_t parse_pos(const char* s, int len) {
+    if (len <= 0) return -1;
+    int64_t v = 0;
+    for (int i = 0; i < len; ++i) {
+        char c = s[i];
+        if (c < '0' || c > '9') return -1;
+        v = v * 10 + (c - '0');
+        if (v > INT64_C(0x7fffffff)) return -1;
+    }
+    return v;
+}
+
+struct Span {
+    const char* ptr;
+    int len;
+};
+
+inline bool is_space(char c) {
+    return c == ' ' || c == '\t' || c == '\n' || c == '\r'
+        || c == '\v' || c == '\f';
+}
+
+// 4-bit allele codes for nibble-packed device uploads; 0 = pad byte,
+// 255 = unpackable.  Callers that pass want_packed = 0 never read them.
+struct NibbleLut {
+    uint8_t enc[256];
+    NibbleLut() {
+        memset(enc, 255, sizeof(enc));
+        enc[0] = 0;
+        const char* alphabet = "ACGTNacgtn*.-";
+        for (int i = 0; alphabet[i]; ++i)
+            enc[static_cast<uint8_t>(alphabet[i])] =
+                static_cast<uint8_t>(i + 1);
+    }
+};
+const NibbleLut kNibble;
+
+// pack one width-w byte row into ceil(w/2) nibble pairs; returns false on
+// any out-of-alphabet byte (row left undefined, caller uploads raw bytes)
+inline bool pack_row(const uint8_t* src, int width, uint8_t* dst) {
+    int cols = (width + 1) / 2;
+    for (int k = 0; k < cols; ++k) {
+        uint8_t lo = kNibble.enc[src[2 * k]];
+        uint8_t hi = (2 * k + 1 < width) ? kNibble.enc[src[2 * k + 1]] : 0;
+        if (lo == 255 || hi == 255) return false;
+        dst[k] = static_cast<uint8_t>(lo | (hi << 4));
+    }
+    return true;
+}
+
+// FNV-1a over (ref_len&0xFF, alt_len&0xFF, padded ref row, padded alt row):
+// the bit-exact twin of ops/hashing.py::allele_hash over the width-bounded
+// device arrays.  Zero pad bytes fold to h *= prime^pad (x ^ 0 == x), so the
+// caller passes a prime-power table and content bytes are the only loop.
+inline uint32_t pad_fold(uint32_t h, int pad, const uint32_t* pp, int pp_n) {
+    while (pad >= pp_n) {  // widths beyond the table: fold in steps
+        h *= pp[pp_n - 1];
+        pad -= pp_n - 1;
+    }
+    return h * pp[pad];
+}
+
+inline uint32_t fnv_row(const uint8_t* ref_row, const uint8_t* alt_row,
+                        int width, int32_t rl, int32_t al,
+                        const uint32_t* primepow, int pp_n) {
+    uint32_t h = 2166136261u;
+    const uint32_t prime = 16777619u;
+    h = (h ^ static_cast<uint32_t>(rl & 0xFF)) * prime;
+    h = (h ^ static_cast<uint32_t>(al & 0xFF)) * prime;
+    int rc = rl < width ? rl : width;
+    for (int i = 0; i < rc; ++i) h = (h ^ ref_row[i]) * prime;
+    h = pad_fold(h, width - rc, primepow, pp_n);
+    int ac = al < width ? al : width;
+    for (int i = 0; i < ac; ++i) h = (h ^ alt_row[i]) * prime;
+    h = pad_fold(h, width - ac, primepow, pp_n);
+    return h;
+}
+
+// refsnp number for one site: ID "rs<digits>" wins, else INFO "RS=<digits>"
+// (key-anchored: start of INFO or after ';'), else -1.  Mirrors the Python
+// reader's ref_snp derivation + loaders' _rs_number parse so the insert path
+// never materializes the ID string.  *weird is set when the row HAS a
+// refsnp string (ID containing 'rs', or an INFO RS entry) that does not
+// parse to a number — the rare rows whose primary keys must fall back to
+// the materialized string.
+inline int64_t rs_number_of(const Span& id, const Span& info, bool has_info,
+                            uint8_t* weird) {
+    *weird = 0;
+    if (id.len > 2 && id.ptr[0] == 'r' && id.ptr[1] == 's') {
+        int64_t v = 0;
+        bool ok = true;
+        for (int i = 2; i < id.len && ok; ++i) {
+            char c = id.ptr[i];
+            if (c < '0' || c > '9') ok = false;
+            else if (v > (INT64_MAX - 9) / 10) ok = false;  // int64 bound
+            else v = v * 10 + (c - '0');
+        }
+        if (ok) {
+            // zero-padded ids ("rs0012") round-trip through the int as
+            // "rs12": flag them so PKs use the verbatim string
+            if (id.len > 3 && id.ptr[2] == '0') *weird = 1;
+            return v;
+        }
+    }
+    // an ID containing 'rs' anywhere IS the refsnp string (reference
+    // substring rule, vcf_parser.py:158-169) — it shadows INFO RS even when
+    // it does not parse to a number
+    for (int i = 0; i + 1 < id.len; ++i)
+        if (id.ptr[i] == 'r' && id.ptr[i + 1] == 's') {
+            *weird = 1;
+            return -1;
+        }
+    if (!has_info) return -1;
+    // the Python chain routes the RS value through int() then re-prints it
+    // ("rs" + str(int(v))), so mirror int()'s accepted forms: optional '+'
+    // and single underscores BETWEEN digits; last RS= key wins (dict
+    // assignment order in parse_info)
+    const char* s = info.ptr;
+    int64_t result = -1;
+    for (int i = 0; i + 3 <= info.len; ++i) {
+        if ((i == 0 || s[i - 1] == ';')
+            && s[i] == 'R' && s[i + 1] == 'S' && s[i + 2] == '=') {
+            int64_t v = 0;
+            bool ok = false, prev_digit = false;
+            int j = i + 3;
+            // int() strips surrounding ASCII whitespace
+            while (j < info.len && is_space(s[j])) ++j;
+            if (j < info.len && s[j] == '+') ++j;
+            for (; j < info.len && s[j] != ';'; ++j) {
+                char c = s[j];
+                if (c >= '0' && c <= '9') {
+                    if (v > (INT64_MAX - 9) / 10) {  // int64 bound
+                        ok = false;
+                        break;
+                    }
+                    v = v * 10 + (c - '0');
+                    ok = prev_digit = true;
+                } else if (c == '_' && prev_digit) {
+                    prev_digit = false;  // int() wants digits on both sides
+                } else if (is_space(c) && ok && prev_digit) {
+                    // trailing whitespace only: anything after must be
+                    // whitespace until ';' or end
+                    for (; j < info.len && s[j] != ';'; ++j)
+                        if (!is_space(s[j])) { ok = false; break; }
+                    break;
+                } else {
+                    ok = false;
+                    break;
+                }
+            }
+            result = (ok && prev_digit) ? v : -1;
+            // an RS entry that fails int() still yields a "rs<value>"
+            // string in the Python chain — flag it (cleared by a later
+            // parsable RS key, matching last-key-wins)
+            *weird = result < 0 ? 1 : 0;
+        }
+    }
+    return result;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Counters layout (int64):
+//   [0] lines parsed (data lines seen, valid or not)
+//   [1] skipped_contig
+//   [2] skipped_alt
+//   [3] malformed (fewer than 5 columns or bad POS)
+//   [4] TOTAL lines consumed (headers/blank included) — the caller's
+//       absolute line_base advance, so it never re-scans the window for
+//       newlines
+//
+// Returns the number of rows written.  *consumed is the byte count of fully
+// processed lines; *need_more is set to 1 when the row buffers filled up
+// before the chunk was exhausted (caller flushes and re-feeds from
+// *consumed).
+int64_t avdb_parse_vcf_chunk(
+    const char* buf, int64_t n_bytes, int32_t width, int64_t max_rows,
+    int64_t line_base,
+    // per-row outputs (device batch)
+    int8_t* chrom, int32_t* pos, uint8_t* ref, uint8_t* alt,
+    int32_t* ref_len, int32_t* alt_len, uint8_t* multi,
+    int64_t* line_no,
+    // per-row spans into buf (host sidecar, lazily materialized)
+    int64_t* ref_off, int64_t* alt_off,
+    int64_t* id_off, int32_t* id_len,
+    int64_t* qual_off, int32_t* qual_len,
+    int64_t* filter_off, int32_t* filter_len,
+    int64_t* info_off, int32_t* info_len,
+    int64_t* format_off, int32_t* format_len,
+    // full ALT column span (multi-allelic variant ids need it verbatim)
+    int64_t* altcol_off, int32_t* altcol_len,
+    // site index of each row within its line (alt ordinal) + alt count
+    int32_t* alt_index, int32_t* n_alts_out,
+    // refsnp number (ID "rs<digits>", else INFO RS=, else -1) + per-row
+    // flag for rows whose refsnp STRING exists but does not parse (their
+    // primary keys need the materialized string); identity_only loads skip
+    // the INFO fallback, mirroring the readers' skipped INFO parse
+    int64_t* rs_number, uint8_t* rs_weird,
+    // 1 when the ID column is a verbatim variant id (not '.' and not an
+    // rs accession) — those rows' mapping ids must use the ID string;
+    // all others use the assembled chr:pos:ref:altcol form
+    uint8_t* id_verbatim,
+    // 1 when INFO carries a key-anchored FREQ= entry (the insert path reads
+    // the frequencies column for every row; this flag lets it skip the lazy
+    // INFO parse wholesale on FREQ-less rows/chunks)
+    uint8_t* has_freq,
+    // uint32 FNV-1a allele-identity hash per row (ops/hashing.py twin over
+    // the width-bounded arrays) — computed during the scan while the allele
+    // bytes are cache-hot, so host paths never pay a device hash round trip
+    uint32_t* hash_out,
+    // nibble-packed allele uploads: [cap, ceil(width/2)] each + per-row
+    // packable flag (0 when the row holds out-of-alphabet bytes).
+    // want_packed=0 skips the pack work entirely (consumers that never
+    // upload, e.g. mesh-path loads and export scans)
+    uint8_t* ref_packed, uint8_t* alt_packed, uint8_t* pack_ok,
+    int32_t identity_only, int32_t want_packed,
+    int64_t* counters, int64_t* consumed, int32_t* need_more) {
+    int64_t rows = 0;
+    int64_t offset = 0;
+    int64_t line = line_base;
+    *need_more = 0;
+
+    // prime^k table for zero-pad folding in fnv_row (k in [0, width])
+    uint32_t primepow_buf[4096];
+    int pp_n = width + 1 <= 4096 ? width + 1 : 4096;
+    primepow_buf[0] = 1u;
+    for (int k = 1; k < pp_n; ++k)
+        primepow_buf[k] = primepow_buf[k - 1] * 16777619u;
+
+    while (offset < n_bytes) {
+        const char* nl = static_cast<const char*>(
+            memchr(buf + offset, '\n', static_cast<size_t>(n_bytes - offset)));
+        if (nl == nullptr) break;  // incomplete final line: leave for caller
+        const char* p = buf + offset;
+        int64_t len = nl - p;
+        int64_t next_offset = offset + len + 1;
+        ++line;
+
+        if (len == 0 || p[0] == '#') {
+            offset = next_offset;
+            continue;
+        }
+        // strip a trailing '\r' (CRLF VCFs)
+        if (len > 0 && p[len - 1] == '\r') --len;
+        bool blank = true;
+        for (int64_t i = 0; i < len && blank; ++i)
+            blank = (p[i] == ' ' || p[i] == '\t');
+        if (blank) {
+            offset = next_offset;
+            continue;
+        }
+        counters[0]++;
+
+        // tokenize up to 9 tab-separated fields (memchr: the per-byte scan
+        // was the tokenizer's single largest cost on long INFO columns)
+        Span fields[9];
+        int nf = 0;
+        const char* start = p;
+        const char* end = p + len;
+        while (nf < 9) {
+            const char* tab = static_cast<const char*>(
+                memchr(start, '\t', static_cast<size_t>(end - start)));
+            const char* stop = tab ? tab : end;
+            fields[nf].ptr = start;
+            fields[nf].len = static_cast<int>(stop - start);
+            ++nf;
+            if (tab == nullptr) break;
+            start = tab + 1;
+        }
+        if (nf < 5) {
+            counters[3]++;
+            offset = next_offset;
+            continue;
+        }
+        int8_t code = chrom_code(fields[0].ptr, fields[0].len);
+        if (code == 0) {
+            counters[1]++;
+            offset = next_offset;
+            continue;
+        }
+        int64_t position = parse_pos(fields[1].ptr, fields[1].len);
+        if (position < 0) {
+            counters[3]++;
+            offset = next_offset;
+            continue;
+        }
+
+        // count alts for capacity + multi-allelic flag
+        int n_alts = 1;
+        for (int i = 0; i < fields[4].len; ++i)
+            if (fields[4].ptr[i] == ',') ++n_alts;
+        if (rows + n_alts > max_rows) {
+            counters[0]--;  // the line is re-fed (and re-counted) next call
+            --line;         // ... and is NOT consumed this call
+            *need_more = 1;
+            break;  // line does not fit: flush and re-feed
+        }
+
+        const Span& id_f = fields[2];  // ID
+        const Span& rr = fields[3];    // REF
+        bool has_qual = nf > 5 && !(fields[5].len == 1 && fields[5].ptr[0] == '.');
+        bool has_filter = nf > 6 && !(fields[6].len == 1 && fields[6].ptr[0] == '.');
+        bool has_info = nf > 7 && !(fields[7].len == 1 && fields[7].ptr[0] == '.');
+        bool has_format = nf > 8 && !(fields[8].len == 1 && fields[8].ptr[0] == '.');
+
+        uint8_t rs_w = 0;
+        int64_t rs = rs_number_of(
+            id_f, fields[7], has_info && !identity_only, &rs_w);
+        uint8_t id_verb =
+            !(id_f.len == 1 && id_f.ptr[0] == '.')
+            && !(id_f.len >= 2 && id_f.ptr[0] == 'r' && id_f.ptr[1] == 's')
+            ? 1 : 0;
+        uint8_t freq_flag = 0;
+        if (has_info && !identity_only) {
+            const char* s = fields[7].ptr;
+            for (int i = 0; i + 5 <= fields[7].len; ++i) {
+                if ((i == 0 || s[i - 1] == ';')
+                    && s[i] == 'F' && s[i + 1] == 'R' && s[i + 2] == 'E'
+                    && s[i + 3] == 'Q' && s[i + 4] == '=') {
+                    freq_flag = 1;
+                    break;
+                }
+            }
+        }
+
+        const char* alt_start = fields[4].ptr;
+        const char* alt_end = fields[4].ptr + fields[4].len;
+        int ordinal = 0;
+        for (const char* q = alt_start; q <= alt_end; ++q) {
+            if (q == alt_end || *q == ',') {
+                int alen = static_cast<int>(q - alt_start);
+                ++ordinal;
+                if (alen == 1 && alt_start[0] == '.') {
+                    counters[2]++;
+                } else {
+                    int64_t r = rows++;
+                    chrom[r] = code;
+                    pos[r] = static_cast<int32_t>(position);
+                    ref_len[r] = rr.len;
+                    alt_len[r] = alen;
+                    int rcopy = rr.len < width ? rr.len : width;
+                    int acopy = alen < width ? alen : width;
+                    memcpy(ref + r * width, rr.ptr, static_cast<size_t>(rcopy));
+                    if (rcopy < width)
+                        memset(ref + r * width + rcopy, 0,
+                               static_cast<size_t>(width - rcopy));
+                    memcpy(alt + r * width, alt_start, static_cast<size_t>(acopy));
+                    if (acopy < width)
+                        memset(alt + r * width + acopy, 0,
+                               static_cast<size_t>(width - acopy));
+                    multi[r] = n_alts > 1 ? 1 : 0;
+                    line_no[r] = line;
+                    ref_off[r] = rr.ptr - buf;
+                    alt_off[r] = alt_start - buf;
+                    id_off[r] = id_f.ptr - buf;
+                    id_len[r] = id_f.len;
+                    qual_off[r] = has_qual ? fields[5].ptr - buf : -1;
+                    qual_len[r] = has_qual ? fields[5].len : 0;
+                    filter_off[r] = has_filter ? fields[6].ptr - buf : -1;
+                    filter_len[r] = has_filter ? fields[6].len : 0;
+                    info_off[r] = has_info ? fields[7].ptr - buf : -1;
+                    info_len[r] = has_info ? fields[7].len : 0;
+                    format_off[r] = has_format ? fields[8].ptr - buf : -1;
+                    format_len[r] = has_format ? fields[8].len : 0;
+                    altcol_off[r] = fields[4].ptr - buf;
+                    altcol_len[r] = fields[4].len;
+                    alt_index[r] = ordinal - 1;
+                    n_alts_out[r] = n_alts;
+                    rs_number[r] = rs;
+                    rs_weird[r] = rs_w;
+                    id_verbatim[r] = id_verb;
+                    has_freq[r] = freq_flag;
+                    hash_out[r] = fnv_row(
+                        ref + r * width, alt + r * width, width,
+                        ref_len[r], alt_len[r], primepow_buf, pp_n);
+                    if (want_packed) {
+                        int cols = (width + 1) / 2;
+                        bool ok = pack_row(ref + r * width, width,
+                                           ref_packed + r * cols)
+                               && pack_row(alt + r * width, width,
+                                           alt_packed + r * cols);
+                        pack_ok[r] = ok ? 1 : 0;
+                    } else {
+                        pack_ok[r] = 0;
+                    }
+                }
+                alt_start = q + 1;
+            }
+        }
+        offset = next_offset;
+        // NOTE: rr.len (REF) is written in full to ref_len even when it
+        // exceeds width — the device flags such rows host_fallback, exactly
+        // like the Python reader.
+    }
+    counters[4] = line - line_base;
+    *consumed = offset;
+    return rows;
+}
+
+}  // extern "C"

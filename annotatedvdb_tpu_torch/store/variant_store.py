@@ -20,10 +20,13 @@ either package loads in the other.  The replacement for the reference's
   reference's ``jsonb_merge``), ``set_col`` sets numeric columns, and the
   segments they touch become dirty.
 
+JSONB values may be held as raw JSON text (:class:`RawJson`, the native
+VCF tokenizer's FREQ sidecar): the segment writer splices the text, and
+every mutation site materializes a fresh object on the row first.
+
 Not ported here (later slices): undo, compaction, cooperative writers (a
 serve worker's memtable flush committing into the same directory), the
-native VEP transform's raw-JSON values, the out-of-core memmap tier and
-the mesh placement block.
+out-of-core memmap tier and the mesh placement block.
 """
 
 from __future__ import annotations
@@ -163,14 +166,90 @@ def combined_key(pos: np.ndarray, h: np.ndarray) -> np.ndarray:
     return (pos.astype(np.uint64) << np.uint64(32)) | h.astype(np.uint64)
 
 
+class RawJson:
+    """A JSONB column value held as raw JSON TEXT instead of parsed dicts.
+
+    The native VCF tokenizer emits FREQ values as ready JSON
+    (``io.vcf.freq_sidecar``); the common consumer is the segment writer,
+    which wants text anyway.  A RawJson is immutable — sharing one instance
+    across rows is safe, unlike dicts under deep-merge — and behaves as a
+    read-only mapping for consumers that index into it (the parse is
+    cached).  Store-side mutation sites (deep-merge targets, ``get_ann``)
+    materialize a FRESH object per row via :meth:`fresh`, so no parsed tree
+    is ever shared between rows."""
+
+    __slots__ = ("text", "_obj")
+
+    def __init__(self, text: str):
+        self.text = text
+        self._obj = None
+
+    def fresh(self):
+        """A newly parsed (never shared) Python object of this value."""
+        return json.loads(self.text)
+
+    def _cached(self):
+        if self._obj is None:
+            self._obj = json.loads(self.text)
+        return self._obj
+
+    # -- read-only mapping protocol (cached parse) --------------------------
+
+    def __getitem__(self, k):
+        return self._cached()[k]
+
+    def get(self, k, default=None):
+        obj = self._cached()
+        return obj.get(k, default) if isinstance(obj, dict) else default
+
+    def __contains__(self, k):
+        return k in self._cached()
+
+    def __iter__(self):
+        return iter(self._cached())
+
+    def __len__(self):
+        return len(self._cached())
+
+    def keys(self):
+        return self._cached().keys()
+
+    def values(self):
+        return self._cached().values()
+
+    def items(self):
+        return self._cached().items()
+
+    def __eq__(self, other):
+        if isinstance(other, RawJson):
+            other = other._cached()
+        return self._cached() == other
+
+    def __bool__(self):
+        return bool(self._cached())
+
+    def __repr__(self):
+        return f"RawJson({self.text!r})"
+
+
+def jsonb_dumps(value) -> str:
+    """Serialize a stored JSONB value — raw text splices straight through."""
+    if isinstance(value, RawJson):
+        return value.text
+    return json.dumps(value)
+
+
 def sidecar_line(named_values, i: int) -> str | None:
     """One annotation-sidecar JSONL line for row ``i`` (None when the row
-    carries no values) — byte-identical to the reference's writer."""
+    carries no values) — byte-identical to the reference's writer.
+    RawJson values write their text verbatim (no parse/re-serialize)."""
     parts = []
     for c, v in named_values:
         if v is None:
             continue
-        if c == _LONG_ALLELES:
+        if isinstance(v, RawJson):
+            parts.append(f'"{c}":{v.text}')
+        elif c == _LONG_ALLELES:
             parts.append(f'"{c}":{json.dumps(list(v))}')
         else:
             parts.append(f'"{c}":{json.dumps(v)}')
@@ -551,10 +630,16 @@ class ChromosomeShard:
 
     def get_ann(self, column: str, i):
         """One row's JSONB value (None when unset) — the stored object
-        itself, not a copy."""
+        itself, not a copy.  A RawJson value is materialized ON THE ROW
+        first (a fresh parse: one RawJson may back several rows)."""
         seg, off = self._locate([i])
         col = self.segments[int(seg[0])].obj[column]
-        return None if col is None else col[int(off[0])]
+        if col is None:
+            return None
+        v = col[int(off[0])]
+        if isinstance(v, RawJson):
+            v = col[int(off[0])] = v.fresh()
+        return v
 
     def lookup(self, pos, h, ref, alt, ref_len, alt_len,
                device: torch.device | None = None, stats: dict | None = None):
@@ -597,7 +682,8 @@ class ChromosomeShard:
         no stored value are assigned with one scatter per segment; only rows
         that merge pay per-row work.  Duplicate ids within one call keep
         strict in-order semantics (the second occurrence merges into the
-        first's result)."""
+        first's result).  A RawJson on either side of a merge is
+        materialized fresh first, so a shared RawJson is never mutated."""
         index = np.asarray(index, np.int64)
         if index.size == 0:
             return 0
@@ -629,23 +715,34 @@ class ChromosomeShard:
                 # results
                 for j, v in zip(offs.tolist(), vs):
                     cur = col[j]
-                    if merge and isinstance(cur, dict) and isinstance(v, dict):
-                        deep_update(cur, v)
+                    if (merge and isinstance(cur, (dict, RawJson))
+                            and isinstance(v, (dict, RawJson))):
+                        if isinstance(cur, RawJson):
+                            cur = col[j] = cur.fresh()
+                        deep_update(
+                            cur, v.fresh() if isinstance(v, RawJson) else v
+                        )
                     else:
                         col[j] = v
                 continue
             cur = col[offs]
             if merge:
                 replace = np.fromiter(
-                    (not isinstance(c, dict) or not isinstance(v, dict)
+                    (not isinstance(c, (dict, RawJson))
+                     or not isinstance(v, (dict, RawJson))
                      for c, v in zip(cur, vs)),
                     bool, offs.size,
                 )
             else:
                 replace = np.ones(offs.size, bool)
             col[offs[replace]] = vs[replace]
-            for c, v in zip(cur[~replace], vs[~replace]):
-                deep_update(c, v)
+            km = ~replace
+            for j, c, v in zip(offs[km].tolist(), cur[km], vs[km]):
+                # materialize raw values per row (fresh: a RawJson may back
+                # several rows) before mutating
+                if isinstance(c, RawJson):
+                    c = col[j] = c.fresh()
+                deep_update(c, v.fresh() if isinstance(v, RawJson) else v)
         return count
 
     # -- mutation -----------------------------------------------------------

@@ -1,19 +1,25 @@
-"""Host-side pipeline plumbing: one bounded background stage.
+"""Host-side pipeline plumbing: bounded background stages.
 
-Copy of the parts of ``annotatedvdb_tpu/utils/pipeline.py`` the VEP load's
-block reader uses (``io/prefetch.py``).  A :class:`BoundedStage` is a
-daemon thread that pulls items from its source iterator, applies a stage
-function, and hands results downstream through a bounded queue — a full
-queue is backpressure (the producer blocks), so a fast reader can never
-race an unbounded pile of blocks into memory.
+Copy of ``annotatedvdb_tpu/utils/pipeline.py``.  The overlapped VCF load
+(``loaders/vcf_loader.py``) runs ingest, dispatch and process as
+concurrent stages, and the VEP load's block reader (``io/prefetch.py``)
+runs on one.  A :class:`BoundedStage` is a daemon thread that pulls items
+from its source iterator, applies a stage function, and hands results
+downstream through a bounded queue — a full queue is backpressure (the
+producer blocks), so a fast reader can never race an unbounded pile of
+chunks into memory.
 
 Contract:
 
-- items flow strictly in order (one worker, FIFO queue);
+- items flow strictly in order (one worker, FIFO queue) — the executor's
+  byte-for-byte parity with the serial path depends on this;
 - an exception upstream travels the queue and re-raises at the consumer's
   ``next()``, never dies silently on a daemon thread;
 - ``close()`` stops the producer promptly even mid-``put`` (the put loop
   polls a stop event), drains, and joins — safe to call repeatedly.
+
+:class:`Resequencer` restores source order over ``(seq, item)`` pairs
+that a shuffled prefetcher emits out of order.
 """
 
 from __future__ import annotations
@@ -91,11 +97,13 @@ class _StageError:
 class BoundedStage:
     """One pipeline stage on a daemon thread.
 
-    ``source`` is any iterator, consumed on the stage's thread.  At most
-    ``depth`` items sit unconsumed before the producer blocks.
+    ``source`` is any iterator (often another stage), consumed on the
+    stage's thread; ``fn`` maps each item (identity when None).  At most
+    ``depth`` results sit unconsumed before the producer blocks.
     """
 
-    def __init__(self, source, depth: int = 2, name: str = "stage"):
+    def __init__(self, source, fn=None, depth: int = 2, name: str = "stage"):
+        self._fn = fn
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._done = False
@@ -155,6 +163,8 @@ class BoundedStage:
             for item in source:
                 if self._stop.is_set():
                     return
+                if self._fn is not None:
+                    item = self._fn(item)
                 if not self._put(item):
                     return
             self._put(_END)
@@ -244,3 +254,46 @@ class BoundedStage:
                 deadline = time.monotonic() + timeout
             elif time.monotonic() >= deadline:
                 return False
+
+
+_MISSING = object()
+
+
+class Resequencer:
+    """Restore source order over a ``(seq, item)`` stream.
+
+    Shuffled chunk scheduling (``io/prefetch.py``) lets order-independent
+    stages (device dispatch) run chunks out of source order; everything
+    order-bearing — identity first-wins, checkpoint cursors,
+    ``--maxErrors`` accounting — sits downstream of this adapter, which
+    holds early arrivals and releases items strictly by ascending ``seq``.
+    Retention is bounded by the producer's shuffle window.
+
+    ``seq`` values must be exactly ``0, 1, ...`` with no gaps —
+    the prefetcher tags every scheduled chunk, including zero-row ones.
+    """
+
+    __slots__ = ("_source", "_next", "_held")
+
+    def __init__(self, source):
+        self._source = source
+        self._next = 0
+        self._held: dict = {}
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            item = self._held.pop(self._next, _MISSING)
+            if item is not _MISSING:
+                self._next += 1
+                return item
+            # StopIteration (and any upstream stage error) propagates; a
+            # complete stream can never end with held items because seqs
+            # are gapless, so nothing is silently dropped here
+            seq, payload = next(self._source)
+            if seq == self._next:
+                self._next += 1
+                return payload
+            self._held[seq] = payload

@@ -6,30 +6,42 @@ update on ``cuda:0`` and checks them, phase by phase, each phase printing
 one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
-2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``;
+2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
+              and, beside it, the native VCF tokenizer
+              (``annotatedvdb_tpu_torch/native``);
 3. kernels  — each kernel against its plain PyTorch version on the card
               (seeded edge rows at W = 16, 49 and 96, 1,048,576 random
               rows, a ragged last tile and unaligned bases; exact under
               the selection contract, the allele hash exact on every
-              row), and its time at the load's chunk shape (65,536 rows,
-              W = 49) and at 1,048,576 rows beside the plain version's
-              and the memory bound; then the plain allele hash alone on
-              the card, the work the fused kernel took over;
+              row), the kernel's hash against the tokenizer's in-scan
+              hash (``h_native``) on the first 1,048,576 rows of the
+              phase-4 VCF (equal on every row), and its time at the
+              load's chunk shape (65,536 rows, W = 49) and at 1,048,576
+              rows beside the plain version's and the memory bound; then
+              the plain allele hash alone on the card, the work the fused
+              kernel took over;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
-              CLI's ``main``), with every kernel launch counter and the
-              plain hash's call counter reset just before and read just
-              after (the card path must never call the plain hash), and
-              the loader's stage seconds;
+              CLI's ``main``) with no engine or pipeline variable: the
+              native tokenizer, the overlapped executor and the async
+              store writer must all run.  Every kernel launch counter and
+              the plain hash's call counter are reset just before and read
+              just after (one launch per chunk; the card path must never
+              call the plain hash); the loader's per-thread stage seconds,
+              queue stalls and device idle fraction.  Then the same file
+              under ``AVDB_PIPELINE=serial AVDB_ASYNC_STORE=0`` into a
+              second store, whose bytes must be identical;
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
 6. parity   — the first 50,000 lines loaded on the card and on the CPU,
               then updated from 12,500 VEP results for the variants of
               their first half (``load-vep``, the ranking file re-ranked
-              on load and saved on each of 5 learned combos): the
-              persisted store bytes and the saved ranking files must be
-              identical, the VEP counters the ones the generator predicts;
+              on load and saved on each of 5 learned combos), once with
+              the Python tokenizer and the serial executor and once in
+              the default configuration: in each, the persisted store
+              bytes and the saved ranking files must be identical, the
+              VEP counters the ones the generator predicts;
 7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -654,14 +666,6 @@ def timed_calls(owner, name, sink):
         setattr(owner, name, raw)
 
 
-def stage_seconds(timers):
-    out = {}
-    for timer in timers:
-        for name, sec in timer.seconds.items():
-            out[name] = out.get(name, 0.0) + sec
-    return out
-
-
 def ledger_records(store_dir, kind):
     with open(os.path.join(store_dir, "ledger.jsonl")) as f:
         recs = [json.loads(line) for line in f if line.strip()]
@@ -688,95 +692,218 @@ def store_bytes(store_dir):
     return out
 
 
-def load_phases(torch, platform, n4, n5, n6, n7, launches, hash_calls) -> dict:
+def write_inputs(n4, n5, n6, n7) -> dict:
+    """The seeded inputs of phases 3-7 under ``WORK``: the phase-4 VCF of
+    ``n4`` lines, the phase-5 reload VCF of ``n5``, the first ``n6`` lines
+    of phase 4 with a VEP file for their first half (phase 6), and ``n7``
+    VEP results over phase 4's variants (phase 7), with what each load
+    must count."""
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    inp = {name: os.path.join(WORK, f) for name, f in (
+        ("vcf4", "chr22.first.vcf"), ("vcf5", "chr22.second.vcf"),
+        ("vcf6", "chr22.head.vcf"), ("vep6", "chr22.head.vep.json"),
+        ("vep7", "chr22.vep.json"))}
+    t0 = time.perf_counter()
+    lines4, rows4, dup_lines = write_phase4_vcf(inp["vcf4"], n4)
+    inp["dup5"], inp["new5"] = write_phase5_vcf(inp["vcf5"], n5, lines4, rows4)
+    with open(inp["vcf4"]) as src, open(inp["vcf6"], "w") as dst:
+        dst.write(HEADER)
+        data = (ln for ln in src if not ln.startswith("#"))
+        dst.writelines(next(data) for _ in range(n6))
+    inp["vcf_seconds"] = time.perf_counter() - t0
+    # phase 6's VEP results: variants of the first half of its lines (all
+    # in its stores); phase 7's: variants of the whole phase-4 file
+    t0 = time.perf_counter()
+    inp["want6"], _ = write_vep_json(inp["vep6"], lines4[: n6 // 2], n6 // 4,
+                                     seed=6, n_novel=5)
+    inp["want7"], inp["novel7"] = write_vep_json(inp["vep7"], lines4, n7,
+                                                 seed=7, n_novel=20)
+    inp["vep_seconds"] = time.perf_counter() - t0
+    inp["dup4"] = int(rows4[dup_lines].sum())
+    inp["ins4"] = int(rows4.sum())
+    inp.update(n4=n4, n5=n5, n6=n6, n7=n7)
+    return inp
+
+
+def native_hash_check(torch, device, vcf, rows=BIG_ROWS) -> dict:
+    """The kernel's allele hash against the native tokenizer's in-scan
+    hash (``h_native``) on the first ``rows`` rows of ``vcf``, read as the
+    load reads it (65,536-row chunks): equal on every row.  Raises
+    AssertionError on any difference."""
+    from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+    from annotatedvdb_tpu_torch.ops.hashing import to_uint32
+
+    cols, h_native, got = [], [], 0
+    for chunk in VcfBatchReader(vcf, batch_size=CHUNK_ROWS, width=WIDTH,
+                                engine="native"):
+        if chunk.batch.n:
+            cols.append(chunk.batch)
+            h_native.append(chunk.h_native)
+            got += chunk.batch.n
+        if got >= rows:
+            break
+    b = [np.concatenate([getattr(c, f) for c in cols])[:rows]
+         for f in ("pos", "ref", "alt", "ref_len", "alt_len")]
+    want = np.concatenate(h_native)[:rows]
+    out = annotate_bin(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                         for x in b))
+    h = to_uint32(out["allele_hash"])
+    bad = int((h != want).sum())
+    res = {"rows": int(want.size), "chunks": len(cols), "mismatches": bad,
+           "host_fallback_rows": int(out["host_fallback"].sum())}
+    emit("native_hash", **res)
+    assert want.size == rows and bad == 0, (
+        f"kernel hash differs from h_native on {bad} of {want.size} rows")
+    return res
+
+
+@contextlib.contextmanager
+def environment(**env):
+    """``os.environ`` with ``env`` set inside (restored after)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: the variables that choose the VCF load's configuration; the default
+#: configuration is all of them unset
+MODE_VARS = ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE",
+             "AVDB_INGEST_SHUFFLE_SEED")
+
+
+def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
     """Phases 4-6 on ``platform`` ("cuda" on the card; "cpu" rehearses the
-    same control flow at a small size), and phase 7's input.  ``launches``
-    (the kernel launch counters) and ``hash_calls`` (the plain hash's calls
-    by device type) are already reset; both are read right after the
-    phase-4 load.  Raises AssertionError on any failed check."""
+    same control flow at a small size) over the inputs of
+    :func:`write_inputs`.  ``launches`` (the kernel launch counters) and
+    ``hash_calls`` (the plain hash's calls by device type) are set to 0
+    just before the phase-4 load and read right after it.  Raises
+    AssertionError on any failed check."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
     from annotatedvdb_tpu_torch.conseq.ranker import DEFAULT_RANKING_FILE
     from annotatedvdb_tpu_torch.loaders import VcfLoader, VepLoader
+    from annotatedvdb_tpu_torch.native import vcf as native_vcf
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
 
     device = resolve_device(platform)
+    n4, n6 = inp["n4"], inp["n6"]
+    vcf4, vcf6 = inp["vcf4"], inp["vcf6"]
+    for name in MODE_VARS:
+        assert name not in os.environ, f"{name} is set: phase 4 runs the default"
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
-    vcf4 = os.path.join(WORK, "chr22.first.vcf")
-    vcf5 = os.path.join(WORK, "chr22.second.vcf")
-    vcf6 = os.path.join(WORK, "chr22.head.vcf")
-    vep6 = os.path.join(WORK, "chr22.head.vep.json")
-    vep7 = os.path.join(WORK, "chr22.vep.json")
-    t0 = time.perf_counter()
-    lines4, rows4, dup_lines = write_phase4_vcf(vcf4, n4)
-    dup5, new5 = write_phase5_vcf(vcf5, n5, lines4, rows4)
-    with open(vcf4) as src, open(vcf6, "w") as dst:
-        dst.write(HEADER)
-        data = (ln for ln in src if not ln.startswith("#"))
-        dst.writelines(next(data) for _ in range(n6))
-    gen_s = time.perf_counter() - t0
-    # phase 6's VEP results: variants of the first half of its lines (all
-    # in its stores); phase 7's: variants of the whole phase-4 file
-    t0 = time.perf_counter()
-    want6, _ = write_vep_json(vep6, lines4[: n6 // 2], n6 // 4, seed=6, n_novel=5)
-    want7, novel7 = write_vep_json(vep7, lines4, n7, seed=7, n_novel=20)
-    vep_gen_s = time.perf_counter() - t0
-    dup4 = int(rows4[dup_lines].sum())
-    ins4 = int(rows4.sum())
-    del lines4
+    def load(store_dir, trace=False):
+        """The CLI load of ``vcf4`` into ``store_dir``: (wall s, loader,
+        native chunks, mapping sidecar bytes, device-busy s).  With
+        ``trace`` on the card, ``torch.profiler`` records the device's
+        activity (kernels and copies) and the busy seconds are its sum
+        (None when not traced or when it saw no device time)."""
+        from torch.profiler import ProfilerActivity, profile
 
-    # 4. the main path: the CLI load
+        traced = trace and device.type == "cuda"
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof, \
+                captured_loaders(VcfLoader) as loaders, \
+                timed_calls(native_vcf, "chunk_from_native", []) as native_chunks:
+            rc = load_vcf(["--fileName", vcf4, "--storeDir", store_dir,
+                           "--commit", "--logAfter", "0", "--platform", platform])
+            sync()
+        wall = time.perf_counter() - t0
+        assert rc == 0, f"load-vcf exited {rc}"
+        with open(vcf4 + ".mapping", "rb") as f:
+            mapping = f.read()
+        busy = None
+        if traced:
+            busy = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in prof.key_averages()) / 1e6 or None
+        return wall, loaders[0], len(native_chunks), mapping, busy
+
+    # 4. the main path: the CLI load in the default configuration
     store4 = os.path.join(WORK, "store")
-    t0 = time.perf_counter()
-    with captured_loaders(VcfLoader) as loaders:
-        rc = load_vcf(["--fileName", vcf4, "--storeDir", store4, "--commit",
-                       "--logAfter", "0", "--platform", platform])
-    sync()
-    wall = time.perf_counter() - t0
+    for counts in (launches, hash_calls):
+        for name in counts:
+            counts[name] = 0
+    wall, loader, native_chunks, mapping4, busy = load(store4, trace=True)
     launched, hashed = dict(launches), dict(hash_calls)
-    assert rc == 0, f"load-vcf exited {rc}"
-    stages = stage_seconds(ld.timer for ld in loaders)
+    stages = dict(loader.timer.seconds)
     counters = ledger_records(store4, "finish")[-1]["counters"]
     chunks = len(ledger_records(store4, "checkpoint"))
     emit("load", lines=counters["line"], variants=counters["variant"],
          duplicates=counters["duplicates"], skipped=counters["skipped"],
-         malformed=counters.get("malformed"), chunks=chunks, wall_s=wall,
+         malformed=counters.get("malformed"), chunks=chunks,
+         native_chunks=native_chunks, wall_s=wall,
+         loader_wall_s=loader.timer.wall_seconds,
          lines_per_s=counters["line"] / wall,
          variants_per_s=counters["variant"] / wall, launches=launched,
          plain_hash_calls=hashed, dispatch_s=stages.get("dispatch"),
          annotate_s=stages.get("annotate"), stage_seconds=stages,
-         predicted_duplicates=dup4, predicted_inserts=ins4, vcf_seconds=gen_s)
+         stage_sum_over_wall=sum(stages.values()) / loader.timer.wall_seconds,
+         queue_stalls=loader.queue_stalls,
+         device_idle_fraction=loader.device_idle_fraction,
+         profiler_device_busy_s=busy,
+         profiler_device_idle_fraction=None if busy is None else 1 - busy / wall,
+         predicted_duplicates=inp["dup4"], predicted_inserts=inp["ins4"],
+         vcf_seconds=inp["vcf_seconds"])
     assert chunks > 0
     assert counters["line"] == n4 and counters.get("malformed") == 1, counters
-    assert (counters["duplicates"], counters["variant"]) == (dup4, ins4), (
+    assert (counters["duplicates"], counters["variant"]) == (inp["dup4"], inp["ins4"]), (
         f"load: {counters['duplicates']} duplicates / {counters['variant']} "
-        f"inserts, predicted {dup4} / {ins4}")
+        f"inserts, predicted {inp['dup4']} / {inp['ins4']}")
+    assert native_chunks == chunks, (
+        f"load: {native_chunks} native-tokenizer chunks for {chunks} chunks")
+    assert {"ingest", "dispatch", "store-writer"} <= set(loader.queue_stalls), (
+        f"load: the overlapped executor or the async writer did not run "
+        f"({sorted(loader.queue_stalls)})")
+
+    # 4b. the same file, serial executor and synchronous store commits
+    store4s = os.path.join(WORK, "store.serial")
+    with environment(AVDB_PIPELINE="serial", AVDB_ASYNC_STORE="0"):
+        wall_s, loader_s, _n, mapping4s, _busy = load(store4s)
+    files4, files4s = store_bytes(store4), store_bytes(store4s)
+    differ = sorted(k for k in set(files4) | set(files4s)
+                    if files4.get(k) != files4s.get(k))
+    del files4, files4s
+    emit("load_serial", wall_s=wall_s, lines_per_s=counters["line"] / wall_s,
+         stage_seconds=dict(loader_s.timer.seconds), differ=differ,
+         mapping_equal=mapping4s == mapping4)
+    assert not differ and mapping4s == mapping4, (
+        f"serial and overlapped stores differ in {differ or ['mapping']}")
+    assert not loader_s.queue_stalls, loader_s.queue_stalls
+    shutil.rmtree(store4s)
 
     # 5. reload, membership probed on the device
-    os.environ["AVDB_DEVICE_LOOKUP"] = "always"
-    try:
+    with environment(AVDB_DEVICE_LOOKUP="always"):
         store = VariantStore.load(store4)
         loader = VcfLoader(
             store, AlgorithmLedger(os.path.join(store4, "ledger.jsonl")),
             log=lambda *a: None, device=device,
         )
         t0 = time.perf_counter()
-        c5 = loader.load_file(vcf5, commit=True,
-                              persist=lambda: store.save(store4))
+        try:
+            c5 = loader.load_file(inp["vcf5"], commit=True,
+                                  persist=lambda: store.save(store4))
+        finally:
+            loader.close()
         store.save(store4)
         sync()
         wall5 = time.perf_counter() - t0
-    finally:
-        del os.environ["AVDB_DEVICE_LOOKUP"]
     cached = [s for sh in store.shards.values() for s in sh.segments
               if s._device is not None]
+    dup5, new5 = inp["dup5"], inp["new5"]
     emit("reload", lines=c5["line"], variants=c5["variant"],
          duplicates=c5["duplicates"], predicted_duplicates=dup5,
          predicted_inserts=new5, wall_s=wall5, lines_per_s=c5["line"] / wall5,
@@ -794,49 +921,60 @@ def load_phases(torch, platform, n4, n5, n6, n7, launches, hash_calls) -> dict:
 
     # 6. device vs CPU, end to end: the VCF load, then the VEP update of
     # its store (ranking file re-ranked on load, saved on each learned
-    # combo)
-    out = {}
-    for plat in (platform, "cpu"):
-        d = os.path.join(WORK, f"store.{len(out)}.{plat}")
-        ranks = os.path.join(WORK, f"ranks.{len(out)}.{plat}")
-        os.makedirs(ranks)
-        shutil.copy(DEFAULT_RANKING_FILE, os.path.join(ranks, "ranks.txt"))
-        t0 = time.perf_counter()
-        rc = load_vcf(["--fileName", vcf6, "--storeDir", d, "--commit",
-                       "--logAfter", "0", "--platform", plat])
-        assert rc == 0, f"phase 6 load on {plat} exited {rc}"
-        with open(vcf6 + ".mapping", "rb") as f:
-            mapping = f.read()
-        with captured_loaders(VepLoader) as vep_loaders:
-            rc = load_vep(["--fileName", vep6, "--storeDir", d, "--commit",
-                           "--logAfter", "0", "--datasource", "dbSNP",
-                           "--rankingFile", os.path.join(ranks, "ranks.txt"),
-                           "--rankOnLoad", "--saveOnAddConsequence",
-                           "--platform", plat])
-        assert rc == 0, f"phase 6 VEP load on {plat} exited {rc}"
-        got6 = {k: vep_loaders[0].counters.get(k, 0) for k in want6}
-        assert got6 == want6, f"phase 6 VEP load on {plat}: {got6}, predicted {want6}"
-        saved = {}
-        for name in sorted(os.listdir(ranks)):
-            with open(os.path.join(ranks, name), "rb") as f:
-                saved[name] = f.read()
-        out[len(out)] = (store_bytes(d), mapping, saved, time.perf_counter() - t0)
-    (files_dev, map_dev, ranks_dev, s_dev), (files_cpu, map_cpu, ranks_cpu, s_cpu) = (
-        out[0], out[1])
-    differ = sorted(k for k in set(files_dev) | set(files_cpu)
-                    if files_dev.get(k) != files_cpu.get(k))
-    emit("parity", lines=n6, vep_results=want6["line"] - 1, vep_counters=want6,
-         files=len(files_dev), differ=differ, mapping_equal=map_dev == map_cpu,
-         ranking_files=sorted(ranks_dev), ranking_files_equal=ranks_dev == ranks_cpu,
-         device_s=s_dev, cpu_s=s_cpu)
-    assert not differ and map_dev == map_cpu, (
-        f"device and CPU stores differ in {differ or ['mapping']}")
-    assert ranks_dev == ranks_cpu and len(ranks_dev) == 6, (
-        f"device and CPU saved ranking files differ: {sorted(ranks_dev)} / "
-        f"{sorted(ranks_cpu)}")
+    # combo); with the Python tokenizer and the serial executor, then in
+    # the default configuration
+    want6 = inp["want6"]
+    for config, env in (("python-serial", {"AVDB_INGEST_ENGINE": "python",
+                                           "AVDB_PIPELINE": "serial"}),
+                        ("default", {})):
+        out = {}
+        for plat in (platform, "cpu"):
+            d = os.path.join(WORK, f"store.{config}.{len(out)}.{plat}")
+            ranks = os.path.join(WORK, f"ranks.{config}.{len(out)}.{plat}")
+            os.makedirs(ranks)
+            shutil.copy(DEFAULT_RANKING_FILE, os.path.join(ranks, "ranks.txt"))
+            t0 = time.perf_counter()
+            with environment(**env):
+                rc = load_vcf(["--fileName", vcf6, "--storeDir", d, "--commit",
+                               "--logAfter", "0", "--platform", plat])
+            assert rc == 0, f"phase 6 ({config}) load on {plat} exited {rc}"
+            with open(vcf6 + ".mapping", "rb") as f:
+                mapping = f.read()
+            with captured_loaders(VepLoader) as vep_loaders:
+                rc = load_vep(["--fileName", inp["vep6"], "--storeDir", d,
+                               "--commit", "--logAfter", "0", "--datasource",
+                               "dbSNP", "--rankingFile",
+                               os.path.join(ranks, "ranks.txt"),
+                               "--rankOnLoad", "--saveOnAddConsequence",
+                               "--platform", plat])
+            assert rc == 0, f"phase 6 ({config}) VEP load on {plat} exited {rc}"
+            got6 = {k: vep_loaders[0].counters.get(k, 0) for k in want6}
+            assert got6 == want6, (
+                f"phase 6 ({config}) VEP load on {plat}: {got6}, predicted {want6}")
+            saved = {}
+            for name in sorted(os.listdir(ranks)):
+                with open(os.path.join(ranks, name), "rb") as f:
+                    saved[name] = f.read()
+            out[len(out)] = (store_bytes(d), mapping, saved,
+                             time.perf_counter() - t0)
+        (files_dev, map_dev, ranks_dev, s_dev), (files_cpu, map_cpu, ranks_cpu, s_cpu) = (
+            out[0], out[1])
+        differ = sorted(k for k in set(files_dev) | set(files_cpu)
+                        if files_dev.get(k) != files_cpu.get(k))
+        emit("parity", config=config, lines=n6, vep_results=want6["line"] - 1,
+             vep_counters=want6, files=len(files_dev), differ=differ,
+             mapping_equal=map_dev == map_cpu, ranking_files=sorted(ranks_dev),
+             ranking_files_equal=ranks_dev == ranks_cpu, device_s=s_dev,
+             cpu_s=s_cpu)
+        assert not differ and map_dev == map_cpu, (
+            f"phase 6 ({config}): device and CPU stores differ in "
+            f"{differ or ['mapping']}")
+        assert ranks_dev == ranks_cpu and len(ranks_dev) == 6, (
+            f"phase 6 ({config}): device and CPU saved ranking files differ: "
+            f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
     return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks,
-            "store": store4, "vep": vep7, "want": want7, "novel": novel7,
-            "vep_seconds": vep_gen_s}
+            "store": store4, "vep": inp["vep7"], "want": inp["want7"],
+            "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"]}
 
 
 def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
@@ -943,6 +1081,7 @@ def main() -> int:
         return fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
     sys.path.insert(0, ROOT)
     try:
+        from annotatedvdb_tpu_torch import native
         from annotatedvdb_tpu_torch.ops import annotate_cuda, build, hashing
         from annotatedvdb_tpu_torch.runtime import resolve_device
     except ImportError as err:
@@ -962,11 +1101,25 @@ def main() -> int:
     emit("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build: every kernel from this checkout's sources
+    # 2. build: every kernel and the native tokenizer from this checkout's
+    # sources, the tokenizer's g++ beside the kernels' nvcc
+    import concurrent.futures
+
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+
+    def build_native():
+        t = time.perf_counter()
+        native.load()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    logs = build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_s = pool.submit(build_native)
+        logs = build.build()
+        native_s = native_s.result()
     emit("build", seconds=time.perf_counter() - t0, kernels=sorted(logs),
+         tokenizer_seconds=native_s,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln]
                 for k, v in logs.items()})
 
@@ -976,12 +1129,15 @@ def main() -> int:
                 counts[name] = 0
 
     try:
-        # 3. kernels against their plain versions
+        inputs = write_inputs(2_000_000, 500_000, 50_000, 200_000)
+        # 3. kernels against their plain versions, and the kernel's hash
+        # against the tokenizer's on the phase-4 VCF
         table = kernel_phase(torch, device)
-        # 4-6. the load, the probed reload and the card-vs-CPU parity
-        reset()
-        results = load_phases(torch, "cuda", 2_000_000, 500_000, 50_000,
-                              200_000, launches=annotate_cuda.LAUNCHES,
+        native_hash_check(torch, device, inputs["vcf4"])
+        # 4-6. the load (counters reset inside, just before it), the
+        # probed reload and the card-vs-CPU parity
+        results = load_phases(torch, "cuda", inputs,
+                              launches=annotate_cuda.LAUNCHES,
                               hash_calls=hashing.CALLS)
         if results["launches"]["annotate_bin"] != results["chunks"]:
             return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"

@@ -11,9 +11,12 @@ allele hash exact on every row, over the copy paths of its staging: full
 tiles, a ragged last tile, a single row, unaligned bases (tensors with a
 storage offset), width 1 and the widest width it takes.  The wrapper's
 refusals are checked, and the load's dispatch on the card is shown to take
-the hash from the kernel.  The VEP update on the card must write the store
-the same update writes on the CPU, with one kernel launch per identity
-batch, and the rank table's lookup on the card must equal its host lookup.
+the hash from the kernel, on the loader's own stream, into pinned host
+memory.  The VCF load's default configuration (native tokenizer,
+overlapped executor, async store writer) and the VEP update on the card
+must write the stores the same loads write on the CPU, with one kernel
+launch per chunk or identity batch, and the rank table's lookup on the
+card must equal its host lookup.
 ``chip_smoke.py`` runs the same comparisons at the loads' real sizes."""
 
 import os
@@ -199,5 +202,69 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             assert LAUNCHES["annotate_bin"] - launches == loader.identity_batches > 0
             assert hashing.CALLS["cuda"] == calls["cuda"]
             assert set(loader.probe_stats) == {"device"}
+        out[plat] = store_bytes(d)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_dispatch_runs_on_the_loaders_stream(cuda, tmp_path):
+    """The dispatch stage enqueues uploads, one launch and the copies back
+    on the loader's own stream, into pinned host tensors, and hands the
+    process stage one event; the tokenizer's hash is not copied back."""
+    from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.loaders.vcf_loader import COPY_BACK
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    vcf = str(tmp_path / "d.vcf")
+    write_phase4_vcf(vcf, 3000)
+    chunk = next(iter(VcfBatchReader(vcf, batch_size=1024, engine="native")))
+    loader = VcfLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
+                       log=lambda *a: None, device=cuda)
+    loader._dispatch_chunk(chunk)  # the first call also checks the kernel
+    launches = LAUNCHES["annotate_bin"]
+    handles = loader._dispatch_chunk(chunk)
+    assert LAUNCHES["annotate_bin"] == launches + 1
+    assert loader._stream != torch.cuda.default_stream(cuda)
+    assert isinstance(handles["event"], torch.cuda.Event)
+    handles["event"].synchronize()
+    assert set(handles["cols"]) == set(COPY_BACK)
+    for t in handles["cols"].values():
+        assert t.device.type == "cpu" and t.is_pinned()
+    want = annotate_bin_reference(*(torch.from_numpy(x) for x in (
+        chunk.batch.pos, chunk.batch.ref, chunk.batch.alt,
+        chunk.batch.ref_len, chunk.batch.alt_len)))
+    ok = ~want["host_fallback"]
+    for name, t in handles["cols"].items():
+        assert torch.equal(t[ok], want[name][ok]), name
+    loader.close()
+
+
+def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The CLI's default configuration on the card and on the CPU, with
+    64 KiB read windows so windows cut chunks: the same store bytes; on the
+    card one kernel launch per chunk and no plain hash."""
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.native import vcf as native_vcf
+
+    for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(native_vcf, "READ_SIZE", 64 << 10)
+    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    vcf = str(tmp_path / "v.vcf")
+    write_phase4_vcf(vcf, 20_000)
+    out = {}
+    for plat in ("cuda", "cpu"):
+        d = str(tmp_path / f"store_{plat}")
+        calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+        assert load_vcf(["--fileName", vcf, "--storeDir", d, "--commit",
+                         "--commitAfter", "4096", "--logAfter", "0",
+                         "--platform", plat]) == 0
+        if plat == "cuda":
+            with open(f"{d}/ledger.jsonl") as f:
+                chunks = sum('"checkpoint"' in line for line in f)
+            assert LAUNCHES["annotate_bin"] - launches == chunks > 20000 // 4096
+            assert hashing.CALLS["cuda"] == calls["cuda"]
         out[plat] = store_bytes(d)
     assert out["cuda"] == out["cpu"]

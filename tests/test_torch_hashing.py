@@ -66,7 +66,9 @@ def test_to_uint32_reads_only_the_bit_form():
 
 def test_cpu_dispatch_calls_the_plain_hash(tmp_path):
     """On CPU tensors the loader's dispatch takes the hash from the plain
-    ``allele_hash`` (one call per chunk) and never launches the kernel."""
+    ``allele_hash`` (one call per chunk) and never launches the kernel.
+    The chunk comes from the Python engine, which carries no tokenizer
+    hash, so the dispatch hands the step's hash on."""
     from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
     from annotatedvdb_tpu_torch.loaders import VcfLoader
     from annotatedvdb_tpu_torch.ops.annotate_cuda import LAUNCHES
@@ -82,13 +84,15 @@ def test_cpu_dispatch_calls_the_plain_hash(tmp_path):
     loader = VcfLoader(VariantStore(width=49),
                        AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
                        log=lambda *a: None, device="cpu")
-    chunk = next(iter(VcfBatchReader(str(vcf), batch_size=64, width=49)))
+    chunk = next(iter(VcfBatchReader(str(vcf), batch_size=64, width=49,
+                                     engine="python")))
+    assert chunk.h_native is None
     before, launches = dict(CALLS), dict(LAUNCHES)
-    handles = loader._dispatch_chunk(chunk)
-    assert handles["h"].dtype == torch.int32  # the kernel's form
+    h = loader._dispatch_chunk(chunk)["cols"]["h"]
+    assert h.dtype == torch.int32  # the kernel's form
     assert CALLS["cpu"] == before["cpu"] + 1
     assert CALLS["cuda"] == before["cuda"] and LAUNCHES == launches
     b = chunk.batch
     np.testing.assert_array_equal(
-        to_uint32(handles["h"]),
+        to_uint32(h),
         allele_hash_np(b.ref, b.alt, b.ref_len, b.alt_len))

@@ -148,6 +148,8 @@ def _torch_load(vcf, store_dir, fail_at=None):
         )
     except RuntimeError:
         counters = None
+    finally:
+        loader.close()
     store.save(store_dir)
     return counters, loader
 

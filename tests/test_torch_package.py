@@ -41,6 +41,7 @@ def test_imports_with_jax_blocked():
     names = set(proc.stdout.split())
     assert len(names) >= 25
     assert {f"annotatedvdb_tpu_torch.{m}" for m in VEP_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in DEFAULT_VCF_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -48,12 +49,26 @@ VEP_SLICE = ("conseq.groups", "conseq.ranker", "conseq.table", "io.vep",
              "io.prefetch", "utils.pipeline", "loaders.vep_loader",
              "cli.load_vep")
 
+#: the modules of the VCF load's default configuration (native tokenizer,
+#: overlapped executor, async store writer)
+DEFAULT_VCF_SLICE = ("native", "native.vcf", "io.vcf", "io.prefetch",
+                     "utils.pipeline", "utils.profiling", "store.variant_store",
+                     "loaders.vcf_loader", "cli.load_vcf")
+
 
 def test_source_list_covers_the_vep_slice():
     """The per-file import check below walks every module of the slice."""
     sources = {os.path.relpath(p, PKG) for p in _port_sources()}
     for m in VEP_SLICE:
         assert m.replace(".", os.sep) + ".py" in sources, m
+
+
+def test_source_list_covers_the_default_vcf_slice():
+    """The per-file import check below walks every module of the slice."""
+    sources = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for m in DEFAULT_VCF_SLICE:
+        path = m.replace(".", os.sep)
+        assert path + ".py" in sources or os.path.join(path, "__init__.py") in sources, m
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

@@ -213,8 +213,12 @@ def _torch_vcf(vcf, store_dir):
     os.makedirs(store_dir)
     store = TorchStore(width=49)
     ledger = TorchLedger(os.path.join(store_dir, "ledger.jsonl"))
-    VcfLoader(store, ledger, batch_size=VCF_BATCH, log=lambda *a: None,
-              device="cpu").load_file(vcf, commit=True)
+    loader = VcfLoader(store, ledger, batch_size=VCF_BATCH,
+                       log=lambda *a: None, device="cpu")
+    try:
+        loader.load_file(vcf, commit=True)
+    finally:
+        loader.close()
     store.save(store_dir)
 
 
