@@ -6,6 +6,11 @@ default is a dry run unless ``--commit`` is passed; ``--test`` stops after
 one block; the algorithm-invocation id is printed on exit.  The load runs
 on ``cuda:0`` unless ``--platform cpu`` is passed.
 
+As in the reference, the VEP results go through the native C++ transform
+(raw-JSON values, built at first use into ``build/native/``) unless
+``AVDB_NATIVE_VEP=0`` selects the pure-Python transform; there is no flag
+for it.  A failed native build raises (``loaders/vep_loader.py``).
+
 Usage:  python -m annotatedvdb_tpu_torch load-vep --fileName results.json[.gz] \\
             --storeDir ./vdb [--rankingFile ranks.txt] [--commit] [--platform cpu] ...
 

@@ -1,7 +1,6 @@
 """VEP result load: update-only annotation of existing store rows.
 
-Port of ``annotatedvdb_tpu/loaders/vep_loader.py::TpuVepLoader`` with its
-pure-Python transform (the reference's path under ``AVDB_NATIVE_VEP=0``).
+Port of ``annotatedvdb_tpu/loaders/vep_loader.py::TpuVepLoader``.
 Reference flow (``Load/bin/load_vep_result.py`` +
 ``Util/lib/python/loaders/vep_variant_loader.py``): stream VEP JSON lines;
 per line, rank+sort the consequence blocks, re-parse the embedded VCF
@@ -11,24 +10,41 @@ per line, rank+sort the consequence blocks, re-parse the embedded VCF
 then batch ``jsonb_merge`` UPDATEs.
 
 A reader thread (``io/prefetch.py``) cuts the file into 4 MiB blocks of
-whole lines; each block is one flush.  A flush's per-alt rows form one
-identity batch (split at ``2 * next_pow2(batch_size)`` rows): on the card
-ONE launch of the fused ``annotate_bin`` kernel gives each row's allele
-hash, shared-prefix length and host-fallback flag, and only those three
-columns come back, in one copy after the launch; on the CPU the plain
-versions compute them.  Membership then runs per chromosome shard, and
-the updates deep-merge into the store's JSONB columns.  The stores this
-loader writes are byte-identical to the reference's for the same store and
-VEP file (``tests/test_torch_vep.py``).
+whole lines; each block is one flush, through one of two transforms:
 
-Not ported: the native C++ transform and its raw-JSON values, the mesh
-update step, the run-record telemetry (``obs/``) and ``warmup``.
+- **native** (the default, as in the reference): the C++ transformer
+  (``native/vep.py``) turns the block into per-alt rows with their allele
+  hash and the four JSONB values as raw JSON text, which the store keeps
+  verbatim (``RawJson``, assembled in C by ``native/pyfast.py``).  Its hash
+  is the ``annotate_bin`` kernel's bit-exact twin, so these rows make no
+  device round trip.  Docs it cannot transform faithfully (novel
+  consequence combos, escaped strings, malformed lines) re-run through the
+  Python transform, interleaved in document order; a doc that learns a
+  combo restarts the transformer after it with the re-ranked table, and
+  after four restarts the rest of the block takes the Python transform.
+  A failed build of either library raises: there is no quiet fallback.
+- **python** (``AVDB_NATIVE_VEP=0``): ``json.loads`` and the host parser.
+  A flush's per-alt rows form one identity batch (split at
+  ``2 * next_pow2(batch_size)`` rows): on the card ONE launch of the fused
+  ``annotate_bin`` kernel gives each row's allele hash, shared-prefix
+  length and host-fallback flag, and only those three columns come back,
+  in one copy after the launch; on the CPU the plain versions compute
+  them.  Under the default only the docs handed to this path launch.
+
+Membership then runs per chromosome shard, and the updates deep-merge into
+the store's JSONB columns.  Each transform writes the store bytes of the
+reference's same transform for the same store and VEP file
+(``tests/test_torch_vep.py``, ``tests/test_torch_vep_native.py``).
+
+Not ported: the mesh update step, the run-record telemetry (``obs/``) and
+``warmup``.
 """
 
 from __future__ import annotations
 
 import gzip
 import json
+import os
 
 import numpy as np
 import torch
@@ -38,10 +54,13 @@ from annotatedvdb_tpu_torch.io.prefetch import ChunkPrefetcher
 from annotatedvdb_tpu_torch.io.vep import VepResultParser
 from annotatedvdb_tpu_torch.loaders.vcf_loader import _fnv32_str
 from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+from annotatedvdb_tpu_torch.native import pyfast
+from annotatedvdb_tpu_torch.native import vep as native_vep
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from annotatedvdb_tpu_torch.oracle import normalize_alleles
 from annotatedvdb_tpu_torch.runtime import resolve_device, to_device
 from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+from annotatedvdb_tpu_torch.store.variant_store import RawJson
 from annotatedvdb_tpu_torch.types import (
     VariantBatch,
     chromosome_code,
@@ -56,6 +75,11 @@ LEDGER_SCRIPT = "TpuVepLoader.load_file"
 
 #: bytes the reader takes per block; every block of whole lines is a flush
 BLOCK_BYTES = 4 << 20
+
+#: restarts of the native transformer within one block (one after each
+#: flagged doc that learns a combo) after which the rest of the block
+#: takes the Python transform
+MAX_RESTARTS = 4
 
 # pending-row tuple layout (see _parse_result)
 R_CODE, R_POS, R_REF, R_ALT, R_ANN, R_FREQ, R_CLEANED, R_SHARED = range(8)
@@ -150,6 +174,14 @@ class VepLoader:
         self.identity_batches = 0
         #: membership probes by path ("device" / "host")
         self.probe_stats: dict[str, int] = {}
+        #: the transform's own counts: rows the native transformer applied,
+        #: docs it handed to the Python transform, its restarts after a
+        #: learned combo, and blocks (or, after MAX_RESTARTS, tails of
+        #: blocks) that went whole through the Python transform
+        self.transform_stats = {"native_rows": 0, "fallback_docs": 0,
+                                "restarts": 0, "python_blocks": 0}
+        self._blob: bytes | None = None      # the rank table for the C++ side
+        self._blob_version = -1
         #: backpressure at the reader boundary
         self.queue_stalls: dict = {}
         # quarantine sink + --maxErrors budget: malformed JSON lines and
@@ -176,6 +208,15 @@ class VepLoader:
         else:
             self._budget.add(1, context=reason)
 
+    def _ranking_blob(self) -> bytes:
+        """Serialized rank table for the native transformer, refreshed when
+        a learn-on-miss re-rank bumps the ranker's version."""
+        v = self.parser.ranker.version
+        if self._blob is None or self._blob_version != v:
+            self._blob = native_vep.ranking_blob(self.parser.ranker)
+            self._blob_version = v
+        return self._blob
+
     @property
     def is_adsp(self) -> bool:
         return self.datasource == "adsp"
@@ -186,6 +227,14 @@ class VepLoader:
 
     @bulk_load_gc()
     def load_file(self, path: str, commit: bool = False, test: bool = False) -> dict:
+        # the native transform runs unless AVDB_NATIVE_VEP=0, read per
+        # load as the reference reads it
+        use_native = os.environ.get("AVDB_NATIVE_VEP", "1") != "0"
+        if use_native:
+            # build (or find) both libraries before the ledger records a
+            # run: a failed build or probe raises here, with its cause
+            native_vep.load()
+            pyfast.load()
         alg_id = self.ledger.begin(
             LEDGER_SCRIPT,
             {"file": path, "datasource": self.datasource, "test": test},
@@ -201,7 +250,7 @@ class VepLoader:
             try:
                 for text in pre:
                     with self.timer.stage("process"):
-                        self._flush_text(text, alg_id, commit)
+                        self._flush_text(text, alg_id, commit, use_native)
             finally:
                 # settle the reader thread before fh leaves scope
                 pre.close()
@@ -218,13 +267,70 @@ class VepLoader:
 
     # ------------------------------------------------------------------
 
-    def _flush_text(self, text: bytes, alg_id: int, commit: bool) -> None:
-        """One block of whole lines: decode, rank, parse, apply."""
+    def _flush_text(self, text: bytes, alg_id: int, commit: bool,
+                    use_native: bool) -> None:
+        """One block of whole lines.  Natively: the C++ transformer over
+        the raw bytes; the docs it flags re-run through the Python transform
+        INTERLEAVED in document order, so same-row merge order matches the
+        all-Python path.  A flagged doc that LEARNS a combo renumbers the
+        rank table, so the docs after it re-transform with the new table —
+        the version-mix point the Python path has."""
+        stats = self.transform_stats
+        start_off = 0
+        restarts = 0
+        # input lines are counted once per block: by the FIRST transform
+        # (its docs cover the whole block; restarts re-scan tails) or by
+        # the Python path when it takes the whole block
+        counted = False
+        while start_off < len(text):
+            sub = text[start_off:] if start_off else text
+            if not use_native or restarts >= MAX_RESTARTS:
+                stats["python_blocks"] += 1
+                self._flush_python_text(sub, alg_id, commit, count=not counted)
+                break
+            res = native_vep.transform_text(
+                sub, self._ranking_blob(), self.is_dbsnp, self.store.width
+            )
+            n_docs = int(res.doc_fallback.size)
+            if not counted:
+                self.counters["line"] += n_docs
+                counted = True
+            doc_of_row = res.doc_of_row
+            lo_row, lo_doc = 0, 0
+            restart = None
+            for f in np.flatnonzero(res.doc_fallback == 1).tolist():
+                hi_row = int(np.searchsorted(doc_of_row, f))
+                self._native_range(res, alg_id, commit, lo_doc, f, lo_row, hi_row)
+                stats["fallback_docs"] += 1
+                v0 = self.parser.ranker.version
+                o = int(res.doc_off[f])
+                e = sub.find(b"\n", o)
+                self._flush_lines([sub[o:] if e < 0 else sub[o:e]], alg_id, commit)
+                lo_row = int(np.searchsorted(doc_of_row, f, side="right"))
+                lo_doc = f + 1
+                if self.parser.ranker.version != v0:
+                    # resume from the doc AFTER the flagged one
+                    restart = (start_off + int(res.doc_off[f + 1])
+                               if f + 1 < n_docs else len(text))
+                    break
+            if restart is not None:
+                start_off = restart
+                restarts += 1
+                stats["restarts"] += 1
+                continue
+            self._native_range(res, alg_id, commit, lo_doc, n_docs, lo_row,
+                               res.n_rows)
+            break
+        self._cadence.maybe_log(self.counters["line"], self.counters)
+
+    def _flush_python_text(self, text: bytes, alg_id: int, commit: bool,
+                           count: bool) -> None:
+        """A block (or a block's tail) through the Python transform."""
         batch_lines = [ln for ln in text.split(b"\n") if ln.strip()]
-        self.counters["line"] += len(batch_lines)
+        if count:
+            self.counters["line"] += len(batch_lines)
         if batch_lines:
             self._flush_lines(batch_lines, alg_id, commit)
-        self._cadence.maybe_log(self.counters["line"], self.counters)
 
     def _flush_lines(self, batch_lines: list[bytes], alg_id: int,
                      commit: bool) -> None:
@@ -272,6 +378,116 @@ class VepLoader:
                 self._reject(ln, f"unparseable VEP result: {err!r}")
         if pending:
             self._apply_batch(pending, alg_id, commit)
+
+    def _native_range(self, res, alg_id: int, commit: bool, doc_lo: int,
+                      doc_hi: int, row_lo: int, row_hi: int) -> None:
+        """Count and apply docs [doc_lo, doc_hi) of a transformed block,
+        whose rows are [row_lo, row_hi): per-alt rows, '.'-alt skips and
+        skipped contigs.  Rows of docs re-transformed after a restart are
+        counted by the later transform only."""
+        self.counters["variant"] += row_hi - row_lo
+        self.counters["skipped"] += int(
+            res.doc_skipped[doc_lo:doc_hi].sum()
+        ) + int((res.doc_fallback[doc_lo:doc_hi] == 2).sum())
+        self.transform_stats["native_rows"] += row_hi - row_lo
+        if row_hi > row_lo:
+            self._apply_native(res, alg_id, commit, row_lo, row_hi)
+
+    def _apply_native(self, res, alg_id: int, commit: bool, lo: int,
+                      hi: int) -> None:
+        """Apply rows [lo, hi) of a transformed block: membership and the
+        RawJson store writes.  No per-row Python dicts are built; sharing
+        one RawJson across a doc's alts is safe because raw values are
+        immutable (the store materializes fresh objects on merge and
+        read)."""
+        # the Python path's row split: --skipExisting's in-batch duplicate
+        # check resets per sub-batch, so the duplicates count follows it
+        cap = 2 * next_pow2(self.batch_size)
+        if hi - lo > cap:
+            for s0 in range(lo, hi, cap):
+                self._apply_native(res, alg_id, commit, s0, min(s0 + cap, hi))
+            return
+        sl = slice(lo, hi)
+        chrom, pos = res.chrom[sl], res.pos[sl]
+        ref, alt = res.ref[sl], res.alt[sl]
+        ref_len, alt_len = res.ref_len[sl], res.alt_len[sl]
+        ms_off, ms_len = res.ms_off[sl], res.ms_len[sl]
+        rk_off, rk_len = res.rk_off[sl], res.rk_len[sl]
+        fq_off, fq_len = res.fq_off[sl], res.fq_len[sl]
+        vo_off, vo_len = res.vo_off[sl], res.vo_len[sl]
+        # identity straight from the transformer: its hash is the kernel's
+        # bit-exact twin, over-width rows already full-string re-hashed
+        h = res.hash[sl]
+        arena = res.arena
+        # ASCII arenas (the normal case) decode once; byte offsets then
+        # equal str offsets and the C assembly slices the str
+        arena_s = arena.decode("ascii") if arena.isascii() else None
+        counters = self.counters
+        raw_cache: dict[tuple, RawJson] = {}  # (off, len) -> shared instance
+
+        def raw_column(offs, lens) -> list:
+            if arena_s is not None:
+                return pyfast.raw_rows(arena_s, offs, lens, RawJson)
+            out = []
+            for off, length in zip(offs.tolist(), lens.tolist()):
+                if length == 0:
+                    out.append({})
+                    continue
+                v = raw_cache.get((off, length))
+                if v is None:
+                    v = raw_cache[(off, length)] = RawJson(
+                        arena[off:off + length].decode()
+                    )
+                out.append(v)
+            return out
+
+        for code in np.unique(chrom):
+            sel = np.flatnonzero(chrom == code)
+            shard = self.store.shard(int(code))
+            found, idx = shard.lookup(
+                pos[sel], h[sel], ref[sel], alt[sel], ref_len[sel],
+                alt_len[sel], device=self.device, stats=self.probe_stats,
+            )
+            counters["not_found"] += int((~found).sum())
+            rows_i = sel[found]
+            ids = idx[found]
+            if self.skip_existing and rows_i.size:
+                # first occurrence per store row wins; a stored vep_output
+                # marks a duplicate
+                keep = np.ones(rows_i.size, np.bool_)
+                seen_in_batch: set[int] = set()
+                for j, row_idx in enumerate(ids.tolist()):
+                    if (row_idx in seen_in_batch
+                            or shard.get_ann("vep_output", row_idx)
+                            is not None):
+                        keep[j] = False
+                    elif commit:
+                        # dry runs buffer nothing: only the stored-value
+                        # check applies, as on the Python path
+                        seen_in_batch.add(row_idx)
+                counters["duplicates"] += int((~keep).sum())
+                rows_i, ids = rows_i[keep], ids[keep]
+            counters["update"] += int(rows_i.size)
+            if not commit or rows_i.size == 0:
+                continue
+            # one list per column (consecutive shared spans — a doc's
+            # vep_output across its alts — collapse to one instance)
+            fmask = fq_len[rows_i] > 0
+            fq_rows = rows_i[fmask]
+            upd_freq = raw_column(fq_off[fq_rows], fq_len[fq_rows])
+            upd_ms = raw_column(ms_off[rows_i], ms_len[rows_i])
+            upd_ranked = raw_column(rk_off[rows_i], rk_len[rows_i])
+            upd_vep = raw_column(vo_off[rows_i], vo_len[rows_i])
+            ids = np.asarray(ids, np.int64)
+            if fq_rows.size:
+                shard.update_annotation(ids[fmask], "allele_frequencies",
+                                        upd_freq)
+            shard.update_annotation(ids, "adsp_most_severe_consequence", upd_ms)
+            shard.update_annotation(ids, "adsp_ranked_consequences", upd_ranked)
+            shard.update_annotation(ids, "vep_output", upd_vep)
+            shard.set_col("row_algorithm_id", ids, alg_id)
+            if self.is_adsp:
+                shard.set_col("is_adsp_variant", ids, 1)
 
     def _batch_identity(self, batch: VariantBatch):
         """(hash [N] uint32, prefix_len [N], host_fallback [N]) for one

@@ -1,13 +1,17 @@
-"""ctypes binding for the native VCF tokenizer (``native/avdb_native.cpp``).
+"""The port's native host libraries and their one g++ build.
 
-Port of ``annotatedvdb_tpu/native/__init__.py`` for the tokenizer alone.
-The shared library builds at first use, never at import, with the system
-``g++`` into ``build/native/`` at the root of the checkout.  Its name
-carries a digest of the source, the flags and the host's CPU identity, so
-an edited source rebuilds and a ``-march=native`` library built on another
-CPU is never loaded.  A build that fails raises with the compiler's stderr:
-there is no quiet fallback to the Python tokenizer (the reader's
-``AVDB_INGEST_ENGINE=python`` is the explicit way there).
+Port of ``annotatedvdb_tpu/native/__init__.py``.  Three C++ sources live
+beside this file: the VCF tokenizer (``avdb_native.cpp``, bound here), the
+VEP-result transformer (``avdb_vep.cpp``, bound in ``vep.py``) and the
+CPython extension that assembles raw-JSON column lists
+(``avdb_pyfast.cpp``, loaded in ``pyfast.py``).  Each builds at first use,
+never at import, with the system ``g++`` into ``build/native/`` at the
+root of the checkout (:func:`build_shared_lib`).  A library's name carries
+a digest of its source, the flags and the host's CPU identity, so an edited
+source rebuilds and a ``-march=native`` library built on another CPU is
+never loaded.  A build that fails raises with the compiler's stderr: there
+is no quiet fallback to the Python paths (``AVDB_INGEST_ENGINE=python``
+and ``AVDB_NATIVE_VEP=0`` are the explicit ways there).
 """
 
 from __future__ import annotations
@@ -49,44 +53,54 @@ def _host_tag() -> bytes:
     return tag.encode()
 
 
-def library_path() -> str:
-    """Where the library lives for the current source, flags and host."""
-    with open(SOURCE, "rb") as f:
+def library_path(source: str, stem: str, extra_flags: tuple = ()) -> str:
+    """Where ``stem``'s library lives for the current source, flags and
+    host."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(GXX_FLAGS).encode() + _host_tag()
+            f.read() + " ".join(GXX_FLAGS + tuple(extra_flags)).encode()
+            + _host_tag()
         ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"avdb_native-{digest}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
 
 
-def build() -> str:
-    """Compile the library unless it exists; returns its path.  The
-    tmp-then-rename publish is atomic under concurrent builds.  Raises
-    RuntimeError with the compiler's stderr when the build fails."""
-    so_path = library_path()
+def build_shared_lib(source: str, stem: str, what: str,
+                     extra_flags: tuple = (), hint: str = "") -> str:
+    """Compile ``source`` into ``build/native/`` unless its library exists;
+    returns the path.  The tmp-then-rename publish is atomic under
+    concurrent builds.  Raises RuntimeError ``"<what> build failed"`` with
+    the compiler's stderr (or ``hint`` when there is no g++)."""
+    so_path = library_path(source, stem, extra_flags)
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp{os.getpid()}"
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SOURCE],
+        subprocess.run(["g++", *GXX_FLAGS, *extra_flags, "-o", tmp, source],
                        check=True, capture_output=True, text=True)
     except FileNotFoundError as err:
-        raise RuntimeError(
-            "native tokenizer build failed: g++ not found (set "
-            "AVDB_INGEST_ENGINE=python to read with the Python tokenizer)"
-        ) from err
+        raise RuntimeError(f"{what} build failed: g++ not found{hint}") from err
     except subprocess.CalledProcessError as err:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"native tokenizer build failed:\n{err.stderr[-2000:]}"
+            f"{what} build failed:\n{err.stderr[-2000:]}"
         ) from err
     os.replace(tmp, so_path)
     return so_path
 
 
+def build() -> str:
+    """Compile the tokenizer unless it exists; returns its path."""
+    return build_shared_lib(
+        SOURCE, "avdb_native", "native tokenizer",
+        hint=" (set AVDB_INGEST_ENGINE=python to read with the Python "
+             "tokenizer)",
+    )
+
+
 def load() -> ctypes.CDLL:
-    """The loaded library with its C interface declared, building it
+    """The loaded tokenizer with its C interface declared, building it
     first if needed.  Raises when the build or the load fails."""
     global _lib
     with _lock:

@@ -7,8 +7,10 @@ one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
-              and, beside it, the native VCF tokenizer
-              (``annotatedvdb_tpu_torch/native``);
+              and, beside them, the native host libraries
+              (``annotatedvdb_tpu_torch/native``: the VCF tokenizer, the
+              VEP transformer and the ``avdb_pyfast`` extension), each
+              compiler in its own process, all started together;
 3. kernels  — each kernel against its plain PyTorch version on the card
               (seeded edge rows at W = 16, 49 and 96, 1,048,576 random
               rows, a ragged last tile and unaligned bases; exact under
@@ -38,10 +40,12 @@ one JSON line:
               then updated from 12,500 VEP results for the variants of
               their first half (``load-vep``, the ranking file re-ranked
               on load and saved on each of 5 learned combos), once with
-              the Python tokenizer and the serial executor and once in
-              the default configuration: in each, the persisted store
-              bytes and the saved ranking files must be identical, the
-              VEP counters the ones the generator predicts;
+              the Python tokenizer, the serial executor and the Python
+              VEP transform (``AVDB_NATIVE_VEP=0``) and once in the
+              default configuration (the native tokenizer and VEP
+              transform): in each, the persisted store bytes and the
+              saved ranking files must be identical, the VEP counters the
+              ones the generator predicts;
 7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -49,10 +53,18 @@ one JSON line:
               malformed line) updates phase 4's store through
               ``python -m annotatedvdb_tpu_torch load-vep --commit`` (the
               CLI's ``main``), counters reset just before and read just
-              after: counters as predicted, every planted combo learned,
-              one ``annotate_bin`` launch per identity batch, no plain
-              hash on the card; then the kernel's time at that batch
-              shape.
+              after, in the default configuration (the native C++
+              transform): counters as predicted, every planted combo
+              learned, one ``annotate_bin`` launch per identity batch (the
+              docs the transformer hands to the Python transform), no
+              plain hash on the card, the transform's own counts, the
+              device's idle share (``torch.profiler``) and how the store
+              save splits between JSON encoding and the rest.  Before it,
+              the transformer's allele hash over the file's blocks is held
+              against the kernel's on the card.  Then the same file under
+              ``AVDB_NATIVE_VEP=0`` onto a copy of the store: the two
+              saved stores must decode equal.  Then the kernel's time at
+              the identity-batch shape.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -777,7 +789,7 @@ def environment(**env):
 #: the variables that choose the VCF load's configuration; the default
 #: configuration is all of them unset
 MODE_VARS = ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE",
-             "AVDB_INGEST_SHUFFLE_SEED")
+             "AVDB_INGEST_SHUFFLE_SEED", "AVDB_NATIVE_VEP")
 
 
 def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
@@ -921,11 +933,12 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
 
     # 6. device vs CPU, end to end: the VCF load, then the VEP update of
     # its store (ranking file re-ranked on load, saved on each learned
-    # combo); with the Python tokenizer and the serial executor, then in
-    # the default configuration
+    # combo); with the Python tokenizer, the serial executor and the Python
+    # VEP transform, then in the default configuration
     want6 = inp["want6"]
     for config, env in (("python-serial", {"AVDB_INGEST_ENGINE": "python",
-                                           "AVDB_PIPELINE": "serial"}),
+                                           "AVDB_PIPELINE": "serial",
+                                           "AVDB_NATIVE_VEP": "0"}),
                         ("default", {})):
         out = {}
         for plat in (platform, "cpu"):
@@ -940,7 +953,7 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             assert rc == 0, f"phase 6 ({config}) load on {plat} exited {rc}"
             with open(vcf6 + ".mapping", "rb") as f:
                 mapping = f.read()
-            with captured_loaders(VepLoader) as vep_loaders:
+            with captured_loaders(VepLoader) as vep_loaders, environment(**env):
                 rc = load_vep(["--fileName", inp["vep6"], "--storeDir", d,
                                "--commit", "--logAfter", "0", "--datasource",
                                "dbSNP", "--rankingFile",
@@ -951,24 +964,31 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             got6 = {k: vep_loaders[0].counters.get(k, 0) for k in want6}
             assert got6 == want6, (
                 f"phase 6 ({config}) VEP load on {plat}: {got6}, predicted {want6}")
+            stats6 = vep_loaders[0].transform_stats
+            assert (stats6["native_rows"] > 0) == (config == "default"), (
+                f"phase 6 ({config}) VEP load on {plat} ran the wrong "
+                f"transform: {stats6}")
             saved = {}
             for name in sorted(os.listdir(ranks)):
                 with open(os.path.join(ranks, name), "rb") as f:
                     saved[name] = f.read()
             out[len(out)] = (store_bytes(d), mapping, saved,
-                             time.perf_counter() - t0)
-        (files_dev, map_dev, ranks_dev, s_dev), (files_cpu, map_cpu, ranks_cpu, s_cpu) = (
-            out[0], out[1])
+                             time.perf_counter() - t0, stats6)
+        ((files_dev, map_dev, ranks_dev, s_dev, stats_dev),
+         (files_cpu, map_cpu, ranks_cpu, s_cpu, stats_cpu)) = out[0], out[1]
         differ = sorted(k for k in set(files_dev) | set(files_cpu)
                         if files_dev.get(k) != files_cpu.get(k))
         emit("parity", config=config, lines=n6, vep_results=want6["line"] - 1,
              vep_counters=want6, files=len(files_dev), differ=differ,
              mapping_equal=map_dev == map_cpu, ranking_files=sorted(ranks_dev),
              ranking_files_equal=ranks_dev == ranks_cpu, device_s=s_dev,
-             cpu_s=s_cpu)
+             cpu_s=s_cpu, transform_stats=stats_dev,
+             transform_stats_equal=stats_dev == stats_cpu)
         assert not differ and map_dev == map_cpu, (
             f"phase 6 ({config}): device and CPU stores differ in "
             f"{differ or ['mapping']}")
+        assert stats_dev == stats_cpu, (
+            f"phase 6 ({config}): transform counts differ: {stats_dev} / {stats_cpu}")
         assert ranks_dev == ranks_cpu and len(ranks_dev) == 6, (
             f"phase 6 ({config}): device and CPU saved ranking files differ: "
             f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
@@ -977,52 +997,218 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"]}
 
 
-def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
-    """Phase 7 on ``platform``: the VEP update of phase 4's store through
-    the CLI.  ``launches`` and ``hash_calls`` are already reset; both are
-    read right after the load.  Raises AssertionError on any failed
-    check."""
+def vep_hash_check(torch, device, vep) -> dict:
+    """The native VEP transformer's allele hash against the kernel's on
+    the card, over every 4 MiB block of ``vep`` as the update reads it
+    (rank table of the shipped seed, W = 49): rows with ``host_fb == 0``
+    equal to ``annotate_bin``'s hash, rows with ``host_fb == 1`` (an
+    allele over the width) equal to the host's full-string ``_fnv32_str``.
+    Raises AssertionError on any difference."""
+    from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
+    from annotatedvdb_tpu_torch.loaders.vcf_loader import _fnv32_str
+    from annotatedvdb_tpu_torch.loaders.vep_loader import _blocks
+    from annotatedvdb_tpu_torch.native import vep as native_vep
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+    from annotatedvdb_tpu_torch.ops.hashing import to_uint32
+
+    blob = native_vep.ranking_blob(ConsequenceRanker())
+    rows = blocks = over = bad = 0
+    t_transform = 0.0
+    with open(vep, "rb") as fh:
+        for text in _blocks(fh, test=False):
+            t0 = time.perf_counter()
+            res = native_vep.transform_text(text, blob, True, WIDTH)
+            t_transform += time.perf_counter() - t0
+            blocks += 1
+            if not res.n_rows:
+                continue
+            out = annotate_bin(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                                 for x in (res.pos, res.ref, res.alt,
+                                           res.ref_len, res.alt_len)))
+            h = to_uint32(out["allele_hash"])
+            fb = res.host_fb.astype(bool)
+            bad += int((h[~fb] != res.hash[~fb]).sum())
+            for i in np.flatnonzero(fb).tolist():
+                r0, a0 = int(res.ref_off[i]), int(res.alt_off[i])
+                want = _fnv32_str(
+                    res.text[r0:r0 + int(res.ref_slen[i])].decode(),
+                    res.text[a0:a0 + int(res.alt_slen[i])].decode())
+                bad += int(res.hash[i] != want)
+            rows += res.n_rows
+            over += int(fb.sum())
+    out = {"blocks": blocks, "rows": rows, "host_fb_rows": over,
+           "mismatches": bad, "transform_s": t_transform}
+    emit("vep_hash", **out)
+    assert rows > 0 and bad == 0, (
+        f"the VEP transformer's hash differs from the kernel's on {bad} of "
+        f"{rows} rows")
+    return out
+
+
+@contextlib.contextmanager
+def segment_writes(sink):
+    """(segment, seconds) of every segment file pair the store writes
+    inside, appended to ``sink``."""
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    raw = VariantStore.__dict__["_write_segment"]
+
+    def wrapper(path, stem, seg):
+        t0 = time.perf_counter()
+        try:
+            return raw.__func__(path, stem, seg)
+        finally:
+            sink.append((seg, time.perf_counter() - t0))
+
+    VariantStore._write_segment = staticmethod(wrapper)
+    try:
+        yield sink
+    finally:
+        VariantStore._write_segment = raw
+
+
+def sidecar_encode_s(segs) -> tuple:
+    """(seconds, bytes) to encode the JSON sidecar lines of ``segs`` again,
+    as the save does, without writing them."""
+    from annotatedvdb_tpu_torch.store.variant_store import (
+        OBJECT_COLUMNS,
+        sidecar_line,
+    )
+
+    t0 = time.perf_counter()
+    nbytes = 0
+    for seg in segs:
+        present = [(c, seg.obj[c]) for c in OBJECT_COLUMNS
+                   if seg.obj[c] is not None]
+        for i in range(seg.n) if present else ():
+            line = sidecar_line(((c, col[i]) for c, col in present), i)
+            if line is not None:
+                nbytes += len(line.encode())
+    return time.perf_counter() - t0, nbytes
+
+
+def run_load_vep(torch, platform, store_dir, vep, trace=False) -> dict:
+    """``load-vep --commit`` of ``vep`` into ``store_dir`` through the
+    CLI's ``main``: its wall, loader, store load and save seconds, the
+    segments the save wrote with their seconds, and with ``trace`` on the
+    card the device-busy seconds (``torch.profiler``; None when not traced
+    or when it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
     from annotatedvdb_tpu_torch.loaders import VepLoader
-    from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import VariantStore
+
+    traced = trace and platform == "cuda"
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof, \
+            captured_loaders(VepLoader) as loaders, \
+            timed_calls(VariantStore, "load", []) as load_s, \
+            timed_calls(VariantStore, "save", []) as save_s, \
+            segment_writes([]) as writes:
+        rc = load_vep(["--fileName", vep, "--storeDir", store_dir, "--commit",
+                       "--logAfter", "0", "--datasource", "dbSNP",
+                       "--platform", platform])
+        if platform == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"load-vep exited {rc}"
+    busy = None
+    if traced:
+        busy = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e6 or None
+    (loader,) = loaders
+    return {"wall": wall, "loader": loader, "store_load_s": sum(load_s),
+            "store_save_s": sum(save_s), "writes": writes, "busy": busy}
+
+
+def decoded_differences(dir_a, dir_b) -> list:
+    """The files of two stores that differ once each JSON sidecar line is
+    decoded: every other file byte for byte (the manifest without its
+    sidecar integrity records, the ledger without time stamps)."""
+    names_a, names_b = sorted(os.listdir(dir_a)), sorted(os.listdir(dir_b))
+    if names_a != names_b:
+        return sorted(set(names_a) ^ set(names_b))
+    differ = []
+    for name in names_a:
+        pa, pb = os.path.join(dir_a, name), os.path.join(dir_b, name)
+        if os.path.isdir(pa):
+            differ += [f"{name}/{d}" for d in decoded_differences(pa, pb)]
+            continue
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() == fb.read():
+                continue
+        if name.endswith(".ann.jsonl"):
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                la, lb = fa.read().splitlines(), fb.read().splitlines()
+            if len(la) == len(lb) and all(
+                    x == y or json.loads(x) == json.loads(y)
+                    for x, y in zip(la, lb)):
+                continue
+        elif name == "manifest.json":
+            ma, mb = (json.load(open(p)) for p in (pa, pb))
+            for m in (ma, mb):
+                m.pop("store_uid", None)
+                for rec in m.get("integrity", {}).values():
+                    rec.pop("jsonl", None)
+            if ma == mb:
+                continue
+        elif name == "ledger.jsonl":
+            ra, rb = ([{k: v for k, v in json.loads(ln).items() if k != "ts"}
+                       for ln in open(p) if ln.strip()] for p in (pa, pb))
+            if ra == rb:
+                continue
+        differ.append(name)
+    return differ
+
+
+def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
+    """Phase 7 on ``platform``: the VEP update of phase 4's store through
+    the CLI in the default configuration, then under ``AVDB_NATIVE_VEP=0``
+    onto ``prep["store_python"]``, a copy of the store made before.
+    ``launches`` and ``hash_calls`` are already reset; both are read right
+    after the first load.  Raises AssertionError on any failed check."""
+    from annotatedvdb_tpu_torch.runtime import resolve_device
 
     device = resolve_device(platform)
     want, novel = prep["want"], prep["novel"]
-    t0 = time.perf_counter()
-    with captured_loaders(VepLoader) as loaders, \
-            timed_calls(VariantStore, "load", []) as store_load_s, \
-            timed_calls(VariantStore, "save", []) as store_save_s:
-        rc = load_vep(["--fileName", prep["vep"], "--storeDir", prep["store"],
-                       "--commit", "--logAfter", "0", "--datasource", "dbSNP",
-                       "--platform", platform])
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = run_load_vep(torch, platform, prep["store"], prep["vep"], trace=True)
     launched, hashed = dict(launches), dict(hash_calls)
-    assert rc == 0, f"load-vep exited {rc}"
-    (loader,) = loaders
+    wall, loader = run["wall"], run["loader"]
     got = {k: loader.counters.get(k, 0) for k in want}
     batches = loader.identity_batches
     rows = loader.identity_timer.items.get("dispatch", 0)
     identity = loader.identity_timer.seconds
+    stats = dict(loader.transform_stats)
     pinned = [s for sh in loader.store.shards.values() for s in sh.segments
               if s._device is not None]
+    segs = [seg for seg, _s in run["writes"]]
+    encode_s, sidecar_bytes = sidecar_encode_s(segs)
     results = want["line"] - 1
+    busy = run["busy"]
     emit("vep", results=results, wall_s=wall, results_per_s=results / wall,
          loader_wall_s=loader.timer.wall_seconds,
-         store_load_s=sum(store_load_s), store_save_s=sum(store_save_s),
-         stage_seconds=dict(loader.timer.seconds),
-         identity_batches=batches, rows=rows, rows_per_batch=rows / batches,
+         store_load_s=run["store_load_s"], store_save_s=run["store_save_s"],
+         segments_written=len(segs),
+         segment_write_s=sum(t for _seg, t in run["writes"]),
+         sidecar_encode_s=encode_s, sidecar_bytes=sidecar_bytes,
+         stage_seconds=dict(loader.timer.seconds), transform_stats=stats,
+         identity_batches=batches, rows=rows,
+         rows_per_batch=rows / batches if batches else None,
          dispatch_s=identity.get("dispatch"), copy_back_s=identity.get("copy_back"),
          counters=got, predicted=want, added=len(loader.parser.ranker.added),
          planted=len(novel), probes=loader.probe_stats,
          pinned_segments=len(pinned), pinned_rows=sum(s.n for s in pinned),
          queue_stalls=loader.queue_stalls, launches=launched,
-         plain_hash_calls=hashed, vep_seconds=prep["vep_seconds"])
+         plain_hash_calls=hashed, profiler_device_busy_s=busy,
+         profiler_device_idle_fraction=None if busy is None else 1 - busy / wall,
+         vep_seconds=prep["vep_seconds"])
     assert got == want, f"vep: counters {got}, predicted {want}"
     assert sorted(loader.parser.ranker.added) == sorted(novel), (
         f"vep: learned {loader.parser.ranker.added}, planted {novel}")
+    assert stats["native_rows"] > 0, (
+        f"vep: the default configuration did not run the native transform: {stats}")
     assert batches > 0
     if device.type == "cuda":
         assert launched["annotate_bin"] == batches, (
@@ -1031,6 +1217,34 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
         assert not hashed.get("cuda"), (
             f"vep: the load called the plain allele_hash on the card "
             f"{hashed['cuda']} times")
+    del loader, pinned, segs, run
+
+    # 7b. the same file through the Python transform, onto the copy
+    before = dict(launches)
+    with environment(AVDB_NATIVE_VEP="0"):
+        py = run_load_vep(torch, platform, prep["store_python"], prep["vep"])
+    py_loader = py["loader"]
+    py_launched = launches["annotate_bin"] - before["annotate_bin"]
+    got_py = {k: py_loader.counters.get(k, 0) for k in want}
+    t0 = time.perf_counter()
+    differ = decoded_differences(prep["store"], prep["store_python"])
+    emit("vep_python", wall_s=py["wall"], results_per_s=results / py["wall"],
+         loader_wall_s=py_loader.timer.wall_seconds,
+         store_load_s=py["store_load_s"], store_save_s=py["store_save_s"],
+         stage_seconds=dict(py_loader.timer.seconds),
+         transform_stats=py_loader.transform_stats,
+         identity_batches=py_loader.identity_batches, launches=py_launched,
+         counters=got_py, decoded_differ=differ,
+         compare_s=time.perf_counter() - t0)
+    assert got_py == want, f"vep (python): counters {got_py}, predicted {want}"
+    assert py_loader.transform_stats["native_rows"] == 0
+    if device.type == "cuda":
+        assert py_launched == py_loader.identity_batches, (
+            f"vep (python): annotate_bin launched {py_launched} times for "
+            f"{py_loader.identity_batches} identity batches")
+    assert not differ, (
+        f"vep: the native and Python transforms' stores decode differently "
+        f"in {differ}")
     return {"launches": launched, "identity_batches": batches,
             "rows_per_batch": rows / batches}
 
@@ -1082,6 +1296,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from annotatedvdb_tpu_torch import native
+        from annotatedvdb_tpu_torch.native import pyfast
+        from annotatedvdb_tpu_torch.native import vep as native_vep
         from annotatedvdb_tpu_torch.ops import annotate_cuda, build, hashing
         from annotatedvdb_tpu_torch.runtime import resolve_device
     except ImportError as err:
@@ -1101,25 +1317,28 @@ def main() -> int:
     emit("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build: every kernel and the native tokenizer from this checkout's
-    # sources, the tokenizer's g++ beside the kernels' nvcc
+    # 2. build: every kernel and the native host libraries from this
+    # checkout's sources, each library's g++ beside the kernels' nvcc
     import concurrent.futures
 
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
 
-    def build_native():
+    def timed_build(load):
         t = time.perf_counter()
-        native.load()
+        load()
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        native_s = pool.submit(build_native)
+    libraries = {"tokenizer": native.load, "vep_transformer": native_vep.load,
+                 "pyfast": pyfast.load}
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        futures = {name: pool.submit(timed_build, load)
+                   for name, load in libraries.items()}
         logs = build.build()
-        native_s = native_s.result()
+        native_s = {name: f.result() for name, f in futures.items()}
     emit("build", seconds=time.perf_counter() - t0, kernels=sorted(logs),
-         tokenizer_seconds=native_s,
+         native_seconds=native_s,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln]
                 for k, v in logs.items()})
 
@@ -1145,11 +1364,17 @@ def main() -> int:
         if results["plain_hash_calls"].get("cuda"):
             return fail(f"the load called the plain allele_hash on the card "
                         f"{results['plain_hash_calls']['cuda']} times")
-        # 7. the VEP update of phase 4's store
+        # 7. the VEP update of phase 4's store: first the transformer's
+        # hash against the kernel's and a copy of the store for the
+        # Python transform's run, then the counters reset just before it
+        vep_hash_check(torch, device, results["vep"])
+        results["store_python"] = results["store"] + ".python"
+        shutil.copytree(results["store"], results["store_python"])
         reset()
         vep = vep_phase(torch, "cuda", results, launches=annotate_cuda.LAUNCHES,
                         hash_calls=hashing.CALLS)
-        vep_kernel = vep_kernel_timing(torch, device, round(vep["rows_per_batch"]))
+        vep_kernel = vep_kernel_timing(torch, device,
+                                       max(1, round(vep["rows_per_batch"])))
     except AssertionError as err:
         return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)

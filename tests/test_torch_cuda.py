@@ -13,10 +13,11 @@ storage offset), width 1 and the widest width it takes.  The wrapper's
 refusals are checked, and the load's dispatch on the card is shown to take
 the hash from the kernel, on the loader's own stream, into pinned host
 memory.  The VCF load's default configuration (native tokenizer,
-overlapped executor, async store writer) and the VEP update on the card
-must write the stores the same loads write on the CPU, with one kernel
-launch per chunk or identity batch, and the rank table's lookup on the
-card must equal its host lookup.
+overlapped executor, async store writer) and the VEP update on the card,
+through either transform, must write the stores the same loads write on
+the CPU, with one kernel launch per chunk or identity batch; the native
+VEP transformer's allele hash must equal the kernel's, and the rank
+table's lookup on the card must equal its host lookup.
 ``chip_smoke.py`` runs the same comparisons at the loads' real sizes."""
 
 import os
@@ -40,6 +41,7 @@ from chip_smoke import (  # noqa: E402
     edge_batch,
     random_batch,
     store_bytes,
+    vep_hash_check,
     write_phase4_vcf,
     write_vep_json,
 )
@@ -164,10 +166,13 @@ def test_rank_table_lookup_on_card_matches_host(cuda):
     assert (got[: len(table._masks)] >= 0).all()
 
 
-def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
-    """The VEP update of one store on the card and on the CPU: the same
-    counters and store bytes; on the card one kernel launch per identity
-    batch, membership probed on the card, no plain hash."""
+@pytest.mark.parametrize("config", ["python", "native"])
+def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch, config):
+    """The VEP update of one store on the card and on the CPU, through the
+    Python transform (``AVDB_NATIVE_VEP=0``) and the default native one:
+    the same counters, transform counts and store bytes; on the card one
+    kernel launch per identity batch, membership probed on the card, no
+    plain hash."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
     from annotatedvdb_tpu_torch.loaders import VepLoader
@@ -175,6 +180,10 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.quarantine import QuarantineSink
 
+    if config == "python":
+        monkeypatch.setenv("AVDB_NATIVE_VEP", "0")
+    else:
+        monkeypatch.delenv("AVDB_NATIVE_VEP", raising=False)
     annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
     vcf, vep = str(tmp_path / "v.vcf"), str(tmp_path / "v.vep.json")
     lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
@@ -198,12 +207,22 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         monkeypatch.delenv("AVDB_DEVICE_LOOKUP", raising=False)
         assert {k: counters.get(k, 0) for k in want} == want
         assert sorted(loader.parser.ranker.added) == sorted(novel)
+        assert (loader.transform_stats["native_rows"] > 0) == (config == "native")
         if plat == "cuda":
             assert LAUNCHES["annotate_bin"] - launches == loader.identity_batches > 0
             assert hashing.CALLS["cuda"] == calls["cuda"]
             assert set(loader.probe_stats) == {"device"}
-        out[plat] = store_bytes(d)
+        out[plat] = (store_bytes(d), loader.transform_stats)
     assert out["cuda"] == out["cpu"]
+
+
+def test_vep_transformer_hash_matches_kernel(cuda, tmp_path):
+    """The native VEP transformer's hash of every row against the kernel's
+    on the card (the host's full-string hash on over-width rows)."""
+    vcf, vep = str(tmp_path / "v.vcf"), str(tmp_path / "v.vep.json")
+    lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
+    write_vep_json(vep, lines, 5_000, seed=9, n_novel=3)
+    assert vep_hash_check(torch, cuda, vep)["rows"] > 5_000
 
 
 def test_dispatch_runs_on_the_loaders_stream(cuda, tmp_path):

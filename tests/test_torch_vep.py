@@ -3,9 +3,12 @@ package.
 
 One seeded VCF is loaded by the reference ``TpuVcfLoader`` (Python
 tokenizer, serial pipeline) and by the port's ``VcfLoader``; one seeded VEP
-JSON file then updates each store — the reference's ``TpuVepLoader`` on
-its pure-Python transform (``AVDB_NATIVE_VEP=0``), the port's
-``VepLoader`` on the CPU.  The file covers multi-allelic sites (shared
+JSON file then updates each store — the reference's ``TpuVepLoader`` and
+the port's ``VepLoader`` on the CPU, in both VEP configurations: ``python``
+(``AVDB_NATIVE_VEP=0`` for both packages, the pure-Python transform) and
+``native`` (no variable for either: the C++ transform and raw-JSON
+values, with the docs it flags re-run through the Python transform).  The
+file covers multi-allelic sites (shared
 ``cleaned`` dicts and a shared frequency bucket), '.' alts, variants the
 store does not hold, deletions keyed '-', over-width alleles, unknown
 contigs, repeated results for one variant with conflicting keys (the
@@ -222,8 +225,17 @@ def _torch_vcf(vcf, store_dir):
     store.save(store_dir)
 
 
-def _ref_vep(vep, store_dir, mp, native=False, **kw):
-    mp.setenv("AVDB_NATIVE_VEP", "1" if native else "0")
+def _set_config(mp, config):
+    """``python``: AVDB_NATIVE_VEP=0; ``native``: the variable unset (the
+    default of both packages)."""
+    if config == "python":
+        mp.setenv("AVDB_NATIVE_VEP", "0")
+    else:
+        mp.delenv("AVDB_NATIVE_VEP", raising=False)
+
+
+def _ref_vep(vep, store_dir, mp, config="python", **kw):
+    _set_config(mp, config)
     store = VariantStore.load(store_dir)
     ledger = AlgorithmLedger(os.path.join(store_dir, "ledger.jsonl"))
     sink = RefSink(store_dir, vep, "load-vep")
@@ -237,7 +249,8 @@ def _ref_vep(vep, store_dir, mp, native=False, **kw):
     return counters, loader, store
 
 
-def _torch_vep(vep, store_dir, **kw):
+def _torch_vep(vep, store_dir, mp, config="python", **kw):
+    _set_config(mp, config)
     store = TorchStore.load(store_dir)
     ledger = TorchLedger(os.path.join(store_dir, "ledger.jsonl"))
     sink = QuarantineSink(store_dir, vep, "load-vep")
@@ -270,25 +283,38 @@ def _assert_same_store(dir_a, dir_b):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both VCF stores, then the VEP load through both packages at the
-    default batch size and at batch_size=8, the port over the reference's
-    own store, and a skip_existing second pass."""
+def inputs(tmp_path_factory):
+    """The seeded inputs and both packages' VCF stores of them."""
     tmp = tmp_path_factory.mktemp("torch_vep")
     vcf, vep = _write_inputs(tmp)
     mp = pytest.MonkeyPatch()
-    out = {"vcf": vcf, "vep": vep, "tmp": tmp}
     try:
         base_ref, base_torch = str(tmp / "base_ref"), str(tmp / "base_torch")
         _ref_vcf(vcf, base_ref, mp)
         _torch_vcf(vcf, base_torch)
-        out["base"] = (base_ref, base_torch)
+    finally:
+        mp.undo()
+    return {"vcf": vcf, "vep": vep, "tmp": tmp, "base": (base_ref, base_torch)}
+
+
+@pytest.fixture(scope="module", params=["python", "native"])
+def runs(inputs, request):
+    """In one VEP configuration: the VEP load through both packages at the
+    default batch size and at batch_size=8, the port over the reference's
+    own store, and a skip_existing second pass."""
+    config = request.param
+    vep, (base_ref, base_torch) = inputs["vep"], inputs["base"]
+    tmp = inputs["tmp"] / config
+    tmp.mkdir()
+    mp = pytest.MonkeyPatch()
+    out = {**inputs, "tmp": tmp, "config": config}
+    try:
         for tag, kw in (("default", {}), ("batch8", {"batch_size": 8})):
             ref_dir, torch_dir = str(tmp / f"ref_{tag}"), str(tmp / f"torch_{tag}")
             shutil.copytree(base_ref, ref_dir)
             shutil.copytree(base_torch, torch_dir)
-            c_ref, l_ref, _ = _ref_vep(vep, ref_dir, mp, **kw)
-            c_torch, l_torch, _ = _torch_vep(vep, torch_dir, **kw)
+            c_ref, l_ref, _ = _ref_vep(vep, ref_dir, mp, config, **kw)
+            c_torch, l_torch, _ = _torch_vep(vep, torch_dir, mp, config, **kw)
             out[tag] = {
                 "counters": (c_ref, c_torch), "dirs": (ref_dir, torch_dir),
                 "bytes": (_persisted_bytes(ref_dir), _persisted_bytes(torch_dir)),
@@ -297,19 +323,19 @@ def runs(tmp_path_factory):
             }
         on_ref = str(tmp / "torch_on_ref")
         shutil.copytree(base_ref, on_ref)
-        out["on_ref"] = (_torch_vep(vep, on_ref)[0], on_ref)
+        out["on_ref"] = (_torch_vep(vep, on_ref, mp, config)[0], on_ref)
         ref_dir, torch_dir = out["default"]["dirs"]
         out["second"] = (
-            _ref_vep(vep, ref_dir, mp, skip_existing=True)[0],
-            _torch_vep(vep, torch_dir, skip_existing=True)[0],
+            _ref_vep(vep, ref_dir, mp, config, skip_existing=True)[0],
+            _torch_vep(vep, torch_dir, mp, config, skip_existing=True)[0],
         )
     finally:
         mp.undo()
     return out
 
 
-def test_vcf_base_stores_identical(runs):
-    _assert_same_store(*runs["base"])
+def test_vcf_base_stores_identical(inputs):
+    _assert_same_store(*inputs["base"])
 
 
 @pytest.mark.parametrize("tag", ["default", "batch8"])
@@ -334,13 +360,28 @@ def test_vep_load_store_bytes_identical(runs, tag):
 
 def test_vep_load_covers_every_path(runs):
     """The input reaches each counter-bearing path, two blocks, and (at
-    batch_size=8) the row split; the identity step ran once per batch."""
+    batch_size=8) the row split; the identity step ran once per batch of
+    the Python transform."""
     c = runs["default"]["counters"][1]
     assert c["update"] > 150 and c["not_found"] >= 20
     assert c["skipped"] >= 14 and c["rejected"] == 4
     default, batch8 = runs["default"]["loader"], runs["batch8"]["loader"]
-    assert default.identity_batches == 2  # one per 4 MiB block
-    assert batch8.identity_batches > 10   # rows split at 2 * next_pow2(8)
+    stats = default.transform_stats
+    if runs["config"] == "python":
+        assert default.identity_batches == 2  # one per 4 MiB block
+        assert batch8.identity_batches > 10   # rows split at 2 * next_pow2(8)
+        assert stats == {"native_rows": 0, "fallback_docs": 0, "restarts": 0,
+                         "python_blocks": 2}
+    else:
+        # the Python transform takes only the six flagged docs: the four
+        # broken lines (rejected there, no rows) and the two planted novel
+        # combos (three rows; each learned, so each restarts the
+        # transformer after it), one identity batch for each
+        assert default.identity_batches == batch8.identity_batches == 2
+        assert stats["fallback_docs"] == 6 and stats["restarts"] == 2
+        assert stats["python_blocks"] == 0
+        assert stats["native_rows"] + 3 == c["variant"]
+        assert batch8.transform_stats == stats
     assert default.queue_stalls["ingest"]["items"] == 2
     assert default.probe_stats == {"host": default.probe_stats["host"]}
     over = [s for s in runs["default"]["bytes"][1].values()
@@ -383,7 +424,7 @@ def test_decoded_values_match_native_reference(runs, monkeypatch):
     decodes to the same values as the port's store, row by row."""
     ref_dir = str(runs["tmp"] / "ref_native")
     shutil.copytree(runs["base"][0], ref_dir)
-    c_nat, _, s_nat = _ref_vep(runs["vep"], ref_dir, monkeypatch, native=True)
+    c_nat, _, s_nat = _ref_vep(runs["vep"], ref_dir, monkeypatch, "native")
     c_torch = runs["default"]["counters"][1]
     for k in ("variant", "skipped", "update", "not_found", "line"):
         assert c_nat[k] == c_torch[k], k
@@ -463,13 +504,13 @@ def test_prefetch_ranks_device_path_matches_host_ranker():
 # ------------------------------------------------------------- the store
 
 
-def test_store_update_half_matches_reference(runs, tmp_path):
+def test_store_update_half_matches_reference(inputs, tmp_path):
     """update_annotation (fresh column, merge, duplicate ids, replace, -1
     ids), set_col, set_flag, get_col and get_ann on the same store through
     both packages: same values, same saved bytes."""
     ref_dir, torch_dir = str(tmp_path / "ref"), str(tmp_path / "torch")
-    shutil.copytree(runs["base"][0], ref_dir)
-    shutil.copytree(runs["base"][0], torch_dir)
+    shutil.copytree(inputs["base"][0], ref_dir)
+    shutil.copytree(inputs["base"][0], torch_dir)
     ref, port = VariantStore.load(ref_dir), TorchStore.load(torch_dir)
     for store in (ref, port):
         sh = store.shard(1)
@@ -507,14 +548,14 @@ def test_store_update_half_matches_reference(runs, tmp_path):
 
 def test_cli_writes_reference_store(runs, tmp_path, monkeypatch, capsys):
     """``load-vep --platform cpu --commit`` through the port's CLI against
-    the reference CLI (``AVDB_NATIVE_VEP=0``) on copies of one store: same
-    store bytes, quarantine file, printed alg_id and ranking files saved on
-    each learned combo."""
+    the reference CLI, in the fixture's VEP configuration, on copies of one
+    store: same store bytes, quarantine file, printed alg_id and ranking
+    files saved on each learned combo."""
     from annotatedvdb_tpu.cli.load_vep import main as ref_main
     from annotatedvdb_tpu_torch.__main__ import main as torch_main
     from annotatedvdb_tpu_torch.conseq.ranker import DEFAULT_RANKING_FILE
 
-    monkeypatch.setenv("AVDB_NATIVE_VEP", "0")
+    _set_config(monkeypatch, runs["config"])
     vep = runs["vep"]
     printed, ranks = {}, {}
     for tag in ("ref", "torch"):
@@ -557,7 +598,7 @@ def test_cli_refuses_unported_flags(tmp_path, flags):
     assert not (tmp_path / "vdb").exists()
 
 
-def test_cli_defaults_to_cuda_and_never_falls_back(runs, tmp_path):
+def test_cli_defaults_to_cuda_and_never_falls_back(inputs, tmp_path):
     import torch
 
     from annotatedvdb_tpu_torch.cli.load_vep import main as torch_main
@@ -565,9 +606,9 @@ def test_cli_defaults_to_cuda_and_never_falls_back(runs, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     store_dir = str(tmp_path / "vdb")
-    shutil.copytree(runs["base"][1], store_dir)
+    shutil.copytree(inputs["base"][1], store_dir)
     before = _persisted_bytes(store_dir)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        torch_main(["--fileName", runs["vep"], "--storeDir", store_dir,
+        torch_main(["--fileName", inputs["vep"], "--storeDir", store_dir,
                     "--commit"])
     assert _persisted_bytes(store_dir) == before
