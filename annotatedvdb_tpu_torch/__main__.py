@@ -14,6 +14,14 @@ COMMANDS = {
     "load-vep": ("annotatedvdb_tpu_torch.cli.load_vep",
                  "annotate stored variants from VEP JSON results "
                  "(on the card by default)"),
+    "update-qc": ("annotatedvdb_tpu_torch.cli.update_qc",
+                  "update/insert from an ADSP QC pVCF (on the card by default)"),
+    "load-snpeff-lof": ("annotatedvdb_tpu_torch.cli.load_snpeff_lof",
+                        "update loss_of_function from a SnpEff VCF "
+                        "(on the card by default)"),
+    "update-annotation": ("annotatedvdb_tpu_torch.cli.update_variant_annotation",
+                          "TSV-driven annotation updates/inserts "
+                          "(on the card by default)"),
 }
 
 

@@ -126,10 +126,59 @@ _INT_RE = re.compile(r"[+-]?\d+\Z", re.ASCII)
 _FLOAT_RE = re.compile(
     r"[+-]?(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?\Z", re.ASCII
 )
+# safe to splice into JSON between quotes verbatim; must not LOOK numeric
+# (int()/float() accept whitespace padding, underscores, inf/nan forms:
+# anything of this charset not screened above takes the exact to_numeric
+# fallback)
+_SAFE_STR_RE = re.compile(r'[A-Za-z_][A-Za-z0-9_:,./|\-]*\Z', re.ASCII)
+# the only alpha tokens float() accepts (unsigned; signed forms fail the
+# leading-alpha screen): these take the exact fallback so the allow_nan
+# abort fires
+_FLOAT_WORDS = frozenset(("inf", "infinity", "nan"))
 # population-name charset whose json.dumps rendering is the name verbatim
 # between quotes (printable ASCII, no '"'/'\\', nothing ensure_ascii would
 # escape); anything else takes the exact json.dumps fallback
 _FREQ_KEY_RE = re.compile(r"[A-Za-z0-9 _.,:/|\-]+\Z", re.ASCII)
+
+
+def info_to_json(info_str: str) -> str:
+    """INFO field -> the JSON text of ``parse_info``'s dict, in one pass.
+
+    Regex-screened int/float/safe-string tokens splice verbatim; anything
+    else falls back to ``to_numeric`` + ``json.dumps``.  The text equals
+    ``json.dumps(parse_info(s), separators=(",", ":"))``: compact
+    separators, unlike the Python engine's ``json.dumps`` of the dict.
+
+    Raises ValueError on Infinity/NaN values (the QC update's abort).
+    Repeated keys de-duplicate last-wins at the first key's position, as
+    the dict does; an overwritten non-finite value does not abort."""
+    s = info_str.replace("\\x2c", ",").replace("\\x59", "/").replace("#", ":")
+    items: dict[str, str | None] = {}  # None = bare flag (-> true)
+    for item in s.split(";"):
+        eq = item.find("=")
+        if eq < 0:
+            if item:
+                items[item] = None
+        else:
+            items[item[:eq]] = item[eq + 1:]
+    parts = []
+    for k, v in items.items():
+        key = f'"{k}"' if _SAFE_STR_RE.match(k) else json.dumps(k)
+        if v is None:
+            parts.append(f"{key}:true")
+        elif _INT_RE.match(v):
+            parts.append(f"{key}:{int(v)}")
+        elif _FLOAT_RE.match(v) and math.isfinite(fv := float(v)):
+            # isfinite: '1e400' overflows to inf, which must take the
+            # aborting fallback
+            parts.append(f"{key}:{fv!r}")
+        elif _SAFE_STR_RE.match(v) and v.lower() not in _FLOAT_WORDS:
+            parts.append(f'{key}:"{v}"')
+        else:
+            parts.append(
+                f"{key}:{json.dumps(to_numeric(v), allow_nan=False)}"
+            )
+    return "{" + ",".join(parts) + "}"
 
 
 def freq_sidecar(info_str: str, n_alts: int) -> list:
@@ -202,6 +251,18 @@ class VcfChunk:
     line_number: np.ndarray    # 1-based source line, per row
     counters: dict = field(default_factory=dict)
     rs_position: list = field(default_factory=list)  # INFO RSPOS, per row
+    #: full INFO dict per row (shared across the alts of a line)
+    info: list = field(default_factory=list)
+    # site columns beyond identity (the QC and LoF updates read these):
+    # QUAL, FILTER, FORMAT as raw strings, None when absent or '.'
+    qual: list = field(default_factory=list)
+    filter: list = field(default_factory=list)
+    format: list = field(default_factory=list)
+    #: raw INFO column text per row (None when absent/'.'), so update
+    #: strategies write INFO as JSON text without the dict round trip
+    #: (:func:`info_to_json`).  None from the Python engine: consumers
+    #: then serialize the parsed ``info`` dict.
+    info_raw: list | None = None
     #: int64 refsnp number per row (ID "rs<digits>" first, else INFO RS=,
     #: else -1) — lets the insert path store rs ids without materializing
     #: any per-row sidecar string (``loaders/vcf_loader.py`` append stage)
@@ -376,6 +437,9 @@ class VcfBatchReader:
                 # be None
                 has_freq = "FREQ" in info
                 id_verbatim = not (vid == "." or vid.startswith("rs"))
+                qual = fields[5] if len(fields) > 5 and fields[5] != "." else None
+                filt = fields[6] if len(fields) > 6 and fields[6] != "." else None
+                fmt = fields[8] if len(fields) > 8 and fields[8] != "." else None
                 for i, alt in enumerate(alts):
                     if alt == ".":
                         counters["skipped_alt"] += 1
@@ -394,6 +458,10 @@ class VcfBatchReader:
                             has_freq,
                             id_verbatim,
                             info.get("RSPOS"),
+                            info,
+                            qual,
+                            filt,
+                            fmt,
                         )
                     )
         if rows or any(counters.values()):
@@ -432,6 +500,10 @@ class VcfBatchReader:
             line_number=np.array([r[8] for r in rows], dtype=np.int64),
             counters=dict(counters),
             rs_position=[r[11] for r in rows],
+            info=[r[12] for r in rows],
+            qual=[r[13] for r in rows],
+            filter=[r[14] for r in rows],
+            format=[r[15] for r in rows],
         )
 
 

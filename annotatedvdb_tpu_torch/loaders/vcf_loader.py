@@ -42,7 +42,12 @@ import torch
 
 from annotatedvdb_tpu_torch import oracle
 from annotatedvdb_tpu_torch.io import egress
-from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader, VcfChunk
+from annotatedvdb_tpu_torch.io.vcf import (
+    VcfBatchReader,
+    VcfChunk,
+    rs_is_weird,
+    rs_number,
+)
 from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from annotatedvdb_tpu_torch.ops.vrs import VrsDigestGenerator
@@ -425,6 +430,17 @@ class VcfLoader:
             handles["t0"] = time.perf_counter()
         return chunk, handles, delta
 
+    def _load_chunk(self, chunk: VcfChunk, alg_id, commit, resume_line,
+                    mapping_fh) -> None:
+        """Synchronous dispatch + process of one chunk, committed on this
+        thread (never through the store writer): the path of callers that
+        re-chunk rows through the insert loader and look the new rows up
+        right after (the update loaders' novel rows)."""
+        self._process_chunk(
+            chunk, self._dispatch_chunk(chunk), alg_id, commit,
+            resume_line, mapping_fh,
+        )
+
     def _dispatch_chunk(self, chunk: VcfChunk) -> dict:
         """Enqueue the chunk's device step without waiting: on a card,
         pinned non-blocking uploads, one ``annotate_bin`` launch and
@@ -622,7 +638,9 @@ class VcfLoader:
                 batch.n, cols["bin_level"].numpy(), cols["leaf_bin"].numpy(),
                 cols["needs_digest"].numpy(), host_rows,
             )
-        self._occ.record(handles["t0"], time.perf_counter())
+        if handles.get("t0") is not None:
+            # the synchronous _load_chunk path opens no in-flight window
+            self._occ.record(handles["t0"], time.perf_counter())
         # replayed rows within a partially-committed chunk
         replay = chunk.line_number <= resume_line
 
@@ -739,8 +757,16 @@ class VcfLoader:
                     alts[j] = chunk.alts[int(sel[j])]
             else:
                 refs = alts = None
-            rs_sel = chunk.rs_number[sel]
-            rs_weird_sel = chunk.rs_weird[sel]
+            if chunk.rs_number is not None:
+                rs_sel = chunk.rs_number[sel]
+                rs_weird_sel = (chunk.rs_weird[sel]
+                                if chunk.rs_weird is not None else None)
+            else:  # chunks built from TSV rows: derive both per row
+                strs = [chunk.ref_snp[i] for i in sel]
+                rs_sel = np.array([rs_number(r) for r in strs], np.int64)
+                rs_weird_sel = np.array(
+                    [rs_is_weird(r, n) for r, n in zip(strs, rs_sel)], bool
+                )
 
         with self.timer.stage("egress", items=int(sel.size)):
             needs_digest = np.asarray(sub_ann.needs_digest)
@@ -776,7 +802,8 @@ class VcfLoader:
                     j = slice(offset, offset + k)
                     jj = np.arange(offset, offset + k)
                     code = int(batch.chrom[rows[0]])
-                    if bool(chunk.has_freq[rows].any()):
+                    if (chunk.has_freq is None
+                            or bool(chunk.has_freq[rows].any())):
                         annotations = {
                             "allele_frequencies": [
                                 chunk.frequencies[i] for i in rows

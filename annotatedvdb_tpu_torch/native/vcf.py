@@ -5,8 +5,8 @@ Port of ``annotatedvdb_tpu/native/vcf.py``.  Drives
 decompressed byte windows and assembles the :class:`VcfChunk` the Python
 reader emits (``io/vcf.py``).  The device-batch columns and the allele
 hash (``h_native``) come straight out of the C++ tokenizer; sidecar
-strings (ids, INFO, original over-width alleles) materialize lazily from
-the byte spans it reports.
+strings (ids, INFO, QUAL, FILTER, FORMAT, original over-width alleles)
+materialize lazily from the byte spans it reports.
 
 A chunk ends every ``batch_size`` rows AND at the end of each
 ``READ_SIZE`` window, so the native engine cuts a file into other chunks
@@ -251,6 +251,9 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
     id_len = arrays.id_len[:n]
     info_off = arrays.info_off[:n]
     info_len = arrays.info_len[:n]
+    qual_off, qual_len = arrays.qual_off[:n], arrays.qual_len[:n]
+    filter_off, filter_len = arrays.filter_off[:n], arrays.filter_len[:n]
+    format_off, format_len = arrays.format_off[:n], arrays.format_len[:n]
     altcol_off = arrays.altcol_off[:n]
     altcol_len = arrays.altcol_len[:n]
     alt_index = arrays.alt_index[:n]
@@ -319,6 +322,10 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
             ))
         return vid
 
+    def opt(off, length):
+        # the tokenizer reports a negative offset for an absent or '.' field
+        return lambda i: span(off, length, i) if off[i] >= 0 else None
+
     return VcfChunk(
         batch=batch,
         refs=refs,
@@ -330,6 +337,13 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
         # skip even the FREQ-token scan
         frequencies=LazyColumn(n, freq_at),
         rs_position=LazyColumn(n, lambda i: info_at(i).get("RSPOS")),
+        info=LazyColumn(n, info_at),
+        info_raw=LazyColumn(
+            n, lambda i: span(info_off, info_len, i) if info_len[i] > 0 else None
+        ),
+        qual=LazyColumn(n, opt(qual_off, qual_len)),
+        filter=LazyColumn(n, opt(filter_off, filter_len)),
+        format=LazyColumn(n, opt(format_off, format_len)),
         line_number=line_no,
         counters=dict(counters),
         rs_number=arrays.rs_number[:n],
@@ -373,6 +387,7 @@ def _empty_chunk(width: int, counters: dict):
     return VcfChunk(
         batch=batch, refs=[], alts=[], ref_snp=[], variant_id=[],
         is_multi_allelic=np.zeros(0, bool), frequencies=[], rs_position=[],
+        info=[], qual=[], filter=[], format=[],
         line_number=np.zeros(0, np.int64), counters=dict(counters),
         rs_number=np.zeros(0, np.int64), has_freq=np.zeros(0, bool),
     )

@@ -582,6 +582,21 @@ class ChromosomeShard:
     def n(self) -> int:
         return sum(s.n for s in self.segments)
 
+    # -- whole-column views (any segment count, global-id order) ------------
+
+    def column(self, name: str) -> np.ndarray:
+        """Full numeric column concatenated in global-id order."""
+        if not self.segments:
+            return np.empty((0,), dict(_NUMERIC_COLUMNS)[name])
+        return np.concatenate([s.cols[name] for s in self.segments])
+
+    def object_column(self, name: str) -> np.ndarray:
+        """Full object column concatenated in global-id order (a copy:
+        mutate through :meth:`update_annotation`, not this view)."""
+        if not self.segments:
+            return np.empty((0,), object)
+        return np.concatenate([_dense(s.obj[name], s.n) for s in self.segments])
+
     # -- per-row access by global id ----------------------------------------
     # Global ids number the rows of the segments in list order.  They stay
     # valid until the segment list changes (append, merge).

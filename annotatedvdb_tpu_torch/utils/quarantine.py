@@ -98,6 +98,12 @@ class QuarantineSink:
             }}) + "\n")
         return self._fh
 
+    def set_header(self, header: str) -> None:
+        """Late header binding (the TSV loader reads its header after the
+        sink is built); effective only before the first reject creates
+        the file."""
+        self.header = header
+
     def reject(self, line_no: int | None, raw: str, reason: str) -> None:
         """Quarantine one rejected input line; raises
         :class:`ErrorBudgetExceeded` past the budget (the record is written

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives ``annotatedvdb_tpu_torch``'s VCF insert load and VEP annotation
-update on ``cuda:0`` and checks them, phase by phase, each phase printing
-one JSON line:
+Drives ``annotatedvdb_tpu_torch``'s VCF insert load, VEP annotation
+update and the VCF/TSV-driven update legs (``update-qc``,
+``load-snpeff-lof``, ``update-annotation``) on ``cuda:0`` and checks
+them, phase by phase, each phase printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
@@ -45,7 +46,14 @@ one JSON line:
               default configuration (the native tokenizer and VEP
               transform): in each, the persisted store bytes and the
               saved ranking files must be identical, the VEP counters the
-              ones the generator predicts;
+              ones the generator predicts.  Then, in each configuration,
+              the three update commands in turn on the same stores: a QC
+              pVCF over the first 25,000 lines with 10% novel rows, a
+              SnpEff file over all of them and a METASEQ TSV of 12,500
+              rows with 5% novel: the stores identical after each, the
+              counters as predicted, and on the card the predicted
+              ``annotate_bin`` launches (one per chunk or batch hashed on
+              the device, one per insert of novel rows);
 7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -64,7 +72,20 @@ one JSON line:
               against the kernel's on the card.  Then the same file under
               ``AVDB_NATIVE_VEP=0`` onto a copy of the store: the two
               saved stores must decode equal.  Then the kernel's time at
-              the identity-batch shape.
+              the identity-batch shape;
+8. updates  — on phase 7's store, through the CLIs' ``main`` with
+              ``--commit`` in the default configuration, each with the
+              counters reset just before and read just after: a seeded
+              ADSP-QC-shaped pVCF of 400,000 phase-4 lines (QUAL, FILTER
+              PASS on 85%, numeric INFO keys and a flag, a repeated key on
+              1%, FORMAT and a sample; 10% new SNVs, 3% of those with two
+              alts) with ``--version r4``; a SnpEff VCF of 400,000 phase-4
+              identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
+              of 100,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
+              5% new insertions.  Each: counters as the generator
+              predicts, the predicted ``annotate_bin`` launches, no plain
+              hash on the card, stage seconds, wall, lines/s and the
+              device's idle share (``torch.profiler``).
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -445,6 +466,146 @@ def write_vep_json(path, lines, n_results, seed, n_novel):
     return want, [",".join(sorted(t)) for t in novel]
 
 
+# ------------------------------------------------- update-leg writers
+
+QC_HEADER = ("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\t"
+             "INFO\tFORMAT\tSAMPLE1\n")
+FILTERS = ("LowQual", "VQSRTrancheSNP99.90to100.00", "ExcessHet")
+
+
+def line_rows(alt_col):
+    """Store rows of one VCF line (its alts less the '.' ones)."""
+    alts = alt_col.split(",")
+    return len(alts) - alts.count(".")
+
+
+def novel_alts(ref, alt_col):
+    """Single bases that make new identities at a line's position: neither
+    the ref's first base nor one of its alts."""
+    alts = alt_col.split(",")
+    return [b for b in "ACGT" if b != ref[0] and b not in alts]
+
+
+def write_qc_pvcf(path, lines, n, seed, novel_share=0.1):
+    """An ADSP-QC-shaped pVCF (QUAL, FILTER, INFO of numeric keys and a
+    flag, FORMAT and one sample) over ``n`` of ``lines`` (VCF data lines,
+    position-sorted, taken in order): ``novel_share`` of them a new SNV at
+    the line's position (3% of those with two alts), the rest the line's
+    own identity; FILTER PASS on 85%; 1% repeat an INFO key.  Returns the
+    counters the update must report."""
+    rng = np.random.default_rng(seed)
+    pick = np.sort(rng.choice(len(lines), n, replace=False))
+    novel = rng.random(n) < novel_share
+    two = rng.random(n) < 0.03
+    u, db, dup = rng.random(n), rng.random(n) < 0.3, rng.random(n) < 0.01
+    ac, dp = rng.integers(1, 5000, n), rng.integers(10, 90_000, n)
+    af, qd, qual = rng.random(n), rng.random(n) * 40, rng.random(n) * 9000
+    want = {"line": n, "update": 0, "skipped": 0, "not_found": 0, "inserted": 0}
+    with open(path, "w") as fh:
+        fh.write(QC_HEADER)
+        for j, li in enumerate(pick.tolist()):
+            chrom, pos, vid, ref, alt_col = lines[li].split("\t", 5)[:5]
+            if novel[j]:
+                free = novel_alts(ref, alt_col)
+                ref, alt_col = ref[0], ",".join(free[:2 if two[j] else 1])
+                want["inserted"] += line_rows(alt_col)
+            else:
+                want["update"] += line_rows(alt_col)
+            filt = "PASS" if u[j] < 0.85 else FILTERS[j % 3]
+            info = (f"AC={ac[j]};AN=10000;AF={af[j]:.5f};DP={dp[j]};"
+                    f"QD={qd[j]:.2f};MQ=60.00")
+            if db[j]:
+                info += ";DB"
+            if dup[j]:
+                info = f"AC=0;{info}"  # a repeated key: the later one wins
+            fh.write(f"{chrom}\t{pos}\t{vid}\t{ref}\t{alt_col}\t{qual[j]:.2f}\t"
+                     f"{filt}\t{info}\tGT:AD:DP:GQ\t0/1:12,10:22:99\n")
+    want["variant"] = want["update"] + want["inserted"]
+    return want
+
+
+def write_snpeff_vcf(path, lines, n, seed, lof_share=0.06):
+    """A SnpEff-annotated VCF over ``n`` of ``lines`` (their own
+    identities): ``ANN=`` on every line, ``LOF=`` and/or ``NMD=`` on
+    ``lof_share`` of them.  Returns the counters the update must report
+    (the rest are skipped before any lookup)."""
+    rng = np.random.default_rng(seed)
+    pick = np.sort(rng.choice(len(lines), n, replace=False))
+    has = rng.random(n) < lof_share
+    kind = rng.integers(0, 3, n)
+    gene = rng.integers(0, 20_000, n)
+    frac = rng.random(n)
+    want = {"line": n, "update": 0, "skipped": 0, "not_found": 0, "inserted": 0}
+    with open(path, "w") as fh:
+        fh.write(HEADER)
+        for j, li in enumerate(pick.tolist()):
+            chrom, pos, vid, ref, alt_col = lines[li].split("\t", 5)[:5]
+            g = f"GENE{gene[j]}|ENSG{gene[j]:011d}"
+            info = f"ANN={alt_col.split(',')[0]}|intron_variant|MODIFIER|{g}"
+            if has[j]:
+                lof = f"({g}|{1 + gene[j] % 30}|{frac[j]:.2f})"
+                info += (";LOF=" + lof, ";NMD=" + lof,
+                         f";LOF={lof};NMD={lof}")[kind[j]]
+                want["update"] += line_rows(alt_col)
+            else:
+                want["skipped"] += line_rows(alt_col)
+            fh.write(f"{chrom}\t{pos}\t{vid}\t{ref}\t{alt_col}\t.\t.\t{info}\n")
+    want["variant"] = want["update"] + want["skipped"]
+    return want
+
+
+def write_metaseq_tsv(path, lines, n, seed, novel_share=0.05):
+    """A METASEQ-keyed annotation TSV (``other_annotation`` JSON and
+    ``ref_snp_id`` columns) over ``n`` of ``lines`` (those with a stored
+    alt): the first alt's identity, or on ``novel_share`` of them a new
+    8-base insertion at the line's position (no line of the VCF writers
+    has one).  Returns the counters the update must report."""
+    rng = np.random.default_rng(seed)
+    usable = [ln for ln in lines if ln.split("\t", 5)[4] != "."]
+    pick = np.sort(rng.choice(len(usable), n, replace=False))
+    novel = rng.random(n) < novel_share
+    score, ins = rng.random(n), rng.integers(0, 4, (n, 7))
+    want = {"line": n, "update": 0, "skipped": 0, "not_found": 0, "inserted": 0}
+    with open(path, "w") as fh:
+        fh.write("variant\tother_annotation\tref_snp_id\n")
+        for j, li in enumerate(pick.tolist()):
+            chrom, pos, vid, ref, alt_col = usable[li].split("\t", 5)[:5]
+            if novel[j]:
+                ref, alt = ref[0], ref[0] + "".join(BASES[ins[j]])
+                want["inserted"] += 1
+            else:
+                alt = alt_col.split(",")[0]
+                want["update"] += 1
+            ann = json.dumps({"source": "smoke", "score": round(float(score[j]), 4),
+                              "tags": ["a", j % 7]})
+            rs = vid if vid.startswith("rs") and j % 2 else "NULL"
+            fh.write(f"{chrom}:{pos}:{ref}:{alt}\t{ann}\t{rs}\n")
+    want["variant"] = n
+    want["duplicates"] = want["update"]
+    return want
+
+
+def write_update_inputs(prefix, sources, seed) -> dict:
+    """The three update inputs: ``sources`` maps ``qc``, ``lof`` and
+    ``tsv`` to (the VCF lines it is drawn from, its size).  Returns the
+    path and the predicted counters of each under its name."""
+    out = {}
+    for name, ext, fn in (("qc", "qc.vcf", write_qc_pvcf),
+                          ("lof", "snpeff.vcf", write_snpeff_vcf),
+                          ("tsv", "annotation.tsv", write_metaseq_tsv)):
+        path = f"{prefix}.{ext}"
+        lines, n = sources[name]
+        out[name] = {"path": path, "want": fn(path, lines, n, seed)}
+        seed += 1
+    return out
+
+
+#: the update commands: (CLI command, its extra flags)
+UPDATE_COMMANDS = {"qc": ("update-qc", ["--version", "r4"]),
+                   "lof": ("load-snpeff-lof", []),
+                   "tsv": ("update-annotation", [])}
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -704,12 +865,14 @@ def store_bytes(store_dir):
     return out
 
 
-def write_inputs(n4, n5, n6, n7) -> dict:
-    """The seeded inputs of phases 3-7 under ``WORK``: the phase-4 VCF of
+def write_inputs(n4, n5, n6, n7, n8=(400_000, 400_000, 100_000)) -> dict:
+    """The seeded inputs of phases 3-8 under ``WORK``: the phase-4 VCF of
     ``n4`` lines, the phase-5 reload VCF of ``n5``, the first ``n6`` lines
-    of phase 4 with a VEP file for their first half (phase 6), and ``n7``
-    VEP results over phase 4's variants (phase 7), with what each load
-    must count."""
+    of phase 4 with a VEP file for their first half and the three update
+    inputs over them (phase 6), ``n7`` VEP results over phase 4's variants
+    (phase 7), and the update inputs over phase 4's lines, ``n8`` = (QC
+    lines, SnpEff lines, TSV rows) (phase 8), with what each load must
+    count."""
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     inp = {name: os.path.join(WORK, f) for name, f in (
@@ -732,9 +895,24 @@ def write_inputs(n4, n5, n6, n7) -> dict:
     inp["want7"], inp["novel7"] = write_vep_json(inp["vep7"], lines4, n7,
                                                  seed=7, n_novel=20)
     inp["vep_seconds"] = time.perf_counter() - t0
+    # the update legs: phase 6's over the identities of its 50,000 lines
+    # (a QC pVCF over the first half), phase 8's over phase 4's lines
+    t0 = time.perf_counter()
+    with open(inp["vcf6"]) as f:
+        lines6 = list(dict.fromkeys(ln for ln in f if not ln.startswith("#")))
+    half = len(lines6) // 2
+    inp["updates6"] = write_update_inputs(
+        os.path.join(WORK, "chr22.head"),
+        {"qc": (lines6[:half], half), "lof": (lines6, len(lines6)),
+         "tsv": (lines6, n6 // 4)}, seed=60)
+    inp["updates8"] = write_update_inputs(
+        os.path.join(WORK, "chr22"),
+        {name: (lines4, n) for name, n in zip(("qc", "lof", "tsv"), n8)},
+        seed=80)
+    inp["update_seconds"] = time.perf_counter() - t0
     inp["dup4"] = int(rows4[dup_lines].sum())
     inp["ins4"] = int(rows4.sum())
-    inp.update(n4=n4, n5=n5, n6=n6, n7=n7)
+    inp.update(n4=n4, n5=n5, n6=n6, n7=n7, n8=n8)
     return inp
 
 
@@ -972,10 +1150,40 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             for name in sorted(os.listdir(ranks)):
                 with open(os.path.join(ranks, name), "rb") as f:
                     saved[name] = f.read()
-            out[len(out)] = (store_bytes(d), mapping, saved,
-                             time.perf_counter() - t0, stats6)
-        ((files_dev, map_dev, ranks_dev, s_dev, stats_dev),
-         (files_cpu, map_cpu, ranks_cpu, s_cpu, stats_cpu)) = out[0], out[1]
+            vep_bytes = store_bytes(d)
+            # then the three update legs on the same store, in turn
+            updates = {}
+            for name, spec in inp["updates6"].items():
+                before = launches["annotate_bin"]
+                with environment(**env):
+                    run = run_update(torch, plat, name, spec["path"], d)
+                got = {k: run["counters"].get(k, 0) for k in spec["want"]}
+                assert got == spec["want"], (
+                    f"phase 6 ({config}) {name} on {plat}: {got}, predicted "
+                    f"{spec['want']}")
+                want_l = update_launches_predicted(name, run, config == "default")
+                n_launched = launches["annotate_bin"] - before
+                if plat == "cuda":
+                    assert n_launched == want_l, (
+                        f"phase 6 ({config}) {name}: annotate_bin launched "
+                        f"{n_launched} times, predicted {want_l}")
+                updates[name] = {"files": store_bytes(d), "launches": n_launched,
+                                 "chunks": run["chunks"], "s": run["wall"]}
+            out[len(out)] = (vep_bytes, mapping, saved,
+                             time.perf_counter() - t0, stats6, updates)
+        ((files_dev, map_dev, ranks_dev, s_dev, stats_dev, upd_dev),
+         (files_cpu, map_cpu, ranks_cpu, s_cpu, stats_cpu, upd_cpu)) = out[0], out[1]
+        for name in upd_dev:
+            a, b = upd_dev[name].pop("files"), upd_cpu[name].pop("files")
+            upd_dev[name]["differ"] = sorted(k for k in set(a) | set(b)
+                                             if a.get(k) != b.get(k))
+            upd_dev[name]["cpu_s"] = upd_cpu[name]["s"]
+        emit("parity_updates", config=config, updates=upd_dev,
+             predicted={k: v["want"] for k, v in inp["updates6"].items()})
+        for name, rec in upd_dev.items():
+            assert not rec["differ"], (
+                f"phase 6 ({config}): device and CPU stores differ after "
+                f"{name} in {rec['differ']}")
         differ = sorted(k for k in set(files_dev) | set(files_cpu)
                         if files_dev.get(k) != files_cpu.get(k))
         emit("parity", config=config, lines=n6, vep_results=want6["line"] - 1,
@@ -995,6 +1203,82 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
     return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks,
             "store": store4, "vep": inp["vep7"], "want": inp["want7"],
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"]}
+
+
+def run_update(torch, platform, name, path, store_dir, trace=False) -> dict:
+    """One update command (``name`` in UPDATE_COMMANDS) through the CLI's
+    ``main`` with ``--commit``: its wall, loader, printed counters, the
+    chunks it checkpointed, the device hash steps of ``loaders/lookup.py``
+    and the synchronous inserts it made (each launches ``annotate_bin``
+    once on the card), the store's load and save seconds (the saves are
+    the checkpoints' ``persist``), and with ``trace`` on the card the
+    device-busy seconds (``torch.profiler``; None when it saw no device
+    time)."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from annotatedvdb_tpu_torch.__main__ import main as cli
+    from annotatedvdb_tpu_torch.loaders import TextLoader, UpdateLoader, VcfLoader
+    from annotatedvdb_tpu_torch.loaders import lookup
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    cmd, extra = UPDATE_COMMANDS[name]
+    traced = trace and platform == "cuda"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof, \
+            captured_loaders(UpdateLoader) as loaders, \
+            captured_loaders(TextLoader) as text_loaders, \
+            timed_calls(lookup, "_device_hash", []) as hash_steps, \
+            timed_calls(VcfLoader, "_load_chunk", []) as inserts, \
+            timed_calls(VariantStore, "load", []) as load_s, \
+            timed_calls(VariantStore, "save", []) as save_s, \
+            contextlib.redirect_stdout(out):
+        rc = cli([cmd, "--fileName", path, "--storeDir", store_dir, "--commit",
+                  "--logAfter", "0", "--platform", platform, *extra])
+        if platform == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"{cmd} exited {rc}"
+    printed = out.getvalue().splitlines()
+    counters = json.loads(printed[-2])
+    assert int(printed[-1]) == counters["alg_id"]
+    busy = None
+    if traced:
+        busy = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e6 or None
+    (loader,) = loaders + text_loaders
+    # the counters after each chunk, from its checkpoint: the chunks whose
+    # ``inserted`` grew are the ones that inserted novel rows
+    after = [r["counters"] for r in ledger_records(store_dir, "checkpoint")
+             if r["alg_id"] == counters["alg_id"]]
+    novel_chunks = sum(b.get("inserted", 0) > a.get("inserted", 0)
+                       for a, b in zip([{}] + after, after))
+    return {"wall": wall, "loader": loader, "counters": counters,
+            "chunks": len(after), "novel_chunks": novel_chunks,
+            "hash_steps": len(hash_steps), "inserts": len(inserts), "busy": busy,
+            "store_load_s": sum(load_s), "store_save_s": sum(save_s)}
+
+
+def update_launches_predicted(name, run, native) -> int:
+    """``annotate_bin`` launches an update run must make on the card: one
+    per synchronous insert, made for each chunk or batch with novel rows,
+    and one per chunk or batch hashed on the device (``lookup._device_hash``:
+    without a tokenizer hash, that is under the Python engine and for every
+    TSV batch, the lookup and the re-lookup of its inserted rows).  Checked
+    against the run's own chunks and the ones whose checkpoint shows
+    inserts."""
+    chunks, novel = run["chunks"], run["novel_chunks"]
+    assert run["inserts"] == novel, (
+        f"{name}: {run['inserts']} inserts for {novel} chunks with novel rows")
+    if name == "lof":
+        assert novel == 0, f"lof: {novel} chunks inserted rows"
+    want_steps = 0 if native and name != "tsv" else chunks + novel
+    assert run["hash_steps"] == want_steps, (
+        f"{name}: {run['hash_steps']} device hash steps, predicted {want_steps}")
+    return run["hash_steps"] + run["inserts"]
 
 
 def vep_hash_check(torch, device, vep) -> dict:
@@ -1249,6 +1533,47 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
             "rows_per_batch": rows / batches}
 
 
+def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> dict:
+    """Phase 8 on ``platform``: the three update commands in turn on the
+    store of phase 7 (``store_dir``), through the CLIs in the default
+    configuration.  ``launches`` and ``hash_calls`` are set to 0 just
+    before each run and read just after it.  Returns each command's
+    ``annotate_bin`` launches.  Raises AssertionError on any failed check."""
+    out = {}
+    for name, spec in updates.items():
+        for counts in (launches, hash_calls):
+            for key in counts:
+                counts[key] = 0
+        run = run_update(torch, platform, name, spec["path"], store_dir,
+                         trace=True)
+        launched, hashed = dict(launches), dict(hash_calls)
+        loader, wall, busy = run["loader"], run["wall"], run["busy"]
+        got = {k: run["counters"].get(k, 0) for k in spec["want"]}
+        want_l = update_launches_predicted(name, run, native=True)
+        lines = run["counters"]["line"]
+        emit("update", command=UPDATE_COMMANDS[name][0], lines=lines,
+             wall_s=wall, lines_per_s=lines / wall,
+             loader_wall_s=loader.timer.wall_seconds,
+             store_load_s=run["store_load_s"], store_save_s=run["store_save_s"],
+             stage_seconds=dict(loader.timer.seconds), counters=got,
+             predicted=spec["want"], chunks=run["chunks"],
+             hash_steps=run["hash_steps"], inserts=run["inserts"],
+             launches=launched, predicted_launches=want_l,
+             plain_hash_calls=hashed, probes=loader.probe_stats,
+             profiler_device_busy_s=busy,
+             profiler_device_idle_fraction=None if busy is None else 1 - busy / wall)
+        assert got == spec["want"], f"{name}: counters {got}, predicted {spec['want']}"
+        if platform == "cuda":
+            assert launched["annotate_bin"] == want_l, (
+                f"{name}: annotate_bin launched {launched['annotate_bin']} times, "
+                f"predicted {want_l}")
+            assert not hashed.get("cuda"), (
+                f"{name}: the update called the plain allele_hash on the card "
+                f"{hashed['cuda']} times")
+        out[name] = launched["annotate_bin"]
+    return out
+
+
 def vep_kernel_timing(torch, device, rows) -> dict:
     """``annotate_bin`` at the VEP load's identity-batch shape: ten
     load-like input sets (``io/synth.py``, 85% SNVs) of ``rows`` rows at
@@ -1375,13 +1700,20 @@ def main() -> int:
                         hash_calls=hashing.CALLS)
         vep_kernel = vep_kernel_timing(torch, device,
                                        max(1, round(vep["rows_per_batch"])))
+        # 8. the update legs on phase 7's store (counters reset inside,
+        # just before each command)
+        upd = update_phase(torch, "cuda", results["store"], inputs["updates8"],
+                           launches=annotate_cuda.LAUNCHES,
+                           hash_calls=hashing.CALLS)
     except AssertionError as err:
         return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
     vcf_launches = results["launches"]["annotate_bin"]
     vep_launches = vep["launches"]["annotate_bin"]
-    table[0].update(launches=vcf_launches + vep_launches,
+    table[0].update(launches=vcf_launches + vep_launches + sum(upd.values()),
                     launches_vcf_load=vcf_launches, launches_vep_load=vep_launches,
+                    launches_update_qc=upd["qc"], launches_lof=upd["lof"],
+                    launches_tsv=upd["tsv"],
                     vep_batch_rows=vep_kernel["rows"], vep_batch_ms=vep_kernel["ms"],
                     vep_batch_bound_ms=vep_kernel["bound_ms"])
 

@@ -17,7 +17,10 @@ overlapped executor, async store writer) and the VEP update on the card,
 through either transform, must write the stores the same loads write on
 the CPU, with one kernel launch per chunk or identity batch; the native
 VEP transformer's allele hash must equal the kernel's, and the rank
-table's lookup on the card must equal its host lookup.
+table's lookup on the card must equal its host lookup.  The update legs'
+identity hash (``loaders/lookup.py::chunk_hashes``) on the card must equal
+the CPU's, and the QC, SnpEff and TSV updates on the card must write the
+CPU's stores with the predicted launches and no plain hash.
 ``chip_smoke.py`` runs the same comparisons at the loads' real sizes."""
 
 import os
@@ -40,9 +43,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
     edge_batch,
     random_batch,
+    run_update,
     store_bytes,
+    update_launches_predicted,
     vep_hash_check,
+    write_metaseq_tsv,
     write_phase4_vcf,
+    write_qc_pvcf,
+    write_snpeff_vcf,
     write_vep_json,
 )
 
@@ -286,4 +294,76 @@ def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             assert LAUNCHES["annotate_bin"] - launches == chunks > 20000 // 4096
             assert hashing.CALLS["cuda"] == calls["cuda"]
         out[plat] = store_bytes(d)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_chunk_hashes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """A Python-engine chunk (no tokenizer hash) hashed on the card by one
+    ``annotate_bin`` launch: equal to the CPU's hash on every row, the
+    over-width override included; no plain hash on the card."""
+    from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
+    from annotatedvdb_tpu_torch.loaders.lookup import chunk_hashes
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
+    annotate_hash_fn(cuda)
+    vcf = str(tmp_path / "h.vcf")
+    write_phase4_vcf(vcf, 30_000)
+    store = VariantStore(width=49)
+    over = 0
+    for chunk in VcfBatchReader(vcf, batch_size=8192):
+        if not chunk.batch.n:
+            continue
+        assert chunk.h_native is None
+        calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+        got = chunk_hashes(store, chunk, device=cuda)
+        assert LAUNCHES["annotate_bin"] == launches + 1
+        assert hashing.CALLS["cuda"] == calls["cuda"]
+        np.testing.assert_array_equal(got, chunk_hashes(store, chunk, device="cpu"))
+        over += int((chunk.batch.ref_len > 49).sum())
+    assert over >= 1
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_update_legs_on_card_match_cpu(cuda, tmp_path, monkeypatch, engine):
+    """``update-qc`` (novel rows inserted), ``load-snpeff-lof`` and
+    ``update-annotation`` on copies of one store, on the card and on the
+    CPU: the same store bytes after each, the predicted counters, the
+    predicted ``annotate_bin`` launches and no plain hash on the card."""
+    import shutil
+
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+
+    if engine == "python":
+        monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
+    else:
+        monkeypatch.delenv("AVDB_INGEST_ENGINE", raising=False)
+    annotate_hash_fn(cuda)
+    vcf = str(tmp_path / "v.vcf")
+    lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
+    base = str(tmp_path / "base")
+    assert load_vcf(["--fileName", vcf, "--storeDir", base, "--commit",
+                     "--logAfter", "0", "--platform", "cpu"]) == 0
+    specs = {}
+    for name, fn, n in (("qc", write_qc_pvcf, 10_000),
+                        ("lof", write_snpeff_vcf, 10_000),
+                        ("tsv", write_metaseq_tsv, 4_000)):
+        path = str(tmp_path / f"u.{name}")
+        specs[name] = (path, fn(path, lines, n, seed=len(specs) + 30))
+    out = {}
+    for plat in ("cuda", "cpu"):
+        d = str(tmp_path / f"store_{plat}")
+        shutil.copytree(base, d)
+        out[plat] = []
+        for name, (path, want) in specs.items():
+            calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+            run = run_update(torch, plat, name, path, d)
+            assert {k: run["counters"].get(k, 0) for k in want} == want
+            predicted = update_launches_predicted(name, run, engine == "native")
+            if plat == "cuda":
+                assert LAUNCHES["annotate_bin"] - launches == predicted
+                assert hashing.CALLS["cuda"] == calls["cuda"]
+            out[plat].append(store_bytes(d))
     assert out["cuda"] == out["cpu"]

@@ -42,6 +42,7 @@ def test_imports_with_jax_blocked():
     assert len(names) >= 25
     assert {f"annotatedvdb_tpu_torch.{m}" for m in VEP_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in DEFAULT_VCF_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in UPDATE_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -54,6 +55,21 @@ VEP_SLICE = ("conseq.groups", "conseq.ranker", "conseq.table", "io.vep",
 DEFAULT_VCF_SLICE = ("native", "native.vcf", "io.vcf", "io.prefetch",
                      "utils.pipeline", "utils.profiling", "store.variant_store",
                      "loaders.vcf_loader", "cli.load_vcf")
+
+
+#: the VCF-driven update legs' modules (update-qc, load-snpeff-lof,
+#: update-annotation)
+UPDATE_SLICE = ("loaders.lookup", "loaders.update_loader", "loaders.qc_loader",
+                "loaders.lof_loader", "loaders.txt_loader", "cli.update_common",
+                "cli.update_qc", "cli.load_snpeff_lof",
+                "cli.update_variant_annotation")
+
+
+def test_source_list_covers_the_update_slice():
+    """The per-file import check below walks every module of the slice."""
+    sources = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for m in UPDATE_SLICE:
+        assert m.replace(".", os.sep) + ".py" in sources, m
 
 
 def test_source_list_covers_the_vep_slice():
@@ -114,3 +130,20 @@ def test_cuda_wrapper_refuses_without_fallback():
     with pytest.raises(ValueError, match="unsupported device"):
         annotate_bin(t, a, a, t, t)
     assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("cls", ["QcPvcfLoader", "SnpEffLofLoader", "TextLoader"])
+def test_update_loaders_default_to_cuda(cls, tmp_path):
+    """Without a card an update loader refuses to start unless the caller
+    asks for the CPU; it never carries on on the host."""
+    import annotatedvdb_tpu_torch.loaders as loaders
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    args = (VariantStore(width=49), AlgorithmLedger(str(tmp_path / "l.jsonl")))
+    extra = ("r4",) if cls == "QcPvcfLoader" else ()
+    loader = getattr(loaders, cls)(*args, *extra, device="cpu")
+    assert loader.device.type == loader.insert_loader.device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(loaders, cls)(*args, *extra)
