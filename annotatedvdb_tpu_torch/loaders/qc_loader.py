@@ -69,7 +69,7 @@ class QcPvcfStrategy(UpdateStrategy):
         adsp_flag = 1 if row["filter"] == "PASS" else -1
         return True, {"is_adsp_variant": adsp_flag}, {"adsp_qc": qc_values}
 
-    def values_batch(self, chunk, rows, existing, numeric):
+    def values_batch(self, chunk, rows, existing):
         """The found rows' payloads as RawJson text (no per-row dict
         trees), row for row the values of :meth:`values`; ``json.dumps``
         with ``allow_nan=False`` doubles as the Infinity/NaN abort."""

@@ -166,13 +166,14 @@ class TextLoader:
 
     @bulk_load_gc()
     def load_file(self, path: str, commit: bool = False, test: bool = False,
-                  persist=None, resume: bool = True) -> dict:
+                  persist=None) -> dict:
         alg_id = self.ledger.begin(
             LEDGER_SCRIPT,
             {"file": path, "id_type": self.variant_id_type, "test": test},
             commit,
         )
-        resume_line = self.ledger.last_checkpoint(path) if resume else 0
+        # the CLI always resumes after the last committed checkpoint
+        resume_line = self.ledger.last_checkpoint(path)
         if resume_line:
             self.log(f"resuming {path} after committed line {resume_line}")
 

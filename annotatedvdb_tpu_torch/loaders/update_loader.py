@@ -44,9 +44,6 @@ class UpdateStrategy:
     #: variants; SnpEff LoF updates never insert)
     insert_novel = False
 
-    #: numeric store columns the strategy wants in its ``existing`` view
-    numeric_columns: tuple = ()
-
     #: JSONB columns the strategy reads from ``existing``; None = all ten
     jsonb_columns: tuple | None = None
 
@@ -62,13 +59,12 @@ class UpdateStrategy:
         ``values`` would accept."""
         return None
 
-    def values_batch(self, chunk, rows, existing, numeric):
+    def values_batch(self, chunk, rows, existing):
         """Optional vectorized path over one chunk's found rows.
 
         ``rows`` are chunk row indices ([K] int); ``existing`` maps each of
         the strategy's JSONB columns to a [K] object array of stored values
-        (None where the row has none) and ``numeric`` maps each declared
-        numeric column to a [K] int array.  Return None for the per-row
+        (None where the row has none).  Return None for the per-row
         :meth:`values` loop, else ``(do_mask [K] bool, {flag col: [K] int
         array}, {jsonb col: [K] list})``; JSONB entries may be ``RawJson``.
         Batch strategies see the stored state from before the chunk, as
@@ -91,7 +87,6 @@ class UpdateLoader:
         chromosome_map: dict | None = None,
         log=print,
         log_after: int | None = None,
-        insert_loader: VcfLoader | None = None,
         quarantine=None,
         max_errors: int = -1,
         device=None,
@@ -117,7 +112,7 @@ class UpdateLoader:
         self.timer = StageTimer()
         #: membership probes by path ("device" / "host"), observability only
         self.probe_stats: dict[str, int] = {}
-        self.insert_loader = insert_loader or VcfLoader(
+        self.insert_loader = VcfLoader(
             store, ledger, datasource=datasource, skip_existing=False,
             log=log, device=self.device,
         )
@@ -128,13 +123,14 @@ class UpdateLoader:
 
     @bulk_load_gc()
     def load_file(self, path: str, commit: bool = False, test: bool = False,
-                  persist=None, resume: bool = True) -> dict:
+                  persist=None) -> dict:
         # the ledger's script label is the reference's, strategy name and all
         alg_id = self.ledger.begin(
             type(self.strategy).__name__ + ".load_file",
             {"file": path, "test": test}, commit,
         )
-        resume_line = self.ledger.last_checkpoint(path) if resume else 0
+        # the update CLIs always resume after the last committed checkpoint
+        resume_line = self.ledger.last_checkpoint(path)
         if resume_line:
             self.log(f"resuming {path} after committed line {resume_line}")
         if not self.strategy.insert_novel:
@@ -283,18 +279,12 @@ class UpdateLoader:
                 continue
             ids = idx[found].astype(np.int64)
             existing = self._fetch_existing(shard, ids, ann_cols)
-            numeric = {
-                c: shard.get_col(c, ids)
-                for c in self.strategy.numeric_columns
-            }
-            batched = self.strategy.values_batch(
-                chunk, rows, existing, numeric
-            )
+            batched = self.strategy.values_batch(chunk, rows, existing)
             if batched is not None:
                 self._apply_batched(shard, ids, rows, batched, alg_id, commit)
             else:
-                self._apply_rows(shard, chunk, ids, rows, existing, numeric,
-                                 ann_cols, alg_id, commit)
+                self._apply_rows(shard, chunk, ids, rows, existing, ann_cols,
+                                 alg_id, commit)
 
         if novel and self.strategy.insert_novel:
             self._insert_novel(chunk, novel, alg_id, commit)
@@ -318,8 +308,8 @@ class UpdateLoader:
             shard.set_col(col, upd_ids, np.asarray(vals)[do])
         shard.set_col("row_algorithm_id", upd_ids, alg_id)
 
-    def _apply_rows(self, shard, chunk, ids, rows, existing, numeric,
-                    ann_cols, alg_id, commit) -> None:
+    def _apply_rows(self, shard, chunk, ids, rows, existing, ann_cols,
+                    alg_id, commit) -> None:
         """The per-row path (strategies without a batch path)."""
         upd_ids: dict[str, list[int]] = {}
         upd_vals: dict[str, list] = {}
@@ -330,8 +320,6 @@ class UpdateLoader:
             i = int(rows[j])
             row_idx = int(ids[j])
             ex = {c: existing[c][j] for c in ann_cols}
-            for c in self.strategy.numeric_columns:
-                ex[c] = int(numeric[c][j])
             do_update, flags, jsonb = self.strategy.values(
                 self._row_dict(chunk, i), ex
             )

@@ -85,7 +85,12 @@ them, phase by phase, each phase printing one JSON line:
               5% new insertions.  Each: counters as the generator
               predicts, the predicted ``annotate_bin`` launches, no plain
               hash on the card, stage seconds, wall, lines/s and the
-              device's idle share (``torch.profiler``).
+              device's idle share (``torch.profiler``).  The first kernel
+              step of a lookup hash (a 32,768-row TSV batch) and of a
+              novel-row insert (a QC chunk's new rows) is kept and, after
+              the run, held against the plain versions on the same inputs:
+              the annotate fields under the selection contract, the hash
+              exact on every row.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -819,6 +824,70 @@ def captured_loaders(cls):
 
 
 @contextlib.contextmanager
+def captured_steps():
+    """The inputs and outputs of the first fused-kernel step
+    (``annotate_hash_pipeline_cuda``) made inside ``lookup._device_hash``
+    (key ``"hash"``) and inside ``VcfLoader._load_chunk`` (key
+    ``"insert"``), kept on the card until :func:`step_mismatches` reads
+    them.  The steps themselves run unchanged."""
+    from annotatedvdb_tpu_torch.loaders import lookup
+    from annotatedvdb_tpu_torch.loaders.vcf_loader import VcfLoader
+    from annotatedvdb_tpu_torch.models import pipeline
+
+    seen, tags = {}, []
+    step = pipeline.annotate_hash_pipeline_cuda
+
+    def traced(*args):
+        out = step(*args)
+        if tags and tags[-1] not in seen:
+            seen[tags[-1]] = (args, out)
+        return out
+
+    def tagged(original, tag):
+        def wrapper(*args, **kwargs):
+            tags.append(tag)
+            try:
+                return original(*args, **kwargs)
+            finally:
+                tags.pop()
+        return wrapper
+
+    patches = [(pipeline, "annotate_hash_pipeline_cuda", traced),
+               (lookup, "_device_hash", tagged(lookup._device_hash, "hash")),
+               (VcfLoader, "_load_chunk", tagged(VcfLoader._load_chunk, "insert"))]
+    raws = [(owner, name, owner.__dict__[name]) for owner, name, _ in patches]
+    for owner, name, fn in patches:
+        setattr(owner, name, fn)
+    try:
+        yield seen
+    finally:
+        for owner, name, raw in raws:
+            setattr(owner, name, raw)
+
+
+def step_mismatches(torch, seen) -> dict:
+    """For each step :func:`captured_steps` kept: its rows and the fields
+    on which the card's outputs break the contract against the plain
+    versions on the same inputs copied to the host (annotate fields under
+    ``parity_mismatches``, the hash exact on every row)."""
+    from annotatedvdb_tpu_torch.models.pipeline import (
+        annotate_hash_pipeline,
+        parity_mismatches,
+    )
+    from annotatedvdb_tpu_torch.types import AnnotatedBatch
+
+    out = {}
+    for tag, (args, (ann, h)) in seen.items():
+        want, want_h = annotate_hash_pipeline(
+            *(None if a is None else a.cpu() for a in args))
+        bad = parity_mismatches(want, AnnotatedBatch(*(x.cpu() for x in ann)))
+        if not torch.equal(h.cpu(), want_h):
+            bad.append("allele_hash")
+        out[tag] = {"rows": int(h.shape[0]), "differ": bad}
+    return out
+
+
+@contextlib.contextmanager
 def timed_calls(owner, name, sink):
     """Seconds of every call of ``owner.name`` (a method or a classmethod)
     made inside, appended to ``sink``."""
@@ -1205,7 +1274,8 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"]}
 
 
-def run_update(torch, platform, name, path, store_dir, trace=False) -> dict:
+def run_update(torch, platform, name, path, store_dir, trace=False,
+               check=False) -> dict:
     """One update command (``name`` in UPDATE_COMMANDS) through the CLI's
     ``main`` with ``--commit``: its wall, loader, printed counters, the
     chunks it checkpointed, the device hash steps of ``loaders/lookup.py``
@@ -1213,7 +1283,8 @@ def run_update(torch, platform, name, path, store_dir, trace=False) -> dict:
     once on the card), the store's load and save seconds (the saves are
     the checkpoints' ``persist``), and with ``trace`` on the card the
     device-busy seconds (``torch.profiler``; None when it saw no device
-    time)."""
+    time).  With ``check`` on the card, the first kernel step of each kind
+    (``captured_steps``) is kept as ``steps`` for :func:`step_mismatches`."""
     import io
 
     from torch.profiler import ProfilerActivity, profile
@@ -1225,6 +1296,7 @@ def run_update(torch, platform, name, path, store_dir, trace=False) -> dict:
 
     cmd, extra = UPDATE_COMMANDS[name]
     traced = trace and platform == "cuda"
+    checked = check and platform == "cuda"
     out = io.StringIO()
     t0 = time.perf_counter()
     with (profile(activities=[ProfilerActivity.CUDA]) if traced
@@ -1235,6 +1307,7 @@ def run_update(torch, platform, name, path, store_dir, trace=False) -> dict:
             timed_calls(VcfLoader, "_load_chunk", []) as inserts, \
             timed_calls(VariantStore, "load", []) as load_s, \
             timed_calls(VariantStore, "save", []) as save_s, \
+            (captured_steps() if checked else contextlib.nullcontext({})) as steps, \
             contextlib.redirect_stdout(out):
         rc = cli([cmd, "--fileName", path, "--storeDir", store_dir, "--commit",
                   "--logAfter", "0", "--platform", platform, *extra])
@@ -1259,7 +1332,8 @@ def run_update(torch, platform, name, path, store_dir, trace=False) -> dict:
     return {"wall": wall, "loader": loader, "counters": counters,
             "chunks": len(after), "novel_chunks": novel_chunks,
             "hash_steps": len(hash_steps), "inserts": len(inserts), "busy": busy,
-            "store_load_s": sum(load_s), "store_save_s": sum(save_s)}
+            "store_load_s": sum(load_s), "store_save_s": sum(save_s),
+            "steps": steps}
 
 
 def update_launches_predicted(name, run, native) -> int:
@@ -1537,16 +1611,19 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
     """Phase 8 on ``platform``: the three update commands in turn on the
     store of phase 7 (``store_dir``), through the CLIs in the default
     configuration.  ``launches`` and ``hash_calls`` are set to 0 just
-    before each run and read just after it.  Returns each command's
-    ``annotate_bin`` launches.  Raises AssertionError on any failed check."""
+    before each run and read just after it; the kernel steps kept from the
+    run are held against the plain versions after that (those launches are
+    not counted).  Returns each command's ``annotate_bin`` launches.
+    Raises AssertionError on any failed check."""
     out = {}
     for name, spec in updates.items():
         for counts in (launches, hash_calls):
             for key in counts:
                 counts[key] = 0
         run = run_update(torch, platform, name, spec["path"], store_dir,
-                         trace=True)
+                         trace=True, check=True)
         launched, hashed = dict(launches), dict(hash_calls)
+        steps = step_mismatches(torch, run.pop("steps"))
         loader, wall, busy = run["loader"], run["wall"], run["busy"]
         got = {k: run["counters"].get(k, 0) for k in spec["want"]}
         want_l = update_launches_predicted(name, run, native=True)
@@ -1561,9 +1638,19 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
              launches=launched, predicted_launches=want_l,
              plain_hash_calls=hashed, probes=loader.probe_stats,
              profiler_device_busy_s=busy,
-             profiler_device_idle_fraction=None if busy is None else 1 - busy / wall)
+             profiler_device_idle_fraction=None if busy is None else 1 - busy / wall,
+             kernel_vs_plain=steps)
         assert got == spec["want"], f"{name}: counters {got}, predicted {spec['want']}"
         if platform == "cuda":
+            # the kinds of step the command makes: a lookup hash for each
+            # TSV batch, an insert where rows are novel (QC and TSV)
+            kinds = {"qc": {"insert"}, "lof": set(), "tsv": {"hash", "insert"}}[name]
+            assert set(steps) == kinds, (
+                f"{name}: kernel steps kept {sorted(steps)}, expected {sorted(kinds)}")
+            for tag, rec in steps.items():
+                assert not rec["differ"], (
+                    f"{name}: the {tag} step's kernel outputs ({rec['rows']} rows) "
+                    f"disagree with the plain versions in {rec['differ']}")
             assert launched["annotate_bin"] == want_l, (
                 f"{name}: annotate_bin launched {launched['annotate_bin']} times, "
                 f"predicted {want_l}")
