@@ -22,6 +22,14 @@ COMMANDS = {
     "update-annotation": ("annotatedvdb_tpu_torch.cli.update_variant_annotation",
                           "TSV-driven annotation updates/inserts "
                           "(on the card by default)"),
+    "load-cadd": ("annotatedvdb_tpu_torch.cli.load_cadd",
+                  "join CADD scores (on the card by default)"),
+    "undo": ("annotatedvdb_tpu_torch.cli.undo_load",
+             "undo a load by invocation id (host only)"),
+    "export-vcf": ("annotatedvdb_tpu_torch.cli.export_variant2vcf",
+                   "dump the store back to VCF (host only)"),
+    "split-vcf": ("annotatedvdb_tpu_torch.cli.split_vcf_by_chr",
+                  "demux a VCF per chromosome (host only)"),
 }
 
 

@@ -1,7 +1,7 @@
 """Egress: materialize device outputs into the reference's exact output shapes.
 
 Copy of the parts of ``annotatedvdb_tpu/io/egress.py`` the insert load
-calls.  String work (metaseq ids, primary keys, ltree paths) happens only
+and the VCF export call.  String work (metaseq ids, primary keys, ltree paths) happens only
 here, after the device step — the reference builds these strings inside
 its per-variant hot loop (``vcf_variant_loader.py:318-341``).
 
@@ -188,3 +188,63 @@ def bin_paths(batch: VariantBatch, ann: AnnotatedBatch) -> np.ndarray:
         dtype="U",
     )
     return paths[inverse]
+
+
+def shard_strings(shard, lo: int = 0, hi: int | None = None):
+    """String columns for export over rows ``[lo, hi)`` of the compacted
+    shard, assembled vectorized: ``(refs, alts, metaseq_ids,
+    primary_keys)`` arrays in shard row order.
+
+    One allele view-decode, one column-wise id assembly and rare-tail
+    patches (retained long alleles, digest primary keys) instead of
+    per-row ``shard.alleles(i)`` loops.  Callers that stream rows out
+    iterate windows of ``EGRESS_WINDOW`` rows rather than materializing ~4
+    Python strings per row for a whole shard at once.  Raises like
+    :meth:`ChromosomeShard.alleles` when an over-width row has no retained
+    original strings."""
+    from annotatedvdb_tpu_torch.store.variant_store import (
+        _DIGEST_PK,
+        _LONG_ALLELES,
+    )
+
+    shard.compact()
+    seg = shard._single()
+    hi = seg.n if hi is None else min(hi, seg.n)
+    sl = slice(lo, hi)
+    k = max(hi - lo, 0)
+    batch = VariantBatch(
+        np.full((k,), shard.chrom_code, np.int8), seg.cols["pos"][sl],
+        seg.ref[sl], seg.alt[sl], seg.cols["ref_len"][sl],
+        seg.cols["alt_len"][sl],
+    )
+    refs, alts = decode_alleles(batch)
+    refs, alts = refs.astype(object), alts.astype(object)
+    over = (batch.ref_len > shard.width) | (batch.alt_len > shard.width)
+    la = seg.obj[_LONG_ALLELES]
+    for i in np.where(over)[0]:
+        retained = None if la is None else la[lo + i]
+        if retained is None:
+            raise ValueError(
+                f"row {lo + i}: allele exceeds device width {shard.width} "
+                "but the original strings were not retained (store predates "
+                "long-allele retention; reload from source)"
+            )
+        refs[i], alts[i] = retained
+    mseq = metaseq_ids(batch, refs, alts)
+
+    rs = seg.cols["ref_snp"][sl]
+    suffix = np.where(
+        rs >= 0, _concat(":rs", rs.clip(min=0).astype("U20")), ""
+    )
+    pks = np.char.add(mseq, suffix).astype(object)
+    digests = seg.obj[_DIGEST_PK]
+    if digests is not None:
+        dwin = digests[sl]
+        for i in np.where(dwin != None)[0]:  # noqa: E711 (object array)
+            pks[i] = dwin[i]
+    return refs, alts, mseq, pks
+
+
+#: export window size: bounds transient per-row Python string residency
+#: while keeping the vectorized assembly amortized
+EGRESS_WINDOW = 1 << 16

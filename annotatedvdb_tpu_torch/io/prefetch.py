@@ -89,13 +89,14 @@ class ChunkPrefetcher:
     emission order permutes disjoint ``max(2, depth)``-chunk blocks
     (``random.Random(seed)``, so a fixed seed replays the same schedule).
     Untagged mode never shuffles.  ``timer`` attributes scan seconds to its
-    ``ingest`` stage ON the prefetch thread.  Callers that stop early must
+    ``stage`` (default ``ingest``; the CADD updater's table scan uses
+    ``scan``) ON the prefetch thread.  Callers that stop early must
     :meth:`close`.
     """
 
     def __init__(self, source, *, timer, depth: int | None = None,
                  shuffle_seed: int | None = None, tagged: bool = False,
-                 name: str = "ingest-prefetch"):
+                 stage: str = "ingest", name: str = "ingest-prefetch"):
         self.depth_limit = ingest_prefetch_depth() if depth is None else depth
         if self.depth_limit < 1:
             raise ValueError(
@@ -109,11 +110,11 @@ class ChunkPrefetcher:
                 "the seq to restore order)"
             )
         self._stage = BoundedStage(
-            self._schedule(iter(source), timer),
+            self._schedule(iter(source), timer, stage),
             depth=self.depth_limit, name=name,
         )
 
-    def _schedule(self, it, timer):
+    def _schedule(self, it, timer, stage_name):
         """The prefetch-thread generator: pull + (optionally) block-shuffle.
 
         Armed shuffling permutes DISJOINT consecutive blocks of
@@ -126,7 +127,7 @@ class ChunkPrefetcher:
         win = max(2, self.depth_limit) if rng is not None else 1
         seq = 0
         while True:
-            with timer.stage("ingest"):
+            with timer.stage(stage_name):
                 chunk = next(it, _DONE)
             if chunk is _DONE:
                 break

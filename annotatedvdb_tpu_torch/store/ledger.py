@@ -139,6 +139,36 @@ class AlgorithmLedger:
             {"type": "finish", "alg_id": alg_id, "counters": counters, "ts": time.time()}
         )
 
+    def undo_intent(self, alg_id: int) -> None:
+        """Record that an undo of ``alg_id`` is ABOUT to mutate the store.
+
+        Appended BEFORE ``store.save()`` on the undo path: a crash between
+        the save and the final ``undo`` record then leaves an intent with no
+        completion (:meth:`pending_undo_intents`), which says "re-run
+        ``undo --algId N --commit``" (idempotent: the delete masks on
+        ``row_algorithm_id``) instead of the store silently disagreeing with
+        the ledger.  Resume and undo read paths ignore intents."""
+        self._append(
+            {"type": "undo_intent", "alg_id": alg_id, "ts": time.time()}
+        )
+
+    def undo(self, alg_id: int, removed: int) -> None:
+        self._append(
+            {"type": "undo", "alg_id": alg_id, "removed": removed, "ts": time.time()}
+        )
+
+    def pending_undo_intents(self) -> list[int]:
+        """Alg ids with an ``undo_intent`` but no completing ``undo``
+        record — the cross-check for a crash mid-undo."""
+        with self._lock:
+            done = {
+                e["alg_id"] for e in self._entries if e.get("type") == "undo"
+            }
+            return sorted({
+                e["alg_id"] for e in self._entries
+                if e.get("type") == "undo_intent" and e["alg_id"] not in done
+            })
+
     def last_checkpoint(self, input_file: str) -> int:
         """Resume cursor for an input file: the line of its most recently
         appended checkpoint, and only if that checkpoint's invocation never

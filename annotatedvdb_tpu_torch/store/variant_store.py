@@ -18,15 +18,22 @@ either package loads in the other.  The replacement for the reference's
   first, numbered consecutively): ``lookup`` resolves identities to ids,
   ``update_annotation`` deep-merges JSONB values into them (the
   reference's ``jsonb_merge``), ``set_col`` sets numeric columns, and the
-  segments they touch become dirty.
+  segments they touch become dirty;
+- whole-shard passes (the CADD join, VCF export) ``compact`` a shard into
+  one segment and read its flat views (``cols``, ``ref``, ``alt``), whose
+  row ids are then position-sorted; ``alleles`` gives a row's full
+  strings, the long-allele tail included;
+- ``delete_by_algorithm`` undoes a load: it drops every row stamped with
+  the load's invocation id.
 
 JSONB values may be held as raw JSON text (:class:`RawJson`, the native
 VCF tokenizer's FREQ sidecar): the segment writer splices the text, and
 every mutation site materializes a fresh object on the row first.
 
-Not ported here (later slices): undo, compaction, cooperative writers (a
-serve worker's memtable flush committing into the same directory), the
-out-of-core memmap tier and the mesh placement block.
+Not ported here (later slices): the on-disk compaction
+(``store/compact.py``), cooperative writers (a serve worker's memtable
+flush committing into the same directory), the out-of-core memmap tier
+and the mesh placement block.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import zlib
 import numpy as np
 import torch
 
-from annotatedvdb_tpu_torch.types import chromosome_label
+from annotatedvdb_tpu_torch.types import chromosome_label, decode_allele
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.strings import deep_update
 
@@ -544,6 +551,16 @@ class Segment:
         found, index = lookup_in_sorted(*cache, *query)
         return found.cpu().numpy(), index.cpu().numpy()
 
+    # -- mutation -----------------------------------------------------------
+
+    def filter(self, keep: np.ndarray) -> "Segment":
+        """A new (dirty, never saved) segment of the rows where ``keep``."""
+        return Segment(
+            {name: col[keep] for name, col in self.cols.items()},
+            self.ref[keep], self.alt[keep],
+            {c: (None if a is None else a[keep]) for c, a in self.obj.items()},
+        )
+
     def obj_dense(self, name: str) -> np.ndarray:
         """Object column, materialized into the segment if still all-None."""
         if self.obj[name] is None:
@@ -613,6 +630,63 @@ class ChromosomeShard:
         starts = self._starts()
         seg = np.searchsorted(starts, ids, side="right") - 1
         return seg, ids - starts[seg]
+
+    # -- flat single-segment views (whole-shard passes) ---------------------
+    # The CADD join and VCF export walk the shard in position-sorted order:
+    # they call compact() once, after which global ids coincide with sorted
+    # order and these views are O(1).  Accessing a flat view COMPACTS the
+    # shard, which renumbers global ids — never hold ids from an earlier
+    # lookup across a flat-view access.
+
+    def _single(self) -> Segment:
+        if len(self.segments) != 1:
+            self.compact()
+        if not self.segments:  # empty shard: materialize one empty segment
+            self.segments.append(Segment.build(
+                {"pos": np.empty((0,), np.int32)},
+                np.empty((0, self.width), np.uint8),
+                np.empty((0, self.width), np.uint8),
+            ))
+        return self.segments[0]
+
+    @property
+    def cols(self) -> dict:
+        return self._single().cols
+
+    @property
+    def ref(self) -> np.ndarray:
+        return self._single().ref
+
+    @property
+    def alt(self) -> np.ndarray:
+        return self._single().alt
+
+    def compact(self) -> None:
+        """Merge all segments into one (position-sorted global ids)."""
+        if len(self.segments) > 1:
+            # one splice after the merge completes, as in maintain()
+            self.segments[:] = [Segment.merge_many(list(self.segments))]
+
+    def alleles(self, i: int) -> tuple[str, str]:
+        """True (ref, alt) strings of row ``i`` — exact even for the
+        long-allele tail whose device arrays are width-truncated."""
+        seg, off = self._locate([i])
+        s, j = self.segments[int(seg[0])], int(off[0])
+        if s.obj[_LONG_ALLELES] is not None and s.obj[_LONG_ALLELES][j] is not None:
+            return tuple(s.obj[_LONG_ALLELES][j])
+        ref_len = int(s.cols["ref_len"][j])
+        alt_len = int(s.cols["alt_len"][j])
+        if ref_len > self.width or alt_len > self.width:
+            # a truncated prefix would silently corrupt joins and exports
+            raise ValueError(
+                f"row {i}: allele length {max(ref_len, alt_len)} exceeds device "
+                f"width {self.width} but the original strings were not retained "
+                "(store predates long-allele retention; reload from source)"
+            )
+        return (
+            decode_allele(s.ref[j], ref_len),
+            decode_allele(s.alt[j], alt_len),
+        )
 
     def get_col(self, name: str, ids) -> np.ndarray:
         seg, off = self._locate(ids)
@@ -762,6 +836,25 @@ class ChromosomeShard:
 
     # -- mutation -----------------------------------------------------------
 
+    def delete_by_algorithm(self, alg_id: int) -> int:
+        """Drop every row stamped with ``alg_id``; returns the rows removed.
+        Untouched segments stay as they are (clean ones keep their files);
+        a segment that loses rows is replaced by a new dirty one."""
+        removed = 0
+        kept: list[Segment] = []
+        for s in self.segments:
+            keep = s.cols["row_algorithm_id"] != alg_id
+            k = int((~keep).sum())
+            if k == 0:
+                kept.append(s)
+                continue
+            removed += k
+            if k < s.n:
+                kept.append(s.filter(keep))
+        if removed:
+            self.segments = kept
+        return removed
+
     def append_segment(self, seg: Segment) -> None:
         """O(1) append of a prebuilt sorted segment, no cascade merge.
 
@@ -851,6 +944,16 @@ class VariantStore:
     @property
     def n(self) -> int:
         return sum(s.n for s in self.shards.values())
+
+    def delete_by_algorithm(self, alg_id: int) -> int:
+        """Undo a load: drop every row stamped with ``alg_id``
+        (``undo_variant_load.py:21-67`` semantics, without the chunked
+        DELETE back-off a columnar mask does not need)."""
+        return sum(s.delete_by_algorithm(alg_id) for s in self.shards.values())
+
+    def compact(self) -> None:
+        for s in self.shards.values():
+            s.compact()
 
     def pin_for_updates(self, device: torch.device) -> int:
         """Upload the identity columns of every segment of at least

@@ -2,16 +2,19 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives ``annotatedvdb_tpu_torch``'s VCF insert load, VEP annotation
-update and the VCF/TSV-driven update legs (``update-qc``,
-``load-snpeff-lof``, ``update-annotation``) on ``cuda:0`` and checks
-them, phase by phase, each phase printing one JSON line:
+update, the VCF/TSV-driven update legs (``update-qc``,
+``load-snpeff-lof``, ``update-annotation``), the CADD score join
+(``load-cadd``) and the host-only store commands (``export-vcf``,
+``undo``) on ``cuda:0`` and checks them, phase by phase, each phase
+printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
               and, beside them, the native host libraries
               (``annotatedvdb_tpu_torch/native``: the VCF tokenizer, the
-              VEP transformer and the ``avdb_pyfast`` extension), each
-              compiler in its own process, all started together;
+              VEP transformer, the ``avdb_pyfast`` extension and the CADD
+              table tokenizer), each compiler in its own process, all
+              started together;
 3. kernels  — each kernel against its plain PyTorch version on the card
               (seeded edge rows at W = 16, 49 and 96, 1,048,576 random
               rows, a ragged last tile and unaligned bases; exact under
@@ -22,7 +25,15 @@ them, phase by phase, each phase printing one JSON line:
               load's chunk shape (65,536 rows, W = 49) and at 1,048,576
               rows beside the plain version's and the memory bound; then
               the plain allele hash alone on the card, the work the fused
-              kernel took over;
+              kernel took over.  Then ``cadd_join`` against its plain
+              version, exactly, on seeded edge blocks at W = 16, 49 and 96
+              (a match at the window's last probe, two matching rows,
+              swapped alleles, probes past the last row, a variant at
+              2147483647 against sentinel rows, N = 0, K = 1) and on random
+              blocks at the SNV shape (8,192 variants, 262,144 rows, runs
+              of 3, probe 4) and the indel shape (16,384 variants, runs of
+              1-32, probe 32); its time at both shapes beside the plain
+              version's and the bound, and one score block's upload;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -53,7 +64,16 @@ them, phase by phase, each phase printing one JSON line:
               rows with 5% novel: the stores identical after each, the
               counters as predicted, and on the card the predicted
               ``annotate_bin`` launches (one per chunk or batch hashed on
-              the device, one per insert of novel rows);
+              the device, one per insert of novel rows).  Then, in each
+              configuration (the Python one also under
+              ``AVDB_NATIVE_CADD=0``), ``load-cadd --commit`` against
+              seeded BGZF tables over the lines' span, ``--buildIndex``
+              (once per configuration: it reads only the tables), an
+              indexed ``--fileName`` update of the first 10,000 lines with
+              ``--updateExisting``, ``export-vcf`` and ``undo`` of the QC
+              update: stores and export files identical card against CPU
+              after each, the predicted ``cadd_join`` launches, no plain
+              join on the card;
 7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -69,17 +89,19 @@ them, phase by phase, each phase printing one JSON line:
               device's idle share (``torch.profiler``) and how the store
               save splits between JSON encoding and the rest.  Before it,
               the transformer's allele hash over the file's blocks is held
-              against the kernel's on the card.  Then the same file under
-              ``AVDB_NATIVE_VEP=0`` onto a copy of the store: the two
-              saved stores must decode equal.  Then the kernel's time at
-              the identity-batch shape;
+              against the kernel's on the card.  Then (7b) a 20,000-result
+              file over the first tenth of the lines, in the default
+              configuration and under ``AVDB_NATIVE_VEP=0``, each onto a
+              copy of the store made before phase 7: the two saved stores
+              must decode equal.  Then the kernel's time at the
+              identity-batch shape;
 8. updates  — on phase 7's store, through the CLIs' ``main`` with
               ``--commit`` in the default configuration, each with the
               counters reset just before and read just after: a seeded
-              ADSP-QC-shaped pVCF of 400,000 phase-4 lines (QUAL, FILTER
+              ADSP-QC-shaped pVCF of 200,000 phase-4 lines (QUAL, FILTER
               PASS on 85%, numeric INFO keys and a flag, a repeated key on
               1%, FORMAT and a sample; 10% new SNVs, 3% of those with two
-              alts) with ``--version r4``; a SnpEff VCF of 400,000 phase-4
+              alts) with ``--version r4``; a SnpEff VCF of 200,000 phase-4
               identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
               of 100,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
@@ -90,7 +112,23 @@ them, phase by phase, each phase printing one JSON line:
               novel-row insert (a QC chunk's new rows) is kept and, after
               the run, held against the plain versions on the same inputs:
               the annotate fields under the selection contract, the hash
-              exact on every row.
+              exact on every row;
+9. cadd     — ``load-cadd --commit`` through the CLI's ``main`` on a copy
+              of the store of phases 4 and 5 made before phase 7 (no VEP
+              sidecars), against seeded BGZF tables over chr22:16,000,001-
+              22,000,000: the SNV table every position with its three
+              alternate bases (18,000,000 rows; the ref base is the
+              store's where it holds a row), the indel table runs of 1-6
+              rows at about one position in 20 with half the store's
+              indels planted (a third swapped, some twice, some beside or
+              as over-width alleles, one at the end of a 32-row run), one
+              malformed line in each.  Every counter reset just before,
+              read just after: the counters and ``cadd_join`` launches the
+              generator predicts, no plain join and no ``annotate_bin`` on
+              the card; the store reloads and 100 sampled rows carry the
+              tables' text-parsed floats; wall, rows scanned/s, stage and
+              store seconds, blocks, bytes uploaded and the device's idle
+              share (``torch.profiler``).
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -611,6 +649,365 @@ UPDATE_COMMANDS = {"qc": ("update-qc", ["--version", "r4"]),
                    "tsv": ("update-annotation", [])}
 
 
+# ------------------------------------------------------------ CADD writers
+
+POS_SENTINEL = 2**31 - 1
+CADD_BLOCK_ROWS = 1 << 18       # io/cadd.py's block capacity
+SNV_PROBE, INDEL_PROBE = 4, 32  # ops/cadd_join.py's probe depths
+SNV_TABLE = "whole_genome_SNVs.tsv.gz"
+INDEL_TABLE = "gnomad.genomes.r3.0.indel.tsv.gz"
+CADD_HEADER = b"## CADD GRCh38-v1.7\n#Chrom\tPos\tRef\tAlt\tRawScore\tPHRED\n"
+
+
+def cadd_edge_cases(width):
+    """Seeded edge blocks of the CADD join at ``width``: a list of (label,
+    (vpos, vref, valt, spos, sref, salt), probe) at both probe depths — a
+    match at probe offset ``probe - 1``, two matching rows (the first
+    wins), swapped allele orientation, an allele set holding both of a
+    variant's alleles, probes past the last row (``lo + k > K - 1``),
+    variants before and after every row, a variant at 2147483647 against
+    sentinel rows, N = 0 and K = 1."""
+    tri = ["".join(t) for t in zip(*(np.repeat(list("ACGT"), 16),
+                                     np.tile(np.repeat(list("ACGT"), 4), 4),
+                                     np.tile(list("ACGT"), 16)))]
+
+    def arrays(rows, variants, pad):
+        rows = rows + [(POS_SENTINEL, "", "")] * pad
+        spos = np.array([p for p, _, _ in rows], np.int32)
+        vpos = np.array([p for p, _, _ in variants], np.int32)
+        return (vpos, encode([r for _, r, _ in variants], width)[0],
+                encode([a for _, _, a in variants], width)[0],
+                spos, encode([r for _, r, _ in rows], width)[0],
+                encode([a for _, _, a in rows], width)[0])
+
+    cases = []
+    for probe in (SNV_PROBE, INDEL_PROBE):
+        deep = [(200, "C", t) for t in tri if t != "T"][: probe - 1] + [(200, "C", "T")]
+        rows = ([(100, "A", "C"), (100, "A", "G"), (100, "A", "T")] + deep
+                + [(300, "G", "A"), (300, "A", "G"), (400, "C", "T"),
+                   (450, "AT", "A"), (500, "T", "G")])
+        variants = [(100, "A", "G"), (100, "A", "A"), (100, "C", "G"),
+                    (200, "C", "T"), (200, "T", "C"), (200, "C", "G"),
+                    (300, "G", "A"), (300, "A", "G"), (400, "T", "C"),
+                    (450, "A", "AT"), (450, "AT", "ATT"), (500, "T", "G"),
+                    (500, "G", "T"), (500, "T", "A"), (50, "A", "C"),
+                    (600, "T", "G"), (POS_SENTINEL, "A", "C")]
+        cases.append((f"edge-p{probe}-w{width}", arrays(rows, variants, 0), probe))
+        pad = int(2 ** np.ceil(np.log2(len(rows) + 1))) - len(rows)
+        cases.append((f"edge-p{probe}-w{width}-sentinels",
+                      arrays(rows, variants, pad), probe))
+        cases.append((f"edge-p{probe}-w{width}-n0", arrays(rows, [], pad), probe))
+        cases.append((f"edge-p{probe}-w{width}-k1", arrays(
+            [(500, "T", "G")],
+            [(500, "T", "G"), (500, "G", "T"), (500, "T", "A"), (499, "T", "G"),
+             (501, "T", "G")], 0), probe))
+    return cases
+
+
+def _bases(rng, n, lengths, width):
+    """[n, width] uint8 random base rows, zero past ``lengths``."""
+    b = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, width))]
+    return np.where(np.arange(width)[None, :] < lengths[:, None], b, 0).astype(np.uint8)
+
+
+def cadd_random_block(seed, n, k, width, probe, snv):
+    """A seeded position-sorted score block and ``n`` variants against it,
+    as (vpos, vref, valt, spos, sref, salt).  ``snv``: the SNV table's
+    shape, three rows per position (its ref and the other three bases);
+    else indel-like rows (1-8 bases) in runs of 1-``probe`` (geometric,
+    with one run in 97 exactly ``probe`` long).  The ``k`` real rows are
+    padded with sentinel rows up to a power of two, as ``io/cadd.py`` pads
+    a block.  Variants: 60% copies of a row (a third of them swapped), 20% at
+    a row's position with other alleles, 20% at random positions."""
+    rng = np.random.default_rng(seed)
+    if snv:
+        k -= k % 3
+        m = k // 3
+        runs = np.full(m, 3)
+    else:
+        runs = np.minimum(rng.geometric(0.35, k), probe)
+        runs[::97] = probe
+        m = int(np.searchsorted(np.cumsum(runs), k)) + 1
+        runs = runs[:m]
+        runs[-1] -= int(runs.sum()) - k
+    site = 1000 + np.cumsum(rng.integers(1, 20, m))
+    spos = np.repeat(site, runs).astype(np.int32)
+    if snv:
+        ref_base = rng.integers(0, 4, m)
+        alt_base = (ref_base[:, None] + np.arange(1, 4)[None, :]) % 4
+        lut = np.frombuffer(b"ACGT", np.uint8)
+        sref = np.zeros((k, width), np.uint8)
+        salt = np.zeros((k, width), np.uint8)
+        sref[:, 0] = lut[np.repeat(ref_base, 3)]
+        salt[:, 0] = lut[alt_base.reshape(-1)]
+    else:
+        sref = _bases(rng, k, rng.integers(1, 9, k), width)
+        salt = _bases(rng, k, rng.integers(1, 9, k), width)
+    kind = rng.random(n)
+    pick = rng.integers(0, k, n)
+    vpos = spos[pick].copy()
+    vref, valt = sref[pick].copy(), salt[pick].copy()
+    swap = (kind < 0.2)
+    vref[swap], valt[swap] = salt[pick][swap], sref[pick][swap]
+    other = (kind >= 0.6) & (kind < 0.8)
+    lens = rng.integers(1, 2 if snv else 9, (2, n))
+    vref[other] = _bases(rng, n, lens[0], width)[other]
+    valt[other] = _bases(rng, n, lens[1], width)[other]
+    rand = kind >= 0.8
+    vpos[rand] = rng.integers(500, int(site[-1]) + 50, int(rand.sum()))
+    order = np.argsort(vpos, kind="stable")
+    cap = 1 << int(np.ceil(np.log2(k)))
+    spos = np.concatenate([spos, np.full(cap - k, POS_SENTINEL, np.int32)])
+    sref = np.concatenate([sref, np.zeros((cap - k, width), np.uint8)])
+    salt = np.concatenate([salt, np.zeros((cap - k, width), np.uint8)])
+    return vpos[order], vref[order], valt[order], spos, sref, salt
+
+
+def cadd_snv_score_text(pos, alt_code):
+    """The SNV table's (RawScore, PHRED) text at ``pos`` for the alternate
+    base ``"ACGT"[alt_code]``: a fixed function of the two, so a check can
+    recompute any row's scores."""
+    raw = (int(pos) * 2654435761 + int(alt_code) * 40503) % 10_000_000
+    phred = (int(pos) * 7919 + int(alt_code) * 104729) % 100_000
+    return (f"{raw // 1_000_000}.{raw % 1_000_000:06d}",
+            f"{phred // 1000:02d}.{phred % 1000:03d}")
+
+
+def _digits(m, col, values, n):
+    """Write ``n`` decimal digits of ``values`` into ``m[..., col:col + n]``."""
+    for d in range(n):
+        m[..., col + d] = 48 + (values // 10 ** (n - 1 - d)) % 10
+
+
+def snv_table_bytes(label, p0, p1, ref_codes):
+    """The SNV table's lines for every position of ``p0..p1`` (inclusive),
+    three rows a position (the ref base ``"ACGT"[ref_codes[i]]`` and the
+    other three bases in ACGT order), built as one byte matrix
+    [positions, 3, line] per run of positions with the same digit count."""
+    out = []
+    p = p0
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    while p <= p1:
+        nd = len(str(p))
+        hi = min(p1, 10 ** nd - 1)
+        pos = np.arange(p, hi + 1, dtype=np.int64)
+        rc = np.asarray(ref_codes[p - p0:hi - p0 + 1], np.int64)
+        idx = np.arange(3)[None, :]
+        ac = idx + (idx >= rc[:, None])
+        head = (label + "\t").encode()
+        width = len(head) + nd + 1 + 2 + 2 + 9 + 7
+        m = np.empty((pos.size, 3, width), np.uint8)
+        m[..., :len(head)] = np.frombuffer(head, np.uint8)
+        c = len(head)
+        _digits(m, c, pos[:, None].astype(np.int32), nd)
+        c += nd
+        m[..., c], m[..., c + 2], m[..., c + 4] = 9, 9, 9
+        m[..., c + 1] = lut[rc][:, None]
+        m[..., c + 3] = lut[ac]
+        c += 5
+        raw = ((pos[:, None] * 2654435761 + ac * 40503) % 10_000_000).astype(np.int32)
+        phred = ((pos[:, None] * 7919 + ac * 104729) % 100_000).astype(np.int32)
+        m[..., c] = 48 + raw // 1_000_000
+        m[..., c + 1] = ord(".")
+        _digits(m, c + 2, raw % 1_000_000, 6)
+        m[..., c + 8] = 9
+        c += 9
+        _digits(m, c, phred // 1000, 2)
+        m[..., c + 2] = ord(".")
+        _digits(m, c + 3, phred % 1000, 3)
+        m[..., c + 6] = 10
+        out.append(m.tobytes())
+        p = hi + 1
+    return b"".join(out)
+
+
+def cadd_block_ranges(rpos, block_rows=CADD_BLOCK_ROWS):
+    """Row ranges of the blocks ``io/cadd.py`` cuts from one chromosome's
+    sorted row positions: at capacity, the trailing same-position run is
+    peeled back into the next block (a run filling a whole block is cut
+    mid-run)."""
+    out, start, n = [], 0, rpos.size
+    while start < n:
+        if n - start < block_rows:
+            out.append((start, n))
+            break
+        end = start + block_rows
+        cut = int(np.searchsorted(rpos[start:end], rpos[end - 1], side="left")) + start
+        cut = end if cut == start else cut
+        out.append((start, cut))
+        start = cut
+    return out
+
+
+def cadd_join_launches(rpos, host_pos, cand_pos, cand_over, block_rows=CADD_BLOCK_ROWS):
+    """``cadd_join`` launches of one chromosome's table pass: one per block
+    whose window (the candidates between the block's first and last
+    position) holds a candidate on the device path (not over the width,
+    not at a position with an over-width table row) and whose block holds
+    device rows."""
+    launches = 0
+    for lo, hi in cadd_block_ranges(rpos, block_rows):
+        b = rpos[lo:hi]
+        if np.isin(b, host_pos).all():
+            continue
+        wlo = np.searchsorted(cand_pos, b[0], side="left")
+        whi = np.searchsorted(cand_pos, b[-1], side="right")
+        if whi == wlo:
+            continue
+        host = cand_over[wlo:whi] | np.isin(cand_pos[wlo:whi], host_pos)
+        launches += int(not host.all())
+    return launches
+
+
+def write_cadd_tables(db_dir, sites, spans, seed, width=49, level=6,
+                      chunk=1 << 20, block_rows=CADD_BLOCK_ROWS):
+    """The two CADD tables, BGZF at ``level``, for a store of ``sites``
+    ((label, pos, ref, [alts]) per VCF line; '.' alts dropped), covering
+    ``spans`` ({label: (start, end)}):
+
+    - ``whole_genome_SNVs.tsv.gz``: every position of each span with its
+      three alternate bases; where a store row sits, the ref base is that
+      row's first ref base, so every stored SNV in a span matches;
+    - ``gnomad.genomes.r3.0.indel.tsv.gz``: runs of 1-6 rows at about one
+      position in 20; half of the store's indels in the spans planted in a
+      run of 1-6 rows, a third of them swapped; at up to 20 planted
+      positions a second matching row after the first (the first wins); at
+      up to 10 positions an allele wider than ``width`` (store over-width
+      deletions planted with their full strings, and long non-matching
+      rows beside a planted match) for the host path; one planted run of
+      exactly 32 rows whose match is its last row;
+    - one malformed (two-field) line in each.
+
+    Returns the predictions: the counters of a first whole-store update
+    (``snv``, ``indel``, ``not_matched``, ``update``, ``skipped``), the
+    ``cadd_join`` launches and blocks per table, the table rows, and
+    ``expected`` ({(label, pos, ref, alt): (raw text, phred text)} of every
+    planted indel; SNV scores come from :func:`cadd_snv_score_text`)."""
+    import random
+
+    from annotatedvdb_tpu_torch.io.bgzf import BgzfWriter
+
+    rng = np.random.default_rng(seed)
+    rnd = random.Random(seed)
+    os.makedirs(db_dir, exist_ok=True)
+    order = {str(c): c for c in range(1, 23)} | {"X": 23, "Y": 24, "M": 25}
+    labels = sorted(spans, key=order.get)
+    pool = ["".join(BASES[rng.integers(0, 4, int(n))])
+            for n in rng.integers(7, 10, 4096)]
+    pred = {"snv": 0, "indel": 0, "candidates": 0, "launches": {"snv": 0, "indel": 0},
+            "blocks": {"snv": 0, "indel": 0}, "rows": {"snv": 0, "indel": 0},
+            "expected": {}}
+
+    def other(anchor):
+        """A row that matches no store allele (one allele of 8-10 bases)."""
+        s = anchor + pool[rnd.randrange(4096)]
+        return (anchor, s) if rnd.random() < 0.5 else (s, anchor)
+
+    def score():
+        raw, ph = rnd.randrange(10_000_000), rnd.randrange(100_000)
+        return (f"{raw // 1_000_000}.{raw % 1_000_000:06d}",
+                f"{ph // 1000:02d}.{ph % 1000:03d}")
+
+    snv_w = BgzfWriter(os.path.join(db_dir, SNV_TABLE), level=level)
+    indel_w = BgzfWriter(os.path.join(db_dir, INDEL_TABLE), level=level)
+    snv_w.write(CADD_HEADER)
+    indel_w.write(CADD_HEADER)
+    malformed = {"snv": True, "indel": True}
+    for label in labels:
+        table_label = "MT" if label == "M" else label
+        start, end = spans[label]
+        ids = [(p, r, a) for lab, p, r, alts in sites if lab == label for a in alts]
+        ids.sort(key=lambda t: t[0])
+        pos_a = np.array([p for p, _, _ in ids], np.int64)
+        is_snv = np.array([len(r) == 1 and len(a) == 1 for _, r, a in ids], bool)
+        over = np.array([len(r) > width or len(a) > width for _, r, a in ids], bool)
+        pred["candidates"] += len(ids)
+        in_span = (pos_a >= start) & (pos_a <= end)
+        pred["snv"] += int((is_snv & in_span).sum())
+        # SNV table: the store's first ref base where it has a row
+        ref_codes = rng.integers(0, 4, end - start + 1)
+        firsts = np.array(["ACGT".index(r[0]) for _, r, _ in ids], np.int64)
+        ref_codes[pos_a[in_span] - start] = firsts[in_span]
+        for p in range(start, end + 1, chunk):
+            q = min(end, p + chunk - 1)
+            snv_w.write(snv_table_bytes(table_label, p, q, ref_codes[p - start:q - start + 1]))
+            if malformed["snv"]:
+                snv_w.write(f"{table_label}\t{q}\n".encode())
+                malformed["snv"] = False
+        rpos = np.repeat(np.arange(start, end + 1, dtype=np.int64), 3)
+        pred["rows"]["snv"] += rpos.size
+        pred["blocks"]["snv"] += len(cadd_block_ranges(rpos, block_rows))
+        pred["launches"]["snv"] += cadd_join_launches(
+            rpos, np.empty(0, np.int64), pos_a[is_snv], over[is_snv], block_rows)
+        del rpos
+        # indel table: planted runs (per row, few), then background runs
+        # (vectorized draws), merged in position order
+        planted_runs: dict[int, list] = {}
+        indel = [(i, ids[i]) for i in np.flatnonzero(~is_snv & in_span)]
+        planted = [(i, t) for i, t in indel if rnd.random() < 0.5 or over[i]]
+        long_store = [(i, t) for i, t in planted if over[i]][:5]
+        planted = [(i, t) for i, t in planted if not over[i]] + long_store
+        normal = [k for k, (i, _t) in enumerate(planted) if not over[i]]
+        rnd.shuffle(normal)
+        deep, dups, longs = set(normal[:1]), set(normal[1:21]), set(normal[21:26])
+        for k, (_i, (pos, ref, alt)) in enumerate(planted):
+            n = 32 if k in deep else rnd.randint(1, 6)
+            at = n - 1 if k in deep else rnd.randrange(n)
+            rows = [other(ref[0]) + score() for _ in range(n)]
+            hit = (alt, ref) if rnd.random() < 1 / 3 else (ref, alt)
+            rows[at] = hit + score()
+            if k in dups:
+                rows.insert(at + 1, (hit[1], hit[0]) + score())
+            if k in longs:
+                rows.append((ref[0], ref[0] + "".join(rnd.choices("ACGT", k=55)))
+                            + score())
+            if pos in planted_runs:
+                raise ValueError(f"two planted store indels at {label}:{pos}")
+            planted_runs[pos] = rows
+            pred["expected"][(label, pos, ref, alt)] = rows[at][2:]
+        pred["indel"] += len(planted)
+        host = [p for p, rows in planted_runs.items()
+                if any(len(r) > width or len(a) > width for r, a, _, _ in rows)]
+        lines, rpos = [], []
+        for pos, rows in planted_runs.items():
+            lines += [f"{table_label}\t{pos}\t{r}\t{a}\t{raw}\t{ph}\n"
+                      for r, a, raw, ph in rows]
+            rpos += [pos] * len(rows)
+        background = start + np.flatnonzero(rng.random(end - start + 1) < 0.05)
+        background = background[~np.isin(background, list(planted_runs))]
+        bpos = np.repeat(background, rng.integers(1, 7, background.size))
+        n_bg = bpos.size
+        anchor = np.asarray(BASES)[rng.integers(0, 4, n_bg)]
+        body = np.char.add(anchor, np.asarray(pool)[rng.integers(0, len(pool), n_bg)])
+        ins = rng.random(n_bg) < 0.5
+        raw = rng.integers(0, 10_000_000, n_bg)
+        ph = rng.integers(0, 100_000, n_bg)
+        lines += [f"{table_label}\t{p}\t{r}\t{a}\t{x // 1_000_000}.{x % 1_000_000:06d}"
+                  f"\t{y // 1000:02d}.{y % 1000:03d}\n"
+                  for p, r, a, x, y in zip(
+                      bpos.tolist(), np.where(ins, anchor, body).tolist(),
+                      np.where(ins, body, anchor).tolist(), raw.tolist(), ph.tolist())]
+        rpos = np.concatenate([np.array(rpos, np.int64), bpos])
+        order = np.argsort(rpos, kind="stable")
+        rpos = rpos[order]
+        lines = [lines[i] for i in order.tolist()]
+        if malformed["indel"]:
+            lines.insert(min(100, len(lines)), f"{table_label}\t{rpos[0]}\n")
+            malformed["indel"] = False
+        indel_w.write("".join(lines).encode())
+        del lines
+        pred["rows"]["indel"] += rpos.size
+        pred["blocks"]["indel"] += len(cadd_block_ranges(rpos, block_rows))
+        pred["launches"]["indel"] += cadd_join_launches(
+            rpos, np.array(host, np.int64), pos_a[~is_snv], over[~is_snv], block_rows)
+    snv_w.close()
+    indel_w.close()
+    pred["update"] = pred["snv"] + pred["indel"]
+    pred["not_matched"] = pred["candidates"] - pred["update"]
+    pred["skipped"] = 0
+    return pred
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -805,22 +1202,165 @@ def kernel_phase(torch, device):
     return [row]
 
 
+#: the join's shapes on the main path (phase 9): variants in a block's
+#: window and the block's score rows, at the SNV and indel probe depths
+CADD_SHAPES = {"snv": (8192, CADD_BLOCK_ROWS, SNV_PROBE),
+               "indel": (16384, CADD_BLOCK_ROWS, INDEL_PROBE)}
+
+
+def cadd_bound(vpos, spos, probe, matched, match_idx, width) -> dict:
+    """Bytes the join must move for these inputs — each variant's position
+    and alleles read once, its 5 output bytes written once, and each score
+    row that some probe compares (from the lower bound through the first
+    hit, or to the end of the position's run within the window) read once
+    — and the operations it does: the binary search's steps and 4W byte
+    compares per probed row.  Also the coarser count
+    N(4 + 2W) + 5N + min(K, N probe)(4 + 2W) for comparison."""
+    n, k = vpos.size, spos.size
+    lo = np.searchsorted(spos, vpos, side="left")
+    run_end = np.searchsorted(spos, vpos, side="right")
+    end = np.where(matched, match_idx.astype(np.int64) + 1,
+                   np.minimum(run_end, lo + probe))
+    end = np.maximum(end, lo)
+    edges = np.zeros(k + 1, np.int64)
+    np.add.at(edges, lo, 1)
+    np.add.at(edges, end, -1)
+    rows = int((np.cumsum(edges)[:k] > 0).sum())
+    row_bytes = 4 + 2 * width
+    nbytes = n * row_bytes + 5 * n + rows * row_bytes
+    ops = int(n * 3 * np.ceil(np.log2(k + 1)) + (end - lo).sum() * 4 * width)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"variants": n, "score_rows": k, "probe": probe, "probed_rows": rows,
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "coarse_bytes_ms": (n * row_bytes + 5 * n + min(k, n * probe) * row_bytes)
+            / MEM_BYTES_PER_S * 1e3}
+
+
+def cadd_kernel_phase(torch, device) -> dict:
+    """Phase 3 for ``cadd_join``: the kernel against its plain version on
+    the card, exactly (``torch.equal`` on both outputs), on the seeded edge
+    blocks at W = 16, 49 and 96 and on random blocks at the SNV and indel
+    shapes; its time at both shapes beside the plain version's and the
+    bound; the host-to-device copy of one score block.  Returns the kernel
+    table row (launches filled in after phase 9)."""
+    from annotatedvdb_tpu_torch.ops.cadd_join import cadd_join, cadd_join_reference
+    from annotatedvdb_tpu_torch.runtime import to_device
+
+    def to_dev(args):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in args]
+
+    checks, worst = [], 0
+    cases = [(label, args, probe) for w in (16, WIDTH, 96)
+             for label, args, probe in cadd_edge_cases(w)]
+    sets = {}
+    for shape, (n, k, probe) in CADD_SHAPES.items():
+        sets[shape] = [cadd_random_block(30 + i, n, k, WIDTH, probe, shape == "snv")
+                       for i in range(3)]
+        cases += [(f"random-{shape}-{i}", a, probe)
+                  for i, a in enumerate(sets[shape])]
+    for label, args, probe in cases:
+        t = to_dev(args)
+        got = cadd_join(*t, probe=probe)
+        want = cadd_join_reference(*t, probe=probe)
+        torch.cuda.synchronize()
+        same = [torch.equal(g, w) for g, w in zip(got, want)]
+        err = int((got[1].to(torch.int64) - want[1].to(torch.int64)).abs().max()) \
+            if got[1].numel() else 0
+        err = max(err, int((got[0] != want[0]).sum()))
+        worst = max(worst, err)
+        checks.append({"inputs": label, "variants": int(t[0].shape[0]),
+                       "score_rows": int(t[3].shape[0]), "probe": probe,
+                       "matched": int(want[0].sum()), "equal": all(same),
+                       "max_abs_err": err})
+        if not all(same):
+            raise AssertionError(f"cadd_join disagrees with its plain version "
+                                 f"on {label}")
+
+    timing = {}
+    for shape, (n, k, probe) in CADD_SHAPES.items():
+        inputs = [to_dev(a) for a in sets[shape]]
+        runs = {}
+        for name, fn, iters in (("plain", cadd_join_reference, 10),
+                                ("kernel", cadd_join, 100),
+                                ("kernel", cadd_join, 100),
+                                ("plain", cadd_join_reference, 10)):
+            call = (lambda f: lambda *a: f(*a, probe=probe))(fn)
+            runs.setdefault(name, []).append({
+                "device_ms": device_ms(torch, call, inputs, iters),
+                "call_ms": call_ms(torch, call, inputs, iters)})
+
+        def best(rs):
+            dev = [r["device_ms"] for r in rs if r["device_ms"] is not None]
+            return min(dev) if dev else min(r["call_ms"] for r in rs)
+
+        m, idx = cadd_join_reference(*inputs[0], probe=probe)
+        a = sets[shape][0]
+        bound = cadd_bound(a[0], a[3], probe, m.cpu().numpy(), idx.cpu().numpy(),
+                           WIDTH)
+        ms = best(runs["kernel"])
+        timing[shape] = {**bound, "ms": ms, "plain_ms": best(runs["plain"]),
+                         "call_ms": min(r["call_ms"] for r in runs["kernel"]),
+                         "bound_share": bound["bound_ms"] / ms, "timing_runs": runs}
+        del inputs
+
+    # one score block's upload (pos, ref, alt at the block capacity): from
+    # pinned memory alone (CUDA events) and through to_device (host copy
+    # into the pinned staging buffer included)
+    _v, _r, _a, spos, sref, salt = sets["snv"][0]
+    block = (spos, sref, salt)
+    nbytes = sum(x.nbytes for x in block)
+    pinned = [torch.from_numpy(x).pin_memory() for x in block]
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    copies = []
+    for _ in range(5):
+        start.record()
+        for x in pinned:
+            x.to(device, non_blocking=True)
+        stop.record()
+        torch.cuda.synchronize()
+        copies.append(start.elapsed_time(stop))
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for x in block:
+            to_device(x, device)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    h2d = {"bytes": nbytes, "copy_ms": min(copies),
+           "copy_gb_per_s": nbytes / min(copies) / 1e6, "to_device_ms": min(walls)}
+    emit("cadd_kernels", checks=checks, timing=timing, block_upload=h2d)
+    snv, indel = timing["snv"], timing["indel"]
+    return {
+        "name": "cadd_join", "route": "cuda",
+        "source": "annotatedvdb_tpu_torch/csrc/cadd_join.cu",
+        "replaces": "annotatedvdb_tpu/ops/cadd_join.py:49",
+        "launches": None, "max_abs_err": worst,
+        "ms": snv["ms"], "plain_ms": snv["plain_ms"], "bound_ms": snv["bound_ms"],
+        "bound_by": snv["bound_by"], "library_ms": None,
+        "indel_ms": indel["ms"], "indel_plain_ms": indel["plain_ms"],
+        "indel_bound_ms": indel["bound_ms"], "block_upload_ms": h2d["copy_ms"],
+    }
+
+
 @contextlib.contextmanager
-def captured_loaders(cls):
-    """Every ``cls`` loader whose ``load_file`` runs inside, in call order
+def captured_loaders(cls, method="load_file"):
+    """Every ``cls`` loader whose ``method`` runs inside, in call order
     (the CLIs build their loaders themselves)."""
     seen = []
-    original = cls.load_file
+    original = getattr(cls, method)
 
-    def load_file(self, *args, **kwargs):
+    def run(self, *args, **kwargs):
         seen.append(self)
         return original(self, *args, **kwargs)
 
-    cls.load_file = load_file
+    setattr(cls, method, run)
     try:
         yield seen
     finally:
-        cls.load_file = original
+        setattr(cls, method, original)
 
 
 @contextlib.contextmanager
@@ -934,20 +1474,36 @@ def store_bytes(store_dir):
     return out
 
 
-def write_inputs(n4, n5, n6, n7, n8=(400_000, 400_000, 100_000)) -> dict:
+def vcf_sites(lines) -> list:
+    """(label, pos, ref, [alts]) of VCF data lines, one per position (the
+    writers put one line at a position; repeated lines are copies), '.'
+    alts and lines without a numeric position dropped."""
+    sites = {}
+    for ln in lines:
+        chrom, pos, _vid, ref, alt_col = ln.split("\t", 5)[:5]
+        if pos.isdigit():
+            sites[int(pos)] = (chrom, ref, [a for a in alt_col.split(",") if a != "."])
+    return [(c, p, r, a) for p, (c, r, a) in sorted(sites.items())]
+
+
+def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
+                 head6=10_000) -> dict:
     """The seeded inputs of phases 3-8 under ``WORK``: the phase-4 VCF of
     ``n4`` lines, the phase-5 reload VCF of ``n5``, the first ``n6`` lines
-    of phase 4 with a VEP file for their first half and the three update
-    inputs over them (phase 6), ``n7`` VEP results over phase 4's variants
-    (phase 7), and the update inputs over phase 4's lines, ``n8`` = (QC
-    lines, SnpEff lines, TSV rows) (phase 8), with what each load must
-    count."""
+    of phase 4 with a VEP file for their first half, the three update
+    inputs over them, CADD tables over their span and their first
+    ``head6`` lines (phase 6), ``n7`` VEP results over phase 4's variants
+    (phase 7) and ``n7b`` over its first tenth (phase 7b), and the update
+    inputs over phase 4's lines, ``n8`` = (QC lines, SnpEff lines, TSV
+    rows) (phase 8), with what each load must count.  Phase 9's tables
+    come from :func:`write_cadd9_inputs`."""
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     inp = {name: os.path.join(WORK, f) for name, f in (
         ("vcf4", "chr22.first.vcf"), ("vcf5", "chr22.second.vcf"),
         ("vcf6", "chr22.head.vcf"), ("vep6", "chr22.head.vep.json"),
-        ("vep7", "chr22.vep.json"))}
+        ("head6", "chr22.head.first.vcf"), ("vep7", "chr22.vep.json"),
+        ("vep7b", "chr22.head.vep7b.json"))}
     t0 = time.perf_counter()
     lines4, rows4, dup_lines = write_phase4_vcf(inp["vcf4"], n4)
     inp["dup5"], inp["new5"] = write_phase5_vcf(inp["vcf5"], n5, lines4, rows4)
@@ -964,6 +1520,8 @@ def write_inputs(n4, n5, n6, n7, n8=(400_000, 400_000, 100_000)) -> dict:
     inp["want7"], inp["novel7"] = write_vep_json(inp["vep7"], lines4, n7,
                                                  seed=7, n_novel=20)
     inp["vep_seconds"] = time.perf_counter() - t0
+    inp["want7b"], inp["novel7b"] = write_vep_json(
+        inp["vep7b"], lines4[: n4 // 10], n7b, seed=77, n_novel=5)
     # the update legs: phase 6's over the identities of its 50,000 lines
     # (a QC pVCF over the first half), phase 8's over phase 4's lines
     t0 = time.perf_counter()
@@ -979,10 +1537,43 @@ def write_inputs(n4, n5, n6, n7, n8=(400_000, 400_000, 100_000)) -> dict:
         {name: (lines4, n) for name, n in zip(("qc", "lof", "tsv"), n8)},
         seed=80)
     inp["update_seconds"] = time.perf_counter() - t0
+    # the CADD tables: phase 6's over its lines' span, phase 9's over
+    # span9 for the store of phases 4 and 5 (BGZF, level 1 for the big one)
+    t0 = time.perf_counter()
+    with open(inp["head6"], "w") as f:
+        f.write(HEADER)
+        f.writelines(lines6[:head6])
+    sites6 = vcf_sites(lines6)
+    inp["cadd6"] = {"db": os.path.join(WORK, "cadd6"), "head_lines": head6,
+                    "pred": write_cadd_tables(
+                        os.path.join(WORK, "cadd6"), sites6,
+                        {"22": (sites6[0][1], sites6[-1][1])}, seed=61)}
+    pred6 = inp["cadd6"]["pred"]
+    # every block's window holds rows of the base lines, so the rows the
+    # update commands insert before the join cannot add a launch
+    assert pred6["launches"] == pred6["blocks"], pred6["launches"]
+    inp["cadd6_seconds"] = time.perf_counter() - t0
     inp["dup4"] = int(rows4[dup_lines].sum())
     inp["ins4"] = int(rows4.sum())
-    inp.update(n4=n4, n5=n5, n6=n6, n7=n7, n8=n8)
+    inp.update(n4=n4, n5=n5, n6=n6, n7=n7, n8=n8, n7b=n7b)
     return inp
+
+
+def write_cadd9_inputs(work, vcfs, span=(16_000_001, 22_000_000)) -> dict:
+    """Phase 9's CADD tables (BGZF, level 1) under ``work/cadd9`` over
+    ``span`` of chr22, for the store the VCF files ``vcfs`` load (phases 4
+    and 5): the database directory, the span, the generator's predictions
+    and the seconds it took.  Reads only the VCFs, so it can run in
+    another process while the earlier phases do."""
+    t0 = time.perf_counter()
+    lines = []
+    for path in vcfs:
+        with open(path) as f:
+            lines += [ln for ln in f if not ln.startswith("#")]
+    db = os.path.join(work, "cadd9")
+    pred = write_cadd_tables(db, vcf_sites(lines), {"22": span}, seed=90, level=1)
+    return {"db": db, "span": span, "pred": pred,
+            "seconds": time.perf_counter() - t0}
 
 
 def native_hash_check(torch, device, vcf, rows=BIG_ROWS) -> dict:
@@ -1036,16 +1627,19 @@ def environment(**env):
 #: the variables that choose the VCF load's configuration; the default
 #: configuration is all of them unset
 MODE_VARS = ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE",
-             "AVDB_INGEST_SHUFFLE_SEED", "AVDB_NATIVE_VEP")
+             "AVDB_INGEST_SHUFFLE_SEED", "AVDB_NATIVE_VEP", "AVDB_NATIVE_CADD")
 
 
-def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
+def load_phases(torch, platform, inp, launches, hash_calls,
+                before_parity=None) -> dict:
     """Phases 4-6 on ``platform`` ("cuda" on the card; "cpu" rehearses the
     same control flow at a small size) over the inputs of
     :func:`write_inputs`.  ``launches`` (the kernel launch counters) and
     ``hash_calls`` (the plain hash's calls by device type) are set to 0
-    just before the phase-4 load and read right after it.  Raises
-    AssertionError on any failed check."""
+    just before the phase-4 load and read right after it.
+    ``before_parity``, if given, is called once phases 4 and 5 (the timed
+    ones) are done, before phase 6.  Raises AssertionError on any failed
+    check."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
     from annotatedvdb_tpu_torch.conseq.ranker import DEFAULT_RANKING_FILE
@@ -1177,6 +1771,8 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
         f"reload: membership probes did not all run on the device: "
         f"{loader.probe_stats}")
     del store, loader, cached
+    if before_parity is not None:
+        before_parity()
 
     # 6. device vs CPU, end to end: the VCF load, then the VEP update of
     # its store (ranking file re-ranked on load, saved on each learned
@@ -1185,9 +1781,10 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
     want6 = inp["want6"]
     for config, env in (("python-serial", {"AVDB_INGEST_ENGINE": "python",
                                            "AVDB_PIPELINE": "serial",
-                                           "AVDB_NATIVE_VEP": "0"}),
+                                           "AVDB_NATIVE_VEP": "0",
+                                           "AVDB_NATIVE_CADD": "0"}),
                         ("default", {})):
-        out = {}
+        out, cadd = {}, {}
         for plat in (platform, "cpu"):
             d = os.path.join(WORK, f"store.{config}.{len(out)}.{plat}")
             ranks = os.path.join(WORK, f"ranks.{config}.{len(out)}.{plat}")
@@ -1237,7 +1834,12 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
                         f"phase 6 ({config}) {name}: annotate_bin launched "
                         f"{n_launched} times, predicted {want_l}")
                 updates[name] = {"files": store_bytes(d), "launches": n_launched,
-                                 "chunks": run["chunks"], "s": run["wall"]}
+                                 "chunks": run["chunks"], "s": run["wall"],
+                                 "alg_id": run["counters"]["alg_id"]}
+            # then the CADD join, the export and the undo of the QC update
+            with environment(**env):
+                cadd[len(cadd)] = cadd_steps(torch, plat, d, inp, config,
+                                             updates["qc"]["alg_id"], bool(out))
             out[len(out)] = (vep_bytes, mapping, saved,
                              time.perf_counter() - t0, stats6, updates)
         ((files_dev, map_dev, ranks_dev, s_dev, stats_dev, upd_dev),
@@ -1249,6 +1851,7 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             upd_dev[name]["cpu_s"] = upd_cpu[name]["s"]
         emit("parity_updates", config=config, updates=upd_dev,
              predicted={k: v["want"] for k, v in inp["updates6"].items()})
+        check_cadd_parity(cadd[0], cadd[1], config, inp["cadd6"], platform)
         for name, rec in upd_dev.items():
             assert not rec["differ"], (
                 f"phase 6 ({config}): device and CPU stores differ after "
@@ -1271,7 +1874,9 @@ def load_phases(torch, platform, inp, launches, hash_calls) -> dict:
             f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
     return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks,
             "store": store4, "vep": inp["vep7"], "want": inp["want7"],
-            "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"]}
+            "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"],
+            "vep7b": inp["vep7b"], "want7b": inp["want7b"],
+            "novel7b": inp["novel7b"]}
 
 
 def run_update(torch, platform, name, path, store_dir, trace=False,
@@ -1334,6 +1939,167 @@ def run_update(torch, platform, name, path, store_dir, trace=False,
             "hash_steps": len(hash_steps), "inserts": len(inserts), "busy": busy,
             "store_load_s": sum(load_s), "store_save_s": sum(save_s),
             "steps": steps}
+
+
+def run_load_cadd(torch, platform, store_dir, db, *flags, trace=False) -> dict:
+    """``load-cadd --databaseDir db --storeDir store_dir *flags`` through
+    the CLI's ``main`` (log beside the work files, not in the store): its
+    wall, updater, printed counters, the store's load and save seconds,
+    the ``cadd_join`` launches and plain-join calls it made, and with
+    ``trace`` on the card the device-busy seconds (``torch.profiler``;
+    None when it saw no device time)."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from annotatedvdb_tpu_torch.__main__ import main as cli
+    from annotatedvdb_tpu_torch.loaders import CaddUpdater
+    from annotatedvdb_tpu_torch.ops import cadd_join
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    traced = trace and platform == "cuda"
+    launches, calls = cadd_join.LAUNCHES["cadd_join"], dict(cadd_join.CALLS)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof, \
+            captured_loaders(CaddUpdater, "update_all") as updaters, \
+            timed_calls(VariantStore, "load", []) as load_s, \
+            timed_calls(VariantStore, "save", []) as save_s, \
+            contextlib.redirect_stdout(out):
+        rc = cli(["load-cadd", "--databaseDir", db, "--storeDir", store_dir,
+                  "--logAfter", "0", "--logFilePath",
+                  os.path.join(WORK, "load-cadd.log"), "--platform", platform,
+                  *flags])
+        if platform == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"load-cadd {' '.join(flags)} exited {rc}"
+    printed = out.getvalue().splitlines()
+    busy = None
+    if traced:
+        busy = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e6 or None
+    res = {"wall": wall, "store_load_s": sum(load_s), "store_save_s": sum(save_s),
+           "launches": cadd_join.LAUNCHES["cadd_join"] - launches,
+           "plain_calls": {k: v - calls.get(k, 0)
+                           for k, v in cadd_join.CALLS.items()}, "busy": busy}
+    if "--buildIndex" not in flags:
+        res["counters"] = json.loads(printed[-2])
+        assert int(printed[-1]) == res["counters"]["alg_id"]
+        (res["updater"],) = updaters
+    return res
+
+
+def run_host_command(argv) -> tuple:
+    """A host-only command (``export-vcf``, ``undo``) through the umbrella
+    CLI: (wall seconds, printed lines)."""
+    import io
+
+    from annotatedvdb_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = cli(argv)
+    assert rc == 0, f"{argv[0]} exited {rc}"
+    return time.perf_counter() - t0, out.getvalue().splitlines()
+
+
+def tree_bytes(root) -> dict:
+    """Every file under ``root``, by relative path."""
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            fp = os.path.join(dirpath, name)
+            with open(fp, "rb") as f:
+                out[os.path.relpath(fp, root)] = f.read()
+    return out
+
+
+def cadd_steps(torch, plat, d, inp, config, qc_alg, index_built) -> dict:
+    """Phase 6's CADD and store-command steps on store ``d``: ``load-cadd
+    --commit`` over both tables, ``--buildIndex`` (once per configuration:
+    it reads only the tables), ``load-cadd --fileName`` of the first lines
+    with ``--updateExisting`` (indexed seeks), ``export-vcf`` and ``undo``
+    of the QC update.  Per step: the store's bytes, the ``cadd_join`` and
+    ``annotate_bin`` launches and the plain-join calls on the card; the
+    export's files."""
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
+
+    db = inp["cadd6"]["db"]
+    out = {}
+
+    def record(step, run=None, annotate_before=None, **extra):
+        rec = {"files": store_bytes(d), **extra}
+        if run is not None:
+            rec.update(s=run["wall"], launches=run["launches"],
+                       plain_cuda=run["plain_calls"].get("cuda", 0),
+                       counters=run.get("counters"))
+        if annotate_before is not None:
+            rec["annotate_launches"] = (annotate_cuda.LAUNCHES["annotate_bin"]
+                                        - annotate_before)
+        out[step] = rec
+
+    record("load-cadd", run_load_cadd(torch, plat, d, db, "--commit"))
+    if not index_built:
+        t0 = time.perf_counter()
+        run_load_cadd(torch, plat, d, db, "--buildIndex")
+        out["build-index"] = {"s": time.perf_counter() - t0}
+    before = annotate_cuda.LAUNCHES["annotate_bin"]
+    record("load-cadd-file", run_load_cadd(
+        torch, plat, d, db, "--fileName", inp["head6"], "--updateExisting",
+        "--commit"), annotate_before=before)
+    export = os.path.join(WORK, f"export.{config}.{plat}")
+    wall, _lines = run_host_command(["export-vcf", "--storeDir", d,
+                                     "--outputDir", export])
+    record("export-vcf", s=wall, export=tree_bytes(export))
+    wall, _lines = run_host_command(["undo", "--storeDir", d, "--algId",
+                                     str(qc_alg), "--commit"])
+    record("undo", s=wall)
+    return out
+
+
+def check_cadd_parity(dev, cpu, config, spec, platform) -> None:
+    """Phase 6's CADD steps, card against CPU: the store bytes after each
+    step and the export files identical; on the card, ``cadd_join``
+    launched as predicted by the whole-store join and never by the indexed
+    one, ``annotate_bin`` once for the subset VCF's one chunk under the
+    Python tokenizer (none under the native one), no plain join.  Emits
+    ``parity_cadd``; raises AssertionError on any failed check."""
+    python = config != "default"
+    steps = {}
+    for step, rec in dev.items():
+        other = cpu.get(step, {})
+        if "files" in rec:
+            a, b = rec.pop("files"), other.pop("files")
+            rec["differ"] = sorted(k for k in set(a) | set(b)
+                                   if a.get(k) != b.get(k))
+        if "export" in rec:
+            ea, eb = rec.pop("export"), other.pop("export")
+            rec["export_files"] = len(ea)
+            rec["export_differ"] = sorted(k for k in set(ea) | set(eb)
+                                          if ea.get(k) != eb.get(k))
+        rec["cpu_s"] = other.get("s")
+        steps[step] = rec
+    pred = spec["pred"]
+    want = sum(pred["launches"].values())
+    emit("parity_cadd", config=config, steps=steps, predicted_launches=want,
+         predicted_blocks=pred["blocks"], table_rows=pred["rows"],
+         subset_lines=spec["head_lines"])
+    for step, rec in steps.items():
+        assert not rec.get("differ") and not rec.get("export_differ"), (
+            f"phase 6 ({config}): device and CPU differ after {step} in "
+            f"{rec.get('differ') or rec['export_differ']}")
+    assert steps["load-cadd"]["counters"].get("rejected", 0) == (2 if python else 0)
+    if platform == "cuda":
+        assert steps["load-cadd"]["launches"] == want, (
+            f"phase 6 ({config}): cadd_join launched "
+            f"{steps['load-cadd']['launches']} times, predicted {want}")
+        assert steps["load-cadd-file"]["launches"] == 0
+        assert steps["load-cadd-file"]["annotate_launches"] == int(python)
+        assert not any(rec.get("plain_cuda") for rec in steps.values()), (
+            f"phase 6 ({config}): the plain join ran on the card")
 
 
 def update_launches_predicted(name, run, native) -> int:
@@ -1523,8 +2289,10 @@ def decoded_differences(dir_a, dir_b) -> list:
 
 def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
     """Phase 7 on ``platform``: the VEP update of phase 4's store through
-    the CLI in the default configuration, then under ``AVDB_NATIVE_VEP=0``
-    onto ``prep["store_python"]``, a copy of the store made before.
+    the CLI in the default configuration; then (7b) the 20,000-result file
+    in the default configuration onto ``prep["store_7b"]`` and under
+    ``AVDB_NATIVE_VEP=0`` onto ``prep["store_python"]``, copies of the
+    store made before phase 7 (removed after the comparison).
     ``launches`` and ``hash_calls`` are already reset; both are read right
     after the first load.  Raises AssertionError on any failed check."""
     from annotatedvdb_tpu_torch.runtime import resolve_device
@@ -1577,24 +2345,37 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
             f"{hashed['cuda']} times")
     del loader, pinned, segs, run
 
-    # 7b. the same file through the Python transform, onto the copy
+    # 7b. a 20,000-result file over the first tenth of the lines, in the
+    # default configuration and through the Python transform, each onto a
+    # copy of the store made before phase 7: the two must decode equal
+    want_b, novel_b = prep["want7b"], prep["novel7b"]
+    default = run_load_vep(torch, platform, prep["store_7b"], prep["vep7b"])
     before = dict(launches)
     with environment(AVDB_NATIVE_VEP="0"):
-        py = run_load_vep(torch, platform, prep["store_python"], prep["vep"])
+        py = run_load_vep(torch, platform, prep["store_python"], prep["vep7b"])
     py_loader = py["loader"]
     py_launched = launches["annotate_bin"] - before["annotate_bin"]
-    got_py = {k: py_loader.counters.get(k, 0) for k in want}
+    got_default = {k: default["loader"].counters.get(k, 0) for k in want_b}
+    got_py = {k: py_loader.counters.get(k, 0) for k in want_b}
+    learned = sorted(default["loader"].parser.ranker.added)
     t0 = time.perf_counter()
-    differ = decoded_differences(prep["store"], prep["store_python"])
-    emit("vep_python", wall_s=py["wall"], results_per_s=results / py["wall"],
+    differ = decoded_differences(prep["store_7b"], prep["store_python"])
+    emit("vep_python", results=want_b["line"] - 1, wall_s=py["wall"],
+         results_per_s=(want_b["line"] - 1) / py["wall"],
+         default_wall_s=default["wall"],
          loader_wall_s=py_loader.timer.wall_seconds,
          store_load_s=py["store_load_s"], store_save_s=py["store_save_s"],
          stage_seconds=dict(py_loader.timer.seconds),
          transform_stats=py_loader.transform_stats,
+         default_transform_stats=default["loader"].transform_stats,
          identity_batches=py_loader.identity_batches, launches=py_launched,
-         counters=got_py, decoded_differ=differ,
-         compare_s=time.perf_counter() - t0)
-    assert got_py == want, f"vep (python): counters {got_py}, predicted {want}"
+         counters=got_py, default_counters=got_default, predicted=want_b,
+         decoded_differ=differ, compare_s=time.perf_counter() - t0)
+    assert got_py == want_b and got_default == want_b, (
+        f"vep 7b: counters {got_default} (default) / {got_py} (python), "
+        f"predicted {want_b}")
+    assert learned == sorted(novel_b), f"vep 7b: learned {learned}, planted {novel_b}"
+    assert default["loader"].transform_stats["native_rows"] > 0
     assert py_loader.transform_stats["native_rows"] == 0
     if device.type == "cuda":
         assert py_launched == py_loader.identity_batches, (
@@ -1603,6 +2384,8 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
     assert not differ, (
         f"vep: the native and Python transforms' stores decode differently "
         f"in {differ}")
+    for d in (prep["store_7b"], prep["store_python"]):
+        shutil.rmtree(d)
     return {"launches": launched, "identity_batches": batches,
             "rows_per_batch": rows / batches}
 
@@ -1661,6 +2444,94 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
     return out
 
 
+def cadd_expected(spec, label, pos, ref, alt):
+    """The ``cadd_scores`` a whole-store join must leave on a row: the
+    SNV table's scores for a stored SNV in the span, the planted row's for
+    a planted indel, else the ``{}`` placeholder."""
+    lo, hi = spec["span"]
+    if len(ref) == 1 and len(alt) == 1:
+        if not lo <= pos <= hi:
+            return {}
+        raw, phred = cadd_snv_score_text(pos, "ACGT".index(alt))
+    else:
+        found = spec["pred"]["expected"].get((label, pos, ref, alt))
+        if found is None:
+            return {}
+        raw, phred = found
+    return {"CADD_raw_score": float(raw), "CADD_phred": float(phred)}
+
+
+def cadd_phase(torch, platform, store_dir, spec) -> dict:
+    """Phase 9 on ``platform``: ``load-cadd --commit`` of the whole store of
+    phases 4 and 5 (no VEP sidecars) against the two tables over
+    ``spec["span"]``, through the CLI in the default configuration, every
+    launch and plain-call counter set to 0 just before and read just
+    after: counters and ``cadd_join`` launches as the generator predicts,
+    no plain join and no ``annotate_bin`` launch on the card; the store
+    reloads and 100 sampled rows (50 of them indels in the span) carry the
+    tables' text-parsed floats.  Raises AssertionError on any failed
+    check."""
+    from annotatedvdb_tpu_torch.ops import annotate_cuda, cadd_join
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    pred = spec["pred"]
+    for counts in (cadd_join.LAUNCHES, cadd_join.CALLS, annotate_cuda.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    run = run_load_cadd(torch, platform, store_dir, spec["db"], "--commit",
+                        trace=True)
+    launched = cadd_join.LAUNCHES["cadd_join"]
+    calls, annotated = dict(cadd_join.CALLS), annotate_cuda.LAUNCHES["annotate_bin"]
+    upd, counters, wall, busy = run["updater"], run["counters"], run["wall"], run["busy"]
+    t0 = time.perf_counter()
+    store = VariantStore.load(store_dir)
+    reload_s = time.perf_counter() - t0
+    shard = store.shards[22]
+    rng = np.random.default_rng(9)
+    lo, hi = spec["span"]
+    pos = shard.cols["pos"]
+    indel = np.flatnonzero((pos >= lo) & (pos <= hi)
+                           & ((shard.cols["ref_len"] > 1) | (shard.cols["alt_len"] > 1)))
+    sample = np.union1d(rng.choice(shard.n, 50, replace=False),
+                        rng.choice(indel, 50, replace=False))
+    wrong, matched = [], 0
+    for i in sample.tolist():
+        ref, alt = shard.alleles(i)
+        want = cadd_expected(spec, "22", int(pos[i]), ref, alt)
+        got = shard.get_ann("cadd_scores", i)
+        matched += bool(want)
+        if got != want:
+            wrong.append((int(pos[i]), ref, alt, got, want))
+    keys = ("snv", "indel", "not_matched", "update", "skipped")
+    got_c = {k: counters.get(k, 0) for k in keys}
+    want_c = {k: pred[k] for k in keys}
+    want_l = sum(pred["launches"].values())
+    rows = sum(pred["rows"].values())
+    stages = dict(upd.timer.seconds)
+    emit("cadd", wall_s=wall, table_rows=rows, rows_scanned_per_s=rows / wall,
+         candidates=pred["candidates"], counters=got_c, predicted=want_c,
+         stage_seconds=stages, loader_wall_s=upd.timer.wall_seconds,
+         store_load_s=run["store_load_s"], store_save_s=run["store_save_s"],
+         blocks=upd.join_stats["blocks"], predicted_blocks=pred["blocks"],
+         launches=launched, predicted_launches=pred["launches"],
+         h2d_bytes=upd.join_stats["h2d_bytes"], plain_join_calls=calls,
+         annotate_bin_launches=annotated, queue_stalls=upd.queue_stalls,
+         profiler_device_busy_s=busy,
+         profiler_device_idle_fraction=None if busy is None else 1 - busy / wall,
+         reload_s=reload_s, sampled=int(sample.size), sampled_matched=matched,
+         sampled_wrong=wrong[:5], span=list(spec["span"]))
+    assert got_c == want_c, f"cadd: counters {got_c}, predicted {want_c}"
+    assert "rejected" not in counters, counters
+    assert not wrong, f"cadd: {len(wrong)} sampled rows differ, e.g. {wrong[:3]}"
+    if platform == "cuda":
+        assert launched == want_l, (
+            f"cadd: cadd_join launched {launched} times, predicted {want_l}")
+        assert not calls.get("cuda"), (
+            f"cadd: the plain join ran on the card {calls['cuda']} times")
+        assert annotated == 0, f"cadd: annotate_bin launched {annotated} times"
+    return {"launches": launched}
+
+
 def vep_kernel_timing(torch, device, rows) -> dict:
     """``annotate_bin`` at the VEP load's identity-batch shape: ten
     load-like input sets (``io/synth.py``, 85% SNVs) of ``rows`` rows at
@@ -1708,6 +2579,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from annotatedvdb_tpu_torch import native
+        from annotatedvdb_tpu_torch.native import cadd as native_cadd
         from annotatedvdb_tpu_torch.native import pyfast
         from annotatedvdb_tpu_torch.native import vep as native_vep
         from annotatedvdb_tpu_torch.ops import annotate_cuda, build, hashing
@@ -1743,7 +2615,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libraries = {"tokenizer": native.load, "vep_transformer": native_vep.load,
-                 "pyfast": pyfast.load}
+                 "pyfast": pyfast.load, "cadd_tokenizer": native_cadd.load}
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         futures = {name: pool.submit(timed_build, load)
                    for name, load in libraries.items()}
@@ -1759,41 +2631,64 @@ def main() -> int:
             for name in counts:
                 counts[name] = 0
 
-    try:
-        inputs = write_inputs(2_000_000, 500_000, 50_000, 200_000)
-        # 3. kernels against their plain versions, and the kernel's hash
-        # against the tokenizer's on the phase-4 VCF
-        table = kernel_phase(torch, device)
-        native_hash_check(torch, device, inputs["vcf4"])
-        # 4-6. the load (counters reset inside, just before it), the
-        # probed reload and the card-vs-CPU parity
-        results = load_phases(torch, "cuda", inputs,
-                              launches=annotate_cuda.LAUNCHES,
-                              hash_calls=hashing.CALLS)
-        if results["launches"]["annotate_bin"] != results["chunks"]:
-            return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
-                        f" times for {results['chunks']} chunks")
-        if results["plain_hash_calls"].get("cuda"):
-            return fail(f"the load called the plain allele_hash on the card "
-                        f"{results['plain_hash_calls']['cuda']} times")
-        # 7. the VEP update of phase 4's store: first the transformer's
-        # hash against the kernel's and a copy of the store for the
-        # Python transform's run, then the counters reset just before it
-        vep_hash_check(torch, device, results["vep"])
-        results["store_python"] = results["store"] + ".python"
-        shutil.copytree(results["store"], results["store_python"])
-        reset()
-        vep = vep_phase(torch, "cuda", results, launches=annotate_cuda.LAUNCHES,
-                        hash_calls=hashing.CALLS)
-        vep_kernel = vep_kernel_timing(torch, device,
-                                       max(1, round(vep["rows_per_batch"])))
-        # 8. the update legs on phase 7's store (counters reset inside,
-        # just before each command)
-        upd = update_phase(torch, "cuda", results["store"], inputs["updates8"],
-                           launches=annotate_cuda.LAUNCHES,
-                           hash_calls=hashing.CALLS)
-    except AssertionError as err:
-        return fail(str(err))
+    import multiprocessing
+
+    # one spawned worker process (this one holds the card and threads) for
+    # setup that needs no card; leaving the block waits for it, so no
+    # process outlives the smoke
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        try:
+            inputs = write_inputs(2_000_000, 500_000, 50_000, 200_000)
+            emit("inputs", **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
+            # 3. kernels against their plain versions, and the kernel's hash
+            # against the tokenizer's on the phase-4 VCF
+            table = kernel_phase(torch, device)
+            table.append(cadd_kernel_phase(torch, device))
+            native_hash_check(torch, device, inputs["vcf4"])
+            # 4-6. the load (counters reset inside, just before it), the
+            # probed reload and the card-vs-CPU parity.  Phase 9's tables
+            # are written by the second process during phase 6, which is
+            # checked and not timed (it reads only the VCFs)
+            cadd9 = []
+            results = load_phases(
+                torch, "cuda", inputs, launches=annotate_cuda.LAUNCHES,
+                hash_calls=hashing.CALLS,
+                before_parity=lambda: cadd9.append(pool.submit(
+                    write_cadd9_inputs, WORK, [inputs["vcf4"], inputs["vcf5"]])))
+            t0 = time.perf_counter()
+            inputs["cadd9"] = cadd9[0].result()
+            emit("inputs9", seconds=inputs["cadd9"]["seconds"],
+                 waited_after_phase6_s=time.perf_counter() - t0)
+            if results["launches"]["annotate_bin"] != results["chunks"]:
+                return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
+                            f" times for {results['chunks']} chunks")
+            if results["plain_hash_calls"].get("cuda"):
+                return fail(f"the load called the plain allele_hash on the card "
+                            f"{results['plain_hash_calls']['cuda']} times")
+            # 7. the VEP update of phase 4's store: first the transformer's
+            # hash against the kernel's, then copies of the store (two for
+            # phase 7b, one without VEP sidecars for phase 9's CADD join),
+            # then the counters reset just before it
+            vep_hash_check(torch, device, results["vep"])
+            for key in ("store_python", "store_7b", "store_cadd"):
+                results[key] = f"{results['store']}.{key}"
+                shutil.copytree(results["store"], results[key])
+            reset()
+            vep = vep_phase(torch, "cuda", results, launches=annotate_cuda.LAUNCHES,
+                            hash_calls=hashing.CALLS)
+            vep_kernel = vep_kernel_timing(torch, device,
+                                           max(1, round(vep["rows_per_batch"])))
+            # 8. the update legs on phase 7's store (counters reset inside,
+            # just before each command)
+            upd = update_phase(torch, "cuda", results["store"], inputs["updates8"],
+                               launches=annotate_cuda.LAUNCHES,
+                               hash_calls=hashing.CALLS)
+            # 9. the CADD join of the store of phases 4 and 5 (counters reset
+            # inside, just before it)
+            cadd = cadd_phase(torch, "cuda", results["store_cadd"], inputs["cadd9"])
+        except AssertionError as err:
+            return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
     vcf_launches = results["launches"]["annotate_bin"]
     vep_launches = vep["launches"]["annotate_bin"]
@@ -1803,6 +2698,7 @@ def main() -> int:
                     launches_tsv=upd["tsv"],
                     vep_batch_rows=vep_kernel["rows"], vep_batch_ms=vep_kernel["ms"],
                     vep_batch_bound_ms=vep_kernel["bound_ms"])
+    table[1].update(launches=cadd["launches"])
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

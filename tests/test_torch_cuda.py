@@ -20,7 +20,12 @@ VEP transformer's allele hash must equal the kernel's, and the rank
 table's lookup on the card must equal its host lookup.  The update legs'
 identity hash (``loaders/lookup.py::chunk_hashes``) on the card must equal
 the CPU's, and the QC, SnpEff and TSV updates on the card must write the
-CPU's stores with the predicted launches and no plain hash.
+CPU's stores with the predicted launches and no plain hash.  The CADD join
+kernel (``csrc/cadd_join.cu``) is held against its plain version exactly
+on edge and random blocks and unaligned bases, and ``load-cadd`` (whole
+store, ``--buildIndex``, indexed ``--fileName``), ``export-vcf`` and
+``undo`` on the card must leave the CPU's stores and export files, with the
+predicted ``cadd_join`` launches and no plain join on the card.
 ``chip_smoke.py`` runs the same comparisons at the loads' real sizes."""
 
 import os
@@ -41,6 +46,10 @@ from annotatedvdb_tpu_torch.ops.annotate_cuda import (
 )
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
+    cadd_edge_cases,
+    cadd_random_block,
+    cadd_steps,
+    check_cadd_parity,
     edge_batch,
     random_batch,
     run_update,
@@ -52,6 +61,8 @@ from chip_smoke import (  # noqa: E402
     write_qc_pvcf,
     write_snpeff_vcf,
     write_vep_json,
+    vcf_sites,
+    write_cadd_tables,
 )
 
 pytestmark = pytest.mark.cuda
@@ -367,3 +378,102 @@ def test_update_legs_on_card_match_cpu(cuda, tmp_path, monkeypatch, engine):
                 assert hashing.CALLS["cuda"] == calls["cuda"]
             out[plat].append(store_bytes(d))
     assert out["cuda"] == out["cpu"]
+
+
+def _assert_join_matches(args, probe):
+    from annotatedvdb_tpu_torch.ops import cadd_join
+
+    before = cadd_join.LAUNCHES["cadd_join"]
+    got = cadd_join.cadd_join(*args, probe=probe)
+    want = cadd_join.cadd_join_reference(*args, probe=probe)
+    torch.cuda.synchronize()
+    assert cadd_join.LAUNCHES["cadd_join"] == before + int(args[0].shape[0] > 0)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("width", [16, 49, 96])
+def test_cadd_join_matches_plain_version(cuda, width):
+    for _label, args, probe in cadd_edge_cases(width):
+        _assert_join_matches([torch.from_numpy(a).to(cuda) for a in args], probe)
+    for snv, probe in ((True, 4), (False, 32)):
+        args = cadd_random_block(7, 5000, 40_000, width, probe, snv)
+        m, _ = _assert_join_matches([torch.from_numpy(a).to(cuda) for a in args],
+                                    probe)
+        assert 0.4 < float(m.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("offsets", [(1, 3, 7), (2, 5, 1)])
+def test_cadd_join_unaligned_bases(cuda, offsets):
+    """Allele matrices at odd byte offsets and positions one element in."""
+    vpos, vref, valt, spos, sref, salt = cadd_random_block(8, 3000, 20_000, 49,
+                                                           32, False)
+    o_pos, o_a, o_b = offsets
+    args = [_offset_copy(vpos, cuda, o_pos), _offset_copy(vref, cuda, o_a),
+            _offset_copy(valt, cuda, o_b), _offset_copy(spos, cuda, o_pos),
+            _offset_copy(sref, cuda, o_b), _offset_copy(salt, cuda, o_a)]
+    _assert_join_matches(args, 32)
+
+
+def test_cadd_join_refuses_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops.cadd_join import cadd_join
+
+    args = [torch.from_numpy(a).to(cuda)
+            for a in cadd_random_block(9, 100, 1000, 16, 4, True)]
+    vpos, vref, valt, spos, sref, salt = args
+    with pytest.raises(TypeError):
+        cadd_join(vpos.to(torch.int64), vref, valt, spos, sref, salt)
+    with pytest.raises(ValueError, match="width"):
+        cadd_join(vpos, vref, valt, spos, sref[:, :8].contiguous(),
+                  salt[:, :8].contiguous())
+    with pytest.raises(ValueError, match="empty"):
+        cadd_join(vpos, vref, valt, spos[:0], sref[:0], salt[:0])
+    with pytest.raises(ValueError, match="is on"):
+        cadd_join(vpos, vref, valt, spos.cpu(), sref, salt)
+    with pytest.raises(ValueError, match="contiguous"):
+        cadd_join(vpos, vref[:, ::2], valt[:, ::2], spos, sref[:, ::2],
+                  salt[:, ::2])
+
+
+@pytest.mark.parametrize("config", ["python", "default"])
+def test_cadd_steps_on_card_match_cpu(cuda, tmp_path, monkeypatch, config):
+    """``load-cadd`` over both tables, ``--buildIndex``, an indexed
+    ``--fileName`` update, ``export-vcf`` and ``undo`` on copies of one
+    store, on the card and on the CPU: identical stores and export files,
+    the predicted ``cadd_join`` launches, no plain join on the card."""
+    import shutil
+
+    import chip_smoke
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+
+    annotate_hash_fn(cuda)  # its one-time check launches annotate_bin
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
+    if config == "python":
+        monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
+        monkeypatch.setenv("AVDB_NATIVE_CADD", "0")
+    else:
+        monkeypatch.delenv("AVDB_INGEST_ENGINE", raising=False)
+        monkeypatch.delenv("AVDB_NATIVE_CADD", raising=False)
+    vcf = str(tmp_path / "v.vcf")
+    lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
+    base = str(tmp_path / "base")
+    assert load_vcf(["--fileName", vcf, "--storeDir", base, "--commit",
+                     "--logAfter", "0", "--platform", "cpu"]) == 0
+    sites = vcf_sites(lines)
+    head = str(tmp_path / "head.vcf")
+    with open(head, "w") as f:
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        f.writelines(lines[:300])
+    db = str(tmp_path / "cadd")
+    inp = {"head6": head, "cadd6": {"db": db, "head_lines": 300, "pred":
+           write_cadd_tables(db, sites, {"22": (sites[0][1], sites[-1][1])},
+                             seed=5)}}
+    steps = []
+    for plat in ("cuda", "cpu"):
+        d = str(tmp_path / f"store_{plat}")
+        shutil.copytree(base, d)
+        steps.append(cadd_steps(torch, plat, d, inp, config, 1, bool(steps)))
+    check_cadd_parity(steps[0], steps[1], "python-serial" if config == "python"
+                      else "default", inp["cadd6"], "cuda")

@@ -43,6 +43,7 @@ def test_imports_with_jax_blocked():
     assert {f"annotatedvdb_tpu_torch.{m}" for m in VEP_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in DEFAULT_VCF_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in UPDATE_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in CADD_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -63,6 +64,20 @@ UPDATE_SLICE = ("loaders.lookup", "loaders.update_loader", "loaders.qc_loader",
                 "loaders.lof_loader", "loaders.txt_loader", "cli.update_common",
                 "cli.update_qc", "cli.load_snpeff_lof",
                 "cli.update_variant_annotation")
+
+
+#: the CADD join (load-cadd) and the host-only store commands (undo,
+#: export-vcf, split-vcf)
+CADD_SLICE = ("ops.cadd_join", "io.bgzf", "io.cadd", "io.egress", "native.cadd",
+              "loaders.cadd_loader", "cli.load_cadd", "cli.undo_load",
+              "cli.export_variant2vcf", "cli.split_vcf_by_chr")
+
+
+def test_source_list_covers_the_cadd_slice():
+    """The per-file import check below walks every module of the slice."""
+    sources = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for m in CADD_SLICE:
+        assert m.replace(".", os.sep) + ".py" in sources, m
 
 
 def test_source_list_covers_the_update_slice():
