@@ -30,6 +30,14 @@ COMMANDS = {
                    "dump the store back to VCF (host only)"),
     "split-vcf": ("annotatedvdb_tpu_torch.cli.split_vcf_by_chr",
                   "demux a VCF per chromosome (host only)"),
+    "index-genome": ("annotatedvdb_tpu_torch.cli.index_genome",
+                     "build the packed reference-genome index from a FASTA "
+                     "(host only)"),
+    "install-schema": ("annotatedvdb_tpu_torch.cli.install_schema",
+                       "write the Postgres schema / export a store as COPY "
+                       "data (display recompute on the card by default)"),
+    "bin-references": ("annotatedvdb_tpu_torch.cli.generate_bin_index_references",
+                       "emit the BinIndexRef table as TSV (host only)"),
 }
 
 

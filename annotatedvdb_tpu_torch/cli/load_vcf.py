@@ -9,9 +9,10 @@ on ``cuda:0`` unless ``--platform cpu`` is passed.
 Usage:  python -m annotatedvdb_tpu_torch load-vcf --fileName x.vcf[.gz] \\
             --storeDir ./vdb [--commit] [--platform cpu] ...
 
-Flags of paths not ported yet (``--refGenome``, ``--profile``,
-``--metricsOut``, ``--traceOut``, a ``--maxWorkers`` count) raise
-"not yet ported".
+``--refGenome`` (an ``index-genome`` ``.npz``) validates every inserted
+row's ref allele on the card and makes digest PKs canonical.  Flags of
+paths not ported yet (``--profile``, ``--metricsOut``, ``--traceOut``, a
+``--maxWorkers`` count) raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--chromosomeMap", default=None,
                         help="TSV mapping seq accessions to chromosomes")
     parser.add_argument("--refGenome", default=None,
-                        help="not yet ported")
+                        help="packed genome .npz (index-genome); enables "
+                             "ref-allele validation + canonical GA4GH digests "
+                             "(the reference's --seqrepoProxyPath)")
     parser.add_argument("--skipExisting", action=argparse.BooleanOptionalAction,
                         default=True,
                         help="check the store for existing variants "
@@ -82,7 +85,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(parser, args) -> None:
-    for flag in ("refGenome", "profile", "metricsOut", "traceOut"):
+    for flag in ("profile", "metricsOut", "traceOut"):
         if getattr(args, flag) is not None:
             parser.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
     if args.maxWorkers not in ("auto", "off", "1"):
@@ -115,6 +118,11 @@ def main(argv=None):
         store = VariantStore(width=DEFAULT_ALLELE_WIDTH)
     ledger = AlgorithmLedger(os.path.join(args.storeDir, "ledger.jsonl"))
     chrom_map = read_chromosome_map(args.chromosomeMap) if args.chromosomeMap else None
+    genome = None
+    if args.refGenome:
+        from annotatedvdb_tpu_torch.genome import ReferenceGenome
+
+        genome = ReferenceGenome.load(args.refGenome)
 
     log, _logger, log_path = load_logger(
         args.fileName, "load-vcf", args.logFilePath
@@ -127,6 +135,7 @@ def main(argv=None):
         ledger,
         datasource=args.datasource,
         genome_build=args.genomeBuild,
+        genome=genome,
         batch_size=args.commitAfter,
         skip_existing=args.skipExisting,
         chromosome_map=chrom_map,

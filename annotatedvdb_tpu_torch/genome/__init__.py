@@ -1,0 +1,1 @@
+from annotatedvdb_tpu_torch.genome.refgenome import ReferenceGenome  # noqa: F401

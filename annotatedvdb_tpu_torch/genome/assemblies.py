@@ -1,16 +1,41 @@
 """Chromosome lengths of the supported genome builds.
 
-Host copy of what the insert load reads from
-``annotatedvdb_tpu/genome/assemblies.py`` (its ``data/*_chr_map.txt``
-assets): the per-chromosome lengths behind the loader's out-of-bounds
-counter.  Lengths are the standard public assembly values (GRCh38 primary
-assembly / GRCh37-hg19), indexed by chromosome code (1..22, X=23, Y=24,
-M=25).
+Host copy of what the port reads from
+``annotatedvdb_tpu/genome/assemblies.py``: the per-chromosome lengths
+behind the loader's out-of-bounds counter, and the shipped length-map
+files (``data/grch38_chr_map.txt``, ``data/hg19_chr_map.txt``, copies of
+the reference's, ``chrN<TAB>length``) that ``bin-references`` reads.
+Lengths are the standard public assembly values (GRCh38 primary assembly /
+GRCh37-hg19), indexed by chromosome code (1..22, X=23, Y=24, M=25).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
+
+#: build name (case-insensitive) -> shipped asset file
+BUILD_FILES = {
+    "grch38": "grch38_chr_map.txt",
+    "hg38": "grch38_chr_map.txt",
+    "grch37": "hg19_chr_map.txt",
+    "hg19": "hg19_chr_map.txt",
+}
+
+
+def build_map_path(build: str) -> str:
+    """Path of the shipped length-map file for a build name (raises for
+    unknown builds)."""
+    key = build.lower()
+    if key not in BUILD_FILES:
+        raise ValueError(
+            f"unknown genome build {build!r}: expected one of "
+            f"{sorted(set(BUILD_FILES))} or a chr-map file path"
+        )
+    return os.path.join(_DATA_DIR, BUILD_FILES[key])
 
 _GRCH38 = (
     248956422, 242193529, 198295559, 190214555, 181538259, 170805979,

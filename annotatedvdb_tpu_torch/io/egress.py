@@ -1,7 +1,7 @@
 """Egress: materialize device outputs into the reference's exact output shapes.
 
-Copy of the parts of ``annotatedvdb_tpu/io/egress.py`` the insert load
-and the VCF export call.  String work (metaseq ids, primary keys, ltree paths) happens only
+Copy of the parts of ``annotatedvdb_tpu/io/egress.py`` the insert load,
+the VCF export and the Postgres egress call.  String work (metaseq ids, primary keys, ltree paths) happens only
 here, after the device step — the reference builds these strings inside
 its per-variant hot loop (``vcf_variant_loader.py:318-341``).
 
@@ -16,12 +16,15 @@ from functools import reduce
 
 import numpy as np
 
+from annotatedvdb_tpu_torch import oracle
 from annotatedvdb_tpu_torch.ops.vrs import VrsDigestGenerator
 from annotatedvdb_tpu_torch.types import (
     AnnotatedBatch,
     VariantBatch,
+    VariantClass,
     chromosome_label,
 )
+from annotatedvdb_tpu_torch.utils.strings import truncate
 
 # chromosome code -> label lookup (index 0 unused; loaders filter code 0)
 _CHROM_LABELS = np.array(
@@ -248,3 +251,80 @@ def shard_strings(shard, lo: int = 0, hi: int | None = None):
 #: export window size: bounds transient per-row Python string residency
 #: while keeping the vectorized assembly amortized
 EGRESS_WINDOW = 1 << 16
+
+
+_LONG = 100
+_SHORT = 8
+
+
+def display_attributes(
+    batch: VariantBatch, ann: AnnotatedBatch, refs=None, alts=None
+) -> list:
+    """Per-row display-attribute dicts from device outputs.
+
+    Uses the device class code / normalized lengths / locations; string
+    assembly mirrors ``variant_annotator.py:134-241``.  Rows flagged
+    host_fallback are recomputed wholesale by the scalar oracle."""
+    if refs is None:
+        refs, alts = decode_alleles(batch)
+    cls = np.asarray(ann.variant_class)
+    host = np.asarray(ann.host_fallback)
+    prefix_len = np.asarray(ann.prefix_len)
+    loc_start = np.asarray(ann.location_start)
+    loc_end = np.asarray(ann.location_end)
+    is_dup = np.asarray(ann.is_dup_motif)
+
+    out = []
+    for i in range(batch.n):
+        ref, alt = refs[i], alts[i]
+        pos = int(batch.pos[i])
+        chrom = chromosome_label(batch.chrom[i])
+        if host[i]:
+            out.append(oracle.display_attributes(ref, alt, chrom, pos))
+            continue
+        p = int(prefix_len[i])
+        norm_ref, norm_alt = ref[p:], alt[p:]
+        d_ref, d_alt = norm_ref or "-", norm_alt or "-"
+        c = VariantClass(int(cls[i]))
+        attrs = {"location_start": int(loc_start[i]), "location_end": int(loc_end[i])}
+        if p > 0 or (norm_ref != ref or norm_alt != alt):
+            normalized = f"{chrom}:{pos}:{d_ref}:{d_alt}"
+            if normalized != f"{chrom}:{pos}:{ref}:{alt}":
+                attrs["normalized_metaseq_id"] = normalized
+        ins_prefix = "dup" if is_dup[i] else "ins"
+        if c == VariantClass.SNV:
+            attrs.update(display_allele=f"{ref}>{alt}", sequence_allele=f"{ref}/{alt}")
+        elif c == VariantClass.INVERSION:
+            attrs.update(
+                display_allele="inv" + ref,
+                sequence_allele=f"{truncate(ref, _SHORT)}/{truncate(alt, _SHORT)}",
+            )
+        elif c == VariantClass.MNV:
+            attrs.update(
+                display_allele=f"{d_ref}>{d_alt}",
+                sequence_allele=f"{truncate(d_ref, _SHORT)}/{truncate(d_alt, _SHORT)}",
+            )
+        elif c in (VariantClass.INS, VariantClass.DUP):
+            attrs.update(
+                display_allele=ins_prefix + truncate(norm_alt, _LONG),
+                sequence_allele=ins_prefix + truncate(norm_alt, _SHORT),
+            )
+        elif c == VariantClass.INDEL:
+            # deleted part: normalized ref when present, else ref minus anchor
+            deleted = norm_ref if norm_ref else ref[1:]
+            attrs.update(
+                display_allele="del"
+                + truncate(deleted, _LONG)
+                + ins_prefix
+                + truncate(norm_alt, _LONG),
+                sequence_allele=f"{truncate(d_ref, _SHORT)}/{truncate(d_alt, _SHORT)}",
+            )
+        else:  # DEL
+            attrs.update(
+                display_allele="del" + truncate(norm_ref, _LONG),
+                sequence_allele=f"{truncate(norm_ref, _SHORT)}/-",
+            )
+        attrs["variant_class"] = c.display_name
+        attrs["variant_class_abbrev"] = c.abbrev
+        out.append(attrs)
+    return out

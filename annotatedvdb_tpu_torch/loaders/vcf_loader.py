@@ -23,8 +23,11 @@ and ``AVDB_ASYNC_STORE=0`` commits on the process thread; every mode
 writes the same bytes.  The stores this loader writes are byte-identical
 to the reference's for the same VCF, batch size and engine
 (``tests/test_torch_pipeline_modes.py``, ``tests/test_torch_load_vcf.py``).
-Not ported yet: the packed transport and width-bucketed dispatch, the
-mesh path, reference-genome validation and display attributes.
+With a ``genome`` (``--refGenome``), the rows a chunk inserts are
+validated against it on the loader's device (one ``validate_ref`` launch
+per chunk that inserts rows on the card) and mismatches are counted, never
+dropped.  Not ported yet: the packed transport and width-bucketed
+dispatch, the mesh path and display attributes.
 """
 
 from __future__ import annotations
@@ -135,7 +138,13 @@ class VcfLoader:
         quarantine=None,
         max_errors: int = -1,
         device: str | torch.device | None = None,
+        genome=None,
     ):
+        """``genome``: an optional
+        :class:`~annotatedvdb_tpu_torch.genome.ReferenceGenome`; enables
+        ref-allele validation of every inserted row (the ``ref_mismatch``
+        counter) and, when no ``digester`` is given, canonical GA4GH
+        sequence digests for digest PKs."""
         from annotatedvdb_tpu_torch.genome.assemblies import (
             BUILD_LENGTHS,
             length_table,
@@ -150,7 +159,14 @@ class VcfLoader:
         self.datasource = datasource.lower() if datasource else None
         self.batch_size = batch_size
         self.skip_existing = skip_existing
+        if digester is None and genome is not None:
+            digester = VrsDigestGenerator(
+                genome_build,
+                sequence_digests=genome.lazy_digests(),
+                reference_bases=genome.reference_bases,
+            )
         self.digester = digester or VrsDigestGenerator(genome_build)
+        self.genome = genome
         self.chromosome_map = chromosome_map
         self.log = log
         # genome bounds sanity from the shipped length tables; builds
@@ -743,9 +759,11 @@ class VcfLoader:
                 | (sub.alt_len > self.store.width)
             )
             # allele strings only for the paths that read them (mapping
-            # sidecar / digest PKs / retained long alleles)
+            # sidecar / digest PKs / genome validation / retained long
+            # alleles)
             need_strings = (
                 mapping_fh is not None
+                or self.genome is not None
                 or bool(over.any())
                 or bool(np.asarray(sub_ann.needs_digest).any())
             )
@@ -768,6 +786,22 @@ class VcfLoader:
                     [rs_is_weird(r, n) for r, n in zip(strs, rs_sel)], bool
                 )
 
+        if self.genome is not None:
+            # validate only the rows being inserted (after dedup, replay
+            # and membership filters), so counts match 'variant' semantics
+            from annotatedvdb_tpu_torch.genome.refgenome import validate_ref_batch
+
+            ok = validate_ref_batch(self.genome, sub, refs, device=self.device)
+            n_bad = int((~ok).sum())
+            if n_bad:
+                self.counters["ref_mismatch"] = (
+                    self.counters.get("ref_mismatch", 0) + n_bad
+                )
+                bad = np.where(~ok)[0][:5]
+                self.log(
+                    f"{n_bad} ref-allele mismatches vs genome, e.g. "
+                    + ", ".join(chunk.variant_id[int(sel[j])] for j in bad)
+                )
         with self.timer.stage("egress", items=int(sel.size)):
             needs_digest = np.asarray(sub_ann.needs_digest)
             if mapping_fh is not None or needs_digest.any():

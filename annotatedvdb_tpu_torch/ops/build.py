@@ -22,7 +22,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 #: every kernel of the port, by library name -> source under ``csrc/``
-KERNELS = {"annotate_bin": "annotate_bin.cu", "cadd_join": "cadd_join.cu"}
+KERNELS = {"annotate_bin": "annotate_bin.cu", "cadd_join": "cadd_join.cu",
+           "validate_ref": "validate_ref.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -7,19 +7,70 @@ table (level increments halving 64 Mb -> 15.625 kb,
 ``(lower, upper]`` range contains the whole interval
 (``BinIndex/lib/python/bin_index.py:9-14``).
 
-Host copy of the closed-form half of ``annotatedvdb_tpu/oracle/binindex.py``:
-the scalar twin of ``ops/binindex.py`` (bins of host-fallback rows) and the
-ltree path assembly of the mapping sidecar.
+Host copy of ``annotatedvdb_tpu/oracle/binindex.py``: the recursive tree
+(``bin-references`` emits its rows), the scalar twin of ``ops/binindex.py``
+(bins of host-fallback rows) and the ltree path assembly of the mapping
+sidecar and the Postgres egress.
 """
 
 from __future__ import annotations
 
+from annotatedvdb_tpu_torch.utils.strings import xstr
 
 # Level bin sizes for levels 1..13 (level 0 is the whole chromosome).
 LEVEL_INCREMENTS = [64_000_000 >> k for k in range(13)]  # 64M, 32M, ..., 15625
 NUM_LEVELS = 14  # levels 0..13
 LEAF_SIZE = LEVEL_INCREMENTS[-1]  # 15625
 assert LEAF_SIZE == 15_625
+
+
+class BinTree:
+    """Recursive bin tree for one chromosome, mirroring ``generate_bins``
+    (``generate_bin_index_references.py:46-77``): level-0 bin spans the whole
+    chromosome; each level-k>=1 bin is an ``increments[k]``-sized slice,
+    labeled ``<parent>.L<k>.B<local>``; intervals are ``(lower, upper]``,
+    clamped at the sequence length."""
+
+    def __init__(self, chrom_label: str, seq_length: int):
+        self.chrom = chrom_label
+        self.seq_length = seq_length
+        # rows: (level, path, lower, upper) with (lower, upper] semantics
+        self.rows: list[tuple[int, str, int, int]] = []
+        self._generate(chrom_label, 0, seq_length, 0)
+
+    def _generate(self, bin_root: str, loc_start: int, loc_end: int, level: int) -> None:
+        if level >= NUM_LEVELS:
+            return
+        size = self.seq_length if level == 0 else LEVEL_INCREMENTS[level - 1]
+        lower = loc_start
+        upper = loc_start + size
+        current = 0
+        loc_end = min(loc_end, self.seq_length)
+        while lower < loc_end:
+            current += 1
+            label = bin_root if level == 0 else f"{bin_root}.B{current}"
+            upper = min(upper, self.seq_length, loc_end)
+            self.rows.append((level, label, lower, upper))
+            if level + 1 < NUM_LEVELS:
+                self._generate(f"{label}.L{level + 1}", lower, upper, level + 1)
+            lower = upper
+            upper = upper + size
+
+    def find_bin(self, start: int, end: int | None = None) -> tuple[int, str]:
+        """Deepest bin whose (lower, upper] contains [start, end];
+        returns (level, ltree path)."""
+        if end is None:
+            end = start
+        best = None
+        for level, path, lower, upper in self.rows:
+            if lower < start and end <= upper:
+                if best is None or level > best[0]:
+                    best = (level, path)
+        if best is None:
+            raise ValueError(
+                f"could not map {self.chrom}:{xstr(start)}-{xstr(end)} to a bin"
+            )
+        return best
 
 
 def closed_form_bin(start: int, end: int) -> tuple[int, int]:

@@ -222,3 +222,9 @@ class AlgorithmLedger:
             )
             return 0 if later_finished else e["line"]
         return 0
+
+    def invocations(self) -> list[dict]:
+        with self._lock:
+            return [
+                e for e in self._entries if e.get("type") == "invocation"
+            ]

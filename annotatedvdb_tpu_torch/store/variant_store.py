@@ -661,6 +661,13 @@ class ChromosomeShard:
     def alt(self) -> np.ndarray:
         return self._single().alt
 
+    @property
+    def annotations(self) -> dict:
+        """Every JSONB column of the compacted shard (all-None columns
+        as fresh arrays; the segment is not changed)."""
+        seg = self._single()
+        return {c: _dense(seg.obj[c], seg.n) for c in JSONB_COLUMNS}
+
     def compact(self) -> None:
         """Merge all segments into one (position-sorted global ids)."""
         if len(self.segments) > 1:

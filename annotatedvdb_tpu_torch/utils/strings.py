@@ -7,6 +7,30 @@ behavior."""
 
 from __future__ import annotations
 
+import json
+from typing import Any
+
+
+def xstr(value: Any, null_str: str = "", false_as_null: bool = False) -> str:
+    """Stringify with NULL conventions: None -> ``null_str``; dict/list ->
+    JSON; booleans honor ``false_as_null``.  Call-site behavior: metaseq id
+    assembly (``variant_annotator.py:126``)."""
+    if value is None:
+        return null_str
+    if isinstance(value, bool):
+        if not value and false_as_null:
+            return null_str
+        return str(value)
+    if isinstance(value, (dict, list)):
+        return json.dumps(value)
+    return str(value)
+
+
+def truncate(value: str, length: int) -> str:
+    """Hard truncation to ``length`` chars (display-allele truncation,
+    ``variant_annotator.py:8-10``)."""
+    return value[:length] if value is not None else value
+
 
 def to_numeric(value):
     """str -> int/float when it parses cleanly, else unchanged (INFO-field

@@ -4,9 +4,11 @@
 Drives ``annotatedvdb_tpu_torch``'s VCF insert load, VEP annotation
 update, the VCF/TSV-driven update legs (``update-qc``,
 ``load-snpeff-lof``, ``update-annotation``), the CADD score join
-(``load-cadd``) and the host-only store commands (``export-vcf``,
-``undo``) on ``cuda:0`` and checks them, phase by phase, each phase
-printing one JSON line:
+(``load-cadd``), reference-genome validation (``index-genome``,
+``load-vcf --refGenome``), the Postgres egress (``install-schema``) and
+the host-only commands (``export-vcf``, ``undo``, ``bin-references``) on
+``cuda:0`` and checks them, phase by phase, each phase printing one JSON
+line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
@@ -33,7 +35,13 @@ printing one JSON line:
               blocks at the SNV shape (8,192 variants, 262,144 rows, runs
               of 3, probe 4) and the indel shape (16,384 variants, runs of
               1-32, probe 32); its time at both shapes beside the plain
-              version's and the bound, and one score block's upload;
+              version's and the bound, and one score block's upload.
+              Then ``validate_ref`` against its plain version, exactly, on
+              the edge rows of ``validate_edge_rows`` at W = 16, 49 and 96
+              and on 1,048,576 random rows against a GRCh38-shaped genome
+              (1.16 GB on the card; its load and upload timed), 60-80% of
+              them passing; its time at 65,536 and 1,048,576 rows beside
+              the plain version's and the bound;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -73,7 +81,13 @@ printing one JSON line:
               ``--updateExisting``, ``export-vcf`` and ``undo`` of the QC
               update: stores and export files identical card against CPU
               after each, the predicted ``cadd_join`` launches, no plain
-              join on the card;
+              join on the card.  The loads run with ``--refGenome`` (the
+              GRCh38-shaped genome): card and CPU stores and ledgers
+              identical, one ``validate_ref`` and one ``annotate_bin``
+              launch per chunk, no plain version on the card; and after
+              the last step ``install-schema --storeDir`` of each store:
+              identical output trees, one ``annotate_bin`` launch per
+              65,536-row egress window;
 7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -98,12 +112,12 @@ printing one JSON line:
 8. updates  — on phase 7's store, through the CLIs' ``main`` with
               ``--commit`` in the default configuration, each with the
               counters reset just before and read just after: a seeded
-              ADSP-QC-shaped pVCF of 200,000 phase-4 lines (QUAL, FILTER
+              ADSP-QC-shaped pVCF of 150,000 phase-4 lines (QUAL, FILTER
               PASS on 85%, numeric INFO keys and a flag, a repeated key on
               1%, FORMAT and a sample; 10% new SNVs, 3% of those with two
-              alts) with ``--version r4``; a SnpEff VCF of 200,000 phase-4
+              alts) with ``--version r4``; a SnpEff VCF of 150,000 phase-4
               identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
-              of 100,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
+              of 75,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
               predicts, the predicted ``annotate_bin`` launches, no plain
               hash on the card, stage seconds, wall, lines/s and the
@@ -128,7 +142,23 @@ printing one JSON line:
               the card; the store reloads and 100 sampled rows carry the
               tables' text-parsed floats; wall, rows scanned/s, stage and
               store seconds, blocks, bytes uploaded and the device's idle
-              share (``torch.profiler``).
+              share (``torch.profiler``);
+10. refgenome — ``index-genome`` of a FASTA of the seeded chr22 (its
+              full 50,818,468 bases, N and lowercase runs) and a short
+              chr21 with IUPAC codes: lossy flags, chr22's arrays equal to
+              the generator's, sampled ``fetch`` windows equal to the text.
+              Then ``load-vcf --refGenome --commit`` of the first 500,000
+              phase-4 lines plus five at chr22's end into a fresh store,
+              every counter reset just before and read just after:
+              ``ref_mismatch`` and rows as the generator counts them by
+              string comparison, one ``validate_ref`` launch per chunk
+              that inserts rows, one ``annotate_bin`` per chunk, no plain
+              version on the card, digest PKs on chr22's ``SQ.`` id;
+              wall, lines/s, the genome's load and upload seconds, the
+              validation's seconds and the device's idle share.  Then
+              ``install-schema --storeDir`` of that store (COPY rows equal
+              to store rows, one launch per window; wall, rows/s) and
+              ``bin-references`` for GRCh38 (395,448 rows).
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -1008,6 +1038,282 @@ def write_cadd_tables(db_dir, sites, spans, seed, width=49, level=6,
     return pred
 
 
+# ------------------------------------------------------- genome writer
+
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+CHR22_LENGTH = 50_818_468          # GRCh38 chr22
+FASTA_WIDTH = 60
+IUPAC = np.frombuffer(b"RYKMSWBDHV", np.uint8)
+
+
+def pack_bases(text):
+    """``text`` (uint8 ASCII, ACGT or N) as the index's arrays: 2-bit codes
+    four a byte (base j at bit 2*(j%4), N as A) and the ambiguity bits
+    eight a byte (bit j%8)."""
+    codes = np.zeros(text.size + (-text.size) % 4, np.uint8)
+    for k, b in enumerate(b"ACGT"):
+        codes[: text.size][text == b] = k
+    q = codes.reshape(-1, 4)
+    packed = (q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) | (q[:, 3] << 6)).astype(np.uint8)
+    return packed, np.packbits(text == ord("N"), bitorder="little")
+
+
+def genome_tables(genome):
+    """The genome's [26] byte offsets, mask offsets and lengths (int64;
+    absent codes 0)."""
+    tables = np.zeros((3, 26), np.int64)
+    for code, n in genome.length.items():
+        tables[:, code] = (genome.byte_offset[code], genome.mask_offset[code], n)
+    return tables
+
+
+def genome_text(genome, chrom, pos, width):
+    """[N, width] uint8: the genome's bases (ACGT, N where masked) from
+    ``pos - 1`` on for each row, 0 outside the chromosome or where the
+    code is absent — decoded here from the index's arrays."""
+    byte_off, mask_off, lengths = genome_tables(genome)
+    code = np.asarray(chrom, np.int64)
+    j = (np.asarray(pos, np.int64) - 1)[:, None] + np.arange(width)
+    inside = (j >= 0) & (j < lengths[code][:, None])
+    jj = np.where(inside, j, 0)
+    if genome.packed.size == 0:
+        return np.zeros(j.shape, np.uint8)
+    b = genome.packed[byte_off[code][:, None] + (jj >> 2)]
+    base = ACGT[(b >> ((jj & 3) * 2).astype(np.uint8)) & 3]
+    m = (genome.n_mask[mask_off[code][:, None] + (jj >> 3)] >> (jj & 7).astype(np.uint8)) & 1
+    return np.where(inside, np.where(m == 1, np.uint8(ord("N")), base), 0).astype(np.uint8)
+
+
+def validate_edge_rows(genome, width):
+    """Seeded edge rows for ``validate_ref`` at ``width`` against
+    ``genome``: ref_len 0 (junk bytes, on a present and an absent code),
+    ref_len = W (matching, and wrong in its last base), ref_len > W, pos 0
+    and negative, spans ending at and crossing the chromosome's end and
+    starting past it, an absent code, lowercase, N and n on a masked base,
+    N on an unmasked one, other bytes (``*``, a backtick), junk bytes past
+    ref_len, pos 2147483647, and the first and last bases of every
+    chromosome.  Returns (chrom int8, pos int32, ref uint8 [N, W], ref_len
+    int32, want bool) — ``want`` is what the rows must give."""
+    codes = sorted(genome.length)
+    absent = next((c for c in range(1, 26) if c not in genome.length), 0)
+    _, mask_off, lengths = genome_tables(genome)
+
+    def mask_bytes(code):
+        lo = int(mask_off[code])
+        return genome.n_mask[lo: lo + (int(lengths[code]) + 7) // 8]
+
+    c0 = next((c for c in codes if mask_bytes(c).any()), codes[0])
+    bits = np.unpackbits(mask_bytes(c0), bitorder="little")[: int(lengths[c0])]
+    mpos = int(np.argmax(bits == 1)) + 1 if bits.any() else None
+    upos = int(np.argmax(bits == 0)) + 1
+    n0 = int(lengths[c0])
+
+    def text(code, pos, k):
+        return bytes(genome_text(genome, [code], [pos], k)[0])
+
+    junk = bytes((150 + 7 * i) % 256 for i in range(width))
+    w = width
+    full = text(c0, 1, w)
+    rows = [
+        (c0, 100, junk, 0, True),
+        (absent, 100, junk, 0, False),
+        (c0, 1, full, w, True),
+        (c0, 1, full[:-1] + (b"A" if full[-1:] != b"A" else b"C"), w, False),
+        (c0, 1, full, w + 5, False),
+        (c0, 0, b"A", 1, False),
+        (c0, 0, b"", 0, True),
+        (c0, -3, b"AC", 2, False),
+        (c0, n0, text(c0, n0, 1), 1, True),
+        (c0, n0, text(c0, n0, 1) + b"A", 2, False),
+        (c0, n0 - 2, text(c0, n0 - 2, 3), 3, True),
+        (c0, n0 + 1, b"A", 1, False),
+        (absent, 5, b"ACGT", 4, False),
+        (c0, 11, text(c0, 11, 5).lower(), 5, True),
+        (c0, upos, b"N", 1, text(c0, upos, 1) == b"N"),
+        (c0, 21, text(c0, 21, 4) + junk[: w - 4], 4, True),
+        (c0, 31, b"*", 1, False),
+        (c0, 31, b"`", 1, False),
+        (c0, 2**31 - 1, b"A", 1, False),
+    ]
+    if mpos is not None:
+        rows += [(c0, mpos, b"N", 1, True), (c0, mpos, b"n", 1, True),
+                 (c0, mpos, b"A", 1, False)]
+    for code in codes:
+        n = int(lengths[code])
+        k = min(w, n)
+        rows += [(code, 1, text(code, 1, k), k, True),
+                 (code, n - k + 1, text(code, n - k + 1, k).lower(), k, True)]
+    m = len(rows)
+    ref = np.zeros((m, w), np.uint8)
+    for i, (_c, _p, r, _l, _w) in enumerate(rows):
+        r = r[:w]
+        ref[i, : len(r)] = np.frombuffer(r, np.uint8)
+    return (np.array([r[0] for r in rows], np.int8),
+            np.array([r[1] for r in rows], np.int32), ref,
+            np.array([r[3] for r in rows], np.int32),
+            np.array([r[4] for r in rows], bool))
+
+
+def validate_random_rows(genome, n, width, seed):
+    """``n`` seeded rows for ``validate_ref`` at ``width`` against
+    ``genome``: refs copied from the genome (ref_len 1 on 60%, 2-6 on
+    25%, 7-W on 10%, W+1..W+10 on 3%, 0 on 2%, junk bytes past ref_len),
+    then 15% with one base changed, 5% partly lowercased (still
+    passing), 3% on an absent code (code 0 when the genome holds all 25),
+    4% moved to cross the chromosome's end or start before it, 2% with an
+    N planted on an unmasked base.  Returns (chrom int8, pos int32, ref
+    uint8 [n, W], ref_len int32)."""
+    rng = np.random.default_rng(seed)
+    _, _, lengths = genome_tables(genome)
+    codes = np.array(sorted(genome.length), np.int64)
+    chrom = codes[rng.integers(0, codes.size, n)]
+    length = lengths[chrom]
+    u = rng.random(n)
+    rl = np.where(u < 0.60, 1, np.where(
+        u < 0.85, rng.integers(2, 7, n), np.where(
+            u < 0.95, rng.integers(7, width + 1, n), np.where(
+                u < 0.98, rng.integers(width + 1, width + 11, n), 0))))
+    rl = np.minimum(rl, length).astype(np.int64)
+    pos = 1 + (rng.random(n) * np.maximum(length - rl, 1)).astype(np.int64)
+    ref = genome_text(genome, chrom, pos, width)
+    col = np.arange(width)[None, :]
+    junk = rng.integers(0, 256, (n, width), dtype=np.uint8)
+    ref = np.where(col < rl[:, None], ref, junk)
+    v = rng.random(n)
+    k = (rng.random(n) * np.clip(np.minimum(rl, width), 1, None)).astype(np.int64)
+    rows = np.arange(n)
+    have = (rl > 0) & (rl <= width)
+    flip = have & (v < 0.15)
+    old = ref[rows, k]
+    swapped = ACGT[(np.searchsorted(ACGT, old).clip(0, 3) + 1 + rng.integers(0, 3, n)) % 4]
+    ref[flip, k[flip]] = np.where(old[flip] == ord("N"), ord("A"), swapped[flip])
+    lower = have & (v >= 0.15) & (v < 0.20)
+    low = lower[:, None] & (col < rl[:, None]) & (rng.random((n, width)) < 0.5) \
+        & (ref >= 65) & (ref <= 90)
+    ref = np.where(low, ref + 32, ref).astype(np.uint8)
+    absent = next((c for c in range(1, 26) if c not in genome.length), 0)
+    chrom = np.where((v >= 0.20) & (v < 0.23), absent, chrom)
+    edge = (v >= 0.23) & (v < 0.27) & (rl > 1)
+    pos = np.where(edge & (rng.random(n) < 0.5), length - rl + 2,
+                   np.where(edge, -rng.integers(0, 3, n), pos))
+    plant = have & (v >= 0.27) & (v < 0.29) & (ref[rows, k] != ord("N"))
+    ref[plant, k[plant]] = ord("N")
+    return (chrom.astype(np.int8), pos.astype(np.int32), ref,
+            rl.astype(np.int32))
+
+
+def write_genome_inputs(work, lines, seed=22, mismatch_share=0.02,
+                        length=CHR22_LENGTH, grch38=True):
+    """The reference-genome inputs under ``work`` for the phase-4 VCF's
+    data ``lines``: chr22 at ``length`` bases (its full 50,818,468 by
+    default) from ``seed`` (an N run over its first 10 Mbp, or quarter,
+    and 300 short ones, about a third of it in lowercase runs), with the
+    bases at every site written from the site's ref and then one base
+    changed at ``mismatch_share`` of the sites; a FASTA of it in
+    60-character lines plus a 1,000-base chr21 record carrying IUPAC
+    codes; and, with ``grch38``, a GRCh38-shaped index (all 25
+    chromosomes at the port's length table, seeded random bases outside
+    chr22, no ambiguity elsewhere) written uncompressed.  Returns the
+    paths, chr22's text (uppercase ACGT/N) and its packed arrays, and the
+    seconds each part took."""
+    from annotatedvdb_tpu_torch.genome.assemblies import BUILD_LENGTHS
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    n = length
+    text = ACGT[rng.integers(0, 4, n, dtype=np.uint8)]
+    head = min(10_000_000, n // 4)
+    text[:head] = ord("N")
+    for s, k in zip(rng.integers(head, n - 6000, 300),
+                    rng.integers(100, 5000, 300)):
+        text[s: s + k] = ord("N")
+    lower = np.zeros(n, bool)
+    runs = max(1, 1700 * n // CHR22_LENGTH)
+    for s, k in zip(rng.integers(0, n - 20_000, runs), rng.integers(1000, 20_000, runs)):
+        lower[s: s + k] = True
+    sites = []
+    for ln in lines:
+        _c, pos, _v, ref = ln.split("\t", 4)[:4]
+        if pos.isdigit():
+            p = int(pos) - 1
+            text[p: p + len(ref)] = np.frombuffer(ref.encode(), np.uint8)
+            sites.append((p, len(ref)))
+    plant = rng.random(len(sites)) < mismatch_share
+    for (p, k), hit in zip(sites, plant.tolist()):
+        if hit:
+            j = p + int(rng.integers(0, k))
+            text[j] = ACGT[(int(np.searchsorted(ACGT, text[j])) + 1) % 4]
+    text_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fasta = os.path.join(work, "chr22.fa")
+    shown = np.where(lower, text | 0x20, text).astype(np.uint8)
+    full = n - n % FASTA_WIDTH
+    body = np.concatenate([shown[:full].reshape(-1, FASTA_WIDTH),
+                           np.full((full // FASTA_WIDTH, 1), 10, np.uint8)], 1)
+    chr21 = ACGT[rng.integers(0, 4, 1000, dtype=np.uint8)]
+    chr21[rng.integers(0, 1000, 20)] = IUPAC[rng.integers(0, IUPAC.size, 20)]
+    with open(fasta, "wb") as f:
+        f.write(b">chr22 seeded\n")
+        f.write(body.tobytes())
+        f.write(shown[full:].tobytes() + b"\n")
+        f.write(b">chr21 iupac\n" + chr21[:700].tobytes() + b"\n"
+                + chr21[700:].tobytes() + b"\n")
+    fasta_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    packed22, mask22 = pack_bases(text)
+    out = {"fasta": fasta, "text": text, "packed22": packed22, "mask22": mask22,
+           "chr21": chr21, "seconds": {"text": text_s, "fasta": fasta_s}}
+    if not grch38:
+        return out
+    packed, masks, meta = [], [], {"byte_offset": {}, "mask_offset": {},
+                                   "length": {}, "lossy": {}, "digests": {}}
+    byte_pos = mask_pos = 0
+    for code, length in enumerate(BUILD_LENGTHS["grch38"], start=1):
+        if code == 22:
+            p, m = packed22, mask22
+        else:
+            p = rng.integers(0, 256, (length + 3) // 4, dtype=np.uint8)
+            if length % 4:  # zero codes past the chromosome's end
+                p[-1] &= (1 << (2 * (length % 4))) - 1
+            m = np.zeros((length + 7) // 8, np.uint8)
+        for key, val in (("byte_offset", byte_pos), ("mask_offset", mask_pos),
+                         ("length", length), ("lossy", False)):
+            meta[key][str(code)] = val
+        packed.append(p)
+        masks.append(m)
+        byte_pos += p.size
+        mask_pos += m.size
+    index = os.path.join(work, "grch38.npz")
+    np.savez(index, packed=np.concatenate(packed), n_mask=np.concatenate(masks),
+             meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+    out["seconds"]["index"] = time.perf_counter() - t0
+    out.update(index=index, index_bytes=byte_pos + mask_pos)
+    return out
+
+
+def ref_mismatches(text, lines) -> tuple:
+    """(rows, mismatched rows) of the unique rows the VCF data ``lines``
+    insert into a fresh store ('.' alts and repeated lines dropped), by
+    string comparison of each row's ref with chr22's ``text``: a row
+    mismatches unless 1 <= pos and pos - 1 + len(ref) <= len(text) and the
+    text there equals the ref uppercased."""
+    rows = bad = 0
+    n = text.size
+    for ln in dict.fromkeys(lines):
+        _c, pos, _v, ref, alt_col = ln.split("\t", 5)[:5]
+        if not pos.isdigit():
+            continue
+        k = sum(a != "." for a in alt_col.split(","))
+        p = int(pos) - 1
+        ok = p >= 0 and p + len(ref) <= n and \
+            text[p: p + len(ref)].tobytes() == ref.upper().encode()
+        rows += k
+        bad += 0 if ok else k
+    return rows, bad
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -1345,6 +1651,136 @@ def cadd_kernel_phase(torch, device) -> dict:
     }
 
 
+#: the validation's shapes: the load's chunk, and 1,048,576 rows
+VALIDATE_SHAPES = {"chunk": CHUNK_ROWS, "big": BIG_ROWS}
+
+
+def validate_bound(genome, chrom, pos, ref, rl) -> dict:
+    """Bytes ``validate_ref`` must move for these rows — each row's chrom,
+    pos and ref_len read once and its byte written once; for a row whose
+    code is in the genome, with 0 < ref_len <= W and its span inside the
+    chromosome, the ref bytes up to its first mismatch (all ref_len when
+    it passes) and the distinct packed and mask bytes under them — and the
+    operations (eight integer operations a base compared, ten a row)."""
+    n, w = ref.shape
+    _, _, lengths = genome_tables(genome)
+    code = chrom.astype(np.int64)
+    length = lengths[code]
+    start = pos.astype(np.int64) - 1
+    rl64 = rl.astype(np.int64)
+    walk = (length > 0) & (rl64 > 0) & (rl64 <= w) & (start >= 0) \
+        & (start + rl64 <= length)
+    text = genome_text(genome, chrom, pos, w)
+    up = np.where((ref >= 97) & (ref <= 122), ref - 32, ref)
+    col = np.arange(w)[None, :]
+    bad = (up != text) & (col < rl64[:, None])
+    first = np.where(bad.any(1), bad.argmax(1) + 1, rl64)
+    bases = np.where(walk, first, 0)
+    last = start + bases - 1
+    packed = np.where(bases > 0, (last >> 2) - (start >> 2) + 1, 0)
+    mask = np.where(bases > 0, (last >> 3) - (start >> 3) + 1, 0)
+    nbytes = int(n * 10 + bases.sum() + packed.sum() + mask.sum())
+    ops = int(n * 10 + 8 * bases.sum())
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": n, "bases": int(bases.sum()), "bytes": nbytes, "ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def validate_kernel_phase(torch, device, index) -> dict:
+    """Phase 3 for ``validate_ref``: the GRCh38-shaped index loaded and
+    uploaded once (both timed), then the kernel against its plain version
+    on the card, exactly (``torch.equal``), on the edge rows of
+    :func:`validate_edge_rows` at W = 16, 49 and 96 (also equal to what
+    they must give) and on 1,048,576 random rows at W = 49 (60-80% of them
+    passing); its time at 65,536 and 1,048,576 rows beside the plain
+    version's and the bound.  Returns the kernel table row (launches
+    filled in after phase 10)."""
+    from annotatedvdb_tpu_torch.genome import ReferenceGenome
+    from annotatedvdb_tpu_torch.genome.refgenome import (
+        validate_ref,
+        validate_ref_reference,
+    )
+
+    t0 = time.perf_counter()
+    genome = ReferenceGenome.load(index)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = genome.device_arrays(device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    upload_bytes = sum(t.numel() * t.element_size() for t in tables)
+
+    def to_dev(rows):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in rows[:4]]
+
+    checks, worst = [], 0
+    cases = [(f"edge-w{w}", validate_edge_rows(genome, w)) for w in (16, WIDTH, 96)]
+    cases.append(("random-1m-w49", validate_random_rows(genome, BIG_ROWS, WIDTH, seed=31)))
+    for label, rows in cases:
+        t = to_dev(rows)
+        got = validate_ref(*tables, *t)
+        want = validate_ref_reference(*tables, *t)
+        torch.cuda.synchronize()
+        err = int((got != want).sum())
+        worst = max(worst, err)
+        rec = {"inputs": label, "rows": int(t[0].shape[0]), "passing": int(want.sum()),
+               "equal": bool(torch.equal(got, want)), "max_abs_err": err}
+        if len(rows) > 4:
+            rec["as_listed"] = bool(np.array_equal(got.cpu().numpy(), rows[4]))
+        checks.append(rec)
+        if not rec["equal"] or not rec.get("as_listed", True):
+            raise AssertionError(f"validate_ref disagrees with its plain version "
+                                 f"or its listed results on {label}")
+    share = checks[-1]["passing"] / BIG_ROWS
+    if not 0.6 <= share <= 0.8:
+        raise AssertionError(f"validate_ref: {share:.3f} of the random rows pass")
+
+    timing = {}
+    for shape, n in VALIDATE_SHAPES.items():
+        host = [validate_random_rows(genome, n, WIDTH, seed=40 + i)
+                for i in range(4 if shape == "chunk" else 2)]
+        inputs = [(*tables, *to_dev(h)) for h in host]
+        runs = {}
+        iters = 200 if shape == "chunk" else 20
+        for name, fn, k in (("plain", validate_ref_reference, iters // 10),
+                            ("kernel", validate_ref, iters),
+                            ("kernel", validate_ref, iters),
+                            ("plain", validate_ref_reference, iters // 10)):
+            runs.setdefault(name, []).append({
+                "device_ms": device_ms(torch, fn, inputs, k),
+                "call_ms": call_ms(torch, fn, inputs, k)})
+
+        def best(rs):
+            dev = [r["device_ms"] for r in rs if r["device_ms"] is not None]
+            return min(dev) if dev else min(r["call_ms"] for r in rs)
+
+        bound = validate_bound(genome, *host[0][:4])
+        ms = best(runs["kernel"])
+        timing[shape] = {**bound, "ms": ms, "plain_ms": best(runs["plain"]),
+                         "call_ms": min(r["call_ms"] for r in runs["kernel"]),
+                         "bound_share": bound["bound_ms"] / ms, "timing_runs": runs}
+        del inputs
+    emit("validate_kernels", checks=checks, timing=timing, genome_load_s=load_s,
+         genome_upload_s=upload_s, genome_upload_bytes=upload_bytes)
+    del tables, genome
+    torch.cuda.empty_cache()
+    chunk, big = timing["chunk"], timing["big"]
+    return {
+        "name": "validate_ref", "route": "cuda",
+        "source": "annotatedvdb_tpu_torch/csrc/validate_ref.cu",
+        "replaces": "annotatedvdb_tpu/genome/refgenome.py:261",
+        "launches": None, "max_abs_err": worst,
+        "ms": chunk["ms"], "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
+        "bound_by": chunk["bound_by"], "library_ms": None,
+        "big_ms": big["ms"], "big_plain_ms": big["plain_ms"],
+        "big_bound_ms": big["bound_ms"], "genome_upload_ms": upload_s * 1e3,
+    }
+
+
 @contextlib.contextmanager
 def captured_loaders(cls, method="load_file"):
     """Every ``cls`` loader whose ``method`` runs inside, in call order
@@ -1487,7 +1923,7 @@ def vcf_sites(lines) -> list:
 
 
 def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
-                 head6=10_000) -> dict:
+                 head6=10_000, n10=500_000, genome=(CHR22_LENGTH, True)) -> dict:
     """The seeded inputs of phases 3-8 under ``WORK``: the phase-4 VCF of
     ``n4`` lines, the phase-5 reload VCF of ``n5``, the first ``n6`` lines
     of phase 4 with a VEP file for their first half, the three update
@@ -1495,8 +1931,11 @@ def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
     ``head6`` lines (phase 6), ``n7`` VEP results over phase 4's variants
     (phase 7) and ``n7b`` over its first tenth (phase 7b), and the update
     inputs over phase 4's lines, ``n8`` = (QC lines, SnpEff lines, TSV
-    rows) (phase 8), with what each load must count.  Phase 9's tables
-    come from :func:`write_cadd9_inputs`."""
+    rows) (phase 8), with what each load must count; the genome inputs of
+    :func:`write_genome_inputs` at ``genome`` = (chr22's length, whether
+    to write the GRCh38-shaped index) over phase 4's lines, and phase
+    10's VCF: its first ``n10`` lines plus planted lines at chr22's end.
+    Phase 9's tables come from :func:`write_cadd9_inputs`."""
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     inp = {name: os.path.join(WORK, f) for name, f in (
@@ -1555,8 +1994,40 @@ def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
     inp["cadd6_seconds"] = time.perf_counter() - t0
     inp["dup4"] = int(rows4[dup_lines].sum())
     inp["ins4"] = int(rows4.sum())
-    inp.update(n4=n4, n5=n5, n6=n6, n7=n7, n8=n8, n7b=n7b)
+    # the reference genome over phase 4's sites, and phase 10's VCF
+    t0 = time.perf_counter()
+    inp["genome"] = write_genome_inputs(WORK, lines4, length=genome[0],
+                                        grch38=genome[1])
+    inp["vcf10"], inp["want10"] = write_phase10_vcf(
+        os.path.join(WORK, "chr22.refgenome.vcf"), inp["vcf4"], n10,
+        inp["genome"]["text"])
+    inp["genome_seconds"] = time.perf_counter() - t0
+    inp.update(n4=n4, n5=n5, n6=n6, n7=n7, n8=n8, n7b=n7b, n10=n10)
     return inp
+
+
+def write_phase10_vcf(path, vcf4, n_lines, text) -> tuple:
+    """Phase 10's VCF: the first ``n_lines`` lines of the phase-4 file
+    (its repeated lines and malformed line included) plus lines at the end
+    of chr22's ``text``: the last three bases, a deletion across the end,
+    a base past it, and a matching and a mismatching over-width ref
+    ending at the last base.  Returns the path and (rows inserted into a
+    fresh store, rows whose ref mismatches the genome) by
+    :func:`ref_mismatches`."""
+    n = text.size
+    tail = text[n - 60:].tobytes().decode()
+    wrong = ("C" if tail[0] != "C" else "G") + tail[1:]
+    planted = [f"22\t{n - 59}\t.\t{tail}\t{tail[0]}\t.\t.\t.\n",
+               f"22\t{n - 59}\t.\t{wrong}\tT\t.\t.\t.\n",
+               f"22\t{n - 2}\t.\t{tail[-3:]}\t{tail[-3]}\t.\t.\t.\n",
+               f"22\t{n - 1}\t.\t{tail[-2:]}A\t{tail[-2]}\t.\t.\t.\n",
+               f"22\t{n + 1}\t.\tA\tC\t.\t.\t.\n"]
+    with open(vcf4) as src, open(path, "w") as dst:
+        dst.write(HEADER)
+        data = (ln for ln in src if not ln.startswith("#"))
+        lines = [ln for _, ln in zip(range(n_lines), data)]
+        dst.writelines(lines + planted)
+    return path, ref_mismatches(text, lines + planted)
 
 
 def write_cadd9_inputs(work, vcfs, span=(16_000_001, 22_000_000)) -> dict:
@@ -1643,6 +2114,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
     from annotatedvdb_tpu_torch.conseq.ranker import DEFAULT_RANKING_FILE
+    from annotatedvdb_tpu_torch.genome import refgenome
     from annotatedvdb_tpu_torch.loaders import VcfLoader, VepLoader
     from annotatedvdb_tpu_torch.native import vcf as native_vcf
     from annotatedvdb_tpu_torch.runtime import resolve_device
@@ -1784,17 +2256,38 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                                            "AVDB_NATIVE_VEP": "0",
                                            "AVDB_NATIVE_CADD": "0"}),
                         ("default", {})):
-        out, cadd = {}, {}
+        out, cadd, schema, loads6 = {}, {}, {}, {}
         for plat in (platform, "cpu"):
             d = os.path.join(WORK, f"store.{config}.{len(out)}.{plat}")
             ranks = os.path.join(WORK, f"ranks.{config}.{len(out)}.{plat}")
             os.makedirs(ranks)
             shutil.copy(DEFAULT_RANKING_FILE, os.path.join(ranks, "ranks.txt"))
             t0 = time.perf_counter()
+            before = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+                      refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
             with environment(**env):
                 rc = load_vcf(["--fileName", vcf6, "--storeDir", d, "--commit",
-                               "--logAfter", "0", "--platform", plat])
+                               "--logAfter", "0", "--platform", plat,
+                               "--refGenome", inp["genome"]["index"]])
             assert rc == 0, f"phase 6 ({config}) load on {plat} exited {rc}"
+            after = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+                     refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
+            load6 = {"files": store_bytes(d), "chunks": len(ledger_records(d, "checkpoint")),
+                     "inserting_chunks": inserting_chunks(d, 1),
+                     "annotate_launches": after[0] - before[0],
+                     "validate_launches": after[1] - before[1],
+                     "plain_cuda": {"validate_ref": after[2] - before[2],
+                                    "allele_hash": after[3] - before[3]},
+                     "ref_mismatch": ledger_records(d, "finish")[-1]["counters"].get(
+                         "ref_mismatch", 0)}
+            if plat == "cuda":
+                assert (load6["annotate_launches"], load6["validate_launches"]) == (
+                    load6["chunks"], load6["inserting_chunks"]), (
+                    f"phase 6 ({config}) --refGenome load: {load6['annotate_launches']} "
+                    f"annotate_bin / {load6['validate_launches']} validate_ref launches "
+                    f"for {load6['chunks']} chunks, {load6['inserting_chunks']} inserting")
+                assert not any(load6["plain_cuda"].values()), (
+                    f"phase 6 ({config}): plain versions on the card: {load6['plain_cuda']}")
             with open(vcf6 + ".mapping", "rb") as f:
                 mapping = f.read()
             with captured_loaders(VepLoader) as vep_loaders, environment(**env):
@@ -1840,6 +2333,10 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             with environment(**env):
                 cadd[len(cadd)] = cadd_steps(torch, plat, d, inp, config,
                                              updates["qc"]["alg_id"], bool(out))
+            # then the Postgres egress of the store
+            schema[len(schema)] = run_install_schema(
+                torch, plat, d, os.path.join(WORK, f"pg.{config}.{plat}"))
+            loads6[len(loads6)] = load6
             out[len(out)] = (vep_bytes, mapping, saved,
                              time.perf_counter() - t0, stats6, updates)
         ((files_dev, map_dev, ranks_dev, s_dev, stats_dev, upd_dev),
@@ -1852,6 +2349,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         emit("parity_updates", config=config, updates=upd_dev,
              predicted={k: v["want"] for k, v in inp["updates6"].items()})
         check_cadd_parity(cadd[0], cadd[1], config, inp["cadd6"], platform)
+        check_refgenome_parity(loads6, schema, config, platform)
         for name, rec in upd_dev.items():
             assert not rec["differ"], (
                 f"phase 6 ({config}): device and CPU stores differ after "
@@ -2004,6 +2502,78 @@ def run_host_command(argv) -> tuple:
         rc = cli(argv)
     assert rc == 0, f"{argv[0]} exited {rc}"
     return time.perf_counter() - t0, out.getvalue().splitlines()
+
+
+def inserting_chunks(store_dir, alg_id) -> int:
+    """Checkpointed chunks of run ``alg_id`` whose ``variant`` count grew:
+    the chunks that inserted rows (one ``validate_ref`` launch each on the
+    card with a genome)."""
+    after = [r["counters"] for r in ledger_records(store_dir, "checkpoint")
+             if r["alg_id"] == alg_id]
+    return sum(b.get("variant", 0) > a.get("variant", 0)
+               for a, b in zip([{}] + after, after))
+
+
+def run_install_schema(torch, platform, store_dir, out_dir) -> dict:
+    """``install-schema --storeDir`` of ``store_dir`` into ``out_dir``
+    through the umbrella CLI: wall, printed lines, the output tree, the
+    store's rows per shard, the ``annotate_bin`` launches it made and the
+    plain-hash calls on the card."""
+    from annotatedvdb_tpu_torch.ops import annotate_cuda, hashing
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    rows = {code: sh.n for code, sh in VariantStore.load(store_dir).shards.items()}
+    launches = annotate_cuda.LAUNCHES["annotate_bin"]
+    plain = hashing.CALLS.get("cuda", 0)
+    wall, printed = run_host_command(["install-schema", "--outputDir", out_dir,
+                                      "--storeDir", store_dir, "--platform", platform])
+    if platform == "cuda":
+        torch.cuda.synchronize()
+    return {"s": wall, "printed": [ln.replace(out_dir, "<out>") for ln in printed],
+            "tree": tree_bytes(out_dir),
+            "rows": rows, "launches": annotate_cuda.LAUNCHES["annotate_bin"] - launches,
+            "plain_cuda": hashing.CALLS.get("cuda", 0) - plain}
+
+
+def egress_windows(rows) -> int:
+    """``annotate_bin`` launches of an egress whose rows all lack stored
+    display attributes: one per 65,536-row window of each shard."""
+    return sum(-(-n // CHUNK_ROWS) for n in rows.values())
+
+
+def check_refgenome_parity(loads, schema, config, platform) -> None:
+    """Phase 6's ``--refGenome`` load and ``install-schema``, card against
+    CPU: the stores (ledger records included) identical after the load,
+    the output trees identical; on the card ``annotate_bin`` launched once
+    per egress window and no plain hash.  Emits ``parity_refgenome``;
+    raises AssertionError on any failed check."""
+    dev, cpu = loads[0], loads[1]
+    a, b = dev.pop("files"), cpu.pop("files")
+    load_differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    ta, tb = schema[0].pop("tree"), schema[1].pop("tree")
+    tree_differ = sorted(k for k in set(ta) | set(tb) if ta.get(k) != tb.get(k))
+    want = egress_windows(schema[0]["rows"])
+    emit("parity_refgenome", config=config, load=dev, load_cpu=cpu,
+         load_differ=load_differ, schema_files=len(ta), schema_differ=tree_differ,
+         schema_s=schema[0]["s"], schema_cpu_s=schema[1]["s"],
+         schema_launches=schema[0]["launches"], predicted_schema_launches=want,
+         printed=schema[0]["printed"][-1:])
+    assert not load_differ, (
+        f"phase 6 ({config}): card and CPU --refGenome stores differ in {load_differ}")
+    assert not tree_differ and ta, (
+        f"phase 6 ({config}): card and CPU install-schema trees differ in {tree_differ}")
+    assert schema[0]["printed"] == schema[1]["printed"], (
+        f"phase 6 ({config}): install-schema printed {schema[0]['printed']} "
+        f"on the card, {schema[1]['printed']} on the CPU")
+    assert dev["ref_mismatch"] == cpu["ref_mismatch"] > 0, (
+        f"phase 6 ({config}): ref_mismatch {dev['ref_mismatch']} on the card, "
+        f"{cpu['ref_mismatch']} on the CPU")
+    if platform == "cuda":
+        assert schema[0]["launches"] == want, (
+            f"phase 6 ({config}): install-schema launched annotate_bin "
+            f"{schema[0]['launches']} times, predicted {want}")
+        assert schema[0]["plain_cuda"] == 0, (
+            f"phase 6 ({config}): install-schema called the plain hash on the card")
 
 
 def tree_bytes(root) -> dict:
@@ -2532,6 +3102,171 @@ def cadd_phase(torch, platform, store_dir, spec) -> dict:
     return {"launches": launched}
 
 
+def refgenome_phase(torch, platform, inp) -> dict:
+    """Phase 10 on ``platform``: ``index-genome`` of the chr22/chr21 FASTA
+    (lossy flags, chr22's arrays equal to the generator's, sampled
+    ``fetch`` windows equal to the FASTA text uppercased with non-ACGT as
+    N); then ``load-vcf --refGenome --commit`` of phase 10's VCF into a
+    fresh store against the GRCh38-shaped index, every launch and plain
+    counter set to 0 just before and read just after (``ref_mismatch``
+    and the inserted rows as the generator counts them, one
+    ``validate_ref`` launch per chunk that inserts rows, one
+    ``annotate_bin`` launch per chunk, no plain version of either on the
+    card, chr22's digest-PK rows built on its canonical ``SQ.`` sequence
+    id); then ``install-schema --storeDir`` of that store (COPY rows equal
+    to store rows, one ``annotate_bin`` launch per 65,536-row window);
+    then ``bin-references`` for GRCh38.  Raises AssertionError on any
+    failed check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.genome import ReferenceGenome, refgenome
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.ops import annotate_cuda, hashing
+    from annotatedvdb_tpu_torch.ops.vrs import VrsDigestGenerator, sha512t24u
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from annotatedvdb_tpu_torch.store.variant_store import _DIGEST_PK
+    from annotatedvdb_tpu_torch.types import chromosome_label
+
+    g = inp["genome"]
+    text = g["text"]
+    # index-genome of the FASTA
+    index = os.path.join(WORK, "chr22.index.npz")
+    index_s, printed = run_host_command(["index-genome", "--fasta", g["fasta"],
+                                         "--output", index])
+    built = ReferenceGenome.load(index)
+    lo22, m22 = built.byte_offset[22], built.mask_offset[22]
+    same_arrays = (
+        np.array_equal(built.packed[lo22: lo22 + g["packed22"].size], g["packed22"])
+        and np.array_equal(built.n_mask[m22: m22 + g["mask22"].size], g["mask22"]))
+    rng = np.random.default_rng(10)
+    chr21 = np.where(np.isin(g["chr21"], ACGT), g["chr21"], ord("N")).astype(np.uint8)
+    windows = [(22, int(a), int(a) + int(k), text)
+               for a, k in zip(rng.integers(0, text.size - 200, 200),
+                               rng.integers(1, 200, 200))]
+    windows += [(21, 0, 1000, chr21), (22, text.size - 50, text.size + 10, text)]
+    bad_windows = [(c, a, b) for c, a, b, t in windows
+                   if built.fetch(c, a, b) != t[a:b].tobytes().decode()]
+    emit("index_genome", wall_s=index_s, printed=printed[-1:], lossy=built.lossy,
+         length=built.length, arrays_equal=same_arrays, windows=len(windows),
+         windows_differ=bad_windows[:5])
+    assert built.lossy == {21: True, 22: False}, f"index-genome lossy {built.lossy}"
+    assert built.length == {21: 1000, 22: text.size}, f"index-genome {built.length}"
+    assert same_arrays, "index-genome's chr22 arrays differ from the generator's"
+    assert not bad_windows, f"fetch windows differ: {bad_windows[:3]}"
+    del built
+
+    # the load, on the GRCh38-shaped index
+    store_dir = os.path.join(WORK, "store.refgenome")
+    rows_want, bad_want = inp["want10"]
+    counts = (annotate_cuda.LAUNCHES, refgenome.LAUNCHES, refgenome.CALLS, hashing.CALLS)
+    for c in counts:
+        for key in c:
+            c[key] = 0
+    traced = platform == "cuda"
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof, \
+            captured_loaders(VcfLoader) as loaders, \
+            timed_calls(ReferenceGenome, "load", []) as load_s, \
+            timed_calls(ReferenceGenome, "device_arrays", []) as upload_s, \
+            timed_calls(refgenome, "validate_ref_batch", []) as validate_s:
+        rc = load_vcf(["--fileName", inp["vcf10"], "--storeDir", store_dir,
+                       "--commit", "--logAfter", "0", "--platform", platform,
+                       "--refGenome", g.get("index", index)])
+        if platform == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"phase 10 load exited {rc}"
+    annotated, validated = annotate_cuda.LAUNCHES["annotate_bin"], refgenome.LAUNCHES["validate_ref"]
+    plain = {"validate_ref": refgenome.CALLS.get("cuda", 0),
+             "allele_hash": hashing.CALLS.get("cuda", 0)}
+    busy = None
+    if traced:
+        busy = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e6 or None
+    counters = ledger_records(store_dir, "finish")[-1]["counters"]
+    chunks = len(ledger_records(store_dir, "checkpoint"))
+    inserting = inserting_chunks(store_dir, 1)
+    loader = loaders[0]
+    # chr22's digest-PK rows: built on the genome's own sequence digest
+    digest = sha512t24u(text.tobytes())
+    gen = VrsDigestGenerator(sequence_digests={"22": digest},
+                             reference_bases=lambda c, a, b: text[max(a, 0): b].tobytes().decode())
+    store = VariantStore.load(store_dir)
+    shard = store.shards[22]
+    dpk = shard.object_column(_DIGEST_PK)
+    positions = shard.column("pos")
+    digest_rows = [int(i) for i in np.flatnonzero(dpk != None)]  # noqa: E711
+    wrong_pk = []
+    for i in digest_rows:
+        ref, alt = shard.alleles(i)
+        pos = int(positions[i])
+        try:
+            d = gen.compute_identifier("22", pos, ref, alt)
+        except ValueError:
+            try:
+                d = gen.compute_identifier("22", pos, alt, ref)
+            except ValueError:
+                d = gen.compute_identifier("22", pos, ref, alt, validate=False)
+        if dpk[i].split(":")[2] != d:
+            wrong_pk.append((pos, dpk[i]))
+    stages = dict(loader.timer.seconds)
+    emit("refgenome", lines=counters["line"], variants=counters["variant"],
+         ref_mismatch=counters.get("ref_mismatch", 0), predicted_rows=rows_want,
+         predicted_ref_mismatch=bad_want, out_of_bounds=counters.get("out_of_bounds"),
+         chunks=chunks, inserting_chunks=inserting, validate_launches=validated,
+         annotate_launches=annotated, plain_cuda=plain, wall_s=wall,
+         lines_per_s=counters["line"] / wall, genome_load_s=sum(load_s),
+         genome_upload_s=sum(upload_s), validate_calls=len(validate_s),
+         validate_s=sum(validate_s), validate_s_less_upload=sum(validate_s) - sum(upload_s),
+         stage_seconds=stages, loader_wall_s=loader.timer.wall_seconds,
+         sequence_id=loader.digester.sequence_id("22"), digest_rows=len(digest_rows),
+         digest_rows_wrong=wrong_pk[:3], profiler_device_busy_s=busy,
+         profiler_device_idle_fraction=None if busy is None else 1 - busy / wall)
+    assert (counters["variant"], counters.get("ref_mismatch", 0)) == (rows_want, bad_want), (
+        f"phase 10: {counters['variant']} rows / {counters.get('ref_mismatch', 0)} "
+        f"mismatches, predicted {rows_want} / {bad_want}")
+    assert loader.digester.sequence_id("22") == "SQ." + digest, (
+        f"phase 10: chr22's sequence id {loader.digester.sequence_id('22')}")
+    assert digest_rows and not wrong_pk, f"phase 10: digest PKs differ: {wrong_pk[:3]}"
+    if platform == "cuda":
+        assert (validated, annotated) == (inserting, chunks), (
+            f"phase 10: {validated} validate_ref / {annotated} annotate_bin launches "
+            f"for {inserting} inserting chunks / {chunks} chunks")
+        assert not any(plain.values()), f"phase 10: plain versions on the card: {plain}"
+
+    # install-schema of that store
+    annotate_cuda.LAUNCHES["annotate_bin"] = 0
+    pg = run_install_schema(torch, platform, store_dir, os.path.join(WORK, "pg.refgenome"))
+    copy_rows = {k: v.count(b"\n") for k, v in pg.pop("tree").items()
+                 if k.startswith("data/variant_")}
+    want_rows = {f"data/variant_chr{chromosome_label(c)}.copy": n
+                 for c, n in pg["rows"].items()}
+    n_rows = sum(pg["rows"].values())
+    emit("install_schema", wall_s=pg["s"], rows=n_rows, rows_per_s=n_rows / pg["s"],
+         copy_rows=copy_rows, launches=pg["launches"],
+         predicted_launches=egress_windows(pg["rows"]), plain_cuda=pg["plain_cuda"],
+         printed=pg["printed"][-1:])
+    assert copy_rows == want_rows, f"install-schema: {copy_rows}, store {want_rows}"
+    if platform == "cuda":
+        assert pg["launches"] == egress_windows(pg["rows"]), (
+            f"install-schema: {pg['launches']} annotate_bin launches, predicted "
+            f"{egress_windows(pg['rows'])}")
+        assert pg["plain_cuda"] == 0, "install-schema called the plain hash on the card"
+
+    # bin-references for GRCh38
+    tsv = os.path.join(WORK, "bin_index_ref.tsv")
+    bins_s, printed = run_host_command(["bin-references", "-o", tsv])
+    with open(tsv) as f:
+        lines = f.read().splitlines()
+    emit("bin_references", wall_s=bins_s, rows=len(lines), first=lines[0],
+         last=lines[-1], printed=printed[-1:])
+    assert len(lines) == 395_448 and printed[-1] == (
+        "generated 395448 bins for 25 chromosomes"), printed
+    return {"launches": validated, "annotate_launches": annotated}
+
+
 def vep_kernel_timing(torch, device, rows) -> dict:
     """``annotate_bin`` at the VEP load's identity-batch shape: ten
     load-like input sets (``io/synth.py``, 85% SNVs) of ``rows`` rows at
@@ -2639,12 +3374,16 @@ def main() -> int:
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         try:
-            inputs = write_inputs(2_000_000, 500_000, 50_000, 200_000)
-            emit("inputs", **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
+            inputs = write_inputs(2_000_000, 500_000, 50_000, 200_000,
+                                  n8=(150_000, 150_000, 75_000))
+            emit("inputs", genome=inputs["genome"]["seconds"],
+                 genome_index_bytes=inputs["genome"]["index_bytes"],
+                 **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
             # 3. kernels against their plain versions, and the kernel's hash
             # against the tokenizer's on the phase-4 VCF
             table = kernel_phase(torch, device)
             table.append(cadd_kernel_phase(torch, device))
+            table.append(validate_kernel_phase(torch, device, inputs["genome"]["index"]))
             native_hash_check(torch, device, inputs["vcf4"])
             # 4-6. the load (counters reset inside, just before it), the
             # probed reload and the card-vs-CPU parity.  Phase 9's tables
@@ -2687,6 +3426,9 @@ def main() -> int:
             # 9. the CADD join of the store of phases 4 and 5 (counters reset
             # inside, just before it)
             cadd = cadd_phase(torch, "cuda", results["store_cadd"], inputs["cadd9"])
+            # 10. the reference genome: index-genome, load-vcf --refGenome,
+            # install-schema and bin-references (counters reset inside)
+            ref10 = refgenome_phase(torch, "cuda", inputs)
         except AssertionError as err:
             return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
@@ -2699,6 +3441,7 @@ def main() -> int:
                     vep_batch_rows=vep_kernel["rows"], vep_batch_ms=vep_kernel["ms"],
                     vep_batch_bound_ms=vep_kernel["bound_ms"])
     table[1].update(launches=cadd["launches"])
+    table[2].update(launches=ref10["launches"])
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

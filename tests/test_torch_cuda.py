@@ -25,8 +25,14 @@ kernel (``csrc/cadd_join.cu``) is held against its plain version exactly
 on edge and random blocks and unaligned bases, and ``load-cadd`` (whole
 store, ``--buildIndex``, indexed ``--fileName``), ``export-vcf`` and
 ``undo`` on the card must leave the CPU's stores and export files, with the
-predicted ``cadd_join`` launches and no plain join on the card.
-``chip_smoke.py`` runs the same comparisons at the loads' real sizes."""
+predicted ``cadd_join`` launches and no plain join on the card.  The
+reference-genome kernel (``csrc/validate_ref.cu``) is held against its
+plain version exactly on edge and random rows and unaligned bases, and
+``load-vcf --refGenome`` and ``install-schema --storeDir`` on the card
+must write the CPU's stores and output trees with the predicted
+``validate_ref`` and ``annotate_bin`` launches and no plain version on the
+card.  ``chip_smoke.py`` runs the same comparisons at the loads' real
+sizes."""
 
 import os
 import sys
@@ -63,6 +69,8 @@ from chip_smoke import (  # noqa: E402
     write_vep_json,
     vcf_sites,
     write_cadd_tables,
+    validate_edge_rows,
+    validate_random_rows,
 )
 
 pytestmark = pytest.mark.cuda
@@ -477,3 +485,153 @@ def test_cadd_steps_on_card_match_cpu(cuda, tmp_path, monkeypatch, config):
         steps.append(cadd_steps(torch, plat, d, inp, config, 1, bool(steps)))
     check_cadd_parity(steps[0], steps[1], "python-serial" if config == "python"
                       else "default", inp["cadd6"], "cuda")
+
+
+# ------------------------------------------------------ reference genome
+
+
+@pytest.fixture(scope="module")
+def genome_inputs(tmp_path_factory):
+    """A 20,000-line phase-4 VCF, chr22 written over its sites by
+    ``chip_smoke.write_genome_inputs`` (up to just past the last site, N
+    and lowercase runs, 2% of sites with a changed base; chr21 with IUPAC
+    codes) and its index from ``index-genome``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from annotatedvdb_tpu_torch.__main__ import main as cli
+    from annotatedvdb_tpu_torch.genome import ReferenceGenome
+
+    tmp = tmp_path_factory.mktemp("genome")
+    vcf = str(tmp / "v.vcf")
+    lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
+    last = max(int(ln.split("\t", 2)[1]) for ln in lines)
+    g = chip_smoke.write_genome_inputs(str(tmp), lines, length=last + 1000,
+                                       grch38=False)
+    index = str(tmp / "g.npz")
+    assert cli(["index-genome", "--fasta", g["fasta"], "--output", index]) == 0
+    with open(vcf) as f:
+        data = [ln for ln in f if not ln.startswith("#")]
+    return {"vcf": vcf, "index": index, "genome": ReferenceGenome.load(index),
+            "want": chip_smoke.ref_mismatches(g["text"], data), "tmp": tmp}
+
+
+@pytest.mark.parametrize("width", [16, 49, 96])
+def test_validate_ref_matches_plain_version(cuda, genome_inputs, width):
+    from annotatedvdb_tpu_torch.genome import refgenome
+
+    genome = genome_inputs["genome"]
+    tables = genome.device_arrays(cuda)
+    edge = validate_edge_rows(genome, width)
+    for rows in (edge, validate_random_rows(genome, 100_000, width, seed=width)):
+        args = [torch.from_numpy(x).to(cuda) for x in rows[:4]]
+        before = refgenome.LAUNCHES["validate_ref"]
+        got = refgenome.validate_ref(*tables, *args)
+        want = refgenome.validate_ref_reference(*tables, *args)
+        torch.cuda.synchronize()
+        assert refgenome.LAUNCHES["validate_ref"] == before + 1
+        assert got.dtype == torch.bool and torch.equal(got, want)
+    np.testing.assert_array_equal(
+        refgenome.validate_ref(*tables, *(torch.from_numpy(x).to(cuda)
+                                          for x in edge[:4])).cpu().numpy(), edge[4])
+
+
+@pytest.mark.parametrize("offsets", [(1, 3, 7, 1), (5, 1, 2, 3)])
+def test_validate_ref_unaligned_bases(cuda, genome_inputs, offsets):
+    from annotatedvdb_tpu_torch.genome import refgenome
+
+    genome = genome_inputs["genome"]
+    tables = genome.device_arrays(cuda)
+    rows = validate_random_rows(genome, 4099, 49, seed=7)
+    args = [_offset_copy(x, cuda, off) for x, off in zip(rows[:4], offsets)]
+    got = refgenome.validate_ref(*tables, *args)
+    want = refgenome.validate_ref_reference(*tables, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_validate_ref_refuses_bad_inputs(cuda, genome_inputs):
+    from annotatedvdb_tpu_torch.genome import refgenome
+
+    tables = genome_inputs["genome"].device_arrays(cuda)
+    chrom, pos, ref, rl = (torch.from_numpy(x).to(cuda) for x in
+                           validate_random_rows(genome_inputs["genome"], 100, 16, 1))
+    before = refgenome.LAUNCHES["validate_ref"]
+    with pytest.raises(TypeError):
+        refgenome.validate_ref(*tables, chrom, pos.to(torch.int64), ref, rl)
+    with pytest.raises(ValueError, match="is on"):
+        refgenome.validate_ref(*tables, chrom, pos.cpu(), ref, rl)
+    with pytest.raises(ValueError, match="contiguous"):
+        refgenome.validate_ref(*tables, chrom, pos, ref[:, ::2], rl)
+    with pytest.raises(ValueError, match="26 entries"):
+        refgenome.validate_ref(*tables[:4], tables[4][:25].contiguous(), chrom,
+                               pos, ref, rl)
+    with pytest.raises(ValueError, match="disagree"):
+        refgenome.validate_ref(*tables, chrom[:50], pos, ref, rl)
+    assert refgenome.LAUNCHES["validate_ref"] == before
+
+
+def _ref_genome_load(genome_inputs, d, plat):
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+
+    assert load_vcf(["--fileName", genome_inputs["vcf"], "--storeDir", d,
+                     "--commit", "--commitAfter", "4096", "--logAfter", "0",
+                     "--platform", plat, "--refGenome", genome_inputs["index"]]) == 0
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+def test_ref_genome_load_on_card_matches_cpu(cuda, genome_inputs, tmp_path,
+                                             monkeypatch, engine):
+    """``load-vcf --refGenome`` on the card and on the CPU: the same store
+    bytes and ledger records, ``ref_mismatch`` as the generator counts it;
+    on the card one ``validate_ref`` launch per chunk that inserts rows,
+    one ``annotate_bin`` launch per chunk, no plain version of either."""
+    from annotatedvdb_tpu_torch.genome import refgenome
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.native import vcf as native_vcf
+    from chip_smoke import inserting_chunks, ledger_records
+
+    if engine == "python":
+        monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
+    else:
+        monkeypatch.delenv("AVDB_INGEST_ENGINE", raising=False)
+    monkeypatch.setattr(native_vcf, "READ_SIZE", 64 << 10)
+    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    out = {}
+    for plat in ("cuda", "cpu"):
+        d = str(tmp_path / f"store_{plat}")
+        before = (LAUNCHES["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+                  refgenome.CALLS["cuda"], hashing.CALLS["cuda"])
+        _ref_genome_load(genome_inputs, d, plat)
+        counters = ledger_records(d, "finish")[-1]["counters"]
+        assert (counters["variant"], counters["ref_mismatch"]) == genome_inputs["want"]
+        if plat == "cuda":
+            chunks = len(ledger_records(d, "checkpoint"))
+            assert LAUNCHES["annotate_bin"] - before[0] == chunks > 20_000 // 4096
+            assert refgenome.LAUNCHES["validate_ref"] - before[1] == \
+                inserting_chunks(d, 1) == chunks
+            assert (refgenome.CALLS["cuda"], hashing.CALLS["cuda"]) == before[2:]
+        out[plat] = store_bytes(d)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_install_schema_on_card_matches_cpu(cuda, genome_inputs, tmp_path, monkeypatch):
+    """``install-schema --storeDir`` of one store on the card and on the
+    CPU, with 4,096-row egress windows: identical output trees; on the
+    card one ``annotate_bin`` launch per window, no plain hash."""
+    from annotatedvdb_tpu_torch.io import egress
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from chip_smoke import run_install_schema, tree_bytes
+
+    monkeypatch.setattr(egress, "EGRESS_WINDOW", 4096)
+    annotate_hash_fn(cuda)
+    d = str(tmp_path / "store")
+    _ref_genome_load(genome_inputs, d, "cpu")
+    runs = {plat: run_install_schema(torch, plat, d, str(tmp_path / f"pg_{plat}"))
+            for plat in ("cuda", "cpu")}
+    assert runs["cuda"]["tree"] == runs["cpu"]["tree"] == tree_bytes(str(tmp_path / "pg_cpu"))
+    assert runs["cuda"]["printed"] == [ln.replace("pg_cpu", "pg_cuda")
+                                       for ln in runs["cpu"]["printed"]]
+    want = sum(-(-n // 4096) for n in runs["cuda"]["rows"].values())
+    assert runs["cuda"]["launches"] == want > 4
+    assert runs["cuda"]["plain_cuda"] == 0

@@ -282,7 +282,7 @@ def test_cli_writes_reference_store(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--refGenome", "g.npz"], ["--profile", "prof"], ["--metricsOut", "m.prom"],
+    ["--profile", "prof"], ["--metricsOut", "m.prom"],
     ["--traceOut", "t.json"], ["--maxWorkers", "4"],
 ], ids=lambda f: f[0])
 def test_cli_refuses_unported_flags(tmp_path, flags):

@@ -44,6 +44,7 @@ def test_imports_with_jax_blocked():
     assert {f"annotatedvdb_tpu_torch.{m}" for m in DEFAULT_VCF_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in UPDATE_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in CADD_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in REFGENOME_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -71,6 +72,44 @@ UPDATE_SLICE = ("loaders.lookup", "loaders.update_loader", "loaders.qc_loader",
 CADD_SLICE = ("ops.cadd_join", "io.bgzf", "io.cadd", "io.egress", "native.cadd",
               "loaders.cadd_loader", "cli.load_cadd", "cli.undo_load",
               "cli.export_variant2vcf", "cli.split_vcf_by_chr")
+
+
+#: reference-genome validation (index-genome, load-vcf --refGenome), the
+#: Postgres egress (install-schema) and bin-references
+REFGENOME_SLICE = ("genome.refgenome", "genome.assemblies", "cli.index_genome",
+                   "oracle.annotator", "oracle.binindex", "io.egress",
+                   "utils.strings", "utils.retry", "sql.schema", "io.pg_egress",
+                   "cli.install_schema", "cli.generate_bin_index_references")
+
+#: every command of the umbrella CLI
+COMMANDS = ("load-vcf", "load-vep", "update-qc", "load-snpeff-lof",
+            "update-annotation", "load-cadd", "undo", "export-vcf", "split-vcf",
+            "index-genome", "install-schema", "bin-references")
+
+
+@pytest.mark.parametrize("module", REFGENOME_SLICE)
+def test_refgenome_slice_imports_without_jax(module):
+    """Each module of the slice imports with JAX blocked and pulls in
+    nothing of the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module('annotatedvdb_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'annotatedvdb_tpu' or m.startswith('annotatedvdb_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_help_lists_the_twelve_commands():
+    proc = subprocess.run([sys.executable, "-m", "annotatedvdb_tpu_torch", "--help"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    listed = [ln.split()[0] for ln in proc.stdout.splitlines()[1:] if ln.strip()]
+    assert listed == list(COMMANDS)
 
 
 def test_source_list_covers_the_cadd_slice():
