@@ -7,16 +7,16 @@
 // outside [0, 26) counting as absent), ref_len <= W, and every one of its
 // first ref_len bytes, uppercased (bytes 97-122 only), equals the genome
 // base at pos - 1 + k — or is 'N' where the ambiguity mask is set — with
-// 0 <= pos - 1 + k < lengths[chrom].  Bytes past ref_len are never read,
-// so a row with ref_len <= 0 passes on any chromosome of the genome, and
-// pos - 1 < 0 fails a row only through a column inside the allele.
-// Output: one byte a row (torch.bool).
+// 0 <= pos - 1 + k < lengths[chrom].  Bytes past ref_len are never
+// compared, so a row with ref_len <= 0 passes on any chromosome of the
+// genome, and pos - 1 < 0 fails a row only through a column inside the
+// allele.  Output: one byte a row (torch.bool).
 //
 // Layout: packed holds 4 bases a byte (base j at bit 2*(j%4)), n_mask 1
 // bit a base (bit j%8); byte_off/mask_off give each chromosome's first
 // byte.  Offsets fit int32 for GRCh38 (~775M packed bytes plus a
-// chromosome's 62M), so the byte index is computed in 64 bits only to
-// keep pos near INT32_MAX from wrapping.
+// chromosome's 62M); positions are widened to 64 bits so that pos near
+// INT32_MAX cannot wrap.
 //
 // Bound: memory.  A row reads chrom, pos, ref_len (9 bytes) and its
 // ref_len ref bytes, about ref_len/4 + 1 packed bytes and ref_len/8 + 1
@@ -26,25 +26,138 @@
 // the row and an early exit at the first mismatch, which is why this is
 // CUDA C++ and not a fused elementwise Triton pass.
 //
-// Design: one thread per row, 256 threads a block.  Rows at nearby
-// positions (a position-sorted chunk) read neighbouring genome bytes, so
-// the gathers of a warp mostly land in a few sectors and stay in L2.  The
-// ref rows are W bytes and W (49 by default) is not a multiple of 4, so
-// they are not word-aligned and the compare loads bytes.  A simple,
-// correct kernel first; the chunk shape (65,536 rows) fills the card's
-// 132 SMs with 256 blocks.
+// What held the first design back (one thread per row, every load a
+// byte): each row was a chain of dependent loads — chrom, then the
+// chromosome's length and offsets, then for every base a mask byte and
+// then a packed byte, each issued after the previous compare, up to 98
+// loads in a chain for a 49-base ref — and a warp's ref loads touched 32
+// rows W bytes apart.
+//
+// Design: one thread per row, 256 rows a block.
+// - The three 26-entry chromosome tables sit in shared memory, loaded
+//   once a block.
+// - The block's ref bytes are staged into a shared tile, 64 columns a
+//   pass: when W <= 64 (W = 49 on the load) the block's rows are one
+//   contiguous range, copied with aligned 16-byte loads (byte loads only
+//   for the two partial vectors at its ends) issued four to a thread
+//   before any is stored; wider rows copy column slices byte by byte.
+//   Tile rows are 68 bytes apart, so a warp's 4-byte reads of its rows
+//   hit 32 banks.
+// - The genome is read as aligned 8-byte words: a span of up to 64 bases
+//   covers at most 3 packed words and 2 mask words, all issued before the
+//   tile is staged, so a row waits on one round of loads instead of a
+//   chain.  Funnel shifts line the bases up in registers, and the compare
+//   stops at the first mismatch.  A word that reaches past either end of
+//   the genome arrays (the last chromosome stored, or a view that starts
+//   unaligned) is read byte by byte inside them, so nothing past the
+//   allocations is touched whatever tensors are passed.
+// - Rows that cannot reach the genome (ref_len <= 0 or > W, an absent
+//   code, a span outside the chromosome) load nothing from it, and a
+//   block whose rows all end skips the rest of its passes.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kRows = 256;          // rows (threads) a block
+constexpr int kCols = 64;           // ref columns staged a pass
+constexpr int kStride = kCols + 4;  // tile row pitch: 17 words, odd
+constexpr int kVecs = 4;            // 16-byte loads a thread has in flight
 constexpr int kCodes = 26;
+constexpr uint32_t kAcgt = 0x54474341u;  // "ACGT", code c at byte c
 
-__global__ void __launch_bounds__(kThreads)
-validate_ref_kernel(const uint8_t* __restrict__ packed,
-                    const uint8_t* __restrict__ n_mask,
+// The 8-byte word at the 8-aligned address `a`, its bytes outside [lo, hi)
+// read as 0 (and not read).
+__device__ __forceinline__ uint64_t word_at(uintptr_t a, uintptr_t lo,
+                                            uintptr_t hi) {
+  if (a >= lo && a + 8 <= hi) {
+    return __ldg(reinterpret_cast<const unsigned long long*>(a));
+  }
+  uint64_t v = 0;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    if (a + b >= lo && a + b < hi) {
+      v |= static_cast<uint64_t>(__ldg(reinterpret_cast<const uint8_t*>(a + b)))
+           << (8 * b);
+    }
+  }
+  return v;
+}
+
+// Bits [s, s + 64) of the 128-bit value hi:lo, 0 <= s < 64.
+__device__ __forceinline__ uint64_t funnel(uint64_t lo, uint64_t hi, int s) {
+  return s == 0 ? lo : (lo >> s) | (hi << (64 - s));
+}
+
+// Stages the contiguous bytes [src, src + nbytes) — `rows` rows of W <=
+// kCols bytes — into the tile, row r at tile + r * kStride.
+__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ src,
+                                           int nbytes, int w,
+                                           uint8_t* __restrict__ tile) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t hi = lo + nbytes;
+  const uintptr_t first = lo & ~uintptr_t{15};
+  const int vecs = static_cast<int>((hi - first + 15) >> 4);
+  for (int q0 = 0; q0 < vecs; q0 += kVecs * kRows) {
+    uint32_t part[kVecs][4];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int q = q0 + u * kRows + static_cast<int>(threadIdx.x);
+      const uintptr_t a = first + 16 * static_cast<uintptr_t>(q);
+      if (q < vecs && a >= lo && a + 16 <= hi) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(a));
+        part[u][0] = x.x;
+        part[u][1] = x.y;
+        part[u][2] = x.z;
+        part[u][3] = x.w;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) part[u][b] = 0;
+        if (q < vecs) {
+#pragma unroll
+          for (int b = 0; b < 16; ++b) {
+            if (a + b >= lo && a + b < hi) {
+              part[u][b >> 2] |=
+                  static_cast<uint32_t>(
+                      __ldg(reinterpret_cast<const uint8_t*>(a + b)))
+                  << (8 * (b & 3));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int q = q0 + u * kRows + static_cast<int>(threadIdx.x);
+      if (q >= vecs) break;
+      // byte b of this vector is byte off + b of the range
+      const int off = static_cast<int>(
+          static_cast<long long>(first + 16 * static_cast<uintptr_t>(q)) -
+          static_cast<long long>(lo));
+      const int o0 = off < 0 ? 0 : off;
+      int row = o0 / w;
+      int col = o0 - row * w;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const int o = off + b;
+        if (o >= 0 && o < nbytes) {
+          tile[row * kStride + col] =
+              static_cast<uint8_t>(part[u][b >> 2] >> (8 * (b & 3)));
+          if (++col == w) {
+            col = 0;
+            ++row;
+          }
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRows)
+validate_ref_kernel(const uint8_t* __restrict__ packed, long long packed_size,
+                    const uint8_t* __restrict__ n_mask, long long mask_size,
                     const int32_t* __restrict__ byte_off,
                     const int32_t* __restrict__ mask_off,
                     const int32_t* __restrict__ lengths,
@@ -53,57 +166,126 @@ validate_ref_kernel(const uint8_t* __restrict__ packed,
                     const uint8_t* __restrict__ ref,
                     const int32_t* __restrict__ ref_len, int n, int w,
                     uint8_t* __restrict__ ok) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int c = __ldg(chrom + i);
-  const int64_t length = (c >= 0 && c < kCodes) ? __ldg(lengths + c) : 0;
-  const int rl = __ldg(ref_len + i);
-  bool pass = length > 0 && rl <= w;
-  if (pass && rl > 0) {
-    const int64_t start = static_cast<int64_t>(__ldg(pos + i)) - 1;
-    if (start < 0 || start + rl > length) {
-      pass = false;  // a column inside the allele falls outside the chromosome
+  __shared__ int32_t s_len[kCodes], s_boff[kCodes], s_moff[kCodes];
+  __shared__ __align__(16) uint8_t tile[kRows * kStride];
+  const int t = threadIdx.x;
+  if (t < kCodes) {
+    s_len[t] = __ldg(lengths + t);
+    s_boff[t] = __ldg(byte_off + t);
+    s_moff[t] = __ldg(mask_off + t);
+  }
+  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kRows), n - r0));
+  const long long i = r0 + t;
+  const bool live = t < rows;
+  int c = -1;
+  int rl = 0;
+  long long start = 0;
+  if (live) {
+    c = __ldg(chrom + i);
+    rl = __ldg(ref_len + i);
+    start = static_cast<long long>(__ldg(pos + i)) - 1;
+  }
+  __syncthreads();  // the tables
+  const long long length = (c >= 0 && c < kCodes) ? s_len[c] : 0;
+  bool pass = live && length > 0 && rl <= w;
+  bool walk = pass && rl > 0;
+  if (walk && (start < 0 || start + rl > length)) {
+    pass = false;  // a column inside the allele falls outside the chromosome
+    walk = false;
+  }
+  const uintptr_t pk_lo = reinterpret_cast<uintptr_t>(packed);
+  const uintptr_t pk_hi = pk_lo + static_cast<uintptr_t>(packed_size);
+  const uintptr_t mk_lo = reinterpret_cast<uintptr_t>(n_mask);
+  const uintptr_t mk_hi = mk_lo + static_cast<uintptr_t>(mask_size);
+  const long long boff = walk ? s_boff[c] : 0;
+  const long long moff = walk ? s_moff[c] : 0;
+  const uint32_t* mine = reinterpret_cast<const uint32_t*>(tile + t * kStride);
+
+  for (int c0 = 0; c0 < w; c0 += kCols) {
+    const bool need = walk && rl > c0;
+    if (!__syncthreads_or(need)) break;
+    // this row's genome words under bases [c0, c0 + nb), in flight while
+    // the tile is staged
+    uint64_t pw0 = 0, pw1 = 0, pw2 = 0, mw0 = 0, mw1 = 0;
+    int psh = 0, msh = 0, nb = 0;
+    if (need) {
+      nb = min(rl - c0, kCols);
+      const long long j0 = start + c0;
+      const long long j1 = j0 + nb - 1;
+      const uintptr_t pa = pk_lo + static_cast<uintptr_t>(boff + (j0 >> 2));
+      const uintptr_t pz = pk_lo + static_cast<uintptr_t>(boff + (j1 >> 2));
+      const uintptr_t pw = pa & ~uintptr_t{7};
+      psh = static_cast<int>(pa - pw) * 8 + static_cast<int>(j0 & 3) * 2;
+      pw0 = word_at(pw, pk_lo, pk_hi);
+      if (pz >= pw + 8) pw1 = word_at(pw + 8, pk_lo, pk_hi);
+      if (pz >= pw + 16) pw2 = word_at(pw + 16, pk_lo, pk_hi);
+      const uintptr_t ma = mk_lo + static_cast<uintptr_t>(moff + (j0 >> 3));
+      const uintptr_t mz = mk_lo + static_cast<uintptr_t>(moff + (j1 >> 3));
+      const uintptr_t mw = ma & ~uintptr_t{7};
+      msh = static_cast<int>(ma - mw) * 8 + static_cast<int>(j0 & 7);
+      mw0 = word_at(mw, mk_lo, mk_hi);
+      if (mz >= mw + 8) mw1 = word_at(mw + 8, mk_lo, mk_hi);
+    }
+    const int cols = min(kCols, w - c0);
+    if (cols == w) {
+      stage_rows(ref + r0 * w, rows * w, w, tile);
     } else {
-      const uint8_t* bases = packed + __ldg(byte_off + c);
-      const uint8_t* mask = n_mask + __ldg(mask_off + c);
-      const uint8_t* r = ref + static_cast<size_t>(i) * w;
-      for (int k = 0; k < rl; ++k) {
-        const int64_t j = start + k;
-        unsigned u = __ldg(r + k);
-        if (u >= 97u && u <= 122u) u -= 32u;
-        const bool ambiguous = (__ldg(mask + (j >> 3)) >> (j & 7)) & 1u;
-        unsigned want;
-        if (ambiguous) {
-          want = 'N';
-        } else {
-          const unsigned code = (__ldg(bases + (j >> 2)) >> ((j & 3) * 2)) & 3u;
-          want = code == 0u ? 'A' : code == 1u ? 'C' : code == 2u ? 'G' : 'T';
-        }
+#pragma unroll 4
+      for (int q = t; q < rows * cols; q += kRows) {
+        const int row = q / cols;
+        const int col = q - row * cols;
+        tile[row * kStride + col] =
+            __ldg(ref + (r0 + row) * static_cast<long long>(w) + c0 + col);
+      }
+    }
+    __syncthreads();
+    if (need) {
+      // base k's 2-bit code: bits 2k of codes[k / 32]; its mask bit: bit k
+      const uint64_t codes_lo = funnel(pw0, pw1, psh);
+      const uint64_t codes_hi = funnel(pw1, pw2, psh);
+      const uint64_t amb = funnel(mw0, mw1, msh);
+      uint32_t word = 0;
+      for (int k = 0; k < nb; ++k) {
+        if ((k & 3) == 0) word = mine[k >> 2];
+        unsigned u = (word >> (8 * (k & 3))) & 0xffu;
+        if (u - 97u <= 25u) u -= 32u;
+        const uint64_t codes = k < 32 ? codes_lo : codes_hi;
+        const unsigned code = static_cast<unsigned>(codes >> (2 * (k & 31))) & 3u;
+        const unsigned want =
+            ((amb >> k) & 1u) ? 78u : (kAcgt >> (8 * code)) & 0xffu;
         if (u != want) {
           pass = false;
+          walk = false;
           break;
         }
       }
     }
+    __syncthreads();  // the next pass restages the tile
   }
-  ok[i] = pass ? 1 : 0;
+  if (live) ok[i] = pass ? 1 : 0;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = ok).  `ok` is one byte
-// a row (torch.bool).
-extern "C" int validate_ref_launch(const void* packed, const void* n_mask,
+// Launches on `stream`; returns a cudaError_t (0 = ok).  `packed_size` and
+// `mask_size` are the two genome arrays' lengths in bytes; `ok` is one
+// byte a row (torch.bool).
+extern "C" int validate_ref_launch(const void* packed, long long packed_size,
+                                   const void* n_mask, long long mask_size,
                                    const void* byte_off, const void* mask_off,
                                    const void* lengths, const void* chrom,
                                    const void* pos, const void* ref,
                                    const void* ref_len, int n, int w, void* ok,
                                    void* stream) {
-  if (n < 0 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || w < 1 || packed_size < 0 || mask_size < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
-  const int grid = (n + kThreads - 1) / kThreads;
-  validate_ref_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const uint8_t*>(n_mask),
+  const int grid = (n + kRows - 1) / kRows;
+  validate_ref_kernel<<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), packed_size,
+      static_cast<const uint8_t*>(n_mask), mask_size,
       static_cast<const int32_t*>(byte_off),
       static_cast<const int32_t*>(mask_off),
       static_cast<const int32_t*>(lengths), static_cast<const int8_t*>(chrom),

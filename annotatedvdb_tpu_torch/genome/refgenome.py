@@ -310,8 +310,8 @@ def _library() -> ctypes.CDLL:
 
         lib = load("validate_ref")
         lib.validate_ref_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 2
+            [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
         )
         lib.validate_ref_launch.restype = ctypes.c_int
         _lib = lib
@@ -415,9 +415,9 @@ def validate_ref(packed, n_mask, byte_off, mask_off, lengths, chrom, pos,
     if n == 0:
         return ok
     rc = _library().validate_ref_launch(
-        packed.data_ptr(), n_mask.data_ptr(), byte_off.data_ptr(),
-        mask_off.data_ptr(), lengths.data_ptr(), chrom.data_ptr(),
-        pos.data_ptr(), ref.data_ptr(), ref_len.data_ptr(), n, w,
+        packed.data_ptr(), packed.numel(), n_mask.data_ptr(), n_mask.numel(),
+        byte_off.data_ptr(), mask_off.data_ptr(), lengths.data_ptr(),
+        chrom.data_ptr(), pos.data_ptr(), ref.data_ptr(), ref_len.data_ptr(), n, w,
         ok.data_ptr(), torch.cuda.current_stream(ref.device).cuda_stream,
     )
     if rc != 0:

@@ -13,9 +13,10 @@ stay on the host and are gathered there by index, so the text-parsed
 float64 values never round-trip through the device.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-``csrc/cadd_join.cu`` once (one thread per variant: a binary search, then
-the probe loop with an early exit at the first hit); on a CPU tensor it
-computes :func:`cadd_join_reference`.  There is no fallback between the
+``csrc/cadd_join.cu`` once (one warp per variant: a 32-ary search by
+ballots, the run at the variant's position from one coalesced load, then
+warp-wide allele compares with an early exit at the first hit); on a CPU
+tensor it computes :func:`cadd_join_reference`.  There is no fallback between the
 two: a CUDA input launches or raises.
 """
 

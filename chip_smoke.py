@@ -28,20 +28,25 @@ line:
               rows beside the plain version's and the memory bound; then
               the plain allele hash alone on the card, the work the fused
               kernel took over.  Then ``cadd_join`` against its plain
-              version, exactly, on seeded edge blocks at W = 16, 49 and 96
-              (a match at the window's last probe, two matching rows,
-              swapped alleles, probes past the last row, a variant at
-              2147483647 against sentinel rows, N = 0, K = 1) and on random
-              blocks at the SNV shape (8,192 variants, 262,144 rows, runs
-              of 3, probe 4) and the indel shape (16,384 variants, runs of
-              1-32, probe 32); its time at both shapes beside the plain
+              version, exactly, on seeded edge blocks at W = 16, 31, 32,
+              33, 49, 64, 65 and 96 (a match at the window's last probe,
+              two matching rows, swapped alleles, probes past the last
+              row, a variant at 2147483647 against sentinel rows, N = 0,
+              K = 1, unsorted variants, a run of ``probe`` rows ending at
+              row K - 1, a 40-row run across 32-row boundaries at probes
+              4, 32 and 48, K = 5, 31, 33 and 45) and on random blocks at
+              the SNV shape (8,192 variants, 262,144 rows, runs of 3,
+              probe 4) and the indel shape (16,384 variants, runs of 1-32,
+              probe 32); its time at both shapes beside the plain
               version's and the bound, and one score block's upload.
               Then ``validate_ref`` against its plain version, exactly, on
-              the edge rows of ``validate_edge_rows`` at W = 16, 49 and 96
-              and on 1,048,576 random rows against a GRCh38-shaped genome
-              (1.16 GB on the card; its load and upload timed), 60-80% of
-              them passing; its time at 65,536 and 1,048,576 rows beside
-              the plain version's and the bound;
+              the edge rows of ``validate_edge_rows`` at the same widths,
+              on 1,048,576 random rows against a GRCh38-shaped genome
+              (1.16 GB on the card; its load and upload timed) and on
+              65,536 position-sorted chr22 rows (a load's chunk), 60-80%
+              of each passing; its time at 65,536 random rows, at the
+              65,536 sorted rows and at 1,048,576 random rows beside the
+              plain version's and the bound;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -181,6 +186,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 WIDTH = 49
+#: allele widths of the kernels' edge cases: below, at and past the 32-
+#: and 64-byte columns the kernels work in, and the load's 49
+EDGE_WIDTHS = (16, 31, 32, 33, 49, 64, 65, 96)
 CHUNK_ROWS = 65_536
 BIG_ROWS = 1 << 20
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -689,6 +697,13 @@ INDEL_TABLE = "gnomad.genomes.r3.0.indel.tsv.gz"
 CADD_HEADER = b"## CADD GRCh38-v1.7\n#Chrom\tPos\tRef\tAlt\tRawScore\tPHRED\n"
 
 
+#: block sizes of the small-block edge cases: below one warp's 32 lanes,
+#: one short of it, and past it without being a multiple of it
+CADD_SMALL_K = (5, 31, 33, 45)
+#: the probe depth of the window-crossing case beyond the loader's two
+CADD_WIDE_PROBE = 48
+
+
 def cadd_edge_cases(width):
     """Seeded edge blocks of the CADD join at ``width``: a list of (label,
     (vpos, vref, valt, spos, sref, salt), probe) at both probe depths — a
@@ -696,7 +711,11 @@ def cadd_edge_cases(width):
     wins), swapped allele orientation, an allele set holding both of a
     variant's alleles, probes past the last row (``lo + k > K - 1``),
     variants before and after every row, a variant at 2147483647 against
-    sentinel rows, N = 0 and K = 1."""
+    sentinel rows, N = 0 and K = 1; the same variants in reverse order
+    (``-unsorted``); a run of exactly ``probe`` rows ending at row K - 1
+    (``-tail``); a 40-row run over rows 30-69, across 32-row boundaries
+    (``-cross``, also at probe :data:`CADD_WIDE_PROBE`); and blocks of
+    :data:`CADD_SMALL_K` rows in runs of two (``-k5`` ...)."""
     tri = ["".join(t) for t in zip(*(np.repeat(list("ACGT"), 16),
                                      np.tile(np.repeat(list("ACGT"), 4), 4),
                                      np.tile(list("ACGT"), 16)))]
@@ -709,6 +728,18 @@ def cadd_edge_cases(width):
                 encode([a for _, _, a in variants], width)[0],
                 spos, encode([r for _, r, _ in rows], width)[0],
                 encode([a for _, _, a in rows], width)[0])
+
+    # 30 single rows, a 40-row run at 100 (rows 30-69), one row after,
+    # sentinels up to 128 rows
+    cross_rows = ([(10 + 2 * j, "A", "C") for j in range(30)]
+                  + [(100, "G", t) for t in tri[:40]] + [(110, "A", "T")])
+    cross_variants = [(100, "G", tri[0]), (100, "G", tri[2]), (100, tri[31], "G"),
+                      (100, "G", tri[32]), (100, "G", tri[39]), (100, "G", "T"),
+                      (110, "A", "T"), (40, "A", "C"), (41, "A", "C")]
+
+    def cross(probe):
+        return (f"edge-p{probe}-w{width}-cross",
+                arrays(cross_rows, cross_variants, 128 - len(cross_rows)), probe)
 
     cases = []
     for probe in (SNV_PROBE, INDEL_PROBE):
@@ -731,6 +762,23 @@ def cadd_edge_cases(width):
             [(500, "T", "G")],
             [(500, "T", "G"), (500, "G", "T"), (500, "T", "A"), (499, "T", "G"),
              (501, "T", "G")], 0), probe))
+        cases.append((f"edge-p{probe}-w{width}-unsorted",
+                      arrays(rows, variants[::-1], pad), probe))
+        # the run at 200 is the block's last `probe` rows: K - 1 is its
+        # last row, the deep match
+        tail = [(100, "A", "C"), (150, "G", "T")] + deep
+        cases.append((f"edge-p{probe}-w{width}-tail", arrays(
+            tail, [(200, "C", "T"), (200, "T", "C"), (200, "C", deep[0][2]),
+                   (200, "C", "G"), (200, "G", "C"), (250, "A", "C"),
+                   (150, "T", "G")], 0), probe))
+        cases.append(cross(probe))
+        for k in CADD_SMALL_K:
+            small = [(1000 + 10 * (j // 2), "A", tri[j]) for j in range(k)]
+            cases.append((f"edge-p{probe}-w{width}-k{k}", arrays(
+                small, [(1000, "A", tri[0]), small[-1], (small[k // 2][0], tri[k // 2], "A"),
+                        (small[k // 2][0], "A", "T"), (5, "A", tri[0]),
+                        (2000, "A", tri[0])], 0), probe))
+    cases.append(cross(CADD_WIDE_PROBE))
     return cases
 
 
@@ -1091,9 +1139,14 @@ def validate_edge_rows(genome, width):
     and negative, spans ending at and crossing the chromosome's end and
     starting past it, an absent code, lowercase, N and n on a masked base,
     N on an unmasked one, other bytes (``*``, a backtick), junk bytes past
-    ref_len, pos 2147483647, and the first and last bases of every
-    chromosome.  Returns (chrom int8, pos int32, ref uint8 [N, W], ref_len
-    int32, want bool) — ``want`` is what the rows must give."""
+    ref_len, pos 2147483647, the first and last bases of every
+    chromosome, rows ending at the last base of the chromosome stored last
+    in ``packed`` (ref_len 1-5, 32, 33 and W; matching and wrong in their
+    last base), and ref_len 32, 33, 64, 65 and W on the first chromosome
+    with ambiguity bits and on that last one (matching, wrong in the last
+    base, wrong in base 31 or 32; rows longer than W fail).  Returns (chrom
+    int8, pos int32, ref uint8 [N, W], ref_len int32, want bool) —
+    ``want`` is what the rows must give."""
     codes = sorted(genome.length)
     absent = next((c for c in range(1, 26) if c not in genome.length), 0)
     _, mask_off, lengths = genome_tables(genome)
@@ -1143,6 +1196,27 @@ def validate_edge_rows(genome, width):
         k = min(w, n)
         rows += [(code, 1, text(code, 1, k), k, True),
                  (code, n - k + 1, text(code, n - k + 1, k).lower(), k, True)]
+
+    def wrong_at(r, j):
+        return r[:j] + (b"C" if r[j:j + 1] == b"A" else b"A") + r[j + 1:]
+
+    # the chromosome stored last in packed and n_mask: word loads at its
+    # end reach the end of both arrays
+    last = max(codes, key=lambda c: genome.byte_offset[c])
+    n = int(lengths[last])
+    for k in sorted({1, 2, 3, 4, 5, 32, 33, w}):
+        if k <= n:
+            r = text(last, n - k + 1, k)
+            rows += [(last, n - k + 1, r, k, k <= w),
+                     (last, n - k + 1, wrong_at(r, k - 1), k, False)]
+    for code, p in ((c0, 41), (last, 37)):
+        for k in sorted({32, 33, 64, 65, w}):
+            if p + k - 1 <= int(lengths[code]):
+                r = text(code, p, k)
+                rows += [(code, p, r, k, k <= w),
+                         (code, p, wrong_at(r, k - 1), k, False)]
+                rows += [(code, p, wrong_at(r, j), k, False)
+                         for j in (31, 32) if j < k - 1]
     m = len(rows)
     ref = np.zeros((m, w), np.uint8)
     for i, (_c, _p, r, _l, _w) in enumerate(rows):
@@ -1154,19 +1228,26 @@ def validate_edge_rows(genome, width):
             np.array([r[4] for r in rows], bool))
 
 
-def validate_random_rows(genome, n, width, seed):
+def validate_random_rows(genome, n, width, seed, code=None):
     """``n`` seeded rows for ``validate_ref`` at ``width`` against
     ``genome``: refs copied from the genome (ref_len 1 on 60%, 2-6 on
     25%, 7-W on 10%, W+1..W+10 on 3%, 0 on 2%, junk bytes past ref_len),
     then 15% with one base changed, 5% partly lowercased (still
     passing), 3% on an absent code (code 0 when the genome holds all 25),
     4% moved to cross the chromosome's end or start before it, 2% with an
-    N planted on an unmasked base.  Returns (chrom int8, pos int32, ref
-    uint8 [n, W], ref_len int32)."""
+    N planted on an unmasked base.  Rows sit at random places on random
+    chromosomes; with ``code``, they are a load's chunk instead: on that
+    chromosome, 13 bp apart on average (the phase-4 VCF's spacing) from
+    16,000,000 or as far as the chromosome allows, and sorted by
+    position.  Returns (chrom int8, pos int32, ref uint8 [n, W], ref_len
+    int32)."""
     rng = np.random.default_rng(seed)
     _, _, lengths = genome_tables(genome)
-    codes = np.array(sorted(genome.length), np.int64)
-    chrom = codes[rng.integers(0, codes.size, n)]
+    if code is None:
+        codes = np.array(sorted(genome.length), np.int64)
+        chrom = codes[rng.integers(0, codes.size, n)]
+    else:
+        chrom = np.full(n, code, np.int64)
     length = lengths[chrom]
     u = rng.random(n)
     rl = np.where(u < 0.60, 1, np.where(
@@ -1174,7 +1255,13 @@ def validate_random_rows(genome, n, width, seed):
             u < 0.95, rng.integers(7, width + 1, n), np.where(
                 u < 0.98, rng.integers(width + 1, width + 11, n), 0))))
     rl = np.minimum(rl, length).astype(np.int64)
-    pos = 1 + (rng.random(n) * np.maximum(length - rl, 1)).astype(np.int64)
+    if code is None:
+        pos = 1 + (rng.random(n) * np.maximum(length - rl, 1)).astype(np.int64)
+    else:
+        span = min(13 * n, int(lengths[code]))
+        lo = min(16_000_000, int(lengths[code]) - span)
+        pos = 1 + lo + np.sort((rng.random(n) * span).astype(np.int64))
+        pos = np.minimum(pos, np.maximum(length - rl + 1, 1))
     ref = genome_text(genome, chrom, pos, width)
     col = np.arange(width)[None, :]
     junk = rng.integers(0, 256, (n, width), dtype=np.uint8)
@@ -1198,6 +1285,9 @@ def validate_random_rows(genome, n, width, seed):
                    np.where(edge, -rng.integers(0, 3, n), pos))
     plant = have & (v >= 0.27) & (v < 0.29) & (ref[rows, k] != ord("N"))
     ref[plant, k[plant]] = ord("N")
+    if code is not None:
+        order = np.argsort(pos, kind="stable")
+        chrom, pos, ref, rl = chrom[order], pos[order], ref[order], rl[order]
     return (chrom.astype(np.int8), pos.astype(np.int32), ref,
             rl.astype(np.int32))
 
@@ -1548,7 +1638,7 @@ def cadd_bound(vpos, spos, probe, matched, match_idx, width) -> dict:
 def cadd_kernel_phase(torch, device) -> dict:
     """Phase 3 for ``cadd_join``: the kernel against its plain version on
     the card, exactly (``torch.equal`` on both outputs), on the seeded edge
-    blocks at W = 16, 49 and 96 and on random blocks at the SNV and indel
+    blocks at :data:`EDGE_WIDTHS` and on random blocks at the SNV and indel
     shapes; its time at both shapes beside the plain version's and the
     bound; the host-to-device copy of one score block.  Returns the kernel
     table row (launches filled in after phase 9)."""
@@ -1559,7 +1649,7 @@ def cadd_kernel_phase(torch, device) -> dict:
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in args]
 
     checks, worst = [], 0
-    cases = [(label, args, probe) for w in (16, WIDTH, 96)
+    cases = [(label, args, probe) for w in EDGE_WIDTHS
              for label, args, probe in cadd_edge_cases(w)]
     sets = {}
     for shape, (n, k, probe) in CADD_SHAPES.items():
@@ -1651,8 +1741,20 @@ def cadd_kernel_phase(torch, device) -> dict:
     }
 
 
-#: the validation's shapes: the load's chunk, and 1,048,576 rows
-VALIDATE_SHAPES = {"chunk": CHUNK_ROWS, "big": BIG_ROWS}
+#: the validation's shapes: the load's chunk at random places on random
+#: chromosomes, the same rows as a load's chunk (chr22, position-sorted),
+#: and 1,048,576 random rows
+VALIDATE_SHAPES = {"chunk": CHUNK_ROWS, "chunk_sorted": CHUNK_ROWS, "big": BIG_ROWS}
+
+
+def _union_size(lo, hi) -> int:
+    """Integers in the union of the inclusive ranges [lo, hi]."""
+    if lo.size == 0:
+        return 0
+    order = np.argsort(lo, kind="stable")
+    lo, hi = lo[order], hi[order]
+    reach = np.concatenate([[lo[0] - 1], np.maximum.accumulate(hi)[:-1]])
+    return int(np.maximum(hi - np.maximum(lo, reach + 1) + 1, 0).sum())
 
 
 def validate_bound(genome, chrom, pos, ref, rl) -> dict:
@@ -1660,10 +1762,11 @@ def validate_bound(genome, chrom, pos, ref, rl) -> dict:
     pos and ref_len read once and its byte written once; for a row whose
     code is in the genome, with 0 < ref_len <= W and its span inside the
     chromosome, the ref bytes up to its first mismatch (all ref_len when
-    it passes) and the distinct packed and mask bytes under them — and the
+    it passes) and the packed and mask bytes under them, each byte once
+    however many rows share it (position-sorted rows do) — and the
     operations (eight integer operations a base compared, ten a row)."""
     n, w = ref.shape
-    _, _, lengths = genome_tables(genome)
+    byte_off, mask_off, lengths = genome_tables(genome)
     code = chrom.astype(np.int64)
     length = lengths[code]
     start = pos.astype(np.int64) - 1
@@ -1677,9 +1780,12 @@ def validate_bound(genome, chrom, pos, ref, rl) -> dict:
     first = np.where(bad.any(1), bad.argmax(1) + 1, rl64)
     bases = np.where(walk, first, 0)
     last = start + bases - 1
-    packed = np.where(bases > 0, (last >> 2) - (start >> 2) + 1, 0)
-    mask = np.where(bases > 0, (last >> 3) - (start >> 3) + 1, 0)
-    nbytes = int(n * 10 + bases.sum() + packed.sum() + mask.sum())
+    on = bases > 0
+    packed = _union_size(byte_off[code][on] + (start[on] >> 2),
+                         byte_off[code][on] + (last[on] >> 2))
+    mask = _union_size(mask_off[code][on] + (start[on] >> 3),
+                       mask_off[code][on] + (last[on] >> 3))
+    nbytes = int(n * 10 + bases.sum() + packed + mask)
     ops = int(n * 10 + 8 * bases.sum())
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
@@ -1693,11 +1799,12 @@ def validate_kernel_phase(torch, device, index) -> dict:
     """Phase 3 for ``validate_ref``: the GRCh38-shaped index loaded and
     uploaded once (both timed), then the kernel against its plain version
     on the card, exactly (``torch.equal``), on the edge rows of
-    :func:`validate_edge_rows` at W = 16, 49 and 96 (also equal to what
-    they must give) and on 1,048,576 random rows at W = 49 (60-80% of them
-    passing); its time at 65,536 and 1,048,576 rows beside the plain
-    version's and the bound.  Returns the kernel table row (launches
-    filled in after phase 10)."""
+    :func:`validate_edge_rows` at :data:`EDGE_WIDTHS` (also equal to what
+    they must give), on 1,048,576 random rows at W = 49 (60-80% of them
+    passing) and on 65,536 position-sorted chr22 rows; its time at the
+    shapes of :data:`VALIDATE_SHAPES` beside the plain version's and the
+    bound.  Returns the kernel table row (launches filled in after phase
+    10)."""
     from annotatedvdb_tpu_torch.genome import ReferenceGenome
     from annotatedvdb_tpu_torch.genome.refgenome import (
         validate_ref,
@@ -1718,8 +1825,10 @@ def validate_kernel_phase(torch, device, index) -> dict:
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in rows[:4]]
 
     checks, worst = [], 0
-    cases = [(f"edge-w{w}", validate_edge_rows(genome, w)) for w in (16, WIDTH, 96)]
+    cases = [(f"edge-w{w}", validate_edge_rows(genome, w)) for w in EDGE_WIDTHS]
     cases.append(("random-1m-w49", validate_random_rows(genome, BIG_ROWS, WIDTH, seed=31)))
+    cases.append(("sorted-chr22-w49", validate_random_rows(genome, CHUNK_ROWS, WIDTH,
+                                                           seed=32, code=22)))
     for label, rows in cases:
         t = to_dev(rows)
         got = validate_ref(*tables, *t)
@@ -1735,17 +1844,20 @@ def validate_kernel_phase(torch, device, index) -> dict:
         if not rec["equal"] or not rec.get("as_listed", True):
             raise AssertionError(f"validate_ref disagrees with its plain version "
                                  f"or its listed results on {label}")
-    share = checks[-1]["passing"] / BIG_ROWS
-    if not 0.6 <= share <= 0.8:
-        raise AssertionError(f"validate_ref: {share:.3f} of the random rows pass")
+    for rec in checks[-2:]:
+        share = rec["passing"] / rec["rows"]
+        if not 0.6 <= share <= 0.8:
+            raise AssertionError(f"validate_ref: {share:.3f} of the {rec['inputs']} "
+                                 f"rows pass")
 
     timing = {}
     for shape, n in VALIDATE_SHAPES.items():
-        host = [validate_random_rows(genome, n, WIDTH, seed=40 + i)
-                for i in range(4 if shape == "chunk" else 2)]
+        host = [validate_random_rows(genome, n, WIDTH, seed=40 + i,
+                                     code=22 if shape == "chunk_sorted" else None)
+                for i in range(4 if n == CHUNK_ROWS else 2)]
         inputs = [(*tables, *to_dev(h)) for h in host]
         runs = {}
-        iters = 200 if shape == "chunk" else 20
+        iters = 200 if n == CHUNK_ROWS else 20
         for name, fn, k in (("plain", validate_ref_reference, iters // 10),
                             ("kernel", validate_ref, iters),
                             ("kernel", validate_ref, iters),
@@ -1768,7 +1880,7 @@ def validate_kernel_phase(torch, device, index) -> dict:
          genome_upload_s=upload_s, genome_upload_bytes=upload_bytes)
     del tables, genome
     torch.cuda.empty_cache()
-    chunk, big = timing["chunk"], timing["big"]
+    chunk, srt, big = timing["chunk"], timing["chunk_sorted"], timing["big"]
     return {
         "name": "validate_ref", "route": "cuda",
         "source": "annotatedvdb_tpu_torch/csrc/validate_ref.cu",
@@ -1776,6 +1888,8 @@ def validate_kernel_phase(torch, device, index) -> dict:
         "launches": None, "max_abs_err": worst,
         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
         "bound_by": chunk["bound_by"], "library_ms": None,
+        "sorted_ms": srt["ms"], "sorted_plain_ms": srt["plain_ms"],
+        "sorted_bound_ms": srt["bound_ms"],
         "big_ms": big["ms"], "big_plain_ms": big["plain_ms"],
         "big_bound_ms": big["bound_ms"], "genome_upload_ms": upload_s * 1e3,
     }

@@ -4,8 +4,8 @@ against the JAX package.
 - The join's plain version (``ops/cadd_join.cadd_join_reference``, the CPU
   path of the ``cadd_join`` wrapper) against the reference's jitted
   ``cadd_join_kernel`` (CPU) and its numpy twin ``cadd_join_host``, on the
-  seeded edge blocks of ``chip_smoke.cadd_edge_cases`` at W = 16, 49 and
-  96, on seeded random blocks of both table shapes and on
+  seeded edge blocks of ``chip_smoke.cadd_edge_cases`` at W = 16, 31, 32,
+  33, 49, 64, 65 and 96, on seeded random blocks of both table shapes and on
   hypothesis-drawn sorted blocks at probe depths 4 and 32.
 - The table reader (``io/cadd.CaddFileReader``) of both engines against
   the reference's, block by block and field by field, with a small block
@@ -85,23 +85,45 @@ def _assert_join_matches(args, probe):
     return m, idx
 
 
-@pytest.mark.parametrize("width", [16, 49, 96])
+@pytest.mark.parametrize("width", [16, 31, 32, 33, 49, 64, 65, 96])
 def test_join_edge_blocks_match_reference(width):
+    results = {}
     for label, args, probe in cadd_edge_cases(width):
         m, idx = _assert_join_matches(args, probe)
-        if label.endswith("n0"):
+        results[label] = m, idx
+        kind = label.rsplit("-", 1)[-1]
+        k_rows = args[3].shape[0]
+        if kind == "n0":
             assert m.shape == (0,)
-            continue
-        if "k1" in label:
+        elif kind == "k1":
             assert m.tolist() == [True, True, False, False, False]
-            continue
-        # the deep match sits at probe offset probe - 1; the first of two
-        # matching rows wins; the swapped orientation matches
-        deep = 3 + probe - 1
-        assert idx[3] == deep and idx[4] == deep and not m[5]
-        assert idx[6] == idx[7] == deep + 1
-        assert m[8] and m[9] and not m[10] and m[11] and m[12] and not m[13]
-        assert not m[14:].any()
+        elif kind == "unsorted":
+            sm, sidx = results[label.replace("unsorted", "sentinels")]
+            np.testing.assert_array_equal(m, sm[::-1])
+            np.testing.assert_array_equal(idx, sidx[::-1])
+        elif kind == "tail":
+            # the run of `probe` rows ends at row K - 1, the deep match
+            assert idx.tolist() == [k_rows - 1, k_rows - 1, 2, -1, -1, -1, 1]
+        elif kind == "cross":
+            # run rows 30-69: offsets 0, 2, 31, 32 and 39 match within the
+            # probe window only
+            offsets = [0, 2, 31, 32, 39]
+            want = [30 + o if o < probe else -1 for o in offsets] + [-1, 70, 15, -1]
+            assert idx.tolist() == want
+        elif kind.startswith("k"):
+            # runs of two: the first row, the last row (K - 1), a swapped
+            # middle row; wrong alleles and positions before and after
+            assert k_rows == int(kind[1:])
+            assert idx.tolist() == [0, k_rows - 1, k_rows // 2, -1, -1, -1]
+        else:
+            # the deep match sits at probe offset probe - 1; the first of
+            # two matching rows wins; the swapped orientation matches
+            deep = 3 + probe - 1
+            assert idx[3] == deep and idx[4] == deep and not m[5]
+            assert idx[6] == idx[7] == deep + 1
+            assert m[8] and m[9] and not m[10] and m[11] and m[12] and not m[13]
+            assert not m[14:].any()
+        np.testing.assert_array_equal(m, idx >= 0)
 
 
 @pytest.mark.parametrize("shape", ["snv", "indel"])

@@ -22,12 +22,14 @@ identity hash (``loaders/lookup.py::chunk_hashes``) on the card must equal
 the CPU's, and the QC, SnpEff and TSV updates on the card must write the
 CPU's stores with the predicted launches and no plain hash.  The CADD join
 kernel (``csrc/cadd_join.cu``) is held against its plain version exactly
-on edge and random blocks and unaligned bases, and ``load-cadd`` (whole
+on edge and random blocks at W = 16 to 96, unsorted variants, probes
+across 32-row windows and unaligned bases, and ``load-cadd`` (whole
 store, ``--buildIndex``, indexed ``--fileName``), ``export-vcf`` and
 ``undo`` on the card must leave the CPU's stores and export files, with the
 predicted ``cadd_join`` launches and no plain join on the card.  The
 reference-genome kernel (``csrc/validate_ref.cu``) is held against its
-plain version exactly on edge and random rows and unaligned bases, and
+plain version exactly on edge, random and position-sorted rows at W = 16
+to 96, unaligned bases and genome arrays viewed at odd offsets, and
 ``load-vcf --refGenome`` and ``install-schema --storeDir`` on the card
 must write the CPU's stores and output trees with the predicted
 ``validate_ref`` and ``annotate_bin`` launches and no plain version on the
@@ -401,7 +403,10 @@ def _assert_join_matches(args, probe):
     return got
 
 
-@pytest.mark.parametrize("width", [16, 49, 96])
+EDGE_WIDTHS = [16, 31, 32, 33, 49, 64, 65, 96]
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
 def test_cadd_join_matches_plain_version(cuda, width):
     for _label, args, probe in cadd_edge_cases(width):
         _assert_join_matches([torch.from_numpy(a).to(cuda) for a in args], probe)
@@ -422,6 +427,19 @@ def test_cadd_join_unaligned_bases(cuda, offsets):
             _offset_copy(valt, cuda, o_b), _offset_copy(spos, cuda, o_pos),
             _offset_copy(sref, cuda, o_b), _offset_copy(salt, cuda, o_a)]
     _assert_join_matches(args, 32)
+
+
+@pytest.mark.parametrize("probe", [4, 32, 45])
+def test_cadd_join_unsorted_variants_and_deep_probes(cuda, probe):
+    """Variants in no order, against a block of runs up to 32 rows at probe
+    depths inside one 32-row window and across two."""
+    vpos, vref, valt, spos, sref, salt = cadd_random_block(10, 6000, 30_000, 49,
+                                                           32, False)
+    perm = np.random.default_rng(probe).permutation(vpos.size)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (vpos[perm], vref[perm], valt[perm], spos, sref, salt)]
+    m, _ = _assert_join_matches(args, probe)
+    assert 0.4 < float(m.float().mean()) < 0.95
 
 
 def test_cadd_join_refuses_bad_inputs(cuda):
@@ -516,14 +534,15 @@ def genome_inputs(tmp_path_factory):
             "want": chip_smoke.ref_mismatches(g["text"], data), "tmp": tmp}
 
 
-@pytest.mark.parametrize("width", [16, 49, 96])
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
 def test_validate_ref_matches_plain_version(cuda, genome_inputs, width):
     from annotatedvdb_tpu_torch.genome import refgenome
 
     genome = genome_inputs["genome"]
     tables = genome.device_arrays(cuda)
     edge = validate_edge_rows(genome, width)
-    for rows in (edge, validate_random_rows(genome, 100_000, width, seed=width)):
+    for rows in (edge, validate_random_rows(genome, 100_000, width, seed=width),
+                 validate_random_rows(genome, 70_000, width, seed=width, code=22)):
         args = [torch.from_numpy(x).to(cuda) for x in rows[:4]]
         before = refgenome.LAUNCHES["validate_ref"]
         got = refgenome.validate_ref(*tables, *args)
@@ -548,6 +567,28 @@ def test_validate_ref_unaligned_bases(cuda, genome_inputs, offsets):
     want = refgenome.validate_ref_reference(*tables, *args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (3, 5), (7, 1)])
+def test_validate_ref_genome_views(cuda, genome_inputs, offsets):
+    """The genome arrays as views starting ``offsets`` bytes into their
+    buffers, sized exactly: the kernel's 8-byte words at either end of
+    both arrays (the first bases, and the edge rows that end at the last
+    base of the chromosome stored last) read only bytes inside them."""
+    from annotatedvdb_tpu_torch.genome import refgenome
+
+    genome = genome_inputs["genome"]
+    tables = list(genome.device_arrays(cuda))
+    tables[0] = _offset_copy(genome.packed, cuda, offsets[0])
+    tables[1] = _offset_copy(genome.n_mask, cuda, offsets[1])
+    for width in (16, 49, 96):
+        edge = validate_edge_rows(genome, width)
+        args = [torch.from_numpy(x).to(cuda) for x in edge[:4]]
+        got = refgenome.validate_ref(*tables, *args)
+        want = refgenome.validate_ref_reference(*tables, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(got.cpu().numpy(), edge[4])
 
 
 def test_validate_ref_refuses_bad_inputs(cuda, genome_inputs):

@@ -8,9 +8,10 @@ PyTorch port against the JAX package.
   uncompressed; ``fetch``, the sequence digests and ``lazy_digests``.
 - ``validate_ref_reference`` (the CPU path of the ``validate_ref``
   wrapper) against the reference's jitted ``validate_ref_kernel`` on
-  CPU-JAX: the edge rows of ``chip_smoke.validate_edge_rows`` at W = 16, 49
-  and 96 and 20,000 seeded rows; ``validate_ref_batch`` with over-width
-  rows re-validated on the host.
+  CPU-JAX: the edge rows of ``chip_smoke.validate_edge_rows`` at W = 16,
+  31, 32, 33, 49, 64, 65 and 96, 20,000 seeded rows and 5,000 seeded
+  position-sorted rows on one chromosome; ``validate_ref_batch`` with
+  over-width rows re-validated on the host.
 - ``load-vcf --refGenome`` through the port's CLI (``--platform cpu``)
   against the reference's CLI, under both tokenizer engines and two
   ``--commitAfter`` sizes, on a VCF with planted mismatches, lowercase and
@@ -186,7 +187,7 @@ def _both(genomes, rows):
     return want, got.numpy()
 
 
-@pytest.mark.parametrize("width", [16, 49, 96])
+@pytest.mark.parametrize("width", [16, 31, 32, 33, 49, 64, 65, 96])
 def test_validate_edge_rows_match_reference(genomes, width):
     rows = validate_edge_rows(genomes[1], width)
     want, got = _both(genomes, rows)
@@ -197,6 +198,20 @@ def test_validate_edge_rows_match_reference(genomes, width):
 @pytest.mark.parametrize("width", [16, 49])
 def test_validate_random_rows_match_reference(genomes, width):
     rows = validate_random_rows(genomes[1], 20_000, width, seed=width)
+    want, got = _both(genomes, rows)
+    np.testing.assert_array_equal(got, want)
+    assert 0.55 < got.mean() < 0.85
+
+
+@pytest.mark.parametrize("width", [16, 49, 65])
+def test_validate_sorted_rows_match_reference(genomes, width):
+    """The rows of a load's chunk (one chromosome, position-sorted, the
+    random rows' mix of lengths and mismatches), as phase 3's
+    ``chunk_sorted`` shape times them."""
+    rows = validate_random_rows(genomes[1], 5_000, width, seed=width, code=1)
+    # 3% move to an absent code, the rest stay on chromosome 1
+    assert np.unique(rows[0]).tolist() == [1, 4] and (rows[0] == 1).mean() > 0.95
+    assert (np.diff(rows[1]) >= 0).all()
     want, got = _both(genomes, rows)
     np.testing.assert_array_equal(got, want)
     assert 0.55 < got.mean() < 0.85
