@@ -22,51 +22,54 @@
 // ref_len ref bytes, about ref_len/4 + 1 packed bytes and ref_len/8 + 1
 // mask bytes, and writes one byte.  The arithmetic is a few integer
 // operations per base.  The packed reads are gathers at data-dependent
-// addresses into a table of ~1.16 GB, with a trip count that depends on
-// the row and an early exit at the first mismatch, which is why this is
-// CUDA C++ and not a fused elementwise Triton pass.
+// addresses into a table of ~1.16 GB, with a width that depends on the
+// row, which is why this is CUDA C++ and not a fused elementwise Triton
+// pass.  At the load's chunk (65,536 rows) the bytes take a fraction of a
+// microsecond, so what the card can approach is the launch and two rounds
+// of loads: the rows' own columns, then everything under their bases.
 //
 // What held the first design back (one thread per row, every load a
 // byte): each row was a chain of dependent loads — chrom, then the
-// chromosome's length and offsets, then for every base a mask byte and
-// then a packed byte, each issued after the previous compare, up to 98
-// loads in a chain for a 49-base ref — and a warp's ref loads touched 32
-// rows W bytes apart.
+// chromosome's length and offsets, then for every base a ref byte, a mask
+// byte and a packed byte, each issued after the previous compare, up to
+// 147 loads in a chain for a 49-base ref.  A warp's time is its longest
+// row, and one row in ten is 7-49 bases long, so nearly every warp waited
+// on such a chain.
 //
-// Design: one thread per row, 256 rows a block.
+// Design: one thread per row, 256 rows a block, and no load that waits on
+// a compare.
 // - The three 26-entry chromosome tables sit in shared memory, loaded
-//   once a block.
-// - The block's ref bytes are staged into a shared tile, 64 columns a
-//   pass: when W <= 64 (W = 49 on the load) the block's rows are one
-//   contiguous range, copied with aligned 16-byte loads (byte loads only
-//   for the two partial vectors at its ends) issued four to a thread
-//   before any is stored; wider rows copy column slices byte by byte.
-//   Tile rows are 68 bytes apart, so a warp's 4-byte reads of its rows
-//   hit 32 banks.
-// - The genome is read as aligned 8-byte words: a span of up to 64 bases
-//   covers at most 3 packed words and 2 mask words, all issued before the
-//   tile is staged, so a row waits on one round of loads instead of a
-//   chain.  Funnel shifts line the bases up in registers, and the compare
-//   stops at the first mismatch.  A word that reaches past either end of
-//   the genome arrays (the last chromosome stored, or a view that starts
-//   unaligned) is read byte by byte inside them, so nothing past the
-//   allocations is touched whatever tensors are passed.
+//   once a block beside the rows' chrom, pos and ref_len.
+// - For up to 64 bases at a time, a row then issues every load it needs
+//   at once: its ref bytes as aligned 8-byte words (at most 9), and the
+//   genome as aligned 8-byte words (at most 3 packed, 2 mask) — one round
+//   of loads instead of a chain.  Words that would reach past either end of
+//   the ref, packed or mask array (the chromosome stored last, a view
+//   that starts unaligned) are read byte by byte inside it, so nothing
+//   outside the tensors is touched whatever is passed.
+// - Funnel shifts line bases up in registers, and the compare takes four
+//   bases a step with byte-wise SIMD: the ref bytes uppercased
+//   (__vcmpgeu4/__vcmpleu4), the expected bytes decoded from four 2-bit
+//   codes by one __byte_perm of "ACGT", 'N' where the mask bits are set,
+//   and the xor masked to the allele's length.  No per-base branch.
 // - Rows that cannot reach the genome (ref_len <= 0 or > W, an absent
-//   code, a span outside the chromosome) load nothing from it, and a
-//   block whose rows all end skips the rest of its passes.
+//   code, a span outside the chromosome) load nothing more.
+//
+// A shared-memory tile of the block's ref rows (coalesced 16-byte copies,
+// then per-base reads) measured slower than these per-row word loads on
+// the card: its copy and barriers cost more than the sectors it saves.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 256;          // rows (threads) a block
-constexpr int kCols = 64;           // ref columns staged a pass
-constexpr int kStride = kCols + 4;  // tile row pitch: 17 words, odd
-constexpr int kVecs = 4;            // 16-byte loads a thread has in flight
+constexpr int kRows = 256;      // rows (threads) a block
+constexpr int kSpan = 64;       // bases compared a pass
+constexpr int kRefWords = 9;    // 8-byte words under 64 unaligned bytes
 constexpr int kCodes = 26;
-constexpr uint32_t kAcgt = 0x54474341u;  // "ACGT", code c at byte c
+constexpr uint32_t kAcgt = 0x54474341u;  // "ACGT": code c at byte c
+constexpr uint32_t kNNNN = 0x4e4e4e4eu;  // "NNNN"
 
 // The 8-byte word at the 8-aligned address `a`, its bytes outside [lo, hi)
 // read as 0 (and not read).
@@ -91,68 +94,21 @@ __device__ __forceinline__ uint64_t funnel(uint64_t lo, uint64_t hi, int s) {
   return s == 0 ? lo : (lo >> s) | (hi << (64 - s));
 }
 
-// Stages the contiguous bytes [src, src + nbytes) — `rows` rows of W <=
-// kCols bytes — into the tile, row r at tile + r * kStride.
-__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ src,
-                                           int nbytes, int w,
-                                           uint8_t* __restrict__ tile) {
-  const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t hi = lo + nbytes;
-  const uintptr_t first = lo & ~uintptr_t{15};
-  const int vecs = static_cast<int>((hi - first + 15) >> 4);
-  for (int q0 = 0; q0 < vecs; q0 += kVecs * kRows) {
-    uint32_t part[kVecs][4];
-#pragma unroll
-    for (int u = 0; u < kVecs; ++u) {
-      const int q = q0 + u * kRows + static_cast<int>(threadIdx.x);
-      const uintptr_t a = first + 16 * static_cast<uintptr_t>(q);
-      if (q < vecs && a >= lo && a + 16 <= hi) {
-        const uint4 x = __ldg(reinterpret_cast<const uint4*>(a));
-        part[u][0] = x.x;
-        part[u][1] = x.y;
-        part[u][2] = x.z;
-        part[u][3] = x.w;
-      } else {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) part[u][b] = 0;
-        if (q < vecs) {
-#pragma unroll
-          for (int b = 0; b < 16; ++b) {
-            if (a + b >= lo && a + b < hi) {
-              part[u][b >> 2] |=
-                  static_cast<uint32_t>(
-                      __ldg(reinterpret_cast<const uint8_t*>(a + b)))
-                  << (8 * (b & 3));
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kVecs; ++u) {
-      const int q = q0 + u * kRows + static_cast<int>(threadIdx.x);
-      if (q >= vecs) break;
-      // byte b of this vector is byte off + b of the range
-      const int off = static_cast<int>(
-          static_cast<long long>(first + 16 * static_cast<uintptr_t>(q)) -
-          static_cast<long long>(lo));
-      const int o0 = off < 0 ? 0 : off;
-      int row = o0 / w;
-      int col = o0 - row * w;
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        const int o = off + b;
-        if (o >= 0 && o < nbytes) {
-          tile[row * kStride + col] =
-              static_cast<uint8_t>(part[u][b >> 2] >> (8 * (b & 3)));
-          if (++col == w) {
-            col = 0;
-            ++row;
-          }
-        }
-      }
-    }
-  }
+// Four bases' expected bytes: "ACGT"[code] from the four 2-bit codes in
+// the low byte of `codes`, 'N' where the low four bits of `amb` are set.
+__device__ __forceinline__ uint32_t expected4(uint32_t codes, uint32_t amb) {
+  const uint32_t sel = (codes & 0x3u) | ((codes & 0xcu) << 2) |
+                       ((codes & 0x30u) << 4) | ((codes & 0xc0u) << 6);
+  const uint32_t bases = __byte_perm(kAcgt, 0, sel);
+  // bit b of amb to 0xff in byte b
+  const uint32_t n = (((amb & 0xfu) * 0x00204081u) & 0x01010101u) * 0xffu;
+  return (bases & ~n) | (kNNNN & n);
+}
+
+// Four ref bytes with 'a'-'z' (bytes 97-122) made uppercase.
+__device__ __forceinline__ uint32_t upper4(uint32_t x) {
+  const uint32_t lower = __vcmpgeu4(x, 0x61616161u) & __vcmpleu4(x, 0x7a7a7a7au);
+  return x - (lower & 0x20202020u);
 }
 
 __global__ void __launch_bounds__(kRows)
@@ -167,17 +123,14 @@ validate_ref_kernel(const uint8_t* __restrict__ packed, long long packed_size,
                     const int32_t* __restrict__ ref_len, int n, int w,
                     uint8_t* __restrict__ ok) {
   __shared__ int32_t s_len[kCodes], s_boff[kCodes], s_moff[kCodes];
-  __shared__ __align__(16) uint8_t tile[kRows * kStride];
   const int t = threadIdx.x;
   if (t < kCodes) {
     s_len[t] = __ldg(lengths + t);
     s_boff[t] = __ldg(byte_off + t);
     s_moff[t] = __ldg(mask_off + t);
   }
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int rows = static_cast<int>(min(static_cast<long long>(kRows), n - r0));
-  const long long i = r0 + t;
-  const bool live = t < rows;
+  const long long i = static_cast<long long>(blockIdx.x) * kRows + t;
+  const bool live = i < n;
   int c = -1;
   int rl = 0;
   long long start = 0;
@@ -187,83 +140,72 @@ validate_ref_kernel(const uint8_t* __restrict__ packed, long long packed_size,
     start = static_cast<long long>(__ldg(pos + i)) - 1;
   }
   __syncthreads();  // the tables
+  if (!live) return;
   const long long length = (c >= 0 && c < kCodes) ? s_len[c] : 0;
-  bool pass = live && length > 0 && rl <= w;
-  bool walk = pass && rl > 0;
-  if (walk && (start < 0 || start + rl > length)) {
-    pass = false;  // a column inside the allele falls outside the chromosome
-    walk = false;
-  }
-  const uintptr_t pk_lo = reinterpret_cast<uintptr_t>(packed);
-  const uintptr_t pk_hi = pk_lo + static_cast<uintptr_t>(packed_size);
-  const uintptr_t mk_lo = reinterpret_cast<uintptr_t>(n_mask);
-  const uintptr_t mk_hi = mk_lo + static_cast<uintptr_t>(mask_size);
-  const long long boff = walk ? s_boff[c] : 0;
-  const long long moff = walk ? s_moff[c] : 0;
-  const uint32_t* mine = reinterpret_cast<const uint32_t*>(tile + t * kStride);
-
-  for (int c0 = 0; c0 < w; c0 += kCols) {
-    const bool need = walk && rl > c0;
-    if (!__syncthreads_or(need)) break;
-    // this row's genome words under bases [c0, c0 + nb), in flight while
-    // the tile is staged
-    uint64_t pw0 = 0, pw1 = 0, pw2 = 0, mw0 = 0, mw1 = 0;
-    int psh = 0, msh = 0, nb = 0;
-    if (need) {
-      nb = min(rl - c0, kCols);
-      const long long j0 = start + c0;
-      const long long j1 = j0 + nb - 1;
-      const uintptr_t pa = pk_lo + static_cast<uintptr_t>(boff + (j0 >> 2));
-      const uintptr_t pz = pk_lo + static_cast<uintptr_t>(boff + (j1 >> 2));
-      const uintptr_t pw = pa & ~uintptr_t{7};
-      psh = static_cast<int>(pa - pw) * 8 + static_cast<int>(j0 & 3) * 2;
-      pw0 = word_at(pw, pk_lo, pk_hi);
-      if (pz >= pw + 8) pw1 = word_at(pw + 8, pk_lo, pk_hi);
-      if (pz >= pw + 16) pw2 = word_at(pw + 16, pk_lo, pk_hi);
-      const uintptr_t ma = mk_lo + static_cast<uintptr_t>(moff + (j0 >> 3));
-      const uintptr_t mz = mk_lo + static_cast<uintptr_t>(moff + (j1 >> 3));
-      const uintptr_t mw = ma & ~uintptr_t{7};
-      msh = static_cast<int>(ma - mw) * 8 + static_cast<int>(j0 & 7);
-      mw0 = word_at(mw, mk_lo, mk_hi);
-      if (mz >= mw + 8) mw1 = word_at(mw + 8, mk_lo, mk_hi);
-    }
-    const int cols = min(kCols, w - c0);
-    if (cols == w) {
-      stage_rows(ref + r0 * w, rows * w, w, tile);
+  bool pass = length > 0 && rl <= w;
+  if (pass && rl > 0) {
+    if (start < 0 || start + rl > length) {
+      pass = false;  // a column inside the allele falls outside the chromosome
     } else {
-#pragma unroll 4
-      for (int q = t; q < rows * cols; q += kRows) {
-        const int row = q / cols;
-        const int col = q - row * cols;
-        tile[row * kStride + col] =
-            __ldg(ref + (r0 + row) * static_cast<long long>(w) + c0 + col);
-      }
-    }
-    __syncthreads();
-    if (need) {
-      // base k's 2-bit code: bits 2k of codes[k / 32]; its mask bit: bit k
-      const uint64_t codes_lo = funnel(pw0, pw1, psh);
-      const uint64_t codes_hi = funnel(pw1, pw2, psh);
-      const uint64_t amb = funnel(mw0, mw1, msh);
-      uint32_t word = 0;
-      for (int k = 0; k < nb; ++k) {
-        if ((k & 3) == 0) word = mine[k >> 2];
-        unsigned u = (word >> (8 * (k & 3))) & 0xffu;
-        if (u - 97u <= 25u) u -= 32u;
-        const uint64_t codes = k < 32 ? codes_lo : codes_hi;
-        const unsigned code = static_cast<unsigned>(codes >> (2 * (k & 31))) & 3u;
-        const unsigned want =
-            ((amb >> k) & 1u) ? 78u : (kAcgt >> (8 * code)) & 0xffu;
-        if (u != want) {
-          pass = false;
-          walk = false;
-          break;
+      const uintptr_t pk_lo = reinterpret_cast<uintptr_t>(packed);
+      const uintptr_t pk_hi = pk_lo + static_cast<uintptr_t>(packed_size);
+      const uintptr_t mk_lo = reinterpret_cast<uintptr_t>(n_mask);
+      const uintptr_t mk_hi = mk_lo + static_cast<uintptr_t>(mask_size);
+      const uintptr_t rf_lo = reinterpret_cast<uintptr_t>(ref);
+      const uintptr_t rf_hi =
+          rf_lo + static_cast<uintptr_t>(n) * static_cast<uintptr_t>(w);
+      const long long boff = s_boff[c];
+      const long long moff = s_moff[c];
+      for (int c0 = 0; c0 < rl && pass; c0 += kSpan) {
+        const int nb = min(rl - c0, kSpan);
+        const long long j0 = start + c0;
+        const long long j1 = j0 + nb - 1;
+        // every word under bases [c0, c0 + nb), issued together
+        const uintptr_t ra = rf_lo + static_cast<uintptr_t>(i * w + c0);
+        const uintptr_t rz = ra + nb - 1;
+        const uintptr_t rw = ra & ~uintptr_t{7};
+        uint64_t rword[kRefWords];
+#pragma unroll
+        for (int q = 0; q < kRefWords; ++q) {
+          rword[q] = rw + 8 * q <= rz ? word_at(rw + 8 * q, rf_lo, rf_hi) : 0;
         }
+        const uintptr_t pa = pk_lo + static_cast<uintptr_t>(boff + (j0 >> 2));
+        const uintptr_t pz = pk_lo + static_cast<uintptr_t>(boff + (j1 >> 2));
+        const uintptr_t pw = pa & ~uintptr_t{7};
+        const uint64_t pw0 = word_at(pw, pk_lo, pk_hi);
+        const uint64_t pw1 = pz >= pw + 8 ? word_at(pw + 8, pk_lo, pk_hi) : 0;
+        const uint64_t pw2 = pz >= pw + 16 ? word_at(pw + 16, pk_lo, pk_hi) : 0;
+        const uintptr_t ma = mk_lo + static_cast<uintptr_t>(moff + (j0 >> 3));
+        const uintptr_t mz = mk_lo + static_cast<uintptr_t>(moff + (j1 >> 3));
+        const uintptr_t mw = ma & ~uintptr_t{7};
+        const uint64_t mw0 = word_at(mw, mk_lo, mk_hi);
+        const uint64_t mw1 = mz >= mw + 8 ? word_at(mw + 8, mk_lo, mk_hi) : 0;
+
+        // base k: 2-bit code at bit 2k of codes[k / 32], mask bit k of amb,
+        // ref byte k % 8 of funnel(rword[k / 8], rword[k / 8 + 1], rsh)
+        const int rsh = static_cast<int>(ra - rw) * 8;
+        const int psh = static_cast<int>(pa - pw) * 8 + static_cast<int>(j0 & 3) * 2;
+        const int msh = static_cast<int>(ma - mw) * 8 + static_cast<int>(j0 & 7);
+        const uint64_t codes[2] = {funnel(pw0, pw1, psh), funnel(pw1, pw2, psh)};
+        const uint64_t amb = funnel(mw0, mw1, msh);
+        uint32_t diff = 0;
+#pragma unroll
+        for (int g = 0; g < kSpan / 4; ++g) {  // bases 4g .. 4g + 3
+          if (4 * g >= nb) break;
+          const uint64_t r8 = funnel(rword[g / 2], rword[g / 2 + 1], rsh);
+          const uint32_t r4 = static_cast<uint32_t>(r8 >> (32 * (g & 1)));
+          const uint32_t want = expected4(
+              static_cast<uint32_t>(codes[g / 8] >> (8 * (g % 8))),
+              static_cast<uint32_t>(amb >> (4 * g)));
+          const int left = nb - 4 * g;  // bases of this step in the allele
+          const uint32_t in = left >= 4 ? 0xffffffffu : (1u << (8 * left)) - 1u;
+          diff |= (upper4(r4) ^ want) & in;
+        }
+        pass = diff == 0;
       }
     }
-    __syncthreads();  // the next pass restages the tile
   }
-  if (live) ok[i] = pass ? 1 : 0;
+  ok[i] = pass ? 1 : 0;
 }
 
 }  // namespace

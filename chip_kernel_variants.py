@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""An earlier commit's ``cadd_join`` and ``validate_ref`` kernels beside this
+"""Earlier commits' ``cadd_join`` and ``validate_ref`` kernels beside this
 checkout's, checked and timed on one card in the same process.
 
-``--parent DIR`` is a checkout of the earlier commit (for example
-``git archive 52a93f7 | tar -x -C build/parent``).  Its two sources,
-``DIR/annotatedvdb_tpu_torch/csrc/{cadd_join,validate_ref}.cu``, are
-compiled with this checkout's ``nvcc`` flags (``ops/build.py``) into
-``build/kernels_parent/`` and bound with their own C signatures; this
-checkout's kernels build through ``ops/build.py`` as usual.  Both versions
-are first held against the plain versions on the same inputs
-(``torch.equal``), then timed in turns (parent, this, this, parent) on the
-inputs of ``chip_smoke.py``'s phase 3:
+Each ``--earlier NAME=DIR`` is a checkout of an earlier commit, or just
+its two sources, ``DIR/annotatedvdb_tpu_torch/csrc/{cadd_join,
+validate_ref}.cu`` (for example from ``git show 52a93f7:<path>``).  They
+are compiled with this checkout's ``nvcc`` flags (``ops/build.py``) into
+``build/kernels_earlier/NAME/`` and bound with their own C signatures
+(``validate_ref_launch`` took the genome arrays' sizes from this change
+on); this checkout's kernels build through ``ops/build.py`` as usual.
+Every version is first held against the plain versions on the same
+inputs (``torch.equal``), then timed in turns, the earlier ones in the
+order given, then this checkout's twice, then the earlier ones in reverse
+(with one: parent, this, this, parent), on the inputs of
+``chip_smoke.py``'s phase 3:
 
 - ``cadd_join`` at the SNV shape (8,192 variants, 262,144 rows, probe 4)
   and the indel shape (16,384 variants, probe 32), three seeded input
@@ -25,7 +28,7 @@ version), call ms from CUDA events, the bound from phase 3's
 ``cadd_bound`` / ``validate_bound``.  Prints the card's name and power
 limit, each build's register report, then one JSON line per kernel and
 shape.  Run from the repository root as
-``python3 chip_kernel_variants.py --parent DIR``.
+``python3 chip_kernel_variants.py --earlier pr8=DIR [--earlier NAME=DIR ...]``.
 """
 
 from __future__ import annotations
@@ -41,46 +44,54 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "kernel_variants")
-PARENT_BUILD = os.path.join(ROOT, "build", "kernels_parent")
+EARLIER_BUILD = os.path.join(ROOT, "build", "kernels_earlier")
 
 
 def _emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def build_parent(parent: str) -> dict:
-    """The parent's two libraries (one ``nvcc`` each, started together)
-    with their C entry points declared; returns {name: (CDLL, ptxas
-    lines)}."""
+def build_earlier(earlier: dict) -> dict:
+    """Every earlier version's two libraries (one ``nvcc`` each, all started
+    together) with their C entry points declared; returns {(version,
+    kernel): (CDLL, ptxas lines, takes the genome sizes)}."""
     from annotatedvdb_tpu_torch.ops import build
 
-    os.makedirs(PARENT_BUILD, exist_ok=True)
     procs = {}
-    for name in ("cadd_join", "validate_ref"):
-        src = os.path.join(parent, "annotatedvdb_tpu_torch", "csrc", f"{name}.cu")
-        out = os.path.join(PARENT_BUILD, f"lib{name}_parent.so")
-        procs[name] = out, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", out, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for version, src_dir in earlier.items():
+        out_dir = os.path.join(EARLIER_BUILD, version)
+        os.makedirs(out_dir, exist_ok=True)
+        for name in ("cadd_join", "validate_ref"):
+            src = os.path.join(src_dir, "annotatedvdb_tpu_torch", "csrc", f"{name}.cu")
+            with open(src) as f:
+                sized = "packed_size" in f.read()
+            out = os.path.join(out_dir, f"lib{name}.so")
+            procs[version, name] = out, sized, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", out, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    for name, (out, proc) in procs.items():
+    for (version, name), (out, sized, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"parent {name} build failed:\n{log}")
+            raise RuntimeError(f"{version} {name} build failed:\n{log}")
         lib = ctypes.CDLL(out)
-        libs[name] = lib, [ln for ln in log.splitlines() if "registers" in ln]
-    cj = libs["cadd_join"][0].cadd_join_launch
-    cj.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 3)
-    cj.restype = ctypes.c_int
-    vr = libs["validate_ref"][0].validate_ref_launch
-    vr.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2)
-    vr.restype = ctypes.c_int
+        if name == "cadd_join":
+            fn = lib.cadd_join_launch
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * 3)
+        else:
+            fn = lib.validate_ref_launch
+            fn.argtypes = (([ctypes.c_void_p, ctypes.c_longlong] * 2
+                            + [ctypes.c_void_p] * 7) if sized
+                           else [ctypes.c_void_p] * 9) \
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        libs[version, name] = (lib, [ln for ln in log.splitlines()
+                                     if "registers" in ln], sized)
     return libs
 
 
-def parent_cadd_join(lib, torch):
+def earlier_cadd_join(lib, torch):
     def run(vpos, vref, valt, spos, sref, salt, probe):
         n, w = vref.shape
         matched = torch.empty((n,), dtype=torch.bool, device=vpos.device)
@@ -91,31 +102,33 @@ def parent_cadd_join(lib, torch):
             matched.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(vpos.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"parent cadd_join: cudaError {rc}")
+            raise RuntimeError(f"earlier cadd_join: cudaError {rc}")
         return matched, idx
     return run
 
 
-def parent_validate_ref(lib, torch):
+def earlier_validate_ref(lib, sized, torch):
     def run(packed, n_mask, byte_off, mask_off, lengths, chrom, pos, ref, ref_len):
         n, w = ref.shape
         ok = torch.empty((n,), dtype=torch.bool, device=ref.device)
+        genome = ((packed.data_ptr(), packed.numel(), n_mask.data_ptr(),
+                   n_mask.numel()) if sized else (packed.data_ptr(), n_mask.data_ptr()))
         rc = lib.validate_ref_launch(
-            packed.data_ptr(), n_mask.data_ptr(), byte_off.data_ptr(),
-            mask_off.data_ptr(), lengths.data_ptr(), chrom.data_ptr(),
-            pos.data_ptr(), ref.data_ptr(), ref_len.data_ptr(), n, w,
-            ok.data_ptr(), torch.cuda.current_stream(ref.device).cuda_stream)
+            *genome, byte_off.data_ptr(), mask_off.data_ptr(), lengths.data_ptr(),
+            chrom.data_ptr(), pos.data_ptr(), ref.data_ptr(), ref_len.data_ptr(),
+            n, w, ok.data_ptr(), torch.cuda.current_stream(ref.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"parent validate_ref: cudaError {rc}")
+            raise RuntimeError(f"earlier validate_ref: cudaError {rc}")
         return ok
     return run
 
 
 def in_turns(torch, smoke, fns, inputs, iters) -> dict:
-    """{name: {"ms", "call_ms", "runs"}} for the two versions in ``fns``
-    (parent first), timed parent, this, this, parent."""
+    """{name: {"ms", "call_ms", "runs"}} for the versions in ``fns`` (this
+    checkout's last), timed forward, then backward."""
     runs = {}
-    for name in (0, 1, 1, 0):
+    order = list(range(len(fns)))
+    for name in order + order[::-1]:
         label, fn = fns[name]
         runs.setdefault(label, []).append({
             "device_ms": smoke.device_ms(torch, fn, inputs, iters),
@@ -133,9 +146,10 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
-                    help="checkout of the earlier commit")
+    ap.add_argument("--earlier", action="append", required=True,
+                    metavar="NAME=DIR", help="an earlier version's checkout")
     args = ap.parse_args()
+    earlier = dict(spec.split("=", 1) for spec in args.earlier)
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: needs a CUDA card",
               file=sys.stderr)
@@ -158,23 +172,32 @@ def main() -> int:
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     logs = build.build(["cadd_join", "validate_ref"])
-    parent = build_parent(args.parent)
+    libs = build_earlier(earlier)
     _emit(phase="build", seconds=time.perf_counter() - t0,
           this={k: [ln for ln in v.splitlines() if "registers" in ln]
                 for k, v in logs.items()},
-          parent={k: v[1] for k, v in parent.items()})
+          **{f"{ver}_{name}": v[1] for (ver, name), v in libs.items()})
 
     def to_dev(xs):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in xs]
 
+    def report(kernel, shape, times, **fields):
+        _emit(kernel=kernel, shape=shape, **fields,
+              **{f"{label}_{key}": t[key] for label, t in times.items()
+                 for key in ("ms", "call_ms")},
+              **{f"speedup_vs_{label}": t["ms"] / times["this"]["ms"]
+                 for label, t in times.items() if label != "this"},
+              runs=times)
+
     # cadd_join
-    old_join = parent_cadd_join(parent["cadd_join"][0], torch)
+    joins = [(ver, earlier_cadd_join(libs[ver, "cadd_join"][0], torch))
+             for ver in earlier] + [("this", cadd_join)]
     for shape, (n, k, probe) in smoke.CADD_SHAPES.items():
         host = [smoke.cadd_random_block(30 + i, n, k, smoke.WIDTH, probe,
                                         shape == "snv") for i in range(3)]
         inputs = [to_dev(h) for h in host]
         fns = [(label, (lambda f: lambda *a: f(*a, probe=probe))(f))
-               for label, f in (("parent", old_join), ("this", cadd_join))]
+               for label, f in joins]
         for t in inputs:
             want = cadd_join_reference(*t, probe=probe)
             for label, fn in fns:
@@ -187,11 +210,8 @@ def main() -> int:
         bound = smoke.cadd_bound(a[0], a[3], probe, m.cpu().numpy(),
                                  idx.cpu().numpy(), smoke.WIDTH)
         times = in_turns(torch, smoke, fns, inputs, 100)
-        _emit(kernel="cadd_join", shape=shape, variants=n, score_rows=k,
-              probe=probe, bound_ms=bound["bound_ms"],
-              **{f"{lab}_{key}": t[key] for lab, t in times.items()
-                 for key in ("ms", "call_ms")},
-              speedup=times["parent"]["ms"] / times["this"]["ms"], runs=times)
+        report("cadd_join", shape, times, variants=n, score_rows=k, probe=probe,
+               bound_ms=bound["bound_ms"])
         del inputs
 
     # validate_ref against a GRCh38-shaped genome
@@ -203,8 +223,9 @@ def main() -> int:
     torch.cuda.synchronize()
     _emit(phase="genome", seconds=time.perf_counter() - t0,
           bytes=sum(t.numel() * t.element_size() for t in tables))
-    old_validate = parent_validate_ref(parent["validate_ref"][0], torch)
-    fns = [("parent", old_validate), ("this", validate_ref)]
+    fns = [(ver, earlier_validate_ref(libs[ver, "validate_ref"][0],
+                                      libs[ver, "validate_ref"][2], torch))
+           for ver in earlier] + [("this", validate_ref)]
     for shape, n in smoke.VALIDATE_SHAPES.items():
         code = 22 if shape == "chunk_sorted" else None
         host = [smoke.validate_random_rows(genome, n, smoke.WIDTH, seed=40 + i,
@@ -221,11 +242,8 @@ def main() -> int:
         bound = smoke.validate_bound(genome, *host[0][:4])
         times = in_turns(torch, smoke, fns, inputs,
                          200 if n == smoke.CHUNK_ROWS else 20)
-        _emit(kernel="validate_ref", shape=shape, rows=n, bound_ms=bound["bound_ms"],
-              passing=float(want.float().mean()),
-              **{f"{lab}_{key}": t[key] for lab, t in times.items()
-                 for key in ("ms", "call_ms")},
-              speedup=times["parent"]["ms"] / times["this"]["ms"], runs=times)
+        report("validate_ref", shape, times, rows=n, bound_ms=bound["bound_ms"],
+               passing=float(want.float().mean()))
         del inputs
     return 0
 
