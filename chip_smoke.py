@@ -93,7 +93,7 @@ line:
               the last step ``install-schema --storeDir`` of each store:
               identical output trees, one ``annotate_bin`` launch per
               65,536-row egress window;
-7. vep      — a seeded VEP JSON of 200,000 results (1-6 transcript
+7. vep      — a seeded VEP JSON of 100,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
               ~2% for alleles the store lacks, 20 novel combos, one
@@ -3488,7 +3488,10 @@ def main() -> int:
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         try:
-            inputs = write_inputs(2_000_000, 500_000, 50_000, 200_000,
+            # phase 7 at 100,000 VEP results: phase 8's three commands each
+            # load and save the store whose VEP sidecars phase 7 writes,
+            # and those, not their lines, set phase 8's wall
+            inputs = write_inputs(2_000_000, 500_000, 50_000, 100_000,
                                   n8=(150_000, 150_000, 75_000))
             emit("inputs", genome=inputs["genome"]["seconds"],
                  genome_index_bytes=inputs["genome"]["index_bytes"],
