@@ -38,6 +38,9 @@ COMMANDS = {
                        "data (display recompute on the card by default)"),
     "bin-references": ("annotatedvdb_tpu_torch.cli.generate_bin_index_references",
                        "emit the BinIndexRef table as TSV (host only)"),
+    "serve": ("annotatedvdb_tpu_torch.cli.serve",
+              "HTTP query server over a store (--frontend threaded; "
+              "kernels on the card by default)"),
 }
 
 

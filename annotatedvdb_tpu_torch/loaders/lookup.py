@@ -8,7 +8,8 @@ step (``models/pipeline.py::annotate_hash_fn``: one ``annotate_bin``
 launch on a card, the plain versions on the CPU); rows over the width are
 re-hashed from their original strings (their device arrays are truncated,
 so the device hash would collide on shared prefixes); then one
-per-chromosome sorted-merge lookup against the shard.
+per-chromosome sorted-merge lookup against the shard.  Bare allele arrays
+(the query server's ids) are hashed on the host (:func:`identity_hashes`).
 """
 
 from __future__ import annotations
@@ -42,13 +43,18 @@ def _override_over_width(h, width, ref_len, alt_len, refs, alts) -> np.ndarray:
 
 def identity_hashes(width: int, ref: np.ndarray, alt: np.ndarray,
                     ref_len: np.ndarray, alt_len: np.ndarray,
-                    refs=None, alts=None, device="cpu") -> np.ndarray:
-    """[N] uint32 identity hashes of bare allele arrays (no positions):
-    the device step's hash on ``device``, with the over-width host-string
-    override when the original strings are supplied.  Bit-identical to
-    :func:`chunk_hashes`: the hash does not read the position."""
-    pos = np.zeros(np.asarray(ref_len).shape, np.int32)
-    h = _device_hash(device, pos, ref, alt, ref_len, alt_len)
+                    refs=None, alts=None) -> np.ndarray:
+    """[N] uint32 identity hashes of bare allele arrays on the host, as the
+    reference's ``identity_hashes``: the plain allele hash over CPU tensors
+    (no annotate step), with the over-width host-string override when the
+    original strings are supplied.  Bit-identical to :func:`chunk_hashes`:
+    the hash does not read the position.  The query server's point and
+    bulk probes use it."""
+    from annotatedvdb_tpu_torch.ops.hashing import allele_hash
+
+    h = allele_hash(*(torch.from_numpy(np.ascontiguousarray(x))
+                      for x in (ref, alt, ref_len, alt_len)))
+    h = h.numpy().astype(np.uint32)
     if refs is None:
         return h
     return _override_over_width(h, width, ref_len, alt_len, refs, alts)

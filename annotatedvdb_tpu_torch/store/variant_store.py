@@ -276,7 +276,7 @@ class Segment:
     saved)."""
 
     __slots__ = ("n", "cols", "ref", "alt", "obj", "backing", "dirty",
-                 "_key", "_device", "_numpy_query_volume")
+                 "_key", "_device", "_numpy_query_volume", "residency")
 
     def __init__(self, cols, ref, alt, obj, backing=None):
         self.n = int(ref.shape[0])
@@ -290,6 +290,11 @@ class Segment:
         #: (device, identity tensors) once uploaded for torch probes
         self._device = None
         self._numpy_query_volume = 0  # ski-rental accumulator (see probe)
+        # None = the segment decides its own device cache (ski-rental in
+        # wants_device); "managed" = a serving residency manager
+        # (serve/residency.py) owns upload and eviction under a byte budget:
+        # probes then use the cache it installed and never upload one
+        self.residency: str | None = None
 
     @property
     def key(self) -> np.ndarray:
@@ -460,12 +465,17 @@ class Segment:
         """Whether a probe of ``nq`` rows runs the torch probe on ``device``
         (see :func:`device_lookup_mode`).  Unlike the reference, which turns
         device lookups off on a CPU backend and latches them off after one
-        failure, ``always`` honours the CPU too and errors propagate."""
+        failure, ``always`` honours the CPU too and errors propagate.  A
+        segment a residency manager governs (``residency == "managed"``)
+        probes on ``device`` only through the cache the manager installed."""
         if device is None:
             return False
         mode = device_lookup_mode()
         if mode == "off":
             return False
+        if self.residency == "managed":
+            dev = self._device
+            return dev is not None and dev[0] == device
         if mode == "always":
             return True
         if device.type != "cuda":
@@ -486,11 +496,17 @@ class Segment:
         if self.n == 0:
             return np.zeros(pos.shape, np.bool_), np.full(pos.shape, -1, np.int32)
         nq = pos.shape[0]
-        if self.wants_device(nq, device):
+        # the cache is read once: a residency manager may evict it from
+        # another thread, and a managed segment whose cache vanished after
+        # the check probes on the host instead of uploading one
+        cached = self._device
+        if self.wants_device(nq, device) and (
+                self.residency != "managed"
+                or (cached is not None and cached[0] == device)):
             if stats is not None:
                 stats["device"] = stats.get("device", 0) + 1
             return self._probe_device(device, pos, h, ref, alt, ref_len,
-                                      alt_len)
+                                      alt_len, cached=cached)
         if stats is not None:
             stats["host"] = stats.get("host", 0) + 1
         self._numpy_query_volume += nq
@@ -536,13 +552,18 @@ class Segment:
             ))
         return self._device[1]
 
-    def _probe_device(self, device, pos, h, ref, alt, ref_len, alt_len):
+    def _probe_device(self, device, pos, h, ref, alt, ref_len, alt_len,
+                      cached=None):
         """Membership through ``ops/dedup.lookup_in_sorted`` against the
-        device copy of this segment's identity columns."""
+        device copy of this segment's identity columns (``cached``: the
+        caller's captured ``(device, tensors)``, else built here)."""
         from annotatedvdb_tpu_torch.ops.dedup import lookup_in_sorted
         from annotatedvdb_tpu_torch.runtime import to_device
 
-        cache = self._ensure_device_cache(device)
+        if cached is not None and cached[0] == device:
+            cache = cached[1]
+        else:
+            cache = self._ensure_device_cache(device)
         query = [to_device(x, device) for x in (
             np.asarray(pos, np.int32), np.asarray(h).astype(np.int64),
             ref, alt, np.asarray(ref_len, np.int32),
@@ -623,6 +644,14 @@ class ChromosomeShard:
         return np.concatenate(
             [[0], np.cumsum([s.n for s in self.segments])]
         ).astype(np.int64)
+
+    def locate_row(self, gid: int) -> tuple["Segment", int]:
+        """(segment, local offset) for one global row id — the per-row read
+        accessor the serving path renders records through."""
+        gid = int(gid)
+        starts = self._starts()
+        si = int(starts.searchsorted(gid, side="right")) - 1
+        return self.segments[si], gid - int(starts[si])
 
     def _locate(self, ids) -> tuple[np.ndarray, np.ndarray]:
         """Global ids -> (segment index, local offset), vectorized."""
@@ -931,6 +960,10 @@ class VariantStore:
         import uuid
 
         self.width = width
+        #: read-only stores (``load(..., readonly=True)``) refuse ``save``
+        #: and never materialize shards on access: a serving read path must
+        #: not create directories or persist empty shards
+        self.readonly = False
         self.shards: dict[int, ChromosomeShard] = {}
         self._next_seg_id = 1
         # per-stem write-time integrity records ({stem: {npz: {bytes, crc32},
@@ -945,6 +978,11 @@ class VariantStore:
     def shard(self, chrom_code: int) -> ChromosomeShard:
         code = int(chrom_code)
         if code not in self.shards:
+            if self.readonly:
+                raise RuntimeError(
+                    f"readonly store: shard {code} does not exist and must "
+                    "not be created by a read path (use store.shards.get)"
+                )
             self.shards[code] = ChromosomeShard(code, self.width)
         return self.shards[code]
 
@@ -1004,6 +1042,11 @@ class VariantStore:
         return manifest
 
     def save(self, path: str) -> None:
+        if self.readonly:
+            raise RuntimeError(
+                "readonly store: save() is forbidden (opened with "
+                "readonly=True — reload without it to mutate)"
+            )
         os.makedirs(path, exist_ok=True)
         trusted = self._dir_manifest(path) is not None
         live_files = {"manifest.json"}
@@ -1158,9 +1201,11 @@ class VariantStore:
         return {"npz": npz_rec, "jsonl": {"bytes": f.nbytes, "crc32": f.crc}}
 
     @classmethod
-    def load(cls, path: str) -> "VariantStore":
+    def load(cls, path: str, readonly: bool = False) -> "VariantStore":
         """Load a persisted store (format 2 or 3, written by either
-        package)."""
+        package).  ``readonly=True`` marks the result read-only (``save``
+        raises, missing shards are never materialized) — the serving
+        path's open."""
         mpath = os.path.join(path, "manifest.json")
         try:
             with open(mpath) as f:
@@ -1231,6 +1276,7 @@ class VariantStore:
                         f"dirty={seg.dirty}); store files are inconsistent"
                     )
                 shard.segments.append(seg)
+        store.readonly = bool(readonly)
         return store
 
     @staticmethod

@@ -13,3 +13,13 @@ POS_SENTINEL = np.iinfo(np.int32).max
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n (min 1)."""
     return max(1 << (int(n) - 1).bit_length(), 1) if n > 0 else 1
+
+
+def pad_pow2(a: np.ndarray, fill) -> np.ndarray:
+    """Pad the leading axis to the next power of two with ``fill``."""
+    n = a.shape[0]
+    cap = next_pow2(n)
+    if cap == n:
+        return a
+    pad = np.full((cap - n,) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad])

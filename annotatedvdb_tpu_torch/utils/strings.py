@@ -56,3 +56,22 @@ def deep_update(base: dict, patch: dict) -> dict:
         else:
             base[key] = value
     return base
+
+
+def parse_bytes(spec: str) -> int:
+    """``"512m"``/``"2g"``/``"65536"`` -> bytes (k/m/g suffixes, base 1024);
+    malformed input raises."""
+    s = spec.strip().lower()
+    mult = 1
+    if s and s[-1] in "kmg":
+        mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}[s[-1]]
+        s = s[:-1]
+    try:
+        n = int(float(s) * mult)
+    except ValueError:
+        raise ValueError(
+            f"bad byte size {spec!r}: expected <int>[k|m|g]"
+        ) from None
+    if n < 0:
+        raise ValueError(f"bad byte size {spec!r}: must be >= 0")
+    return n

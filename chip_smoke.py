@@ -6,9 +6,9 @@ update, the VCF/TSV-driven update legs (``update-qc``,
 ``load-snpeff-lof``, ``update-annotation``), the CADD score join
 (``load-cadd``), reference-genome validation (``index-genome``,
 ``load-vcf --refGenome``), the Postgres egress (``install-schema``) and
-the host-only commands (``export-vcf``, ``undo``, ``bin-references``) on
-``cuda:0`` and checks them, phase by phase, each phase printing one JSON
-line:
+the host-only commands (``export-vcf``, ``undo``, ``bin-references``) and
+the query server (``serve --frontend threaded``) on ``cuda:0`` and checks
+them, phase by phase, each phase printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
@@ -46,7 +46,17 @@ line:
               65,536 position-sorted chr22 rows (a load's chunk), 60-80%
               of each passing; its time at 65,536 random rows, at the
               65,536 sorted rows and at 1,048,576 random rows beside the
-              plain version's and the bound;
+              plain version's and the bound.  Then the query server's
+              kernels (``bits_spans``, ``stats_panel``,
+              ``windowed_stats``) against their plain versions, exactly, on
+              edge cases (1 to 5,000 rows across the 256-row tiles, all
+              features missing, runs of equal positions, queries before,
+              after and across the rows, ``start > end``, the clamp) and at
+              the serving shape (2,274,305 seeded chr22 rows padded to
+              4,194,304, 4,096 gene-panel intervals, windows 1, 7, 16 and
+              64); their time there beside the plain versions', the bounds
+              and two ``torch.searchsorted`` calls, and the plain
+              versions' device memory;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -61,8 +71,8 @@ line:
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
-6. parity   — the first 50,000 lines loaded on the card and on the CPU,
-              then updated from 12,500 VEP results for the variants of
+6. parity   — the first 12,500 lines loaded on the card and on the CPU,
+              then updated from 3,125 VEP results for the variants of
               their first half (``load-vep``, the ranking file re-ranked
               on load and saved on each of 5 learned combos), once with
               the Python tokenizer, the serial executor and the Python
@@ -72,8 +82,8 @@ line:
               saved ranking files must be identical, the VEP counters the
               ones the generator predicts.  Then, in each configuration,
               the three update commands in turn on the same stores: a QC
-              pVCF over the first 25,000 lines with 10% novel rows, a
-              SnpEff file over all of them and a METASEQ TSV of 12,500
+              pVCF over the first 6,250 lines with 10% novel rows, a
+              SnpEff file over all of them and a METASEQ TSV of 3,125
               rows with 5% novel: the stores identical after each, the
               counters as predicted, and on the card the predicted
               ``annotate_bin`` launches (one per chunk or batch hashed on
@@ -82,7 +92,7 @@ line:
               ``AVDB_NATIVE_CADD=0``), ``load-cadd --commit`` against
               seeded BGZF tables over the lines' span, ``--buildIndex``
               (once per configuration: it reads only the tables), an
-              indexed ``--fileName`` update of the first 10,000 lines with
+              indexed ``--fileName`` update of the first 2,500 lines with
               ``--updateExisting``, ``export-vcf`` and ``undo`` of the QC
               update: stores and export files identical card against CPU
               after each, the predicted ``cadd_join`` launches, no plain
@@ -117,12 +127,12 @@ line:
 8. updates  — on phase 7's store, through the CLIs' ``main`` with
               ``--commit`` in the default configuration, each with the
               counters reset just before and read just after: a seeded
-              ADSP-QC-shaped pVCF of 150,000 phase-4 lines (QUAL, FILTER
+              ADSP-QC-shaped pVCF of 100,000 phase-4 lines (QUAL, FILTER
               PASS on 85%, numeric INFO keys and a flag, a repeated key on
               1%, FORMAT and a sample; 10% new SNVs, 3% of those with two
-              alts) with ``--version r4``; a SnpEff VCF of 150,000 phase-4
+              alts) with ``--version r4``; a SnpEff VCF of 100,000 phase-4
               identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
-              of 75,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
+              of 50,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
               predicts, the predicted ``annotate_bin`` launches, no plain
               hash on the card, stage seconds, wall, lines/s and the
@@ -152,7 +162,7 @@ line:
               full 50,818,468 bases, N and lowercase runs) and a short
               chr21 with IUPAC codes: lossy flags, chr22's arrays equal to
               the generator's, sampled ``fetch`` windows equal to the text.
-              Then ``load-vcf --refGenome --commit`` of the first 500,000
+              Then ``load-vcf --refGenome --commit`` of the first 250,000
               phase-4 lines plus five at chr22's end into a fresh store,
               every counter reset just before and read just after:
               ``ref_mismatch`` and rows as the generator counts them by
@@ -163,7 +173,24 @@ line:
               validation's seconds and the device's idle share.  Then
               ``install-schema --storeDir`` of that store (COPY rows equal
               to store rows, one launch per window; wall, rows/s) and
-              ``bin-references`` for GRCh38 (395,448 rows).
+              ``bin-references`` for GRCh38 (395,448 rows);
+11. serve   — ``python -m annotatedvdb_tpu_torch serve --frontend
+              threaded --port 0`` on phase 9's store (CADD scores and FREQ
+              allele frequencies; no ranks) and 8 client threads sending a
+              seeded mix: 2,000 point ids (5% absent), 10 bulk calls of
+              10,000 ids, 64 region walks of three pages (10 kb-1 Mb,
+              ``minCadd=20``), 16 ``POST /regions`` batches of 4,096
+              gene-panel intervals (half count-only, half two rows each
+              with ``tokenize``) and 16 ``POST /stats/region`` batches of
+              4,096 with ``windows`` 16.  Every body equal to the host-only
+              engine's answer (computed after the traffic window by four
+              spawned helper processes, idle while it runs); the kernels'
+              launches as predicted, no breaker failure and no plain
+              version on the card (the server's shutdown summary);
+              p50/p99 per kind, requests/s, intervals/s, the device's
+              idle share (an upper bound: phase 3's kernel times times
+              the launches) and bytes held, the store load, index build
+              and feature decode seconds.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -1458,19 +1485,36 @@ def call_ms(torch, fn, inputs, iters):
     return start.elapsed_time(stop) / iters
 
 
+def _kernel_counts(prof) -> dict:
+    """{device event name: (count, summed device us)} of a profile."""
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0}
+
+
 def device_ms(torch, fn, inputs, iters):
     """Summed device time of every kernel a call launches (profiler), per
-    call; None when the profiler sees no device time."""
+    call.  One profiled call first counts the launches of each kernel name
+    a call makes; None (the caller falls back to CUDA events) when the
+    profiler sees no device time, or when the timed trace holds fewer
+    events of any name than ``iters`` times its count in one call (a
+    trace that lost events would read too low)."""
     from torch.profiler import ProfilerActivity, profile
 
     _run(fn, inputs, 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _run(fn, inputs, 1)
+        torch.cuda.synchronize()
+    per_call = _kernel_counts(prof)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _run(fn, inputs, iters)
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    seen = _kernel_counts(prof)
+    total_us = sum(us for _n, us in seen.values())
+    if total_us <= 0 or not per_call or any(
+            seen.get(name, (0, 0))[0] < iters * n for name, (n, _us) in per_call.items()):
+        return None
+    return total_us / 1e3 / iters
 
 
 def kernel_phase(torch, device):
@@ -1895,6 +1939,368 @@ def validate_kernel_phase(torch, device, index) -> dict:
     }
 
 
+# ------------------------------------------------- serving kernels (phase 3)
+
+#: the serving shape: the rows of phase 9's chr22 store (phases 4 and 5,
+#: padded to 4,194,304) and a 4,096-interval panel
+SERVE_ROWS = 2_274_305
+SERVE_QUERIES = 4096
+SERVE_WINDOWS = 16
+
+
+def serve_columns(seed, k, q, missing=(0.8, 0.4, 0.5), span=(16_000_000, 50_000_000)):
+    """Seeded serving inputs: ``k`` position-sorted chr22 rows (3% of
+    positions shared by two rows, as multi-allelic sites are), int32
+    fixed-point AF, CADD and rank columns with ``missing`` shares (-1),
+    values at the histogram edges, at FP_CAP and past it, ranks at and
+    past the last bucket; and ``q`` gene-panel intervals (1-100 kb, 1%
+    whole-chromosome, 1% wholly before the first row)."""
+    from annotatedvdb_tpu_torch.ops import stats as S
+
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.integers(span[0], span[1], k)).astype(np.int32)
+    if k > 2:
+        at = rng.choice(k - 1, max(k * 3 // 100, 1), replace=False)
+        pos[at + 1] = pos[at]
+        pos.sort()
+
+    def col(lo, hi, miss, specials):
+        v = rng.integers(lo, hi, k)
+        pick = rng.random(k) < 0.05
+        v[pick] = rng.choice(specials, int(pick.sum()))
+        v[rng.random(k) < miss] = S.STATS_MISSING
+        return v.astype(np.int32)
+
+    af = col(0, S.AF_SCALE + 1, missing[0], [0, 10, 1_000_000, S.FP_CAP, S.FP_CAP + 1])
+    cadd = col(0, 60_000, missing[1], [0, 1_000, 20_000, 100_000, S.FP_CAP])
+    rank = col(0, 40, missing[2], [0, 31, 32, 500])
+    starts = rng.integers(span[0] - 50_000, span[1], q)
+    ends = starts + rng.integers(1_000, 100_000, q)
+    u = rng.random(q)
+    starts[u < 0.01], ends[u < 0.01] = 1, CHR22_LENGTH
+    before = (u >= 0.01) & (u < 0.02)
+    starts[before], ends[before] = 1, span[0] - 10
+    return pos, af, cadd, rank, starts.astype(np.int32), ends.astype(np.int32)
+
+
+def serve_edge_cases():
+    """Small edge inputs of the serving kernels: (label, pos, af, cadd,
+    rank, starts, ends), queries clamped as every caller clamps them: one
+    row; tile-edge row counts (255, 256, 257, 1000); all features
+    missing; runs of equal positions across a tile edge; queries before
+    the first row, after the last, ``start > end``, at 0 and at the
+    clamp; a single query."""
+    from annotatedvdb_tpu_torch.ops.intervals import MAX_QUERY_POS
+
+    cases = []
+    for i, k in enumerate((1, 255, 256, 257, 1000, 5000)):
+        pos, af, cadd, rank, s, e = serve_columns(90 + i, k, 97, span=(1000, 100_000))
+        cases.append((f"k{k}", pos, af, cadd, rank, s, e))
+    pos, af, cadd, rank, s, e = serve_columns(97, 3000, 64, missing=(1, 1, 1),
+                                              span=(1000, 100_000))
+    cases.append(("all-missing", pos, af, cadd, rank, s, e))
+    pos = np.repeat(np.arange(1, 301, dtype=np.int32) * 10, 3)  # runs of 3
+    _p, af, cadd, rank, _s, _e = serve_columns(98, pos.size, 1, missing=(0, 0, 0))
+    pts = np.asarray([0, 1, 9, 10, 11, 2560, 2561, 3000, 3001, MAX_QUERY_POS],
+                     np.int32)
+    cases.append(("runs-and-ends", pos, af, cadd, rank, pts, pts[::-1].copy()))
+    cases.append(("one-query", pos, af, cadd, rank, pts[3:4], pts[6:7]))
+    return cases
+
+
+def _search_sectors(pos, keys, right=False) -> set:
+    """32-byte sectors of ``pos`` that the textbook binary searches for
+    ``keys`` read (each a lower or upper bound)."""
+    lo = np.zeros(keys.size, np.int64)
+    hi = np.full(keys.size, pos.size, np.int64)
+    sectors = set()
+    while True:
+        active = lo < hi
+        if not active.any():
+            return sectors
+        mid = (lo + hi) >> 1
+        sectors.update((mid[active] // 8).tolist())
+        v = pos[np.minimum(mid, pos.size - 1)]
+        go = (v <= keys) if right else (v < keys)
+        lo = np.where(active & go, mid + 1, lo)
+        hi = np.where(active & ~go, mid, hi)
+
+
+def _rows_in_spans(lo, hi) -> int:
+    """Rows in the union of the half-open spans [lo, hi)."""
+    keep = hi > lo
+    return _union_size(lo[keep], hi[keep] - 1)
+
+
+def serve_bound(kind, pos, starts, ends, windows=SERVE_WINDOWS) -> dict:
+    """Bytes the function must move for these inputs and the operations
+    it does on them.  Every kind reads its query bounds and the 32-byte
+    sectors of ``pos`` its searches touch, and writes its outputs once:
+    ``bits`` 13 bytes a query; ``panel`` reads the AF, CADD and rank
+    values (12 bytes) of every row in the union of the query spans and
+    writes 376 bytes a query, counting per row 2 x (21 bit tests + 9 edge
+    compares) + 2 rank ops + 94 adds; ``windows`` reads the CADD value of
+    every row between each query's first and last boundary and writes
+    92 W bytes a query, counting 1 + 21 tests + 22 adds a row."""
+    k, q = pos.size, starts.size
+    if kind == "windows":
+        from annotatedvdb_tpu_torch.ops.stats import window_bounds
+        import torch
+
+        b = window_bounds(torch.from_numpy(starts), torch.from_numpy(ends),
+                          windows).numpy()
+        keys = b.reshape(-1)
+        sectors = _search_sectors(pos, keys)
+        idx = np.searchsorted(pos, b, side="left")
+        rows = _rows_in_spans(idx[:, 0], idx[:, -1])
+        nbytes = 8 * q + 32 * len(sectors) + 4 * rows + q * windows * 92
+        ops = rows * 44 + keys.size * int(np.ceil(np.log2(k + 1))) * 3
+    else:
+        sectors = _search_sectors(pos, starts) | _search_sectors(pos, ends, right=True)
+        lo = np.searchsorted(pos, starts, side="left")
+        hi = np.searchsorted(pos, ends, side="right")
+        steps = 2 * q * int(np.ceil(np.log2(k + 1))) * 3
+        if kind == "bits":
+            rows = 0
+            nbytes = 8 * q + 32 * len(sectors) + 13 * q
+            ops = steps + q * 13 * 3
+        else:
+            rows = _rows_in_spans(lo, hi)
+            nbytes = 8 * q + 32 * len(sectors) + 12 * rows + 376 * q
+            ops = steps + rows * (2 * (21 + 9) + 2 + 94)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": int(k), "queries": int(q), "span_rows": int(rows),
+            "search_sectors": len(sectors), "bytes": int(nbytes), "ops": int(ops),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def serve_kernel_checks(torch, device, cases, windows_list=(1, 7, SERVE_WINDOWS, 64)):
+    """Each serving kernel against its plain version on the card, exactly
+    (``torch.equal`` on every output), on ``cases``.  Returns the checks
+    and the largest absolute difference seen (0 when all agree)."""
+    from annotatedvdb_tpu_torch.ops import intervals as I
+    from annotatedvdb_tpu_torch.ops import stats as S
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+
+    def diff(got, want):
+        return max((int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                    if g.numel() else 0) for g, w in zip(got, want))
+
+    checks, worst = [], 0
+    for label, pos, af, cadd, rank, s, e in cases:
+        cols = [torch.from_numpy(pad_pow2(a, f)).to(device) for a, f in (
+            (pos, POS_SENTINEL), (af, -1), (cadd, -1), (rank, -1))]
+        qs = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (s, e)]
+        runs = [("bits_spans", I.bits_spans(cols[0], *qs),
+                 I.bits_spans_reference(cols[0], *qs)),
+                ("stats_panel", S.stats_panel(*cols, *qs),
+                 S.stats_panel_reference(*cols, *qs))]
+        for w in windows_list:
+            runs.append((f"windowed_stats_{w}",
+                         S.windowed_stats(cols[0], cols[2], *qs, w),
+                         S.windowed_stats_reference(cols[0], cols[2], *qs, w)))
+        torch.cuda.synchronize()
+        for name, got, want in runs:
+            same = all(g.dtype == w.dtype and torch.equal(g, w)
+                       for g, w in zip(got, want))
+            err = diff(got, want)
+            worst = max(worst, err)
+            checks.append({"kernel": name, "inputs": label, "rows": int(pos.size),
+                           "queries": int(s.size), "equal": same, "max_abs_err": err})
+            if not same:
+                raise AssertionError(f"{name} disagrees with its plain version "
+                                     f"on {label} (max |diff| {err})")
+    return checks, worst
+
+
+def build_serve_store(work, platform) -> dict:
+    """A small store for the query server's tests, built by the port's
+    CLIs on ``platform``: two VCF loads (1,500 seeded chr22 lines and 500
+    chr8 lines, a duplicate line every 60, the second file overlapping the
+    first by 50 lines and adding two over-width rows), a VEP update of half
+    the variants (consequence ranks, colocated frequencies) and a CADD join
+    (BGZF tables over both chromosomes' rows).  Returns the store
+    directory, every variant id of the files plus four the store lacks,
+    and the chromosomes' positions."""
+    from annotatedvdb_tpu_torch.__main__ import main as port
+
+    def cli(*argv):
+        rc = port([*argv, "--platform", platform])
+        assert rc == 0, (argv, rc)
+
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(21)
+    n = 1500
+    pos22 = 16_000_000 + 2 * np.cumsum(rng.integers(1, 13, n))
+    lines22, _ = vcf_lines(21, n, pos22.tolist())
+    pos8 = 1_000_000 + 2 * np.cumsum(rng.integers(1, 40, n // 3))
+    lines8 = ["8" + ln[2:] for ln in vcf_lines(22, n // 3, pos8.tolist())[0]]
+    over = [f"22\t{pos22[-1] + 10}\trs9\t{'A' + 'C' * 69}\tA\t.\t.\t.\n",
+            f"22\t{pos22[-1] + 12}\t.\tG\t{'G' + 'T' * 55}\t.\t.\tRS=77\n"]
+    vcf_a, vcf_b = os.path.join(work, "a.vcf"), os.path.join(work, "b.vcf")
+    with open(vcf_a, "w") as fh:
+        fh.write(HEADER)
+        fh.writelines(lines8)
+        for i, ln in enumerate(lines22[: n // 2]):
+            fh.write(ln)
+            if i % 60 == 0:
+                fh.write(ln)  # a duplicate line
+    with open(vcf_b, "w") as fh:
+        fh.write(HEADER)
+        fh.writelines(lines22[n // 2 - 50:])  # 50 lines the first file has
+        fh.writelines(over)
+    store = os.path.join(work, "vdb")
+    for vcf in (vcf_a, vcf_b):
+        cli("load-vcf", "--fileName", vcf, "--storeDir", store, "--commit",
+            "--commitAfter", "256")
+    vep = os.path.join(work, "x.vep.json")
+    write_vep_json(vep, lines8 + lines22, (len(lines8) + n) // 2, 21, 2)
+    cli("load-vep", "--fileName", vep, "--storeDir", store, "--commit")
+    db = os.path.join(work, "cadd")
+    all_lines = lines8 + lines22 + over
+    write_cadd_tables(db, vcf_sites(all_lines),
+                      {"22": (16_000_000, int(pos22[-1]) - 500),
+                       "8": (1_000_000, int(pos8[-1]) - 300)},
+                      seed=21, block_rows=64)
+    cli("load-cadd", "--databaseDir", db, "--storeDir", store, "--commit",
+        "--logFilePath", os.path.join(work, "cadd.log"))
+    ids = []
+    for ln in all_lines:
+        c, p, _v, r, alts = ln.split("\t")[:5]
+        ids += [f"{c}:{p}:{r}:{a}" for a in alts.split(",") if a != "."]
+    ids += ["22:16000001:A:C", "8:5:A:G", "3:100:A:C",
+            "chr22:" + ids[7].split(":", 1)[1]]
+    return {"store": store, "ids": ids, "pos22": pos22, "pos8": pos8}
+
+
+def serve_panel(served, per_group=40, width=2000, seed=0) -> list:
+    """Query intervals over a :func:`build_serve_store` store:
+    ``per_group`` per chromosome group (so the groups reach the device
+    minimums), two on a chromosome the store lacks and one as wide as
+    chr22."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for label, pos in (("22", served["pos22"]), ("8", served["pos8"])):
+        starts = rng.integers(int(pos[0]) - 1000, int(pos[-1]), per_group)
+        for s in starts.tolist():
+            out.append(f"{label}:{s}-{s + int(rng.integers(1, width))}")
+    return out + ["3:1-100", "3:5000-9000", "22:1-64000000"]
+
+
+def serve_kernel_phase(torch, device) -> list:
+    """Phase 3 for the serving kernels (``bits_spans``, ``stats_panel``,
+    ``windowed_stats``): each against its plain version on the card,
+    exactly, on :func:`serve_edge_cases` and at the serving shape
+    (:data:`SERVE_ROWS` rows padded to 4,194,304, :data:`SERVE_QUERIES`
+    intervals, windows 1, 7, 16 and 64); then each timed at that shape
+    beside its plain version, its bound and (for the spans) two
+    ``torch.searchsorted`` calls.  Returns the kernel table rows
+    (launches filled in after phase 11)."""
+    from annotatedvdb_tpu_torch.ops import intervals as I
+    from annotatedvdb_tpu_torch.ops import stats as S
+    from annotatedvdb_tpu_torch.ops.intervals import clamped_queries
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+
+    host = [serve_columns(40 + i, SERVE_ROWS, SERVE_QUERIES) for i in range(3)]
+    host = [(*h[:4], *clamped_queries(h[4], h[5])) for h in host]
+    checks, worst = serve_kernel_checks(
+        torch, device, serve_edge_cases() + [("serving", *host[0])])
+    cols = [torch.from_numpy(pad_pow2(a, f)).to(device) for a, f in (
+        (host[0][0], POS_SENTINEL), (host[0][1], -1), (host[0][2], -1),
+        (host[0][3], -1))]
+    queries = [[torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in h[4:]]
+               for h in host]
+
+    def best(rs):
+        dev = [r["device_ms"] for r in rs if r["device_ms"] is not None]
+        return min(dev) if dev else min(r["call_ms"] for r in rs)
+
+    def timed(fns, inputs):
+        runs = {}
+        for name, fn, iters in fns:
+            if iters == 0:  # one call between CUDA events, no warm-up
+                runs.setdefault(name, []).append(
+                    {"device_ms": None, "call_ms": single_ms(fn, inputs[0])})
+                continue
+            runs.setdefault(name, []).append({
+                "device_ms": device_ms(torch, fn, inputs, iters),
+                "call_ms": call_ms(torch, fn, inputs, iters)})
+        return runs
+
+    def single_ms(fn, args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    pos_t, af_t, cadd_t, rank_t = cols
+    w = SERVE_WINDOWS
+    shapes = {
+        "bits_spans": ([(pos_t, *q) for q in queries], I.bits_spans,
+                       I.bits_spans_reference,
+                       lambda p, s, e: (torch.searchsorted(p, s),
+                                        torch.searchsorted(p, e, right=True)),
+                       "bits"),
+        "stats_panel": ([(*cols, *q) for q in queries], S.stats_panel,
+                        S.stats_panel_reference, None, "panel"),
+        "windowed_stats": ([(pos_t, cadd_t, *q) for q in queries],
+                           lambda p, c, s, e: S.windowed_stats(p, c, s, e, w),
+                           lambda p, c, s, e: S.windowed_stats_reference(p, c, s, e, w),
+                           None, "windows"),
+    }
+    timing, rows = {}, []
+    sources = {"bits_spans": ("bits_spans.cu", "annotatedvdb_tpu/ops/intervals.py:60"),
+               "stats_panel": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:139"),
+               "windowed_stats": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:187")}
+    for name, (inputs, kernel, plain, library, kind) in shapes.items():
+        # the stats plain versions take seconds a call at this shape: one
+        # timed call, after the warm call below
+        slow = name != "bits_spans"
+        fns = [("plain", plain, 0 if slow else 3), ("kernel", kernel, 50),
+               ("kernel", kernel, 50)] + ([] if slow else [("plain", plain, 3)])
+        if library is not None:
+            fns += [("library", library, 50)]
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        plain(*inputs[0])
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated(device) - base
+        torch.cuda.reset_peak_memory_stats(device)
+        kernel(*inputs[0])
+        torch.cuda.synchronize()
+        kernel_peak = torch.cuda.max_memory_allocated(device) - base
+        runs = timed(fns, inputs)
+        bound = serve_bound(kind, host[0][0], host[0][4], host[0][5])
+        ms = best(runs["kernel"])
+        timing[name] = {**bound, "ms": ms, "plain_ms": best(runs["plain"]),
+                        "library_ms": best(runs["library"]) if library else None,
+                        "call_ms": min(r["call_ms"] for r in runs["kernel"]),
+                        "bound_share": bound["bound_ms"] / ms,
+                        "plain_peak_bytes": plain_peak, "kernel_peak_bytes": kernel_peak,
+                        "timed_by": {k: "profiler" if any(
+                            r["device_ms"] is not None for r in rs) else "events"
+                            for k, rs in runs.items()},
+                        "timing_runs": runs}
+        src, replaces = sources[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"annotatedvdb_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": timing[name]["plain_ms"], "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": timing[name]["library_ms"],
+        })
+    emit("serve_kernels", checks=checks, timing=timing)
+    del cols, queries
+    torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def captured_loaders(cls, method="load_file"):
     """Every ``cls`` loader whose ``method`` runs inside, in call order
@@ -2075,7 +2481,7 @@ def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
     inp["vep_seconds"] = time.perf_counter() - t0
     inp["want7b"], inp["novel7b"] = write_vep_json(
         inp["vep7b"], lines4[: n4 // 10], n7b, seed=77, n_novel=5)
-    # the update legs: phase 6's over the identities of its 50,000 lines
+    # the update legs: phase 6's over the identities of its lines
     # (a QC pVCF over the first half), phase 8's over phase 4's lines
     t0 = time.perf_counter()
     with open(inp["vcf6"]) as f:
@@ -3381,6 +3787,332 @@ def refgenome_phase(torch, platform, inp) -> dict:
     return {"launches": validated, "annotate_launches": annotated}
 
 
+# ------------------------------------------------- query server (phase 11)
+
+#: phase 11's mix: point ids (5% absent), bulk calls of ``bulk_ids`` ids,
+#: single-region walks of ``region_pages`` pages (``minCadd=20``,
+#: ``page_rows`` rows a page), ``panels`` ``POST /regions`` batches and
+#: ``stats`` ``POST /stats/region`` batches (windows 16) of ``intervals``
+#: intervals each, sent by ``clients`` threads
+SERVE_MIX = {"points": 2000, "absent_share": 0.05, "bulk_calls": 10,
+             "bulk_ids": 10_000, "regions": 64, "region_pages": 3,
+             "page_rows": 100, "panels": 16, "stats": 16,
+             "intervals": SERVE_QUERIES, "clients": 8}
+
+
+def serve_ids(lines, rng, n, absent_share):
+    """``n`` variant ids drawn from VCF data ``lines``; ``absent_share`` of
+    them with an alternate base no line at that position carries (the
+    phase-4 file has one line a position, so such an id is absent)."""
+    out = []
+    pick = rng.choice(len(lines), n)
+    absent = rng.random(n) < absent_share
+    for li, gone in zip(pick.tolist(), absent.tolist()):
+        chrom, pos, _vid, ref, alt_col = lines[li].split("\t", 5)[:5]
+        alts = [a for a in alt_col.split(",") if a != "."] or ["A"]
+        if gone:
+            alt = next(b for b in "ACGT" if b != ref[0] and b not in alts)
+        else:
+            alt = alts[int(rng.integers(len(alts)))]
+        out.append(f"{chrom}:{pos}:{ref}:{alt}")
+    return out
+
+
+def serve_intervals(rng, n, span):
+    """``n`` gene-panel intervals on chr22 (1-100 kb inside ``span``), 1%
+    as wide as the chromosome and 1% on chr21, which the store lacks."""
+    starts = rng.integers(span[0], span[1], n)
+    ends = starts + rng.integers(1_000, 100_000, n)
+    u = rng.random(n)
+    out = []
+    for s, e, x in zip(starts.tolist(), ends.tolist(), u.tolist()):
+        if x < 0.01:
+            out.append(f"22:1-{CHR22_LENGTH}")
+        elif x < 0.02:
+            out.append(f"21:{s}-{e}")
+        else:
+            out.append(f"22:{s}-{e}")
+    return out
+
+
+def serve_jobs(vcf4, span, seed=11, mix=SERVE_MIX) -> list:
+    """Phase 11's seeded jobs, shuffled: ``(job id, kind, payload)`` with
+    kind ``point`` (an id), ``bulk`` (ids), ``region`` (a chr22 spec of
+    10 kb-1 Mb inside the CADD span, walked page by page), ``regions``
+    (a batch body: half count-only, half ``limit`` 2 with ``tokenize``)
+    and ``stats`` (a batch body with ``windows`` 16)."""
+    rng = np.random.default_rng(seed)
+    with open(vcf4) as f:
+        lines = [ln for ln in f if ln[:1] != "#" and ln.split("\t", 2)[1].isdigit()]
+    jobs = [("point", v) for v in serve_ids(lines, rng, mix["points"],
+                                            mix["absent_share"])]
+    jobs += [("bulk", serve_ids(lines, rng, mix["bulk_ids"], mix["absent_share"]))
+             for _ in range(mix["bulk_calls"])]
+    lens = rng.integers(10_000, 1_000_001, mix["regions"])
+    for n in lens.tolist():
+        s = int(rng.integers(16_000_001, 22_000_000 - n))
+        jobs.append(("region", f"22:{s}-{s + n - 1}"))
+    for i in range(mix["panels"]):
+        body = {"regions": serve_intervals(rng, mix["intervals"], span)}
+        body.update({"limit": 0} if i % 2 else {"limit": 2, "tokenize": True})
+        jobs.append(("regions", body))
+    for _ in range(mix["stats"]):
+        jobs.append(("stats", {"regions": serve_intervals(rng, mix["intervals"], span),
+                               "windows": SERVE_WINDOWS}))
+    order = rng.permutation(len(jobs))
+    return [(int(j), *jobs[j]) for j in order.tolist()]
+
+
+def _digest(status, body: bytes) -> tuple:
+    import hashlib
+
+    return status, len(body), hashlib.sha256(body).hexdigest()
+
+
+def serve_expected(store_dir, vcf4, span, seed=11, mix=SERVE_MIX, part=0,
+                   parts=1) -> dict:
+    """The host-only answers to :func:`serve_jobs` whose index is ``part``
+    modulo ``parts``: a CPU engine over the same store (every group below
+    the device minimums, so every span and panel comes from the numpy
+    twins), each answer rendered as the HTTP handler renders it; returns
+    {job id: [(status, bytes, sha256), ...]} (one entry a page for region
+    walks) and the seconds taken.  Runs in a spawned helper process."""
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    t0 = time.perf_counter()
+    jobs = serve_jobs(vcf4, span, seed, mix)
+    engine = QueryEngine(StaticSnapshots(VariantStore.load(store_dir, readonly=True)),
+                         device="cpu", regions_device_min=1 << 30,
+                         stats_device_min=1 << 30)
+    out = {}
+    for jid, kind, payload in sorted(jobs, key=lambda j: j[0]):
+        if jid % parts != part:
+            continue
+        if kind == "point":
+            rec = engine.lookup(payload)
+            out[jid] = [_digest(200, rec.encode()) if rec is not None else _digest(
+                404, json.dumps({"error": f"variant {payload!r} not in store"}).encode())]
+        elif kind == "bulk":
+            res = engine.lookup_many(payload)
+            found = sum(r is not None for r in res)
+            body = (f'{{"n":{len(res)},"found":{found},"results":['
+                    + ",".join(r if r is not None else "null" for r in res) + "]}")
+            out[jid] = [_digest(200, body.encode())]
+        elif kind == "region":
+            pages, tok = [], ""
+            for _ in range(mix["region_pages"]):
+                text = engine.region(payload, min_cadd=20.0,
+                                     limit=mix["page_rows"], cursor=tok)
+                pages.append(_digest(200, text.encode()))
+                tok = json.loads(text)["next"]
+                if tok is None:
+                    break
+            out[jid] = pages
+        elif kind == "regions":
+            res = engine.regions_serve(payload["regions"], limit=payload["limit"],
+                                       tokenize=payload.get("tokenize", False))
+            out[jid] = [_digest(200, res.assemble().encode())]
+        else:
+            res = engine.stats_serve(payload["regions"], windows=payload["windows"])
+            out[jid] = [_digest(200, res.assemble().encode())]
+    return {"answers": out, "seconds": time.perf_counter() - t0}
+
+
+def _serve_client(port, queue_, results, lock, mix):
+    """One client thread: take jobs until the queue is empty; each request
+    on a fresh connection, timed from send to the last body byte."""
+    import http.client
+    import queue
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+        try:
+            t = time.perf_counter()
+            data = None if body is None else json.dumps(body).encode()
+            conn.request(method, path, body=data)
+            resp = conn.getresponse()
+            raw = resp.read()
+            return resp.status, raw, time.perf_counter() - t
+        finally:
+            conn.close()
+
+    while True:
+        try:
+            jid, kind, payload = queue_.get_nowait()
+        except queue.Empty:
+            return
+        got = []
+        if kind == "point":
+            status, raw, dt = call("GET", f"/variant/{payload}")
+            got.append((kind, status, raw, dt))
+        elif kind == "bulk":
+            got.append((kind, *call("POST", "/variants", {"ids": payload})))
+        elif kind == "region":
+            tok = ""
+            for _ in range(mix["region_pages"]):
+                status, raw, dt = call(
+                    "GET", f"/region/{payload}?minCadd=20&limit="
+                    f"{mix['page_rows']}&cursor={tok}")
+                got.append((kind, status, raw, dt))
+                tok = json.loads(raw).get("next") if status == 200 else None
+                if tok is None:
+                    break
+        else:
+            route = "/regions" if kind == "regions" else "/stats/region"
+            got.append((kind, *call("POST", route, payload)))
+        with lock:
+            results[jid] = [(k, dt, _digest(status, raw)) for k, status, raw, dt in got]
+
+
+#: spawned processes computing phase 11's host-only answers, in parallel
+SERVE_HELPERS = 4
+
+
+def _warm_serve_helper() -> None:
+    """Import what :func:`serve_expected` needs, so a helper process has
+    paid its start-up before the traffic window."""
+    from annotatedvdb_tpu_torch.serve import engine  # noqa: F401
+
+    time.sleep(1.0)  # hold this worker, so each warm call lands on its own
+
+
+def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> dict:
+    """Phase 11: ``python -m annotatedvdb_tpu_torch serve --frontend
+    threaded --port 0`` on phase 9's store (its CADD scores and FREQ
+    allele frequencies; no ranks), with the brownout ladder's latency
+    trigger off (``AVDB_SERVE_BROWNOUT_P99_MS=0``: the phase measures full
+    service), and the jobs of :func:`serve_jobs` sent by ``mix["clients"]``
+    threads.  After the traffic window, :data:`SERVE_HELPERS` spawned
+    processes (started and warmed before the server, idle while it is
+    timed) compute the host-only answers (:func:`serve_expected`, a share
+    of the jobs each); every response must equal its host answer byte for
+    byte.  The server's counters start at 0 with its process and are read
+    from its shutdown summary: the launches as predicted (one
+    ``bits_spans`` per panel, one ``stats_panel`` and one
+    ``windowed_stats`` per stats batch: each has one chr22 group of more
+    than the device minimums), no breaker failure and no plain version on
+    the card.  Reports p50/p99 per request kind, requests/s, intervals/s,
+    the device's kernel-busy and idle shares over the traffic window
+    (each kernel's phase-3 time at the serving shape, ``kernel_ms``, times
+    its launches here; uploads and copies back are not counted, so the
+    idle share is an upper bound), the device bytes held and the store
+    load, index build and feature decode seconds."""
+    import concurrent.futures
+    import multiprocessing
+
+    span = (16_000_000, 42_000_000)
+    t_phase = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            SERVE_HELPERS, mp_context=multiprocessing.get_context("spawn")) as helpers:
+        warm = [helpers.submit(_warm_serve_helper) for _ in range(SERVE_HELPERS)]
+        return _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span,
+                          kernel_ms, serve_jobs(vcf4, span, 11, mix), vcf4)
+
+
+def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms,
+               jobs, vcf4) -> dict:
+    """The server, the clients and the comparison of :func:`serve_phase`."""
+    out_path = os.path.join(WORK, "serve.out")
+    err_path = os.path.join(WORK, "serve.err")
+    env = dict(os.environ, AVDB_SERVE_BROWNOUT_P99_MS="0")
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
+             "--storeDir", store_dir, "--port", "0", "--frontend", "threaded",
+             *(["--platform", "cpu"] if platform == "cpu" else [])],
+            cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
+    try:
+        banner = None
+        deadline = time.perf_counter() + 300
+        while banner is None:
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                with open(err_path) as f:
+                    raise AssertionError(f"serve did not start: {f.read()[-2000:]}")
+            with open(out_path) as f:
+                line = f.readline()
+            if line.endswith("\n") and line.startswith("serving "):
+                banner = line.strip()
+            else:
+                time.sleep(0.2)
+        ready_s = time.perf_counter() - t_phase
+        for f in warm:
+            f.result()
+        port = int(banner.rsplit(":", 1)[1])
+        import queue
+        import threading
+
+        q = queue.Queue()
+        for job in jobs:
+            q.put(job)
+        results, lock = {}, threading.Lock()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=_serve_client,
+                                    args=(port, q, results, lock, mix))
+                   for _ in range(mix["clients"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        traffic_s = time.perf_counter() - t0
+    finally:
+        proc.send_signal(2)  # SIGINT: the server logs its run summary
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    with open(err_path) as f:
+        err = f.read()
+    assert rc == 0, f"serve exited {rc}: {err[-2000:]}"
+    summary = json.loads(err.split("run summary ", 1)[1].splitlines()[0])
+    t0 = time.perf_counter()
+    parts = [f.result() for f in [
+        helpers.submit(serve_expected, store_dir, vcf4, span, 11, mix, part,
+                       SERVE_HELPERS) for part in range(SERVE_HELPERS)]]
+    host_answers_wall = time.perf_counter() - t0
+    answers = {k: v for p in parts for k, v in p["answers"].items()}
+    wrong = [(jid, kind) for jid, kind, _p in jobs
+             if [d for _k, _dt, d in results.get(jid, [])] != answers[jid]]
+    lat = {}
+    for got in results.values():
+        for kind, dt, _d in got:
+            lat.setdefault(kind, []).append(dt)
+    n_req = sum(len(v) for v in lat.values())
+    n_int = mix["intervals"] * (mix["panels"] + mix["stats"])
+    launches = summary["launches"]
+    want = {"bits_spans": mix["panels"], "stats_panel": mix["stats"],
+            "windowed_stats": mix["stats"]}
+    plain_cuda = {k: v.get("cuda", 0) for k, v in summary["plain_calls"].items()}
+    busy_s = sum(kernel_ms.get(k, 0.0) * n for k, n in launches.items()) / 1e3
+    statuses = {}
+    for got in results.values():
+        for _k, _dt, (status, _n, _h) in got:
+            statuses[status] = statuses.get(status, 0) + 1
+    emit("serve", banner=banner, ready_s=ready_s, traffic_s=traffic_s,
+         phase_s=time.perf_counter() - t_phase, requests=n_req,
+         requests_per_s=n_req / traffic_s, intervals=n_int,
+         intervals_per_s=n_int / traffic_s, statuses=statuses,
+         latency_ms={k: {"n": len(v), "p50": float(np.percentile(v, 50)) * 1e3,
+                         "p99": float(np.percentile(v, 99)) * 1e3}
+                     for k, v in sorted(lat.items())},
+         launches=launches, predicted_launches=want, plain_cuda_calls=plain_cuda,
+         breaker=summary["breaker"], kernel_busy_s=busy_s,
+         device_idle_fraction_upper=1 - busy_s / traffic_s,
+         device_bytes=summary["device_bytes"], store_load_s=summary["store_load_s"],
+         index_build_s=summary["index_build_s"], decode_s=summary["decode_s"],
+         host_answers_s=[p["seconds"] for p in parts],
+         host_answers_wall_s=host_answers_wall,
+         mismatches=len(wrong), mismatched=wrong[:10])
+    assert not wrong, f"serve: {len(wrong)} responses differ from the host engine's, e.g. {wrong[:5]}"
+    assert summary["breaker"] == {"open_groups": [], "groups": {}}, summary["breaker"]
+    if platform == "cuda":
+        assert launches == want, f"serve: launches {launches}, predicted {want}"
+        assert not any(plain_cuda.values()), f"serve: plain versions on the card: {plain_cuda}"
+    return {"launches": launches}
+
+
 def vep_kernel_timing(torch, device, rows) -> dict:
     """``annotate_bin`` at the VEP load's identity-batch shape: ten
     load-like input sets (``io/synth.py``, 85% SNVs) of ``rows`` rows at
@@ -3491,8 +4223,12 @@ def main() -> int:
             # phase 7 at 100,000 VEP results: phase 8's three commands each
             # load and save the store whose VEP sidecars phase 7 writes,
             # and those, not their lines, set phase 8's wall
-            inputs = write_inputs(2_000_000, 500_000, 50_000, 100_000,
-                                  n8=(150_000, 150_000, 75_000))
+            # depth cut to make room for phase 11: phase 6 at 12,500 lines
+            # and 2,500 indexed lines, phase 8 at 100,000 / 100,000 /
+            # 50,000, phase 10 at 250,000 lines (PERF.md section 4)
+            inputs = write_inputs(2_000_000, 500_000, 12_500, 100_000,
+                                  n8=(100_000, 100_000, 50_000), head6=2_500,
+                                  n10=250_000)
             emit("inputs", genome=inputs["genome"]["seconds"],
                  genome_index_bytes=inputs["genome"]["index_bytes"],
                  **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
@@ -3501,6 +4237,7 @@ def main() -> int:
             table = kernel_phase(torch, device)
             table.append(cadd_kernel_phase(torch, device))
             table.append(validate_kernel_phase(torch, device, inputs["genome"]["index"]))
+            table += serve_kernel_phase(torch, device)
             native_hash_check(torch, device, inputs["vcf4"])
             # 4-6. the load (counters reset inside, just before it), the
             # probed reload and the card-vs-CPU parity.  Phase 9's tables
@@ -3546,6 +4283,11 @@ def main() -> int:
             # 10. the reference genome: index-genome, load-vcf --refGenome,
             # install-schema and bin-references (counters reset inside)
             ref10 = refgenome_phase(torch, "cuda", inputs)
+            # 11. the query server on phase 9's store, the host-only answers
+            # computed by helper processes after its traffic window
+            # (counters start at 0 with the server's process)
+            served = serve_phase(torch, "cuda", results["store_cadd"], inputs["vcf4"],
+                                 {row["name"]: row["ms"] for row in table[3:]})
         except AssertionError as err:
             return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
@@ -3559,6 +4301,8 @@ def main() -> int:
                     vep_batch_bound_ms=vep_kernel["bound_ms"])
     table[1].update(launches=cadd["launches"])
     table[2].update(launches=ref10["launches"])
+    for row in table[3:]:
+        row.update(launches=served["launches"][row["name"]])
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

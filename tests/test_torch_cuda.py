@@ -33,9 +33,15 @@ to 96, unaligned bases and genome arrays viewed at odd offsets, and
 ``load-vcf --refGenome`` and ``install-schema --storeDir`` on the card
 must write the CPU's stores and output trees with the predicted
 ``validate_ref`` and ``annotate_bin`` launches and no plain version on the
-card.  ``chip_smoke.py`` runs the same comparisons at the loads' real
-sizes."""
+card.  The query server's kernels (``csrc/bits_spans.cu``,
+``csrc/stats_panel.cu``) are held against their plain versions exactly on
+edge and seeded panels at windows 1 to 64 and unaligned bases, and the
+card's ``QueryEngine`` must answer the CPU engine's bytes with the
+predicted launches, no plain version on the card and no breaker failure.
+``chip_smoke.py`` runs the same comparisons at the loads' and the
+server's real sizes."""
 
+import json
 import os
 import sys
 
@@ -668,3 +674,108 @@ def test_install_schema_on_card_matches_cpu(cuda, genome_inputs, tmp_path, monke
     want = sum(-(-n // 4096) for n in runs["cuda"]["rows"].values())
     assert runs["cuda"]["launches"] == want > 4
     assert runs["cuda"]["plain_cuda"] == 0
+
+
+# ------------------------------------------------------ the query server
+
+
+def test_serve_kernels_match_plain_versions(cuda):
+    """``bits_spans``, ``stats_panel`` and ``windowed_stats`` against their
+    plain versions on the card, exactly, on the smoke's edge cases and a
+    262,144-row panel of 1,024 intervals, at windows 1, 7, 16 and 64."""
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+    from annotatedvdb_tpu_torch.ops.intervals import clamped_queries
+    from chip_smoke import serve_columns, serve_edge_cases, serve_kernel_checks
+
+    big = serve_columns(41, 1 << 18, 1024)
+    before = (dict(intervals.LAUNCHES), dict(stats.LAUNCHES))
+    cases = serve_edge_cases() + [("panel", *big[:4], *clamped_queries(*big[4:]))]
+    checks, worst = serve_kernel_checks(torch, cuda, cases)
+    assert worst == 0 and all(c["equal"] for c in checks)
+    assert intervals.LAUNCHES["bits_spans"] == before[0]["bits_spans"] + len(cases)
+    assert stats.LAUNCHES["stats_panel"] == before[1]["stats_panel"] + len(cases)
+    assert stats.LAUNCHES["windowed_stats"] == \
+        before[1]["windowed_stats"] + 4 * len(cases)
+
+
+@pytest.mark.parametrize("offsets", [(1, 3, 7), (5, 2, 1)])
+def test_serve_kernels_unaligned_bases(cuda, offsets):
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+    from annotatedvdb_tpu_torch.ops.intervals import clamped_queries
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+    from chip_smoke import serve_columns
+
+    pos, af, cadd, rank, s, e = serve_columns(43, 5000, 300, span=(1000, 200_000))
+    s, e = clamped_queries(s, e)
+    o_pos, o_col, o_q = offsets
+    p = _offset_copy(pad_pow2(pos, POS_SENTINEL), cuda, o_pos)
+    cols = [_offset_copy(pad_pow2(a, -1), cuda, o_col) for a in (af, cadd, rank)]
+    qs = [_offset_copy(x, cuda, o_q) for x in (s, e)]
+    for got, want in (
+            (intervals.bits_spans(p, *qs), intervals.bits_spans_reference(p, *qs)),
+            (stats.stats_panel(p, *cols, *qs), stats.stats_panel_reference(p, *cols, *qs)),
+            (stats.windowed_stats(p, cols[1], *qs, 9),
+             stats.windowed_stats_reference(p, cols[1], *qs, 9))):
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_serve_kernel_wrappers_refuse_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+
+    p = torch.arange(1, 65, dtype=torch.int32, device=cuda)
+    q = torch.arange(1, 9, dtype=torch.int32, device=cuda)
+    before = (dict(intervals.LAUNCHES), dict(stats.LAUNCHES),
+              dict(intervals.CALLS), dict(stats.CALLS))
+    with pytest.raises(TypeError):
+        intervals.bits_spans(p.long(), q, q)
+    with pytest.raises(ValueError):
+        intervals.bits_spans(p, q, q[:4])
+    with pytest.raises(ValueError):
+        intervals.bits_spans(p, q.cpu(), q)
+    with pytest.raises(ValueError):
+        stats.stats_panel(p, p, p[::2].contiguous(), p, q, q)
+    with pytest.raises(ValueError):
+        stats.stats_panel(p, p, p, torch.stack([p, p], 1), q, q)
+    for w in (0, 65):
+        with pytest.raises(ValueError):
+            stats.windowed_stats(p, p, q, q, w)
+    assert (intervals.LAUNCHES, stats.LAUNCHES, intervals.CALLS, stats.CALLS) == before
+
+
+def test_query_engine_on_card_matches_cpu(cuda, tmp_path):
+    """One store built on the card; the card engine's regions and stats
+    panels (one launch per chromosome group at the device minimums), bulk
+    lookups and region walks equal the CPU engine's bytes, with no plain
+    version called on the card and no breaker failure."""
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path), "cuda")
+    engines = {plat: QueryEngine(StaticSnapshots(VariantStore.load(
+        served["store"], readonly=True)), device=plat, breaker=DeviceBreaker())
+        for plat in ("cuda", "cpu")}
+    specs = serve_panel(served, seed=3)
+    before = (dict(intervals.LAUNCHES), dict(stats.LAUNCHES),
+              intervals.CALLS["cuda"], stats.CALLS["cuda"])
+    out = {}
+    for plat, eng in engines.items():
+        out[plat] = [
+            eng.regions_serve(specs, limit=4).assemble(),
+            eng.regions_serve(specs, limit=0, tokenize=True).assemble(),
+            eng.stats_serve(specs, windows=16).assemble(),
+            eng.stats_serve(specs, metrics=["cadd"]).assemble(),
+            json.dumps(eng.lookup_many(served["ids"])),
+            eng.region(specs[0], min_cadd=10.0, limit=3, cursor=""),
+        ]
+    assert out["cuda"] == out["cpu"]
+    assert intervals.LAUNCHES["bits_spans"] - before[0]["bits_spans"] == 4
+    assert stats.LAUNCHES["stats_panel"] - before[1]["stats_panel"] == 4
+    assert stats.LAUNCHES["windowed_stats"] - before[1]["windowed_stats"] == 2
+    assert (intervals.CALLS["cuda"], stats.CALLS["cuda"]) == before[2:]
+    assert engines["cuda"].breaker.stats() == {"open_groups": [], "groups": {}}
+    assert engines["cuda"].device_bytes() > 0

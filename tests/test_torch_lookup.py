@@ -163,10 +163,10 @@ def test_identity_hashes_match_reference(inputs, monkeypatch):
     for c in _chunks(VcfBatchReader, inputs["qc"])[:3]:
         b = c.batch
         args = (49, b.ref, b.alt, b.ref_len, b.alt_len)
-        np.testing.assert_array_equal(identity_hashes(*args, device="cpu"),
+        np.testing.assert_array_equal(identity_hashes(*args),
                                       ref_identity_hashes(*args))
         np.testing.assert_array_equal(
-            identity_hashes(*args, refs=c.refs, alts=c.alts, device="cpu"),
+            identity_hashes(*args, refs=c.refs, alts=c.alts),
             ref_identity_hashes(*args, refs=c.refs, alts=c.alts))
 
 

@@ -45,6 +45,7 @@ def test_imports_with_jax_blocked():
     assert {f"annotatedvdb_tpu_torch.{m}" for m in UPDATE_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in CADD_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in REFGENOME_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in SERVE_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -81,10 +82,16 @@ REFGENOME_SLICE = ("genome.refgenome", "genome.assemblies", "cli.index_genome",
                    "utils.strings", "utils.retry", "sql.schema", "io.pg_egress",
                    "cli.install_schema", "cli.generate_bin_index_references")
 
+#: the query server (serve --frontend threaded) and its kernels
+SERVE_SLICE = ("ops.intervals", "ops.stats", "export.tokens", "utils.locks",
+               "obs.metrics", "obs.reqtrace", "serve.snapshot",
+               "serve.resilience", "serve.residency", "serve.batcher",
+               "serve.engine", "serve.http", "cli.serve")
+
 #: every command of the umbrella CLI
 COMMANDS = ("load-vcf", "load-vep", "update-qc", "load-snpeff-lof",
             "update-annotation", "load-cadd", "undo", "export-vcf", "split-vcf",
-            "index-genome", "install-schema", "bin-references")
+            "index-genome", "install-schema", "bin-references", "serve")
 
 
 @pytest.mark.parametrize("module", REFGENOME_SLICE)
@@ -102,6 +109,30 @@ def test_refgenome_slice_imports_without_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", SERVE_SLICE)
+def test_serve_slice_imports_without_jax(module):
+    """Each module of the query server imports with JAX blocked and pulls
+    in nothing of the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module('annotatedvdb_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'annotatedvdb_tpu' or m.startswith('annotatedvdb_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_source_list_covers_the_serve_slice():
+    """The per-file import check below walks every module of the slice."""
+    sources = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for m in SERVE_SLICE:
+        assert m.replace(".", os.sep) + ".py" in sources, m
 
 
 def test_help_lists_the_twelve_commands():
