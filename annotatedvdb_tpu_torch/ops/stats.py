@@ -71,8 +71,16 @@ RANK_BUCKETS = 32
 #: windowed-mode bound: windows are rendered arrays
 MAX_WINDOWS = 64
 
-#: rows a tile of the kernels' first pass (``csrc/stats_panel.cu::kTile``)
-TILE_ROWS = 256
+#: the kernels' table (``csrc/stats_panel.cu``): a row of counters every
+#: PANEL_TILE_ROWS (panel) or WINDOW_TILE_ROWS (windows) rows, counted a
+#: SUPER_ROWS-row super-tile a block, PANEL_SLOTS or WINDOW_SLOTS int32 a row,
+#: after a header of SCRATCH_HEADER_WORDS
+PANEL_TILE_ROWS = 256
+WINDOW_TILE_ROWS = 64
+SUPER_ROWS = 4096
+PANEL_SLOTS = 96
+WINDOW_SLOTS = 24
+SCRATCH_HEADER_WORDS = 32
 #: counters per tile: AF lanes + AF bins + CADD lanes + CADD bins + ranks
 PANEL_COUNTERS = 2 * SUM_BITS + 2 * (len(AF_EDGES_FP) - 1) + RANK_BUCKETS
 #: counters per tile of the windowed scan: CADD present + CADD lanes
@@ -98,9 +106,10 @@ def _library() -> ctypes.CDLL:
 
         lib = load("stats_panel")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stats_panel_launch.argtypes = [p, p, p, p, i, p, p, i, p] + [p] * 7 + [p]
+        w = ctypes.c_longlong
+        lib.stats_panel_launch.argtypes = [p, p, p, p, i, p, p, i, p, w] + [p] * 8
         lib.stats_panel_launch.restype = ctypes.c_int
-        lib.windowed_stats_launch.argtypes = [p, p, i, p, p, i, i, p, p, p, p, p]
+        lib.windowed_stats_launch.argtypes = [p, p, i, p, p, i, i, p, w, p, p, p, p]
         lib.windowed_stats_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -223,10 +232,17 @@ def _check(name, cols, starts, ends) -> None:
         raise ValueError(f"{name}: too many rows for the kernel's int32 indices")
 
 
-def _scratch(k: int, counters: int, device) -> torch.Tensor:
-    """The per-tile counter table the kernels scan: [counters, tiles + 1]."""
-    tiles = (k + TILE_ROWS - 1) // TILE_ROWS
-    return torch.empty((counters, tiles + 1), dtype=torch.int32, device=device)
+def scratch_words(kind: str, k: int, q: int = 0, windows: int = 0) -> int:
+    """int32 words of a kernel's scratch (``csrc/stats_panel.cu::layout``):
+    the header, the table rows of every whole super-tile up to row ``k``
+    and their totals; for ``kind == "windows"`` then the [q, windows + 1]
+    boundary indices."""
+    tile, slots = ((PANEL_TILE_ROWS, PANEL_SLOTS) if kind == "panel"
+                   else (WINDOW_TILE_ROWS, WINDOW_SLOTS))
+    per = SUPER_ROWS // tile
+    supers = (-(-k // tile) + per) // per
+    words = SCRATCH_HEADER_WORDS + supers * (per + 1) * slots
+    return words + (q * (windows + 1) if kind == "windows" else 0)
 
 
 def stats_panel(pos, af, cadd, rank, starts, ends):
@@ -250,10 +266,11 @@ def stats_panel(pos, af, cadd, rank, starts, ends):
         (q, SUM_BITS), (q, nbins), (q, SUM_BITS), (q, nbins), (q, RANK_BUCKETS))]
     if q == 0:
         return tuple(out)
-    scratch = _scratch(k, PANEL_COUNTERS, dev)
+    words = scratch_words("panel", k)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     rc = _library().stats_panel_launch(
         pos.data_ptr(), af.data_ptr(), cadd.data_ptr(), rank.data_ptr(), k,
-        starts.data_ptr(), ends.data_ptr(), q, scratch.data_ptr(),
+        starts.data_ptr(), ends.data_ptr(), q, scratch.data_ptr(), words,
         *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -281,10 +298,11 @@ def windowed_stats(pos, cadd, starts, ends, windows: int):
     out.append(torch.empty((q, windows, SUM_BITS), dtype=torch.int32, device=dev))
     if q == 0:
         return tuple(out)
-    scratch = _scratch(k, WINDOW_COUNTERS, dev)
+    words = scratch_words("windows", k, q, windows)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     rc = _library().windowed_stats_launch(
         pos.data_ptr(), cadd.data_ptr(), k, starts.data_ptr(), ends.data_ptr(),
-        q, windows, scratch.data_ptr(), *(o.data_ptr() for o in out),
+        q, windows, scratch.data_ptr(), words, *(o.data_ptr() for o in out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

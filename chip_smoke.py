@@ -49,14 +49,19 @@ them, phase by phase, each phase printing one JSON line:
               plain version's and the bound.  Then the query server's
               kernels (``bits_spans``, ``stats_panel``,
               ``windowed_stats``) against their plain versions, exactly, on
-              edge cases (1 to 5,000 rows across the 256-row tiles, all
-              features missing, runs of equal positions, queries before,
-              after and across the rows, ``start > end``, the clamp) and at
-              the serving shape (2,274,305 seeded chr22 rows padded to
-              4,194,304, 4,096 gene-panel intervals, windows 1, 7, 16 and
-              64); their time there beside the plain versions', the bounds
-              and two ``torch.searchsorted`` calls, and the plain
-              versions' device memory;
+              edge cases (1 to 5,000 rows beside the stats kernels' 64-
+              and 256-row tiles and 4,096-row super-tiles, padded and not,
+              searches landing on every tile edge and half-tile, windows
+              whose boundaries are tile edges, spans shorter than the
+              windows, all features missing, runs of equal positions,
+              queries before, after and across the rows, wholly in the
+              padding, ``start > end``, the clamp, present features in the
+              padding under an end at the sentinel) and at the serving
+              shape (2,274,305 seeded chr22 rows padded to 4,194,304, 4,096
+              gene-panel intervals, windows 1, 7, 16 and 64); then, in a
+              spawned process, their time there by kernel name beside the
+              plain versions', the bounds and two ``torch.searchsorted``
+              calls, and the plain versions' device memory;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -1491,30 +1496,65 @@ def _kernel_counts(prof) -> dict:
             if getattr(e, "self_device_time_total", 0.0) > 0}
 
 
-def device_ms(torch, fn, inputs, iters):
-    """Summed device time of every kernel a call launches (profiler), per
-    call.  One profiled call first counts the launches of each kernel name
-    a call makes; None (the caller falls back to CUDA events) when the
-    profiler sees no device time, or when the timed trace holds fewer
-    events of any name than ``iters`` times its count in one call (a
-    trace that lost events would read too low)."""
-    from torch.profiler import ProfilerActivity, profile
+def _short_name(name: str) -> str:
+    """A device event's name without its namespace, return type and
+    parameter list (``search_kernel<false>``, ``Memset``)."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0].strip()
 
-    _run(fn, inputs, 2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+def _profiled(torch, fn, inputs, calls) -> dict:
+    """:func:`_kernel_counts` of ``calls`` calls, traced after a warm-up
+    step whose events are dropped (a profiler can miss the first kernels
+    it sees after it starts)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    out = {}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: out.update(_kernel_counts(p))) as prof:
         _run(fn, inputs, 1)
         torch.cuda.synchronize()
-    per_call = _kernel_counts(prof)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _run(fn, inputs, iters)
+        prof.step()
+        _run(fn, inputs, calls)
         torch.cuda.synchronize()
-    seen = _kernel_counts(prof)
+        prof.step()
+    return out
+
+
+def device_profile(torch, fn, inputs, iters, probe=4):
+    """Device time per call of every kernel a call launches (profiler):
+    ``{"ms": total, "kernels": {name: {"launches": n, "ms": t}}}``, per
+    call, by kernel name.  Each name's launches per call are the larger
+    of what a profile of ``probe`` calls and the timed profile of
+    ``iters`` calls hold, rounded up; None (the caller falls back to CUDA
+    events) when the profiler sees no device time, or when the timed
+    trace holds a name other than ``iters`` times its launches per call
+    (a trace that lost events would read too low)."""
+    _run(fn, inputs, 2)
+    torch.cuda.synchronize()
+    counts = _profiled(torch, fn, inputs, probe)
+    seen = _profiled(torch, fn, inputs, iters)
+    per_call = {name: max(-(-counts.get(name, (0, 0))[0] // probe),
+                          -(-seen.get(name, (0, 0))[0] // iters))
+                for name in set(counts) | set(seen)}
     total_us = sum(us for _n, us in seen.values())
-    if total_us <= 0 or not per_call or any(
-            seen.get(name, (0, 0))[0] < iters * n for name, (n, _us) in per_call.items()):
+    if total_us <= 0 or any(seen.get(name, (0, 0))[0] != iters * n
+                            for name, n in per_call.items()):
         return None
-    return total_us / 1e3 / iters
+    kernels = {}
+    for name, n in sorted(per_call.items()):
+        k = kernels.setdefault(_short_name(name), {"launches": 0, "ms": 0.0})
+        k["launches"] += n
+        k["ms"] += seen[name][1] / 1e3 / iters
+    return {"ms": total_us / 1e3 / iters, "kernels": kernels}
+
+
+def device_ms(torch, fn, inputs, iters):
+    """:func:`device_profile`'s total ms per call, or None."""
+    prof = device_profile(torch, fn, inputs, iters)
+    return None if prof is None else prof["ms"]
 
 
 def kernel_phase(torch, device):
@@ -1983,28 +2023,98 @@ def serve_columns(seed, k, q, missing=(0.8, 0.4, 0.5), span=(16_000_000, 50_000_
     return pos, af, cadd, rank, starts.astype(np.int32), ends.astype(np.int32)
 
 
+#: row indices beside the stats kernels' table edges: 64-row (windows) and
+#: 256-row (panel) tiles, their halves (where the nearer table row changes
+#: side) and the 4,096-row super-tiles
+TABLE_EDGES = (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 191, 192, 193,
+               255, 256, 257, 383, 384, 385, 511, 512, 513, 2047, 2048, 2049,
+               4095, 4096, 4097)
+
+
 def serve_edge_cases():
-    """Small edge inputs of the serving kernels: (label, pos, af, cadd,
-    rank, starts, ends), queries clamped as every caller clamps them: one
-    row; tile-edge row counts (255, 256, 257, 1000); all features
-    missing; runs of equal positions across a tile edge; queries before
-    the first row, after the last, ``start > end``, at 0 and at the
-    clamp; a single query."""
+    """Small edge inputs of the serving kernels as the kernels take them:
+    (label, pos, af, cadd, rank, starts, ends), the rows padded to a power
+    of two with the position sentinel and missing features unless the
+    label starts with ``unpadded``.  Real row counts at and beside the
+    table edges (1; 63, 64, 65 and 255, 256, 257 around the 64- and
+    256-row tiles; 1000; 2038, 2047, 2048, 2049; 4086, 4095, 4096, 4097
+    and 8182 around the 4,096-row super-tiles and their last half-tiles;
+    5000) and,
+    unpadded, counts that end inside a tile (63, 65, 257, 2049); all
+    features missing; runs of equal positions across a tile edge; queries
+    before the first row, after the last, ``start > end``, at 0 and at
+    the clamp; a single query; ``tile-edges``: spans whose searches land
+    exactly on every :data:`TABLE_EDGES` row, and windows whose every
+    boundary at windows 16 is a 64-row tile edge; ``short-spans``: spans
+    of 1 to 65 positions (equal boundaries at windows 64); ``in-padding``:
+    queries wholly past the last real row; ``padding-features``: padded
+    rows whose features are present, which only a span reaching the
+    sentinel (end 2**31 - 1, past the clamp every caller applies) counts."""
     from annotatedvdb_tpu_torch.ops.intervals import MAX_QUERY_POS
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+
+    def padded(label, pos, af, cadd, rank, s, e):
+        return (label, pad_pow2(pos, POS_SENTINEL),
+                *(pad_pow2(a, -1) for a in (af, cadd, rank)), s, e)
 
     cases = []
     for i, k in enumerate((1, 255, 256, 257, 1000, 5000)):
-        pos, af, cadd, rank, s, e = serve_columns(90 + i, k, 97, span=(1000, 100_000))
-        cases.append((f"k{k}", pos, af, cadd, rank, s, e))
-    pos, af, cadd, rank, s, e = serve_columns(97, 3000, 64, missing=(1, 1, 1),
-                                              span=(1000, 100_000))
-    cases.append(("all-missing", pos, af, cadd, rank, s, e))
+        cases.append(padded(f"k{k}", *serve_columns(90 + i, k, 97, span=(1000, 100_000))))
+    for i, k in enumerate((63, 64, 65, 2038, 2047, 2048, 2049, 4086, 4095, 4096,
+                           4097, 8182)):
+        cases.append(padded(f"k{k}", *serve_columns(110 + i, k, 97, span=(1000, 100_000))))
+    for i, k in enumerate((63, 65, 257, 2049)):
+        cases.append((f"unpadded-k{k}", *serve_columns(120 + i, k, 97, span=(1000, 100_000))))
+    cases.append(padded("all-missing", *serve_columns(97, 3000, 64, missing=(1, 1, 1),
+                                                      span=(1000, 100_000))))
     pos = np.repeat(np.arange(1, 301, dtype=np.int32) * 10, 3)  # runs of 3
     _p, af, cadd, rank, _s, _e = serve_columns(98, pos.size, 1, missing=(0, 0, 0))
     pts = np.asarray([0, 1, 9, 10, 11, 2560, 2561, 3000, 3001, MAX_QUERY_POS],
                      np.int32)
-    cases.append(("runs-and-ends", pos, af, cadd, rank, pts, pts[::-1].copy()))
-    cases.append(("one-query", pos, af, cadd, rank, pts[3:4], pts[6:7]))
+    cases.append(padded("runs-and-ends", pos, af, cadd, rank, pts, pts[::-1].copy()))
+    cases.append(padded("one-query", pos, af, cadd, rank, pts[3:4], pts[6:7]))
+
+    # pos[j] = 10 (j + 1): a start at pos[a] searches to a, an end at
+    # pos[b] - 1 to b
+    n = 5000
+    pos = (np.arange(n, dtype=np.int32) + 1) * 10
+    _p, af, cadd, rank, _s, _e = serve_columns(130, n, 1, missing=(0.3, 0.3, 0.3))
+    at = np.asarray([j for j in TABLE_EDGES if j < n] + [n - 1, n], np.int64)
+    a, b = np.meshgrid(at, at, indexing="ij")
+    starts = 10 * (np.minimum(a.ravel(), n - 1) + 1)
+    ends = 10 * (b.ravel() + 1) - 10 - 1
+    tiles = np.asarray([0, 1, 3, 4, 7, 8, 15, 16, 30, 63, 64], np.int64)  # 64 m + 1024 <= n
+    starts = np.concatenate([starts, 10 * (64 * tiles + 1)])
+    ends = np.concatenate([ends, 10 * (64 * tiles + 1) + 640 * 16 - 1])
+    cases.append(padded("tile-edges", pos, af, cadd, rank, starts.astype(np.int32),
+                        ends.astype(np.int32)))
+
+    rng = np.random.default_rng(131)
+    pos, af, cadd, rank, _s, _e = serve_columns(131, 1500, 1, span=(1000, 3000))
+    lengths = np.asarray([1, 2, 3, 7, 15, 16, 17, 63, 64, 65])
+    starts = rng.integers(900, 3100, 20 * lengths.size)
+    ends = starts + np.tile(lengths, 20) - 1
+    cases.append(padded("short-spans", pos, af, cadd, rank, starts.astype(np.int32),
+                        ends.astype(np.int32)))
+
+    pos, af, cadd, rank, _s, _e = serve_columns(132, 700, 1, span=(1000, 100_000))
+    last = int(pos[-1])
+    starts = np.asarray([last, last + 1, last + 1, last + 1000, MAX_QUERY_POS - 10,
+                         MAX_QUERY_POS], np.int32)
+    ends = np.asarray([last, last + 5, MAX_QUERY_POS, last + 1000, MAX_QUERY_POS,
+                       MAX_QUERY_POS], np.int32)
+    cases.append(padded("in-padding", pos, af, cadd, rank, starts, ends))
+
+    pos, af, cadd, rank, s, e = serve_columns(133, 1500, 64, span=(1000, 100_000))
+    k = 2048
+    _p, paf, pcadd, prank, _s, _e = serve_columns(134, k - pos.size, 1, missing=(0, 0, 0))
+    last = int(pos[-1])
+    starts = np.concatenate([s, np.asarray([0, 1000, last, last + 1, POS_SENTINEL],
+                                           np.int32)])
+    ends = np.concatenate([e, np.asarray([POS_SENTINEL] * 4 + [POS_SENTINEL], np.int32)])
+    cases.append(("padding-features", pad_pow2(pos, POS_SENTINEL),
+                  np.concatenate([af, paf]), np.concatenate([cadd, pcadd]),
+                  np.concatenate([rank, prank]), starts, ends))
     return cases
 
 
@@ -2078,11 +2188,11 @@ def serve_bound(kind, pos, starts, ends, windows=SERVE_WINDOWS) -> dict:
 
 def serve_kernel_checks(torch, device, cases, windows_list=(1, 7, SERVE_WINDOWS, 64)):
     """Each serving kernel against its plain version on the card, exactly
-    (``torch.equal`` on every output), on ``cases``.  Returns the checks
-    and the largest absolute difference seen (0 when all agree)."""
+    (``torch.equal`` on every output), on ``cases`` (the kernels' inputs,
+    as :func:`serve_edge_cases` makes them).  Returns the checks and the
+    largest absolute difference seen (0 when all agree)."""
     from annotatedvdb_tpu_torch.ops import intervals as I
     from annotatedvdb_tpu_torch.ops import stats as S
-    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
 
     def diff(got, want):
         return max((int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
@@ -2090,8 +2200,8 @@ def serve_kernel_checks(torch, device, cases, windows_list=(1, 7, SERVE_WINDOWS,
 
     checks, worst = [], 0
     for label, pos, af, cadd, rank, s, e in cases:
-        cols = [torch.from_numpy(pad_pow2(a, f)).to(device) for a, f in (
-            (pos, POS_SENTINEL), (af, -1), (cadd, -1), (rank, -1))]
+        cols = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (pos, af, cadd, rank)]
         qs = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (s, e)]
         runs = [("bits_spans", I.bits_spans(cols[0], *qs),
                  I.bits_spans_reference(cols[0], *qs)),
@@ -2189,45 +2299,79 @@ def serve_panel(served, per_group=40, width=2000, seed=0) -> list:
     return out + ["3:1-100", "3:5000-9000", "22:1-64000000"]
 
 
+def serve_inputs(i):
+    """Phase 3's serving-shape input set ``i`` (0, 1, 2): the host columns
+    and clamped queries, and the columns padded as the kernels take them."""
+    from annotatedvdb_tpu_torch.ops.intervals import clamped_queries
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+
+    pos, af, cadd, rank, s, e = serve_columns(40 + i, SERVE_ROWS, SERVE_QUERIES)
+    s, e = clamped_queries(s, e)
+    padded = [pad_pow2(a, f) for a, f in zip((pos, af, cadd, rank),
+                                             (POS_SENTINEL, -1, -1, -1))]
+    return (pos, af, cadd, rank, s, e), padded
+
+
 def serve_kernel_phase(torch, device) -> list:
     """Phase 3 for the serving kernels (``bits_spans``, ``stats_panel``,
     ``windowed_stats``): each against its plain version on the card,
     exactly, on :func:`serve_edge_cases` and at the serving shape
     (:data:`SERVE_ROWS` rows padded to 4,194,304, :data:`SERVE_QUERIES`
-    intervals, windows 1, 7, 16 and 64); then each timed at that shape
-    beside its plain version, its bound and (for the spans) two
-    ``torch.searchsorted`` calls.  Returns the kernel table rows
-    (launches filled in after phase 11)."""
+    intervals, windows 1, 7, 16 and 64); then, in a spawned process
+    (:func:`serve_kernel_timing`), each timed at that shape.  Returns the
+    kernel table rows (launches filled in after phase 11)."""
+    import concurrent.futures
+    import multiprocessing
+
+    host, padded = serve_inputs(0)
+    checks, worst = serve_kernel_checks(
+        torch, device, serve_edge_cases() + [("serving", *padded, *host[4:])])
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        timing = pool.submit(serve_kernel_timing).result()
+    emit("serve_kernels", checks=checks, timing=timing)
+    sources = {"bits_spans": ("bits_spans.cu", "annotatedvdb_tpu/ops/intervals.py:60"),
+               "stats_panel": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:139"),
+               "windowed_stats": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:187")}
+    rows = []
+    for name, (src, replaces) in sources.items():
+        t = timing[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"annotatedvdb_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": None, "max_abs_err": worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    return rows
+
+
+def serve_kernel_timing() -> dict:
+    """The serving kernels timed at the serving shape in a fresh process
+    (a process that has run many profiles can lose kernel events): each
+    kernel beside its plain version, its bound and (for the spans) two
+    ``torch.searchsorted`` calls, device ms per call by profiler with each
+    kernel name's own ms and launches per call, call ms by CUDA events,
+    and the device memory of one call."""
+    import torch
+
     from annotatedvdb_tpu_torch.ops import intervals as I
     from annotatedvdb_tpu_torch.ops import stats as S
-    from annotatedvdb_tpu_torch.ops.intervals import clamped_queries
-    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+    from annotatedvdb_tpu_torch.runtime import resolve_device
 
-    host = [serve_columns(40 + i, SERVE_ROWS, SERVE_QUERIES) for i in range(3)]
-    host = [(*h[:4], *clamped_queries(h[4], h[5])) for h in host]
-    checks, worst = serve_kernel_checks(
-        torch, device, serve_edge_cases() + [("serving", *host[0])])
-    cols = [torch.from_numpy(pad_pow2(a, f)).to(device) for a, f in (
-        (host[0][0], POS_SENTINEL), (host[0][1], -1), (host[0][2], -1),
-        (host[0][3], -1))]
+    device = resolve_device("cuda")
+    sets = [serve_inputs(i) for i in range(3)]
+    host = sets[0][0]
+    cols = [torch.from_numpy(a).to(device) for a in sets[0][1]]
     queries = [[torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in h[4:]]
-               for h in host]
+               for h, _p in sets]
+    del sets
 
     def best(rs):
-        dev = [r["device_ms"] for r in rs if r["device_ms"] is not None]
-        return min(dev) if dev else min(r["call_ms"] for r in rs)
-
-    def timed(fns, inputs):
-        runs = {}
-        for name, fn, iters in fns:
-            if iters == 0:  # one call between CUDA events, no warm-up
-                runs.setdefault(name, []).append(
-                    {"device_ms": None, "call_ms": single_ms(fn, inputs[0])})
-                continue
-            runs.setdefault(name, []).append({
-                "device_ms": device_ms(torch, fn, inputs, iters),
-                "call_ms": call_ms(torch, fn, inputs, iters)})
-        return runs
+        dev = [r["device"] for r in rs if r["device"] is not None]
+        if dev:
+            return min(dev, key=lambda d: d["ms"])
+        return {"ms": min(r["call_ms"] for r in rs), "kernels": None}
 
     def single_ms(fn, args):
         start = torch.cuda.Event(enable_timing=True)
@@ -2238,6 +2382,18 @@ def serve_kernel_phase(torch, device) -> list:
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop)
+
+    def timed(fns, inputs):
+        runs = {}
+        for name, fn, iters in fns:
+            if iters == 0:  # one call between CUDA events, no warm-up
+                runs.setdefault(name, []).append(
+                    {"device": None, "call_ms": single_ms(fn, inputs[0])})
+                continue
+            runs.setdefault(name, []).append({
+                "device": device_profile(torch, fn, inputs, iters),
+                "call_ms": call_ms(torch, fn, inputs, iters)})
+        return runs
 
     pos_t, af_t, cadd_t, rank_t = cols
     w = SERVE_WINDOWS
@@ -2254,10 +2410,7 @@ def serve_kernel_phase(torch, device) -> list:
                            lambda p, c, s, e: S.windowed_stats_reference(p, c, s, e, w),
                            None, "windows"),
     }
-    timing, rows = {}, []
-    sources = {"bits_spans": ("bits_spans.cu", "annotatedvdb_tpu/ops/intervals.py:60"),
-               "stats_panel": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:139"),
-               "windowed_stats": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:187")}
+    timing = {}
     for name, (inputs, kernel, plain, library, kind) in shapes.items():
         # the stats plain versions take seconds a call at this shape: one
         # timed call, after the warm call below
@@ -2276,29 +2429,19 @@ def serve_kernel_phase(torch, device) -> list:
         torch.cuda.synchronize()
         kernel_peak = torch.cuda.max_memory_allocated(device) - base
         runs = timed(fns, inputs)
-        bound = serve_bound(kind, host[0][0], host[0][4], host[0][5])
-        ms = best(runs["kernel"])
-        timing[name] = {**bound, "ms": ms, "plain_ms": best(runs["plain"]),
-                        "library_ms": best(runs["library"]) if library else None,
+        bound = serve_bound(kind, host[0], host[4], host[5])
+        k = best(runs["kernel"])
+        timing[name] = {**bound, "ms": k["ms"], "kernels": k["kernels"],
+                        "plain_ms": best(runs["plain"])["ms"],
+                        "library_ms": best(runs["library"])["ms"] if library else None,
                         "call_ms": min(r["call_ms"] for r in runs["kernel"]),
-                        "bound_share": bound["bound_ms"] / ms,
+                        "bound_share": bound["bound_ms"] / k["ms"],
                         "plain_peak_bytes": plain_peak, "kernel_peak_bytes": kernel_peak,
-                        "timed_by": {k: "profiler" if any(
-                            r["device_ms"] is not None for r in rs) else "events"
-                            for k, rs in runs.items()},
+                        "timed_by": {n: "profiler" if any(
+                            r["device"] is not None for r in rs) else "events"
+                            for n, rs in runs.items()},
                         "timing_runs": runs}
-        src, replaces = sources[name]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"annotatedvdb_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": timing[name]["plain_ms"], "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": timing[name]["library_ms"],
-        })
-    emit("serve_kernels", checks=checks, timing=timing)
-    del cols, queries
-    torch.cuda.empty_cache()
-    return rows
+    return timing
 
 
 @contextlib.contextmanager

@@ -35,7 +35,9 @@ must write the CPU's stores and output trees with the predicted
 ``validate_ref`` and ``annotate_bin`` launches and no plain version on the
 card.  The query server's kernels (``csrc/bits_spans.cu``,
 ``csrc/stats_panel.cu``) are held against their plain versions exactly on
-edge and seeded panels at windows 1 to 64 and unaligned bases, and the
+edge and seeded panels at windows 1 to 64, spans ending at every row
+offset of the stats kernels' tiles, and unaligned bases; the stats entry
+points refuse a short or misaligned scratch; and the
 card's ``QueryEngine`` must answer the CPU engine's bytes with the
 predicted launches, no plain version on the card and no breaker failure.
 ``chip_smoke.py`` runs the same comparisons at the loads' and the
@@ -718,6 +720,69 @@ def test_serve_kernels_unaligned_bases(cuda, offsets):
              stats.windowed_stats_reference(p, cols[1], *qs, 9))):
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("rows", [70_001, (60_000, 65_536)])
+def test_stats_kernels_every_table_offset(cuda, rows):
+    """Spans whose searches land on every row offset inside the 64- and
+    256-row tiles and across many 4,096-row super-tiles, unpadded (70,001
+    rows, the last tile partial) and padded (60,000 real rows to 65,536),
+    exactly against the plain versions at windows 1, 7, 16 and 64."""
+    from annotatedvdb_tpu_torch.ops import stats
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+    from chip_smoke import serve_columns
+
+    n, k = (rows, rows) if isinstance(rows, int) else rows
+    pos = (np.arange(n, dtype=np.int32) + 1) * 3
+    _p, af, cadd, rank, _s, _e = serve_columns(44, n, 1, missing=(0.3, 0.3, 0.3))
+    rng = np.random.default_rng(45)
+    a = np.concatenate([np.arange(600), rng.integers(0, n, 1400)])
+    b = np.minimum(a + rng.integers(0, 3 * n // 2, a.size), n)
+    starts = (3 * (np.minimum(a, n - 1) + 1)).astype(np.int32)
+    ends = (3 * b + 2).astype(np.int32)  # upper bound b: the rows < b
+    cols = [torch.from_numpy(pad_pow2(pos, POS_SENTINEL) if k > n else pos).to(cuda)]
+    cols += [torch.from_numpy(pad_pow2(c, -1) if k > n else c).to(cuda)
+             for c in (af, cadd, rank)]
+    assert cols[0].shape[0] == k
+    qs = [torch.from_numpy(x).to(cuda) for x in (starts, ends)]
+    got = stats.stats_panel(*cols, *qs)
+    want = stats.stats_panel_reference(*cols, *qs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert set(range(256)) <= set((got[0].cpu().numpy() % 256).tolist())
+    for w in (1, 7, 16, 64):
+        got = stats.windowed_stats(cols[0], cols[2], *qs, w)
+        want = stats.windowed_stats_reference(cols[0], cols[2], *qs, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), w
+
+
+def test_stats_kernels_refuse_short_or_misaligned_scratch(cuda):
+    """The C entry points check the scratch the wrapper sizes: one word
+    short, or not 16-byte aligned, is refused before any launch."""
+    from annotatedvdb_tpu_torch.ops import stats
+
+    lib = stats._library()
+    k, q, w = 5000, 64, 16
+    p = torch.arange(1, k + 1, dtype=torch.int32, device=cuda)
+    qs = torch.arange(1, q + 1, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    outs = [torch.empty((q, 32), dtype=torch.int32, device=cuda) for _ in range(7)]
+    for kind in ("panel", "windows"):
+        words = stats.scratch_words(kind, k, q, w)
+        scratch = torch.empty((words + 4,), dtype=torch.int32, device=cuda)
+        for ptr, n in ((scratch.data_ptr(), words - 1), (scratch.data_ptr() + 4, words)):
+            if kind == "panel":
+                rc = lib.stats_panel_launch(p.data_ptr(), p.data_ptr(), p.data_ptr(),
+                                            p.data_ptr(), k, qs.data_ptr(), qs.data_ptr(),
+                                            q, ptr, n, *(o.data_ptr() for o in outs),
+                                            stream)
+            else:
+                rc = lib.windowed_stats_launch(p.data_ptr(), p.data_ptr(), k,
+                                               qs.data_ptr(), qs.data_ptr(), q, w, ptr, n,
+                                               *(o.data_ptr() for o in outs[:3]), stream)
+            assert rc == 1, (kind, n)  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
 
 
 def test_serve_kernel_wrappers_refuse_bad_inputs(cuda):

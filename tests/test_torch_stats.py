@@ -248,6 +248,8 @@ def test_constants_match_reference():
 
 
 def test_kernel_source_constants_match_the_module():
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
     with open(os.path.join(ROOT, "annotatedvdb_tpu_torch", "csrc",
                            "stats_panel.cu")) as f:
         src = f.read()
@@ -261,10 +263,142 @@ def test_kernel_source_constants_match_the_module():
     for name, value in (("kSumBits", port_ops.SUM_BITS),
                         ("kRanks", port_ops.RANK_BUCKETS),
                         ("kMaxWindows", port_ops.MAX_WINDOWS),
-                        ("kTile", port_ops.TILE_ROWS),
+                        ("kPanelTile", port_ops.PANEL_TILE_ROWS),
+                        ("kWindowTile", port_ops.WINDOW_TILE_ROWS),
+                        ("kSuperRows", port_ops.SUPER_ROWS),
+                        ("kPanelSlots", port_ops.PANEL_SLOTS),
+                        ("kWindowSlots", port_ops.WINDOW_SLOTS),
+                        ("kHeaderWords", port_ops.SCRATCH_HEADER_WORDS),
+                        ("kSentinel", POS_SENTINEL),
                         ("kBins", len(port_ops.AF_EDGES_FP) - 1)):
         assert int(re.search(name + r" = (\d+);", src).group(1)) == value, name
+    assert "kCap = (1 << kSumBits) - 1;" in src
+    assert port_ops.FP_CAP == (1 << port_ops.SUM_BITS) - 1
     assert port_ops.PANEL_COUNTERS == 94 and port_ops.WINDOW_COUNTERS == 22
+    # a table row holds every counter and is a whole number of 16-byte words
+    assert port_ops.PANEL_SLOTS >= port_ops.PANEL_COUNTERS
+    assert port_ops.WINDOW_SLOTS >= port_ops.WINDOW_COUNTERS
+    assert port_ops.PANEL_SLOTS % 4 == 0 == port_ops.WINDOW_SLOTS % 4
+    assert port_ops.SCRATCH_HEADER_WORDS % 4 == 0
+    # a super-tile is a whole number of tiles, a warp each (panel) or
+    # whole tiles a warp (windows, 8 warps a block)
+    assert port_ops.SUPER_ROWS // port_ops.PANEL_TILE_ROWS % 8 == 0
+    assert port_ops.SUPER_ROWS // port_ops.WINDOW_TILE_ROWS % 8 == 0
+
+
+@pytest.mark.parametrize("k", [0, 1, 63, 64, 65, 255, 256, 4095, 4096, 4097,
+                               4_194_304])
+def test_scratch_words_cover_the_kernel_layout(k):
+    """The scratch holds the header, a table row for every tile and one
+    past the last (the farthest row a combine reads is ceil(k / T)), in
+    whole super-tiles, their totals and (windows) the boundary indices."""
+    for kind, tile, slots in (
+            ("panel", port_ops.PANEL_TILE_ROWS, port_ops.PANEL_SLOTS),
+            ("windows", port_ops.WINDOW_TILE_ROWS, port_ops.WINDOW_SLOTS)):
+        per = port_ops.SUPER_ROWS // tile
+        rows = -(-k // tile) + 1
+        supers = -(-rows // per)
+        assert supers * per >= rows > (supers - 1) * per
+        want = port_ops.SCRATCH_HEADER_WORDS + supers * (per + 1) * slots
+        extra = 7 * 17 if kind == "windows" else 0
+        assert port_ops.scratch_words(kind, k, 7, 16) == want + extra, kind
+
+
+def _kernel_edge_cases():
+    import sys
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import serve_edge_cases
+
+    return serve_edge_cases()
+
+
+KERNEL_EDGE_CASES = _kernel_edge_cases()
+
+
+@pytest.mark.parametrize("case", KERNEL_EDGE_CASES, ids=lambda c: c[0])
+def test_plain_versions_match_twins_on_kernel_edge_cases(case):
+    """The smoke's kernel edge cases (the inputs the card holds each
+    kernel to its plain version on) through the plain versions and the
+    reference's numpy twins, with the queries clamped as the twins clamp
+    them."""
+    _label, pos, af, cadd, rank, starts, ends = case
+    starts, ends = port_ops.clamped_queries(starts, ends)
+    got = port_ops.stats_panel(*(_t(a) for a in (pos, af, cadd, rank, starts, ends)))
+    _assert_all_equal(got, ref_ops.stats_panel_host(
+        pos, af, cadd, rank, starts, ends), PANEL)
+    for windows in (1, 7, 16, 64):
+        got = port_ops.windowed_stats(_t(pos), _t(cadd), _t(starts), _t(ends), windows)
+        _assert_all_equal(got, ref_ops.windowed_stats_host(
+            pos, cadd, starts, ends, windows), WINDOWS)
+
+
+def _edge_case(label):
+    return next(c for c in KERNEL_EDGE_CASES if c[0] == label)
+
+
+def _real_rows(pos):
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    return int(np.searchsorted(pos, POS_SENTINEL, side="left"))
+
+
+def test_kernel_edge_cases_cross_the_table_edges():
+    """The edge cases reach what the kernels' design makes special: real
+    row counts beside every tile and super-tile edge, unpadded row counts
+    that end inside a tile, searches landing exactly on tile edges and on
+    the half-tiles where the nearer table row changes side, windows-16
+    boundaries all on 64-row edges, spans shorter than the windows,
+    queries wholly in the padding, and present features in the padding
+    that only a span to the sentinel counts."""
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    t, w, sup = (port_ops.PANEL_TILE_ROWS, port_ops.WINDOW_TILE_ROWS,
+                 port_ops.SUPER_ROWS)
+    real = {c[0]: _real_rows(c[1]) for c in KERNEL_EDGE_CASES}
+    for n in (w - 1, w, w + 1, t - 1, t, t + 1, sup - 1, sup, sup + 1):
+        assert real[f"k{n}"] == n
+    for label, pos, *_rest in KERNEL_EDGE_CASES:
+        if label.startswith("unpadded"):
+            assert real[label] == pos.size and pos.size % w != 0
+        else:
+            assert pos.size & (pos.size - 1) == 0 and pos.size >= real[label]
+    assert any(sup - t // 2 < n < sup for n in real.values())
+    assert any(2 * sup - t // 2 < n < 2 * sup for n in real.values())
+
+    _l, pos, _af, cadd, _rk, starts, ends = _edge_case("tile-edges")
+    x = np.concatenate([np.searchsorted(pos, starts, side="left"),
+                        np.searchsorted(pos, ends, side="right")])
+    from chip_smoke import TABLE_EDGES
+
+    assert set(j for j in TABLE_EDGES if j < real["tile-edges"]) <= set(x.tolist())
+    for tile in (t, w):
+        for r in (0, 1, tile // 2 - 1, tile // 2, tile // 2 + 1, tile - 1):
+            assert (x % tile == r).any(), (tile, r)
+    idx = np.searchsorted(pos, port_ops.window_bounds(
+        _t(starts), _t(ends), 16).numpy(), side="left")
+    assert ((idx % w) == 0).all(axis=1).sum() >= 5
+
+    _l, pos, _af, cadd, _rk, starts, ends = _edge_case("short-spans")
+    spans = ends.astype(np.int64) - starts + 1
+    assert spans.min() == 1 and (spans < 64).sum() > 100
+    b = port_ops.window_bounds(_t(starts), _t(ends), 64).numpy()
+    assert (np.diff(b, axis=1) == 0).any(axis=1).sum() > 100
+
+    _l, pos, _af, _cadd, _rk, starts, ends = _edge_case("in-padding")
+    n = real["in-padding"]
+    s, e = port_ops.clamped_queries(starts, ends)
+    assert (np.searchsorted(pos, s, side="left") >= n - 1).all()
+    assert (np.searchsorted(pos, e, side="right") == n).all()
+    assert (np.searchsorted(pos, s, side="left") == n).sum() >= 4
+
+    _l, pos, af, cadd, rank, starts, ends = _edge_case("padding-features")
+    n = real["padding-features"]
+    assert n < pos.size
+    for col in (af, cadd, rank):
+        assert (col[n:] >= 0).all()
+    assert (np.searchsorted(pos, ends, side="right") == pos.size).sum() >= 4
+    assert (ends == POS_SENTINEL).sum() >= 4
 
 
 def test_plain_calls_counted_by_device():
