@@ -81,7 +81,8 @@ constexpr int kWindowTile = 64;   // ops/stats.py::WINDOW_TILE_ROWS
 constexpr int kSuperRows = 4096;  // ops/stats.py::SUPER_ROWS
 constexpr int kPanelSlots = 96;   // ops/stats.py::PANEL_SLOTS (94 padded)
 constexpr int kWindowSlots = 24;  // ops/stats.py::WINDOW_SLOTS (22 padded)
-constexpr int kHeaderWords = 32;  // ops/stats.py::SCRATCH_HEADER_WORDS
+constexpr int kHeaderWords = 32;  // ops/stats.py::SCRATCH_HEADER_WORDS (the
+                                  // table starts on a 128-byte line)
 constexpr int kTileBlocks = 1056; // most blocks of the tile pass (8 a SM)
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 4;
