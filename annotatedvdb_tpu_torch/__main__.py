@@ -41,6 +41,9 @@ COMMANDS = {
     "serve": ("annotatedvdb_tpu_torch.cli.serve",
               "HTTP query server over a store (--frontend threaded; "
               "kernels on the card by default)"),
+    "export": ("annotatedvdb_tpu_torch.cli.export_corpus",
+               "stream the store out as a tokenized training corpus "
+               "(batch pack on the card by default)"),
 }
 
 

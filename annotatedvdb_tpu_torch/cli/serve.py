@@ -13,8 +13,8 @@ thread-per-connection front end (the reference's byte-parity server):
 ``--port 0`` binds an ephemeral port (printed in the banner).  The
 flags and their ``AVDB_SERVE_*`` defaults are the reference's, plus
 ``--platform`` (``cuda`` by default, an error when no card is present;
-``cpu`` on request).  On ``cuda`` the BITS and stats kernels are built
-before the port is bound, and a failed build exits 1.  ``--frontend``
+``cpu`` on request).  On ``cuda`` the BITS, stats and export-pack
+kernels are built before the port is bound, and a failed build exits 1.  ``--frontend``
 keeps the reference's choices and default (``aio``), but the asyncio
 front end is not ported yet: ``aio`` is refused, as are the serve fleet
 (``--workers`` above 1), ``--upserts``, ``--follow``, ``--maintain``,
@@ -174,7 +174,7 @@ def _run_single(args, log) -> int:
         from annotatedvdb_tpu_torch.ops.build import build
 
         try:
-            build(["bits_spans", "stats_panel"])
+            build(["bits_spans", "stats_panel", "export_pack"])
         except RuntimeError as err:
             print(f"serve: cannot start: {err}", file=sys.stderr)
             return 1
@@ -243,7 +243,7 @@ def run_summary(engine, load_s: float) -> dict:
     """What the server's run did on the device, for the shutdown log."""
     import torch
 
-    from annotatedvdb_tpu_torch.ops import intervals, stats
+    from annotatedvdb_tpu_torch.ops import export_pack, intervals, stats
 
     held = {"index_and_columns": engine.device_bytes()}
     if engine.residency is not None:
@@ -253,9 +253,11 @@ def run_summary(engine, load_s: float) -> dict:
         held["peak_allocated"] = torch.cuda.max_memory_allocated(engine.device)
     return {
         "device": str(engine.device),
-        "launches": {**intervals.LAUNCHES, **stats.LAUNCHES},
+        "launches": {**intervals.LAUNCHES, **stats.LAUNCHES,
+                     **export_pack.LAUNCHES},
         "plain_calls": {"bits_spans_reference": dict(intervals.CALLS),
-                        "stats_references": dict(stats.CALLS)},
+                        "stats_references": dict(stats.CALLS),
+                        "export_pack_reference": dict(export_pack.CALLS)},
         "breaker": engine.breaker.stats() if engine.breaker is not None
         else None,
         "device_bytes": held,

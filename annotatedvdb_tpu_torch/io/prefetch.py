@@ -88,15 +88,16 @@ class ChunkPrefetcher:
     ``tagged=True`` yields ``(seq, chunk)``; with a ``shuffle_seed`` the
     emission order permutes disjoint ``max(2, depth)``-chunk blocks
     (``random.Random(seed)``, so a fixed seed replays the same schedule).
-    Untagged mode never shuffles.  ``timer`` attributes scan seconds to its
-    ``stage`` (default ``ingest``; the CADD updater's table scan uses
-    ``scan``) ON the prefetch thread.  Callers that stop early must
-    :meth:`close`.
+    Untagged mode never shuffles.  ``timer``, when given, attributes scan
+    seconds to its ``stage`` (default ``ingest``; the CADD updater's table
+    scan uses ``scan``) ON the prefetch thread; the export spine passes
+    none.  Callers that stop early must :meth:`close`.
     """
 
-    def __init__(self, source, *, timer, depth: int | None = None,
+    def __init__(self, source, *, depth: int | None = None,
                  shuffle_seed: int | None = None, tagged: bool = False,
-                 stage: str = "ingest", name: str = "ingest-prefetch"):
+                 timer=None, stage: str = "ingest",
+                 name: str = "ingest-prefetch"):
         self.depth_limit = ingest_prefetch_depth() if depth is None else depth
         if self.depth_limit < 1:
             raise ValueError(
@@ -127,7 +128,10 @@ class ChunkPrefetcher:
         win = max(2, self.depth_limit) if rng is not None else 1
         seq = 0
         while True:
-            with timer.stage(stage_name):
+            if timer is not None:
+                with timer.stage(stage_name):
+                    chunk = next(it, _DONE)
+            else:
                 chunk = next(it, _DONE)
             if chunk is _DONE:
                 break

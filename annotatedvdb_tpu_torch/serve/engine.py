@@ -24,9 +24,10 @@ Port of ``annotatedvdb_tpu/serve/engine.py``:
 Every answer renders the reference's bytes.  The engine's ``device``
 (``cuda`` unless the caller asks for ``cpu``) holds the pow2-padded index
 positions and feature columns; on the CPU the same wrappers run their
-plain versions.  On the card the engine loads both kernels' libraries when
-it is made, so a kernel that does not build raises there and never reaches
-a request.  A device failure feeds the per-group
+plain versions.  On the card the engine loads its kernels' libraries
+(``bits_spans``, ``stats_panel`` and ``export_pack``, which
+``export/stream.py`` launches on ``engine.device``) when it is made, so a
+kernel that does not build raises there and never reaches a request.  A device failure feeds the per-group
 :class:`~annotatedvdb_tpu_torch.serve.resilience.DeviceBreaker` and the
 request is answered by the numpy twin; with no breaker it fails the
 request, where the reference answers from the twin unrecorded.  Not
@@ -53,6 +54,7 @@ from annotatedvdb_tpu_torch.export.tokens import bin_path as _bin_path
 from annotatedvdb_tpu_torch.export.tokens import build_region_tokens
 from annotatedvdb_tpu_torch.loaders.lookup import identity_hashes
 from annotatedvdb_tpu_torch.obs import reqtrace
+from annotatedvdb_tpu_torch.ops import export_pack
 from annotatedvdb_tpu_torch.ops import intervals as interval_ops
 from annotatedvdb_tpu_torch.ops import stats as stats_ops
 from annotatedvdb_tpu_torch.ops.binindex import bin_index_kernel
@@ -675,6 +677,7 @@ class QueryEngine:
             # a kernel that does not build raises here, not in a request
             interval_ops._library()
             stats_ops._library()
+            export_pack._library()
         #: host seconds spent building interval indexes and decoding
         #: feature columns (guarded by self._index_build_lock)
         self.index_build_s = 0.0

@@ -17,15 +17,19 @@ connection; point queries coalesce in the batcher) with these routes:
                                       and ``tokenize``
 ``POST /stats/region``                the fused analytics panel
                                       (``metrics``, ``windows``)
+``GET /export/stream``                one packed corpus batch of a region
+                                      slice (``region``, ``batch``,
+                                      ``batch_rows``, ``seed``,
+                                      ``ordered``)
 ====================================  =====================================
 
 Admission is bounded everywhere (429), the brownout ladder sheds bulk
 work (503), deadlines shed dead requests (504), client errors are 400,
 engine faults 500; error bodies are JSON.  Every other path — among them
-the reference's ``/export/stream``, ``/variants/upsert``, the replication
-routes (``/repl/manifest``, ``/repl/segment``, ``/repl/wal``),
-``/alerts``, ``/metrics/history``, ``/debug/trace`` and ``/_chaos``, not
-ported yet — answers the reference's unknown-route 404.  ``/metrics``
+the reference's ``/variants/upsert``, the replication routes
+(``/repl/manifest``, ``/repl/segment``, ``/repl/wal``), ``/alerts``,
+``/metrics/history``, ``/debug/trace`` and ``/_chaos``, not ported yet —
+answers the reference's unknown-route 404.  ``/metrics``
 renders this process's registry (the reference's ``?fleet=1`` view is not
 ported).
 """
@@ -40,6 +44,13 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, unquote, urlparse
 
+from annotatedvdb_tpu_torch.export.stream import (
+    STREAM_ROUTE as EXPORT_STREAM_ROUTE,
+)
+from annotatedvdb_tpu_torch.export.stream import (
+    parse_stream_query,
+    stream_payload,
+)
 from annotatedvdb_tpu_torch.obs import reqtrace as reqtrace_mod
 from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
 from annotatedvdb_tpu_torch.obs.reqtrace import TraceRecorder
@@ -68,7 +79,7 @@ QUERY_SECONDS_EDGES = (
 DEFAULT_REGION_LIMIT = 10_000
 
 #: the query kinds with their own request/latency/rows series
-QUERY_KINDS = ("point", "bulk", "region", "regions", "stats")
+QUERY_KINDS = ("point", "bulk", "region", "regions", "stats", "export")
 
 
 def healthz_payload(ctx) -> str:
@@ -201,6 +212,10 @@ MSG_BROWNOUT_STATS = (
 MSG_CAPACITY_BULK = "server at capacity (bulk admission bound)"
 MSG_CAPACITY_REGION = "server at capacity (region admission bound)"
 MSG_CAPACITY_STATS = "server at capacity (stats admission bound)"
+MSG_BROWNOUT_EXPORT = (
+    "brownout: export reads shed (point reads keep serving)"
+)
+MSG_CAPACITY_EXPORT = "server at capacity (export admission bound)"
 
 #: the analytics route path
 STATS_ROUTE = "/stats/region"
@@ -504,6 +519,9 @@ class ServeHandler(BaseHTTPRequestHandler):
         if path == "/stats":
             self._reply(200, stats_payload(ctx))
             return
+        if path == EXPORT_STREAM_ROUTE:
+            self._export_stream(ctx, url.query)
+            return
         if path.startswith("/variant/"):
             self._point(ctx, path[len("/variant/"):])
             return
@@ -742,6 +760,27 @@ class ServeHandler(BaseHTTPRequestHandler):
                 return result.assemble(), result.returned
 
             self._execute(ctx, "stats", t0, run)
+        finally:
+            ctx.release()
+
+    def _export_stream(self, ctx: ServeContext, query: str) -> None:
+        """One packed corpus batch of a region slice: the bulk admission
+        shape, then :func:`stream_payload` (the ``export_pack`` kernel
+        behind the engine's breaker)."""
+        t0 = time.perf_counter()
+        if self._admit_bulk(ctx, "export", MSG_BROWNOUT_EXPORT,
+                            MSG_CAPACITY_EXPORT) is False:
+            return
+        try:
+            ctx.refresh_snapshot()
+            try:
+                params = parse_stream_query(query)
+            except ValueError as err:
+                ctx.errored("export")
+                self._error(400, str(err))
+                return
+            self._execute(ctx, "export", t0,
+                          lambda: stream_payload(ctx.engine, params))
         finally:
             ctx.release()
 

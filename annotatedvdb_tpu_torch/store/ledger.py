@@ -139,6 +139,19 @@ class AlgorithmLedger:
             {"type": "finish", "alg_id": alg_id, "counters": counters, "ts": time.time()}
         )
 
+    def export(self, record: dict) -> None:
+        """Append one ``{"type": "export"}`` record — a committed corpus
+        part (``export/core.py``: output dir, plan signature, part ordinal,
+        file, sha256, rows).  ``export --resume`` replans and skips every
+        part recorded here (either package's records); load resume and
+        undo ignore it."""
+        self._append({"type": "export", **record, "ts": time.time()})
+
+    def exports(self) -> list[dict]:
+        """All export records, oldest first (the resume read path)."""
+        with self._lock:
+            return [e for e in self._entries if e.get("type") == "export"]
+
     def undo_intent(self, alg_id: int) -> None:
         """Record that an undo of ``alg_id`` is ABOUT to mutate the store.
 

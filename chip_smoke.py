@@ -6,9 +6,10 @@ update, the VCF/TSV-driven update legs (``update-qc``,
 ``load-snpeff-lof``, ``update-annotation``), the CADD score join
 (``load-cadd``), reference-genome validation (``index-genome``,
 ``load-vcf --refGenome``), the Postgres egress (``install-schema``) and
-the host-only commands (``export-vcf``, ``undo``, ``bin-references``) and
-the query server (``serve --frontend threaded``) on ``cuda:0`` and checks
-them, phase by phase, each phase printing one JSON line:
+the host-only commands (``export-vcf``, ``undo``, ``bin-references``),
+the query server (``serve --frontend threaded``) and the corpus export
+(``export``, ``/export/stream``) on ``cuda:0`` and checks them, phase by
+phase, each phase printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
@@ -61,7 +62,14 @@ them, phase by phase, each phase printing one JSON line:
               gene-panel intervals, windows 1, 7, 16 and 64); then, in a
               spawned process, their time there by kernel name beside the
               plain versions', the bounds and two ``torch.searchsorted``
-              calls, and the plain versions' device memory;
+              calls, and the plain versions' device memory.  Then
+              ``export_pack`` against its plain version byte for byte at
+              every ``n_valid`` case (-1, 0, 1, B - 1, B, B + 5) on edge
+              rows (the int32 ends, the leaf-bin edges, ``end < pos``,
+              ``a ^ b`` at each power of two), 1,048,576 random rows and
+              batches of 8, 4,096 and 4,097 rows; then, in a spawned
+              process, its time at the export's batch (4,096 rows) and at
+              1,048,576 rows beside the plain version's and the bound;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -195,7 +203,19 @@ them, phase by phase, each phase printing one JSON line:
               p50/p99 per kind, requests/s, intervals/s, the device's
               idle share (an upper bound: phase 3's kernel times times
               the launches) and bytes held, the store load, index build
-              and feature decode seconds.
+              and feature decode seconds;
+12. export  — ``python -m annotatedvdb_tpu_torch export --commit --seed 7``
+              (the CLI's ``main``) of phase 9's store (chr22, 2,274,305
+              rows), once on the card and once with ``--hostOnly``, each
+              with the counters reset just before: the corpora the same
+              bytes, one ``export_pack`` launch a batch as the interval
+              index predicts (556), no plain version on the card; wall,
+              rows/s, tokens/s and the wall split (``ChromPrep.build``, the
+              gather on the prefetch thread, the device round trip, the
+              ``bin_path`` loop, part writes).  Then 64 ``/export/stream``
+              payloads (``stream_payload``) of seeded slices on a card
+              engine over the store, counters reset just before: one launch
+              a call, every body equal to the ``host_only`` answer.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -2442,6 +2462,186 @@ def serve_kernel_timing() -> dict:
     return timing
 
 
+# --------------------------------------------- export pack kernel (phase 3)
+
+#: the export's batch rows (``AVDB_EXPORT_BATCH_ROWS``' default)
+EXPORT_BATCH_ROWS = 4096
+#: bytes the pack must move a row: seven int32 columns in, seven int32
+#: columns, the mask and the level out
+EXPORT_ROW_BYTES = 7 * 4 + 7 * 4 + 2
+#: integer operations a valid row needs (two wrapping subtractions, two
+#: floor divisions at four each, the xor, the bit length, the level, the
+#: lane test); a padded row needs the lane test
+EXPORT_ROW_OPS = 16
+EXPORT_EDGE_POS = (-2**31, -15626, -15625, -1, 0, 1, 2, 15625, 15626, 15627,
+                   2**31 - 1 - 16, 2**31 - 1)
+
+
+def export_edge_columns(seed=0) -> list:
+    """The pack's edge rows: every pair of :data:`EXPORT_EDGE_POS` as (pos,
+    end), both orders (so ``end < pos`` too: the int32 ends, the leaf-bin
+    edges at 15,625, ``MAX_QUERY_POS``), and pairs whose leaf bins differ
+    at each bit (``a ^ b`` at each power of two, and negative), with seeded
+    int32 feature columns."""
+    pos, end = (g.ravel() for g in np.meshgrid(EXPORT_EDGE_POS, EXPORT_EDGE_POS))
+    leaf = 15_625 * np.asarray([1 << k for k in range(17)], np.int64)
+    pos = np.concatenate([pos, np.ones(17, np.int64), leaf + 1, -leaf])
+    end = np.concatenate([end, leaf + 1, np.ones(17, np.int64), -leaf + 7])
+    rng = np.random.default_rng(seed)
+    feats = [rng.integers(-2**31, 2**31 - 1, pos.size, dtype=np.int32, endpoint=True)
+             for _ in range(5)]
+    return [pos.astype(np.int32), end.astype(np.int32), *feats]
+
+
+def export_random_columns(seed, b) -> list:
+    """Seven columns of ``b`` uniform int32 values."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-2**31, 2**31 - 1, b, dtype=np.int32, endpoint=True)
+            for _ in range(7)]
+
+
+def export_store_columns(seed, b) -> list:
+    """Seven columns shaped as an export batch of a chr22 store gives them:
+    sorted positions from 16,000,000 about 11 bp apart, ends up to 60 bp
+    past them, AF / CADD / rank fixed point missing on 80% / 40% / 50%."""
+    rng = np.random.default_rng(seed)
+    pos = (16_000_000 + np.cumsum(rng.integers(1, 22, b))).astype(np.int32)
+    end = (pos + rng.integers(0, 60, b) * (rng.random(b) < 0.2)).astype(np.int32)
+    feats = [np.where(rng.random(b) < miss, -1, rng.integers(0, 1 << 20, b))
+             .astype(np.int32) for miss in (0.8, 0.4, 0.5)]
+    codes = [rng.integers(0, 4000, b).astype(np.int32) for _ in range(2)]
+    return [pos, end, *codes, *feats]
+
+
+def export_bound(b, n_valid) -> dict:
+    """The least time the card could take to pack ``b`` rows of which
+    ``n_valid`` are real: :data:`EXPORT_ROW_BYTES` a row over the memory
+    rate, or the operations over the 32-bit integer rate."""
+    n = max(0, min(int(n_valid), b))
+    nbytes = EXPORT_ROW_BYTES * b
+    ops = EXPORT_ROW_OPS * n + (b - n)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": b, "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def export_pack_checks(torch, device, cases) -> tuple:
+    """``export_pack`` against its plain version on the card for each
+    ``(label, columns)`` case and each ``n_valid`` of -1, 0, 1, B - 1, B and
+    B + 5: the kernel's packed buffer must equal the plain version's
+    outputs packed the same way, byte for byte.  Returns the checks and the
+    largest absolute difference of any output."""
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+
+    checks, worst = [], 0
+    for label, cols in cases:
+        b = int(cols[0].shape[0])
+        t = torch.from_numpy(np.ascontiguousarray(np.stack(cols))).to(device)
+        for n in (-1, 0, 1, b - 1, b, b + 5):
+            got = P.export_pack(t, n)
+            want = P.pack_outputs(P.export_pack_reference(*t, n))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            g, w = (P.unpack(x.cpu().numpy(), b) for x in (got, want))
+            err = max(int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max())
+                      for x, y in zip(g, w))
+            equal = bool(torch.equal(got, want))
+            worst = max(worst, err)
+            checks.append({"inputs": label, "rows": b, "n_valid": n,
+                           "max_abs_err": err, "equal": equal})
+            if not equal:
+                raise AssertionError(f"export_pack disagrees with its plain "
+                                     f"version on {label} at n_valid {n}")
+    return checks, worst
+
+
+def export_kernel_phase(torch, device) -> dict:
+    """Phase 3 for ``export_pack``: against its plain version on the card,
+    exactly, on :func:`export_edge_columns`, on 1,048,576 random rows, on
+    random and store-shaped batches of 4,096 rows and on 8 and 4,097 rows;
+    then, in a spawned process (:func:`export_kernel_timing`), its time
+    at the export's batch of 4,096 rows and at 1,048,576 rows beside the
+    plain version's and the bound.  Returns the kernel table row (launches
+    filled in after phase 12)."""
+    import concurrent.futures
+    import multiprocessing
+
+    cases = [("edge", export_edge_columns()),
+             ("random-1m", export_random_columns(1, BIG_ROWS)),
+             ("random-4096", export_random_columns(2, EXPORT_BATCH_ROWS)),
+             ("store-4096", export_store_columns(3, EXPORT_BATCH_ROWS)),
+             ("random-8", export_random_columns(4, 8)),
+             ("random-4097", export_random_columns(5, EXPORT_BATCH_ROWS + 1))]
+    checks, worst = export_pack_checks(torch, device, cases)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        timing = pool.submit(export_kernel_timing).result()
+    emit("export_kernel", checks=checks, timing=timing)
+    t = timing["batch"]
+    return {
+        "name": "export_pack", "route": "cuda",
+        "source": "annotatedvdb_tpu_torch/csrc/export_pack.cu",
+        "replaces": "annotatedvdb_tpu/ops/export_pack.py:34",
+        "launches": None, "max_abs_err": worst, "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "rows": EXPORT_BATCH_ROWS, "ms_1m": timing["big"]["ms"],
+        "plain_ms_1m": timing["big"]["plain_ms"],
+        "bound_ms_1m": timing["big"]["bound_ms"],
+    }
+
+
+def export_kernel_timing() -> dict:
+    """``export_pack`` timed in a fresh process: at the export's batch
+    (4,096 store-shaped rows, 64 input sets) and at 1,048,576 random rows
+    (two sets of 28 MB, past the L2), kernel and plain version in turns
+    (plain, kernel, kernel, plain), device ms per call by profiler (CUDA
+    events where the profile lost events) and call ms by CUDA events,
+    beside the bound."""
+    import torch
+
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from annotatedvdb_tpu_torch.runtime import resolve_device
+
+    device = resolve_device("cuda")
+
+    def plain(cols, n):
+        return P.export_pack_reference(*cols, n)
+
+    def best(rs):
+        dev = [r["device"] for r in rs if r["device"] is not None]
+        return min(dev, key=lambda d: d["ms"]) if dev else \
+            {"ms": min(r["call_ms"] for r in rs), "kernels": None}
+
+    out = {}
+    for key, b, sets, iters in (
+            ("batch", EXPORT_BATCH_ROWS,
+             [export_store_columns(100 + i, EXPORT_BATCH_ROWS) for i in range(64)],
+             (20, 200)),
+            ("big", BIG_ROWS, [export_random_columns(200 + i, BIG_ROWS)
+                               for i in range(2)], (4, 50))):
+        inputs = [(torch.from_numpy(np.stack(c)).to(device), b) for c in sets]
+        runs = {}
+        for name, fn, n in (("plain", plain, iters[0]), ("kernel", P.export_pack, iters[1]),
+                            ("kernel", P.export_pack, iters[1]),
+                            ("plain", plain, iters[0])):
+            runs.setdefault(name, []).append({
+                "device": device_profile(torch, fn, inputs, n),
+                "call_ms": call_ms(torch, fn, inputs, n)})
+        bound = export_bound(b, b)
+        k = best(runs["kernel"])
+        out[key] = {**bound, "ms": k["ms"], "kernels": k["kernels"],
+                    "plain_ms": best(runs["plain"])["ms"],
+                    "call_ms": min(r["call_ms"] for r in runs["kernel"]),
+                    "bound_share": bound["bound_ms"] / k["ms"],
+                    "timed_by": {n: "profiler" if any(r["device"] is not None for r in rs)
+                                 else "events" for n, rs in runs.items()},
+                    "timing_runs": runs}
+    return out
+
+
 @contextlib.contextmanager
 def captured_loaders(cls, method="load_file"):
     """Every ``cls`` loader whose ``method`` runs inside, in call order
@@ -4224,7 +4424,7 @@ def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms
     n_int = mix["intervals"] * (mix["panels"] + mix["stats"])
     launches = summary["launches"]
     want = {"bits_spans": mix["panels"], "stats_panel": mix["stats"],
-            "windowed_stats": mix["stats"]}
+            "windowed_stats": mix["stats"], "export_pack": 0}
     plain_cuda = {k: v.get("cuda", 0) for k, v in summary["plain_calls"].items()}
     busy_s = sum(kernel_ms.get(k, 0.0) * n for k, n in launches.items()) / 1e3
     statuses = {}
@@ -4252,6 +4452,188 @@ def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms
         assert launches == want, f"serve: launches {launches}, predicted {want}"
         assert not any(plain_cuda.values()), f"serve: plain versions on the card: {plain_cuda}"
     return {"launches": launches}
+
+
+#: ``GET /export/stream`` calls of phase 12
+EXPORT_STREAM_CALLS = 64
+
+
+def _file_digests(out_dir) -> dict:
+    """sha256 of every part and the manifest of a corpus directory."""
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".npz") or name == "corpus.manifest.json":
+            with open(os.path.join(out_dir, name), "rb") as f:
+                out[name] = hashlib.file_digest(f, "sha256").hexdigest()
+    return out
+
+
+def run_export_cli(platform, store_dir, tag, *flags) -> dict:
+    """``python -m annotatedvdb_tpu_torch export --commit --seed 7`` (the
+    CLI's ``main``) of the whole store into ``WORK/corpus-<tag>``, with the
+    kernel's counters reset just before and read just after, and the wall
+    split by stage: the store load, ``ChromPrep.build`` (index, feature
+    decode, allele dictionary), the gather's padding (on the prefetch
+    thread, overlapped),
+    ``pack_batch`` (of which the device round trip ``pack_columns`` or the
+    numpy twin; the rest is the per-row ``bin_path`` loop), the part writes
+    and the manifest.  The corpus is hashed and removed."""
+    import io
+
+    from annotatedvdb_tpu_torch.__main__ import main as port
+    from annotatedvdb_tpu_torch.export import core, writer
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    out = os.path.join(WORK, f"corpus-{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    for counts in (P.LAUNCHES, P.CALLS):
+        for name in counts:
+            counts[name] = 0
+    stages = {"store_load": (VariantStore, "load"),
+              "prep": (core.ChromPrep, "build"), "gather_pad": (core, "_pad"),
+              "pack_batch": (core, "pack_batch"), "pack_device": (P, "pack_columns"),
+              "pack_twin": (P, "export_pack_host"), "write_part": (writer, "write_part"),
+              "manifest": (writer, "write_manifest")}
+    sinks = {k: [] for k in stages}
+    buf = io.StringIO()
+    argv = ["export", "--storeDir", store_dir, "--out", out, "--commit", "--seed", "7",
+            *flags, *(["--platform", "cpu"] if platform == "cpu" else [])]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for key, (owner, name) in stages.items():
+            stack.enter_context(timed_calls(owner, name, sinks[key]))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        rc = port(argv)
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"export {tag} exited {rc}"
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    digests = _file_digests(out)
+    corpus_bytes = sum(os.path.getsize(os.path.join(out, n)) for n in digests)
+    shutil.rmtree(out)
+    return {"wall_s": wall, "summary": summary, "digests": digests,
+            "corpus_bytes": corpus_bytes, "launches": dict(P.LAUNCHES),
+            "plain_calls": dict(P.CALLS),
+            "stage_seconds": {k: sum(v) for k, v in sinks.items()},
+            "stage_calls": {k: len(v) for k, v in sinks.items()}}
+
+
+def stream_queries(index, rng, n, cap):
+    """``n`` seeded ``/export/stream`` query strings over chr22's index:
+    slices of 1 kb to 500 kb (halved until at most ``cap`` rows), batch
+    rows log-uniform in 8..4,096, a batch index inside the slice, ordered
+    and shuffled in turns."""
+    lo, hi = int(index.pos[0]), int(index.pos[-1])
+    out = []
+    for i in range(n):
+        width = int(rng.integers(1_000, 500_000))
+        start = int(rng.integers(lo, max(lo + 1, hi - width)))
+        while True:
+            rows = int(np.searchsorted(index.pos, start + width, side="right")
+                       - np.searchsorted(index.pos, start, side="left"))
+            if rows <= cap:
+                break
+            width //= 2
+        b = int(min(4096, max(8, round(2 ** rng.uniform(3, 12)))))
+        batch = int(rng.integers(0, max(1, -(-rows // b))))
+        out.append(f"region=22:{start}-{start + width}&batch={batch}&batch_rows={b}"
+                   f"&seed={int(rng.integers(0, 1000))}&ordered={i % 2}")
+    return out
+
+
+def export_phase(torch, platform, store_dir, kernel_ms) -> dict:
+    """Phase 12: ``export --commit --seed 7`` of phase 9's store through the
+    CLI's ``main`` (:func:`run_export_cli`), once on ``platform`` and once
+    with ``--hostOnly``: the corpora must be the same bytes, the kernel
+    launched once a batch (``ceil(rows / 4096)`` a chromosome, predicted
+    from the serving engine's interval indexes), no plain version on the
+    card.  Then :data:`EXPORT_STREAM_CALLS`
+    calls of ``stream_payload`` on a ``QueryEngine`` on ``platform`` over
+    the store (seeded slices, :func:`stream_queries`), with the counters
+    reset just before: one launch a call, each body equal to the
+    ``host_only`` answer, no breaker failure.  Reports the walls, rows/s,
+    tokens/s, the stage split, the kernel's busy share (phase 3's batch ms
+    times the launches) and the calls' latencies."""
+    from annotatedvdb_tpu_torch.export import stream
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    t_phase = time.perf_counter()
+    engine = QueryEngine(StaticSnapshots(VariantStore.load(store_dir, readonly=True)),
+                         device=platform, breaker=DeviceBreaker())
+    snap = engine.snapshots.current()
+    index_rows = {code: engine._interval_index(snap, code).n
+                  for code in sorted(snap.store.shards)}
+    index = engine._interval_index(snap, 22)
+    engine._stats_features(snap, 22, index)  # the decode, outside the calls
+    engine_s = time.perf_counter() - t_phase
+    predicted = sum(-(-n // EXPORT_BATCH_ROWS) for n in index_rows.values())
+    dev = run_export_cli(platform, store_dir, platform)
+    host = run_export_cli(platform, store_dir, "host", "--hostOnly")
+    rows = dev["summary"]["total_rows"]
+    for run in (dev, host):
+        s = run["summary"]
+        run["rows_per_s"] = s["rows"] / run["wall_s"]
+        run["tokens_per_s"] = s["tokens"] / run["wall_s"]
+        st = run["stage_seconds"]
+        run["stage_seconds"]["bin_path_loop"] = (
+            st["pack_batch"] - st["pack_device"] - st["pack_twin"])
+    busy_s = kernel_ms * dev["launches"]["export_pack"] / 1e3
+    same = dev["digests"] == host["digests"]
+
+    queries = stream_queries(index, np.random.default_rng(12), EXPORT_STREAM_CALLS,
+                             stream.STREAM_MAX_ROWS)
+    for counts in (P.LAUNCHES, P.CALLS):
+        for name in counts:
+            counts[name] = 0
+    bodies, lat = [], []
+    for q in queries:
+        t = time.perf_counter()
+        bodies.append(stream.stream_payload(engine, stream.parse_stream_query(q)))
+        lat.append(time.perf_counter() - t)
+    stream_launches = dict(P.LAUNCHES)
+    stream_calls = dict(P.CALLS)
+    wrong = [q for q, body in zip(queries, bodies)
+             if stream.stream_payload(engine, stream.parse_stream_query(q),
+                                      host_only=True) != body]
+    emit("export", rows=rows, index_rows=index_rows, predicted_launches=predicted,
+         launches=dev["launches"], plain_calls=dev["plain_calls"],
+         host_launches=host["launches"], corpora_equal=same,
+         parts=dev["summary"]["n_parts"], batches=dev["summary"]["n_batches"],
+         corpus_bytes=dev["corpus_bytes"], kernel_busy_s=busy_s,
+         kernel_busy_share=busy_s / dev["wall_s"],
+         **{f"{k}_{tag}": r[k] for tag, r in (("dev", dev), ("host", host))
+            for k in ("wall_s", "rows_per_s", "tokens_per_s", "stage_seconds",
+                      "stage_calls")},
+         summary_dev={k: dev["summary"][k] for k in (
+             "seconds", "tokens_per_sec", "device_idle_frac", "queue_stalls")},
+         stream_calls=len(queries), stream_launches=stream_launches,
+         stream_plain_calls=stream_calls, stream_engine_s=engine_s,
+         stream_ms={"p50": float(np.percentile(lat, 50)) * 1e3,
+                    "p99": float(np.percentile(lat, 99)) * 1e3,
+                    "sum": sum(lat) * 1e3},
+         stream_rows=sum(json.loads(b)["n_valid"] for b, _n in bodies),
+         stream_mismatches=len(wrong), breaker=engine.breaker.stats(),
+         phase_s=time.perf_counter() - t_phase)
+    assert same, "export: the card's corpus differs from --hostOnly's"
+    assert dev["summary"]["complete"] and dev["summary"]["rows"] == rows \
+        == sum(index_rows.values())
+    assert not wrong, f"export/stream: {len(wrong)} bodies differ from host_only, e.g. {wrong[:3]}"
+    assert engine.breaker.stats() == {"open_groups": [], "groups": {}}, engine.breaker.stats()
+    assert host["launches"]["export_pack"] == 0 and not any(host["plain_calls"].values())
+    if platform == "cuda":
+        assert dev["launches"]["export_pack"] == predicted, \
+            f"export: {dev['launches']} launches, predicted {predicted}"
+        assert not dev["plain_calls"]["cuda"], f"export: plain calls {dev['plain_calls']}"
+        assert stream_launches["export_pack"] == len(queries), stream_launches
+        assert not stream_calls["cuda"], f"export/stream: plain calls {stream_calls}"
+    return {"export": dev["launches"]["export_pack"],
+            "stream": stream_launches["export_pack"]}
 
 
 def vep_kernel_timing(torch, device, rows) -> dict:
@@ -4379,6 +4761,7 @@ def main() -> int:
             table.append(cadd_kernel_phase(torch, device))
             table.append(validate_kernel_phase(torch, device, inputs["genome"]["index"]))
             table += serve_kernel_phase(torch, device)
+            table.append(export_kernel_phase(torch, device))
             native_hash_check(torch, device, inputs["vcf4"])
             # 4-6. the load (counters reset inside, just before it), the
             # probed reload and the card-vs-CPU parity.  Phase 9's tables
@@ -4429,6 +4812,10 @@ def main() -> int:
             # (counters start at 0 with the server's process)
             served = serve_phase(torch, "cuda", results["store_cadd"], inputs["vcf4"],
                                  {row["name"]: row["ms"] for row in table[3:]})
+            # 12. the corpus export of phase 9's store, on the card and
+            # with --hostOnly, then /export/stream calls on a card engine
+            # (counters reset inside, just before each)
+            exported = export_phase(torch, "cuda", results["store_cadd"], table[6]["ms"])
         except AssertionError as err:
             return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
@@ -4442,8 +4829,11 @@ def main() -> int:
                     vep_batch_bound_ms=vep_kernel["bound_ms"])
     table[1].update(launches=cadd["launches"])
     table[2].update(launches=ref10["launches"])
-    for row in table[3:]:
+    for row in table[3:6]:
         row.update(launches=served["launches"][row["name"]])
+    table[6].update(launches=exported["export"] + exported["stream"],
+                    launches_export=exported["export"],
+                    launches_stream=exported["stream"])
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

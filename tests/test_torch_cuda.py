@@ -40,6 +40,12 @@ offset of the stats kernels' tiles, and unaligned bases; the stats entry
 points refuse a short or misaligned scratch; and the
 card's ``QueryEngine`` must answer the CPU engine's bytes with the
 predicted launches, no plain version on the card and no breaker failure.
+The export's pack kernel (``csrc/export_pack.cu``) is held against its
+plain version byte for byte on edge rows, 1,048,576 random rows and
+store-shaped batches at every ``n_valid`` case; its wrapper refuses int64,
+non-contiguous and mixed inputs; ``pack_batch`` on the card equals the
+numpy twin, and ``export`` and ``/export/stream`` on the card write and
+answer the ``--hostOnly`` bytes with one launch a batch or call.
 ``chip_smoke.py`` runs the same comparisons at the loads' and the
 server's real sizes."""
 
@@ -844,3 +850,107 @@ def test_query_engine_on_card_matches_cpu(cuda, tmp_path):
     assert (intervals.CALLS["cuda"], stats.CALLS["cuda"]) == before[2:]
     assert engines["cuda"].breaker.stats() == {"open_groups": [], "groups": {}}
     assert engines["cuda"].device_bytes() > 0
+
+
+def test_export_pack_matches_plain_version(cuda):
+    """``export_pack`` against its plain version on the card, byte for byte,
+    at n_valid -1, 0, 1, B - 1, B and B + 5: edge rows, 1,048,576 random
+    rows, store-shaped and random batches of 4,096, 8 and 4,097 rows."""
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from chip_smoke import (
+        export_edge_columns,
+        export_pack_checks,
+        export_random_columns,
+        export_store_columns,
+    )
+
+    cases = [("edge", export_edge_columns()),
+             ("random-1m", export_random_columns(1, 1 << 20)),
+             ("store-4096", export_store_columns(3, 4096)),
+             ("random-4096", export_random_columns(2, 4096)),
+             ("random-8", export_random_columns(4, 8)),
+             ("random-4097", export_random_columns(5, 4097))]
+    before = P.LAUNCHES["export_pack"]
+    checks, worst = export_pack_checks(torch, cuda, cases)
+    assert worst == 0 and all(c["equal"] for c in checks)
+    assert P.LAUNCHES["export_pack"] == before + 6 * len(cases)
+
+
+def test_export_pack_refuses_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+
+    cols = torch.zeros((7, 64), dtype=torch.int32, device=cuda)
+    before = dict(P.LAUNCHES)
+    with pytest.raises(TypeError, match="int32"):
+        P.export_pack(cols.to(torch.int64), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.export_pack(torch.zeros((64, 7), dtype=torch.int32, device=cuda).t(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.export_pack(cols[:6], 8)
+    with pytest.raises(TypeError, match="n_valid"):
+        P.export_pack(cols, torch.tensor(8))
+    assert P.LAUNCHES == before
+    P.export_pack(cols, 8)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES["export_pack"] == before["export_pack"] + 1
+
+
+def test_pack_batch_on_card_matches_host_only(cuda):
+    from annotatedvdb_tpu_torch.export.core import pack_batch
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from chip_smoke import export_store_columns
+
+    for b, n in ((4096, 4096), (4096, 1000), (8, 0), (16, 3)):
+        chunk = {"code": 22, "n_valid": n,
+                 **dict(zip(P.COLUMNS, export_store_columns(b, b)))}
+        got = pack_batch(chunk, device=cuda)
+        want = pack_batch(chunk, host_only=True)
+        assert list(got) == list(want)
+        for key, w in want.items():
+            if isinstance(w, np.ndarray):
+                assert got[key].dtype == w.dtype, key
+                np.testing.assert_array_equal(got[key], w)
+            else:
+                assert got[key] == w, key
+
+
+def test_export_and_stream_on_card_match_host_only(cuda, tmp_path, capsys):
+    """``export`` on the card writes the ``--hostOnly`` corpus with one launch
+    a batch; ``stream_payload`` on a card engine answers the ``host_only``
+    bytes with one launch a call; no plain version on the card."""
+    from annotatedvdb_tpu_torch.__main__ import main as port
+    from annotatedvdb_tpu_torch.export import stream
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from chip_smoke import _file_digests, build_serve_store, stream_queries
+
+    served = build_serve_store(str(tmp_path / "s"), "cuda")
+    digests, summaries = {}, {}
+    for tag, flags in (("cuda", []), ("host", ["--hostOnly"])):
+        before = (P.LAUNCHES["export_pack"], P.CALLS["cuda"])
+        out = str(tmp_path / tag)
+        capsys.readouterr()
+        assert port(["export", "--storeDir", served["store"], "--out", out,
+                     "--commit", "--seed", "7", "--batchRows", "64", *flags]) == 0
+        summaries[tag] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        launched = P.LAUNCHES["export_pack"] - before[0]
+        assert launched == (summaries[tag]["n_batches"] if tag == "cuda" else 0)
+        assert P.CALLS["cuda"] == before[1]
+        digests[tag] = _file_digests(out)
+    assert digests["cuda"] == digests["host"] and len(digests["cuda"]) >= 2
+    engine = QueryEngine(StaticSnapshots(VariantStore.load(served["store"], readonly=True)),
+                         device=cuda, breaker=DeviceBreaker())
+    snap = engine.snapshots.current()
+    queries = stream_queries(engine._interval_index(snap, 22),
+                             np.random.default_rng(5), 16, 1 << 16)
+    before = (P.LAUNCHES["export_pack"], P.CALLS["cuda"])
+    bodies = [stream.stream_payload(engine, stream.parse_stream_query(q)) for q in queries]
+    assert P.LAUNCHES["export_pack"] == before[0] + len(queries)
+    assert P.CALLS["cuda"] == before[1]
+    for q, body in zip(queries, bodies):
+        assert stream.stream_payload(engine, stream.parse_stream_query(q),
+                                     host_only=True) == body, q
+    assert engine.breaker.stats() == {"open_groups": [], "groups": {}}

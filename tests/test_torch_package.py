@@ -46,6 +46,7 @@ def test_imports_with_jax_blocked():
     assert {f"annotatedvdb_tpu_torch.{m}" for m in CADD_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in REFGENOME_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in SERVE_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in EXPORT_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -88,10 +89,14 @@ SERVE_SLICE = ("ops.intervals", "ops.stats", "export.tokens", "utils.locks",
                "serve.resilience", "serve.residency", "serve.batcher",
                "serve.engine", "serve.http", "cli.serve")
 
+#: the corpus export (export, GET /export/stream) and its kernel
+EXPORT_SLICE = ("ops.export_pack", "export.writer", "export.core",
+                "export.stream", "cli.export_corpus")
+
 #: every command of the umbrella CLI
 COMMANDS = ("load-vcf", "load-vep", "update-qc", "load-snpeff-lof",
             "update-annotation", "load-cadd", "undo", "export-vcf", "split-vcf",
-            "index-genome", "install-schema", "bin-references", "serve")
+            "index-genome", "install-schema", "bin-references", "serve", "export")
 
 
 @pytest.mark.parametrize("module", REFGENOME_SLICE)
@@ -114,6 +119,23 @@ def test_refgenome_slice_imports_without_jax(module):
 @pytest.mark.parametrize("module", SERVE_SLICE)
 def test_serve_slice_imports_without_jax(module):
     """Each module of the query server imports with JAX blocked and pulls
+    in nothing of the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module('annotatedvdb_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'annotatedvdb_tpu' or m.startswith('annotatedvdb_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", EXPORT_SLICE)
+def test_export_slice_imports_without_jax(module):
+    """Each module of the corpus export imports with JAX blocked and pulls
     in nothing of the JAX package."""
     code = (
         "import sys, importlib\n"

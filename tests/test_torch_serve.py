@@ -9,8 +9,10 @@ bulk lookups, regions with filters and a cursor walk, batch regions (rows,
 count-only, ``tokenize``) and stats panels (every metric, windows), and
 both packages' threaded HTTP servers answer the same requests; every
 body, status and echoed trace header must be the same bytes, including
-the 400s of bad grammar and the batch caps.  The routes the port does not
-serve yet answer the reference's unknown-route 404.  The port's engine
+the 400s of bad grammar and the batch caps, and ``GET /export/stream``
+(ordered and shuffled batches, ragged and empty slices, its 400s and the
+over-cap slice).  The routes the port does not serve yet answer the
+reference's unknown-route 404.  The port's engine
 runs the plain versions of its kernels on the CPU, on the device path
 (groups at or above the device minimums) and on the host twins alike.
 Also: the read-only store contract, a residency budget of 64 KiB (the
@@ -32,12 +34,15 @@ import threading
 import pytest
 import torch
 
+from annotatedvdb_tpu.export import stream as ref_stream
 from annotatedvdb_tpu.serve.engine import QueryEngine as RefEngine
 from annotatedvdb_tpu.serve.http import build_server as ref_build_server
 from annotatedvdb_tpu.serve.snapshot import SnapshotManager as RefManager
 from annotatedvdb_tpu.serve.snapshot import StaticSnapshots as RefSnaps
 from annotatedvdb_tpu.store import VariantStore as RefStore
 
+from annotatedvdb_tpu_torch.export import stream as port_stream
+from annotatedvdb_tpu_torch.ops import export_pack as port_export_pack
 from annotatedvdb_tpu_torch.ops import intervals as port_intervals
 from annotatedvdb_tpu_torch.ops import stats as port_stats
 from annotatedvdb_tpu_torch.serve.engine import QueryEngine
@@ -52,7 +57,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402
 
 #: the routes of the reference the port does not serve yet
-UNPORTED = (("GET", "/export/stream"), ("GET", "/repl/manifest"),
+UNPORTED = (("GET", "/repl/manifest"),
             ("GET", "/repl/segment"), ("GET", "/repl/wal"),
             ("GET", "/alerts"), ("GET", "/metrics/history"),
             ("GET", "/debug/trace"), ("POST", "/variants/upsert"),
@@ -197,7 +202,7 @@ def test_device_failure_without_a_breaker_fails_the_request(served,
 
 
 def test_card_engine_loads_its_kernels_when_made(served, monkeypatch):
-    """On the card the engine loads both kernel libraries in its
+    """On the card the engine loads its kernel libraries in its
     constructor, so a failed build raises there, before any request."""
     loaded = []
 
@@ -211,9 +216,11 @@ def test_card_engine_loads_its_kernels_when_made(served, monkeypatch):
         QueryEngine(snaps, device=torch.device("cuda"))
     monkeypatch.setattr(port_intervals, "_library", lambda: loaded.append("bits_spans"))
     monkeypatch.setattr(port_stats, "_library", lambda: loaded.append("stats_panel"))
+    monkeypatch.setattr(port_export_pack, "_library",
+                        lambda: loaded.append("export_pack"))
     QueryEngine(snaps, device=torch.device("cuda"))
     QueryEngine(snaps, device="cpu")
-    assert loaded == ["bits_spans", "bits_spans", "stats_panel"]
+    assert loaded == ["bits_spans", "bits_spans", "stats_panel", "export_pack"]
 
 
 def test_residency_budget_gives_the_unmanaged_bytes(served):
@@ -245,6 +252,61 @@ def test_readonly_open_contract(served):
     assert store.shards.get(2) is None
     assert store.shard(22).n > 0  # existing shards stay accessible
     assert not VariantStore.load(served["store"]).readonly
+
+
+def _stream_queries(served):
+    """``GET /export/stream`` query strings over the store: ``batch_rows``
+    8, 256 and 4,096, ordered and shuffled, a ragged last batch, an empty
+    slice, chr8 and the defaults."""
+    p22, p8 = served["pos22"], served["pos8"]
+    whole = f"22:{int(p22[0])}-{int(p22[-1]) + 20}"
+    part = f"22:{int(p22[100])}-{int(p22[900])}"
+    return [
+        f"region={whole}&batch_rows=8&batch=3&ordered=1",
+        f"region={whole}&batch_rows=8&batch=17&seed=5",
+        f"region={part}&batch_rows=256&batch=3&ordered=1",
+        f"region={part}&batch_rows=256&batch=2&seed=2",
+        f"region=chr{whole}&batch_rows=4096&batch=0&seed=9",
+        f"region={whole}&batch_rows=4096&ordered=true",
+        f"region=8:{int(p8[0])}-{int(p8[-1])}&batch_rows=64&batch=7&seed=1",
+        "region=22:1-100&batch_rows=8",  # no rows: one empty batch
+        f"region={part}",
+    ]
+
+
+def test_export_stream_matches_reference(served):
+    ref, port = _engines(served)
+    before = dict(port_export_pack.CALLS)
+    queries = _stream_queries(served)
+    for q in queries:
+        want = ref_stream.stream_payload(ref, ref_stream.parse_stream_query(q))
+        params = port_stream.parse_stream_query(q)
+        assert params == ref_stream.parse_stream_query(q)
+        assert port_stream.stream_payload(port, params) == want, q
+        assert port_stream.stream_payload(port, params, host_only=True) == want, q
+    # the device path ran the plain version once a call, on the CPU
+    assert port_export_pack.CALLS["cpu"] == before["cpu"] + len(queries)
+    doc = json.loads(port_stream.stream_payload(
+        port, port_stream.parse_stream_query(queries[4]))[0])
+    assert doc["n_valid"] == doc["rows"] < 4096 and sum(doc["arrays"]["mask"]) == doc["n_valid"]
+
+
+def test_export_stream_device_failure_feeds_the_breaker(served, monkeypatch):
+    ref, port = _engines(served, breaker=DeviceBreaker(failure_threshold=2))
+    q = _stream_queries(served)[1]
+    want = ref_stream.stream_payload(ref, ref_stream.parse_stream_query(q))
+
+    def broken(*_a, **_k):
+        raise RuntimeError("device lost")
+
+    monkeypatch.setattr(port_export_pack, "pack_columns", broken)
+    for _ in range(3):
+        assert port_stream.stream_payload(
+            port, port_stream.parse_stream_query(q)) == want
+    assert port.breaker.open_groups() == [22]
+    _ref, bare = _engines(served)
+    with pytest.raises(RuntimeError, match="device lost"):
+        port_stream.stream_payload(bare, port_stream.parse_stream_query(q))
 
 
 # ------------------------------------------------------------------- HTTP
@@ -369,6 +431,21 @@ def test_http_health_routes_match_reference(servers):
         assert b"avdb_query_requests_total" in text
 
 
+def test_http_export_stream_matches_reference(servers, served, monkeypatch):
+    for q in _stream_queries(served):
+        _same(servers, "GET", f"/export/stream?{q}", status=200)
+    whole = _stream_queries(served)[0].split("&")[0]
+    for bad in ("batch=0", f"{whole}&batch_rows=7", f"{whole}&batch_rows=4097",
+                f"{whole}&batch=-1", f"{whole}&batch_rows=4096&batch=1",
+                f"{whole}&batch=x", "region=3:1-100", "region=Q:1-5",
+                "region=22:9-1", ""):
+        _same(servers, "GET", f"/export/stream?{bad}", status=400)
+    for mod in (ref_stream, port_stream):
+        monkeypatch.setattr(mod, "STREAM_MAX_ROWS", 100)
+    _same(servers, "GET", f"/export/stream?{whole}", status=400)
+    _same(servers, "GET", "/export/stream?region=22:1-100", status=200)
+
+
 def test_http_counts_match_reference(servers, served):
     """The same traffic leaves the same per-kind request and error
     counts on both servers."""
@@ -379,7 +456,7 @@ def test_http_counts_match_reference(servers, served):
            for key in ("ref", "port")}
     ref_kinds = {k for _c, k, _v in got["ref"]}
     assert [r for r in got["ref"] if r[1] in {b"point", b"bulk", b"region",
-                                              b"regions", b"stats"}] \
+                                              b"regions", b"stats", b"export"}] \
         == [r for r in got["port"] if r[1] in ref_kinds]
 
 
@@ -435,7 +512,7 @@ def test_cli_banner_summary_and_shutdown_match_reference(served):
     assert summary["device"] == "cpu"
     assert summary["plain_calls"]["bits_spans_reference"]["cpu"] == 2
     assert summary["launches"] == {"bits_spans": 0, "stats_panel": 0,
-                                   "windowed_stats": 0}
+                                   "windowed_stats": 0, "export_pack": 0}
     assert summary["breaker"] == {"open_groups": [], "groups": {}}
 
 
