@@ -5,7 +5,7 @@ export flags, ``--commit``, ``--test`` and ``--logFilePath``, plus
 ``--platform`` (``cuda`` by default, an error when no card is present,
 ``cpu`` on request).  A chromosome (``--chromosome``), a
 ``--region`` slice or the whole store leaves as fixed-shape token and
-feature batches (``export/core.py``; one ``export_pack`` launch a batch on
+feature batches (``export/core.py``; one ``export_pack`` launch a part on
 the card), shuffled by ``--seed`` (same seed, byte-identical corpus), and
 committed as ``part-<n>.npz`` files and a manifest.  ``--hostOnly`` packs
 on the numpy twin and resolves no device.

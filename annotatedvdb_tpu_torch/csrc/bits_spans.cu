@@ -4,8 +4,9 @@
 // Replaces annotatedvdb_tpu/ops/intervals.py::bits_spans_kernel (an XLA
 // program, not a Pallas kernel).  `pos` [K] int32 is one chromosome group's
 // position-sorted, deduplicated row positions, sentinel-padded to a power of
-// two (INT32_MAX sorts after every clamped query bound); `starts`/`ends` [Q]
-// int32 are 1-based inclusive query bounds, clamped into [0, INT32_MAX - 16].
+// two by the engine (INT32_MAX sorts after every clamped query bound), though
+// any sorted K works, K = 0 included; `starts`/`ends` [Q] int32 are 1-based
+// inclusive query bounds, clamped into [0, INT32_MAX - 16] by the callers.
 // Outputs per query: lo = searchsorted(pos, start, left) and hi =
 // searchsorted(pos, end, right) as int32, the deepest enclosing bin's level
 // [Q] int8 = 13 - (number of s in 0..12 with (a ^ b) >> s != 0) and its leaf
@@ -18,42 +19,96 @@
 // tail.  Nothing here needs the queries sorted.
 //
 // Bound: memory.  Each query reads its two bounds and writes 13 bytes; its
-// two searches each touch log2(K) positions, the upper levels shared by all
+// two searches touch a few dozen positions, the upper levels shared by all
 // queries and the lower ones by queries that land near each other.  At the
 // serving shape (K = 4,194,304 padded rows, Q = 4,096) that is about 0.2 MB,
-// well under a microsecond at 3.35 TB/s, so a launch and a chain of 22
-// dependent loads per search are what the card can approach.
+// well under a microsecond at 3.35 TB/s.  What the card can approach is
+// set by latency: each round of a search is a load that waits on the round
+// before it, a trip to L2 (the 16 MB of positions stay there between calls)
+// or to device memory.
 //
-// Design: one thread per query, 256 a block.  The simple kernel first; a
-// wider search (a warp per query, or a CTA-staged upper tree) is later work.
+// What held the first design back (one thread per query, 256 a block): 16
+// blocks on 132 SMs at Q = 4,096, and two 22-step binary searches one after
+// the other, 44 dependent loads a query.
+//
+// Design: one warp per query, 8 a block (512 blocks at Q = 4,096).  Each
+// bound is a k-ary search by ballots, as in cadd_join.cu: in a round, the
+// kLanes lanes of a bound load kLanes evenly spaced splitters of its bracket
+// [lo, hi] (the answer's range), __ballot_sync and __popc count the
+// splitters that pass (< start for lo, <= end for hi: a prefix, the
+// positions being sorted), and the bracket narrows to the gap between the
+// last that passes and the first that fails, (kLanes + 1)-fold.  When the
+// bracket holds at most kLanes rows, one coalesced load of them and one
+// ballot give the answer.  Splitter offsets are 32-bit products of a step
+// (len / 17), with the remainder spread over the first gaps.  kLanes = 16:
+// both bounds at once, each in half the warp (17-ary, 5 rounds and the
+// window at K = 4,194,304: 6 dependent loads a query).  On the card
+// (PERF.md) that beat 32 lanes a bound, one bound after the other (33-ary,
+// 10 loads), lanes loading 2 or 4 splitters a round (33- and 65-ary, 5 and
+// 4 loads, but two and four times the requests a round), and 64-bit
+// splitter products; staging the first one or two rounds' splitters in
+// shared memory once a block gained nothing, since the first round's loads
+// depend on nothing and go out beside the query bounds' loads.  Lane 0
+// computes the bin token.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kLanes = 16;  // lanes a bound: half a warp
+constexpr int kWarps = 8;   // queries a block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr unsigned kGroup = (1u << kLanes) - 1;
 constexpr int32_t kLeafSize = 15625;
 constexpr int kLevels = 13;
 
-__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ pos,
-                                           int k, int32_t x) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(pos + mid) < x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// The i-th of kLanes splitters of a bracket [lo, lo + len), len > kLanes:
+// lo + step (i + 1) + min(i + 1, rem) with step = len / (kLanes + 1) >= 1
+// and rem = len % (kLanes + 1), strictly increasing, inside the bracket,
+// and leaving gaps of at most `step` rows; i = kLanes is lo + len.  All
+// 32-bit: (i + 1) step + rem <= len.
+__device__ __forceinline__ int splitter(int lo, int step, int rem, int i) {
+  return lo + step * (i + 1) + min(i + 1, rem);
 }
 
-__device__ __forceinline__ int upper_bound(const int32_t* __restrict__ pos,
-                                           int k, int32_t x) {
+// The first index i in [0, k] at which pos[i] < key (pos[i] <= key when
+// `upper`) fails, searched by the kLanes lanes of this lane's group, `sub`
+// its index there and `shift` the group's first lane.  Every lane of the
+// warp calls it together.  The predicate passes on a prefix of the rows,
+// so the passing splitters (or window rows) are a prefix too, and counting
+// them is enough.
+__device__ __forceinline__ int bound(const int32_t* __restrict__ pos, int k,
+                                     int32_t key, bool upper, int sub,
+                                     int shift) {
   int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(pos + mid) <= x) lo = mid + 1; else hi = mid;
+  while (true) {
+    const int len = hi - lo;
+    const bool wide = len > kLanes;
+    if (!__any_sync(kAll, wide)) break;
+    const int step = len / (kLanes + 1);
+    const int rem = len - step * (kLanes + 1);
+    bool pass = false;
+    if (wide) {
+      const int32_t v = __ldg(pos + splitter(lo, step, rem, sub));
+      pass = upper ? v <= key : v < key;
+    }
+    const int below = __popc((__ballot_sync(kAll, pass) >> shift) & kGroup);
+    if (wide) {
+      // splitters [0, below) pass: the answer is past splitter below - 1
+      // and not past splitter below
+      const int base = lo;
+      if (below > 0) lo = splitter(base, step, rem, below - 1) + 1;
+      if (below < kLanes) hi = splitter(base, step, rem, below);
+    }
   }
-  return lo;
+  bool pass = false;
+  if (sub < hi - lo) {
+    const int32_t v = __ldg(pos + lo + sub);
+    pass = upper ? v <= key : v < key;
+  }
+  return lo + __popc((__ballot_sync(kAll, pass) >> shift) & kGroup);
 }
 
 __device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
@@ -67,19 +122,26 @@ bits_spans_kernel(const int32_t* __restrict__ pos, int k,
                   const int32_t* __restrict__ ends, int q,
                   int32_t* __restrict__ lo, int32_t* __restrict__ hi,
                   int8_t* __restrict__ level, int32_t* __restrict__ leaf) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= q) return;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= q) return;  // the whole warp
   const int32_t s = __ldg(starts + i), e = __ldg(ends + i);
-  lo[i] = lower_bound(pos, k, s);
-  hi[i] = upper_bound(pos, k, e);
-  const int32_t a = floor_div(s - 1, kLeafSize);
-  const int32_t b = floor_div(e - 1, kLeafSize);
-  const int32_t x = a ^ b;
-  int mism = 0;
+  // lanes 0-15 search lo, lanes 16-31 hi
+  const bool upper = lane >= kLanes;
+  const int r = bound(pos, k, upper ? e : s, upper, lane & (kLanes - 1),
+                      lane & kLanes);
+  if (lane == 0) lo[i] = r;
+  if (lane == kLanes) hi[i] = r;
+  if (lane == 0) {
+    const int32_t a = floor_div(s - 1, kLeafSize);
+    const int32_t b = floor_div(e - 1, kLeafSize);
+    const int32_t x = a ^ b;
+    int mism = 0;
 #pragma unroll
-  for (int sh = 0; sh < kLevels; ++sh) mism += (x >> sh) != 0;
-  level[i] = static_cast<int8_t>(kLevels - mism);
-  leaf[i] = a;
+    for (int sh = 0; sh < kLevels; ++sh) mism += (x >> sh) != 0;
+    level[i] = static_cast<int8_t>(kLevels - mism);
+    leaf[i] = a;
+  }
 }
 
 }  // namespace
@@ -90,7 +152,7 @@ extern "C" int bits_spans_launch(const void* pos, int k, const void* starts,
                                  void* level, void* leaf, void* stream) {
   if (q <= 0) return 0;
   if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (q + kThreads - 1) / kThreads;
+  const int blocks = (q + kWarps - 1) / kWarps;
   bits_spans_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(pos), k, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(ends), q, static_cast<int32_t*>(lo),

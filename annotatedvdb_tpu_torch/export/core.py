@@ -12,9 +12,11 @@ fixed-shape training batches:
   (``serve.engine.segment_alleles``, the JSON renderer's definition) are
   collected once, sorted, and shipped once per corpus in the manifest;
   rows carry int32 codes;
-- **bin token and mask** come from ``ops/export_pack.py``: one
-  ``export_pack`` kernel launch a batch on the card (``pack_batch``'s
-  ``device``), its numpy twin for ``host_only``; every batch is padded to
+- **bin token and mask** come from ``ops/export_pack.py``: a part's
+  batches are staged as gathered and packed when the part commits, with
+  one upload, one ``export_pack`` kernel launch and one copy back on the
+  card (:func:`pack_batches`' ``device``), or batch by batch on the numpy
+  twin for ``host_only``; every batch is padded to
   ``AVDB_EXPORT_BATCH_ROWS`` rows;
 - **scheduling**: batches are gathered ahead on a
   :class:`~annotatedvdb_tpu_torch.io.prefetch.ChunkPrefetcher` thread with
@@ -289,19 +291,27 @@ def _pad(col, sl: slice, n: int, B: int, fill: int):
     return out
 
 
-def pack_batch(chunk: dict, host_only: bool = False, device=None) -> dict:
-    """One gathered batch through the pack: the ``export_pack`` kernel on
-    ``device`` (``cuda`` unless the caller asks for ``cpu``, where the
-    plain version runs), or the numpy twin with ``host_only``; returns the part-ready per-batch arrays, including the
-    ltree path strings ("" on padded lanes, ``export.tokens.bin_path``)."""
-    n = chunk["n_valid"]
+def pack_batches(chunks: list[dict], host_only: bool = False,
+                 device=None) -> list[dict]:
+    """Gathered batches through the pack: one ``pack_ops.pack_part`` call
+    for all of them on ``device`` (``cuda`` unless the caller asks for
+    ``cpu``, where the plain version runs once), or the numpy twin batch by
+    batch with ``host_only``; then :func:`pack_batch` for each.  Returns
+    the part-ready per-batch arrays, in ``chunks`` order."""
     if host_only:
-        out = pack_ops.export_pack_host(
-            *(chunk[c] for c in pack_ops.COLUMNS), np.int32(n))
+        outs = [pack_ops.export_pack_host(*(c[name] for name in pack_ops.COLUMNS),
+                                          np.int32(c["n_valid"]))
+                for c in chunks]
     else:
-        out = pack_ops.pack_columns(
-            np.stack([chunk[c] for c in pack_ops.COLUMNS]), n,
-            resolve_device(device))
+        outs = pack_ops.pack_part(chunks, resolve_device(device))
+    return [pack_batch(c, out) for c, out in zip(chunks, outs)]
+
+
+def pack_batch(chunk: dict, out) -> dict:
+    """One gathered batch and its nine pack outputs -> the part-ready
+    arrays, including the ltree path strings ("" on padded lanes,
+    ``export.tokens.bin_path``)."""
+    n = chunk["n_valid"]
     mask, level, leaf, pos, ref, alt, af, cadd, rank = out
     label = chromosome_label(chunk["code"])
     paths = [""] * mask.shape[0]
@@ -413,8 +423,20 @@ def run_export(store, ledger, store_dir: str, out_dir: str, *,
     # prefetch stays overlapped; order-bearing output sits downstream)
     stream = iter(Resequencer(prefetch)) if plan.ordered else None
     rows = tokens = emitted = written = 0
-    staged: list[dict] = []
+    staged: list[tuple[int, dict]] = []
     part_records: list[dict] = []
+
+    def commit_staged():
+        nonlocal written
+        packed = pack_batches([c for _s, c in staged], host_only=host_only,
+                              device=device)
+        for (seq, _c), batch in zip(staged, packed):
+            batch["seq"] = seq
+        part_records.append(_commit_part(ledger, out_dir, plan, done + written,
+                                         packed))
+        written += 1
+        staged.clear()
+
     try:
         while True:
             if stream is not None:
@@ -430,25 +452,17 @@ def run_export(store, ledger, store_dir: str, out_dir: str, *,
             emitted += 1
             if emitted <= skip:
                 continue  # committed in a previous run: replayed, not repacked
-            packed = pack_batch(chunk, host_only=host_only, device=device)
-            packed["seq"] = seq
-            rows += packed["n_valid"]
-            tokens += packed["n_valid"] * TOKENS_PER_ROW
-            staged.append(packed)
+            rows += chunk["n_valid"]
+            tokens += chunk["n_valid"] * TOKENS_PER_ROW
+            staged.append((seq, chunk))
             if len(staged) == plan.batches_per_part:
-                part_records.append(_commit_part(ledger, out_dir, plan,
-                                                 done + written, staged))
-                written += 1
-                staged.clear()
+                commit_staged()
                 if max_parts is not None and written >= max_parts:
                     break
     finally:
         prefetch.close()
     if staged:
-        part_records.append(
-            _commit_part(ledger, out_dir, plan, done + written, staged))
-        written += 1
-        staged.clear()
+        commit_staged()
     complete = (done + written) == plan.n_parts
     # the manifest names every committed part (prior runs' through their
     # ledger records, this run's directly) in one fixed-key shape, so a

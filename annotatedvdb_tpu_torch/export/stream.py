@@ -29,7 +29,7 @@ from annotatedvdb_tpu_torch.export.core import (
     SHUFFLE_BLOCK,
     TOKENS_PER_ROW,
     _pad,
-    pack_batch,
+    pack_batches,
     parse_region,
 )
 from annotatedvdb_tpu_torch.export.tokens import TOKEN_FIELDS
@@ -181,14 +181,14 @@ def _pack_breakered(engine, code: int, chunk: dict, host_only: bool):
     failure fails the request."""
     breaker = engine.breaker
     if host_only or (breaker is not None and not breaker.allow_device(code)):
-        return pack_batch(chunk, host_only=True)
+        return pack_batches([chunk], host_only=True)[0]
     try:
-        packed = pack_batch(chunk, device=engine.device)
+        packed = pack_batches([chunk], device=engine.device)[0]
     except Exception as exc:
         if breaker is None:
             raise
         breaker.record_failure(code, exc)
-        return pack_batch(chunk, host_only=True)
+        return pack_batches([chunk], host_only=True)[0]
     if breaker is not None:
         breaker.record_success(code)
     return packed

@@ -2,10 +2,10 @@
 plain version.
 
 Port of ``annotatedvdb_tpu/ops/export_pack.py``.  The corpus export
-(``export/core.py``) and ``GET /export/stream`` pack one batch of ``B``
-rows at a time: seven int32 columns (``pos``, ``end``, ``ref_code``,
-``alt_code``, ``af_fp``, ``cadd_fp``, ``rank_i``) padded to ``B`` and the
-count ``n_valid`` of real rows.  Per row:
+(``export/core.py``, a part's batches at once) and ``GET /export/stream``
+(one batch) pack batches of ``B`` rows: seven int32 columns (``pos``,
+``end``, ``ref_code``, ``alt_code``, ``af_fp``, ``cadd_fp``, ``rank_i``)
+padded to ``B`` and the count ``n_valid`` of real rows.  Per row:
 
 - ``leaf_bin = (pos - 1) // LEAF_SIZE`` and ``bin_level = NUM_BIN_LEVELS``
   minus the number of shifts ``s`` in ``0..12`` at which
@@ -16,15 +16,19 @@ count ``n_valid`` of real rows.  Per row:
   ``n_valid`` forced to ``-1``.
 
 :func:`export_pack_reference` is the plain PyTorch version, written from
-the JAX function; :func:`export_pack_host` the numpy copy of the
-reference's twin, the path of ``--hostOnly`` and of an open serving
-breaker.  :func:`export_pack` takes the seven columns as one ``[7, B]``
-int32 tensor (one upload a batch) and returns the nine outputs packed in
-one ``[30 * B]`` byte buffer (one copy back a batch; :func:`unpack` splits
-it into the reference's dtypes): on a CUDA tensor it launches the
-hand-written ``csrc/export_pack.cu`` once, on a CPU tensor it packs
-:func:`export_pack_reference`'s outputs.  There is no fallback between the
-two.  :func:`pack_columns` is the device entry point: numpy in, numpy out.
+the JAX function, for one batch or a stack of them;
+:func:`export_pack_host` the numpy copy of the reference's twin, the path
+of ``--hostOnly`` and of an open serving breaker.  :func:`export_pack`
+takes one batch's seven columns as a ``[7, B]`` int32 tensor, or a stack
+of ``nb`` batches as ``[nb, 7, B]`` (the export packs a whole part at
+once), and returns the nine outputs of each batch packed in ``30 * B``
+bytes, one batch after another in one buffer (one copy back;
+:func:`unpack` splits a batch into the reference's dtypes): on a CUDA
+tensor it launches the hand-written ``csrc/export_pack.cu`` once, on a
+CPU tensor it packs :func:`export_pack_reference`'s outputs.  There is no
+fallback between the two.  :func:`pack_part` is the device entry point:
+numpy in, numpy out, one upload, one launch and one copy back for any
+number of batches.
 """
 
 from __future__ import annotations
@@ -67,8 +71,8 @@ def _library() -> ctypes.CDLL:
 
         lib = load("export_pack")
         lib.export_pack_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.export_pack_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -77,21 +81,24 @@ def _library() -> ctypes.CDLL:
 def export_pack_reference(pos, end, ref_code, alt_code, af_fp, cadd_fp,
                           rank_i, n_valid):
     """Plain-torch pack of one batch (int32 ``[B]`` columns, ``n_valid`` an
-    int): ``(mask bool, bin_level int8, leaf_bin, pos, ref_code, alt_code,
-    af_fp, cadd_fp, rank_i)``, each ``[B]``, the int32 ones int32, every
-    lane at or past ``n_valid`` ``-1`` (mask False)."""
+    int) or of a stack of batches (``[nb, B]`` columns, ``n_valid`` ``nb``
+    ints): ``(mask bool, bin_level int8, leaf_bin, pos, ref_code, alt_code,
+    af_fp, cadd_fp, rank_i)``, each the columns' shape, the int32 ones
+    int32, every lane at or past its batch's ``n_valid`` ``-1`` (mask
+    False)."""
     kind = pos.device.type
     CALLS[kind] = CALLS.get(kind, 0) + 1
     dev = pos.device
     pos = pos.to(torch.int32)
     end = end.to(torch.int32)
-    valid = torch.arange(pos.shape[0], dtype=torch.int64, device=dev) \
-        < int(n_valid)
+    counts = torch.as_tensor(np.asarray(n_valid, np.int64), device=dev)
+    valid = torch.arange(pos.shape[-1], dtype=torch.int64, device=dev) \
+        < counts[..., None]
     a = torch.div(pos - 1, LEAF_SIZE, rounding_mode="floor")
     b = torch.div(end - 1, LEAF_SIZE, rounding_mode="floor")
     x = a ^ b
     shifts = torch.arange(NUM_BIN_LEVELS, dtype=torch.int32, device=dev)
-    mism = ((x[:, None] >> shifts[None, :]) != 0).sum(dim=1)
+    mism = ((x[..., None] >> shifts) != 0).sum(dim=-1)
     level = (NUM_BIN_LEVELS - mism).to(torch.int8)
     neg1 = torch.tensor(-1, dtype=torch.int32, device=dev)
 
@@ -135,57 +142,84 @@ def export_pack_host(pos, end, ref_code, alt_code, af_fp, cadd_fp, rank_i,
 
 def pack_outputs(outs) -> torch.Tensor:
     """The nine outputs of :func:`export_pack_reference` in the kernel's
-    ``[30 * B]`` byte layout: the seven int32 columns row after row, then
-    the mask bytes, then the level bytes."""
+    byte layout: per batch ``30 * B`` bytes, the seven int32 columns row
+    after row, then the mask bytes, then the level bytes; a stack's batches
+    one after another."""
     valid, level, *cols = outs
-    return torch.cat([torch.stack(cols).view(torch.uint8).reshape(-1),
-                      valid.view(torch.uint8), level.view(torch.uint8)])
+    words = torch.stack(cols, dim=-2).view(torch.uint8)
+    words = words.reshape(*valid.shape[:-1], -1)
+    return torch.cat([words, valid.view(torch.uint8), level.view(torch.uint8)],
+                     dim=-1).reshape(-1)
 
 
 def unpack(buf: np.ndarray, b: int) -> tuple:
-    """Split a packed ``[30 * b]`` byte buffer into the nine outputs with
-    the reference's dtypes (views into ``buf``)."""
+    """Split one batch's packed ``[30 * b]`` bytes into the nine outputs
+    with the reference's dtypes (views into ``buf``)."""
     n32 = 4 * len(INT32_OUTPUTS) * b
     cols = buf[:n32].view(np.int32).reshape(len(INT32_OUTPUTS), b)
     return (buf[n32:n32 + b].view(np.bool_), buf[n32 + b:n32 + 2 * b].view(np.int8),
             *cols)
 
 
+def clamped_counts(n_valid, nb: int | None, b: int) -> np.ndarray:
+    """``n_valid`` as int32 counts clamped into ``[0, b]`` (so ``i <
+    count`` is ``arange(B) < n_valid`` for any integer): ``nb`` of them
+    from a sequence or array of that length, or one from an integer when
+    ``nb`` is None (a single ``[7, B]`` batch)."""
+    if isinstance(n_valid, torch.Tensor):
+        raise TypeError(f"export_pack: n_valid must be host integers, not a "
+                        f"tensor on {n_valid.device}")
+    counts = np.asarray(n_valid)
+    if counts.dtype.kind not in "iu":
+        raise TypeError(f"export_pack: n_valid must be integers, not {counts.dtype}")
+    want = () if nb is None else (nb,)
+    if counts.shape != want:
+        raise ValueError(f"export_pack: n_valid must have shape {want} for "
+                         f"these columns, not {counts.shape}")
+    return np.clip(counts.astype(np.int64), 0, b).astype(np.int32).reshape(-1)
+
+
 def _check(cols) -> None:
     if cols.dtype != torch.int32:
         raise TypeError(f"export_pack: columns must be int32, not {cols.dtype}")
-    if cols.dim() != 2 or cols.shape[0] != len(COLUMNS) or not cols.is_contiguous():
+    if cols.dim() not in (2, 3) or cols.shape[-2] != len(COLUMNS) \
+            or not cols.is_contiguous():
         raise ValueError(
-            f"export_pack: columns must be a contiguous [{len(COLUMNS)}, B] "
-            f"tensor, not {tuple(cols.shape)}")
-    if cols.shape[1] >= 2**31 // PACKED_ROW_BYTES:
+            f"export_pack: columns must be a contiguous [{len(COLUMNS)}, B] or "
+            f"[nb, {len(COLUMNS)}, B] tensor, not {tuple(cols.shape)}")
+    if cols.numel() // len(COLUMNS) * PACKED_ROW_BYTES >= 2**31:
         raise ValueError("export_pack: too many rows for int32 offsets")
 
 
-def export_pack(cols, n_valid: int) -> torch.Tensor:
-    """Pack one batch: ``cols`` the ``[7, B]`` int32 columns (rows in
-    :data:`COLUMNS` order), ``n_valid`` the real rows.  Returns the
-    ``[30 * B]`` uint8 buffer :func:`unpack` splits.
+def export_pack(cols, n_valid) -> torch.Tensor:
+    """Pack one batch or a stack of batches: ``cols`` the ``[7, B]`` int32
+    columns of one batch (rows in :data:`COLUMNS` order) with ``n_valid``
+    an integer, or the ``[nb, 7, B]`` columns of ``nb`` batches with
+    ``n_valid`` a sequence or host array of ``nb`` integers.  Returns the
+    ``[nb * 30 * B]`` uint8 buffer, batch ``k``'s bytes at ``k * 30 * B``
+    (:func:`unpack` splits each).
 
-    CPU tensors take :func:`export_pack_reference`; CUDA tensors launch the
-    kernel once on the current stream (no synchronisation) or raise."""
-    if isinstance(n_valid, torch.Tensor):
-        raise TypeError(f"export_pack: n_valid must be an integer, not a "
-                        f"tensor on {n_valid.device}")
-    if cols.device.type == "cpu":
-        _check(cols)
-        return pack_outputs(export_pack_reference(*cols, n_valid))
-    if cols.device.type != "cuda":
+    CPU tensors take :func:`export_pack_reference` (one call); CUDA tensors
+    launch the kernel once on the current stream (no synchronisation) or
+    raise."""
+    if cols.device.type not in ("cpu", "cuda"):
         raise ValueError(f"export_pack: unsupported device {cols.device}")
     _check(cols)
-    b = cols.shape[1]
-    out = torch.empty((PACKED_ROW_BYTES * b,), dtype=torch.uint8,
+    batched = cols.dim() == 3
+    nb, b = (cols.shape[0] if batched else 1), cols.shape[-1]
+    counts = clamped_counts(n_valid, nb if batched else None, b)
+    if cols.device.type == "cpu":
+        return pack_outputs(export_pack_reference(
+            *cols.unbind(-2), counts if batched else int(counts[0])))
+    out = torch.empty((nb * PACKED_ROW_BYTES * b,), dtype=torch.uint8,
                       device=cols.device)
-    if b == 0:
+    if out.numel() == 0:
         return out
-    n = max(0, min(int(n_valid), b))  # arange(B) < n_valid, in range
+    from annotatedvdb_tpu_torch.runtime import to_device
+
+    counts_t = to_device(counts, cols.device)
     rc = _library().export_pack_launch(
-        cols.data_ptr(), b, n, out.data_ptr(),
+        cols.data_ptr(), counts_t.data_ptr(), nb, b, out.data_ptr(),
         torch.cuda.current_stream(cols.device).cuda_stream,
     )
     if rc != 0:
@@ -194,12 +228,21 @@ def export_pack(cols, n_valid: int) -> torch.Tensor:
     return out
 
 
-def pack_columns(cols: np.ndarray, n_valid: int, device) -> tuple:
-    """Device entry point: upload the ``[7, B]`` int32 columns to
-    ``device`` once, :func:`export_pack` them, copy the packed buffer back
-    once and :func:`unpack` it.  Returns the nine numpy outputs."""
-    from annotatedvdb_tpu_torch.runtime import to_device
-
-    cols = np.ascontiguousarray(cols, np.int32)
-    buf = export_pack(to_device(cols, device), n_valid)
-    return unpack(buf.cpu().numpy(), cols.shape[1])
+def pack_part(chunks, device) -> list:
+    """Device entry point for a part: the gathered batches' columns
+    (``chunks``, dicts holding the :data:`COLUMNS` padded to one ``B`` and
+    ``n_valid``) stacked straight into one ``[nb, 7, B]`` host buffer
+    (pinned for the card), uploaded to ``device`` once, :func:`export_pack`
+    once, the packed buffer copied back once and split per batch by
+    :func:`unpack`.  Returns each batch's nine numpy outputs."""
+    nb, b = len(chunks), int(chunks[0][COLUMNS[0]].shape[0])
+    host = torch.empty((nb, len(COLUMNS), b), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    view = host.numpy()
+    for k, chunk in enumerate(chunks):
+        for j, name in enumerate(COLUMNS):
+            view[k, j] = chunk[name]
+    cols = host.to(device, non_blocking=True)
+    buf = export_pack(cols, [int(c["n_valid"]) for c in chunks]).cpu().numpy()
+    size = PACKED_ROW_BYTES * b
+    return [unpack(buf[k * size:(k + 1) * size], b) for k in range(nb)]

@@ -14,8 +14,8 @@ same call yields the closed-form hierarchical bin token of each query
 (``(level, leaf)``, the arithmetic of ``ops/binindex.py``).
 
 :func:`bits_spans` replaces ``bits_spans_kernel``: on CUDA tensors it
-launches the hand-written ``csrc/bits_spans.cu`` once (one thread per
-query: the two textbook binary searches and the bin token); on CPU tensors
+launches the hand-written ``csrc/bits_spans.cu`` once (a warp per query:
+both bounds by k-ary ballot searches, and the bin token); on CPU tensors
 it computes :func:`bits_spans_reference`, two ``torch.searchsorted`` calls
 and the bin arithmetic.  There is no fallback between the two.
 :func:`interval_spans` is the device entry point (clamp, pow2 padding,

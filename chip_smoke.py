@@ -59,7 +59,11 @@ phase, each phase printing one JSON line:
               padding, ``start > end``, the clamp, present features in the
               padding under an end at the sentinel) and at the serving
               shape (2,274,305 seeded chr22 rows padded to 4,194,304, 4,096
-              gene-panel intervals, windows 1, 7, 16 and 64); then, in a
+              gene-panel intervals, windows 1, 7, 16 and 64), and
+              ``bits_spans`` also on its own search edges (runs of 17 to
+              30,000 equal positions across the search rounds, 0 to 65
+              rows, row counts not powers of two, the sentinel tail, query
+              counts not multiples of 8); then, in a
               spawned process, their time there by kernel name beside the
               plain versions', the bounds and two ``torch.searchsorted``
               calls, and the plain versions' device memory.  Then
@@ -67,8 +71,12 @@ phase, each phase printing one JSON line:
               every ``n_valid`` case (-1, 0, 1, B - 1, B, B + 5) on edge
               rows (the int32 ends, the leaf-bin edges, ``end < pos``,
               ``a ^ b`` at each power of two), 1,048,576 random rows and
-              batches of 8, 4,096 and 4,097 rows; then, in a spawned
-              process, its time at the export's batch (4,096 rows) and at
+              batches of 8, 4,096 and 4,097 rows, and on stacks of 1, 2
+              and 37 batches of 4,096 rows, 3 of 4,092 and 2 of 4,097 rows
+              and 4 at an unaligned base, each batch at each ``n_valid``
+              of -5, 0, 1, B - 1, B, B + 7 and the int32 ends; then, in a
+              spawned process, its time at one 4,096-row batch (a stream
+              call), at a part of 37 batches (an export launch) and at
               1,048,576 rows beside the plain version's and the bound;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
@@ -208,11 +216,12 @@ phase, each phase printing one JSON line:
               (the CLI's ``main``) of phase 9's store (chr22, 2,274,305
               rows), once on the card and once with ``--hostOnly``, each
               with the counters reset just before: the corpora the same
-              bytes, one ``export_pack`` launch a batch as the interval
-              index predicts (556), no plain version on the card; wall,
-              rows/s, tokens/s and the wall split (``ChromPrep.build``, the
-              gather on the prefetch thread, the device round trip, the
-              ``bin_path`` loop, part writes).  Then 64 ``/export/stream``
+              bytes, 556 batches as the interval index predicts and one
+              ``export_pack`` launch a part (37 batches a part: 16), no
+              plain version on the card; wall, rows/s, tokens/s and the
+              wall split (``ChromPrep.build``, the gather on the prefetch
+              thread, the device round trip once a part, the ``bin_path``
+              loop, part writes).  Then 64 ``/export/stream``
               payloads (``stream_payload``) of seeded slices on a card
               engine over the store, counters reset just before: one launch
               a call, every body equal to the ``host_only`` answer.
@@ -2243,6 +2252,79 @@ def serve_kernel_checks(torch, device, cases, windows_list=(1, 7, SERVE_WINDOWS,
     return checks, worst
 
 
+def bits_edge_cases() -> list:
+    """``bits_spans``' own search edge cases as the kernel takes them:
+    (label, pos, starts, ends), positions unpadded unless the label says
+    so, int32 query bounds in [0, 2**31 - 1], query counts not multiples
+    of 8 (a block's 8 warps).  ``runs``: 100,003 rows (not a power of two)
+    holding runs of 17, 33, 100, 5,000 and 30,000 equal positions, wider
+    than a final search window and across the splitters of the search
+    rounds, queried at, beside and between the runs; ``k<n>``: 0, 1, 2,
+    15-17, 31-33 and 63-65 rows (around windows of 16, 32 and 64 rows),
+    runs included, queries before the first row, after the last and
+    across; ``sentinel-padded``: 1,000 rows padded to 1,024 with the
+    position sentinel, bounds at and beside the last row, the clamp and
+    the sentinel itself (which counts the padding); ``serving-k``:
+    4,194,303 rows (one short of the serving pad) with 3% shared
+    positions."""
+    from annotatedvdb_tpu_torch.ops.intervals import clamped_queries
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, pad_pow2
+
+    cases = []
+    rng = np.random.default_rng(140)
+    k = 100_003
+    pos = np.sort(rng.integers(1_000, 5_000_000, k)).astype(np.int32)
+    for length, at in ((17, 1_000), (33, 5_870), (100, 11_760), (5_000, 40_000),
+                       (30_000, 60_000)):
+        pos[at:at + length] = pos[at]
+    vals = np.unique(pos[[1_000, 5_870, 11_760, 40_000, 60_000]]).astype(np.int64)
+    pts = np.concatenate([vals - 1, vals, vals + 1, [0, 1, int(pos[0]), int(pos[-1]),
+                                                      int(pos[-1]) + 1, 2**31 - 17]])
+    a, b = np.meshgrid(pts, pts, indexing="ij")
+    s = np.concatenate([a.ravel(), rng.integers(0, 5_100_000, 40)])
+    e = np.concatenate([b.ravel(), s[-40:] + rng.integers(0, 300_000, 40)])
+    cases.append(("runs", pos, s.astype(np.int32), e.astype(np.int32)))
+    for k in (0, 1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65):
+        pos = np.sort(rng.integers(100, 100 + 2 * k + 1, k)).astype(np.int32)
+        pts = np.arange(95, 100 + 2 * k + 6, dtype=np.int32)
+        s, e = (g.ravel() for g in np.meshgrid(pts, pts[::1 + k // 8], indexing="ij"))
+        q = s.size - (s.size % 8 == 0)  # not a multiple of 8
+        cases.append((f"k{k}", pos, s[:q], e[:q]))
+    pos = np.sort(rng.integers(1_000, 900_000, 1_000)).astype(np.int32)
+    last = int(pos[-1])
+    pts = np.asarray([0, 1, last - 1, last, last + 1, 2**31 - 18, 2**31 - 17,
+                      POS_SENTINEL - 1, POS_SENTINEL], np.int64)
+    a, b = np.meshgrid(pts, pts, indexing="ij")
+    cases.append(("sentinel-padded", pad_pow2(pos, POS_SENTINEL),
+                  a.ravel().astype(np.int32), b.ravel().astype(np.int32)))
+    pos, _af, _cadd, _rank, s, e = serve_columns(141, (1 << 22) - 1, 999)
+    cases.append(("serving-k", pos, *clamped_queries(s, e)))
+    return cases
+
+
+def bits_kernel_checks(torch, device, cases) -> tuple:
+    """``bits_spans`` against its plain version on the card, exactly, on
+    ``cases`` (:func:`bits_edge_cases`).  Returns the checks and the
+    largest absolute difference seen."""
+    from annotatedvdb_tpu_torch.ops import intervals as I
+
+    checks, worst = [], 0
+    for label, pos, s, e in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (pos, s, e)]
+        got, want = I.bits_spans(*t), I.bits_spans_reference(*t)
+        torch.cuda.synchronize()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  if g.numel() else 0 for g, w in zip(got, want))
+        same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        worst = max(worst, err)
+        checks.append({"kernel": "bits_spans", "inputs": label, "rows": int(pos.size),
+                       "queries": int(s.size), "equal": same, "max_abs_err": err})
+        if not same:
+            raise AssertionError(f"bits_spans disagrees with its plain version on "
+                                 f"{label} (max |diff| {err})")
+    return checks, worst
+
+
 def build_serve_store(work, platform) -> dict:
     """A small store for the query server's tests, built by the port's
     CLIs on ``platform``: two VCF loads (1,500 seeded chr22 lines and 500
@@ -2344,6 +2426,9 @@ def serve_kernel_phase(torch, device) -> list:
     host, padded = serve_inputs(0)
     checks, worst = serve_kernel_checks(
         torch, device, serve_edge_cases() + [("serving", *padded, *host[4:])])
+    bits_checks, bits_worst = bits_kernel_checks(torch, device, bits_edge_cases())
+    checks += bits_checks
+    worst = max(worst, bits_worst)
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         timing = pool.submit(serve_kernel_timing).result()
@@ -2466,6 +2551,9 @@ def serve_kernel_timing() -> dict:
 
 #: the export's batch rows (``AVDB_EXPORT_BATCH_ROWS``' default)
 EXPORT_BATCH_ROWS = 4096
+#: batches a part of phase 12's export holds (the 8 MB default part over
+#: 4,096-row batches, ``export/core.py::plan_export``)
+EXPORT_PART_BATCHES = 37
 #: bytes the pack must move a row: seven int32 columns in, seven int32
 #: columns, the mask and the level out
 EXPORT_ROW_BYTES = 7 * 4 + 7 * 4 + 2
@@ -2557,14 +2645,78 @@ def export_pack_checks(torch, device, cases) -> tuple:
     return checks, worst
 
 
+def export_stack_counts(nb, b) -> list:
+    """Per-batch ``n_valid`` vectors for a stack of ``nb`` batches of ``b``
+    rows: eight rotations of (-5, 0, 1, B - 1, B, B + 7, INT32_MIN,
+    INT32_MAX) over the batches, so each batch meets each case once a
+    batch count of 8 or more and neighbouring batches differ."""
+    cases = [-5, 0, 1, b - 1, b, b + 7, -2**31, 2**31 - 1]
+    return [[cases[(k + r) % 8] for k in range(nb)] for r in range(8)]
+
+
+def export_stack_checks(torch, device, stacks) -> tuple:
+    """``export_pack`` on stacks of batches against its plain version on
+    the same stack, byte for byte, for each ``(label, batches, offset)``
+    (the ``[nb, 7, B]`` tensor ``offset`` elements into a larger buffer: an
+    unaligned base when it is not a multiple of 4) and each vector of
+    :func:`export_stack_counts`.  Returns the checks and the largest
+    absolute difference of any output."""
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+
+    checks, worst = [], 0
+    for label, batches, offset in stacks:
+        nb, b = len(batches), int(batches[0][0].shape[0])
+        host = np.stack([np.stack(c) for c in batches]).astype(np.int32)
+        t = offset_copy(torch, host, device, offset)
+        for counts in export_stack_counts(nb, b):
+            got = P.export_pack(t, counts)
+            want = P.pack_outputs(P.export_pack_reference(*t.unbind(1), counts))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            g, w = got.cpu().numpy(), want.cpu().numpy()
+            err = max(int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max())
+                      for k in range(nb)
+                      for x, y in zip(P.unpack(g[k * 30 * b:(k + 1) * 30 * b], b),
+                                      P.unpack(w[k * 30 * b:(k + 1) * 30 * b], b)))
+            equal = bool(torch.equal(got, want))
+            worst = max(worst, err)
+            checks.append({"inputs": label, "batches": nb, "rows": b, "offset": offset,
+                           "n_valid": counts[:8], "max_abs_err": err, "equal": equal})
+            if not equal:
+                raise AssertionError(f"export_pack disagrees with its plain version on "
+                                     f"the stack {label} at n_valid {counts[:8]}")
+    return checks, worst
+
+
+def export_stacks() -> list:
+    """Phase 3's stacks: 1, 2 and 37 store-shaped and random batches of
+    4,096 rows (37 is the export's part), 3 batches of 4,092 rows (B = 4
+    mod 8: every other batch's output 8 bytes off 16-byte alignment), 2 of
+    4,097 (B not a multiple of 4) and 4 of 4,096 one element into a buffer
+    (an unaligned base)."""
+    def stack(seed, nb, b):
+        return [(export_store_columns if k % 2 else export_random_columns)(seed + k, b)
+                for k in range(nb)]
+
+    return [("stack-1", stack(300, 1, EXPORT_BATCH_ROWS), 0),
+            ("stack-2", stack(310, 2, EXPORT_BATCH_ROWS), 0),
+            ("stack-37", stack(320, 37, EXPORT_BATCH_ROWS), 0),
+            ("stack-3x4092", stack(360, 3, EXPORT_BATCH_ROWS - 4), 0),
+            ("stack-2x4097", stack(370, 2, EXPORT_BATCH_ROWS + 1), 0),
+            ("stack-4-offset-1", stack(380, 4, EXPORT_BATCH_ROWS), 1)]
+
+
 def export_kernel_phase(torch, device) -> dict:
     """Phase 3 for ``export_pack``: against its plain version on the card,
     exactly, on :func:`export_edge_columns`, on 1,048,576 random rows, on
-    random and store-shaped batches of 4,096 rows and on 8 and 4,097 rows;
-    then, in a spawned process (:func:`export_kernel_timing`), its time
-    at the export's batch of 4,096 rows and at 1,048,576 rows beside the
-    plain version's and the bound.  Returns the kernel table row (launches
-    filled in after phase 12)."""
+    random and store-shaped batches of 4,096 rows and on 8 and 4,097 rows,
+    and on the stacks of :func:`export_stacks` at every vector of
+    :func:`export_stack_counts`; then, in a spawned process
+    (:func:`export_kernel_timing`), its time at one 4,096-row batch (the
+    stream's launch), at a part of 37 such batches (the export's launch)
+    and at 1,048,576 rows beside the plain version's and the bound.
+    Returns the kernel table row, timed at the part (launches filled in
+    after phase 12)."""
     import concurrent.futures
     import multiprocessing
 
@@ -2575,31 +2727,34 @@ def export_kernel_phase(torch, device) -> dict:
              ("random-8", export_random_columns(4, 8)),
              ("random-4097", export_random_columns(5, EXPORT_BATCH_ROWS + 1))]
     checks, worst = export_pack_checks(torch, device, cases)
+    stacked, worst_stacked = export_stack_checks(torch, device, export_stacks())
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         timing = pool.submit(export_kernel_timing).result()
-    emit("export_kernel", checks=checks, timing=timing)
-    t = timing["batch"]
+    emit("export_kernel", checks=checks + stacked, timing=timing)
+    t = timing["part"]
     return {
         "name": "export_pack", "route": "cuda",
         "source": "annotatedvdb_tpu_torch/csrc/export_pack.cu",
         "replaces": "annotatedvdb_tpu/ops/export_pack.py:34",
-        "launches": None, "max_abs_err": worst, "ms": t["ms"],
+        "launches": None, "max_abs_err": max(worst, worst_stacked), "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "rows": EXPORT_BATCH_ROWS, "ms_1m": timing["big"]["ms"],
-        "plain_ms_1m": timing["big"]["plain_ms"],
-        "bound_ms_1m": timing["big"]["bound_ms"],
+        "rows": t["rows"], "batches": EXPORT_PART_BATCHES,
+        **{f"{k}_{key}": timing[key][k] for key in ("batch", "1m")
+           for k in ("ms", "plain_ms", "bound_ms")},
     }
 
 
 def export_kernel_timing() -> dict:
-    """``export_pack`` timed in a fresh process: at the export's batch
-    (4,096 store-shaped rows, 64 input sets) and at 1,048,576 random rows
-    (two sets of 28 MB, past the L2), kernel and plain version in turns
-    (plain, kernel, kernel, plain), device ms per call by profiler (CUDA
-    events where the profile lost events) and call ms by CUDA events,
-    beside the bound."""
+    """``export_pack`` timed in a fresh process: at one batch (4,096
+    store-shaped rows, 64 input sets: a stream call's launch), at a part
+    (37 such batches stacked, 8 sets: the export's launch) and at
+    1,048,576 random rows (two sets of 28 MB, past the L2), kernel and
+    plain version in turns (plain, kernel, kernel, plain), device ms per
+    call by profiler (CUDA events where the profile lost events) and call
+    ms by CUDA events, beside the bound.  ``ms`` is the kernel's own
+    device time; ``device_ms`` adds the wrapper's upload of the counts."""
     import torch
 
     from annotatedvdb_tpu_torch.ops import export_pack as P
@@ -2608,21 +2763,27 @@ def export_kernel_timing() -> dict:
     device = resolve_device("cuda")
 
     def plain(cols, n):
-        return P.export_pack_reference(*cols, n)
+        return P.export_pack_reference(*cols.unbind(-2), n)
 
     def best(rs):
         dev = [r["device"] for r in rs if r["device"] is not None]
         return min(dev, key=lambda d: d["ms"]) if dev else \
             {"ms": min(r["call_ms"] for r in rs), "kernels": None}
 
+    def stacked(seed, nb):
+        return np.stack([np.stack(export_store_columns(seed + k, EXPORT_BATCH_ROWS))
+                         for k in range(nb)])
+
+    b = EXPORT_BATCH_ROWS
+    nb = EXPORT_PART_BATCHES
     out = {}
-    for key, b, sets, iters in (
-            ("batch", EXPORT_BATCH_ROWS,
-             [export_store_columns(100 + i, EXPORT_BATCH_ROWS) for i in range(64)],
+    for key, sets, counts, iters in (
+            ("batch", [np.stack(export_store_columns(100 + i, b)) for i in range(64)], b,
              (20, 200)),
-            ("big", BIG_ROWS, [export_random_columns(200 + i, BIG_ROWS)
-                               for i in range(2)], (4, 50))):
-        inputs = [(torch.from_numpy(np.stack(c)).to(device), b) for c in sets]
+            ("part", [stacked(1000 + 100 * i, nb) for i in range(8)], [b] * nb, (10, 100)),
+            ("1m", [np.stack(export_random_columns(200 + i, BIG_ROWS)) for i in range(2)],
+             BIG_ROWS, (4, 50))):
+        inputs = [(torch.from_numpy(c).to(device), counts) for c in sets]
         runs = {}
         for name, fn, n in (("plain", plain, iters[0]), ("kernel", P.export_pack, iters[1]),
                             ("kernel", P.export_pack, iters[1]),
@@ -2630,12 +2791,15 @@ def export_kernel_timing() -> dict:
             runs.setdefault(name, []).append({
                 "device": device_profile(torch, fn, inputs, n),
                 "call_ms": call_ms(torch, fn, inputs, n)})
-        bound = export_bound(b, b)
+        rows = sets[0][..., 0, :].size
+        bound = export_bound(rows, rows)
         k = best(runs["kernel"])
-        out[key] = {**bound, "ms": k["ms"], "kernels": k["kernels"],
+        kernel = (k["kernels"] or {}).get("export_pack_kernel")
+        ms = kernel["ms"] if kernel else k["ms"]
+        out[key] = {**bound, "ms": ms, "device_ms": k["ms"], "kernels": k["kernels"],
                     "plain_ms": best(runs["plain"])["ms"],
                     "call_ms": min(r["call_ms"] for r in runs["kernel"]),
-                    "bound_share": bound["bound_ms"] / k["ms"],
+                    "bound_share": bound["bound_ms"] / ms,
                     "timed_by": {n: "profiler" if any(r["device"] is not None for r in rs)
                                  else "events" for n, rs in runs.items()},
                     "timing_runs": runs}
@@ -4477,9 +4641,10 @@ def run_export_cli(platform, store_dir, tag, *flags) -> dict:
     split by stage: the store load, ``ChromPrep.build`` (index, feature
     decode, allele dictionary), the gather's padding (on the prefetch
     thread, overlapped),
-    ``pack_batch`` (of which the device round trip ``pack_columns`` or the
-    numpy twin; the rest is the per-row ``bin_path`` loop), the part writes
-    and the manifest.  The corpus is hashed and removed."""
+    the pack (``pack_batches``, once a part: the device round trip
+    ``pack_part``, once a part, or the numpy twin, once a batch, then
+    ``pack_batch``, the per-row ``bin_path`` loop, once a batch), the part
+    writes and the manifest.  The corpus is hashed and removed."""
     import io
 
     from annotatedvdb_tpu_torch.__main__ import main as port
@@ -4494,9 +4659,9 @@ def run_export_cli(platform, store_dir, tag, *flags) -> dict:
             counts[name] = 0
     stages = {"store_load": (VariantStore, "load"),
               "prep": (core.ChromPrep, "build"), "gather_pad": (core, "_pad"),
-              "pack_batch": (core, "pack_batch"), "pack_device": (P, "pack_columns"),
-              "pack_twin": (P, "export_pack_host"), "write_part": (writer, "write_part"),
-              "manifest": (writer, "write_manifest")}
+              "pack": (core, "pack_batches"), "pack_device": (P, "pack_part"),
+              "pack_twin": (P, "export_pack_host"), "pack_batch": (core, "pack_batch"),
+              "write_part": (writer, "write_part"), "manifest": (writer, "write_manifest")}
     sinks = {k: [] for k in stages}
     buf = io.StringIO()
     argv = ["export", "--storeDir", store_dir, "--out", out, "--commit", "--seed", "7",
@@ -4546,15 +4711,16 @@ def stream_queries(index, rng, n, cap):
 def export_phase(torch, platform, store_dir, kernel_ms) -> dict:
     """Phase 12: ``export --commit --seed 7`` of phase 9's store through the
     CLI's ``main`` (:func:`run_export_cli`), once on ``platform`` and once
-    with ``--hostOnly``: the corpora must be the same bytes, the kernel
-    launched once a batch (``ceil(rows / 4096)`` a chromosome, predicted
-    from the serving engine's interval indexes), no plain version on the
-    card.  Then :data:`EXPORT_STREAM_CALLS`
+    with ``--hostOnly``: the corpora must be the same bytes, the plan's
+    batches ``ceil(rows / 4096)`` a chromosome (predicted from the serving
+    engine's interval indexes), the kernel launched once a part the plan
+    writes (those batches over the plan's batches a part), no plain version
+    on the card.  Then :data:`EXPORT_STREAM_CALLS`
     calls of ``stream_payload`` on a ``QueryEngine`` on ``platform`` over
     the store (seeded slices, :func:`stream_queries`), with the counters
     reset just before: one launch a call, each body equal to the
     ``host_only`` answer, no breaker failure.  Reports the walls, rows/s,
-    tokens/s, the stage split, the kernel's busy share (phase 3's batch ms
+    tokens/s, the stage split, the kernel's busy share (phase 3's part ms
     times the launches) and the calls' latencies."""
     from annotatedvdb_tpu_torch.export import stream
     from annotatedvdb_tpu_torch.ops import export_pack as P
@@ -4572,17 +4738,16 @@ def export_phase(torch, platform, store_dir, kernel_ms) -> dict:
     index = engine._interval_index(snap, 22)
     engine._stats_features(snap, 22, index)  # the decode, outside the calls
     engine_s = time.perf_counter() - t_phase
-    predicted = sum(-(-n // EXPORT_BATCH_ROWS) for n in index_rows.values())
+    batches = sum(-(-n // EXPORT_BATCH_ROWS) for n in index_rows.values())
     dev = run_export_cli(platform, store_dir, platform)
     host = run_export_cli(platform, store_dir, "host", "--hostOnly")
     rows = dev["summary"]["total_rows"]
+    # one launch a part the plan writes: its batches over batches_per_part
+    predicted = -(-batches // dev["summary"]["batches_per_part"])
     for run in (dev, host):
         s = run["summary"]
         run["rows_per_s"] = s["rows"] / run["wall_s"]
         run["tokens_per_s"] = s["tokens"] / run["wall_s"]
-        st = run["stage_seconds"]
-        run["stage_seconds"]["bin_path_loop"] = (
-            st["pack_batch"] - st["pack_device"] - st["pack_twin"])
     busy_s = kernel_ms * dev["launches"]["export_pack"] / 1e3
     same = dev["digests"] == host["digests"]
 
@@ -4601,7 +4766,8 @@ def export_phase(torch, platform, store_dir, kernel_ms) -> dict:
     wrong = [q for q, body in zip(queries, bodies)
              if stream.stream_payload(engine, stream.parse_stream_query(q),
                                       host_only=True) != body]
-    emit("export", rows=rows, index_rows=index_rows, predicted_launches=predicted,
+    emit("export", rows=rows, index_rows=index_rows, predicted_batches=batches,
+         predicted_launches=predicted,
          launches=dev["launches"], plain_calls=dev["plain_calls"],
          host_launches=host["launches"], corpora_equal=same,
          parts=dev["summary"]["n_parts"], batches=dev["summary"]["n_batches"],
@@ -4623,6 +4789,9 @@ def export_phase(torch, platform, store_dir, kernel_ms) -> dict:
     assert same, "export: the card's corpus differs from --hostOnly's"
     assert dev["summary"]["complete"] and dev["summary"]["rows"] == rows \
         == sum(index_rows.values())
+    assert dev["summary"]["n_batches"] == batches, (dev["summary"]["n_batches"], batches)
+    assert dev["summary"]["batches_per_part"] == EXPORT_PART_BATCHES
+    assert dev["summary"]["parts_written"] == predicted
     assert not wrong, f"export/stream: {len(wrong)} bodies differ from host_only, e.g. {wrong[:3]}"
     assert engine.breaker.stats() == {"open_groups": [], "groups": {}}, engine.breaker.stats()
     assert host["launches"]["export_pack"] == 0 and not any(host["plain_calls"].values())

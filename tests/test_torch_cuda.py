@@ -41,11 +41,14 @@ points refuse a short or misaligned scratch; and the
 card's ``QueryEngine`` must answer the CPU engine's bytes with the
 predicted launches, no plain version on the card and no breaker failure.
 The export's pack kernel (``csrc/export_pack.cu``) is held against its
-plain version byte for byte on edge rows, 1,048,576 random rows and
-store-shaped batches at every ``n_valid`` case; its wrapper refuses int64,
-non-contiguous and mixed inputs; ``pack_batch`` on the card equals the
-numpy twin, and ``export`` and ``/export/stream`` on the card write and
-answer the ``--hostOnly`` bytes with one launch a batch or call.
+plain version byte for byte on edge rows, 1,048,576 random rows,
+store-shaped batches and stacks of batches (B = 4 mod 8, B not a multiple
+of 4, an unaligned base) at every ``n_valid`` case; its wrapper refuses
+int64, non-contiguous and mixed inputs and counts that do not match the
+stack; ``pack_batches`` on the card equals the numpy twin with one launch
+a part, and ``export`` and ``/export/stream`` on the card write and answer
+the ``--hostOnly`` bytes with one launch a part or call.  ``bits_spans``
+is also held against its plain version on its own search edges.
 ``chip_smoke.py`` runs the same comparisons at the loads' and the
 server's real sizes."""
 
@@ -876,6 +879,36 @@ def test_export_pack_matches_plain_version(cuda):
     assert P.LAUNCHES["export_pack"] == before + 6 * len(cases)
 
 
+def test_export_pack_stacks_match_plain_version(cuda):
+    """Stacks of 1, 2 and 37 batches, B = 4 mod 8, B not a multiple of 4
+    and an unaligned base, each batch at each ``n_valid`` case, byte for
+    byte against the plain version on the same stack, one launch a stack
+    and vector of counts."""
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from chip_smoke import export_stack_checks, export_stacks
+
+    stacks = export_stacks()
+    before = P.LAUNCHES["export_pack"]
+    checks, worst = export_stack_checks(torch, cuda, stacks)
+    assert worst == 0 and all(c["equal"] for c in checks)
+    assert P.LAUNCHES["export_pack"] == before + 8 * len(stacks)
+
+
+def test_bits_spans_edge_cases_match_plain_version(cuda):
+    """``bits_spans``' own search edges (long runs across the rounds, 0 to
+    65 rows, K not a power of two, the sentinel tail, Q not a multiple of
+    8) against the plain version, exactly, one launch a case."""
+    from annotatedvdb_tpu_torch.ops import intervals
+    from chip_smoke import bits_edge_cases, bits_kernel_checks
+
+    cases = bits_edge_cases()
+    before = dict(intervals.LAUNCHES), intervals.CALLS["cuda"]
+    checks, worst = bits_kernel_checks(torch, cuda, cases)
+    assert worst == 0 and all(c["equal"] for c in checks)
+    assert intervals.LAUNCHES["bits_spans"] == before[0]["bits_spans"] + len(cases)
+    assert intervals.CALLS["cuda"] == before[1] + len(cases)  # the plain versions
+
+
 def test_export_pack_refuses_bad_inputs(cuda):
     from annotatedvdb_tpu_torch.ops import export_pack as P
 
@@ -889,6 +922,16 @@ def test_export_pack_refuses_bad_inputs(cuda):
         P.export_pack(cols[:6], 8)
     with pytest.raises(TypeError, match="n_valid"):
         P.export_pack(cols, torch.tensor(8))
+    stack = torch.zeros((3, 7, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="n_valid"):
+        P.export_pack(stack, [8, 8])
+    with pytest.raises(ValueError, match="n_valid"):
+        P.export_pack(stack, 8)
+    with pytest.raises(TypeError, match="int32"):
+        P.export_pack(stack.to(torch.int64), [8, 8, 8])
+    with pytest.raises(ValueError, match="contiguous"):
+        P.export_pack(torch.zeros((7, 3, 64), dtype=torch.int32, device=cuda)
+                      .transpose(0, 1), [8, 8, 8])
     assert P.LAUNCHES == before
     P.export_pack(cols, 8)
     torch.cuda.synchronize()
@@ -896,27 +939,34 @@ def test_export_pack_refuses_bad_inputs(cuda):
 
 
 def test_pack_batch_on_card_matches_host_only(cuda):
-    from annotatedvdb_tpu_torch.export.core import pack_batch
+    """A part's batches packed on the card in one launch equal the numpy
+    twin's, batch by batch, for parts of one and of several batches."""
+    from annotatedvdb_tpu_torch.export.core import pack_batches
     from annotatedvdb_tpu_torch.ops import export_pack as P
     from chip_smoke import export_store_columns
 
-    for b, n in ((4096, 4096), (4096, 1000), (8, 0), (16, 3)):
-        chunk = {"code": 22, "n_valid": n,
-                 **dict(zip(P.COLUMNS, export_store_columns(b, b)))}
-        got = pack_batch(chunk, device=cuda)
-        want = pack_batch(chunk, host_only=True)
-        assert list(got) == list(want)
-        for key, w in want.items():
-            if isinstance(w, np.ndarray):
-                assert got[key].dtype == w.dtype, key
-                np.testing.assert_array_equal(got[key], w)
-            else:
-                assert got[key] == w, key
+    for b, counts in ((4096, [4096]), (4096, [4096, 4096, 1000]), (8, [0]),
+                      (16, [16, 3, 16, 0, 16])):
+        chunks = [{"code": 22, "n_valid": n,
+                   **dict(zip(P.COLUMNS, export_store_columns(b + k, b)))}
+                  for k, n in enumerate(counts)]
+        before = P.LAUNCHES["export_pack"]
+        got = pack_batches(chunks, device=cuda)
+        assert P.LAUNCHES["export_pack"] == before + 1
+        want = pack_batches(chunks, host_only=True)
+        for g, w in zip(got, want, strict=True):
+            assert list(g) == list(w)
+            for key, x in w.items():
+                if isinstance(x, np.ndarray):
+                    assert g[key].dtype == x.dtype, key
+                    np.testing.assert_array_equal(g[key], x)
+                else:
+                    assert g[key] == x, key
 
 
 def test_export_and_stream_on_card_match_host_only(cuda, tmp_path, capsys):
     """``export`` on the card writes the ``--hostOnly`` corpus with one launch
-    a batch; ``stream_payload`` on a card engine answers the ``host_only``
+    a part; ``stream_payload`` on a card engine answers the ``host_only``
     bytes with one launch a call; no plain version on the card."""
     from annotatedvdb_tpu_torch.__main__ import main as port
     from annotatedvdb_tpu_torch.export import stream
@@ -937,7 +987,7 @@ def test_export_and_stream_on_card_match_host_only(cuda, tmp_path, capsys):
                      "--commit", "--seed", "7", "--batchRows", "64", *flags]) == 0
         summaries[tag] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         launched = P.LAUNCHES["export_pack"] - before[0]
-        assert launched == (summaries[tag]["n_batches"] if tag == "cuda" else 0)
+        assert launched == (summaries[tag]["parts_written"] if tag == "cuda" else 0)
         assert P.CALLS["cuda"] == before[1]
         digests[tag] = _file_digests(out)
     assert digests["cuda"] == digests["host"] and len(digests["cuda"]) >= 2

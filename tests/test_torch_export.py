@@ -6,7 +6,10 @@ numpy twin and the CPU path of the wrapper are held exactly, dtypes
 included, against the reference's jitted ``export_pack_kernel_jit`` and its
 twin ``export_pack_host``: seeded random int32 rows, edge positions (the
 int32 ends, the leaf-bin edges at 15,625, ``MAX_QUERY_POS``), ``end <
-pos``, ``a ^ b`` at each power of two and every ``n_valid`` case.
+pos``, ``a ^ b`` at each power of two and every ``n_valid`` case; stacks
+of 1, 2 and 37 batches (B a multiple of 4 and not) with mixed ``n_valid``,
+the stacked plain version and wrapper held batch by batch against the
+jitted kernel, and the wrapper's refusals of counts that do not match.
 
 One store is built with the port's ``VariantStore``: two chromosomes, three
 runs of rows each with CADD scores, consequence ranks and allele
@@ -16,10 +19,12 @@ newer segment that repeats some identities (shadowed).  Both packages'
 2 KiB parts: every part and the manifest byte-equal, the summaries and the
 ledger records equal but for timings, paths and timestamps, for the whole
 store shuffled, ``ordered``, a ``region`` and a ``chromosome``, and the
-port's ``host_only`` path.  Then the dry run, resume after the reference's
-CLI was killed at its own fault point (the port has no fault points), the
-port's ``--test`` followed by ``--resume``, the resume refusals and the
-CLI's errors.
+port's ``host_only`` path, with one plain-version call a part (the export
+packs a part's staged batches at once); a plan whose last part is short,
+and an export cut by ``max_parts`` then resumed.  Then the dry run, resume
+after the reference's CLI was killed at its own fault point (the port has
+no fault points), the port's ``--test`` followed by ``--resume``, the
+resume refusals and the CLI's errors.
 """
 
 import json
@@ -57,6 +62,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
     export_edge_columns,
     export_random_columns,
+    export_stack_counts,
     export_store_columns,
 )
 
@@ -89,7 +95,9 @@ def check_pack(cols):
         buf = pack_ops.export_pack(stacked, n)
         assert buf.dtype == torch.uint8 and buf.shape == (30 * b,)
         assert_outputs_equal(pack_ops.unpack(buf.numpy(), b), want)
-        assert_outputs_equal(pack_ops.pack_columns(np.stack(cols), n, torch.device("cpu")), want)
+        chunk = {"n_valid": n, **dict(zip(pack_ops.COLUMNS, cols))}
+        [got] = pack_ops.pack_part([chunk], torch.device("cpu"))
+        assert_outputs_equal(got, want)
 
 
 @pytest.mark.parametrize("b", [8, 16, 4096])
@@ -113,6 +121,52 @@ def test_pack_matches_reference_on_edge_rows():
     x = (cols[0].astype(np.int64) - 1) // 15625 ^ (cols[1].astype(np.int64) - 1) // 15625
     assert (x < 0).any() and {1 << k for k in range(17)} <= set(x.tolist())
     check_pack(cols)
+
+
+@pytest.mark.parametrize("nb,b", [(1, 16), (2, 16), (37, 64), (2, 37)])
+def test_stacked_pack_matches_reference_batch_by_batch(nb, b):
+    """A stack of ``nb`` batches with mixed ``n_valid`` through the plain
+    version and the wrapper's CPU path (one call each), against the
+    jitted kernel batch by batch."""
+    batches = [export_random_columns(1000 * nb + k, b) if k % 2 else
+               export_store_columns(1000 * nb + k, b) for k in range(nb)]
+    counts = export_stack_counts(nb, b)[nb % 8]
+    stacked = torch.from_numpy(np.stack([np.stack(c) for c in batches]))
+    wants = [[np.asarray(a) for a in export_pack_kernel_jit(*cols, np.int32(n))]
+             for cols, n in zip(batches, counts)]
+    before = dict(pack_ops.CALLS)
+    outs = pack_ops.export_pack_reference(*stacked.unbind(1), counts)
+    for k, want in enumerate(wants):
+        assert_outputs_equal([o[k].numpy() for o in outs], want)
+    buf = pack_ops.export_pack(stacked, np.asarray(counts, np.int64))
+    assert buf.dtype == torch.uint8 and buf.shape == (nb * 30 * b,)
+    size = 30 * b
+    for k, want in enumerate(wants):
+        assert_outputs_equal(pack_ops.unpack(buf.numpy()[k * size:(k + 1) * size], b), want)
+    chunks = [{"n_valid": n, **dict(zip(pack_ops.COLUMNS, cols))}
+              for cols, n in zip(batches, counts)]
+    for got, want in zip(pack_ops.pack_part(chunks, torch.device("cpu")), wants):
+        assert_outputs_equal(got, want)
+    assert pack_ops.CALLS["cpu"] == before["cpu"] + 3
+
+
+def test_stacked_pack_refuses_bad_counts():
+    good = torch.from_numpy(np.stack([np.stack(export_random_columns(k, 16))
+                                      for k in range(3)]))
+    before = dict(pack_ops.LAUNCHES)
+    with pytest.raises(ValueError, match="n_valid"):
+        pack_ops.export_pack(good, [4, 5])
+    with pytest.raises(ValueError, match="n_valid"):
+        pack_ops.export_pack(good, 4)
+    with pytest.raises(ValueError, match="n_valid"):
+        pack_ops.export_pack(good[0], [4])
+    with pytest.raises(TypeError, match="n_valid"):
+        pack_ops.export_pack(good, [1.5, 2, 3])
+    with pytest.raises(TypeError, match="int32"):
+        pack_ops.export_pack(good.to(torch.int64), [1, 2, 3])
+    with pytest.raises(ValueError, match="contiguous"):
+        pack_ops.export_pack(good.transpose(0, 1), [1] * 7)
+    assert pack_ops.LAUNCHES == before
 
 
 def test_pack_wrapper_refuses_bad_inputs():
@@ -290,8 +344,33 @@ def test_corpus_matches_reference(store_dir, tmp_path, case):
     assert got["complete"] and got["rows"] == want["total_rows"] > 0
     assert _export_records(store_dir, port_out) == _export_records(store_dir, ref_out)
     assert len(_export_records(store_dir, port_out)) == want["n_parts"]
-    # one plain-version call a batch, on the CPU
-    assert pack_ops.CALLS["cpu"] == before["cpu"] + want["n_batches"]
+    # one plain-version call a part, on the CPU
+    assert pack_ops.CALLS["cpu"] == before["cpu"] + want["n_parts"]
+
+
+@pytest.mark.parametrize("case", ["trailing-short-part", "max-parts-then-resume"])
+def test_part_staging_matches_reference(store_dir, tmp_path, case):
+    """Parts pack their staged batches at commit: a plan whose last part is
+    short (three batches a part), and an export cut after two parts by
+    ``max_parts`` then resumed, each byte-equal to the reference's
+    uninterrupted ``run_export``, one plain-version call a part written."""
+    ref_out, port_out = str(tmp_path / "ref"), str(tmp_path / "port")
+    kw = {"part_bytes": "3k"} if case == "trailing-short-part" else {}
+    want = _ref_export(store_dir, ref_out, **kw)
+    before = pack_ops.CALLS["cpu"]
+    if case == "trailing-short-part":
+        assert want["batches_per_part"] == 3 and want["n_batches"] % 3 != 0
+        got = _port_export(store_dir, port_out, **kw)
+        assert got["parts_written"] == want["n_parts"]
+    else:
+        first = _port_export(store_dir, port_out, max_parts=2)
+        assert first["parts_written"] == 2 and not first["complete"]
+        got = _port_export(store_dir, port_out, resume=True)
+        assert got["resumed_parts"] == 2
+        assert got["parts_written"] == want["n_parts"] - 2
+    assert pack_ops.CALLS["cpu"] - before == want["n_parts"]
+    assert got["complete"]
+    assert _corpus_bytes(port_out) == _corpus_bytes(ref_out)
 
 
 def test_corpus_decodes_to_the_store(store_dir, tmp_path):

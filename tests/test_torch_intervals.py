@@ -8,7 +8,9 @@ reference's jitted ``bits_spans_kernel_jit`` and its numpy twin
 seeded inputs and on the edge cases: an empty position array, a single
 query, runs of equal positions, queries before the first row and after
 the last, ``start > end``, bounds beyond ``MAX_QUERY_POS`` (negative
-included) and the leaf-bin boundary (15625 / 15626).  The CUDA kernel
+included), the leaf-bin boundary (15625 / 15626), one row, and row counts
+that are not powers of two holding runs of equal positions longer than the
+kernel's final search windows.  The CUDA kernel
 itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
@@ -88,6 +90,26 @@ def _kernel_cases():
     cases.append(("sentinel-tail", padded, *_queries(rng, 64)))
     cases.append(("negative", pos, np.asarray([-(2**31) + 1, -5, -1], np.int32),
                   np.asarray([-3, 0, 2**31 - 1], np.int32)))
+    # K not a power of two, holding runs of equal positions longer than
+    # the kernel's final windows (16 and 32 rows) and across the splitters
+    # of its 17- and 33-ary rounds, queried at, beside and between them
+    r = np.random.default_rng(12)
+    long_runs = np.sort(r.integers(1_000, 900_000, 20_011)).astype(np.int32)
+    for length, at in ((17, 500), (33, 1_170), (100, 2_350), (1_500, 8_000),
+                       (6_000, 12_000)):
+        long_runs[at:at + length] = long_runs[at]
+    vals = np.unique(long_runs[[500, 1_170, 2_350, 8_000, 12_000]]).astype(np.int64)
+    pts = np.concatenate([vals - 1, vals, vals + 1, [0, int(long_runs[-1]) + 1]])
+    a, b = np.meshgrid(pts, pts, indexing="ij")
+    cases.append(("long-runs", long_runs, a.ravel().astype(np.int32),
+                  b.ravel().astype(np.int32)))
+    one = np.asarray([777], np.int32)
+    near = np.asarray([0, 1, 776, 777, 778, 2**31 - 1], np.int32)
+    a, b = np.meshgrid(near, near, indexing="ij")
+    cases.append(("k1", one, a.ravel(), b.ravel()))
+    odd = np.repeat(np.arange(10, 10 * 40, 10, dtype=np.int32), 7)[:-2]  # 271 rows
+    q = np.arange(0, 410, 3, dtype=np.int32)
+    cases.append(("k-not-pow2-runs-of-7", odd, q, q + 25))
     return cases
 
 

@@ -299,7 +299,7 @@ def test_export_stream_device_failure_feeds_the_breaker(served, monkeypatch):
     def broken(*_a, **_k):
         raise RuntimeError("device lost")
 
-    monkeypatch.setattr(port_export_pack, "pack_columns", broken)
+    monkeypatch.setattr(port_export_pack, "pack_part", broken)
     for _ in range(3):
         assert port_stream.stream_payload(
             port, port_stream.parse_stream_query(q)) == want
