@@ -39,11 +39,14 @@ COMMANDS = {
     "bin-references": ("annotatedvdb_tpu_torch.cli.generate_bin_index_references",
                        "emit the BinIndexRef table as TSV (host only)"),
     "serve": ("annotatedvdb_tpu_torch.cli.serve",
-              "HTTP query server over a store (--frontend threaded; "
-              "kernels on the card by default)"),
+              "HTTP query server over a store (aio or threaded front "
+              "end; kernels on the card by default)"),
     "export": ("annotatedvdb_tpu_torch.cli.export_corpus",
                "stream the store out as a tokenized training corpus "
                "(batch pack on the card by default)"),
+    "doctor": ("annotatedvdb_tpu_torch.cli.doctor",
+               "store fsck/repair, status, profile, replay-rejects "
+               "(host only)"),
 }
 
 

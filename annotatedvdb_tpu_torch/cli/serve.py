@@ -1,28 +1,30 @@
 """CLI: serve point/bulk/region/stats queries over a loaded variant store.
 
-Port of ``annotatedvdb_tpu/cli/serve.py`` for the single-process,
-thread-per-connection front end (the reference's byte-parity server):
+Port of ``annotatedvdb_tpu/cli/serve.py`` for one serving process, with
+both of the reference's front ends:
 
     python -m annotatedvdb_tpu_torch serve --storeDir ./vdb --port 8080 \\
-        --frontend threaded [--platform cpu] [--hbmBudget 2g]
+        [--frontend aio|threaded] [--platform cpu] [--hbmBudget 2g]
     curl localhost:8080/variant/8:1000:A:G
     curl 'localhost:8080/region/8:1000-250000?minCadd=20'
     curl -d '{"regions":["8:1000-2000","8:9000-9500"],"limit":50}' \\
         localhost:8080/regions
 
 ``--port 0`` binds an ephemeral port (printed in the banner).  The
-flags and their ``AVDB_SERVE_*`` defaults are the reference's, plus
-``--platform`` (``cuda`` by default, an error when no card is present;
-``cpu`` on request).  On ``cuda`` the BITS, stats and export-pack
-kernels are built before the port is bound, and a failed build exits 1.  ``--frontend``
-keeps the reference's choices and default (``aio``), but the asyncio
-front end is not ported yet: ``aio`` is refused, as are the serve fleet
-(``--workers`` above 1), ``--upserts``, ``--follow``, ``--maintain``,
-``--metricsOut`` and ``--traceOut``.  On shutdown (SIGINT or SIGTERM) the
-server logs one ``run summary`` line to stderr: the kernels' launches, the
-plain versions' calls by device, the breaker's state, the device bytes
-held, and the seconds spent loading the store, building
-interval indexes and decoding feature columns.
+default front end is the asyncio event loop (``serve/aio.py``), as in the
+reference; ``--frontend threaded`` keeps the thread-per-connection server
+(``serve/http.py``), where ``--clientRate`` and ``--streamThreshold`` do
+not apply.  The flags and their ``AVDB_SERVE_*`` defaults are the
+reference's, plus ``--platform`` (``cuda`` by default, an error when no
+card is present; ``cpu`` on request).  On ``cuda`` the BITS, stats and
+export-pack kernels are built before the port is bound, and a failed
+build exits 1.  Refused (not ported yet): the serve fleet (``--workers``
+above 1), ``--upserts``, ``--follow``, ``--maintain``, ``--metricsOut``
+and ``--traceOut``.  On shutdown (SIGINT or SIGTERM) the server logs one
+``run summary`` line to stderr: the kernels' launches, the plain
+versions' calls by device, the breaker's state, the device bytes held,
+and the seconds spent loading the store, building interval indexes and
+decoding feature columns.
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ def _build_parser() -> argparse.ArgumentParser:
                              "or 1); above 1 is not yet ported")
     parser.add_argument("--frontend", choices=("aio", "threaded"),
                         default="aio",
-                        help="event-loop front end (the default; not yet "
-                             "ported) or the thread-per-connection server")
+                        help="event-loop front end (default) or the "
+                             "thread-per-connection server")
     parser.add_argument("--upserts", action="store_true", default=None,
                         help="the live write path (not yet ported)")
     parser.add_argument("--follow", default=None, metavar="LEADER-URL",
@@ -73,10 +75,13 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="rendered hot-region LRU capacity "
                              "(default: AVDB_SERVE_REGION_CACHE or 64)")
     parser.add_argument("--clientRate", type=float, default=None,
-                        help="per-client admission (aio front end only)")
+                        help="weighted per-client admission: requests/sec "
+                             "per weight unit, 0 disables "
+                             "(default: AVDB_SERVE_CLIENT_RATE or 0)")
     parser.add_argument("--streamThreshold", type=int, default=None,
-                        help="chunked streaming threshold (aio front end "
-                             "only)")
+                        help="region row count above which responses "
+                             "stream chunked instead of buffering "
+                             "(default: AVDB_SERVE_STREAM_THRESHOLD or 2048)")
     parser.add_argument("--hbmBudget", default=None, metavar="BYTES",
                         help="device residency budget for probe segment "
                              "caches, e.g. 512m / 2g; unset = unmanaged "
@@ -127,9 +132,6 @@ def main(argv=None) -> int:
     def log(msg):
         print(f"serve: {msg}", file=sys.stderr)
 
-    if args.frontend == "aio":
-        ap.error("--frontend aio (the default) is not yet ported to "
-                 "annotatedvdb_tpu_torch; pass --frontend threaded")
     try:
         workers = _effective_workers(args)
     except ValueError as err:
@@ -145,15 +147,16 @@ def main(argv=None) -> int:
     for flag in ("follow", "maintain", "metricsOut", "traceOut"):
         if getattr(args, flag):
             ap.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
-    dead = [flag for flag, val, env in (
-        ("--clientRate", args.clientRate, "AVDB_SERVE_CLIENT_RATE"),
-        ("--streamThreshold", args.streamThreshold,
-         "AVDB_SERVE_STREAM_THRESHOLD"),
-    ) if val is not None or os.environ.get(env)]
-    if dead:
-        print(f"serve: {', '.join(dead)} only apply to the aio front "
-              "end and are ignored with --frontend threaded",
-              file=sys.stderr)
+    if args.frontend == "threaded":
+        dead = [flag for flag, val, env in (
+            ("--clientRate", args.clientRate, "AVDB_SERVE_CLIENT_RATE"),
+            ("--streamThreshold", args.streamThreshold,
+             "AVDB_SERVE_STREAM_THRESHOLD"),
+        ) if val is not None or os.environ.get(env)]
+        if dead:
+            print(f"serve: {', '.join(dead)} only apply to the aio front "
+                  "end and are ignored with --frontend threaded",
+                  file=sys.stderr)
     return _run_single(args, log)
 
 
@@ -197,8 +200,75 @@ def _run_single(args, log) -> int:
     max_wait_s = (
         args.batchWaitMs / 1000.0 if args.batchWaitMs is not None else None
     )
-    return _run_threaded(args, manager, registry, residency, max_wait_s,
-                         log, device, load_s)
+    if args.frontend == "threaded":
+        return _run_threaded(args, manager, registry, residency, max_wait_s,
+                             log, device, load_s)
+    return _run_aio(args, manager, registry, residency, max_wait_s, log,
+                    device, load_s)
+
+
+def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
+             load_s: float) -> int:
+    """The event-loop server (the default front end)."""
+    import gc
+    import signal
+    import threading
+
+    from annotatedvdb_tpu_torch.serve.aio import build_aio_server
+
+    try:
+        server = build_aio_server(
+            manager=manager, host=args.host, port=args.port,
+            max_batch=args.maxBatch, max_wait_s=max_wait_s,
+            max_queue=args.maxQueue, region_cache_size=args.regionCache,
+            registry=registry, residency=residency,
+            client_rate=args.clientRate,
+            stream_threshold=args.streamThreshold, log=log, device=device,
+        )
+    except (OSError, ValueError) as err:
+        # an unparseable AVDB_SERVE_* knob: the same clean exit as every
+        # other startup failure
+        print(f"serve: cannot start: {err}", file=sys.stderr)
+        return 1
+    ctx = server.ctx
+    snap = manager.current()
+
+    # GC hygiene for a latency-sensitive process: the loaded store is
+    # millions of long-lived objects — freeze them out of the collector
+    # so a mid-request gen2 pass never walks the whole store, and widen
+    # gen0 so request-rate allocation does not trigger collections
+    # thousands of times per second
+    gc.collect()
+    gc.freeze()
+    gc.set_threshold(50_000, 25, 25)
+    # a 5 ms interpreter-lock slice (the default) stacks whole-slice
+    # stalls onto request tails whenever an executor thread runs hot;
+    # 1 ms trades a little switching overhead for p99
+    sys.setswitchinterval(0.001)
+
+    try:
+        # bind on a helper thread first so the concrete (possibly
+        # ephemeral) address prints before we block
+        server.start_background()
+        host, port = server.server_address[:2]
+        print(f"serving {args.storeDir} (generation {snap.generation}, "
+              f"{snap.store.n} rows) on http://{host}:{port}", flush=True)
+        stop = threading.Event()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_a: stop.set())
+        stop.wait()
+        log("shutting down")
+    except OSError as err:
+        # bind failure: same clean exit as the threaded front end
+        print(f"serve: cannot start: {err}", file=sys.stderr)
+        return 1
+    except KeyboardInterrupt:
+        log("shutting down")
+    finally:
+        server.shutdown()
+        ctx.batcher.close()
+        log("run summary " + json.dumps(run_summary(ctx.engine, load_s)))
+    return 0
 
 
 def _run_threaded(args, manager, registry, residency, max_wait_s, log,

@@ -6,6 +6,11 @@ first pending query, waits up to a deadline for company, executes the
 whole microbatch through ``QueryEngine.lookup_many`` (one vectorized probe
 per chromosome group) and hands each caller its own result.
 
+``submit`` blocks its handler thread for the answer; ``submit_nowait``
+returns the pending at once and runs a completion callback on the drain
+thread (the aio front end's path when it is given this batcher instead of
+its loop-native one).
+
 Knobs (env defaults, overridable per instance): ``AVDB_SERVE_BATCH_MAX``
 (256), ``AVDB_SERVE_BATCH_WAIT_MS`` (2), ``AVDB_SERVE_MAX_QUEUE`` (1024,
 the 429 admission bound); :func:`resolve_regions_knobs` and
@@ -106,21 +111,26 @@ def resolve_stats_knobs(stats_max, device_min):
 
 class _Pending:
     """One caller's query in flight: the drain thread fills ``result`` or
-    ``error`` then sets ``done`` (the Event publishes the write).
-    ``deadline_t`` (absolute ``time.monotonic`` seconds, or None) is the
-    request's remaining-budget bound: the drain sheds already-dead
-    pendings before device work."""
+    ``error`` then sets ``done`` (the Event publishes the write).  An
+    optional ``callback`` runs (on the drain thread) after ``done`` is
+    set — the aio front end's completion hook, so an event loop never
+    parks a thread on the Event.  ``deadline_t`` (absolute
+    ``time.monotonic`` seconds, or None) is the request's remaining-budget
+    bound: the drain sheds already-dead pendings before device work."""
 
-    __slots__ = ("qid", "parsed", "result", "error", "done", "deadline_t",
-                 "trace", "t_enq")
+    __slots__ = ("qid", "parsed", "result", "error", "done", "callback",
+                 "deadline_t", "trace", "t_enq")
 
-    def __init__(self, qid: str, parsed=None, deadline_t: float | None = None,
+    def __init__(self, qid: str, parsed=None, callback=None,
+                 want_event: bool = True, deadline_t: float | None = None,
                  trace=None):
         self.qid = qid
         self.parsed = parsed  # submit-time parse, reused by the drain
         self.result = None
         self.error: BaseException | None = None
-        self.done = threading.Event()
+        # callback-style waiters never wait on the Event: skip it there
+        self.done = threading.Event() if want_event else None
+        self.callback = callback
         self.deadline_t = deadline_t
         #: request-trace scratchpad (obs/reqtrace.py) — the drain
         #: attributes queue-wait and device time to it; None when the
@@ -130,7 +140,13 @@ class _Pending:
 
     def finish(self) -> None:
         """Publish the filled result/error to the waiter."""
-        self.done.set()
+        if self.done is not None:
+            self.done.set()
+        if self.callback is not None:
+            try:
+                self.callback(self)
+            except Exception:  # a waiter's hook must never take down the drain thread
+                pass
 
 
 class QueryBatcher:
@@ -194,17 +210,8 @@ class QueryBatcher:
         the request's budget lapses (the drain sheds the queued pending —
         its admission slot releases — and this caller stops waiting), or
         the drain's root cause."""
-        if self._stop.is_set():
-            raise RuntimeError("batcher is closed")
-        # grammar errors stay with this caller; the parse is kept for the
-        # drain so the engine never re-parses a microbatch
-        parsed = parse_variant_id(variant_id)
-        if self._q.qsize() >= self.max_queue:
-            raise QueueFull(
-                f"serve queue full ({self.max_queue} pending queries)"
-            )
-        pending = _Pending(variant_id, parsed, deadline_t, trace)
-        self._q.put(pending)
+        pending = self.submit_nowait(variant_id, deadline_t=deadline_t,
+                                     trace=trace)
         wait_s = self.timeout_s
         if deadline_t is not None:
             wait_s = min(wait_s, max(deadline_t - time.monotonic(), 0.0))
@@ -223,6 +230,30 @@ class QueryBatcher:
         if pending.error is not None:
             raise pending.error
         return pending.result
+
+    def submit_nowait(self, variant_id: str, callback=None,
+                      want_event: bool = True,
+                      deadline_t: float | None = None,
+                      trace=None) -> _Pending:
+        """Enqueue one point query without blocking for the result: the
+        admission and grammar contract of :meth:`submit` applies here, in
+        the caller (``QueueFull`` / ``QueryError`` raise), then the
+        returned pending completes on the drain thread, where
+        ``callback`` (if given) runs after the result publishes.  An event
+        loop passes ``want_event=False``: nothing waits on the Event."""
+        if self._stop.is_set():
+            raise RuntimeError("batcher is closed")
+        # grammar errors stay with this caller; the parse is kept for the
+        # drain so the engine never re-parses a microbatch
+        parsed = parse_variant_id(variant_id)
+        if self._q.qsize() >= self.max_queue:
+            raise QueueFull(
+                f"serve queue full ({self.max_queue} pending queries)"
+            )
+        pending = _Pending(variant_id, parsed, callback, want_event,
+                           deadline_t, trace)
+        self._q.put(pending)
+        return pending
 
     def drain_stats(self) -> dict:
         """Lifetime coalescing summary (the bench's batch-fill source)."""

@@ -850,6 +850,22 @@ class QueryEngine:
         ``host_only=True`` pins the interval search to the numpy twin
         (byte-identical — the circuit breaker's path).  Unpaged answers
         sit in the generation-keyed rendered LRU."""
+        kind, payload = self.region_serve(
+            spec, min_cadd=min_cadd, max_conseq_rank=max_conseq_rank,
+            limit=limit, cursor=cursor, stream_threshold=None,
+            host_only=host_only,
+        )
+        return payload if kind == "text" else payload.assemble()
+
+    def region_serve(self, spec: str, min_cadd=None, max_conseq_rank=None,
+                     limit: int | None = None, cursor: str | None = None,
+                     stream_threshold: int | None = None,
+                     host_only: bool = False):
+        """The front ends' region entry point: ``("text", str)`` for
+        responses small enough to buffer (cache-eligible when unpaged), or
+        ``("page", RegionPage)`` when the row count exceeds
+        ``stream_threshold`` — the aio front end then streams
+        prefix/rows/suffix chunked without materializing the body."""
         code, start, end = parse_region(spec)
         snap = self.snapshots.current()
         if self.residency is not None:
@@ -860,14 +876,17 @@ class QueryEngine:
                          min_cadd, max_conseq_rank, limit)
             text = self._cache_get(cache_key)
             if text is not None:
-                return text
-        text = self._region_page(
+                return "text", text
+        page = self._region_page(
             snap, code, start, end, min_cadd, max_conseq_rank, limit,
             cursor, host_only,
-        ).assemble()
+        )
+        if stream_threshold is not None and page.returned > stream_threshold:
+            return "page", page
+        text = page.assemble()
         if cache_key is not None:
             self._cache_put(cache_key, text)
-        return text
+        return "text", text
 
     def regions_serve(self, specs: list, min_cadd=None, max_conseq_rank=None,
                       limit: int | None = None, tokenize: bool = False,

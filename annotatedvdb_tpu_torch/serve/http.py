@@ -341,6 +341,10 @@ class ServeContext:
             "avdb_serve_point_cache_hits_total",
             "point reads served cache-first under brownout",
         )
+        self._m_abandoned = registry.counter(
+            "avdb_serve_abandoned_responses_total",
+            "responses dropped because the client connection died first",
+        )
         # per-kind series resolved once (the registry probe is measurable
         # at serving QPS)
         self._kind = {}
@@ -397,6 +401,11 @@ class ServeContext:
 
     def brownout_shed(self) -> None:
         self._m_brownout_shed.inc()
+
+    def abandoned(self) -> None:
+        """A response that never reached the wire (the aio front end's
+        client died first)."""
+        self._m_abandoned.inc()
 
     def point_preflight(self, variant_id: str, deadline_t: float | None):
         """The point-read admission decision: ``("shed", None)`` (deadline

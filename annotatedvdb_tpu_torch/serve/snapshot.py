@@ -76,6 +76,13 @@ class SnapshotManager:
         with self._lock:
             return self._swaps
 
+    def refresh_due(self) -> bool:
+        """Whether the TTL window has lapsed (no stat, no side effects) —
+        the aio front end's cheap in-line check before it schedules the
+        real refresh off the event loop."""
+        with self._lock:
+            return time.monotonic() >= self._next_check
+
     def maybe_refresh(self) -> bool:
         """Coalesced freshness check: at most one manifest ``stat`` per TTL
         window across all request threads.  True only when this call

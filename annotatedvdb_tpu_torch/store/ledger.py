@@ -139,6 +139,29 @@ class AlgorithmLedger:
             {"type": "finish", "alg_id": alg_id, "counters": counters, "ts": time.time()}
         )
 
+    def run(self, record: dict) -> None:
+        """Append one per-run record (``type: "run"``).  The loaders'
+        observability run record is not ported, so in the port only
+        ``doctor --repair``'s ledger heal writes one; resume and undo
+        ignore them."""
+        self._append({"type": "run", **record, "ts": time.time()})
+
+    def runs(self) -> list[dict]:
+        """All run records, oldest first (``doctor``'s read path: fsck's
+        reload hints, ``status``'s run count)."""
+        with self._lock:
+            return [e for e in self._entries if e.get("type") == "run"]
+
+    def compactions(self) -> list[dict]:
+        """All compact records (``doctor compact`` passes), oldest first."""
+        with self._lock:
+            return [e for e in self._entries if e.get("type") == "compact"]
+
+    def flushes(self) -> list[dict]:
+        """All memtable-flush records, oldest first."""
+        with self._lock:
+            return [e for e in self._entries if e.get("type") == "flush"]
+
     def export(self, record: dict) -> None:
         """Append one ``{"type": "export"}`` record — a committed corpus
         part (``export/core.py``: output dir, plan signature, part ordinal,

@@ -10,8 +10,8 @@ at ``<store>/quarantine/<input-basename>.rejects.jsonl``:
     {"line": 4012, "reason": "invalid JSON: ...", "raw": "<original line>"}
 
 The file is REPLAYABLE: fix the ``raw`` fields in place (or fix upstream),
-run the JAX package's ``doctor replay-rejects --rejects <file>
---out fixed.<ext>`` to reconstruct a loadable
+run ``python -m annotatedvdb_tpu_torch doctor replay-rejects --rejects
+<file> --out fixed.<ext>`` (:func:`write_replay`) to reconstruct a loadable
 input (the meta record's ``header`` restores TSV headers), and load the
 reconstructed file with the same loader — resume/skip-existing semantics
 make the replay idempotent against the rows that already landed.
@@ -140,3 +140,38 @@ class QuarantineSink:
                 self._fh.close()
                 self._fh = None
 
+
+def read_rejects(path: str) -> tuple[dict, list[dict]]:
+    """(meta, records) from a rejects file; meta is {} for old files."""
+    meta: dict = {}
+    records: list[dict] = []
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            rec = json.loads(line)
+            if "meta" in rec:
+                meta = rec["meta"]
+            else:
+                records.append(rec)
+    return meta, records
+
+
+def write_replay(rejects_path: str, out_path: str) -> int:
+    """Reconstruct a loadable input file from a (possibly hand-fixed)
+    rejects file: the meta header first (TSV loaders), then every captured
+    ``raw`` line verbatim.  Returns the number of rows written; summary
+    (uncaptured) records are skipped — their lines were never preserved."""
+    meta, records = read_rejects(rejects_path)
+    n = 0
+    with open(out_path, "w") as out:
+        header = meta.get("header")
+        if header:
+            out.write(header.rstrip("\n") + "\n")
+        for rec in records:
+            raw = rec.get("raw")
+            if raw is None:
+                continue
+            out.write(raw.rstrip("\n") + "\n")
+            n += 1
+    return n

@@ -148,12 +148,12 @@ phase, each phase printing one JSON line:
 8. updates  — on phase 7's store, through the CLIs' ``main`` with
               ``--commit`` in the default configuration, each with the
               counters reset just before and read just after: a seeded
-              ADSP-QC-shaped pVCF of 100,000 phase-4 lines (QUAL, FILTER
+              ADSP-QC-shaped pVCF of 50,000 phase-4 lines (QUAL, FILTER
               PASS on 85%, numeric INFO keys and a flag, a repeated key on
               1%, FORMAT and a sample; 10% new SNVs, 3% of those with two
-              alts) with ``--version r4``; a SnpEff VCF of 100,000 phase-4
+              alts) with ``--version r4``; a SnpEff VCF of 50,000 phase-4
               identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
-              of 50,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
+              of 25,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
               predicts, the predicted ``annotate_bin`` launches, no plain
               hash on the card, stage seconds, wall, lines/s and the
@@ -195,20 +195,22 @@ phase, each phase printing one JSON line:
               ``install-schema --storeDir`` of that store (COPY rows equal
               to store rows, one launch per window; wall, rows/s) and
               ``bin-references`` for GRCh38 (395,448 rows);
-11. serve   — ``python -m annotatedvdb_tpu_torch serve --frontend
-              threaded --port 0`` on phase 9's store (CADD scores and FREQ
-              allele frequencies; no ranks) and 8 client threads sending a
-              seeded mix: 2,000 point ids (5% absent), 10 bulk calls of
+11. serve   — ``python -m annotatedvdb_tpu_torch serve --port 0`` on
+              phase 9's store (CADD scores and FREQ allele frequencies; no
+              ranks), once with the default front end (``aio``) and then
+              with ``--frontend threaded``, in turns, each with 8 client
+              threads sending the same seeded mix: 2,000 point ids (5% absent), 10 bulk calls of
               10,000 ids, 64 region walks of three pages (10 kb-1 Mb,
               ``minCadd=20``), 16 ``POST /regions`` batches of 4,096
               gene-panel intervals (half count-only, half two rows each
               with ``tokenize``) and 16 ``POST /stats/region`` batches of
-              4,096 with ``windows`` 16.  Every body equal to the host-only
-              engine's answer (computed after the traffic window by four
-              spawned helper processes, idle while it runs); the kernels'
-              launches as predicted, no breaker failure and no plain
-              version on the card (the server's shutdown summary);
-              p50/p99 per kind, requests/s, intervals/s, the device's
+              4,096 with ``windows`` 16.  Every body of both front ends
+              equal to the host-only engine's answer (computed after the
+              traffic windows by four spawned helper processes, idle while
+              they run); each server's kernel launches as predicted, no
+              breaker failure and no plain version on the card (its
+              shutdown summary); per front end p50/p99 per kind,
+              requests/s, intervals/s, the device's
               idle share (an upper bound: phase 3's kernel times times
               the launches) and bytes held, the store load, index build
               and feature decode seconds;
@@ -224,7 +226,18 @@ phase, each phase printing one JSON line:
               loop, part writes).  Then 64 ``/export/stream``
               payloads (``stream_payload``) of seeded slices on a card
               engine over the store, counters reset just before: one launch
-              a call, every body equal to the ``host_only`` answer.
+              a call, every body equal to the ``host_only`` answer;
+13. doctor  — ``doctor`` through the CLI's ``main`` on card-written
+              stores: ``--deep --json`` of phase 9's store (exit 0, clean),
+              ``status --json`` and ``profile`` of it, every group's
+              profile equal to the ``/stats/region`` body over the whole
+              chromosome from phase 12's card engine (one ``stats_panel``
+              launch); a copy of phase 6's card store with a segment file
+              truncated (exit 2, ``--repair`` exit 1, then exit 0, and it
+              loads); ``replay-rejects`` of a rejects file a Python-engine
+              ``load-vcf`` of a VCF with five malformed lines wrote (the
+              lines back verbatim).  The card's allocated bytes must not
+              move while ``doctor`` runs; walls of each verb.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -2399,6 +2412,40 @@ def serve_panel(served, per_group=40, width=2000, seed=0) -> list:
     return out + ["3:1-100", "3:5000-9000", "22:1-64000000"]
 
 
+def rejects_vcf(path, n, seed=13) -> dict:
+    """A chr22 VCF of ``n`` seeded lines with five malformed lines
+    between them (short, a non-numeric and an out-of-range POS); returns
+    {"good": lines, "bad": malformed lines as written}.  A Python-engine
+    load quarantines the bad lines with their text, and ``doctor
+    replay-rejects`` must give them back verbatim."""
+    rng = np.random.default_rng(seed)
+    pos = 20_000_000 + 3 * np.cumsum(rng.integers(1, 9, n))
+    good, _rows = vcf_lines(seed, n, pos.tolist())
+    bad = ["22\t100\n", "22\tabc\t.\tA\tC\t.\t.\t.\n",
+           "22\t2147483648\t.\tA\tC\t.\t.\t.\n", "22\t-5\t.\tG\tT\t.\t.\t.\n",
+           "garbage line without tabs\n"]
+    with open(path, "w") as fh:
+        fh.write(HEADER)
+        for i, ln in enumerate(good):
+            fh.write(ln)
+            if i % max(n // len(bad), 1) == 0 and i // max(n // len(bad), 1) < len(bad):
+                fh.write(bad[i // max(n // len(bad), 1)])
+    return {"good": good, "bad": bad}
+
+
+def profile_matches_stats(groups, results, labels) -> bool:
+    """Whether ``doctor profile``'s per-group summaries equal the
+    ``/stats/region`` results over each whole chromosome (the same
+    summary shape, less the profile's ``segments``/``read_amp`` and the
+    result's ``region``)."""
+    for label, res in zip(labels, results):
+        g = {k: v for k, v in groups[label].items()
+             if k not in ("segments", "read_amp")}
+        if g != {k: v for k, v in res.items() if k != "region"}:
+            return False
+    return True
+
+
 def serve_inputs(i):
     """Phase 3's serving-shape input set ``i`` (0, 1, 2): the host columns
     and clamped queries, and the columns padded as the kernels take them."""
@@ -3396,7 +3443,8 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             f"phase 6 ({config}): device and CPU saved ranking files differ: "
             f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
     return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks,
-            "store": store4, "vep": inp["vep7"], "want": inp["want7"],
+            "store": store4, "store6": os.path.join(WORK, f"store.default.0.{platform}"),
+            "vep": inp["vep7"], "want": inp["want7"],
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"],
             "vep7b": inp["vep7b"], "want7b": inp["want7b"],
             "novel7b": inp["novel7b"]}
@@ -4483,49 +4531,72 @@ def _warm_serve_helper() -> None:
     time.sleep(1.0)  # hold this worker, so each warm call lands on its own
 
 
+#: phase 11's front ends, in the order they are driven: the default first
+SERVE_FRONTENDS = ("aio", "threaded")
+
+
 def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> dict:
-    """Phase 11: ``python -m annotatedvdb_tpu_torch serve --frontend
-    threaded --port 0`` on phase 9's store (its CADD scores and FREQ
-    allele frequencies; no ranks), with the brownout ladder's latency
-    trigger off (``AVDB_SERVE_BROWNOUT_P99_MS=0``: the phase measures full
-    service), and the jobs of :func:`serve_jobs` sent by ``mix["clients"]``
-    threads.  After the traffic window, :data:`SERVE_HELPERS` spawned
-    processes (started and warmed before the server, idle while it is
-    timed) compute the host-only answers (:func:`serve_expected`, a share
-    of the jobs each); every response must equal its host answer byte for
-    byte.  The server's counters start at 0 with its process and are read
-    from its shutdown summary: the launches as predicted (one
-    ``bits_spans`` per panel, one ``stats_panel`` and one
+    """Phase 11: ``python -m annotatedvdb_tpu_torch serve --port 0`` on
+    phase 9's store (its CADD scores and FREQ allele frequencies; no
+    ranks), once per front end of :data:`SERVE_FRONTENDS`, in turns (``aio``, the
+    default, with no ``--frontend`` flag; then ``--frontend threaded``),
+    with the brownout ladder's latency trigger off
+    (``AVDB_SERVE_BROWNOUT_P99_MS=0``: the phase measures full service),
+    and the jobs of :func:`serve_jobs` sent by ``mix["clients"]`` threads.
+    After the traffic windows, :data:`SERVE_HELPERS` spawned processes
+    (started and warmed before the first server, idle while it is timed)
+    compute the host-only answers (:func:`serve_expected`, a share of the
+    jobs each); every response of each front end must equal its host
+    answer byte for byte.  Each server's counters start at 0 with its
+    process and are read from its shutdown summary: the launches as
+    predicted (one ``bits_spans`` per panel, one ``stats_panel`` and one
     ``windowed_stats`` per stats batch: each has one chr22 group of more
     than the device minimums), no breaker failure and no plain version on
-    the card.  Reports p50/p99 per request kind, requests/s, intervals/s,
-    the device's kernel-busy and idle shares over the traffic window
-    (each kernel's phase-3 time at the serving shape, ``kernel_ms``, times
-    its launches here; uploads and copies back are not counted, so the
-    idle share is an upper bound), the device bytes held and the store
-    load, index build and feature decode seconds."""
+    the card.  Reports, per front end, p50/p99 per request kind,
+    requests/s, intervals/s, the device's kernel-busy and idle shares over
+    the traffic window (each kernel's phase-3 time at the serving shape,
+    ``kernel_ms``, times its launches here; uploads and copies back are
+    not counted, so the idle share is an upper bound), the device bytes
+    held and the store load, index build and feature decode seconds."""
     import concurrent.futures
     import multiprocessing
 
     span = (16_000_000, 42_000_000)
     t_phase = time.perf_counter()
+    jobs = serve_jobs(vcf4, span, 11, mix)
     with concurrent.futures.ProcessPoolExecutor(
             SERVE_HELPERS, mp_context=multiprocessing.get_context("spawn")) as helpers:
         warm = [helpers.submit(_warm_serve_helper) for _ in range(SERVE_HELPERS)]
-        return _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span,
-                          kernel_ms, serve_jobs(vcf4, span, 11, mix), vcf4)
+        runs = {fe: _serve_traffic(platform, store_dir, mix, fe, jobs, warm)
+                for fe in SERVE_FRONTENDS}
+        t0 = time.perf_counter()
+        parts = [f.result() for f in [
+            helpers.submit(serve_expected, store_dir, vcf4, span, 11, mix, part,
+                           SERVE_HELPERS) for part in range(SERVE_HELPERS)]]
+        host_answers_wall = time.perf_counter() - t0
+    answers = {k: v for p in parts for k, v in p["answers"].items()}
+    out = {}
+    for fe, run in runs.items():
+        out[fe] = _serve_check(platform, fe, run, jobs, answers, mix, kernel_ms,
+                               [p["seconds"] for p in parts], host_answers_wall,
+                               time.perf_counter() - t_phase)
+    return {"launches": out[SERVE_FRONTENDS[0]],
+            "launches_by_frontend": out}
 
 
-def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms,
-               jobs, vcf4) -> dict:
-    """The server, the clients and the comparison of :func:`serve_phase`."""
-    out_path = os.path.join(WORK, "serve.out")
-    err_path = os.path.join(WORK, "serve.err")
+def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
+    """One front end's server (no ``--frontend`` flag for ``aio``, the
+    default), the clients' traffic window and the server's shutdown
+    summary."""
+    t_start = time.perf_counter()
+    out_path = os.path.join(WORK, f"serve.{frontend}.out")
+    err_path = os.path.join(WORK, f"serve.{frontend}.err")
     env = dict(os.environ, AVDB_SERVE_BROWNOUT_P99_MS="0")
     with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
         proc = subprocess.Popen(
             [sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
-             "--storeDir", store_dir, "--port", "0", "--frontend", "threaded",
+             "--storeDir", store_dir, "--port", "0",
+             *(["--frontend", frontend] if frontend != "aio" else []),
              *(["--platform", "cpu"] if platform == "cpu" else [])],
             cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
     try:
@@ -4534,14 +4605,15 @@ def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms
         while banner is None:
             if proc.poll() is not None or time.perf_counter() > deadline:
                 with open(err_path) as f:
-                    raise AssertionError(f"serve did not start: {f.read()[-2000:]}")
+                    raise AssertionError(f"serve ({frontend}) did not start: "
+                                         f"{f.read()[-2000:]}")
             with open(out_path) as f:
                 line = f.readline()
             if line.endswith("\n") and line.startswith("serving "):
                 banner = line.strip()
             else:
                 time.sleep(0.2)
-        ready_s = time.perf_counter() - t_phase
+        ready_s = time.perf_counter() - t_start
         for f in warm:
             f.result()
         port = int(banner.rsplit(":", 1)[1])
@@ -4570,14 +4642,18 @@ def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms
             rc = proc.wait()
     with open(err_path) as f:
         err = f.read()
-    assert rc == 0, f"serve exited {rc}: {err[-2000:]}"
+    assert rc == 0, f"serve ({frontend}) exited {rc}: {err[-2000:]}"
     summary = json.loads(err.split("run summary ", 1)[1].splitlines()[0])
-    t0 = time.perf_counter()
-    parts = [f.result() for f in [
-        helpers.submit(serve_expected, store_dir, vcf4, span, 11, mix, part,
-                       SERVE_HELPERS) for part in range(SERVE_HELPERS)]]
-    host_answers_wall = time.perf_counter() - t0
-    answers = {k: v for p in parts for k, v in p["answers"].items()}
+    return {"banner": banner, "ready_s": ready_s, "traffic_s": traffic_s,
+            "results": results, "summary": summary,
+            "run_s": time.perf_counter() - t_start}
+
+
+def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
+                 host_answers_s, host_answers_wall, phase_s) -> dict:
+    """Compare one front end's responses with the host answers, emit its
+    numbers and check its launches; returns the launches."""
+    results, summary, traffic_s = run["results"], run["summary"], run["traffic_s"]
     wrong = [(jid, kind) for jid, kind, _p in jobs
              if [d for _k, _dt, d in results.get(jid, [])] != answers[jid]]
     lat = {}
@@ -4595,8 +4671,8 @@ def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms
     for got in results.values():
         for _k, _dt, (status, _n, _h) in got:
             statuses[status] = statuses.get(status, 0) + 1
-    emit("serve", banner=banner, ready_s=ready_s, traffic_s=traffic_s,
-         phase_s=time.perf_counter() - t_phase, requests=n_req,
+    emit("serve", frontend=frontend, banner=run["banner"], ready_s=run["ready_s"],
+         traffic_s=traffic_s, run_s=run["run_s"], phase_s=phase_s, requests=n_req,
          requests_per_s=n_req / traffic_s, intervals=n_int,
          intervals_per_s=n_int / traffic_s, statuses=statuses,
          latency_ms={k: {"n": len(v), "p50": float(np.percentile(v, 50)) * 1e3,
@@ -4607,15 +4683,16 @@ def _serve_run(platform, store_dir, mix, t_phase, helpers, warm, span, kernel_ms
          device_idle_fraction_upper=1 - busy_s / traffic_s,
          device_bytes=summary["device_bytes"], store_load_s=summary["store_load_s"],
          index_build_s=summary["index_build_s"], decode_s=summary["decode_s"],
-         host_answers_s=[p["seconds"] for p in parts],
-         host_answers_wall_s=host_answers_wall,
+         host_answers_s=host_answers_s, host_answers_wall_s=host_answers_wall,
          mismatches=len(wrong), mismatched=wrong[:10])
-    assert not wrong, f"serve: {len(wrong)} responses differ from the host engine's, e.g. {wrong[:5]}"
+    assert not wrong, (f"serve ({frontend}): {len(wrong)} responses differ from "
+                       f"the host engine's, e.g. {wrong[:5]}")
     assert summary["breaker"] == {"open_groups": [], "groups": {}}, summary["breaker"]
     if platform == "cuda":
-        assert launches == want, f"serve: launches {launches}, predicted {want}"
-        assert not any(plain_cuda.values()), f"serve: plain versions on the card: {plain_cuda}"
-    return {"launches": launches}
+        assert launches == want, f"serve ({frontend}): launches {launches}, predicted {want}"
+        assert not any(plain_cuda.values()), \
+            f"serve ({frontend}): plain versions on the card: {plain_cuda}"
+    return launches
 
 
 #: ``GET /export/stream`` calls of phase 12
@@ -4802,7 +4879,119 @@ def export_phase(torch, platform, store_dir, kernel_ms) -> dict:
         assert stream_launches["export_pack"] == len(queries), stream_launches
         assert not stream_calls["cuda"], f"export/stream: plain calls {stream_calls}"
     return {"export": dev["launches"]["export_pack"],
-            "stream": stream_launches["export_pack"]}
+            "stream": stream_launches["export_pack"], "engine": engine}
+
+
+def _doctor(*argv) -> tuple:
+    """``python -m annotatedvdb_tpu_torch doctor argv`` through the CLI's
+    ``main`` in this process: (exit code, stdout, stderr, seconds)."""
+    import io
+
+    from annotatedvdb_tpu_torch.cli import doctor
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = doctor.main(list(argv))
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def doctor_phase(torch, platform, store9, store6, engine) -> dict:
+    """Phase 13: ``doctor`` on stores the card wrote, through the CLI's
+    ``main``.  (1) ``--deep --json`` on phase 9's store: exit 0, clean.
+    (2) ``status --json`` of it: its rows and groups.  (3) ``profile``
+    of it: every group's summary equal to the ``/stats/region`` body over
+    the whole chromosome from ``engine`` (phase 12's card engine, the
+    device minimum set to one interval: one ``stats_panel`` launch).
+    (4) a copy of phase 6's card store (``store6``) with its first
+    segment file truncated: exit 2, then ``--repair`` exit 1, then exit 0,
+    and the repaired store loads.  (5) ``replay-rejects`` of the rejects
+    file a Python-engine ``load-vcf`` of :func:`rejects_vcf`'s file
+    quarantined: the malformed lines back verbatim.  ``doctor`` is host
+    only: the card's allocated bytes must not move during (1)-(4)."""
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.ops import stats as stats_ops
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    t_phase = time.perf_counter()
+    cuda = platform == "cuda"
+    held = torch.cuda.memory_allocated() if cuda else 0
+    walls = {}
+    rc, out, err, walls["fsck_deep"] = _doctor("--storeDir", store9, "--deep", "--json")
+    fsck9 = json.loads(out)
+    assert rc == 0 and fsck9["status"] == "clean", f"doctor: phase 9's store: {out[-2000:]}"
+    rc, out, err, walls["status"] = _doctor("status", "--storeDir", store9, "--json")
+    status = json.loads(out)
+    assert rc == 0 and status["groups"], f"doctor status: {err[-2000:]}"
+    rc, out, err, walls["profile"] = _doctor("profile", "--storeDir", store9)
+    assert rc == 0, f"doctor profile: {err[-2000:]}"
+    profile = json.loads(out)
+    moved = (torch.cuda.memory_allocated() - held) if cuda else 0
+    labels = sorted(profile["groups"])
+    specs = [f"{lb}:1-{min(CHR22_LENGTH, 64_000_000 - 1)}" for lb in labels]
+    before = dict(stats_ops.LAUNCHES)
+    minimum, engine.stats_device_min = engine.stats_device_min, 0
+    try:
+        t0 = time.perf_counter()
+        whole = json.loads(engine.stats_serve(specs).assemble())["results"]
+        walls["stats_whole"] = time.perf_counter() - t0
+    finally:
+        engine.stats_device_min = minimum
+    stats_launches = stats_ops.LAUNCHES["stats_panel"] - before["stats_panel"]
+    same = profile_matches_stats(profile["groups"], whole, labels)
+
+    torn = os.path.join(WORK, "store.doctor")
+    shutil.rmtree(torn, ignore_errors=True)
+    shutil.copytree(store6, torn)
+    segs = sorted(f for f in os.listdir(torn)
+                  if f.startswith("chr") and f.endswith(".npz") and ".tmp" not in f)
+    seg = os.path.join(torn, segs[0])
+    with open(seg, "r+b") as f:
+        f.truncate(os.path.getsize(seg) // 2)
+    rows6 = VariantStore.load(store6, readonly=True).n
+    codes, reports = [], []
+    for flags in ((), ("--repair",), ("--deep",)):
+        rc, out, err, walls["fsck_torn" + "".join(flags)] = _doctor(
+            "--storeDir", torn, "--json", *flags)
+        codes.append(rc)
+        reports.append(json.loads(out))
+    repaired = reports[1]
+    rows_repaired = VariantStore.load(torn).n
+
+    vcf = os.path.join(WORK, "rejects.vcf")
+    made = rejects_vcf(vcf, 2000)
+    rstore = os.path.join(WORK, "store.rejects")
+    shutil.rmtree(rstore, ignore_errors=True)
+    with environment(AVDB_INGEST_ENGINE="python"), \
+            contextlib.redirect_stdout(sys.stderr):
+        rc_load = load_vcf(["--fileName", vcf, "--storeDir", rstore, "--commit",
+                            "--platform", platform])
+    assert rc_load == 0, f"doctor phase: load-vcf of the rejects file exited {rc_load}"
+    fixed = os.path.join(WORK, "fixed.vcf")
+    rc_replay, _o, replay_err, walls["replay"] = _doctor(
+        "replay-rejects", "--rejects",
+        os.path.join(rstore, "quarantine", "rejects.vcf.rejects.jsonl"), "--out", fixed)
+    with open(fixed) as f:
+        replayed = f.read()
+    emit("doctor", walls_s=walls, rows=status["rows"], groups=status["groups"],
+         read_amp=status["read_amp"], fsck_findings=[f["code"] for f in fsck9["findings"]],
+         profile_rows=profile["rows"], profile_seconds=profile["seconds"],
+         profile_equals_stats=same, stats_launches=stats_launches,
+         device_bytes_moved=moved, torn_segment=segs[0], torn_exit_codes=codes,
+         torn_findings=sorted({f["code"] for f in reports[0]["findings"]}),
+         torn_repairs=repaired["repairs"], rows_before=rows6,
+         rows_after_repair=rows_repaired, replay_exit=rc_replay,
+         replay_lines=len(made["bad"]), replay_equal=replayed == "".join(made["bad"]),
+         replay_message=replay_err.strip(), phase_s=time.perf_counter() - t_phase)
+    assert same, "doctor profile: a group differs from the whole-chromosome /stats/region"
+    assert profile["rows"] == status["rows"] == sum(g["count"] for g in whole)
+    assert not moved, f"doctor: {moved} bytes allocated on the card"
+    if cuda:
+        assert stats_launches == len(specs), f"doctor: {stats_launches} stats launches"
+    assert codes == [2, 1, 0], f"doctor: torn copy exit codes {codes}"
+    assert rows_repaired < rows6, (rows_repaired, rows6)
+    assert rc_replay == 0 and replayed == "".join(made["bad"]), replay_err
+    return {"stats_launches": stats_launches}
 
 
 def vep_kernel_timing(torch, device, rows) -> dict:
@@ -4916,10 +5105,11 @@ def main() -> int:
             # load and save the store whose VEP sidecars phase 7 writes,
             # and those, not their lines, set phase 8's wall
             # depth cut to make room for phase 11: phase 6 at 12,500 lines
-            # and 2,500 indexed lines, phase 8 at 100,000 / 100,000 /
-            # 50,000, phase 10 at 250,000 lines (PERF.md section 4)
+            # and 2,500 indexed lines, phase 10 at 250,000 lines; and for
+            # phase 11's second front end and phase 13: phase 8 at 50,000
+            # / 50,000 / 25,000 (PERF.md section 4)
             inputs = write_inputs(2_000_000, 500_000, 12_500, 100_000,
-                                  n8=(100_000, 100_000, 50_000), head6=2_500,
+                                  n8=(50_000, 50_000, 25_000), head6=2_500,
                                   n10=250_000)
             emit("inputs", genome=inputs["genome"]["seconds"],
                  genome_index_bytes=inputs["genome"]["index_bytes"],
@@ -4985,6 +5175,12 @@ def main() -> int:
             # with --hostOnly, then /export/stream calls on a card engine
             # (counters reset inside, just before each)
             exported = export_phase(torch, "cuda", results["store_cadd"], table[6]["ms"])
+            # 13. doctor on the card-written stores: fsck, status and
+            # profile of phase 9's store (profile against phase 12's card
+            # engine), a torn copy of phase 6's store repaired, and
+            # replay-rejects
+            doctor_phase(torch, "cuda", results["store_cadd"], results["store6"],
+                         exported["engine"])
         except AssertionError as err:
             return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
@@ -4999,7 +5195,9 @@ def main() -> int:
     table[1].update(launches=cadd["launches"])
     table[2].update(launches=ref10["launches"])
     for row in table[3:6]:
-        row.update(launches=served["launches"][row["name"]])
+        row.update(launches=served["launches"][row["name"]],
+                   **{f"launches_{fe}": n[row["name"]]
+                      for fe, n in served["launches_by_frontend"].items()})
     table[6].update(launches=exported["export"] + exported["stream"],
                     launches_export=exported["export"],
                     launches_stream=exported["stream"])

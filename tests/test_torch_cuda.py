@@ -1004,3 +1004,60 @@ def test_export_and_stream_on_card_match_host_only(cuda, tmp_path, capsys):
         assert stream.stream_payload(engine, stream.parse_stream_query(q),
                                      host_only=True) == body, q
     assert engine.breaker.stats() == {"open_groups": [], "groups": {}}
+
+
+def test_aio_server_on_card_matches_cpu(cuda, tmp_path):
+    """The default front end (``serve/aio.py``) with a card engine answers
+    a CPU aio server's bytes on the device routes, one ``bits_spans`` a
+    ``/regions`` group, one ``stats_panel`` a ``/stats/region`` group and
+    one ``export_pack`` a stream call, no plain version on the card."""
+    import http.client
+
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+    from annotatedvdb_tpu_torch.ops import intervals as I
+    from annotatedvdb_tpu_torch.ops import stats as S
+    from annotatedvdb_tpu_torch.serve.aio import build_aio_server
+    from annotatedvdb_tpu_torch.serve.snapshot import SnapshotManager
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path / "s"), "cuda")
+    servers = {dev: build_aio_server(manager=SnapshotManager(served["store"]), port=0,
+                                     stream_threshold=50, device=dev)
+               for dev in (cuda, "cpu")}
+    for s in servers.values():
+        s.start_background()
+
+    def fetch(server, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                          timeout=120)
+        try:
+            conn.request(method, path, body=None if body is None
+                         else json.dumps(body).encode())
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    specs = serve_panel(served, seed=41)
+    p0 = int(served["pos22"][0])
+    reqs = [("POST", "/regions", {"regions": specs, "limit": 3, "tokenize": True}),
+            ("POST", "/regions", {"regions": specs, "limit": 0}),
+            ("POST", "/stats/region", {"regions": specs, "windows": 16}),
+            ("GET", f"/export/stream?region=22:{p0}-{p0 + 9000}&batch_rows=64", None),
+            ("GET", f"/region/22:{p0}-{p0 + 20000}?limit=80&cursor=", None)]
+    try:
+        before = (dict(I.LAUNCHES), dict(S.LAUNCHES), dict(P.LAUNCHES),
+                  I.CALLS["cuda"], S.CALLS["cuda"], P.CALLS["cuda"])
+        got = [fetch(servers[cuda], *r) for r in reqs]
+        launched = (I.LAUNCHES["bits_spans"] - before[0]["bits_spans"],
+                    S.LAUNCHES["stats_panel"] - before[1]["stats_panel"],
+                    S.LAUNCHES["windowed_stats"] - before[1]["windowed_stats"],
+                    P.LAUNCHES["export_pack"] - before[2]["export_pack"])
+        assert launched == (4, 2, 2, 1)
+        assert (I.CALLS["cuda"], S.CALLS["cuda"], P.CALLS["cuda"]) == before[3:]
+        want = [fetch(servers["cpu"], *r) for r in reqs]
+        assert got == want and {s for s, _b in got} == {200}
+    finally:
+        for s in servers.values():
+            s.shutdown()
+            s.ctx.batcher.close()

@@ -47,6 +47,7 @@ def test_imports_with_jax_blocked():
     assert {f"annotatedvdb_tpu_torch.{m}" for m in REFGENOME_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in SERVE_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in EXPORT_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in DOCTOR_AIO_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -93,10 +94,17 @@ SERVE_SLICE = ("ops.intervals", "ops.stats", "export.tokens", "utils.locks",
 EXPORT_SLICE = ("ops.export_pack", "export.writer", "export.core",
                 "export.stream", "cli.export_corpus")
 
+#: doctor (fsck, status, profile, replay-rejects), host only, and the aio
+#: front end of serve
+DOCTOR_AIO_SLICE = ("store.wal", "store.memtable", "store.compact",
+                    "store.replication", "parallel.placement", "store.fsck",
+                    "store.maintenance", "cli.doctor", "serve.aio")
+
 #: every command of the umbrella CLI
 COMMANDS = ("load-vcf", "load-vep", "update-qc", "load-snpeff-lof",
             "update-annotation", "load-cadd", "undo", "export-vcf", "split-vcf",
-            "index-genome", "install-schema", "bin-references", "serve", "export")
+            "index-genome", "install-schema", "bin-references", "serve", "export",
+            "doctor")
 
 
 @pytest.mark.parametrize("module", REFGENOME_SLICE)
@@ -137,6 +145,23 @@ def test_serve_slice_imports_without_jax(module):
 def test_export_slice_imports_without_jax(module):
     """Each module of the corpus export imports with JAX blocked and pulls
     in nothing of the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module('annotatedvdb_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'annotatedvdb_tpu' or m.startswith('annotatedvdb_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", DOCTOR_AIO_SLICE)
+def test_doctor_and_aio_slice_imports_without_jax(module):
+    """Each module of doctor and the aio front end imports with JAX blocked
+    and pulls in nothing of the JAX package."""
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -1,5 +1,5 @@
-"""The query server (``serve --frontend threaded``): the PyTorch port
-against the JAX package, on the CPU.
+"""The query server (``serve --frontend threaded``, and the CLI's default
+aio front end): the PyTorch port against the JAX package, on the CPU.
 
 One store is built with the port's ``load-vcf`` (two files: the second
 overlaps the first, and duplicate and over-width lines), ``load-vep``
@@ -516,14 +516,48 @@ def test_cli_banner_summary_and_shutdown_match_reference(served):
     assert summary["breaker"] == {"open_groups": [], "groups": {}}
 
 
+@pytest.mark.parametrize("flags", [[], ["--frontend", "aio"]],
+                         ids=["default-aio", "aio"])
+def test_cli_serves_the_aio_front_end(servers, served, flags):
+    """No ``--frontend`` flag starts the aio front end, as in the
+    reference: the banner, a ``/healthz`` with the reference's bytes, and
+    the shutdown summary."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = _start([sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
+                   "--storeDir", served["store"], "--port", "0", *flags,
+                   "--platform", "cpu"], env)
+    try:
+        banner = _banner(proc)
+        assert re.fullmatch(rf"serving {re.escape(served['store'])} "
+                            r"\(generation 1, \d+ rows\) on "
+                            r"http://127\.0\.0\.1:\d+", banner), banner
+        port_no = int(banner.rsplit(":", 1)[1])
+        got = _fetch(port_no, "GET", "/healthz")
+        want = _fetch(servers["ref"], "GET", "/healthz")
+        assert (got[0], got[1]) == (want[0], want[1]) and want[0] == 200
+        _s, body, _h = _fetch(port_no, "POST", "/regions",
+                              {"regions": _panel(served), "limit": 0})
+        assert _s == 200 and json.loads(body)["n"] == len(_panel(served))
+    finally:
+        proc.send_signal(signal.SIGINT)
+    assert proc.wait(timeout=60) == 0
+    err = proc.stderr.read()
+    assert "serve: shutting down" in err
+    summary = json.loads(err.split("run summary ", 1)[1].splitlines()[0])
+    assert summary["device"] == "cpu"
+    assert summary["plain_calls"]["bits_spans_reference"]["cpu"] == 2
+
+
 @pytest.mark.parametrize("flags,pattern", [
-    ([], "pass --frontend threaded"),
-    (["--frontend", "aio"], "pass --frontend threaded"),
     (["--frontend", "threaded", "--workers", "2"], "--workers above 1"),
     (["--frontend", "threaded", "--upserts"], "--upserts"),
     (["--frontend", "threaded", "--follow", "http://x"], "--follow"),
     (["--frontend", "threaded", "--metricsOut", "m.prom"], "--metricsOut"),
-], ids=["default-aio", "aio", "workers", "upserts", "follow", "metricsOut"])
+    (["--workers", "2"], "--workers above 1"),
+    (["--maintain"], "--maintain"),
+    (["--traceOut", "t.json"], "--traceOut"),
+], ids=["workers", "upserts", "follow", "metricsOut", "aio-workers",
+        "aio-maintain", "aio-traceOut"])
 def test_cli_refuses_unported_modes(served, capsys, flags, pattern):
     from annotatedvdb_tpu_torch.cli.serve import main
 
