@@ -1,14 +1,18 @@
 """CLI: serve point/bulk/region/stats queries over a loaded variant store.
 
-Port of ``annotatedvdb_tpu/cli/serve.py`` for one serving process, with
-both of the reference's front ends:
+Port of ``annotatedvdb_tpu/cli/serve.py``, with both of the reference's
+front ends, its multi-process fleet and its live write path:
 
     python -m annotatedvdb_tpu_torch serve --storeDir ./vdb --port 8080 \\
         [--frontend aio|threaded] [--platform cpu] [--hbmBudget 2g]
+    python -m annotatedvdb_tpu_torch serve --storeDir ./vdb --port 8080 \\
+        --workers 4 --hbmBudget 2g --upserts     # fleet + write path
     curl localhost:8080/variant/8:1000:A:G
     curl 'localhost:8080/region/8:1000-250000?minCadd=20'
     curl -d '{"regions":["8:1000-2000","8:9000-9500"],"limit":50}' \\
         localhost:8080/regions
+    curl -d '{"variants":[{"id":"8:1003:C:T","ref_snp":7}]}' \\
+        localhost:8080/variants/upsert
 
 ``--port 0`` binds an ephemeral port (printed in the banner).  The
 default front end is the asyncio event loop (``serve/aio.py``), as in the
@@ -18,13 +22,34 @@ not apply.  The flags and their ``AVDB_SERVE_*`` defaults are the
 reference's, plus ``--platform`` (``cuda`` by default, an error when no
 card is present; ``cpu`` on request).  On ``cuda`` the BITS, stats and
 export-pack kernels are built before the port is bound, and a failed
-build exits 1.  Refused (not ported yet): the serve fleet (``--workers``
-above 1), ``--upserts``, ``--follow``, ``--maintain``, ``--metricsOut``
-and ``--traceOut``.  On shutdown (SIGINT or SIGTERM) the server logs one
-``run summary`` line to stderr: the kernels' launches, the plain
-versions' calls by device, the breaker's state, the device bytes held,
-and the seconds spent loading the store, building interval indexes and
-decoding feature columns.
+build exits 1.
+
+``--workers N`` (default ``AVDB_SERVE_WORKERS`` or 1) runs the fleet
+(``serve/fleet.py``): a supervisor that never imports ``torch`` and N
+worker interpreters sharing the port (SO_REUSEPORT, or the supervisor's
+listening fd) and, on ``cuda``, one card.  Every worker resolves its
+device as a single process does: a worker with no card, or whose kernel
+does not build, exits 1, and a fleet whose workers keep dying gives up
+with exit code 1.  ``--hbmBudget`` is the whole fleet's budget, split
+equally across the workers.  The fleet needs the ``aio`` front end.
+
+``--upserts`` (or ``AVDB_SERVE_UPSERTS``) enables ``POST
+/variants/upsert``: each worker keeps its own memtable and WAL
+(``serve-w<idx>.*.wal`` in the store directory), replays it before the
+first request, and flushes it into ordinary store segments
+(``AVDB_MEMTABLE_BYTES`` / ``AVDB_MEMTABLE_FLUSH_S``).  A write is visible
+at once on the worker that took it, and on every worker once it is
+flushed and one snapshot TTL has passed.
+
+Refused (not ported yet): ``--follow``, ``--maintain``, ``--metricsOut``
+and ``--traceOut``.  On shutdown (SIGINT or SIGTERM) every serving
+process logs one ``run summary`` line to stderr: the kernels' launches,
+the plain versions' calls by device, the breaker's state, the device
+bytes held, the seconds spent loading the store, building interval
+indexes and decoding feature columns, and, in a fleet, the worker index.
+``--_workerIndex``, ``--_listenFd``, ``--_heartbeatFile`` and
+``--_telemetryDir`` (accepted and ignored: the fleet telemetry plane is
+not ported) are the fleet's internal worker handshake.
 """
 
 from __future__ import annotations
@@ -35,7 +60,9 @@ import os
 import sys
 import time
 
-from annotatedvdb_tpu_torch.runtime import PLATFORMS
+#: ``runtime.PLATFORMS``, spelled here: the fleet supervisor runs this
+#: module and never imports ``torch``
+PLATFORMS = ("cuda", "cpu")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -49,14 +76,19 @@ def _build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--port", type=int, default=8080,
                         help="bind port (0 = ephemeral, printed on startup)")
     parser.add_argument("--workers", type=int, default=None,
-                        help="serve fleet size (default: AVDB_SERVE_WORKERS "
-                             "or 1); above 1 is not yet ported")
+                        help="serve fleet size: N>1 runs N worker processes "
+                             "sharing the port, one readonly store "
+                             "generation and the card "
+                             "(default: AVDB_SERVE_WORKERS or 1)")
     parser.add_argument("--frontend", choices=("aio", "threaded"),
                         default="aio",
                         help="event-loop front end (default) or the "
                              "thread-per-connection server")
     parser.add_argument("--upserts", action="store_true", default=None,
-                        help="the live write path (not yet ported)")
+                        help="enable the live write path: POST "
+                             "/variants/upsert with a per-worker "
+                             "write-ahead log, replayed on start "
+                             "(default: AVDB_SERVE_UPSERTS or off)")
     parser.add_argument("--follow", default=None, metavar="LEADER-URL",
                         help="replication follower mode (not yet ported)")
     parser.add_argument("--maintain", action="store_true", default=None,
@@ -85,7 +117,9 @@ def _build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--hbmBudget", default=None, metavar="BYTES",
                         help="device residency budget for probe segment "
                              "caches, e.g. 512m / 2g; unset = unmanaged "
-                             "(default: AVDB_SERVE_HBM_BUDGET)")
+                             "(default: AVDB_SERVE_HBM_BUDGET). In fleet "
+                             "mode this is the whole fleet's budget, split "
+                             "equally across the workers")
     parser.add_argument("--snapshotTtlMs", type=float, default=None,
                         help="coalesced manifest freshness window in ms "
                              "(default: AVDB_SERVE_SNAPSHOT_TTL_MS or 250)")
@@ -96,6 +130,16 @@ def _build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--platform", default="cuda", choices=PLATFORMS,
                         help="device: cuda (default; an error when no card "
                              "is present) or cpu")
+    parser.add_argument("--_workerIndex", type=int, default=None,
+                        help=argparse.SUPPRESS)  # fleet-internal
+    parser.add_argument("--_listenFd", type=int, default=None,
+                        help=argparse.SUPPRESS)  # fleet-internal
+    parser.add_argument("--_heartbeatFile", default=None,
+                        help=argparse.SUPPRESS)  # fleet-internal (watchdog)
+    parser.add_argument("--_telemetryDir", default=None,
+                        help=argparse.SUPPRESS)  # accepted, not ported
+    parser.add_argument("--_forceHandoff", action="store_true",
+                        help=argparse.SUPPRESS)  # tests: the shared-fd path
     return parser
 
 
@@ -125,12 +169,44 @@ def _resolve_budget(args):
     )
 
 
+def _knob_args(args, workers: int) -> list[str]:
+    """Flags forwarded to every fleet worker: the platform, the front end,
+    ``--upserts`` (every worker runs its own memtable and WAL) and the
+    knobs.  The budget is the exception to verbatim forwarding: it caps
+    one shared card, so each worker gets an equal share (an explicit flag
+    also overrides the inherited ``AVDB_SERVE_HBM_BUDGET``, which would
+    give every worker the whole budget)."""
+    out: list[str] = ["--platform", args.platform,
+                      "--frontend", args.frontend]
+    if _upserts_enabled(args):
+        out.append("--upserts")
+    for flag, val in (
+        ("--maxBatch", args.maxBatch),
+        ("--batchWaitMs", args.batchWaitMs),
+        ("--maxQueue", args.maxQueue),
+        ("--regionCache", args.regionCache),
+        ("--clientRate", args.clientRate),
+        ("--streamThreshold", args.streamThreshold),
+        ("--snapshotTtlMs", args.snapshotTtlMs),
+    ):
+        if val is not None:
+            out += [flag, str(val)]
+    budget = _resolve_budget(args)
+    if budget is not None:
+        out += ["--hbmBudget", str(budget // workers)]
+    return out
+
+
 def main(argv=None) -> int:
     ap = _build_parser()
     args = ap.parse_args(argv)
 
     def log(msg):
-        print(f"serve: {msg}", file=sys.stderr)
+        # one write a line: a fleet's workers share the supervisor's
+        # stderr, and print's separate newline write lets their lines
+        # interleave (the shutdown summaries are read back from it)
+        sys.stderr.write(f"serve: {msg}\n")
+        sys.stderr.flush()
 
     try:
         workers = _effective_workers(args)
@@ -138,12 +214,6 @@ def main(argv=None) -> int:
         print(f"serve: cannot start: bad AVDB_SERVE_WORKERS ({err})",
               file=sys.stderr)
         return 1
-    if workers > 1:
-        ap.error("--workers above 1 (the serve fleet) is not yet ported to "
-                 "annotatedvdb_tpu_torch")
-    if _upserts_enabled(args):
-        ap.error("--upserts (the live write path) is not yet ported to "
-                 "annotatedvdb_tpu_torch")
     for flag in ("follow", "maintain", "metricsOut", "traceOut"):
         if getattr(args, flag):
             ap.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
@@ -157,7 +227,70 @@ def main(argv=None) -> int:
             print(f"serve: {', '.join(dead)} only apply to the aio front "
                   "end and are ignored with --frontend threaded",
                   file=sys.stderr)
+    if args._workerIndex is None and workers > 1:
+        if args.frontend == "threaded":
+            # the threaded server binds its own port and cannot join a
+            # shared-socket fleet: refusing beats a crash loop
+            print("serve: --workers > 1 requires the aio front end "
+                  "(--frontend threaded is single-process only)",
+                  file=sys.stderr)
+            return 2
+        from annotatedvdb_tpu_torch.serve.fleet import ServeFleet
+
+        try:
+            fleet = ServeFleet(
+                args.storeDir, host=args.host, port=args.port,
+                workers=workers, worker_args=_knob_args(args, workers),
+                log=log, reuseport=False if args._forceHandoff else None,
+            )
+        except (OSError, ValueError) as err:
+            print(f"serve: cannot start fleet: {err}", file=sys.stderr)
+            return 1
+        print(f"serving {args.storeDir} on http://{args.host}:{fleet.port} "
+              f"with {workers} workers", flush=True)
+        return fleet.run()
     return _run_single(args, log)
+
+
+def _open_memtable(args, manager, registry, log):
+    """The worker's memtable and WAL (``serve-w<idx>``), with the WAL
+    replayed into it before the first request: acknowledged but unflushed
+    upserts of a previous incarnation (a crash, a SIGKILL, a wedge kill)
+    come back.  Idempotent, so a death mid-replay just replays again."""
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+    from annotatedvdb_tpu_torch.store.wal import WriteAheadLog
+
+    worker = args._workerIndex or 0
+    # replication fence: the manifest epoch this writer opened under; a
+    # flush commit observing a higher epoch aborts
+    fence = 0
+    try:
+        with open(os.path.join(args.storeDir, "manifest.json")) as f:
+            fence = int((json.load(f) or {}).get("repl_epoch", 0) or 0)
+    except (OSError, ValueError):
+        pass
+    wal = WriteAheadLog(args.storeDir, name=f"serve-w{worker}", log=log)
+    memtable = Memtable(
+        width=manager.current().store.width, store_dir=args.storeDir,
+        wal=wal, registry=registry, log=log, fence_epoch=fence,
+    )
+    replayed = memtable.replay(manager.current().store)
+    if replayed:
+        log(f"wal: replayed {replayed} acknowledged upsert row(s) into "
+            "the memtable")
+    return memtable
+
+
+def _worker_socket(args):
+    """A fleet worker's listening socket: the supervisor's fd (the shared
+    accept queue) or its own SO_REUSEPORT socket on the fleet port."""
+    import socket as socket_mod
+
+    from annotatedvdb_tpu_torch.serve.fleet import bind_reuseport
+
+    if args._listenFd is not None:
+        return socket_mod.socket(fileno=args._listenFd)
+    return bind_reuseport(args.host, args.port)
 
 
 def _run_single(args, log) -> int:
@@ -197,19 +330,39 @@ def _run_single(args, log) -> int:
     except (OSError, ValueError) as err:
         print(f"serve: cannot start: {err}", file=sys.stderr)
         return 1
+    memtable = None
+    if _upserts_enabled(args):
+        from annotatedvdb_tpu_torch.serve.snapshot import MemtableSnapshots
+
+        try:
+            memtable = _open_memtable(args, manager, registry, log)
+        except (OSError, ValueError) as err:
+            print(f"serve: cannot start: {err}", file=sys.stderr)
+            return 1
+        # reads resolve through the overlay from here on: upserted rows
+        # are visible at once, first wins against the base store
+        manager = MemtableSnapshots(manager, memtable)
     max_wait_s = (
         args.batchWaitMs / 1000.0 if args.batchWaitMs is not None else None
     )
+    sock = None
+    if args._workerIndex is not None:
+        try:
+            sock = _worker_socket(args)
+        except OSError as err:
+            print(f"serve: worker cannot bind: {err}", file=sys.stderr)
+            return 1
     if args.frontend == "threaded":
         return _run_threaded(args, manager, registry, residency, max_wait_s,
-                             log, device, load_s)
+                             log, device, load_s, memtable)
     return _run_aio(args, manager, registry, residency, max_wait_s, log,
-                    device, load_s)
+                    device, load_s, memtable, sock)
 
 
 def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
-             load_s: float) -> int:
-    """The event-loop server (the default front end)."""
+             load_s: float, memtable=None, sock=None) -> int:
+    """The event-loop server (the default front end): one process, or a
+    fleet worker on the supervisor's port."""
     import gc
     import signal
     import threading
@@ -218,16 +371,20 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
 
     try:
         server = build_aio_server(
-            manager=manager, host=args.host, port=args.port,
+            manager=manager, host=args.host, port=args.port, sock=sock,
             max_batch=args.maxBatch, max_wait_s=max_wait_s,
             max_queue=args.maxQueue, region_cache_size=args.regionCache,
-            registry=registry, residency=residency,
+            registry=registry, residency=residency, memtable=memtable,
             client_rate=args.clientRate,
-            stream_threshold=args.streamThreshold, log=log, device=device,
+            stream_threshold=args.streamThreshold,
+            heartbeat_file=args._heartbeatFile,
+            heartbeat_index=args._workerIndex or 0,
+            log=log, device=device,
         )
     except (OSError, ValueError) as err:
         # an unparseable AVDB_SERVE_* knob: the same clean exit as every
-        # other startup failure
+        # other startup failure (a fleet worker dying with a traceback
+        # here would respawn into a crash loop)
         print(f"serve: cannot start: {err}", file=sys.stderr)
         return 1
     ctx = server.ctx
@@ -247,17 +404,33 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
     sys.setswitchinterval(0.001)
 
     try:
-        # bind on a helper thread first so the concrete (possibly
-        # ephemeral) address prints before we block
-        server.start_background()
-        host, port = server.server_address[:2]
-        print(f"serving {args.storeDir} (generation {snap.generation}, "
-              f"{snap.store.n} rows) on http://{host}:{port}", flush=True)
-        stop = threading.Event()
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            signal.signal(sig, lambda *_a: stop.set())
-        stop.wait()
-        log("shutting down")
+        if args._workerIndex is not None:
+            # fleet worker: the event loop owns the main thread (and its
+            # SIGTERM graceful drain); a watcher prints readiness once
+            # the socket is accepting
+            def ready():
+                server._started.wait()
+                host, port = server.server_address[:2]
+                print(f"worker {args._workerIndex} serving {args.storeDir} "
+                      f"(generation {snap.generation}, {snap.store.n} rows)"
+                      f" on http://{host}:{port}", flush=True)
+
+            threading.Thread(target=ready, daemon=True).start()
+            server.serve_forever()
+            log("shutting down")
+        else:
+            # bind on a helper thread first so the concrete (possibly
+            # ephemeral) address prints before we block
+            server.start_background()
+            host, port = server.server_address[:2]
+            print(f"serving {args.storeDir} (generation {snap.generation}, "
+                  f"{snap.store.n} rows) on http://{host}:{port}",
+                  flush=True)
+            stop = threading.Event()
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                signal.signal(sig, lambda *_a: stop.set())
+            stop.wait()
+            log("shutting down")
     except OSError as err:
         # bind failure: same clean exit as the threaded front end
         print(f"serve: cannot start: {err}", file=sys.stderr)
@@ -267,12 +440,22 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
     finally:
         server.shutdown()
         ctx.batcher.close()
-        log("run summary " + json.dumps(run_summary(ctx.engine, load_s)))
+        _close_memtable(memtable)
+        log("run summary " + json.dumps(
+            run_summary(ctx, load_s, args._workerIndex)))
     return 0
 
 
+def _close_memtable(memtable) -> None:
+    """Clean-shutdown WAL close: record-free WAL files protect nothing and
+    are removed (files with records stay: they are the durability of
+    unflushed acknowledged upserts)."""
+    if memtable is not None and memtable.wal is not None:
+        memtable.wal.close(remove_if_empty=True)
+
+
 def _run_threaded(args, manager, registry, residency, max_wait_s, log,
-                  device, load_s: float) -> int:
+                  device, load_s: float, memtable=None) -> int:
     """The thread-per-connection server (byte-parity reference)."""
     import signal
 
@@ -283,7 +466,8 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
             manager=manager, host=args.host, port=args.port,
             max_batch=args.maxBatch, max_wait_s=max_wait_s,
             max_queue=args.maxQueue, region_cache_size=args.regionCache,
-            registry=registry, residency=residency, log=log, device=device,
+            registry=registry, residency=residency, memtable=memtable,
+            log=log, device=device,
         )
     except (OSError, ValueError) as err:
         print(f"serve: cannot start: {err}", file=sys.stderr)
@@ -305,23 +489,30 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
     finally:
         httpd.server_close()
         ctx.batcher.close()
-        log("run summary " + json.dumps(run_summary(ctx.engine, load_s)))
+        _close_memtable(memtable)
+        log("run summary " + json.dumps(run_summary(ctx, load_s)))
     return 0
 
 
-def run_summary(engine, load_s: float) -> dict:
-    """What the server's run did on the device, for the shutdown log."""
+def run_summary(ctx, load_s: float, worker: int | None = None) -> dict:
+    """What the server's run did, for the shutdown log: the requests it
+    answered by kind and what it did on the device (``worker`` is a fleet
+    worker's index, absent in one process)."""
     import torch
 
     from annotatedvdb_tpu_torch.ops import export_pack, intervals, stats
 
+    engine = ctx.engine
     held = {"index_and_columns": engine.device_bytes()}
     if engine.residency is not None:
         held["resident_segments"] = engine.residency.resident_bytes()
     if engine.device.type == "cuda":
         held["allocated"] = torch.cuda.memory_allocated(engine.device)
         held["peak_allocated"] = torch.cuda.max_memory_allocated(engine.device)
+    out = {} if worker is None else {"worker": int(worker)}
     return {
+        **out,
+        "requests": ctx.request_counts(),
         "device": str(engine.device),
         "launches": {**intervals.LAUNCHES, **stats.LAUNCHES,
                      **export_pack.LAUNCHES},

@@ -38,12 +38,20 @@ on a four-thread executor pool; the engine's kernels (``bits_spans``,
 the caller asks for the CPU.  :func:`build_aio_server` wires the engine
 exactly as ``serve/http.py::build_server`` does.
 
-Not ported: the serve fleet's heartbeat slot (``heartbeat_file`` is
-refused), fleet telemetry and ``/metrics?fleet=1``, the flight recorder,
-the health plane, the Chrome tracer, the upsert, replication, history,
-alert, ``/debug/trace`` and ``/_chaos`` routes (all answer the
-unknown-route 404, as the threaded server does), the mesh executor, and
-the ``serve.accept`` / ``serve.wedge`` / ``serve.batch`` fault points.
+``POST /variants/upsert`` (``serve --upserts``) takes the bulk admission
+shape; its WAL fsync runs on the pool, never on the loop, and the loop's
+maintenance tick checks the memtable's flush triggers.  In a fleet worker
+the tick also writes this worker's 24-byte heartbeat slot
+(``serve/fleet.py::HB_SLOT``: beat time, p99-exceedance EWMA, brownout
+level, queue depth) into the supervisor's mmap'd file, which the
+wedged-worker watchdog reads.
+
+Not ported: fleet telemetry and ``/metrics?fleet=1`` (a worker accepts
+and ignores ``--_telemetryDir``), the flight recorder, the health plane,
+the Chrome tracer, the replication, history, alert, ``/debug/trace`` and
+``/_chaos`` routes (all answer the unknown-route 404, as the threaded
+server does), the mesh executor, and the ``serve.accept`` /
+``serve.wedge`` / ``serve.batch`` fault points.
 """
 
 from __future__ import annotations
@@ -51,7 +59,9 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import mmap
 import os
+import struct
 import threading
 import time
 from collections import OrderedDict
@@ -73,6 +83,7 @@ from annotatedvdb_tpu_torch.serve.engine import (
     QueryError,
     parse_variant_id,
 )
+from annotatedvdb_tpu_torch.serve.fleet import HB_SLOT
 from annotatedvdb_tpu_torch.serve.http import (
     _RETURNED_RE,
     BULK_BODY_ERROR,
@@ -80,16 +91,20 @@ from annotatedvdb_tpu_torch.serve.http import (
     MSG_BROWNOUT_EXPORT,
     MSG_BROWNOUT_REGION,
     MSG_BROWNOUT_STATS,
+    MSG_BROWNOUT_UPSERT,
     MSG_CAPACITY_BULK,
     MSG_CAPACITY_EXPORT,
     MSG_CAPACITY_REGION,
     MSG_CAPACITY_STATS,
+    MSG_CAPACITY_UPSERT,
     MSG_DEADLINE_ADMISSION,
     MSG_DEADLINE_EXECUTE,
     REGIONS_BODY_ERROR,
     STATS_BODY_ERROR,
     STATS_ROUTE,
     TRACE_HEADER,
+    UPSERT_BODY_ERROR,
+    UPSERT_ROUTE,
     ServeContext,
     healthz_payload,
     parse_region_params,
@@ -120,6 +135,7 @@ MAX_CLIENT_WEIGHT = 16
 _STATUS = {
     200: b"HTTP/1.1 200 OK\r\n",
     400: b"HTTP/1.1 400 Bad Request\r\n",
+    403: b"HTTP/1.1 403 Forbidden\r\n",
     404: b"HTTP/1.1 404 Not Found\r\n",
     413: b"HTTP/1.1 413 Payload Too Large\r\n",
     429: b"HTTP/1.1 429 Too Many Requests\r\n",
@@ -128,6 +144,7 @@ _STATUS = {
     501: b"HTTP/1.1 501 Not Implemented\r\n",
     503: b"HTTP/1.1 503 Service Unavailable\r\n",
     504: b"HTTP/1.1 504 Gateway Timeout\r\n",
+    507: b"HTTP/1.1 507 Insufficient Storage\r\n",
 }
 
 _CT_JSON = b"Content-Type: application/json\r\nContent-Length: "
@@ -575,19 +592,37 @@ class AioServer:
     Shutdown order mirrors the threaded server: stop the server, then
     ``ctx.batcher.close()`` (the caller owns the batcher)."""
 
-    #: loop maintenance-tick cadence: the brownout-ladder evaluation runs
-    #: ON the loop, so an idle server still de-escalates
+    #: loop maintenance-tick cadence: the heartbeat write and the
+    #: brownout-ladder evaluation run ON the loop — a parked loop stops
+    #: beating, which is what the fleet watchdog detects
     TICK_S = 0.25
 
     def __init__(self, ctx: ServeContext, host: str = "127.0.0.1",
                  port: int = 0, sock=None,
                  client_rate: float | None = None,
                  stream_threshold: int | None = None,
-                 drain_s: float = 5.0):
+                 drain_s: float = 5.0,
+                 heartbeat_file: str | None = None,
+                 heartbeat_index: int = 0):
         self.ctx = ctx
         self.host = host
         self.port = port
         self.sock = sock  # a pre-bound listening socket, or None
+        #: fleet watchdog handshake: this worker's slot in the shared
+        #: mmap'd heartbeat file (None outside a fleet).  Mapped here, at
+        #: worker start: the tick runs on the event loop and only packs
+        #: into the established mapping, never touching the filesystem
+        self.heartbeat_file = heartbeat_file
+        self.heartbeat_index = int(heartbeat_index)
+        self._hb_mm = None
+        if heartbeat_file is not None:
+            try:
+                with open(heartbeat_file, "r+b") as f:
+                    self._hb_mm = mmap.mmap(f.fileno(), 0)
+            except (OSError, ValueError) as err:
+                ctx.log(f"heartbeat file unusable ({err}); "
+                        "watchdog will not see this worker")
+                self._hb_mm = None
         if client_rate is None:
             client_rate = _client_rate_from_env()
         self.governor = (
@@ -710,23 +745,41 @@ class AioServer:
 
     # -- loop maintenance tick ----------------------------------------------
 
-    # -- loop maintenance tick ----------------------------------------------
-
     def _start_tick(self) -> None:
         self._loop.call_soon(self._tick)
 
     def _tick(self) -> None:
-        """One maintenance pass ON the event loop: a brownout-ladder
-        evaluation (the fleet's heartbeat write and the reference's
-        telemetry, flight and health ticks are not ported)."""
+        """One maintenance pass ON the event loop: one heartbeat slot
+        write, a brownout-ladder evaluation and the memtable flush check
+        (the reference's telemetry, flight and health ticks are not
+        ported).  Everything that proves this loop makes progress runs
+        here, so a wedged loop cannot look healthy from a helper
+        thread."""
         if self._stop is not None and self._stop.is_set():
             return
         try:
+            if self._hb_mm is not None:
+                # beside the beat, the slot publishes this worker's health
+                # (p99-exceedance EWMA, brownout level, queue depth) for a
+                # supervisor-side reader; losing one beat is survivable,
+                # losing the tick chain is not
+                with contextlib.suppress(OSError, ValueError, struct.error):
+                    gov = self.ctx.governor
+                    HB_SLOT.pack_into(
+                        self._hb_mm,
+                        self.heartbeat_index * HB_SLOT.size,
+                        time.time(), gov.exceedance, gov.level,
+                        self.ctx.batcher.depth(),
+                    )
             with contextlib.suppress(Exception):
                 self.ctx.governor.maybe_step()
+            with contextlib.suppress(Exception):
+                # memtable age/size flush triggers (the flush itself runs
+                # on its own thread; this is one lock and a compare)
+                self.ctx.maybe_flush_memtable()
         finally:
             # the next tick is unconditional: whatever one pass hit, the
-            # brownout machinery must keep running
+            # heartbeat and brownout machinery must keep running
             self._loop.call_later(self.TICK_S, self._tick)
 
     # -- connection handling ------------------------------------------------
@@ -1098,6 +1151,9 @@ class AioServer:
                 if path == "/variants":
                     ctx.errored("bulk")
                     return _error(400, BULK_BODY_ERROR), False, tid
+                if path == UPSERT_ROUTE:
+                    ctx.errored("upsert")
+                    return _error(400, UPSERT_BODY_ERROR), False, tid
                 if path == "/regions":
                     ctx.errored("regions")
                     return _error(400, REGIONS_BODY_ERROR), False, tid
@@ -1129,6 +1185,24 @@ class AioServer:
                     client, weight = self._client_key(headers, writer)
                     max_ids = self.governor.bulk_budget(weight)
                 return self._bulk_item(
+                    body, client, max_ids, deadline_t, tid
+                ), keep, tid
+            if path == UPSERT_ROUTE:
+                if ctx.governor.shed_bulk():
+                    ctx.brownout_shed()
+                    return _error(503, MSG_BROWNOUT_UPSERT), keep, tid
+                retry = self._admit_client(headers, writer)
+                if retry:
+                    ctx.rejected("upsert")
+                    return _error(
+                        429, "client over rate (upsert admission)",
+                        retry_after=max(int(retry + 0.999), 1),
+                    ), keep, tid
+                client = max_ids = None
+                if self.governor is not None:
+                    client, weight = self._client_key(headers, writer)
+                    max_ids = self.governor.bulk_budget(weight)
+                return self._upsert_item(
                     body, client, max_ids, deadline_t, tid
                 ), keep, tid
             if path == "/regions":
@@ -1229,6 +1303,61 @@ class AioServer:
             return _error(500, f"{type(err).__name__}: {err}")
         return ("point", fut, t0, variant_id, generation, tid, trace)
 
+
+    def _upsert_item(self, body: bytes, client: str | None = None,
+                     max_rows: int | None = None,
+                     deadline_t: float | None = None,
+                     tid: str | None = None):
+        """Live write path: the bulk admission shape (slot + per-client
+        budget); the WAL fsync runs on the executor pool — the ack barrier
+        is blocking I/O and must never touch the event loop."""
+        ctx = self.ctx
+        t0 = time.perf_counter()
+        if deadline_t is not None and time.monotonic() >= deadline_t:
+            ctx.deadline_shed("admission")
+            return _error(504, MSG_DEADLINE_ADMISSION)
+        if not ctx.admit():
+            ctx.rejected("upsert")
+            return _error(429, MSG_CAPACITY_UPSERT, retry_after=1)
+        trace = ctx.reqtrace.begin(tid, "upsert") if tid is not None \
+            else None
+        fut = self._loop.run_in_executor(
+            self._pool, self._upsert_work, body, t0, client, max_rows,
+            deadline_t, trace
+        )
+        return ("exec", fut, "upsert", t0, tid, trace)
+
+    def _upsert_work(self, body: bytes, t0: float,
+                     client: str | None = None,
+                     max_rows: int | None = None,
+                     deadline_t: float | None = None, trace=None) -> bytes:
+        """Executor half of an upsert (parse, WAL append + fsync, memtable
+        insert, ack) through the shared
+        :meth:`ServeContext.upsert_execute`; never raises — errors become
+        response bytes."""
+        ctx = self.ctx
+        try:
+            if deadline_t is not None and time.monotonic() >= deadline_t:
+                # executor-queue lag ate the budget: shed before the WAL
+                # write (nothing durable happened, nothing acknowledged)
+                ctx.deadline_shed("execute")
+                return _error(504, MSG_DEADLINE_EXECUTE)
+            if trace is not None:
+                trace.add("admission", time.perf_counter() - t0)
+            status, text, rows = ctx.upsert_execute(body, max_rows=max_rows,
+                                                    trace=trace)
+            if client is not None and rows > 1 and status == 200:
+                # admission spent one token; the other acknowledged rows
+                # debit the bucket too (on the loop thread)
+                self._loop.call_soon_threadsafe(
+                    self.governor.charge, client, float(rows - 1)
+                )
+            if status == 200:
+                ctx.maybe_flush_memtable()
+            retry = 1 if status in (429, 503) else None
+            return _resp(status, text, retry_after=retry)
+        finally:
+            ctx.release()
 
     def _bulk_item(self, body: bytes, client: str | None = None,
                    max_ids: int | None = None,
@@ -1753,10 +1882,11 @@ def build_aio_server(store_dir: str | None = None, manager=None,
                      max_queue: int | None = None,
                      region_cache_size: int | None = None,
                      registry: MetricsRegistry | None = None,
-                     residency=None,
+                     residency=None, memtable=None,
                      client_rate: float | None = None,
                      stream_threshold: int | None = None,
                      heartbeat_file: str | None = None,
+                     heartbeat_index: int = 0,
                      log=None, device=None) -> AioServer:
     """Wire manager -> engine (on ``device``: ``cuda`` unless the caller
     asks for ``cpu``) -> loop batcher -> event-loop server (not yet
@@ -1764,11 +1894,8 @@ def build_aio_server(store_dir: str | None = None, manager=None,
     gets the same breaker, residency and kernels as ``build_server``'s.
     The caller owns shutdown order: ``server.shutdown()`` then
     ``server.ctx.batcher.close()`` — same contract as ``build_server``.
-    ``heartbeat_file`` (the serve fleet's watchdog slot) is refused: the
-    fleet is not ported yet."""
-    if heartbeat_file is not None:
-        raise ValueError("heartbeat_file (the serve fleet's watchdog slot) "
-                         "is not yet ported to annotatedvdb_tpu_torch")
+    ``heartbeat_file``/``heartbeat_index`` are a fleet worker's watchdog
+    slot; ``memtable`` enables ``POST /variants/upsert``."""
     if manager is None:
         if store_dir is None:
             raise ValueError("build_aio_server needs store_dir or manager")
@@ -1783,8 +1910,10 @@ def build_aio_server(store_dir: str | None = None, manager=None,
         engine, max_batch=max_batch, max_wait_s=max_wait_s,
         max_queue=max_queue, registry=registry,
     )
-    ctx = ServeContext(manager, engine, batcher, registry, log=log)
+    ctx = ServeContext(manager, engine, batcher, registry,
+                       memtable=memtable, log=log)
     return AioServer(
         ctx, host=host, port=port, sock=sock, client_rate=client_rate,
         stream_threshold=stream_threshold,
+        heartbeat_file=heartbeat_file, heartbeat_index=heartbeat_index,
     )

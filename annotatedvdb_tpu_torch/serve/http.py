@@ -23,10 +23,17 @@ connection; point queries coalesce in the batcher) with these routes:
                                       ``ordered``)
 ====================================  =====================================
 
+``POST /variants/upsert`` is the live write path (``serve --upserts``):
+``{"variants": [{"id", "ref_snp"?, "annotations"?}, ...]}`` rows go to the
+worker's memtable, and the 200 is sent only after their WAL frame is
+fsynced.  Without a memtable it answers 403; under the free-disk reserve
+507.  The reference's follower 403 (a replication follower refusing
+writes) is not ported: the port has no follower.
+
 Admission is bounded everywhere (429), the brownout ladder sheds bulk
 work (503), deadlines shed dead requests (504), client errors are 400,
 engine faults 500; error bodies are JSON.  Every other path — among them
-the reference's ``/variants/upsert``, the replication routes
+the replication routes
 (``/repl/manifest``, ``/repl/segment``, ``/repl/wal``), ``/alerts``,
 ``/metrics/history``, ``/debug/trace`` and ``/_chaos``, not ported yet —
 answers the reference's unknown-route 404.  ``/metrics``
@@ -40,6 +47,7 @@ import itertools
 import json
 import os
 import re
+import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, unquote, urlparse
@@ -56,7 +64,11 @@ from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
 from annotatedvdb_tpu_torch.obs.reqtrace import TraceRecorder
 from annotatedvdb_tpu_torch.serve import resilience
 from annotatedvdb_tpu_torch.serve.batcher import QueryBatcher, QueueFull
-from annotatedvdb_tpu_torch.serve.engine import QueryEngine, QueryError
+from annotatedvdb_tpu_torch.serve.engine import (
+    QueryEngine,
+    QueryError,
+    parse_variant_id,
+)
 from annotatedvdb_tpu_torch.serve.resilience import (
     DeadlineExceeded,
     DeviceBreaker,
@@ -79,7 +91,8 @@ QUERY_SECONDS_EDGES = (
 DEFAULT_REGION_LIMIT = 10_000
 
 #: the query kinds with their own request/latency/rows series
-QUERY_KINDS = ("point", "bulk", "region", "regions", "stats", "export")
+QUERY_KINDS = ("point", "bulk", "region", "regions", "stats", "export",
+               "upsert")
 
 
 def healthz_payload(ctx) -> str:
@@ -216,6 +229,81 @@ MSG_BROWNOUT_EXPORT = (
     "brownout: export reads shed (point reads keep serving)"
 )
 MSG_CAPACITY_EXPORT = "server at capacity (export admission bound)"
+MSG_BROWNOUT_UPSERT = (
+    "brownout: upserts shed (point reads keep serving)"
+)
+MSG_CAPACITY_UPSERT = "server at capacity (upsert admission bound)"
+MSG_UPSERTS_DISABLED = (
+    "upserts are not enabled on this server (start with --upserts or "
+    "AVDB_SERVE_UPSERTS=1)"
+)
+#: the 507 body: free disk under the store fell below the configured
+#: reserve, so new writes are refused while reads and flushes keep running
+MSG_DISK_RESERVE = (
+    "insufficient storage: free disk space is below the configured "
+    "reserve (AVDB_STORE_DISK_RESERVE_BYTES); upserts are suspended "
+    "until space is freed — reads, flushes of acknowledged rows, and "
+    "compaction keep running"
+)
+
+#: the one grammar message for a malformed /variants/upsert body
+UPSERT_BODY_ERROR = (
+    'upsert body must be {"variants": [{"id": "chr:pos:ref:alt", '
+    '"ref_snp": N?, "annotations": {<jsonb column>: <value>, ...}?}, ...]}'
+)
+
+#: rows per upsert call cap (a request is one WAL frame + one ack fsync;
+#: bigger batches belong to the offline loaders)
+UPSERT_MAX_ROWS = 4096
+
+#: the live-write route, shared by both front ends
+UPSERT_ROUTE = "/variants/upsert"
+
+
+def parse_upsert_body(body: bytes) -> list[dict]:
+    """Validated entries from a ``POST /variants/upsert`` JSON body, the
+    one grammar both front ends share.  Returns ``[{"id", "ref_snp",
+    "annotations"}, ...]``; raises :class:`QueryError` on any malformed
+    field (the whole call fails: an upsert is atomic per request)."""
+    from annotatedvdb_tpu_torch.store.variant_store import JSONB_COLUMNS
+
+    try:
+        obj = json.loads(body or b"{}")
+    except ValueError:
+        raise QueryError(UPSERT_BODY_ERROR) from None
+    if not isinstance(obj, dict):
+        raise QueryError(UPSERT_BODY_ERROR)
+    variants = obj.get("variants")
+    if not isinstance(variants, list) or not variants \
+            or not all(isinstance(v, dict) for v in variants):
+        raise QueryError(UPSERT_BODY_ERROR)
+    if len(variants) > UPSERT_MAX_ROWS:
+        raise QueryError(
+            f"upsert of {len(variants)} rows exceeds the "
+            f"{UPSERT_MAX_ROWS}-row cap; split the request (bulk loads "
+            "belong to the offline loader CLIs)"
+        )
+    out = []
+    for v in variants:
+        vid = v.get("id")
+        if not isinstance(vid, str):
+            raise QueryError(UPSERT_BODY_ERROR)
+        rs = v.get("ref_snp")
+        if rs is not None and (isinstance(rs, bool)
+                               or not isinstance(rs, int) or rs < 0):
+            raise QueryError(f"bad upsert field ref_snp={rs!r}")
+        ann = v.get("annotations")
+        if ann is not None:
+            if not isinstance(ann, dict):
+                raise QueryError(UPSERT_BODY_ERROR)
+            for col in ann:
+                if col not in JSONB_COLUMNS:
+                    raise QueryError(
+                        f"unknown annotation column {col!r} (one of: "
+                        + ", ".join(JSONB_COLUMNS) + ")"
+                    )
+        out.append({"id": vid, "ref_snp": rs, "annotations": ann})
+    return out
 
 #: the analytics route path
 STATS_ROUTE = "/stats/region"
@@ -295,15 +383,30 @@ class ServeContext:
 
     def __init__(self, manager, engine: QueryEngine, batcher: QueryBatcher,
                  registry: MetricsRegistry, max_inflight: int | None = None,
-                 log=None):
+                 memtable=None, log=None):
         self.manager = manager
         self.engine = engine
         self.batcher = batcher
         self.registry = registry
+        #: the live write path (``store/memtable.py``), or None for a
+        #: read-only server — the upsert route answers 403 when unset
+        self.memtable = memtable
         self.max_inflight = (
             max_inflight if max_inflight is not None else batcher.max_queue
         )
         self.log = log if log is not None else (lambda msg: None)
+        #: disk-pressure guard: while free disk under the store sits below
+        #: AVDB_STORE_DISK_RESERVE_BYTES, upserts answer 507 (None when
+        #: the server is read-only or the store has no directory)
+        self.disk_guard = None
+        if memtable is not None and getattr(memtable, "store_dir", None):
+            from annotatedvdb_tpu_torch.store.maintenance import (
+                DiskReserveGuard,
+            )
+
+            self.disk_guard = DiskReserveGuard(
+                memtable.store_dir, log=self.log
+            )
         self._lock = make_lock("serve.ctx.inflight")
         #: guarded by self._lock
         self._inflight = 0
@@ -345,6 +448,26 @@ class ServeContext:
             "avdb_serve_abandoned_responses_total",
             "responses dropped because the client connection died first",
         )
+        self._m_upsert_requests = registry.counter(
+            "avdb_upsert_requests_total", "upsert requests acknowledged"
+        )
+        self._m_upsert_rows = registry.counter(
+            "avdb_upsert_rows_total", "upsert rows accepted into the memtable"
+        )
+        self._m_upsert_rejected = registry.counter(
+            "avdb_upsert_rejected_total",
+            "upsert rows not applied (shadowed by an existing row under "
+            "the first-wins policy, or duplicated within the batch)",
+        )
+        self._m_upsert_ack = registry.histogram(
+            "avdb_upsert_ack_seconds", QUERY_SECONDS_EDGES,
+            "upsert latency from arrival to durable acknowledgement",
+        )
+        self._m_upsert_disk_shed = registry.counter(
+            "avdb_upsert_disk_shed_total",
+            "upserts answered 507 under the free-disk reserve guard "
+            "(AVDB_STORE_DISK_RESERVE_BYTES)",
+        )
         # per-kind series resolved once (the registry probe is measurable
         # at serving QPS)
         self._kind = {}
@@ -383,6 +506,12 @@ class ServeContext:
             rows_c.inc(rows)
         self.governor.note_latency(seconds)
         self.governor.maybe_step()
+
+    def request_counts(self) -> dict:
+        """{kind: requests answered} for the kinds that saw any (the
+        serve CLI's shutdown record)."""
+        return {kind: int(series[0].value)
+                for kind, series in self._kind.items() if series[0].value}
 
     def rejected(self, kind: str) -> None:
         self._kind[kind][3].inc()
@@ -428,11 +557,131 @@ class ServeContext:
                        record) -> None:
         self.point_cache.put(generation, variant_id, record)
 
+    # -- upserts (the live write path) --------------------------------------
+
+    def upsert_execute(self, body: bytes,
+                       max_rows: int | None = None, trace=None):
+        """The upsert decision and execution both front ends share;
+        returns ``(status, json_body, rows_in_request)``.  The 200 is the
+        ack: it is built only after the accepted rows' WAL frame is
+        fsynced (``Memtable.upsert`` orders WAL before visibility)."""
+        memtable = self.memtable
+        if memtable is None:
+            return 403, json.dumps({"error": MSG_UPSERTS_DISABLED}), 0
+        if self.disk_guard is not None and self.disk_guard.breached():
+            # writes shed first (507); reads and flushes of acknowledged
+            # rows keep running.  Nothing durable happened.
+            self._m_upsert_disk_shed.inc()
+            return 507, json.dumps({"error": MSG_DISK_RESERVE}), 0
+        t0 = time.perf_counter()
+        try:
+            entries = parse_upsert_body(body)
+            parsed = self.upsert_parse_entries(entries)
+        except QueryError as err:
+            self.errored("upsert")
+            return 400, json.dumps({"error": str(err)}), 0
+        if max_rows is not None and len(parsed) > max_rows:
+            # a batch the client bucket could never repay is rejected
+            # before any WAL or memtable work runs
+            self.rejected("upsert")
+            return 429, json.dumps({"error": (
+                f"upsert of {len(parsed)} rows exceeds client rate "
+                f"budget ({max_rows} rows); split the request"
+            )}), len(parsed)
+        base = getattr(self.manager, "base", self.manager)
+        try:
+            accepted, shadowed, _wal_bytes = memtable.upsert(
+                base.current().store, parsed, trace=trace
+            )
+        except (ValueError, KeyError, TypeError) as err:
+            self.errored("upsert")
+            return 400, json.dumps({"error": str(err)}), len(parsed)
+        except Exception as err:
+            # a WAL append or fsync failure included: nothing became
+            # visible, nothing was acknowledged — the client retries
+            self.errored("upsert")
+            return 500, json.dumps(
+                {"error": f"{type(err).__name__}: {err}"}
+            ), len(parsed)
+        generation = self.manager.current().generation
+        dt = time.perf_counter() - t0
+        self._m_upsert_requests.inc()
+        if accepted:
+            self._m_upsert_rows.inc(accepted)
+        if shadowed:
+            self._m_upsert_rejected.inc(shadowed)
+        self._m_upsert_ack.observe(dt)
+        self.observe("upsert", dt, rows=accepted)
+        return 200, (
+            f'{{"n":{len(parsed)},"accepted":{accepted},'
+            f'"shadowed":{shadowed},"generation":{generation}}}'
+        ), len(parsed)
+
+    def upsert_parse_entries(self, entries: list[dict]) -> list[dict]:
+        """Validated body entries -> the memtable's plain-data rows: ids
+        resolve through the grammar every read path uses
+        (:func:`~annotatedvdb_tpu_torch.serve.engine.parse_variant_id`),
+        and alleles are bounded by the store width (long-allele rows
+        belong to the offline loaders)."""
+        width = self.manager.current().store.width
+        parsed = []
+        for e in entries:
+            code, pos, ref, alt = parse_variant_id(e["id"])
+            if len(ref) > width or len(alt) > width:
+                raise QueryError(
+                    f"upsert {e['id']!r}: allele length "
+                    f"{max(len(ref), len(alt))} exceeds the store width "
+                    f"{width}; load long-allele rows through the offline "
+                    "loader CLIs"
+                )
+            parsed.append({
+                "code": code, "pos": pos, "ref": ref, "alt": alt,
+                "ref_snp": e.get("ref_snp"),
+                "ann": e.get("annotations"),
+            })
+        return parsed
+
+    def maybe_flush_memtable(self, force: bool = False) -> bool:
+        """Start a background memtable flush when a trigger
+        (``AVDB_MEMTABLE_BYTES`` / ``AVDB_MEMTABLE_FLUSH_S``) is due.  The
+        flush writes segment files and fsyncs a manifest, so it runs on
+        its own thread, never on a request thread or the event loop."""
+        m = self.memtable
+        if m is None:
+            return False
+        if not (force or m.should_flush()):
+            return False
+        base = getattr(self.manager, "base", self.manager)
+        threading.Thread(
+            target=self._flush_memtable, args=(base,), daemon=True,
+            name="memtable-flush",
+        ).start()
+        return True
+
+    def _flush_memtable(self, base_manager) -> None:
+        from annotatedvdb_tpu_torch.utils import retry
+
+        try:
+            # a full disk or a transient I/O blip gets a bounded retry on
+            # this thread; after that the next trigger retries from
+            # scratch (acknowledged rows stay in memtable + WAL)
+            retry.with_backoff(
+                lambda: self.memtable.flush(base_manager=base_manager),
+                attempts=3, base_delay=0.5,
+                retryable=lambda exc: (retry.is_disk_full(exc)
+                                       or retry.is_transient_io(exc)),
+            )
+        except Exception as err:
+            self.log(f"memtable flush failed ({type(err).__name__}: "
+                     f"{err}); rows stay in the memtable")
+
     def ready_state(self) -> tuple[bool, str]:
         """(ready, reason): not ready while a snapshot swap loads or the
         brownout ladder sheds bulk work.  Probes step the ladder too, so
-        an idle server de-escalates."""
+        an idle server de-escalates, and check the memtable's flush
+        triggers, so an idle threaded server's age flush fires."""
         self.governor.maybe_step()
+        self.maybe_flush_memtable()
         if getattr(self.manager, "swapping", False):
             return False, "snapshot swap in progress"
         if self.governor.shed_bulk():
@@ -548,6 +797,9 @@ class ServeHandler(BaseHTTPRequestHandler):
         )
         if path == "/variants":
             self._bulk(ctx)
+            return
+        if path == UPSERT_ROUTE:
+            self._upsert(ctx)
             return
         if path == "/regions":
             self._regions(ctx)
@@ -706,6 +958,45 @@ class ServeHandler(BaseHTTPRequestHandler):
         finally:
             ctx.release()
 
+    def _upsert(self, ctx: ServeContext) -> None:
+        """Live write path: the bulk admission shape (brownout shed,
+        deadline at admission and before execution, in-flight slot, 429)
+        around the shared :meth:`ServeContext.upsert_execute`; the 200 is
+        the durable ack."""
+        if ctx.governor.shed_bulk():
+            ctx.brownout_shed()
+            self._error(503, MSG_BROWNOUT_UPSERT)
+            return
+        deadline_t = ctx.request_deadline(self.headers.get("X-Deadline-Ms"))
+        if deadline_t is not None and time.monotonic() >= deadline_t:
+            ctx.deadline_shed("admission")
+            self._error(504, MSG_DEADLINE_ADMISSION)
+            return
+        if not ctx.admit():
+            ctx.rejected("upsert")
+            self._error(429, MSG_CAPACITY_UPSERT)
+            return
+        try:
+            ctx.refresh_snapshot()
+            try:
+                raw = self._read_body()
+            except ValueError:
+                ctx.errored("upsert")
+                self._error(400, UPSERT_BODY_ERROR)
+                return
+            if deadline_t is not None and time.monotonic() >= deadline_t:
+                # the body read ate the budget: shed before the WAL write
+                ctx.deadline_shed("execute")
+                self._error(504, MSG_DEADLINE_EXECUTE)
+                return
+            trace = ctx.reqtrace.begin(self._trace_id, "upsert")
+            status, body, _rows = ctx.upsert_execute(raw, trace=trace)
+            ctx.reqtrace.finish(trace, status)
+            self._reply(status, body)
+            ctx.maybe_flush_memtable()
+        finally:
+            ctx.release()
+
     def _regions(self, ctx: ServeContext) -> None:
         """Batch region join through the engine's batched BITS path."""
         t0 = time.perf_counter()
@@ -826,7 +1117,8 @@ def build_server(store_dir: str | None = None, manager=None,
                  max_queue: int | None = None,
                  region_cache_size: int | None = None,
                  registry: MetricsRegistry | None = None,
-                 residency=None, log=None, device=None) -> ThreadingHTTPServer:
+                 residency=None, memtable=None, log=None,
+                 device=None) -> ThreadingHTTPServer:
     """Wire manager -> engine (on ``device``: ``cuda`` unless the caller
     asks for ``cpu``) -> batcher -> HTTP server (not yet serving; call
     ``serve_forever`` or run it on a thread).  The server carries its
@@ -848,5 +1140,6 @@ def build_server(store_dir: str | None = None, manager=None,
     )
     httpd = ThreadingHTTPServer((host, port), ServeHandler)
     httpd.daemon_threads = True
-    httpd.ctx = ServeContext(manager, engine, batcher, registry, log=log)
+    httpd.ctx = ServeContext(manager, engine, batcher, registry,
+                             memtable=memtable, log=log)
     return httpd

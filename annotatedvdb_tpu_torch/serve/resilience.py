@@ -263,6 +263,13 @@ class OverloadGovernor:
     def level_name(self) -> str:
         return LEVEL_NAMES[self.level]
 
+    @property
+    def exceedance(self) -> float:
+        """Current latency-over-target EWMA, published through the fleet
+        heartbeat slot."""
+        with self._lock:
+            return self._exceed_ewma
+
     def region_limit_cap(self) -> int | None:
         """Row ceiling to clamp region ``limit`` to, or None."""
         return BROWNOUT_REGION_LIMIT if self.level >= LEVEL_LIMIT else None

@@ -8,8 +8,9 @@ concurrent loader commits.  :class:`SnapshotManager` fingerprints
 ``manifest.json`` (one ``stat``), loads a changed generation off-lock and
 swaps the pin atomically; ``maybe_refresh`` coalesces the check to one
 ``stat`` per ``AVDB_SERVE_SNAPSHOT_TTL_MS`` window (default 250 ms).
-Stores open ``readonly=True``.  The upsert overlay (``MemtableSnapshots``,
-``_OverlayStore``) and the ``snapshot.swap`` fault point are not ported.
+Stores open ``readonly=True``.  :class:`MemtableSnapshots` overlays a live
+memtable (``store/memtable.py``) on a manager: the read-your-writes half of
+``serve --upserts``.  The ``snapshot.swap`` fault point is not ported.
 """
 
 from __future__ import annotations
@@ -129,6 +130,105 @@ class SnapshotManager:
         self.log(f"snapshot swapped to generation {generation} "
                  f"({store.n} rows)")
         return True
+
+
+class _OverlayStore:
+    """Read-only store view: the base generation's shards with the
+    memtable's in-memory segments appended after them, so every read
+    path's first-wins dedup resolves collisions toward the stored (older)
+    row, and upserted rows render through the same ``Segment`` machinery
+    loaded rows do.  The Segment objects are shared with the base store
+    and the memtable; only the per-shard lists are fresh."""
+
+    __slots__ = ("width", "readonly", "shards")
+
+    def __init__(self, base_store, mem_segments: dict):
+        from annotatedvdb_tpu_torch.store.variant_store import ChromosomeShard
+
+        self.width = base_store.width
+        self.readonly = True
+        shards = {}
+        for code, bshard in base_store.shards.items():
+            sh = ChromosomeShard(code, self.width)
+            sh.segments = list(bshard.segments) \
+                + list(mem_segments.get(code, ()))
+            shards[code] = sh
+        for code, segs in mem_segments.items():
+            if code in shards or not segs:
+                continue
+            sh = ChromosomeShard(code, self.width)
+            sh.segments = list(segs)
+            shards[code] = sh
+        self.shards = shards
+
+    @property
+    def n(self) -> int:
+        return sum(s.n for s in self.shards.values())
+
+
+class MemtableSnapshots:
+    """Snapshot provider overlaying a live memtable on a base provider.
+
+    Until the first upsert (memtable epoch 0) this is a pass-through:
+    ``current()`` returns the base provider's snapshot object unchanged,
+    so read-only serving pays nothing and generation numbers are the
+    base's.  From the first upsert on, every distinct (base generation,
+    memtable epoch) pair maps to a fresh generation number strictly
+    greater than any handed out before, so generation-keyed caches (point
+    render, region LRU, interval indexes and their device copies, cursor
+    walks, the brownout point cache) never serve pre-upsert bytes for a
+    post-upsert view.  The reference's ``reset_memtable`` (the
+    replication follower's re-sync) is not ported: the port has no
+    follower yet."""
+
+    def __init__(self, base, memtable):
+        self.base = base
+        self.memtable = memtable
+        self._lock = make_lock("serve.snapshot.overlay")
+        #: guarded by self._lock
+        self._last_key = None
+        #: guarded by self._lock
+        self._last_snap: StoreSnapshot | None = None
+        #: guarded by self._lock — the remapped generation counter, kept
+        #: strictly above every base generation observed
+        self._gen = 0
+
+    def current(self) -> StoreSnapshot:
+        base = self.base.current()
+        epoch, segs, _rows, _bytes = self.memtable.view()
+        if epoch == 0:
+            return base  # pristine: the base's snapshot, zero overhead
+        key = (base.generation, epoch)
+        with self._lock:
+            if key == self._last_key:
+                return self._last_snap
+        overlay = _OverlayStore(base.store, segs)
+        with self._lock:
+            if key == self._last_key:  # a racing call built it first
+                return self._last_snap
+            self._gen = max(self._gen + 1, base.generation + 1)
+            snap = StoreSnapshot(overlay, self._gen, base.fingerprint)
+            self._last_key = key
+            self._last_snap = snap
+            return snap
+
+    def maybe_refresh(self) -> bool:
+        return self.base.maybe_refresh()
+
+    def refresh(self) -> bool:
+        return self.base.refresh()
+
+    def refresh_due(self) -> bool:
+        return self.base.refresh_due() \
+            if hasattr(self.base, "refresh_due") else False
+
+    @property
+    def swaps(self) -> int:
+        return self.base.swaps
+
+    @property
+    def swapping(self) -> bool:
+        return bool(getattr(self.base, "swapping", False))
 
 
 class StaticSnapshots:

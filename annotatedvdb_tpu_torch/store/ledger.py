@@ -157,6 +157,12 @@ class AlgorithmLedger:
         with self._lock:
             return [e for e in self._entries if e.get("type") == "compact"]
 
+    def flush(self, record: dict) -> None:
+        """Append one ``{"type": "flush"}`` record — the audit trail of a
+        memtable flush (``store/memtable.py``: labels flushed, rows, new
+        seg ids, bytes, wall seconds).  Resume and undo ignore it."""
+        self._append({"type": "flush", **record, "ts": time.time()})
+
     def flushes(self) -> list[dict]:
         """All memtable-flush records, oldest first."""
         with self._lock:

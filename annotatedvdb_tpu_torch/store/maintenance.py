@@ -5,15 +5,20 @@ Trimmed port of ``annotatedvdb_tpu/store/maintenance.py``:
 watermarks ``AVDB_MAINTAIN_SEGMENTS_HIGH`` / ``_LOW``, the disk reserve
 ``AVDB_STORE_DISK_RESERVE_BYTES`` and the free-space reading).  The
 report reads only the manifest, the directory listing, WAL frames and the
-ledger: it never loads a segment and never touches the card.  The watermark-driven ``MaintenanceDaemon`` (``serve
---maintain``) and the upsert path's ``DiskReserveGuard`` are not ported
-yet.
+ledger: it never loads a segment and never touches the card.  Also the
+upsert path's write guard, :class:`DiskReserveGuard` (the 507 of
+``POST /variants/upsert``).  The watermark-driven ``MaintenanceDaemon``
+(``serve --maintain``) is not ported yet, nor is the guard's
+``maintain.disk_guard`` fault point.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
+
+from annotatedvdb_tpu_torch.utils.locks import make_lock
 
 
 def _parse_int(name: str, raw: str, default: int, minimum: int) -> int:
@@ -66,6 +71,74 @@ def free_disk_bytes(path: str) -> int:
     """Unprivileged-available bytes on the filesystem holding ``path``."""
     st = os.statvfs(path)
     return int(st.f_bavail) * int(st.f_frsize)
+
+
+class DiskReserveGuard:
+    """The disk-pressure write guard: ``breached()`` is True while free
+    disk under the store sits below the configured reserve.
+
+    One ``statvfs`` per TTL window (default 1 s), so the upsert path does
+    not pay a syscall per request.  An unreadable reading counts as
+    breached: when the guard cannot see free space it refuses writes
+    rather than acknowledge rows a full disk may not hold.  State flips
+    are logged once per transition."""
+
+    TTL_S = 1.0
+
+    def __init__(self, store_dir: str, reserve: int | None = None,
+                 ttl_s: float | None = None, log=None):
+        self.store_dir = store_dir
+        self.reserve = (
+            disk_reserve_from_env() if reserve is None
+            else max(int(reserve), 0)
+        )
+        self.ttl_s = self.TTL_S if ttl_s is None else max(float(ttl_s), 0.0)
+        self.log = log if log is not None else (lambda msg: None)
+        self._lock = make_lock("store.disk_guard")
+        #: guarded by self._lock
+        self._cached: tuple[bool, int] = (False, -1)
+        #: guarded by self._lock
+        self._check_at = 0.0
+        #: guarded by self._lock
+        self._was_breached = False
+
+    def state(self, force: bool = False) -> tuple[bool, int]:
+        """(breached, free_bytes); ``free_bytes`` is -1 when the reading
+        failed (treated as breached) or the guard is disabled."""
+        if self.reserve <= 0:
+            return False, -1
+        now = time.monotonic()
+        with self._lock:
+            if not force and now < self._check_at:
+                return self._cached
+            self._check_at = now + self.ttl_s
+        why = ""
+        try:
+            free = free_disk_bytes(self.store_dir)
+            breached = free < self.reserve
+        except Exception as err:
+            free, breached = -1, True
+            why = f" (free-space reading failed: {err})"
+        with self._lock:
+            flipped = breached != self._was_breached
+            self._was_breached = breached
+            self._cached = (breached, free)
+        if flipped:
+            if breached:
+                self.log(
+                    f"disk guard: free space "
+                    f"{free if free >= 0 else 'unknown'} bytes below the "
+                    f"{self.reserve}-byte reserve{why}; upserts answer 507 "
+                    "until space is freed (reads/flushes/compaction keep "
+                    "running)"
+                )
+            else:
+                self.log("disk guard: reserve satisfied again; "
+                         "upserts resume")
+        return breached, free
+
+    def breached(self) -> bool:
+        return self.state()[0]
 
 
 # ---------------------------------------------------------------------------

@@ -30,10 +30,15 @@ JSONB values may be held as raw JSON text (:class:`RawJson`, the native
 VCF tokenizer's FREQ sidecar): the segment writer splices the text, and
 every mutation site materializes a fresh object on the row first.
 
+Cooperative writers: a serve worker's memtable flush may commit into the
+same directory while a loader holds the store.  ``save`` carries the
+groups such a writer committed since this store loaded forward verbatim
+and never reuses their seg ids (``_adoptable_groups``); groups below the
+load-time floor stay this store's own, so an undo still drops their rows.
+
 Not ported here (later slices): the on-disk compaction
-(``store/compact.py``), cooperative writers (a serve worker's memtable
-flush committing into the same directory), the out-of-core memmap tier
-and the mesh placement block.
+(``store/compact.py``), the out-of-core memmap tier and the mesh
+placement block.
 """
 
 from __future__ import annotations
@@ -974,6 +979,11 @@ class VariantStore:
         # pre-existing segment files in a directory whose manifest carries
         # this uid
         self._uid = uuid.uuid4().hex
+        # cooperative-writer adoption (see save()): the next_seg_id of the
+        # manifest this store was loaded from (None for a fresh store),
+        # and every seg id this store allocated itself
+        self._sid_floor: int | None = None
+        self._my_sids: set[int] = set()
 
     def shard(self, chrom_code: int) -> ChromosomeShard:
         code = int(chrom_code)
@@ -1041,6 +1051,63 @@ class VariantStore:
             return None
         return manifest
 
+    def _adoptable_groups(self, on_disk: dict | None) -> dict:
+        """{label: [group, ...]} of backing groups another cooperative
+        writer (a serve worker's memtable flush) committed into this
+        directory since this store loaded — detected by seg id: at or
+        above the load-time floor and not allocated by this store.  save()
+        carries these forward verbatim: dropping them would destroy rows
+        this store never held (for a flush, acknowledged upserts whose WAL
+        was already truncated).  Groups below the floor are this store's
+        own to manage, including not carrying them when an undo dropped
+        their rows."""
+        if self._sid_floor is None or on_disk is None:
+            return {}
+        if int(on_disk.get("next_seg_id", 1)) <= self._sid_floor:
+            return {}  # no id at or above the floor can exist in it
+        floor = self._sid_floor
+        fmt2 = on_disk.get("format") == 2
+        adopted: dict[str, list] = {}
+        for label, groups in (on_disk.get("shards") or {}).items():
+            norm = [[g] for g in groups] if fmt2 else groups
+            keep = [
+                list(group) for group in norm
+                if group and all(
+                    isinstance(sid, int) and sid >= floor
+                    and sid not in self._my_sids for sid in group
+                )
+            ]
+            if keep:
+                adopted[label] = keep
+        return adopted
+
+    @staticmethod
+    def _peek_segment_rows(path: str, stem: str) -> int:
+        """Row count of one on-disk segment from its container header
+        alone — the stats entry of an adopted group.  Best-effort: stats
+        are advisory, a parse failure reports 0."""
+        fp = os.path.join(path, stem + ".npz")
+        try:
+            with open(fp, "rb") as f:
+                head = f.readline()
+                if not head.startswith(b"{"):
+                    with open(fp, "rb") as zf:  # legacy zip npz
+                        with np.load(zf) as z:
+                            return int(z["ref"].shape[0])
+                meta = json.loads(head)
+                if "rows" in meta:
+                    return int(meta["rows"])
+                version = np.lib.format.read_magic(f)
+                if version == (1, 0):
+                    shape, _f, _d = np.lib.format.read_array_header_1_0(f)
+                elif version == (2, 0):
+                    shape, _f, _d = np.lib.format.read_array_header_2_0(f)
+                else:
+                    return 0
+                return int(shape[0])
+        except (OSError, ValueError, KeyError):
+            return 0
+
     def save(self, path: str) -> None:
         if self.readonly:
             raise RuntimeError(
@@ -1048,7 +1115,16 @@ class VariantStore:
                 "readonly=True — reload without it to mutate)"
             )
         os.makedirs(path, exist_ok=True)
-        trusted = self._dir_manifest(path) is not None
+        on_disk = self._dir_manifest(path)
+        trusted = on_disk is not None
+        # cooperative-writer sync: groups a memtable flush committed since
+        # this store loaded or last saved are carried forward below, and
+        # their seg ids are never allocated again here
+        adopted = self._adoptable_groups(on_disk)
+        if trusted:
+            self._next_seg_id = max(
+                self._next_seg_id, int(on_disk.get("next_seg_id", 1))
+            )
         live_files = {"manifest.json"}
         manifest = {
             "format": 3, "width": self.width, "store_uid": self._uid,
@@ -1080,6 +1156,7 @@ class VariantStore:
                     # commit point
                     sid = self._next_seg_id
                     self._next_seg_id += 1
+                    self._my_sids.add(sid)
                     stems = [f"chr{label}.{sid:06d}"]
                     ids = [sid]
                     self._integrity[stems[0]] = self._write_segment(
@@ -1091,6 +1168,23 @@ class VariantStore:
                     live_files.update({stem + ".npz", stem + ".ann.jsonl"})
                 groups.append(ids)
             manifest["shards"][label] = groups
+        # adopted groups go after this store's own (they are the newer
+        # writes: first-wins order on disk matches the overlay their
+        # writer served), with their integrity records
+        adopted_rows: dict[str, int] = {}
+        for label, groups in sorted(adopted.items()):
+            manifest["shards"].setdefault(label, [])
+            rows = 0
+            for group in groups:
+                manifest["shards"][label].append(list(group))
+                for sid in group:
+                    stem = f"chr{label}.{sid:06d}"
+                    live_files.update({stem + ".npz", stem + ".ann.jsonl"})
+                    rec = (on_disk.get("integrity") or {}).get(stem)
+                    if rec is not None:
+                        self._integrity[stem] = rec
+                    rows += self._peek_segment_rows(path, stem)
+            adopted_rows[label] = rows
         manifest["next_seg_id"] = self._next_seg_id
         # write-time integrity records for every LIVE segment file (size +
         # crc32 of the exact bytes handed to the OS), sorted for the
@@ -1103,11 +1197,14 @@ class VariantStore:
             for stem in live_stems if stem in self._integrity
         }
         # residency stats, deterministic on store content only
+        stats_rows = {
+            chromosome_label(code): int(shard.n)
+            for code, shard in sorted(self.shards.items())
+        }
+        for label, rows in sorted(adopted_rows.items()):
+            stats_rows[label] = stats_rows.get(label, 0) + rows
         manifest["stats"] = {
-            "rows": {
-                chromosome_label(code): int(shard.n)
-                for code, shard in sorted(self.shards.items())
-            },
+            "rows": stats_rows,
             "segments": {
                 label: len(groups)
                 for label, groups in manifest["shards"].items()
@@ -1233,6 +1330,10 @@ class VariantStore:
             )
         store = cls(manifest["width"])
         store._next_seg_id = manifest.get("next_seg_id", 1)
+        # adoption floor (see save()): everything below this id is this
+        # manifest's own lineage; a cooperative writer committing later
+        # allocates at or above it
+        store._sid_floor = int(store._next_seg_id)
         uid = manifest.get("store_uid")
         if uid:
             # resume this store's on-disk lineage: saves back into this

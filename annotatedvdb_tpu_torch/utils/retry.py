@@ -1,7 +1,8 @@
 """Bounded retry-with-backoff for transient I/O.
 
 Host copy of the I/O half of ``annotatedvdb_tpu/utils/retry.py``: the
-Postgres egress's COPY writers retry transient filesystem errors
+Postgres egress's COPY writers and the memtable flush (which also retries
+a full disk) retry transient filesystem errors
 (``EIO``/``EAGAIN``/``EBUSY``/``EINTR``/``ESTALE``: NFS blips and
 overloaded disks on multi-hour exports) and ONLY those — data errors and
 logic errors propagate unchanged.  Retries are bounded (default 3
@@ -19,8 +20,17 @@ TRANSIENT_ERRNOS = frozenset({
 })
 
 
+#: errno values of a full disk or quota: the memtable flush retries them
+#: (space may come back), the egress writers do not
+DISK_FULL_ERRNOS = frozenset({errno.ENOSPC, errno.EDQUOT})
+
+
 def is_transient_io(exc: BaseException) -> bool:
     return isinstance(exc, OSError) and exc.errno in TRANSIENT_ERRNOS
+
+
+def is_disk_full(exc: BaseException) -> bool:
+    return isinstance(exc, OSError) and exc.errno in DISK_FULL_ERRNOS
 
 
 def with_backoff(fn, *, attempts: int = 3, base_delay: float = 0.05,

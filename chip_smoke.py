@@ -7,9 +7,10 @@ update, the VCF/TSV-driven update legs (``update-qc``,
 (``load-cadd``), reference-genome validation (``index-genome``,
 ``load-vcf --refGenome``), the Postgres egress (``install-schema``) and
 the host-only commands (``export-vcf``, ``undo``, ``bin-references``),
-the query server (``serve --frontend threaded``) and the corpus export
-(``export``, ``/export/stream``) on ``cuda:0`` and checks them, phase by
-phase, each phase printing one JSON line:
+the query server (``serve``: both front ends and the fleet), the corpus
+export (``export``, ``/export/stream``), ``doctor`` and the live write
+path (``serve --upserts``) on ``cuda:0`` and checks them, phase by phase,
+each phase printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — compiles every kernel from ``annotatedvdb_tpu_torch/csrc``
@@ -92,8 +93,8 @@ phase, each phase printing one JSON line:
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
-6. parity   — the first 12,500 lines loaded on the card and on the CPU,
-              then updated from 3,125 VEP results for the variants of
+6. parity   — the first 3,125 lines loaded on the card and on the CPU,
+              then updated from 781 VEP results for the variants of
               their first half (``load-vep``, the ranking file re-ranked
               on load and saved on each of 5 learned combos), once with
               the Python tokenizer, the serial executor and the Python
@@ -103,8 +104,8 @@ phase, each phase printing one JSON line:
               saved ranking files must be identical, the VEP counters the
               ones the generator predicts.  Then, in each configuration,
               the three update commands in turn on the same stores: a QC
-              pVCF over the first 6,250 lines with 10% novel rows, a
-              SnpEff file over all of them and a METASEQ TSV of 3,125
+              pVCF over the first 1,562 lines with 10% novel rows, a
+              SnpEff file over all of them and a METASEQ TSV of 781
               rows with 5% novel: the stores identical after each, the
               counters as predicted, and on the card the predicted
               ``annotate_bin`` launches (one per chunk or batch hashed on
@@ -113,7 +114,7 @@ phase, each phase printing one JSON line:
               ``AVDB_NATIVE_CADD=0``), ``load-cadd --commit`` against
               seeded BGZF tables over the lines' span, ``--buildIndex``
               (once per configuration: it reads only the tables), an
-              indexed ``--fileName`` update of the first 2,500 lines with
+              indexed ``--fileName`` update of the first 625 lines with
               ``--updateExisting``, ``export-vcf`` and ``undo`` of the QC
               update: stores and export files identical card against CPU
               after each, the predicted ``cadd_join`` launches, no plain
@@ -124,7 +125,7 @@ phase, each phase printing one JSON line:
               the last step ``install-schema --storeDir`` of each store:
               identical output trees, one ``annotate_bin`` launch per
               65,536-row egress window;
-7. vep      — a seeded VEP JSON of 100,000 results (1-6 transcript
+7. vep      — a seeded VEP JSON of 50,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
               ~2% for alleles the store lacks, 20 novel combos, one
@@ -139,26 +140,29 @@ phase, each phase printing one JSON line:
               device's idle share (``torch.profiler``) and how the store
               save splits between JSON encoding and the rest.  Before it,
               the transformer's allele hash over the file's blocks is held
-              against the kernel's on the card.  Then (7b) a 20,000-result
+              against the kernel's on the card.  Then (7b) a 10,000-result
               file over the first tenth of the lines, in the default
               configuration and under ``AVDB_NATIVE_VEP=0``, each onto a
               copy of the store made before phase 7: the two saved stores
               must decode equal.  Then the kernel's time at the
               identity-batch shape;
-8. updates  — on phase 7's store, through the CLIs' ``main`` with
+8. updates  — on a store of phase 4's first 125,000 lines, loaded for
+              it with ``load-vcf`` (each update command loads and saves
+              its whole store, and at phase 7's 2.27M rows those, not the
+              lines, set the wall), through the CLIs' ``main`` with
               ``--commit`` in the default configuration, each with the
               counters reset just before and read just after: a seeded
-              ADSP-QC-shaped pVCF of 50,000 phase-4 lines (QUAL, FILTER
+              ADSP-QC-shaped pVCF of 25,000 of those lines (QUAL, FILTER
               PASS on 85%, numeric INFO keys and a flag, a repeated key on
               1%, FORMAT and a sample; 10% new SNVs, 3% of those with two
-              alts) with ``--version r4``; a SnpEff VCF of 50,000 phase-4
+              alts) with ``--version r4``; a SnpEff VCF of 25,000 phase-4
               identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
-              of 25,000 rows (``other_annotation`` JSON, ``ref_snp_id``),
+              of 12,500 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
               predicts, the predicted ``annotate_bin`` launches, no plain
               hash on the card, stage seconds, wall, lines/s and the
               device's idle share (``torch.profiler``).  The first kernel
-              step of a lookup hash (a 32,768-row TSV batch) and of a
+              step of a lookup hash (a TSV batch, 12,500 rows) and of a
               novel-row insert (a QC chunk's new rows) is kept and, after
               the run, held against the plain versions on the same inputs:
               the annotate fields under the selection contract, the hash
@@ -166,8 +170,8 @@ phase, each phase printing one JSON line:
 9. cadd     — ``load-cadd --commit`` through the CLI's ``main`` on a copy
               of the store of phases 4 and 5 made before phase 7 (no VEP
               sidecars), against seeded BGZF tables over chr22:16,000,001-
-              22,000,000: the SNV table every position with its three
-              alternate bases (18,000,000 rows; the ref base is the
+              19,000,000: the SNV table every position with its three
+              alternate bases (9,000,000 rows; the ref base is the
               store's where it holds a row), the indel table runs of 1-6
               rows at about one position in 20 with half the store's
               indels planted (a third swapped, some twice, some beside or
@@ -183,7 +187,7 @@ phase, each phase printing one JSON line:
               full 50,818,468 bases, N and lowercase runs) and a short
               chr21 with IUPAC codes: lossy flags, chr22's arrays equal to
               the generator's, sampled ``fetch`` windows equal to the text.
-              Then ``load-vcf --refGenome --commit`` of the first 250,000
+              Then ``load-vcf --refGenome --commit`` of the first 62,500
               phase-4 lines plus five at chr22's end into a fresh store,
               every counter reset just before and read just after:
               ``ref_mismatch`` and rows as the generator counts them by
@@ -197,8 +201,10 @@ phase, each phase printing one JSON line:
               ``bin-references`` for GRCh38 (395,448 rows);
 11. serve   — ``python -m annotatedvdb_tpu_torch serve --port 0`` on
               phase 9's store (CADD scores and FREQ allele frequencies; no
-              ranks), once with the default front end (``aio``) and then
-              with ``--frontend threaded``, in turns, each with 8 client
+              ranks), once with the default front end (``aio``), then
+              with ``--frontend threaded``, then as a fleet of four
+              ``aio`` workers on the one card (``--workers 4``: ready
+              once every worker is), in turns, each with 8 client
               threads sending the same seeded mix: 2,000 point ids (5% absent), 10 bulk calls of
               10,000 ids, 64 region walks of three pages (10 kb-1 Mb,
               ``minCadd=20``), 16 ``POST /regions`` batches of 4,096
@@ -207,12 +213,14 @@ phase, each phase printing one JSON line:
               4,096 with ``windows`` 16.  Every body of both front ends
               equal to the host-only engine's answer (computed after the
               traffic windows by four spawned helper processes, idle while
-              they run); each server's kernel launches as predicted, no
-              breaker failure and no plain version on the card (its
-              shutdown summary); per front end p50/p99 per kind,
-              requests/s, intervals/s, the device's
+              they run); each server's kernel launches as predicted (a
+              fleet's summed over its workers' shutdown summaries), no
+              breaker failure and no plain version on the card; per turn
+              p50/p99 per kind, requests/s, intervals/s, the device's
               idle share (an upper bound: phase 3's kernel times times
-              the launches) and bytes held, the store load, index build
+              the launches) and bytes held (each worker's, and
+              ``nvidia-smi``'s used memory in a fleet's window), the
+              requests each worker answered, the store load, index build
               and feature decode seconds;
 12. export  — ``python -m annotatedvdb_tpu_torch export --commit --seed 7``
               (the CLI's ``main``) of phase 9's store (chr22, 2,274,305
@@ -237,7 +245,22 @@ phase, each phase printing one JSON line:
               loads); ``replay-rejects`` of a rejects file a Python-engine
               ``load-vcf`` of a VCF with five malformed lines wrote (the
               lines back verbatim).  The card's allocated bytes must not
-              move while ``doctor`` runs; walls of each verb.
+              move while ``doctor`` runs; walls of each verb;
+14. upsert  — ``serve --workers 2 --upserts`` on phase 9's store with the
+              memtable's flush bound set so the third upsert crosses it:
+              three upserts of 2,048 chr22 rows (half new identities, half
+              stored rows, which come back shadowed), each followed on the
+              same connection by a ``/regions`` and a ``/stats/region``
+              read of 64 intervals tiling its 200-kb window that must count
+              the new rows; the read-after-upsert and ack latencies; the
+              worker whose WAL holds the first two is SIGKILLed, respawned,
+              replays them and serves them byte for byte; the flush
+              commits and truncates the WAL, every worker serves the rows
+              after one snapshot TTL, the fleet's ``/regions`` and
+              ``/stats/region`` bodies equal a host-only engine's over the
+              flushed store, the launches of the surviving workers equal
+              the reads sent after the kill, and ``doctor --deep`` finds
+              the store clean after a clean stop.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -2995,15 +3018,17 @@ def vcf_sites(lines) -> list:
 
 
 def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
-                 head6=10_000, n10=500_000, genome=(CHR22_LENGTH, True)) -> dict:
+                 head6=10_000, n10=500_000, genome=(CHR22_LENGTH, True),
+                 n8_store=None) -> dict:
     """The seeded inputs of phases 3-8 under ``WORK``: the phase-4 VCF of
     ``n4`` lines, the phase-5 reload VCF of ``n5``, the first ``n6`` lines
     of phase 4 with a VEP file for their first half, the three update
     inputs over them, CADD tables over their span and their first
     ``head6`` lines (phase 6), ``n7`` VEP results over phase 4's variants
     (phase 7) and ``n7b`` over its first tenth (phase 7b), and the update
-    inputs over phase 4's lines, ``n8`` = (QC lines, SnpEff lines, TSV
-    rows) (phase 8), with what each load must count; the genome inputs of
+    inputs over phase 4's lines (its first ``n8_store`` lines, written to
+    the VCF of phase 8's store, when given), ``n8`` = (QC lines, SnpEff
+    lines, TSV rows) (phase 8), with what each load must count; the genome inputs of
     :func:`write_genome_inputs` at ``genome`` = (chr22's length, whether
     to write the GRCh38-shaped index) over phase 4's lines, and phase
     10's VCF: its first ``n10`` lines plus planted lines at chr22's end.
@@ -3043,9 +3068,18 @@ def write_inputs(n4, n5, n6, n7, n8=(200_000, 200_000, 100_000), n7b=20_000,
         os.path.join(WORK, "chr22.head"),
         {"qc": (lines6[:half], half), "lof": (lines6, len(lines6)),
          "tsv": (lines6, n6 // 4)}, seed=60)
+    lines8 = lines4
+    if n8_store is not None:
+        inp["vcf8"] = os.path.join(WORK, "chr22.update.vcf")
+        with open(inp["vcf4"]) as src, open(inp["vcf8"], "w") as dst:
+            dst.write(HEADER)
+            data = (ln for ln in src if not ln.startswith("#"))
+            dst.writelines(next(data) for _ in range(n8_store))
+        with open(inp["vcf8"]) as f:
+            lines8 = list(dict.fromkeys(ln for ln in f if not ln.startswith("#")))
     inp["updates8"] = write_update_inputs(
         os.path.join(WORK, "chr22"),
-        {name: (lines4, n) for name, n in zip(("qc", "lof", "tsv"), n8)},
+        {name: (lines8, n) for name, n in zip(("qc", "lof", "tsv"), n8)},
         seed=80)
     inp["update_seconds"] = time.perf_counter() - t0
     # the CADD tables: phase 6's over its lines' span, phase 9's over
@@ -3102,7 +3136,12 @@ def write_phase10_vcf(path, vcf4, n_lines, text) -> tuple:
     return path, ref_mismatches(text, lines + planted)
 
 
-def write_cadd9_inputs(work, vcfs, span=(16_000_001, 22_000_000)) -> dict:
+#: phase 9's table span on chr22 (3 Mbp: the writer, run beside phase 6,
+#: then ends before phase 6 does)
+CADD9_SPAN = (16_000_001, 19_000_000)
+
+
+def write_cadd9_inputs(work, vcfs, span=CADD9_SPAN) -> dict:
     """Phase 9's CADD tables (BGZF, level 1) under ``work/cadd9`` over
     ``span`` of chr22, for the store the VCF files ``vcfs`` load (phases 4
     and 5): the database directory, the span, the generator's predictions
@@ -3932,7 +3971,7 @@ def decoded_differences(dir_a, dir_b) -> list:
 
 def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
     """Phase 7 on ``platform``: the VEP update of phase 4's store through
-    the CLI in the default configuration; then (7b) the 20,000-result file
+    the CLI in the default configuration; then (7b) the 10,000-result file
     in the default configuration onto ``prep["store_7b"]`` and under
     ``AVDB_NATIVE_VEP=0`` onto ``prep["store_python"]``, copies of the
     store made before phase 7 (removed after the comparison).
@@ -3988,7 +4027,7 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
             f"{hashed['cuda']} times")
     del loader, pinned, segs, run
 
-    # 7b. a 20,000-result file over the first tenth of the lines, in the
+    # 7b. a 10,000-result file over the first tenth of the lines, in the
     # default configuration and through the Python transform, each onto a
     # copy of the store made before phase 7: the two must decode equal
     want_b, novel_b = prep["want7b"], prep["novel7b"]
@@ -4031,6 +4070,21 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
         shutil.rmtree(d)
     return {"launches": launched, "identity_batches": batches,
             "rows_per_batch": rows / batches}
+
+
+def load_update_store(vcf, platform="cuda") -> str:
+    """Phase 8's store: ``vcf`` through ``load-vcf --commit`` (the CLI's
+    ``main``) into a fresh directory; its wall is emitted."""
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+
+    store = os.path.join(WORK, "store8")
+    t0 = time.perf_counter()
+    rc = load_vcf(["--fileName", vcf, "--storeDir", store, "--commit",
+                   "--logAfter", "0", "--platform", platform])
+    assert rc == 0, f"phase 8's load-vcf exited {rc}"
+    emit("update_store", vcf=os.path.basename(vcf), wall_s=time.perf_counter() - t0,
+         rows=ledger_records(store, "finish")[-1]["counters"]["variant"])
+    return store
 
 
 def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> dict:
@@ -4422,10 +4476,9 @@ def _digest(status, body: bytes) -> tuple:
     return status, len(body), hashlib.sha256(body).hexdigest()
 
 
-def serve_expected(store_dir, vcf4, span, seed=11, mix=SERVE_MIX, part=0,
-                   parts=1) -> dict:
-    """The host-only answers to :func:`serve_jobs` whose index is ``part``
-    modulo ``parts``: a CPU engine over the same store (every group below
+def serve_expected(store_dir, jobs, mix=SERVE_MIX) -> dict:
+    """The host-only answers to ``jobs`` (a share of :func:`serve_jobs`'s):
+    a CPU engine over the same store (every group below
     the device minimums, so every span and panel comes from the numpy
     twins), each answer rendered as the HTTP handler renders it; returns
     {job id: [(status, bytes, sha256), ...]} (one entry a page for region
@@ -4435,14 +4488,11 @@ def serve_expected(store_dir, vcf4, span, seed=11, mix=SERVE_MIX, part=0,
     from annotatedvdb_tpu_torch.store import VariantStore
 
     t0 = time.perf_counter()
-    jobs = serve_jobs(vcf4, span, seed, mix)
     engine = QueryEngine(StaticSnapshots(VariantStore.load(store_dir, readonly=True)),
                          device="cpu", regions_device_min=1 << 30,
                          stats_device_min=1 << 30)
     out = {}
     for jid, kind, payload in sorted(jobs, key=lambda j: j[0]):
-        if jid % parts != part:
-            continue
         if kind == "point":
             rec = engine.lookup(payload)
             out[jid] = [_digest(200, rec.encode()) if rec is not None else _digest(
@@ -4520,7 +4570,7 @@ def _serve_client(port, queue_, results, lock, mix):
 
 
 #: spawned processes computing phase 11's host-only answers, in parallel
-SERVE_HELPERS = 4
+SERVE_HELPERS = 8
 
 
 def _warm_serve_helper() -> None:
@@ -4531,24 +4581,109 @@ def _warm_serve_helper() -> None:
     time.sleep(1.0)  # hold this worker, so each warm call lands on its own
 
 
-#: phase 11's front ends, in the order they are driven: the default first
-SERVE_FRONTENDS = ("aio", "threaded")
+#: phase 11's turns, in the order they are driven: the default front end
+#: first, then ``--frontend threaded``, then the fleet (``--workers``
+#: SERVE_FLEET_WORKERS, the default ``aio`` front end in every worker)
+SERVE_FRONTENDS = ("aio", "threaded", "fleet")
+
+#: phase 11's fleet size: four worker processes sharing one card
+SERVE_FLEET_WORKERS = 4
+
+
+def serve_command(store_dir, platform, frontend, workers=SERVE_FLEET_WORKERS,
+                  extra=()) -> list:
+    """``python -m annotatedvdb_tpu_torch serve --port 0`` for one of
+    :data:`SERVE_FRONTENDS` (no flag for ``aio``, the default; ``fleet``
+    is ``--workers workers``)."""
+    flags = {"aio": [], "threaded": ["--frontend", "threaded"],
+             "fleet": ["--workers", str(workers)]}[frontend]
+    return [sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
+            "--storeDir", store_dir, "--port", "0", *flags, *extra,
+            *(["--platform", "cpu"] if platform == "cpu" else [])]
+
+
+def wait_serving(proc, out_path, err_path, workers=1, timeout=300.0) -> tuple:
+    """Wait until a serve process printed its banner and, in a fleet, until
+    ``workers`` workers printed their readiness lines; returns (the
+    banner, the port, seconds waited)."""
+    import re
+
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            with open(err_path) as f:
+                raise AssertionError(f"serve did not start (rc {proc.poll()}): "
+                                     f"{f.read()[-2000:]}")
+        with open(out_path) as f:
+            lines = [ln for ln in f.readlines() if ln.endswith("\n")]
+        banner = next((ln.strip() for ln in lines if ln.startswith("serving ")),
+                      None)
+        ready = sum(ln.startswith("worker ") for ln in lines)
+        if banner is not None and (workers <= 1 or ready >= workers):
+            port = int(re.search(r"http://[\d.]+:(\d+)", banner).group(1))
+            return banner, port, time.perf_counter() - t0
+        time.sleep(0.2)
+
+
+def gpu_memory_used_mib():
+    """``nvidia-smi``'s used memory on the card (MiB), or None."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return float(smi.stdout.split()[0]) if smi.returncode == 0 else None
+
+
+def merge_summaries(err, workers) -> dict:
+    """The shutdown ``run summary`` records in a serve process's stderr:
+    one for a single process; one per worker for a fleet (every worker
+    index 0..workers-1 exactly once), merged: launches and plain-version
+    calls summed, the breaker state of each (all must be clean), each
+    worker's device bytes and seconds."""
+    summaries = [json.loads(tail.splitlines()[0])
+                 for tail in err.split("run summary ")[1:]]
+    if workers <= 1:
+        assert len(summaries) == 1, f"{len(summaries)} run summaries"
+        return summaries[0]
+    got = sorted(s.get("worker", -1) for s in summaries)
+    assert got == list(range(workers)), f"fleet run summaries of workers {got}"
+    merged = {"launches": {}, "plain_calls": {}, "breaker": summaries[0]["breaker"]}
+    for s in summaries:
+        for k, n in s["launches"].items():
+            merged["launches"][k] = merged["launches"].get(k, 0) + n
+        for k, calls in s["plain_calls"].items():
+            dst = merged["plain_calls"].setdefault(k, {})
+            for dev, n in calls.items():
+                dst[dev] = dst.get(dev, 0) + n
+        assert s["breaker"] == merged["breaker"], s["breaker"]
+    by_worker = sorted(summaries, key=lambda s: s["worker"])
+    merged["device_bytes"] = {"per_worker": [s["device_bytes"] for s in by_worker]}
+    for key in ("store_load_s", "index_build_s", "decode_s"):
+        merged[key] = [s[key] for s in by_worker]
+    merged["launches_per_worker"] = [s["launches"] for s in by_worker]
+    merged["requests_per_worker"] = [s["requests"] for s in by_worker]
+    return merged
 
 
 def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> dict:
     """Phase 11: ``python -m annotatedvdb_tpu_torch serve --port 0`` on
     phase 9's store (its CADD scores and FREQ allele frequencies; no
-    ranks), once per front end of :data:`SERVE_FRONTENDS`, in turns (``aio``, the
-    default, with no ``--frontend`` flag; then ``--frontend threaded``),
+    ranks), once per turn of :data:`SERVE_FRONTENDS`, in turns (``aio``, the
+    default, with no ``--frontend`` flag; then ``--frontend threaded``;
+    then ``--workers`` :data:`SERVE_FLEET_WORKERS` on the one card),
     with the brownout ladder's latency trigger off
     (``AVDB_SERVE_BROWNOUT_P99_MS=0``: the phase measures full service),
     and the jobs of :func:`serve_jobs` sent by ``mix["clients"]`` threads.
     After the traffic windows, :data:`SERVE_HELPERS` spawned processes
     (started and warmed before the first server, idle while it is timed)
     compute the host-only answers (:func:`serve_expected`, a share of the
-    jobs each); every response of each front end must equal its host
-    answer byte for byte.  Each server's counters start at 0 with its
-    process and are read from its shutdown summary: the launches as
+    jobs each); every response of each turn must equal its host answer
+    byte for byte.  Each server's counters start at 0 with its process
+    (each worker's with its own) and are read from its shutdown summary
+    (a fleet's summed over its workers): the launches as
     predicted (one ``bits_spans`` per panel, one ``stats_panel`` and one
     ``windowed_stats`` per stats batch: each has one chr22 group of more
     than the device minimums), no breaker failure and no plain version on
@@ -4571,8 +4706,9 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
                 for fe in SERVE_FRONTENDS}
         t0 = time.perf_counter()
         parts = [f.result() for f in [
-            helpers.submit(serve_expected, store_dir, vcf4, span, 11, mix, part,
-                           SERVE_HELPERS) for part in range(SERVE_HELPERS)]]
+            helpers.submit(serve_expected, store_dir,
+                           [j for j in jobs if j[0] % SERVE_HELPERS == part], mix)
+            for part in range(SERVE_HELPERS)]]
         host_answers_wall = time.perf_counter() - t0
     answers = {k: v for p in parts for k, v in p["answers"].items()}
     out = {}
@@ -4585,38 +4721,22 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
 
 
 def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
-    """One front end's server (no ``--frontend`` flag for ``aio``, the
-    default), the clients' traffic window and the server's shutdown
-    summary."""
+    """One turn's server (:func:`serve_command`), the clients' traffic
+    window and the server's shutdown summary (a fleet's merged over its
+    workers, with ``nvidia-smi``'s used memory read in the window)."""
     t_start = time.perf_counter()
     out_path = os.path.join(WORK, f"serve.{frontend}.out")
     err_path = os.path.join(WORK, f"serve.{frontend}.err")
     env = dict(os.environ, AVDB_SERVE_BROWNOUT_P99_MS="0")
+    workers = SERVE_FLEET_WORKERS if frontend == "fleet" else 1
     with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
-             "--storeDir", store_dir, "--port", "0",
-             *(["--frontend", frontend] if frontend != "aio" else []),
-             *(["--platform", "cpu"] if platform == "cpu" else [])],
-            cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
+        proc = subprocess.Popen(serve_command(store_dir, platform, frontend),
+                                cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
+    gpu_mib = None
     try:
-        banner = None
-        deadline = time.perf_counter() + 300
-        while banner is None:
-            if proc.poll() is not None or time.perf_counter() > deadline:
-                with open(err_path) as f:
-                    raise AssertionError(f"serve ({frontend}) did not start: "
-                                         f"{f.read()[-2000:]}")
-            with open(out_path) as f:
-                line = f.readline()
-            if line.endswith("\n") and line.startswith("serving "):
-                banner = line.strip()
-            else:
-                time.sleep(0.2)
-        ready_s = time.perf_counter() - t_start
+        banner, port, ready_s = wait_serving(proc, out_path, err_path, workers)
         for f in warm:
             f.result()
-        port = int(banner.rsplit(":", 1)[1])
         import queue
         import threading
 
@@ -4633,8 +4753,10 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
         for t in threads:
             t.join()
         traffic_s = time.perf_counter() - t0
+        if platform == "cuda":
+            gpu_mib = gpu_memory_used_mib()
     finally:
-        proc.send_signal(2)  # SIGINT: the server logs its run summary
+        proc.send_signal(2)  # SIGINT: the server(s) log the run summary
         try:
             rc = proc.wait(timeout=120)
         except subprocess.TimeoutExpired:
@@ -4643,9 +4765,10 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
     with open(err_path) as f:
         err = f.read()
     assert rc == 0, f"serve ({frontend}) exited {rc}: {err[-2000:]}"
-    summary = json.loads(err.split("run summary ", 1)[1].splitlines()[0])
+    summary = merge_summaries(err, workers)
     return {"banner": banner, "ready_s": ready_s, "traffic_s": traffic_s,
-            "results": results, "summary": summary,
+            "results": results, "summary": summary, "workers": workers,
+            "gpu_memory_used_mib": gpu_mib,
             "run_s": time.perf_counter() - t_start}
 
 
@@ -4681,6 +4804,10 @@ def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
          launches=launches, predicted_launches=want, plain_cuda_calls=plain_cuda,
          breaker=summary["breaker"], kernel_busy_s=busy_s,
          device_idle_fraction_upper=1 - busy_s / traffic_s,
+         workers=run["workers"],
+         launches_per_worker=summary.get("launches_per_worker"),
+         requests_per_worker=summary.get("requests_per_worker"),
+         gpu_memory_used_mib=run["gpu_memory_used_mib"],
          device_bytes=summary["device_bytes"], store_load_s=summary["store_load_s"],
          index_build_s=summary["index_build_s"], decode_s=summary["decode_s"],
          host_answers_s=host_answers_s, host_answers_wall_s=host_answers_wall,
@@ -5033,6 +5160,440 @@ def vep_kernel_timing(torch, device, rows) -> dict:
     return out
 
 
+# ------------------------------------------------- write path (phase 14)
+
+#: phase 14: ``UPSERT_CALLS`` upserts of ``UPSERT_ROWS`` rows into chr22,
+#: half of them identities the store lacks and half rows it holds, each
+#: into its own ``UPSERT_WINDOW``-bp window and read back through
+#: ``UPSERT_INTERVALS`` intervals tiling that window (``UPSERT_STATS_WINDOWS``
+#: stats windows); the first ``UPSERT_BEFORE_KILL`` go in before the
+#: worker holding them is killed, the last one crosses the flush bound
+UPSERT_ROWS = 2048
+UPSERT_CALLS = 3
+UPSERT_BEFORE_KILL = 2
+UPSERT_WINDOW = 200_000
+UPSERT_INTERVALS = 64
+UPSERT_STATS_WINDOWS = 4
+UPSERT_WORKERS = 2
+#: window starts on chr22, inside phase 4's positions
+UPSERT_STARTS = (17_000_000, 18_500_000, 20_000_000)
+#: appended to a stored line's REF to make a new identity: an insertion
+#: no generated line carries
+UPSERT_INSERT = "TTGACCAGTC"
+
+
+def window_lines(vcf, starts, window, width=49) -> list:
+    """For each window ``[start, start + window)``: the (position, ref,
+    first alt) of the VCF's data lines there, one a position, whose
+    alleles are plain bases and fit the width with room for
+    :data:`UPSERT_INSERT`."""
+    bounds = [(s, s + window) for s in starts]
+    out = [dict() for _ in starts]
+    with open(vcf) as f:
+        for ln in f:
+            if ln[:1] == "#":
+                continue
+            chrom, pos, _vid, ref, alt_col = ln.split("\t", 5)[:5]
+            if chrom != "22" or not pos.isdigit():
+                continue
+            p = int(pos)
+            for k, (lo, hi) in enumerate(bounds):
+                if lo <= p < hi and p not in out[k]:
+                    alt = alt_col.split(",")[0]
+                    if (alt != "." and set(ref + alt) <= set("ACGT")
+                            and len(ref) + len(UPSERT_INSERT) <= width
+                            and len(alt) <= width):
+                        out[k][p] = (p, ref, alt)
+    return [sorted(d.values()) for d in out]
+
+
+def upsert_batches(lines, starts, rows=UPSERT_ROWS, window=UPSERT_WINDOW,
+                   intervals=UPSERT_INTERVALS, seed=14) -> list:
+    """One upsert body per window (:func:`window_lines`): ``rows / 2`` new
+    identities (the stored line's REF to REF + :data:`UPSERT_INSERT`, an
+    rs id, a CADD phred and an ``other_annotation``) and ``rows / 2``
+    identities the store holds (with an annotation that must stay
+    shadowed), shuffled; and the window's tiling intervals."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, (start, cand) in enumerate(zip(starts, lines)):
+        assert len(cand) >= rows, f"window {start}: {len(cand)} lines"
+        pick = rng.permutation(len(cand))[:rows]
+        new = [cand[i] for i in pick[: rows // 2]]
+        old = [cand[i] for i in pick[rows // 2:]]
+        variants = [{"id": f"22:{p}:{r}:{r + UPSERT_INSERT}",
+                     "ref_snp": 900_000_000 + k * rows + i,
+                     "annotations": {
+                         "cadd_scores": {"CADD_phred":
+                                         round(float(rng.uniform(0, 40)), 3)},
+                         "other_annotation": {"upsert": k}}}
+                    for i, (p, r, _a) in enumerate(new)]
+        variants += [{"id": f"22:{p}:{r}:{a}",
+                      "annotations": {"other_annotation": {"shadowed": k}}}
+                     for p, r, a in old]
+        order = rng.permutation(len(variants))
+        step = window // intervals
+        out.append({
+            "body": {"variants": [variants[i] for i in order.tolist()]},
+            "new_pos": np.asarray(sorted(p for p, _r, _a in new)),
+            "new_ids": [v["id"] for v in variants[: rows // 2]],
+            "specs": [f"22:{start + i * step}-{start + (i + 1) * step - 1}"
+                      for i in range(intervals)],
+        })
+    return out
+
+
+def upsert_bytes(batch, width) -> int:
+    """The bytes a worker's memtable adds for ``batch``'s new rows (the
+    memtable's own count, on a scratch memtable with no base store)."""
+    from annotatedvdb_tpu_torch.serve.engine import parse_variant_id
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+
+    parsed = []
+    for v in batch["body"]["variants"]:
+        if v["id"] not in batch["new_ids"]:
+            continue
+        code, pos, ref, alt = parse_variant_id(v["id"])
+        parsed.append({"code": code, "pos": pos, "ref": ref, "alt": alt,
+                       "ref_snp": v.get("ref_snp"), "ann": v.get("annotations")})
+    mem = Memtable(width=width, flush_bytes=0, flush_age_s=0)
+    mem.upsert(None, parsed, durable=False)
+    return mem.nbytes
+
+
+class _Conn:
+    """One keep-alive connection (one fleet worker: read-your-writes is
+    per worker) with timed JSON calls."""
+
+    def __init__(self, port):
+        import http.client
+
+        self.c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+
+    def call(self, method, path, body=None) -> tuple:
+        t = time.perf_counter()
+        self.c.request(method, path,
+                       body=None if body is None else json.dumps(body).encode())
+        resp = self.c.getresponse()
+        raw = resp.read()
+        return resp.status, raw, time.perf_counter() - t
+
+    def close(self):
+        self.c.close()
+
+
+def _region_counts(raw) -> list:
+    return [e["count"] for e in json.loads(raw)["results"]]
+
+
+def upsert_expected(store_dir, batches, windows=UPSERT_STATS_WINDOWS) -> dict:
+    """Host-only answers over the flushed store (a CPU engine, every group
+    below the device minimums): per batch the count-only ``/regions``,
+    ``/regions`` with three rows an interval and ``/stats/region`` bodies,
+    generation scrubbed.  Runs in a spawned helper process."""
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    t0 = time.perf_counter()
+    engine = QueryEngine(StaticSnapshots(VariantStore.load(store_dir, readonly=True)),
+                         device="cpu", regions_device_min=1 << 30,
+                         stats_device_min=1 << 30)
+    out = []
+    for b in batches:
+        out.append([_scrub(engine.regions_serve(b["specs"], limit=0).assemble().encode()),
+                    _scrub(engine.regions_serve(b["specs"], limit=3).assemble().encode()),
+                    _scrub(engine.stats_serve(b["specs"], windows=windows)
+                           .assemble().encode())])
+    return {"bodies": out, "seconds": time.perf_counter() - t0}
+
+
+def _scrub(raw: bytes) -> bytes:
+    """A body with its generation numbers masked: an overlay generation
+    is remapped, a host engine's is 1."""
+    import re
+
+    return re.sub(rb'"generation":\d+', b'"generation":0', raw)
+
+
+def _upsert_reads(conn, batch, want_counts, sent) -> float:
+    """The count-only ``/regions`` and the ``/stats/region`` reads over a
+    batch's window on ``conn``: both must count ``want_counts``; returns
+    the ``/regions`` call's seconds."""
+    st, raw, dt = conn.call("POST", "/regions", {"regions": batch["specs"], "limit": 0})
+    assert st == 200, raw[:500]
+    got = _region_counts(raw)
+    assert got == want_counts, f"upsert: /regions counts {got[:8]} != {want_counts[:8]}"
+    st, raw, _dt = conn.call("POST", "/stats/region",
+                             {"regions": batch["specs"], "windows": UPSERT_STATS_WINDOWS})
+    assert st == 200, raw[:500]
+    got = [e["count"] for e in json.loads(raw)["results"]]
+    assert got == want_counts, f"upsert: stats counts {got[:8]} != {want_counts[:8]}"
+    sent["regions"] += 1
+    sent["stats"] += 1
+    return dt
+
+
+def _wait_for(what, test, timeout=300.0, step=0.1):
+    t0 = time.perf_counter()
+    while True:
+        got = test()
+        if got:
+            return got, time.perf_counter() - t0
+        assert time.perf_counter() - t0 < timeout, f"upsert: timed out waiting for {what}"
+        time.sleep(step)
+
+
+def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROWS,
+                 workers=UPSERT_WORKERS) -> dict:
+    """Phase 14: ``serve --workers 2 --upserts`` on phase 9's store, the
+    memtable's flush bound (``AVDB_MEMTABLE_BYTES``) set between the
+    bytes of the first :data:`UPSERT_BEFORE_KILL` upserts and those of
+    all of them, the age trigger off.  (1) On one keep-alive connection
+    (one worker): each upsert acknowledged with half its rows accepted and
+    half shadowed, then a count-only ``/regions`` and a ``/stats/region``
+    over its window, both counting the window's stored rows plus the new
+    ones.  (2) The read-after-upsert latency (the ``/regions`` call after
+    each upsert: the interval index and feature columns rebuilt for the
+    new generation) and the ack latency.  (3) The worker whose WAL holds
+    the records is SIGKILLed; the supervisor respawns it, it replays the
+    rows, and on a connection to it the new rows' point bodies are the
+    ones served before the kill and the reads count them.  (4) The last
+    upsert crosses the bound: the flush commits (the manifest's chr22
+    rows grow by every new row, the worker's WAL holds no record; a
+    ``/healthz`` on a fresh connection each poll lets the workers see the
+    commit), and after one snapshot TTL 16 fresh connections read every
+    batch's new rows.  (5) Each window's count-only and three-row
+    ``/regions`` and ``/stats/region`` bodies from the fleet equal a
+    host-only engine's over the flushed store (generation masked; a
+    spawned helper started at the flush computes them).  (6) After a
+    clean stop, ``doctor --deep`` (a subprocess, beside the helper) finds
+    the store clean.  The workers' launches are read from their shutdown
+    summaries: the killed incarnation's are lost, so they must equal the
+    reads sent after the kill."""
+    import concurrent.futures
+    import multiprocessing
+    import re
+    import signal
+
+    from annotatedvdb_tpu_torch.store.wal import count_records, is_wal_file
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(store_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    width, rows22 = int(manifest["width"]), int(manifest["stats"]["rows"]["22"])
+    batches = upsert_batches(window_lines(vcf, starts, UPSERT_WINDOW, width), starts,
+                             rows, UPSERT_WINDOW)
+    sizes = [upsert_bytes(b, width) for b in batches]
+    bound = sum(sizes[:UPSERT_BEFORE_KILL]) + sizes[UPSERT_BEFORE_KILL] // 2
+    env = dict(os.environ, AVDB_MEMTABLE_BYTES=str(bound), AVDB_MEMTABLE_FLUSH_S="0",
+               AVDB_SERVE_BROWNOUT_P99_MS="0")
+    out_path = os.path.join(WORK, "upsert.out")
+    err_path = os.path.join(WORK, "upsert.err")
+
+    def err_text():
+        with open(err_path) as f:
+            return f.read()
+
+    def worker_lines():
+        with open(out_path) as f:
+            return sum(ln.startswith("worker ") for ln in f)
+
+    sent = {"regions": 0, "stats": 0}
+    timing = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as helper:
+        warm = helper.submit(_warm_serve_helper)
+        with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+            proc = subprocess.Popen(
+                serve_command(store_dir, platform, "fleet", workers, ["--upserts"]),
+                cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
+        gpu_mib = None
+        try:
+            _banner, port, timing["ready_s"] = wait_serving(proc, out_path, err_path,
+                                                            workers)
+            warm.result()
+            conn = _Conn(port)
+            base = []
+            for b in batches:
+                st, raw, _dt = conn.call("POST", "/regions",
+                                         {"regions": b["specs"], "limit": 0})
+                assert st == 200, raw[:500]
+                base.append(_region_counts(raw))
+
+            def want(k):
+                lo = np.asarray([int(sp.split(":")[1].split("-")[0])
+                                 for sp in batches[k]["specs"]])
+                hi = np.asarray([int(sp.split("-")[1]) for sp in batches[k]["specs"]])
+                p = batches[k]["new_pos"]
+                added = (np.searchsorted(p, hi, side="right")
+                         - np.searchsorted(p, lo, side="left"))
+                return [int(a + b) for a, b in zip(base[k], added.tolist())]
+
+            ack_s, read_s = [], []
+
+            def upsert(conn, k):
+                st, raw, dt = conn.call("POST", "/variants/upsert", batches[k]["body"])
+                ack = json.loads(raw)
+                assert st == 200 and ack["accepted"] == rows // 2 \
+                    and ack["shadowed"] == rows - rows // 2, f"upsert {k}: {st} {raw[:300]}"
+                ack_s.append(dt)
+                read_s.append(_upsert_reads(conn, batches[k], want(k), sent))
+
+            for k in range(UPSERT_BEFORE_KILL):
+                upsert(conn, k)
+            held = [f for f in os.listdir(store_dir) if is_wal_file(f)
+                    and count_records(os.path.join(store_dir, f))]
+            assert len(held) == 1, f"upsert: WAL files with records {held}"
+            idx = int(re.match(r"serve-w(\d+)\.", held[0]).group(1))
+            probes = [batches[k]["new_ids"][0] for k in range(UPSERT_BEFORE_KILL)]
+            before = [conn.call("GET", f"/variant/{v}")[:2] for v in probes]
+            assert all(st == 200 for st, _b in before), before
+            conn.close()
+            pid = int(re.findall(rf"worker {idx}: pid (\d+)", err_text())[0])
+            sent = {"regions": 0, "stats": 0}  # the killed incarnation's are lost
+            ready_before = worker_lines()
+            t_kill = time.perf_counter()
+            os.kill(pid, signal.SIGKILL)
+            replayed = rows // 2 * UPSERT_BEFORE_KILL
+            _wait_for("the respawn's replay", lambda: (
+                len(re.findall(rf"worker {idx}: pid", err_text())) >= 2
+                and f"wal: replayed {replayed} acknowledged" in err_text()
+                and worker_lines() > ready_before))
+            timing["respawn_s"] = time.perf_counter() - t_kill
+
+            def on_holder():
+                c = _Conn(port)
+                if c.call("GET", f"/variant/{probes[0]}")[0] == 200:
+                    return c
+                c.close()
+                return None
+
+            conn, _s = _wait_for("a connection to the respawned worker", on_holder,
+                                 timeout=60, step=0.0)
+            after = [conn.call("GET", f"/variant/{v}")[:2] for v in probes]
+            assert after == before, "upsert: replayed rows differ from the acked ones"
+            for k in range(UPSERT_BEFORE_KILL):
+                _upsert_reads(conn, batches[k], want(k), sent)
+            t_flush = time.perf_counter()
+            upsert(conn, UPSERT_BEFORE_KILL)
+            total_new = rows // 2 * len(batches)
+
+            def flushed():
+                with open(os.path.join(store_dir, "manifest.json")) as f:
+                    m = json.load(f)
+                wal_rows = sum(count_records(os.path.join(store_dir, f))
+                               for f in os.listdir(store_dir) if is_wal_file(f))
+                return m["stats"]["rows"]["22"] == rows22 + total_new and wal_rows == 0
+
+            def flushed_and_poked():
+                # a health probe on a fresh connection each poll lets the
+                # worker it lands on see the commit and start loading the
+                # new generation while the flush finishes
+                c = _Conn(port)
+                try:
+                    c.call("GET", "/healthz")
+                finally:
+                    c.close()
+                return flushed()
+
+            _wait_for("the flush commit", flushed_and_poked)
+            timing["flush_s"] = time.perf_counter() - t_flush
+            conn.close()
+            host = helper.submit(upsert_expected, store_dir, batches)
+            time.sleep(0.3)  # one snapshot TTL (250 ms)
+            every = [b["new_ids"][-1] for b in batches]
+
+            def all_serve():
+                for _ in range(16):
+                    c = _Conn(port)
+                    try:
+                        if any(c.call("GET", f"/variant/{v}")[0] != 200 for v in every):
+                            return False
+                    finally:
+                        c.close()
+                return True
+
+            _ok, timing["all_workers_s"] = _wait_for("every worker serving the rows",
+                                                     all_serve, timeout=120, step=0.2)
+            fleet = []
+            for b in batches:
+                c = _Conn(port)
+                got = []
+                for path, body in (("/regions", {"regions": b["specs"], "limit": 0}),
+                                   ("/regions", {"regions": b["specs"], "limit": 3}),
+                                   ("/stats/region", {"regions": b["specs"],
+                                                      "windows": UPSERT_STATS_WINDOWS})):
+                    st, raw, _dt = c.call("POST", path, body)
+                    assert st == 200, raw[:500]
+                    sent["regions" if path == "/regions" else "stats"] += 1
+                    got.append(_scrub(raw))
+                c.close()
+                fleet.append(got)
+            if platform == "cuda":
+                gpu_mib = gpu_memory_used_mib()
+        finally:
+            proc.send_signal(2)
+            try:
+                rc = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+        # doctor --deep of the stopped fleet's store, beside the host
+        # answers still being computed
+        t_doc = time.perf_counter()
+        doc_proc = subprocess.Popen(
+            [sys.executable, "-m", "annotatedvdb_tpu_torch", "doctor",
+             "--storeDir", store_dir, "--deep", "--json"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            expected = host.result()
+            out, doc_err = doc_proc.communicate(timeout=600)
+        finally:
+            if doc_proc.poll() is None:
+                doc_proc.kill()
+                doc_proc.wait()
+        rc_doc, doctor_s = doc_proc.returncode, time.perf_counter() - t_doc
+    err = err_text()
+    assert rc == 0, f"upsert fleet exited {rc}: {err[-2000:]}"
+    wrong = [(k, j) for k, (f, h) in enumerate(zip(fleet, expected["bodies"]))
+             for j, (a, b) in enumerate(zip(f, h)) if a != b]
+    wal_left = sorted(f for f in os.listdir(store_dir) if is_wal_file(f))
+    summary = merge_summaries(err, workers)
+    launches = summary["launches"]
+    predicted = {"bits_spans": sent["regions"], "stats_panel": sent["stats"],
+                 "windowed_stats": sent["stats"], "export_pack": 0}
+    plain_cuda = {k: v.get("cuda", 0) for k, v in summary["plain_calls"].items()}
+    assert out.strip(), f"upsert: doctor --deep printed nothing: {doc_err[-2000:]}"
+    doc = json.loads(out)
+    emit("upsert", workers=workers, rows_per_upsert=rows, upserts=len(batches),
+         accepted_per_upsert=rows // 2, memtable_bound_bytes=bound,
+         memtable_bytes_per_upsert=sizes, ready_s=timing["ready_s"],
+         ack_ms=[dt * 1e3 for dt in ack_s],
+         read_after_upsert_ms={"n": len(read_s),
+                               "p50": float(np.percentile(read_s, 50)) * 1e3,
+                               "p99": float(np.percentile(read_s, 99)) * 1e3,
+                               "each": [dt * 1e3 for dt in read_s]},
+         killed_worker=idx, replayed_rows=replayed, respawn_s=timing["respawn_s"],
+         flush_s=timing["flush_s"], all_workers_s=timing["all_workers_s"],
+         host_answers_s=expected["seconds"], bodies=3 * len(batches),
+         mismatches=len(wrong), wal_files_left=wal_left, launches=launches,
+         predicted_launches=predicted, launches_per_worker=summary["launches_per_worker"],
+         requests_per_worker=summary["requests_per_worker"],
+         plain_cuda_calls=plain_cuda, device_bytes=summary["device_bytes"],
+         gpu_memory_used_mib=gpu_mib, decode_s=summary["decode_s"],
+         index_build_s=summary["index_build_s"], doctor_deep_s=doctor_s,
+         doctor_status=doc["status"], phase_s=time.perf_counter() - t_phase)
+    assert not wrong, f"upsert: fleet bodies differ from the host engine's: {wrong}"
+    assert not wal_left, f"upsert: WAL files left after the flush: {wal_left}"
+    assert rc_doc == 0 and doc["status"] == "clean", f"upsert: doctor --deep: {out[-2000:]}"
+    assert summary["breaker"] == {"open_groups": [], "groups": {}}, summary["breaker"]
+    if platform == "cuda":
+        assert launches == predicted, f"upsert: launches {launches}, predicted {predicted}"
+        assert not any(plain_cuda.values()), f"upsert: plain versions on the card {plain_cuda}"
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -5101,16 +5662,16 @@ def main() -> int:
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         try:
-            # phase 7 at 100,000 VEP results: phase 8's three commands each
-            # load and save the store whose VEP sidecars phase 7 writes,
-            # and those, not their lines, set phase 8's wall
-            # depth cut to make room for phase 11: phase 6 at 12,500 lines
-            # and 2,500 indexed lines, phase 10 at 250,000 lines; and for
-            # phase 11's second front end and phase 13: phase 8 at 50,000
-            # / 50,000 / 25,000 (PERF.md section 4)
-            inputs = write_inputs(2_000_000, 500_000, 12_500, 100_000,
-                                  n8=(50_000, 50_000, 25_000), head6=2_500,
-                                  n10=250_000)
+            # depth cut to make room for phases 11 and 13 and then for
+            # phase 11's fleet turn and phase 14, in the order PERF.md
+            # section 4 lists: phase 8 at 25,000 / 25,000 / 12,500 lines
+            # on a store of 125,000 lines (its wall was the 2.27M-row
+            # store's load and saves), phase 6 at 3,125 lines and 625
+            # indexed lines, phase 10 at 62,500 lines, phase 7 at 50,000
+            # VEP results and 7b at 10,000
+            inputs = write_inputs(2_000_000, 500_000, 3_125, 50_000,
+                                  n8=(25_000, 25_000, 12_500), n7b=10_000,
+                                  head6=625, n10=62_500, n8_store=125_000)
             emit("inputs", genome=inputs["genome"]["seconds"],
                  genome_index_bytes=inputs["genome"]["index_bytes"],
                  **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
@@ -5131,7 +5692,8 @@ def main() -> int:
                 torch, "cuda", inputs, launches=annotate_cuda.LAUNCHES,
                 hash_calls=hashing.CALLS,
                 before_parity=lambda: cadd9.append(pool.submit(
-                    write_cadd9_inputs, WORK, [inputs["vcf4"], inputs["vcf5"]])))
+                    write_cadd9_inputs, WORK, [inputs["vcf4"], inputs["vcf5"]],
+                    CADD9_SPAN)))
             t0 = time.perf_counter()
             inputs["cadd9"] = cadd9[0].result()
             emit("inputs9", seconds=inputs["cadd9"]["seconds"],
@@ -5155,9 +5717,11 @@ def main() -> int:
                             hash_calls=hashing.CALLS)
             vep_kernel = vep_kernel_timing(torch, device,
                                            max(1, round(vep["rows_per_batch"])))
-            # 8. the update legs on phase 7's store (counters reset inside,
-            # just before each command)
-            upd = update_phase(torch, "cuda", results["store"], inputs["updates8"],
+            # 8. the update legs on a store of phase 4's first 125,000
+            # lines, loaded for them (counters reset inside, just before
+            # each command)
+            store8 = load_update_store(inputs["vcf8"])
+            upd = update_phase(torch, "cuda", store8, inputs["updates8"],
                                launches=annotate_cuda.LAUNCHES,
                                hash_calls=hashing.CALLS)
             # 9. the CADD join of the store of phases 4 and 5 (counters reset
@@ -5181,6 +5745,10 @@ def main() -> int:
             # replay-rejects
             doctor_phase(torch, "cuda", results["store_cadd"], results["store6"],
                          exported["engine"])
+            # 14. the write path on phase 9's store, which no later phase
+            # reads: serve --workers 2 --upserts (counters start at 0 with
+            # each worker's process)
+            upserted = upsert_phase("cuda", results["store_cadd"], inputs["vcf4"])
         except AssertionError as err:
             return fail(str(err))
     emit("smoke", seconds=time.perf_counter() - t_start)
@@ -5197,7 +5765,8 @@ def main() -> int:
     for row in table[3:6]:
         row.update(launches=served["launches"][row["name"]],
                    **{f"launches_{fe}": n[row["name"]]
-                      for fe, n in served["launches_by_frontend"].items()})
+                      for fe, n in served["launches_by_frontend"].items()},
+                   launches_upsert=upserted["launches"][row["name"]])
     table[6].update(launches=exported["export"] + exported["stream"],
                     launches_export=exported["export"],
                     launches_stream=exported["stream"])

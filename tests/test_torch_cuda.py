@@ -1061,3 +1061,174 @@ def test_aio_server_on_card_matches_cpu(cuda, tmp_path):
         for s in servers.values():
             s.shutdown()
             s.ctx.batcher.close()
+
+
+def _upsert_rows(served, n, seed):
+    """``n`` new chr22 identities beside the store's rows (REF + an
+    insertion no line carries) and one the store holds (shadowed)."""
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.choice(served["pos22"], n, replace=False))
+    alt = "ATTGACCAGTC" + "".join("ACGT"[(seed >> (2 * i)) & 3] for i in range(4))
+    rows = [{"code": 22, "pos": int(p), "ref": "A", "alt": alt,
+             "ref_snp": 700 + i,
+             "ann": {"cadd_scores": {"CADD_phred": float(i % 40)},
+                     "other_annotation": {"seed": seed}}}
+            for i, p in enumerate(pos.tolist())]
+    _c, p, ref, alt = next(i for i in served["ids"] if i.startswith("22:")).split(":")
+    rows.append({"code": 22, "pos": int(p), "ref": ref, "alt": alt,
+                 "ref_snp": None, "ann": None})
+    return rows
+
+
+def test_upserts_on_card_engine_match_cpu(cuda, tmp_path):
+    """Upserts into a card engine's memtable overlay: ``/regions`` and
+    ``/stats/region`` over the overlay generation equal a CPU engine's
+    over the same rows, one launch a group, no plain version on the
+    card."""
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+    from annotatedvdb_tpu_torch.serve.snapshot import MemtableSnapshots, StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path), "cuda")
+    rows = _upsert_rows(served, 200, 5)
+    engines = {}
+    for plat in ("cuda", "cpu"):
+        base = VariantStore.load(served["store"], readonly=True)
+        mem = Memtable(width=base.width, flush_bytes=0, flush_age_s=0)
+        assert mem.upsert(base, rows, durable=False)[:2] == (len(rows) - 1, 1)
+        engines[plat] = QueryEngine(MemtableSnapshots(StaticSnapshots(base), mem),
+                                    device=plat, breaker=DeviceBreaker())
+    specs = serve_panel(served, seed=17)
+    before = (dict(intervals.LAUNCHES), dict(stats.LAUNCHES),
+              intervals.CALLS["cuda"], stats.CALLS["cuda"])
+    out = {plat: [eng.regions_serve(specs, limit=4).assemble(),
+                  eng.regions_serve(specs, limit=0).assemble(),
+                  eng.stats_serve(specs, windows=8).assemble(),
+                  eng.lookup(f"22:{rows[0]['pos']}:A:{rows[0]['alt']}")]
+           for plat, eng in engines.items()}
+    assert out["cuda"] == out["cpu"]
+    assert '"ref_snp":"rs700"' in out["cuda"][3]
+    assert intervals.LAUNCHES["bits_spans"] - before[0]["bits_spans"] == 2 * 2
+    assert stats.LAUNCHES["stats_panel"] - before[1]["stats_panel"] == 2
+    assert stats.LAUNCHES["windowed_stats"] - before[1]["windowed_stats"] == 2
+    assert (intervals.CALLS["cuda"], stats.CALLS["cuda"]) == before[2:]
+    assert engines["cuda"].breaker.stats() == {"open_groups": [], "groups": {}}
+
+
+def test_two_worker_fleet_answers_from_the_card(cuda, tmp_path):
+    """``serve --workers 2`` on the card: both workers take ``/regions``
+    and ``/stats/region`` batches on fresh connections, every body equal
+    to a CPU engine's, and each worker's shutdown record shows its own
+    kernel launches, no plain version on the card."""
+    import http.client
+    import re
+    import signal
+    import subprocess
+    import time
+
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from chip_smoke import ROOT, build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path / "s"), "cuda")
+    host = QueryEngine(StaticSnapshots(VariantStore.load(served["store"], readonly=True)),
+                       device="cpu")
+    specs = serve_panel(served, seed=23)
+    want = {"/regions": host.regions_serve(specs, limit=2).assemble().encode(),
+            "/stats/region": host.stats_serve(specs, windows=4).assemble().encode()}
+    bodies = {"/regions": {"regions": specs, "limit": 2},
+              "/stats/region": {"regions": specs, "windows": 4}}
+    out_path, err_path = str(tmp_path / "out"), str(tmp_path / "err")
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
+             "--storeDir", served["store"], "--port", "0", "--workers", "2"],
+            cwd=ROOT, stdout=out_f, stderr=err_f, start_new_session=True)
+    try:
+        t_end = time.monotonic() + 240
+        while True:
+            assert time.monotonic() < t_end and proc.poll() is None, \
+                open(err_path).read()[-3000:]
+            text = open(out_path).read()
+            if text.count("\nworker ") + text.startswith("worker ") >= 2:
+                break
+            time.sleep(0.2)
+        port = int(re.search(r"http://[\d.]+:(\d+) with 2 workers", text).group(1))
+        for i in range(32):
+            path = "/regions" if i % 2 == 0 else "/stats/region"
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request("POST", path, body=json.dumps(bodies[path]).encode())
+                resp = conn.getresponse()
+                assert (resp.status, resp.read()) == (200, want[path]), path
+            finally:
+                conn.close()
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=120) == 0, open(err_path).read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    err = open(err_path).read()
+    summaries = sorted((json.loads(t.splitlines()[0])
+                        for t in err.split("run summary ")[1:]),
+                       key=lambda s: s["worker"])
+    assert [s["worker"] for s in summaries] == [0, 1], err[-3000:]
+    for s in summaries:
+        assert s["device"] == "cuda:0"
+        assert s["launches"]["bits_spans"] > 0, s
+        assert s["launches"]["stats_panel"] > 0, s
+        assert not any(v["cuda"] for v in s["plain_calls"].values()), s
+    # one launch a chromosome group (chr22 and chr8) a request
+    assert sum(s["launches"]["bits_spans"] for s in summaries) == 32
+    assert sum(s["launches"]["stats_panel"] for s in summaries) == 32
+
+
+def test_device_bytes_stay_bounded_across_memtable_epochs(cuda, tmp_path):
+    """Each upsert is a new serving generation whose interval index and
+    feature columns are uploaded again; over 32 memtable epochs the
+    engine's device ledger (capped here at three generations' bytes)
+    evicts old generations, so its bytes and the card's allocated bytes
+    stay bounded, and every answer equals a CPU engine's."""
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.snapshot import MemtableSnapshots, StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path), "cuda")
+    specs = serve_panel(served, seed=29)
+    engines, mems, bases = {}, {}, {}
+    for plat in ("cuda", "cpu"):
+        bases[plat] = VariantStore.load(served["store"], readonly=True)
+        mems[plat] = Memtable(width=bases[plat].width, flush_bytes=0, flush_age_s=0)
+        engines[plat] = QueryEngine(MemtableSnapshots(StaticSnapshots(bases[plat]),
+                                                      mems[plat]), device=plat)
+    eng = engines["cuda"]
+
+    def epoch(k):
+        rows = _upsert_rows(served, 3, 100 + k)
+        for plat in ("cuda", "cpu"):
+            mems[plat].upsert(bases[plat], rows, durable=False)
+        got = {plat: (e.regions_serve(specs, limit=0).assemble(),
+                      e.stats_serve(specs, windows=4).assemble())
+               for plat, e in engines.items()}
+        assert got["cuda"] == got["cpu"], k
+        torch.cuda.synchronize()
+        return eng.device_bytes(), torch.cuda.memory_allocated(cuda)
+
+    one, _alloc = epoch(0)
+    per_generation = len(eng._index_device)  # an index and columns a group
+    assert one > 0 and per_generation == 4
+    eng.INDEX_DEVICE_BYTES = 3 * one
+    seen = [epoch(k) for k in range(1, 32)]
+    assert all(b <= 3 * one for b, _a in seen), seen
+    assert len(eng._index_device) <= 3 * per_generation
+    # the allocated bytes plateau once the ledger is full
+    assert seen[-1][1] <= max(a for _b, a in seen[2:6]) + (1 << 20), seen
+    assert mems["cuda"].epoch == 32

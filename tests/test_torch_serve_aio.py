@@ -46,7 +46,8 @@ import chip_smoke as smoke  # noqa: E402
 #: region rows above which both aio servers stream chunked
 THRESHOLD = 50
 
-#: the reference routes the port does not serve yet
+#: the reference routes the port does not serve yet, and the upsert route
+#: (ported: 403 on a server started without ``--upserts``)
 UNPORTED = (("GET", "/repl/manifest"), ("GET", "/repl/segment"),
             ("GET", "/repl/wal"), ("GET", "/alerts"),
             ("GET", "/metrics/history"), ("GET", "/debug/trace"),
@@ -235,6 +236,12 @@ def test_unported_routes_answer_the_unknown_route_404(servers, route):
     method, path = route
     got = _fetch(servers["port"], method, path, b"{}")
     want = _fetch(servers["threaded"], method, path, b"{}")
+    if path == "/variants/upsert":
+        # ported: without a memtable all three servers refuse the write
+        ref = _fetch(servers["ref"], method, path, b"{}")
+        assert got[0] == want[0] == ref[0] == 403
+        assert got[1] == want[1] == ref[1]
+        return
     assert got[0] == want[0] == 404
     assert got[1] == want[1] == json.dumps(
         {"error": f"no such route: {path}"}).encode()
@@ -366,7 +373,8 @@ def test_metrics_count_the_same_requests_per_kind(servers, served):
                      re.M)
     got = {key: sorted(pat.findall(_fetch(servers[key], "GET", "/metrics")[1]))
            for key in ("ref", "port")}
-    kinds = {b"point", b"bulk", b"region", b"regions", b"stats", b"export"}
+    kinds = {b"point", b"bulk", b"region", b"regions", b"stats", b"export",
+             b"upsert"}
     assert [r for r in got["ref"] if r[1] in kinds] == got["port"]
     assert dict((k, float(v)) for c, k, v in got["port"] if c == b"requests")[b"point"] > 0
 
@@ -502,6 +510,21 @@ def test_cli_knob_checks(served, capsys, monkeypatch):
                    frontend, "--platform", "cpu"])
         assert rc == 1
         assert "serve: cannot start" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="heartbeat_file"):
-        aio.build_aio_server(store_dir=served["store"], heartbeat_file="hb",
-                             device="cpu")
+    # a fleet worker's heartbeat slot: a missing file is logged and the
+    # worker serves unwatched (the reference's behaviour); a real one maps
+    monkeypatch.delenv("AVDB_SERVE_BATCH_MAX")
+    lines = []
+    server = aio.build_aio_server(
+        store_dir=served["store"], device="cpu", log=lines.append,
+        heartbeat_file=os.path.join(os.path.dirname(served["store"]), "hb"))
+    assert server._hb_mm is None
+    assert any("heartbeat file unusable" in ln for ln in lines), lines
+    server.ctx.batcher.close()
+    hb = os.path.join(os.path.dirname(served["store"]), "hb2")
+    with open(hb, "wb") as f:
+        f.write(b"\0" * 48)
+    server = aio.build_aio_server(store_dir=served["store"], device="cpu",
+                                  heartbeat_file=hb, heartbeat_index=1)
+    assert server._hb_mm is not None and server.heartbeat_index == 1
+    server._hb_mm.close()
+    server.ctx.batcher.close()
