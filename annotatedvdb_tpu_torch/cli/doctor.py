@@ -1,46 +1,58 @@
-"""CLI: store health — fsck/repair, status, profile, replay.
+"""CLI: store health — fsck/repair, online compaction, status, profile,
+fail-over, replay.
 
-Port of ``annotatedvdb_tpu/cli/doctor.py`` for four verbs.  ``doctor``
+Port of ``annotatedvdb_tpu/cli/doctor.py`` for six verbs.  ``doctor``
 (default verb) audits a store directory against its manifest's
 write-time integrity records and the ledger, and repairs what is safely
-repairable (:mod:`annotatedvdb_tpu_torch.store.fsck`); ``doctor status``
-prints the one-screen store health report (per-group segment counts and
-read-amp against the maintenance watermarks, WAL files pending replay,
-crash debris, disk free against the reserve, last ledger compact/flush
-records — :func:`annotatedvdb_tpu_torch.store.maintenance.store_status`);
+repairable (:mod:`annotatedvdb_tpu_torch.store.fsck`); ``doctor compact``
+merges each chromosome group's segment files into one columnar segment,
+crash-safe and online (:mod:`annotatedvdb_tpu_torch.store.compact` — safe
+while a serve fleet reads the store); ``doctor status`` prints the
+one-screen store health report (per-group segment counts and read-amp
+against the maintenance watermarks, WAL files pending replay, crash
+debris, disk free against the reserve, last ledger compact/flush records
+— :func:`annotatedvdb_tpu_torch.store.maintenance.store_status`);
 ``doctor profile`` is the whole-store analytics profile, the summary
-shapes ``POST /stats/region`` serves; ``doctor replay-rejects``
-reconstructs a loadable input file from a quarantine rejects file.
-Reports, exit codes and output files are the reference's.
+shapes ``POST /stats/region`` serves; ``doctor promote`` fails a
+replication follower over to leader
+(:func:`annotatedvdb_tpu_torch.store.replication.promote`); ``doctor
+replay-rejects`` reconstructs a loadable input file from a quarantine
+rejects file.  Reports, exit codes and output files are the reference's.
 
 ``doctor`` is host only, as in the reference, and takes no
-``--platform``: ``status`` reads no segment, and fsck and ``profile``
-load the store on the host and decode and sum with numpy.  The verbs
-``compact``, ``promote``, ``flight``, ``trace`` and ``slo`` are not
-ported yet and exit 2.
+``--platform``: ``status`` and ``compact --dry-run`` read no segment, and
+fsck, ``compact``, ``promote`` and ``profile`` read the store on the host.
+The verbs ``flight``, ``trace`` and ``slo`` are not ported yet and exit 2.
 
 Usage:
     python -m annotatedvdb_tpu_torch doctor --storeDir ./vdb [--deep] [--repair] [--json]
+    python -m annotatedvdb_tpu_torch doctor compact --storeDir ./vdb \
+        [--dry-run] [--maxBytes N] [--group 8 ...] [--chunkRows N] \
+        [--retries N] [--json]
     python -m annotatedvdb_tpu_torch doctor status --storeDir ./vdb [--json]
     python -m annotatedvdb_tpu_torch doctor profile --storeDir ./vdb \
         [--out report.json] [--chunkRows N]
+    python -m annotatedvdb_tpu_torch doctor promote --storeDir ./follower [--json]
     python -m annotatedvdb_tpu_torch doctor replay-rejects \
         --rejects ./vdb/quarantine/x.vcf.rejects.jsonl --out fixed.vcf
 
 Exit codes (fsck verb): 0 = clean, 1 = warnings / repaired, 2 = errors.
+Exit codes (compact verb): 0 = compacted / nothing to do, 1 = pass
+aborted cleanly (preempted by another writer's commit or SIGTERM) even
+after ``--retries``, 2 = error.
 Exit codes (status verb): 0 = report printed, 2 = not a readable store.
+Exit codes (promote verb): 0 = promoted, 2 = error.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
 
 #: the reference's verbs that are not ported yet, with what they do
 UNPORTED = {
-    "compact": "online compaction",
-    "promote": "replication fail-over",
     "flight": "the crash flight recorder",
     "trace": "the background-writer trace",
     "slo": "the SLO burn-rate replay",
@@ -319,10 +331,165 @@ def _profile(argv) -> int:
     return 0
 
 
+def _promote(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="doctor promote",
+        description="fail a replication follower over to leader: seal the "
+                    "tailed WAL prefix by replaying it into segments, bump "
+                    "the manifest's fencing epoch (so the deposed leader's "
+                    "next flush aborts instead of committing), and clear "
+                    "the follower's bootstrap cursor — after exit 0 the "
+                    "store serves writable (`serve --upserts`) and the old "
+                    "leader is fenced out",
+    )
+    ap.add_argument("--storeDir", required=True)
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+    from annotatedvdb_tpu_torch.store.replication import ReplError, promote
+
+    log = (lambda m: None) if args.json else (
+        lambda m: print(m, file=sys.stderr)
+    )
+    try:
+        report = promote(args.storeDir, log=log)
+    except (ReplError, OSError, ValueError) as err:
+        print(f"doctor promote: {type(err).__name__}: {err} "
+              "(store unchanged up to the failed step; re-run after "
+              "`doctor --storeDir ...`)", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(f"doctor promote: {args.storeDir}: {report['status']} at "
+              f"fencing epoch {report['epoch']} ({report['rows']} tailed "
+              f"row(s) sealed into segments) — start `serve --upserts` "
+              f"here; the deposed leader's flushes now abort as fenced",
+              file=sys.stderr)
+    return 0
+
+
+def _compact(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="doctor compact",
+        description="merge a store's checkpoint segments into one "
+                    "position-sorted, deduplicated columnar segment per "
+                    "chromosome (crash-safe; online — safe under a live "
+                    "serve fleet)",
+    )
+    ap.add_argument("--storeDir", required=True)
+    ap.add_argument("--dry-run", action="store_true", dest="dry_run",
+                    help="print the plan (groups, segment counts, bytes) "
+                         "without touching the store")
+    ap.add_argument("--maxBytes", type=int, default=None, metavar="N",
+                    help="cap the pass: compact groups smallest-first "
+                         "until the next would push input bytes over N")
+    ap.add_argument("--group", action="append", default=None, metavar="L",
+                    help="chromosome label to compact (repeatable; "
+                         "'8' or 'chr8'; default: every eligible group)")
+    ap.add_argument("--chunkRows", type=int, default=None, metavar="N",
+                    help="rows per streamed merge chunk (default "
+                         "AVDB_COMPACT_CHUNK_ROWS or 262144)")
+    ap.add_argument("--retries", type=int, default=0, metavar="N",
+                    help="re-run a CLEANLY-preempted pass up to N times "
+                         "with backoff (the shared preemption-retry "
+                         "policy; default 0 — hard failures never retry)")
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+    from annotatedvdb_tpu_torch.store.compact import (
+        CompactionError,
+        compact_store,
+        plan_compaction,
+    )
+
+    log = (lambda m: None) if args.json else (
+        lambda m: print(m, file=sys.stderr)
+    )
+    if args.dry_run:
+        try:
+            plan = plan_compaction(args.storeDir, groups=args.group,
+                                   max_bytes=args.maxBytes)
+        except CompactionError as err:
+            print(f"doctor compact: {err}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(plan, indent=1))
+        else:
+            print(f"compact plan for {args.storeDir}:", file=sys.stderr)
+            for e in plan["eligible"]:
+                print(f"  chr{e['label']}: {e['stems']} segment file "
+                      f"pair(s) in {e['groups']} group(s), "
+                      f"{e['bytes_before']} bytes -> <= "
+                      f"{e['est_bytes_after']} bytes "
+                      f"(gain: {e['stems'] - 1} fewer file pairs"
+                      + (f", {e['rows']} rows" if e["rows"] is not None
+                         else "") + ")",
+                      file=sys.stderr)
+            for e in plan["skipped"]:
+                print(f"  chr{e['label']}: skipped — {e['reason']}",
+                      file=sys.stderr)
+            print(f"  total: {len(plan['eligible'])} group(s), "
+                  f"{plan['total_files_before']} file pair(s), "
+                  f"{plan['total_bytes_before']} bytes",
+                  file=sys.stderr)
+        return 0
+
+    # cooperative shutdown: SIGTERM flips the cancel flag, the pass aborts
+    # cleanly between chunks (temps removed, store untouched)
+    cancelled = {"flag": False}
+    previous = signal.getsignal(signal.SIGTERM)
+
+    def _on_term(_signum, _frame):
+        cancelled["flag"] = True
+
+    try:
+        signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:  # non-main thread (tests): keep the default
+        previous = None
+    # announced AFTER the handler is live: supervisors (and the SIGTERM
+    # regression test) key on this line before signaling
+    log(f"doctor compact: {args.storeDir}: pass starting "
+        "(SIGTERM aborts cleanly)")
+    from annotatedvdb_tpu_torch.utils.retry import retry_preempted
+
+    try:
+        report = retry_preempted(
+            lambda: compact_store(
+                args.storeDir, groups=args.group, max_bytes=args.maxBytes,
+                chunk_rows=args.chunkRows,
+                cancel=lambda: cancelled["flag"], log=log,
+            ),
+            retries=max(args.retries, 0),
+            cancel=lambda: cancelled["flag"],  # SIGTERM: never retried
+            log=log, what="doctor compact pass",
+        )
+    except (CompactionError, OSError, ValueError) as err:
+        # hard failures (bad manifest, ENOSPC mid-merge, a source segment
+        # failing its integrity check — StoreCorruptError is a ValueError)
+        # are the documented exit 2, never the benign "aborted cleanly" 1
+        print(f"doctor compact: {type(err).__name__}: {err}",
+              file=sys.stderr)
+        return 2
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(f"doctor compact: {args.storeDir}: {report['status']}"
+              + (f" ({report.get('reason')})"
+                 if report["status"] != "compacted" else ""),
+              file=sys.stderr)
+    return 1 if report["status"] == "aborted" else 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "replay-rejects":
         return _replay(argv[1:])
+    if argv and argv[0] == "compact":
+        return _compact(argv[1:])
+    if argv and argv[0] == "promote":
+        return _promote(argv[1:])
     if argv and argv[0] == "status":
         return _status(argv[1:])
     if argv and argv[0] == "profile":

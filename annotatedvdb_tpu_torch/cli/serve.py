@@ -41,9 +41,29 @@ first request, and flushes it into ordinary store segments
 at once on the worker that took it, and on every worker once it is
 flushed and one snapshot TTL has passed.
 
-Refused (not ported yet): ``--follow``, ``--maintain``, ``--metricsOut``
-and ``--traceOut``.  On shutdown (SIGINT or SIGTERM) every serving
-process logs one ``run summary`` line to stderr: the kernels' launches,
+``--maintain`` (or ``AVDB_MAINTAIN``) hosts the maintenance daemon in the
+fleet supervisor (``store/maintenance.py``): a group whose segment files
+reach ``AVDB_MAINTAIN_SEGMENTS_HIGH`` is compacted while the workers
+serve, and the workers pick the compacted generation up through their
+snapshot swaps.  It forces fleet mode even at ``--workers 1`` (the daemon
+outlives any worker's respawn) and needs the ``aio`` front end; a bad
+``AVDB_MAINTAIN_*`` knob fails startup with exit code 1.
+
+``--follow LEADER-URL`` runs a replication follower
+(``store/replication.py``): on an empty directory it bootstraps the
+leader's snapshot cut before serving, then tails the leader's WAL stream
+into a memory-only overlay, re-syncing the cut after every leader commit
+(a flush, a compaction, a load).  Its reads are the leader's bytes; its
+upserts answer 403 with the leader's location; its ``/readyz`` answers
+503 past ``AVDB_REPL_MAX_LAG_S``.  In a follower fleet only worker 0
+mirrors the shipped bytes into the store directory.  ``--follow`` is
+refused beside ``--upserts`` or ``--maintain`` (exit code 2), as in the
+reference: the leader owns writes and compaction, and ``doctor
+promote`` turns a follower into a leader.
+
+Refused (not ported yet): ``--metricsOut`` and ``--traceOut``.  On
+shutdown (SIGINT or SIGTERM) every serving process logs one ``run
+summary`` line to stderr: the kernels' launches,
 the plain versions' calls by device, the breaker's state, the device
 bytes held, the seconds spent loading the store, building interval
 indexes and decoding feature columns, and, in a fleet, the worker index.
@@ -90,9 +110,16 @@ def _build_parser() -> argparse.ArgumentParser:
                              "write-ahead log, replayed on start "
                              "(default: AVDB_SERVE_UPSERTS or off)")
     parser.add_argument("--follow", default=None, metavar="LEADER-URL",
-                        help="replication follower mode (not yet ported)")
+                        help="replication follower: bootstrap the leader's "
+                             "snapshot cut into --storeDir, then tail its "
+                             "WAL stream and serve reads (writes answer "
+                             "403 toward the leader)")
     parser.add_argument("--maintain", action="store_true", default=None,
-                        help="the maintenance daemon (not yet ported)")
+                        help="host the maintenance daemon in the fleet "
+                             "supervisor: compact groups whose segment "
+                             "files reach AVDB_MAINTAIN_SEGMENTS_HIGH "
+                             "(forces fleet mode; default: AVDB_MAINTAIN "
+                             "or off)")
     parser.add_argument("--maxBatch", type=int, default=None,
                         help="max point queries per coalesced microbatch "
                              "(default: AVDB_SERVE_BATCH_MAX or 256)")
@@ -151,6 +178,18 @@ def _upserts_enabled(args) -> bool:
         not in ("", "0", "false")
 
 
+def _maintain_enabled(args) -> bool:
+    """Flag wins over ``AVDB_MAINTAIN`` (spelled once, in
+    ``store.maintenance``)."""
+    if args.maintain is not None:
+        return bool(args.maintain)
+    from annotatedvdb_tpu_torch.store.maintenance import (
+        maintain_enabled_from_env,
+    )
+
+    return maintain_enabled_from_env()
+
+
 def _effective_workers(args) -> int:
     if args.workers is not None:
         return max(int(args.workers), 1)
@@ -172,14 +211,18 @@ def _resolve_budget(args):
 def _knob_args(args, workers: int) -> list[str]:
     """Flags forwarded to every fleet worker: the platform, the front end,
     ``--upserts`` (every worker runs its own memtable and WAL) and the
-    knobs.  The budget is the exception to verbatim forwarding: it caps
-    one shared card, so each worker gets an equal share (an explicit flag
-    also overrides the inherited ``AVDB_SERVE_HBM_BUDGET``, which would
-    give every worker the whole budget)."""
+    knobs, and ``--follow`` (every follower worker tails the leader; only
+    worker 0 persists the mirror).  The budget is the exception to
+    verbatim forwarding: it caps one shared card, so each worker gets an
+    equal share (an explicit flag also overrides the inherited
+    ``AVDB_SERVE_HBM_BUDGET``, which would give every worker the whole
+    budget)."""
     out: list[str] = ["--platform", args.platform,
                       "--frontend", args.frontend]
     if _upserts_enabled(args):
         out.append("--upserts")
+    if args.follow:
+        out += ["--follow", args.follow]
     for flag, val in (
         ("--maxBatch", args.maxBatch),
         ("--batchWaitMs", args.batchWaitMs),
@@ -214,7 +257,7 @@ def main(argv=None) -> int:
         print(f"serve: cannot start: bad AVDB_SERVE_WORKERS ({err})",
               file=sys.stderr)
         return 1
-    for flag in ("follow", "maintain", "metricsOut", "traceOut"):
+    for flag in ("metricsOut", "traceOut"):
         if getattr(args, flag):
             ap.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
     if args.frontend == "threaded":
@@ -227,21 +270,61 @@ def main(argv=None) -> int:
             print(f"serve: {', '.join(dead)} only apply to the aio front "
                   "end and are ignored with --frontend threaded",
                   file=sys.stderr)
-    if args._workerIndex is None and workers > 1:
+    if args.follow:
+        if _upserts_enabled(args):
+            # a follower is read-only by role: a second writer would fork
+            # the replica — the write path belongs to the leader
+            print("serve: --follow and --upserts are mutually exclusive "
+                  "(a follower forwards writes to its leader; promote it "
+                  "with 'doctor promote' to accept writes)",
+                  file=sys.stderr)
+            return 2
+        if _maintain_enabled(args):
+            # compaction rewrites segments the ship stream mirrors: the
+            # leader compacts, the follower re-syncs the cut
+            print("serve: --follow and --maintain are mutually exclusive "
+                  "(the leader owns compaction; the follower mirrors its "
+                  "commits)", file=sys.stderr)
+            return 2
+        if args._workerIndex is None and not os.path.exists(
+            os.path.join(args.storeDir, "manifest.json")
+        ):
+            # first start on an empty directory: bootstrap the snapshot
+            # cut before any worker loads the store
+            from annotatedvdb_tpu_torch.store.replication import (
+                ReplError,
+                ReplicaTailer,
+            )
+
+            try:
+                ReplicaTailer(
+                    args.storeDir, args.follow, log=log, persist=True
+                ).bootstrap()
+            except (ReplError, OSError, ValueError) as err:
+                print(f"serve: cannot bootstrap from {args.follow}: {err}",
+                      file=sys.stderr)
+                return 1
+    maintain = args._workerIndex is None and _maintain_enabled(args)
+    if args._workerIndex is None and (workers > 1 or maintain):
         if args.frontend == "threaded":
             # the threaded server binds its own port and cannot join a
-            # shared-socket fleet: refusing beats a crash loop
-            print("serve: --workers > 1 requires the aio front end "
+            # shared-socket fleet (nor write the heartbeat health the
+            # maintenance daemon reads): refusing beats a crash loop
+            what = "--workers > 1" if workers > 1 else "--maintain"
+            print(f"serve: {what} requires the aio front end "
                   "(--frontend threaded is single-process only)",
                   file=sys.stderr)
             return 2
         from annotatedvdb_tpu_torch.serve.fleet import ServeFleet
 
         try:
+            # --maintain hosts the daemon in the supervisor, so it forces
+            # fleet mode even at --workers 1
             fleet = ServeFleet(
                 args.storeDir, host=args.host, port=args.port,
                 workers=workers, worker_args=_knob_args(args, workers),
-                log=log, reuseport=False if args._forceHandoff else None,
+                log=log, maintain=maintain,
+                reuseport=False if args._forceHandoff else None,
             )
         except (OSError, ValueError) as err:
             print(f"serve: cannot start fleet: {err}", file=sys.stderr)
@@ -342,6 +425,13 @@ def _run_single(args, log) -> int:
         # reads resolve through the overlay from here on: upserted rows
         # are visible at once, first wins against the base store
         manager = MemtableSnapshots(manager, memtable)
+    tailer = None
+    if args.follow:
+        try:
+            manager, tailer = _open_follower(args, manager, registry, log)
+        except (OSError, ValueError) as err:
+            print(f"serve: cannot start follower: {err}", file=sys.stderr)
+            return 1
     max_wait_s = (
         args.batchWaitMs / 1000.0 if args.batchWaitMs is not None else None
     )
@@ -354,13 +444,81 @@ def _run_single(args, log) -> int:
             return 1
     if args.frontend == "threaded":
         return _run_threaded(args, manager, registry, residency, max_wait_s,
-                             log, device, load_s, memtable)
+                             log, device, load_s, memtable, tailer)
     return _run_aio(args, manager, registry, residency, max_wait_s, log,
-                    device, load_s, memtable, sock)
+                    device, load_s, memtable, sock, tailer)
+
+
+def _open_follower(args, base_manager, registry, log):
+    """A follower's read view and its tailer: a memory-only overlay
+    memtable over the mirrored base cut (the mirrored WAL files on disk
+    are the durability; worker 0 fsyncs them before records count as
+    applied), swapped for a fresh one at every re-sync.  Records already
+    mirrored by a previous incarnation re-enter the overlay before the
+    first request.  Returns ``(manager, tailer)``; the tail thread starts
+    once the server's context exists."""
+    from annotatedvdb_tpu_torch.serve.snapshot import MemtableSnapshots
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+    from annotatedvdb_tpu_torch.store.replication import ReplicaTailer
+
+    def overlay_mem():
+        # flush triggers off: a follower never writes segments, it
+        # mirrors the leader's
+        return Memtable(
+            width=base_manager.current().store.width, store_dir=None,
+            wal=None, flush_bytes=0, flush_age_s=0.0, log=log,
+        )
+
+    mem_ref = {"mem": overlay_mem()}
+    manager = MemtableSnapshots(base_manager, mem_ref["mem"])
+
+    def apply_rows(rows):
+        mem_ref["mem"].upsert(
+            base_manager.current().store, rows, durable=False
+        )
+
+    def on_resync():
+        # a leader commit landed: pick up the new base cut, then swap in
+        # a fresh overlay (rows now covered by the cut leave memory;
+        # first wins keeps the overlap byte-stable)
+        try:
+            base_manager.refresh()
+        except Exception as err:
+            log(f"repl: base refresh after re-sync failed ({err})")
+        fresh = overlay_mem()
+        mem_ref["mem"] = fresh
+        manager.reset_memtable(fresh)
+
+    # only worker 0 mirrors bytes into the shared store directory; its
+    # siblings apply shipped frames straight from memory
+    tailer = ReplicaTailer(
+        args.storeDir, args.follow.rstrip("/"), log=log, registry=registry,
+        apply_rows=apply_rows, on_resync=on_resync,
+        persist=(args._workerIndex or 0) == 0,
+    )
+    recovered = tailer.resume()
+    if recovered:
+        for record in tailer.local_records():
+            rows = record.get("rows")
+            if isinstance(rows, list):
+                apply_rows(rows)
+        log(f"repl: re-applied {recovered} mirrored WAL record(s) into "
+            "the overlay")
+    return manager, tailer
+
+
+def _attach_follower(ctx, tailer) -> None:
+    """The staleness contract flows through the context (lag gates
+    ``/readyz``, writes answer 403 toward the leader); the tail thread
+    starts only once the context that reads its lag exists."""
+    if tailer is not None:
+        ctx.repl = tailer
+        ctx.follow_url = tailer.leader_url
+        tailer.start()
 
 
 def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
-             load_s: float, memtable=None, sock=None) -> int:
+             load_s: float, memtable=None, sock=None, tailer=None) -> int:
     """The event-loop server (the default front end): one process, or a
     fleet worker on the supervisor's port."""
     import gc
@@ -388,6 +546,7 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
         print(f"serve: cannot start: {err}", file=sys.stderr)
         return 1
     ctx = server.ctx
+    _attach_follower(ctx, tailer)
     snap = manager.current()
 
     # GC hygiene for a latency-sensitive process: the loaded store is
@@ -438,6 +597,8 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
     except KeyboardInterrupt:
         log("shutting down")
     finally:
+        if tailer is not None:
+            tailer.stop()
         server.shutdown()
         ctx.batcher.close()
         _close_memtable(memtable)
@@ -455,7 +616,7 @@ def _close_memtable(memtable) -> None:
 
 
 def _run_threaded(args, manager, registry, residency, max_wait_s, log,
-                  device, load_s: float, memtable=None) -> int:
+                  device, load_s: float, memtable=None, tailer=None) -> int:
     """The thread-per-connection server (byte-parity reference)."""
     import signal
 
@@ -473,6 +634,7 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
         print(f"serve: cannot start: {err}", file=sys.stderr)
         return 1
     ctx = httpd.ctx
+    _attach_follower(ctx, tailer)
 
     def stop(_signum, _frame):
         raise KeyboardInterrupt
@@ -487,6 +649,8 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
     except KeyboardInterrupt:
         log("shutting down")
     finally:
+        if tailer is not None:
+            tailer.stop()
         httpd.server_close()
         ctx.batcher.close()
         _close_memtable(memtable)

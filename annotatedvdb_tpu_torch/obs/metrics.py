@@ -15,6 +15,12 @@ import threading
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
+#: histogram edges (seconds) for per-pass wall times (``avdb_compact_seconds``)
+CHUNK_SECONDS_EDGES = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    5.0, 10.0, 30.0,
+)
+
 
 def _fmt(v: float) -> str:
     """Prometheus exposition float formatting (integers stay integral)."""

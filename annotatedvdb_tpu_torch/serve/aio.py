@@ -46,12 +46,17 @@ the tick also writes this worker's 24-byte heartbeat slot
 level, queue depth) into the supervisor's mmap'd file, which the
 wedged-worker watchdog reads.
 
+The replication ship routes (``GET /repl/manifest``, ``/repl/segment``,
+``/repl/wal``) read files, so they run on the pool through the threaded
+server's shared builders; a follower's upserts answer the same 403 and
+its ``/readyz`` the same lag gate (``serve/http.py``).
+
 Not ported: fleet telemetry and ``/metrics?fleet=1`` (a worker accepts
 and ignores ``--_telemetryDir``), the flight recorder, the health plane,
-the Chrome tracer, the replication, history, alert, ``/debug/trace`` and
-``/_chaos`` routes (all answer the unknown-route 404, as the threaded
-server does), the mesh executor, and the ``serve.accept`` /
-``serve.wedge`` / ``serve.batch`` fault points.
+the Chrome tracer, the history, alert, ``/debug/trace`` and ``/_chaos``
+routes (all answer the unknown-route 404, as the threaded server does),
+the mesh executor, and the ``serve.accept`` / ``serve.wedge`` /
+``serve.batch`` fault points.
 """
 
 from __future__ import annotations
@@ -100,6 +105,9 @@ from annotatedvdb_tpu_torch.serve.http import (
     MSG_DEADLINE_ADMISSION,
     MSG_DEADLINE_EXECUTE,
     REGIONS_BODY_ERROR,
+    REPL_MANIFEST_ROUTE,
+    REPL_SEGMENT_ROUTE,
+    REPL_WAL_ROUTE,
     STATS_BODY_ERROR,
     STATS_ROUTE,
     TRACE_HEADER,
@@ -111,6 +119,8 @@ from annotatedvdb_tpu_torch.serve.http import (
     parse_regions_body,
     parse_stats_body,
     readyz_payload,
+    repl_file_response,
+    repl_manifest_payload,
     resolve_trace_id,
     stats_payload,
 )
@@ -149,6 +159,7 @@ _STATUS = {
 
 _CT_JSON = b"Content-Type: application/json\r\nContent-Length: "
 _CT_TEXT = b"Content-Type: text/plain; version=0.0.4\r\nContent-Length: "
+_CT_BIN = b"Content-Type: application/octet-stream\r\nContent-Length: "
 
 #: rows rendered between flow-control drains while streaming a region
 _STREAM_ROWS_PER_CHUNK = 256
@@ -1125,6 +1136,21 @@ class AioServer:
                              content_type=_CT_TEXT), keep, tid
             if path == "/stats":
                 return _resp(200, stats_payload(ctx)), keep, tid
+            if path == REPL_MANIFEST_ROUTE:
+                # the ship document stats the manifest and scans WAL
+                # stable prefixes — file I/O, executor work
+                fut = self._loop.run_in_executor(
+                    self._pool,
+                    lambda: _resp(*repl_manifest_payload(ctx)),
+                )
+                return ("exec", fut, "repl", time.perf_counter(),
+                        tid, None), keep, tid
+            if path in (REPL_SEGMENT_ROUTE, REPL_WAL_ROUTE):
+                fut = self._loop.run_in_executor(
+                    self._pool, self._repl_file_work, url.query
+                )
+                return ("exec", fut, "repl", time.perf_counter(),
+                        tid, None), keep, tid
             if path == EXPORT_STREAM_ROUTE:
                 if ctx.governor.shed_bulk():
                     ctx.brownout_shed()
@@ -1358,6 +1384,16 @@ class AioServer:
             return _resp(status, text, retry_after=retry)
         finally:
             ctx.release()
+
+    def _repl_file_work(self, query: str) -> bytes:
+        """Executor half of ``GET /repl/{segment,wal}``: raw range bytes
+        (the shared builder clamps WAL and ledger reads to their stable
+        prefixes, so a torn frame never leaves this worker)."""
+        status, body = repl_file_response(self.ctx, query)
+        if isinstance(body, bytes):
+            head = _STATUS[status] + _CT_BIN + str(len(body)).encode()
+            return head + b"\r\n\r\n" + body
+        return _resp(status, body)
 
     def _bulk_item(self, body: bytes, client: str | None = None,
                    max_ids: int | None = None,

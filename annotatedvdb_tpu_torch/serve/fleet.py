@@ -34,8 +34,16 @@ respawn it strips a write-path or serve-side ``AVDB_FAULT`` from the
 child's environment, as the reference does (the port has no fault points,
 so the variable is inert in its workers).
 
-Not ported: the maintenance daemon (``--maintain``, ``_start_maintenance``),
-the fleet telemetry directory (``_publish_fleet_telemetry``; workers
+``maintain=True`` (``serve --maintain``) hosts the maintenance daemon
+(``store/maintenance.py``) in the supervisor beside the restart loop: it
+compacts the store while the workers serve, reading their health from the
+heartbeat slots (:meth:`ServeFleet.worker_health`), and the workers pick
+the compacted generation up through their snapshot swaps.  The daemon's
+first pass imports the store's segment reader, and with it ``torch``
+(no CUDA context is made: compaction is host work).  A daemon that fails
+to start is logged and the fleet serves on, as in the reference.
+
+Not ported: the fleet telemetry directory (``_publish_fleet_telemetry``; workers
 accept and ignore ``--_telemetryDir``), the flight and history harvests
 (``_harvest_flight``, ``_harvest_history``) and their knob checks.
 """
@@ -111,7 +119,8 @@ class ServeFleet:
                  port: int = 0, workers: int = 2, worker_args=(),
                  log=None, restart_backoff_s: float = 0.5,
                  drain_s: float = 10.0, reuseport: bool | None = None,
-                 wedge_timeout_s: float | None = None):
+                 wedge_timeout_s: float | None = None,
+                 maintain: bool = False):
         self.store_dir = store_dir
         self.host = host
         self.workers = max(int(workers), 1)
@@ -127,6 +136,25 @@ class ServeFleet:
         )
 
         disk_reserve_from_env()
+        #: host a MaintenanceDaemon beside the restart loop; the watermark
+        #: knobs resolve now, so a typo'd AVDB_MAINTAIN_* fails startup
+        #: (rc 1) instead of silently disabling autonomy mid-flight
+        self.maintain = bool(maintain)
+        self._maintain_knobs = None
+        if self.maintain:
+            from annotatedvdb_tpu_torch.store.maintenance import (
+                cooldown_from_env,
+                segments_high_from_env,
+                segments_low_from_env,
+                tick_from_env,
+            )
+
+            self._maintain_knobs = {
+                "high": segments_high_from_env(),
+                "low": segments_low_from_env(),
+                "tick_s": tick_from_env(),
+                "cooldown_s": cooldown_from_env(),
+            }
         # wedged-worker watchdog: a slot still at 0.0 is a worker that has
         # not come up yet (startup is covered by the rapid-death logic,
         # not the wedge timeout)
@@ -228,6 +256,35 @@ class ServeFleet:
             "queue_depth_max": depth_max,
         }
 
+    def _start_maintenance(self):
+        """Arm the maintenance daemon (``--maintain``/``AVDB_MAINTAIN``).
+        A daemon that cannot start is logged and skipped — the fleet
+        serves either way; knob errors were already caught at
+        construction."""
+        if not self.maintain:
+            return None
+        try:
+            from annotatedvdb_tpu_torch.store.maintenance import (
+                MaintenanceDaemon,
+            )
+
+            daemon = MaintenanceDaemon(
+                self.store_dir, health=self.worker_health,
+                log=self.log, **self._maintain_knobs,
+            )
+            daemon.start()
+            self.log(
+                f"maintain: daemon armed (high {daemon.high} / low "
+                f"{daemon.low} segment files per group, tick "
+                f"~{daemon.tick_s:g}s, cooldown {daemon.cooldown_s:g}s)"
+            )
+            return daemon
+        except Exception as err:
+            self.log(f"maintain: daemon failed to start "
+                     f"({type(err).__name__}: {err}); fleet serves "
+                     "without autonomous maintenance")
+            return None
+
     def run(self) -> int:
         """Spawn the fleet and supervise until SIGTERM/SIGINT; returns the
         exit code (0 on a clean drain)."""
@@ -236,9 +293,11 @@ class ServeFleet:
 
         old_term = signal.signal(signal.SIGTERM, _request_stop)
         old_int = signal.signal(signal.SIGINT, _request_stop)
+        daemon = None
         try:
             for i in range(self.workers):
                 self._spawn(i)
+            daemon = self._start_maintenance()
             self.log(
                 f"fleet: serving {self.store_dir} on "
                 f"http://{self.host}:{self.port} with {self.workers} "
@@ -278,9 +337,17 @@ class ServeFleet:
                         time.sleep(0.1)
                     if not self._stopping:
                         self._spawn(i, respawn=True)
+            if daemon is not None:
+                # stop maintenance before draining workers: an in-flight
+                # pass aborts cleanly between chunks (cancel observes
+                # stop), and no new pass starts under a dying fleet
+                daemon.stop()
+                daemon = None
             rc = self._drain()
             return 1 if failed else rc
         finally:
+            if daemon is not None:  # exception path
+                daemon.stop()
             signal.signal(signal.SIGTERM, old_term)
             signal.signal(signal.SIGINT, old_int)
             self._reserve.close()

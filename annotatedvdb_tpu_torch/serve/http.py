@@ -27,16 +27,23 @@ connection; point queries coalesce in the batcher) with these routes:
 ``{"variants": [{"id", "ref_snp"?, "annotations"?}, ...]}`` rows go to the
 worker's memtable, and the 200 is sent only after their WAL frame is
 fsynced.  Without a memtable it answers 403; under the free-disk reserve
-507.  The reference's follower 403 (a replication follower refusing
-writes) is not ported: the port has no follower.
+507; on a replication follower (``serve --follow``) 403 with the leader's
+location.
+
+The replication ship surface (``store/replication.py``) serves any
+on-disk store: ``GET /repl/manifest`` (the ship document: the manifest,
+its fingerprint and fencing epoch, the WAL and ledger stable-prefix
+listing) and ``GET /repl/segment`` / ``GET /repl/wal``
+(``?name=&offset=&limit=``: raw bytes of one segment container, WAL file
+or ``ledger.jsonl``, the last two clamped to their stable prefix).  A
+follower's ``/readyz`` answers 503 while its replication lag exceeds
+``AVDB_REPL_MAX_LAG_S``.
 
 Admission is bounded everywhere (429), the brownout ladder sheds bulk
 work (503), deadlines shed dead requests (504), client errors are 400,
 engine faults 500; error bodies are JSON.  Every other path — among them
-the replication routes
-(``/repl/manifest``, ``/repl/segment``, ``/repl/wal``), ``/alerts``,
-``/metrics/history``, ``/debug/trace`` and ``/_chaos``, not ported yet —
-answers the reference's unknown-route 404.  ``/metrics``
+``/alerts``, ``/metrics/history``, ``/debug/trace`` and ``/_chaos``, not
+ported yet — answers the reference's unknown-route 404.  ``/metrics``
 renders this process's registry (the reference's ``?fleet=1`` view is not
 ported).
 """
@@ -378,6 +385,82 @@ def parse_regions_body(body: bytes):
     )
 
 
+#: the replication ship route spellings, shared by both front ends; the
+#: follower's tailer (``store/replication.py``) fetches exactly these paths
+REPL_MANIFEST_ROUTE = "/repl/manifest"
+REPL_SEGMENT_ROUTE = "/repl/segment"
+REPL_WAL_ROUTE = "/repl/wal"
+
+#: server-side ceiling on one ship range read (the follower chunks at
+#: AVDB_REPL_CHUNK_BYTES; this bounds a misconfigured client's single-
+#: request memory on the leader)
+REPL_MAX_RANGE_BYTES = 64 << 20
+
+#: the 404 body when the ship surface has no on-disk store to serve from
+#: (in-memory stores) — shared by both front ends
+MSG_REPL_UNAVAILABLE = (
+    "replication ship surface unavailable: this server has no on-disk "
+    "store directory"
+)
+
+
+def follower_upsert_payload(ctx) -> str:
+    """The 403 body an upsert gets on a replication follower — carries
+    the leader's location so a well-behaved client redirects its writes
+    (one builder for both front ends)."""
+    return json.dumps({
+        "error": "this server is a replication follower (read-only); "
+                 "send writes to the leader",
+        "leader": ctx.follow_url,
+    })
+
+
+def repl_manifest_payload(ctx) -> tuple[int, str]:
+    """(status, body) for ``GET /repl/manifest`` — the leader's ship
+    document (the consistent snapshot cut plus the WAL/ledger stable-
+    prefix listing), built by
+    :func:`annotatedvdb_tpu_torch.store.replication.ship_manifest`.  ONE
+    builder for both front ends; the aio front end runs it on the
+    executor pool (it stats and reads files)."""
+    if ctx.repl_store_dir is None:
+        return 404, json.dumps({"error": MSG_REPL_UNAVAILABLE})
+    from annotatedvdb_tpu_torch.store.replication import ReplError, ship_manifest
+
+    try:
+        return 200, json.dumps(ship_manifest(ctx.repl_store_dir))
+    except ReplError as err:
+        return 503, json.dumps({"error": str(err)})
+
+
+def repl_file_response(ctx, query: str) -> tuple[int, "bytes | str"]:
+    """(status, body) for ``GET /repl/{segment,wal}?name=&offset=&limit=``
+    — raw bytes (200) of one shippable file range, clamped to the file's
+    stable prefix for WAL/ledger streams; a JSON error string otherwise.
+    Both ship routes share this builder: the NAME (validated against the
+    ship namespace by ``ship_file_range``) decides the clamping, never
+    the route spelling — so a torn frame can never ship regardless of
+    which route a client picked."""
+    if ctx.repl_store_dir is None:
+        return 404, json.dumps({"error": MSG_REPL_UNAVAILABLE})
+    params = parse_qs(query or "")
+    name = (params.get("name") or [""])[0]
+    try:
+        offset = int((params.get("offset") or ["0"])[0])
+        limit = int((params.get("limit") or [str(REPL_MAX_RANGE_BYTES)])[0])
+    except ValueError:
+        return 400, json.dumps(
+            {"error": "repl range: offset/limit must be integers"}
+        )
+    from annotatedvdb_tpu_torch.store.replication import ship_file_range
+
+    blob = ship_file_range(
+        ctx.repl_store_dir, name, offset, min(limit, REPL_MAX_RANGE_BYTES)
+    )
+    if blob is None:
+        return 404, json.dumps({"error": f"not a shippable file: {name!r}"})
+    return 200, blob
+
+
 class ServeContext:
     """Everything a handler thread needs, shared across requests."""
 
@@ -391,6 +474,17 @@ class ServeContext:
         #: the live write path (``store/memtable.py``), or None for a
         #: read-only server — the upsert route answers 403 when unset
         self.memtable = memtable
+        #: replication plane.  The ship surface (``GET /repl/*``) serves
+        #: from the snapshot manager's on-disk store directory (None for
+        #: in-memory stores: the routes 404).  A follower's serve path
+        #: sets ``repl`` to its ReplicaTailer (lag gates /readyz) and
+        #: ``follow_url`` to the leader base URL (upserts answer 403
+        #: pointing there).
+        self.repl_store_dir = getattr(
+            getattr(manager, "base", manager), "store_dir", None
+        )
+        self.repl = None
+        self.follow_url = None
         self.max_inflight = (
             max_inflight if max_inflight is not None else batcher.max_queue
         )
@@ -565,6 +659,11 @@ class ServeContext:
         returns ``(status, json_body, rows_in_request)``.  The 200 is the
         ack: it is built only after the accepted rows' WAL frame is
         fsynced (``Memtable.upsert`` orders WAL before visibility)."""
+        if self.follow_url is not None:
+            # a follower is read-only by role: its overlay memtable exists
+            # to apply the leader's shipped stream, so a client write is
+            # refused with the leader's location
+            return 403, follower_upsert_payload(self), 0
         memtable = self.memtable
         if memtable is None:
             return 403, json.dumps({"error": MSG_UPSERTS_DISABLED}), 0
@@ -676,7 +775,8 @@ class ServeContext:
                      f"{err}); rows stay in the memtable")
 
     def ready_state(self) -> tuple[bool, str]:
-        """(ready, reason): not ready while a snapshot swap loads or the
+        """(ready, reason): not ready while a snapshot swap loads, while a
+        follower's replication lag exceeds its bound, or while the
         brownout ladder sheds bulk work.  Probes step the ladder too, so
         an idle server de-escalates, and check the memtable's flush
         triggers, so an idle threaded server's age flush fires."""
@@ -684,6 +784,14 @@ class ServeContext:
         self.maybe_flush_memtable()
         if getattr(self.manager, "swapping", False):
             return False, "snapshot swap in progress"
+        if self.repl is not None and self.repl.lag_exceeded():
+            # the bounded-staleness contract: a follower past its declared
+            # lag bound (AVDB_REPL_MAX_LAG_S) drains out of the router
+            # rotation; it re-enters once a tail cycle catches up
+            return False, (
+                f"replication lag {self.repl.lag_s():.1f}s exceeds the "
+                f"declared staleness bound ({self.repl.max_lag_s:g}s)"
+            )
         if self.governor.shed_bulk():
             return False, f"brownout level {self.governor.level} " \
                           f"({self.governor.level_name})"
@@ -776,6 +884,16 @@ class ServeHandler(BaseHTTPRequestHandler):
             return
         if path == "/stats":
             self._reply(200, stats_payload(ctx))
+            return
+        if path == REPL_MANIFEST_ROUTE:
+            status, body = repl_manifest_payload(ctx)
+            self._reply(status, body)
+            return
+        if path in (REPL_SEGMENT_ROUTE, REPL_WAL_ROUTE):
+            status, body = repl_file_response(ctx, url.query)
+            self._reply(status, body,
+                        content_type="application/octet-stream"
+                        if isinstance(body, bytes) else "application/json")
             return
         if path == EXPORT_STREAM_ROUTE:
             self._export_stream(ctx, url.query)

@@ -177,9 +177,7 @@ class MemtableSnapshots:
     greater than any handed out before, so generation-keyed caches (point
     render, region LRU, interval indexes and their device copies, cursor
     walks, the brownout point cache) never serve pre-upsert bytes for a
-    post-upsert view.  The reference's ``reset_memtable`` (the
-    replication follower's re-sync) is not ported: the port has no
-    follower yet."""
+    post-upsert view."""
 
     def __init__(self, base, memtable):
         self.base = base
@@ -192,13 +190,19 @@ class MemtableSnapshots:
         #: guarded by self._lock — the remapped generation counter, kept
         #: strictly above every base generation observed
         self._gen = 0
+        #: guarded by self._lock — bumps per reset_memtable swap so view
+        #: keys from different memtable incarnations never collide
+        self._mt_ver = 0
 
     def current(self) -> StoreSnapshot:
         base = self.base.current()
-        epoch, segs, _rows, _bytes = self.memtable.view()
-        if epoch == 0:
+        with self._lock:
+            mt = self.memtable
+            ver = self._mt_ver
+        epoch, segs, _rows, _bytes = mt.view()
+        if epoch == 0 and ver == 0:
             return base  # pristine: the base's snapshot, zero overhead
-        key = (base.generation, epoch)
+        key = (base.generation, epoch, ver)
         with self._lock:
             if key == self._last_key:
                 return self._last_snap
@@ -211,6 +215,19 @@ class MemtableSnapshots:
             self._last_key = key
             self._last_snap = snap
             return snap
+
+    def reset_memtable(self, memtable) -> None:
+        """Swap in a fresh overlay memtable — the replication follower's
+        re-sync: rows now covered by a freshly installed base cut leave
+        the overlay, so a long-running follower's memory stays bounded by
+        one flush interval.  Generation numbers stay strictly monotone
+        across the swap: once any overlay generation was handed out, even
+        an epoch-0 (empty) view keeps being remapped above it."""
+        with self._lock:
+            self.memtable = memtable
+            self._mt_ver += 1
+            self._last_key = None
+            self._last_snap = None
 
     def maybe_refresh(self) -> bool:
         return self.base.maybe_refresh()

@@ -152,6 +152,13 @@ class AlgorithmLedger:
         with self._lock:
             return [e for e in self._entries if e.get("type") == "run"]
 
+    def compact(self, record: dict) -> None:
+        """Append one ``{"type": "compact"}`` maintenance record — the
+        audit trail of a compaction pass (``store/compact.py``: labels
+        compacted, files and bytes before and after, shadowed-duplicate
+        rows dropped, wall seconds).  Resume and undo ignore it."""
+        self._append({"type": "compact", **record, "ts": time.time()})
+
     def compactions(self) -> list[dict]:
         """All compact records (``doctor compact`` passes), oldest first."""
         with self._lock:

@@ -36,9 +36,9 @@ groups such a writer committed since this store loaded forward verbatim
 and never reuses their seg ids (``_adoptable_groups``); groups below the
 load-time floor stay this store's own, so an undo still drops their rows.
 
-Not ported here (later slices): the on-disk compaction
-(``store/compact.py``), the out-of-core memmap tier and the mesh
-placement block.
+The on-disk compaction lives in ``store/compact.py`` and reads segments
+through :meth:`VariantStore._read_segment`.  Not ported: the out-of-core
+memmap tier and the mesh placement block.
 """
 
 from __future__ import annotations

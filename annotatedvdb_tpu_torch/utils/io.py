@@ -50,11 +50,19 @@ def replace_manifest(path, doc) -> None:
     commit is what keeps a power-loss rename from landing a zero-length
     manifest) -> atomic replace -> directory fsync under ``AVDB_FSYNC=1``
     (segment renames of the same commit share the directory, so this one
-    fsync covers them all)."""
+    fsync covers them all).
+
+    ``doc`` is a JSON-serializable dict, or pre-serialized ``str``/``bytes``
+    when the caller owns the byte format (the replication mirror's
+    compact separators)."""
     d, base = os.path.split(os.fspath(path))
     tmp = os.path.join(d, f".{base}.tmp{os.getpid()}")
-    with open(tmp, "w") as f:
-        json.dump(doc, f)
+    mode = "wb" if isinstance(doc, (bytes, bytearray)) else "w"
+    with open(tmp, mode) as f:
+        if isinstance(doc, (bytes, bytearray, str)):
+            f.write(doc)
+        else:
+            json.dump(doc, f)
         f.flush()
         fsync(f)
     replace(tmp, path)

@@ -9,7 +9,9 @@ update, the VCF/TSV-driven update legs (``update-qc``,
 the host-only commands (``export-vcf``, ``undo``, ``bin-references``),
 the query server (``serve``: both front ends and the fleet), the corpus
 export (``export``, ``/export/stream``), ``doctor`` and the live write
-path (``serve --upserts``) on ``cuda:0`` and checks them, phase by phase,
+path (``serve --upserts``) with the maintenance daemon's compaction
+(``serve --maintain``) and a replication follower (``serve --follow``,
+``doctor promote``) on ``cuda:0`` and checks them, phase by phase,
 each phase printing one JSON line:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
@@ -246,8 +248,10 @@ each phase printing one JSON line:
               ``load-vcf`` of a VCF with five malformed lines wrote (the
               lines back verbatim).  The card's allocated bytes must not
               move while ``doctor`` runs; walls of each verb;
-14. upsert  — ``serve --workers 2 --upserts`` on phase 9's store with the
-              memtable's flush bound set so the third upsert crosses it:
+14. upsert  — ``serve --workers 2 --upserts --maintain`` on phase 9's
+              store with the memtable's flush bound set so the third
+              upsert crosses it and the maintenance daemon's high
+              watermark one above the chr22 group's segment files:
               three upserts of 2,048 chr22 rows (half new identities, half
               stored rows, which come back shadowed), each followed on the
               same connection by a ``/regions`` and a ``/stats/region``
@@ -256,11 +260,23 @@ each phase printing one JSON line:
               worker whose WAL holds the first two is SIGKILLed, respawned,
               replays them and serves them byte for byte; the flush
               commits and truncates the WAL, every worker serves the rows
-              after one snapshot TTL, the fleet's ``/regions`` and
-              ``/stats/region`` bodies equal a host-only engine's over the
-              flushed store, the launches of the surviving workers equal
-              the reads sent after the kill, and ``doctor --deep`` finds
-              the store clean after a clean stop.
+              after one snapshot TTL; the flush trips the daemon, which
+              compacts the group under the live fleet (its ledger record:
+              files, bytes, rows, dropped duplicates, seconds) and both
+              workers swap onto the compacted generation; the fleet's
+              ``/regions`` and ``/stats/region`` bodies equal a host-only
+              engine's over the flushed store (hard-linked aside before
+              the pass), the launches of the surviving workers equal the
+              reads sent after the kill.  Beside the fleet, ``serve
+              --follow`` (``aio``, one process, on the card) bootstraps
+              into an empty directory, tails the upserts (the same reads
+              give the leader's bodies after each upsert: seconds from
+              the ack, replication lag), re-syncs across the flush and
+              the compaction (seconds from each commit), serves the
+              host-only engine's bodies over every window, answers an
+              upsert with 403, and launches once a read sent to it.
+              After a clean stop ``doctor promote`` seals the follower
+              and ``doctor --deep`` finds both stores clean.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -276,6 +292,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -5162,21 +5179,22 @@ def vep_kernel_timing(torch, device, rows) -> dict:
 
 # ------------------------------------------------- write path (phase 14)
 
-#: phase 14: ``UPSERT_CALLS`` upserts of ``UPSERT_ROWS`` rows into chr22,
-#: half of them identities the store lacks and half rows it holds, each
-#: into its own ``UPSERT_WINDOW``-bp window and read back through
-#: ``UPSERT_INTERVALS`` intervals tiling that window (``UPSERT_STATS_WINDOWS``
-#: stats windows); the first ``UPSERT_BEFORE_KILL`` go in before the
-#: worker holding them is killed, the last one crosses the flush bound
+#: phase 14: one upsert a window of ``UPSERT_STARTS``, ``UPSERT_ROWS`` rows
+#: into chr22, half of them identities the store lacks and half rows it
+#: holds, each into its own ``UPSERT_WINDOW``-bp window and read back
+#: through ``UPSERT_INTERVALS`` intervals tiling that window
+#: (``UPSERT_STATS_WINDOWS`` stats windows); the first ``UPSERT_BEFORE_KILL``
+#: go in before the worker holding them is killed, the last one crosses the
+#: flush bound (three windows until the compaction and the follower joined
+#: the phase; the second was cut to keep the smoke's wall)
 UPSERT_ROWS = 2048
-UPSERT_CALLS = 3
-UPSERT_BEFORE_KILL = 2
+UPSERT_BEFORE_KILL = 1
 UPSERT_WINDOW = 200_000
 UPSERT_INTERVALS = 64
 UPSERT_STATS_WINDOWS = 4
 UPSERT_WORKERS = 2
 #: window starts on chr22, inside phase 4's positions
-UPSERT_STARTS = (17_000_000, 18_500_000, 20_000_000)
+UPSERT_STARTS = (17_000_000, 20_000_000)
 #: appended to a stored line's REF to make a new identity: an insertion
 #: no generated line carries
 UPSERT_INSERT = "TTGACCAGTC"
@@ -5316,22 +5334,22 @@ def _scrub(raw: bytes) -> bytes:
     return re.sub(rb'"generation":\d+', b'"generation":0', raw)
 
 
-def _upsert_reads(conn, batch, want_counts, sent) -> float:
+def _upsert_reads(conn, batch, want_counts, sent) -> tuple:
     """The count-only ``/regions`` and the ``/stats/region`` reads over a
     batch's window on ``conn``: both must count ``want_counts``; returns
-    the ``/regions`` call's seconds."""
+    the ``/regions`` call's seconds and both bodies, generation masked."""
     st, raw, dt = conn.call("POST", "/regions", {"regions": batch["specs"], "limit": 0})
     assert st == 200, raw[:500]
     got = _region_counts(raw)
     assert got == want_counts, f"upsert: /regions counts {got[:8]} != {want_counts[:8]}"
-    st, raw, _dt = conn.call("POST", "/stats/region",
-                             {"regions": batch["specs"], "windows": UPSERT_STATS_WINDOWS})
-    assert st == 200, raw[:500]
-    got = [e["count"] for e in json.loads(raw)["results"]]
+    st, raw_s, _dt = conn.call("POST", "/stats/region",
+                               {"regions": batch["specs"], "windows": UPSERT_STATS_WINDOWS})
+    assert st == 200, raw_s[:500]
+    got = [e["count"] for e in json.loads(raw_s)["results"]]
     assert got == want_counts, f"upsert: stats counts {got[:8]} != {want_counts[:8]}"
     sent["regions"] += 1
     sent["stats"] += 1
-    return dt
+    return dt, [_scrub(raw), _scrub(raw_s)]
 
 
 def _wait_for(what, test, timeout=300.0, step=0.1):
@@ -5344,52 +5362,182 @@ def _wait_for(what, test, timeout=300.0, step=0.1):
         time.sleep(step)
 
 
+#: phase 14's maintenance daemon tick and the follower's tail poll (s)
+MAINTAIN_TICK_S = "0.5"
+FOLLOW_POLL_S = "0.2"
+
+
+def batch_reads(batch) -> list:
+    """A batch's count-only and three-row ``/regions`` and its
+    ``/stats/region`` request (path, body): the bodies the fleet and the
+    follower are held to against the host-only engine."""
+    return [("/regions", {"regions": batch["specs"], "limit": 0}),
+            ("/regions", {"regions": batch["specs"], "limit": 3}),
+            ("/stats/region", {"regions": batch["specs"],
+                               "windows": UPSERT_STATS_WINDOWS})]
+
+
+def link_store(store_dir, dest) -> int:
+    """A hard-linked copy of the store ``store_dir``'s manifest describes
+    now: segment files are immutable, so the copy stays the flushed store
+    while the maintenance daemon compacts the original and removes its
+    files.  Returns the copy's bytes."""
+    from annotatedvdb_tpu_torch.store.replication import manifest_segment_files
+
+    shutil.rmtree(dest, ignore_errors=True)
+    os.makedirs(dest)
+    mpath = os.path.join(store_dir, "manifest.json")
+    with open(mpath, "rb") as f:
+        blob = f.read()
+    files = manifest_segment_files(json.loads(blob))
+    for name in files:
+        os.link(os.path.join(store_dir, name), os.path.join(dest, name))
+    with open(mpath, "rb") as f:
+        assert f.read() == blob, "upsert: the store changed while it was being linked"
+    with open(os.path.join(dest, "manifest.json"), "wb") as f:
+        f.write(blob)
+    return sum(rec["bytes"] for rec in files.values())
+
+
+class _Follower:
+    """Phase 14's replication follower: ``serve --follow`` (``aio``, one
+    process) on an empty directory, tailing the leader fleet."""
+
+    def __init__(self, platform, leader_port):
+        self.dir = os.path.join(WORK, "follower14")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.out = os.path.join(WORK, "follower14.out")
+        self.err = os.path.join(WORK, "follower14.err")
+        self.url = f"http://127.0.0.1:{leader_port}"
+        env = dict(os.environ, AVDB_REPL_POLL_S=FOLLOW_POLL_S,
+                   AVDB_SERVE_BROWNOUT_P99_MS="0")
+        self.sent = {"regions": 0, "stats": 0}
+        self.t0 = time.perf_counter()
+        self.t0_wall = time.time()
+        with open(self.out, "w") as out_f, open(self.err, "w") as err_f:
+            self.proc = subprocess.Popen(
+                serve_command(self.dir, platform, "aio", extra=["--follow", self.url]),
+                cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
+        self.conn = None
+
+    def err_text(self) -> str:
+        with open(self.err) as f:
+            return f.read()
+
+    def swaps(self) -> int:
+        return self.err_text().count("snapshot swapped")
+
+    def bootstrapped(self) -> dict:
+        """Wait for the bootstrap: its seconds run from the process's start
+        to its manifest mirror's write (the mirror lands last), its bytes
+        are the directory's then."""
+        mpath = os.path.join(self.dir, "manifest.json")
+        _wait_for("the follower's bootstrap",
+                  lambda: os.path.exists(mpath) or self.proc.poll() is not None,
+                  step=0.05)
+        assert self.proc.poll() is None, f"follower exited: {self.err_text()[-2000:]}"
+        return {"bootstrap_s": os.stat(mpath).st_mtime - self.t0_wall,
+                "bootstrap_bytes": sum(os.path.getsize(os.path.join(self.dir, n))
+                                       for n in os.listdir(self.dir))}
+
+    def ready(self) -> float:
+        """Wait for the banner; returns the seconds since the start."""
+        _banner, port, _s = wait_serving(self.proc, self.out, self.err)
+        self.conn = _Conn(port)
+        return time.perf_counter() - self.t0
+
+    def lag_s(self) -> float:
+        import re
+
+        st, raw, _dt = self.conn.call("GET", "/metrics")
+        assert st == 200, raw[:300]
+        return float(re.search(rb"^avdb_replication_lag_seconds (\S+)$", raw,
+                               re.M).group(1))
+
+    def match(self, reqs, want, what, timeout=300.0) -> float:
+        """Poll the first read of ``reqs`` until its body (generation
+        masked) equals its ``want``, then each later one likewise: only
+        the first polls, so a generation the follower has not yet applied
+        costs no feature decode behind ``/stats/region``.  Returns the
+        seconds it took."""
+        t0 = time.perf_counter()
+        for (path, body), w in zip(reqs, want):
+            def equal(path=path, body=body, w=w):
+                st, raw, _dt = self.conn.call("POST", path, body)
+                self.sent["regions" if path == "/regions" else "stats"] += 1
+                return st == 200 and _scrub(raw) == w
+
+            _wait_for(f"the follower to serve {what}", equal, timeout, step=0.05)
+        return time.perf_counter() - t0
+
+
 def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROWS,
                  workers=UPSERT_WORKERS) -> dict:
-    """Phase 14: ``serve --workers 2 --upserts`` on phase 9's store, the
-    memtable's flush bound (``AVDB_MEMTABLE_BYTES``) set between the
-    bytes of the first :data:`UPSERT_BEFORE_KILL` upserts and those of
-    all of them, the age trigger off.  (1) On one keep-alive connection
-    (one worker): each upsert acknowledged with half its rows accepted and
-    half shadowed, then a count-only ``/regions`` and a ``/stats/region``
-    over its window, both counting the window's stored rows plus the new
-    ones.  (2) The read-after-upsert latency (the ``/regions`` call after
-    each upsert: the interval index and feature columns rebuilt for the
-    new generation) and the ack latency.  (3) The worker whose WAL holds
-    the records is SIGKILLed; the supervisor respawns it, it replays the
-    rows, and on a connection to it the new rows' point bodies are the
-    ones served before the kill and the reads count them.  (4) The last
-    upsert crosses the bound: the flush commits (the manifest's chr22
-    rows grow by every new row, the worker's WAL holds no record; a
-    ``/healthz`` on a fresh connection each poll lets the workers see the
-    commit), and after one snapshot TTL 16 fresh connections read every
-    batch's new rows.  (5) Each window's count-only and three-row
-    ``/regions`` and ``/stats/region`` bodies from the fleet equal a
-    host-only engine's over the flushed store (generation masked; a
-    spawned helper started at the flush computes them).  (6) After a
-    clean stop, ``doctor --deep`` (a subprocess, beside the helper) finds
-    the store clean.  The workers' launches are read from their shutdown
-    summaries: the killed incarnation's are lost, so they must equal the
-    reads sent after the kill."""
+    """Phase 14: ``serve --workers 2 --upserts --maintain`` on phase 9's
+    store, the memtable's flush bound (``AVDB_MEMTABLE_BYTES``) set
+    between the bytes of the first :data:`UPSERT_BEFORE_KILL` upserts and
+    those of all of them, the age trigger off, and the maintenance
+    daemon's high watermark (``AVDB_MAINTAIN_SEGMENTS_HIGH``) one above
+    the chr22 group's segment files, so the flush trips it.  Beside it,
+    once the leader is ready, a follower (``serve --follow``, ``aio``, one
+    process) bootstraps into an empty directory and tails it.
+
+    (1) On one keep-alive connection (one worker): each upsert
+    acknowledged with half its rows accepted and half shadowed, then a
+    count-only ``/regions`` and a ``/stats/region`` over its window, both
+    counting the window's stored rows plus the new ones.  (2) The
+    read-after-upsert latency and the ack latency.  (3) The worker whose
+    WAL holds the records is SIGKILLed; the supervisor respawns it, it
+    replays the rows, and on a connection to it the new rows' point
+    bodies and the reads are the ones served before the kill.  Then the
+    follower (its start-up overlapped the upserts and the respawn) must
+    serve the same two bodies (generation masked): the seconds from each
+    ack to that, its replication lag then.  (4) The last upsert crosses
+    the bound; the follower serves its rows from the WAL tail; the flush
+    commits (the manifest's chr22 rows grow by every new row: the store
+    is hard-linked aside at once for a spawned host-only helper; then the
+    worker's WAL holds no record), and the follower re-syncs onto the
+    flushed cut.  (5) The flush trips the daemon, which compacts the chr22 group
+    while both workers serve: its ledger record (files, bytes, rows,
+    dropped duplicates, seconds), then each worker's swap onto the
+    compacted generation and the follower's re-sync onto it.  (6) Each
+    window's count-only and three-row ``/regions`` and ``/stats/region``
+    bodies from the fleet (fresh connections) and from the follower equal
+    the host-only engine's over the flushed store (generation masked); an
+    upsert to the follower answers 403 with the leader's location.
+    (7) After a clean stop of both, ``doctor promote`` seals the follower,
+    and ``doctor --deep`` finds both stores clean.  The workers' launches
+    are read from their shutdown summaries: the killed incarnation's are
+    lost, so they must equal the reads sent after the kill; the
+    follower's equal the reads sent to it."""
     import concurrent.futures
     import multiprocessing
     import re
     import signal
 
+    from annotatedvdb_tpu_torch.store.compact import segment_spans
     from annotatedvdb_tpu_torch.store.wal import count_records, is_wal_file
 
+    assert len(starts) == UPSERT_BEFORE_KILL + 1, starts
     t_phase = time.perf_counter()
     with open(os.path.join(store_dir, "manifest.json")) as f:
         manifest = json.load(f)
     width, rows22 = int(manifest["width"]), int(manifest["stats"]["rows"]["22"])
+    spans = segment_spans(store_dir)
+    files22 = spans["22"]
+    # the flush of chr22 alone must trip the daemon
+    assert all(n <= files22 for n in spans.values()), spans
     batches = upsert_batches(window_lines(vcf, starts, UPSERT_WINDOW, width), starts,
                              rows, UPSERT_WINDOW)
     sizes = [upsert_bytes(b, width) for b in batches]
     bound = sum(sizes[:UPSERT_BEFORE_KILL]) + sizes[UPSERT_BEFORE_KILL] // 2
     env = dict(os.environ, AVDB_MEMTABLE_BYTES=str(bound), AVDB_MEMTABLE_FLUSH_S="0",
-               AVDB_SERVE_BROWNOUT_P99_MS="0")
+               AVDB_SERVE_BROWNOUT_P99_MS="0",
+               AVDB_MAINTAIN_SEGMENTS_HIGH=str(files22 + 1),
+               AVDB_MAINTAIN_TICK_S=MAINTAIN_TICK_S)
     out_path = os.path.join(WORK, "upsert.out")
     err_path = os.path.join(WORK, "upsert.err")
+    flushed = os.path.join(WORK, "flushed14")
 
     def err_text():
         with open(err_path) as f:
@@ -5401,17 +5549,24 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
 
     sent = {"regions": 0, "stats": 0}
     timing = {}
+    follow = {"upserts": []}
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as helper:
         warm = helper.submit(_warm_serve_helper)
         with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
             proc = subprocess.Popen(
-                serve_command(store_dir, platform, "fleet", workers, ["--upserts"]),
+                serve_command(store_dir, platform, "fleet", workers,
+                              ["--upserts", "--maintain"]),
                 cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
         gpu_mib = None
+        follower = None
+        served_ok = False
         try:
             _banner, port, timing["ready_s"] = wait_serving(proc, out_path, err_path,
                                                             workers)
+            assert f"maintain: daemon armed (high {files22 + 1} /" in err_text(), \
+                err_text()[-2000:]
+            follower = _Follower(platform, port)
             warm.result()
             conn = _Conn(port)
             base = []
@@ -5432,16 +5587,28 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
 
             ack_s, read_s = [], []
 
+            def follower_reads(k, bodies, t_commit, what):
+                reqs = batch_reads(batches[k])
+                follower.match([reqs[0], reqs[2]], bodies, what)
+                return {"batch": k, "what": what,
+                        "commit_to_serving_s": time.perf_counter() - t_commit,
+                        "lag_s": follower.lag_s()}
+
             def upsert(conn, k):
                 st, raw, dt = conn.call("POST", "/variants/upsert", batches[k]["body"])
+                t_ack = time.perf_counter()
                 ack = json.loads(raw)
                 assert st == 200 and ack["accepted"] == rows // 2 \
                     and ack["shadowed"] == rows - rows // 2, f"upsert {k}: {st} {raw[:300]}"
                 ack_s.append(dt)
-                read_s.append(_upsert_reads(conn, batches[k], want(k), sent))
+                dt_read, bodies = _upsert_reads(conn, batches[k], want(k), sent)
+                read_s.append(dt_read)
+                return t_ack, bodies
 
-            for k in range(UPSERT_BEFORE_KILL):
-                upsert(conn, k)
+            acked = [upsert(conn, k) for k in range(UPSERT_BEFORE_KILL)]
+            # a bootstrap cut short by the kill below would end the
+            # follower (as in the reference): let it land first
+            follow.update(follower.bootstrapped())
             held = [f for f in os.listdir(store_dir) if is_wal_file(f)
                     and count_records(os.path.join(store_dir, f))]
             assert len(held) == 1, f"upsert: WAL files with records {held}"
@@ -5473,34 +5640,75 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
                                  timeout=60, step=0.0)
             after = [conn.call("GET", f"/variant/{v}")[:2] for v in probes]
             assert after == before, "upsert: replayed rows differ from the acked ones"
-            for k in range(UPSERT_BEFORE_KILL):
-                _upsert_reads(conn, batches[k], want(k), sent)
+            replay_bodies = [_upsert_reads(conn, batches[k], want(k), sent)[1]
+                             for k in range(UPSERT_BEFORE_KILL)]
+            assert replay_bodies == [b for _t, b in acked], \
+                "upsert: the respawned worker's reads differ from the acked ones"
+            # the follower started with the leader; its start-up overlaps
+            # the upserts and the respawn (its bodies over those windows
+            # stay the same until the flush)
+            follow["ready_s"] = follower.ready()
+            for k, (t_ack, bodies) in enumerate(acked):
+                follow["upserts"].append(follower_reads(k, bodies, t_ack, f"upsert {k}"))
             t_flush = time.perf_counter()
-            upsert(conn, UPSERT_BEFORE_KILL)
+            swaps_before = follower.swaps()
             total_new = rows // 2 * len(batches)
 
-            def flushed():
+            def committed():
                 with open(os.path.join(store_dir, "manifest.json")) as f:
-                    m = json.load(f)
-                wal_rows = sum(count_records(os.path.join(store_dir, f))
-                               for f in os.listdir(store_dir) if is_wal_file(f))
-                return m["stats"]["rows"]["22"] == rows22 + total_new and wal_rows == 0
+                    return json.load(f)["stats"]["rows"]["22"] == rows22 + total_new
 
-            def flushed_and_poked():
+            link = {}
+
+            def link_at_commit():
+                # the flushed store, linked aside at the flush's manifest
+                # commit: the daemon's pass starts there and removes its
+                # files at its end; the host-only answers are computed
+                # over the copy
+                try:
+                    _wait_for("the flush's manifest commit", committed, step=0.02)
+                    link["t"] = time.perf_counter()
+                    link["bytes"] = link_store(store_dir, flushed)
+                except Exception as err:  # re-raised below
+                    link["err"] = err
+
+            linker = threading.Thread(target=link_at_commit, daemon=True)
+            t_ack, bodies = upsert(conn, UPSERT_BEFORE_KILL)
+            linker.start()
+            follow["upserts"].append(follower_reads(
+                UPSERT_BEFORE_KILL, bodies, t_ack, f"upsert {UPSERT_BEFORE_KILL}"))
+
+            def poked(test):
                 # a health probe on a fresh connection each poll lets the
                 # worker it lands on see the commit and start loading the
                 # new generation while the flush finishes
-                c = _Conn(port)
-                try:
-                    c.call("GET", "/healthz")
-                finally:
-                    c.close()
-                return flushed()
+                def probe():
+                    c = _Conn(port)
+                    try:
+                        c.call("GET", "/healthz")
+                    finally:
+                        c.close()
+                    return test()
+                return probe
 
-            _wait_for("the flush commit", flushed_and_poked)
+            def wal_empty():
+                return not sum(count_records(os.path.join(store_dir, f))
+                               for f in os.listdir(store_dir) if is_wal_file(f))
+
+            _wait_for("the flush's manifest commit", poked(lambda: len(link) > 1))
+            linker.join()
+            if "err" in link:
+                raise link["err"]
+            t_commit, flushed_bytes = link["t"], link["bytes"]
+            host = helper.submit(upsert_expected, flushed, batches)
+            _wait_for("the flush's WAL truncation", poked(wal_empty))
             timing["flush_s"] = time.perf_counter() - t_flush
             conn.close()
-            host = helper.submit(upsert_expected, store_dir, batches)
+            _wait_for("the follower's re-sync onto the flushed cut",
+                      lambda: follower.swaps() > swaps_before)
+            follow["flush_resync_s"] = time.perf_counter() - t_commit
+            follow["upserts"].append(follower_reads(
+                UPSERT_BEFORE_KILL, bodies, t_commit, "the flushed cut"))
             time.sleep(0.3)  # one snapshot TTL (250 ms)
             every = [b["new_ids"][-1] for b in batches]
 
@@ -5516,46 +5724,117 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
 
             _ok, timing["all_workers_s"] = _wait_for("every worker serving the rows",
                                                      all_serve, timeout=120, step=0.2)
-            fleet = []
-            for b in batches:
+
+            # (5) the daemon's pass: committed under the live fleet, then
+            # each worker's swap onto the compacted generation
+            ledger = os.path.join(store_dir, "ledger.jsonl")
+            swaps_follower = follower.swaps()
+            _ok, timing["compact_wait_s"] = _wait_for(
+                "the maintenance daemon's compaction",
+                lambda: ledger_records(store_dir, "compact")
+                or "maintain: pass failed" in err_text(), timeout=600, step=0.2)
+            t_compacted = time.perf_counter()
+            timing["flush_to_compaction_s"] = t_compacted - t_commit
+            compacted = ledger_records(store_dir, "compact")
+            assert len(compacted) == 1, f"upsert: compaction: {err_text()[-3000:]}"
+            compacted = compacted[0]
+            assert compacted["labels"] == ["22"], compacted
+            spans_after = segment_spans(store_dir)
+            assert spans_after["22"] == 1, spans_after
+            marker = "maintain: compact: merged"
+            refresh = []
+
+            def workers_swapped():
+                c = _Conn(port)
+                try:
+                    c.call("GET", "/healthz")
+                finally:
+                    c.close()
+                text = err_text()
+                tail = text.split(marker, 1)[1] if marker in text else ""
+                n = tail.count("snapshot swapped")
+                while len(refresh) < n:
+                    refresh.append(time.perf_counter() - t_compacted)
+                return n >= workers
+
+            _wait_for("both workers' swap onto the compacted generation",
+                      workers_swapped, timeout=600, step=0.1)
+            _wait_for("the follower's re-sync onto the compacted cut",
+                      lambda: follower.swaps() > swaps_follower, timeout=600)
+            follow["compact_resync_s"] = time.perf_counter() - t_compacted
+            # (6) every window's bodies, from the fleet and the follower
+            expected = host.result()
+            fleet, on_follower = [], []
+            for k, b in enumerate(batches):
                 c = _Conn(port)
                 got = []
-                for path, body in (("/regions", {"regions": b["specs"], "limit": 0}),
-                                   ("/regions", {"regions": b["specs"], "limit": 3}),
-                                   ("/stats/region", {"regions": b["specs"],
-                                                      "windows": UPSERT_STATS_WINDOWS})):
+                for path, body in batch_reads(b):
                     st, raw, _dt = c.call("POST", path, body)
                     assert st == 200, raw[:500]
                     sent["regions" if path == "/regions" else "stats"] += 1
                     got.append(_scrub(raw))
                 c.close()
                 fleet.append(got)
+                t = time.perf_counter()
+                follower.match(batch_reads(b), expected["bodies"][k],
+                               f"window {k} of the compacted cut")
+                on_follower.append(time.perf_counter() - t)
+            st, raw, _dt = follower.conn.call(
+                "POST", "/variants/upsert", batches[0]["body"])
+            follow["upsert_status"] = st
+            assert st == 403 and json.loads(raw)["leader"] == follower.url, \
+                f"follower upsert: {st} {raw[:300]}"
             if platform == "cuda":
                 gpu_mib = gpu_memory_used_mib()
+            served_ok = True
         finally:
+            promoting = None
+            if follower is not None:
+                if follower.conn is not None:
+                    follower.conn.close()
+                follower.proc.send_signal(2)
+                try:
+                    rc_f = follower.proc.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    follower.proc.kill()
+                    rc_f = follower.proc.wait()
+            if follower is not None and served_ok:
+                # (7) doctor promote of the stopped follower, beside the
+                # leader's stop
+                promoting = subprocess.Popen(
+                    [sys.executable, "-m", "annotatedvdb_tpu_torch", "doctor",
+                     "promote", "--storeDir", follower.dir, "--json"],
+                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                t_promote = time.perf_counter()
             proc.send_signal(2)
             try:
                 rc = proc.wait(timeout=120)
             except subprocess.TimeoutExpired:
                 proc.kill()
                 rc = proc.wait()
-        # doctor --deep of the stopped fleet's store, beside the host
-        # answers still being computed
+        # then doctor --deep of both stores, beside the host answers' helper
         t_doc = time.perf_counter()
-        doc_proc = subprocess.Popen(
-            [sys.executable, "-m", "annotatedvdb_tpu_torch", "doctor",
-             "--storeDir", store_dir, "--deep", "--json"],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        deep = ["doctor", "--deep", "--json", "--storeDir"]
+        doc_procs = [subprocess.Popen(
+            [sys.executable, "-m", "annotatedvdb_tpu_torch", *deep, store_dir],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
         try:
-            expected = host.result()
-            out, doc_err = doc_proc.communicate(timeout=600)
+            promote_out, promote_err = promoting.communicate(timeout=600)
+            rc_p, promote_s = promoting.returncode, time.perf_counter() - t_promote
+            doc_procs.append(subprocess.Popen(
+                [sys.executable, "-m", "annotatedvdb_tpu_torch", *deep, follower.dir],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            docs = [p.communicate(timeout=600) for p in doc_procs]
         finally:
-            if doc_proc.poll() is None:
-                doc_proc.kill()
-                doc_proc.wait()
-        rc_doc, doctor_s = doc_proc.returncode, time.perf_counter() - t_doc
+            for p in doc_procs + [promoting]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rc_docs, doctor_s = [p.returncode for p in doc_procs], time.perf_counter() - t_doc
     err = err_text()
     assert rc == 0, f"upsert fleet exited {rc}: {err[-2000:]}"
+    assert rc_f == 0, f"follower exited {rc_f}: {follower.err_text()[-2000:]}"
     wrong = [(k, j) for k, (f, h) in enumerate(zip(fleet, expected["bodies"]))
              for j, (a, b) in enumerate(zip(f, h)) if a != b]
     wal_left = sorted(f for f in os.listdir(store_dir) if is_wal_file(f))
@@ -5564,8 +5843,16 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
     predicted = {"bits_spans": sent["regions"], "stats_panel": sent["stats"],
                  "windowed_stats": sent["stats"], "export_pack": 0}
     plain_cuda = {k: v.get("cuda", 0) for k, v in summary["plain_calls"].items()}
-    assert out.strip(), f"upsert: doctor --deep printed nothing: {doc_err[-2000:]}"
-    doc = json.loads(out)
+    f_summary = merge_summaries(follower.err_text(), 1)
+    f_predicted = {"bits_spans": follower.sent["regions"],
+                   "stats_panel": follower.sent["stats"],
+                   "windowed_stats": follower.sent["stats"], "export_pack": 0}
+    f_plain_cuda = {k: v.get("cuda", 0) for k, v in f_summary["plain_calls"].items()}
+    assert all(out.strip() for out, _e in docs), \
+        f"upsert: doctor --deep printed nothing: {[e[-2000:] for _o, e in docs]}"
+    doc, doc_f = (json.loads(out) for out, _e in docs)
+    assert rc_p == 0, f"doctor promote: {promote_err[-2000:]}"
+    promoted = json.loads(promote_out)
     emit("upsert", workers=workers, rows_per_upsert=rows, upserts=len(batches),
          accepted_per_upsert=rows // 2, memtable_bound_bytes=bound,
          memtable_bytes_per_upsert=sizes, ready_s=timing["ready_s"],
@@ -5576,6 +5863,7 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
                                "each": [dt * 1e3 for dt in read_s]},
          killed_worker=idx, replayed_rows=replayed, respawn_s=timing["respawn_s"],
          flush_s=timing["flush_s"], all_workers_s=timing["all_workers_s"],
+         flushed_store_bytes=flushed_bytes,
          host_answers_s=expected["seconds"], bodies=3 * len(batches),
          mismatches=len(wrong), wal_files_left=wal_left, launches=launches,
          predicted_launches=predicted, launches_per_worker=summary["launches_per_worker"],
@@ -5584,14 +5872,40 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
          gpu_memory_used_mib=gpu_mib, decode_s=summary["decode_s"],
          index_build_s=summary["index_build_s"], doctor_deep_s=doctor_s,
          doctor_status=doc["status"], phase_s=time.perf_counter() - t_phase)
+    emit("compact", high_watermark=files22 + 1, files_at_start=files22,
+         files_before=compacted["files_before"], files_after=compacted["files_after"],
+         bytes_before=compacted["bytes_before"], bytes_after=compacted["bytes_after"],
+         bytes_reclaimed=compacted["bytes_reclaimed"], rows=compacted["rows"],
+         rows_dropped=compacted["rows_dropped"], pass_s=compacted["seconds"],
+         flush_to_commit_s=timing["flush_to_compaction_s"],
+         worker_refresh_s=refresh[:workers], spans_after=spans_after)
+    emit("follow", bootstrap_s=follow["bootstrap_s"],
+         bootstrap_bytes=follow["bootstrap_bytes"], ready_s=follow["ready_s"],
+         upserts=follow["upserts"], flush_resync_s=follow["flush_resync_s"],
+         compact_resync_s=follow["compact_resync_s"],
+         compacted_window_match_s=on_follower, upsert_status=follow["upsert_status"],
+         launches=f_summary["launches"], predicted_launches=f_predicted,
+         plain_cuda_calls=f_plain_cuda, device_bytes=f_summary["device_bytes"],
+         store_load_s=f_summary["store_load_s"], decode_s=f_summary["decode_s"],
+         index_build_s=f_summary["index_build_s"], promote=promoted,
+         promote_s=promote_s, doctor_status=doc_f["status"])
     assert not wrong, f"upsert: fleet bodies differ from the host engine's: {wrong}"
     assert not wal_left, f"upsert: WAL files left after the flush: {wal_left}"
-    assert rc_doc == 0 and doc["status"] == "clean", f"upsert: doctor --deep: {out[-2000:]}"
+    assert rc_docs[0] == 0 and doc["status"] == "clean", \
+        f"upsert: doctor --deep: {docs[0][0][-2000:]}"
+    assert rc_docs[1] == 0 and doc_f["status"] == "clean", \
+        f"follower: doctor --deep after promote: {docs[1][0][-2000:]}"
+    assert promoted["status"] == "promoted" and promoted["epoch"] == 1, promoted
     assert summary["breaker"] == {"open_groups": [], "groups": {}}, summary["breaker"]
+    assert f_summary["breaker"] == {"open_groups": [], "groups": {}}, f_summary["breaker"]
     if platform == "cuda":
         assert launches == predicted, f"upsert: launches {launches}, predicted {predicted}"
         assert not any(plain_cuda.values()), f"upsert: plain versions on the card {plain_cuda}"
-    return {"launches": launches}
+        assert f_summary["launches"] == f_predicted, \
+            f"follower: launches {f_summary['launches']}, predicted {f_predicted}"
+        assert not any(f_plain_cuda.values()), \
+            f"follower: plain versions on the card {f_plain_cuda}"
+    return {"launches": launches, "launches_follower": f_summary["launches"]}
 
 
 def main() -> int:
@@ -5746,8 +6060,9 @@ def main() -> int:
             doctor_phase(torch, "cuda", results["store_cadd"], results["store6"],
                          exported["engine"])
             # 14. the write path on phase 9's store, which no later phase
-            # reads: serve --workers 2 --upserts (counters start at 0 with
-            # each worker's process)
+            # reads: serve --workers 2 --upserts --maintain and a
+            # serve --follow beside it (counters start at 0 with each
+            # serving process)
             upserted = upsert_phase("cuda", results["store_cadd"], inputs["vcf4"])
         except AssertionError as err:
             return fail(str(err))
@@ -5766,7 +6081,8 @@ def main() -> int:
         row.update(launches=served["launches"][row["name"]],
                    **{f"launches_{fe}": n[row["name"]]
                       for fe, n in served["launches_by_frontend"].items()},
-                   launches_upsert=upserted["launches"][row["name"]])
+                   launches_upsert=upserted["launches"][row["name"]],
+                   launches_follower=upserted["launches_follower"][row["name"]])
     table[6].update(launches=exported["export"] + exported["stream"],
                     launches_export=exported["export"],
                     launches_stream=exported["stream"])

@@ -1232,3 +1232,153 @@ def test_device_bytes_stay_bounded_across_memtable_epochs(cuda, tmp_path):
     # the allocated bytes plateau once the ledger is full
     assert seen[-1][1] <= max(a for _b, a in seen[2:6]) + (1 << 20), seen
     assert mems["cuda"].epoch == 32
+
+
+def _engines_over(store_dir, manager_for):
+    """A card engine and a host-only engine, each over its own manager
+    from ``manager_for(store_dir)``."""
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+
+    return {"cuda": QueryEngine(manager_for(store_dir), device="cuda",
+                                breaker=DeviceBreaker()),
+            "cpu": QueryEngine(manager_for(store_dir), device="cpu")}
+
+
+def _card_reads_match_host(engines, specs, probe):
+    """``/regions`` (three rows and count-only) and ``/stats/region`` on
+    both engines: equal bodies, one ``bits_spans`` launch a group a
+    ``/regions`` call and one ``stats_panel`` a group (of the groups at
+    the device minimums), no plain version on the card."""
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+
+    before = (intervals.LAUNCHES["bits_spans"], stats.LAUNCHES["stats_panel"],
+              intervals.CALLS["cuda"], stats.CALLS["cuda"])
+    out = {plat: [eng.regions_serve(specs, limit=3).assemble(),
+                  eng.regions_serve(specs, limit=0).assemble(),
+                  eng.stats_serve(specs, windows=4).assemble(),
+                  eng.lookup(probe)]
+           for plat, eng in engines.items()}
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][3] is not None
+    # the groups at the device minimums (32 intervals; chr3, absent from
+    # the store, has two)
+    per = {}
+    for spec in specs:
+        per[spec.split(":")[0]] = per.get(spec.split(":")[0], 0) + 1
+    groups = sum(n >= 32 for n in per.values())
+    assert intervals.LAUNCHES["bits_spans"] - before[0] == 2 * groups
+    assert stats.LAUNCHES["stats_panel"] - before[1] == groups
+    assert (intervals.CALLS["cuda"], stats.CALLS["cuda"]) == before[2:]
+    assert engines["cuda"].breaker.stats() == {"open_groups": [], "groups": {}}
+
+
+def test_compacted_flushed_store_serves_from_the_card(cuda, tmp_path):
+    """A store grown by three memtable flushes (the last a retried flush
+    of shadowed duplicates), compacted to one segment a group, served on
+    the card: the bodies equal a host-only engine's and the kernels
+    launch."""
+    from annotatedvdb_tpu_torch.serve.snapshot import SnapshotManager
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from annotatedvdb_tpu_torch.store.compact import compact_store, segment_spans
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path), "cuda")
+    store_dir = served["store"]
+    batches = [_upsert_rows(served, 300, 31), _upsert_rows(served, 300, 32)]
+    for rows, base in ((batches[0], True), (batches[1], True),
+                       (batches[1], False)):
+        mem = Memtable(width=VariantStore.load(store_dir, readonly=True).width,
+                       store_dir=store_dir, wal=None, flush_bytes=0,
+                       flush_age_s=0)
+        mem.upsert(VariantStore.load(store_dir, readonly=True) if base else None,
+                   rows, durable=False)
+        assert mem.flush()["status"] == "flushed"
+    assert segment_spans(store_dir)["22"] > 1
+    report = compact_store(store_dir)
+    # the retried flush's rows (its stored identity too) are the dropped
+    assert report["status"] == "compacted" \
+        and report["rows_dropped"] == len(batches[1])
+    assert set(segment_spans(store_dir).values()) == {1}
+    engines = _engines_over(store_dir, SnapshotManager)
+    probe = f"22:{batches[1][0]['pos']}:A:{batches[1][0]['alt']}"
+    _card_reads_match_host(engines, serve_panel(served, seed=29), probe)
+
+
+def test_follower_generation_serves_from_the_card(cuda, tmp_path):
+    """A follower bootstrapped from a host-only leader (the serve store
+    with a WAL-tailed upsert, then a leader flush and a compaction it
+    re-syncs across), served on the card through the follower's overlay
+    wiring: the bodies equal a host-only engine's over the same
+    generation."""
+    import threading
+    import types
+    import urllib.request
+
+    from annotatedvdb_tpu_torch.cli.serve import _open_follower
+    from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.http import build_server
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+    from annotatedvdb_tpu_torch.serve.snapshot import (
+        MemtableSnapshots,
+        SnapshotManager,
+    )
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from annotatedvdb_tpu_torch.store.compact import compact_store
+    from annotatedvdb_tpu_torch.store.memtable import Memtable
+    from annotatedvdb_tpu_torch.store.replication import ReplicaTailer
+    from annotatedvdb_tpu_torch.store.wal import WriteAheadLog
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path / "leader"), "cuda")
+    lead_dir = served["store"]
+    mgr = SnapshotManager(lead_dir, ttl_s=0.0)
+    mem = Memtable(width=mgr.current().store.width, store_dir=lead_dir,
+                   wal=WriteAheadLog(lead_dir, "serve-w0"), flush_bytes=0,
+                   flush_age_s=0)
+    httpd = build_server(manager=MemtableSnapshots(mgr, mem), port=0,
+                         memtable=mem, device="cpu")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def upsert(rows):
+        body = {"variants": [{"id": f"22:{r['pos']}:{r['ref']}:{r['alt']}",
+                              "ref_snp": r["ref_snp"],
+                              "annotations": r["ann"]} for r in rows]}
+        req = urllib.request.Request(url + "/variants/upsert",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+
+    fdir = str(tmp_path / "follower")
+    try:
+        ReplicaTailer(fdir, url).bootstrap()
+        followers = {}
+        for plat in ("cuda", "cpu"):
+            args = types.SimpleNamespace(storeDir=fdir, follow=url,
+                                         _workerIndex=0 if plat == "cuda" else 1)
+            followers[plat] = _open_follower(args, SnapshotManager(fdir, ttl_s=0.0),
+                                             MetricsRegistry(), lambda m: None)
+        rows = [_upsert_rows(served, 200, 41), _upsert_rows(served, 200, 42)]
+        upsert(rows[0][:-1])
+        for _m, tailer in followers.values():
+            assert tailer.sync_once()["applied"] == 1
+        engines = {plat: QueryEngine(m, device=plat, breaker=DeviceBreaker())
+                   for plat, (m, _t) in followers.items()}
+        specs = serve_panel(served, seed=37)
+        probe = f"22:{rows[0][0]['pos']}:A:{rows[0][0]['alt']}"
+        _card_reads_match_host(engines, specs, probe)
+        assert mem.flush(mgr)["status"] == "flushed"
+        upsert(rows[1][:-1])
+        assert compact_store(lead_dir)["status"] == "compacted"
+        for _m, tailer in followers.values():
+            assert tailer.sync_once()["resynced"]
+        _card_reads_match_host(engines, specs, probe)
+        assert VariantStore.load(fdir, readonly=True).n \
+            == VariantStore.load(lead_dir, readonly=True).n
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.ctx.batcher.close()

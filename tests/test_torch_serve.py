@@ -471,6 +471,14 @@ def test_unported_routes_answer_the_unknown_route_404(servers, route):
         want = _fetch(servers["ref"], method, path, b"{}")
         assert (status, body) == (want[0], want[1]) and status == 403
         return
+    if path.startswith("/repl/"):
+        # ported: both packages serve the ship surface of the one store
+        # (the ship document, its clock masked; an unnamed file is a 404)
+        want = _fetch(servers["ref"], method, path, b"{}")
+        clock = re.compile(rb'"now": [0-9.e+-]+')
+        assert (status, clock.sub(b"", body)) == (want[0], clock.sub(b"", want[1]))
+        assert status == (200 if path == "/repl/manifest" else 404)
+        return
     assert status == 404
     # the reference's own answer to a route it does not have
     ref_status, ref_body, _h = _fetch(servers["ref"], method, "/no/such/route",
@@ -559,14 +567,17 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
     # the fleet needs the aio front end (the reference's refusal)
     (["--frontend", "threaded", "--workers", "2"],
      "--workers > 1 requires the aio front end"),
-    # --upserts is ported; combined with an unported mode it still refuses
+    # --upserts, --follow and --maintain are ported; the reference's own
+    # refusals of their combinations remain
     (["--frontend", "threaded", "--upserts", "--follow", "http://x"],
-     "--follow"),
-    (["--frontend", "threaded", "--follow", "http://x"], "--follow"),
+     "--follow and --upserts are mutually exclusive"),
+    (["--frontend", "threaded", "--maintain"],
+     "--maintain requires the aio front end"),
     (["--frontend", "threaded", "--metricsOut", "m.prom"], "--metricsOut"),
-    # the fleet is ported; its workers cannot host the unported daemon
-    (["--workers", "2", "--maintain"], "--maintain"),
-    (["--maintain"], "--maintain"),
+    (["--workers", "2", "--follow", "http://x", "--upserts"],
+     "--follow and --upserts are mutually exclusive"),
+    (["--maintain", "--follow", "http://x"],
+     "--follow and --maintain are mutually exclusive"),
     (["--traceOut", "t.json"], "--traceOut"),
 ], ids=["workers", "upserts", "follow", "metricsOut", "aio-workers",
         "aio-maintain", "aio-traceOut"])
