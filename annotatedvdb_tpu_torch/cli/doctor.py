@@ -1,7 +1,7 @@
 """CLI: store health — fsck/repair, online compaction, status, profile,
 fail-over, replay.
 
-Port of ``annotatedvdb_tpu/cli/doctor.py`` for six verbs.  ``doctor``
+Port of ``annotatedvdb_tpu/cli/doctor.py``, every verb.  ``doctor``
 (default verb) audits a store directory against its manifest's
 write-time integrity records and the ledger, and repairs what is safely
 repairable (:mod:`annotatedvdb_tpu_torch.store.fsck`); ``doctor compact``
@@ -13,7 +13,12 @@ against the maintenance watermarks, WAL files pending replay, crash
 debris, disk free against the reserve, last ledger compact/flush records
 — :func:`annotatedvdb_tpu_torch.store.maintenance.store_status`);
 ``doctor profile`` is the whole-store analytics profile, the summary
-shapes ``POST /stats/region`` serves; ``doctor promote`` fails a
+shapes ``POST /stats/region`` serves; ``doctor flight`` renders the crash
+flight recorder (harvested black boxes under ``<store>/flight/``, or the
+live rings); ``doctor slo`` replays the SLO burn-rate state machine over
+the time-series history under ``<store>/history/``; ``doctor trace``
+merges the ledger's run/compact/flush records and the flight timelines
+into one Chrome trace-event JSON; ``doctor promote`` fails a
 replication follower over to leader
 (:func:`annotatedvdb_tpu_torch.store.replication.promote`); ``doctor
 replay-rejects`` reconstructs a loadable input file from a quarantine
@@ -21,8 +26,9 @@ rejects file.  Reports, exit codes and output files are the reference's.
 
 ``doctor`` is host only, as in the reference, and takes no
 ``--platform``: ``status`` and ``compact --dry-run`` read no segment, and
-fsck, ``compact``, ``promote`` and ``profile`` read the store on the host.
-The verbs ``flight``, ``trace`` and ``slo`` are not ported yet and exit 2.
+fsck, ``compact``, ``promote`` and ``profile`` read the store on the host;
+``flight``, ``slo`` and ``trace`` read only ``flight/``, ``history/`` and
+the ledger.
 
 Usage:
     python -m annotatedvdb_tpu_torch doctor --storeDir ./vdb [--deep] [--repair] [--json]
@@ -32,6 +38,11 @@ Usage:
     python -m annotatedvdb_tpu_torch doctor status --storeDir ./vdb [--json]
     python -m annotatedvdb_tpu_torch doctor profile --storeDir ./vdb \
         [--out report.json] [--chunkRows N]
+    python -m annotatedvdb_tpu_torch doctor flight --storeDir ./vdb \
+        [--all] [--limit N] [--json]
+    python -m annotatedvdb_tpu_torch doctor slo --storeDir ./vdb \
+        [--all] [--fast S] [--slow S] [--burn X] [--json]
+    python -m annotatedvdb_tpu_torch doctor trace --storeDir ./vdb [--out FILE]
     python -m annotatedvdb_tpu_torch doctor promote --storeDir ./follower [--json]
     python -m annotatedvdb_tpu_torch doctor replay-rejects \
         --rejects ./vdb/quarantine/x.vcf.rejects.jsonl --out fixed.vcf
@@ -51,13 +62,9 @@ import json
 import signal
 import sys
 
-#: the reference's verbs that are not ported yet, with what they do
-UNPORTED = {
-    "flight": "the crash flight recorder",
-    "trace": "the background-writer trace",
-    "slo": "the SLO burn-rate replay",
-}
-
+#: the reference's verbs that are not ported yet: none since the health
+#: plane's ``flight``, ``slo`` and ``trace`` (every verb dispatches below)
+UNPORTED: dict = {}
 
 def _replay(argv) -> int:
     ap = argparse.ArgumentParser(
@@ -143,6 +150,296 @@ def _status(argv) -> int:
     print(f"  ledger: {led['runs']} load run(s); last compact: "
           f"{led['last_compact'] or 'never'}; last flush: "
           f"{led['last_flush'] or 'never'}", file=sys.stderr)
+    return 0
+
+
+def _fmt_t(t: float) -> str:
+    import time as time_mod
+
+    return time_mod.strftime("%H:%M:%S", time_mod.localtime(t)) \
+        + f".{int((t % 1) * 1000):03d}"
+
+
+def _render_blackbox(meta: dict, events: list, limit: int) -> None:
+    """One harvested (or live-ring) black box to stderr: the lifecycle
+    timeline leading to death, then the final requests with their stage
+    breakdowns."""
+    lifecycle = [e for e in events if e.get("type") == "event"]
+    requests = [e for e in events if e.get("type") == "request"]
+    if meta:
+        import time as time_mod
+
+        when = time_mod.strftime(
+            "%Y-%m-%d %H:%M:%S", time_mod.localtime(meta.get("t", 0))
+        )
+        print(f"  worker {meta.get('worker')}: {meta.get('reason')} "
+              f"(harvested {when}, {meta.get('events')} event(s))",
+              file=sys.stderr)
+    print(f"  lifecycle ({len(lifecycle)} event(s)):", file=sys.stderr)
+    for e in lifecycle[-limit:]:
+        print(f"    {_fmt_t(e['t'])}  {e.get('name', '?'):<10} "
+              f"{e.get('detail', '')}", file=sys.stderr)
+    print(f"  last requests ({len(requests)} recorded):", file=sys.stderr)
+    for e in requests[-limit:]:
+        stages = e.get("stages") or {}
+        breakdown = " ".join(f"{k}={v}ms" for k, v in stages.items())
+        print(f"    {_fmt_t(e['t'])}  {e.get('kind', '?'):<7} "
+              f"{e.get('status', 0):<4} {e.get('ms', '?')}ms  "
+              f"trace={e.get('trace', '-')}  {breakdown}",
+              file=sys.stderr)
+
+
+def _flight(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="doctor flight",
+        description="render the crash flight recorder: a SIGKILLed or "
+                    "wedge-killed worker's last requests and lifecycle "
+                    "events, harvested by the fleet supervisor into "
+                    "<store>/flight/ (live rings decode too)",
+    )
+    ap.add_argument("--storeDir", required=True)
+    ap.add_argument("--all", action="store_true",
+                    help="render every harvested black box, not just "
+                         "the newest")
+    ap.add_argument("--limit", type=int, default=20,
+                    help="events/requests shown per box (default 20)")
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+    import os
+
+    from annotatedvdb_tpu_torch.obs import flight as flight_mod
+
+    if not os.path.isdir(args.storeDir):
+        print(f"doctor flight: {args.storeDir}: not a directory",
+              file=sys.stderr)
+        return 2
+    boxes = flight_mod.list_blackboxes(args.storeDir)
+    harvested = boxes["harvested"] if args.all else boxes["harvested"][:1]
+    out = {"store_dir": args.storeDir, "harvested": [], "rings": []}
+    for path in harvested:
+        try:
+            data = flight_mod.load_harvest(path)
+        except (OSError, ValueError) as err:
+            print(f"doctor flight: {path}: unreadable ({err})",
+                  file=sys.stderr)
+            continue
+        out["harvested"].append({"path": path, **data})
+    for path in boxes["rings"]:
+        try:
+            decoded = flight_mod.decode_ring(path)
+        except (OSError, ValueError):
+            continue  # a live writer's ring mid-create: skip
+        out["rings"].append({"path": path, "events": decoded["events"]})
+    if not out["harvested"] and not out["rings"]:
+        print(f"doctor flight: {args.storeDir}: no flight data (no "
+              "harvested black box under flight/, no live rings) — the "
+              "serve fleet records one when AVDB_FLIGHT_EVENTS > 0",
+              file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(out, indent=1))
+        return 0
+    print(f"flight: {args.storeDir}: "
+          f"{len(boxes['harvested'])} harvested black box(es), "
+          f"{len(out['rings'])} live ring(s)", file=sys.stderr)
+    for box in out["harvested"]:
+        print(f"== {box['path']}", file=sys.stderr)
+        _render_blackbox(box["meta"], box["events"], args.limit)
+    if not out["harvested"]:
+        # no harvest (single-process SIGKILL, or the supervisor died
+        # too): the live rings ARE the black box — decode them directly
+        for ring in out["rings"]:
+            print(f"== {ring['path']} (live ring)", file=sys.stderr)
+            _render_blackbox({}, ring["events"], args.limit)
+    return 0
+
+
+def _slo(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="doctor slo",
+        description="replay the SLO burn-rate state machine over metrics "
+                    "time-series history under <store>/history/ — "
+                    "harvested from dead workers by the fleet supervisor, "
+                    "or persisted live by the serving health plane — and "
+                    "report what fired, when, and how hot the error "
+                    "budget burned",
+    )
+    ap.add_argument("--storeDir", required=True)
+    ap.add_argument("--all", action="store_true",
+                    help="replay every harvested history file, not just "
+                         "the newest (live mirrors always replay)")
+    ap.add_argument("--fast", type=float, default=None, metavar="S",
+                    help="fast burn window seconds (default: "
+                         "AVDB_SLO_FAST_S or 60)")
+    ap.add_argument("--slow", type=float, default=None, metavar="S",
+                    help="slow burn window seconds (default: "
+                         "AVDB_SLO_SLOW_S or 300)")
+    ap.add_argument("--burn", type=float, default=None, metavar="X",
+                    help="burn-rate threshold both windows must exceed "
+                         "(default: AVDB_SLO_BURN or 2.0)")
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+    import os
+
+    from annotatedvdb_tpu_torch.obs import timeseries
+    from annotatedvdb_tpu_torch.obs.slo import replay_history
+
+    if not os.path.isdir(args.storeDir):
+        print(f"doctor slo: {args.storeDir}: not a directory",
+              file=sys.stderr)
+        return 2
+    files = timeseries.list_history(args.storeDir)
+    paths = (files["harvested"] if args.all else files["harvested"][:1]) \
+        + files["live"]
+    out = {"store_dir": args.storeDir, "replays": []}
+    for path in paths:
+        try:
+            doc = timeseries.load_history(path)
+            replay = replay_history(
+                doc.get("samples") or [], fast_s=args.fast,
+                slow_s=args.slow, burn_threshold=args.burn,
+            )
+        except (OSError, ValueError) as err:
+            print(f"doctor slo: {path}: cannot replay ({err})",
+                  file=sys.stderr)
+            continue
+        out["replays"].append({
+            "path": path,
+            "worker": doc.get("worker"),
+            "harvested": doc.get("harvested"),
+            **replay,
+        })
+    if not out["replays"]:
+        print(f"doctor slo: {args.storeDir}: no time-series history (no "
+              "harvested files or live mirrors under history/) — serve "
+              "workers record one while AVDB_OBS_TICK_S and "
+              "AVDB_OBS_HISTORY_S are > 0", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(out, indent=1))
+        return 0
+    print(f"slo: {args.storeDir}: {len(out['replays'])} history "
+          f"replay(s)", file=sys.stderr)
+    for rep in out["replays"]:
+        h = rep.get("harvested") or {}
+        why = f" — harvested: {h.get('reason')}" if h else " (live mirror)"
+        print(f"== {rep['path']}{why}", file=sys.stderr)
+        print(f"  worker {rep['worker']}: {rep['ticks']} tick(s) over "
+              f"{rep['span_s']}s", file=sys.stderr)
+        for a in rep["alerts"]:
+            mb = rep["max_burn"].get(a["slo"])
+            print(f"    {a['slo']:<16} {a['state']:<9} max burn "
+                  f"{mb if mb is not None else '-'} "
+                  f"(fired {a['fired_total']} time(s))", file=sys.stderr)
+        for ep in rep["episodes"]:
+            print(f"    {_fmt_t(ep['t'])}  {ep['slo']}: {ep['from']} -> "
+                  f"{ep['to']} (burn fast={ep['burn_fast']} "
+                  f"slow={ep['burn_slow']})", file=sys.stderr)
+    return 0
+
+
+def _trace(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="doctor trace",
+        description="merge the store's background-writer history (ledger "
+                    "run/compact/flush records) and the flight "
+                    "recorder's request/lifecycle timeline into ONE "
+                    "Chrome trace-event JSON — open it in Perfetto to "
+                    "see what the daemon was doing while p99 moved",
+    )
+    ap.add_argument("--storeDir", required=True)
+    ap.add_argument("--out", default=None, metavar="FILE",
+                    help="write the trace JSON here (default: stdout)")
+    args = ap.parse_args(argv)
+    import os
+
+    from annotatedvdb_tpu_torch.obs import flight as flight_mod
+
+    lpath = os.path.join(args.storeDir, "ledger.jsonl")
+    if not os.path.isdir(args.storeDir):
+        print(f"doctor trace: {args.storeDir}: not a directory",
+              file=sys.stderr)
+        return 2
+    events: list[dict] = [
+        {"ph": "M", "name": "process_name", "pid": 1, "tid": 0, "ts": 0,
+         "args": {"name": "avdb-store"}},
+        {"ph": "M", "name": "thread_name", "pid": 1, "tid": 1, "ts": 0,
+         "args": {"name": "background (ledger)"}},
+    ]
+    times: list[float] = []
+
+    def emit(t: float, dur_s: float, name: str, tid: int, **extra):
+        times.append(t)
+        ev = {"ph": "X", "name": name, "pid": 1, "tid": tid,
+              "ts": t * 1e6, "dur": max(dur_s, 0.0) * 1e6}
+        if extra:
+            ev["args"] = extra
+        events.append(ev)
+
+    if os.path.exists(lpath):
+        from annotatedvdb_tpu_torch.store.ledger import AlgorithmLedger
+
+        ledger = AlgorithmLedger(lpath, log=lambda m: None)
+        for rec in ledger.records():
+            kind = rec.get("type")
+            if kind not in ("run", "compact", "flush"):
+                continue
+            ts = float(rec.get("ts") or 0.0)
+            dur = float(rec.get("seconds") or 0.0)
+            # ledger stamps at APPEND time (the end): shift back by the
+            # recorded duration so the span covers the work
+            emit(ts - dur, dur, f"ledger.{kind}", 1,
+                 **{k: rec[k] for k in ("labels", "rows", "status")
+                    if k in rec})
+    boxes = flight_mod.list_blackboxes(args.storeDir)
+    tid = 2
+    for path in boxes["harvested"] + boxes["rings"]:
+        try:
+            if path.endswith(".jsonl"):
+                data = flight_mod.load_harvest(path)
+                evs, label = data["events"], os.path.basename(path)
+            else:
+                evs = flight_mod.decode_ring(path)["events"]
+                label = os.path.basename(path) + " (live)"
+        except (OSError, ValueError):
+            continue
+        events.append({
+            "ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
+            "ts": 0, "args": {"name": f"flight {label}"},
+        })
+        for e in evs:
+            t = float(e.get("t") or 0.0)
+            if e.get("type") == "request":
+                dur = float(e.get("ms") or 0.0) / 1000.0
+                emit(t - dur, dur, e.get("kind", "request"), tid,
+                     trace_id=e.get("trace"), status=e.get("status"))
+            else:
+                times.append(t)
+                events.append({
+                    "ph": "i", "name": e.get("name", "event"), "pid": 1,
+                    "tid": tid, "ts": t * 1e6, "s": "t",
+                    "args": {"detail": e.get("detail", "")},
+                })
+        tid += 1
+    if not times:
+        print(f"doctor trace: {args.storeDir}: nothing to render (no "
+              "ledger records, no flight data)", file=sys.stderr)
+        return 2
+    # rebase to the earliest event so Perfetto opens at t=0
+    base = min(times) * 1e6
+    for ev in events:
+        if ev.get("ph") != "M":
+            ev["ts"] = round(ev["ts"] - base, 1)
+    doc = json.dumps(
+        {"traceEvents": events, "displayTimeUnit": "ms"}
+    )
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(doc)
+        print(f"doctor trace: wrote {len(events)} event(s) to {args.out}",
+              file=sys.stderr)
+    else:
+        print(doc)
     return 0
 
 
@@ -494,10 +791,12 @@ def main(argv=None) -> int:
         return _status(argv[1:])
     if argv and argv[0] == "profile":
         return _profile(argv[1:])
-    if argv and argv[0] in UNPORTED:
-        print(f"doctor {argv[0]} ({UNPORTED[argv[0]]}) is not yet ported "
-              "to annotatedvdb_tpu_torch", file=sys.stderr)
-        return 2
+    if argv and argv[0] == "flight":
+        return _flight(argv[1:])
+    if argv and argv[0] == "trace":
+        return _trace(argv[1:])
+    if argv and argv[0] == "slo":
+        return _slo(argv[1:])
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--storeDir", required=True)

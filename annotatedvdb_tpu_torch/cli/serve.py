@@ -67,9 +67,16 @@ summary`` line to stderr: the kernels' launches,
 the plain versions' calls by device, the breaker's state, the device
 bytes held, the seconds spent loading the store, building interval
 indexes and decoding feature columns, and, in a fleet, the worker index.
+Every serving process runs the reference's health plane by default: a
+crash flight recorder (``<store>/flight/w<i>.ring``, ``AVDB_FLIGHT_EVENTS``
+slots, 0 disables it) and a health plane (the metrics time-series ring
+persisted to ``<store>/history/w<i>.ts.json`` and the SLO burn-rate
+alerts behind ``/alerts`` and ``/healthz``; ``AVDB_OBS_TICK_S=0`` or
+``AVDB_OBS_HISTORY_S=0`` disables it).  The fleet supervisor harvests a
+dead worker's ring and history for ``doctor flight`` and ``doctor slo``.
 ``--_workerIndex``, ``--_listenFd``, ``--_heartbeatFile`` and
-``--_telemetryDir`` (accepted and ignored: the fleet telemetry plane is
-not ported) are the fleet's internal worker handshake.
+``--_telemetryDir`` (where a fleet worker publishes its metric snapshot
+for ``/metrics?fleet=1``) are the fleet's internal worker handshake.
 """
 
 from __future__ import annotations
@@ -164,7 +171,7 @@ def _build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--_heartbeatFile", default=None,
                         help=argparse.SUPPRESS)  # fleet-internal (watchdog)
     parser.add_argument("--_telemetryDir", default=None,
-                        help=argparse.SUPPRESS)  # accepted, not ported
+                        help=argparse.SUPPRESS)  # fleet-internal (?fleet=1)
     parser.add_argument("--_forceHandoff", action="store_true",
                         help=argparse.SUPPRESS)  # tests: the shared-fd path
     return parser
@@ -413,6 +420,11 @@ def _run_single(args, log) -> int:
     except (OSError, ValueError) as err:
         print(f"serve: cannot start: {err}", file=sys.stderr)
         return 1
+    try:
+        flight, health = _open_observers(args, registry, log)
+    except ValueError as err:
+        print(f"serve: cannot start: {err}", file=sys.stderr)
+        return 1
     memtable = None
     if _upserts_enabled(args):
         from annotatedvdb_tpu_torch.serve.snapshot import MemtableSnapshots
@@ -442,11 +454,63 @@ def _run_single(args, log) -> int:
         except OSError as err:
             print(f"serve: worker cannot bind: {err}", file=sys.stderr)
             return 1
+    obs = (flight, health)
     if args.frontend == "threaded":
         return _run_threaded(args, manager, registry, residency, max_wait_s,
-                             log, device, load_s, memtable, tailer)
+                             log, device, load_s, memtable, tailer, obs)
     return _run_aio(args, manager, registry, residency, max_wait_s, log,
-                    device, load_s, memtable, sock, tailer)
+                    device, load_s, memtable, sock, tailer, obs)
+
+
+def _open_observers(args, registry, log):
+    """``(flight, health)`` as the reference builds them for every serving
+    process.  The crash flight recorder is this worker's mmap'd black box
+    under ``<store>/flight/`` (it survives SIGKILL; the supervisor
+    harvests it on any death); a recorder that cannot start never blocks
+    serving.  The health plane is the metrics time-series ring and the SLO
+    burn-rate alerts, persisted under ``<store>/history/``; a knob typo
+    raises ValueError (startup fails loudly), and a plane that resolves
+    to disabled (tick or retention 0) stays None."""
+    from annotatedvdb_tpu_torch.obs import flight as flight_mod
+    from annotatedvdb_tpu_torch.obs.slo import HealthPlane
+    from annotatedvdb_tpu_torch.obs.timeseries import (
+        obs_history_from_env,
+        obs_tick_from_env,
+    )
+
+    flight = None
+    if flight_mod.flight_events_from_env() > 0:
+        try:
+            flight = flight_mod.FlightRecorder(
+                flight_mod.ring_path(args.storeDir, args._workerIndex or 0),
+                log=log,
+            )
+        except (OSError, ValueError) as err:
+            log(f"flight: recorder unavailable ({err}); serving without "
+                "a black box")
+    health = None
+    if obs_tick_from_env() > 0 and obs_history_from_env() > 0:
+        health = HealthPlane(
+            registry, store_dir=args.storeDir,
+            worker=args._workerIndex or 0, log=log,
+        )
+    return flight, health
+
+
+def _close_observers(obs) -> None:
+    """Uninstall the process-global background sink before closing the
+    flight recorder it points at (a later store-layer operation in this
+    process must not record into a dead ring), then close the recorder
+    and force the health plane's final persist (a clean shutdown leaves
+    the full history tail on disk for ``doctor slo``)."""
+    from annotatedvdb_tpu_torch.obs import reqtrace
+
+    flight, health = obs
+    reqtrace.set_background_sink(None, None)
+    if flight is not None:
+        flight.close()
+    if health is not None:
+        health.close()
 
 
 def _open_follower(args, base_manager, registry, log):
@@ -518,7 +582,8 @@ def _attach_follower(ctx, tailer) -> None:
 
 
 def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
-             load_s: float, memtable=None, sock=None, tailer=None) -> int:
+             load_s: float, memtable=None, sock=None, tailer=None,
+             obs=(None, None)) -> int:
     """The event-loop server (the default front end): one process, or a
     fleet worker on the supervisor's port."""
     import gc
@@ -537,7 +602,8 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
             stream_threshold=args.streamThreshold,
             heartbeat_file=args._heartbeatFile,
             heartbeat_index=args._workerIndex or 0,
-            log=log, device=device,
+            log=log, device=device, flight=obs[0],
+            telemetry_dir=args._telemetryDir, health=obs[1],
         )
     except (OSError, ValueError) as err:
         # an unparseable AVDB_SERVE_* knob: the same clean exit as every
@@ -602,6 +668,7 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
         server.shutdown()
         ctx.batcher.close()
         _close_memtable(memtable)
+        _close_observers(obs)
         log("run summary " + json.dumps(
             run_summary(ctx, load_s, args._workerIndex)))
     return 0
@@ -616,7 +683,8 @@ def _close_memtable(memtable) -> None:
 
 
 def _run_threaded(args, manager, registry, residency, max_wait_s, log,
-                  device, load_s: float, memtable=None, tailer=None) -> int:
+                  device, load_s: float, memtable=None, tailer=None,
+                  obs=(None, None)) -> int:
     """The thread-per-connection server (byte-parity reference)."""
     import signal
 
@@ -628,7 +696,9 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
             max_batch=args.maxBatch, max_wait_s=max_wait_s,
             max_queue=args.maxQueue, region_cache_size=args.regionCache,
             registry=registry, residency=residency, memtable=memtable,
-            log=log, device=device,
+            log=log, device=device, flight=obs[0],
+            telemetry_dir=args._telemetryDir,
+            worker_index=args._workerIndex or 0, health=obs[1],
         )
     except (OSError, ValueError) as err:
         print(f"serve: cannot start: {err}", file=sys.stderr)
@@ -654,14 +724,17 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
         httpd.server_close()
         ctx.batcher.close()
         _close_memtable(memtable)
+        _close_observers(obs)
         log("run summary " + json.dumps(run_summary(ctx, load_s)))
     return 0
 
 
 def run_summary(ctx, load_s: float, worker: int | None = None) -> dict:
     """What the server's run did, for the shutdown log: the requests it
-    answered by kind and what it did on the device (``worker`` is a fleet
-    worker's index, absent in one process)."""
+    answered by kind, what it did on the device, and its health plane's
+    samples in the ring (one a tick, within ``AVDB_OBS_HISTORY_S``) and
+    absorbed failures (``worker`` is a fleet worker's index, absent in one
+    process)."""
     import torch
 
     from annotatedvdb_tpu_torch.ops import export_pack, intervals, stats
@@ -689,6 +762,11 @@ def run_summary(ctx, load_s: float, worker: int | None = None) -> dict:
         "store_load_s": load_s,
         "index_build_s": engine.index_build_s,
         "decode_s": engine.decode_s,
+        "health": None if ctx.health is None else {
+            "samples": len(ctx.health.ring.samples()),
+            "span_s": ctx.health.ring.span_s(),
+            "errors": ctx.health.errors,
+        },
     }
 
 

@@ -1,9 +1,15 @@
 """Thread-safe metrics registry: counters, gauges, fixed-bucket histograms.
 
-Port of ``annotatedvdb_tpu/obs/metrics.py``, trimmed to what the query
-server uses: get-or-create accessors and the Prometheus text exposition of
-``GET /metrics``.  The JSON snapshot, the textfile writers (``--metricsOut``,
-profiling work) and the fleet merge are not ported.
+Port of ``annotatedvdb_tpu/obs/metrics.py`` for the query server and its
+health plane: get-or-create accessors, the Prometheus exposition of
+``GET /metrics``, the JSON snapshot the time-series ring samples
+(``obs/timeseries.py``), :func:`bucket_quantile` (window quantiles from
+snapshot deltas), and the fleet merge and rendering behind
+``/metrics?fleet=1``.  The textfile writers (``--metricsOut``) and the
+loaders' ``LoadObserver`` are not ported.
+
+Histograms use fixed bucket edges chosen at creation, so two snapshots are
+bucket-comparable by construction and rendering is O(buckets).
 """
 
 from __future__ import annotations
@@ -32,13 +38,43 @@ def _fmt(v: float) -> str:
     return repr(f)
 
 
+def bucket_quantile(edges, counts, count, q: float) -> float | None:
+    """Quantile estimate from fixed histogram buckets (the Prometheus
+    ``histogram_quantile`` interpolation): locate the bucket holding rank
+    ``q*count`` and interpolate linearly inside it.  Works on the
+    ``{"edges", "counts", "count"}`` triple every histogram snapshot
+    carries, so the time-series ring can estimate quantiles from
+    persisted snapshot DELTAS without live metric objects.
+
+    Returns None for an empty histogram (no rank to locate).  A rank
+    landing in the open-ended +Inf tail returns the highest finite edge —
+    the honest answer is "at least this", and a finite number keeps SLO
+    arithmetic total.
+    """
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"quantile {q} outside [0, 1]")
+    edges = tuple(float(e) for e in edges)
+    counts = [int(c) for c in counts]
+    count = int(count)
+    if count <= 0 or not edges or len(counts) != len(edges) + 1:
+        return None
+    rank = q * count
+    cum = 0
+    for i, n in enumerate(counts[:-1]):
+        prev_cum = cum
+        cum += n
+        if cum >= rank and n > 0:
+            hi = edges[i]
+            lo = edges[i - 1] if i > 0 else min(0.0, edges[0])
+            return lo + (hi - lo) * ((rank - prev_cum) / n)
+    return edges[-1]
+
+
 def _label_str(labels: dict | None) -> str:
     if not labels:
         return ""
-
     def esc(v) -> str:
         return str(v).replace("\\", "\\\\").replace('"', '\\"')
-
     inner = ",".join(
         f'{k}="{esc(v)}"' for k, v in sorted(labels.items())
     )
@@ -67,12 +103,15 @@ class Counter:
         with self._lock:
             return self._value
 
+    def snapshot(self) -> dict:
+        return {"value": self.value}
+
     def render(self, lines: list) -> None:
         lines.append(f"{self.name}{_label_str(self.labels)} {_fmt(self.value)}")
 
 
 class Gauge:
-    """Point-in-time value (queue depth, resident bytes, brownout level)."""
+    """Point-in-time value (queue depth, resident rows, overlap factor)."""
 
     kind = "gauge"
 
@@ -91,14 +130,21 @@ class Gauge:
         with self._lock:
             return self._value
 
+    def snapshot(self) -> dict:
+        return {"value": self.value}
+
     def render(self, lines: list) -> None:
         lines.append(f"{self.name}{_label_str(self.labels)} {_fmt(self.value)}")
 
 
 class Histogram:
-    """Fixed-bucket histogram (cumulative ``le`` semantics on export);
-    ``edges`` are the finite upper bounds, an implicit +Inf bucket catches
-    the tail."""
+    """Fixed-bucket histogram (cumulative ``le`` semantics on export).
+
+    ``edges`` are the finite upper bounds, strictly increasing; an implicit
+    +Inf bucket catches the tail.  ``observe`` is O(log buckets) and takes
+    one lock — cheap enough for chunk-granularity observation, NOT meant for
+    per-row loops (loaders observe per chunk by design).
+    """
 
     kind = "histogram"
 
@@ -130,8 +176,13 @@ class Histogram:
 
     def snapshot(self) -> dict:
         with self._lock:
-            return {"edges": list(self.edges), "counts": list(self._counts),
-                    "sum": self._sum, "count": self._count}
+            counts = list(self._counts)
+            return {
+                "edges": list(self.edges),
+                "counts": counts,
+                "sum": self._sum,
+                "count": self._count,
+            }
 
     def render(self, lines: list) -> None:
         snap = self.snapshot()
@@ -150,9 +201,12 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Named metric store: get-or-create accessors and the Prometheus
-    exposition.  Creation is idempotent per (name, labels); asking for an
-    existing name with a different type raises."""
+    """Named metric store: get-or-create accessors, JSON + Prometheus export.
+
+    Creation is idempotent per (name, frozen labels) — a loader re-run in the
+    same process reuses its metrics; asking for an existing name with a
+    different TYPE is a bug and raises.
+    """
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -195,8 +249,16 @@ class MetricsRegistry:
         with self._lock:
             return list(self._metrics.values())
 
+    def snapshot(self) -> dict:
+        """{name: [{labels, kind, ...values}]} — the JSON export shape."""
+        out: dict[str, list] = {}
+        for m in self.metrics():
+            entry = {"kind": m.kind, "labels": m.labels, **m.snapshot()}
+            out.setdefault(m.name, []).append(entry)
+        return out
+
     def render_prometheus(self) -> str:
-        """Prometheus exposition text."""
+        """Prometheus exposition text (textfile-collector compatible)."""
         lines: list[str] = []
         seen_meta: set[str] = set()
         for m in sorted(self.metrics(), key=lambda m: m.name):
@@ -207,3 +269,91 @@ class MetricsRegistry:
                 lines.append(f"# TYPE {m.name} {m.kind}")
             m.render(lines)
         return "\n".join(lines) + "\n"
+
+
+def merge_snapshots(snaps: list) -> dict:
+    """Merge several registries' :meth:`MetricsRegistry.snapshot` dicts
+    into one fleet-wide view — the ``/metrics?fleet=1`` aggregation:
+
+    - **counters / histograms sum** (requests served by any worker are
+      requests served by the fleet; histogram counts add bucket-wise when
+      the edges agree, and a mismatched-edge series keeps the first
+      worker's view rather than inventing a hybrid);
+    - **gauges take the max** (queue depth, brownout level, resident
+      bytes: the fleet-level question is "how hot is the hottest
+      worker", and summing a level would be meaningless).
+    """
+    out: dict[str, list] = {}
+    index: dict[tuple, dict] = {}
+    for snap in snaps:
+        for name, entries in snap.items():
+            for e in entries:
+                key = (name, tuple(sorted((e.get("labels") or {}).items())))
+                have = index.get(key)
+                if have is None:
+                    have = index[key] = {
+                        "kind": e.get("kind"),
+                        "labels": dict(e.get("labels") or {}),
+                    }
+                    if e.get("kind") == "histogram":
+                        have["edges"] = list(e.get("edges") or [])
+                        have["counts"] = list(e.get("counts") or [])
+                        have["sum"] = float(e.get("sum") or 0.0)
+                        have["count"] = int(e.get("count") or 0)
+                    else:
+                        have["value"] = float(e.get("value") or 0.0)
+                    out.setdefault(name, []).append(have)
+                    continue
+                if have["kind"] != e.get("kind"):
+                    continue  # cross-worker kind clash: keep the first
+                if have["kind"] == "histogram":
+                    if list(e.get("edges") or []) != have["edges"]:
+                        continue
+                    counts = list(e.get("counts") or [])
+                    if len(counts) == len(have["counts"]):
+                        have["counts"] = [
+                            a + b for a, b in zip(have["counts"], counts)
+                        ]
+                    have["sum"] += float(e.get("sum") or 0.0)
+                    have["count"] += int(e.get("count") or 0)
+                elif have["kind"] == "counter":
+                    have["value"] += float(e.get("value") or 0.0)
+                else:  # gauge
+                    have["value"] = max(
+                        have["value"], float(e.get("value") or 0.0)
+                    )
+    return out
+
+
+def render_snapshot(snapshot: dict) -> str:
+    """Prometheus exposition text from a snapshot dict (the shape
+    :meth:`MetricsRegistry.snapshot` and :func:`merge_snapshots` emit) —
+    the fleet view renders from merged FILES, so rendering cannot go
+    through live metric objects."""
+    lines: list[str] = []
+    for name in sorted(snapshot):
+        entries = snapshot[name]
+        if not entries:
+            continue
+        lines.append(f"# TYPE {name} {entries[0].get('kind')}")
+        for e in sorted(entries,
+                        key=lambda e: _label_str(e.get("labels"))):
+            labels = e.get("labels") or {}
+            if e.get("kind") == "histogram":
+                cum = 0
+                for edge, n in zip(e.get("edges") or [],
+                                   e.get("counts") or []):
+                    cum += n
+                    ls = _label_str(dict(labels, le=_fmt(edge)))
+                    lines.append(f"{name}_bucket{ls} {cum}")
+                ls = _label_str(dict(labels, le="+Inf"))
+                lines.append(f"{name}_bucket{ls} {e.get('count', 0)}")
+                ls = _label_str(labels)
+                lines.append(f"{name}_sum{ls} {_fmt(e.get('sum', 0.0))}")
+                lines.append(f"{name}_count{ls} {e.get('count', 0)}")
+            else:
+                lines.append(
+                    f"{name}{_label_str(labels)} "
+                    f"{_fmt(e.get('value', 0.0))}"
+                )
+    return "\n".join(lines) + "\n"

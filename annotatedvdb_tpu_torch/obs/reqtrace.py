@@ -5,10 +5,14 @@ the batcher and the threaded handler call: :func:`activate` and
 :func:`span_active` (engine sub-spans onto the calling thread's trace),
 and :class:`TraceRecorder` with ``begin`` (a :class:`RequestTrace`, or None
 when ``AVDB_TRACE_SAMPLE`` disarms recording — the no-op path every caller
-guards on) and ``finish`` (the ``avdb_stage_seconds`` histograms and the
-``AVDB_TRACE_SLOW_MS`` slow-request log).  The span ring, its Chrome-trace
-export (``/debug/trace``), the flight recorder feed and the background
-sinks are not ported.
+guards on) and ``finish`` (the ``avdb_stage_seconds`` histograms, the
+``AVDB_TRACE_SLOW_MS`` slow-request log and the flight recorder's request
+summary), and the background-writer sink (:func:`set_background_sink`,
+:func:`background_span`, :func:`lifecycle_event`): the maintenance
+daemon's passes, memtable flushes, compaction groups and WAL rotations
+record spans and lifecycle events into the process's flight recorder
+without the store layer importing serve code.  The span ring and its
+Chrome-trace export (``/debug/trace``) are not ported.
 """
 
 from __future__ import annotations
@@ -93,12 +97,63 @@ def span_active(name: str, seconds: float) -> None:
         trace.span(name, seconds)
 
 
+# -- background writers (store layer joins the plane without importing it) --
+
+#: (span_sink, event_sink) — set by the serving/supervisor process that
+#: owns a recorder; store-layer writers call the module functions and a
+#: process without a recorder pays one ``is None`` check
+_BACKGROUND: tuple | None = None
+
+
+def set_background_sink(span_sink, event_sink) -> None:
+    """Install the process's background sinks: ``span_sink(name, seconds,
+    meta)`` records one background-track span, ``event_sink(name,
+    detail)`` one lifecycle event (flight recorder).  Either may be None;
+    pass ``(None, None)`` to clear."""
+    global _BACKGROUND
+    _BACKGROUND = (span_sink, event_sink) \
+        if (span_sink is not None or event_sink is not None) else None
+
+
+@contextlib.contextmanager
+def background_span(name: str, **meta):
+    """Time one background-writer unit of work (a memtable flush, a
+    compaction group, a daemon pass) onto the ``background`` track.  The
+    sink must never take the writer down: failures are swallowed — losing
+    a span is always better than losing a flush."""
+    sink = _BACKGROUND
+    if sink is None or sink[0] is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        try:
+            sink[0](name, time.perf_counter() - t0, meta or None)
+        except Exception:  # avdb: noqa[AVDB602] -- observability must never take down the background writer it observes
+            pass
+
+
+def lifecycle_event(name: str, detail: str) -> None:
+    """Record one lifecycle event (brownout change, breaker trip, daemon
+    pass transition, WAL rotation) into the process's flight recorder —
+    a no-op without a sink, and a swallowed failure with one."""
+    sink = _BACKGROUND
+    if sink is None or sink[1] is None:
+        return
+    try:
+        sink[1](name, detail)
+    except Exception:  # avdb: noqa[AVDB602] -- observability must never take down the code path it observes
+        pass
+
+
 class TraceRecorder:
-    """Per-process span recording: the stage histograms and the
-    slow-request log."""
+    """Per-process span recording: the stage histograms, the slow-request
+    log and the flight-recorder feed."""
 
     def __init__(self, registry=None, slow_ms: float | None = None,
-                 sample: float | None = None, log=None):
+                 sample: float | None = None, log=None, flight=None):
         self.slow_s = (
             slow_ms_from_env() if slow_ms is None else max(float(slow_ms), 0.0)
         ) / 1000.0
@@ -107,6 +162,7 @@ class TraceRecorder:
             else min(max(float(sample), 0.0), 1.0)
         )
         self.log = log if log is not None else (lambda msg: None)
+        self.flight = flight
         self._rng = random.Random(0xA5DB7)
         self._hist = {}
         self._m_slow = None
@@ -130,8 +186,8 @@ class TraceRecorder:
         return RequestTrace(trace_id, kind)
 
     def finish(self, trace: RequestTrace | None, status: int = 200) -> None:
-        """Seal one request's trace: feed the stage histograms and log it
-        when slow."""
+        """Seal one request's trace: feed the stage histograms, log it when
+        slow, and write the flight-recorder request summary."""
         if trace is None:
             return
         total = (time.perf_counter_ns() - trace.t0_ns) / 1e9
@@ -154,3 +210,28 @@ class TraceRecorder:
                 f"status={status} total={total * 1000:.2f}ms {breakdown}"
                 + (f" spans={len(trace.spans)}" if trace.spans else "")
             )
+        if self.flight is not None:
+            try:
+                self.flight.request(
+                    trace.trace_id, trace.kind, int(status), total,
+                    trace.stages,
+                )
+            except Exception:  # avdb: noqa[AVDB602] -- the flight recorder must never fail the request it records
+                pass
+
+    def background(self, name: str, seconds: float, meta=None) -> None:
+        """One background-track span (the module sink's target): the
+        background stage histogram and a flight-recorder event."""
+        h = self._hist.get("background")
+        if h is not None:
+            h.observe(seconds)
+        if self.flight is not None:
+            try:
+                detail = f"{name} {seconds * 1000:.1f}ms"
+                if meta:
+                    detail += " " + ",".join(
+                        f"{k}={v}" for k, v in sorted(meta.items())
+                    )
+                self.flight.event("background", detail)
+            except Exception:  # avdb: noqa[AVDB602] -- the flight recorder must never fail the writer it records
+                pass

@@ -51,12 +51,20 @@ The replication ship routes (``GET /repl/manifest``, ``/repl/segment``,
 server's shared builders; a follower's upserts answer the same 403 and
 its ``/readyz`` the same lag gate (``serve/http.py``).
 
-Not ported: fleet telemetry and ``/metrics?fleet=1`` (a worker accepts
-and ignores ``--_telemetryDir``), the flight recorder, the health plane,
-the Chrome tracer, the history, alert, ``/debug/trace`` and ``/_chaos``
-routes (all answer the unknown-route 404, as the threaded server does),
-the mesh executor, and the ``serve.accept`` / ``serve.wedge`` /
-``serve.batch`` fault points.
+The health plane rides the same tick: this worker's metric snapshot is
+published into the fleet telemetry directory (``--_telemetryDir``) for
+any sibling's ``/metrics?fleet=1``, the flight recorder's buffered
+request summaries are flushed, and the health plane (time-series sample,
+SLO evaluation, history persist) ticks; each is pushed onto the executor
+pool with at most one in flight, beside the panels.  ``GET /alerts`` and
+its ``?fleet=1`` view, ``GET /metrics/history`` and ``/metrics?fleet=1``
+answer through the threaded server's shared payload functions (the file-reading
+views on the pool).
+
+Not ported: the Chrome tracer, the chaos plane's ``/debug/trace`` and
+``/_chaos`` routes (both answer the unknown-route 404, as the threaded
+server does), the mesh executor, and the ``serve.accept`` /
+``serve.wedge`` / ``serve.batch`` fault points.
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ from annotatedvdb_tpu_torch.serve.fleet import HB_SLOT
 from annotatedvdb_tpu_torch.serve.http import (
     _RETURNED_RE,
     BULK_BODY_ERROR,
+    HISTORY_ROUTE,
     MSG_BROWNOUT_BULK,
     MSG_BROWNOUT_EXPORT,
     MSG_BROWNOUT_REGION,
@@ -114,7 +123,10 @@ from annotatedvdb_tpu_torch.serve.http import (
     UPSERT_BODY_ERROR,
     UPSERT_ROUTE,
     ServeContext,
+    alerts_payload,
     healthz_payload,
+    metrics_history_payload,
+    metrics_payload,
     parse_region_params,
     parse_regions_body,
     parse_stats_body,
@@ -658,6 +670,22 @@ class AioServer:
         self._refresh_due = getattr(ctx.manager, "refresh_due", None)
         self._refresh_inflight = False
         self._bridge: _CompletionBridge | None = None
+        #: fleet telemetry publishing: the maintenance tick schedules a
+        #: snapshot-file write (on the POOL — the loop never does file
+        #: I/O) so any sibling's /metrics?fleet=1 can sum this worker in
+        self._telemetry_last = 0.0
+        self._telemetry_inflight = False
+        self._telemetry_error_logged = False
+        #: flight flushes run from the tick on the POOL, never inline on
+        #: the loop (the whole point of buffering the request summaries)
+        self._flight_flush_inflight = False
+        if ctx.flight is not None:
+            ctx.flight_flush_inline = False
+        #: health-plane ticks likewise run from the tick on the POOL
+        #: (the persist half is file I/O, banned on the loop)
+        self._health_tick_inflight = False
+        if ctx.health is not None:
+            ctx.health_tick_inline = False
         self._loop_batcher = isinstance(ctx.batcher, LoopBatcher)
 
     # -- lifecycle ----------------------------------------------------------
@@ -761,11 +789,11 @@ class AioServer:
 
     def _tick(self) -> None:
         """One maintenance pass ON the event loop: one heartbeat slot
-        write, a brownout-ladder evaluation and the memtable flush check
-        (the reference's telemetry, flight and health ticks are not
-        ported).  Everything that proves this loop makes progress runs
-        here, so a wedged loop cannot look healthy from a helper
-        thread."""
+        write, a brownout-ladder evaluation and the memtable flush check,
+        then the telemetry publish, the flight flush and the health tick,
+        each handed to the executor pool with at most one in flight.
+        Everything that proves this loop makes progress runs here, so a
+        wedged loop cannot look healthy from a helper thread."""
         if self._stop is not None and self._stop.is_set():
             return
         try:
@@ -788,10 +816,96 @@ class AioServer:
                 # memtable age/size flush triggers (the flush itself runs
                 # on its own thread; this is one lock and a compare)
                 self.ctx.maybe_flush_memtable()
+            with contextlib.suppress(Exception):
+                self._maybe_publish_telemetry()
+            with contextlib.suppress(Exception):
+                self._maybe_flush_flight()
+            with contextlib.suppress(Exception):
+                self._maybe_tick_health()
         finally:
             # the next tick is unconditional: whatever one pass hit, the
             # heartbeat and brownout machinery must keep running
             self._loop.call_later(self.TICK_S, self._tick)
+
+    #: seconds between fleet-telemetry snapshot publishes
+    TELEMETRY_S = 1.0
+
+    def _maybe_publish_telemetry(self) -> None:
+        """Time-gated, one in flight: schedule this worker's metric
+        snapshot write onto the executor pool (the tick runs ON the
+        loop, where file I/O is banned)."""
+        tdir = self.ctx.telemetry_dir
+        if tdir is None or self._telemetry_inflight:
+            return
+        now = time.monotonic()
+        if now - self._telemetry_last < self.TELEMETRY_S:
+            return
+        self._telemetry_last = now
+        self._telemetry_inflight = True
+        fut = self._pool.submit(self._publish_telemetry)
+        fut.add_done_callback(
+            lambda _f: setattr(self, "_telemetry_inflight", False)
+        )
+
+    def _maybe_flush_flight(self) -> None:
+        """Drain the flight recorder's buffered request summaries on the
+        executor pool (one in flight at a time; the tick itself only
+        schedules)."""
+        flight = self.ctx.flight
+        if flight is None or self._flight_flush_inflight:
+            return
+        self._flight_flush_inflight = True
+
+        def run():
+            try:
+                flight.flush(limit=flight.FLUSH_BATCH)
+            finally:
+                self._flight_flush_inflight = False
+
+        self._pool.submit(run)
+
+    def _maybe_tick_health(self) -> None:
+        """Health-plane tick (time-series sample + SLO evaluation +
+        history persist) on the executor pool — the persist half is file
+        I/O, banned on the loop.  One in flight; the plane's own
+        ``due()`` gates the cadence, and ``tick()`` absorbs its own
+        failures."""
+        health = self.ctx.health
+        if health is None or self._health_tick_inflight \
+                or not health.due():
+            return
+        self._health_tick_inflight = True
+
+        def run():
+            try:
+                health.tick()
+            finally:
+                self._health_tick_inflight = False
+
+        self._pool.submit(run)
+
+    def _publish_telemetry(self) -> None:
+        """Pool half: atomically replace this worker's snapshot file —
+        a sibling scraping ``?fleet=1`` must never read a torn JSON."""
+        try:
+            path = os.path.join(
+                self.ctx.telemetry_dir,
+                f"worker-{self.ctx.worker_index}.json",
+            )
+            tmp = f"{path}.tmp{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump({
+                    "index": self.ctx.worker_index,
+                    "pid": os.getpid(),
+                    "t": time.time(),
+                    "metrics": self.ctx.registry.snapshot(),
+                }, f)
+            os.replace(tmp, path)
+        except (OSError, ValueError, TypeError) as err:
+            if not self._telemetry_error_logged:
+                self._telemetry_error_logged = True
+                self.ctx.log(f"telemetry publish failed ({err}); "
+                             "fleet view will miss this worker")
 
     # -- connection handling ------------------------------------------------
 
@@ -1132,10 +1246,43 @@ class AioServer:
                 status, body = readyz_payload(ctx)
                 return _resp(status, body), keep, tid
             if path == "/metrics":
-                return _resp(200, ctx.registry.render_prometheus(),
+                if "fleet" in (url.query or ""):
+                    # the fleet view reads sibling snapshot FILES — that
+                    # is executor work, never event-loop work
+                    fut = self._loop.run_in_executor(
+                        self._pool,
+                        lambda: _resp(200, metrics_payload(ctx, url.query),
+                                      content_type=_CT_TEXT),
+                    )
+                    return ("exec", fut, "metrics", time.perf_counter(),
+                            tid, None), keep, tid
+                return _resp(200, metrics_payload(ctx, url.query),
                              content_type=_CT_TEXT), keep, tid
             if path == "/stats":
                 return _resp(200, stats_payload(ctx)), keep, tid
+            if path == "/alerts":
+                if "fleet" in (url.query or ""):
+                    # the fleet view reads sibling history FILES — that
+                    # is executor work, never event-loop work
+                    fut = self._loop.run_in_executor(
+                        self._pool,
+                        lambda: _resp(200, alerts_payload(ctx, url.query)),
+                    )
+                    return ("exec", fut, "alerts", time.perf_counter(),
+                            tid, None), keep, tid
+                return _resp(200, alerts_payload(ctx, url.query)), keep, tid
+            if path == HISTORY_ROUTE:
+                # even the solo view walks the whole ring deriving
+                # rates/quantiles per sample — executor work like the
+                # fleet file reads, never event-loop work
+                fut = self._loop.run_in_executor(
+                    self._pool,
+                    lambda: _resp(
+                        200, metrics_history_payload(ctx, url.query)
+                    ),
+                )
+                return ("exec", fut, "history", time.perf_counter(),
+                        tid, None), keep, tid
             if path == REPL_MANIFEST_ROUTE:
                 # the ship document stats the manifest and scans WAL
                 # stable prefixes — file I/O, executor work
@@ -1923,7 +2070,9 @@ def build_aio_server(store_dir: str | None = None, manager=None,
                      stream_threshold: int | None = None,
                      heartbeat_file: str | None = None,
                      heartbeat_index: int = 0,
-                     log=None, device=None) -> AioServer:
+                     log=None, device=None, flight=None,
+                     telemetry_dir: str | None = None,
+                     health=None) -> AioServer:
     """Wire manager -> engine (on ``device``: ``cuda`` unless the caller
     asks for ``cpu``) -> loop batcher -> event-loop server (not yet
     serving; call ``serve_forever`` or ``start_background``).  The engine
@@ -1947,7 +2096,9 @@ def build_aio_server(store_dir: str | None = None, manager=None,
         max_queue=max_queue, registry=registry,
     )
     ctx = ServeContext(manager, engine, batcher, registry,
-                       memtable=memtable, log=log)
+                       memtable=memtable, log=log, flight=flight,
+                       telemetry_dir=telemetry_dir,
+                       worker_index=heartbeat_index, health=health)
     return AioServer(
         ctx, host=host, port=port, sock=sock, client_rate=client_rate,
         stream_threshold=stream_threshold,

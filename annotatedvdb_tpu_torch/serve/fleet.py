@@ -43,16 +43,26 @@ first pass imports the store's segment reader, and with it ``torch``
 (no CUDA context is made: compaction is host work).  A daemon that fails
 to start is logged and the fleet serves on, as in the reference.
 
-Not ported: the fleet telemetry directory (``_publish_fleet_telemetry``; workers
-accept and ignore ``--_telemetryDir``), the flight and history harvests
-(``_harvest_flight``, ``_harvest_history``) and their knob checks.
+The supervisor also runs the fleet's health plane: a telemetry directory
+(``--_telemetryDir``) where every worker publishes its metric snapshot and
+the supervisor its ``fleet.json`` (live workers, respawns, oldest worker
+age), which any worker's ``/metrics?fleet=1`` merges; its own flight ring
+(``<store>/flight/supervisor.ring``) for the daemon's and the watchdog's
+lifecycle events; and, on any worker death, the harvest of the dead
+worker's flight ring into ``<store>/flight/<ms>-w<i>.jsonl`` and of its
+history mirror into ``<store>/history/<ms>-w<i>.json`` before the
+respawn (``doctor flight`` and ``doctor slo`` read both).  The
+``AVDB_OBS_*``/``AVDB_SLO_*`` knobs resolve at construction, so a typo
+fails the fleet's startup.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import mmap
 import os
+import shutil
 import signal
 import socket
 import struct
@@ -60,6 +70,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from annotatedvdb_tpu_torch.obs import reqtrace
 
 #: one heartbeat slot per worker in the shared mmap'd file:
 #: ``(beat_time, p99_exceedance_ewma, brownout_level, queue_depth)``.
@@ -193,6 +205,58 @@ class ServeFleet:
         self._respawns: dict[int, int] = {}
         self._spawn_time: dict[int, float] = {}
         self._stopping = False
+        self._respawns_total = 0  # never resets: the avdb_fleet_ series
+        self._wedged: set[int] = set()  # killed-by-watchdog markers
+        # fleet telemetry plane: workers publish per-worker metric
+        # snapshot files here (their aio tick writes them) and the
+        # supervisor publishes fleet.json — any worker's
+        # /metrics?fleet=1 reads the directory and answers for the fleet
+        self._telemetry_dir = tempfile.mkdtemp(prefix="avdb_serve_tm_")
+        self._telemetry_last = 0.0
+        # crash flight recorder: the supervisor harvests a dead/wedged
+        # worker's mmap'd ring into <store>/flight/ and keeps its own
+        # ring for daemon/lifecycle events (observability failures are
+        # absorbed — the fleet serves with or without a black box)
+        from annotatedvdb_tpu_torch.obs import flight as flight_mod
+
+        self._flight_enabled = flight_mod.flight_events_from_env() > 0
+        self._sup_flight = None
+        if self._flight_enabled:
+            try:
+                self._sup_flight = flight_mod.FlightRecorder(
+                    os.path.join(store_dir, flight_mod.FLIGHT_DIR,
+                                 "supervisor.ring"),
+                    log=self.log,
+                )
+                # daemon pass transitions / lifecycle events from THIS
+                # process land on the supervisor's ring
+                reqtrace.set_background_sink(None, self._sup_flight.event)
+            except OSError as err:
+                self.log(f"flight: supervisor ring unavailable ({err}); "
+                         "continuing without it")
+        # the health plane's knobs resolve NOW, for the same reason as
+        # disk_reserve above: a typo'd AVDB_OBS_*/AVDB_SLO_* must fail
+        # fleet startup (rc 1), not crash every spawned worker in a loop.
+        # The supervisor also harvests dead workers' history mirrors, so
+        # it needs the enablement fact itself.
+        from annotatedvdb_tpu_torch.obs.slo import (
+            slo_avail_target_from_env,
+            slo_burn_from_env,
+            slo_load_floor_from_env,
+            slo_slow_window_from_env,
+        )
+        from annotatedvdb_tpu_torch.obs.timeseries import (
+            obs_history_from_env,
+            obs_tick_from_env,
+        )
+
+        self._history_enabled = (
+            obs_tick_from_env() > 0 and obs_history_from_env() > 0
+        )
+        slo_slow_window_from_env()  # also validates AVDB_SLO_FAST_S
+        slo_burn_from_env()
+        slo_avail_target_from_env()
+        slo_load_floor_from_env()
 
     # -- worker lifecycle ---------------------------------------------------
 
@@ -203,6 +267,7 @@ class ServeFleet:
             "--host", self.host, "--port", str(self.port),
             "--_workerIndex", str(index),
             "--_heartbeatFile", self._hb_path,
+            "--_telemetryDir", self._telemetry_dir,
         ]
         if not self.reuseport:
             cmd += ["--_listenFd", str(self._reserve.fileno())]
@@ -307,10 +372,18 @@ class ServeFleet:
             while not self._stopping:
                 time.sleep(0.1)
                 self._check_wedged()
+                self._publish_fleet_telemetry()
                 for i, proc in list(self._procs.items()):
                     rc = proc.poll()
                     if rc is None or self._stopping:
                         continue
+                    # harvest the black box first: the respawn will
+                    # truncate the ring for its fresh incarnation
+                    reason = "wedged (watchdog SIGKILL)" \
+                        if i in self._wedged else f"died rc={rc}"
+                    self._wedged.discard(i)
+                    self._harvest_flight(i, reason)
+                    self._harvest_history(i, reason)
                     lived = time.monotonic() - self._spawn_time.get(i, 0.0)
                     if lived >= self.HEALTHY_RUN_S:
                         self._respawns[i] = 0  # streak broken: healthy run
@@ -336,6 +409,7 @@ class ServeFleet:
                             and not self._stopping:
                         time.sleep(0.1)
                     if not self._stopping:
+                        self._respawns_total += 1
                         self._spawn(i, respawn=True)
             if daemon is not None:
                 # stop maintenance before draining workers: an in-flight
@@ -355,6 +429,78 @@ class ServeFleet:
                 self._hb_mm.close()
             with contextlib.suppress(OSError):
                 os.unlink(self._hb_path)
+            reqtrace.set_background_sink(None, None)
+            if self._sup_flight is not None:
+                self._sup_flight.close()
+            shutil.rmtree(self._telemetry_dir, ignore_errors=True)
+
+    #: seconds between fleet.json publishes
+    TELEMETRY_S = 1.0
+
+    def _publish_fleet_telemetry(self) -> None:
+        """Atomically publish the supervisor's fleet facts (live worker
+        count, cumulative respawns, oldest worker age) next to the
+        workers' metric snapshots — the ``avdb_fleet_*`` series any
+        worker's ``?fleet=1`` scrape renders.  Best-effort: telemetry
+        must never stall the restart loop."""
+        now = time.monotonic()
+        if now - self._telemetry_last < self.TELEMETRY_S:
+            return
+        self._telemetry_last = now
+        live_ages = [
+            now - self._spawn_time.get(i, now)
+            for i, p in self._procs.items() if p.poll() is None
+        ]
+        doc = {
+            "t": time.time(),
+            "workers_live": len(live_ages),
+            "respawns_total": self._respawns_total,
+            "worker_age_seconds": round(max(live_ages, default=0.0), 3),
+        }
+        tmp = os.path.join(self._telemetry_dir,
+                           f".fleet.json.tmp{os.getpid()}")
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, os.path.join(self._telemetry_dir, "fleet.json"))
+        except OSError as err:
+            self.log(f"fleet: telemetry publish failed ({err})")
+
+    def _harvest_flight(self, index: int, reason: str) -> None:
+        """Harvest a dead worker's flight ring into
+        ``<store>/flight/<ts>-w<idx>.jsonl``.  Every failure is absorbed
+        (incl. the ``obs.flight`` fault point): the black box must never
+        stall a respawn."""
+        if not self._flight_enabled:
+            return
+        from annotatedvdb_tpu_torch.obs import flight as flight_mod
+
+        try:
+            flight_mod.harvest(
+                flight_mod.ring_path(self.store_dir, index),
+                self.store_dir, index, reason, log=self.log,
+            )
+        except Exception as err:
+            self.log(f"flight: harvest of worker {index} failed "
+                     f"({type(err).__name__}: {err}); continuing")
+
+    def _harvest_history(self, index: int, reason: str) -> None:
+        """Harvest a dead worker's time-series history mirror into
+        ``<store>/history/<ms>-w<idx>.json`` for ``doctor slo``.  Every
+        failure is absorbed (incl. the ``obs.tick`` fault point): the
+        health plane must never stall a respawn."""
+        if not self._history_enabled:
+            return
+        from annotatedvdb_tpu_torch.obs import timeseries
+
+        try:
+            timeseries.harvest(
+                timeseries.history_path(self.store_dir, index),
+                self.store_dir, index, reason, log=self.log,
+            )
+        except Exception as err:
+            self.log(f"timeseries: harvest of worker {index} failed "
+                     f"({type(err).__name__}: {err}); continuing")
 
     def _check_wedged(self) -> None:
         """SIGKILL workers that are alive but stuck: a worker whose
@@ -380,6 +526,13 @@ class ServeFleet:
                 )
                 self._hb_mm[i * HB_SLOT.size:(i + 1) * HB_SLOT.size] = \
                     b"\x00" * HB_SLOT.size
+                # the death loop harvests the flight ring; this marker
+                # gives the harvest its honest reason
+                self._wedged.add(i)
+                if self._sup_flight is not None:
+                    self._sup_flight.event(
+                        "watchdog", f"worker {i} wedged; SIGKILL"
+                    )
                 with contextlib.suppress(OSError):
                     proc.kill()
 

@@ -41,11 +41,17 @@ follower's ``/readyz`` answers 503 while its replication lag exceeds
 
 Admission is bounded everywhere (429), the brownout ladder sheds bulk
 work (503), deadlines shed dead requests (504), client errors are 400,
-engine faults 500; error bodies are JSON.  Every other path — among them
-``/alerts``, ``/metrics/history``, ``/debug/trace`` and ``/_chaos``, not
-ported yet — answers the reference's unknown-route 404.  ``/metrics``
-renders this process's registry (the reference's ``?fleet=1`` view is not
-ported).
+engine faults 500; error bodies are JSON.
+
+The health plane answers on both front ends: ``GET /metrics`` renders this
+process's registry, and ``?fleet=1`` the fleet view (the workers'
+published snapshots summed, gauges maxed, plus the supervisor's
+``avdb_fleet_*`` series); ``GET /alerts`` the SLO alert states and
+``GET /metrics/history`` the time-series ring as derived series (both
+with ``?fleet=1`` views over the siblings' persisted history mirrors);
+``/healthz`` carries the firing count and the worst alert state.  The
+chaos plane's ``/debug/trace`` and ``POST /_chaos`` are not ported: they
+answer the reference's unknown-route 404, as every other path does.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ from annotatedvdb_tpu_torch.export.stream import (
 from annotatedvdb_tpu_torch.obs import reqtrace as reqtrace_mod
 from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
 from annotatedvdb_tpu_torch.obs.reqtrace import TraceRecorder
+from annotatedvdb_tpu_torch.obs.slo import worst_of
+from annotatedvdb_tpu_torch.obs.timeseries import derive_series, load_history
 from annotatedvdb_tpu_torch.serve import resilience
 from annotatedvdb_tpu_torch.serve.batcher import QueryBatcher, QueueFull
 from annotatedvdb_tpu_torch.serve.engine import (
@@ -103,9 +111,9 @@ QUERY_KINDS = ("point", "bulk", "region", "regions", "stats", "export",
 
 
 def healthz_payload(ctx) -> str:
-    """The ``/healthz`` body (liveness; ``ready`` mirrors ``/readyz``).
-    The health plane is not ported, so its alert fields read 0 and
-    ``"disabled"``, as the reference's do without one."""
+    """The ``/healthz`` body (liveness; ``ready`` mirrors ``/readyz``),
+    with the alert plane's one-glance summary: SLOs firing and the worst
+    alert state (``"disabled"`` without a health plane)."""
     snap = ctx.manager.current()
     ready, _reason = ctx.ready_state()
     return json.dumps({
@@ -120,8 +128,10 @@ def healthz_payload(ctx) -> str:
         "breaker_open": len(
             ctx.engine.breaker.open_groups()
         ) if ctx.engine.breaker is not None else 0,
-        "alerts_firing": 0,
-        "alerts": "disabled",
+        "alerts_firing": ctx.health.slos.firing()
+        if ctx.health is not None else 0,
+        "alerts": ctx.health.slos.worst_state()
+        if ctx.health is not None else "disabled",
     })
 
 
@@ -180,6 +190,153 @@ def resolve_trace_id(traceparent: str | None,
         if tid:
             return tid
     return _MINT_PREFIX + format(next(_MINT_SEQ) & 0xFFFFFFFF, "08x")
+
+
+def metrics_payload(ctx, query: str) -> str:
+    """The ``GET /metrics`` body — the ONE handler both front ends
+    share.  Plain scrape = this worker's registry; ``?fleet=1`` = the
+    fleet-wide view (workers' published snapshots summed/maxed, plus the
+    supervisor's ``avdb_fleet_*`` series), answered by WHICHEVER worker
+    the kernel handed the connection to."""
+    params = parse_qs(query or "")
+    if params.get("fleet", ["0"])[0] not in ("1", "true"):
+        return ctx.registry.render_prometheus()
+    return ctx.fleet_metrics()
+
+
+def _fleet_wanted(query: str) -> bool:
+    return parse_qs(query or "").get("fleet", ["0"])[0] in ("1", "true")
+
+
+def _health_sibling_docs(ctx) -> dict:
+    """Sibling workers' persisted health documents for the ``?fleet=1``
+    alert/history views, keyed by worker index: the live ``w*.ts.json``
+    mirrors under ``<store>/history``, TTL-aged exactly like the fleet
+    metric snapshots (a dead worker's last mirror must age out — its
+    HARVESTED history is ``doctor slo``'s business, not the live view's).
+    Self is excluded; the live plane is fresher."""
+    h = ctx.health
+    docs: dict[int, dict] = {}
+    if h is None or h.ring.path is None:
+        return docs
+    d = os.path.dirname(h.ring.path)
+    now = time.time()
+    if os.path.isdir(d):
+        for fname in sorted(os.listdir(d)):
+            if not fname.endswith(".ts.json"):
+                continue
+            try:
+                doc = load_history(os.path.join(d, fname))
+            except (OSError, ValueError, TypeError):
+                continue  # torn persist race: skip, never fail a read
+            idx = int(doc.get("worker", -1))
+            if idx == ctx.worker_index:
+                continue  # self: the live plane is fresher
+            if now - float(doc.get("t", 0)) > ctx.FLEET_SNAPSHOT_TTL_S:
+                continue  # a dead worker's stale mirror
+            docs[idx] = doc
+    return docs
+
+
+def alerts_payload(ctx, query: str) -> str:
+    """The ``GET /alerts`` body, shared by both front ends (the parity
+    contract).  Plain = this worker's live SLO alert states;
+    ``?fleet=1`` = per-worker states (self live, siblings from their
+    persisted history mirrors, which carry the alert rows), rolled up
+    into a fleet-wide ``firing`` count and worst ``state``."""
+    h = ctx.health
+
+    def solo() -> dict:
+        if h is None or not h.enabled:
+            return {"enabled": False, "worker": ctx.worker_index,
+                    "state": "disabled", "firing": 0, "alerts": []}
+        return {
+            "enabled": True,
+            "worker": ctx.worker_index,
+            "state": h.slos.worst_state(),
+            "firing": h.slos.firing(),
+            "burn_threshold": h.slos.burn_threshold,
+            "windows": {"fast_s": h.slos.fast_s, "slow_s": h.slos.slow_s},
+            "alerts": h.slos.alerts(),
+        }
+
+    me = solo()
+    if not _fleet_wanted(query):
+        return json.dumps(me)
+    workers = {str(ctx.worker_index): me}
+    for idx, doc in _health_sibling_docs(ctx).items():
+        rows = doc.get("alerts") or []
+        workers[str(idx)] = {
+            "enabled": True,
+            "worker": idx,
+            "state": worst_of(a.get("state", "ok") for a in rows),
+            "firing": int(doc.get("firing") or 0),
+            "alerts": rows,
+        }
+    return json.dumps({
+        "fleet": True,
+        "firing": sum(w["firing"] for w in workers.values()),
+        "state": worst_of(w["state"] for w in workers.values()
+                          if w["state"] != "disabled"),
+        "workers": workers,
+    })
+
+
+#: the history route spelling, single-sourced for both front ends
+HISTORY_ROUTE = "/metrics/history"
+
+
+def metrics_history_payload(ctx, query: str) -> str:
+    """The ``GET /metrics/history`` body — the time-series ring rendered
+    as derived series (counters as per-interval rates, histograms as
+    rate + p50/p99).  ``?window=S`` trims to the trailing S seconds (an
+    unparsable value is ignored — a read surface does not 400 on a
+    sloppy dashboard); ``?fleet=1`` = per-worker documents, self live
+    and siblings from their persisted mirrors."""
+    h = ctx.health
+    params = parse_qs(query or "")
+    try:
+        window = float(params.get("window", [""])[0])
+    except (ValueError, IndexError):
+        window = 0.0
+
+    def trim(samples: list) -> list:
+        if window <= 0 or len(samples) < 2:
+            return samples
+        cutoff = float(samples[-1]["t"]) - window
+        return [s for s in samples if float(s["t"]) >= cutoff]
+
+    def render(worker: int, tick_s, history_s, samples: list) -> dict:
+        samples = trim(samples)
+        return {
+            "enabled": True,
+            "worker": worker,
+            "tick_s": tick_s,
+            "history_s": history_s,
+            "samples": len(samples),
+            "span_s": round(
+                float(samples[-1]["t"]) - float(samples[0]["t"]), 3
+            ) if len(samples) >= 2 else 0.0,
+            "series": derive_series(samples),
+        }
+
+    def solo() -> dict:
+        if h is None or not h.enabled:
+            return {"enabled": False, "worker": ctx.worker_index,
+                    "samples": 0, "span_s": 0.0, "series": []}
+        return render(ctx.worker_index, h.ring.tick_s, h.ring.history_s,
+                      h.ring.samples())
+
+    me = solo()
+    if not _fleet_wanted(query):
+        return json.dumps(me)
+    workers = {str(ctx.worker_index): me}
+    for idx, doc in _health_sibling_docs(ctx).items():
+        workers[str(idx)] = render(
+            idx, doc.get("tick_s"), doc.get("history_s"),
+            doc.get("samples") or [],
+        )
+    return json.dumps({"fleet": True, "workers": workers})
 
 
 def parse_region_params(query: str):
@@ -464,13 +621,36 @@ def repl_file_response(ctx, query: str) -> tuple[int, "bytes | str"]:
 class ServeContext:
     """Everything a handler thread needs, shared across requests."""
 
+    #: published worker metric snapshots older than this are a dead
+    #: worker's leavings and drop out of the fleet view
+    FLEET_SNAPSHOT_TTL_S = 15.0
+
     def __init__(self, manager, engine: QueryEngine, batcher: QueryBatcher,
                  registry: MetricsRegistry, max_inflight: int | None = None,
-                 memtable=None, log=None):
+                 memtable=None, log=None, flight=None,
+                 telemetry_dir: str | None = None, worker_index: int = 0,
+                 health=None):
         self.manager = manager
         self.engine = engine
         self.batcher = batcher
         self.registry = registry
+        #: the observability plane: the crash flight recorder
+        #: (``obs/flight.py``, None = disabled) and the fleet telemetry
+        #: directory workers publish metric snapshots into
+        self.flight = flight
+        self.telemetry_dir = telemetry_dir
+        #: the health plane (``obs/slo.HealthPlane``, None = disabled):
+        #: the metrics time-series ring and the SLO burn-rate evaluator.
+        #: The threaded front end ticks it inline (time-gated, riding
+        #: request completions and health probes); the aio front end
+        #: clears ``health_tick_inline`` and ticks from its maintenance
+        #: loop on the executor pool.  Flight flushes split the same way.
+        self.health = health
+        self.health_tick_inline = True
+        self.worker_index = int(worker_index)
+        self.started_t = time.time()
+        self.flight_flush_inline = True
+        self._flight_flush_last = 0.0
         #: the live write path (``store/memtable.py``), or None for a
         #: read-only server — the upsert route answers 403 when unset
         self.memtable = memtable
@@ -510,9 +690,19 @@ class ServeContext:
         #: the brownout ladder, stepped on request completion and probes
         self.governor = OverloadGovernor(
             depth_fn=batcher.depth, max_queue=batcher.max_queue,
-            registry=registry,
+            registry=registry, on_change=self._brownout_event,
         )
-        self.reqtrace = TraceRecorder(registry, log=self.log)
+        self.reqtrace = TraceRecorder(registry, log=self.log, flight=flight)
+        # background writers (memtable flushes, compaction groups, WAL
+        # rotations) join this worker's observability plane through the
+        # module sink — the store layer never imports serve code
+        reqtrace_mod.set_background_sink(
+            self.reqtrace.background,
+            flight.event if flight is not None else None,
+        )
+        if engine.breaker is not None and flight is not None:
+            # breaker trips / re-closes land on the flight timeline
+            engine.breaker.events = flight.event
         #: generation-keyed id -> record cache (the cache_first rung)
         self.point_cache = PointCache()
         self._m_inflight = registry.gauge(
@@ -600,6 +790,17 @@ class ServeContext:
             rows_c.inc(rows)
         self.governor.note_latency(seconds)
         self.governor.maybe_step()
+        if self.flight is not None and self.flight_flush_inline:
+            now = time.monotonic()
+            if now - self._flight_flush_last >= self.flight.FLUSH_S:
+                self._flight_flush_last = now
+                try:
+                    self.flight.flush(limit=self.flight.FLUSH_BATCH)
+                except Exception:  # avdb: noqa[AVDB602] -- the recorder already logs; a flush failure must never fail the request riding it
+                    pass
+        if self.health is not None and self.health_tick_inline \
+                and self.health.due():
+            self.health.tick()  # absorbs its own failures (obs/slo.py)
 
     def request_counts(self) -> dict:
         """{kind: requests answered} for the kinds that saw any (the
@@ -612,6 +813,82 @@ class ServeContext:
 
     def errored(self, kind: str) -> None:
         self._kind[kind][4].inc()
+
+    def _brownout_event(self, old: int, new: int) -> None:
+        """Brownout ladder transitions land on the flight timeline — the
+        black box's answer to "what was this worker shedding when it
+        died"."""
+        if self.flight is not None:
+            self.flight.event(
+                "brownout",
+                f"level {old}->{new} ({resilience.LEVEL_NAMES[new]})",
+            )
+
+    def fleet_metrics(self) -> str:
+        """The ``?fleet=1`` exposition body: this worker's live registry
+        merged with every sibling's published snapshot file (sum for
+        counters/histograms, max for gauges) plus the supervisor's
+        ``avdb_fleet_*`` series.  Outside a fleet the same surface
+        answers from the one process (workers_live 1) — the contract is
+        the VIEW, not the process count."""
+        from annotatedvdb_tpu_torch.obs.metrics import (
+            merge_snapshots,
+            render_snapshot,
+        )
+
+        snaps = [self.registry.snapshot()]
+        info = None
+        now = time.time()
+        tdir = self.telemetry_dir
+        if tdir and os.path.isdir(tdir):
+            for fname in sorted(os.listdir(tdir)):
+                path = os.path.join(tdir, fname)
+                try:
+                    if fname == "fleet.json":
+                        with open(path) as f:
+                            doc = json.load(f)
+                        if now - float(doc.get("t", 0)) \
+                                <= self.FLEET_SNAPSHOT_TTL_S:
+                            # a dead supervisor's last facts must age out
+                            # exactly like a dead worker's snapshot — the
+                            # gauges exist to SURFACE that death
+                            info = doc
+                        continue
+                    if not (fname.startswith("worker-")
+                            and fname.endswith(".json")):
+                        continue
+                    with open(path) as f:
+                        doc = json.load(f)
+                    if int(doc.get("index", -1)) == self.worker_index:
+                        continue  # self: the live registry is fresher
+                    if now - float(doc.get("t", 0)) \
+                            > self.FLEET_SNAPSHOT_TTL_S:
+                        continue  # a dead worker's stale snapshot
+                    snaps.append(doc.get("metrics") or {})
+                except (OSError, ValueError, TypeError):
+                    continue  # torn publish race: skip, never fail a scrape
+        merged = merge_snapshots(snaps)
+        fleet = MetricsRegistry()
+        if info:
+            live = int(info.get("workers_live", 0))
+            respawns = int(info.get("respawns_total", 0))
+            age = float(info.get("worker_age_seconds", 0.0))
+        else:
+            live, respawns = 1, 0
+            age = now - self.started_t
+        fleet.gauge(
+            "avdb_fleet_workers_live",
+            "serve worker processes alive in the fleet",
+        ).set(live)
+        fleet.counter(
+            "avdb_fleet_respawns_total",
+            "worker respawns since the fleet supervisor started",
+        ).inc(respawns)
+        fleet.gauge(
+            "avdb_fleet_worker_age_seconds",
+            "age of the oldest live worker process",
+        ).set(round(age, 3))
+        return fleet.render_prometheus() + render_snapshot(merged)
 
     # -- resilience ---------------------------------------------------------
 
@@ -782,6 +1059,12 @@ class ServeContext:
         triggers, so an idle threaded server's age flush fires."""
         self.governor.maybe_step()
         self.maybe_flush_memtable()
+        # the health plane ticks off probes too: an idle (or drained)
+        # threaded worker completes no requests, and its alert states
+        # must still advance — resolution especially
+        if self.health is not None and self.health_tick_inline \
+                and self.health.due():
+            self.health.tick()
         if getattr(self.manager, "swapping", False):
             return False, "snapshot swap in progress"
         if self.repl is not None and self.repl.lag_exceeded():
@@ -879,11 +1162,17 @@ class ServeHandler(BaseHTTPRequestHandler):
             self._reply(status, body)
             return
         if path == "/metrics":
-            self._reply(200, ctx.registry.render_prometheus(),
+            self._reply(200, metrics_payload(ctx, url.query),
                         content_type="text/plain; version=0.0.4")
             return
         if path == "/stats":
             self._reply(200, stats_payload(ctx))
+            return
+        if path == "/alerts":
+            self._reply(200, alerts_payload(ctx, url.query))
+            return
+        if path == HISTORY_ROUTE:
+            self._reply(200, metrics_history_payload(ctx, url.query))
             return
         if path == REPL_MANIFEST_ROUTE:
             status, body = repl_manifest_payload(ctx)
@@ -1236,7 +1525,9 @@ def build_server(store_dir: str | None = None, manager=None,
                  region_cache_size: int | None = None,
                  registry: MetricsRegistry | None = None,
                  residency=None, memtable=None, log=None,
-                 device=None) -> ThreadingHTTPServer:
+                 device=None, flight=None,
+                 telemetry_dir: str | None = None,
+                 worker_index: int = 0, health=None) -> ThreadingHTTPServer:
     """Wire manager -> engine (on ``device``: ``cuda`` unless the caller
     asks for ``cpu``) -> batcher -> HTTP server (not yet serving; call
     ``serve_forever`` or run it on a thread).  The server carries its
@@ -1259,5 +1550,7 @@ def build_server(store_dir: str | None = None, manager=None,
     httpd = ThreadingHTTPServer((host, port), ServeHandler)
     httpd.daemon_threads = True
     httpd.ctx = ServeContext(manager, engine, batcher, registry,
-                             memtable=memtable, log=log)
+                             memtable=memtable, log=log, flight=flight,
+                             telemetry_dir=telemetry_dir,
+                             worker_index=worker_index, health=health)
     return httpd

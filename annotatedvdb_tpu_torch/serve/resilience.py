@@ -21,8 +21,9 @@ Port of ``annotatedvdb_tpu/serve/resilience.py``:
 The port's store probe raises on a device error (no store-side fallback),
 so the engine catches it and reports to the breaker directly: the
 reference's store-side failure hook (``install``/``observing``) and the
-mesh pre-check (``would_allow``) are not ported, nor are the breaker's
-flight-recorder events.
+mesh pre-check (``would_allow``) are not ported.  Ladder transitions
+(``on_change``) and breaker trips and re-closes (``events``) feed the
+flight recorder's lifecycle timeline (``serve/http.py::ServeContext``).
 """
 
 from __future__ import annotations
@@ -170,8 +171,12 @@ class OverloadGovernor:
     def __init__(self, depth_fn, max_queue: int,
                  p99_target_s: float | None = None, registry=None,
                  clock=time.monotonic, eval_interval_s: float | None = None,
-                 hold_s: float | None = None):
+                 hold_s: float | None = None, on_change=None):
         self._depth_fn = depth_fn
+        #: level-transition observer ``on_change(old, new)`` — the flight
+        #: recorder's brownout timeline; invoked outside the lock,
+        #: failures swallowed
+        self.on_change = on_change
         self._max_queue = max(int(max_queue), 1)
         self.p99_target_s = (
             brownout_p99_target_s() if p99_target_s is None
@@ -248,8 +253,14 @@ class OverloadGovernor:
             old = self._level
             changed = level != old
             self._level = level
-        if changed and self._m_level is not None:
-            self._m_level.set(level)
+        if changed:
+            if self._m_level is not None:
+                self._m_level.set(level)
+            if self.on_change is not None:
+                try:
+                    self.on_change(old, level)
+                except Exception:  # avdb: noqa[AVDB602] -- an observer must never fail the ladder evaluation it watches
+                    pass
         return level
 
     # -- level queries (the front ends' contract) ---------------------------
@@ -301,6 +312,10 @@ class DeviceBreaker:
                  cooldown_s: float | None = None,
                  failure_threshold: int | None = None):
         self.log = log if log is not None else (lambda msg: None)
+        #: lifecycle-event observer ``events(name, detail)`` — the flight
+        #: recorder's breaker timeline (ServeContext installs it);
+        #: invoked outside the lock, failures swallowed
+        self.events = None
         self._clock = clock
         self.cooldown_s = (
             self.COOLDOWN_S if cooldown_s is None else max(float(cooldown_s), 0.0)
@@ -388,6 +403,15 @@ class DeviceBreaker:
             )
             if self._m_trips is not None:
                 self._m_trips.inc()
+            if self.events is not None:
+                try:
+                    self.events(
+                        "breaker",
+                        f"group {code} tripped open "
+                        f"({type(exc).__name__})",
+                    )
+                except Exception:  # avdb: noqa[AVDB602] -- an observer must never fail the breaker transition it watches
+                    pass
         if self._m_open is not None:
             self._m_open.set(open_count)
 
@@ -406,6 +430,11 @@ class DeviceBreaker:
         if closed:
             self.log(f"breaker: chromosome group {code} re-closed "
                      "(half-open probe succeeded)")
+            if self.events is not None:
+                try:
+                    self.events("breaker", f"group {code} re-closed")
+                except Exception:  # avdb: noqa[AVDB602] -- an observer must never fail the breaker transition it watches
+                    pass
         if self._m_open is not None:
             self._m_open.set(open_count)
 

@@ -47,8 +47,8 @@ through every read path, so compaction drops it.
 
 The compaction is host work in the reference too: no kernel runs here.
 Not ported: the ``compact.*`` fault points (``compact.plan``,
-``compact.merge``, ``compact.swap``, ``compact.gc``), the per-group
-background trace span, and the memmap spill tier the reference's segment
+``compact.merge``, ``compact.swap``, ``compact.gc``) and the memmap
+spill tier the reference's segment
 reader uses above ``AVDB_STORE_SPILL_BYTES`` (segments load into memory).
 The segment reader lives in ``variant_store``, which imports ``torch``;
 it is imported when a pass merges, so planning (``doctor compact
@@ -65,6 +65,7 @@ import zlib
 
 import numpy as np
 
+from annotatedvdb_tpu_torch.obs import reqtrace
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.pipeline import BoundedStage
 
@@ -664,10 +665,16 @@ def compact_store(store_dir: str, *, groups=None, max_bytes: int | None = None,
             created.extend([tmp_npz, tmp_jsonl])
             log(f"compact: chr{label}: merging {entry['stems']} segment "
                 f"file(s) ({entry['bytes_before']} bytes)")
-            rec = _merge_label_to_temp(
-                store_dir, label, glists[label], width, integrity,
-                verify, tmp_npz, tmp_jsonl, chunk, cancel,
-            )
+            # background-track span per merged group: `doctor trace` and
+            # the flight recorder show what compaction was doing while
+            # p99 moved (no-op without a recorder in this process)
+            with reqtrace.background_span(
+                f"compact.chr{label}", stems=entry["stems"],
+            ):
+                rec = _merge_label_to_temp(
+                    store_dir, label, glists[label], width, integrity,
+                    verify, tmp_npz, tmp_jsonl, chunk, cancel,
+                )
             new_stems[label] = (sid, rec)
 
         # -- commit: rename temps, verify no loader preempted us, swap ------

@@ -152,6 +152,13 @@ class AlgorithmLedger:
         with self._lock:
             return [e for e in self._entries if e.get("type") == "run"]
 
+    def records(self) -> list[dict]:
+        """Every ledger entry, oldest first — the ``doctor trace`` read
+        path (the background track renders run/compact/flush spans from
+        the one durable history the store keeps)."""
+        with self._lock:
+            return list(self._entries)
+
     def compact(self, record: dict) -> None:
         """Append one ``{"type": "compact"}`` maintenance record — the
         audit trail of a compaction pass (``store/compact.py``: labels

@@ -23,10 +23,11 @@ Port of ``annotatedvdb_tpu/store/maintenance.py``:
 
 The daemon operates on the store directory plus an injected health
 callable; it never imports from ``serve/``.  Compaction is host work, as
-in the reference: a pass runs no kernel.  Not ported: the
-``maintain.tick`` and ``maintain.disk_guard`` fault points, and the
-daemon's lifecycle events and trace spans (the port has no flight
-recorder).
+in the reference: a pass runs no kernel.  Its lifecycle events and its
+``maintain.pass`` background span go to the process's flight recorder
+through ``obs/reqtrace.py``'s sink (the fleet supervisor's ring).  Not
+ported: the ``maintain.tick`` and ``maintain.disk_guard`` fault
+points.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import random
 import threading
 import time
 
+from annotatedvdb_tpu_torch.obs import reqtrace
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 from annotatedvdb_tpu_torch.utils.retry import retry_preempted
 
@@ -367,6 +369,9 @@ class MaintenanceDaemon:
                 f"maintain: watermark tripped (a group holds {amp} "
                 f"segment files >= high {self.high}); compaction engaged"
             )
+            reqtrace.lifecycle_event(
+                "maintain", f"engaged (read-amp {amp} >= high {self.high})"
+            )
         if self._hot():
             self._count("paused")
             backoff = self._note_setback()
@@ -374,7 +379,9 @@ class MaintenanceDaemon:
                 "maintain: pass paused (worker brownout active or p99 "
                 f"target breached); next attempt in {backoff:.1f}s"
             )
+            reqtrace.lifecycle_event("maintain", "pass paused (hot health)")
             return "paused"
+        reqtrace.lifecycle_event("maintain", "pass starting")
         try:
             report = retry_preempted(
                 self._compact_once, retries=self.retries,
@@ -406,6 +413,11 @@ class MaintenanceDaemon:
                     f"maintain: pass failed ({type(err).__name__}: "
                     f"{err}); retry in {backoff:.1f}s"
                 )
+            reqtrace.lifecycle_event(
+                "maintain",
+                f"pass failed ({type(err).__name__})"
+                + ("; daemon DISABLED" if give_up else ""),
+            )
             return "failed"
         status = report.get("status")
         if status == "compacted":
@@ -420,6 +432,11 @@ class MaintenanceDaemon:
                 f"maintain: pass merged {report['files_before']} -> "
                 f"{report['files_after']} segment file(s); max read-amp "
                 f"now {amp}"
+            )
+            reqtrace.lifecycle_event(
+                "maintain",
+                f"pass committed ({report['files_before']}->"
+                f"{report['files_after']} files, read-amp {amp})",
             )
             if amp <= self.low:
                 with self._lock:
@@ -451,10 +468,16 @@ class MaintenanceDaemon:
                 "maintain: pass paused mid-run (worker health went hot); "
                 f"next attempt in {backoff:.1f}s"
             )
+            reqtrace.lifecycle_event(
+                "maintain", "pass aborted mid-run (hot health)"
+            )
             return "paused"
         self.log(
             f"maintain: pass preempted ({report.get('reason')}); "
             f"retry in {backoff:.1f}s"
+        )
+        reqtrace.lifecycle_event(
+            "maintain", f"pass preempted ({report.get('reason')})"
         )
         return "preempted"
 
@@ -473,13 +496,14 @@ class MaintenanceDaemon:
             compact_store,
         )
 
-        return compact_store(
-            self.store_dir,
-            min_stems=max(self.low + 1, _min_stems()),
-            cancel=self._cancel,
-            registry=self.registry,
-            log=lambda m: self.log(f"maintain: {m}"),
-        )
+        with reqtrace.background_span("maintain.pass"):
+            return compact_store(
+                self.store_dir,
+                min_stems=max(self.low + 1, _min_stems()),
+                cancel=self._cancel,
+                registry=self.registry,
+                log=lambda m: self.log(f"maintain: {m}"),
+            )
 
     def _cancel(self) -> bool:
         """The cooperative-abort hook handed to the compactor: stop

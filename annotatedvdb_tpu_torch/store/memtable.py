@@ -21,8 +21,9 @@ in-memory segment set that
 
 Rows are built on the host (:func:`build_rows`: the host identity hash and
 the closed-form bin oracle), so an upserted row equals the same row loaded
-from a VCF.  The reference's ``memtable.flush`` fault points and its
-trace spans are not ported.
+from a VCF.  A flush records one ``memtable.flush`` background span
+(``obs/reqtrace.py``); the reference's ``memtable.flush`` fault points are
+not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import time
 
 import numpy as np
 
+from annotatedvdb_tpu_torch.obs import reqtrace
 from annotatedvdb_tpu_torch.store.variant_store import (
     ChromosomeShard,
     Segment,
@@ -451,15 +453,18 @@ class Memtable:
                     raise
         t0 = time.perf_counter()
         try:
-            merged = {
-                code: Segment.merge_many(segs) if len(segs) > 1
-                else segs[0]
-                for code, segs in plan.items()
-            }
-            result = flush_segments(
-                self.store_dir, merged, self.width, log=self.log,
-                fence_epoch=self.fence_epoch,
-            )
+            with reqtrace.background_span(
+                "memtable.flush", groups=len(plan),
+            ):
+                merged = {
+                    code: Segment.merge_many(segs) if len(segs) > 1
+                    else segs[0]
+                    for code, segs in plan.items()
+                }
+                result = flush_segments(
+                    self.store_dir, merged, self.width, log=self.log,
+                    fence_epoch=self.fence_epoch,
+                )
             if result["status"] != "flushed":
                 self.log(f"memtable flush aborted: {result.get('reason')}; "
                          "rows stay in the memtable (retry on next trigger)")

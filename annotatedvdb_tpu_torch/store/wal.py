@@ -24,8 +24,9 @@ begins) seals the current file and creates the next one through
 ``*.wal.tmp`` debris (``store/fsck`` prunes it); sealed files are unlinked
 only after the flush's manifest commit (``discard_sealed``).
 
-The reference's ``wal.append`` / ``wal.fsync`` / ``wal.replay`` fault
-points and its flight-recorder rotation event are not ported.
+A rotation records a ``wal`` lifecycle event in the process's flight
+recorder (``obs/reqtrace.py``); the reference's ``wal.append`` /
+``wal.fsync`` / ``wal.replay`` fault points are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import struct
 import time
 import zlib
 
+from annotatedvdb_tpu_torch.obs import reqtrace
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
@@ -192,6 +194,11 @@ class WriteAheadLog:
             # between rotation and the next append still leaves a
             # well-formed (empty) WAL rather than nothing
             self._create(self._seq)
+        # flight-recorder timeline: a rotation marks a flush interval
+        # boundary (no-op without a sink; never fails the rotation)
+        reqtrace.lifecycle_event(
+            "wal", f"rotated: sealed {self.name}.{sealed:06d}"
+        )
         return sealed
 
     def discard_sealed(self) -> int:

@@ -223,7 +223,14 @@ each phase printing one JSON line:
               the launches) and bytes held (each worker's, and
               ``nvidia-smi``'s used memory in a fleet's window), the
               requests each worker answered, the store load, index build
-              and feature decode seconds;
+              and feature decode seconds.  Every server runs the default
+              health plane and flight recorder: each process's ticks
+              (its history mirror's samples, none failed); the fleet's
+              ``/metrics?fleet=1`` counting four live workers and their
+              summed requests, ``/alerts?fleet=1`` (availability ``ok`` on
+              every worker) and ``/metrics/history`` scraped once after its
+              traffic; then a ``HealthPlane`` tick timed on the ``aio``
+              server's registry, rebuilt from its last sample;
 12. export  — ``python -m annotatedvdb_tpu_torch export --commit --seed 7``
               (the CLI's ``main``) of phase 9's store (chr22, 2,274,305
               rows), once on the card and once with ``--hostOnly``, each
@@ -275,8 +282,14 @@ each phase printing one JSON line:
               the compaction (seconds from each commit), serves the
               host-only engine's bodies over every window, answers an
               upsert with 403, and launches once a read sent to it.
-              After a clean stop ``doctor promote`` seals the follower
-              and ``doctor --deep`` finds both stores clean.
+              The supervisor harvests the killed worker's flight ring and
+              history into ``flight/`` and ``history/``; after a clean
+              stop ``doctor promote`` seals the follower and ``doctor
+              --deep`` finds both stores clean, while ``doctor flight``
+              (the killed worker's box and its last requests), ``doctor
+              slo`` (its harvested history) and ``doctor trace`` (the
+              daemon's ``ledger.compact`` span and lifecycle events) run
+              on the leader's store, each timed.
 
 Then the kernel table and, as the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
@@ -287,6 +300,7 @@ checkout around this file; run as ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -4666,7 +4680,10 @@ def merge_summaries(err, workers) -> dict:
         assert len(summaries) == 1, f"{len(summaries)} run summaries"
         return summaries[0]
     got = sorted(s.get("worker", -1) for s in summaries)
-    assert got == list(range(workers)), f"fleet run summaries of workers {got}"
+    # a worker the supervisor's drain budget killed logs no summary: the
+    # stderr's tail says which and why
+    assert got == list(range(workers)), \
+        f"fleet run summaries of workers {got}: {err[-3000:]}"
     merged = {"launches": {}, "plain_calls": {}, "breaker": summaries[0]["breaker"]}
     for s in summaries:
         for k, n in s["launches"].items():
@@ -4682,7 +4699,126 @@ def merge_summaries(err, workers) -> dict:
         merged[key] = [s[key] for s in by_worker]
     merged["launches_per_worker"] = [s["launches"] for s in by_worker]
     merged["requests_per_worker"] = [s["requests"] for s in by_worker]
+    merged["health_per_worker"] = [s["health"] for s in by_worker]
     return merged
+
+
+def _get(port, path) -> tuple:
+    """(status, body, seconds) of one GET on a fresh connection."""
+    conn = _Conn(port)
+    try:
+        return conn.call("GET", path)
+    finally:
+        conn.close()
+
+
+def prom_sum(text, name) -> float:
+    """The sum of every series of counter ``name`` in a Prometheus
+    exposition."""
+    import re
+
+    return sum(float(v) for v in re.findall(
+        rf"^{name}(?:{{[^}}]*}})? (\S+)$", text, re.M))
+
+
+def fleet_health_views(port, workers, timeout=20.0) -> dict:
+    """Phase 11's fleet turn, after its traffic: ``/metrics?fleet=1``
+    once every worker has published a snapshot since the traffic ended
+    (each publishes once a second) and the supervisor counts ``workers``
+    live, then ``/alerts?fleet=1`` and ``/metrics/history`` once each.
+    Returns their statuses, walls and what the checks read."""
+    import re
+
+    time.sleep(2.0)  # two publish ticks: every snapshot is post-traffic
+    t0 = time.perf_counter()
+    while True:
+        st, raw, dt = _get(port, "/metrics?fleet=1")
+        text = raw.decode()
+        live = re.search(r"^avdb_fleet_workers_live (\S+)$", text, re.M)
+        if st == 200 and live and float(live.group(1)) == workers:
+            break
+        assert time.perf_counter() - t0 < timeout, \
+            f"/metrics?fleet=1: {st} {text[:2000]}"
+        time.sleep(0.5)
+    st_a, raw_a, dt_a = _get(port, "/alerts?fleet=1")
+    st_h, raw_h, dt_h = _get(port, "/metrics/history")
+    alerts, history = json.loads(raw_a), json.loads(raw_h)
+    assert st_a == 200 and alerts["fleet"] is True, raw_a[:2000]
+    assert st_h == 200 and history["enabled"] is True, raw_h[:2000]
+    return {"metrics_fleet_ms": dt * 1e3, "workers_live": float(live.group(1)),
+            "requests_summed": prom_sum(text, "avdb_query_requests_total"),
+            "alerts_fleet_ms": dt_a * 1e3, "alerts_state": alerts["state"],
+            "alerts_firing": alerts["firing"],
+            "alerts_workers": sorted(alerts["workers"]),
+            "alert_states": {w: {a["slo"]: a["state"] for a in doc["alerts"]}
+                             for w, doc in alerts["workers"].items()},
+            "history_ms": dt_h * 1e3, "history_worker": history["worker"],
+            "history_samples": history["samples"],
+            "history_series": len(history["series"])}
+
+
+def history_docs(store_dir, workers) -> list:
+    """Each worker's persisted history mirror (``<store>/history/
+    w<i>.ts.json``), read after its server stopped (the final forced
+    persist holds every tick)."""
+    from annotatedvdb_tpu_torch.obs.timeseries import history_path, load_history
+
+    return [load_history(history_path(store_dir, i)) for i in range(workers)]
+
+
+def health_tick_timing(doc, ticks=40) -> dict:
+    """The health plane's tick on phase 11's registry: a registry rebuilt
+    from the ``aio`` server's last sampled snapshot (its every series and
+    bucket), a ``HealthPlane`` with the default SLOs whose ring holds the
+    server's samples, then ``ticks`` ticks timed one by one (a sample,
+    the SLO evaluation over the ring, the history persist when its 5 s
+    gate opens; the clock advances a tick a call) and one forced persist
+    timed alone."""
+    from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
+    from annotatedvdb_tpu_torch.obs.slo import HealthPlane
+
+    snap = doc["samples"][-1]["metrics"]
+    reg = MetricsRegistry()
+    for name, entries in snap.items():
+        for e in entries:
+            if e["kind"] == "counter":
+                reg.counter(name, "", e["labels"]).inc(e["value"])
+            elif e["kind"] == "gauge":
+                reg.gauge(name, "", e["labels"]).set(e["value"])
+            else:
+                h = reg.histogram(name, e["edges"], "", e["labels"])
+                h._counts, h._sum, h._count = list(e["counts"]), e["sum"], e["count"]
+    clk = {"t": float(doc["samples"][-1]["t"])}
+    tick_dir = os.path.join(WORK, "health-tick")
+    plane = HealthPlane(reg, store_dir=tick_dir, worker=0, tick_s=doc["tick_s"],
+                        history_s=doc["history_s"], clock=lambda: clk["t"])
+    plane.ring._samples = list(doc["samples"])
+    each = []
+    for _ in range(ticks):
+        clk["t"] += doc["tick_s"]
+        t = time.perf_counter()
+        assert plane.tick()
+        each.append(time.perf_counter() - t)
+        plane.ring._last_tick = 0.0
+    t = time.perf_counter()
+    assert plane.ring.persist(plane._extra(), force=True)
+    persist_s = time.perf_counter() - t
+    size = os.path.getsize(plane.ring.path)
+    shutil.rmtree(tick_dir)
+    return {"ticks": ticks, "ring_samples": len(plane.ring.samples()),
+            "series": sum(len(v) for v in snap.values()),
+            "tick_ms_p50": float(np.percentile(each, 50)) * 1e3,
+            "tick_ms_max": max(each) * 1e3,
+            "persist_ms": persist_s * 1e3, "history_bytes": size,
+            "errors": plane.errors}
+
+
+#: where each front end runs its health-plane tick and flight flush
+HEALTH_TICK_WHERE = {
+    "aio": "executor pool (4 threads, beside the panels), one in flight",
+    "threaded": "inline on a request thread, time-gated on completions and probes",
+    "fleet": "each worker's executor pool (4 threads), one in flight",
+}
 
 
 def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> dict:
@@ -4721,6 +4857,7 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
         warm = [helpers.submit(_warm_serve_helper) for _ in range(SERVE_HELPERS)]
         runs = {fe: _serve_traffic(platform, store_dir, mix, fe, jobs, warm)
                 for fe in SERVE_FRONTENDS}
+        tick = health_tick_timing(runs["aio"]["history"][0])
         t0 = time.perf_counter()
         parts = [f.result() for f in [
             helpers.submit(serve_expected, store_dir,
@@ -4728,6 +4865,8 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
             for part in range(SERVE_HELPERS)]]
         host_answers_wall = time.perf_counter() - t0
     answers = {k: v for p in parts for k, v in p["answers"].items()}
+    emit("health_tick", frontend="aio", **tick)
+    assert tick["errors"] == 0, tick
     out = {}
     for fe, run in runs.items():
         out[fe] = _serve_check(platform, fe, run, jobs, answers, mix, kernel_ms,
@@ -4772,6 +4911,7 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
         traffic_s = time.perf_counter() - t0
         if platform == "cuda":
             gpu_mib = gpu_memory_used_mib()
+        views = fleet_health_views(port, workers) if frontend == "fleet" else None
     finally:
         proc.send_signal(2)  # SIGINT: the server(s) log the run summary
         try:
@@ -4785,7 +4925,8 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
     summary = merge_summaries(err, workers)
     return {"banner": banner, "ready_s": ready_s, "traffic_s": traffic_s,
             "results": results, "summary": summary, "workers": workers,
-            "gpu_memory_used_mib": gpu_mib,
+            "gpu_memory_used_mib": gpu_mib, "fleet_views": views,
+            "history": history_docs(store_dir, workers),
             "run_s": time.perf_counter() - t_start}
 
 
@@ -4828,10 +4969,29 @@ def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
          device_bytes=summary["device_bytes"], store_load_s=summary["store_load_s"],
          index_build_s=summary["index_build_s"], decode_s=summary["decode_s"],
          host_answers_s=host_answers_s, host_answers_wall_s=host_answers_wall,
-         mismatches=len(wrong), mismatched=wrong[:10])
+         mismatches=len(wrong), mismatched=wrong[:10],
+         health_ticks=[len(d["samples"]) for d in run["history"]],
+         health_span_s=[float(d["samples"][-1]["t"]) - float(d["samples"][0]["t"])
+                        for d in run["history"]],
+         health_summary=summary.get("health_per_worker", [summary.get("health")]),
+         health_tick_runs_on=HEALTH_TICK_WHERE[frontend],
+         fleet_views=run["fleet_views"])
     assert not wrong, (f"serve ({frontend}): {len(wrong)} responses differ from "
                        f"the host engine's, e.g. {wrong[:5]}")
     assert summary["breaker"] == {"open_groups": [], "groups": {}}, summary["breaker"]
+    # the default health plane ran in every process: ticks in the ring,
+    # no absorbed failure, the alert states readable from the mirrors
+    for h, d in zip(summary.get("health_per_worker", [summary.get("health")]),
+                    run["history"]):
+        assert h["errors"] == 0 and h["samples"] == len(d["samples"]) >= 1, (h, d["t"])
+    views = run["fleet_views"]
+    if views is not None:
+        own = sum(sum(r.values()) for r in summary["requests_per_worker"])
+        assert views["workers_live"] == run["workers"], views
+        assert views["requests_summed"] == own, (views["requests_summed"], own)
+        assert views["alerts_workers"] == [str(i) for i in range(run["workers"])], views
+        assert all(s["availability"] == "ok" for s in views["alert_states"].values()), \
+            views["alert_states"]
     if platform == "cuda":
         assert launches == want, f"serve ({frontend}): launches {launches}, predicted {want}"
         assert not any(plain_cuda.values()), \
@@ -5471,6 +5631,62 @@ class _Follower:
         return time.perf_counter() - t0
 
 
+def _doctor_verb(*argv) -> tuple:
+    """(exit code, stdout, stderr, seconds) of the port's ``doctor``
+    ``main`` run in this process."""
+    import io
+
+    from annotatedvdb_tpu_torch.cli.doctor import main as doctor_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = doctor_main(list(argv))
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t
+
+
+def health_doctor(store_dir, killed) -> dict:
+    """Phase 14's health-plane verbs on the leader's store after its
+    stop: ``doctor flight --json`` (the newest harvested black box is the
+    SIGKILLed worker's, with its last requests), ``doctor slo --json``
+    (its harvested history replays, beside every live mirror) and
+    ``doctor trace --out`` (the daemon's ``ledger.compact`` span and its
+    lifecycle events on the supervisor's ring); each exits 0.  Returns
+    what the checks read and each verb's wall."""
+    rc, out, err, flight_s = _doctor_verb("flight", "--storeDir", store_dir, "--json")
+    assert rc == 0, f"doctor flight: {rc} {err[-2000:]}"
+    boxes = json.loads(out)
+    box = boxes["harvested"][0]
+    kinds = sorted({e["kind"] for e in box["events"] if e["type"] == "request"})
+    assert box["meta"]["worker"] == killed and box["meta"]["reason"] == "died rc=-9", \
+        box["meta"]
+    assert "upsert" in kinds, kinds
+    rc, out, err, slo_s = _doctor_verb("slo", "--storeDir", store_dir, "--json")
+    assert rc == 0, f"doctor slo: {rc} {err[-2000:]}"
+    reps = json.loads(out)["replays"]
+    dead = [r for r in reps if r["harvested"]]
+    assert [r["worker"] for r in dead] == [killed], [r["path"] for r in reps]
+    trace = os.path.join(WORK, "trace14.json")
+    rc, _out, err, trace_s = _doctor_verb("trace", "--storeDir", store_dir, "--out", trace)
+    assert rc == 0, f"doctor trace: {rc} {err[-2000:]}"
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.unlink(trace)
+    compacts = [e for e in events if e["name"] == "ledger.compact"]
+    lifecycle = sorted({e["args"]["detail"].split(" (")[0] for e in events
+                        if e.get("ph") == "i" and e["name"] == "maintain"})
+    spans = sorted({e["args"]["detail"].split(" ")[0] for e in events
+                    if e.get("ph") == "i" and e["name"] == "background"})
+    assert len(compacts) == 1 and "pass committed" in lifecycle, (compacts, lifecycle)
+    return {"flight_s": flight_s, "slo_s": slo_s, "trace_s": trace_s,
+            "harvested_boxes": len(boxes["harvested"]), "live_rings": len(boxes["rings"]),
+            "killed_box_events": len(box["events"]), "killed_box_request_kinds": kinds,
+            "slo_replays": len(reps), "slo_killed_ticks": dead[0]["ticks"],
+            "slo_killed_alerts": {a["slo"]: a["state"] for a in dead[0]["alerts"]},
+            "trace_events": len(events), "trace_compact_s": compacts[0]["dur"] / 1e6,
+            "trace_maintain_events": lifecycle, "trace_background_spans": spans}
+
+
 def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROWS,
                  workers=UPSERT_WORKERS) -> dict:
     """Phase 14: ``serve --workers 2 --upserts --maintain`` on phase 9's
@@ -5620,6 +5836,9 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
             pid = int(re.findall(rf"worker {idx}: pid (\d+)", err_text())[0])
             sent = {"regions": 0, "stats": 0}  # the killed incarnation's are lost
             ready_before = worker_lines()
+            # request summaries reach the flight ring within a flush
+            # interval (0.25 s): the killed worker's last ones are on it
+            time.sleep(0.6)
             t_kill = time.perf_counter()
             os.kill(pid, signal.SIGKILL)
             replayed = rows // 2 * UPSERT_BEFORE_KILL
@@ -5628,6 +5847,11 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
                 and f"wal: replayed {replayed} acknowledged" in err_text()
                 and worker_lines() > ready_before))
             timing["respawn_s"] = time.perf_counter() - t_kill
+            # the supervisor harvested the dead worker's black box and
+            # history before the respawn truncated its ring
+            harvested = {d: sorted(glob.glob(os.path.join(store_dir, d, f"*-w{idx}.{x}")))
+                         for d, x in (("flight", "jsonl"), ("history", "json"))}
+            assert all(len(v) == 1 for v in harvested.values()), harvested
 
             def on_holder():
                 c = _Conn(port)
@@ -5825,6 +6049,9 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
             doc_procs.append(subprocess.Popen(
                 [sys.executable, "-m", "annotatedvdb_tpu_torch", *deep, follower.dir],
                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            # the health plane's doctor verbs on the leader's store, in
+            # this process while the two --deep runs go on
+            health = health_doctor(store_dir, idx)
             docs = [p.communicate(timeout=600) for p in doc_procs]
         finally:
             for p in doc_procs + [promoting]:
@@ -5872,6 +6099,9 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
          gpu_memory_used_mib=gpu_mib, decode_s=summary["decode_s"],
          index_build_s=summary["index_build_s"], doctor_deep_s=doctor_s,
          doctor_status=doc["status"], phase_s=time.perf_counter() - t_phase)
+    emit("health", killed_worker=idx,
+         harvested={d: [os.path.basename(p) for p in v] for d, v in harvested.items()},
+         **health)
     emit("compact", high_watermark=files22 + 1, files_at_start=files22,
          files_before=compacted["files_before"], files_after=compacted["files_after"],
          bytes_before=compacted["bytes_before"], bytes_after=compacted["bytes_after"],

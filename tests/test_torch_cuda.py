@@ -1063,6 +1063,76 @@ def test_aio_server_on_card_matches_cpu(cuda, tmp_path):
             s.ctx.batcher.close()
 
 
+def test_health_plane_beside_card_kernels(cuda, tmp_path):
+    """The default health plane and flight recorder on an aio server with
+    a card engine: the ticks run on its pool beside the kernels (which
+    launch as predicted, no plain version on the card), ``/alerts`` and
+    ``/metrics/history`` answer 200 with the requests' series, and the
+    flight ring holds the device requests' summaries."""
+    import http.client
+    import time
+
+    from annotatedvdb_tpu_torch.obs import flight
+    from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
+    from annotatedvdb_tpu_torch.obs.slo import HealthPlane
+    from annotatedvdb_tpu_torch.ops import intervals as I
+    from annotatedvdb_tpu_torch.ops import stats as S
+    from annotatedvdb_tpu_torch.serve.aio import build_aio_server
+    from annotatedvdb_tpu_torch.serve.snapshot import SnapshotManager
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path / "s"), "cuda")
+    registry = MetricsRegistry()
+    health = HealthPlane(registry, store_dir=served["store"], tick_s=0.05)
+    recorder = flight.FlightRecorder(flight.ring_path(served["store"], 0))
+    server = build_aio_server(manager=SnapshotManager(served["store"]), port=0,
+                              registry=registry, device=cuda, flight=recorder,
+                              health=health)
+    server.start_background()
+
+    def fetch(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                          timeout=120)
+        try:
+            conn.request(method, path, body=None if body is None
+                         else json.dumps(body).encode())
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    specs = serve_panel(served, seed=43)
+    try:
+        before = (I.LAUNCHES["bits_spans"], S.LAUNCHES["stats_panel"],
+                  I.CALLS["cuda"], S.CALLS["cuda"])
+        for _ in range(3):
+            assert fetch("POST", "/regions", {"regions": specs, "limit": 0})[0] == 200
+            assert fetch("POST", "/stats/region", {"regions": specs})[0] == 200
+        assert (I.LAUNCHES["bits_spans"] - before[0],
+                S.LAUNCHES["stats_panel"] - before[1]) == (6, 6)
+        assert (I.CALLS["cuda"], S.CALLS["cuda"]) == before[2:]
+        deadline = time.monotonic() + 30
+        while len(health.ring.samples()) < 4:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        st, raw = fetch("GET", "/alerts")
+        alerts = json.loads(raw)
+        assert st == 200 and alerts["enabled"] is True
+        assert {a["slo"]: a["state"] for a in alerts["alerts"]}["availability"] == "ok"
+        st, raw = fetch("GET", "/metrics/history")
+        names = {s["name"] for s in json.loads(raw)["series"]}
+        assert st == 200 and "avdb_query_seconds" in names
+    finally:
+        server.shutdown()
+        server.ctx.batcher.close()
+        recorder.close()
+        health.close()
+    assert health.errors == 0
+    kinds = [e["kind"] for e in flight.decode_ring(recorder.path)["events"]
+             if e["type"] == "request"]
+    assert kinds.count("regions") == 3 and kinds.count("stats") == 3
+
+
 def _upsert_rows(served, n, seed):
     """``n`` new chr22 identities beside the store's rows (REF + an
     insertion no line carries) and one the store holds (shadowed)."""

@@ -417,9 +417,11 @@ def test_unported_verbs_refuse(store, capsys, verb):
         assert want[0] == 0 and json.loads(want[1])["status"] in (
             "compacted", "noop", "promoted")
         return
-    rc, out, err = _run(doctor.main, [verb, "--storeDir", store], capsys)
-    assert rc == 2 and out == ""
-    assert f"doctor {verb} (" in err and "not yet ported to annotatedvdb_tpu_torch" in err
+    # ported with the health plane: on a store no server ran on (and no
+    # run, compact or flush record in its ledger) each verb finds nothing
+    # to show and exits 2, as the reference's does
+    rc, out, err = _pair(store, [verb, "--storeDir", store], capsys)
+    assert rc == 2 and out == "" and f"doctor {verb}: {store}: no" in err
 
 
 def test_doctor_never_touches_cuda(store, capsys, monkeypatch):

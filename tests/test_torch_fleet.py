@@ -390,19 +390,21 @@ def test_killed_upsert_worker_replays_its_wal(fleet_store, tmp_path):
         fleet.kill()
 
 
-def test_fleet_import_leaves_torch_out():
+def test_fleet_import_leaves_torch_out(tmp_path):
     """The supervisor only spawns, watches and signals: importing the
-    fleet and the CLI, and building a supervisor, loads no ``torch``."""
+    fleet and the CLI, and building a supervisor (its flight ring and
+    health knobs included), loads no ``torch``."""
     code = (
         "import sys\n"
         "from annotatedvdb_tpu_torch.cli import serve\n"
         "from annotatedvdb_tpu_torch.serve.fleet import ServeFleet\n"
-        "f = ServeFleet('.', workers=2)\n"
+        "f = ServeFleet(sys.argv[1], workers=2)\n"
         "f._reserve.close()\n"
+        "f._sup_flight.close()\n"
         "import os; os.unlink(f._hb_path)\n"
         "print('torch' in sys.modules)\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"

@@ -548,7 +548,11 @@ def test_maintain_fleet_compacts_while_serving(tmp_path):
                          alt=84)
         mpath = os.path.join(store_dir, "manifest.json")
         wait(lambda: json.load(open(mpath))["stats"]["segments"]["6"] == 1)
-
+        # no request reaches the worker until the daemon has logged its
+        # pass: the manifest commit lands before that line (gc and the
+        # ledger record come between), and a request in that window
+        # would swap the worker before the line the check below reads
+        wait(lambda: "pass merged" in open(err_path).read())
 
         def swapped_after_pass():
             # the worker's swap onto the compacted generation is the first

@@ -479,6 +479,15 @@ def test_unported_routes_answer_the_unknown_route_404(servers, route):
         assert (status, clock.sub(b"", body)) == (want[0], clock.sub(b"", want[1]))
         assert status == (200 if path == "/repl/manifest" else 404)
         return
+    if path in ("/alerts", "/metrics/history"):
+        # ported: a server built without a health plane (the reference's
+        # own default context) answers the disabled views, fleet or not
+        for query in ("", "?fleet=1"):
+            got = _fetch(servers["port"], method, path + query, b"{}")
+            want = _fetch(servers["ref"], method, path + query, b"{}")
+            assert (got[0], got[1]) == (want[0], want[1]) and got[0] == 200
+        assert json.loads(body)["enabled"] is False
+        return
     assert status == 404
     # the reference's own answer to a route it does not have
     ref_status, ref_body, _h = _fetch(servers["ref"], method, "/no/such/route",
@@ -535,8 +544,10 @@ def test_cli_banner_summary_and_shutdown_match_reference(served):
                          ids=["default-aio", "aio"])
 def test_cli_serves_the_aio_front_end(servers, served, flags):
     """No ``--frontend`` flag starts the aio front end, as in the
-    reference: the banner, a ``/healthz`` with the reference's bytes, and
-    the shutdown summary."""
+    reference: the banner, a ``/healthz`` with the reference's bytes (the
+    CLI runs the default health plane, so its alert state reads ``ok``
+    where the in-process server without one reads ``disabled``), and the
+    shutdown summary."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = _start([sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
                    "--storeDir", served["store"], "--port", "0", *flags,
@@ -549,7 +560,8 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
         port_no = int(banner.rsplit(":", 1)[1])
         got = _fetch(port_no, "GET", "/healthz")
         want = _fetch(servers["ref"], "GET", "/healthz")
-        assert (got[0], got[1]) == (want[0], want[1]) and want[0] == 200
+        assert want[0] == 200 and (got[0], got[1]) == (
+            want[0], want[1].replace(b'"alerts": "disabled"', b'"alerts": "ok"'))
         _s, body, _h = _fetch(port_no, "POST", "/regions",
                               {"regions": _panel(served), "limit": 0})
         assert _s == 200 and json.loads(body)["n"] == len(_panel(served))

@@ -252,6 +252,16 @@ def test_unported_routes_answer_the_unknown_route_404(servers, route):
             200 if path == "/repl/manifest" else 404)
         assert len(bodies) == 1
         return
+    if path in ("/alerts", "/metrics/history"):
+        # ported: servers built without a health plane (the reference's
+        # own default context) answer the disabled views, fleet or not
+        for query in ("", "?fleet=1"):
+            answers = [_fetch(servers[k], method, path + query, b"{}")[:2]
+                       for k in ("port", "threaded", "ref")]
+            assert answers[0] == answers[1] == answers[2]
+            assert answers[0][0] == 200
+        assert json.loads(got[1])["enabled"] is False
+        return
     assert got[0] == want[0] == 404
     assert got[1] == want[1] == json.dumps(
         {"error": f"no such route: {path}"}).encode()
