@@ -67,6 +67,9 @@ summary`` line to stderr: the kernels' launches,
 the plain versions' calls by device, the breaker's state, the device
 bytes held, the seconds spent loading the store, building interval
 indexes and decoding feature columns, and, in a fleet, the worker index.
+A one-process ``aio`` server logs the same record as a ``counts so far``
+line on SIGUSR1 and goes on serving (a caller reads one window's kernel
+launches as the difference of two such lines).
 Every serving process runs the reference's health plane by default: a
 crash flight recorder (``<store>/flight/w<i>.ring``, ``AVDB_FLIGHT_EVENTS``
 slots, 0 disables it) and a health plane (the metrics time-series ring
@@ -631,10 +634,21 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
     try:
         if args._workerIndex is not None:
             # fleet worker: the event loop owns the main thread (and its
-            # SIGTERM graceful drain); a watcher prints readiness once
-            # the socket is accepting
+            # SIGTERM graceful drain); a watcher fires the worker fault
+            # point and prints readiness once the socket is accepting
+            from annotatedvdb_tpu_torch.utils import faults
+
             def ready():
                 server._started.wait()
+                try:
+                    # crash point: this worker is accepting; a failure
+                    # here is a worker death the SUPERVISOR must absorb
+                    # and restart
+                    faults.fire("serve.worker")
+                except Exception as err:
+                    print(f"serve: worker fault injected: {err}",
+                          file=sys.stderr)
+                    os._exit(1)
                 host, port = server.server_address[:2]
                 print(f"worker {args._workerIndex} serving {args.storeDir} "
                       f"(generation {snap.generation}, {snap.store.n} rows)"
@@ -654,6 +668,8 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
             stop = threading.Event()
             for sig in (signal.SIGTERM, signal.SIGINT):
                 signal.signal(sig, lambda *_a: stop.set())
+            signal.signal(signal.SIGUSR1, lambda *_a: log(
+                "counts so far " + json.dumps(run_summary(ctx, load_s))))
             stop.wait()
             log("shutting down")
     except OSError as err:

@@ -31,8 +31,10 @@ fixed-shape training batches:
   (deterministic), checks the plan signature against the ledger, prunes
   debris and skips exactly the committed batches.
 
-Not ported: the reference's ``export.plan`` and ``export.pack`` fault
-points (``faults.fire``).
+Fault points: ``export.plan`` (planned, nothing written) and
+``export.pack`` (once a batch, before it is staged), at the reference's
+passes, so one ``AVDB_FAULT`` spec leaves the same directory in both
+packages.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from annotatedvdb_tpu_torch.serve.engine import (
     segment_alleles,
 )
 from annotatedvdb_tpu_torch.types import chromosome_code, chromosome_label
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils.pipeline import Resequencer
 from annotatedvdb_tpu_torch.utils.strings import parse_bytes
 
@@ -386,6 +389,9 @@ def run_export(store, ledger, store_dir: str, out_dir: str, *,
     plan = plan_export(store, store_dir, preps, chromosome=chromosome,
                        region=region, batch_rows=batch_rows,
                        part_bytes=part_bytes, seed=seed, ordered=ordered)
+    # crash point: the plan (and allele dictionaries) exist only in
+    # memory — a death here must leave the output directory byte-untouched
+    faults.fire("export.plan")
     summary = {
         "out": out_dir, "plan_sig": plan.signature,
         "batch_rows": plan.batch_rows,
@@ -452,6 +458,10 @@ def run_export(store, ledger, store_dir: str, out_dir: str, *,
             emitted += 1
             if emitted <= skip:
                 continue  # committed in a previous run: replayed, not repacked
+            # crash point: gathered, nothing staged (the pack runs when the
+            # part commits) — a death here lands on the committed-part
+            # prefix, resumable via the ledger
+            faults.fire("export.pack")
             rows += chunk["n_valid"]
             tokens += chunk["n_valid"] * TOKENS_PER_ROW
             staged.append((seq, chunk))

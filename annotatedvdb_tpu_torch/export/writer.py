@@ -14,10 +14,10 @@ byte (``{``) like the segment reader.
 **Durability.**  Every part lands tmp -> fsync -> atomic rename, and the
 manifest commits last through ``utils.io.replace_manifest``, so a kill at
 any instant leaves a committed prefix of the corpus or prunable
-``*.export.tmp*`` debris, never a torn part.  Not ported: the reference's
-``export.commit`` fault points (``faults.fire`` on the staged temps) and
-its ``AVDB_IO_TRACE`` file wrapper; a kill mid-commit is tested through the
-reference's own fault point.
+``*.export.tmp*`` debris, never a torn part.  The ``export.commit`` fault
+point fires on each staged part temp after its body and on the manifest
+temp through ``replace_manifest``'s ``pre_sync`` hook.  Not ported: the
+reference's ``AVDB_IO_TRACE`` file wrapper.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 
 #: the corpus directory's self-description (committed last, atomically)
@@ -79,6 +80,8 @@ def write_part(out_dir: str, n: int, arrays: dict) -> dict:
             f.write(buf)
             digest.update(buf)
             total += len(buf)
+        # crash point: a death here leaves a staged temp, never a part
+        faults.fire("export.commit", f)
         f.flush()
         # unconditional: the rename below lands a durable name
         tio.fsync(f)
@@ -118,8 +121,13 @@ def read_part(path: str) -> dict:
 
 
 def write_manifest(out_dir: str, doc: dict) -> None:
-    """Atomic manifest commit (dot-prefixed temp, fsync, rename)."""
-    tio.replace_manifest(os.path.join(out_dir, MANIFEST_NAME), doc)
+    """Atomic manifest commit (dot-prefixed temp, fsync, rename).  The
+    ``export.commit`` point fires on the staged temp too: a death between
+    the last part and the manifest still resumes to the same corpus."""
+    tio.replace_manifest(
+        os.path.join(out_dir, MANIFEST_NAME), doc,
+        pre_sync=lambda f: faults.fire("export.commit", f),
+    )
 
 
 def read_manifest(out_dir: str) -> dict | None:

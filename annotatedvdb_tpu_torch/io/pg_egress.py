@@ -11,9 +11,10 @@ Display attributes the loader did not store are recomputed per
 ``EGRESS_WINDOW`` rows through the loaders' device step
 (``models/pipeline.py::annotate_hash_fn``): one ``annotate_bin`` launch on
 the card per window that has rows lacking them (the allele hash it also
-returns is not used), the plain version on the CPU.  The reference's
-``egress.flush`` fault point (``utils/faults``) is not ported; the
-tmp-and-rename write with its bounded retry of transient I/O errors is.
+returns is not used), the plain version on the CPU.  The
+``egress.flush`` fault point fires per COPY file, inside the
+tmp-and-rename write and its bounded retry of transient I/O errors (an
+injected ``eio`` is absorbed, a ``raise`` propagates).
 """
 
 from __future__ import annotations
@@ -144,6 +145,7 @@ def export_store(store: VariantStore, out_dir: str,
     display recompute runs on ``device`` (``cuda:0`` by default, or
     ``"cpu"``).  Returns per-chromosome row counts."""
     from annotatedvdb_tpu_torch.runtime import resolve_device
+    from annotatedvdb_tpu_torch.utils import faults
     from annotatedvdb_tpu_torch.utils.retry import is_transient_io, with_backoff
 
     device = resolve_device(device)
@@ -169,6 +171,9 @@ def export_store(store: VariantStore, out_dir: str,
             with open(tmp, "w") as f:
                 for values in row_iter_factory():
                     f.write("\t".join(pg_escape(v) for v in values) + "\n")
+                # crash/transient point: per COPY-file flush (the eio
+                # action exercises exactly this retry path)
+                faults.fire("egress.flush", f)
                 f.flush()
             os.replace(tmp, target)
 

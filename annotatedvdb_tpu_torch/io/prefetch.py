@@ -22,7 +22,9 @@ silently falls back):
 yields ``(seq, chunk)`` pairs (seq = source position, the resequencer's
 key); untagged it yields chunks in source order — the VEP load's block
 reader rides that mode.  Either way scan seconds land on the caller's
-``StageTimer`` as ``ingest``, busy time on the prefetch thread.
+``StageTimer`` as ``ingest``, busy time on the prefetch thread, and
+``faults.fire("ingest.prefetch")`` fires once per scheduled chunk ON the
+prefetch thread.
 """
 
 from __future__ import annotations
@@ -122,6 +124,8 @@ class ChunkPrefetcher:
         ``max(2, depth)`` chunks, so a chunk is emitted at most
         ``block - 1`` positions from home: the resequencer's held set is
         hard-bounded at O(depth) chunks."""
+        from annotatedvdb_tpu_torch.utils import faults
+
         rng = (random.Random(self.shuffle_seed)
                if self.shuffle_seed is not None else None)
         block: list = []
@@ -135,6 +139,9 @@ class ChunkPrefetcher:
                 chunk = next(it, _DONE)
             if chunk is _DONE:
                 break
+            # crash point: per scheduled chunk, on the prefetch thread —
+            # an injected death here must strand at most one checkpoint
+            faults.fire("ingest.prefetch")
             block.append((seq, chunk))
             seq += 1
             if len(block) >= win:

@@ -347,8 +347,21 @@ class VcfBatchReader:
         if self._use_native():
             from annotatedvdb_tpu_torch.native.vcf import iter_native_chunks
 
-            return iter_native_chunks(self.path, self.batch_size, self.width)
-        return self._iter_python()
+            chunks = iter_native_chunks(self.path, self.batch_size, self.width)
+        else:
+            chunks = self._iter_python()
+        return self._fire_per_chunk(chunks)
+
+    @staticmethod
+    def _fire_per_chunk(chunks) -> Iterator[VcfChunk]:
+        from annotatedvdb_tpu_torch.utils import faults
+
+        for chunk in chunks:
+            # crash point: per parsed chunk, engine-independent (fires on
+            # the ingest thread under the overlapped pipeline, so an
+            # injected raise also exercises the cross-thread error path)
+            faults.fire("ingest.chunk")
+            yield chunk
 
     def iter_prefetched(self, timer, depth: int = 2,
                         shuffle_seed: int | None = None,

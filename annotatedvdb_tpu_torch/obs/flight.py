@@ -1,7 +1,8 @@
 """Crash flight recorder: an mmap'd black box that survives SIGKILL.
 
-Port of ``annotatedvdb_tpu/obs/flight.py``, less its ``obs.flight``
-fault point.  The ring file is an on-disk format: the port writes the
+Port of ``annotatedvdb_tpu/obs/flight.py``, whole, with its
+``obs.flight`` fault point (per ring write, per request summary, per
+harvest; every injected failure is absorbed).  The ring file is an on-disk format: the port writes the
 reference's bytes for the same events and times, and either package's
 ``doctor flight`` reads either package's rings and harvests.
 
@@ -53,6 +54,8 @@ import struct
 import threading
 import time
 import zlib
+
+from annotatedvdb_tpu_torch.utils import faults
 
 
 MAGIC = b"AVDBFLT1"
@@ -189,6 +192,9 @@ class FlightRecorder:
         """One slot write; absorbs every failure (the black box must
         never take down the flight it records)."""
         try:
+            # crash point: a failing ring write (or an injected EIO) must
+            # cost nothing but this one record
+            faults.fire("obs.flight")
             nb = name.encode("utf-8", "replace")[:TRACE_MAX]
             pb = payload[:PAYLOAD_MAX]
             with self._write_lock:
@@ -217,8 +223,19 @@ class FlightRecorder:
     def request(self, trace_id: str, kind: str, status: int,
                 total_s: float, stages) -> None:
         """One finished request's summary: trace id, kind, status, total,
-        and the stage breakdown.  Hot path: one deque append — encode
-        and mmap work happen at :meth:`flush`."""
+        and the stage breakdown.  Hot path: one fault-point check + one
+        deque append — encode and mmap work happen at :meth:`flush`."""
+        try:
+            # crash point: an injected failure must cost exactly this
+            # one record, never the request being recorded
+            faults.fire("obs.flight")
+        except Exception as err:
+            self._errors += 1
+            if not self._error_logged:
+                self._error_logged = True
+                self.log(f"flight: ring write failed ({type(err).__name__}:"
+                         f" {err}); recording continues best-effort")
+            return
         self._pending.append(
             (time.time(), trace_id, kind, int(status), total_s,
              tuple(stages))
@@ -351,9 +368,13 @@ def harvest(ring_file: str, store_dir: str, worker: int, reason: str,
     """Decode a dead worker's ring into
     ``<store>/flight/<ms>-w<idx>.jsonl`` (header line + one JSON per
     event) and return the path — or None when there is nothing to
-    harvest.  The SUPERVISOR wraps this call (a failed harvest must
-    never stall the respawn loop)."""
+    harvest.  Raises nothing the caller must absorb beyond what the
+    ``obs.flight`` fault point injects: the SUPERVISOR wraps this call
+    (a failed harvest must never stall the respawn loop)."""
     log = log if log is not None else (lambda msg: None)
+    # crash point: an injected failure inside the harvest must be
+    # absorbed by the supervisor (serving and respawn continue)
+    faults.fire("obs.flight")
     if not os.path.isfile(ring_file):
         return None
     decoded = decode_ring(ring_file)

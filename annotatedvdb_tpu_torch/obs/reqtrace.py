@@ -1,4 +1,4 @@
-"""Request-scoped tracing: per-stage spans of one request.
+"""Request-scoped tracing: per-stage spans into a lock-free span ring.
 
 Port of ``annotatedvdb_tpu/obs/reqtrace.py``, trimmed to what the engine,
 the batcher and the threaded handler call: :func:`activate` and
@@ -11,13 +11,21 @@ summary), and the background-writer sink (:func:`set_background_sink`,
 :func:`background_span`, :func:`lifecycle_event`): the maintenance
 daemon's passes, memtable flushes, compaction groups and WAL rotations
 record spans and lifecycle events into the process's flight recorder
-without the store layer importing serve code.  The span ring and its
-Chrome-trace export (``/debug/trace``) are not ported.
+without the store layer importing serve code.
+
+The span ring: a fixed-size (:attr:`TraceRecorder.SLOTS`) per-process ring
+of finished-request and background records.  Writes are lock-free: one
+shared ``itertools.count`` reserves a slot (thread-safe under the GIL),
+one list-item assignment publishes the immutable record tuple, and a
+reader copying the list sees each slot as the old record or the new one,
+never a hybrid.  :meth:`TraceRecorder.chrome_events` renders it as Chrome
+trace events, the body of the chaos-gated ``GET /debug/trace``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import random
 import threading
@@ -149,11 +157,18 @@ def lifecycle_event(name: str, detail: str) -> None:
 
 
 class TraceRecorder:
-    """Per-process span recording: the stage histograms, the slow-request
-    log and the flight-recorder feed."""
+    """Per-process span recording: the ring, the stage histograms, the
+    slow-request log and the flight-recorder feed."""
 
-    def __init__(self, registry=None, slow_ms: float | None = None,
-                 sample: float | None = None, log=None, flight=None):
+    SLOTS = 2048
+
+    def __init__(self, registry=None, slots: int | None = None,
+                 slow_ms: float | None = None, sample: float | None = None,
+                 log=None, flight=None):
+        n = self.SLOTS if slots is None else max(int(slots), 1)
+        self.slots = n
+        self.t0_ns = time.perf_counter_ns()
+        self.t0_epoch = time.time()
         self.slow_s = (
             slow_ms_from_env() if slow_ms is None else max(float(slow_ms), 0.0)
         ) / 1000.0
@@ -163,6 +178,11 @@ class TraceRecorder:
         )
         self.log = log if log is not None else (lambda msg: None)
         self.flight = flight
+        #: the lock-free ring: slot reservation through the (GIL-atomic)
+        #: counter, publication through one list-item assignment of an
+        #: immutable tuple — concurrent writers never wait on each other
+        self._ring: list = [None] * n
+        self._seq = itertools.count()
         self._rng = random.Random(0xA5DB7)
         self._hist = {}
         self._m_slow = None
@@ -186,11 +206,19 @@ class TraceRecorder:
         return RequestTrace(trace_id, kind)
 
     def finish(self, trace: RequestTrace | None, status: int = 200) -> None:
-        """Seal one request's trace: feed the stage histograms, log it when
-        slow, and write the flight-recorder request summary."""
+        """Seal one request's trace: publish the ring record, feed the
+        stage histograms, log it when slow, and write the flight-recorder
+        request summary."""
         if trace is None:
             return
-        total = (time.perf_counter_ns() - trace.t0_ns) / 1e9
+        now_ns = time.perf_counter_ns()
+        total = (now_ns - trace.t0_ns) / 1e9
+        record = (
+            trace.trace_id, trace.kind, int(status),
+            trace.t0_ns, total,
+            tuple(trace.stages), tuple(trace.spans),
+        )
+        self._ring[next(self._seq) % self.slots] = record
         hist = self._hist
         if hist:
             hist["total"].observe(total)
@@ -220,8 +248,14 @@ class TraceRecorder:
                 pass
 
     def background(self, name: str, seconds: float, meta=None) -> None:
-        """One background-track span (the module sink's target): the
-        background stage histogram and a flight-recorder event."""
+        """One background-track span (the module sink's target): same
+        ring, kind ``background``, plus the background stage histogram and
+        a flight-recorder event."""
+        t0_ns = time.perf_counter_ns() - int(seconds * 1e9)
+        record = ("-", "background", 0, t0_ns, float(seconds),
+                  (("background", float(seconds)),),
+                  ((name, float(seconds)),))
+        self._ring[next(self._seq) % self.slots] = record
         h = self._hist.get("background")
         if h is not None:
             h.observe(seconds)
@@ -235,3 +269,53 @@ class TraceRecorder:
                 self.flight.event("background", detail)
             except Exception:  # avdb: noqa[AVDB602] -- the flight recorder must never fail the writer it records
                 pass
+
+    # -- export -------------------------------------------------------------
+
+    def records(self) -> list[tuple]:
+        """Finished-request records, oldest-first best effort.  The copy
+        races in-flight writers by design: each slot is either one record
+        or another, never torn (immutable tuples, atomic item reads)."""
+        snap = list(self._ring)
+        return sorted(
+            (r for r in snap if r is not None), key=lambda r: r[3]
+        )
+
+    def chrome_events(self, base_ns: int | None = None) -> list[dict]:
+        """The ring as Chrome trace events: requests on one named track,
+        background spans on another, stages as nested complete (``X``)
+        events, timed from ``base_ns`` (the recorder's own start by
+        default)."""
+        base = self.t0_ns if base_ns is None else int(base_ns)
+        pid = os.getpid()
+        req_tid, bg_tid = 1, 2
+        events: list[dict] = [
+            {"ph": "M", "name": "thread_name", "pid": pid, "tid": req_tid,
+             "ts": 0, "args": {"name": "requests"}},
+            {"ph": "M", "name": "thread_name", "pid": pid, "tid": bg_tid,
+             "ts": 0, "args": {"name": "background"}},
+        ]
+        for trace_id, kind, status, t0_ns, total, stages, spans \
+                in self.records():
+            tid = bg_tid if kind == "background" else req_tid
+            ts = (t0_ns - base) / 1000.0
+            args = {"trace_id": trace_id, "status": status}
+            events.append({
+                "ph": "X", "name": kind, "cat": "request", "pid": pid,
+                "tid": tid, "ts": ts, "dur": total * 1e6, "args": args,
+            })
+            at = ts
+            for stage, seconds in stages:
+                events.append({
+                    "ph": "X", "name": stage, "cat": "stage", "pid": pid,
+                    "tid": tid, "ts": at, "dur": seconds * 1e6,
+                    "args": {"trace_id": trace_id},
+                })
+                at += seconds * 1e6
+            for name, seconds in spans:
+                events.append({
+                    "ph": "X", "name": name, "cat": "span", "pid": pid,
+                    "tid": tid, "ts": ts, "dur": seconds * 1e6,
+                    "args": {"trace_id": trace_id},
+                })
+        return events

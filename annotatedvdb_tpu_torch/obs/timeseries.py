@@ -1,8 +1,9 @@
 """Metrics time-series history: a bounded ring of registry snapshots.
 
-Port of ``annotatedvdb_tpu/obs/timeseries.py``, less its ``obs.tick``
-fault point: the ring, the window and quantile helpers, and the history
-files are the reference's, byte for byte on disk.
+Port of ``annotatedvdb_tpu/obs/timeseries.py``, whole: the ring, the
+window and quantile helpers, and the history files are the reference's,
+byte for byte on disk, and the ``obs.tick`` fault point fires at its three
+sites (sample, persist, harvest).
 
 The metrics registry answers "what is the worker doing right now"; this
 module gives it MEMORY.  Every ``AVDB_OBS_TICK_S`` seconds a worker
@@ -42,6 +43,7 @@ import threading
 import time
 
 from annotatedvdb_tpu_torch.obs.metrics import bucket_quantile
+from annotatedvdb_tpu_torch.utils import faults
 
 #: the history subdirectory under a store (live rings + harvests)
 HISTORY_DIR = "history"
@@ -365,8 +367,11 @@ class TimeSeriesRing:
 
     def sample(self) -> dict:
         """Append one registry snapshot and prune past retention.
-        RAISES on failure — the serving-side caller absorbs
-        (:meth:`tick`)."""
+        RAISES on failure (and on an injected ``obs.tick`` fault) — the
+        serving-side caller absorbs (:meth:`tick`)."""
+        # crash point: a failing snapshot must cost one tick, never the
+        # maintenance chain that drives it
+        faults.fire("obs.tick")
         self._last_tick = time.monotonic()
         t = self.clock()
         doc = {"t": t, "metrics": self.registry.snapshot()}
@@ -396,14 +401,18 @@ class TimeSeriesRing:
                 force: bool = False) -> bool:
         """Atomically rewrite the history file (tmp+rename — a harvester
         or fleet view must never read a torn document).  Time-gated to
-        :data:`PERSIST_S` unless ``force``.  RAISES on failure;
-        :meth:`tick` absorbs."""
+        :data:`PERSIST_S` unless ``force``.  RAISES on failure (and on
+        an injected ``obs.tick`` fault); :meth:`tick` absorbs."""
         if self.path is None:
             return False
         now = time.monotonic()
         if not force and now - self._last_persist < self.PERSIST_S:
             return False
         self._last_persist = now
+        # crash point: a failing history persist must cost one mirror
+        # write, never the tick chain (and the previous file survives —
+        # the write is tmp+rename)
+        faults.fire("obs.tick")
         d = os.path.dirname(os.path.abspath(self.path))
         os.makedirs(d, exist_ok=True)
         tmp = os.path.join(
@@ -455,8 +464,11 @@ def harvest(history_file: str, store_dir: str, worker: int, reason: str,
     ``<store>/history/<ms>-w<idx>.json`` (with the death reason stamped
     in) and return the path — or None when there is nothing to harvest.
     The SUPERVISOR wraps this call (a failed harvest must never stall
-    the respawn loop)."""
+    the respawn loop); the ``obs.tick`` fault point injects here."""
     log = log if log is not None else (lambda msg: None)
+    # crash point: an injected failure inside the harvest must be
+    # absorbed by the supervisor (serving and respawn continue)
+    faults.fire("obs.tick")
     if not os.path.isfile(history_file):
         return None
     doc = load_history(history_file)

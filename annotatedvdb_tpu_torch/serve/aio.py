@@ -61,10 +61,15 @@ its ``?fleet=1`` view, ``GET /metrics/history`` and ``/metrics?fleet=1``
 answer through the threaded server's shared payload functions (the file-reading
 views on the pool).
 
-Not ported: the Chrome tracer, the chaos plane's ``/debug/trace`` and
-``/_chaos`` routes (both answer the unknown-route 404, as the threaded
-server does), the mesh executor, and the ``serve.accept`` /
-``serve.wedge`` / ``serve.batch`` fault points.
+The chaos plane (``AVDB_SERVE_CHAOS=1``): ``POST /_chaos {"spec": ...,
+"ttl_s": ...}`` arms (or, with an empty spec, disarms) this process's
+``AVDB_FAULT`` slot at run time, a ``ttl_s`` disarming it again on the
+loop; ``GET /debug/trace`` dumps the span ring.  Without the variable
+both answer the unknown-route 404.  Fault points here: ``serve.accept``
+(per accepted connection), ``serve.wedge`` (per maintenance tick: a long
+``delay`` parks the loop, which the fleet watchdog must kill) and
+``serve.batch`` (per loop-batcher drain).  Not ported: the loaders'
+Chrome tracer (``--traceOut``) and the mesh executor.
 """
 
 from __future__ import annotations
@@ -124,6 +129,8 @@ from annotatedvdb_tpu_torch.serve.http import (
     UPSERT_ROUTE,
     ServeContext,
     alerts_payload,
+    chaos_enabled_from_env,
+    debug_trace_payload,
     healthz_payload,
     metrics_history_payload,
     metrics_payload,
@@ -141,6 +148,7 @@ from annotatedvdb_tpu_torch.serve.resilience import (
     DeviceBreaker,
 )
 from annotatedvdb_tpu_torch.serve.snapshot import SnapshotManager
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
 #: request body cap (bulk id lists); larger bodies are 413, never buffered
@@ -381,8 +389,10 @@ class LoopBatcher:
             return
         t_exec = time.perf_counter()
         try:
-            # a failure here fails exactly this batch's callers and leaves
-            # the loop serving
+            # crash point: the microbatch is assembled, nothing executed —
+            # a failure here must fail exactly this batch's callers and
+            # leave the loop serving
+            faults.fire("serve.batch")
             results = self.engine.lookup_many(
                 [q for _f, q, _p, _d, _t, _e in batch],
                 parsed=[p for _f, _q, p, _d, _t, _e in batch],
@@ -646,6 +656,14 @@ class AioServer:
                 ctx.log(f"heartbeat file unusable ({err}); "
                         "watchdog will not see this worker")
                 self._hb_mm = None
+        #: runtime fault arming (POST /_chaos) — gated hard on the
+        #: environment so the route does not exist on a production server
+        #: (404, byte-identical to any unknown route); /debug/trace shares
+        #: the same gate
+        self._chaos_enabled = chaos_enabled_from_env()
+        #: arming generation: each /_chaos arm bumps it so a stale ttl
+        #: timer can never disarm a NEWER arming's fault
+        self._chaos_seq = 0
         if client_rate is None:
             client_rate = _client_rate_from_env()
         self.governor = (
@@ -788,15 +806,24 @@ class AioServer:
         self._loop.call_soon(self._tick)
 
     def _tick(self) -> None:
-        """One maintenance pass ON the event loop: one heartbeat slot
-        write, a brownout-ladder evaluation and the memtable flush check,
-        then the telemetry publish, the flight flush and the health tick,
-        each handed to the executor pool with at most one in flight.
+        """One maintenance pass ON the event loop: the wedge fault point
+        first (a long ``delay`` here parks the loop — requests stall AND
+        heartbeats stop, the alive-but-stuck worker), then one heartbeat
+        slot write, a brownout-ladder evaluation and the memtable flush
+        check, then the telemetry publish, the flight flush and the health
+        tick, each handed to the executor pool with at most one in flight.
         Everything that proves this loop makes progress runs here, so a
         wedged loop cannot look healthy from a helper thread."""
         if self._stop is not None and self._stop.is_set():
             return
         try:
+            try:
+                # crash point: fires per maintenance tick; delay = a
+                # wedged loop the fleet watchdog must SIGKILL, kill = a
+                # worker death
+                faults.fire("serve.wedge")
+            except Exception as err:
+                self.ctx.log(f"wedge fault injected: {err}")
             if self._hb_mm is not None:
                 # beside the beat, the slot publishes this worker's health
                 # (p99-exceedance EWMA, brownout level, queue depth) for a
@@ -915,6 +942,15 @@ class AioServer:
         if task is not None:
             self._conns.add(task)
             task.add_done_callback(self._conns.discard)
+        try:
+            # crash point: the connection is accepted, nothing parsed —
+            # a raise here must cost exactly this connection; kill is the
+            # fleet's dead-worker case (supervisor restarts)
+            faults.fire("serve.accept")
+        except Exception as err:
+            self.ctx.log(f"accept failed: {err}")
+            writer.close()
+            return
         out_q: asyncio.Queue = asyncio.Queue(maxsize=PIPELINE_DEPTH)
         wtask = self._loop.create_task(self._write_responses(writer, out_q))
         try:
@@ -1283,6 +1319,10 @@ class AioServer:
                 )
                 return ("exec", fut, "history", time.perf_counter(),
                         tid, None), keep, tid
+            if path == "/debug/trace" and ctx.debug_trace_enabled:
+                # chaos-gated like /_chaos: a production server 404s this
+                # byte-identically to any unknown route
+                return _resp(200, debug_trace_payload(ctx)), keep, tid
             if path == REPL_MANIFEST_ROUTE:
                 # the ship document stats the manifest and scans WAL
                 # stable prefixes — file I/O, executor work
@@ -1414,8 +1454,44 @@ class AioServer:
                 return self._stats_item(
                     body, client, max_ids, deadline_t, tid
                 ), keep, tid
+            if path == "/_chaos" and self._chaos_enabled:
+                return self._chaos_item(body), keep, tid
             return _error(404, f"no such route: {path}"), keep, tid
         return _error(501, f"method {method} not supported"), False, tid
+
+    def _chaos_item(self, body: bytes) -> bytes:
+        """Runtime fault arming (``AVDB_SERVE_CHAOS=1`` only): the chaos
+        harness's worker-side lever — environment arming cannot reach a
+        running fleet, and respawned workers come up clean because this
+        is in-process state.  ``ttl_s`` schedules an automatic disarm so a
+        probabilistic fault cannot outlive its chaos window when the
+        disarm request would land on a different worker."""
+        try:
+            obj = json.loads(body or b"{}")
+            if not isinstance(obj, dict):
+                raise TypeError("chaos body must be a JSON object")
+            spec = obj.get("spec", "") or ""
+            ttl = obj.get("ttl_s")
+            # validate EVERYTHING before arming: a bad ttl must not leave
+            # the fault armed with the auto-disarm it promised missing
+            ttl_s = max(float(ttl), 0.0) if ttl is not None else None
+            faults.reset(spec)
+        except (ValueError, TypeError) as err:
+            return _error(400, f"bad chaos spec: {err}")
+        self._chaos_seq += 1
+        if ttl_s is not None and spec:
+            seq = self._chaos_seq
+
+            def expire():
+                # only disarm the arming this timer belongs to: a newer
+                # arm owns the (single) fault slot and its own ttl
+                if self._chaos_seq == seq:
+                    faults.reset("")
+
+            self._loop.call_later(ttl_s, expire)
+        return _resp(200, json.dumps(
+            {"armed": spec or None, "pid": os.getpid()}
+        ))
 
     def _default_deadline(self) -> float | None:
         """Absolute deadline from the configured default budget alone

@@ -17,7 +17,8 @@ the 429 admission bound); :func:`resolve_regions_knobs` and
 :func:`resolve_stats_knobs` resolve the batch caps and device minimums of
 ``POST /regions`` and ``POST /stats/region``.  Queries are grammar-checked
 at ``submit``, so a malformed id fails only its own caller.  The
-``serve.batch`` fault point is not ported.
+``serve.batch`` fault point fires before each assembled microbatch runs
+(here and in the ``aio`` front end's loop batcher).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import time
 
 from annotatedvdb_tpu_torch.serve.engine import parse_variant_id
 from annotatedvdb_tpu_torch.serve.resilience import DeadlineExceeded
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils.pipeline import StageStats
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
@@ -314,6 +316,10 @@ class QueryBatcher:
             return
         t_exec = time.perf_counter()
         try:
+            # crash point: the microbatch is assembled, nothing executed —
+            # a failure here must fail exactly this batch's callers and
+            # leave the drain thread serving
+            faults.fire("serve.batch")
             results = self.engine.lookup_many(
                 [p.qid for p in batch], parsed=[p.parsed for p in batch],
             )

@@ -30,10 +30,11 @@ plain versions.  On the card the engine loads its kernels' libraries
 kernel that does not build raises there and never reaches a request.  A device failure feeds the per-group
 :class:`~annotatedvdb_tpu_torch.serve.resilience.DeviceBreaker` and the
 request is answered by the numpy twin; with no breaker it fails the
-request, where the reference answers from the twin unrecorded.  Not
-ported: the mesh executor
-(``mesh=``, ``_mesh_lookup_many``) and the ``faults.fire`` points
-(``engine.device_probe``, ``serve.regions``, ``serve.stats``).
+request, where the reference answers from the twin unrecorded.  Fault
+points: ``engine.device_probe`` (a breaker-routed membership probe),
+``serve.regions`` and ``serve.stats`` (a parsed batch, nothing run).  Not
+ported: the mesh executor (``mesh=``, ``_mesh_lookup_many``) and so its
+``mesh.dispatch`` point.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ from annotatedvdb_tpu_torch.types import (
     decode_allele,
     encode_allele_array,
 )
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, next_pow2, pad_pow2
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
@@ -792,11 +794,19 @@ class QueryEngine:
         residency manager installed, or the store's own upload rule); an
         open group probes on the host.  A device error in the probe feeds
         the breaker and the group is probed again on the host, which gives
-        the same answer."""
+        the same answer.  The ``engine.device_probe`` fault point injects
+        such a failure where a breaker is installed (as in the reference,
+        which fires it only on the breaker's path)."""
         breaker = self.breaker
         if breaker is not None and not breaker.allow_device(code):
             return shard.lookup(pos, h, ref, alt, ref_len, alt_len)
         try:
+            if breaker is not None:
+                # crash point: models a device probe/upload failure
+                # surfacing from this group's membership probe — the
+                # breaker must absorb it on the host path, never wrong
+                # bytes
+                faults.fire("engine.device_probe")
             out = shard.lookup(pos, h, ref, alt, ref_len, alt_len,
                                device=self.device)
         except Exception as exc:
@@ -919,6 +929,10 @@ class QueryEngine:
         snap = self.snapshots.current()
         if self.residency is not None:
             self.residency.govern(snap)
+        # crash point: the batch is parsed, nothing executed — a failure
+        # here must fail exactly this batch's caller and leave the engine
+        # serving the next one
+        faults.fire("serve.regions")
         by_code: dict[int, list[int]] = {}
         for i, (code, _s, _e) in enumerate(parsed):
             by_code.setdefault(code, []).append(i)
@@ -1049,6 +1063,10 @@ class QueryEngine:
         snap = self.snapshots.current()
         if self.residency is not None:
             self.residency.govern(snap)
+        # crash point: the panel is parsed, nothing executed — a failure
+        # here must fail exactly this request's caller (HTTP 500) and
+        # leave the engine answering the next panel byte-identically
+        faults.fire("serve.stats")
         by_code: dict[int, list[int]] = {}
         for i, (code, _s, _e) in enumerate(parsed):
             by_code.setdefault(code, []).append(i)

@@ -31,8 +31,9 @@ case: every worker beats through a shared mmap'd slot file from its event
 loop (``--_heartbeatFile``), and the supervisor SIGKILLs and respawns a
 worker whose beat goes stale past ``AVDB_SERVE_WEDGE_TIMEOUT_S``.  On a
 respawn it strips a write-path or serve-side ``AVDB_FAULT`` from the
-child's environment, as the reference does (the port has no fault points,
-so the variable is inert in its workers).
+child's environment, as the reference does: an injected worker death
+(``serve.worker``, ``serve.accept``, ``serve.wedge``, ``wal.*``,
+``memtable.flush``) tests the restart path once, not a crash loop.
 
 ``maintain=True`` (``serve --maintain``) hosts the maintenance daemon
 (``store/maintenance.py``) in the supervisor beside the restart loop: it
@@ -281,6 +282,10 @@ class ServeFleet:
         env = dict(os.environ)
         if respawn and env.get("AVDB_FAULT", "").startswith(
                 ("serve.", "wal.", "memtable.")):
+            # an injected worker-side fault killed the previous
+            # incarnation; the replacement must come up clean — a
+            # wal.replay kill re-armed on every respawn would be a crash
+            # loop by construction, not a crash test
             self.log(f"worker {index}: respawning with AVDB_FAULT cleared")
             env.pop("AVDB_FAULT")
         proc = subprocess.Popen(

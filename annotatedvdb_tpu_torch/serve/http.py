@@ -49,9 +49,12 @@ published snapshots summed, gauges maxed, plus the supervisor's
 ``avdb_fleet_*`` series); ``GET /alerts`` the SLO alert states and
 ``GET /metrics/history`` the time-series ring as derived series (both
 with ``?fleet=1`` views over the siblings' persisted history mirrors);
-``/healthz`` carries the firing count and the worst alert state.  The
-chaos plane's ``/debug/trace`` and ``POST /_chaos`` are not ported: they
-answer the reference's unknown-route 404, as every other path does.
+``/healthz`` carries the firing count and the worst alert state.
+
+The chaos plane: under ``AVDB_SERVE_CHAOS=1`` both front ends answer
+``GET /debug/trace`` (this process's span ring as Chrome trace events)
+and the ``aio`` front end ``POST /_chaos`` (runtime fault arming); without
+it both paths answer the unknown-route 404, byte for byte.
 """
 
 from __future__ import annotations
@@ -190,6 +193,25 @@ def resolve_trace_id(traceparent: str | None,
         if tid:
             return tid
     return _MINT_PREFIX + format(next(_MINT_SEQ) & 0xFFFFFFFF, "08x")
+
+
+def chaos_enabled_from_env() -> bool:
+    """``AVDB_SERVE_CHAOS`` — gates the runtime fault-arming route
+    (``POST /_chaos``, aio only) AND the on-demand trace dump
+    (``GET /debug/trace``, both front ends).  On a production server both
+    routes 404 byte-identically to any unknown route."""
+    return os.environ.get("AVDB_SERVE_CHAOS", "") == "1"
+
+
+def debug_trace_payload(ctx) -> str:
+    """The ``GET /debug/trace`` body — this process's span ring as Chrome
+    trace-event JSON, shared by both front ends.  (The reference also
+    merges a ``--traceOut`` batcher tracer's spans; that flag is refused
+    here, so the ring is the whole dump, as in the reference without
+    it.)"""
+    events = ctx.reqtrace.chrome_events(base_ns=ctx.reqtrace.t0_ns)
+    events.sort(key=lambda e: e.get("ts", 0))
+    return json.dumps({"traceEvents": events, "displayTimeUnit": "ms"})
 
 
 def metrics_payload(ctx, query: str) -> str:
@@ -649,6 +671,7 @@ class ServeContext:
         self.health_tick_inline = True
         self.worker_index = int(worker_index)
         self.started_t = time.time()
+        self.debug_trace_enabled = chaos_enabled_from_env()
         self.flight_flush_inline = True
         self._flight_flush_last = 0.0
         #: the live write path (``store/memtable.py``), or None for a
@@ -1184,6 +1207,11 @@ class ServeHandler(BaseHTTPRequestHandler):
                         content_type="application/octet-stream"
                         if isinstance(body, bytes) else "application/json")
             return
+        if path == "/debug/trace" and ctx.debug_trace_enabled:
+            # chaos-gated like /_chaos: on a production server this path
+            # 404s byte-identically to any unknown route
+            self._reply(200, debug_trace_payload(ctx))
+            return
         if path == EXPORT_STREAM_ROUTE:
             self._export_stream(ctx, url.query)
             return
@@ -1301,17 +1329,20 @@ class ServeHandler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length", 0))
         return self.rfile.read(length) if length else b""
 
-    def _execute(self, ctx: ServeContext, kind: str, t0: float, run) -> None:
-        """Run ``run()`` (the engine call, returning ``(body, rows)``) under
-        the request's trace, mapping QueryError to 400 and any other
-        failure to 500."""
+    def _execute(self, ctx: ServeContext, kind: str, t0: float, run,
+                 render=None) -> None:
+        """Run ``run()`` (the engine call) under the request's trace,
+        mapping QueryError to 400 and any other failure to 500.  With
+        ``render``, ``render(result)`` makes ``(body, rows)`` as the trace's
+        ``render`` stage (bulk, ``/regions``, ``/stats/region``, as the
+        reference times them); without it ``run()`` returns them."""
         trace = ctx.reqtrace.begin(self._trace_id, kind)
         if trace is not None:
             trace.add("admission", time.perf_counter() - t0)
         try:
             t_dev = time.perf_counter()
             with reqtrace_mod.activate(trace):
-                body, rows = run()
+                result = run()
             if trace is not None:
                 trace.add("device", time.perf_counter() - t_dev)
         except QueryError as err:
@@ -1324,7 +1355,11 @@ class ServeHandler(BaseHTTPRequestHandler):
             ctx.reqtrace.finish(trace, 500)
             self._error(500, f"{type(err).__name__}: {err}")
             return
+        t_render = time.perf_counter()
+        body, rows = result if render is None else render(result)
         ctx.observe(kind, time.perf_counter() - t0, rows=rows)
+        if render is not None and trace is not None:
+            trace.add("render", time.perf_counter() - t_render)
         ctx.reqtrace.finish(trace, 200)
         self._reply(200, body)
 
@@ -1351,8 +1386,7 @@ class ServeHandler(BaseHTTPRequestHandler):
                 self._error(504, MSG_DEADLINE_EXECUTE)
                 return
 
-            def run():
-                results = ctx.engine.lookup_many(ids)
+            def render(results):
                 found = sum(1 for r in results if r is not None)
                 return (
                     f'{{"n":{len(results)},"found":{found},"results":['
@@ -1361,7 +1395,8 @@ class ServeHandler(BaseHTTPRequestHandler):
                     + "]}"
                 ), found
 
-            self._execute(ctx, "bulk", t0, run)
+            self._execute(ctx, "bulk", t0,
+                          lambda: ctx.engine.lookup_many(ids), render)
         finally:
             ctx.release()
 
@@ -1430,13 +1465,12 @@ class ServeHandler(BaseHTTPRequestHandler):
                 limit = min(limit, cap)  # brownout level >= 1
 
             def run():
-                result = ctx.engine.regions_serve(
+                return ctx.engine.regions_serve(
                     specs, min_cadd=min_cadd, max_conseq_rank=max_rank,
                     limit=limit, tokenize=tokenize,
                 )
-                return result.assemble(), result.returned
 
-            self._execute(ctx, "regions", t0, run)
+            self._execute(ctx, "regions", t0, run, _assembled)
         finally:
             ctx.release()
 
@@ -1461,12 +1495,11 @@ class ServeHandler(BaseHTTPRequestHandler):
                 self._error(504, MSG_DEADLINE_EXECUTE)
                 return
 
-            def run():
-                result = ctx.engine.stats_serve(specs, metrics=metrics,
-                                                windows=windows)
-                return result.assemble(), result.returned
-
-            self._execute(ctx, "stats", t0, run)
+            self._execute(
+                ctx, "stats", t0,
+                lambda: ctx.engine.stats_serve(specs, metrics=metrics,
+                                               windows=windows),
+                _assembled)
         finally:
             ctx.release()
 
@@ -1515,6 +1548,11 @@ class ServeHandler(BaseHTTPRequestHandler):
             self._execute(ctx, "region", t0, run)
         finally:
             ctx.release()
+
+
+def _assembled(result) -> tuple[str, int]:
+    """A ``/regions`` or ``/stats/region`` result's body and row count."""
+    return result.assemble(), result.returned
 
 
 def build_server(store_dir: str | None = None, manager=None,

@@ -10,7 +10,8 @@ swaps the pin atomically; ``maybe_refresh`` coalesces the check to one
 ``stat`` per ``AVDB_SERVE_SNAPSHOT_TTL_MS`` window (default 250 ms).
 Stores open ``readonly=True``.  :class:`MemtableSnapshots` overlays a live
 memtable (``store/memtable.py``) on a manager: the read-your-writes half of
-``serve --upserts``.  The ``snapshot.swap`` fault point is not ported.
+``serve --upserts``.  The ``snapshot.swap`` fault point fires between a
+new generation's load and the swap.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import os
 import time
 
 from annotatedvdb_tpu_torch.store import VariantStore
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
 
@@ -115,6 +117,10 @@ class SnapshotManager:
                 self.log(f"snapshot refresh failed, keeping generation "
                          f"{pinned.generation}: {err}")
                 return False
+            # crash point: the new generation is fully loaded, the pin has
+            # not moved — a failure here must leave the old generation
+            # serving (and readiness recover: the finally clears the flag)
+            faults.fire("snapshot.swap")
         finally:
             self.swapping = False
         with self._lock:

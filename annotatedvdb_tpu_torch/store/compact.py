@@ -46,9 +46,10 @@ newer segment — a retried memtable flush writes them) is unreachable
 through every read path, so compaction drops it.
 
 The compaction is host work in the reference too: no kernel runs here.
-Not ported: the ``compact.*`` fault points (``compact.plan``,
-``compact.merge``, ``compact.swap``, ``compact.gc``) and the memmap
-spill tier the reference's segment
+Fault points: ``compact.plan`` (plan chosen, nothing read),
+``compact.merge`` (mid temp body), ``compact.swap`` (renamed, before the
+manifest replace) and ``compact.gc`` (committed, before the unlinks; an
+``eio`` there is absorbed).  Not ported: the memmap spill tier the reference's segment
 reader uses above ``AVDB_STORE_SPILL_BYTES`` (segments load into memory).
 The segment reader lives in ``variant_store``, which imports ``torch``;
 it is imported when a pass merges, so planning (``doctor compact
@@ -66,6 +67,7 @@ import zlib
 import numpy as np
 
 from annotatedvdb_tpu_torch.obs import reqtrace
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.pipeline import BoundedStage
 
@@ -503,8 +505,15 @@ def _merge_label_to_temp(store_dir: str, label: str, glist: list,
     try:
         with open(tmp_npz, "wb", buffering=1 << 20) as raw_f:
             f = _CrcWriter(raw_f)
+            first = True
             for blob in stage:
                 f.write(blob)
+                if first:
+                    # crash point: the temp container body is part-written
+                    # (torn_write tears THIS temp; the manifested store
+                    # must not notice)
+                    faults.fire("compact.merge", raw_f)
+                    first = False
             if fsync_data:
                 f.flush()
                 tio.fsync(raw_f)
@@ -643,6 +652,8 @@ def compact_store(store_dir: str, *, groups=None, max_bytes: int | None = None,
                 pass  # fsck prunes leftovers (compact-tmp / orphan findings)
 
     try:
+        # crash point: the plan is chosen, nothing has been read or written
+        faults.fire("compact.plan")
         # the plan and this manifest are two separate reads: a writer that
         # rewrote the store in between (an undo dropping a chromosome's
         # last segments) could leave the plan naming a label this —
@@ -703,6 +714,10 @@ def compact_store(store_dir: str, *, groups=None, max_bytes: int | None = None,
                 created.remove(src)
                 created.append(dst)
                 finals.append(dst)
+        # crash point: every new segment is in place under its final name,
+        # the commit (manifest swap) has not happened — a death here must
+        # leave the OLD manifest serving (the new files are orphans)
+        faults.fire("compact.swap")
         # re-verify IMMEDIATELY before the commit point: a loader that
         # committed while we merged/renamed owns the manifest now (its
         # save() cleanup may already have pruned our renamed files as
@@ -754,6 +769,10 @@ def compact_store(store_dir: str, *, groups=None, max_bytes: int | None = None,
         bytes_reclaimed = 0
         gc_incomplete = None
         try:
+            # crash point: the new manifest is live, the old segment files
+            # are not yet unlinked — a death here leaves orphans (fsck
+            # prunes), never a missing referenced file
+            faults.fire("compact.gc")
             for label in sorted(old_stems):
                 for stem in old_stems[label]:
                     for ext in (".npz", ".ann.jsonl"):
@@ -816,7 +835,7 @@ def compact_store(store_dir: str, *, groups=None, max_bytes: int | None = None,
             "seconds": round(time.perf_counter() - t0, 4),
         }
     except BaseException:
-        # real failures (I/O, corrupt segment): clean the
+        # real failures (I/O, corrupt segment, injected fault): clean the
         # temps where possible, then surface the root cause to the caller
         cleanup()
         met["aborts"].inc()

@@ -21,9 +21,8 @@ in that state and restores it when it is not:
 
 Reports, finding codes and messages are the reference's byte for byte,
 so the prescriptions name the reference's commands as it prints them.
-Host only: the store loads here never touch the card.  The reference's
-``fsck.repair`` fault point (``faults.fire`` on the staged manifest) is
-not ported.
+Host only: the store loads here never touch the card.  The
+``fsck.repair`` fault point fires on the staged rolled-back manifest.
 
 Exit codes: 0 = clean, 1 = warnings or successfully repaired, 2 = errors
 remain.
@@ -35,6 +34,7 @@ import json
 import os
 import re
 
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 
 SEGMENT_RE = re.compile(
@@ -354,12 +354,15 @@ def fsck(store_dir: str, deep: bool = False, repair: bool = False,
             else:
                 del manifest["shards"][label]
         manifest["format"] = 3  # every surviving shard was normalized above
-        # a death before this replace leaves the damaged-but-diagnosed
-        # store for the next fsck run to repair again (repair is
-        # idempotent).  replace_manifest also fsyncs the directory under
-        # AVDB_FSYNC: a repair that doesn't survive power loss would
-        # resurrect the damage it just rolled back.
-        tio.replace_manifest(mpath, manifest)
+        # crash point: the rolled-back manifest is staged, not committed —
+        # a death here leaves the damaged-but-diagnosed store for the next
+        # fsck run to repair again (repair is idempotent).  replace_manifest
+        # also fsyncs the directory under AVDB_FSYNC: a repair that doesn't
+        # survive power loss would resurrect the damage it just rolled back.
+        tio.replace_manifest(
+            mpath, manifest,
+            pre_sync=lambda f: faults.fire("fsck.repair", f),
+        )
         did(f"dropped damaged backing group(s): {', '.join(dropped)} "
             "(shard rolled back to its last consistent rows)")
         # canonicalize: a load+save round trip revalidates backing-group

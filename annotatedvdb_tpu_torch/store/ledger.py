@@ -19,6 +19,7 @@ import sys
 import threading
 import time
 
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 
 
@@ -78,6 +79,7 @@ class AlgorithmLedger:
                 # drop the torn lines detected at open, atomically, now that
                 # this process IS the writer.  Dot-prefixed tmp name so
                 # VariantStore.save's orphan cleanup reaps it after a crash.
+                faults.fire("ledger.append")
                 d, base = os.path.split(self.path)
                 tmp = os.path.join(d, f".{base}.tmp{os.getpid()}")
                 with open(tmp, "w") as out:
@@ -89,7 +91,13 @@ class AlgorithmLedger:
                 self._heal_before_append = False
                 return
             with open(self.path, "a") as f:
-                f.write(json.dumps(entry) + "\n")
+                line = json.dumps(entry) + "\n"
+                # crash point, BEFORE the write: raise/kill model a death in
+                # which this record never landed; torn_write writes half the
+                # record itself then kills (the classic torn-tail case the
+                # tolerant open-scan above recovers from)
+                faults.fire("ledger.append", f, payload=line)
+                f.write(line)
                 if tio.fsync_wanted():
                     # power-loss opt-in: make the cursor promptly durable.
                     # (Safety never depends on this — the store's fsync'd

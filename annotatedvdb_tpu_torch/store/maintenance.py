@@ -25,9 +25,10 @@ The daemon operates on the store directory plus an injected health
 callable; it never imports from ``serve/``.  Compaction is host work, as
 in the reference: a pass runs no kernel.  Its lifecycle events and its
 ``maintain.pass`` background span go to the process's flight recorder
-through ``obs/reqtrace.py``'s sink (the fleet supervisor's ring).  Not
-ported: the ``maintain.tick`` and ``maintain.disk_guard`` fault
-points.
+through ``obs/reqtrace.py``'s sink (the fleet supervisor's ring).  The
+``maintain.tick`` fault point fires per tick (absorbed: logged, backed
+off), and ``maintain.disk_guard`` per free-disk reading (an injected
+failure reads as a low disk: upserts answer 507).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import threading
 import time
 
 from annotatedvdb_tpu_torch.obs import reqtrace
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 from annotatedvdb_tpu_torch.utils.retry import retry_preempted
 
@@ -180,6 +182,9 @@ class DiskReserveGuard:
             self._check_at = now + self.ttl_s
         why = ""
         try:
+            # crash point: fires per free-disk reading — an injected
+            # failure IS a low-disk observation (see class docstring)
+            faults.fire("maintain.disk_guard")
             free = free_disk_bytes(self.store_dir)
             breached = free < self.reserve
         except Exception as err:
@@ -340,9 +345,10 @@ class MaintenanceDaemon:
         with self._lock:
             self._counts["ticks"] += 1
         try:
-            # a dying tick (an unreadable manifest) must never kill the
-            # supervisor or the fleet: the daemon logs, backs off, and
-            # keeps ticking
+            # crash point: a dying tick (unreadable manifest, injected
+            # fault) must never kill the supervisor or the fleet — the
+            # daemon logs, backs off, and keeps ticking
+            faults.fire("maintain.tick")
             return self._step()
         except Exception as err:
             backoff = self._note_setback()

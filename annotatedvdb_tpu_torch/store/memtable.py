@@ -22,8 +22,10 @@ in-memory segment set that
 Rows are built on the host (:func:`build_rows`: the host identity hash and
 the closed-form bin oracle), so an upserted row equals the same row loaded
 from a VCF.  A flush records one ``memtable.flush`` background span
-(``obs/reqtrace.py``); the reference's ``memtable.flush`` fault points are
-not ported.
+(``obs/reqtrace.py``).  Crash contract (proven at the
+``wal.{append,fsync,replay}`` and ``memtable.flush`` fault points): an
+acknowledged upsert is present after recovery; an unacknowledged one is
+applied in full or not at all — never a hybrid, never a torn store.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from annotatedvdb_tpu_torch.store.variant_store import (
 )
 from annotatedvdb_tpu_torch.store.wal import WriteAheadLog
 from annotatedvdb_tpu_torch.types import chromosome_label
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
@@ -599,6 +602,9 @@ def flush_segments(store_dir: str, merged: dict[int, Segment],
         log(f"memtable flush preempted: {reason}")
         return {"status": "aborted", "reason": reason}
     fingerprint = (st.st_mtime_ns, st.st_size, st.st_ino)
+    # crash point #1: the plan is captured, nothing written — a death here
+    # must leave the store byte-untouched (rows stay in memtable + WAL)
+    faults.fire("memtable.flush")
     next_sid = int(manifest.get("next_seg_id", 1))
     created: list[str] = []
     committed = False
@@ -702,9 +708,16 @@ def flush_segments(store_dir: str, merged: dict[int, Segment],
             stats["rows"][label] = int(stats["rows"].get(label, 0)) + n
         new_manifest["stats"] = stats
 
-        # fsync, atomic replace, and (AVDB_FSYNC) one directory fsync that
-        # covers the segment renames too
-        tio.replace_manifest(mpath, new_manifest)
+        # crash point #2 fires via pre_sync: the new manifest tmp is
+        # written, the atomic replace has not happened — a death here
+        # leaves the OLD manifest serving (final-named segments are
+        # prunable orphans, the WAL still covers every row); torn_write
+        # tears the tmp.  Then fsync, atomic replace, and (AVDB_FSYNC) one
+        # directory fsync that covers the segment renames too
+        tio.replace_manifest(
+            mpath, new_manifest,
+            pre_sync=lambda f: faults.fire("memtable.flush", f),
+        )
         committed = True
         nbytes = sum(
             os.path.getsize(os.path.join(

@@ -61,8 +61,11 @@ the leader's existing HTTP plane (``GET /repl/{manifest,segment,wal}``):
 
 Replication is host work, as in the reference: no kernel runs here.  A
 follower serves its bootstrapped and tailed generation through the same
-engine, and on the card the same kernels, as a leader.  Not ported: the
-``repl.ship``, ``repl.apply`` and ``repl.promote`` fault points.
+engine, and on the card the same kernels, as a leader.  Fault points:
+``repl.ship`` (the leader's ship document; a follower's fetched chunk
+before it lands), ``repl.apply`` (bootstrap before the manifest mirror;
+tail before the overlay applies) and ``repl.promote`` (before anything
+mutates; on the staged epoch manifest).
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ from annotatedvdb_tpu_torch.store.wal import (
     MAX_RECORD_BYTES,
     is_wal_file,
 )
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 
 #: in-flight bootstrap chunk temp suffix — a distinct namespace (like
@@ -286,6 +290,7 @@ def ship_manifest(store_dir: str) -> dict:
     are then verified against THIS manifest's own integrity records, so
     a leader commit racing the sync is detected (CRC/size mismatch or
     404) and the cycle retries."""
+    faults.fire("repl.ship")
     mpath = os.path.join(store_dir, "manifest.json")
     try:
         with open(mpath, "rb") as f:
@@ -512,6 +517,11 @@ class ReplicaTailer:
                 )
                 if not blob:
                     break
+                # crash point: a fetched chunk is in hand, not yet on
+                # local disk — torn_write tears it (the resume-time
+                # stable-prefix scan / CRC verify must catch the tear)
+                faults.fire("repl.ship", f, payload=blob,
+                            tear_base=f.tell())
                 f.write(blob)
                 got += len(blob)
             f.flush()
@@ -589,9 +599,10 @@ class ReplicaTailer:
                                  rec["crc32"], tmp)
                 tio.replace(tmp, path)
                 fetched += 1
-        # every segment landed before the manifest mirror: a kill here
-        # resumes cleanly (segments verify, the manifest refetches); the
-        # local store still serves its previous cut
+        # crash point: every segment landed, the manifest mirror has not
+        # — a kill here resumes cleanly (segments verify, manifest
+        # refetches); the local store still serves its previous cut
+        faults.fire("repl.apply")
         self._fingerprint = doc["fingerprint"]
         self._epoch = int(doc.get("epoch", 0) or 0)
         self._offsets = {}
@@ -778,17 +789,21 @@ class ReplicaTailer:
                         # rebuild this stream from scratch next cycle
                         self._offsets.pop(fname, None)
                         continue
-                    # a kill mid-write tears the mirror tail;
+                    # crash point: shipped WAL bytes in hand, not yet
+                    # durable locally — torn_write tears the mirror tail;
                     # resume_local truncates it back to a frame boundary
+                    faults.fire("repl.ship", f, payload=blob,
+                                tear_base=have)
                     f.write(blob)
                     f.flush()
                     tio.fsync(f)
                 records = read_wal_records(path, have, have + len(blob))
             else:
                 records = _parse_frames(blob, skip_header=(have == 0))
-            # bytes are durable on the follower before the overlay applies
-            # them: a restart replays the mirrored files into a fresh
-            # overlay, landing on the same applied-LSN state
+            # crash point: bytes are durable on the follower, the overlay
+            # has not applied them — a restart replays the mirrored files
+            # into a fresh overlay, landing on the same applied-LSN state
+            faults.fire("repl.apply")
             for record in records:
                 rows = record.get("rows")
                 if isinstance(rows, list) and self.apply_rows is not None:
@@ -924,6 +939,9 @@ def promote(store_dir: str, log=None) -> dict:
         pass
     old_epoch = int(manifest.get("repl_epoch", 0) or 0)
     new_epoch = max(old_epoch, cursor_epoch) + 1
+    # crash point #1: nothing mutated yet — a kill here leaves an intact
+    # follower that simply promotes again
+    faults.fire("repl.promote")
     # seal the tail: truncate any torn mirror back to its stable prefix
     # so the replay below sees exactly the applied-LSN byte stream
     rows = 0
@@ -970,10 +988,15 @@ def promote(store_dir: str, log=None) -> dict:
     except (OSError, ValueError) as err:
         raise ReplError(f"{mpath}: unreadable manifest ({err})") from err
     manifest["repl_epoch"] = new_epoch
-    # replace_manifest also commits the rename metadata under
-    # AVDB_FSYNC: the epoch fence must survive power loss, or a deposed
-    # leader could wake up unfenced
-    tio.replace_manifest(mpath, manifest)
+    # crash point #2 fires via pre_sync: the epoch bump is staged, not
+    # committed — torn_write tears the tmp (the atomic replace never
+    # happens, the store stays a promotable follower).  replace_manifest
+    # also commits the rename metadata under AVDB_FSYNC: the epoch fence
+    # must survive power loss, or a deposed leader could wake up unfenced.
+    tio.replace_manifest(
+        mpath, manifest,
+        pre_sync=lambda f: faults.fire("repl.promote", f),
+    )
     for fname in (CURSOR_FILE,):
         try:
             tio.unlink(os.path.join(store_dir, fname))

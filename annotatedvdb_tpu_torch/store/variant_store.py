@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from annotatedvdb_tpu_torch.types import chromosome_label, decode_allele
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.strings import deep_update
 
@@ -1212,7 +1213,11 @@ class VariantStore:
         }
         # atomic swap: a process crash mid-save leaves the previous
         # manifest intact (segments are also written via tmp+rename, so the
-        # old manifest's files are never mutated in place)
+        # old manifest's files are never mutated in place).
+        # crash point: every segment of this checkpoint is on disk, the
+        # commit (manifest swap) has not happened — a death here must leave
+        # the PREVIOUS manifest fully consistent (new files are orphans)
+        faults.fire("store.save.pre_manifest")
         tio.replace_manifest(os.path.join(path, "manifest.json"), manifest)
         for fname in os.listdir(path):
             if fname not in live_files and (
@@ -1273,8 +1278,14 @@ class VariantStore:
                 (json.dumps({"seg": 1, "names": list(arrays)}) + "\n")
                 .encode()
             )
+            first = True
             for arr in arrays.values():
                 np.lib.format.write_array(f, arr, allow_pickle=False)
+                if first:
+                    # crash point: the container body is part-written (the
+                    # tmp file tears, the manifested store must not notice)
+                    faults.fire("store.save.mid_segment", raw_f)
+                    first = False
             if fsync_data:
                 f.flush()
                 tio.fsync(raw_f)

@@ -25,8 +25,13 @@ begins) seals the current file and creates the next one through
 only after the flush's manifest commit (``discard_sealed``).
 
 A rotation records a ``wal`` lifecycle event in the process's flight
-recorder (``obs/reqtrace.py``); the reference's ``wal.append`` /
-``wal.fsync`` / ``wal.replay`` fault points are not ported.
+recorder (``obs/reqtrace.py``).
+
+Fault points: ``wal.append`` (before the frame write; ``torn_write``
+tears the frame), ``wal.fsync`` (after the write, before the fsync — a
+death here may leave the record durable but unacknowledged, which replay
+applies in full: un-acked writes are all-or-nothing, never partial), and
+``wal.replay`` (per file during replay).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import time
 import zlib
 
 from annotatedvdb_tpu_torch.obs import reqtrace
+from annotatedvdb_tpu_torch.utils import faults
 from annotatedvdb_tpu_torch.utils import io as tio
 from annotatedvdb_tpu_torch.utils.locks import make_lock
 
@@ -168,8 +174,18 @@ class WriteAheadLog:
                     self._create(self._seq)
                 self._f = open(path, "ab")
             f = self._f
+            pre = f.tell()
+            # crash point BEFORE the write: raise/eio/kill model a death in
+            # which the record never landed (the request is never
+            # acknowledged); torn_write lands HALF the frame then kills —
+            # the torn tail replay must drop
+            faults.fire("wal.append", f, payload=frame, tear_base=pre)
             f.write(frame)
             f.flush()
+            # crash point AFTER the write, BEFORE the fsync: the record may
+            # or may not be durable, but the ack was never sent — replay
+            # applies it in full or not at all, never a hybrid
+            faults.fire("wal.fsync", f, tear_base=pre)
             t_fsync = time.perf_counter()
             tio.fsync(f)
             self.last_fsync_s = time.perf_counter() - t_fsync
@@ -248,6 +264,10 @@ class WriteAheadLog:
         unparseable JSON) ends that file with a warning; earlier records
         and other files are unaffected."""
         for _seq, path in self.pending_files():
+            # crash point: fires once per replayed file — a death mid-replay
+            # must be recoverable by simply replaying again on respawn
+            # (replay mutates nothing durable)
+            faults.fire("wal.replay")
             yield from self._iter_file(path)
 
     def _iter_file(self, path: str):

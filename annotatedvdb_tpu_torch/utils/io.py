@@ -42,11 +42,13 @@ def fsync_dir(path) -> None:
         os.close(fd)
 
 
-def replace_manifest(path, doc) -> None:
+def replace_manifest(path, doc, pre_sync=None) -> None:
     """The manifest-replace helper every store commit goes through.
 
     tmp (dot-prefixed, pid-suffixed — save()'s orphan cleanup attributes
-    it) -> serialize -> flush -> fsync (UNCONDITIONAL: one tiny file per
+    it) -> serialize -> flush -> optional ``pre_sync(f)`` hook (the
+    writers' torn-write crash points fire on the staged tmp) -> fsync
+    (UNCONDITIONAL: one tiny file per
     commit is what keeps a power-loss rename from landing a zero-length
     manifest) -> atomic replace -> directory fsync under ``AVDB_FSYNC=1``
     (segment renames of the same commit share the directory, so this one
@@ -64,6 +66,8 @@ def replace_manifest(path, doc) -> None:
         else:
             json.dump(doc, f)
         f.flush()
+        if pre_sync is not None:
+            pre_sync(f)
         fsync(f)
     replace(tmp, path)
     if fsync_wanted():

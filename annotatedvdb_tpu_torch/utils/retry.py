@@ -27,6 +27,10 @@ TRANSIENT_ERRNOS = frozenset({
 #: (space may come back), the egress writers do not
 DISK_FULL_ERRNOS = frozenset({errno.ENOSPC, errno.EDQUOT})
 
+#: cumulative retry accounting (the reference exports it as
+#: ``avdb_io_retries_total``): an injected ``eio`` absorbed here counts
+stats = {"retries": 0, "gave_up": 0}
+
 
 def is_transient_io(exc: BaseException) -> bool:
     return isinstance(exc, OSError) and exc.errno in TRANSIENT_ERRNOS
@@ -46,7 +50,13 @@ def with_backoff(fn, *, attempts: int = 3, base_delay: float = 0.05,
             return fn()
         except BaseException as exc:
             if attempt >= attempts or not retryable(exc):
+                # gave_up counts retry exhaustion only: a non-retryable
+                # error after an earlier transient blip is a data or
+                # logic failure, not an exhausted retry
+                if attempt > 1 and retryable(exc):
+                    stats["gave_up"] += 1
                 raise
+            stats["retries"] += 1
             time.sleep(min(base_delay * (2 ** (attempt - 1)), max_delay))
 
 

@@ -126,7 +126,14 @@ each phase printing one JSON line:
               launch per chunk, no plain version on the card; and after
               the last step ``install-schema --storeDir`` of each store:
               identical output trees, one ``annotate_bin`` launch per
-              65,536-row egress window;
+              65,536-row egress window.  Then the crash check
+              (:func:`chaos_load_check`): the lines loaded at 700 rows a
+              checkpoint in processes killed by ``AVDB_FAULT`` at
+              ``store.save.pre_manifest:2:kill`` and
+              ``ledger.append:4:torn_write``, on the card and the CPU
+              (each must die by SIGKILL), then resumed: card and CPU
+              stores identical, rows equal an uninterrupted card load's,
+              one launch a chunk past the durable checkpoint;
 7. vep      — a seeded VEP JSON of 50,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -207,12 +214,13 @@ each phase printing one JSON line:
               with ``--frontend threaded``, then as a fleet of four
               ``aio`` workers on the one card (``--workers 4``: ready
               once every worker is), in turns, each with 8 client
-              threads sending the same seeded mix: 2,000 point ids (5% absent), 10 bulk calls of
-              10,000 ids, 64 region walks of three pages (10 kb-1 Mb,
-              ``minCadd=20``), 16 ``POST /regions`` batches of 4,096
-              gene-panel intervals (half count-only, half two rows each
-              with ``tokenize``) and 16 ``POST /stats/region`` batches of
-              4,096 with ``windows`` 16.  Every body of both front ends
+              threads sending the same seeded mix: 1,000 point ids (5%
+              absent), 5 bulk calls of 10,000 ids, 32 region walks of
+              three pages (10 kb-1 Mb, ``minCadd=20``), 8 ``POST
+              /regions`` batches of 4,096 gene-panel intervals (half
+              count-only, half two rows each with ``tokenize``) and 8
+              ``POST /stats/region`` batches of 4,096 with ``windows`` 16
+              (half the earlier mix, cut for the smoke's wall).  Every body of both front ends
               equal to the host-only engine's answer (computed after the
               traffic windows by four spawned helper processes, idle while
               they run); each server's kernel launches as predicted (a
@@ -230,7 +238,20 @@ each phase printing one JSON line:
               summed requests, ``/alerts?fleet=1`` (availability ``ok`` on
               every worker) and ``/metrics/history`` scraped once after its
               traffic; then a ``HealthPlane`` tick timed on the ``aio``
-              server's registry, rebuilt from its last sample;
+              server's registry, rebuilt from its last sample.  The
+              ``aio`` server runs with ``AVDB_SERVE_CHAOS=1``: after its
+              traffic, ``POST /_chaos`` arms
+              ``engine.device_probe:prob:1.0:eio`` (ttl 1 s), bulk calls
+              open the chr22 breaker, ``/regions`` and ``/stats/region``
+              answer from the host path (sent from threads of their own
+              while the breaker is polled), a half-open probe re-closes
+              it and the kernels launch again, every body equal to the
+              host-only answer; the window's launches are read apart from
+              the traffic's (the server's ``counts so far`` on SIGUSR1
+              before the arming, after the open window and at its end):
+              none while open, one ``bits_spans``, two ``stats_panel``
+              and one ``windowed_stats`` once closed; ``GET
+              /debug/trace`` is parsed (:func:`chaos_serve_check`);
 12. export  — ``python -m annotatedvdb_tpu_torch export --commit --seed 7``
               (the CLI's ``main``) of phase 9's store (chr22, 2,274,305
               rows), once on the card and once with ``--hostOnly``, each
@@ -240,10 +261,15 @@ each phase printing one JSON line:
               plain version on the card; wall, rows/s, tokens/s and the
               wall split (``ChromPrep.build``, the gather on the prefetch
               thread, the device round trip once a part, the ``bin_path``
-              loop, part writes).  Then 64 ``/export/stream``
+              loop, part writes).  Then 32 ``/export/stream``
               payloads (``stream_payload``) of seeded slices on a card
               engine over the store, counters reset just before: one launch
-              a call, every body equal to the ``host_only`` answer;
+              a call, every body equal to the ``host_only`` answer.  Then
+              ``export`` of a copy of phase 6's card store (512-row
+              batches, a part each) killed at ``export.pack:2:kill`` (by
+              SIGKILL, one part committed) and resumed to a clean run's
+              corpus, one launch a part written
+              (:func:`chaos_export_check`);
 13. doctor  — ``doctor`` through the CLI's ``main`` on card-written
               stores: ``--deep --json`` of phase 9's store (exit 0, clean),
               ``status --json`` and ``profile`` of it, every group's
@@ -291,7 +317,11 @@ each phase printing one JSON line:
               daemon's ``ledger.compact`` span and lifecycle events) run
               on the leader's store, each timed.
 
-Then the kernel table and, as the last line,
+Then a ``leftovers`` line (the smoke fails if any process it started
+outlived its phase: those still running are listed and SIGKILLed; the
+card's compute processes and used memory beside them), one ``chaos``
+line (each crash check's numbers and seconds), the kernel table and, as
+the last line,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure exits
 non-zero without that line.  Needs one CUDA card and the repository
 checkout around this file; run as ``python3 chip_smoke.py``.
@@ -344,8 +374,13 @@ EDGE_ROWS = [
 ]
 
 
+#: when the module was loaded: each emitted line's ``t_s`` counts from it
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def fail(msg: str) -> int:
@@ -3512,7 +3547,8 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         assert ranks_dev == ranks_cpu and len(ranks_dev) == 6, (
             f"phase 6 ({config}): device and CPU saved ranking files differ: "
             f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
-    return {"launches": launched, "plain_hash_calls": hashed, "chunks": chunks,
+    chaos = chaos_load_check(platform, vcf6, launches)
+    return {"launches": launched, "chaos": chaos, "plain_hash_calls": hashed, "chunks": chunks,
             "store": store4, "store6": os.path.join(WORK, f"store.default.0.{platform}"),
             "vep": inp["vep7"], "want": inp["want7"],
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"],
@@ -4432,9 +4468,9 @@ def refgenome_phase(torch, platform, inp) -> dict:
 #: ``page_rows`` rows a page), ``panels`` ``POST /regions`` batches and
 #: ``stats`` ``POST /stats/region`` batches (windows 16) of ``intervals``
 #: intervals each, sent by ``clients`` threads
-SERVE_MIX = {"points": 2000, "absent_share": 0.05, "bulk_calls": 10,
-             "bulk_ids": 10_000, "regions": 64, "region_pages": 3,
-             "page_rows": 100, "panels": 16, "stats": 16,
+SERVE_MIX = {"points": 1000, "absent_share": 0.05, "bulk_calls": 5,
+             "bulk_ids": 10_000, "regions": 32, "region_pages": 3,
+             "page_rows": 100, "panels": 8, "stats": 8,
              "intervals": SERVE_QUERIES, "clients": 8}
 
 
@@ -4549,7 +4585,7 @@ def serve_expected(store_dir, jobs, mix=SERVE_MIX) -> dict:
                                        tokenize=payload.get("tokenize", False))
             out[jid] = [_digest(200, res.assemble().encode())]
         else:
-            res = engine.stats_serve(payload["regions"], windows=payload["windows"])
+            res = engine.stats_serve(payload["regions"], windows=payload.get("windows"))
             out[jid] = [_digest(200, res.assemble().encode())]
     return {"answers": out, "seconds": time.perf_counter() - t0}
 
@@ -4642,9 +4678,9 @@ def wait_serving(proc, out_path, err_path, workers=1, timeout=300.0) -> tuple:
     t0 = time.perf_counter()
     while True:
         if proc.poll() is not None or time.perf_counter() - t0 > timeout:
-            with open(err_path) as f:
-                raise AssertionError(f"serve did not start (rc {proc.poll()}): "
-                                     f"{f.read()[-2000:]}")
+            raise AssertionError(f"serve did not start (rc {proc.poll()}) in "
+                                 f"{time.perf_counter() - t0:.1f} s: "
+                                 + serve_diagnosis(proc, out_path, err_path))
         with open(out_path) as f:
             lines = [ln for ln in f.readlines() if ln.endswith("\n")]
         banner = next((ln.strip() for ln in lines if ln.startswith("serving ")),
@@ -4654,6 +4690,113 @@ def wait_serving(proc, out_path, err_path, workers=1, timeout=300.0) -> tuple:
             port = int(re.search(r"http://[\d.]+:(\d+)", banner).group(1))
             return banner, port, time.perf_counter() - t0
         time.sleep(0.2)
+
+
+def serve_diagnosis(proc, out_path, err_path) -> str:
+    """Why a serve process (a fleet's supervisor and its workers) never got
+    ready: its stdout, each worker's process state, kernel wait channel
+    and threads, the card's compute processes and memory, the processes
+    still running, then the Python stacks of every worker's threads (each
+    is sent SIGABRT: with ``PYTHONFAULTHANDLER`` set, as the smoke's
+    servers have it, it prints them to the shared stderr) and the stderr's
+    tail."""
+    import re
+    import signal
+
+    with open(err_path) as f:
+        err = f.read()
+    with open(out_path) as f:
+        lines = [f"rc {proc.poll()}; stdout: {f.read()[-1000:]!r}"]
+    pids = [int(p) for p in re.findall(r"worker \d+: pid (\d+)", err)]
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            with open(f"/proc/{pid}/wchan") as f:
+                wchan = f.read()
+            threads = len(os.listdir(f"/proc/{pid}/task"))
+        except OSError as exc:
+            state, wchan, threads = "gone", str(exc), 0
+        lines.append(f"worker pid {pid}: state {state}, wchan {wchan}, "
+                     f"{threads} threads")
+    lines.append(f"card: {card_apps()}; processes: {leftover_processes()}")
+    for pid in pids:  # one at a time: their dumps share one stderr
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGABRT)
+        time.sleep(1.0)
+    with open(err_path) as f:
+        lines.append(f.read()[-30000:])
+    return "\n".join(lines)
+
+
+def leftover_processes() -> list:
+    """``[pid, state, command line]`` of every live process below this
+    one, and of every other whose command line names this run's work
+    directory (the orphans a dead parent of the smoke's left behind),
+    this process and its ancestors aside.
+    ``multiprocessing``'s resource tracker, which lives as long as this
+    process, is left out."""
+    procs = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        procs[int(name)] = (fields[0], int(fields[1]), cmd)
+    me = os.getpid()
+    above, pid = set(), me
+    while pid in procs and pid not in above:
+        above.add(pid)
+        pid = procs[pid][1]
+    below, grew = {me}, True
+    while grew:
+        grew = False
+        for pid, (_state, ppid, _cmd) in procs.items():
+            if ppid in below and pid not in below:
+                below.add(pid)
+                grew = True
+    return [[pid, state, cmd[:300]] for pid, (state, _ppid, cmd) in sorted(procs.items())
+            if pid not in above and state != "Z" and (pid in below or WORK in cmd)
+            and "multiprocessing.resource_tracker" not in cmd]
+
+
+def card_apps() -> dict:
+    """``nvidia-smi``'s compute processes and used memory (MiB) on the
+    card (its process ids are the host's, which a container may not
+    see)."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as err:
+        return {"error": str(err)}
+    return {"compute_apps": [ln.strip() for ln in smi.stdout.splitlines() if ln.strip()],
+            "memory_used_mib": gpu_memory_used_mib()}
+
+
+def leftovers_check(grace_s=15.0) -> list:
+    """After the last phase: wait up to ``grace_s`` for every process the
+    smoke started to be gone, emit a ``leftovers`` line (those still
+    running, and the card's compute processes and used memory), SIGKILL
+    any still running and return them (the smoke then fails)."""
+    import signal
+
+    t0 = time.perf_counter()
+    left = leftover_processes()
+    while left and time.perf_counter() - t0 < grace_s:
+        time.sleep(0.5)
+        left = leftover_processes()
+    emit("leftovers", processes=left, waited_s=time.perf_counter() - t0, **card_apps())
+    for pid, _state, _cmd in left:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    return left
 
 
 def gpu_memory_used_mib():
@@ -4855,16 +4998,26 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
     with concurrent.futures.ProcessPoolExecutor(
             SERVE_HELPERS, mp_context=multiprocessing.get_context("spawn")) as helpers:
         warm = [helpers.submit(_warm_serve_helper) for _ in range(SERVE_HELPERS)]
-        runs = {fe: _serve_traffic(platform, store_dir, mix, fe, jobs, warm)
+        chaos_reqs = chaos_jobs(span, jobs)
+        runs = {fe: _serve_traffic(platform, store_dir, mix, fe, jobs, warm,
+                                   chaos_reqs if fe == "aio" else None)
                 for fe in SERVE_FRONTENDS}
         tick = health_tick_timing(runs["aio"]["history"][0])
         t0 = time.perf_counter()
         parts = [f.result() for f in [
             helpers.submit(serve_expected, store_dir,
-                           [j for j in jobs if j[0] % SERVE_HELPERS == part], mix)
+                           [j for j in jobs + chaos_reqs
+                            if j[0] % SERVE_HELPERS == part], mix)
             for part in range(SERVE_HELPERS)]]
         host_answers_wall = time.perf_counter() - t0
     answers = {k: v for p in parts for k, v in p["answers"].items()}
+    # the chaos window's bodies (the breaker open, half-open and closed)
+    # against the host-only answers
+    chaos = runs["aio"]["chaos"]
+    got = chaos.pop("digests")
+    chaos["bodies"] = sum(len(v) for v in got.values())
+    chaos["differ"] = sum(d != answers[jid][0] for jid, v in got.items() for d in v)
+    assert chaos["differ"] == 0, f"chaos: {chaos['differ']} bodies differ"
     emit("health_tick", frontend="aio", **tick)
     assert tick["errors"] == 0, tick
     out = {}
@@ -4873,22 +5026,25 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
                                [p["seconds"] for p in parts], host_answers_wall,
                                time.perf_counter() - t_phase)
     return {"launches": out[SERVE_FRONTENDS[0]],
-            "launches_by_frontend": out}
+            "launches_by_frontend": out, "chaos": chaos}
 
 
-def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
+def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm,
+                   chaos_jobs_=None) -> dict:
     """One turn's server (:func:`serve_command`), the clients' traffic
     window and the server's shutdown summary (a fleet's merged over its
     workers, with ``nvidia-smi``'s used memory read in the window)."""
     t_start = time.perf_counter()
     out_path = os.path.join(WORK, f"serve.{frontend}.out")
     err_path = os.path.join(WORK, f"serve.{frontend}.err")
-    env = dict(os.environ, AVDB_SERVE_BROWNOUT_P99_MS="0")
+    env = dict(os.environ, AVDB_SERVE_BROWNOUT_P99_MS="0", PYTHONFAULTHANDLER="1")
+    if frontend == "aio":  # the chaos window's routes; nothing until armed
+        env["AVDB_SERVE_CHAOS"] = "1"
     workers = SERVE_FLEET_WORKERS if frontend == "fleet" else 1
     with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
         proc = subprocess.Popen(serve_command(store_dir, platform, frontend),
                                 cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
-    gpu_mib = None
+    gpu_mib = chaos = None
     try:
         banner, port, ready_s = wait_serving(proc, out_path, err_path, workers)
         for f in warm:
@@ -4912,6 +5068,10 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
         if platform == "cuda":
             gpu_mib = gpu_memory_used_mib()
         views = fleet_health_views(port, workers) if frontend == "fleet" else None
+        if chaos_jobs_ is not None:
+            chaos = chaos_serve_check(
+                port, chaos_jobs_, lambda: counts_so_far(proc, err_path)["launches"],
+                store_dir)
     finally:
         proc.send_signal(2)  # SIGINT: the server(s) log the run summary
         try:
@@ -4926,6 +5086,7 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm) -> dict:
     return {"banner": banner, "ready_s": ready_s, "traffic_s": traffic_s,
             "results": results, "summary": summary, "workers": workers,
             "gpu_memory_used_mib": gpu_mib, "fleet_views": views,
+            "chaos": chaos,
             "history": history_docs(store_dir, workers),
             "run_s": time.perf_counter() - t_start}
 
@@ -4946,6 +5107,17 @@ def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
     launches = summary["launches"]
     want = {"bits_spans": mix["panels"], "stats_panel": mix["stats"],
             "windowed_stats": mix["stats"], "export_pack": 0}
+    breaker = {"open_groups": [], "groups": {}}
+    chaos = run["chaos"]
+    if chaos is not None:
+        # the chaos window after the traffic, read apart from it: the
+        # traffic's launches are the counts just before the window, and
+        # nothing launched after it; every group it opened is closed again
+        assert launches == chaos["counts"]["after"], (launches, chaos["counts"])
+        launches = chaos["counts"]["before"]
+        assert all(g == {"state": "closed", "failures": 0}
+                   for g in chaos["breaker"]["groups"].values()), chaos["breaker"]
+        breaker = chaos["breaker"]
     plain_cuda = {k: v.get("cuda", 0) for k, v in summary["plain_calls"].items()}
     busy_s = sum(kernel_ms.get(k, 0.0) * n for k, n in launches.items()) / 1e3
     statuses = {}
@@ -4978,7 +5150,7 @@ def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
          fleet_views=run["fleet_views"])
     assert not wrong, (f"serve ({frontend}): {len(wrong)} responses differ from "
                        f"the host engine's, e.g. {wrong[:5]}")
-    assert summary["breaker"] == {"open_groups": [], "groups": {}}, summary["breaker"]
+    assert summary["breaker"] == breaker, summary["breaker"]
     # the default health plane ran in every process: ticks in the ring,
     # no absorbed failure, the alert states readable from the mirrors
     for h, d in zip(summary.get("health_per_worker", [summary.get("health")]),
@@ -4994,13 +5166,17 @@ def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
             views["alert_states"]
     if platform == "cuda":
         assert launches == want, f"serve ({frontend}): launches {launches}, predicted {want}"
+        if chaos is not None:
+            assert chaos["launches"] == CHAOS_LAUNCHES, (
+                f"chaos: the closed breaker's panels launched "
+                f"{chaos['launches']}, not {CHAOS_LAUNCHES}")
         assert not any(plain_cuda.values()), \
             f"serve ({frontend}): plain versions on the card: {plain_cuda}"
     return launches
 
 
 #: ``GET /export/stream`` calls of phase 12
-EXPORT_STREAM_CALLS = 64
+EXPORT_STREAM_CALLS = 32
 
 
 def _file_digests(out_dir) -> dict:
@@ -5570,7 +5746,7 @@ class _Follower:
         self.err = os.path.join(WORK, "follower14.err")
         self.url = f"http://127.0.0.1:{leader_port}"
         env = dict(os.environ, AVDB_REPL_POLL_S=FOLLOW_POLL_S,
-                   AVDB_SERVE_BROWNOUT_P99_MS="0")
+                   AVDB_SERVE_BROWNOUT_P99_MS="0", PYTHONFAULTHANDLER="1")
         self.sent = {"regions": 0, "stats": 0}
         self.t0 = time.perf_counter()
         self.t0_wall = time.time()
@@ -5748,7 +5924,7 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
     sizes = [upsert_bytes(b, width) for b in batches]
     bound = sum(sizes[:UPSERT_BEFORE_KILL]) + sizes[UPSERT_BEFORE_KILL] // 2
     env = dict(os.environ, AVDB_MEMTABLE_BYTES=str(bound), AVDB_MEMTABLE_FLUSH_S="0",
-               AVDB_SERVE_BROWNOUT_P99_MS="0",
+               AVDB_SERVE_BROWNOUT_P99_MS="0", PYTHONFAULTHANDLER="1",
                AVDB_MAINTAIN_SEGMENTS_HIGH=str(files22 + 1),
                AVDB_MAINTAIN_TICK_S=MAINTAIN_TICK_S)
     out_path = os.path.join(WORK, "upsert.out")
@@ -6138,6 +6314,413 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
     return {"launches": launches, "launches_follower": f_summary["launches"]}
 
 
+# ---------------------------------------------- chaos (phases 6, 11, 12)
+
+#: the crash specs phase 6 kills its card load with (``AVDB_FAULT``)
+CHAOS_LOAD_SPECS = ("store.save.pre_manifest:2:kill",
+                    "ledger.append:4:torn_write")
+
+#: phase 6's chaos loads' checkpoint interval: five checkpoints over its
+#: 3,125 lines
+CHAOS_COMMIT_AFTER = 700
+
+#: a killed load's process: the CLI's ``main`` with each ``annotate_bin``
+#: launch's running count written unbuffered to a file (argv[1]), so the
+#: count outlives the SIGKILL
+CHAOS_LOAD_CHILD = """
+import os, sys
+from annotatedvdb_tpu_torch.ops import annotate_cuda
+fd = os.open(sys.argv[1], os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+class Counted(dict):
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        os.write(fd, b"%d\\n" % value)
+annotate_cuda.LAUNCHES = Counted(annotate_cuda.LAUNCHES)
+from annotatedvdb_tpu_torch.cli.load_vcf import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+def store_content(store_dir) -> dict:
+    """A store's rows less their provenance (``row_algorithm_id``: a
+    resumed load is a second invocation): per chromosome, the shard
+    compacted, its numeric columns, alleles and JSONB columns."""
+    from annotatedvdb_tpu_torch.store import VariantStore
+
+    store = VariantStore.load(store_dir)
+    out = {}
+    for code, shard in sorted(store.shards.items()):
+        shard.compact()
+        out[code] = (
+            {k: v.tobytes() for k, v in sorted(shard.cols.items())
+             if k != "row_algorithm_id"},
+            shard.ref.tobytes(), shard.alt.tobytes(),
+            json.dumps({c: list(v) for c, v in shard.annotations.items()},
+                       sort_keys=True, default=str))
+    return out
+
+
+def durable_checkpoints(store_dir) -> int:
+    """Checkpoint records in a store's ledger, a torn last line skipped
+    (as the ledger's own open does)."""
+    n = 0
+    with open(os.path.join(store_dir, "ledger.jsonl")) as f:
+        for line in f:
+            with contextlib.suppress(ValueError):
+                n += json.loads(line).get("type") == "checkpoint"
+    return n
+
+
+def chaos_load_check(platform, vcf, launches) -> dict:
+    """Phase 6's crash check: ``load-vcf --commit --commitAfter``
+    :data:`CHAOS_COMMIT_AFTER` of phase 6's VCF, one process per spec of
+    :data:`CHAOS_LOAD_SPECS` in ``AVDB_FAULT`` on ``platform`` and one on
+    the CPU, all started together: each must die by SIGKILL.  Each is
+    then resumed through the CLI's ``main`` in this process; the resumed
+    card store must equal the CPU's byte for byte (the same crash, the
+    same resume: ledgers without time stamps, the input path masked) and,
+    less ``row_algorithm_id``, an uninterrupted card load at the same
+    interval.  On the card the resume launches ``annotate_bin`` once a
+    chunk past the last durable checkpoint; the killed process's launches
+    come from its count file.  Returns each spec's seconds and launches."""
+    import signal
+
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+
+    root = os.path.join(WORK, "chaos6")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def argv(d, plat):
+        return ["--fileName", os.path.join(d, "in.vcf"),
+                "--storeDir", os.path.join(d, "store"), "--commit",
+                "--logAfter", "0", "--commitAfter", str(CHAOS_COMMIT_AFTER),
+                "--platform", plat]
+
+    def setup(name):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        shutil.copy(vcf, os.path.join(d, "in.vcf"))
+        return d
+
+    t0 = time.perf_counter()
+    runs = {(spec, plat): setup(f"{i}.{plat}")
+            for i, spec in enumerate(CHAOS_LOAD_SPECS)
+            for plat in dict.fromkeys((platform, "cpu"))}
+    procs = {}
+    for (spec, plat), d in runs.items():
+        with open(os.path.join(d, "err"), "w") as err:
+            procs[spec, plat] = subprocess.Popen(
+                [sys.executable, "-c", CHAOS_LOAD_CHILD,
+                 os.path.join(d, "launches"), *argv(d, plat)],
+                cwd=ROOT, env=dict(os.environ, AVDB_FAULT=spec),
+                stdout=subprocess.DEVNULL, stderr=err)
+    for key, proc in procs.items():
+        rc = proc.wait(timeout=600)
+        with open(os.path.join(runs[key], "err")) as f:
+            err = f.read()
+        assert rc == -signal.SIGKILL, (
+            f"chaos load {key} exited {rc}, not by SIGKILL: {err[-2000:]}")
+    killed_s = time.perf_counter() - t0
+    clean = setup("clean")
+    before = launches["annotate_bin"]
+    assert load_vcf(argv(clean, platform)) == 0
+    chunks = launches["annotate_bin"] - before
+    want = store_content(os.path.join(clean, "store"))
+    out = {}
+    for (spec, plat), d in runs.items():
+        store = os.path.join(d, "store")
+        durable = durable_checkpoints(store)
+        with open(os.path.join(d, "launches")) as f:
+            counts = f.read().split()
+        before = launches["annotate_bin"]
+        t = time.perf_counter()
+        assert load_vcf(argv(d, plat)) == 0, f"chaos resume {spec} on {plat}"
+        rec = {"durable_checkpoints": durable, "resume_s": time.perf_counter() - t,
+               "killed_launches": int(counts[-1]) if counts else 0,
+               "resume_launches": launches["annotate_bin"] - before}
+        if plat == platform:
+            assert store_content(store) == want, (
+                f"chaos {spec}: the resumed store's rows differ from an "
+                f"uninterrupted load's")
+            if platform == "cuda":
+                assert rec["resume_launches"] == chunks - durable, (
+                    f"chaos {spec}: the resume launched annotate_bin "
+                    f"{rec['resume_launches']} times, predicted {chunks - durable}")
+        out[spec, plat] = rec
+    for spec in CHAOS_LOAD_SPECS:
+        dev, cpu = (store_bytes(os.path.join(runs[spec, p], "store"))
+                    for p in (platform, "cpu"))
+        for files, p in ((dev, platform), (cpu, "cpu")):
+            files["ledger.jsonl"] = files["ledger.jsonl"].replace(
+                runs[spec, p].encode(), b"<dir>")
+        differ = sorted(k for k in set(dev) | set(cpu) if dev.get(k) != cpu.get(k))
+        assert not differ, f"chaos {spec}: card and CPU resumed stores differ in {differ}"
+    shutil.rmtree(root)
+    return {"seconds": time.perf_counter() - t0, "killed_s": killed_s,
+            "chunks": chunks, "commit_after": CHAOS_COMMIT_AFTER,
+            "runs": {f"{spec}@{plat}": rec for (spec, plat), rec in out.items()}}
+
+
+#: the fault phase 11's ``aio`` turn arms through ``POST /_chaos``, and
+#: the seconds until its ttl disarms it
+CHAOS_SERVE_SPEC = "engine.device_probe:prob:1.0:eio"
+CHAOS_TTL_S = 1.0
+
+
+#: intervals in each of the chaos window's panels: above both device
+#: minimums (32 and 16).  With the breaker open the windowless stats panel
+#: takes its host path, 5-8 s on phase 9's store on the H100's host:
+#: about the breaker's 5 s cool-down or longer, so the open window's
+#: panels are sent from threads of their own while the breaker is polled
+CHAOS_INTERVALS = 64
+
+#: the launches of the chaos window's three panels once the breaker is
+#: closed again: one chr22 group each, above the device minimums
+CHAOS_LAUNCHES = {"bits_spans": 1, "stats_panel": 2, "windowed_stats": 1,
+                  "export_pack": 0}
+
+#: seconds between the chaos window's polls of the breaker (one bulk call,
+#: whose membership probe is the half-open trial, then ``/stats``)
+CHAOS_POLL_S = 0.05
+
+
+def chaos_jobs(span, jobs, seed=18) -> list:
+    """The chaos window's requests, with job ids past the traffic's (their
+    host answers come from the phase's helpers): one bulk call of the
+    first :data:`CHAOS_INTERVALS` ids of the traffic's first bulk job
+    (sent over and over: each of its probes fires the armed fault), one
+    ``/regions`` batch (two rows an interval, ``tokenize``) and two
+    ``/stats/region`` batches, without windows and with 16, of
+    :data:`CHAOS_INTERVALS` gene-panel intervals."""
+    rng = np.random.default_rng(seed)
+    ids = next(p for _j, kind, p in jobs if kind == "bulk")[:CHAOS_INTERVALS]
+    stats = serve_intervals(rng, CHAOS_INTERVALS, span)
+    return [(1 << 30, "bulk", ids),
+            ((1 << 30) + 1, "regions",
+             {"regions": serve_intervals(rng, CHAOS_INTERVALS, span),
+              "limit": 2, "tokenize": True}),
+            ((1 << 30) + 2, "stats", {"regions": stats}),
+            ((1 << 30) + 3, "stats", {"regions": stats, "windows": SERVE_WINDOWS})]
+
+
+def counts_so_far(proc, err_path, timeout=60.0) -> dict:
+    """SIGUSR1 a one-process server and return the ``counts so far``
+    record it logs to stderr (its run summary as it stands)."""
+    import signal
+
+    with open(err_path) as f:
+        seen = f.read().count("counts so far ")
+    proc.send_signal(signal.SIGUSR1)
+    t0 = time.perf_counter()
+    while True:
+        with open(err_path) as f:
+            tail = f.read().split("counts so far ")[seen + 1:]
+        if tail and "\n" in tail[0]:
+            return json.loads(tail[0].split("\n", 1)[0])
+        assert proc.poll() is None and time.perf_counter() - t0 < timeout, (
+            f"serve logged no counts record (rc {proc.poll()})")
+        time.sleep(0.02)
+
+
+def chaos_serve_check(port, chaos, launches, store_dir) -> dict:
+    """Phase 11's chaos window, on the ``aio`` server (started with
+    ``AVDB_SERVE_CHAOS=1``) after its traffic window, over the requests
+    of :func:`chaos_jobs`; ``launches()`` reads the server's kernel
+    launches so far (:func:`counts_so_far`).  ``POST /_chaos`` arms
+    :data:`CHAOS_SERVE_SPEC` for :data:`CHAOS_TTL_S`; the bulk call (whose
+    membership probe fires the fault) until ``/stats`` shows the chr22
+    breaker open; then the ``/regions`` batch and the windowless stats
+    batch, each from a thread of its own (each checks the breaker once,
+    at its start, and takes the host path), while the main thread polls:
+    the bulk call, then ``/stats``, every :data:`CHAOS_POLL_S`, until a
+    half-open probe after the ttl and the cool-down closes the breaker.
+    The launches read after the open window's panels returned must equal
+    those read before the arming (they ran on the host); then the three
+    panels again, on the kernels (their launches are the window's
+    ``launches``, measured, which the turn holds to
+    :data:`CHAOS_LAUNCHES` on the card).  Then ``GET /debug/trace``, parsed,
+    and the server's flight ring (``store_dir``'s ``w0.ring``): its
+    breaker events give the server's own trip and re-close times, and
+    the closing bulk call's record (every call carries an
+    ``X-Request-Id``) its stages.  Returns the seconds (the close
+    measured from the end of the tripping call's cool-down, by the client
+    and by the server's events), every body's digest by job id (for the
+    host answers), the timeline, the launch counts and the spans."""
+    import http.client
+    import itertools
+
+    from annotatedvdb_tpu_torch.obs import flight
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+
+    def call(method, path, body=None, rid="chaos"):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request(method, path,
+                         body=None if body is None else json.dumps(body).encode(),
+                         headers={"X-Request-Id": rid})
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    routes = {"bulk": ("POST", "/variants"), "regions": ("POST", "/regions"),
+              "stats": ("POST", "/stats/region")}
+    digests: dict = {}
+    timeline: list = []
+    seq = itertools.count()
+    t0 = time.perf_counter()
+
+    def send(job):
+        jid, kind, payload = job
+        method, path = routes[kind]
+        rid = f"chaos-{next(seq)}"
+        t_sent = time.perf_counter() - t0
+        body = _digest(*call(method, path,
+                             {"ids": payload} if kind == "bulk" else payload, rid))
+        digests.setdefault(jid, []).append(body)
+        timeline.append((kind, round(t_sent, 4), round(time.perf_counter() - t0, 4), rid))
+        return time.perf_counter()
+
+    def breaker():
+        return json.loads(call("GET", "/stats")[1])["breaker"]
+
+    bulk, panels = chaos[0], chaos[1:]
+    before = launches()
+    status, body = call("POST", "/_chaos", {"spec": CHAOS_SERVE_SPEC,
+                                            "ttl_s": CHAOS_TTL_S})
+    assert status == 200 and json.loads(body)["armed"] == CHAOS_SERVE_SPEC, body
+    t_armed = time.perf_counter()
+    while True:
+        assert len(timeline) < 20, f"chaos: never opened: {breaker()} {timeline}"
+        t_sent = time.perf_counter()
+        t_trip = send(bulk)
+        if 22 in breaker()["open_groups"]:
+            break
+    t_open = time.perf_counter()
+    trip_call_s = t_trip - t_sent
+    open_threads = [threading.Thread(target=send, args=(job,)) for job in panels[:2]]
+    for th in open_threads:
+        th.start()
+    polls = 0
+    while True:
+        assert time.perf_counter() - t_open < 60, (
+            f"chaos: never re-closed: {breaker()} {timeline}")
+        time.sleep(CHAOS_POLL_S)
+        t_closing = send(bulk)
+        closing_rid = timeline[-1][3]
+        polls += 1
+        if not breaker()["open_groups"]:
+            break
+    t_close = time.perf_counter()
+    close_epoch = time.time() - (t_close - t_closing)
+    for th in open_threads:
+        th.join(timeout=600)
+        assert not th.is_alive(), f"chaos: an open-window panel hung: {timeline}"
+    at_close = launches()
+    assert at_close == before, (
+        f"chaos: kernels launched while the breaker was open: {before} -> "
+        f"{at_close} {timeline}")
+    closed_state = breaker()
+    for job in panels:
+        send(job)
+    after = launches()
+    status, dump = call("GET", "/debug/trace")
+    assert status == 200, dump[:200]
+    events = json.loads(dump)["traceEvents"]
+    time.sleep(0.6)  # request summaries reach the ring within 0.25 s
+    ring = flight.decode_ring(flight.ring_path(store_dir, 0))["events"]
+    trips = [e["t"] for e in ring if e["type"] == "event" and e["name"] == "breaker"
+             and e["detail"].startswith("group 22 tripped")]
+    closes = [e["t"] for e in ring if e["type"] == "event" and e["name"] == "breaker"
+              and e["detail"].startswith("group 22 re-closed")]
+    assert len(trips) == len(closes) == 1, f"chaos: breaker events {trips} {closes}"
+    closing = [e for e in ring if e["type"] == "request" and e["trace"] == closing_rid]
+    cooldown = DeviceBreaker.COOLDOWN_S
+    return {"seconds": time.perf_counter() - t0, "open_s": t_open - t_armed,
+            "trip_call_s": trip_call_s, "cooldown_s": cooldown,
+            "poll_s": CHAOS_POLL_S, "polls": polls,
+            "open_to_close_s": t_close - t_open,
+            # the closing bulk call's end, less the end of the tripping
+            # call's cool-down (the trip fell inside that call)
+            "close_after_cooldown_s": t_closing - t_trip - cooldown,
+            # the server's own breaker events (flight ring, wall clock)
+            "server_open_to_close_s": closes[0] - trips[0],
+            "server_close_after_cooldown_s": closes[0] - trips[0] - cooldown,
+            # from the server's re-close to the end of the closing call
+            "close_seen_after_s": close_epoch - closes[0],
+            "closing_call": closing[0] if closing else None,
+            "open_panel_s": [round(b - a, 4) for k, a, b, _r in timeline
+                             if k != "bulk" and a < t_close - t0],
+            "bulk_calls": sum(k == "bulk" for k, _a, _b, _r in timeline),
+            "timeline": timeline,
+            "digests": digests, "trace_events": len(events),
+            "trace_spans": sum(e["ph"] == "X" for e in events),
+            "breaker": closed_state,
+            "counts": {"before": before, "at_close": at_close, "after": after},
+            "launches": {k: after[k] - at_close[k] for k in after}}
+
+
+#: phase 12's chaos export: killed at the second batch, one batch a part
+CHAOS_EXPORT_SPEC = "export.pack:2:kill"
+CHAOS_EXPORT_FLAGS = ("--seed", "7", "--batchRows", "512", "--partBytes", "1")
+
+
+def chaos_export_check(platform, store_dir) -> dict:
+    """Phase 12's crash check on a copy of phase 6's card store: ``export
+    --commit`` killed at :data:`CHAOS_EXPORT_SPEC` in a process of its own
+    (it must die by SIGKILL with only a committed prefix of parts), then
+    ``--resume`` through the CLI's ``main`` here, which must write the
+    corpus an uninterrupted run writes, byte for byte; the resume's
+    ``export_pack`` launches (one a part it writes, on the card)."""
+    import io
+    import signal
+
+    from annotatedvdb_tpu_torch.__main__ import main as port
+    from annotatedvdb_tpu_torch.ops import export_pack as P
+
+    root = os.path.join(WORK, "chaos12")
+    shutil.rmtree(root, ignore_errors=True)
+    store = os.path.join(root, "store")
+    shutil.copytree(store_dir, store)
+    plat = ["--platform", platform]
+
+    def argv(out, *extra):
+        return ["export", "--storeDir", store, "--out", os.path.join(root, out),
+                "--commit", *CHAOS_EXPORT_FLAGS, *plat, *extra]
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "annotatedvdb_tpu_torch",
+                           *argv("killed")], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600,
+                          env=dict(os.environ, AVDB_FAULT=CHAOS_EXPORT_SPEC))
+    assert proc.returncode == -signal.SIGKILL, (
+        f"chaos export exited {proc.returncode}, not by SIGKILL: {proc.stderr[-2000:]}")
+    killed_s = time.perf_counter() - t0
+    committed = sorted(os.listdir(os.path.join(root, "killed")))
+    assert committed == ["part-000000.npz"], f"chaos export left {committed}"
+    P.LAUNCHES["export_pack"] = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        assert port(argv("killed", "--resume")) == 0
+    resume_s = time.perf_counter() - t
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    launched = P.LAUNCHES["export_pack"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert port(argv("clean")) == 0
+    resumed, clean = (_file_digests(os.path.join(root, d)) for d in ("killed", "clean"))
+    assert resumed == clean, "chaos export: the resumed corpus differs from a clean run's"
+    assert summary["resumed_parts"] == 1
+    if platform == "cuda":
+        assert launched == summary["parts_written"], (
+            f"chaos export: {launched} export_pack launches for "
+            f"{summary['parts_written']} parts")
+    shutil.rmtree(root)
+    return {"seconds": time.perf_counter() - t0, "killed_s": killed_s,
+            "resume_s": resume_s, "parts": len(clean) - 1,
+            "resumed_parts": summary["resumed_parts"],
+            "parts_written": summary["parts_written"], "launches": launched}
+
+
 def main() -> int:
     import torch
 
@@ -6283,6 +6866,7 @@ def main() -> int:
             # with --hostOnly, then /export/stream calls on a card engine
             # (counters reset inside, just before each)
             exported = export_phase(torch, "cuda", results["store_cadd"], table[6]["ms"])
+            chaos_export = chaos_export_check("cuda", results["store6"])
             # 13. doctor on the card-written stores: fsck, status and
             # profile of phase 9's store (profile against phase 12's card
             # engine), a torn copy of phase 6's store repaired, and
@@ -6296,6 +6880,13 @@ def main() -> int:
             upserted = upsert_phase("cuda", results["store_cadd"], inputs["vcf4"])
         except AssertionError as err:
             return fail(str(err))
+    left = leftovers_check()
+    if left:
+        return fail(f"{len(left)} processes outlived their phases: {left}")
+    emit("chaos", load=results["chaos"], serve=served["chaos"], export=chaos_export,
+         seconds={"load": results["chaos"]["seconds"],
+                  "serve": served["chaos"]["seconds"],
+                  "export": chaos_export["seconds"]})
     emit("smoke", seconds=time.perf_counter() - t_start)
     vcf_launches = results["launches"]["annotate_bin"]
     vep_launches = vep["launches"]["annotate_bin"]

@@ -15,7 +15,8 @@ between merge and swap (a real memtable flush), a cancelled pass, the
 CLI's exit codes and output, fsck's handling of a killed pass's temps,
 and the read bodies of both front ends before and after compaction.
 The reference's spill-tier cases have no counterpart (the port has no
-memmap tier), nor its ``compact.*`` fault points.
+memmap tier); its ``compact.*`` fault points are crossed in
+``test_torch_faults_store.py``.
 """
 
 import json

@@ -1203,7 +1203,7 @@ def test_two_worker_fleet_answers_from_the_card(cuda, tmp_path):
     from annotatedvdb_tpu_torch.serve.engine import QueryEngine
     from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
     from annotatedvdb_tpu_torch.store import VariantStore
-    from chip_smoke import ROOT, build_serve_store, serve_panel
+    from chip_smoke import ROOT, build_serve_store, serve_diagnosis, serve_panel
 
     served = build_serve_store(str(tmp_path / "s"), "cuda")
     host = QueryEngine(StaticSnapshots(VariantStore.load(served["store"], readonly=True)),
@@ -1215,15 +1215,17 @@ def test_two_worker_fleet_answers_from_the_card(cuda, tmp_path):
               "/stats/region": {"regions": specs, "windows": 4}}
     out_path, err_path = str(tmp_path / "out"), str(tmp_path / "err")
     with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        # faulthandler: a worker sent SIGABRT prints every thread's stack
         proc = subprocess.Popen(
             [sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
              "--storeDir", served["store"], "--port", "0", "--workers", "2"],
-            cwd=ROOT, stdout=out_f, stderr=err_f, start_new_session=True)
+            cwd=ROOT, stdout=out_f, stderr=err_f, start_new_session=True,
+            env=dict(os.environ, PYTHONFAULTHANDLER="1"))
     try:
         t_end = time.monotonic() + 240
         while True:
             assert time.monotonic() < t_end and proc.poll() is None, \
-                open(err_path).read()[-3000:]
+                serve_diagnosis(proc, out_path, err_path)
             text = open(out_path).read()
             if text.count("\nworker ") + text.startswith("worker ") >= 2:
                 break

@@ -22,8 +22,10 @@ store shuffled, ``ordered``, a ``region`` and a ``chromosome``, and the
 port's ``host_only`` path, with one plain-version call a part (the export
 packs a part's staged batches at once); a plan whose last part is short,
 and an export cut by ``max_parts`` then resumed.  Then the dry run, resume
-after the reference's CLI was killed at its own fault point (the port has
-no fault points), the port's ``--test`` followed by ``--resume``, the
+after the reference's CLI was killed at its ``export.commit`` fault point
+(the mirror case and the ``export.*`` matrix are in
+``test_torch_faults_store.py``), the port's ``--test`` followed by
+``--resume``, the
 resume refusals and the CLI's errors.
 """
 

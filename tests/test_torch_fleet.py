@@ -9,8 +9,9 @@ store, and SIGTERM must drain the fleet with exit code 0 and one shutdown
 record per worker.  Also: a bad ``AVDB_SERVE_WORKERS`` exits 1, workers
 that die at once (a bad inherited knob, or no card) make the fleet give
 up with exit code 1, the budget is split across the workers, the
-wedged-worker watchdog respawns a worker whose loop is parked (SIGSTOP;
-the port has no fault points), a killed upsert worker replays its WAL and
+wedged-worker watchdog respawns a worker whose loop is parked (SIGSTOP
+after its first beat, and the ``serve.wedge`` fault point's delay), a
+killed upsert worker replays its WAL and
 serves the acknowledged rows byte for byte, and importing the fleet
 leaves ``torch`` unloaded.
 
@@ -298,15 +299,39 @@ def test_fleet_splits_hbm_budget_across_workers(monkeypatch):
     assert knobs[knobs.index("--hbmBudget") + 1] == str((1 << 30) // 4)
 
 
+def _wait_first_beat(fleet, pid: int, index: int) -> None:
+    """Block until worker ``index`` (``pid``) has written its heartbeat
+    slot once.  Its readiness line is printed from a helper thread as the
+    socket starts accepting, which can land before the loop's first tick;
+    the watchdog skips a slot that never beat, so a worker parked before
+    its first beat would never be declared wedged."""
+    import struct
+
+    from annotatedvdb_tpu_torch.serve.fleet import HB_SLOT
+
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        argv = f.read().decode().split("\0")
+    path = argv[argv.index("--_heartbeatFile") + 1]
+    while True:
+        fleet.left()
+        with open(path, "rb") as f:
+            f.seek(index * HB_SLOT.size)
+            if struct.unpack("<d", f.read(8))[0] > 0.0:
+                return
+        time.sleep(0.05)
+
+
 def test_wedged_worker_is_killed_and_respawned(fleet_store, tmp_path):
-    """A worker whose event loop stops beating (parked by SIGSTOP) is
-    SIGKILLed by the watchdog and respawned; the fleet serves again."""
+    """A worker whose event loop stops beating (parked by SIGSTOP after
+    its first beat) is SIGKILLed by the watchdog and respawned; the fleet
+    serves again."""
     store_dir, truth = fleet_store
     env = dict(os.environ, AVDB_SERVE_WEDGE_TIMEOUT_S="1")
     fleet = _Fleet(store_dir, str(tmp_path / "err.log"), workers=2, env=env)
     try:
         fleet.wait_workers(2)
         first = fleet.wait_log(r"worker 0: pid (\d+)")[0]
+        _wait_first_beat(fleet, int(first), 0)
         os.kill(int(first), signal.SIGSTOP)
         fleet.wait_log(r"worker 0: wedged \(alive, no heartbeat")
         pids = fleet.wait_log(r"worker 0: pid (\d+)", count=2)
@@ -315,6 +340,46 @@ def test_wedged_worker_is_killed_and_respawned(fleet_store, tmp_path):
         vid = _vid(truth[0])
         for _ in range(6):  # fresh connections reach both workers
             assert fleet.request("GET", f"/variant/{vid}")[0] == 200
+        assert fleet.stop() == 0
+    finally:
+        fleet.kill()
+
+
+def test_serve_wedge_fault_parks_loops_until_the_watchdog_respawns(
+        fleet_store, tmp_path):
+    """The reference's ``serve.wedge`` case (``tests/test_fault_matrix.py::
+    test_serve_wedge_watchdog_kills_and_respawns``) on the port's fleet: a
+    long ``delay`` at the third maintenance tick parks each worker's loop
+    while the process lives; the watchdog SIGKILLs the wedged workers, the
+    respawns come up with ``AVDB_FAULT`` stripped, and the fleet serves
+    every request again."""
+    store_dir, truth = fleet_store
+    env = dict(os.environ, AVDB_FAULT="serve.wedge:3:delay:60000",
+               AVDB_SERVE_WEDGE_TIMEOUT_S="2")
+    fleet = _Fleet(store_dir, str(tmp_path / "err.log"), workers=2, env=env)
+    vid = _vid(truth[0])
+    try:
+        fleet.wait_workers(2)
+        fleet.wait_log(r"worker \d: wedged \(alive, no heartbeat")
+        fleet.wait_log(r"worker \d: respawning with AVDB_FAULT cleared")
+        fleet.wait_workers(1)
+        while True:  # the sibling may still be parked: retry until served
+            try:
+                if fleet.request("GET", f"/variant/{vid}", timeout=2.0)[0] \
+                        == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        # both workers wedge at their third tick; serve reliably once both
+        # were respawned clean
+        fleet.wait_log(r"respawning with AVDB_FAULT cleared", count=2)
+        fleet.wait_workers(1)
+        for _ in range(20):
+            assert fleet.request("GET", f"/variant/{vid}")[0] == 200
+        err = fleet.stderr()
+        assert sorted(set(re.findall(r"worker (\d): wedged", err))) == \
+            ["0", "1"], err[-3000:]
         assert fleet.stop() == 0
     finally:
         fleet.kill()

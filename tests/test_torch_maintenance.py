@@ -15,8 +15,8 @@ errors, a daemon that fails to start (logged, the fleet serves on), and
 a real one-worker fleet whose daemon compacts the store under reads.
 The reference's disk-guard, heartbeat and ``doctor status`` cases are
 held elsewhere (``test_torch_upsert.py``, ``test_torch_fleet.py``,
-``test_torch_doctor.py``); its ``maintain.*`` fault points are not
-ported.
+``test_torch_doctor.py``); its ``maintain.*`` fault points are crossed
+in ``test_torch_faults_store.py``.
 """
 
 import json

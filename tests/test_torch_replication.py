@@ -17,8 +17,8 @@ worker; the lag gate on ``/readyz`` and the follower's 403; ``promote``
 ``doctor promote``; the crossed-package bootstrap in both directions;
 and a real ``serve --follow`` fleet of two workers, bootstrapping,
 tailing and re-syncing across a flush and a compaction.  Every test that
-drives a server runs under a 120 s limit.  The reference's ``repl.*``
-fault points are not ported.
+drives a server runs under a 120 s limit.  The ``repl.*`` fault points
+are crossed in ``test_torch_faults_store.py``.
 """
 
 import json

@@ -30,6 +30,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -546,7 +547,8 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
     """No ``--frontend`` flag starts the aio front end, as in the
     reference: the banner, a ``/healthz`` with the reference's bytes (the
     CLI runs the default health plane, so its alert state reads ``ok``
-    where the in-process server without one reads ``disabled``), and the
+    where the in-process server without one reads ``disabled``), the
+    ``counts so far`` record SIGUSR1 logs while it serves, and the
     shutdown summary."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = _start([sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
@@ -565,6 +567,9 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
         _s, body, _h = _fetch(port_no, "POST", "/regions",
                               {"regions": _panel(served), "limit": 0})
         assert _s == 200 and json.loads(body)["n"] == len(_panel(served))
+        proc.send_signal(signal.SIGUSR1)
+        time.sleep(1.0)
+        assert _fetch(port_no, "GET", "/healthz")[0] == 200  # still serving
     finally:
         proc.send_signal(signal.SIGINT)
     assert proc.wait(timeout=60) == 0
@@ -573,6 +578,12 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
     summary = json.loads(err.split("run summary ", 1)[1].splitlines()[0])
     assert summary["device"] == "cpu"
     assert summary["plain_calls"]["bits_spans_reference"]["cpu"] == 2
+    so_far = err.split("counts so far ")
+    assert len(so_far) == 2, err[-2000:]
+    counts = json.loads(so_far[1].splitlines()[0])
+    assert err.index("counts so far ") < err.index("serve: shutting down")
+    for key in ("device", "launches", "plain_calls", "breaker"):
+        assert counts[key] == summary[key], key
 
 
 @pytest.mark.parametrize("flags,pattern", [
