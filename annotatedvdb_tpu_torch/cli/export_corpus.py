@@ -1,9 +1,8 @@
 """CLI: stream the store out as a tokenized training corpus.
 
-Port of ``annotatedvdb_tpu/cli/export_corpus.py`` (``export``), with its
-export flags, ``--commit``, ``--test`` and ``--logFilePath``, plus
-``--platform`` (``cuda`` by default, an error when no card is present,
-``cpu`` on request).  A chromosome (``--chromosome``), a
+Port of ``annotatedvdb_tpu/cli/export_corpus.py`` (``export``), with the
+same flags (``--platform``: ``cuda`` by default, an error when no card is
+present, ``cpu`` on request).  A chromosome (``--chromosome``), a
 ``--region`` slice or the whole store leaves as fixed-shape token and
 feature batches (``export/core.py``; one ``export_pack`` launch a part on
 the card), shuffled by ``--seed`` (same seed, byte-identical corpus), and
@@ -14,11 +13,11 @@ The default is a dry run (plan and summary, nothing written) unless
 ``--commit`` is passed; ``--test`` stops after one part (the manifest
 records ``complete: false``); ``--resume`` continues a killed export after
 its last ledger-committed part, whichever package wrote the records.  The
-summary JSON (sorted keys) is the last line of stdout.  ``--profile``,
-``--metricsOut`` and ``--traceOut`` are not ported yet and are refused; the
-reference's ``--logAfter``, ``--maxErrors``, ``--maxWorkers`` and
-``--noMultihost`` (which the export does not use) are not taken; no obs
-run record is written.
+summary JSON (sorted keys) is the last line of stdout.  As in the
+reference, the export runs in an ``ObsSession``: one ``type: "run"``
+ledger record on completion or abort, ``--metricsOut`` and ``--traceOut``.
+``--logAfter``, ``--maxErrors`` and ``--noMultihost`` are accepted and
+unused, as in the reference; a ``--maxWorkers`` count above 1 is refused.
 
 Usage:
     python -m annotatedvdb_tpu_torch export --storeDir ./vdb --out ./corpus \\
@@ -33,6 +32,7 @@ import json
 import os
 import sys
 
+from annotatedvdb_tpu_torch.obs.session import add_obs_args
 from annotatedvdb_tpu_torch.runtime import PLATFORMS
 
 
@@ -66,13 +66,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--commit", action="store_true",
                     help="write the corpus (default: dry run)")
     ap.add_argument("--test", action="store_true", help="stop after one part")
+    ap.add_argument("--logAfter", type=int, default=None,
+                    help="accepted for compatibility; the export logs per "
+                         "part")
     ap.add_argument("--logFilePath", default=None,
                     help="log file (default: <out>-export.log)")
+    ap.add_argument("--maxErrors", type=int, default=-1, metavar="N",
+                    help="accepted for compatibility; the export rejects "
+                         "no rows")
     ap.add_argument("--platform", default="cuda", choices=PLATFORMS,
                     help="device: cuda (default; an error when no card is "
                          "present) or cpu")
-    for flag in ("--profile", "--metricsOut", "--traceOut"):
-        ap.add_argument(flag, default=None, help="not yet ported")
+    ap.add_argument("--maxWorkers", default="auto",
+                    help="devices to fan out across: auto/off (the port "
+                         "runs on one device)")
+    ap.add_argument("--noMultihost", action="store_true",
+                    help="accepted for compatibility; the port is single-host")
+    add_obs_args(ap)
     return ap
 
 
@@ -81,11 +91,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.chromosome and args.region:
         ap.error("--chromosome and --region are mutually exclusive")
-    for flag in ("profile", "metricsOut", "traceOut"):
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
+    if args.maxWorkers not in ("auto", "off", "1"):
+        ap.error("--maxWorkers: multi-device exports are not yet ported to "
+                 "annotatedvdb_tpu_torch")
 
     from annotatedvdb_tpu_torch.export.core import run_export
+    from annotatedvdb_tpu_torch.obs import ObsSession
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
@@ -98,14 +109,26 @@ def main(argv=None) -> int:
     log, _logger, log_path = load_logger(args.out, "export", args.logFilePath)
     log(f"export {args.storeDir} -> {args.out} "
         f"(commit={args.commit}, log={log_path})")
-    summary = run_export(
-        store, ledger, args.storeDir, args.out,
-        chromosome=args.chromosome, region=args.region,
-        batch_rows=args.batchRows, part_bytes=args.partBytes,
-        seed=args.seed, ordered=args.ordered, resume=args.resume,
-        commit=args.commit, host_only=args.hostOnly,
-        max_parts=1 if args.test else None, log=log, device=device,
-    )
+    obs = ObsSession.from_args("export", args, {
+        "store": args.storeDir, "out": args.out,
+        "commit": args.commit, "test": args.test, "resume": args.resume,
+        "chromosome": args.chromosome, "region": args.region,
+        "seed": args.seed, "ordered": args.ordered,
+        "host_only": args.hostOnly,
+    })
+    # the run ledger must witness every abort, not just clean exits
+    try:
+        summary = run_export(
+            store, ledger, args.storeDir, args.out,
+            chromosome=args.chromosome, region=args.region,
+            batch_rows=args.batchRows, part_bytes=args.partBytes,
+            seed=args.seed, ordered=args.ordered, resume=args.resume,
+            commit=args.commit, host_only=args.hostOnly,
+            max_parts=1 if args.test else None, log=log, device=device,
+        )
+    except BaseException as exc:
+        obs.abort(ledger, exc, store=store)
+        raise
     if args.commit:
         log(f"COMMITTED {summary['parts_written']} part(s), "
             f"{summary['rows']} rows, {summary['tokens']} tokens")
@@ -113,6 +136,7 @@ def main(argv=None) -> int:
         log("DRY RUN (pass --commit to write): "
             f"{summary['n_parts']} part(s), {summary['total_rows']} rows "
             "planned")
+    obs.finish(ledger, summary, store=store)
     print(json.dumps(summary, sort_keys=True))
     return 0
 

@@ -9,8 +9,10 @@ variants of one VCF (``load_cadd_scores.py:180-257``), through indexed
 seeks when ``--buildIndex`` has written the tables' block-offset indexes.
 The default is a dry run; ``--commit`` mutates the store.  The counters
 (JSON) and then the algorithm-invocation id are printed on exit, so a
-wrapper can undo.  ``--profile``, ``--metricsOut`` and ``--traceOut`` are
-not ported yet and are refused, as is a ``--maxWorkers`` count above 1.
+wrapper can undo.  As in the reference, the update runs in an
+``ObsSession``: one ``type: "run"`` ledger record on completion or abort,
+``--metricsOut`` and ``--traceOut``.  A ``--maxWorkers`` count above 1 is
+refused.
 
 Usage:
     python -m annotatedvdb_tpu_torch load-cadd --databaseDir /cadd \\
@@ -27,6 +29,7 @@ import sys
 
 import numpy as np
 
+from annotatedvdb_tpu_torch.obs.session import add_obs_args
 from annotatedvdb_tpu_torch.runtime import PLATFORMS
 
 # chromosome set shorthands of the reference's load scripts
@@ -109,8 +112,7 @@ def _parser() -> argparse.ArgumentParser:
                          "runs on one device)")
     ap.add_argument("--noMultihost", action="store_true",
                     help="accepted for compatibility; the port is single-host")
-    for flag in ("--profile", "--metricsOut", "--traceOut"):
-        ap.add_argument(flag, default=None, help="not yet ported")
+    add_obs_args(ap)
     return ap
 
 
@@ -121,6 +123,7 @@ def main(argv=None) -> int:
         CaddIndex,
     )
     from annotatedvdb_tpu_torch.loaders.cadd_loader import CaddUpdater
+    from annotatedvdb_tpu_torch.obs import ObsSession
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
@@ -131,9 +134,6 @@ def main(argv=None) -> int:
 
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag in ("profile", "metricsOut", "traceOut"):
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
     if args.maxWorkers not in ("auto", "off", "1"):
         ap.error("--maxWorkers: multi-device joins are not yet ported to "
                  "annotatedvdb_tpu_torch")
@@ -169,6 +169,14 @@ def main(argv=None) -> int:
         log_after=(1 << 22) if args.logAfter is None else (args.logAfter or None),
         quarantine=quarantine, max_errors=args.maxErrors, device=device,
     )
+    obs = ObsSession.from_args("load-cadd", args, {
+        "database": args.databaseDir, "store": args.storeDir,
+        "file": args.fileName, "chromosomes": args.chromosomes,
+        "commit": args.commit, "test": args.test,
+        "update_existing": args.updateExisting,
+        "random_access": args.randomAccess,
+    })
+    obs.attach(updater)
     try:
         subsets = vcf_subsets(updater, args.fileName) if args.fileName else None
         counters = updater.update_all(
@@ -176,11 +184,17 @@ def main(argv=None) -> int:
             commit=args.commit, test=args.test, subsets=subsets,
             random_access=args.randomAccess,
         )
+        # inside the try: a failed commit save is an abort the run
+        # ledger must witness too
         if args.commit:
             store.save(args.storeDir)
+    except BaseException as exc:
+        obs.abort(ledger, exc, store=store)
+        raise
     finally:
         quarantine.close()
     log(f"stage breakdown: {updater.timer.summary()}")
+    obs.finish(ledger, counters, store=store)
     print(json.dumps(counters))
     print(counters["alg_id"])
     return 0

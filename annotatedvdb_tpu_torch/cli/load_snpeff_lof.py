@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import sys
 
-from annotatedvdb_tpu_torch.cli.update_common import parse, run_update, update_parser
+from annotatedvdb_tpu_torch.cli.update_common import run_update, update_parser
 
 
 def main(argv=None) -> int:
@@ -27,11 +27,15 @@ def main(argv=None) -> int:
     parser.add_argument("--updateExisting", action="store_true",
                         help="overwrite existing loss_of_function values")
     parser.add_argument("--chromosomeMap")
-    args = parse(parser, argv)
+    args = parser.parse_args(argv)
     chromosome_map = (read_chromosome_map(args.chromosomeMap)
                       if args.chromosomeMap else None)
     return run_update(
-        args, "load-snpeff-lof", "load-snpeff-lof",
+        args, "load-snpeff-lof", "load-snpeff-lof", {
+            "file": args.fileName, "store": args.storeDir,
+            "commit": args.commit, "test": args.test,
+            "update_existing": args.updateExisting,
+        },
         lambda store, ledger, **kw: SnpEffLofLoader(
             store, ledger, update_existing=args.updateExisting,
             chromosome_map=chromosome_map, **kw,

@@ -10,9 +10,14 @@ Usage:  python -m annotatedvdb_tpu_torch load-vcf --fileName x.vcf[.gz] \\
             --storeDir ./vdb [--commit] [--platform cpu] ...
 
 ``--refGenome`` (an ``index-genome`` ``.npz``) validates every inserted
-row's ref allele on the card and makes digest PKs canonical.  Flags of
-paths not ported yet (``--profile``, ``--metricsOut``, ``--traceOut``, a
-``--maxWorkers`` count) raise "not yet ported".
+row's ref allele on the card and makes digest PKs canonical.  As in the
+reference, the load runs in an ``ObsSession``: one ``type: "run"`` record
+lands in the store's ``ledger.jsonl`` whether the load completes or
+aborts; ``--metricsOut FILE`` writes a Prometheus textfile and
+``FILE.json``, ``--traceOut FILE`` a Chrome trace of the host pipeline's
+stage spans, and ``--profile DIR`` a ``torch.profiler`` trace of the load
+(CPU activity, and CUDA activity on the card).  A ``--maxWorkers`` count
+above 1 raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import argparse
 import os
 import sys
 
+from annotatedvdb_tpu_torch.obs.session import add_obs_args
 from annotatedvdb_tpu_torch.runtime import PLATFORMS
 from annotatedvdb_tpu_torch.types import DEFAULT_ALLELE_WIDTH
 
@@ -76,18 +82,13 @@ def _parser() -> argparse.ArgumentParser:
                         help="check the store for existing variants "
                              "(--no-skipExisting disables)")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="not yet ported")
-    parser.add_argument("--metricsOut", default=None, metavar="FILE",
-                        help="not yet ported")
-    parser.add_argument("--traceOut", default=None, metavar="FILE",
-                        help="not yet ported")
+                        help="capture a torch.profiler trace of the load "
+                             "into DIR (view in TensorBoard/Perfetto)")
+    add_obs_args(parser)
     return parser
 
 
 def _refuse_unported(parser, args) -> None:
-    for flag in ("profile", "metricsOut", "traceOut"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
     if args.maxWorkers not in ("auto", "off", "1"):
         parser.error("--maxWorkers: multi-device loads are not yet ported "
                      "to annotatedvdb_tpu_torch")
@@ -96,10 +97,11 @@ def _refuse_unported(parser, args) -> None:
 def main(argv=None):
     from annotatedvdb_tpu_torch.io.vcf import read_chromosome_map
     from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.obs import ObsSession
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
-    from annotatedvdb_tpu_torch.utils.profiling import stall_summary
+    from annotatedvdb_tpu_torch.utils.profiling import device_trace, stall_summary
     from annotatedvdb_tpu_torch.utils.quarantine import (
         ErrorBudget,
         QuarantineSink,
@@ -147,20 +149,37 @@ def main(argv=None):
         ),
         device=device,
     )
+    # telemetry session: --metricsOut / --traceOut exports + the per-load
+    # run-ledger record (appended on success AND abort)
+    obs = ObsSession.from_args("load-vcf", args, {
+        "file": args.fileName, "store": args.storeDir,
+        "commit": args.commit, "test": args.test, "resume": not args.noResume,
+        "datasource": args.datasource, "batch_size": args.commitAfter,
+        "skip_existing": args.skipExisting,
+        "pipeline": os.environ.get("AVDB_PIPELINE", "overlapped"),
+    })
+    obs.attach(loader)
+    # the load, the profiler's capture and the final save can each die:
+    # the run ledger must witness every abort
     try:
-        counters = loader.load_file(
-            args.fileName,
-            commit=args.commit,
-            test=args.test,
-            fail_at=args.failAt,
-            mapping_path=args.fileName + ".mapping",
-            resume=not args.noResume,
-            # persist before every checkpoint so the durable store never
-            # lags the resume cursor
-            persist=lambda: store.save(args.storeDir),
-        )
+        with device_trace(args.profile, device):
+            counters = loader.load_file(
+                args.fileName,
+                commit=args.commit,
+                test=args.test,
+                fail_at=args.failAt,
+                mapping_path=args.fileName + ".mapping",
+                resume=not args.noResume,
+                # persist before every checkpoint so the durable store
+                # never lags the resume cursor
+                persist=lambda: store.save(args.storeDir),
+            )
         if args.commit:
             store.save(args.storeDir)
+    except BaseException as exc:
+        # witness the crash in the run ledger, then propagate unchanged
+        obs.abort(ledger, exc, store=store)
+        raise
     finally:
         loader.close()
         loader.quarantine.close()
@@ -173,6 +192,7 @@ def main(argv=None):
         log(f"queue stalls: "
             f"{stall_summary(loader.queue_stalls, loader.timer.wall_seconds)}")
     log(f"device idle fraction: {loader.device_idle_fraction}")
+    obs.finish(ledger, counters, store=store)
     print(counters["alg_id"])  # undo handle, like load_vcf_file.py:220
     return 0
 

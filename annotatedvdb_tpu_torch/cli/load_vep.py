@@ -14,8 +14,11 @@ for it.  A failed native build raises (``loaders/vep_loader.py``).
 Usage:  python -m annotatedvdb_tpu_torch load-vep --fileName results.json[.gz] \\
             --storeDir ./vdb [--rankingFile ranks.txt] [--commit] [--platform cpu] ...
 
-Flags of paths not ported yet (``--metricsOut``, ``--traceOut``, a
-``--maxWorkers`` count) raise "not yet ported".
+As in the reference, the load runs in an ``ObsSession``: one ``type:
+"run"`` ledger record on completion or abort, ``--metricsOut`` (a
+Prometheus textfile and its ``.json`` snapshot) and ``--traceOut`` (a
+Chrome trace of the stage spans).  A ``--maxWorkers`` count above 1
+raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import argparse
 import os
 import sys
 
+from annotatedvdb_tpu_torch.obs.session import add_obs_args
 from annotatedvdb_tpu_torch.runtime import PLATFORMS
 
 
@@ -68,18 +72,11 @@ def _parser() -> argparse.ArgumentParser:
                              "single-host")
     parser.add_argument("--skipExisting", action="store_true",
                         help="skip variants that already have vep_output")
-    # telemetry (annotatedvdb_tpu/obs: add_obs_args)
-    parser.add_argument("--metricsOut", default=None, metavar="FILE",
-                        help="not yet ported")
-    parser.add_argument("--traceOut", default=None, metavar="FILE",
-                        help="not yet ported")
+    add_obs_args(parser)
     return parser
 
 
 def _refuse_unported(parser, args) -> None:
-    for flag in ("metricsOut", "traceOut"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
     if args.maxWorkers not in ("auto", "off", "1"):
         parser.error("--maxWorkers: multi-device loads are not yet ported "
                      "to annotatedvdb_tpu_torch")
@@ -88,6 +85,7 @@ def _refuse_unported(parser, args) -> None:
 def main(argv=None):
     from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
     from annotatedvdb_tpu_torch.loaders import VepLoader
+    from annotatedvdb_tpu_torch.obs import ObsSession
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
@@ -124,12 +122,23 @@ def main(argv=None):
         ),
         device=device,
     )
+    obs = ObsSession.from_args("load-vep", args, {
+        "file": args.fileName, "store": args.storeDir,
+        "commit": args.commit, "test": args.test,
+        "datasource": args.datasource, "skip_existing": args.skipExisting,
+    })
+    obs.attach(loader)
     try:
         counters = loader.load_file(
             args.fileName, commit=args.commit, test=args.test
         )
+        # the commit save sits inside the try: a full-disk save is an
+        # abort the run ledger must witness too
         if args.commit:
             store.save(args.storeDir)
+    except BaseException as exc:
+        obs.abort(ledger, exc, store=store)
+        raise
     finally:
         loader.quarantine.close()
     if args.commit:
@@ -137,6 +146,7 @@ def main(argv=None):
     else:
         log(f"ROLLING BACK (dry run) {counters}")
     log(f"stage breakdown: {loader.timer.summary()}")
+    obs.finish(ledger, counters, store=store)
     print(counters["alg_id"])
     return 0
 

@@ -61,9 +61,13 @@ refused beside ``--upserts`` or ``--maintain`` (exit code 2), as in the
 reference: the leader owns writes and compaction, and ``doctor
 promote`` turns a follower into a leader.
 
-Refused (not ported yet): ``--metricsOut`` and ``--traceOut``.  On
-shutdown (SIGINT or SIGTERM) every serving process logs one ``run
-summary`` line to stderr: the kernels' launches,
+``--metricsOut FILE`` writes the process's metrics at shutdown (a
+Prometheus textfile and ``FILE.json``); ``--traceOut FILE`` records one
+``serve.batch`` span around each drained point batch, writes the Chrome
+trace at shutdown, and merges those spans into ``GET /debug/trace``.  Both
+are per-process exports: a fleet warns, as the reference does, and does
+not collect them.  On shutdown (SIGINT or SIGTERM) every serving process
+logs one ``run summary`` line to stderr: the kernels' launches,
 the plain versions' calls by device, the breaker's state, the device
 bytes held, the seconds spent loading the store, building interval
 indexes and decoding feature columns, and, in a fleet, the worker index.
@@ -161,9 +165,12 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="coalesced manifest freshness window in ms "
                              "(default: AVDB_SERVE_SNAPSHOT_TTL_MS or 250)")
     parser.add_argument("--metricsOut", default=None, metavar="FILE",
-                        help="not yet ported (scrape GET /metrics)")
+                        help="write serving metrics on shutdown: Prometheus "
+                             "textfile at FILE plus JSON at FILE.json "
+                             "(live scrape: GET /metrics)")
     parser.add_argument("--traceOut", default=None, metavar="FILE",
-                        help="not yet ported")
+                        help="write a Chrome trace of batcher drain spans "
+                             "on shutdown")
     parser.add_argument("--platform", default="cuda", choices=PLATFORMS,
                         help="device: cuda (default; an error when no card "
                              "is present) or cpu")
@@ -267,9 +274,6 @@ def main(argv=None) -> int:
         print(f"serve: cannot start: bad AVDB_SERVE_WORKERS ({err})",
               file=sys.stderr)
         return 1
-    for flag in ("metricsOut", "traceOut"):
-        if getattr(args, flag):
-            ap.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
     if args.frontend == "threaded":
         dead = [flag for flag, val, env in (
             ("--clientRate", args.clientRate, "AVDB_SERVE_CLIENT_RATE"),
@@ -325,6 +329,10 @@ def main(argv=None) -> int:
                   "(--frontend threaded is single-process only)",
                   file=sys.stderr)
             return 2
+        if args.metricsOut or args.traceOut:
+            print("serve: --metricsOut/--traceOut are per-process exports "
+                  "and are not collected in fleet mode; scrape GET "
+                  "/metrics instead", file=sys.stderr)
         from annotatedvdb_tpu_torch.serve.fleet import ServeFleet
 
         try:
@@ -388,6 +396,7 @@ def _worker_socket(args):
 
 def _run_single(args, log) -> int:
     from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
+    from annotatedvdb_tpu_torch.obs.trace import Tracer
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.serve.residency import ResidencyManager
     from annotatedvdb_tpu_torch.serve.snapshot import SnapshotManager
@@ -407,6 +416,7 @@ def _run_single(args, log) -> int:
         except RuntimeError as err:
             print(f"serve: cannot start: {err}", file=sys.stderr)
             return 1
+    tracer = Tracer(process_name="avdb-serve") if args.traceOut else None
     registry = MetricsRegistry()
     try:
         budget = _resolve_budget(args)
@@ -460,9 +470,10 @@ def _run_single(args, log) -> int:
     obs = (flight, health)
     if args.frontend == "threaded":
         return _run_threaded(args, manager, registry, residency, max_wait_s,
-                             log, device, load_s, memtable, tailer, obs)
+                             log, device, load_s, memtable, tailer, obs,
+                             tracer)
     return _run_aio(args, manager, registry, residency, max_wait_s, log,
-                    device, load_s, memtable, sock, tailer, obs)
+                    device, load_s, memtable, sock, tailer, obs, tracer)
 
 
 def _open_observers(args, registry, log):
@@ -586,7 +597,7 @@ def _attach_follower(ctx, tailer) -> None:
 
 def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
              load_s: float, memtable=None, sock=None, tailer=None,
-             obs=(None, None)) -> int:
+             obs=(None, None), tracer=None) -> int:
     """The event-loop server (the default front end): one process, or a
     fleet worker on the supervisor's port."""
     import gc
@@ -606,7 +617,7 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
             heartbeat_file=args._heartbeatFile,
             heartbeat_index=args._workerIndex or 0,
             log=log, device=device, flight=obs[0],
-            telemetry_dir=args._telemetryDir, health=obs[1],
+            telemetry_dir=args._telemetryDir, health=obs[1], tracer=tracer,
         )
     except (OSError, ValueError) as err:
         # an unparseable AVDB_SERVE_* knob: the same clean exit as every
@@ -685,6 +696,7 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
         ctx.batcher.close()
         _close_memtable(memtable)
         _close_observers(obs)
+        _export(args, ctx.registry, tracer, log)
         log("run summary " + json.dumps(
             run_summary(ctx, load_s, args._workerIndex)))
     return 0
@@ -700,7 +712,7 @@ def _close_memtable(memtable) -> None:
 
 def _run_threaded(args, manager, registry, residency, max_wait_s, log,
                   device, load_s: float, memtable=None, tailer=None,
-                  obs=(None, None)) -> int:
+                  obs=(None, None), tracer=None) -> int:
     """The thread-per-connection server (byte-parity reference)."""
     import signal
 
@@ -715,6 +727,7 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
             log=log, device=device, flight=obs[0],
             telemetry_dir=args._telemetryDir,
             worker_index=args._workerIndex or 0, health=obs[1],
+            tracer=tracer,
         )
     except (OSError, ValueError) as err:
         print(f"serve: cannot start: {err}", file=sys.stderr)
@@ -741,8 +754,25 @@ def _run_threaded(args, manager, registry, residency, max_wait_s, log,
         ctx.batcher.close()
         _close_memtable(memtable)
         _close_observers(obs)
+        _export(args, ctx.registry, tracer, log)
         log("run summary " + json.dumps(run_summary(ctx, load_s)))
     return 0
+
+
+def _export(args, registry, tracer, log) -> None:
+    """``--metricsOut`` / ``--traceOut`` at shutdown (a failed write is
+    logged, never raised)."""
+    if args.metricsOut:
+        try:
+            registry.write_textfile(args.metricsOut)
+            registry.write_json(args.metricsOut + ".json")
+        except OSError as err:
+            log(f"metrics export failed ({err})")
+    if tracer is not None and args.traceOut:
+        try:
+            tracer.save(args.traceOut)
+        except OSError as err:
+            log(f"trace export failed ({err})")
 
 
 def run_summary(ctx, load_s: float, worker: int | None = None) -> dict:

@@ -5,9 +5,10 @@ The flags are the reference's (``annotatedvdb_tpu/config.py::
 add_lifecycle_args``, ``obs.add_obs_args``) plus ``--platform``: ``cuda``
 by default, an error when no card is present, ``cpu`` on request.  A run
 loads the store, applies the file with a store save before each
-checkpoint, and prints the counters as JSON and then the algorithm
-invocation id, as the reference's CLIs do.  ``--metricsOut`` and
-``--traceOut`` are not ported yet and are refused.
+checkpoint inside an ``ObsSession`` (one ``type: "run"`` ledger record on
+completion or abort; ``--metricsOut`` and ``--traceOut``), and prints the
+counters as JSON and then the algorithm invocation id, as the reference's
+CLIs do.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import argparse
 import json
 import os
 
+from annotatedvdb_tpu_torch.obs.session import add_obs_args
 from annotatedvdb_tpu_torch.runtime import PLATFORMS
 
 
@@ -39,26 +41,17 @@ def update_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--platform", default="cuda", choices=PLATFORMS,
                         help="device: cuda (default; an error when no card "
                              "is present) or cpu")
-    parser.add_argument("--metricsOut", default=None, metavar="FILE",
-                        help="not yet ported")
-    parser.add_argument("--traceOut", default=None, metavar="FILE",
-                        help="not yet ported")
+    add_obs_args(parser)
     return parser
 
 
-def parse(parser: argparse.ArgumentParser, argv) -> argparse.Namespace:
-    """Parse ``argv``; refuse the flags of paths not ported yet."""
-    args = parser.parse_args(argv)
-    for flag in ("metricsOut", "traceOut"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to annotatedvdb_tpu_torch")
-    return args
-
-
-def run_update(args, log_tag: str, quarantine_name: str, make_loader) -> int:
+def run_update(args, log_tag: str, script: str, params: dict,
+               make_loader) -> int:
     """Run one update CLI: ``make_loader(store, ledger, **kw)`` builds the
     loader from the common keywords (log, log_after, quarantine,
-    max_errors, device)."""
+    max_errors, device).  ``script`` names the quarantine sink and the run
+    record, whose ``params`` are the reference CLI's."""
+    from annotatedvdb_tpu_torch.obs import ObsSession
     from annotatedvdb_tpu_torch.runtime import resolve_device
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
@@ -73,7 +66,7 @@ def run_update(args, log_tag: str, quarantine_name: str, make_loader) -> int:
     store = VariantStore.load(args.storeDir)
     ledger = AlgorithmLedger(os.path.join(args.storeDir, "ledger.jsonl"))
     quarantine = QuarantineSink(
-        args.storeDir, args.fileName, quarantine_name,
+        args.storeDir, args.fileName, script,
         budget=ErrorBudget(args.maxErrors), log=log,
     )
     loader = make_loader(
@@ -81,13 +74,19 @@ def run_update(args, log_tag: str, quarantine_name: str, make_loader) -> int:
         log_after=(1 << 15) if args.logAfter is None else (args.logAfter or None),
         quarantine=quarantine, max_errors=args.maxErrors, device=device,
     )
+    obs = ObsSession.from_args(script, args, params)
+    obs.attach(loader)
     try:
         counters = loader.load_file(
             args.fileName, commit=args.commit, test=args.test,
             persist=(lambda: store.save(args.storeDir)) if args.commit else None,
         )
+    except BaseException as exc:
+        obs.abort(ledger, exc, store=store)
+        raise
     finally:
         quarantine.close()
+    obs.finish(ledger, counters, store=store)
     print(json.dumps(counters))
     print(counters["alg_id"])
     return 0

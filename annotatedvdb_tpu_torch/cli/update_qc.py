@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import sys
 
-from annotatedvdb_tpu_torch.cli.update_common import parse, run_update, update_parser
+from annotatedvdb_tpu_torch.cli.update_common import run_update, update_parser
 
 
 def main(argv=None) -> int:
@@ -27,11 +27,15 @@ def main(argv=None) -> int:
                         help="ADSP release tag keying the adsp_qc JSONB (e.g. r4)")
     parser.add_argument("--updateExistingValues", action="store_true")
     parser.add_argument("--chromosomeMap")
-    args = parse(parser, argv)
+    args = parser.parse_args(argv)
     chromosome_map = (read_chromosome_map(args.chromosomeMap)
                       if args.chromosomeMap else None)
     return run_update(
-        args, "update-qc", "update-qc",
+        args, "update-qc", "update-qc", {
+            "file": args.fileName, "store": args.storeDir,
+            "version": args.version, "commit": args.commit, "test": args.test,
+            "update_existing": args.updateExistingValues,
+        },
         lambda store, ledger, **kw: QcPvcfLoader(
             store, ledger, args.version,
             update_existing=args.updateExistingValues, datasource="ADSP",

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import sys
 
-from annotatedvdb_tpu_torch.cli.update_common import parse, run_update, update_parser
+from annotatedvdb_tpu_torch.cli.update_common import run_update, update_parser
 from annotatedvdb_tpu_torch.loaders.txt_loader import VARIANT_ID_TYPES
 
 
@@ -31,9 +31,14 @@ def main(argv=None) -> int:
     parser.add_argument("--datasource", default=None)
     parser.add_argument("--skipExisting", action="store_true",
                         help="skip known variants instead of updating them")
-    args = parse(parser, argv)
+    args = parser.parse_args(argv)
     return run_update(
-        args, "update-annotation", "update-variant-annotation",
+        args, "update-annotation", "update-variant-annotation", {
+            "file": args.fileName, "store": args.storeDir,
+            "id_type": args.variantIdType, "commit": args.commit,
+            "test": args.test, "datasource": args.datasource,
+            "skip_existing": args.skipExisting,
+        },
         lambda store, ledger, **kw: TextLoader(
             store, ledger, variant_id_type=args.variantIdType,
             datasource=args.datasource, update_existing=not args.skipExisting,

@@ -161,6 +161,11 @@ class ChunkPrefetcher:
     def __next__(self):
         return next(self._stage)
 
+    def depth(self) -> int:
+        """Current unconsumed-chunk count (the queue-depth gauge), the
+        surface ``BoundedStage`` exposes."""
+        return self._stage.depth()
+
     @property
     def stats(self):
         return self._stage.stats

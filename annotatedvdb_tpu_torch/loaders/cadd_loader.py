@@ -102,6 +102,8 @@ class CaddUpdater:
         #: busy seconds of the table scan (on the prefetch thread), the
         #: joins and the finalize, plus the whole pass's wall
         self.timer = StageTimer()
+        #: chunk-granularity metrics hook (ObsSession.attach)
+        self.obs = None
         #: backpressure accounting for the scan-prefetch boundary
         self.queue_stalls: dict = {}
         #: device joins: blocks joined on the device and the bytes uploaded
@@ -126,6 +128,9 @@ class CaddUpdater:
             self.quarantine.reject(line_no, raw, reason)
         else:
             self._budget.add(1, context=f"line {line_no}: {reason}")
+
+    #: metric label / run-ledger script name (obs.ObsSession)
+    obs_name = "load-cadd"
 
     # ------------------------------------------------------------------
 
@@ -253,6 +258,8 @@ class CaddUpdater:
                                 states[code], self.store.shard(code), block,
                                 probe,
                             )
+                        if self.obs is not None:
+                            self.obs.chunk(n_rows)
                         self._rows_scanned += n_rows
                         self._cadence.maybe_log(
                             self._rows_scanned, self.counters,

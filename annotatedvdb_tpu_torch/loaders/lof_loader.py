@@ -95,6 +95,9 @@ class SnpEffLofStrategy(UpdateStrategy):
 class SnpEffLofLoader(UpdateLoader):
     """Update-only SnpEff LoF/NMD loader (``load-snpeff-lof``)."""
 
+    #: metric label / run-ledger script name (obs.ObsSession)
+    obs_name = "load-snpeff-lof"
+
     def __init__(self, store: VariantStore, ledger: AlgorithmLedger,
                  update_existing: bool = False, **kw):
         super().__init__(

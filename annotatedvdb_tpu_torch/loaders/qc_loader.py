@@ -122,6 +122,9 @@ class QcPvcfStrategy(UpdateStrategy):
 class QcPvcfLoader(UpdateLoader):
     """The update loader with the QC strategy (``update-qc``)."""
 
+    #: metric label / run-ledger script name (obs.ObsSession)
+    obs_name = "update-qc"
+
     def __init__(self, store: VariantStore, ledger: AlgorithmLedger,
                  version: str, update_existing: bool = False, **kw):
         super().__init__(

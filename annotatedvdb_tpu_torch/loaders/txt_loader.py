@@ -21,6 +21,7 @@ from __future__ import annotations
 import csv
 import json
 import re
+import time
 
 import numpy as np
 
@@ -146,6 +147,8 @@ class TextLoader:
         self._cadence = ProgressCadence(log, log_after)
         #: apply / persist busy seconds + load wall
         self.timer = StageTimer()
+        #: chunk-granularity metrics hook (ObsSession.attach)
+        self.obs = None
         #: membership probes by path ("device" / "host"), observability only
         self.probe_stats: dict[str, int] = {}
         self.insert_loader = VcfLoader(
@@ -157,6 +160,9 @@ class TextLoader:
             "line": 0, "variant": 0, "update": 0, "skipped": 0,
             "duplicates": 0, "not_found": 0, "inserted": 0,
         }
+
+    #: metric label / run-ledger script name (obs.ObsSession)
+    obs_name = "update-variant-annotation"
 
     @property
     def is_adsp(self) -> bool:
@@ -178,6 +184,7 @@ class TextLoader:
             self.log(f"resuming {path} after committed line {resume_line}")
 
         def flush(pending) -> None:
+            t0 = time.perf_counter() if self.obs is not None else 0.0
             with self.timer.stage("apply", items=len(pending)):
                 self._apply_batch(pending, alg_id, commit)
             if commit:
@@ -187,6 +194,10 @@ class TextLoader:
                     self.ledger.checkpoint(
                         alg_id, path, pending[-1][0], dict(self.counters)
                     )
+            if self.obs is not None:
+                self.obs.chunk(
+                    len(pending), seconds=time.perf_counter() - t0
+                )
 
         try:
             with self.timer.wall(), open(path, newline="") as fh:

@@ -17,6 +17,7 @@ are in the store when the loader looks them up again.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
@@ -120,6 +121,12 @@ class UpdateLoader:
             "line": 0, "variant": 0, "update": 0, "skipped": 0, "not_found": 0,
             "inserted": 0,
         }
+        #: optional :class:`annotatedvdb_tpu_torch.obs.metrics.LoadObserver`
+        #: (set by ``ObsSession.attach``)
+        self.obs = None
+
+    #: metric/run-ledger label; subclasses override with their CLI name
+    obs_name = "update-loader"
 
     @bulk_load_gc()
     def load_file(self, path: str, commit: bool = False, test: bool = False,
@@ -196,6 +203,7 @@ class UpdateLoader:
         if resume_line and chunk.line_number[-1] <= resume_line:
             self.counters["skipped"] += chunk.batch.n
             return False
+        t_chunk = time.perf_counter() if self.obs is not None else 0.0
         with self.timer.stage("apply", items=chunk.batch.n):
             self._apply_chunk(chunk, alg_id, commit)
         self._cadence.maybe_log(self.counters["line"], self.counters)
@@ -207,6 +215,10 @@ class UpdateLoader:
                     alg_id, path, int(chunk.line_number[-1]),
                     dict(self.counters),
                 )
+        if self.obs is not None:
+            self.obs.chunk(
+                chunk.batch.n, seconds=time.perf_counter() - t_chunk
+            )
         if test:
             self.log("test mode: stopping after first batch")
             return True

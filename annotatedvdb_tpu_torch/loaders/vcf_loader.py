@@ -193,6 +193,9 @@ class VcfLoader:
         #: that boundary's consumer was the bottleneck, ``consumer_wait_s``
         #: = its producer starved it
         self.queue_stalls: dict[str, dict] = {}
+        #: optional :class:`annotatedvdb_tpu_torch.obs.metrics.LoadObserver`
+        #: (chunk-granularity metrics; set by ``ObsSession.attach``)
+        self.obs = None
         # async store writer: built segments queue to one writer thread
         # (append -> persist -> checkpoint -> maintain) while this thread
         # processes the next chunk.  Entries are (future, payload); payload
@@ -211,6 +214,9 @@ class VcfLoader:
             else ErrorBudget(max_errors)
         )
         self._rejects_captured = False
+
+    #: metric/run-ledger label for this loader family
+    obs_name = "load-vcf"
 
     def _reject(self, line_no, raw, reason) -> None:
         """Quarantine one rejected input line (may run on the ingest
@@ -285,6 +291,7 @@ class VcfLoader:
             # files loaded through the same loader
             self._occ = DeviceOccupancy()
             wall0 = self.timer.wall_seconds
+            stage0 = self.timer.as_dict()
             reader = VcfBatchReader(
                 path,
                 batch_size=ingest_chunk_rows(self.batch_size),
@@ -307,6 +314,14 @@ class VcfLoader:
             self.device_idle_fraction = self._occ.idle_fraction(
                 self.timer.wall_seconds - wall0
             )
+            if self.obs is not None:
+                # per-stage busy-seconds deltas for THIS file, plus the
+                # device-idle gauge, onto the obs plane
+                after = self.timer.as_dict()
+                for name, rec in after.items():
+                    prev = stage0.get(name, {}).get("seconds", 0.0)
+                    self.obs.stage_seconds(name, rec["seconds"] - prev)
+                self.obs.device_idle(self.device_idle_fraction)
             self.ledger.finish(alg_id, dict(self.counters))
             # terminal counter line: short files must still log totals
             self._cadence.finish(
@@ -386,8 +401,19 @@ class VcfLoader:
             depth=depth,
             name="vcf-dispatch",
         )
+        tracer = self.timer.tracer
+        entries = Resequencer(dispatch)
         try:
-            for entry in Resequencer(dispatch):
+            for entry in entries:
+                if tracer is not None:
+                    # queue-depth samples, one counter track per boundary
+                    # (per chunk, so about zero cost)
+                    tracer.counter(
+                        "queue_depth", ingest=ingest.depth(),
+                        dispatch=dispatch.depth(),
+                        resequencer=entries.held(),
+                        store_writer=len(self._inflight),
+                    )
                 if self._consume_entry(entry, ctx):
                     break
         finally:
@@ -490,6 +516,7 @@ class VcfLoader:
         counter delta, process + commit it, checkpoint.  Returns True when
         the load should stop (test mode)."""
         chunk, handles, delta = entry
+        t_chunk = time.perf_counter() if self.obs is not None else 0.0
         for key, v in delta.items():
             self.counters[key] = self.counters.get(key, 0) + v
         if delta["malformed"] and not self._rejects_captured:
@@ -499,6 +526,8 @@ class VcfLoader:
             # however the prefetcher scheduled the chunks
             self._reject_uncaptured(delta["malformed"], UNCAPTURED_REASON)
         if handles is None:
+            # resume-replayed / counters-only chunks are not observed:
+            # avdb_rows_total means rows actually processed
             return False
         if ctx.fail_at is not None and ctx.fail_at in chunk.variant_id:
             raise RuntimeError(f"failAt variant reached: {ctx.fail_at}")
@@ -522,6 +551,10 @@ class VcfLoader:
                     ctx.persist()
                 self.ledger.checkpoint(ctx.alg_id, ctx.path, line,
                                        dict(self.counters))
+        if self.obs is not None:
+            self.obs.chunk(
+                chunk.batch.n, seconds=time.perf_counter() - t_chunk
+            )
         if ctx.test:
             self.log("test mode: stopping after first batch")
             return True

@@ -45,6 +45,7 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -165,6 +166,8 @@ class VepLoader:
         #: ingest (block reads, on the reader thread) / process (transform
         #: + store apply) busy seconds + load wall
         self.timer = StageTimer()
+        #: chunk-granularity metrics hook (ObsSession.attach)
+        self.obs = None
         #: the identity step inside ``process``: ``dispatch`` (uploads and
         #: the launch) and ``copy_back`` (waiting for the device and copying
         #: the three columns back)
@@ -195,6 +198,9 @@ class VepLoader:
             "line": 0, "variant": 0, "skipped": 0, "duplicates": 0,
             "update": 0, "not_found": 0,
         }
+
+    #: metric label / run-ledger script name (obs.ObsSession)
+    obs_name = "load-vep"
 
     def _reject(self, raw, reason: str) -> None:
         """Quarantine one rejected VEP result line (line numbers are not
@@ -249,8 +255,17 @@ class VepLoader:
                                   name="vep-ingest")
             try:
                 for text in pre:
+                    # one "process" span + one chunk observation per
+                    # flushed block (results a block = the line delta)
+                    lines_before = self.counters["line"]
+                    t0 = time.perf_counter() if self.obs is not None else 0.0
                     with self.timer.stage("process"):
                         self._flush_text(text, alg_id, commit, use_native)
+                    if self.obs is not None:
+                        self.obs.chunk(
+                            self.counters["line"] - lines_before,
+                            seconds=time.perf_counter() - t0,
+                        )
             finally:
                 # settle the reader thread before fh leaves scope
                 pre.close()

@@ -1,12 +1,14 @@
 """Thread-safe metrics registry: counters, gauges, fixed-bucket histograms.
 
-Port of ``annotatedvdb_tpu/obs/metrics.py`` for the query server and its
-health plane: get-or-create accessors, the Prometheus exposition of
-``GET /metrics``, the JSON snapshot the time-series ring samples
-(``obs/timeseries.py``), :func:`bucket_quantile` (window quantiles from
-snapshot deltas), and the fleet merge and rendering behind
-``/metrics?fleet=1``.  The textfile writers (``--metricsOut``) and the
-loaders' ``LoadObserver`` are not ported.
+Port of ``annotatedvdb_tpu/obs/metrics.py``: get-or-create accessors,
+the Prometheus exposition of ``GET /metrics`` and of the ``--metricsOut``
+textfile (written at exit with its JSON snapshot, tmp and rename), the JSON
+snapshot the time-series ring samples (``obs/timeseries.py``),
+:func:`bucket_quantile` (window quantiles from snapshot deltas), the fleet
+merge and rendering behind ``/metrics?fleet=1``, and the loaders'
+chunk-granularity :class:`LoadObserver`.  Values are handed in by callers
+(per chunk, never per row), so the registry adds no timing dependency to
+any hot loop.
 
 Histograms use fixed bucket edges chosen at creation, so two snapshots are
 bucket-comparable by construction and rendering is O(buckets).
@@ -15,13 +17,20 @@ bucket-comparable by construction and rendering is O(buckets).
 from __future__ import annotations
 
 import bisect
+import json
 import math
+import os
 import re
 import threading
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
-#: histogram edges (seconds) for per-pass wall times (``avdb_compact_seconds``)
+#: default edges for row-count-per-chunk histograms (pow2-ish ladder that
+#: brackets every loader's batch_size defaults, 2^10 .. 2^20)
+CHUNK_ROW_EDGES = tuple(float(1 << k) for k in range(10, 21))
+
+#: default edges for per-chunk latency histograms (seconds, log-spaced),
+#: also the per-pass wall times (``avdb_compact_seconds``)
 CHUNK_SECONDS_EDGES = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
     5.0, 10.0, 30.0,
@@ -270,6 +279,24 @@ class MetricsRegistry:
             m.render(lines)
         return "\n".join(lines) + "\n"
 
+    def write_textfile(self, path: str) -> None:
+        """Atomic write (tmp+rename): a scraper must never read a torn
+        half-written exposition file."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        tmp = os.path.join(d, f".{os.path.basename(path)}.tmp{os.getpid()}")
+        with open(tmp, "w") as f:
+            f.write(self.render_prometheus())
+        os.replace(tmp, path)
+
+    def write_json(self, path: str) -> None:
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        tmp = os.path.join(d, f".{os.path.basename(path)}.tmp{os.getpid()}")
+        with open(tmp, "w") as f:
+            json.dump(self.snapshot(), f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+
 
 def merge_snapshots(snaps: list) -> dict:
     """Merge several registries' :meth:`MetricsRegistry.snapshot` dicts
@@ -357,3 +384,67 @@ def render_snapshot(snapshot: dict) -> str:
                     f"{_fmt(e.get('value', 0.0))}"
                 )
     return "\n".join(lines) + "\n"
+
+
+class LoadObserver:
+    """Chunk-granularity metrics adapter a loader carries as ``self.obs``.
+
+    Loaders call :meth:`chunk` once per processed chunk — never per row —
+    so observation cost is O(chunks) and invisible next to device work.
+    ``loader`` becomes a metric label, so one registry can carry several
+    loaders' series side by side (a VCF load followed by its VEP update).
+    """
+
+    def __init__(self, reg: MetricsRegistry, loader: str):
+        self._reg = reg
+        self._labels = labels = {"loader": loader}
+        self.chunks = reg.counter(
+            "avdb_chunks_total", "pipeline chunks processed", labels
+        )
+        self.rows = reg.counter(
+            "avdb_rows_total", "input rows (post-parse) processed", labels
+        )
+        self.chunk_rows = reg.histogram(
+            "avdb_chunk_rows", CHUNK_ROW_EDGES,
+            "rows per pipeline chunk", labels,
+        )
+        self.chunk_seconds = reg.histogram(
+            "avdb_chunk_seconds", CHUNK_SECONDS_EDGES,
+            "process-thread seconds per chunk", labels,
+        )
+        self._stage_seconds: dict = {}  # stage name -> labeled counter
+        self._device_idle = None
+
+    def chunk(self, rows: int, seconds: float | None = None) -> None:
+        self.chunks.inc()
+        if rows:
+            self.rows.inc(rows)
+            self.chunk_rows.observe(rows)
+        if seconds is not None:
+            self.chunk_seconds.observe(seconds)
+
+    def stage_seconds(self, stage: str, seconds: float) -> None:
+        """Per-stage busy-seconds export (``avdb_load_stage_seconds``) —
+        loaders push their StageTimer deltas once per load, never per
+        chunk, so the series cost is O(stages)."""
+        if seconds <= 0:
+            return
+        c = self._stage_seconds.get(stage)
+        if c is None:
+            c = self._stage_seconds[stage] = self._reg.counter(
+                "avdb_load_stage_seconds",
+                "busy seconds per load-pipeline stage",
+                dict(self._labels, stage=stage),
+            )
+        c.inc(seconds)
+
+    def device_idle(self, fraction: float) -> None:
+        """Device-idle fraction of the latest load (gauge; the in-flight-
+        window approximation from ``utils.profiling.DeviceOccupancy``)."""
+        if self._device_idle is None:
+            self._device_idle = self._reg.gauge(
+                "avdb_load_device_idle_fraction",
+                "1 - device in-flight coverage / load wall-clock",
+                self._labels,
+            )
+        self._device_idle.set(max(0.0, min(1.0, float(fraction))))

@@ -68,8 +68,9 @@ loop; ``GET /debug/trace`` dumps the span ring.  Without the variable
 both answer the unknown-route 404.  Fault points here: ``serve.accept``
 (per accepted connection), ``serve.wedge`` (per maintenance tick: a long
 ``delay`` parks the loop, which the fleet watchdog must kill) and
-``serve.batch`` (per loop-batcher drain).  Not ported: the loaders'
-Chrome tracer (``--traceOut``) and the mesh executor.
+``serve.batch`` (per loop-batcher drain).  With ``--traceOut`` each
+loop-batcher drain is one ``serve.batch`` span of the Chrome tracer.  Not
+ported: the mesh executor.
 """
 
 from __future__ import annotations
@@ -269,13 +270,14 @@ class LoopBatcher:
     def __init__(self, engine, max_batch: int | None = None,
                  max_wait_s: float | None = None,
                  max_queue: int | None = None,
-                 registry=None, timeout_s: float = 30.0):
+                 tracer=None, registry=None, timeout_s: float = 30.0):
         from annotatedvdb_tpu_torch.serve.batcher import resolve_batch_knobs
 
         self.engine = engine
         self.max_batch, self.max_wait_s, self.max_queue = \
             resolve_batch_knobs(max_batch, max_wait_s, max_queue)
         self.timeout_s = timeout_s
+        self.tracer = tracer
         self._pending: list = []  # (future, qid, parsed), loop-only state
         self._timer = None
         self._drain_soon = False  # a call_soon(_drain) is already queued
@@ -393,10 +395,15 @@ class LoopBatcher:
             # a failure here must fail exactly this batch's callers and
             # leave the loop serving
             faults.fire("serve.batch")
-            results = self.engine.lookup_many(
-                [q for _f, q, _p, _d, _t, _e in batch],
-                parsed=[p for _f, _q, p, _d, _t, _e in batch],
+            span = (
+                self.tracer.span("serve.batch", n=len(batch))
+                if self.tracer is not None else contextlib.nullcontext()
             )
+            with span:
+                results = self.engine.lookup_many(
+                    [q for _f, q, _p, _d, _t, _e in batch],
+                    parsed=[p for _f, _q, p, _d, _t, _e in batch],
+                )
         except Exception as exc:
             for fut, _q, _p, _d, _t, _e in batch:
                 if not fut.done():
@@ -2148,7 +2155,7 @@ def build_aio_server(store_dir: str | None = None, manager=None,
                      heartbeat_index: int = 0,
                      log=None, device=None, flight=None,
                      telemetry_dir: str | None = None,
-                     health=None) -> AioServer:
+                     health=None, tracer=None) -> AioServer:
     """Wire manager -> engine (on ``device``: ``cuda`` unless the caller
     asks for ``cpu``) -> loop batcher -> event-loop server (not yet
     serving; call ``serve_forever`` or ``start_background``).  The engine
@@ -2156,7 +2163,9 @@ def build_aio_server(store_dir: str | None = None, manager=None,
     The caller owns shutdown order: ``server.shutdown()`` then
     ``server.ctx.batcher.close()`` — same contract as ``build_server``.
     ``heartbeat_file``/``heartbeat_index`` are a fleet worker's watchdog
-    slot; ``memtable`` enables ``POST /variants/upsert``."""
+    slot; ``memtable`` enables ``POST /variants/upsert``; ``tracer`` (a
+    ``serve --traceOut`` Chrome tracer) gets one ``serve.batch`` span a
+    drain."""
     if manager is None:
         if store_dir is None:
             raise ValueError("build_aio_server needs store_dir or manager")
@@ -2169,11 +2178,11 @@ def build_aio_server(store_dir: str | None = None, manager=None,
     )
     batcher = LoopBatcher(
         engine, max_batch=max_batch, max_wait_s=max_wait_s,
-        max_queue=max_queue, registry=registry,
+        max_queue=max_queue, tracer=tracer, registry=registry,
     )
     ctx = ServeContext(manager, engine, batcher, registry,
                        memtable=memtable, log=log, flight=flight,
-                       telemetry_dir=telemetry_dir,
+                       telemetry_dir=telemetry_dir, tracer=tracer,
                        worker_index=heartbeat_index, health=health)
     return AioServer(
         ctx, host=host, port=port, sock=sock, client_rate=client_rate,

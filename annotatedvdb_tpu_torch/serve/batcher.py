@@ -16,13 +16,16 @@ Knobs (env defaults, overridable per instance): ``AVDB_SERVE_BATCH_MAX``
 the 429 admission bound); :func:`resolve_regions_knobs` and
 :func:`resolve_stats_knobs` resolve the batch caps and device minimums of
 ``POST /regions`` and ``POST /stats/region``.  Queries are grammar-checked
-at ``submit``, so a malformed id fails only its own caller.  The
+at ``submit``, so a malformed id fails only its own caller.  With a
+``tracer`` (``serve --traceOut``) each drained microbatch is one
+``serve.batch`` span.  The
 ``serve.batch`` fault point fires before each assembled microbatch runs
 (here and in the ``aio`` front end's loop batcher).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -157,11 +160,12 @@ class QueryBatcher:
     def __init__(self, engine, max_batch: int | None = None,
                  max_wait_s: float | None = None,
                  max_queue: int | None = None,
-                 registry=None, timeout_s: float = 30.0):
+                 tracer=None, registry=None, timeout_s: float = 30.0):
         self.engine = engine
         self.max_batch, self.max_wait_s, self.max_queue = \
             resolve_batch_knobs(max_batch, max_wait_s, max_queue)
         self.timeout_s = timeout_s
+        self.tracer = tracer
         #: admission-queue accounting (items per drain, idle wait, depth
         #: high-water) — same shape the pipeline boundaries report
         self.stats = StageStats("serve.batch")
@@ -320,9 +324,14 @@ class QueryBatcher:
             # a failure here must fail exactly this batch's callers and
             # leave the drain thread serving
             faults.fire("serve.batch")
-            results = self.engine.lookup_many(
-                [p.qid for p in batch], parsed=[p.parsed for p in batch],
+            span = (
+                self.tracer.span("serve.batch", n=len(batch))
+                if self.tracer is not None else contextlib.nullcontext()
             )
+            with span:
+                results = self.engine.lookup_many(
+                    [p.qid for p in batch], parsed=[p.parsed for p in batch],
+                )
         except Exception as exc:
             for pending in batch:
                 pending.error = exc

@@ -205,11 +205,14 @@ def chaos_enabled_from_env() -> bool:
 
 def debug_trace_payload(ctx) -> str:
     """The ``GET /debug/trace`` body — this process's span ring as Chrome
-    trace-event JSON, shared by both front ends.  (The reference also
-    merges a ``--traceOut`` batcher tracer's spans; that flag is refused
-    here, so the ring is the whole dump, as in the reference without
-    it.)"""
-    events = ctx.reqtrace.chrome_events(base_ns=ctx.reqtrace.t0_ns)
+    trace-event JSON, merged with the ``--traceOut`` batcher tracer's
+    drain spans on the tracer's timebase when the server runs with it;
+    shared by both front ends."""
+    tracer = ctx.tracer
+    base_ns = tracer._t0 if tracer is not None else ctx.reqtrace.t0_ns
+    events = ctx.reqtrace.chrome_events(base_ns=base_ns)
+    if tracer is not None:
+        events += tracer.events()
     events.sort(key=lambda e: e.get("ts", 0))
     return json.dumps({"traceEvents": events, "displayTimeUnit": "ms"})
 
@@ -650,16 +653,18 @@ class ServeContext:
     def __init__(self, manager, engine: QueryEngine, batcher: QueryBatcher,
                  registry: MetricsRegistry, max_inflight: int | None = None,
                  memtable=None, log=None, flight=None,
-                 telemetry_dir: str | None = None, worker_index: int = 0,
-                 health=None):
+                 telemetry_dir: str | None = None, tracer=None,
+                 worker_index: int = 0, health=None):
         self.manager = manager
         self.engine = engine
         self.batcher = batcher
         self.registry = registry
         #: the observability plane: the crash flight recorder
-        #: (``obs/flight.py``, None = disabled) and the fleet telemetry
+        #: (``obs/flight.py``, None = disabled), the ``--traceOut`` batcher
+        #: tracer (merged into ``/debug/trace``), and the fleet telemetry
         #: directory workers publish metric snapshots into
         self.flight = flight
+        self.tracer = tracer
         self.telemetry_dir = telemetry_dir
         #: the health plane (``obs/slo.HealthPlane``, None = disabled):
         #: the metrics time-series ring and the SLO burn-rate evaluator.
@@ -1565,12 +1570,15 @@ def build_server(store_dir: str | None = None, manager=None,
                  residency=None, memtable=None, log=None,
                  device=None, flight=None,
                  telemetry_dir: str | None = None,
-                 worker_index: int = 0, health=None) -> ThreadingHTTPServer:
+                 worker_index: int = 0, health=None,
+                 tracer=None) -> ThreadingHTTPServer:
     """Wire manager -> engine (on ``device``: ``cuda`` unless the caller
     asks for ``cpu``) -> batcher -> HTTP server (not yet serving; call
     ``serve_forever`` or run it on a thread).  The server carries its
     :class:`ServeContext` as ``httpd.ctx``; callers own shutdown order:
-    ``httpd.shutdown()`` then ``httpd.ctx.batcher.close()``."""
+    ``httpd.shutdown()`` then ``httpd.ctx.batcher.close()``.  ``tracer``
+    (a ``serve --traceOut`` Chrome tracer) gets one ``serve.batch`` span a
+    drain."""
     if manager is None:
         if store_dir is None:
             raise ValueError("build_server needs store_dir or manager")
@@ -1583,12 +1591,12 @@ def build_server(store_dir: str | None = None, manager=None,
     )
     batcher = QueryBatcher(
         engine, max_batch=max_batch, max_wait_s=max_wait_s,
-        max_queue=max_queue, registry=registry,
+        max_queue=max_queue, tracer=tracer, registry=registry,
     )
     httpd = ThreadingHTTPServer((host, port), ServeHandler)
     httpd.daemon_threads = True
     httpd.ctx = ServeContext(manager, engine, batcher, registry,
                              memtable=memtable, log=log, flight=flight,
-                             telemetry_dir=telemetry_dir,
+                             telemetry_dir=telemetry_dir, tracer=tracer,
                              worker_index=worker_index, health=health)
     return httpd

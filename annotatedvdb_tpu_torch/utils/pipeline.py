@@ -126,6 +126,10 @@ class BoundedStage:
         )
         self._thread.start()
 
+    def depth(self) -> int:
+        """Current unconsumed-item count (the queue-depth gauge)."""
+        return self._q.qsize()
+
     def _put(self, item) -> bool:
         """Blocking put that stays responsive to ``close()``; time spent
         blocked on a full queue lands in ``stats.producer_block_s``."""
@@ -271,6 +275,7 @@ class Resequencer:
 
     ``seq`` values must be exactly ``0, 1, ...`` with no gaps —
     the prefetcher tags every scheduled chunk, including zero-row ones.
+    ``held()`` is the current out-of-order retention (a gauge).
     """
 
     __slots__ = ("_source", "_next", "_held")
@@ -279,6 +284,9 @@ class Resequencer:
         self._source = source
         self._next = 0
         self._held: dict = {}
+
+    def held(self) -> int:
+        return len(self._held)
 
     def __iter__(self):
         return self

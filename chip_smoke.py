@@ -3064,11 +3064,174 @@ def store_bytes(store_dir):
                 m.pop("store_uid", None)
                 data = json.dumps(m, sort_keys=True).encode()
             elif rel == "ledger.jsonl":
+                # the commands' run records carry their clocks and their
+                # own paths: :func:`run_record_masked` compares them
                 recs = [json.loads(line) for line in data.splitlines() if line.strip()]
                 data = json.dumps([{k: v for k, v in r.items() if k != "ts"}
-                                   for r in recs]).encode()
+                                   for r in recs if r.get("type") != "run"]).encode()
             out[rel] = data
     return out
+
+
+#: a run record's clock fields
+RUN_CLOCKS = ("ts", "wall_seconds", "throughput_per_sec")
+
+
+def run_record_masked(rec) -> dict:
+    """A ``type: "run"`` ledger record with exactly its clocks masked:
+    ``ts``, ``wall_seconds``, ``throughput_per_sec``, every stage's
+    ``seconds`` and every queue-stall value."""
+    out = {k: v for k, v in rec.items() if k not in RUN_CLOCKS}
+    if "stages" in out:
+        out["stages"] = {name: {k: (None if k == "seconds" else v)
+                                for k, v in st.items()}
+                         for name, st in out["stages"].items()}
+    if "queue_stalls" in out:
+        out["queue_stalls"] = {b: dict.fromkeys(v)
+                               for b, v in out["queue_stalls"].items()}
+    return out
+
+
+def prom_series(path) -> dict:
+    """A ``--metricsOut`` textfile as {series with its labels: value}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                out[key] = float(value)
+    return out
+
+
+def trace_summary(path) -> dict:
+    """A ``--traceOut`` Chrome trace, checked well-formed (events sorted
+    by ``ts``, B/E pairs matched per thread track): its thread tracks,
+    events and spans by name."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    ts = [e["ts"] for e in evs]
+    assert ts == sorted(ts), f"{path}: events not sorted"
+    open_spans, spans = {}, {}
+    for e in evs:
+        stack = open_spans.setdefault((e["pid"], e["tid"]), [])
+        if e["ph"] == "B":
+            stack.append(e["name"])
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+        elif e["ph"] == "E":
+            assert stack and stack.pop() == e["name"], f"{path}: unmatched E"
+    assert not any(open_spans.values()), f"{path}: unclosed spans"
+    return {"tracks": sum(e["ph"] == "M" and e["name"] == "thread_name"
+                          for e in evs),
+            "events": len(evs), "spans": spans}
+
+
+def profile_kernels(trace_dir) -> dict:
+    """The kernel events of the one ``torch.profiler`` trace that
+    ``--profile`` wrote into ``trace_dir``, by kernel name, and its CPU
+    operators' threads."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in evs:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return {"kernels": kernels, "bytes": os.path.getsize(path),
+            "cpu_op_threads": len({e["tid"] for e in evs
+                                   if e.get("cat") == "cpu_op"})}
+
+
+#: ``load-vcf`` through the CLI's ``main`` in a fresh interpreter (argv
+#: after ``-c``): the annotate step's own first-use check runs before the
+#: counters are zeroed, as phase 3 runs it before phase 4's; the capture
+#: is timed; the kernel counters are printed at the end
+FRESH_LOAD = """
+import json, sys
+import torch
+from chip_smoke import timed_device_trace
+from annotatedvdb_tpu_torch.cli.load_vcf import main
+from annotatedvdb_tpu_torch.genome import refgenome
+from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+from annotatedvdb_tpu_torch.ops import annotate_cuda, hashing
+annotate_hash_fn(torch.device("cuda", 0))
+annotate_cuda.LAUNCHES["annotate_bin"] = 0
+with timed_device_trace([]) as prof_s:
+    rc = main(sys.argv[1:])
+print("COUNTERS " + json.dumps({
+    "rc": rc, "annotate_bin": annotate_cuda.LAUNCHES["annotate_bin"],
+    "validate_ref": refgenome.LAUNCHES["validate_ref"],
+    "plain_validate_cuda": refgenome.CALLS.get("cuda", 0),
+    "plain_hash_cuda": hashing.CALLS.get("cuda", 0), "profiler_s": prof_s[0]}))
+"""
+
+
+def fresh_load(argv, cwd) -> dict:
+    """``load-vcf argv`` on the card as a user runs it, in a fresh
+    interpreter in ``cwd`` (:data:`FRESH_LOAD`; the environment is this
+    process's): the counters it printed, with its wall.  A long-lived
+    process's ``torch.profiler`` captures lose the GPU activity of their
+    first moments (``PERF.md`` section 7), so ``--profile`` is checked
+    where a user meets it."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, *argv], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("COUNTERS ")]
+    assert proc.returncode == 0 and lines, (
+        f"load-vcf in a fresh interpreter exited {proc.returncode}: "
+        f"{proc.stderr[-2000:]}")
+    return {**json.loads(lines[-1][len("COUNTERS "):]), "wall_s": wall}
+
+
+def in_process_capture(torch, device, trace_dir) -> dict:
+    """One ``annotate_bin`` launch inside ``device_trace`` in this
+    long-lived process: the kernels its trace kept (0 when the capture
+    kept no CUDA activity at all and raised), for ``PERF.md`` section 7."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+    from annotatedvdb_tpu_torch.utils.profiling import device_trace
+
+    args = [torch.from_numpy(x).to(device) for x in random_batch(1, 4096, WIDTH)]
+    try:
+        with device_trace(trace_dir, device):
+            annotate_bin(*args)
+    except RuntimeError as err:
+        return {"launched": 1, "kept": 0, "error": str(err)}
+    kept = profile_kernels(trace_dir)["kernels"]
+    return {"launched": 1, "kept": sum(n for k, n in kept.items()
+                                       if "annotate" in k)}
+
+
+@contextlib.contextmanager
+def timed_device_trace(sink):
+    """``utils.profiling.device_trace`` timed while inside: each capture
+    (a call with a directory) appends its start seconds (the profiler's start) and stop seconds (its
+    stop, the CUDA-activity check and the trace's export) to ``sink``."""
+    from annotatedvdb_tpu_torch.utils import profiling
+
+    real = profiling.device_trace
+
+    @contextlib.contextmanager
+    def timed(trace_dir, device=None):
+        t0 = time.perf_counter()
+        with real(trace_dir, device):
+            t1 = time.perf_counter()
+            try:
+                yield
+            finally:
+                t2 = time.perf_counter()
+        if trace_dir:
+            sink.append({"start_s": t1 - t0,
+                         "stop_s": time.perf_counter() - t2})
+
+    profiling.device_trace = timed
+    try:
+        yield sink
+    finally:
+        profiling.device_trace = real
 
 
 def vcf_sites(lines) -> list:
@@ -3307,12 +3470,13 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    def load(store_dir, trace=False):
-        """The CLI load of ``vcf4`` into ``store_dir``: (wall s, loader,
-        native chunks, mapping sidecar bytes, device-busy s).  With
-        ``trace`` on the card, ``torch.profiler`` records the device's
-        activity (kernels and copies) and the busy seconds are its sum
-        (None when not traced or when it saw no device time)."""
+    def load(store_dir, trace=False, obs=()):
+        """The CLI load of ``vcf4`` into ``store_dir`` (``obs``: more
+        flags): (wall s, loader, native chunks, mapping sidecar bytes,
+        device-busy s).  With ``trace`` on the card, ``torch.profiler``
+        records the device's activity (kernels and copies) and the busy
+        seconds are its sum (None when not traced or when it saw no device
+        time)."""
         from torch.profiler import ProfilerActivity, profile
 
         traced = trace and device.type == "cuda"
@@ -3322,7 +3486,8 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                 captured_loaders(VcfLoader) as loaders, \
                 timed_calls(native_vcf, "chunk_from_native", []) as native_chunks:
             rc = load_vcf(["--fileName", vcf4, "--storeDir", store_dir,
-                           "--commit", "--logAfter", "0", "--platform", platform])
+                           "--commit", "--logAfter", "0", "--platform", platform,
+                           *obs])
             sync()
         wall = time.perf_counter() - t0
         assert rc == 0, f"load-vcf exited {rc}"
@@ -3339,11 +3504,32 @@ def load_phases(torch, platform, inp, launches, hash_calls,
     for counts in (launches, hash_calls):
         for name in counts:
             counts[name] = 0
-    wall, loader, native_chunks, mapping4, busy = load(store4, trace=True)
+    obs4 = os.path.join(WORK, "load4")
+    wall, loader, native_chunks, mapping4, busy = load(
+        store4, trace=True, obs=("--metricsOut", obs4 + ".prom",
+                                 "--traceOut", obs4 + ".trace.json"))
     launched, hashed = dict(launches), dict(hash_calls)
     stages = dict(loader.timer.seconds)
     counters = ledger_records(store4, "finish")[-1]["counters"]
     chunks = len(ledger_records(store4, "checkpoint"))
+    # the load's telemetry: its run record, textfile and host trace
+    (run4,) = ledger_records(store4, "run")
+    series4 = prom_series(obs4 + ".prom")
+    trace4 = trace_summary(obs4 + ".trace.json")
+    emit("load_obs", run_counters=run4["counters"], loader_counters=counters,
+         run_status=run4["status"], run_wall_s=run4["wall_seconds"],
+         variant_total=series4.get('avdb_load_variant_total{loader="load-vcf"}'),
+         chunks_total=series4.get('avdb_chunks_total{loader="load-vcf"}'),
+         series=len(series4), trace_tracks=trace4["tracks"],
+         trace_events=trace4["events"], trace_spans=trace4["spans"],
+         lines_per_s=counters["line"] / wall)
+    assert run4["status"] == "completed" and all(
+        run4["counters"].get(k) == v for k, v in counters.items()), (
+        f"load: run record counters {run4['counters']}, loader's {counters}")
+    assert series4.get('avdb_load_variant_total{loader="load-vcf"}') \
+        == counters["variant"], "load: the textfile's variant total"
+    assert trace4["tracks"] >= 4 and trace4["spans"].get("annotate") == chunks, (
+        f"load: trace tracks {trace4['tracks']}, spans {trace4['spans']}")
     emit("load", lines=counters["line"], variants=counters["variant"],
          duplicates=counters["duplicates"], skipped=counters["skipped"],
          malformed=counters.get("malformed"), chunks=chunks,
@@ -3435,20 +3621,51 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                         ("default", {})):
         out, cadd, schema, loads6 = {}, {}, {}, {}
         for plat in (platform, "cpu"):
-            d = os.path.join(WORK, f"store.{config}.{len(out)}.{plat}")
+            # the store is ``store`` under a directory of its own, loaded
+            # by that relative name from there: the run records of the
+            # card's and the CPU's loads name the same store
+            top = os.path.join(WORK, f"p6.{config}.{len(out)}.{plat}")
+            d = os.path.join(top, "store")
             ranks = os.path.join(WORK, f"ranks.{config}.{len(out)}.{plat}")
             os.makedirs(ranks)
             shutil.copy(DEFAULT_RANKING_FILE, os.path.join(ranks, "ranks.txt"))
             t0 = time.perf_counter()
             before = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
                       refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
-            with environment(**env):
-                rc = load_vcf(["--fileName", vcf6, "--storeDir", d, "--commit",
-                               "--logAfter", "0", "--platform", plat,
-                               "--refGenome", inp["genome"]["index"]])
-            assert rc == 0, f"phase 6 ({config}) load on {plat} exited {rc}"
-            after = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
-                     refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
+            os.makedirs(top)
+            # --profile on every CPU load and, on the card, on the default
+            # configuration's load, run in a fresh interpreter as a user
+            # runs the CLI: a capture in this long-lived process loses its
+            # first moments' GPU activity (in_process_capture shows it)
+            in_fresh = plat == "cuda" and config == "default"
+            profiled = plat == "cpu" or in_fresh
+            argv6 = ["--fileName", vcf6, "--storeDir", "store", "--commit",
+                     "--logAfter", "0", "--platform", plat,
+                     "--refGenome", inp["genome"]["index"],
+                     "--metricsOut", os.path.join(top, "load.prom"),
+                     "--traceOut", os.path.join(top, "load.json"),
+                     *(["--profile", os.path.join(top, "prof")] if profiled else [])]
+            if in_fresh:
+                with environment(**env):
+                    fresh = fresh_load(argv6, top)
+                prof_s = [fresh["profiler_s"]]
+                capture = in_process_capture(torch, device,
+                                             os.path.join(top, "in_process"))
+                after = (before[0] + fresh["annotate_bin"],
+                         before[1] + fresh["validate_ref"],
+                         before[2] + fresh["plain_validate_cuda"],
+                         before[3] + fresh["plain_hash_cuda"])
+            else:
+                cwd = os.getcwd()
+                os.chdir(top)
+                try:
+                    with environment(**env), timed_device_trace([None]) as prof_s:
+                        rc = load_vcf(argv6)
+                finally:
+                    os.chdir(cwd)
+                assert rc == 0, f"phase 6 ({config}) load on {plat} exited {rc}"
+                after = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+                         refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
             load6 = {"files": store_bytes(d), "chunks": len(ledger_records(d, "checkpoint")),
                      "inserting_chunks": inserting_chunks(d, 1),
                      "annotate_launches": after[0] - before[0],
@@ -3456,7 +3673,14 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                      "plain_cuda": {"validate_ref": after[2] - before[2],
                                     "allele_hash": after[3] - before[3]},
                      "ref_mismatch": ledger_records(d, "finish")[-1]["counters"].get(
-                         "ref_mismatch", 0)}
+                         "ref_mismatch", 0),
+                     "run": run_record_masked(ledger_records(d, "run")[-1]),
+                     "profile": profile_kernels(os.path.join(top, "prof"))
+                     if profiled else None,
+                     "profiler_s": prof_s[-1],
+                     "trace": trace_summary(os.path.join(top, "load.json")),
+                     "variant_total": prom_series(os.path.join(top, "load.prom"))
+                     ['avdb_load_variant_total{loader="load-vcf"}']}
             if plat == "cuda":
                 assert (load6["annotate_launches"], load6["validate_launches"]) == (
                     load6["chunks"], load6["inserting_chunks"]), (
@@ -3465,6 +3689,13 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                     f"for {load6['chunks']} chunks, {load6['inserting_chunks']} inserting")
                 assert not any(load6["plain_cuda"].values()), (
                     f"phase 6 ({config}): plain versions on the card: {load6['plain_cuda']}")
+            if plat == "cuda" and profiled:
+                traced = sum(n for k, n in load6["profile"]["kernels"].items()
+                             if "annotate" in k)
+                assert traced == load6["annotate_launches"], (
+                    f"phase 6 ({config}): --profile's trace holds {traced} "
+                    f"annotate_bin kernels for {load6['annotate_launches']} "
+                    f"launches ({load6['profile']['kernels']})")
             with open(vcf6 + ".mapping", "rb") as f:
                 mapping = f.read()
             with captured_loaders(VepLoader) as vep_loaders, environment(**env):
@@ -3526,6 +3757,24 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         emit("parity_updates", config=config, updates=upd_dev,
              predicted={k: v["want"] for k, v in inp["updates6"].items()})
         check_cadd_parity(cadd[0], cadd[1], config, inp["cadd6"], platform)
+        emit("parity_obs", config=config,
+             in_process_capture=capture if platform == "cuda" and
+             config == "default" else None,
+             fresh_load_s=fresh["wall_s"] if platform == "cuda" and
+             config == "default" else None,
+             runs_equal=loads6[0]["run"] == loads6[1]["run"],
+             run_counters=loads6[0]["run"]["counters"],
+             profiles=[ld["profile"] for ld in loads6.values()],
+             annotate_launches=loads6[0]["annotate_launches"],
+             profiler_s=[ld["profiler_s"] for ld in loads6.values()],
+             trace_tracks=[ld["trace"]["tracks"] for ld in loads6.values()],
+             variant_totals=[ld["variant_total"] for ld in loads6.values()])
+        assert loads6[0]["run"] == loads6[1]["run"], (
+            f"phase 6 ({config}): the card's and the CPU's run records "
+            f"differ: {loads6[0]['run']} / {loads6[1]['run']}")
+        for ld in loads6.values():
+            for k in ("run", "profile", "profiler_s", "trace", "variant_total"):
+                ld.pop(k)
         check_refgenome_parity(loads6, schema, config, platform)
         for name, rec in upd_dev.items():
             assert not rec["differ"], (
@@ -3549,7 +3798,8 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
     chaos = chaos_load_check(platform, vcf6, launches)
     return {"launches": launched, "chaos": chaos, "plain_hash_calls": hashed, "chunks": chunks,
-            "store": store4, "store6": os.path.join(WORK, f"store.default.0.{platform}"),
+            "store": store4,
+            "store6": os.path.join(WORK, f"p6.default.0.{platform}", "store"),
             "vep": inp["vep7"], "want": inp["want7"],
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"],
             "vep7b": inp["vep7b"], "want7b": inp["want7b"],
@@ -4028,8 +4278,10 @@ def decoded_differences(dir_a, dir_b) -> list:
             if ma == mb:
                 continue
         elif name == "ledger.jsonl":
+            # the run records are compared on their own (store_bytes)
             ra, rb = ([{k: v for k, v in json.loads(ln).items() if k != "ts"}
-                       for ln in open(p) if ln.strip()] for p in (pa, pb))
+                       for ln in open(p) if ln.strip()
+                       and json.loads(ln).get("type") != "run"] for p in (pa, pb))
             if ra == rb:
                 continue
         differ.append(name)
@@ -5018,6 +5270,26 @@ def serve_phase(torch, platform, store_dir, vcf4, kernel_ms, mix=SERVE_MIX) -> d
     chaos["bodies"] = sum(len(v) for v in got.values())
     chaos["differ"] = sum(d != answers[jid][0] for jid, v in got.items() for d in v)
     assert chaos["differ"] == 0, f"chaos: {chaos['differ']} bodies differ"
+    # the aio turn's --metricsOut / --traceOut: the textfile's requests by
+    # kind are the client's (traffic and chaos window), its batches the
+    # trace's serve.batch spans, of which the chaos window's dump held some
+    exports = runs["aio"]["exports"]
+    sent = {}
+    for got_ in runs["aio"]["results"].values():
+        for kind, _dt, _d in got_:
+            sent[kind] = sent.get(kind, 0) + 1
+    for kind, *_t in chaos["timeline"]:
+        sent[kind] = sent.get(kind, 0) + 1
+    batch_spans = exports["trace"]["spans"].get("serve.batch", 0)
+    emit("serve_exports", frontend="aio", textfile_requests=exports["requests"],
+         client_requests=sent, batches=exports["batches"],
+         trace_batch_spans=batch_spans, trace_events=exports["trace"]["events"],
+         chaos_dump_batch_spans=chaos["trace_batch_spans"],
+         bodies_differ=chaos["differ"])
+    assert exports["requests"] == sent, (
+        f"serve exports: textfile requests {exports['requests']}, sent {sent}")
+    assert exports["batches"] == batch_spans > 0, (exports["batches"], batch_spans)
+    assert 0 < chaos["trace_batch_spans"] <= batch_spans, chaos["trace_batch_spans"]
     emit("health_tick", frontend="aio", **tick)
     assert tick["errors"] == 0, tick
     out = {}
@@ -5041,8 +5313,13 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm,
     if frontend == "aio":  # the chaos window's routes; nothing until armed
         env["AVDB_SERVE_CHAOS"] = "1"
     workers = SERVE_FLEET_WORKERS if frontend == "fleet" else 1
+    # the aio turn writes its metrics and its batch trace at shutdown
+    obs = os.path.join(WORK, f"serve.{frontend}") if frontend == "aio" else None
+    extra = () if obs is None else ("--metricsOut", obs + ".prom",
+                                    "--traceOut", obs + ".trace.json")
     with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
-        proc = subprocess.Popen(serve_command(store_dir, platform, frontend),
+        proc = subprocess.Popen(serve_command(store_dir, platform, frontend,
+                                              extra=extra),
                                 cwd=ROOT, env=env, stdout=out_f, stderr=err_f)
     gpu_mib = chaos = None
     try:
@@ -5083,10 +5360,18 @@ def _serve_traffic(platform, store_dir, mix, frontend, jobs, warm,
         err = f.read()
     assert rc == 0, f"serve ({frontend}) exited {rc}: {err[-2000:]}"
     summary = merge_summaries(err, workers)
+    exports = None
+    if obs is not None:
+        series = prom_series(obs + ".prom")
+        exports = {"requests": {
+            k.split('"')[1]: int(v) for k, v in series.items()
+            if k.startswith("avdb_query_requests_total{") and v},
+            "batches": series.get("avdb_serve_batches_total"),
+            "trace": trace_summary(obs + ".trace.json")}
     return {"banner": banner, "ready_s": ready_s, "traffic_s": traffic_s,
             "results": results, "summary": summary, "workers": workers,
             "gpu_memory_used_mib": gpu_mib, "fleet_views": views,
-            "chaos": chaos,
+            "chaos": chaos, "exports": exports,
             "history": history_docs(store_dir, workers),
             "run_s": time.perf_counter() - t_start}
 
@@ -6655,6 +6940,8 @@ def chaos_serve_check(port, chaos, launches, store_dir) -> dict:
             "timeline": timeline,
             "digests": digests, "trace_events": len(events),
             "trace_spans": sum(e["ph"] == "X" for e in events),
+            "trace_batch_spans": sum(e["ph"] == "B" and e["name"] == "serve.batch"
+                                     for e in events),
             "breaker": closed_state,
             "counts": {"before": before, "at_close": at_close, "after": after},
             "launches": {k: after[k] - at_close[k] for k in after}}

@@ -718,14 +718,40 @@ def test_updater_defaults_to_cuda_and_never_falls_back(cadd_inputs):
                                    ["--traceOut", "t.json"],
                                    ["--profile", "p"], ["--maxWorkers", "4"]],
                          ids=lambda f: f[0])
-def test_cli_refuses_unported_flags(tmp_path, flags):
-    from annotatedvdb_tpu_torch.cli.load_cadd import main as torch_main
+def test_cli_refuses_unported_flags(cadd_inputs, tmp_path, capsys, flags):
+    """``--metricsOut`` and ``--traceOut`` are ported: each writes its file
+    and the store gets the run record.  ``--profile``, which the
+    reference's ``load-cadd`` does not define, fails with the reference's
+    argparse error; a multi-device ``--maxWorkers`` is refused."""
+    from annotatedvdb_tpu.cli.load_cadd import main as ref_main
 
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--databaseDir", str(tmp_path), "--storeDir",
-                    str(tmp_path / "vdb"), "--platform", "cpu", *flags])
-    assert exc.value.code == 2
-    assert not (tmp_path / "vdb").exists()
+    from annotatedvdb_tpu_torch.cli.load_cadd import main as torch_main
+    from test_torch_obs import check_obs_outputs
+
+    if flags[0] in ("--profile", "--maxWorkers"):
+        errs = []
+        for main, extra in ((torch_main, ["--platform", "cpu"]),
+                            (ref_main, [])):
+            with pytest.raises(SystemExit) as exc:
+                main(["--databaseDir", str(tmp_path), "--storeDir",
+                      str(tmp_path / "vdb"), *extra, *flags])
+            assert exc.value.code == 2
+            errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+            if flags[0] == "--maxWorkers":
+                break
+        if flags[0] == "--profile":
+            assert errs[0] == errs[1]
+            assert errs[0].endswith("unrecognized arguments: --profile p")
+        assert not (tmp_path / "vdb").exists()
+        return
+    store = str(tmp_path / "vdb")
+    shutil.copytree(cadd_inputs["base"], store)
+    out = str(tmp_path / flags[1])
+    assert torch_main(["--databaseDir", cadd_inputs["dbs"]["a"], "--storeDir",
+                       store, "--platform", "cpu", "--commit", flags[0],
+                       out]) == 0
+    run = check_obs_outputs(flags[0], out, "load-cadd", store)
+    assert run["script"] == "load-cadd" and run["counters"]["update"] > 0
 
 
 def test_quarantine_sink_matches_reference_names(tmp_path):

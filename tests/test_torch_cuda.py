@@ -49,8 +49,9 @@ stack; ``pack_batches`` on the card equals the numpy twin with one launch
 a part, and ``export`` and ``/export/stream`` on the card write and answer
 the ``--hostOnly`` bytes with one launch a part or call.  ``bits_spans``
 is also held against its plain version on its own search edges.
-``chip_smoke.py`` runs the same comparisons at the loads' and the
-server's real sizes."""
+``device_trace`` (``load-vcf --profile``) on the card records a kernel
+launched from another thread.  ``chip_smoke.py`` runs the same comparisons
+at the loads' and the server's real sizes."""
 
 import json
 import os
@@ -168,6 +169,38 @@ def test_wrapper_refuses_bad_inputs(cuda):
         annotate_bin(pos, wide, wide, rl, al)
     empty = annotate_bin(pos[:0], ref[:0], alt[:0], rl[:0], al[:0])
     assert all(v.numel() == 0 for v in empty.values())
+
+
+def test_device_trace_records_the_kernel(cuda, tmp_path):
+    """``load-vcf --profile``'s capture (``utils.profiling.device_trace``)
+    on the card around one ``annotate_bin`` launch made on a thread of its
+    own, as the load's dispatch thread makes it: the trace written holds
+    that kernel once, and the CPU operators of both threads."""
+    import glob
+    import threading
+
+    from annotatedvdb_tpu_torch.utils.profiling import device_trace
+
+    args = [torch.from_numpy(x).to(cuda) for x in random_batch(1, 4096, 49)]
+    annotate_bin(*args)  # built and loaded before the capture
+    torch.cuda.synchronize()
+    before = LAUNCHES["annotate_bin"]
+    with device_trace(str(tmp_path / "prof"), cuda):
+        t = threading.Thread(target=annotate_bin, args=args,
+                             name="avdb-vcf-dispatch")
+        t.start()
+        t.join()
+        torch.zeros(4, device=cuda)
+    assert LAUNCHES["annotate_bin"] == before + 1
+    (path,) = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and "annotate" in e["name"]]
+    assert len(kernels) == 1, [e["name"] for e in evs
+                               if e.get("cat") == "kernel"]
+    ops = [e for e in evs if e.get("cat") == "cpu_op"]
+    assert len({e["tid"] for e in ops}) >= 2
 
 
 def test_dispatch_takes_the_hash_from_the_kernel(cuda):

@@ -417,10 +417,17 @@ def test_unported_verbs_refuse(store, capsys, verb):
         assert want[0] == 0 and json.loads(want[1])["status"] in (
             "compacted", "noop", "promoted")
         return
-    # ported with the health plane: on a store no server ran on (and no
-    # run, compact or flush record in its ledger) each verb finds nothing
-    # to show and exits 2, as the reference's does
+    # ported with the health plane: on a store no server ran on, flight
+    # and slo find nothing to show and exit 2, as the reference's do;
+    # trace shows the run records the store's four CLI loads appended
+    # (two load-vcf, load-vep, load-cadd), as the reference's does
     rc, out, err = _pair(store, [verb, "--storeDir", store], capsys)
+    if verb == "trace":
+        runs = [e for e in json.loads(out)["traceEvents"]
+                if e["name"] == "ledger.run"]
+        assert rc == 0 and [e["args"] for e in runs] == [
+            {"status": "completed"}] * 4
+        return
     assert rc == 2 and out == "" and f"doctor {verb}: {store}: no" in err
 
 

@@ -540,12 +540,38 @@ def test_cli_refuses_a_bad_region(store_dir, tmp_path, region):
 @pytest.mark.parametrize("flags,pattern", [
     (["--profile", "p"], "--profile"), (["--metricsOut", "m"], "--metricsOut"),
     (["--traceOut", "t"], "--traceOut"),
-], ids=["profile", "metricsOut", "traceOut"])
+    (["--maxWorkers", "4"], "multi-device exports are not yet ported"),
+], ids=["profile", "metricsOut", "traceOut", "maxWorkers"])
 def test_cli_refuses_unported_flags(store_dir, tmp_path, capsys, flags, pattern):
-    with pytest.raises(SystemExit) as exc:
-        port_main(_cli(store_dir, str(tmp_path / "o"), *flags))
-    assert exc.value.code == 2
-    assert pattern in capsys.readouterr().err
+    """``--metricsOut`` and ``--traceOut`` are ported: each writes its file
+    and the store gets the run record.  ``--profile``, which the
+    reference's ``export`` does not define, fails with the reference's
+    argparse error; a multi-device ``--maxWorkers`` is refused."""
+    from test_torch_obs import check_obs_outputs
+
+    if flags[0] == "--maxWorkers":
+        with pytest.raises(SystemExit) as exc:
+            port_main(_cli(store_dir, str(tmp_path / "o"), *flags))
+        assert exc.value.code == 2 and pattern in capsys.readouterr().err
+        assert not os.path.exists(str(tmp_path / "o"))
+        return
+    if flags[0] == "--profile":
+        errs = []
+        for main in (port_main, ref_main):
+            with pytest.raises(SystemExit) as exc:
+                main(_cli(store_dir, str(tmp_path / "o"), "--platform",
+                          "cpu", *flags))
+            assert exc.value.code == 2
+            errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+        assert errs[0] == errs[1] and pattern in errs[0]
+        assert errs[0].endswith("unrecognized arguments: --profile p")
+        assert not os.path.exists(str(tmp_path / "o"))
+        return
+    out = str(tmp_path / flags[1])
+    assert port_main(_cli(store_dir, str(tmp_path / "o"), "--commit",
+                          "--platform", "cpu", flags[0], out)) == 0
+    run = check_obs_outputs(flags[0], out, "export", store_dir)
+    assert run["script"] == "export" and run["counters"]["rows"] > 0
 
 
 def test_cli_defaults_to_cuda(store_dir, tmp_path):

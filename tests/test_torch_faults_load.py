@@ -177,6 +177,9 @@ def _cli(pkg, vcf, store):
     "store.save.pre_manifest:2:kill",
     "ledger.append:4:torn_write",
     "ingest.prefetch:3:kill",
+    # the run record's own append (invocation, six checkpoints, finish,
+    # then the run record): the load is whole, its record is lost
+    "ledger.append:9:kill",
 ])
 def test_sigkill_matrix_matches_the_reference(tmp_path, uninterrupted, fault):
     """True process death through both CLIs: each dies by SIGKILL, leaves

@@ -167,18 +167,19 @@ def test_engine_device_probe_eio_trips_and_recloses_the_breaker_alike(
 
 
 class _Server:
-    """One front end of ``pkg`` over ``store_dir``, serving on a thread."""
+    """One front end of ``pkg`` over ``store_dir``, serving on a thread
+    (``kw``: more builder keywords, such as a ``--traceOut`` tracer)."""
 
-    def __init__(self, pkg, store_dir, frontend):
+    def __init__(self, pkg, store_dir, frontend, **kw):
         store = pkg.mod("store").VariantStore.load(store_dir, readonly=True)
         manager = pkg.mod("serve.snapshot").StaticSnapshots(store)
         if frontend == "aio":
             self.srv = pkg.mod("serve.aio").build_aio_server(
-                manager=manager, port=0, **pkg.kw)
+                manager=manager, port=0, **pkg.kw, **kw)
             self.srv.start_background()
         else:
             self.srv = pkg.mod("serve.http").build_server(
-                manager=manager, port=0, **pkg.kw)
+                manager=manager, port=0, **pkg.kw, **kw)
             threading.Thread(target=self.srv.serve_forever,
                              daemon=True).start()
         self.frontend = frontend
@@ -370,6 +371,44 @@ def test_debug_trace_matches_the_reference(tiny_dir, monkeypatch, frontend):
     assert want[0] == [200, 404, 200, 200, 200, 200] and want[1] == 200
     ids = {e[4]["trace_id"] for e in want[2] if e[2] == "request"}
     assert ids == {f"req-{k}" for k in range(len(seq))}
+
+
+@pytest.mark.parametrize("frontend", ["aio", "threaded"])
+def test_debug_trace_merges_the_batch_tracer_like_the_reference(
+        tiny_dir, monkeypatch, frontend):
+    """``serve --traceOut``'s tracer handed to the server: one
+    ``serve.batch`` span a drained point batch, as many as the batcher
+    counts, merged into ``/debug/trace`` on the tracer's timebase; the
+    dump holds the reference's events, times masked (where a batch span
+    falls among a request's stage spans is the clocks' doing, so the two
+    dumps are compared as multisets, and each source's events in order)."""
+    monkeypatch.setenv("AVDB_SERVE_CHAOS", "1")
+    got = {}
+    for pkg in PKGS:
+        tracer = pkg.mod("obs.trace").Tracer(process_name="avdb-serve")
+        srv = _Server(pkg, tiny_dir, frontend, tracer=tracer)
+        try:
+            answers = [srv.request("GET", f"/variant/3:{p}:A:C",
+                                   headers={"X-Request-Id": f"req-{k}"})[0]
+                       for k, p in enumerate((10, 11, 10, 20))]
+            status, dump = srv.request("GET", "/debug/trace")
+            batches = srv.ctx.batcher.drain_stats()["batches"]
+            assert srv.ctx.tracer is tracer
+        finally:
+            srv.close()
+        spans = [e for e in tracer.events() if e["name"] == "serve.batch"]
+        assert len([e for e in spans if e["ph"] == "B"]) == batches == 4
+        shape = _trace_shape(dump)
+        got[pkg] = (answers, status, sorted(map(repr, shape)),
+                    [e for e in shape if e[2] is not None],
+                    [e for e in shape if e[1] == "serve.batch"])
+    want = same(got)
+    assert want[0] == [200, 404, 200, 200] and want[1] == 200
+    merged = want[4]
+    assert [e[0] for e in merged] == ["B", "E"] * 4
+    assert [e[4] for e in merged if e[0] == "B"] == [{"n": 1}] * 4
+    assert repr(("M", "process_name", None, 0,
+                 {"name": "avdb-serve"})) in want[2]
 
 
 # ---------------------------------------------------------------------------

@@ -286,13 +286,34 @@ def test_cli_writes_reference_store(tmp_path, monkeypatch):
     ["--traceOut", "t.json"], ["--maxWorkers", "4"],
 ], ids=lambda f: f[0])
 def test_cli_refuses_unported_flags(tmp_path, flags):
+    """The telemetry flags are ported and write their files (the store
+    gets its run record); a multi-device ``--maxWorkers`` is still
+    refused before anything is written."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as torch_main
+    from test_torch_obs import check_obs_outputs
 
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--fileName", str(tmp_path / "x.vcf"), "--storeDir",
-                    str(tmp_path / "vdb"), "--platform", "cpu", *flags])
-    assert exc.value.code == 2
-    assert not (tmp_path / "vdb").exists()
+    vcf = str(tmp_path / "x.vcf")
+    store = str(tmp_path / "vdb")
+    if flags[0] == "--maxWorkers":
+        with pytest.raises(SystemExit) as exc:
+            torch_main(["--fileName", vcf, "--storeDir", store,
+                        "--platform", "cpu", *flags])
+        assert exc.value.code == 2
+        assert not (tmp_path / "vdb").exists()
+        return
+    flag, out = flags[0], str(tmp_path / flags[1])
+    _write_vcf(vcf, n_lines=700)
+    assert torch_main(["--fileName", vcf, "--storeDir", store, "--platform",
+                       "cpu", "--commit", "--commitAfter", str(BATCH),
+                       flag, out]) == 0
+    run = check_obs_outputs(flag, out, "load-vcf", store)
+    assert run["script"] == "load-vcf" and run["counters"]["variant"] > 700
+    if flag == "--profile":
+        # the dispatch thread's operators are recorded beside the caller's
+        path = next((tmp_path / "prof").glob("*.pt.trace.json"))
+        ops = [e for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "cpu_op"]
+        assert len({e["tid"] for e in ops}) >= 2
 
 
 def test_cli_defaults_to_cuda_and_never_falls_back(tmp_path):

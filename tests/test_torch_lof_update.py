@@ -216,14 +216,20 @@ def test_lof_cli(inputs, tmp_path, monkeypatch, capsys, engine):
 @pytest.mark.parametrize("flags", [["--metricsOut", "m.prom"],
                                    ["--traceOut", "t.json"]],
                          ids=lambda f: f[0])
-def test_lof_cli_refuses_unported_flags(tmp_path, flags):
+def test_lof_cli_refuses_unported_flags(inputs, tmp_path, flags):
+    """``--metricsOut`` and ``--traceOut`` are ported: each writes its file
+    and the store gets the run record."""
     from annotatedvdb_tpu_torch.cli.load_snpeff_lof import main as torch_main
+    from test_torch_obs import check_obs_outputs
 
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--fileName", str(tmp_path / "x.vcf"), "--storeDir",
-                    str(tmp_path / "vdb"), "--platform", "cpu", *flags])
-    assert exc.value.code == 2
-    assert not (tmp_path / "vdb").exists()
+    store = str(tmp_path / "vdb")
+    shutil.copytree(inputs["base"], store)
+    out = str(tmp_path / flags[1])
+    assert torch_main(["--fileName", inputs["lof"], "--storeDir", store,
+                       "--platform", "cpu", "--commit", flags[0],
+                       out]) == 0
+    run = check_obs_outputs(flags[0], out, "load-snpeff-lof", store)
+    assert run["script"] == "load-snpeff-lof" and run["counters"]["update"] > 0
 
 
 def test_lof_cli_defaults_to_cuda_and_never_falls_back(inputs, tmp_path):

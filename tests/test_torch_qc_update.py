@@ -408,15 +408,20 @@ def test_qc_cli(inputs, tmp_path, monkeypatch, capsys, engine):
 @pytest.mark.parametrize("flags", [["--metricsOut", "m.prom"],
                                    ["--traceOut", "t.json"]],
                          ids=lambda f: f[0])
-def test_qc_cli_refuses_unported_flags(tmp_path, flags):
+def test_qc_cli_refuses_unported_flags(inputs, tmp_path, flags):
+    """``--metricsOut`` and ``--traceOut`` are ported: each writes its file
+    and the store gets the run record."""
     from annotatedvdb_tpu_torch.cli.update_qc import main as torch_main
+    from test_torch_obs import check_obs_outputs
 
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--fileName", str(tmp_path / "x.vcf"), "--storeDir",
-                    str(tmp_path / "vdb"), "--version", "r4", "--platform",
-                    "cpu", *flags])
-    assert exc.value.code == 2
-    assert not (tmp_path / "vdb").exists()
+    store = str(tmp_path / "vdb")
+    shutil.copytree(inputs["base"], store)
+    out = str(tmp_path / flags[1])
+    assert torch_main(["--fileName", inputs["qc"], "--storeDir", store,
+                       *["--version", "r4"], "--platform", "cpu", "--commit", flags[0],
+                       out]) == 0
+    run = check_obs_outputs(flags[0], out, "update-qc", store)
+    assert run["script"] == "update-qc" and run["counters"]["update"] > 0
 
 
 def test_qc_cli_defaults_to_cuda_and_never_falls_back(inputs, tmp_path):

@@ -586,6 +586,49 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
         assert counts[key] == summary[key], key
 
 
+@pytest.mark.parametrize("frontend", ["threaded", "aio"])
+def test_cli_writes_metrics_and_trace_at_shutdown(served, tmp_path, frontend):
+    """``--metricsOut`` and ``--traceOut`` on one serving process: at
+    shutdown the textfile, its JSON snapshot and the Chrome trace land;
+    the trace's ``serve.batch`` spans are the batcher's drains, which the
+    textfile counts."""
+    from test_torch_obs import check_trace_events
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    prom, trace = str(tmp_path / "serve.prom"), str(tmp_path / "serve.json")
+    proc = _start([sys.executable, "-m", "annotatedvdb_tpu_torch", "serve",
+                   "--storeDir", served["store"], "--port", "0",
+                   "--frontend", frontend, "--platform", "cpu",
+                   "--metricsOut", prom, "--traceOut", trace], env)
+    try:
+        port_no = int(_banner(proc).rsplit(":", 1)[1])
+        ids = served["ids"][:6]
+        for vid in ids:  # one at a time: a drain each
+            assert _fetch(port_no, "GET", f"/variant/{vid}")[0] == 200
+        assert not os.path.exists(prom) and not os.path.exists(trace)
+    finally:
+        proc.send_signal(signal.SIGINT)
+    assert proc.wait(timeout=60) == 0, proc.stderr.read()[-2000:]
+    with open(prom) as f:
+        text = f.read()
+    assert "avdb_serve_batches_total 6\n" in text
+    with open(prom + ".json") as f:
+        assert json.load(f)["avdb_serve_batches_total"][0]["value"] == 6
+    with open(trace) as f:
+        evs = json.load(f)["traceEvents"]
+    check_trace_events(evs)
+    spans = [e for e in evs if e["ph"] == "B"]
+    assert [e["name"] for e in spans] == ["serve.batch"] * len(ids)
+    assert all(e["args"] == {"n": 1} for e in spans)
+    assert evs[0]["args"] == {"name": "avdb-serve"}
+
+
+#: the reference's words for per-process exports asked of a fleet
+FLEET_EXPORTS = ("serve: --metricsOut/--traceOut are per-process exports "
+                 "and are not collected in fleet mode; scrape GET /metrics "
+                 "instead")
+
+
 @pytest.mark.parametrize("flags,pattern", [
     # the fleet needs the aio front end (the reference's refusal)
     (["--frontend", "threaded", "--workers", "2"],
@@ -596,23 +639,40 @@ def test_cli_serves_the_aio_front_end(servers, served, flags):
      "--follow and --upserts are mutually exclusive"),
     (["--frontend", "threaded", "--maintain"],
      "--maintain requires the aio front end"),
-    (["--frontend", "threaded", "--metricsOut", "m.prom"], "--metricsOut"),
+    # --metricsOut and --traceOut are ported: a fleet says, in the
+    # reference's words, that it does not collect them (its start is made
+    # to fail at once here by a bad disk-reserve knob)
+    (["--workers", "2", "--metricsOut", "m.prom"], FLEET_EXPORTS),
     (["--workers", "2", "--follow", "http://x", "--upserts"],
      "--follow and --upserts are mutually exclusive"),
     (["--maintain", "--follow", "http://x"],
      "--follow and --maintain are mutually exclusive"),
-    (["--traceOut", "t.json"], "--traceOut"),
+    (["--maintain", "--traceOut", "t.json"], FLEET_EXPORTS),
 ], ids=["workers", "upserts", "follow", "metricsOut", "aio-workers",
         "aio-maintain", "aio-traceOut"])
-def test_cli_refuses_unported_modes(served, capsys, flags, pattern):
+def test_cli_refuses_unported_modes(served, capsys, monkeypatch, flags,
+                                    pattern):
+    from annotatedvdb_tpu.cli.serve import main as ref_main
+
     from annotatedvdb_tpu_torch.cli.serve import main
 
-    try:
-        rc = main(["--storeDir", served["store"], "--port", "0", *flags])
-    except SystemExit as exc:
-        rc = exc.code
-    assert rc == 2
-    assert pattern in capsys.readouterr().err
+    argv = ["--storeDir", served["store"], "--port", "0", *flags]
+    if pattern != FLEET_EXPORTS:
+        try:
+            rc = main(argv)
+        except SystemExit as exc:
+            rc = exc.code
+        assert rc == 2
+        assert pattern in capsys.readouterr().err
+        return
+    monkeypatch.setenv("AVDB_STORE_DISK_RESERVE_BYTES", "lots")
+    errs = []
+    for fn in (main, ref_main):
+        assert fn(argv) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1]
+    assert errs[0].startswith(FLEET_EXPORTS + "\nserve: cannot start fleet: "
+                              "AVDB_STORE_DISK_RESERVE_BYTES")
 
 
 def test_cli_defaults_to_cuda_and_never_falls_back(served, capsys):

@@ -588,14 +588,27 @@ def test_cli_writes_reference_store(runs, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags", [
     ["--metricsOut", "m.prom"], ["--traceOut", "t.json"], ["--maxWorkers", "4"],
 ], ids=lambda f: f[0])
-def test_cli_refuses_unported_flags(tmp_path, flags):
+def test_cli_refuses_unported_flags(inputs, tmp_path, flags):
+    """``--metricsOut`` and ``--traceOut`` are ported and write their
+    files (the store gets its run record); a multi-device
+    ``--maxWorkers`` is still refused before anything is read."""
     from annotatedvdb_tpu_torch.cli.load_vep import main as torch_main
+    from test_torch_obs import check_obs_outputs
 
-    with pytest.raises(SystemExit) as exc:
-        torch_main(["--fileName", str(tmp_path / "x.json"), "--storeDir",
-                    str(tmp_path / "vdb"), "--platform", "cpu", *flags])
-    assert exc.value.code == 2
-    assert not (tmp_path / "vdb").exists()
+    if flags[0] == "--maxWorkers":
+        with pytest.raises(SystemExit) as exc:
+            torch_main(["--fileName", str(tmp_path / "x.json"), "--storeDir",
+                        str(tmp_path / "vdb"), "--platform", "cpu", *flags])
+        assert exc.value.code == 2
+        assert not (tmp_path / "vdb").exists()
+        return
+    store = str(tmp_path / "vdb")
+    shutil.copytree(inputs["base"][1], store)
+    out = str(tmp_path / flags[1])
+    assert torch_main(["--fileName", inputs["vep"], "--storeDir", store,
+                       "--platform", "cpu", "--commit", flags[0], out]) == 0
+    run = check_obs_outputs(flags[0], out, "load-vep", store)
+    assert run["script"] == "load-vep" and run["counters"]["update"] > 0
 
 
 def test_cli_defaults_to_cuda_and_never_falls_back(inputs, tmp_path):
