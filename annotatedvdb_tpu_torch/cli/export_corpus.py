@@ -16,8 +16,9 @@ its last ledger-committed part, whichever package wrote the records.  The
 summary JSON (sorted keys) is the last line of stdout.  As in the
 reference, the export runs in an ``ObsSession``: one ``type: "run"``
 ledger record on completion or abort, ``--metricsOut`` and ``--traceOut``.
-``--logAfter``, ``--maxErrors`` and ``--noMultihost`` are accepted and
-unused, as in the reference; a ``--maxWorkers`` count above 1 is refused.
+``--logAfter``, ``--maxErrors``, ``--maxWorkers`` (validated: auto, off
+or a count) and ``--noMultihost`` are accepted and unused, as in the
+reference: the export resolves no mesh.
 
 Usage:
     python -m annotatedvdb_tpu_torch export --storeDir ./vdb --out ./corpus \\
@@ -78,10 +79,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="device: cuda (default; an error when no card is "
                          "present) or cpu")
     ap.add_argument("--maxWorkers", default="auto",
-                    help="devices to fan out across: auto/off (the port "
-                         "runs on one device)")
+                    help="devices to fan out across: auto/off/count")
     ap.add_argument("--noMultihost", action="store_true",
-                    help="accepted for compatibility; the port is single-host")
+                    help="ignore multi-host environment settings")
     add_obs_args(ap)
     return ap
 
@@ -91,9 +91,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.chromosome and args.region:
         ap.error("--chromosome and --region are mutually exclusive")
-    if args.maxWorkers not in ("auto", "off", "1"):
-        ap.error("--maxWorkers: multi-device exports are not yet ported to "
-                 "annotatedvdb_tpu_torch")
+    from annotatedvdb_tpu_torch.runtime import validate_max_workers
+
+    try:
+        validate_max_workers(args.maxWorkers)
+    except ValueError as err:
+        ap.error(str(err))
 
     from annotatedvdb_tpu_torch.export.core import run_export
     from annotatedvdb_tpu_torch.obs import ObsSession

@@ -11,8 +11,9 @@ The default is a dry run; ``--commit`` mutates the store.  The counters
 (JSON) and then the algorithm-invocation id are printed on exit, so a
 wrapper can undo.  As in the reference, the update runs in an
 ``ObsSession``: one ``type: "run"`` ledger record on completion or abort,
-``--metricsOut`` and ``--traceOut``.  A ``--maxWorkers`` count above 1 is
-refused.
+``--metricsOut`` and ``--traceOut``.  ``--maxWorkers`` (auto, off or a
+count) resolves the table rows across this process's device pool (see
+``load-vcf``); the store's bytes do not depend on it.
 
 Usage:
     python -m annotatedvdb_tpu_torch load-cadd --databaseDir /cadd \\
@@ -108,10 +109,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="device: cuda (default; an error when no card is "
                          "present) or cpu")
     ap.add_argument("--maxWorkers", default="auto",
-                    help="devices to fan out across: auto/off (the port "
-                         "runs on one device)")
+                    help="devices to fan out across: auto/off/count")
     ap.add_argument("--noMultihost", action="store_true",
-                    help="accepted for compatibility; the port is single-host")
+                    help="ignore multi-host environment settings")
     add_obs_args(ap)
     return ap
 
@@ -124,7 +124,11 @@ def main(argv=None) -> int:
     )
     from annotatedvdb_tpu_torch.loaders.cadd_loader import CaddUpdater
     from annotatedvdb_tpu_torch.obs import ObsSession
-    from annotatedvdb_tpu_torch.runtime import resolve_device
+    from annotatedvdb_tpu_torch.runtime import (
+        apply_runtime,
+        resolve_device,
+        validate_max_workers,
+    )
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.logging import load_logger
     from annotatedvdb_tpu_torch.utils.quarantine import (
@@ -134,9 +138,10 @@ def main(argv=None) -> int:
 
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.maxWorkers not in ("auto", "off", "1"):
-        ap.error("--maxWorkers: multi-device joins are not yet ported to "
-                 "annotatedvdb_tpu_torch")
+    try:
+        validate_max_workers(args.maxWorkers)
+    except ValueError as err:
+        ap.error(str(err))
 
     if args.buildIndex:
         # host only: no device is resolved for an index build
@@ -149,6 +154,10 @@ def main(argv=None) -> int:
                 print(f"{path}: absent, skipped")
         return 0
 
+    # after the host-only --buildIndex branch, which must not block on a
+    # world's rendezvous
+    mesh = apply_runtime(args.platform, args.maxWorkers,
+                         multihost=not args.noMultihost)
     device = resolve_device(args.platform)
     log, _logger, _log_path = load_logger(
         args.fileName or os.path.join(args.storeDir, "store"), "load-cadd",
@@ -168,6 +177,7 @@ def main(argv=None) -> int:
         # table rows scanned, not input lines: CADD's cadence unit
         log_after=(1 << 22) if args.logAfter is None else (args.logAfter or None),
         quarantine=quarantine, max_errors=args.maxErrors, device=device,
+        mesh=mesh,
     )
     obs = ObsSession.from_args("load-cadd", args, {
         "database": args.databaseDir, "store": args.storeDir,

@@ -16,8 +16,12 @@ lands in the store's ``ledger.jsonl`` whether the load completes or
 aborts; ``--metricsOut FILE`` writes a Prometheus textfile and
 ``FILE.json``, ``--traceOut FILE`` a Chrome trace of the host pipeline's
 stage spans, and ``--profile DIR`` a ``torch.profiler`` trace of the load
-(CPU activity, and CUDA activity on the card).  A ``--maxWorkers`` count
-above 1 raises "not yet ported".
+(CPU activity, and CUDA activity on the card).  ``--maxWorkers`` (auto,
+off or a count) fans the annotate step out over this process's device
+pool (``parallel.mesh.device_pool``: the cards, or
+``AVDBC_VIRTUAL_DEVICES`` shards of one), bounded by ``AVDB_MESH_SHAPE``;
+the multi-host variables join a ``torch.distributed`` world unless
+``--noMultihost``.  The store's bytes do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -66,11 +70,9 @@ def _parser() -> argparse.ArgumentParser:
                         help="device: cuda (default; an error when no card "
                              "is present) or cpu")
     parser.add_argument("--maxWorkers", default="auto",
-                        help="devices to fan out across: auto/off (the port "
-                             "runs on one device)")
+                        help="devices to fan out across: auto/off/count")
     parser.add_argument("--noMultihost", action="store_true",
-                        help="accepted for compatibility; the port is "
-                             "single-host")
+                        help="ignore multi-host environment settings")
     parser.add_argument("--chromosomeMap", default=None,
                         help="TSV mapping seq accessions to chromosomes")
     parser.add_argument("--refGenome", default=None,
@@ -88,10 +90,20 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(parser, args) -> None:
-    if args.maxWorkers not in ("auto", "off", "1"):
-        parser.error("--maxWorkers: multi-device loads are not yet ported "
-                     "to annotatedvdb_tpu_torch")
+def _runtime_mesh(parser, args):
+    """Validate ``--maxWorkers`` (a bad value is a usage error), then join
+    the multi-host world and resolve the loader's mesh (None = one shard)."""
+    from annotatedvdb_tpu_torch.runtime import apply_runtime, validate_max_workers
+
+    try:
+        validate_max_workers(args.maxWorkers)
+    except ValueError as err:
+        parser.error(str(err))
+    mesh = apply_runtime(args.platform, args.maxWorkers,
+                         multihost=not args.noMultihost)
+    if mesh is not None:
+        print(f"annotating across {mesh.size} devices", file=sys.stderr)
+    return mesh
 
 
 def main(argv=None):
@@ -109,7 +121,7 @@ def main(argv=None):
 
     parser = _parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    mesh = _runtime_mesh(parser, args)
     device = resolve_device(args.platform)
 
     manifest = os.path.join(args.storeDir, "manifest.json")
@@ -148,6 +160,7 @@ def main(argv=None):
             budget=ErrorBudget(args.maxErrors), log=log,
         ),
         device=device,
+        mesh=mesh,
     )
     # telemetry session: --metricsOut / --traceOut exports + the per-load
     # run-ledger record (appended on success AND abort)

@@ -17,8 +17,9 @@ Usage:  python -m annotatedvdb_tpu_torch load-vep --fileName results.json[.gz] \
 As in the reference, the load runs in an ``ObsSession``: one ``type:
 "run"`` ledger record on completion or abort, ``--metricsOut`` (a
 Prometheus textfile and its ``.json`` snapshot) and ``--traceOut`` (a
-Chrome trace of the stage spans).  A ``--maxWorkers`` count above 1
-raises "not yet ported".
+Chrome trace of the stage spans).  ``--maxWorkers`` (auto, off or a
+count) resolves identities across this process's device pool (see
+``load-vcf``); the store's bytes do not depend on it.
 """
 
 from __future__ import annotations
@@ -65,21 +66,26 @@ def _parser() -> argparse.ArgumentParser:
                         help="device: cuda (default; an error when no card "
                              "is present) or cpu")
     parser.add_argument("--maxWorkers", default="auto",
-                        help="devices to fan out across: auto/off (the port "
-                             "runs on one device)")
+                        help="devices to fan out across: auto/off/count")
     parser.add_argument("--noMultihost", action="store_true",
-                        help="accepted for compatibility; the port is "
-                             "single-host")
+                        help="ignore multi-host environment settings")
     parser.add_argument("--skipExisting", action="store_true",
                         help="skip variants that already have vep_output")
     add_obs_args(parser)
     return parser
 
 
-def _refuse_unported(parser, args) -> None:
-    if args.maxWorkers not in ("auto", "off", "1"):
-        parser.error("--maxWorkers: multi-device loads are not yet ported "
-                     "to annotatedvdb_tpu_torch")
+def _runtime_mesh(parser, args):
+    """Validate ``--maxWorkers`` (a bad value is a usage error), then join
+    the multi-host world and resolve the loader's mesh (None = one shard)."""
+    from annotatedvdb_tpu_torch.runtime import apply_runtime, validate_max_workers
+
+    try:
+        validate_max_workers(args.maxWorkers)
+    except ValueError as err:
+        parser.error(str(err))
+    return apply_runtime(args.platform, args.maxWorkers,
+                         multihost=not args.noMultihost)
 
 
 def main(argv=None):
@@ -96,7 +102,7 @@ def main(argv=None):
 
     parser = _parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    mesh = _runtime_mesh(parser, args)
     device = resolve_device(args.platform)
 
     log, _logger, _log_path = load_logger(
@@ -121,6 +127,7 @@ def main(argv=None):
             budget=ErrorBudget(args.maxErrors), log=log,
         ),
         device=device,
+        mesh=mesh,
     )
     obs = ObsSession.from_args("load-vep", args, {
         "file": args.fileName, "store": args.storeDir,

@@ -31,7 +31,11 @@ listening fd) and, on ``cuda``, one card.  Every worker resolves its
 device as a single process does: a worker with no card, or whose kernel
 does not build, exits 1, and a fleet whose workers keep dying gives up
 with exit code 1.  ``--hbmBudget`` is the whole fleet's budget, split
-equally across the workers.  The fleet needs the ``aio`` front end.
+equally across the workers, and each worker's share again across the
+devices of the serving mesh when ``AVDB_SERVE_MESH`` resolves one
+(``serve/mesh_exec.py``: ``1`` over ``AVDBC_VIRTUAL_DEVICES`` shards of
+one card, ``auto`` over several cards).  The fleet needs the ``aio`` front
+end.
 
 ``--upserts`` (or ``AVDB_SERVE_UPSERTS``) enables ``POST
 /variants/upsert``: each worker keeps its own memtable and WAL
@@ -412,7 +416,7 @@ def _run_single(args, log) -> int:
         from annotatedvdb_tpu_torch.ops.build import build
 
         try:
-            build(["bits_spans", "stats_panel", "export_pack"])
+            build(["bits_spans", "stats_panel", "export_pack", "lookup_multi"])
         except RuntimeError as err:
             print(f"serve: cannot start: {err}", file=sys.stderr)
             return 1
@@ -420,9 +424,30 @@ def _run_single(args, log) -> int:
     registry = MetricsRegistry()
     try:
         budget = _resolve_budget(args)
-        residency = None if budget is None else ResidencyManager(
-            budget, registry=registry, log=log, device=device
-        )
+        # None = unmanaged; an EXPLICIT 0 is the managed degenerate case.
+        # With mesh serving on (serve_mesh_on, never the bare device
+        # count) the worker's budget splits PER DEVICE and segments pin to
+        # their chromosome's placed device — the mesh twin of the fleet's
+        # per-worker split
+        residency = None
+        if budget is not None:
+            from annotatedvdb_tpu_torch.serve.mesh_exec import serve_mesh_on
+
+            mesh = serve_mesh_on(device)
+            if mesh is not None:
+                from annotatedvdb_tpu_torch.parallel.mesh import (
+                    chromosome_placement,
+                )
+
+                residency = ResidencyManager(
+                    budget // mesh.size, registry=registry, log=log,
+                    device=device,
+                    placement=chromosome_placement(mesh.size),
+                    devices=mesh.devices,
+                )
+            else:
+                residency = ResidencyManager(budget, registry=registry,
+                                             log=log, device=device)
         t0 = time.perf_counter()
         manager = SnapshotManager(
             args.storeDir, log=log,
@@ -783,7 +808,7 @@ def run_summary(ctx, load_s: float, worker: int | None = None) -> dict:
     process)."""
     import torch
 
-    from annotatedvdb_tpu_torch.ops import export_pack, intervals, stats
+    from annotatedvdb_tpu_torch.ops import dedup, export_pack, intervals, stats
 
     engine = ctx.engine
     held = {"index_and_columns": engine.device_bytes()}
@@ -798,10 +823,11 @@ def run_summary(ctx, load_s: float, worker: int | None = None) -> dict:
         "requests": ctx.request_counts(),
         "device": str(engine.device),
         "launches": {**intervals.LAUNCHES, **stats.LAUNCHES,
-                     **export_pack.LAUNCHES},
+                     **export_pack.LAUNCHES, **dedup.LAUNCHES},
         "plain_calls": {"bits_spans_reference": dict(intervals.CALLS),
                         "stats_references": dict(stats.CALLS),
-                        "export_pack_reference": dict(export_pack.CALLS)},
+                        "export_pack_reference": dict(export_pack.CALLS),
+                        "lookup_multi_reference": dict(dedup.CALLS)},
         "breaker": engine.breaker.stats() if engine.breaker is not None
         else None,
         "device_bytes": held,

@@ -1,8 +1,8 @@
 // Batched Binary Interval Search (BITS) kernel for Hopper (sm_90a): the row
 // span and bin token of every query interval of a region panel.
 //
-// Replaces annotatedvdb_tpu/ops/intervals.py::bits_spans_kernel (an XLA
-// program, not a Pallas kernel).  `pos` [K] int32 is one chromosome group's
+// Replaces annotatedvdb_tpu/ops/intervals.py::bits_spans_kernel and, with a
+// group index, ::bits_spans_stacked (XLA programs, not Pallas kernels).  `pos` [K] int32 is one chromosome group's
 // position-sorted, deduplicated row positions, sentinel-padded to a power of
 // two by the engine (INT32_MAX sorts after every clamped query bound), though
 // any sorted K works, K = 0 included; `starts`/`ends` [Q] int32 are 1-based
@@ -50,6 +50,14 @@
 // shared memory once a block gained nothing, since the first round's loads
 // depend on nothing and go out beside the query bounds' loads.  Lane 0
 // computes the bin token.
+//
+// The stacked form (the mesh executor's panel call, one launch per shard's
+// stack): `pos` [B, R] holds B groups' sentinel-padded rows, `starts` and
+// `ends` [B, Q] each group's queries, zero-padded to the common Q; a warp
+// serves one (group, query) pair, searching its group's row alone, and the
+// outputs are [B, Q].  The single form is the stack of one group.  Pad
+// queries come back too: a zero bound gives a = (0 - 1) // 15625 = -1 by
+// floor division, as in the plain version.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -116,20 +124,23 @@ __device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
+// `pos` [groups, k]; `starts`, `ends` and the outputs [groups, q]
 __global__ void __launch_bounds__(kThreads)
 bits_spans_kernel(const int32_t* __restrict__ pos, int k,
                   const int32_t* __restrict__ starts,
-                  const int32_t* __restrict__ ends, int q,
+                  const int32_t* __restrict__ ends, int q, int groups,
                   int32_t* __restrict__ lo, int32_t* __restrict__ hi,
                   int8_t* __restrict__ level, int32_t* __restrict__ leaf) {
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= q) return;  // the whole warp
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (i >= static_cast<int64_t>(q) * groups) return;  // the whole warp
+  const int64_t g = i / q;
   const int32_t s = __ldg(starts + i), e = __ldg(ends + i);
-  // lanes 0-15 search lo, lanes 16-31 hi
+  // lanes 0-15 search lo, lanes 16-31 hi, in this group's row
   const bool upper = lane >= kLanes;
-  const int r = bound(pos, k, upper ? e : s, upper, lane & (kLanes - 1),
-                      lane & kLanes);
+  const int r = bound(pos + g * k, k, upper ? e : s, upper,
+                      lane & (kLanes - 1), lane & kLanes);
   if (lane == 0) lo[i] = r;
   if (lane == kLanes) hi[i] = r;
   if (lane == 0) {
@@ -144,19 +155,52 @@ bits_spans_kernel(const int32_t* __restrict__ pos, int k,
   }
 }
 
-}  // namespace
+bool misaligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3u) != 0;
+}
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = queued).
-extern "C" int bits_spans_launch(const void* pos, int k, const void* starts,
-                                 const void* ends, int q, void* lo, void* hi,
-                                 void* level, void* leaf, void* stream) {
-  if (q <= 0) return 0;
-  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (q + kWarps - 1) / kWarps;
-  bits_spans_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+int launch(const void* pos, int k, const void* starts, const void* ends,
+           int q, int groups, void* lo, void* hi, void* level, void* leaf,
+           void* stream) {
+  if (k < 0 || q < 0 || groups < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (misaligned(pos) || misaligned(starts) || misaligned(ends) ||
+      misaligned(lo) || misaligned(hi) || misaligned(leaf)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t warps = static_cast<int64_t>(q) * groups;
+  if (warps == 0) return 0;
+  const int64_t blocks = (warps + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  bits_spans_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(pos), k, static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(ends), q, static_cast<int32_t*>(lo),
+      static_cast<const int32_t*>(ends), q, groups, static_cast<int32_t*>(lo),
       static_cast<int32_t*>(hi), static_cast<int8_t*>(level),
       static_cast<int32_t*>(leaf));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both entry points launch on `stream` and return the cudaError_t of the
+// launch (0 = queued); a negative size or a base off 4-byte alignment is
+// refused (cudaErrorInvalidValue) before any launch.
+
+// One group: `pos` [k], `starts`/`ends` and the outputs [q].
+extern "C" int bits_spans_launch(const void* pos, int k, const void* starts,
+                                 const void* ends, int q, void* lo, void* hi,
+                                 void* level, void* leaf, void* stream) {
+  return launch(pos, k, starts, ends, q, 1, lo, hi, level, leaf, stream);
+}
+
+// A stack of `b` groups: `pos` [b, r], `starts`/`ends` and the outputs
+// [b, q], all contiguous.
+extern "C" int bits_spans_stacked_launch(const void* pos, int b, int r,
+                                         const void* starts, const void* ends,
+                                         int q, void* lo, void* hi,
+                                         void* level, void* leaf,
+                                         void* stream) {
+  return launch(pos, r, starts, ends, q, b, lo, hi, level, leaf, stream);
 }

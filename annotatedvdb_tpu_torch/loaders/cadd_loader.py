@@ -26,9 +26,14 @@ Long alleles: variants or table rows wider than the device width are
 matched on the host with full strings (see ``io/cadd.py`` host_rows), so
 truncation can never produce a false match.
 
-Not ported here: the multi-device mesh join (``_mesh_context``,
-``_join_block_mesh``, ``_flush_mesh_buffer``); the CLI refuses a
-``--maxWorkers`` count above 1.
+With a ``mesh`` of more than one shard (``--maxWorkers``), the streamed
+score rows are buffered instead and resolved in sharded update steps
+against a position-partitioned snapshot of the store frozen on the shards
+(``_mesh_context``, ``_join_block_mesh``, ``_flush_mesh_buffer``; one
+``annotate_bin`` and one ``lookup_multi`` launch per shard on the card),
+both allele orientations in one query batch, the first table row winning
+per store row; the host-row semantics stay those of the block join.  The
+bytes written are the same.
 """
 
 from __future__ import annotations
@@ -53,6 +58,12 @@ from annotatedvdb_tpu_torch.utils.profiling import bulk_load_gc
 LEDGER_SCRIPT = "TpuCaddUpdater.update_all"
 
 
+def _allele_lengths(mat: np.ndarray) -> np.ndarray:
+    """True lengths of width-bounded allele rows (alleles are ACGTN... text,
+    never NUL, so the zero-pad boundary is the length)."""
+    return (mat != 0).sum(axis=1).astype(np.int32)
+
+
 def _resolve_code(chrom) -> int:
     code = int(chrom) if isinstance(chrom, (int, np.integer)) else chromosome_code(chrom)
     if not 1 <= code <= 25:
@@ -70,6 +81,8 @@ class _ChromState:
         self.raw = np.zeros(sel.shape, np.float64)
         self.phred = np.zeros(sel.shape, np.float64)
         self.examined_hi = 0                    # rows with a completed chance to match
+        # mesh join: positions holding long TABLE alleles (host-match only)
+        self.host_excl: set = set()
 
 
 class CaddUpdater:
@@ -87,7 +100,11 @@ class CaddUpdater:
         max_errors: int = -1,
         log_after: int | None = None,
         device=None,
+        mesh=None,
     ):
+        """``mesh``: an optional :class:`~annotatedvdb_tpu_torch.parallel.
+        mesh.Mesh`; with more than one shard the table pass resolves its
+        rows through the sharded update step."""
         from annotatedvdb_tpu_torch.utils.logging import ProgressCadence
         from annotatedvdb_tpu_torch.utils.profiling import StageTimer
         from annotatedvdb_tpu_torch.utils.quarantine import ErrorBudget
@@ -99,6 +116,7 @@ class CaddUpdater:
         self.skip_existing = skip_existing
         self.log = log
         self.device = resolve_device(device)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         #: busy seconds of the table scan (on the prefetch thread), the
         #: joins and the finalize, plus the whole pass's wall
         self.timer = StageTimer()
@@ -218,6 +236,7 @@ class CaddUpdater:
         from annotatedvdb_tpu_torch.io.prefetch import ChunkPrefetcher
         from annotatedvdb_tpu_torch.utils.pipeline import merge_stage_stats
 
+        mesh_ctx = self._mesh_context() if self.mesh is not None else None
         with self.timer.wall():
             for kind, path, probe in self._tables():
                 states: dict[int, _ChromState] = {}
@@ -254,10 +273,15 @@ class CaddUpdater:
                             continue
                         n_rows = int(block.n)
                         with self.timer.stage("join", items=n_rows):
-                            self._join_block(
-                                states[code], self.store.shard(code), block,
-                                probe,
-                            )
+                            if mesh_ctx is not None:
+                                self._join_block_mesh(
+                                    states[code], code, block, mesh_ctx
+                                )
+                            else:
+                                self._join_block(
+                                    states[code], self.store.shard(code),
+                                    block, probe,
+                                )
                         if self.obs is not None:
                             self.obs.chunk(n_rows)
                         self._rows_scanned += n_rows
@@ -273,6 +297,8 @@ class CaddUpdater:
                     # a join failure must not leave it streaming the table)
                     blocks.close()
                     merge_stage_stats(self.queue_stalls, "scan", blocks.stats)
+                if mesh_ctx is not None:
+                    self._flush_mesh(states, mesh_ctx)
                 with self.timer.stage("finalize"):
                     self._finalize(states, kind, commit, complete=not stop)
         # terminal counter line: passes ending between cadences still log
@@ -433,6 +459,153 @@ class CaddUpdater:
                     state.raw[vlo + j] = raw
                     state.phred[vlo + j] = phred
                     break
+
+    # -- mesh path -----------------------------------------------------------
+
+    MESH_FLUSH_ROWS = 1 << 17  # score rows buffered per sharded resolve
+
+    def _mesh_context(self) -> dict:
+        """The frozen store snapshot on the shards (position-partitioned:
+        the tables stream chromosome-sorted, and chromosome routing would
+        land every flush on one shard) and the score-row buffer."""
+        from annotatedvdb_tpu_torch.parallel.device_store import (
+            build_device_shard_store,
+            place_store,
+        )
+
+        return {
+            "snapshot": place_store(
+                build_device_shard_store(self.store, self.mesh.size,
+                                         routing="position"),
+                self.mesh,
+            ),
+            "buf": [],       # (code, pos, ref, alt, raw, phred) per block
+            "buf_rows": 0,
+        }
+
+    def _join_block_mesh(self, state: _ChromState, code: int, block,
+                         ctx: dict) -> None:
+        """Buffer one block's score rows for the sharded resolve; the host
+        semantics (examined range, over-width and host-row matching) stay
+        those of :meth:`_join_block`."""
+        vlo = np.searchsorted(state.pos, block.min_pos, side="left")
+        vhi = np.searchsorted(state.pos, block.max_pos, side="right")
+        state.examined_hi = max(state.examined_hi, vhi)
+        shard = self.store.shard(code)
+        if block.n:
+            k = block.n
+            ctx["buf"].append((code, block.pos[:k], block.ref[:k],
+                               block.alt[:k], block.raw[:k], block.phred[:k]))
+            ctx["buf_rows"] += int(k)
+        if block.host_rows:
+            state.host_excl.update(int(p) for p in block.host_rows)
+        # long TABLE alleles: match per store row on the host, only the
+        # rows that can host-match (host positions, over-width variants)
+        if block.host_rows and vlo != vhi:
+            window = state.sel[vlo:vhi]
+            w = self.store.width
+            over_width = ((shard.cols["ref_len"][window] > w)
+                          | (shard.cols["alt_len"][window] > w))
+            host_pos = np.isin(shard.cols["pos"][window],
+                               list(block.host_rows))
+            cand = np.where((over_width | host_pos)
+                            & ~state.matched[vlo:vhi])[0]
+            for j in cand:
+                row = int(window[j])
+                ref, alt = shard.alleles(row)
+                for s_ref, s_alt, raw, phred in block.host_rows.get(
+                        int(shard.cols["pos"][row]), []):
+                    if ref in (s_ref, s_alt) and alt in (s_ref, s_alt):
+                        state.matched[vlo + j] = True
+                        state.raw[vlo + j] = raw
+                        state.phred[vlo + j] = phred
+                        break
+        if ctx["buf_rows"] >= self.MESH_FLUSH_ROWS:
+            self._flush_mesh_buffer(ctx)
+
+    def _flush_mesh(self, states: dict[int, "_ChromState"], ctx: dict) -> None:
+        """Resolve the buffered rows, then apply the pending matches."""
+        self._flush_mesh_buffer(ctx)
+        self._apply_mesh_matches(states, ctx)
+
+    def _flush_mesh_buffer(self, ctx: dict) -> None:
+        """One sharded resolve of the buffered score rows in BOTH allele
+        orientations (a store row (A, G) matches table row G/A too); the
+        first table row wins per store row."""
+        if not ctx["buf"]:
+            return
+        from annotatedvdb_tpu_torch.loaders.vcf_loader import _pad_batch
+        from annotatedvdb_tpu_torch.parallel.distributed import (
+            distributed_update_step,
+        )
+        from annotatedvdb_tpu_torch.types import VariantBatch
+        from annotatedvdb_tpu_torch.utils.arrays import mesh_capacity
+
+        buf, ctx["buf"], ctx["buf_rows"] = ctx["buf"], [], 0
+        chrom = np.concatenate([np.full(b[1].shape[0], b[0], np.int8)
+                                for b in buf])
+        pos = np.concatenate([b[1] for b in buf]).astype(np.int32)
+        ref = np.concatenate([b[2] for b in buf])
+        alt = np.concatenate([b[3] for b in buf])
+        raw = np.concatenate([b[4] for b in buf])
+        phred = np.concatenate([b[5] for b in buf])
+        n = pos.shape[0]
+        rl = _allele_lengths(ref)
+        al = _allele_lengths(alt)
+        # rows [0, n) as they are, rows [n, 2n) swapped; rid % n is the
+        # table row, so table order (first match wins) survives the fold
+        q = VariantBatch(
+            np.concatenate([chrom, chrom]), np.concatenate([pos, pos]),
+            np.concatenate([ref, alt]), np.concatenate([alt, ref]),
+            np.concatenate([rl, al]), np.concatenate([al, rl]),
+        )
+        q = _pad_batch(q, mesh_capacity(q.n, self.mesh.size))
+        rid, found, store_row, _c = distributed_update_step(
+            self.mesh, q, ctx["snapshot"], routing="position"
+        )
+        take = (rid >= 0) & found
+        src = rid[take]
+        real = src < 2 * n
+        src, rows_g = src[real], store_row[take][real]
+        table_idx = src % n
+        order = np.argsort(table_idx, kind="stable")
+        rows_o, tidx_o = rows_g[order], table_idx[order]
+        # (code, store_row) is unique per shard only: pair with chrom
+        key = (chrom[tidx_o].astype(np.int64) << 48) | rows_o
+        _, first = np.unique(key, return_index=True)
+        ctx.setdefault("pending", []).append((
+            chrom[tidx_o[first]], rows_o[first],
+            raw[tidx_o[first]], phred[tidx_o[first]],
+        ))
+
+    def _apply_mesh_matches(self, states: dict[int, "_ChromState"],
+                            ctx: dict) -> None:
+        """Scatter resolved matches into the per-chromosome states (store
+        row -> candidate position by one searchsorted per flush)."""
+        for chrom_m, rows_m, raw_m, phred_m in ctx.pop("pending", []):
+            for code in np.unique(chrom_m):
+                state = states.get(int(code))
+                if state is None:
+                    continue
+                m = chrom_m == code
+                rows_c, raw_c, phred_c = rows_m[m], raw_m[m], phred_m[m]
+                pos_in_sel = np.searchsorted(state.sel, rows_c)
+                safe = np.clip(pos_in_sel, 0, state.sel.size - 1)
+                ok = (pos_in_sel < state.sel.size) & (state.sel[safe] == rows_c)
+                ok &= ~state.matched[safe]
+                if state.host_excl:
+                    # store rows at long-table-allele positions host-match
+                    # only (the block join's host_mask)
+                    excl = np.isin(
+                        state.pos[safe], np.fromiter(
+                            state.host_excl, np.int64, len(state.host_excl)
+                        )
+                    )
+                    ok &= ~excl
+                p = pos_in_sel[ok]
+                state.matched[p] = True
+                state.raw[p] = raw_c[ok]
+                state.phred[p] = phred_c[ok]
 
     def _finalize(self, states: dict[int, "_ChromState"], kind: str,
                   commit: bool, complete: bool) -> None:

@@ -26,8 +26,13 @@ to the reference's for the same VCF, batch size and engine
 With a ``genome`` (``--refGenome``), the rows a chunk inserts are
 validated against it on the loader's device (one ``validate_ref`` launch
 per chunk that inserts rows on the card) and mismatches are counted, never
-dropped.  Not ported yet: the packed transport and width-bucketed
-dispatch, the mesh path and display attributes.
+dropped.  With a ``mesh`` of more than one shard (``--maxWorkers``), each
+chunk's device step is the sharded annotate step instead
+(``parallel.distributed.distributed_annotate_step``: 16 kb position
+blocks spread the chunk over the shards, one ``annotate_bin`` launch per
+shard on the card), its outputs scattered back to row order; every byte
+written is the same.  Not ported yet: the packed transport and
+width-bucketed dispatch, and display attributes.
 """
 
 from __future__ import annotations
@@ -107,6 +112,25 @@ def _slim_annotated(n: int, bin_level, leaf_bin, needs_digest,
     )
 
 
+def _pad_batch(batch: VariantBatch, n_target: int) -> VariantBatch:
+    """Pad to ``n_target`` rows: chromosome 0, sentinel positions, 1-base
+    lengths and zeroed allele bytes (rows no step ever counts)."""
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    pad = n_target - batch.n
+    if pad <= 0:
+        return batch
+
+    def tail(a, fill):
+        return np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+    return VariantBatch(
+        tail(batch.chrom, 0), tail(batch.pos, POS_SENTINEL),
+        tail(batch.ref, 0), tail(batch.alt, 0),
+        tail(batch.ref_len, 1), tail(batch.alt_len, 1),
+    )
+
+
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     """Non-blocking copy of a device tensor into fresh pinned host memory,
     on the current stream."""
@@ -139,12 +163,15 @@ class VcfLoader:
         max_errors: int = -1,
         device: str | torch.device | None = None,
         genome=None,
+        mesh=None,
     ):
         """``genome``: an optional
         :class:`~annotatedvdb_tpu_torch.genome.ReferenceGenome`; enables
         ref-allele validation of every inserted row (the ``ref_mismatch``
         counter) and, when no ``digester`` is given, canonical GA4GH
-        sequence digests for digest PKs."""
+        sequence digests for digest PKs.  ``mesh``: an optional
+        :class:`~annotatedvdb_tpu_torch.parallel.mesh.Mesh`; with more
+        than one shard every chunk is annotated across it."""
         from annotatedvdb_tpu_torch.genome.assemblies import (
             BUILD_LENGTHS,
             length_table,
@@ -154,6 +181,7 @@ class VcfLoader:
         from annotatedvdb_tpu_torch.utils.quarantine import ErrorBudget
 
         self.device = resolve_device(device)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
         self.store = store
         self.ledger = ledger
         self.datasource = datasource.lower() if datasource else None
@@ -493,6 +521,9 @@ class VcfLoader:
         device as a whole, so it does not queue behind the next chunk's
         work.  On the CPU the plain versions run here and the event is
         None.  The lazy sidecar columns are never touched on this thread."""
+        if self.mesh is not None:
+            # the sharded step returns host arrays (its gather is the sync)
+            return {"cols": self._annotate_distributed(chunk), "event": None}
         on_card = self.device.type == "cuda"
         if on_card and self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -510,6 +541,49 @@ class VcfLoader:
             event = torch.cuda.Event()
             event.record(self._stream)
         return {"cols": cols, "event": event}
+
+    def _annotate_distributed(self, chunk: VcfChunk) -> dict:
+        """Mesh path: pad to a mesh multiple, run the sharded annotate step
+        with position-block routing (chromosome-sorted input spreads over
+        every shard; dedup and the store stay on the host) and scatter the
+        ``COPY_BACK`` columns (and the hash) back to row order through the
+        returned row ids.  Capacity is the exact lossless minimum: a drop
+        is a bug."""
+        from annotatedvdb_tpu_torch.parallel.distributed import (
+            distributed_annotate_step,
+            position_block_owner,
+        )
+
+        batch = chunk.batch
+        n_dev = self.mesh.size
+        padded = _pad_batch(batch, batch.n + (-batch.n) % n_dev)
+        owner = position_block_owner(padded.chrom, padded.pos, n_dev)
+        ann, rid, _counts, dropped, _n_fb, h = distributed_annotate_step(
+            self.mesh, padded, owner=owner, with_hash=True,
+        )
+        if dropped:
+            raise RuntimeError(
+                f"distributed annotate dropped {int(dropped)} rows despite "
+                "lossless capacity"
+            )
+        take = rid >= 0
+        src = rid[take]
+        n_real = int((batch.chrom > 0).sum())
+        if src.size != n_real:
+            raise RuntimeError(
+                f"row-id coverage {src.size} != real row count {n_real}"
+            )
+        cols = {}
+        for name in COPY_BACK:
+            vals = getattr(ann, name)
+            arr = np.zeros(batch.n, vals.dtype)
+            arr[src] = vals[take]
+            cols[name] = torch.from_numpy(arr)
+        if chunk.h_native is None:
+            arr = np.zeros(batch.n, np.uint32)
+            arr[src] = h[take]
+            cols["h"] = torch.from_numpy(arr.view(np.int32))
+        return cols
 
     def _consume_entry(self, entry: tuple, ctx: _LoadCtx) -> bool:
         """Process one dispatched chunk on the consumer thread: apply its

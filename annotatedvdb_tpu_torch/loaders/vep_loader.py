@@ -36,8 +36,15 @@ the store's JSONB columns.  Each transform writes the store bytes of the
 reference's same transform for the same store and VEP file
 (``tests/test_torch_vep.py``, ``tests/test_torch_vep_native.py``).
 
-Not ported: the mesh update step, the run-record telemetry (``obs/``) and
-``warmup``.
+With a ``mesh`` of more than one shard (``--maxWorkers``), the native
+path freezes a position-partitioned snapshot of the store on the shards
+once per load (``parallel.device_store``) and resolves each flush's
+identities in one sharded update step (``parallel.distributed.
+distributed_update_step``: one ``annotate_bin`` and one ``lookup_multi``
+launch per shard on the card); over-width rows are resolved on the host,
+as on the single-device path.  The bytes written are the same.
+
+Not ported: ``warmup``.
 """
 
 from __future__ import annotations
@@ -150,11 +157,18 @@ class VepLoader:
         log_after: int | None = None,
         quarantine=None,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
+        """``mesh``: an optional :class:`~annotatedvdb_tpu_torch.parallel.
+        mesh.Mesh`; with more than one shard the native path resolves
+        identities through the sharded update step."""
         from annotatedvdb_tpu_torch.utils.logging import ProgressCadence
         from annotatedvdb_tpu_torch.utils.quarantine import ErrorBudget
 
         self.device = resolve_device(device)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        #: the store's identity snapshot on the mesh, frozen per load
+        self._dev_snapshot = None
         self.store = store
         self.ledger = ledger
         self.parser = VepResultParser(ranker, self.device)
@@ -250,6 +264,20 @@ class VepLoader:
         # segments' membership caches on the card once
         self.store.pin_for_updates(self.device)
         n_added_before = len(self.parser.ranker.added)
+        if self.mesh is not None and use_native:
+            # the store is static for the whole update load: one snapshot,
+            # position-partitioned (VEP files arrive chromosome-sorted, so
+            # chromosome routing would land every flush on one shard)
+            from annotatedvdb_tpu_torch.parallel.device_store import (
+                build_device_shard_store,
+                place_store,
+            )
+
+            self._dev_snapshot = place_store(
+                build_device_shard_store(self.store, self.mesh.size,
+                                         routing="position"),
+                self.mesh,
+            )
         with self.timer.wall(), _open_bytes(path) as fh:
             pre = ChunkPrefetcher(_blocks(fh, test), timer=self.timer,
                                   name="vep-ingest")
@@ -439,6 +467,12 @@ class VepLoader:
         arena_s = arena.decode("ascii") if arena.isascii() else None
         counters = self.counters
         raw_cache: dict[tuple, RawJson] = {}  # (off, len) -> shared instance
+        mesh_found = mesh_ids = None
+        if self.mesh is not None and self._dev_snapshot is not None:
+            mesh_found, mesh_ids = self._mesh_lookup(
+                VariantBatch(chrom, pos, ref, alt, ref_len, alt_len), h,
+                res.host_fb[sl].astype(bool),
+            )
 
         def raw_column(offs, lens) -> list:
             if arena_s is not None:
@@ -459,10 +493,13 @@ class VepLoader:
         for code in np.unique(chrom):
             sel = np.flatnonzero(chrom == code)
             shard = self.store.shard(int(code))
-            found, idx = shard.lookup(
-                pos[sel], h[sel], ref[sel], alt[sel], ref_len[sel],
-                alt_len[sel], device=self.device, stats=self.probe_stats,
-            )
+            if mesh_found is not None:
+                found, idx = mesh_found[sel], mesh_ids[sel]
+            else:
+                found, idx = shard.lookup(
+                    pos[sel], h[sel], ref[sel], alt[sel], ref_len[sel],
+                    alt_len[sel], device=self.device, stats=self.probe_stats,
+                )
             counters["not_found"] += int((~found).sum())
             rows_i = sel[found]
             ids = idx[found]
@@ -503,6 +540,45 @@ class VepLoader:
             shard.set_col("row_algorithm_id", ids, alg_id)
             if self.is_adsp:
                 shard.set_col("is_adsp_variant", ids, 1)
+
+    def _mesh_lookup(self, batch: VariantBatch, h: np.ndarray,
+                     host_fb: np.ndarray):
+        """Resolve one slice's identities through the sharded update step:
+        ``(found [N] bool, global row id [N] int64)`` in row order.
+        Over-width rows (``host_fb``) are excluded on the shards (their
+        transformer hash is full-string, the snapshot's width-bounded) and
+        resolved with the host shard lookup, as on the single-device
+        path."""
+        from annotatedvdb_tpu_torch.loaders.vcf_loader import _pad_batch
+        from annotatedvdb_tpu_torch.parallel.distributed import (
+            distributed_update_step,
+        )
+        from annotatedvdb_tpu_torch.utils.arrays import mesh_capacity
+
+        n = batch.n
+        q = _pad_batch(batch, mesh_capacity(n, self.mesh.size))
+        rid_out, found_s, store_row, _counters = distributed_update_step(
+            self.mesh, q, self._dev_snapshot, routing="position"
+        )
+        take = rid_out >= 0
+        src = rid_out[take]
+        found = np.zeros(n, np.bool_)
+        ids = np.full(n, -1, np.int64)
+        keep = src < n
+        found[src[keep]] = found_s[take][keep]
+        ids[src[keep]] = store_row[take][keep]
+        for i in np.flatnonzero(host_fb):
+            shard = self.store.shards.get(int(batch.chrom[i]))
+            if shard is None:
+                continue
+            f, idx = shard.lookup(
+                batch.pos[i:i + 1], h[i:i + 1],
+                batch.ref[i:i + 1], batch.alt[i:i + 1],
+                batch.ref_len[i:i + 1], batch.alt_len[i:i + 1],
+            )
+            found[i] = bool(f[0])
+            ids[i] = int(idx[0])
+        return found, ids
 
     def _batch_identity(self, batch: VariantBatch):
         """(hash [N] uint32, prefix_len [N], host_fallback [N]) for one

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from annotatedvdb_tpu_torch.parallel.mesh import mesh_pjit
 from annotatedvdb_tpu_torch.types import MAX_PK_SEQUENCE_LENGTH, VariantClass
 
 
@@ -125,3 +126,27 @@ def annotate_kernel(pos, ref, alt, ref_len, alt_len) -> dict:
         "needs_digest": (rlen + alen) > MAX_PK_SEQUENCE_LENGTH,
         "host_fallback": (rlen > w) | (alen > w),
     }
+
+
+def _annotate_shard(pos, ref, alt, ref_len, alt_len) -> dict:
+    """One shard's annotate: on the card the fused ``annotate_bin`` launch
+    (its annotate fields), on the CPU :func:`annotate_kernel`."""
+    if ref.device.type != "cuda":
+        return annotate_kernel(pos, ref, alt, ref_len, alt_len)
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+
+    out = annotate_bin(pos, ref, alt, ref_len, alt_len)
+    return {name: out[name] for name in ANNOTATE_FIELDS}
+
+
+#: the fields :func:`annotate_kernel` returns, in order
+ANNOTATE_FIELDS = ("prefix_len", "norm_ref_len", "norm_alt_len",
+                   "end_location", "location_start", "location_end",
+                   "variant_class", "is_dup_motif", "needs_digest",
+                   "host_fallback")
+
+#: the sharded-call surface: pad rows carry sentinel positions and 1-base
+#: lengths and are sliced away; one kernel call per shard
+annotate_kernel_mesh = mesh_pjit(
+    _annotate_shard, ("sentinel", "zero", "zero", "one", "one")
+)

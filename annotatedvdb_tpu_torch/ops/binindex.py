@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from annotatedvdb_tpu_torch.parallel.mesh import mesh_pjit
+
 LEAF_SIZE = 15_625
 NUM_BIN_LEVELS = 13  # levels 1..13 below the whole-chromosome level 0
 
@@ -30,3 +32,20 @@ def bin_index_kernel(start: torch.Tensor, end: torch.Tensor):
     for k in range(NUM_BIN_LEVELS):
         mism += (x >> k) != 0
     return (NUM_BIN_LEVELS - mism).to(torch.int8), a
+
+
+def _bin_shard(start: torch.Tensor, end: torch.Tensor):
+    """One shard's bins: on the card the ``bits_spans`` kernel's bin token
+    (its row search over no rows), on the CPU :func:`bin_index_kernel`."""
+    if start.device.type != "cuda":
+        return bin_index_kernel(start, end)
+    from annotatedvdb_tpu_torch.ops.intervals import bits_spans
+
+    rows = torch.empty((0,), dtype=torch.int32, device=start.device)
+    _lo, _hi, level, leaf = bits_spans(rows, start.to(torch.int32).contiguous(),
+                                       end.to(torch.int32).contiguous())
+    return level, leaf
+
+
+#: the sharded-call surface: pure per-row arithmetic, one call per shard
+bin_index_kernel_mesh = mesh_pjit(_bin_shard, ("one", "one"))

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from annotatedvdb_tpu_torch.parallel.mesh import mesh_pjit
+
 FNV_OFFSET = 2166136261
 FNV_PRIME = 16777619
 _MASK32 = 0xFFFFFFFF
@@ -64,3 +66,19 @@ def to_uint32(h: torch.Tensor) -> np.ndarray:
     if h.dtype != torch.int32:
         raise TypeError(f"to_uint32 reads int32 hash bits, not {h.dtype}")
     return h.cpu().numpy().view(np.uint32).copy()
+
+
+def _hash_shard(ref, alt, ref_len, alt_len) -> torch.Tensor:
+    """One shard's allele hash as int64 uint32 values: on the card from the
+    fused ``annotate_bin`` launch, on the CPU :func:`allele_hash`."""
+    if ref.device.type != "cuda":
+        return allele_hash(ref, alt, ref_len, alt_len)
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+
+    pos = torch.ones(ref.shape[:1], dtype=torch.int32, device=ref.device)
+    bits = annotate_bin(pos, ref, alt, ref_len, alt_len)["allele_hash"]
+    return bits.to(torch.int64) & _MASK32
+
+
+#: the sharded-call surface; pad rows hash to values that are sliced away
+allele_hash_mesh = mesh_pjit(_hash_shard, ("zero", "zero", "one", "one"))

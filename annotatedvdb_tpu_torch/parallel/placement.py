@@ -1,14 +1,15 @@
 """The advisory chromosome placement a store manifest or ``doctor status``
-reports: which device a >1-device mesh WOULD serve each chromosome group
-on.
+reports: which device a >1-device mesh serves each chromosome group on.
 
-A manifest-only hint, not the mesh.  Pure copies of three functions of
-``annotatedvdb_tpu/parallel/mesh.py`` (``mesh_shape_from_env``,
-``chromosome_placement``, ``placement_hint``) and the owner table they
-read (``parallel/distributed.py::chromosome_owner_table``).  They read
-``AVDB_MESH_SHAPE`` and the GRCh38 chromosome lengths and never touch a
-device: ``doctor status`` must answer while the card is busy or absent.
-The mesh (``torch.distributed`` over several cards) is not ported yet.
+Pure copies of three functions of ``annotatedvdb_tpu/parallel/mesh.py``
+(``mesh_shape_from_env``, ``chromosome_placement``, ``placement_hint``)
+and the owner table they read (``parallel/distributed.py::
+chromosome_owner_table``).  They read ``AVDB_MESH_SHAPE`` and the GRCh38
+chromosome lengths and never touch a device: ``doctor status`` must
+answer while the card is busy or absent.  The mesh itself
+(:mod:`.mesh`), its step programs (:mod:`.distributed`) and the serving
+executor route with the same table, so serving placement and loader
+routing agree.
 """
 
 from __future__ import annotations

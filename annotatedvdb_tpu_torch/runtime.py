@@ -49,3 +49,44 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
                           pin_memory=True)
     staging.numpy()[...] = x
     return staging.to(device, non_blocking=True)
+
+
+def validate_max_workers(max_workers: str) -> None:
+    """``--maxWorkers`` must be ``auto``, ``off`` or a count >= 1 (the
+    reference's ``RuntimeConfig.validate``); raises ValueError."""
+    if max_workers in ("auto", "off"):
+        return
+    try:
+        if int(max_workers) < 1:
+            raise ValueError
+    except ValueError:
+        raise ValueError(
+            f"maxWorkers must be auto, off, or a count >= 1, "
+            f"not {max_workers!r}"
+        ) from None
+
+
+def apply_runtime(platform: str | None, max_workers: str = "auto",
+                  multihost: bool = True):
+    """The counterpart of the reference's ``RuntimeConfig.apply``: resolve
+    the platform (a missing card raises), join the multi-host world when
+    the environment configures one (unless ``multihost`` is False), and
+    return the loaders' mesh — this process's device pool, bounded by
+    ``AVDB_MESH_SHAPE`` and clamped by ``--maxWorkers`` — or None for a
+    single shard."""
+    from annotatedvdb_tpu_torch.parallel.mesh import device_pool, global_mesh
+
+    validate_max_workers(max_workers)
+    resolve_device(platform)
+    if multihost:
+        from annotatedvdb_tpu_torch.parallel.multihost import init_multihost
+
+        init_multihost(platform=platform)
+    if max_workers == "off":
+        return None
+    # loads stay share-nothing per process: the mesh is this process's
+    # shards, never the world's
+    return global_mesh(
+        limit=None if max_workers == "auto" else int(max_workers),
+        devices=device_pool(platform),
+    )

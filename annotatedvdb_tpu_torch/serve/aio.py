@@ -69,8 +69,9 @@ both answer the unknown-route 404.  Fault points here: ``serve.accept``
 (per accepted connection), ``serve.wedge`` (per maintenance tick: a long
 ``delay`` parks the loop, which the fleet watchdog must kill) and
 ``serve.batch`` (per loop-batcher drain).  With ``--traceOut`` each
-loop-batcher drain is one ``serve.batch`` span of the Chrome tracer.  Not
-ported: the mesh executor.
+loop-batcher drain is one ``serve.batch`` span of the Chrome tracer.  With
+``AVDB_SERVE_MESH`` resolving a mesh, the engine carries a
+:class:`~annotatedvdb_tpu_torch.serve.mesh_exec.MeshExecutor`.
 """
 
 from __future__ import annotations
@@ -2171,10 +2172,21 @@ def build_aio_server(store_dir: str | None = None, manager=None,
             raise ValueError("build_aio_server needs store_dir or manager")
         manager = SnapshotManager(store_dir, log=log)
     registry = registry if registry is not None else MetricsRegistry()
+    from annotatedvdb_tpu_torch.serve.mesh_exec import serve_mesh_executor
+
     breaker = DeviceBreaker(registry=registry, log=log)
     engine = QueryEngine(
         manager, registry=registry, region_cache_size=region_cache_size,
         residency=residency, breaker=breaker, device=device,
+        # the mesh state budget rides the residency manager's already-
+        # split per-device share (env/flag -> per-worker -> per-device),
+        # never the raw env
+        mesh=serve_mesh_executor(
+            registry=registry, breaker=breaker, log=log,
+            budget_bytes=residency.budget if residency is not None
+            else None,
+            device=device,
+        ),
     )
     batcher = LoopBatcher(
         engine, max_batch=max_batch, max_wait_s=max_wait_s,

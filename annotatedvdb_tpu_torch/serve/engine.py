@@ -32,9 +32,13 @@ kernel that does not build raises there and never reaches a request.  A device f
 request is answered by the numpy twin; with no breaker it fails the
 request, where the reference answers from the twin unrecorded.  Fault
 points: ``engine.device_probe`` (a breaker-routed membership probe),
-``serve.regions`` and ``serve.stats`` (a parsed batch, nothing run).  Not
-ported: the mesh executor (``mesh=``, ``_mesh_lookup_many``) and so its
-``mesh.dispatch`` point.
+``serve.regions`` and ``serve.stats`` (a parsed batch, nothing run).
+
+With a mesh executor (``mesh=``, ``serve/mesh_exec.py``), a bulk lookup
+of at least its ``bulk_min`` ids resolves every group in one sharded call
+(:meth:`QueryEngine._mesh_lookup_many`) and a region panel's spans come
+from one stacked BITS launch per shard; either falls back to the
+per-group paths below (byte-identical) when the executor declines.
 """
 
 from __future__ import annotations
@@ -656,7 +660,8 @@ class QueryEngine:
                  breaker=None, regions_max: int | None = None,
                  regions_device_min: int | None = None,
                  stats_max: int | None = None,
-                 stats_device_min: int | None = None, device=None):
+                 stats_device_min: int | None = None, device=None,
+                 mesh=None):
         from annotatedvdb_tpu_torch.serve.batcher import (
             resolve_regions_knobs,
             resolve_stats_knobs,
@@ -672,6 +677,10 @@ class QueryEngine:
         self.regions_max, self.regions_device_min = resolve_regions_knobs(
             regions_max, regions_device_min
         )
+        #: mesh executor (serve/mesh_exec.MeshExecutor) or None — bulk
+        #: lookups and region panels then take one sharded call each, and
+        #: every decline falls back to the byte-identical paths below
+        self.mesh = mesh
         #: device-path circuit breaker (serve/resilience.DeviceBreaker) —
         #: None lets a device failure fail the request
         self.breaker = breaker
@@ -754,6 +763,11 @@ class QueryEngine:
             self.residency.govern(snap)
         store = snap.store
         width = store.width
+        if self.mesh is not None and len(ids) >= self.mesh.bulk_min \
+                and self.mesh.would_dispatch(snap):
+            got = self._mesh_lookup_many(snap, parsed, out)
+            if got is not None:
+                return got
         by_code: dict[int, list] = {}
         for i, (code, _pos, _ref, _alt) in enumerate(parsed):
             by_code.setdefault(code, []).append(i)
@@ -783,6 +797,50 @@ class QueryEngine:
                     out[i] = self._render_cached(
                         shard, code, int(gid[k]), generation
                     )
+        return out
+
+    def _mesh_lookup_many(self, snap, parsed, out):
+        """The mesh bulk path: every id of the batch, all groups at once,
+        through ONE sharded call (``MeshExecutor.bulk_lookup``); hits
+        render through the single-device path's cache.  Returns None when
+        the executor declines (the caller runs the per-group loop)."""
+        store = snap.store
+        width = store.width
+        refs = [p[2] for p in parsed]
+        alts = [p[3] for p in parsed]
+        ref, ref_len = encode_allele_array(refs, width)
+        alt, alt_len = encode_allele_array(alts, width)
+        n = len(parsed)
+        pos = np.fromiter((p[1] for p in parsed), np.int32, count=n)
+        chrom = np.fromiter((p[0] for p in parsed), np.int8, count=n)
+        h = identity_hashes(width, ref, alt, ref_len, alt_len, refs, alts)
+        got = self.mesh.bulk_lookup(
+            snap, chrom, pos, h, ref, alt, ref_len, alt_len
+        )
+        if got is None:
+            return None
+        found, gid = got
+        if self.residency is not None:
+            # mesh traffic keeps feeding the residency heat scores: the
+            # per-segment caches are what the single-device fallback
+            # serves from
+            qkey = combined_key(pos, h)
+            by_code: dict[int, list] = {}
+            for i, (code, _p, _r, _a) in enumerate(parsed):
+                by_code.setdefault(code, []).append(i)
+            for code, idxs in by_code.items():
+                shard = store.shards.get(code)
+                if shard is None:
+                    continue
+                k = qkey[idxs]
+                self.residency.touch_window(shard, k.min(), k.max(),
+                                            len(idxs))
+        generation = snap.generation
+        for i, (code, _p, _r, _a) in enumerate(parsed):
+            if found[i]:
+                out[i] = self._render_cached(
+                    store.shards[code], code, int(gid[i]), generation
+                )
         return out
 
     def _probe_group(self, shard, code: int, pos, h, ref, alt,
@@ -943,6 +1001,21 @@ class QueryEngine:
         level = np.zeros(n, np.int64)
         leaf = np.zeros(n, np.int64)
         indexes: dict[int, IntervalIndex | None] = {}
+        mesh_spans = None
+        if self.mesh is not None and not host_only:
+            # ONE stacked BITS launch per shard for the whole panel; a None
+            # return or a missing code falls through to the per-group path
+            mesh_spans = self.mesh.panel_spans(
+                snap,
+                {
+                    code: interval_ops.clamped_queries(
+                        [parsed[i][1] for i in idxs],
+                        [parsed[i][2] for i in idxs],
+                    )
+                    for code, idxs in by_code.items()
+                },
+                lambda code: self._interval_index(snap, code),
+            )
         for code, idxs in by_code.items():
             t_group = time.perf_counter()
             index = indexes[code] = self._interval_index(snap, code)
@@ -952,12 +1025,15 @@ class QueryEngine:
                     [parsed[i][2] for i in idxs],
                 )
                 continue
-            g_lo, g_hi, g_level, g_leaf = self._interval_spans(
-                index, code,
-                [parsed[i][1] for i in idxs],
-                [parsed[i][2] for i in idxs],
-                host_only,
-            )
+            if mesh_spans is not None and code in mesh_spans:
+                g_lo, g_hi, g_level, g_leaf = mesh_spans[code]
+            else:
+                g_lo, g_hi, g_level, g_leaf = self._interval_spans(
+                    index, code,
+                    [parsed[i][1] for i in idxs],
+                    [parsed[i][2] for i in idxs],
+                    host_only,
+                )
             lo[idxs], hi[idxs] = g_lo, g_hi
             level[idxs], leaf[idxs] = g_level, g_leaf
             # per-group sub-span onto the request's trace (no-op outside

@@ -162,6 +162,8 @@ def stats_payload(ctx) -> str:
     }
     if ctx.engine.breaker is not None:
         stats["breaker"] = ctx.engine.breaker.stats()
+    if ctx.engine.mesh is not None:
+        stats["mesh"] = ctx.engine.mesh.stats()
     return json.dumps(stats)
 
 
@@ -1584,10 +1586,21 @@ def build_server(store_dir: str | None = None, manager=None,
             raise ValueError("build_server needs store_dir or manager")
         manager = SnapshotManager(store_dir, log=log)
     registry = registry if registry is not None else MetricsRegistry()
+    from annotatedvdb_tpu_torch.serve.mesh_exec import serve_mesh_executor
+
     breaker = DeviceBreaker(registry=registry, log=log)
     engine = QueryEngine(
         manager, registry=registry, region_cache_size=region_cache_size,
         residency=residency, breaker=breaker, device=device,
+        # the mesh state budget rides the residency manager's already-
+        # split per-device share (env/flag -> per-worker -> per-device),
+        # never the raw env
+        mesh=serve_mesh_executor(
+            registry=registry, breaker=breaker, log=log,
+            budget_bytes=residency.budget if residency is not None
+            else None,
+            device=device,
+        ),
     )
     batcher = QueryBatcher(
         engine, max_batch=max_batch, max_wait_s=max_wait_s,

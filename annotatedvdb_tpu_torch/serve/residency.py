@@ -12,8 +12,10 @@ the engine's ``torch.device`` (uploads through ``Segment.
 _ensure_device_cache``, on a worker thread by default) and drops the cold
 tail's.  A segment's cost is what the port's cache really holds: pos,
 ref_len and alt_len as int32, the hash as int64 and both allele rows,
-unpadded.  Correctness never depends on residency.  The per-device
-placement of the mesh is not ported.
+unpadded.  Correctness never depends on residency.  With the mesh's
+``placement`` (chromosome code -> device index) and ``devices`` (its
+pool), the budget is per device: each device packs its own hottest
+segments, and a segment's cache goes to its chromosome's device.
 """
 
 from __future__ import annotations
@@ -68,14 +70,17 @@ def _key_bounds(seg):
 class _Entry:
     """Tracking state for one managed segment (one snapshot generation)."""
 
-    __slots__ = ("seg", "nbytes", "score", "resident", "key_min", "key_max")
+    __slots__ = ("seg", "nbytes", "score", "resident", "key_min", "key_max",
+                 "device")
 
-    def __init__(self, seg, nbytes: int):
+    def __init__(self, seg, nbytes: int, device: int | None = None):
         self.seg = seg
         self.nbytes = nbytes
         self.score = 0.0
         self.resident = False
         self.key_min, self.key_max = _key_bounds(seg)
+        #: placement device index (None = the manager's device)
+        self.device = device
 
 
 class ResidencyManager:
@@ -91,7 +96,8 @@ class ResidencyManager:
                  log=None, upload: bool | None = None,
                  min_rows: int | None = None,
                  async_upload: bool | None = None,
-                 plan_interval_s: float | None = None, device=None):
+                 plan_interval_s: float | None = None, device=None,
+                 placement: dict | None = None, devices=None):
         import torch
 
         from annotatedvdb_tpu_torch.runtime import resolve_device
@@ -101,6 +107,13 @@ class ResidencyManager:
         self.budget = max(int(budget_bytes), 0)
         self.device = resolve_device(device) \
             if not isinstance(device, torch.device) else device
+        #: chromosome code -> device index (``parallel.mesh.
+        #: chromosome_placement``): with a placement the budget is PER
+        #: DEVICE, and a segment's cache goes to its chromosome's device;
+        #: None keeps one bucket on ``device``
+        self.placement = placement
+        #: the devices placement indexes name (the mesh's pool)
+        self._devices = tuple(devices) if devices is not None else None
         self.log = log if log is not None else (lambda msg: None)
         self._upload = upload
         self._async_upload = True if async_upload is None else bool(async_upload)
@@ -159,12 +172,15 @@ class ResidencyManager:
                     and snap.generation <= self._generation):
                 return
         entries: dict[int, _Entry] = {}
-        for shard in snap.store.shards.values():
+        for code, shard in snap.store.shards.items():
+            device = (self.placement.get(code)
+                      if self.placement is not None else None)
             for seg in shard.segments:
                 seg.residency = "managed"
                 if seg.n >= self.min_rows:
                     entries[id(seg)] = _Entry(
-                        seg, device_cache_bytes(seg, shard.width)
+                        seg, device_cache_bytes(seg, shard.width),
+                        device=device,
                     )
         with self._lock:
             if (self._generation is not None
@@ -228,13 +244,16 @@ class ResidencyManager:
                 -e.score * (HYSTERESIS if e.resident else 1.0), e.nbytes,
             ),
         )
+        # with a placement each device's bucket packs on its own (a cold
+        # device never lends its headroom to a hot one)
         want_ids = set()
-        used = 0
+        used: dict = {}
         for e in ranked:
-            if e.score <= 0.0 or e.nbytes > self.budget - used:
+            spent = used.get(e.device, 0)
+            if e.score <= 0.0 or e.nbytes > self.budget - spent:
                 continue
             want_ids.add(id(e))
-            used += e.nbytes
+            used[e.device] = spent + e.nbytes
         evict, upload = [], []
         for e in entries:
             if e.resident and id(e) not in want_ids:
@@ -270,13 +289,21 @@ class ResidencyManager:
         if self._m_resident is not None:
             self._m_resident.set(self.resident_bytes())
 
+    def _device_for(self, index: int | None):
+        """The torch device a placement index names (the manager's device
+        for None or an index past the pool)."""
+        if index is None or self._devices is None \
+                or index >= len(self._devices):
+            return self.device
+        return self._devices[index]
+
     def _do_uploads(self, upload: list) -> None:
         for i, e in enumerate(upload):
             with self._lock:
                 if not e.resident:
                     continue  # a newer plan evicted it before we got here
             try:
-                e.seg._ensure_device_cache(self.device)
+                e.seg._ensure_device_cache(self._device_for(e.device))
                 with self._lock:
                     if not e.resident:
                         e.seg._device = None
@@ -305,7 +332,7 @@ class ResidencyManager:
         """Summary for ``/stats`` and tests."""
         with self._lock:
             entries = list(self._entries.values())
-            return {
+            out = {
                 "budget_bytes": self.budget,
                 "candidates": len(entries),
                 "resident": sum(1 for e in entries if e.resident),
@@ -314,3 +341,11 @@ class ResidencyManager:
                 ),
                 "generation": self._generation,
             }
+            if self.placement is not None:
+                per_device: dict = {}
+                for e in entries:
+                    if e.resident:
+                        key = str(e.device)
+                        per_device[key] = per_device.get(key, 0) + e.nbytes
+                out["per_device_bytes"] = per_device
+            return out

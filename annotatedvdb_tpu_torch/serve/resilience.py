@@ -20,8 +20,9 @@ Port of ``annotatedvdb_tpu/serve/resilience.py``:
 
 The port's store probe raises on a device error (no store-side fallback),
 so the engine catches it and reports to the breaker directly: the
-reference's store-side failure hook (``install``/``observing``) and the
-mesh pre-check (``would_allow``) are not ported.  Ladder transitions
+reference's store-side failure hook (``install``/``observing``) is not
+ported.  The mesh executor's pre-check reads :meth:`DeviceBreaker.
+would_allow` (no trial slot spent).  Ladder transitions
 (``on_change``) and breaker trips and re-closes (``events``) feed the
 flight recorder's lifecycle timeline (``serve/http.py::ServeContext``).
 """
@@ -376,6 +377,21 @@ class DeviceBreaker:
             return True
         return False
 
+    def would_allow(self, code: int) -> bool:
+        """:meth:`allow_device`'s verdict WITHOUT consuming the half-open
+        trial slot or changing state — for pre-flight gates (the mesh
+        executor's ``would_dispatch``) that run before the real admission;
+        calling ``allow_device`` twice per dispatch would spend the one
+        half-open trial on the pre-check."""
+        now = self._clock()
+        with self._lock:
+            g = self._groups.get(code)
+            if g is None or g["state"] == "closed":
+                return True
+            if g["state"] == "open":
+                return now >= g["reopen_at"]
+            return False  # half_open: the one trial is already in flight
+
     def record_failure(self, code: int, exc: BaseException) -> None:
         now = self._clock()
         tripped = False
@@ -450,6 +466,11 @@ class DeviceBreaker:
             return sorted(
                 c for c, g in self._groups.items() if g["state"] != "closed"
             )
+
+    def state(self, code: int) -> str:
+        with self._lock:
+            g = self._groups.get(code)
+            return g["state"] if g is not None else "closed"
 
     def stats(self) -> dict:
         with self._lock:

@@ -34,14 +34,16 @@ def _ttl_from_env() -> float:
 class StoreSnapshot:
     """One immutable pinned generation of a store (``generation`` is
     1-based and increments per swap; ``fingerprint`` is None for in-memory
-    stores)."""
+    stores); ``placement`` is the manifest's advisory chromosome->device
+    map (``mesh_placement``, None for single-device stores)."""
 
-    __slots__ = ("store", "generation", "fingerprint")
+    __slots__ = ("store", "generation", "fingerprint", "placement")
 
     def __init__(self, store: VariantStore, generation: int, fingerprint):
         self.store = store
         self.generation = generation
         self.fingerprint = fingerprint
+        self.placement = getattr(store, "mesh_placement", None)
 
 
 def _manifest_fingerprint(store_dir: str) -> tuple:

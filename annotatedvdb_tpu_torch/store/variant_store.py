@@ -976,6 +976,10 @@ class VariantStore:
         # jsonl: {...}}}), carried in the manifest so load can detect torn
         # or bit-rotted segment files
         self._integrity: dict[str, dict] = {}
+        #: advisory chromosome->device placement block read back from the
+        #: manifest (written by save() when a >1-device mesh is
+        #: configured) — None for single-device stores
+        self.mesh_placement: dict | None = None
         # identity of THIS store's on-disk lineage: save() only trusts
         # pre-existing segment files in a directory whose manifest carries
         # this uid
@@ -1211,6 +1215,15 @@ class VariantStore:
                 for label, groups in manifest["shards"].items()
             },
         }
+        # advisory mesh placement: which device each chromosome group would
+        # serve from under the configured AVDB_MESH_SHAPE (absent on a
+        # single-device resolution); deterministic on the environment and
+        # the content only, so save() never touches a device
+        from annotatedvdb_tpu_torch.parallel.placement import placement_hint
+
+        placement = placement_hint()
+        if placement is not None:
+            manifest["mesh_placement"] = placement
         # atomic swap: a process crash mid-save leaves the previous
         # manifest intact (segments are also written via tmp+rename, so the
         # old manifest's files are never mutated in place).
@@ -1353,6 +1366,9 @@ class VariantStore:
             # their directory rewrites segments once, then records the uid.
             store._uid = uid
         store._integrity = dict(manifest.get("integrity") or {})
+        placement = manifest.get("mesh_placement")
+        if isinstance(placement, dict):
+            store.mesh_placement = placement
         verify = _verify_mode()
         from annotatedvdb_tpu_torch.types import chromosome_code
 

@@ -15,6 +15,14 @@ def next_pow2(n: int) -> int:
     return max(1 << (int(n) - 1).bit_length(), 1) if n > 0 else 1
 
 
+def mesh_capacity(n: int, n_shards: int) -> int:
+    """Padded row count for a mesh step: the pow2 shape bound rounded UP to
+    a multiple of ``n_shards`` (next_pow2 alone is not divisible by a
+    non-pow2 mesh, and the step prologue would raise mid-load)."""
+    cap = max(next_pow2(n), n_shards)
+    return cap + (-cap) % n_shards
+
+
 def pad_pow2(a: np.ndarray, fill) -> np.ndarray:
     """Pad the leading axis to the next power of two with ``fill``."""
     n = a.shape[0]

@@ -3,9 +3,9 @@
 Copy of ``annotatedvdb_tpu/utils/faults.py``, whole: the same grammar,
 registry, actions, seeded ``prob`` coin and error texts, so one
 ``AVDB_FAULT`` spec arms both packages alike and fires on the same
-passes.  Every point but ``mesh.dispatch`` is wired in this package (the
-mesh is not ported); the registry still names it, so every spec the
-reference accepts parses here too.
+passes.  Every point is wired in this package at the counterpart of the
+reference's site, ``mesh.dispatch`` included (the two sharded calls of
+``serve/mesh_exec.py``).
 
 ``AVDB_FAULT=<point>:<when>[:<action>[:<ms>]]`` arms exactly one named
 injection point.  ``<when>`` selects WHICH passes fire:

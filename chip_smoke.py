@@ -80,7 +80,19 @@ each phase printing one JSON line:
               of -5, 0, 1, B - 1, B, B + 7 and the int32 ends; then, in a
               spawned process, its time at one 4,096-row batch (a stream
               call), at a part of 37 batches (an export launch) and at
-              1,048,576 rows beside the plain version's and the bound;
+              1,048,576 rows beside the plain version's and the bound.
+              Then the mesh's kernels: ``lookup_multi`` against its plain
+              version exactly on :func:`lookup_multi_edge_cases` at W =
+              16, 49 and 96 (runs of five and four equal keys,
+              cross-chromosome collisions, unsigned hash order, the
+              sentinel pad, empty and all-sentinel slices) and on a
+              1,048,576-row multi-chromosome slice at W = 49 against
+              65,536 queries; ``bits_spans_stacked`` on
+              :func:`stacked_bits_edge_cases` and on phase 15's stack
+              shape (25 groups padded to the largest, 4,096 intervals);
+              both are timed with phase 15.  The seeded inputs of phases
+              3-10 are written by the second process beside the first
+              kernel checks, which read none of them;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -317,6 +329,43 @@ each phase printing one JSON line:
               daemon's ``ledger.compact`` span and lifecycle events) run
               on the leader's store, each timed.
 
+15. mesh    — run by the second process beside phase 14 (which keeps
+              the card mostly idle while its fleet waits), its counts
+              set to 0 there just before it: first the mesh kernels
+              timed at phase 3's shapes (a 1,048,576-row slice, the
+              25-group stack) beside their plain versions, their bounds,
+              two batched ``torch.searchsorted`` and the plain in-batch
+              dedup; then the device mesh over
+              ``AVDBC_VIRTUAL_DEVICES=4`` shards of ``cuda:0``: a seeded
+              VCF of 500,000 lines (cut from 1,000,000 for the smoke's
+              time) over chromosomes 1-22, X, Y and MT in proportion to
+              their GRCh38 lengths, sorted as real VCFs are (written by
+              the second process beside phases 10-13, untimed), through
+              ``load-vcf --maxWorkers 4``, then ``load-vep --maxWorkers
+              4`` with 20,000 results and ``load-cadd --maxWorkers 4``
+              over a 1-Mbp span on three chromosomes, and the same three
+              commands with ``--maxWorkers 1`` into another store: the
+              two stores equal after each command (digests), the printed
+              counters equal, the walls, four ``annotate_bin`` launches
+              a chunk on the mesh and the ``lookup_multi`` launches.
+              Then an in-process ``serve`` (``aio``) on the mesh store
+              with ``AVDB_SERVE_MESH=1``: 32 bulk lookups of 256 ids
+              over every chromosome, 16 ``/regions`` panels over 8
+              groups and 8 ``/stats/region`` calls, every body equal to
+              a host-only server's (an ``aio`` server on the CPU over the
+              other store); the ``MeshExecutor`` stats and the
+              ``lookup_multi`` and ``bits_spans_stacked`` launches;
+              ``POST /_chaos`` arms ``mesh.dispatch``
+              (``AVDB_SERVE_CHAOS=1``): the bulks answer the same bodies
+              through the single-device path, the breaker's mesh group
+              opens and, the fault disarmed and its cool-down (shortened
+              to 1 s here) past, re-closes through the mesh.  A
+              one-process ``nccl`` world on a loopback coordinator (a
+              child process started with the phase) runs
+              ``distributed_annotate_step`` on a seeded batch over the
+              four shards: its counts equal the in-process run's.  The
+              phase prints its own seconds.
+
 Then a ``leftovers`` line (the smoke fails if any process it started
 outlived its phase: those still running are listed and SIGKILLed; the
 card's compute processes and used memory beside them), one ``chaos``
@@ -349,6 +398,9 @@ WIDTH = 49
 EDGE_WIDTHS = (16, 31, 32, 33, 49, 64, 65, 96)
 CHUNK_ROWS = 65_536
 BIG_ROWS = 1 << 20
+#: the mesh kernels' launches in a serving process that runs no mesh (every
+#: serve process's run summary counts them; phases 11 and 14 serve without)
+MESH_IDLE = {"bits_spans_stacked": 0, "lookup_multi": 0}
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores
 
@@ -2681,6 +2733,463 @@ def serve_kernel_timing() -> dict:
                             for n, rs in runs.items()},
                         "timing_runs": runs}
     return timing
+
+
+# ------------------------------------------------ mesh kernels (phase 3)
+
+#: the mesh's probe shape (phase 3): a shard's multi-chromosome slice of
+#: 1,048,576 rows at W = 49 against 65,536 queries
+MESH_SLICE_ROWS = 1 << 20
+MESH_QUERIES = 1 << 16
+#: the stacked-BITS shape: 25 groups (chromosomes 1-22, X, Y, MT) padded
+#: to the largest, 4,096 intervals over them
+MESH_GROUPS = 25
+MESH_INTERVALS = 4096
+#: rows per 100 kb of a chromosome in phase 15's stack: 1,000,000 lines
+#: over the 3.1 Gb genome (chr1's group pads to 131,072 rows)
+MESH_STACK_SCALE = 32
+
+
+def _multi_slice(rows, width, pad_to=0) -> tuple:
+    """A shard's store slice from (chrom, pos, hm, ref, alt) rows: sorted
+    by (pos, hm), stable, then padded with sentinel rows (position
+    POS_SENTINEL, everything else 0) up to ``pad_to``.  Returns the seven
+    columns (chrom int8, pos int32, hm uint32, ref and alt [M, W] uint8,
+    ref_len and alt_len int32)."""
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    rows = sorted(rows, key=lambda r: (r[1], r[2]))
+    m = max(len(rows), pad_to)
+    chrom = np.zeros(m, np.int8)
+    pos = np.full(m, POS_SENTINEL, np.int32)
+    hm = np.zeros(m, np.uint32)
+    rl = np.zeros(m, np.int32)
+    al = np.zeros(m, np.int32)
+    for i, (c, p, h, _r, _a) in enumerate(rows):
+        chrom[i], pos[i], hm[i] = c, p, h
+    ref, rlen = encode([r[3] for r in rows], width)
+    alt, alen = encode([r[4] for r in rows], width)
+    ref_m = np.zeros((m, width), np.uint8)
+    alt_m = np.zeros((m, width), np.uint8)
+    ref_m[:len(rows)], alt_m[:len(rows)] = ref, alt
+    rl[:len(rows)], al[:len(rows)] = rlen, alen
+    return chrom, pos, hm, ref_m, alt_m, rl, al
+
+
+def _multi_queries(rows, width) -> tuple:
+    """Query columns from (chrom, pos, hm, ref, alt) rows, in order."""
+    ref, rl = encode([r[3] for r in rows], width)
+    alt, al = encode([r[4] for r in rows], width)
+    return (np.asarray([r[0] for r in rows], np.int8),
+            np.asarray([r[1] for r in rows], np.int32),
+            np.asarray([r[2] for r in rows], np.uint32), ref, alt, rl, al)
+
+
+def lookup_multi_edge_cases(width) -> list:
+    """``lookup_in_sorted_multi``'s traps as (label, store columns, query
+    columns) at allele width ``width``: a run of five equal (pos, hash)
+    rows (the fifth is past the four-candidate window and must miss), a
+    run of four (all hit), a cross-chromosome collision (same pos and
+    mixed hash, another chromosome: miss), two chromosomes at one
+    position and hash (each finds its own row), hashes at 2**31 and
+    2**32 - 1 (unsigned order), an allele of exactly W bytes and one
+    differing in its last byte, a length mismatch, positions before,
+    after and between the rows, negative (salted) positions, the sentinel
+    itself (which matches the first pad row), on a sentinel-padded slice,
+    on an empty slice (M = 0) and on an all-sentinel slice; then a random
+    multi-chromosome slice of 3,000 rows padded to 4,096 with 4,099
+    queries (hits, misses, cross-chromosome collisions)."""
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    long_a = "ACGT" * (width // 4) + "A" * (width % 4)
+    run5 = [(3, 1000, 77, r, a) for r, a in
+            (("A", "C"), ("A", "G"), ("A", "T"), ("C", "A"), ("C", "G"))]
+    run4 = [(9, 6000, 5, "G", a) for a in ("A", "C", "T", "GA")]
+    rows = run5 + run4 + [
+        (3, 2000, 500, "G", "T"),
+        (5, 3000, 10, "A", "C"), (5, 3000, 20, "A", "G"),
+        (5, 3000, 2**31, "A", "T"), (5, 3000, 2**32 - 1, "C", "T"),
+        (7, 4000, 99, long_a, "C"),
+        (1, 5000, 42, "T", "G"), (2, 5000, 42, "T", "G"),
+        (25, 7000, 3, "ACG", "A"),
+    ]
+    last_flip = long_a[:-1] + ("C" if long_a[-1] != "C" else "G")
+    queries = rows + [
+        (4, 2000, 500, "G", "T"),          # cross-chromosome collision
+        (3, 1000, 78, "A", "C"),           # hash differs
+        (7, 4000, 99, last_flip, "C"),     # last byte differs
+        (25, 7000, 3, "ACGT", "A"),        # length differs
+        (5, 2999, 10, "A", "C"), (5, 3001, 10, "A", "C"),
+        (1, 1, 0, "A", "C"), (1, 10**9, 0, "A", "C"),
+        (0, -5, 0, "", ""), (0, -1, 0, "", ""),
+        (0, POS_SENTINEL, 0, "", ""),       # a pad row's identity
+        (0, 0, 0, "", ""),
+    ]
+    q = _multi_queries(queries, width)
+    cases = [("edges", _multi_slice(rows, width, pad_to=32), q),
+             ("unpadded", _multi_slice(rows, width), q),
+             ("empty", _multi_slice([], width), q),
+             ("sentinels", _multi_slice([], width, pad_to=8), q)]
+    store, query = lookup_multi_random(7 + width, 3_000, 4_099, width,
+                                       pad_to=4_096)
+    cases.append(("random", store, query))
+    return cases
+
+
+def lookup_multi_random(seed, m, n, width, pad_to=0) -> tuple:
+    """A random multi-chromosome slice of ``m`` rows (chromosomes 1-25,
+    runs of equal positions, alleles of 1 to ``width`` + 2 bytes cut to
+    the width), padded to ``pad_to``, and ``n`` queries: half copies of
+    rows, a quarter the same with the chromosome changed (cross-chromosome
+    collisions), a quarter with an allele byte or a length changed.
+    Vectorized: the phase-3 shape (1,048,576 rows) builds in seconds."""
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    rng = np.random.default_rng(seed)
+    mm = max(m, pad_to)
+    chrom = rng.integers(1, 26, m).astype(np.int8)
+    pos = np.sort(rng.integers(1, max(m // 2, 2), m)).astype(np.int32)
+    hm = rng.integers(0, 2**32, m, dtype=np.uint64).astype(np.uint32)
+    k = hm[1::7].size  # neighbours sharing a hash (equal keys at one position)
+    hm[:7 * k:7] = hm[1::7]
+    key = (pos.astype(np.uint64) << np.uint64(32)) | hm
+    order = np.argsort(key, kind="stable")
+    chrom, pos, hm = chrom[order], pos[order], hm[order]
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    rl = rng.integers(1, width + 3, m).astype(np.int32)
+    al = rng.integers(1, width + 3, m).astype(np.int32)
+    cols = np.arange(width)
+    ref = np.where(cols[None, :] < rl[:, None],
+                   bases[rng.integers(0, 4, (m, width))], 0).astype(np.uint8)
+    alt = np.where(cols[None, :] < al[:, None],
+                   bases[rng.integers(0, 4, (m, width))], 0).astype(np.uint8)
+
+    def padded(a, fill):
+        out = np.full((mm,) + a.shape[1:], fill, a.dtype)
+        out[:m] = a
+        return out
+
+    store = (padded(chrom, 0), padded(pos, POS_SENTINEL), padded(hm, 0),
+             padded(ref, 0), padded(alt, 0), padded(rl, 0), padded(al, 0))
+    return store, multi_queries(rng, (chrom, pos, hm, ref, alt, rl, al), n, width)
+
+
+def multi_queries(rng, rows, n, width) -> tuple:
+    """``n`` queries against the slice ``rows`` (its real rows' seven
+    columns): half copies of rows, a quarter the same with the chromosome
+    changed (cross-chromosome collisions), a quarter with an allele byte
+    or a length changed.  ``rng`` is a numpy Generator or a seed."""
+    rng = np.random.default_rng(rng)
+    pick = rng.integers(0, rows[1].size, n)
+    q = [a[pick].copy() for a in rows]
+    kind = rng.integers(0, 4, n)
+    cross = kind == 2
+    q[0][cross] = (q[0][cross] % 25) + 1
+    change = kind == 3
+    idx = np.flatnonzero(change)
+    flip = idx[::2]
+    col = rng.integers(0, width, flip.size)
+    q[3][flip, col] = np.where(q[3][flip, col] == ord("A"), ord("C"), ord("A"))
+    q[5][idx[1::2]] += 1
+    return tuple(q)
+
+
+def stacked_bits_case(seed, groups=MESH_GROUPS, intervals=MESH_INTERVALS,
+                      scale=1) -> tuple:
+    """The mesh executor's panel stack: ``groups`` chromosome groups with
+    rows in proportion to their GRCh38 lengths (``scale`` rows per 100 kb,
+    one group left empty, all-sentinel), each row sentinel-padded to the
+    largest group's power of two, and ``intervals`` query intervals
+    spread over the groups in proportion too, zero-padded to the largest
+    group's count (the pad queries come back with leaf -1).  Returns
+    (pos [B, R], starts [B, Q], ends [B, Q], per-group query counts)."""
+    from annotatedvdb_tpu_torch.genome.assemblies import BUILD_LENGTHS
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL, next_pow2
+
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(BUILD_LENGTHS["grch38"][:groups], np.int64)
+    counts = np.maximum(lengths * scale // 100_000, 1)
+    counts[groups // 2] = 0
+    share = np.maximum(np.round(intervals * lengths / lengths.sum()), 1).astype(int)
+    share[-1] += intervals - share.sum()
+    r_cap = next_pow2(int(counts.max()))
+    q_cap = int(share.max())
+    pos = np.full((groups, r_cap), POS_SENTINEL, np.int32)
+    starts = np.zeros((groups, q_cap), np.int32)
+    ends = np.zeros((groups, q_cap), np.int32)
+    for g in range(groups):
+        k, length = int(counts[g]), int(lengths[g])
+        rows = np.sort(rng.integers(1, length, k)).astype(np.int32)
+        if k > 40:
+            rows[10:30] = rows[10]  # a run of equal positions
+        pos[g, :k] = rows
+        s = rng.integers(1, length, share[g])
+        starts[g, :share[g]] = s
+        ends[g, :share[g]] = np.minimum(s + rng.integers(0, 2_000_000, share[g]),
+                                        length)
+    return pos, starts, ends, share
+
+
+def stacked_bits_edge_cases() -> list:
+    """(label, pos [B, R], starts [B, Q], ends [B, Q]) for the stacked BITS
+    kernel: one group (the single form), a stack with an all-sentinel
+    group and zero-padded queries (leaf -1 by floor division), one row a
+    group, Q not a multiple of 8 and B * Q past one block, runs of equal
+    positions, bounds at the sentinel and the clamp; then the phase's
+    stack at a hundredth of its rows."""
+    from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
+
+    rng = np.random.default_rng(150)
+    cases = []
+    pos = np.sort(rng.integers(100, 400, (1, 64)), axis=1).astype(np.int32)
+    s = rng.integers(50, 450, (1, 13)).astype(np.int32)
+    cases.append(("one-group", pos, s, (s + rng.integers(0, 60, s.shape)).astype(np.int32)))
+    pos = np.full((5, 32), POS_SENTINEL, np.int32)
+    pos[0, :20] = np.sort(rng.integers(1, 100, 20))
+    pos[2, :32] = np.sort(rng.integers(1, 100_000, 32))
+    pos[3, :5] = 777
+    starts = np.zeros((5, 11), np.int32)
+    ends = np.zeros((5, 11), np.int32)
+    starts[0, :7] = [0, 1, 5, 50, 99, 100, 2**31 - 17]
+    ends[0, :7] = [0, 3, 60, 50, 200, 100, 2**31 - 17]
+    starts[2, :3] = [1, 15625, 15626]
+    ends[2, :3] = [15625, 15626, 100_000]
+    starts[3, :4] = [776, 777, 777, 778]
+    ends[3, :4] = [777, 777, 778, 800]
+    starts[4, :2] = [POS_SENTINEL - 16, 1]
+    ends[4, :2] = [POS_SENTINEL - 16, POS_SENTINEL - 16]
+    cases.append(("padded", pos, starts, ends))
+    pos = np.sort(rng.integers(1, 1000, (9, 1)), axis=1).astype(np.int32)
+    s = rng.integers(0, 1000, (9, 37)).astype(np.int32)
+    cases.append(("one-row", pos, s, (s + 3).astype(np.int32)))
+    pos, starts, ends, _share = stacked_bits_case(151, scale=0.01)
+    cases.append(("phase-shape/100", pos, starts, ends))
+    return cases
+
+
+def lookup_multi_bound(store, query) -> dict:
+    """Bytes ``lookup_in_sorted_multi`` must move for these inputs and the
+    operations it does: each query's columns read once (2 W + 21 bytes)
+    and its outputs written once (5 bytes); the 32-byte sectors of the
+    position column its two searches touch and of the hash column its
+    hash search touches; the scalars (21 bytes) of every candidate it
+    examines and the allele bytes (2 W) of every candidate whose scalars
+    match.  Operations: three a search step, five a candidate and one a
+    compared allele byte."""
+    s_chrom, s_pos, s_hm, _s_ref, _s_alt, s_rl, s_al = store
+    chrom, pos, hm, ref, _alt, rl, al = query
+    n, w = pos.size, ref.shape[1]
+    sectors = _search_sectors(s_pos, pos) | _search_sectors(s_pos, pos, right=True)
+    lo = np.searchsorted(s_pos, pos, side="left")
+    hi = np.searchsorted(s_pos, pos, side="right")
+    hm64 = s_hm.astype(np.int64)
+    q64 = hm.astype(np.int64)
+    l, r = lo.copy(), hi.copy()
+    hm_sectors = set()
+    steps = 0
+    while True:
+        active = l < r
+        if not active.any():
+            break
+        steps += int(active.sum())
+        mid = (l + r) >> 1
+        hm_sectors.update((mid[active] // 4).tolist())
+        less = hm64[np.minimum(mid, s_pos.size - 1)] < q64
+        l = np.where(active & less, mid + 1, l)
+        r = np.where(active & ~less, mid, r)
+    examined = np.minimum(np.maximum(hi - l, 0), 4)
+    cand = 0
+    if s_pos.size:
+        for k in range(4):
+            ii = np.minimum(l + k, s_pos.size - 1)
+            ok = ((k < examined) & (s_pos[ii] == pos) & (hm64[ii] == q64)
+                  & (s_chrom[ii] == chrom) & (s_rl[ii] == rl) & (s_al[ii] == al))
+            cand += int(ok.sum())
+    nbytes = (n * (2 * w + 21) + 5 * n + 32 * (len(sectors) + len(hm_sectors))
+              + 21 * int(examined.sum()) + 2 * w * cand)
+    log_m = int(np.ceil(np.log2(s_pos.size + 1)))
+    ops = 3 * (2 * n * log_m + steps) + 5 * int(examined.sum()) + 2 * w * cand
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": int(s_pos.size), "queries": int(n), "width": int(w),
+            "candidates_examined": int(examined.sum()), "candidates_matched": cand,
+            "search_sectors": len(sectors) + len(hm_sectors), "bytes": int(nbytes),
+            "ops": int(ops), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def stacked_bits_bound(pos, starts, ends) -> dict:
+    """Bytes and operations of the stacked BITS call: each group's row as
+    :func:`serve_bound`'s ``bits`` kind counts a single one (query bounds
+    in, 13 bytes a query out, the position sectors its searches touch),
+    summed over the groups, pad queries included (the call answers
+    them)."""
+    out = {"bytes": 0, "ops": 0, "search_sectors": 0}
+    for g in range(pos.shape[0]):
+        b = serve_bound("bits", pos[g], starts[g], ends[g])
+        for k in out:
+            out[k] += b[k]
+    bytes_ms = out["bytes"] / MEM_BYTES_PER_S * 1e3
+    ops_ms = out["ops"] / INT32_OPS_PER_S * 1e3
+    return {"groups": int(pos.shape[0]), "rows": int(pos.shape[1]),
+            "queries": int(starts.shape[1]), **out, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _multi_tensors(torch, cols, device):
+    """The slice or query columns on ``device`` as the probe takes them
+    (the mixed hash as int64)."""
+    out = []
+    for k, c in enumerate(cols):
+        c = np.ascontiguousarray(c.astype(np.int64) if k == 2 else c)
+        out.append(torch.from_numpy(c).to(device))
+    return out
+
+
+def mesh_kernel_checks(torch, device) -> tuple:
+    """``lookup_multi`` and ``bits_spans_stacked`` against their plain
+    versions on the card, exactly, on the edge cases and at the phase
+    shapes.  Returns the checks and the largest absolute difference."""
+    from annotatedvdb_tpu_torch.ops import dedup
+    from annotatedvdb_tpu_torch.ops import intervals as I
+
+    checks, worst = [], 0
+
+    def compare(kernel, label, got, want, **info):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  if g.numel() else 0 for g, w in zip(got, want))
+        same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        worst = max(worst, err)
+        checks.append({"kernel": kernel, "inputs": label, "equal": same,
+                       "max_abs_err": err, **info})
+        if not same:
+            raise AssertionError(f"{kernel} disagrees with its plain version on "
+                                 f"{label} (max |diff| {err})")
+
+    cases = [(f"{label}-w{w}", st, q) for w in (16, 49, 96)
+             for label, st, q in lookup_multi_edge_cases(w)]
+    cases.append(("phase", *lookup_multi_random(15, MESH_SLICE_ROWS, MESH_QUERIES,
+                                                WIDTH)))
+    for label, store, query in cases:
+        t = _multi_tensors(torch, store, device) + _multi_tensors(torch, query, device)
+        got = dedup.lookup_in_sorted_multi(*t)
+        want = dedup.lookup_in_sorted_multi_reference(*t)
+        compare("lookup_multi", label, got, want, rows=int(store[1].size),
+                queries=int(query[1].size), hits=int(want[0].sum()))
+    stacks = stacked_bits_edge_cases() + [
+        ("phase", *stacked_bits_case(153, scale=MESH_STACK_SCALE)[:3])]
+    for label, pos, starts, ends in stacks:
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+             for x in (pos, starts, ends)]
+        compare("bits_spans_stacked", label, I.bits_spans_stacked(*t),
+                I.bits_spans_stacked_reference(*t), groups=int(pos.shape[0]),
+                rows=int(pos.shape[1]), queries=int(starts.shape[1]))
+    return checks, worst
+
+
+def mesh_kernel_timing() -> dict:
+    """The mesh's kernels timed at the phase shapes in a fresh process:
+    ``lookup_multi`` at a 1,048,576-row slice (W = 49) against 65,536
+    queries, ``bits_spans_stacked`` at phase 15's stack (25 groups, 4,096
+    intervals), each beside its plain version, its bound and (the stack)
+    two batched ``torch.searchsorted`` calls; device ms per call by
+    profiler, call ms by CUDA events.  Beside them the insert step's
+    plain in-batch dedup (``mark_batch_duplicates_multi``) at one shard's
+    69,632 rows."""
+    import torch
+
+    from annotatedvdb_tpu_torch.ops import dedup
+    from annotatedvdb_tpu_torch.ops import intervals as I
+    from annotatedvdb_tpu_torch.runtime import resolve_device
+
+    device = resolve_device("cuda")
+    store, query = lookup_multi_random(15, MESH_SLICE_ROWS, MESH_QUERIES, WIDTH)
+    others = [multi_queries(16 + k, store, MESH_QUERIES, WIDTH) for k in range(2)]
+    s_t = _multi_tensors(torch, store, device)
+    k1_inputs = [tuple(s_t + _multi_tensors(torch, q, device))
+                 for q in (query, *others)]
+    stacks = [stacked_bits_case(153 + k, scale=MESH_STACK_SCALE)[:3]
+              for k in range(3)]
+    k2_inputs = [tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                       for x in st) for st in stacks]
+
+    def best(rs):
+        dev = [r["device"] for r in rs if r["device"] is not None]
+        if dev:
+            return min(dev, key=lambda d: d["ms"])
+        return {"ms": min(r["call_ms"] for r in rs), "kernels": None}
+
+    shapes = {
+        "lookup_multi": (k1_inputs, dedup.lookup_in_sorted_multi,
+                         dedup.lookup_in_sorted_multi_reference, None,
+                         lookup_multi_bound(store, query)),
+        "bits_spans_stacked": (
+            k2_inputs, I.bits_spans_stacked, I.bits_spans_stacked_reference,
+            lambda p, s, e: (torch.searchsorted(p, s),
+                             torch.searchsorted(p, e, right=True)),
+            stacked_bits_bound(*stacks[0])),
+    }
+    timing = {}
+    # the insert step's in-batch dedup (plain torch: chained stable sorts)
+    # on one shard's 65,536 slots of the slice's rows, a sixteenth repeated
+    rows = [torch.from_numpy(np.ascontiguousarray(c[:MESH_QUERIES])).to(device)
+            for c in store]
+    rows[2] = rows[2].to(torch.int64)
+    rows = [torch.cat([c, c[: MESH_QUERIES // 16]]) for c in rows]
+    dedup_inputs = [tuple(rows)]
+    runs = [{"device": device_profile(torch, dedup.mark_batch_duplicates_multi,
+                                      dedup_inputs, 10),
+             "call_ms": call_ms(torch, dedup.mark_batch_duplicates_multi,
+                                dedup_inputs, 10)} for _ in range(2)]
+    timing["mark_batch_duplicates_multi"] = {
+        "rows": int(rows[1].numel()), "plain_ms": best(runs)["ms"],
+        "kernels": best(runs)["kernels"],
+        "call_ms": min(r["call_ms"] for r in runs)}
+    for name, (inputs, kernel, plain, library, bound) in shapes.items():
+        fns = [("plain", plain, 3), ("kernel", kernel, 50), ("kernel", kernel, 50),
+               ("plain", plain, 3)]
+        if library is not None:
+            fns += [("library", library, 50)]
+        runs = {}
+        for tag, fn, iters in fns:
+            runs.setdefault(tag, []).append({
+                "device": device_profile(torch, fn, inputs, iters),
+                "call_ms": call_ms(torch, fn, inputs, iters)})
+        k = best(runs["kernel"])
+        timing[name] = {**bound, "ms": k["ms"], "kernels": k["kernels"],
+                        "plain_ms": best(runs["plain"])["ms"],
+                        "library_ms": best(runs["library"])["ms"] if library else None,
+                        "call_ms": min(r["call_ms"] for r in runs["kernel"]),
+                        "bound_share": bound["bound_ms"] / k["ms"],
+                        "timed_by": {n: "profiler" if any(
+                            r["device"] is not None for r in rs) else "events"
+                            for n, rs in runs.items()}}
+    return timing
+
+
+def mesh_kernel_rows(checks, worst, timing) -> list:
+    """The two kernel table rows of the mesh's kernels from phase 3's
+    :func:`mesh_kernel_checks` and phase 15's :func:`mesh_kernel_timing`
+    (launches filled in after phase 15); emits them."""
+    emit("mesh_kernels", checks=checks, timing=timing)
+    sources = {"lookup_multi": ("lookup_multi.cu", "annotatedvdb_tpu/ops/dedup.py:141"),
+               "bits_spans_stacked": ("bits_spans.cu",
+                                      "annotatedvdb_tpu/ops/intervals.py:88")}
+    rows = []
+    for name, (src, replaces) in sources.items():
+        t = timing[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"annotatedvdb_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": None, "max_abs_err": worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    return rows
 
 
 # --------------------------------------------- export pack kernel (phase 3)
@@ -5391,7 +5900,7 @@ def _serve_check(platform, frontend, run, jobs, answers, mix, kernel_ms,
     n_int = mix["intervals"] * (mix["panels"] + mix["stats"])
     launches = summary["launches"]
     want = {"bits_spans": mix["panels"], "stats_panel": mix["stats"],
-            "windowed_stats": mix["stats"], "export_pack": 0}
+            "windowed_stats": mix["stats"], "export_pack": 0, **MESH_IDLE}
     breaker = {"open_groups": [], "groups": {}}
     chaos = run["chaos"]
     if chaos is not None:
@@ -6529,12 +7038,13 @@ def upsert_phase(platform, store_dir, vcf, starts=UPSERT_STARTS, rows=UPSERT_ROW
     summary = merge_summaries(err, workers)
     launches = summary["launches"]
     predicted = {"bits_spans": sent["regions"], "stats_panel": sent["stats"],
-                 "windowed_stats": sent["stats"], "export_pack": 0}
+                 "windowed_stats": sent["stats"], "export_pack": 0, **MESH_IDLE}
     plain_cuda = {k: v.get("cuda", 0) for k, v in summary["plain_calls"].items()}
     f_summary = merge_summaries(follower.err_text(), 1)
     f_predicted = {"bits_spans": follower.sent["regions"],
                    "stats_panel": follower.sent["stats"],
-                   "windowed_stats": follower.sent["stats"], "export_pack": 0}
+                   "windowed_stats": follower.sent["stats"], "export_pack": 0,
+                   **MESH_IDLE}
     f_plain_cuda = {k: v.get("cuda", 0) for k, v in f_summary["plain_calls"].items()}
     assert all(out.strip() for out, _e in docs), \
         f"upsert: doctor --deep printed nothing: {[e[-2000:] for _o, e in docs]}"
@@ -6762,7 +7272,7 @@ CHAOS_INTERVALS = 64
 #: the launches of the chaos window's three panels once the breaker is
 #: closed again: one chr22 group each, above the device minimums
 CHAOS_LAUNCHES = {"bits_spans": 1, "stats_panel": 2, "windowed_stats": 1,
-                  "export_pack": 0}
+                  "export_pack": 0, **MESH_IDLE}
 
 #: seconds between the chaos window's polls of the breaker (one bulk call,
 #: whose membership probe is the half-open trial, then ``/stats``)
@@ -7008,6 +7518,416 @@ def chaos_export_check(platform, store_dir) -> dict:
             "parts_written": summary["parts_written"], "launches": launched}
 
 
+# ------------------------------------------------------ the mesh (phase 15)
+
+#: phase 15's one cut: the VCF's line count, 500,000 of the 1,000,000 a
+#: user's file would hold at least (the smoke's 1,200 s); its shards and
+#: the update inputs
+MESH_LINES = 500_000
+MESH_SHARDS = 4
+MESH_VEP_RESULTS = 20_000
+#: the CADD span: 1 Mbp over three chromosomes
+MESH_CADD_SPANS = {"2": (60_000_001, 60_333_334), "7": (50_000_001, 50_333_333),
+                   "X": (70_000_001, 70_333_333)}
+#: the serving traffic: bulk lookups of 256 ids, /regions panels over 8
+#: groups (8 intervals a group) and /stats/region calls (32 intervals)
+MESH_BULKS, MESH_BULK_IDS = 32, 256
+MESH_PANELS, MESH_PANEL_GROUPS, MESH_PANEL_PER_GROUP = 16, 8, 8
+MESH_STATS, MESH_STATS_INTERVALS = 8, 32
+MESH_LABELS = [str(c) for c in range(1, 23)] + ["X", "Y", "MT"]
+
+
+def write_mesh_inputs(work, n_lines=MESH_LINES, seed=15) -> dict:
+    """Phase 15's inputs under ``work/mesh``: a VCF of ``n_lines`` lines
+    over chromosomes 1-22, X, Y and MT in proportion to their GRCh38
+    lengths, each chromosome's lines position-sorted and the chromosomes
+    in order (dbSNP-shaped lines, :func:`vcf_lines`); a VEP JSON of
+    :data:`MESH_VEP_RESULTS` results over them; the CADD tables over
+    :data:`MESH_CADD_SPANS`.  Returns the paths, the VEP and CADD
+    predictions, the lines' per-chromosome sites and the seconds it took.
+    Reads nothing of the earlier phases, so it runs in another process."""
+    from annotatedvdb_tpu_torch.genome.assemblies import BUILD_LENGTHS
+
+    t0 = time.perf_counter()
+    d = os.path.join(work, "mesh")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(BUILD_LENGTHS["grch38"], np.int64)
+    counts = np.floor(n_lines * lengths / lengths.sum()).astype(np.int64)
+    counts[0] += n_lines - counts.sum()
+    vcf = os.path.join(d, "mesh.vcf")
+    lines_by, all_lines = {}, []
+    with open(vcf, "w") as fh:
+        fh.write(HEADER)
+        for k, (label, n) in enumerate(zip(MESH_LABELS, counts.tolist())):
+            pos = np.unique(rng.integers(1, int(lengths[k]) - 100, n + n // 50 + 8))
+            pos = np.sort(rng.choice(pos, n, replace=False))
+            lines, _rows = vcf_lines(seed * 100 + k, n, pos.tolist())
+            lines = [f"{label}\t{ln[3:]}" for ln in lines]
+            fh.writelines(lines)
+            lines_by[label] = lines
+            all_lines += lines
+    vep = os.path.join(d, "mesh.vep.json")
+    want_vep, _combos = write_vep_json(vep, all_lines, MESH_VEP_RESULTS, seed, 0)
+    sites = []
+    for label in MESH_CADD_SPANS:
+        sites += vcf_sites(lines_by[label])
+    db = os.path.join(d, "cadd")
+    pred = write_cadd_tables(db, sites, MESH_CADD_SPANS, seed=seed, level=1)
+    # bulk ids over every chromosome: stored identities (first alt) and 1
+    # in 8 with an alt the store does not hold
+    ids = []
+    for label, lines in lines_by.items():
+        take = rng.choice(len(lines), min(len(lines), 400), replace=False)
+        for i in take.tolist():
+            _c, p, _v, ref, alt_col = lines[i].split("\t", 5)[:5]
+            alt = alt_col.split(",")[0]
+            if alt == "." or rng.random() < 0.125:
+                alt = next(b for b in "ACGT" if b != ref[0])
+            ids.append(f"{label}:{p}:{ref}:{alt}")
+    return {"vcf": vcf, "vep": vep, "want_vep": want_vep, "cadd": db,
+            "lines": int(n_lines),
+            "cadd_pred": {k: v for k, v in pred.items() if k != "expected"},
+            "ids": ids, "lengths": lengths.tolist(),
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_traffic(inp, seed=16) -> list:
+    """Phase 15's requests: :data:`MESH_BULKS` bulk lookups of
+    :data:`MESH_BULK_IDS` ids drawn over every chromosome,
+    :data:`MESH_PANELS` ``/regions`` panels over :data:`MESH_PANEL_GROUPS`
+    groups and :data:`MESH_STATS` ``/stats/region`` calls, as (path,
+    body) pairs."""
+    rng = np.random.default_rng(seed)
+    ids, lengths = inp["ids"], inp["lengths"]
+    jobs = []
+    for _ in range(MESH_BULKS):
+        pick = rng.choice(len(ids), MESH_BULK_IDS, replace=False)
+        jobs.append(("/variants", {"ids": [ids[i] for i in pick.tolist()]}))
+
+    def intervals(groups, per_group):
+        specs = []
+        for g in groups.tolist():
+            width = min(300_000, lengths[g] // 2)  # MT is 16,569 bp
+            for _ in range(per_group):
+                s = int(rng.integers(1, lengths[g] - width))
+                specs.append(f"{MESH_LABELS[g]}:{s}-{s + int(rng.integers(0, width))}")
+        return specs
+
+    for _ in range(MESH_PANELS):
+        groups = rng.choice(len(MESH_LABELS), MESH_PANEL_GROUPS, replace=False)
+        jobs.append(("/regions", {"regions": intervals(groups, MESH_PANEL_PER_GROUP),
+                                  "limit": 5}))
+    for _ in range(MESH_STATS):
+        groups = rng.choice(len(MESH_LABELS), 4, replace=False)
+        jobs.append(("/stats/region", {"regions": intervals(
+            groups, MESH_STATS_INTERVALS // 4)}))
+    return jobs
+
+
+def _mesh_multihost(platform="cuda"):
+    """Start a one-process world on a loopback coordinator (a child
+    process: ``nccl`` on the card, ``gloo`` on the CPU) that runs the
+    sharded annotate step over the four virtual shards on a seeded batch.
+    Returns the child; :func:`_mesh_multihost_result` reads it."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = f"""
+import os, sys, json
+sys.path.insert(0, {ROOT!r})
+os.environ.update(AVDBC_VIRTUAL_DEVICES="{MESH_SHARDS}",
+                  AVDB_COORDINATOR="127.0.0.1:{port}",
+                  AVDB_NUM_PROCESSES="1", AVDB_PROCESS_ID="0")
+import torch, torch.distributed as dist
+from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+from annotatedvdb_tpu_torch.parallel import (
+    distributed_annotate_step, init_multihost, make_mesh, process_info)
+from annotatedvdb_tpu_torch.parallel.multihost import shutdown
+assert init_multihost(platform="{platform}")
+mesh = make_mesh()
+_a, _r, counts, dropped, n_fb = distributed_annotate_step(
+    mesh, synthetic_batch(65536, width=49, seed=15))
+print(json.dumps({{"counts": counts.tolist(), "dropped": int(dropped),
+                  "fallback": int(n_fb), "backend": dist.get_backend(),
+                  "world": list(process_info()), "shards": mesh.size,
+                  "collective": mesh.distributed}}))
+shutdown()
+"""
+    proc = subprocess.Popen([sys.executable, "-c", src], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def _mesh_multihost_result(proc) -> dict:
+    out, err = proc.communicate(timeout=240)
+    assert proc.returncode == 0, f"the one-process world failed: {err[-3000:]}"
+    res = json.loads(out.strip().splitlines()[-1])
+    res["seconds"] = time.perf_counter() - proc.t0
+    return res
+
+
+def mesh_steps(inp) -> list:
+    """Phase 15's three commands on a store, in order."""
+    return [("load", ["load-vcf", "--fileName", inp["vcf"], "--logAfter", "0"]),
+            ("vep", ["load-vep", "--fileName", inp["vep"], "--logAfter", "0"]),
+            ("cadd", ["load-cadd", "--databaseDir", inp["cadd"], "--logAfter", "0"])]
+
+
+def store_digests(store_dir) -> dict:
+    """sha256 of each file :func:`store_bytes` compares."""
+    import hashlib
+
+    return {k: hashlib.sha256(v).hexdigest() for k, v in store_bytes(store_dir).items()}
+
+
+def mesh_chain(inp, store, workers, platform="cuda", counts=None) -> dict:
+    """Phase 15's commands on ``store`` with ``--maxWorkers workers``, each
+    through the CLI's ``main`` with ``--commit``: per step its wall, the
+    printed lines, the store's digests after it and, with ``counts``
+    ({name: launch counter dict}), each counter's launches in it."""
+    import io
+
+    from annotatedvdb_tpu_torch.__main__ import main as cli
+
+    shutil.rmtree(store, ignore_errors=True)
+    out = {}
+    for step, argv in mesh_steps(inp):
+        before = {k: dict(c) for k, c in (counts or {}).items()}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        log = os.path.join(WORK, "mesh", f"{argv[0]}-{workers}.log")
+        with contextlib.redirect_stdout(buf):
+            rc = cli([*argv, "--storeDir", store, "--commit", "--maxWorkers",
+                      str(workers), "--platform", platform, "--logFilePath", log])
+        assert rc == 0, f"{argv[0]} (--maxWorkers {workers}) exited {rc}"
+        out[step] = {"wall_s": time.perf_counter() - t0,
+                     "printed": buf.getvalue().strip().splitlines()[-2:],
+                     "launches": {k: {n: c[n] - before[k].get(n, 0) for n in c}
+                                  for k, c in (counts or {}).items()},
+                     "digests": store_digests(store)}
+    return out
+
+
+def mesh_single_chain(inp, platform="cuda") -> dict:
+    """The single-device chain, with its ``annotate_bin`` launches (a chunk
+    each), then the host-only server's bodies for :func:`mesh_traffic` over
+    its store (an ``aio`` server on the CPU, the latency governor off)."""
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
+    from annotatedvdb_tpu_torch.serve.aio import build_aio_server
+
+    if platform == "cuda":
+        import torch
+
+        from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+
+        annotate_hash_fn(torch.device("cuda", 0))  # its check, uncounted
+    store = os.path.join(WORK, "mesh", "store_single")
+    out = mesh_chain(inp, store, 1, platform,
+                     counts={"annotate_cuda": annotate_cuda.LAUNCHES})
+    os.environ.update(AVDB_SERVE_MESH="0", AVDB_SERVE_BROWNOUT_P99_MS="0")
+    host = build_aio_server(store_dir=store, port=0, device="cpu")
+    host.start_background()
+    try:
+        t0 = time.perf_counter()
+        out["bodies"] = [_post_body(host, path, body)
+                         for path, body in mesh_traffic(inp)]
+        out["host_serve_s"] = time.perf_counter() - t0
+    finally:
+        host.shutdown()
+        host.ctx.batcher.close()
+    return out
+
+
+def mesh_phase_job(inp, t0, platform="cuda") -> dict:
+    """Phase 15 as the second process runs it, beside phase 14: first the
+    mesh kernels' timing (:func:`mesh_kernel_timing`, the process fresh),
+    then :func:`mesh_phase` with its single-device chain after the mesh's
+    in this process.  ``t0`` is the smoke's start on the monotonic clock
+    every process shares, so the lines it emits carry the smoke's
+    ``t_s``.  Returns :func:`mesh_phase`'s result with the timing."""
+    global T0
+    T0 = t0
+    import torch
+
+    timing = mesh_kernel_timing() if platform == "cuda" else {}
+    out = mesh_phase(torch, inp, platform)
+    out["timing"] = timing
+    return out
+
+
+def mesh_phase(torch, inp, platform="cuda", single=None) -> dict:
+    """Phase 15's mesh (see the module docstring).  ``single`` is a pending
+    single-device chain (a future of :func:`mesh_single_chain` another
+    process runs); when None it runs here after the mesh's.  Returns the
+    phase's launches of ``lookup_multi`` and ``bits_spans_stacked`` and
+    its seconds."""
+    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+    from annotatedvdb_tpu_torch.ops import annotate_cuda, dedup
+    from annotatedvdb_tpu_torch.ops import intervals as I
+    from annotatedvdb_tpu_torch.parallel import mesh as meshlib
+    from annotatedvdb_tpu_torch.parallel.distributed import distributed_annotate_step
+    from annotatedvdb_tpu_torch.serve.aio import build_aio_server
+    from annotatedvdb_tpu_torch.serve.mesh_exec import MESH_GROUP
+
+    t_phase = time.perf_counter()
+    on_card = platform == "cuda"
+    if on_card:
+        # the annotate kernel's one-time check (already run when phase 4
+        # came first) launches outside the counted path
+        from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+
+        annotate_hash_fn(torch.device("cuda", 0))
+    counted = (annotate_cuda.LAUNCHES, dedup.LAUNCHES, I.LAUNCHES, dedup.CALLS,
+               I.CALLS)
+    for counts in counted:  # every count 0 just before the phase's path
+        for name in counts:
+            counts[name] = 0
+    saved_env = {k: os.environ.get(k) for k in (
+        meshlib.VIRTUAL_DEVICES_ENV, "AVDB_SERVE_MESH", "AVDB_SERVE_CHAOS",
+        "AVDB_SERVE_BROWNOUT_P99_MS")}
+    os.environ[meshlib.VIRTUAL_DEVICES_ENV] = str(MESH_SHARDS)
+    meshlib.reset_global_mesh()
+    stores = {tag: os.path.join(WORK, "mesh", f"store_{tag}")
+              for tag in ("mesh", "single")}
+    world_proc = _mesh_multihost(platform)
+    try:
+        mesh_run = mesh_chain(inp, stores["mesh"], MESH_SHARDS, platform, counts={
+            "annotate_bin": annotate_cuda.LAUNCHES, "lookup_multi": dedup.LAUNCHES})
+        single_run = (single.result() if single is not None
+                      else mesh_single_chain(inp, platform))
+        steps = {}
+        for step, _argv in mesh_steps(inp):
+            m, s1 = mesh_run[step], single_run[step]
+            steps[step] = {"mesh_wall_s": m["wall_s"], "single_wall_s": s1["wall_s"],
+                           "launches": m["launches"],
+                           "single_annotate_bin": s1["launches"]["annotate_cuda"]
+                           ["annotate_bin"], "printed": m["printed"]}
+            if m["digests"] != s1["digests"]:
+                raise AssertionError(f"mesh {step} store differs from the "
+                                     f"single-device one")
+            if m["printed"] != s1["printed"]:
+                raise AssertionError(f"mesh {step} printed {m['printed']}, "
+                                     f"single {s1['printed']}")
+        chunks = steps["load"]["single_annotate_bin"]
+        got = steps["load"]["launches"]["annotate_bin"]["annotate_bin"]
+        if on_card and got != MESH_SHARDS * chunks:
+            raise AssertionError(f"mesh load launched annotate_bin {got} times "
+                                 f"for {chunks} chunks")
+        for step in ("vep", "cadd"):
+            if on_card and not steps[step]["launches"]["lookup_multi"]["lookup_multi"]:
+                raise AssertionError(f"mesh {step} never launched lookup_multi")
+        pred = inp["cadd_pred"]
+        counters = json.loads(mesh_run["cadd"]["printed"][-2])
+        if {k: counters[k] for k in ("snv", "indel", "update")} != \
+                {k: pred[k] for k in ("snv", "indel", "update")}:
+            raise AssertionError(f"mesh load-cadd counters {counters} against {pred}")
+        emit("mesh_loads", steps=steps, seconds=time.perf_counter() - t_phase)
+        # serving: the mesh server (AVDB_SERVE_MESH=1) in this process
+        # against the host-only server the helper ran on the equal store
+        jobs = mesh_traffic(inp)
+        os.environ["AVDB_SERVE_CHAOS"] = "1"
+        # full service: no analytics shed by the latency governor
+        os.environ["AVDB_SERVE_BROWNOUT_P99_MS"] = "0"
+        os.environ["AVDB_SERVE_MESH"] = "1"
+        meshed = build_aio_server(store_dir=stores["mesh"], port=0, device=platform)
+        executor = meshed.ctx.engine.mesh
+        if executor is None or executor.n_devices != MESH_SHARDS:
+            raise AssertionError("serve built no 4-shard MeshExecutor")
+        meshed.start_background()
+        # the host-only server's bodies, from the helper process
+        want, host_s = single_run["bodies"], single_run["host_serve_s"]
+        try:
+            launches0 = (dedup.LAUNCHES["lookup_multi"],
+                         I.LAUNCHES["bits_spans_stacked"])
+            t0 = time.perf_counter()
+            got = [_post_body(meshed, path, body) for path, body in jobs]
+            mesh_s = time.perf_counter() - t0
+            differ = sum(g != w for g, w in zip(got, want))
+            serve_launches = {
+                "lookup_multi": dedup.LAUNCHES["lookup_multi"] - launches0[0],
+                "bits_spans_stacked": I.LAUNCHES["bits_spans_stacked"] - launches0[1]}
+            if differ:
+                raise AssertionError(f"{differ} mesh-served bodies differ from "
+                                     "the host-only server's")
+            if on_card and (
+                    serve_launches["lookup_multi"] != MESH_BULKS * MESH_SHARDS
+                    or serve_launches["bits_spans_stacked"] != MESH_PANELS * MESH_SHARDS):
+                raise AssertionError(f"mesh serving launches {serve_launches}")
+            # chaos: mesh.dispatch armed through POST /_chaos
+            breaker = meshed.ctx.engine.breaker
+            breaker.cooldown_s = 1.0
+            bulk = jobs[0]
+            t0 = time.perf_counter()
+            status = _post_body(meshed, "/_chaos",
+                                {"spec": "mesh.dispatch:prob:1.0:raise", "ttl_s": 60})
+            chaos_bodies = [_post_body(meshed, *bulk)
+                            for _ in range(breaker.failure_threshold)]
+            opened = breaker.state(MESH_GROUP)
+            _post_body(meshed, "/_chaos", {"spec": ""})
+            time.sleep(1.2)
+            k1 = dedup.LAUNCHES["lookup_multi"]
+            chaos_bodies.append(_post_body(meshed, *bulk))
+            closed = breaker.state(MESH_GROUP)
+            chaos = {"armed": json.loads(status), "opened": opened, "closed": closed,
+                     "bodies_differ": sum(b != want[0] for b in chaos_bodies),
+                     "relaunched": dedup.LAUNCHES["lookup_multi"] - k1,
+                     "seconds": time.perf_counter() - t0}
+            if chaos["bodies_differ"] or opened != "open" or closed != "closed" \
+                    or (on_card and chaos["relaunched"] != MESH_SHARDS):
+                raise AssertionError(f"mesh chaos check failed: {chaos}")
+            stats = executor.stats()
+        finally:
+            meshed.shutdown()
+            meshed.ctx.batcher.close()
+        # multi-host: the one-process world against the in-process run
+        world = _mesh_multihost_result(world_proc)
+        mesh = meshlib.make_mesh(MESH_SHARDS,
+                                 devices=meshlib.device_pool(platform)[:1] * MESH_SHARDS)
+        _a, _r, counts, dropped, n_fb = distributed_annotate_step(
+            mesh, synthetic_batch(65536, width=49, seed=15))
+        local = {"counts": counts.tolist(), "dropped": int(dropped), "fallback": int(n_fb)}
+        backend = "nccl" if on_card else "gloo"
+        if any(world[k] != local[k] for k in local) or world["backend"] != backend:
+            raise AssertionError(f"nccl world {world} against in-process {local}")
+    finally:
+        if world_proc.poll() is None:
+            world_proc.kill()
+            world_proc.communicate()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        meshlib.reset_global_mesh()
+    launches = {"lookup_multi": dedup.LAUNCHES["lookup_multi"],
+                "bits_spans_stacked": I.LAUNCHES["bits_spans_stacked"],
+                "annotate_bin": annotate_cuda.LAUNCHES["annotate_bin"]}
+    if dedup.CALLS["cuda"] or I.CALLS["cuda"]:
+        raise AssertionError(f"a plain version ran on the card: {dedup.CALLS} {I.CALLS}")
+    seconds = time.perf_counter() - t_phase
+    emit("mesh", shards=MESH_SHARDS, lines=inp["lines"], steps=steps,
+         serve_requests=len(jobs), bodies_differ=differ, host_serve_s=host_s,
+         mesh_serve_s=mesh_s, serve_launches=serve_launches, executor=stats,
+         chaos=chaos, multihost={"world": world, "in_process": local},
+         launches=launches, inputs_seconds=inp["seconds"], seconds=seconds)
+    return {"launches": launches, "seconds": seconds}
+
+
+def _post_body(server, path, body) -> bytes:
+    """One POST's body from an in-process server (asserting a 200)."""
+    conn = _Conn(server.server_address[1])
+    try:
+        status, raw, _s = conn.call("POST", path, body)
+    finally:
+        conn.close()
+    assert status == 200, f"POST {path}: {status} {raw[:300]!r}"
+    return raw
+
+
 def main() -> int:
     import torch
 
@@ -7083,19 +8003,27 @@ def main() -> int:
             # store's load and saves), phase 6 at 3,125 lines and 625
             # indexed lines, phase 10 at 62,500 lines, phase 7 at 50,000
             # VEP results and 7b at 10,000
-            inputs = write_inputs(2_000_000, 500_000, 3_125, 50_000,
-                                  n8=(25_000, 25_000, 12_500), n7b=10_000,
-                                  head6=625, n10=62_500, n8_store=125_000)
-            emit("inputs", genome=inputs["genome"]["seconds"],
-                 genome_index_bytes=inputs["genome"]["index_bytes"],
-                 **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
+            # (the second process writes them beside phase 3's first
+            # kernel checks, which read none of them)
+            inputs_job = pool.submit(
+                write_inputs, 2_000_000, 500_000, 3_125, 50_000,
+                n8=(25_000, 25_000, 12_500), n7b=10_000, head6=625, n10=62_500,
+                n8_store=125_000)
             # 3. kernels against their plain versions, and the kernel's hash
             # against the tokenizer's on the phase-4 VCF
             table = kernel_phase(torch, device)
             table.append(cadd_kernel_phase(torch, device))
+            t0 = time.perf_counter()
+            inputs = inputs_job.result()
+            emit("inputs", genome=inputs["genome"]["seconds"],
+                 genome_index_bytes=inputs["genome"]["index_bytes"],
+                 waited_s=time.perf_counter() - t0,
+                 **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
             table.append(validate_kernel_phase(torch, device, inputs["genome"]["index"]))
             table += serve_kernel_phase(torch, device)
             table.append(export_kernel_phase(torch, device))
+            # the mesh kernels' checks here; their timing runs with phase 15
+            mesh_checks = mesh_kernel_checks(torch, device)
             native_hash_check(torch, device, inputs["vcf4"])
             # 4-6. the load (counters reset inside, just before it), the
             # probed reload and the card-vs-CPU parity.  Phase 9's tables
@@ -7112,6 +8040,8 @@ def main() -> int:
             inputs["cadd9"] = cadd9[0].result()
             emit("inputs9", seconds=inputs["cadd9"]["seconds"],
                  waited_after_phase6_s=time.perf_counter() - t0)
+            # phase 15's inputs, written by the second process meanwhile
+            mesh_inputs = pool.submit(write_mesh_inputs, WORK)
             if results["launches"]["annotate_bin"] != results["chunks"]:
                 return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
                             f" times for {results['chunks']} chunks")
@@ -7164,7 +8094,20 @@ def main() -> int:
             # reads: serve --workers 2 --upserts --maintain and a
             # serve --follow beside it (counters start at 0 with each
             # serving process)
+            # 15. the device mesh over four virtual shards of the card, with
+            # the mesh kernels' timing, in the second process beside phase
+            # 14 (which keeps the card mostly idle and waits on its fleet;
+            # phase 15 sets its own process's counts to 0 just before it)
+            t0 = time.perf_counter()
+            inputs["mesh"] = mesh_inputs.result()
+            emit("inputs15", seconds=inputs["mesh"]["seconds"],
+                 waited_before_phase14_s=time.perf_counter() - t0)
+            mesh_job = pool.submit(mesh_phase_job, inputs["mesh"], T0)
             upserted = upsert_phase("cuda", results["store_cadd"], inputs["vcf4"])
+            t0 = time.perf_counter()
+            meshed = mesh_job.result()
+            emit("mesh_wait", waited_after_phase14_s=time.perf_counter() - t0)
+            table += mesh_kernel_rows(*mesh_checks, meshed["timing"])
         except AssertionError as err:
             return fail(str(err))
     left = leftovers_check()
@@ -7194,6 +8137,8 @@ def main() -> int:
     table[6].update(launches=exported["export"] + exported["stream"],
                     launches_export=exported["export"],
                     launches_stream=exported["stream"])
+    for row in table[7:9]:
+        row.update(launches=meshed["launches"][row["name"]])
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

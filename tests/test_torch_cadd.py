@@ -718,17 +718,49 @@ def test_updater_defaults_to_cuda_and_never_falls_back(cadd_inputs):
                                    ["--traceOut", "t.json"],
                                    ["--profile", "p"], ["--maxWorkers", "4"]],
                          ids=lambda f: f[0])
-def test_cli_refuses_unported_flags(cadd_inputs, tmp_path, capsys, flags):
+def test_cli_refuses_unported_flags(cadd_inputs, tmp_path, capsys,
+                                   monkeypatch, flags):
     """``--metricsOut`` and ``--traceOut`` are ported: each writes its file
     and the store gets the run record.  ``--profile``, which the
     reference's ``load-cadd`` does not define, fails with the reference's
-    argparse error; a multi-device ``--maxWorkers`` is refused."""
+    argparse error.  ``--maxWorkers 4`` over four virtual CPU shards joins
+    through the sharded update step and writes the bytes of the
+    reference's 4-device mesh join and of the port's single-device join
+    (store, ledger, quarantine, printed counters)."""
     from annotatedvdb_tpu.cli.load_cadd import main as ref_main
 
     from annotatedvdb_tpu_torch.cli.load_cadd import main as torch_main
     from test_torch_obs import check_obs_outputs
 
-    if flags[0] in ("--profile", "--maxWorkers"):
+    if flags[0] == "--maxWorkers":
+        from annotatedvdb_tpu.parallel import mesh as ref_mesh
+
+        from annotatedvdb_tpu_torch.parallel import distributed
+        from annotatedvdb_tpu_torch.parallel import mesh as port_mesh
+
+        steps = []
+        step = distributed.distributed_update_step
+
+        def counted(mesh, *a, **kw):
+            steps.append(mesh.size)
+            return step(mesh, *a, **kw)
+
+        monkeypatch.setattr(distributed, "distributed_update_step", counted)
+        monkeypatch.setenv("AVDBC_VIRTUAL_DEVICES", "4")
+        ref_mesh.reset_global_mesh()
+        port_mesh.reset_global_mesh()
+        res, port_dir = _cli_pair(cadd_inputs, tmp_path, capsys,
+                                  [("a", "--commit", *flags)])
+        assert steps and set(steps) == {4}
+        single = str(tmp_path / "single")
+        shutil.copytree(cadd_inputs["base"], single)
+        got = _run_cli("port", single, cadd_inputs["dbs"]["a"], ["--commit"],
+                       capsys, str(tmp_path / "single.log"))
+        for key in ("printed", "error", "files", "ledger", "quarantine"):
+            assert got[key] == res[0][key], key
+        assert _counters(got)["update"] > 0
+        return
+    if flags[0] == "--profile":
         errs = []
         for main, extra in ((torch_main, ["--platform", "cpu"]),
                             (ref_main, [])):
@@ -737,11 +769,8 @@ def test_cli_refuses_unported_flags(cadd_inputs, tmp_path, capsys, flags):
                       str(tmp_path / "vdb"), *extra, *flags])
             assert exc.value.code == 2
             errs.append(capsys.readouterr().err.strip().splitlines()[-1])
-            if flags[0] == "--maxWorkers":
-                break
-        if flags[0] == "--profile":
-            assert errs[0] == errs[1]
-            assert errs[0].endswith("unrecognized arguments: --profile p")
+        assert errs[0] == errs[1]
+        assert errs[0].endswith("unrecognized arguments: --profile p")
         assert not (tmp_path / "vdb").exists()
         return
     store = str(tmp_path / "vdb")

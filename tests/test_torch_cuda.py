@@ -50,8 +50,15 @@ a part, and ``export`` and ``/export/stream`` on the card write and answer
 the ``--hostOnly`` bytes with one launch a part or call.  ``bits_spans``
 is also held against its plain version on its own search edges.
 ``device_trace`` (``load-vcf --profile``) on the card records a kernel
-launched from another thread.  ``chip_smoke.py`` runs the same comparisons
-at the loads' and the server's real sizes."""
+launched from another thread.  The mesh's kernels (``csrc/lookup_multi.cu``
+and the stacked entry of ``csrc/bits_spans.cu``) are held against their
+plain versions exactly on the smoke's edge inputs, with unaligned allele
+bases, and their wrappers' refusals checked; over four virtual shards of
+the card (``AVDBC_VIRTUAL_DEVICES``) the step programs equal a CPU mesh's,
+a ``load-vcf --maxWorkers 4`` writes the single-device load's store, and
+a ``MeshExecutor`` engine answers as a host-only engine, each with the
+predicted launches and no plain version on the card.  ``chip_smoke.py``
+runs the same comparisons at the loads' and the server's real sizes."""
 
 import json
 import os
@@ -1487,3 +1494,222 @@ def test_follower_generation_serves_from_the_card(cuda, tmp_path):
         httpd.shutdown()
         httpd.server_close()
         httpd.ctx.batcher.close()
+
+
+# ------------------------------------------------------------ the mesh
+
+
+def _multi_cols(cols, device, allele_offset=0):
+    """The smoke's slice or query columns as the kernel takes them on
+    ``device`` (the mixed hash as int64), the allele matrices
+    ``allele_offset`` bytes into a larger buffer."""
+    out = []
+    for k, c in enumerate(cols):
+        c = np.ascontiguousarray(c.astype(np.int64) if k == 2 else c)
+        if k in (3, 4) and allele_offset:
+            out.append(_offset_copy(c, device, allele_offset))
+        else:
+            out.append(torch.from_numpy(c).to(device))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("width", [16, 49, 96])
+def test_lookup_multi_matches_plain_version(cuda, width, offset):
+    from annotatedvdb_tpu_torch.ops import dedup
+    from chip_smoke import lookup_multi_edge_cases
+
+    for label, store, query in lookup_multi_edge_cases(width):
+        s = _multi_cols(store, cuda, offset)
+        q = _multi_cols(query, cuda, offset)
+        before = dedup.LAUNCHES["lookup_multi"]
+        got = dedup.lookup_in_sorted_multi(*s, *q)
+        want = dedup.lookup_in_sorted_multi_reference(*s, *q)
+        torch.cuda.synchronize()
+        assert dedup.LAUNCHES["lookup_multi"] == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), label
+
+
+def test_lookup_multi_refuses_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops import dedup
+    from chip_smoke import lookup_multi_edge_cases
+
+    _label, store, query = lookup_multi_edge_cases(16)[0]
+    s, q = _multi_cols(store, cuda), _multi_cols(query, cuda)
+    with pytest.raises(TypeError, match="must be torch.int64"):
+        dedup.lookup_in_sorted_multi(*s[:2], s[2].to(torch.int32), *s[3:], *q)
+    with pytest.raises(ValueError, match="contiguous"):
+        dedup.lookup_in_sorted_multi(*s, *q[:3], q[3].t().contiguous().t(),
+                                     *q[4:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        dedup.lookup_in_sorted_multi(*s, q[0].cpu(), *q[1:])
+    with pytest.raises(ValueError, match="widths disagree"):
+        dedup.lookup_in_sorted_multi(*s, *q[:3], q[3][:, :8].contiguous(),
+                                     q[4][:, :8].contiguous(), *q[5:])
+
+
+def test_bits_spans_stacked_matches_plain_version(cuda):
+    from annotatedvdb_tpu_torch.ops import intervals
+    from chip_smoke import stacked_bits_case, stacked_bits_edge_cases
+
+    cases = stacked_bits_edge_cases()
+    pos, starts, ends, _share = stacked_bits_case(152, scale=32)
+    cases.append(("phase", pos, starts, ends))
+    for label, pos, starts, ends in cases:
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+             for x in (pos, starts, ends)]
+        before = intervals.LAUNCHES["bits_spans_stacked"]
+        got = intervals.bits_spans_stacked(*t)
+        want = intervals.bits_spans_stacked_reference(*t)
+        torch.cuda.synchronize()
+        assert intervals.LAUNCHES["bits_spans_stacked"] == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), label
+
+
+def test_bits_spans_stacked_refuses_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops import intervals
+
+    pos = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    q = torch.zeros((3, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        intervals.bits_spans_stacked(pos.to(torch.int64), q, q)
+    with pytest.raises(ValueError, match="contiguous 2-D"):
+        intervals.bits_spans_stacked(pos[:, ::2], q, q)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        intervals.bits_spans_stacked(pos, q[:2], q[:2])
+    with pytest.raises(ValueError, match="is on cpu"):
+        intervals.bits_spans_stacked(pos, q.cpu(), q)
+
+
+def _virtual_mesh(monkeypatch, n=4):
+    """A mesh of ``n`` virtual shards of the card, the annotate kernel
+    already checked there (its one-time probe launch is not counted)."""
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.parallel import mesh as meshlib
+
+    annotate_hash_fn(torch.device("cuda", 0))
+    monkeypatch.setenv(meshlib.VIRTUAL_DEVICES_ENV, str(n))
+    meshlib.reset_global_mesh()
+    return meshlib.global_mesh(devices=meshlib.device_pool("cuda"))
+
+
+def test_mesh_steps_on_card_match_cpu(cuda, monkeypatch, tmp_path):
+    """The insert, update and serve-lookup steps over four virtual shards
+    of the card equal a four-shard CPU mesh's, with one ``annotate_bin``
+    and one ``lookup_multi`` launch a shard where the step runs them."""
+    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+    from annotatedvdb_tpu_torch.ops import dedup
+    from annotatedvdb_tpu_torch.ops.hashing import allele_hash
+    from annotatedvdb_tpu_torch.parallel import distributed as D
+    from annotatedvdb_tpu_torch.parallel.device_store import (
+        build_device_shard_store,
+    )
+    from annotatedvdb_tpu_torch.parallel.mesh import make_mesh
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from annotatedvdb_tpu_torch.store.variant_store import Segment
+
+    card = _virtual_mesh(monkeypatch)
+    cpu = make_mesh(4, devices=[torch.device("cpu")] * 4)
+    batch = synthetic_batch(1024, width=49, seed=5)
+    for f in batch._fields:
+        getattr(batch, f)[40:60] = getattr(batch, f)[0:20]
+    h = allele_hash(*(torch.from_numpy(x) for x in batch[2:])).numpy().astype(np.uint32)
+    store = VariantStore(width=49)
+    for code in np.unique(batch.chrom[:300]):
+        k = np.flatnonzero(batch.chrom[:300] == code)
+        store.shard(int(code)).append_segment(Segment.build(
+            {"pos": batch.pos[k], "h": h[k], "ref_len": batch.ref_len[k],
+             "alt_len": batch.alt_len[k]}, batch.ref[k], batch.alt[k]))
+    snap = build_device_shard_store(store, 4)
+    pos_snap = build_device_shard_store(store, 4, routing="position")
+
+    def run(mesh):
+        hm = h ^ (batch.chrom.astype(np.uint32) * np.uint32(dedup.CHROM_MIX))
+        return (D.distributed_insert_step(mesh, batch, dev_store=snap),
+                D.distributed_update_step(mesh, batch, pos_snap,
+                                          routing="position"),
+                D.distributed_serve_lookup_step(
+                    mesh, batch.chrom, batch.pos, hm, *batch[2:], snap))
+
+    calls = dedup.CALLS["cuda"]
+    before = (LAUNCHES["annotate_bin"], dedup.LAUNCHES["lookup_multi"])
+    got = run(card)
+    torch.cuda.synchronize()
+    assert LAUNCHES["annotate_bin"] - before[0] == 8  # insert + update
+    assert dedup.LAUNCHES["lookup_multi"] - before[1] == 12
+    assert dedup.CALLS["cuda"] == calls
+    want = run(cpu)
+    assert int(want[0][3]["n_store_dup"]) > 0 and int(want[1][3]["n_matched"]) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, dict):
+                for k in b:
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            elif hasattr(b, "_fields"):
+                ok = ~b.host_fallback
+                for f in b._fields:
+                    np.testing.assert_array_equal(getattr(a, f)[ok],
+                                                  getattr(b, f)[ok], err_msg=f)
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_load_on_card_matches_single_device(cuda, monkeypatch, tmp_path):
+    """``load-vcf --maxWorkers 4`` over four virtual shards of the card
+    writes the single-device card load's store, with four ``annotate_bin``
+    launches a chunk."""
+    from annotatedvdb_tpu_torch.cli.load_vcf import main
+
+    vcf = str(tmp_path / "in.vcf")
+    write_phase4_vcf(vcf, 20_000, seed=8)
+    _virtual_mesh(monkeypatch)
+    launches = {}
+    for tag, workers in (("mesh", "4"), ("single", "1")):
+        before = LAUNCHES["annotate_bin"]
+        assert main(["--fileName", vcf, "--storeDir", str(tmp_path / tag),
+                     "--commit", "--commitAfter", "4096",
+                     "--maxWorkers", workers]) == 0
+        launches[tag] = LAUNCHES["annotate_bin"] - before
+    chunks = launches["single"]
+    assert chunks >= 5 and launches["mesh"] == 4 * chunks
+    assert store_bytes(str(tmp_path / "mesh")) == store_bytes(str(tmp_path / "single"))
+
+
+def test_mesh_executor_on_card_matches_host_engine(cuda, monkeypatch, tmp_path):
+    """A ``MeshExecutor`` over four virtual shards of the card (what
+    ``serve`` builds under ``AVDB_SERVE_MESH=1``) answers bulk lookups and
+    region panels with a host-only engine's bytes, through one
+    ``lookup_multi`` launch a shard per bulk and one stacked BITS launch a
+    shard per panel, no plain version on the card and no breaker
+    failure."""
+    from annotatedvdb_tpu_torch.ops import dedup, intervals
+    from annotatedvdb_tpu_torch.serve.engine import QueryEngine
+    from annotatedvdb_tpu_torch.serve.mesh_exec import MeshExecutor
+    from annotatedvdb_tpu_torch.serve.resilience import DeviceBreaker
+    from annotatedvdb_tpu_torch.serve.snapshot import StaticSnapshots
+    from annotatedvdb_tpu_torch.store import VariantStore
+    from chip_smoke import build_serve_store, serve_panel
+
+    served = build_serve_store(str(tmp_path), "cuda")
+    mesh = _virtual_mesh(monkeypatch)
+    store = VariantStore.load(served["store"], readonly=True)
+    breaker = DeviceBreaker()
+    meshed = QueryEngine(StaticSnapshots(store), device="cuda", breaker=breaker,
+                         region_cache_size=0,
+                         mesh=MeshExecutor(mesh, breaker=breaker, bulk_min=0))
+    host = QueryEngine(StaticSnapshots(store), device="cpu", region_cache_size=0)
+    specs = serve_panel(served, seed=4)
+    before = (dedup.LAUNCHES["lookup_multi"],
+              intervals.LAUNCHES["bits_spans_stacked"],
+              dedup.CALLS["cuda"], intervals.CALLS["cuda"])
+    for _ in range(2):
+        assert meshed.lookup_many(served["ids"]) == host.lookup_many(served["ids"])
+        assert meshed.regions_serve(specs, limit=4).assemble() \
+            == host.regions_serve(specs, limit=4).assemble()
+    assert dedup.LAUNCHES["lookup_multi"] - before[0] == 2 * 4
+    assert intervals.LAUNCHES["bits_spans_stacked"] - before[1] == 2 * 4
+    assert (dedup.CALLS["cuda"], intervals.CALLS["cuda"]) == before[2:]
+    assert breaker.stats() == {"open_groups": [], "groups": {}}
+    assert meshed.mesh.stats()["resident_bytes"] > 0

@@ -1,6 +1,8 @@
 """The port's CUDA sources run on the CPU through ``tests/cuda_sim.h``.
 
-``csrc/export_pack.cu`` and ``csrc/bits_spans.cu`` are compiled with
+``csrc/export_pack.cu``, ``csrc/bits_spans.cu`` (both of its entry points:
+one group and a stack of groups) and ``csrc/lookup_multi.cu`` are
+compiled with
 ``g++ -std=c++20`` against the header, which maps the CUDA surface they
 use onto C++ threads (one ``std::thread`` per CUDA thread, blocks one
 after another, warp ballots through a per-warp buffer between barriers),
@@ -9,8 +11,9 @@ rewritten into ``sim_launch(grid, block, kernel, args)``.  The real
 sources, index arithmetic, vector and scalar paths, grid-stride loops
 and k-ary ballot searches included, are then called through their C entry
 points on numpy buffers and held exactly, on small edge inputs, against
-the pack's numpy twin ``export_pack_host`` and the plain version
-``bits_spans_reference`` on CPU tensors.  The
+the pack's numpy twin ``export_pack_host`` and the plain versions
+``bits_spans_reference``, ``bits_spans_stacked_reference`` and
+``lookup_in_sorted_multi_reference`` on CPU tensors.  The
 simulated card has 3 SMs of 2 blocks, so the pack's grid strides.  This
 is no timing and no proof that ``nvcc`` accepts the source: the card runs
 the same comparisons (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -28,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from annotatedvdb_tpu_torch.ops import dedup as DD
 from annotatedvdb_tpu_torch.ops import export_pack as P
 from annotatedvdb_tpu_torch.ops import intervals as I
 from annotatedvdb_tpu_torch.ops.build import CSRC_DIR
@@ -62,7 +66,7 @@ def libs(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel sources for the CPU")
     work = tmp_path_factory.mktemp("cuda_sim")
     out = {}
-    for name in ("export_pack", "bits_spans"):
+    for name in ("export_pack", "bits_spans", "lookup_multi"):
         with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
             src = work / f"{name}.cpp"
             src.write_text(sim_source(f.read()))
@@ -74,6 +78,10 @@ def libs(tmp_path_factory):
     vp, i = ctypes.c_void_p, ctypes.c_int
     out["export_pack"].export_pack_launch.argtypes = [vp, vp, i, i, vp, vp]
     out["bits_spans"].bits_spans_launch.argtypes = [vp, i, vp, vp, i] + [vp] * 5
+    out["bits_spans"].bits_spans_stacked_launch.argtypes = (
+        [vp, i, i, vp, vp, i] + [vp] * 5)
+    out["lookup_multi"].lookup_multi_launch.argtypes = (
+        [vp] * 7 + [i] + [vp] * 7 + [i, i] + [vp] * 3)
     return out
 
 
@@ -208,3 +216,136 @@ def test_bits_spans_source_matches_plain_version(libs, bits_cases, capfd, label)
                                     for x in (pos, starts, ends)))
     for name, g, w in zip(("lo", "hi", "level", "leaf"), got, want):
         np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{label}: {name}")
+
+
+def _stacked_sim(lib, pos, starts, ends):
+    b, q = starts.shape
+    lo, hi, leaf = (np.full((b, q), -7, np.int32) for _ in range(3))
+    level = np.full((b, q), -7, np.int8)
+    pos = np.ascontiguousarray(pos, np.int32)
+    starts = np.ascontiguousarray(starts, np.int32)
+    ends = np.ascontiguousarray(ends, np.int32)
+    rc = lib.bits_spans_stacked_launch(
+        _ptr(pos), b, pos.shape[1], _ptr(starts), _ptr(ends), q,
+        _ptr(lo), _ptr(hi), _ptr(level), _ptr(leaf), None)
+    assert rc == 0
+    return lo, hi, level, leaf
+
+
+#: the labels of ``chip_smoke.stacked_bits_edge_cases``
+STACKED_CASES = ("one-group", "padded", "one-row", "phase-shape/100")
+
+
+@pytest.fixture(scope="module")
+def stacked_cases():
+    from chip_smoke import stacked_bits_edge_cases
+
+    cases = {c[0]: c[1:] for c in stacked_bits_edge_cases()}
+    assert tuple(cases) == STACKED_CASES
+    return cases
+
+
+@pytest.mark.parametrize("label", STACKED_CASES)
+def test_bits_spans_stacked_source_matches_plain_version(libs, stacked_cases,
+                                                         capfd, label):
+    """The stacked entry point (a warp per (group, query)) on the smoke's
+    stacks — an all-sentinel group, zero-padded queries (leaf -1), one row
+    a group, Q not a multiple of 8 — exactly against the plain version."""
+    pos, starts, ends = stacked_cases[label]
+    got = _stacked_sim(libs["bits_spans"], pos, starts, ends)
+    no_misaligned(capfd)
+    want = I.bits_spans_stacked_reference(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (pos, starts, ends)))
+    for name, g, w in zip(("lo", "hi", "level", "leaf"), got, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=f"{label}: {name}")
+
+
+def test_bits_spans_refuses_misaligned_pointers(libs):
+    """Both entry points refuse a base off 4-byte alignment before any
+    launch (cudaErrorInvalidValue), as the pack's does."""
+    pos = _buffer(9, np.int32, 0)
+    q = _buffer(9, np.int32, 0)
+    out = [_buffer(9, np.int32, 0) for _ in range(3)]
+    level = _buffer(9, np.int8, 0)
+    lib = libs["bits_spans"]
+    args = [_ptr(q), _ptr(q), 8, _ptr(out[0]), _ptr(out[1]), _ptr(level),
+            _ptr(out[2]), None]
+    assert lib.bits_spans_launch(_ptr(pos) + 2, 8, *args) == 1
+    assert lib.bits_spans_stacked_launch(_ptr(pos) + 2, 1, 8, *args) == 1
+    assert lib.bits_spans_stacked_launch(_ptr(pos), 1, 8, _ptr(q) + 1,
+                                         *args[1:]) == 1
+    assert lib.bits_spans_stacked_launch(_ptr(pos), 1, 8, *args) == 0
+
+
+# ----------------------------------------------------------- lookup_multi
+
+
+def _lookup_sim(lib, store, query, offset=0):
+    """The kernel's (found, index) for the smoke's columns; ``offset``
+    bytes of misalignment on the allele matrices (a view into a larger
+    buffer: the kernel reads them byte by byte)."""
+    def place(a, off=0):
+        a = np.ascontiguousarray(a)
+        buf = _buffer(a.size, a.dtype, off)
+        buf[:] = a.ravel()
+        return buf
+
+    s = [place(c.astype(np.int64) if k == 2 else c, offset if k in (3, 4) else 0)
+         for k, c in enumerate(store)]
+    q = [place(c.astype(np.int64) if k == 2 else c, offset if k in (3, 4) else 0)
+         for k, c in enumerate(query)]
+    n = query[1].shape[0]
+    found = np.full(n, 7, np.uint8)
+    index = np.full(n, -7, np.int32)
+    rc = lib.lookup_multi_launch(*(_ptr(c) for c in s), store[1].shape[0],
+                                 *(_ptr(c) for c in q), n, query[3].shape[1],
+                                 _ptr(found), _ptr(index), None)
+    assert rc == 0
+    return found.astype(bool), index
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "alleles+1"])
+@pytest.mark.parametrize("width", [16, 49, 96])
+def test_lookup_multi_source_matches_plain_version(libs, capfd, width, offset):
+    """The smoke's edge slices (``lookup_multi_edge_cases``: runs of five
+    and four equal keys, the cross-chromosome collision, unsigned hash
+    order, the sentinel pad, an empty and an all-sentinel slice, a random
+    slice) exactly against the plain version on CPU tensors."""
+    from chip_smoke import lookup_multi_edge_cases
+
+    for label, store, query in lookup_multi_edge_cases(width):
+        got = _lookup_sim(libs["lookup_multi"], store, query, offset)
+        no_misaligned(capfd)
+        cols = [torch.from_numpy(np.ascontiguousarray(c)) for c in store + query]
+        cols[2], cols[9] = cols[2].to(torch.int64), cols[9].to(torch.int64)
+        want = DD.lookup_in_sorted_multi_reference(*cols)
+        np.testing.assert_array_equal(got[0], want[0].numpy(), err_msg=label)
+        np.testing.assert_array_equal(got[1], want[1].numpy(), err_msg=label)
+
+
+def test_lookup_multi_refuses_misaligned_pointers(libs):
+    """An int32 or int64 column off its alignment, or a negative size, is
+    refused before any launch."""
+    from chip_smoke import lookup_multi_edge_cases
+
+    _label, store, query = lookup_multi_edge_cases(16)[0]
+    lib = libs["lookup_multi"]
+    s = [np.ascontiguousarray(c.astype(np.int64) if k == 2 else c)
+         for k, c in enumerate(store)]
+    q = [np.ascontiguousarray(c.astype(np.int64) if k == 2 else c)
+         for k, c in enumerate(query)]
+    n, m, w = q[1].shape[0], s[1].shape[0], q[3].shape[1]
+    found = np.zeros(n, np.uint8)
+    index = _buffer(n + 1, np.int32, 0)
+    hm = _buffer(m + 1, np.int64, 0)
+    hm[:m] = s[2]
+    ptrs = [_ptr(c) for c in s]
+
+    def launch(store_ptrs, m_=m, idx=_ptr(index)):
+        return lib.lookup_multi_launch(*store_ptrs, m_, *(_ptr(c) for c in q),
+                                       n, w, _ptr(found), idx, None)
+
+    assert launch(ptrs[:2] + [_ptr(hm) + 4] + ptrs[3:]) == 1
+    assert launch(ptrs, idx=_ptr(index) + 2) == 1
+    assert launch(ptrs, m_=-1) == 1
+    assert launch(ptrs) == 0

@@ -540,7 +540,7 @@ def test_cli_refuses_a_bad_region(store_dir, tmp_path, region):
 @pytest.mark.parametrize("flags,pattern", [
     (["--profile", "p"], "--profile"), (["--metricsOut", "m"], "--metricsOut"),
     (["--traceOut", "t"], "--traceOut"),
-    (["--maxWorkers", "4"], "multi-device exports are not yet ported"),
+    (["--maxWorkers", "4"], "--maxWorkers"),
 ], ids=["profile", "metricsOut", "traceOut", "maxWorkers"])
 def test_cli_refuses_unported_flags(store_dir, tmp_path, capsys, flags, pattern):
     """``--metricsOut`` and ``--traceOut`` are ported: each writes its file
@@ -550,8 +550,30 @@ def test_cli_refuses_unported_flags(store_dir, tmp_path, capsys, flags, pattern)
     from test_torch_obs import check_obs_outputs
 
     if flags[0] == "--maxWorkers":
+        # accepted and unused, as in the reference: the same part files
+        # and summary as without the flag (but the timings and each run's
+        # plan signature, which names its invocation); a bad count is a
+        # usage error
+        summaries = {}
+        out = str(tmp_path / "corpus")
+        for tag, extra in (("mesh", flags), ("plain", [])):
+            capsys.readouterr()
+            assert port_main(_cli(store_dir, out, "--commit", "--platform",
+                                  "cpu", *extra)) == 0
+            summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            for timing in ("seconds", "tokens_per_sec", "queue_stalls",
+                           "device_idle_frac"):
+                summary.pop(timing)
+            for part in summary["parts"]:
+                part.pop("plan_sig")
+            parts = {k: v for k, v in _corpus_bytes(out).items()
+                     if k.endswith(".npz")}
+            summaries[tag] = (summary, parts)
+            shutil.rmtree(out)
+        assert summaries["mesh"] == summaries["plain"]
+        assert summaries["mesh"][1]
         with pytest.raises(SystemExit) as exc:
-            port_main(_cli(store_dir, str(tmp_path / "o"), *flags))
+            port_main(_cli(store_dir, str(tmp_path / "o"), flags[0], "0"))
         assert exc.value.code == 2 and pattern in capsys.readouterr().err
         assert not os.path.exists(str(tmp_path / "o"))
         return

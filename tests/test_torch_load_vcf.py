@@ -285,21 +285,54 @@ def test_cli_writes_reference_store(tmp_path, monkeypatch):
     ["--profile", "prof"], ["--metricsOut", "m.prom"],
     ["--traceOut", "t.json"], ["--maxWorkers", "4"],
 ], ids=lambda f: f[0])
-def test_cli_refuses_unported_flags(tmp_path, flags):
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch, flags):
     """The telemetry flags are ported and write their files (the store
-    gets its run record); a multi-device ``--maxWorkers`` is still
-    refused before anything is written."""
+    gets its run record).  ``--maxWorkers 4`` over four virtual CPU shards
+    (``AVDBC_VIRTUAL_DEVICES``) annotates across the mesh and writes the
+    bytes of the single-device load and of the reference's 4-device mesh
+    load: segments, sidecars, manifest, quarantine file and ledger."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as torch_main
     from test_torch_obs import check_obs_outputs
 
     vcf = str(tmp_path / "x.vcf")
     store = str(tmp_path / "vdb")
     if flags[0] == "--maxWorkers":
-        with pytest.raises(SystemExit) as exc:
-            torch_main(["--fileName", vcf, "--storeDir", store,
-                        "--platform", "cpu", *flags])
-        assert exc.value.code == 2
-        assert not (tmp_path / "vdb").exists()
+        from annotatedvdb_tpu.cli.load_vcf import main as ref_main
+        from annotatedvdb_tpu.parallel import mesh as ref_mesh
+
+        from annotatedvdb_tpu_torch.parallel import distributed
+        from annotatedvdb_tpu_torch.parallel import mesh as port_mesh
+
+        steps = []
+        step = distributed.distributed_annotate_step
+
+        def counted(mesh, *a, **kw):
+            steps.append(mesh.size)
+            return step(mesh, *a, **kw)
+
+        monkeypatch.setattr(distributed, "distributed_annotate_step", counted)
+        _write_vcf(vcf, n_lines=900, seed=29)
+        monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
+        monkeypatch.setenv("AVDB_PIPELINE", "serial")
+        monkeypatch.setenv("AVDBC_VIRTUAL_DEVICES", "4")
+        ref_mesh.reset_global_mesh()
+        port_mesh.reset_global_mesh()
+        common = ["--fileName", vcf, "--commit", "--commitAfter", str(BATCH),
+                  "--logAfter", "0"]
+        dirs = {t: str(tmp_path / t) for t in ("ref", "mesh", "single")}
+        assert ref_main(common + ["--storeDir", dirs["ref"], *flags]) == 0
+        quarantine = {}
+        for tag, extra in (("mesh", flags), ("single", ["--maxWorkers", "1"])):
+            assert torch_main(common + ["--storeDir", dirs[tag],
+                                        "--platform", "cpu", *extra]) == 0
+            with open(os.path.join(dirs[tag], "quarantine",
+                                   "x.vcf.rejects.jsonl"), "rb") as f:
+                quarantine[tag] = f.read()
+        _assert_same_store(dirs["ref"], dirs["mesh"])
+        _assert_same_store(dirs["single"], dirs["mesh"])
+        assert quarantine["mesh"] == quarantine["single"] != b""
+        # one sharded step a chunk, over four shards; none without the mesh
+        assert len(steps) >= 4 and set(steps) == {4}
         return
     flag, out = flags[0], str(tmp_path / flags[1])
     _write_vcf(vcf, n_lines=700)
@@ -308,12 +341,6 @@ def test_cli_refuses_unported_flags(tmp_path, flags):
                        flag, out]) == 0
     run = check_obs_outputs(flag, out, "load-vcf", store)
     assert run["script"] == "load-vcf" and run["counters"]["variant"] > 700
-    if flag == "--profile":
-        # the dispatch thread's operators are recorded beside the caller's
-        path = next((tmp_path / "prof").glob("*.pt.trace.json"))
-        ops = [e for e in json.loads(path.read_text())["traceEvents"]
-               if e.get("cat") == "cpu_op"]
-        assert len({e["tid"] for e in ops}) >= 2
 
 
 def test_cli_defaults_to_cuda_and_never_falls_back(tmp_path):

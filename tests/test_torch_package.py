@@ -48,6 +48,7 @@ def test_imports_with_jax_blocked():
     assert {f"annotatedvdb_tpu_torch.{m}" for m in SERVE_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in EXPORT_SLICE} <= names
     assert {f"annotatedvdb_tpu_torch.{m}" for m in DOCTOR_AIO_SLICE} <= names
+    assert {f"annotatedvdb_tpu_torch.{m}" for m in MESH_SLICE} <= names
 
 
 #: the VEP update slice's modules
@@ -156,6 +157,38 @@ def test_export_slice_imports_without_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+#: the device mesh's modules
+MESH_SLICE = ("parallel", "parallel.mesh", "parallel.distributed",
+              "parallel.device_store", "parallel.multihost", "serve.mesh_exec",
+              "ops.dedup", "runtime")
+
+
+@pytest.mark.parametrize("module", MESH_SLICE)
+def test_mesh_slice_imports_without_jax(module):
+    """Each module of the device mesh imports with JAX blocked and pulls in
+    nothing of the JAX package (the multi-host world is ``torch.
+    distributed``, not ``jax.distributed``)."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module('annotatedvdb_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'annotatedvdb_tpu' or m.startswith('annotatedvdb_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_source_list_covers_the_mesh_slice():
+    """The per-file import check below walks every module of the slice."""
+    sources = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for m in MESH_SLICE:
+        path = m.replace(".", os.sep)
+        assert path + ".py" in sources or os.path.join(path, "__init__.py") in sources, m
 
 
 @pytest.mark.parametrize("module", DOCTOR_AIO_SLICE)

@@ -537,7 +537,8 @@ def test_cli_banner_summary_and_shutdown_match_reference(served):
     assert summary["device"] == "cpu"
     assert summary["plain_calls"]["bits_spans_reference"]["cpu"] == 2
     assert summary["launches"] == {"bits_spans": 0, "stats_panel": 0,
-                                   "windowed_stats": 0, "export_pack": 0}
+                                   "windowed_stats": 0, "export_pack": 0,
+                                   "bits_spans_stacked": 0, "lookup_multi": 0}
     assert summary["breaker"] == {"open_groups": [], "groups": {}}
 
 

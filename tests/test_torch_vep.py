@@ -588,19 +588,50 @@ def test_cli_writes_reference_store(runs, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags", [
     ["--metricsOut", "m.prom"], ["--traceOut", "t.json"], ["--maxWorkers", "4"],
 ], ids=lambda f: f[0])
-def test_cli_refuses_unported_flags(inputs, tmp_path, flags):
+def test_cli_refuses_unported_flags(inputs, tmp_path, monkeypatch, flags):
     """``--metricsOut`` and ``--traceOut`` are ported and write their
-    files (the store gets its run record); a multi-device
-    ``--maxWorkers`` is still refused before anything is read."""
+    files (the store gets its run record).  ``--maxWorkers 4`` over four
+    virtual CPU shards resolves the native path's identities through the
+    sharded update step and writes the bytes of the single-device load and
+    of the reference's 4-device mesh load (store, quarantine, ledger)."""
     from annotatedvdb_tpu_torch.cli.load_vep import main as torch_main
     from test_torch_obs import check_obs_outputs
 
     if flags[0] == "--maxWorkers":
-        with pytest.raises(SystemExit) as exc:
-            torch_main(["--fileName", str(tmp_path / "x.json"), "--storeDir",
-                        str(tmp_path / "vdb"), "--platform", "cpu", *flags])
-        assert exc.value.code == 2
-        assert not (tmp_path / "vdb").exists()
+        from annotatedvdb_tpu.cli.load_vep import main as ref_main
+        from annotatedvdb_tpu.parallel import mesh as ref_mesh
+
+        from annotatedvdb_tpu_torch.parallel import distributed
+        from annotatedvdb_tpu_torch.parallel import mesh as port_mesh
+
+        steps = []
+        step = distributed.distributed_update_step
+
+        def counted(mesh, *a, **kw):
+            steps.append(mesh.size)
+            return step(mesh, *a, **kw)
+
+        monkeypatch.setattr(distributed, "distributed_update_step", counted)
+        _set_config(monkeypatch, "native")
+        monkeypatch.setenv("AVDBC_VIRTUAL_DEVICES", "4")
+        ref_mesh.reset_global_mesh()
+        port_mesh.reset_global_mesh()
+        vep = inputs["vep"]
+        dirs = {}
+        for tag, main, extra in (
+                ("ref", ref_main, flags),
+                ("mesh", torch_main, ["--platform", "cpu", *flags]),
+                ("single", torch_main, ["--platform", "cpu", "--maxWorkers", "1"])):
+            dirs[tag] = str(tmp_path / tag)
+            shutil.copytree(inputs["base"][0], dirs[tag])
+            assert main(["--fileName", vep, "--storeDir", dirs[tag], "--commit",
+                         "--logAfter", "0", *extra]) == 0
+        for other in ("ref", "single"):
+            _assert_same_store(dirs[other], dirs["mesh"])
+            assert _quarantine(dirs[other], vep) == _quarantine(dirs["mesh"], vep)
+            assert (_ledger_records(os.path.join(dirs[other], "ledger.jsonl"))
+                    == _ledger_records(os.path.join(dirs["mesh"], "ledger.jsonl")))
+        assert steps and set(steps) == {4}
         return
     store = str(tmp_path / "vdb")
     shutil.copytree(inputs["base"][1], store)
