@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 #: golden-ratio odd constant decorrelating chromosomes in the mixed hash
@@ -305,55 +304,16 @@ def lookup_in_sorted_multi(
 
 def mark_batch_duplicates_mesh(pos, h, ref, alt, ref_len, alt_len, mesh=None):
     """The sharded surface of :func:`mark_batch_duplicates` ([N] bool, in
-    row order, on the first shard's device).  The identity sort is global:
-    each row goes to the shard that owns its ``(pos, hash)`` key (one
-    exchange, :func:`~annotatedvdb_tpu_torch.parallel.distributed.
-    reshard_rows`; a shard receives its rows in global row order, so its
-    stable sort keeps the first occurrence first), every shard dedups what
-    it received, and the flags come back to row order.  Pad
-    rows carry unique negative positions, so they never compare equal to a
-    row or each other.  With a single-shard resolution it IS the plain
-    kernel."""
-    from annotatedvdb_tpu_torch.parallel import distributed
-    from annotatedvdb_tpu_torch.parallel.mesh import (
-        _pad_arg,
-        _tensor,
-        device_pool,
-        global_mesh,
-        pad_rows,
-    )
+    row order, on the first shard's device).  The reference's identity
+    sort is one global program over the batch, so this runs the plain sort
+    once on the mesh's first device (the pool's first without a mesh).
+    The reference's pad rows carry unique negative positions, never equal
+    a row and are sliced away, so they are not made here."""
+    from annotatedvdb_tpu_torch.parallel.mesh import _tensor, device_pool, global_mesh
 
     if mesh is None:
         mesh = global_mesh()
-    if mesh is None:
-        dev = device_pool()[0]
-        return mark_batch_duplicates(
-            *(_tensor(a, dev) for a in (pos, h, ref, alt, ref_len, alt_len))
-        )
-    n = int(pos.shape[0])
-    m = pad_rows(n, mesh)
-    pads = ("neg_unique", "zero", "zero", "zero", "one", "one")
-    cols = [_pad_arg(a, spec, m - n) for a, spec in
-            zip((pos, h, ref, alt, ref_len, alt_len), pads)]
-    cols[1] = (np.asarray(cols[1]).astype(np.int64) & _MASK32)
-    row = np.arange(m, dtype=np.int64)
-    key = (cols[0].astype(np.int64) * 1_000_003 + cols[1]) % mesh.size
-    # lossless: a source sends at most its whole block to one owner
-    received, valid, _dropped = distributed.reshard_rows(
-        mesh, (*cols, row, key), lambda c: c[-1], m // mesh.size
+    dev = mesh.devices[0] if mesh is not None else device_pool()[0]
+    return mark_batch_duplicates(
+        *(_tensor(a, dev) for a in (pos, h, ref, alt, ref_len, alt_len))
     )
-    flags = []
-    for (r_pos, r_h, r_ref, r_alt, r_rl, r_al, r_row, _key), ok in zip(
-            received, valid):
-        # empty slots: unique negative positions below every pad row's
-        r_pos = torch.where(
-            ok, r_pos.to(torch.int64),
-            -(m + 1) - torch.arange(r_pos.shape[0], device=r_pos.device),
-        )
-        dup = _dup_flags((r_pos, r_h), r_ref, r_alt, r_rl, r_al)
-        flags.append((r_row[ok], dup[ok]))
-    dev = mesh.devices[0]
-    out = torch.zeros((m,), dtype=torch.bool, device=dev)
-    for rows, dup in flags:
-        out[rows.to(dev)] = dup.to(dev)
-    return out[:n]

@@ -65,19 +65,20 @@ class Mesh:
     ``rank * len(devices)`` onwards, and the step programs exchange rows
     through collectives.  ``size`` is the global shard count."""
 
-    __slots__ = ("devices", "axis", "rank", "world", "collective")
+    __slots__ = ("devices", "axis", "rank", "world", "distributed")
 
     def __init__(self, devices, axis: str = SHARD_AXIS, rank: int = 0,
-                 world: int = 1, collective: bool = False):
+                 world: int = 1, distributed: bool = False):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         self.axis = axis
         self.rank = int(rank)
         self.world = int(world)
-        #: rows cross processes through the world's collectives (a mesh
-        #: made inside a world, a one-process world included)
-        self.collective = bool(collective) or self.world > 1
+        #: the step programs exchange rows through ``torch.distributed``
+        #: collectives (a mesh made inside a world, a one-process world
+        #: included)
+        self.distributed = bool(distributed) or self.world > 1
 
     @property
     def size(self) -> int:
@@ -87,12 +88,6 @@ class Mesh:
     @property
     def local_size(self) -> int:
         return len(self.devices)
-
-    @property
-    def distributed(self) -> bool:
-        """Whether the step programs exchange through ``torch.distributed``
-        collectives."""
-        return self.collective
 
     @property
     def first_shard(self) -> int:
@@ -106,7 +101,7 @@ class Mesh:
 
     def __repr__(self) -> str:
         where = (f", rank={self.rank}, world={self.world}"
-                 if self.collective else "")
+                 if self.distributed else "")
         return f"Mesh({[str(d) for d in self.devices]}{where})"
 
 
@@ -168,7 +163,7 @@ def make_mesh(n_devices: int | None = None, axis: str = SHARD_AXIS,
                 f"requested {n_devices} devices but the {world}-process "
                 f"world holds {world * len(local)}"
             )
-        return Mesh(local, axis, rank=rank, world=world, collective=True)
+        return Mesh(local, axis, rank=rank, world=world, distributed=True)
     if devices is None:
         devices = device_pool()
     devices = tuple(devices)
@@ -226,15 +221,14 @@ def reset_global_mesh() -> None:
 
 
 def batch_sharding(mesh: Mesh) -> tuple:
-    """Axis-0 sharding over the mesh: the device of each local shard, in
-    order (the layout :func:`shard_rows` commits)."""
+    """The device of each local shard, in order: ``mesh.devices``.  A
+    shard list carries its own layout (axis-0 blocks from
+    :func:`shard_rows`, or the whole array on each device), so this and
+    :func:`replicated` exist only for the reference's API."""
     return mesh.devices
 
 
-def replicated(mesh: Mesh) -> tuple:
-    """Replicated layout: every local shard's device holds the whole array
-    (the same device list; callers upload the whole array to each)."""
-    return mesh.devices
+replicated = batch_sharding
 
 
 def pad_rows(n: int, mesh: Mesh) -> int:

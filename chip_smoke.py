@@ -90,9 +90,13 @@ each phase printing one JSON line:
               65,536 queries; ``bits_spans_stacked`` on
               :func:`stacked_bits_edge_cases` and on phase 15's stack
               shape (25 groups padded to the largest, 4,096 intervals);
-              both are timed with phase 15.  The seeded inputs of phases
-              3-10 are written by the second process beside the first
-              kernel checks, which read none of them;
+              then, in the second process while this one waits (no other
+              phase holds the card), both timed at those shapes beside
+              their plain versions, their bounds, two batched
+              ``torch.searchsorted`` and the plain in-batch dedup.  The
+              seeded inputs of phases 3-10 are written by the second
+              process beside the first kernel checks, which read none of
+              them;
 4. load     — a seeded dbSNP-shaped chr22 VCF of 2,000,000 lines through
               ``python -m annotatedvdb_tpu_torch load-vcf --commit`` (the
               CLI's ``main``) with no engine or pipeline variable: the
@@ -331,11 +335,7 @@ each phase printing one JSON line:
 
 15. mesh    — run by the second process beside phase 14 (which keeps
               the card mostly idle while its fleet waits), its counts
-              set to 0 there just before it: first the mesh kernels
-              timed at phase 3's shapes (a 1,048,576-row slice, the
-              25-group stack) beside their plain versions, their bounds,
-              two batched ``torch.searchsorted`` and the plain in-batch
-              dedup; then the device mesh over
+              set to 0 there just before it: the device mesh over
               ``AVDBC_VIRTUAL_DEVICES=4`` shards of ``cuda:0``: a seeded
               VCF of 500,000 lines (cut from 1,000,000 for the smoke's
               time) over chromosomes 1-22, X, Y and MT in proportion to
@@ -2969,13 +2969,17 @@ def stacked_bits_edge_cases() -> list:
 
 def lookup_multi_bound(store, query) -> dict:
     """Bytes ``lookup_in_sorted_multi`` must move for these inputs and the
-    operations it does: each query's columns read once (2 W + 21 bytes)
-    and its outputs written once (5 bytes); the 32-byte sectors of the
-    position column its two searches touch and of the hash column its
-    hash search touches; the scalars (21 bytes) of every candidate it
-    examines and the allele bytes (2 W) of every candidate whose scalars
-    match.  Operations: three a search step, five a candidate and one a
-    compared allele byte."""
+    operations it does.  Bytes: each query's position (4) and outputs (5);
+    its mixed hash (8) where its position is in the slice; its chromosome
+    and lengths (9) where a candidate matches on position and hash; its
+    allele bytes (2 W) where a candidate matches on every scalar.  In the
+    slice: the 32-byte sectors of the position column its two searches
+    touch, and of the hash column its hash search and its candidates
+    touch (a candidate's position equals the query's inside ``[lo, hi)``
+    and is not read); the chromosome and lengths (9) of every candidate
+    whose hash matches, and the allele bytes (2 W) of every candidate
+    whose scalars match.  Operations: three a search step, five a
+    candidate and one a compared allele byte."""
     s_chrom, s_pos, s_hm, _s_ref, _s_alt, s_rl, s_al = store
     chrom, pos, hm, ref, _alt, rl, al = query
     n, w = pos.size, ref.shape[1]
@@ -2998,21 +3002,30 @@ def lookup_multi_bound(store, query) -> dict:
         l = np.where(active & less, mid + 1, l)
         r = np.where(active & ~less, mid, r)
     examined = np.minimum(np.maximum(hi - l, 0), 4)
-    cand = 0
+    hash_hits = cand = 0
+    scalars_q = np.zeros(n, bool)  # a candidate matches on position and hash
+    alleles_q = np.zeros(n, bool)  # a candidate matches on every scalar
     if s_pos.size:
         for k in range(4):
             ii = np.minimum(l + k, s_pos.size - 1)
-            ok = ((k < examined) & (s_pos[ii] == pos) & (hm64[ii] == q64)
-                  & (s_chrom[ii] == chrom) & (s_rl[ii] == rl) & (s_al[ii] == al))
+            seen = k < examined
+            hm_sectors.update((ii[seen] // 4).tolist())
+            same_h = seen & (hm64[ii] == q64)
+            ok = same_h & (s_chrom[ii] == chrom) & (s_rl[ii] == rl) & (s_al[ii] == al)
+            hash_hits += int(same_h.sum())
             cand += int(ok.sum())
-    nbytes = (n * (2 * w + 21) + 5 * n + 32 * (len(sectors) + len(hm_sectors))
-              + 21 * int(examined.sum()) + 2 * w * cand)
+            scalars_q |= same_h
+            alleles_q |= ok
+    nbytes = (9 * n + 8 * int((hi > lo).sum()) + 9 * int(scalars_q.sum())
+              + 2 * w * int(alleles_q.sum()) + 32 * (len(sectors) + len(hm_sectors))
+              + 9 * hash_hits + 2 * w * cand)
     log_m = int(np.ceil(np.log2(s_pos.size + 1)))
     ops = 3 * (2 * n * log_m + steps) + 5 * int(examined.sum()) + 2 * w * cand
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {"rows": int(s_pos.size), "queries": int(n), "width": int(w),
-            "candidates_examined": int(examined.sum()), "candidates_matched": cand,
+            "candidates_examined": int(examined.sum()), "candidates_hash_equal": hash_hits,
+            "candidates_matched": cand, "queries_allele_read": int(alleles_q.sum()),
             "search_sectors": len(sectors) + len(hm_sectors), "bytes": int(nbytes),
             "ops": int(ops), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -3092,7 +3105,8 @@ def mesh_kernel_checks(torch, device) -> tuple:
 
 
 def mesh_kernel_timing() -> dict:
-    """The mesh's kernels timed at the phase shapes in a fresh process:
+    """The mesh's kernels timed at the phase shapes in the second process,
+    while the first waits (no other phase holds the card):
     ``lookup_multi`` at a 1,048,576-row slice (W = 49) against 65,536
     queries, ``bits_spans_stacked`` at phase 15's stack (25 groups, 4,096
     intervals), each beside its plain version, its bound and (the stack)
@@ -3168,13 +3182,24 @@ def mesh_kernel_timing() -> dict:
                         "timed_by": {n: "profiler" if any(
                             r["device"] is not None for r in rs) else "events"
                             for n, rs in runs.items()}}
+    # K1 on its first query set alone, repeated: the sectors of its
+    # searches stay in L2 between calls, where the three sets in turn
+    # above read each other's out
+    one = [k1_inputs[0]]
+    timing["lookup_multi"]["ms_one_query_set"] = best([
+        {"device": device_profile(torch, dedup.lookup_in_sorted_multi, one, 50),
+         "call_ms": call_ms(torch, dedup.lookup_in_sorted_multi, one, 50)}
+        for _ in range(2)])["ms"]
+    # the process runs later phases: hand its cached blocks back to the card
+    del k1_inputs, k2_inputs, dedup_inputs, rows, s_t
+    torch.cuda.empty_cache()
     return timing
 
 
 def mesh_kernel_rows(checks, worst, timing) -> list:
     """The two kernel table rows of the mesh's kernels from phase 3's
-    :func:`mesh_kernel_checks` and phase 15's :func:`mesh_kernel_timing`
-    (launches filled in after phase 15); emits them."""
+    :func:`mesh_kernel_checks` and :func:`mesh_kernel_timing` (launches
+    filled in after phase 15); emits them."""
     emit("mesh_kernels", checks=checks, timing=timing)
     sources = {"lookup_multi": ("lookup_multi.cu", "annotatedvdb_tpu/ops/dedup.py:141"),
                "bits_spans_stacked": ("bits_spans.cu",
@@ -7743,20 +7768,16 @@ def mesh_single_chain(inp, platform="cuda") -> dict:
 
 
 def mesh_phase_job(inp, t0, platform="cuda") -> dict:
-    """Phase 15 as the second process runs it, beside phase 14: first the
-    mesh kernels' timing (:func:`mesh_kernel_timing`, the process fresh),
-    then :func:`mesh_phase` with its single-device chain after the mesh's
-    in this process.  ``t0`` is the smoke's start on the monotonic clock
+    """Phase 15 as the second process runs it, beside phase 14:
+    :func:`mesh_phase` with its single-device chain after the mesh's in
+    this process.  ``t0`` is the smoke's start on the monotonic clock
     every process shares, so the lines it emits carry the smoke's
-    ``t_s``.  Returns :func:`mesh_phase`'s result with the timing."""
+    ``t_s``."""
     global T0
     T0 = t0
     import torch
 
-    timing = mesh_kernel_timing() if platform == "cuda" else {}
-    out = mesh_phase(torch, inp, platform)
-    out["timing"] = timing
-    return out
+    return mesh_phase(torch, inp, platform)
 
 
 def mesh_phase(torch, inp, platform="cuda", single=None) -> dict:
@@ -8022,8 +8043,10 @@ def main() -> int:
             table.append(validate_kernel_phase(torch, device, inputs["genome"]["index"]))
             table += serve_kernel_phase(torch, device)
             table.append(export_kernel_phase(torch, device))
-            # the mesh kernels' checks here; their timing runs with phase 15
+            # the mesh kernels' checks, then their timing in the second
+            # process while this one waits, so no other phase shares the card
             mesh_checks = mesh_kernel_checks(torch, device)
+            mesh_timing = pool.submit(mesh_kernel_timing).result()
             native_hash_check(torch, device, inputs["vcf4"])
             # 4-6. the load (counters reset inside, just before it), the
             # probed reload and the card-vs-CPU parity.  Phase 9's tables
@@ -8094,8 +8117,8 @@ def main() -> int:
             # reads: serve --workers 2 --upserts --maintain and a
             # serve --follow beside it (counters start at 0 with each
             # serving process)
-            # 15. the device mesh over four virtual shards of the card, with
-            # the mesh kernels' timing, in the second process beside phase
+            # 15. the device mesh over four virtual shards of the card, in
+            # the second process beside phase
             # 14 (which keeps the card mostly idle and waits on its fleet;
             # phase 15 sets its own process's counts to 0 just before it)
             t0 = time.perf_counter()
@@ -8107,7 +8130,7 @@ def main() -> int:
             t0 = time.perf_counter()
             meshed = mesh_job.result()
             emit("mesh_wait", waited_after_phase14_s=time.perf_counter() - t0)
-            table += mesh_kernel_rows(*mesh_checks, meshed["timing"])
+            table += mesh_kernel_rows(*mesh_checks, mesh_timing)
         except AssertionError as err:
             return fail(str(err))
     left = leftovers_check()

@@ -341,6 +341,12 @@ def test_cli_refuses_unported_flags(tmp_path, monkeypatch, flags):
                        flag, out]) == 0
     run = check_obs_outputs(flag, out, "load-vcf", store)
     assert run["script"] == "load-vcf" and run["counters"]["variant"] > 700
+    if flag == "--profile":
+        # the dispatch thread's operators are recorded beside the caller's
+        path = next((tmp_path / "prof").glob("*.pt.trace.json"))
+        ops = [e for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "cpu_op"]
+        assert len({e["tid"] for e in ops}) >= 2
 
 
 def test_cli_defaults_to_cuda_and_never_falls_back(tmp_path):
