@@ -55,9 +55,19 @@
 // stack): `pos` [B, R] holds B groups' sentinel-padded rows, `starts` and
 // `ends` [B, Q] each group's queries, zero-padded to the common Q; a warp
 // serves one (group, query) pair, searching its group's row alone, and the
-// outputs are [B, Q].  The single form is the stack of one group.  Pad
-// queries come back too: a zero bound gives a = (0 - 1) // 15625 = -1 by
-// floor division, as in the plain version.
+// outputs are [B, Q].  Pad queries come back too: a zero bound gives a =
+// (0 - 1) // 15625 = -1 by floor division, as in the plain version.  At
+// phase 15's stack (25 groups of 131,072 padded rows, 330 queries a
+// group) half the warps serve pad queries, and each searched its whole
+// row.  The stacked kernel loads the row's first position beside the
+// query's bounds, and where it decides a bound (every row >= start: lo =
+// 0; every row > end: hi = 0) that half of the warp searches nothing:
+// every pad query and every all-sentinel group's queries end there.
+// Measured against it on the card (PERF.md): the first round's splitters
+// loaded beside the query's bounds (slower), and one group a block
+// searching a shared-memory fence of 256 or 1,024 of its rows first
+// (slower: the fence's strided loads cost more than the rounds they
+// save).  The single-group kernel is unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,16 +91,15 @@ __device__ __forceinline__ int splitter(int lo, int step, int rem, int i) {
   return lo + step * (i + 1) + min(i + 1, rem);
 }
 
-// The first index i in [0, k] at which pos[i] < key (pos[i] <= key when
-// `upper`) fails, searched by the kLanes lanes of this lane's group, `sub`
-// its index there and `shift` the group's first lane.  Every lane of the
-// warp calls it together.  The predicate passes on a prefix of the rows,
-// so the passing splitters (or window rows) are a prefix too, and counting
-// them is enough.
-__device__ __forceinline__ int bound(const int32_t* __restrict__ pos, int k,
-                                     int32_t key, bool upper, int sub,
-                                     int shift) {
-  int lo = 0, hi = k;
+// The first index i in [lo, hi] at which pos[i] < key (pos[i] <= key when
+// `upper`) fails, given that it lies there, searched by the kLanes lanes of
+// this lane's group, `sub` its index there and `shift` the group's first
+// lane.  Every lane of the warp calls it together.  The predicate passes
+// on a prefix of the rows, so the passing splitters (or window rows) are a
+// prefix too, and counting them is enough.
+__device__ __forceinline__ int bound_from(const int32_t* __restrict__ pos,
+                                          int lo, int hi, int32_t key,
+                                          bool upper, int sub, int shift) {
   while (true) {
     const int len = hi - lo;
     const bool wide = len > kLanes;
@@ -117,6 +126,13 @@ __device__ __forceinline__ int bound(const int32_t* __restrict__ pos, int k,
     pass = upper ? v <= key : v < key;
   }
   return lo + __popc((__ballot_sync(kAll, pass) >> shift) & kGroup);
+}
+
+// The same over the whole of [0, k].
+__device__ __forceinline__ int bound(const int32_t* __restrict__ pos, int k,
+                                     int32_t key, bool upper, int sub,
+                                     int shift) {
+  return bound_from(pos, 0, k, key, upper, sub, shift);
 }
 
 __device__ __forceinline__ int32_t floor_div(int32_t a, int32_t b) {
@@ -155,13 +171,54 @@ bits_spans_kernel(const int32_t* __restrict__ pos, int k,
   }
 }
 
+// The stack's kernel: a warp a (group, query) pair, as above, except
+// where the row's first position already decides a bound (every row >=
+// start: lo = 0; every row > end: hi = 0): the half of the warp that
+// searches it then does no search.  Every zero-padded query and every
+// all-sentinel group's queries end there, exactly, since the row is
+// sorted; the first position is loaded beside the query's bounds.
+__global__ void __launch_bounds__(kThreads)
+bits_spans_stacked_kernel(const int32_t* __restrict__ pos, int k,
+                          const int32_t* __restrict__ starts,
+                          const int32_t* __restrict__ ends, int q,
+                          int groups, int32_t* __restrict__ lo,
+                          int32_t* __restrict__ hi, int8_t* __restrict__ level,
+                          int32_t* __restrict__ leaf) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (i >= static_cast<int64_t>(q) * groups) return;  // the whole warp
+  const int32_t* __restrict__ row = pos + (i / q) * k;
+  const bool upper = lane >= kLanes;
+  const int32_t s = __ldg(starts + i), e = __ldg(ends + i);
+  const int32_t first = k > 0 ? __ldg(row) : 0;
+  const int32_t key = upper ? e : s;
+  const bool none = k == 0 || (upper ? first > key : first >= key);
+  const int r = bound_from(row, 0, none ? 0 : k, key, upper,
+                           lane & (kLanes - 1), lane & kLanes);
+  if (lane == 0) lo[i] = r;
+  if (lane == kLanes) hi[i] = r;
+  if (lane == 0) {
+    const int32_t a = floor_div(s - 1, kLeafSize);
+    const int32_t x = a ^ floor_div(e - 1, kLeafSize);
+    int mism = 0;
+#pragma unroll
+    for (int sh = 0; sh < kLevels; ++sh) mism += (x >> sh) != 0;
+    level[i] = static_cast<int8_t>(kLevels - mism);
+    leaf[i] = a;
+  }
+}
+
 bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 3u) != 0;
 }
 
-int launch(const void* pos, int k, const void* starts, const void* ends,
-           int q, int groups, void* lo, void* hi, void* level, void* leaf,
-           void* stream) {
+using Kernel = void (*)(const int32_t*, int, const int32_t*, const int32_t*,
+                        int, int, int32_t*, int32_t*, int8_t*, int32_t*);
+
+int launch(Kernel kernel, const void* pos, int k, const void* starts,
+           const void* ends, int q, int groups, void* lo, void* hi,
+           void* level, void* leaf, void* stream) {
   if (k < 0 || q < 0 || groups < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -173,8 +230,8 @@ int launch(const void* pos, int k, const void* starts, const void* ends,
   if (warps == 0) return 0;
   const int64_t blocks = (warps + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  bits_spans_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(pos), k, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(ends), q, groups, static_cast<int32_t*>(lo),
       static_cast<int32_t*>(hi), static_cast<int8_t*>(level),
@@ -192,7 +249,8 @@ int launch(const void* pos, int k, const void* starts, const void* ends,
 extern "C" int bits_spans_launch(const void* pos, int k, const void* starts,
                                  const void* ends, int q, void* lo, void* hi,
                                  void* level, void* leaf, void* stream) {
-  return launch(pos, k, starts, ends, q, 1, lo, hi, level, leaf, stream);
+  return launch(bits_spans_kernel, pos, k, starts, ends, q, 1, lo, hi, level,
+                leaf, stream);
 }
 
 // A stack of `b` groups: `pos` [b, r], `starts`/`ends` and the outputs
@@ -202,5 +260,6 @@ extern "C" int bits_spans_stacked_launch(const void* pos, int b, int r,
                                          int q, void* lo, void* hi,
                                          void* level, void* leaf,
                                          void* stream) {
-  return launch(pos, r, starts, ends, q, b, lo, hi, level, leaf, stream);
+  return launch(bits_spans_stacked_kernel, pos, r, starts, ends, q, b, lo, hi,
+                level, leaf, stream);
 }

@@ -45,6 +45,10 @@ from annotatedvdb_tpu_torch.utils.locks import make_lock
 #: never a real chromosome code)
 MESH_GROUP = 0
 
+#: the rebuild limiter's stamp of a state kind never built: its first
+#: build is always allowed
+NEVER_BUILT = float("-inf")
+
 
 def resolve_serve_mesh() -> str:
     """``AVDB_SERVE_MESH`` as one of ``auto``/``1``/``0`` (default
@@ -178,8 +182,11 @@ class MeshExecutor:
         #: guarded by self._lock
         self._spans: _SpanState | None = None
         #: guarded by self._lock — monotonic stamp of the last started
-        #: build per state kind (the rebuild rate limiter's input)
-        self._last_build = {"bulk": 0.0, "spans": 0.0}
+        #: build per state kind (the rebuild rate limiter's input); -inf
+        #: until the first, which is never a rebuild (``time.monotonic``
+        #: counts from boot, so a 0.0 stamp would hold back a young
+        #: host's first build for ``rebuild_min_s``)
+        self._last_build = {"bulk": NEVER_BUILT, "spans": NEVER_BUILT}
         if registry is not None:
             self._m_devices = registry.gauge(
                 "avdb_mesh_devices",
@@ -384,7 +391,7 @@ class MeshExecutor:
             self._bulk = None
             self._spans = None
             # the breaker's cool-down is the retry gate after a failure
-            self._last_build = {"bulk": 0.0, "spans": 0.0}
+            self._last_build = {"bulk": NEVER_BUILT, "spans": NEVER_BUILT}
         self._note_resident()
 
     # -- dispatch policy ----------------------------------------------------

@@ -2741,6 +2741,13 @@ def serve_kernel_timing() -> dict:
 #: 1,048,576 rows at W = 49 against 65,536 queries
 MESH_SLICE_ROWS = 1 << 20
 MESH_QUERIES = 1 << 16
+#: a serving bulk's probe on one shard in phase 15: 256 ids over four
+#: shards against a shard's ~125,000 rows (500,000 lines over four),
+#: padded to 131,072
+MESH_BULK_ROWS = 125_000
+MESH_BULK_QUERIES = 64
+#: the probe's checked allele widths: below, at and past a warp's 32 lanes
+LOOKUP_WIDTHS = (1, 16, 31, 32, 33, 49, 65, 96)
 #: the stacked-BITS shape: 25 groups (chromosomes 1-22, X, Y, MT) padded
 #: to the largest, 4,096 intervals over them
 MESH_GROUPS = 25
@@ -2796,7 +2803,12 @@ def lookup_multi_edge_cases(width) -> list:
     differing in its last byte, a length mismatch, positions before,
     after and between the rows, negative (salted) positions, the sentinel
     itself (which matches the first pad row), on a sentinel-padded slice,
-    on an empty slice (M = 0) and on an all-sentinel slice; then a random
+    on an empty slice (M = 0) and on an all-sentinel slice; two warps
+    whose lanes mix queries with 0, 1 and 4 candidates that pass every
+    scalar (``mixed-warp``: a lane's fourth candidate the hit, all four
+    failing, a single candidate failing on its last byte); hits on rows
+    1-7 of a slice, whose alleles start off a 4-byte boundary at any
+    width not a multiple of 4 (``off-word``); then a random
     multi-chromosome slice of 3,000 rows padded to 4,096 with 4,099
     queries (hits, misses, cross-chromosome collisions)."""
     from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
@@ -2830,10 +2842,41 @@ def lookup_multi_edge_cases(width) -> list:
              ("unpadded", _multi_slice(rows, width), q),
              ("empty", _multi_slice([], width), q),
              ("sentinels", _multi_slice([], width, pad_to=8), q)]
+    # lanes by three: no candidate, one, four (runs of four equal keys)
+    runs = [(4, 9000 + 10 * t, 1000 + t, "A", x)
+            for t in range(8) for x in ("C", "G", "T", "A")]
+    singles = [(4, 20000 + 10 * t, 2000 + t, long_a, "T") for t in range(8)]
+    mixed = []
+    for lane in range(64):
+        t = lane // 3 % 8
+        if lane % 3 == 0:
+            mixed.append((4, 30000 + lane, 7, "A", "C"))
+        elif lane % 3 == 1:
+            mixed.append(singles[t] if lane % 2 else (4, 20000 + 10 * t, 2000 + t,
+                                                      last_flip, "T"))
+        else:
+            # the fourth candidate hits, the first, none of the four
+            mixed.append((4, 9000 + 10 * t, 1000 + t, "A", ("A", "C", "N")[t % 3]))
+    cases.append(("mixed-warp", _multi_slice(runs + singles, width, pad_to=128),
+                  _multi_queries(mixed, width)))
+    word = [(6, 100 + j, 50 + j, long_a[::-1], "ACGT"[j % 4] * min(j + 1, width))
+            for j in range(8)]
+    cases.append(("off-word", _multi_slice(word, width),
+                  _multi_queries([word[j] for j in (1, 2, 3, 5, 6, 7, 0)], width)))
     store, query = lookup_multi_random(7 + width, 3_000, 4_099, width,
                                        pad_to=4_096)
     cases.append(("random", store, query))
     return cases
+
+
+def mesh_bulk_case(seed=17) -> tuple:
+    """(slice, queries) at a serving bulk's shape on one shard:
+    :data:`MESH_BULK_QUERIES` queries against :data:`MESH_BULK_ROWS` rows
+    padded to a power of two, as ``parallel/device_store.py`` pads."""
+    from annotatedvdb_tpu_torch.utils.arrays import next_pow2
+
+    return lookup_multi_random(seed, MESH_BULK_ROWS, MESH_BULK_QUERIES, WIDTH,
+                               pad_to=next_pow2(MESH_BULK_ROWS))
 
 
 def lookup_multi_random(seed, m, n, width, pad_to=0) -> tuple:
@@ -2935,8 +2978,13 @@ def stacked_bits_edge_cases() -> list:
     kernel: one group (the single form), a stack with an all-sentinel
     group and zero-padded queries (leaf -1 by floor division), one row a
     group, Q not a multiple of 8 and B * Q past one block, runs of equal
-    positions, bounds at the sentinel and the clamp; then the phase's
-    stack at a hundredth of its rows."""
+    positions, bounds at the sentinel and the clamp; queries below and at
+    each group's first row (``below-first``: where that row alone decides
+    a bound); a stack of all-sentinel groups with real queries
+    (``all-pad``); groups of 1 to 40 real rows in a 64-row pad, about a
+    search window's 16 (``few-real``); ``end < start`` on either side of
+    the rows (``end-before-start``); then the phase's stack at a
+    hundredth of its rows."""
     from annotatedvdb_tpu_torch.utils.arrays import POS_SENTINEL
 
     rng = np.random.default_rng(150)
@@ -2962,6 +3010,25 @@ def stacked_bits_edge_cases() -> list:
     pos = np.sort(rng.integers(1, 1000, (9, 1)), axis=1).astype(np.int32)
     s = rng.integers(0, 1000, (9, 37)).astype(np.int32)
     cases.append(("one-row", pos, s, (s + 3).astype(np.int32)))
+    pos = np.full((4, 64), POS_SENTINEL, np.int32)
+    for g, k in enumerate((1, 16, 17, 40)):
+        pos[g, :k] = np.sort(rng.integers(500, 900, k))
+    first = pos[:, :1]
+    starts = first + np.asarray([[-400, -2, -1, 0, 1, 3, -400, -1, 0, -5, 0, 1]])
+    ends = first + np.asarray([[-400, -2, -1, 0, 1, 3, -1, 0, 0, 5, 60, 999]])
+    cases.append(("below-first", pos, starts.astype(np.int32), ends.astype(np.int32)))
+    s = rng.integers(0, 2**31 - 17, (3, 9)).astype(np.int32)
+    cases.append(("all-pad", np.full((3, 32), POS_SENTINEL, np.int32), s,
+                  np.maximum(s, rng.integers(0, 2**31 - 17, (3, 9))).astype(np.int32)))
+    pos = np.full((40, 64), POS_SENTINEL, np.int32)
+    for g in range(40):
+        pos[g, :g + 1] = np.sort(rng.integers(1, 5_000, g + 1))
+    s = rng.integers(0, 5_200, (40, 12)).astype(np.int32)
+    cases.append(("few-real", pos, s, (s + rng.integers(0, 800, s.shape)).astype(np.int32)))
+    pos = np.sort(rng.integers(1_000, 2_000, (3, 48)), axis=1).astype(np.int32)
+    s = np.asarray([[5, 1_500, 3_000, 1_000, 2_000, 1_999]] * 3, np.int32)
+    e = np.asarray([[1, 1_200, 2_500, 999, 1_000, 1_000]] * 3, np.int32)
+    cases.append(("end-before-start", pos, s, e))
     pos, starts, ends, _share = stacked_bits_case(151, scale=0.01)
     cases.append(("phase-shape/100", pos, starts, ends))
     return cases
@@ -3083,10 +3150,11 @@ def mesh_kernel_checks(torch, device) -> tuple:
             raise AssertionError(f"{kernel} disagrees with its plain version on "
                                  f"{label} (max |diff| {err})")
 
-    cases = [(f"{label}-w{w}", st, q) for w in (16, 49, 96)
+    cases = [(f"{label}-w{w}", st, q) for w in LOOKUP_WIDTHS
              for label, st, q in lookup_multi_edge_cases(w)]
     cases.append(("phase", *lookup_multi_random(15, MESH_SLICE_ROWS, MESH_QUERIES,
                                                 WIDTH)))
+    cases.append(("bulk", *mesh_bulk_case()))
     for label, store, query in cases:
         t = _multi_tensors(torch, store, device) + _multi_tensors(torch, query, device)
         got = dedup.lookup_in_sorted_multi(*t)
@@ -3108,7 +3176,8 @@ def mesh_kernel_timing() -> dict:
     """The mesh's kernels timed at the phase shapes in the second process,
     while the first waits (no other phase holds the card):
     ``lookup_multi`` at a 1,048,576-row slice (W = 49) against 65,536
-    queries, ``bits_spans_stacked`` at phase 15's stack (25 groups, 4,096
+    queries and at a serving bulk's shard (``lookup_multi_bulk``: 64
+    queries, 125,000 rows), ``bits_spans_stacked`` at phase 15's stack (25 groups, 4,096
     intervals), each beside its plain version, its bound and (the stack)
     two batched ``torch.searchsorted`` calls; device ms per call by
     profiler, call ms by CUDA events.  Beside them the insert step's
@@ -3130,6 +3199,12 @@ def mesh_kernel_timing() -> dict:
               for k in range(3)]
     k2_inputs = [tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
                        for x in st) for st in stacks]
+    bulk_store, bulk_query = mesh_bulk_case()
+    bulk_real = [c[:MESH_BULK_ROWS] for c in bulk_store]
+    b_t = _multi_tensors(torch, bulk_store, device)
+    bulk_inputs = [tuple(b_t + _multi_tensors(torch, q, device)) for q in (
+        bulk_query, *(multi_queries(18 + k, bulk_real, MESH_BULK_QUERIES, WIDTH)
+                      for k in range(2)))]
 
     def best(rs):
         dev = [r["device"] for r in rs if r["device"] is not None]
@@ -3146,6 +3221,9 @@ def mesh_kernel_timing() -> dict:
             lambda p, s, e: (torch.searchsorted(p, s),
                              torch.searchsorted(p, e, right=True)),
             stacked_bits_bound(*stacks[0])),
+        "lookup_multi_bulk": (bulk_inputs, dedup.lookup_in_sorted_multi,
+                              dedup.lookup_in_sorted_multi_reference, None,
+                              lookup_multi_bound(bulk_store, bulk_query)),
     }
     timing = {}
     # the insert step's in-batch dedup (plain torch: chained stable sorts)
@@ -3182,16 +3260,8 @@ def mesh_kernel_timing() -> dict:
                         "timed_by": {n: "profiler" if any(
                             r["device"] is not None for r in rs) else "events"
                             for n, rs in runs.items()}}
-    # K1 on its first query set alone, repeated: the sectors of its
-    # searches stay in L2 between calls, where the three sets in turn
-    # above read each other's out
-    one = [k1_inputs[0]]
-    timing["lookup_multi"]["ms_one_query_set"] = best([
-        {"device": device_profile(torch, dedup.lookup_in_sorted_multi, one, 50),
-         "call_ms": call_ms(torch, dedup.lookup_in_sorted_multi, one, 50)}
-        for _ in range(2)])["ms"]
     # the process runs later phases: hand its cached blocks back to the card
-    del k1_inputs, k2_inputs, dedup_inputs, rows, s_t
+    del k1_inputs, k2_inputs, bulk_inputs, dedup_inputs, rows, s_t, b_t
     torch.cuda.empty_cache()
     return timing
 

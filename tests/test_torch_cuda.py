@@ -1513,9 +1513,13 @@ def _multi_cols(cols, device, allele_offset=0):
     return out
 
 
-@pytest.mark.parametrize("offset", [0, 3])
-@pytest.mark.parametrize("width", [16, 49, 96])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("width", [1, 16, 31, 32, 33, 49, 65, 96])
 def test_lookup_multi_matches_plain_version(cuda, width, offset):
+    """Every edge slice (``lookup_multi_edge_cases``: warps mixing 0, 1
+    and 4 pending candidates, rows off a 4-byte boundary among them) at
+    widths below, at and past a warp's 32 lanes, the allele matrices
+    aligned and off by one and three bytes."""
     from annotatedvdb_tpu_torch.ops import dedup
     from chip_smoke import lookup_multi_edge_cases
 
@@ -1529,6 +1533,31 @@ def test_lookup_multi_matches_plain_version(cuda, width, offset):
         assert dedup.LAUNCHES["lookup_multi"] == before + 1
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w), label
+
+
+def test_lookup_multi_bulk_shape_matches_plain_version(cuda):
+    """The probe at a mesh serving bulk's shape on one shard: 64 queries
+    against a slice of 125,000 rows padded to 131,072 (W = 49), three
+    query sets."""
+    from annotatedvdb_tpu_torch.ops import dedup
+    from chip_smoke import (MESH_BULK_QUERIES, MESH_BULK_ROWS, WIDTH,
+                            mesh_bulk_case, multi_queries)
+
+    store, query = mesh_bulk_case()
+    real = [c[:MESH_BULK_ROWS] for c in store]
+    s = _multi_cols(store, cuda)
+    for seed, q in ((None, query), (18, None), (19, None)):
+        if q is None:
+            q = multi_queries(seed, real, MESH_BULK_QUERIES, WIDTH)
+        q = _multi_cols(q, cuda)
+        before = dedup.LAUNCHES["lookup_multi"]
+        got = dedup.lookup_in_sorted_multi(*s, *q)
+        want = dedup.lookup_in_sorted_multi_reference(*s, *q)
+        torch.cuda.synchronize()
+        assert dedup.LAUNCHES["lookup_multi"] == before + 1
+        assert int(want[0].sum()) > 0
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_lookup_multi_refuses_bad_inputs(cuda):

@@ -233,7 +233,8 @@ def _stacked_sim(lib, pos, starts, ends):
 
 
 #: the labels of ``chip_smoke.stacked_bits_edge_cases``
-STACKED_CASES = ("one-group", "padded", "one-row", "phase-shape/100")
+STACKED_CASES = ("one-group", "padded", "one-row", "below-first", "all-pad",
+                 "few-real", "end-before-start", "phase-shape/100")
 
 
 @pytest.fixture(scope="module")
@@ -250,7 +251,9 @@ def test_bits_spans_stacked_source_matches_plain_version(libs, stacked_cases,
                                                          capfd, label):
     """The stacked entry point (a warp per (group, query)) on the smoke's
     stacks — an all-sentinel group, zero-padded queries (leaf -1), one row
-    a group, Q not a multiple of 8 — exactly against the plain version."""
+    a group, Q not a multiple of 8, queries below and at a group's first
+    row, all-sentinel stacks, groups of fewer real rows than their pad,
+    ``end < start`` — exactly against the plain version."""
     pos, starts, ends = stacked_cases[label]
     got = _stacked_sim(libs["bits_spans"], pos, starts, ends)
     no_misaligned(capfd)
@@ -304,18 +307,29 @@ def _lookup_sim(lib, store, query, offset=0):
     return found.astype(bool), index
 
 
+#: allele widths around the confirming groups' strides and a warp's 32
+LOOKUP_WIDTHS = [1, 16, 31, 32, 33, 49, 65, 96]
+
+
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "alleles+1"])
-@pytest.mark.parametrize("width", [16, 49, 96])
+@pytest.mark.parametrize("width", LOOKUP_WIDTHS)
 def test_lookup_multi_source_matches_plain_version(libs, capfd, width, offset):
     """The smoke's edge slices (``lookup_multi_edge_cases``: runs of five
     and four equal keys, the cross-chromosome collision, unsigned hash
-    order, the sentinel pad, an empty and an all-sentinel slice, a random
-    slice) exactly against the plain version on CPU tensors."""
+    order, the sentinel pad, an empty and an all-sentinel slice, warps
+    mixing queries with 0, 1 and 4 pending candidates, hits on rows that
+    start off a 4-byte boundary, a random slice) exactly against the plain
+    version on CPU tensors, at widths below, at and past a warp's 32
+    lanes, with the allele matrices aligned and one byte off."""
     from chip_smoke import lookup_multi_edge_cases
 
-    for label, store, query in lookup_multi_edge_cases(width):
+    cases = lookup_multi_edge_cases(width)
+    assert {"mixed-warp", "off-word"} <= {c[0] for c in cases}
+    for label, store, query in cases:
         got = _lookup_sim(libs["lookup_multi"], store, query, offset)
         no_misaligned(capfd)
+        if label == "off-word" and (width % 4 or offset):
+            assert any((j * width + offset) % 4 for j in got[1] if j >= 0)
         cols = [torch.from_numpy(np.ascontiguousarray(c)) for c in store + query]
         cols[2], cols[9] = cols[2].to(torch.int64), cols[9].to(torch.int64)
         want = DD.lookup_in_sorted_multi_reference(*cols)

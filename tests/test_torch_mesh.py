@@ -404,6 +404,25 @@ def test_rebuild_rate_limit_declines_churning_generations(served):
     assert engine.mesh._bulk is built       # state untouched (declined)
 
 
+def test_rebuild_rate_limit_builds_first_on_a_fresh_host(served, monkeypatch):
+    """A never-built kind is always allowed its first build, also where
+    the monotonic clock reads less than ``rebuild_min_s`` (a host up one
+    second); a second generation inside the window is then declined."""
+    monkeypatch.setattr(mesh_exec.time, "monotonic", lambda: 1.0)
+    engine = QueryEngine(
+        StaticSnapshots(served["store"]), region_cache_size=0, device="cpu",
+        mesh=MeshExecutor(cpu_mesh(), bulk_min=0, rebuild_min_s=3600.0),
+    )
+    ids = _ids(served["truth"])
+    want = served["ref_plain"].lookup_many(ids)
+    assert engine.lookup_many(ids) == want
+    built = engine.mesh._bulk
+    assert built is not None and built.generation == 1
+    engine.snapshots = StaticSnapshots(served["store"], generation=2)
+    assert engine.lookup_many(ids) == want
+    assert engine.mesh._bulk is built
+
+
 def test_build_server_hands_mesh_the_per_device_budget(served, monkeypatch):
     """The mesh budget is the residency manager's already-split share,
     never the raw ``AVDB_SERVE_HBM_BUDGET``."""
