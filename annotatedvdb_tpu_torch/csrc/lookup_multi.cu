@@ -77,8 +77,7 @@ constexpr int kThreads = 256;             // queries (threads) a block
 constexpr int kGroup = 8;                 // lanes that confirm one candidate
 constexpr int kGroups = 32 / kGroup;      // candidates confirmed a round
 constexpr unsigned kAll = 0xffffffffu;
-constexpr unsigned kGroupMask =
-    kGroup == 32 ? kAll : (1u << (kGroup % 32)) - 1;
+constexpr unsigned kGroupMask = (1u << kGroup) - 1;
 
 // The 8-byte word at the 8-aligned address `a`, its bytes outside [lo, hi)
 // read as 0 (and not read): only a matrix's first and last rows reach past
@@ -237,7 +236,7 @@ lookup_multi_kernel(const int8_t* __restrict__ s_chrom,
     if (pend != 0) {
       const int rank = __popc(waiting & below);
       if (rank < kGroups) {
-        if (((bad >> (rank * kGroup % 32)) & kGroupMask) == 0) {
+        if (((bad >> (rank * kGroup)) & kGroupMask) == 0) {
           at = l + __ffs(static_cast<int>(pend)) - 1;
           pend = 0;
         } else {
