@@ -64,7 +64,8 @@ def vcf_subsets(updater, path: str) -> dict[int, np.ndarray]:
 
     updater.store.compact()
     hits: dict[int, list] = {}
-    for chunk in VcfBatchReader(path, width=updater.store.width):
+    for chunk in VcfBatchReader(path, width=updater.store.width,
+                                pack_alleles=False):
         for code, shard, _sel, found, idx in chunk_lookup(
                 updater.store, chunk, device=updater.device):
             if shard is None:

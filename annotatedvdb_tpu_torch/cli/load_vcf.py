@@ -172,9 +172,12 @@ def main(argv=None):
         "pipeline": os.environ.get("AVDB_PIPELINE", "overlapped"),
     })
     obs.attach(loader)
-    # the load, the profiler's capture and the final save can each die:
-    # the run ledger must witness every abort
+    # the warmup, the load, the profiler's capture and the final save can
+    # each die: the run ledger must witness every abort
     try:
+        # build the kernels and run the transport probes before streaming
+        # begins, so the first chunk does not pay for them
+        loader.warmup()
         with device_trace(args.profile, device):
             counters = loader.load_file(
                 args.fileName,

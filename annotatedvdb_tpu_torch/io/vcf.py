@@ -277,6 +277,15 @@ class VcfChunk:
     #: bool per row: INFO carries a FREQ entry.  The insert path skips the
     #: frequencies column entirely for chunks with no flagged row.
     has_freq: np.ndarray | None = None
+    #: nibble-packed [n, ceil(width / 2)] allele matrices (``ops/pack.py``
+    #: codes) from the native tokenizer, present only when every row packs:
+    #: the loader uploads these instead of the raw matrices
+    ref_packed: np.ndarray | None = None
+    alt_packed: np.ndarray | None = None
+    #: True: the packed matrices are present; False: the tokenizer found a
+    #: byte outside the alphabet (the loader does not retry on the host);
+    #: None: packing was never tried (Python engine, built chunks)
+    alleles_packable: bool | None = None
     #: uint32 allele-identity hash per row, computed by the native tokenizer
     #: during the scan (the bit-exact twin of ``ops.hashing.allele_hash``
     #: over the width-bounded arrays); a view of the chunk's buffer.  None
@@ -298,15 +307,24 @@ class VcfBatchReader:
     forces it (and refuses a map), ``python`` forces the Python scanner.
     A native build that fails raises with the compiler's stderr: ``auto``
     never falls back to the Python scanner.
+
+    ``identity_only`` leaves INFO unread on both engines (every INFO view
+    of a row is empty: no RS refsnp fallback, no FREQ).  ``pack_alleles``
+    asks the native tokenizer to nibble-pack the alleles during its scan
+    (``VcfChunk.ref_packed``); readers whose alleles never go up to a
+    device turn it off.
     """
 
     def __init__(self, path: str, batch_size: int = 1 << 16, width: int = 49,
-                 chromosome_map: dict | None = None, engine: str = "auto",
+                 chromosome_map: dict | None = None, identity_only: bool = False,
+                 engine: str = "auto", pack_alleles: bool = True,
                  on_reject=None):
         self.path = path
         self.batch_size = batch_size
         self.width = width
         self.chromosome_map = chromosome_map
+        self.identity_only = identity_only
+        self.pack_alleles = pack_alleles
         #: ``on_reject(line_no, raw_line, reason)`` for malformed lines —
         #: the quarantine hook.  Only the Python scanner sees line content
         #: (the native tokenizer reports counts, not spans); loaders check
@@ -347,7 +365,8 @@ class VcfBatchReader:
         if self._use_native():
             from annotatedvdb_tpu_torch.native.vcf import iter_native_chunks
 
-            chunks = iter_native_chunks(self.path, self.batch_size, self.width)
+            chunks = iter_native_chunks(self.path, self.batch_size, self.width,
+                                        self.identity_only, self.pack_alleles)
         else:
             chunks = self._iter_python()
         return self._fire_per_chunk(chunks)
@@ -426,6 +445,7 @@ class VcfBatchReader:
                 info = (
                     parse_info(fields[7])
                     if len(fields) > 7 and fields[7] != "."
+                    and not self.identity_only
                     else {}
                 )
                 chrom_label = str(chrom_str)

@@ -155,7 +155,9 @@ class UpdateLoader:
 
         reader = VcfBatchReader(
             path, batch_size=self.batch_size, width=self.store.width,
-            chromosome_map=self.chromosome_map, on_reject=_reject,
+            chromosome_map=self.chromosome_map,
+            pack_alleles=False,  # the update path never uploads allele matrices
+            on_reject=_reject,
         )
         # resolving the engine builds the tokenizer here: a failed build
         # raises before any chunk is read

@@ -31,8 +31,21 @@ chunk's device step is the sharded annotate step instead
 (``parallel.distributed.distributed_annotate_step``: 16 kb position
 blocks spread the chunk over the shards, one ``annotate_bin`` launch per
 shard on the card), its outputs scattered back to row order; every byte
-written is the same.  Not ported yet: the packed transport and
-width-bucketed dispatch, and display attributes.
+written is the same.
+
+The host<->device transport (``ops/pack.py``), as the reference's: when
+``transport_wanted`` (``AVDB_PACK_TRANSPORT``; auto on a card) the
+alleles go up nibble-packed (the tokenizer's in-scan pack, else a host
+encode; a chunk with a byte outside the alphabet goes up raw) and one
+``inflate_alleles`` launch restores them, and, unless display attributes
+are stored, one ``pack_outputs`` launch folds the kernel's hash, bin and
+flags into one ``[n, 10]`` row fetched with one copy (``_will_pack``).
+A load that does not pack slices a chunk's allele matrices to the
+power-of-two width (at least 8) that covers its longest allele when it
+carries the tokenizer's hash (the width-bucketed upload).
+``store_display_attributes`` fetches every annotate field and stores the
+reference's ``display_attributes`` sidecar.  Every configuration writes
+the same bytes.
 """
 
 from __future__ import annotations
@@ -58,12 +71,22 @@ from annotatedvdb_tpu_torch.io.vcf import (
 )
 from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
+from annotatedvdb_tpu_torch.ops.pack import (
+    encode_alleles_nibble,
+    inflate_alleles,
+    nibble_verified,
+    pack_outputs,
+    transport_verified,
+    transport_wanted,
+    unpack_outputs,
+)
 from annotatedvdb_tpu_torch.ops.vrs import VrsDigestGenerator
 from annotatedvdb_tpu_torch.oracle.binindex import closed_form_bin
 from annotatedvdb_tpu_torch.runtime import resolve_device, to_device
 from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
 from annotatedvdb_tpu_torch.store.variant_store import Segment, combined_key
 from annotatedvdb_tpu_torch.types import AnnotatedBatch, VariantBatch
+from annotatedvdb_tpu_torch.utils.arrays import next_pow2
 from annotatedvdb_tpu_torch.utils.profiling import DeviceOccupancy, bulk_load_gc
 
 #: the ledger's ``script`` label for insert loads — the reference's, so
@@ -164,6 +187,7 @@ class VcfLoader:
         device: str | torch.device | None = None,
         genome=None,
         mesh=None,
+        store_display_attributes: bool = False,
     ):
         """``genome``: an optional
         :class:`~annotatedvdb_tpu_torch.genome.ReferenceGenome`; enables
@@ -171,7 +195,10 @@ class VcfLoader:
         counter) and, when no ``digester`` is given, canonical GA4GH
         sequence digests for digest PKs.  ``mesh``: an optional
         :class:`~annotatedvdb_tpu_torch.parallel.mesh.Mesh`; with more
-        than one shard every chunk is annotated across it."""
+        than one shard every chunk is annotated across it.
+        ``store_display_attributes``: fetch every annotate field and store
+        the ``display_attributes`` sidecar (the reference's
+        store-everything option; off, the egress paths recompute them)."""
         from annotatedvdb_tpu_torch.genome.assemblies import (
             BUILD_LENGTHS,
             length_table,
@@ -182,6 +209,7 @@ class VcfLoader:
 
         self.device = resolve_device(device)
         self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self.store_display_attributes = store_display_attributes
         self.store = store
         self.ledger = ledger
         self.datasource = datasource.lower() if datasource else None
@@ -233,6 +261,13 @@ class VcfLoader:
         self._writer_pool = None
         #: the dispatch stage's CUDA stream (created on first dispatch)
         self._stream = None
+        #: chunks by transport (observability only): allele uploads
+        #: ``nibble`` / ``raw``, output fetches ``packed`` / ``fields``, and
+        #: raw uploads by matrix width (``widths``, the bucketing)
+        self.transport = {"nibble": 0, "raw": 0, "packed": 0, "fields": 0,
+                          "widths": {}}
+        #: seconds of the last :meth:`warmup`
+        self.warmup_seconds: float | None = None
         # quarantine sink + error budget: malformed input lines are
         # preserved replayably and counted against --maxErrors; the sink's
         # budget is authoritative when present
@@ -272,6 +307,54 @@ class VcfLoader:
     @property
     def is_adsp(self) -> bool:
         return self.datasource == "adsp"
+
+    def warmup(self) -> None:
+        """What the first chunk would otherwise pay, outside the measured
+        stream.  On a card: the loader's kernel libraries built (one
+        ``nvcc`` each, together), the annotate step's first-call check,
+        the transport probes and one inflate and one pack at the loader's
+        chunk shape, each held against the plain result on the host (a
+        mismatch raises).  On the CPU nothing compiles: only the 4-row
+        probes run, where the transport is wanted.  Its seconds land in
+        :attr:`warmup_seconds`."""
+        t0 = time.perf_counter()
+        wanted = self.mesh is None and transport_wanted(self.device)
+        if wanted:
+            nibble_verified(self.device)
+        will_pack = self._will_pack()
+        if self.device.type == "cuda":
+            from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+            from annotatedvdb_tpu_torch.ops.build import build
+            from annotatedvdb_tpu_torch.ops.pack import pack_outputs_np
+
+            build(["annotate_bin", "pack"]
+                  + (["validate_ref"] if self.genome is not None else [])
+                  + (["lookup_multi"] if self.mesh is not None else []))
+            if self.mesh is None:
+                annotate_hash_fn(self.device)
+            if wanted:
+                batch = synthetic_batch(self.batch_size, width=self.store.width)
+                enc = encode_alleles_nibble(batch.ref, batch.alt)
+                ref, alt = inflate_alleles(*(to_device(x, self.device) for x in enc),
+                                           self.store.width)
+                if not (np.array_equal(ref.cpu().numpy(), batch.ref)
+                        and np.array_equal(alt.cpu().numpy(), batch.alt)):
+                    raise RuntimeError("warmup: the chunk-shape inflate mismatched")
+            if will_pack:
+                rng = np.random.default_rng(7)
+                n = self.batch_size
+                cols = (rng.integers(-2**31, 2**31, n).astype(np.int32), None,
+                        rng.integers(0, 14, n).astype(np.int8),
+                        rng.integers(0, 2**17, n).astype(np.int32),
+                        rng.random(n) < 0.5, rng.random(n) < 0.5)
+                got = pack_outputs(*(None if c is None else to_device(c, self.device)
+                                     for c in cols)).cpu().numpy()
+                want = pack_outputs_np(cols[0].view(np.uint32), np.zeros(n, bool),
+                                       *cols[2:])
+                if not np.array_equal(got, want):
+                    raise RuntimeError("warmup: the chunk-shape pack mismatched")
+            torch.cuda.synchronize(self.device)
+        self.warmup_seconds = time.perf_counter() - t0
 
     @bulk_load_gc()
     def load_file(
@@ -325,6 +408,9 @@ class VcfLoader:
                 batch_size=ingest_chunk_rows(self.batch_size),
                 width=self.store.width,
                 chromosome_map=self.chromosome_map,
+                # the mesh path never uploads packed alleles, and a load
+                # that does not want the transport skips the pack work
+                pack_alleles=self.mesh is None and transport_wanted(self.device),
                 on_reject=self._reject,
             )
             # content-capturing rejects reach _reject directly (Python
@@ -511,11 +597,54 @@ class VcfLoader:
             resume_line, mapping_fh,
         )
 
+    def _will_pack(self) -> bool:
+        """Whether chunks fetch their outputs as one packed row each: a
+        single-device load that stores no display attributes, with the
+        transport wanted on its device and its probe passed (the probe
+        raises when it fails)."""
+        return (self.mesh is None and not self.store_display_attributes
+                and transport_wanted(self.device)
+                and transport_verified(self.device))
+
+    def _nibble_alleles(self, chunk: VcfChunk):
+        """The chunk's allele matrices nibble-packed for the upload, or None
+        for a raw upload: the tokenizer's pre-packed matrices when present;
+        a host encode unless the tokenizer found a byte outside the
+        alphabet (``alleles_packable`` False) or the encode finds one; None
+        when the transport is not wanted (or on a mesh)."""
+        if self.mesh is not None or not (transport_wanted(self.device)
+                                         and nibble_verified(self.device)):
+            return None
+        if chunk.ref_packed is not None:
+            return chunk.ref_packed, chunk.alt_packed
+        if chunk.alleles_packable is False:
+            return None
+        return encode_alleles_nibble(chunk.batch.ref, chunk.batch.alt)
+
+    def _upload_width(self, chunk: VcfChunk, will_pack: bool) -> int:
+        """The width of a raw allele upload: the power-of-two bucket (at
+        least 8) covering the chunk's longest allele when that is narrower
+        than the matrices and the chunk carries the tokenizer's hash (the
+        device hash of a sliced matrix is not the store's; annotate
+        outputs do not depend on the width).  A packing load keeps the
+        full width: it stores the device hash."""
+        batch = chunk.batch
+        width = batch.ref.shape[1]
+        if chunk.h_native is None or will_pack or width <= 8 or batch.n == 0:
+            return width
+        longest = max(int(batch.ref_len.max()), int(batch.alt_len.max()), 1)
+        bucket = next_pow2(max(longest, 8))
+        return bucket if bucket < width else width
+
     def _dispatch_chunk(self, chunk: VcfChunk) -> dict:
         """Enqueue the chunk's device step without waiting: on a card,
-        pinned non-blocking uploads, one ``annotate_bin`` launch and
-        non-blocking copies of the ``COPY_BACK`` columns (and the hash when
-        the chunk carries no tokenizer hash) into fresh pinned host
+        pinned non-blocking uploads (the alleles nibble-packed and inflated
+        by one ``inflate_alleles`` launch when the transport is wanted, else
+        raw at :meth:`_upload_width`), one ``annotate_bin`` launch, then
+        either one ``pack_outputs`` launch and one non-blocking copy of the
+        ``[n, 10]`` rows (:meth:`_will_pack`) or copies of the ``COPY_BACK``
+        columns (every annotate field with display attributes; the hash
+        when the chunk carries no tokenizer hash) into fresh pinned host
         tensors, all on this loader's stream, then one event recorded
         there.  The process stage waits on that event alone, never on the
         device as a whole, so it does not queue behind the next chunk's
@@ -523,18 +652,45 @@ class VcfLoader:
         None.  The lazy sidecar columns are never touched on this thread."""
         if self.mesh is not None:
             # the sharded step returns host arrays (its gather is the sync)
+            self.transport["fields"] += 1
             return {"cols": self._annotate_distributed(chunk), "event": None}
         on_card = self.device.type == "cuda"
         if on_card and self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
+        batch = chunk.batch
+        will_pack = self._will_pack()
+        enc = self._nibble_alleles(chunk)
+        width = batch.ref.shape[1]
         with torch.cuda.stream(self._stream) if on_card else contextlib.nullcontext():
             # the first call checks the kernel against the plain version
             # (raises on a mismatch, failing the load)
             step = annotate_hash_fn(self.device)
-            ann, h = step(*(to_device(x, self.device) for x in chunk.batch))
-            cols = {name: getattr(ann, name) for name in COPY_BACK}
-            if chunk.h_native is None:
-                cols["h"] = h
+            chrom, pos, ref_len, alt_len = (
+                to_device(x, self.device)
+                for x in (batch.chrom, batch.pos, batch.ref_len, batch.alt_len))
+            if enc is not None:
+                self.transport["nibble"] += 1
+                ref, alt = inflate_alleles(to_device(enc[0], self.device),
+                                           to_device(enc[1], self.device), width)
+            else:
+                w = self._upload_width(chunk, will_pack)
+                self.transport["raw"] += 1
+                self.transport["widths"][w] = self.transport["widths"].get(w, 0) + 1
+                ref, alt = (to_device(m[:, :w], self.device)
+                            for m in (batch.ref, batch.alt))
+            ann, h = step(chrom, pos, ref, alt, ref_len, alt_len)
+            if will_pack:
+                # the dup lane stays zero: in-batch dedup is the host's
+                self.transport["packed"] += 1
+                cols = {"packed": pack_outputs(h, None, ann.bin_level, ann.leaf_bin,
+                                               ann.needs_digest, ann.host_fallback)}
+            else:
+                self.transport["fields"] += 1
+                names = (AnnotatedBatch._fields if self.store_display_attributes
+                         else COPY_BACK)
+                cols = {name: getattr(ann, name) for name in names}
+                if chunk.h_native is None:
+                    cols["h"] = h
             if not on_card:
                 return {"cols": cols, "event": None}
             cols = {name: _pinned_copy(t) for name, t in cols.items()}
@@ -547,8 +703,8 @@ class VcfLoader:
         with position-block routing (chromosome-sorted input spreads over
         every shard; dedup and the store stay on the host) and scatter the
         ``COPY_BACK`` columns (and the hash) back to row order through the
-        returned row ids.  Capacity is the exact lossless minimum: a drop
-        is a bug."""
+        returned row ids (every annotate field with display attributes).
+        Capacity is the exact lossless minimum: a drop is a bug."""
         from annotatedvdb_tpu_torch.parallel.distributed import (
             distributed_annotate_step,
             position_block_owner,
@@ -574,7 +730,8 @@ class VcfLoader:
                 f"row-id coverage {src.size} != real row count {n_real}"
             )
         cols = {}
-        for name in COPY_BACK:
+        names = AnnotatedBatch._fields if self.store_display_attributes else COPY_BACK
+        for name in names:
             vals = getattr(ann, name)
             arr = np.zeros(batch.n, vals.dtype)
             arr[src] = vals[take]
@@ -745,9 +902,15 @@ class VcfLoader:
             if handles["event"] is not None:
                 handles["event"].synchronize()
             cols = handles["cols"]
-            h = (chunk.h_native if chunk.h_native is not None
-                 else to_uint32(cols["h"]))
-            host_rows = cols["host_fallback"].numpy()
+            if "packed" in cols:
+                # one [n, 10] row a variant: the device hash, bin, flags
+                host = unpack_outputs(cols["packed"].numpy())
+                h = host["h"]
+            else:
+                host = {name: t.numpy() for name, t in cols.items() if name != "h"}
+                h = (chunk.h_native if chunk.h_native is not None
+                     else to_uint32(cols["h"]))
+            host_rows = host["host_fallback"]
             # long alleles are truncated in the device arrays: re-hash them
             # from the original strings so identity never collides on a
             # shared prefix.  Copy-on-write: h_native is a view of the
@@ -757,10 +920,12 @@ class VcfLoader:
                 h = h.copy()
                 for i in fb:
                     h[i] = _fnv32_str(chunk.refs[i], chunk.alts[i])
-            ann = _slim_annotated(
-                batch.n, cols["bin_level"].numpy(), cols["leaf_bin"].numpy(),
-                cols["needs_digest"].numpy(), host_rows,
-            )
+            if self.store_display_attributes:
+                ann = AnnotatedBatch(**{name: host[name]
+                                        for name in AnnotatedBatch._fields})
+            else:
+                ann = _slim_annotated(batch.n, host["bin_level"], host["leaf_bin"],
+                                      host["needs_digest"], host_rows)
         if handles.get("t0") is not None:
             # the synchronous _load_chunk path opens no in-flight window
             self._occ.record(handles["t0"], time.perf_counter())
@@ -854,23 +1019,27 @@ class VcfLoader:
             )
             take = lambda x: np.take(np.asarray(x), sel, axis=0)
             sub = batch if ident else VariantBatch(*(take(x) for x in batch))
-            sub_ann = ann if ident else _slim_annotated(
-                sel.size,
-                take(ann.bin_level),
-                take(ann.leaf_bin),
-                take(ann.needs_digest),
-                take(ann.host_fallback),
-            )
+            if self.store_display_attributes:
+                sub_ann = ann if ident else AnnotatedBatch(*(take(x) for x in ann))
+            else:
+                sub_ann = ann if ident else _slim_annotated(
+                    sel.size,
+                    take(ann.bin_level),
+                    take(ann.leaf_bin),
+                    take(ann.needs_digest),
+                    take(ann.host_fallback),
+                )
             over = (
                 (sub.ref_len > self.store.width)
                 | (sub.alt_len > self.store.width)
             )
             # allele strings only for the paths that read them (mapping
-            # sidecar / digest PKs / genome validation / retained long
-            # alleles)
+            # sidecar / digest PKs / genome validation / display attributes
+            # / retained long alleles)
             need_strings = (
                 mapping_fh is not None
                 or self.genome is not None
+                or self.store_display_attributes
                 or bool(over.any())
                 or bool(np.asarray(sub_ann.needs_digest).any())
             )
@@ -921,6 +1090,10 @@ class VcfLoader:
                 )
             else:
                 pks = literal = None
+            display = (
+                egress.display_attributes(sub, sub_ann, refs, alts)
+                if self.store_display_attributes else None
+            )
             # device bin outputs are undefined for host-fallback rows:
             # recompute them on the host
             bin_level = np.asarray(sub_ann.bin_level).copy()
@@ -952,6 +1125,8 @@ class VcfLoader:
                         }
                     else:
                         annotations = {}
+                    if display is not None:
+                        annotations["display_attributes"] = display[offset:offset + k]
                     seg = Segment.build(
                         {
                             "pos": sub.pos[j],

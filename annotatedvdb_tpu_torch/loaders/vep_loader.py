@@ -44,7 +44,11 @@ distributed_update_step``: one ``annotate_bin`` and one ``lookup_multi``
 launch per shard on the card); over-width rows are resolved on the host,
 as on the single-device path.  The bytes written are the same.
 
-Not ported: ``warmup``.
+On a card the identity batch comes back packed: one ``pack_vep_outputs``
+launch folds hash, prefix length and flag into one ``[n, 6]`` row per
+variant, fetched with one copy, whenever the store is at most 255 wide
+(the prefix rides one byte; wider stores copy the three columns).
+:meth:`VepLoader.warmup` builds and checks the kernels before a load.
 """
 
 from __future__ import annotations
@@ -65,6 +69,11 @@ from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
 from annotatedvdb_tpu_torch.native import pyfast
 from annotatedvdb_tpu_torch.native import vep as native_vep
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
+from annotatedvdb_tpu_torch.ops.pack import (
+    pack_vep_outputs,
+    transport_verified,
+    unpack_vep_outputs,
+)
 from annotatedvdb_tpu_torch.oracle import normalize_alleles
 from annotatedvdb_tpu_torch.runtime import resolve_device, to_device
 from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
@@ -580,18 +589,29 @@ class VepLoader:
             ids[i] = int(idx[0])
         return found, ids
 
+    def _packs_identity(self) -> bool:
+        """Whether identity batches come back as one packed ``[n, 6]`` row
+        each: the prefix length rides one byte, so a store at most 255
+        wide, and the probe passed (it raises when it fails).  As in the
+        reference, ``AVDB_PACK_TRANSPORT`` is not consulted."""
+        return self.store.width <= 255 and transport_verified(self.device)
+
     def _batch_identity(self, batch: VariantBatch):
         """(hash [N] uint32, prefix_len [N], host_fallback [N]) for one
         per-alt batch — the three identity outputs the update path
-        consumes.  On a card: one launch of the fused kernel, then one
-        copy of the three columns into pinned host memory and one
-        synchronisation."""
+        consumes.  On a card: one launch of the fused kernel and, when
+        :meth:`_packs_identity`, one ``pack_vep_outputs`` launch and one
+        copy of its ``[N, 6]`` rows into pinned host memory (else one copy
+        a column), then one synchronisation."""
         with self.identity_timer.stage("dispatch", items=batch.n):
             args = [to_device(x, self.device) for x in batch[1:]]
             ann, h = annotate_hash_fn(self.device)(None, *args)
             self.identity_batches += 1
-        with self.identity_timer.stage("copy_back", items=batch.n):
             cols = (h, ann.prefix_len, ann.host_fallback)
+            packed = self._packs_identity()
+            if packed:
+                cols = (pack_vep_outputs(*cols),)
+        with self.identity_timer.stage("copy_back", items=batch.n):
             if self.device.type == "cuda":
                 host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
                         for c in cols]
@@ -600,7 +620,36 @@ class VepLoader:
                 torch.cuda.current_stream(self.device).synchronize()
             else:
                 host = cols
+            if packed:
+                out = unpack_vep_outputs(host[0].numpy())
+                return out["h"], out["prefix_len"], out["host_fallback"]
             return to_uint32(host[0]), host[1].numpy(), host[2].numpy()
+
+    def warmup(self) -> None:
+        """What the first flush would otherwise pay: the C RawJson
+        assembler built and, on a card, the kernel libraries built, the
+        annotate step's first-call check, the transport probe and one
+        identity batch at the loader's batch shape (held against the plain
+        version on the host; a mismatch raises).  On the CPU only the
+        4-row probe runs."""
+        pyfast.load()
+        packs = self._packs_identity()
+        if self.device.type != "cuda":
+            return
+        from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+        from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_pipeline
+        from annotatedvdb_tpu_torch.ops.build import build
+
+        build(["annotate_bin", "pack"] + (["lookup_multi"] if self.mesh else []))
+        batch = synthetic_batch(next_pow2(self.batch_size), width=self.store.width)
+        got = self._batch_identity(batch)
+        self.identity_batches -= 1
+        ann, h = annotate_hash_pipeline(*(torch.from_numpy(x) for x in batch))
+        want = (to_uint32(h), ann.prefix_len.numpy(), ann.host_fallback.numpy())
+        if packs:
+            want = (want[0], want[1] & 0xFF, want[2])
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError("warmup: the identity batch mismatched the plain version")
 
     def _parse_result(self, annotation: dict) -> list[tuple]:
         """One VEP result -> per-alt pending update rows, as tuples

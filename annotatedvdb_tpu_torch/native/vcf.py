@@ -11,8 +11,12 @@ materialize lazily from the byte spans it reports.
 A chunk ends every ``batch_size`` rows AND at the end of each
 ``READ_SIZE`` window, so the native engine cuts a file into other chunks
 than the Python engine: the stores of the two engines differ in bytes
-(segments, checkpoints and quarantine records follow chunks).  This port
-never asks for the nibble-packed allele matrices (``want_packed = 0``).
+(segments, checkpoints and quarantine records follow chunks).  With
+``pack_alleles`` the tokenizer also nibble-packs each row's alleles during
+the scan (``ops/pack.py``'s codes), and a chunk whose every row packed
+carries the packed matrices (``ref_packed``, ``alt_packed``) for the
+loader's upload; ``identity_only`` leaves INFO unread (every INFO view of
+the chunk is empty).
 """
 
 from __future__ import annotations
@@ -32,11 +36,11 @@ class _Arrays:
     """Per-batch output buffers for the C call.
 
     ``np.empty``, not ``np.zeros``: the tokenizer writes every per-row slot
-    for rows [0, n) and consumers only ever view ``[:n]``.  The nibble
-    matrices are 1-element dummies (valid pointers the C call never writes
-    through under ``want_packed = 0``)."""
+    for rows [0, n) and consumers only ever view ``[:n]``.  With ``pack``
+    False the nibble matrices are 1-element dummies (valid pointers the C
+    call never writes through under ``want_packed = 0``)."""
 
-    def __init__(self, cap: int, width: int):
+    def __init__(self, cap: int, width: int, pack: bool = True):
         self.cap = cap
         self.chrom = np.empty(cap, np.int8)
         self.pos = np.empty(cap, np.int32)
@@ -67,8 +71,10 @@ class _Arrays:
         self.id_verbatim = np.empty(cap, np.uint8)
         self.has_freq = np.empty(cap, np.uint8)
         self.hash = np.empty(cap, np.uint32)
-        self.ref_packed = np.empty((1, 1), np.uint8)
-        self.alt_packed = np.empty((1, 1), np.uint8)
+        pack_rows = cap if pack else 1
+        pack_cols = (width + 1) // 2 if pack else 1
+        self.ref_packed = np.empty((pack_rows, pack_cols), np.uint8)
+        self.alt_packed = np.empty((pack_rows, pack_cols), np.uint8)
         self.pack_ok = np.empty(cap, np.uint8)
 
     def pointers(self):
@@ -91,7 +97,8 @@ class _Arrays:
         ]
 
 
-def scan_native(path: str, batch_size: int, width: int):
+def scan_native(path: str, batch_size: int, width: int,
+                identity_only: bool = False, pack_alleles: bool = True):
     """Yield ``(arrays, n_rows, window_bytes, start, counters_dict,
     decoded_cache)`` per fill of the row buffer.
 
@@ -99,7 +106,7 @@ def scan_native(path: str, batch_size: int, width: int):
     offset ``start``); it must outlive any span materialization."""
     lib = native.load()
     opener = gzip.open if path.endswith(".gz") else open
-    arrays = _Arrays(batch_size, width)
+    arrays = _Arrays(batch_size, width, pack_alleles)
     counters = np.zeros(5, np.int64)
     consumed = ctypes.c_int64(0)
     need_more = ctypes.c_int32(0)
@@ -141,7 +148,8 @@ def scan_native(path: str, batch_size: int, width: int):
                     len(window) - start, width, arrays.cap,
                     line_base,
                     *arrays.pointers(),
-                    ctypes.c_int32(0), ctypes.c_int32(0),
+                    ctypes.c_int32(1 if identity_only else 0),
+                    ctypes.c_int32(1 if pack_alleles else 0),
                     counters.ctypes.data_as(ctypes.c_void_p),
                     ctypes.byref(consumed), ctypes.byref(need_more),
                 )
@@ -149,7 +157,7 @@ def scan_native(path: str, batch_size: int, width: int):
                     # one source line holds more alt rows than the buffer:
                     # grow and retry (the Python engine likewise lets a chunk
                     # exceed batch_size rather than split a line)
-                    arrays = _Arrays(arrays.cap * 2, width)
+                    arrays = _Arrays(arrays.cap * 2, width, pack_alleles)
                     continue
                 # absolute line numbers: the tokenizer reports the lines it
                 # consumed (headers included), so no host newline re-scan
@@ -168,7 +176,7 @@ def scan_native(path: str, batch_size: int, width: int):
                     # buffers, so the next fill writes into a fresh set —
                     # which also makes chunks safe to hand to another
                     # pipeline thread
-                    arrays = _Arrays(arrays.cap, width)
+                    arrays = _Arrays(arrays.cap, width, pack_alleles)
                 start += consumed.value
                 if not need_more.value:
                     break
@@ -231,7 +239,9 @@ class LazyColumn:
 
 
 def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
-                      counters: dict, decoded_cache: list | None = None):
+                      counters: dict, identity_only: bool = False,
+                      pack_alleles: bool = True,
+                      decoded_cache: list | None = None):
     """Assemble a :class:`~annotatedvdb_tpu_torch.io.vcf.VcfChunk` from one
     native batch: zero-copy VIEWS of the buffers ``scan_native`` handed
     over, and lazy sidecar columns over the immutable window bytes."""
@@ -261,6 +271,14 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
     # uint8 0/1 -> bool reinterpret (same itemsize): no copy
     has_freq = arrays.has_freq[:n].view(np.bool_)
     line_no = arrays.line_no[:n]
+    # pre-packed alleles travel with the chunk only when EVERY row packs
+    # (the loader uploads a chunk packed or raw); without ``pack_alleles``
+    # packing was never tried and ``packable`` stays None
+    packable = bool(arrays.pack_ok[:n].all()) if pack_alleles else None
+    if packable:
+        ref_packed, alt_packed = arrays.ref_packed[:n], arrays.alt_packed[:n]
+    else:
+        ref_packed = alt_packed = None
     # the window decodes ONCE on first span access (ascii is 1 byte -> 1
     # char, so byte offsets index the str directly); the cache is shared
     # by every chunk cut from the same window
@@ -279,7 +297,7 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
     line_cache: dict = {}
 
     def info_at(i):
-        if int(info_len[i]) <= 0:
+        if identity_only or int(info_len[i]) <= 0:
             return {}
         key = int(line_no[i])
         hit = line_cache.get(key)
@@ -292,7 +310,7 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
     freq_cache: dict = {}
 
     def freq_at(i):
-        if not has_freq[i] or int(info_len[i]) <= 0:
+        if not has_freq[i] or identity_only or int(info_len[i]) <= 0:
             return None
         key = int(line_no[i])
         hit = freq_cache.get(key)
@@ -339,7 +357,9 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
         rs_position=LazyColumn(n, lambda i: info_at(i).get("RSPOS")),
         info=LazyColumn(n, info_at),
         info_raw=LazyColumn(
-            n, lambda i: span(info_off, info_len, i) if info_len[i] > 0 else None
+            # identity_only: both INFO views agree (empty)
+            n, lambda i: (span(info_off, info_len, i)
+                          if info_len[i] > 0 and not identity_only else None)
         ),
         qual=LazyColumn(n, opt(qual_off, qual_len)),
         filter=LazyColumn(n, opt(filter_off, filter_len)),
@@ -351,21 +371,26 @@ def chunk_from_native(arrays: _Arrays, n: int, window: bytes, base: int,
         id_verbatim=arrays.id_verbatim[:n].view(np.bool_),
         has_freq=has_freq,
         h_native=arrays.hash[:n],
+        ref_packed=ref_packed,
+        alt_packed=alt_packed,
+        alleles_packable=packable,
     )
 
 
-def iter_native_chunks(path: str, batch_size: int, width: int):
+def iter_native_chunks(path: str, batch_size: int, width: int,
+                       identity_only: bool = False, pack_alleles: bool = True):
     """VcfChunk iterator over the native scanner (engine ``native``)."""
     pending_counters = {"line": 0, "skipped_contig": 0, "skipped_alt": 0,
                         "malformed": 0}
     for arrays, n, window, base, counters, decoded_cache in scan_native(
-            path, batch_size, width):
+            path, batch_size, width, identity_only, pack_alleles):
         for k, v in counters.items():
             pending_counters[k] = pending_counters.get(k, 0) + v
         if n == 0:
             continue
         chunk = chunk_from_native(
-            arrays, n, window, base, pending_counters, decoded_cache,
+            arrays, n, window, base, pending_counters, identity_only,
+            pack_alleles, decoded_cache,
         )
         pending_counters = {k: 0 for k in pending_counters}
         yield chunk

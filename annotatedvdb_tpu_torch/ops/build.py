@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 KERNELS = {"annotate_bin": "annotate_bin.cu", "cadd_join": "cadd_join.cu",
            "validate_ref": "validate_ref.cu", "bits_spans": "bits_spans.cu",
            "stats_panel": "stats_panel.cu", "export_pack": "export_pack.cu",
-           "lookup_multi": "lookup_multi.cu"}
+           "lookup_multi": "lookup_multi.cu", "pack": "pack.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

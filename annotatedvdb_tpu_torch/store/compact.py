@@ -49,9 +49,9 @@ The compaction is host work in the reference too: no kernel runs here.
 Fault points: ``compact.plan`` (plan chosen, nothing read),
 ``compact.merge`` (mid temp body), ``compact.swap`` (renamed, before the
 manifest replace) and ``compact.gc`` (committed, before the unlinks; an
-``eio`` there is absorbed).  Not ported: the memmap spill tier the reference's segment
-reader uses above ``AVDB_STORE_SPILL_BYTES`` (segments load into memory).
-The segment reader lives in ``variant_store``, which imports ``torch``;
+``eio`` there is absorbed).  Out of core: segment containers at or above
+``AVDB_STORE_SPILL_BYTES`` load as copy-on-write memmaps, so a pass over a
+large group reads its pages on demand.  The segment reader lives in ``variant_store``, which imports ``torch``;
 it is imported when a pass merges, so planning (``doctor compact
 --dry-run``, the fleet supervisor's watermark reads) never loads it.
 """

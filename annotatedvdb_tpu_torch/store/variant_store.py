@@ -37,8 +37,10 @@ and never reuses their seg ids (``_adoptable_groups``); groups below the
 load-time floor stay this store's own, so an undo still drops their rows.
 
 The on-disk compaction lives in ``store/compact.py`` and reads segments
-through :meth:`VariantStore._read_segment`.  Not ported: the out-of-core
-memmap tier and the mesh placement block.
+through :meth:`VariantStore._read_segment`.  Segment containers at or
+above ``AVDB_STORE_SPILL_BYTES`` load their raw streams as copy-on-write
+memmaps (the out-of-core tier, :func:`_spill_bytes`).  Not ported: the
+mesh placement block.
 """
 
 from __future__ import annotations
@@ -132,6 +134,23 @@ def _verify_mode() -> str:
     checksums every segment file; ``off`` disables both."""
     mode = os.environ.get("AVDB_VERIFY", "size").lower()
     return mode if mode in ("off", "size", "deep") else "size"
+
+
+def _spill_bytes() -> int:
+    """``AVDB_STORE_SPILL_BYTES``: segment containers at or above this size
+    load as copy-on-write memmaps instead of materialized arrays (the
+    out-of-core tier, :meth:`VariantStore._read_stream`).  Takes ``512m``
+    / ``2g`` suffixes (``utils.strings.parse_bytes``); a malformed value
+    raises with the variable's name; unset, ``0`` or ``off`` disables."""
+    raw = os.environ.get("AVDB_STORE_SPILL_BYTES", "").strip().lower()
+    if not raw or raw in ("0", "off"):
+        return 0
+    from annotatedvdb_tpu_torch.utils.strings import parse_bytes
+
+    try:
+        return parse_bytes(raw)
+    except ValueError as err:
+        raise ValueError(f"AVDB_STORE_SPILL_BYTES: {err}") from None
 
 
 def crc32_file(path: str) -> int:
@@ -1453,6 +1472,8 @@ class VariantStore:
                 p, (integrity or {}).get(key), verify, path
             )
         try:
+            spill = _spill_bytes()
+            spill_this = bool(spill and os.path.getsize(fp) >= spill)
             with open(fp, "rb") as f:
                 head = f.read(1)
                 if head == b"{":
@@ -1463,10 +1484,12 @@ class VariantStore:
                     f.seek(0)
                     names = json.loads(f.readline())["names"]
                     data = {
-                        name: cls._read_stream(f)
+                        name: cls._read_stream(f, fp, spill_this)
                         for name in names
                     }
-                    # dict-coded alleles decode to the plain matrices
+                    # dict-coded alleles decode to the plain matrices (a
+                    # spilled segment materializes only this decode: the
+                    # dictionary is small, the numeric bulk stays mapped)
                     for col in ("ref", "alt"):
                         if col + "_dict" in data:
                             data[col] = data.pop(col + "_dict")[
@@ -1525,9 +1548,33 @@ class VariantStore:
         return seg
 
     @staticmethod
-    def _read_stream(f) -> np.ndarray:
-        """One raw .npy stream from a flat container."""
-        return np.lib.format.read_array(f, allow_pickle=False)
+    def _read_stream(f, fp: str, spill: bool) -> np.ndarray:
+        """One raw .npy stream from the flat container ``fp`` open as ``f``:
+        materialized, or with ``spill`` (the out-of-core tier) a
+        copy-on-write memmap view of the file — pages are read on demand,
+        and the update loaders' in-place writes land in private pages (a
+        dirty segment is rewritten whole on save, never written back
+        through the map).  An unknown header version, a Fortran-ordered or
+        an object array materializes."""
+        if not spill:
+            return np.lib.format.read_array(f, allow_pickle=False)
+        start = f.tell()
+        version = np.lib.format.read_magic(f)
+        if version == (1, 0):
+            shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+        elif version == (2, 0):
+            shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+        else:
+            shape = fortran = dtype = None
+        if shape is None or fortran or dtype.hasobject:
+            f.seek(start)
+            return np.lib.format.read_array(f, allow_pickle=False)
+        offset = f.tell()
+        nbytes = int(dtype.itemsize * int(np.prod(shape, dtype=np.int64)))
+        arr = (np.memmap(fp, dtype=dtype, mode="c", shape=shape, offset=offset)
+               if nbytes else np.empty(shape, dtype))
+        f.seek(offset + nbytes)
+        return arr
 
     @staticmethod
     def _iter_sidecar(ap: str):

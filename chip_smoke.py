@@ -22,7 +22,8 @@ each phase printing one JSON line:
               table tokenizer), each compiler in its own process, all
               started together;
 3. kernels  — each kernel against its plain PyTorch version on the card
-              (seeded edge rows at W = 16, 49 and 96, 1,048,576 random
+              (seeded edge rows at W = 8, 16, 49 and 96, 65,536 random
+              rows at W = 8 (a width-bucketed upload's narrowest), 1,048,576 random
               rows, a ragged last tile and unaligned bases; exact under
               the selection contract, the allele hash exact on every
               row), the kernel's hash against the tokenizer's in-scan
@@ -93,7 +94,17 @@ each phase printing one JSON line:
               then, in the second process while this one waits (no other
               phase holds the card), both timed at those shapes beside
               their plain versions, their bounds, two batched
-              ``torch.searchsorted`` and the plain in-batch dedup.  The
+              ``torch.searchsorted`` and the plain in-batch dedup.  Then
+              the packed transport's kernels (``csrc/pack.cu``:
+              ``inflate_alleles``, ``pack_outputs``,
+              ``pack_vep_outputs``) against their plain versions byte for
+              byte on :func:`pack_inflate_cases` (every packed byte value,
+              W = 1, 2, 7, 8, 16, 49 and 96, aligned and three bytes off)
+              and :func:`pack_outputs_cases` (hash, leaf and level edges,
+              int32 and int8 levels, every flag) and at 65,536 and
+              1,048,576 rows, the loads' 4-row probes latched; then, in
+              the second process, their time at those shapes beside the
+              plain versions and the bound.  The
               seeded inputs of phases 3-10 are written by the second
               process beside the first kernel checks, which read none of
               them;
@@ -103,11 +114,19 @@ each phase printing one JSON line:
               native tokenizer, the overlapped executor and the async
               store writer must all run.  Every kernel launch counter and
               the plain hash's call counter are reset just before and read
-              just after (one launch per chunk; the card path must never
-              call the plain hash); the loader's per-thread stage seconds,
-              queue stalls and device idle fraction.  Then the same file
-              under ``AVDB_PIPELINE=serial AVDB_ASYNC_STORE=0`` into a
-              second store, whose bytes must be identical;
+              just after (one ``annotate_bin`` launch per chunk; the card
+              path must never call the plain hash; the packed transport on
+              by default on the card: one ``inflate_alleles`` launch per
+              chunk uploaded nibble-packed and one ``pack_outputs`` per
+              chunk, plus one of each in the CLI's ``warmup`` at the chunk
+              shape); the loader's per-thread stage seconds, queue stalls,
+              device idle fraction, warmup seconds and transport counts.
+              Then (4c) the transport's A/B: the first 500,000 lines in
+              turns under ``AVDB_PACK_TRANSPORT`` auto, never, never, auto
+              into fresh stores (walls, ``dispatch`` and ``annotate``
+              seconds, upload widths), and (4b) the same lines under
+              ``AVDB_PIPELINE=serial
+              AVDB_ASYNC_STORE=0``: all five stores byte-equal;
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
@@ -149,7 +168,13 @@ each phase printing one JSON line:
               ``ledger.append:4:torn_write``, on the card and the CPU
               (each must die by SIGKILL), then resumed: card and CPU
               stores identical, rows equal an uninterrupted card load's,
-              one launch a chunk past the durable checkpoint;
+              one launch a chunk past the durable checkpoint.  Before the
+              crash check: the lines loaded with display attributes stored
+              on the card and on the CPU (byte-equal), then under
+              ``AVDB_STORE_SPILL_BYTES=1`` (memmapped segments) and
+              ``AVDB_DEVICE_LOOKUP=always`` reloaded (the device probe
+              uploading from the memmaps) and VEP-updated on each device:
+              byte-equal;
 7. vep      — a seeded VEP JSON of 50,000 results (1-6 transcript
               consequences from the seed ranking each, regulatory, motif
               and intergenic blocks and colocated frequencies on shares,
@@ -159,8 +184,9 @@ each phase printing one JSON line:
               CLI's ``main``), counters reset just before and read just
               after, in the default configuration (the native C++
               transform): counters as predicted, every planted combo
-              learned, one ``annotate_bin`` launch per identity batch (the
-              docs the transformer hands to the Python transform), no
+              learned, one ``annotate_bin`` and one ``pack_vep_outputs``
+              launch per identity batch (the docs the transformer hands
+              to the Python transform), no
               plain hash on the card, the transform's own counts, the
               device's idle share (``torch.profiler``) and how the store
               save splits between JSON encoding and the rest.  Before it,
@@ -378,6 +404,7 @@ checkout around this file; run as ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import glob
 import json
@@ -1778,6 +1805,9 @@ def kernel_phase(torch, device):
     unaligned = random_batch(6, CHUNK_ROWS, WIDTH)
     checks = []
     for label, args in (
+        # W = 8: the narrowest bucket of a width-bucketed upload
+        ("edge-w8", to_dev(edge_batch(8))),
+        ("random-65536-w8", to_dev(random_batch(7, CHUNK_ROWS, 8))),
         ("edge-w16", to_dev(edge_batch(16))),
         ("edge-w49", to_dev(edge_batch(WIDTH))),
         ("edge-w96", to_dev(edge_batch(96))),
@@ -2600,14 +2630,15 @@ def serve_inputs(i):
     return (pos, af, cadd, rank, s, e), padded
 
 
-def serve_kernel_phase(torch, device) -> list:
+def serve_kernel_phase(torch, device, pool=None) -> list:
     """Phase 3 for the serving kernels (``bits_spans``, ``stats_panel``,
     ``windowed_stats``): each against its plain version on the card,
     exactly, on :func:`serve_edge_cases` and at the serving shape
     (:data:`SERVE_ROWS` rows padded to 4,194,304, :data:`SERVE_QUERIES`
     intervals, windows 1, 7, 16 and 64); then, in a spawned process
-    (:func:`serve_kernel_timing`), each timed at that shape.  Returns the
-    kernel table rows (launches filled in after phase 11)."""
+    (:func:`serve_kernel_timing`; ``pool``'s process when given), each
+    timed at that shape.  Returns the kernel table rows (launches filled
+    in after phase 11)."""
     import concurrent.futures
     import multiprocessing
 
@@ -2617,9 +2648,12 @@ def serve_kernel_phase(torch, device) -> list:
     bits_checks, bits_worst = bits_kernel_checks(torch, device, bits_edge_cases())
     checks += bits_checks
     worst = max(worst, bits_worst)
-    with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+    if pool is not None:
         timing = pool.submit(serve_kernel_timing).result()
+    else:
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as own:
+            timing = own.submit(serve_kernel_timing).result()
     emit("serve_kernels", checks=checks, timing=timing)
     sources = {"bits_spans": ("bits_spans.cu", "annotatedvdb_tpu/ops/intervals.py:60"),
                "stats_panel": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:139"),
@@ -3446,13 +3480,14 @@ def export_stacks() -> list:
             ("stack-4-offset-1", stack(380, 4, EXPORT_BATCH_ROWS), 1)]
 
 
-def export_kernel_phase(torch, device) -> dict:
+def export_kernel_phase(torch, device, pool=None) -> dict:
     """Phase 3 for ``export_pack``: against its plain version on the card,
     exactly, on :func:`export_edge_columns`, on 1,048,576 random rows, on
     random and store-shaped batches of 4,096 rows and on 8 and 4,097 rows,
     and on the stacks of :func:`export_stacks` at every vector of
     :func:`export_stack_counts`; then, in a spawned process
-    (:func:`export_kernel_timing`), its time at one 4,096-row batch (the
+    (:func:`export_kernel_timing`; ``pool``'s process when given), its
+    time at one 4,096-row batch (the
     stream's launch), at a part of 37 such batches (the export's launch)
     and at 1,048,576 rows beside the plain version's and the bound.
     Returns the kernel table row, timed at the part (launches filled in
@@ -3468,9 +3503,12 @@ def export_kernel_phase(torch, device) -> dict:
              ("random-4097", export_random_columns(5, EXPORT_BATCH_ROWS + 1))]
     checks, worst = export_pack_checks(torch, device, cases)
     stacked, worst_stacked = export_stack_checks(torch, device, export_stacks())
-    with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+    if pool is not None:
         timing = pool.submit(export_kernel_timing).result()
+    else:
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as own:
+            timing = own.submit(export_kernel_timing).result()
     emit("export_kernel", checks=checks + stacked, timing=timing)
     t = timing["part"]
     return {
@@ -3544,6 +3582,249 @@ def export_kernel_timing() -> dict:
                                  else "events" for n, rs in runs.items()},
                     "timing_runs": runs}
     return out
+
+
+# ------------------------------------------- transport kernels (phase 3)
+
+#: the packed transport's kernel table rows: wrapper name -> the XLA
+#: program of the reference's ``ops/pack.py`` it replaces
+TRANSPORT_KERNELS = {"inflate_alleles": "annotatedvdb_tpu/ops/pack.py:124",
+                     "pack_outputs": "annotatedvdb_tpu/ops/pack.py:32",
+                     "pack_vep_outputs": "annotatedvdb_tpu/ops/pack.py:214"}
+#: integer operations an inflated byte needs (mask or shift, compare,
+#: select, shift) and a packed row (the flag byte's shifts and ors)
+INFLATE_BYTE_OPS = 4
+PACK_ROW_OPS = 6
+
+
+def pack_inflate_cases(width) -> list:
+    """The inflate's edge inputs at ``width``: ``(label, ref_packed,
+    alt_packed, width)``.  Every packed byte value 0-255 in every column
+    (codes 14 and 15 included, which decode to 0), seeded alleles of 0 to
+    ``width`` bases from the whole alphabet encoded as the loader encodes
+    them, more packed columns than the width needs, and one row."""
+    from annotatedvdb_tpu_torch.ops.pack import _ALPHABET, encode_alleles_nibble
+
+    cols = (width + 1) // 2
+    r = np.arange(256)[:, None]
+    j = np.arange(cols)[None, :]
+    every = ((r + j) % 256).astype(np.uint8), ((7 * r + 3 * j) % 256).astype(np.uint8)
+    rng = np.random.default_rng(width)
+    letters = np.frombuffer(_ALPHABET, np.uint8)
+
+    def alleles(n):
+        m = letters[rng.integers(0, letters.size, (n, width))]
+        m[np.arange(width)[None, :] >= rng.integers(0, width + 1, n)[:, None]] = 0
+        return m
+
+    enc = encode_alleles_nibble(alleles(37), alleles(37))
+    wide = tuple(rng.integers(0, 256, (5, cols + 2), dtype=np.uint8) for _ in range(2))
+    one = tuple(rng.integers(0, 256, (1, cols), dtype=np.uint8) for _ in range(2))
+    return [("every-byte", *every, width), ("encoded", *enc, width),
+            ("extra-columns", *wide, width), ("one-row", *one, width)]
+
+
+def pack_outputs_cases() -> list:
+    """The packs' edge inputs: ``(label, (h, dup, bin_level, leaf_bin,
+    needs_digest, host_fallback))``, ``h`` uint32.  The edge rows: hash 0,
+    0xFFFFFFFF and the sign bit; leaf bins at both int32 ends, -1, 0, 1;
+    levels (and prefix lengths) of 255, 256, 300 and below 0 as int32, and
+    as int8 the kernel's own type; every combination of the three flags;
+    then ``dup`` None (the loader's zero lane) and random rows at n = 1, 7
+    and 1,000."""
+    h = np.array([0, 0xFFFFFFFF, 1, 0x80000000, 0x7FFFFFFF, 0xDEADBEEF,
+                  0x01020304, 0xFEDCBA98], np.uint32)
+    leaf = np.array([-2**31, 2**31 - 1, -1, 0, 1, 1234, -77, 65535], np.int32)
+    level = np.array([0, 13, 255, 256, 300, -1, -256, 2**31 - 1], np.int32)
+    bits = np.arange(8)
+    dup, nd, hf = ((bits >> k) & 1 == 1 for k in range(3))
+    rng = np.random.default_rng(22)
+
+    def rand(n):
+        return (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+                rng.random(n) < 0.5, rng.integers(-2**31, 2**31, n).astype(np.int32),
+                rng.integers(-2**31, 2**31, n).astype(np.int32),
+                rng.random(n) < 0.3, rng.random(n) < 0.1)
+
+    r1, r7, r1000 = rand(1), rand(7), rand(1000)
+    lev8 = np.array([0, 13, 127, -128, -1, 1, 5, 12], np.int8)
+    return [("edge-int32-level", (h, dup, level, leaf, nd, hf)),
+            ("edge-int8-level", (h, dup, lev8, leaf, nd, hf)),
+            ("edge-no-dup", (h, None, lev8, leaf, nd, hf)),
+            ("random-1", r1), ("random-7", r7),
+            ("random-1000-int8", r1000[:2] + (r1000[2].astype(np.int8),) + r1000[3:]),
+            ("random-1000", r1000)]
+
+
+def transport_bound(kind, rows, width=WIDTH, level_bytes=1, flags=2) -> dict:
+    """The least time the card could take for one call: each input byte
+    read once and each output byte written once over the memory rate, or
+    the integer operations over the 32-bit rate.  ``inflate_alleles``:
+    two ``[rows, ceil(W / 2)]`` packed matrices in, two ``[rows, W]`` out;
+    ``pack_outputs``: hash, leaf, level (``level_bytes``) and ``flags``
+    flag bytes in (the loader's null ``dup`` reads nothing), 10 bytes out;
+    ``pack_vep_outputs``: hash, prefix (``level_bytes``), flag in, 6 out."""
+    if kind == "inflate_alleles":
+        nbytes = 2 * rows * ((width + 1) // 2) + 2 * rows * width
+        ops = INFLATE_BYTE_OPS * 2 * rows * width
+    elif kind == "pack_outputs":
+        nbytes = rows * (8 + level_bytes + flags + 10)
+        ops = PACK_ROW_OPS * rows
+    else:
+        nbytes = rows * (4 + level_bytes + 1 + 6)
+        ops = 2 * rows
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": rows, "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def transport_inputs(torch, device, kind, rows, seed, width=WIDTH) -> tuple:
+    """One call's inputs on ``device`` at the main path's types: seeded
+    packed bytes for the inflate, the kernel's int32 hash bits, int8
+    level, bool flags and no ``dup`` for the insert pack, int32 prefix
+    lengths for the VEP pack."""
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    if kind == "inflate_alleles":
+        # every byte value: the codes 1-13 the encoder writes, the pad 0
+        # and the 14 and 15 it never writes (the same work for the kernel)
+        cols = (width + 1) // 2
+        return (t(rng.integers(0, 256, (rows, cols), dtype=np.uint8)),
+                t(rng.integers(0, 256, (rows, cols), dtype=np.uint8)), width)
+    h = t(rng.integers(-2**31, 2**31, rows).astype(np.int32))
+    fb = t(rng.random(rows) < 0.01)
+    if kind == "pack_outputs":
+        return (h, None, t(rng.integers(0, 14, rows).astype(np.int8)),
+                t(rng.integers(0, 2**17, rows).astype(np.int32)),
+                t(rng.random(rows) < 0.02), fb)
+    return (h, t(rng.integers(0, 49, rows).astype(np.int32)), fb)
+
+
+def transport_kernel_checks(torch, device) -> tuple:
+    """The three transport entry points against their plain versions on the
+    card, exactly (byte for byte): the inflate on :func:`pack_inflate_cases`
+    at W = 1, 2, 7, 8, 16, 49, 96 with the packed matrices at an unaligned
+    base, and the packs on :func:`pack_outputs_cases` (the VEP pack on the
+    same columns); then each at 65,536 and 1,048,576 rows of
+    :func:`transport_inputs`.  Returns the checks and the largest absolute
+    difference of any byte."""
+    from annotatedvdb_tpu_torch.ops import pack as PK
+
+    def dev(x, offset=0):
+        if x is None:
+            return None
+        return offset_copy(torch, np.ascontiguousarray(x), device, offset) if offset \
+            else torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def compare(kind, label, args):
+        got = getattr(PK, kind)(*args)
+        want = getattr(PK, f"{kind}_reference")(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  if g.numel() else 0 for g, w in zip(got, want))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        checks.append({"kernel": kind, "inputs": label, "rows": int(args[0].shape[0]),
+                       "max_abs_err": err, "equal": equal})
+        if not equal:
+            raise AssertionError(f"{kind} disagrees with its plain version on {label}")
+        return err
+
+    # the loads' 4-row probes, latched here so no later phase counts them
+    PK.transport_verified(device)
+    PK.nibble_verified(device)
+    checks, worst = [], 0
+    for w in (1, 2, 7, 8, 16, 49, 96):
+        for label, rp, ap, width in pack_inflate_cases(w):
+            for off in (0, 3):
+                worst = max(worst, compare("inflate_alleles", f"{label}-w{w}-base+{off}",
+                                           (dev(rp, off), dev(ap, off), width)))
+    for label, (h, dup, level, leaf, nd, hf) in pack_outputs_cases():
+        h = h.view(np.int32)
+        worst = max(worst, compare("pack_outputs", label, tuple(
+            dev(x) for x in (h, dup, level, leaf, nd, hf))))
+        worst = max(worst, compare("pack_vep_outputs", label, tuple(
+            dev(x) for x in (h, level, hf))))
+    for kind in TRANSPORT_KERNELS:
+        for rows in (CHUNK_ROWS, BIG_ROWS):
+            worst = max(worst, compare(kind, f"random-{rows}",
+                                       transport_inputs(torch, device, kind, rows, 7)))
+    return checks, worst
+
+
+def transport_kernel_timing() -> dict:
+    """The three transport kernels timed in a spawned process at 65,536
+    rows (the load's chunk; ten input sets) and 1,048,576 rows (two sets),
+    W = 49, in turns with their plain versions (plain, kernels, kernels).
+    One call of ``kernels`` launches all three, so one profile a run gives
+    each kernel's device ms by name; each plain version is profiled once
+    (CUDA events a call where a profile lost events).  Beside each: the
+    bound, and the seconds the timing took (``seconds``).  No single
+    PyTorch call computes any of them (``library_ms`` null)."""
+    import torch
+
+    from annotatedvdb_tpu_torch.ops import pack as PK
+    from annotatedvdb_tpu_torch.runtime import resolve_device
+
+    t0 = time.perf_counter()
+    device = resolve_device("cuda")
+    names = {"inflate_alleles": "inflate_kernel", "pack_outputs": "pack_outputs_kernel",
+             "pack_vep_outputs": "pack_vep_kernel"}
+
+    def kernels(*args):
+        for kind, a in zip(TRANSPORT_KERNELS, args):
+            getattr(PK, kind)(*a)
+
+    out = {}
+    for key, rows, n_sets, iters in (("chunk", CHUNK_ROWS, 10, (20, 200)),
+                                     ("1m", BIG_ROWS, 2, (4, 50))):
+        sets = {kind: [transport_inputs(torch, device, kind, rows, 100 + i)
+                       for i in range(n_sets)] for kind in TRANSPORT_KERNELS}
+        together = list(zip(*sets.values()))
+        plain = {kind: device_ms(torch, getattr(PK, f"{kind}_reference"), sets[kind],
+                                 iters[0])
+                 or call_ms(torch, getattr(PK, f"{kind}_reference"), sets[kind], iters[0])
+                 for kind in TRANSPORT_KERNELS}
+        runs = [{"device": device_profile(torch, kernels, together, iters[1]),
+                 "call_ms": call_ms(torch, kernels, together, iters[1])} for _ in range(2)]
+        for kind in TRANSPORT_KERNELS:
+            seen = [r["device"]["kernels"].get(names[kind], {}).get("ms")
+                    for r in runs if r["device"] is not None]
+            seen = [ms for ms in seen if ms]
+            ms = min(seen) if seen else min(r["call_ms"] for r in runs)
+            level_bytes = 1 if kind == "pack_outputs" else 4
+            bound = transport_bound(kind, rows, level_bytes=level_bytes)
+            out[f"{kind}/{key}"] = {**bound, "ms": ms, "plain_ms": plain[kind],
+                                    "bound_share": bound["bound_ms"] / ms,
+                                    "timed_by": "profiler" if seen else "events"}
+        out[f"runs/{key}"] = runs
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def transport_kernel_rows(checks, timing) -> list:
+    """The kernel table's rows of the three transport kernels, timed at the
+    load's chunk (65,536 rows; launches filled in after phases 4, 7, 8)."""
+    rows = []
+    for kind, replaces in TRANSPORT_KERNELS.items():
+        t, big = timing[f"{kind}/chunk"], timing[f"{kind}/1m"]
+        rows.append({
+            "name": kind, "route": "cuda",
+            "source": "annotatedvdb_tpu_torch/csrc/pack.cu", "replaces": replaces,
+            "launches": None,
+            "max_abs_err": max([c["max_abs_err"] for c in checks if c["kernel"] == kind]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "rows": t["rows"],
+            "1m_ms": big["ms"], "1m_plain_ms": big["plain_ms"],
+            "1m_bound_ms": big["bound_ms"],
+        })
+    return rows
 
 
 @contextlib.contextmanager
@@ -4042,7 +4323,39 @@ def environment(**env):
 #: the variables that choose the VCF load's configuration; the default
 #: configuration is all of them unset
 MODE_VARS = ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE",
-             "AVDB_INGEST_SHUFFLE_SEED", "AVDB_NATIVE_VEP", "AVDB_NATIVE_CADD")
+             "AVDB_INGEST_SHUFFLE_SEED", "AVDB_NATIVE_VEP", "AVDB_NATIVE_CADD",
+             "AVDB_PACK_TRANSPORT")
+
+
+class Launches(collections.abc.MutableMapping):
+    """The launch counters of several kernel modules (each module's
+    ``LAUNCHES`` dict) as one mapping: reading, setting to 0 and copying
+    it reach the modules' own counters."""
+
+    def __init__(self, *counters):
+        self._counters = counters
+
+    def _owner(self, name):
+        for counts in self._counters:
+            if name in counts:
+                return counts
+        raise KeyError(name)
+
+    def __getitem__(self, name):
+        return self._owner(name)[name]
+
+    def __setitem__(self, name, value):
+        self._owner(name)[name] = value
+
+    def __delitem__(self, name):
+        raise TypeError("launch counters are not removed")
+
+    def __iter__(self):
+        for counts in self._counters:
+            yield from counts
+
+    def __len__(self):
+        return sum(len(c) for c in self._counters)
 
 
 def load_phases(torch, platform, inp, launches, hash_calls,
@@ -4109,7 +4422,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         for name in counts:
             counts[name] = 0
     obs4 = os.path.join(WORK, "load4")
-    wall, loader, native_chunks, mapping4, busy = load(
+    wall, loader, native_chunks, _mapping, busy = load(
         store4, trace=True, obs=("--metricsOut", obs4 + ".prom",
                                  "--traceOut", obs4 + ".trace.json"))
     launched, hashed = dict(launches), dict(hash_calls)
@@ -4143,6 +4456,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
          variants_per_s=counters["variant"] / wall, launches=launched,
          plain_hash_calls=hashed, dispatch_s=stages.get("dispatch"),
          annotate_s=stages.get("annotate"), stage_seconds=stages,
+         warmup_s=loader.warmup_seconds, transport=loader.transport,
          stage_sum_over_wall=sum(stages.values()) / loader.timer.wall_seconds,
          queue_stalls=loader.queue_stalls,
          device_idle_fraction=loader.device_idle_fraction,
@@ -4160,22 +4474,22 @@ def load_phases(torch, platform, inp, launches, hash_calls,
     assert {"ingest", "dispatch", "store-writer"} <= set(loader.queue_stalls), (
         f"load: the overlapped executor or the async writer did not run "
         f"({sorted(loader.queue_stalls)})")
+    if device.type == "cuda":
+        # the default on the card packs every chunk: one inflate a chunk
+        # that went up nibble-packed and one pack a chunk, plus the
+        # warmup's one of each at the chunk shape (its probes ran in phase 3)
+        t = loader.transport
+        assert t["packed"] == chunks and t["nibble"] + t["raw"] == chunks, (
+            f"load: transport {t} for {chunks} chunks")
+        assert (launched["inflate_alleles"], launched["pack_outputs"]) == (
+            t["nibble"] + 1, chunks + 1), (
+            f"load: {launched['inflate_alleles']} inflate / "
+            f"{launched['pack_outputs']} pack launches for {t['nibble']} "
+            f"nibble uploads of {chunks} chunks (and the warmup's)")
 
-    # 4b. the same file, serial executor and synchronous store commits
-    store4s = os.path.join(WORK, "store.serial")
-    with environment(AVDB_PIPELINE="serial", AVDB_ASYNC_STORE="0"):
-        wall_s, loader_s, _n, mapping4s, _busy = load(store4s)
-    files4, files4s = store_bytes(store4), store_bytes(store4s)
-    differ = sorted(k for k in set(files4) | set(files4s)
-                    if files4.get(k) != files4s.get(k))
-    del files4, files4s
-    emit("load_serial", wall_s=wall_s, lines_per_s=counters["line"] / wall_s,
-         stage_seconds=dict(loader_s.timer.seconds), differ=differ,
-         mapping_equal=mapping4s == mapping4)
-    assert not differ and mapping4s == mapping4, (
-        f"serial and overlapped stores differ in {differ or ['mapping']}")
-    assert not loader_s.queue_stalls, loader_s.queue_stalls
-    shutil.rmtree(store4s)
+    # 4b-4c. the transport's A/B on the first 500,000 lines, then the same
+    # lines through the serial executor with synchronous store commits
+    transport_ab(platform, vcf4, inp.get("ab_lines", AB_LINES))
 
     # 5. reload, membership probed on the device
     with environment(AVDB_DEVICE_LOOKUP="always"):
@@ -4400,6 +4714,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         assert ranks_dev == ranks_cpu and len(ranks_dev) == 6, (
             f"phase 6 ({config}): device and CPU saved ranking files differ: "
             f"{sorted(ranks_dev)} / {sorted(ranks_cpu)}")
+    display_spill_parity(platform, inp)
     chaos = chaos_load_check(platform, vcf6, launches)
     return {"launches": launched, "chaos": chaos, "plain_hash_calls": hashed, "chunks": chunks,
             "store": store4,
@@ -4408,6 +4723,155 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"],
             "vep7b": inp["vep7b"], "want7b": inp["want7b"],
             "novel7b": inp["novel7b"]}
+
+
+def display_spill_parity(platform, inp) -> dict:
+    """Phase 6's last legs, card against CPU: the phase-6 lines loaded with
+    ``store_display_attributes=True`` (every annotate field copied back,
+    the ``display_attributes`` sidecar stored) on each device; then the
+    card's store copied twice and, under ``AVDB_STORE_SPILL_BYTES=1``
+    (every segment a copy-on-write memmap) and ``AVDB_DEVICE_LOOKUP=
+    always``, the same lines reloaded into each copy (every row a
+    duplicate, found by the device probe, whose uploads come from the
+    memmaps) and the phase-6 VEP results applied (``load-vep``, in place
+    on the mapped columns), once on each device.  Both pairs of stores
+    must be byte-equal."""
+    from annotatedvdb_tpu_torch.cli.load_vep import main as load_vep
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    t0 = time.perf_counter()
+    display, transport = {}, {}
+    for k, plat in enumerate((platform, "cpu")):
+        d = os.path.join(WORK, f"p6.display.{k}.{plat}")
+        os.makedirs(d)
+        store = VariantStore(width=WIDTH)
+        loader = VcfLoader(store, AlgorithmLedger(os.path.join(d, "ledger.jsonl")),
+                           log=lambda *a: None, device=plat,
+                           store_display_attributes=True)
+        try:
+            loader.warmup()
+            loader.load_file(inp["vcf6"], commit=True, persist=lambda: store.save(d))
+        finally:
+            loader.close()
+        store.save(d)
+        display[k], transport[plat] = store_bytes(d), loader.transport
+    shown = sum(blob.count(b'"display_attributes"') for name, blob in
+                display[0].items() if name.endswith(".ann.jsonl"))
+    differ_display = sorted(k for k in set(display[0]) | set(display[1])
+                            if display[0].get(k) != display[1].get(k))
+    spill, mapped, probes = {}, {}, {}
+    src = os.path.join(WORK, f"p6.display.0.{platform}")
+    for k, plat in enumerate((platform, "cpu")):
+        d = f"{src}.spill.{k}.{plat}"
+        shutil.copytree(src, d)
+        with environment(AVDB_STORE_SPILL_BYTES="1", AVDB_DEVICE_LOOKUP="always"):
+            store = VariantStore.load(d)
+            mapped[k] = all(isinstance(seg.cols["pos"], np.memmap)
+                            for sh in store.shards.values() for seg in sh.segments)
+            loader = VcfLoader(store, AlgorithmLedger(os.path.join(d, "ledger.jsonl")),
+                               log=lambda *a: None, device=plat)
+            try:
+                counters = loader.load_file(inp["vcf6"], commit=True,
+                                            persist=lambda: store.save(d))
+            finally:
+                loader.close()
+            store.save(d)
+            probes[k] = (dict(loader.probe_stats), counters["variant"],
+                         counters["duplicates"])
+            rc = load_vep(["--fileName", inp["vep6"], "--storeDir", d, "--commit",
+                           "--logAfter", "0", "--datasource", "dbSNP",
+                           "--platform", plat])
+            assert rc == 0, f"phase 6 spill: load-vep on {plat} exited {rc}"
+        spill[k] = store_bytes(d)
+    differ_spill = sorted(k for k in set(spill[0]) | set(spill[1])
+                          if spill[0].get(k) != spill[1].get(k))
+    out = {"display_rows": shown, "display_files": len(display[0]),
+           "differ_display": differ_display, "transport": transport,
+           "spill_mapped": mapped, "spill_probes": probes,
+           "differ_spill": differ_spill, "seconds": time.perf_counter() - t0}
+    emit("parity_display_spill", **out)
+    assert shown > 0 and not differ_display, (
+        f"phase 6 display attributes: {shown} rows, stores differ in {differ_display}")
+    assert all(mapped.values()) and not differ_spill, (
+        f"phase 6 spill: mapped {mapped}, stores differ in {differ_spill}")
+    for k, (stats, variants, dups) in probes.items():
+        assert variants == 0 and dups > 0 and stats.get("device") \
+            and not stats.get("host"), f"phase 6 spill reload {k}: {probes[k]}"
+    return out
+
+
+#: phase 4c's lines (the head of the phase-4 VCF) and its turns
+AB_LINES = 500_000
+AB_MODES = ("auto", "never", "never", "auto")
+
+
+def transport_ab(platform, vcf, n_lines) -> list:
+    """Phases 4b-4c: the first ``n_lines`` lines of ``vcf`` through
+    ``load-vcf --commit`` into fresh stores, in turns under
+    ``AVDB_PACK_TRANSPORT`` ``auto`` (on the card: nibble uploads, one
+    inflate and one pack a chunk, one copy back), ``never`` (raw uploads,
+    width-bucketed where a chunk allows, four column copies), ``never``,
+    ``auto``, then once more under ``AVDB_PIPELINE=serial
+    AVDB_ASYNC_STORE=0`` (one thread, synchronous commits; no queue
+    stall may be recorded).  Emits each A/B run's wall, warmup, stage
+    seconds (``dispatch``, ``annotate``) and transport counts, and the
+    serial run's; all five stores and mapping sidecars must be
+    byte-equal."""
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+
+    head = os.path.join(WORK, "ab.vcf")
+    with open(vcf) as src, open(head, "w") as dst:
+        n = 0
+        for line in src:
+            if not line.startswith("#"):
+                if n == n_lines:
+                    break
+                n += 1
+            dst.write(line)
+    runs, files, mappings = [], [], []
+    serial = {"AVDB_PIPELINE": "serial", "AVDB_ASYNC_STORE": "0"}
+    for k, mode in enumerate(AB_MODES + ("serial",)):
+        d = os.path.join(WORK, f"ab.{k}.{mode}")
+        env = serial if mode == "serial" else {"AVDB_PACK_TRANSPORT": mode}
+        with environment(**env), captured_loaders(VcfLoader) as seen:
+            t0 = time.perf_counter()
+            rc = load_vcf(["--fileName", head, "--storeDir", d, "--commit",
+                           "--logAfter", "0", "--platform", platform])
+            wall = time.perf_counter() - t0
+        assert rc == 0, f"transport A/B ({mode}) load-vcf exited {rc}"
+        loader = seen[0]
+        stages = dict(loader.timer.seconds)
+        runs.append({"mode": mode, "wall_s": wall, "warmup_s": loader.warmup_seconds,
+                     "loader_wall_s": loader.timer.wall_seconds,
+                     "lines_per_s": n / wall, "dispatch_s": stages.get("dispatch"),
+                     "annotate_s": stages.get("annotate"), "stage_seconds": stages,
+                     "transport": loader.transport, "queue_stalls": loader.queue_stalls,
+                     "device_idle_fraction": loader.device_idle_fraction})
+        files.append(store_bytes(d))
+        with open(head + ".mapping", "rb") as f:
+            mappings.append(f.read())
+        shutil.rmtree(d)
+    os.remove(head)
+    os.remove(head + ".mapping")
+    differ = sorted({k for f in files[1:] for k in set(files[0]) | set(f)
+                     if files[0].get(k) != f.get(k)})
+    serial_run = runs.pop()
+    emit("transport_ab", lines=n, runs=runs, differ=differ)
+    emit("load_serial", lines=n, wall_s=serial_run["wall_s"],
+         lines_per_s=serial_run["lines_per_s"],
+         stage_seconds=serial_run["stage_seconds"], differ=differ,
+         mapping_equal=all(m == mappings[0] for m in mappings))
+    assert not differ, f"transport A/B and serial: the stores differ in {differ}"
+    assert all(m == mappings[0] for m in mappings), "the mapping sidecars differ"
+    assert not serial_run["queue_stalls"], serial_run["queue_stalls"]
+    for run in runs:
+        packs = platform == "cuda" and run["mode"] == "auto"
+        assert (run["transport"]["packed"] > 0) == packs \
+            and (run["transport"]["fields"] > 0) != packs, (
+            f"transport A/B ({run['mode']}): {run['transport']}")
+    return runs
 
 
 def run_update(torch, platform, name, path, store_dir, trace=False,
@@ -4945,6 +5409,10 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
         assert launched["annotate_bin"] == batches, (
             f"vep: annotate_bin launched {launched['annotate_bin']} times for "
             f"{batches} identity batches")
+        # a store 49 wide packs each identity batch's three columns
+        assert launched.get("pack_vep_outputs", batches) == batches, (
+            f"vep: pack_vep_outputs launched {launched['pack_vep_outputs']} "
+            f"times for {batches} identity batches")
         assert not hashed.get("cuda"), (
             f"vep: the load called the plain allele_hash on the card "
             f"{hashed['cuda']} times")
@@ -5016,8 +5484,8 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
     configuration.  ``launches`` and ``hash_calls`` are set to 0 just
     before each run and read just after it; the kernel steps kept from the
     run are held against the plain versions after that (those launches are
-    not counted).  Returns each command's ``annotate_bin`` launches.
-    Raises AssertionError on any failed check."""
+    not counted).  Returns each command's launches by kernel.  Raises
+    AssertionError on any failed check."""
     out = {}
     for name, spec in updates.items():
         for counts in (launches, hash_calls):
@@ -5060,7 +5528,13 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
             assert not hashed.get("cuda"), (
                 f"{name}: the update called the plain allele_hash on the card "
                 f"{hashed['cuda']} times")
-        out[name] = launched["annotate_bin"]
+            # each synchronous insert packs its outputs on the card, and
+            # inflates where its alleles went up nibble-packed
+            packed = launched.get("pack_outputs", run["inserts"])
+            assert packed == run["inserts"] >= launched.get("inflate_alleles", 0), (
+                f"{name}: {packed} pack / {launched.get('inflate_alleles')} inflate "
+                f"launches for {run['inserts']} inserts")
+        out[name] = dict(launched)
     return out
 
 
@@ -8030,7 +8504,7 @@ def main() -> int:
         from annotatedvdb_tpu_torch.native import cadd as native_cadd
         from annotatedvdb_tpu_torch.native import pyfast
         from annotatedvdb_tpu_torch.native import vep as native_vep
-        from annotatedvdb_tpu_torch.ops import annotate_cuda, build, hashing
+        from annotatedvdb_tpu_torch.ops import annotate_cuda, build, hashing, pack
         from annotatedvdb_tpu_torch.runtime import resolve_device
     except ImportError as err:
         return fail(f"the annotatedvdb_tpu_torch package is not beside this "
@@ -8074,8 +8548,11 @@ def main() -> int:
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "smem" in ln]
                 for k, v in logs.items()})
 
+    #: every kernel launch counter the loads' main paths read
+    launches = Launches(annotate_cuda.LAUNCHES, pack.LAUNCHES)
+
     def reset():
-        for counts in (annotate_cuda.LAUNCHES, hashing.CALLS):
+        for counts in (launches, hashing.CALLS):
             for name in counts:
                 counts[name] = 0
 
@@ -8111,8 +8588,19 @@ def main() -> int:
                  waited_s=time.perf_counter() - t0,
                  **{k: v for k, v in inputs.items() if k.endswith("_seconds")})
             table.append(validate_kernel_phase(torch, device, inputs["genome"]["index"]))
-            table += serve_kernel_phase(torch, device)
-            table.append(export_kernel_phase(torch, device))
+            # the serving and export kernels timed in the second process
+            # while this one waits (no process started for them)
+            table += serve_kernel_phase(torch, device, pool)
+            table.append(export_kernel_phase(torch, device, pool))
+            # the packed transport's kernels: checked here, timed in the
+            # second process while this one waits
+            t0 = time.perf_counter()
+            transport_checks, transport_worst = transport_kernel_checks(torch, device)
+            checks_s = time.perf_counter() - t0
+            transport_timing = pool.submit(transport_kernel_timing).result()
+            emit("transport_kernel", checks=transport_checks, worst=transport_worst,
+                 checks_s=checks_s, timing=transport_timing)
+            transport_rows = transport_kernel_rows(transport_checks, transport_timing)
             # the mesh kernels' checks, then their timing in the second
             # process while this one waits, so no other phase shares the card
             mesh_checks = mesh_kernel_checks(torch, device)
@@ -8124,7 +8612,7 @@ def main() -> int:
             # checked and not timed (it reads only the VCFs)
             cadd9 = []
             results = load_phases(
-                torch, "cuda", inputs, launches=annotate_cuda.LAUNCHES,
+                torch, "cuda", inputs, launches=launches,
                 hash_calls=hashing.CALLS,
                 before_parity=lambda: cadd9.append(pool.submit(
                     write_cadd9_inputs, WORK, [inputs["vcf4"], inputs["vcf5"]],
@@ -8150,7 +8638,7 @@ def main() -> int:
                 results[key] = f"{results['store']}.{key}"
                 shutil.copytree(results["store"], results[key])
             reset()
-            vep = vep_phase(torch, "cuda", results, launches=annotate_cuda.LAUNCHES,
+            vep = vep_phase(torch, "cuda", results, launches=launches,
                             hash_calls=hashing.CALLS)
             vep_kernel = vep_kernel_timing(torch, device,
                                            max(1, round(vep["rows_per_batch"])))
@@ -8159,7 +8647,7 @@ def main() -> int:
             # each command)
             store8 = load_update_store(inputs["vcf8"])
             upd = update_phase(torch, "cuda", store8, inputs["updates8"],
-                               launches=annotate_cuda.LAUNCHES,
+                               launches=launches,
                                hash_calls=hashing.CALLS)
             # 9. the CADD join of the store of phases 4 and 5 (counters reset
             # inside, just before it)
@@ -8213,10 +8701,11 @@ def main() -> int:
     emit("smoke", seconds=time.perf_counter() - t_start)
     vcf_launches = results["launches"]["annotate_bin"]
     vep_launches = vep["launches"]["annotate_bin"]
-    table[0].update(launches=vcf_launches + vep_launches + sum(upd.values()),
+    upd_launches = {name: n["annotate_bin"] for name, n in upd.items()}
+    table[0].update(launches=vcf_launches + vep_launches + sum(upd_launches.values()),
                     launches_vcf_load=vcf_launches, launches_vep_load=vep_launches,
-                    launches_update_qc=upd["qc"], launches_lof=upd["lof"],
-                    launches_tsv=upd["tsv"],
+                    launches_update_qc=upd_launches["qc"], launches_lof=upd_launches["lof"],
+                    launches_tsv=upd_launches["tsv"],
                     vep_batch_rows=vep_kernel["rows"], vep_batch_ms=vep_kernel["ms"],
                     vep_batch_bound_ms=vep_kernel["bound_ms"])
     table[1].update(launches=cadd["launches"])
@@ -8232,6 +8721,16 @@ def main() -> int:
                     launches_stream=exported["stream"])
     for row in table[7:9]:
         row.update(launches=meshed["launches"][row["name"]])
+    # the transport's rows: phase 4's load (its warmup's call at the chunk
+    # shape included), phase 7's VEP update and phase 8's inserts
+    for row in transport_rows:
+        name = row["name"]
+        by_phase = {"vcf_load": results["launches"][name],
+                    "vep_load": vep["launches"][name],
+                    **{f"update_{k}": n[name] for k, n in upd.items()}}
+        row.update(launches=sum(by_phase.values()),
+                   **{f"launches_{k}": n for k, n in by_phase.items()})
+    table += transport_rows
 
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@ masked), the reports (``seconds`` masked), the dry-run plan and its
 between merge and swap (a real memtable flush), a cancelled pass, the
 CLI's exit codes and output, fsck's handling of a killed pass's temps,
 and the read bodies of both front ends before and after compaction.
-The reference's spill-tier cases have no counterpart (the port has no
-memmap tier); its ``compact.*`` fault points are crossed in
+The spill tier (``AVDB_STORE_SPILL_BYTES``): segment containers at or
+above the threshold load as copy-on-write memmaps; stores loaded,
+updated and re-saved under it (the port reading the reference's store
+and the reverse) hold the same bytes, the read bodies and a compaction
+over a spilled store are unchanged, and a malformed value raises with
+the variable's name.  Its ``compact.*`` fault points are crossed in
 ``test_torch_faults_store.py``.
 """
 
@@ -468,3 +472,89 @@ def test_live_manager_swaps_onto_the_compacted_generation(tmp_path):
         p.replace(f'"generation": {gen0}',
                   f'"generation": {manager.current().generation}')
         if isinstance(p, str) else p for p in pre]
+
+
+# ---------------------------------------------------------------------------
+# out-of-core spill tier
+
+
+def _memmapped(store) -> bool:
+    return any(isinstance(seg.cols["pos"], np.memmap)
+               for sh in store.shards.values() for seg in sh.segments)
+
+
+def _spill_update(store_pkg, src, dest, value):
+    """``src`` loaded, one column and one annotation updated, saved to
+    ``dest`` (a new directory); returns whether the load was memmapped."""
+    store = store_pkg.load(src)
+    mapped = _memmapped(store)
+    sh = store.shard(8)
+    sh.set_col("ref_snp", [0, 5], [value, value + 1])
+    sh.update_annotation(np.array([3]), "other_annotation", [{"spill": value}])
+    assert int(sh.get_col("ref_snp", [0])[0]) == value
+    store.save(dest)
+    return mapped
+
+
+def test_spill_tier_round_trips_across_packages(tmp_path, monkeypatch):
+    """Under ``AVDB_STORE_SPILL_BYTES=1`` both packages load the same store
+    memmapped, take the same updates (they land in copy-on-write pages)
+    and save the same bytes; then each reads the other's saved store and
+    updates it again, with the same result."""
+    ref_dir = str(tmp_path / "ref")
+    truth = ts._build_store(ref_dir)  # and one shadowed duplicate
+    monkeypatch.setenv("AVDB_STORE_SPILL_BYTES", "1")
+    a, b = str(tmp_path / "a_ref"), str(tmp_path / "a_port")
+    assert _spill_update(RefStore, ref_dir, a, 424242)
+    assert _spill_update(VariantStore, ref_dir, b, 424242)
+    assert _files(a) == _files(b)
+    c, d = str(tmp_path / "b_ref_on_port"), str(tmp_path / "b_port_on_ref")
+    assert _spill_update(RefStore, b, c, 7)
+    assert _spill_update(VariantStore, a, d, 7)
+    assert _files(c) == _files(d)
+    monkeypatch.delenv("AVDB_STORE_SPILL_BYTES")
+    assert not _memmapped(VariantStore.load(d))
+    assert fsck.fsck(d, deep=True, **QUIET)["exit_code"] == 0
+    assert VariantStore.load(d).n == RefStore.load(ref_dir).n == len(truth) + 1
+
+
+def test_spill_tier_reads_and_compaction_unchanged(tmp_path, monkeypatch):
+    """The port's read bodies over a spilled store equal the materialized
+    store's, and a compaction pass over a spilled store writes the
+    reference's bytes (mirrors the reference's spill-tier case)."""
+    ref_dir = str(tmp_path / "ref")
+    truth = ts._build_store(ref_dir)
+    port_dir = str(tmp_path / "port")
+    shutil.copytree(ref_dir, port_dir)
+    pre = _bodies(QueryEngine(SnapshotManager(port_dir, **QUIET), device="cpu"), truth)
+    monkeypatch.setenv("AVDB_STORE_SPILL_BYTES", "1")
+    assert _memmapped(VariantStore.load(port_dir))
+    assert _bodies(QueryEngine(SnapshotManager(port_dir, **QUIET), device="cpu"),
+                   truth) == pre
+    assert compact.compact_store(port_dir, **QUIET)["status"] == "compacted"
+    assert ref_compact.compact_store(ref_dir, **QUIET)["status"] == "compacted"
+    assert _files(port_dir) == _files(ref_dir)
+    monkeypatch.delenv("AVDB_STORE_SPILL_BYTES")
+    assert _bodies(QueryEngine(SnapshotManager(port_dir, **QUIET), device="cpu"),
+                   truth) == pre
+
+
+@pytest.mark.parametrize("value,mapped", [("1g", False), ("0", False), ("off", False),
+                                          ("", False), ("1k", True)])
+def test_spill_threshold_gates_by_file_size(tmp_path, monkeypatch, value, mapped):
+    store_dir = str(tmp_path / "vdb")
+    ts._build_store(store_dir)
+    monkeypatch.setenv("AVDB_STORE_SPILL_BYTES", value)
+    assert _memmapped(VariantStore.load(store_dir)) is mapped
+    assert _memmapped(RefStore.load(store_dir)) is mapped
+
+
+def test_malformed_spill_knob_raises(tmp_path, monkeypatch):
+    """A typo'd value raises with the variable's name in both packages
+    instead of silently disabling the tier."""
+    store_dir = str(tmp_path / "vdb")
+    ts._build_store(store_dir)
+    monkeypatch.setenv("AVDB_STORE_SPILL_BYTES", "512mb")
+    for pkg in (VariantStore, RefStore):
+        with pytest.raises(ValueError, match="AVDB_STORE_SPILL_BYTES"):
+            pkg.load(store_dir)

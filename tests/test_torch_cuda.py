@@ -40,6 +40,14 @@ offset of the stats kernels' tiles, and unaligned bases; the stats entry
 points refuse a short or misaligned scratch; and the
 card's ``QueryEngine`` must answer the CPU engine's bytes with the
 predicted launches, no plain version on the card and no breaker failure.
+The packed transport's kernels (``csrc/pack.cu``: the inflate and the two
+packs) are held against their plain versions byte for byte, their
+wrappers' refusals checked, a wrong pack shown to fail its probe and the
+load (no fallback), and the load's packed dispatch shown to run on the
+loader's stream; ``load-vcf`` under ``AVDB_PACK_TRANSPORT`` auto, always
+and never on the card writes the CPU's store with one inflate and one pack
+a chunk where it packs, and display attributes and the spill tier on the
+card write the CPU's stores.
 The export's pack kernel (``csrc/export_pack.cu``) is held against its
 plain version byte for byte on edge rows, 1,048,576 random rows,
 store-shaped batches and stacks of batches (B = 4 mod 8, B not a multiple
@@ -311,15 +319,17 @@ def test_vep_transformer_hash_matches_kernel(cuda, tmp_path):
     assert vep_hash_check(torch, cuda, vep)["rows"] > 5_000
 
 
-def test_dispatch_runs_on_the_loaders_stream(cuda, tmp_path):
-    """The dispatch stage enqueues uploads, one launch and the copies back
-    on the loader's own stream, into pinned host tensors, and hands the
-    process stage one event; the tokenizer's hash is not copied back."""
+def test_dispatch_runs_on_the_loaders_stream(cuda, tmp_path, monkeypatch):
+    """With the packed transport off (``AVDB_PACK_TRANSPORT=never``), the
+    dispatch stage enqueues uploads, one launch and the copies back on the
+    loader's own stream, into pinned host tensors, and hands the process
+    stage one event; the tokenizer's hash is not copied back."""
     from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
     from annotatedvdb_tpu_torch.loaders import VcfLoader
     from annotatedvdb_tpu_torch.loaders.vcf_loader import COPY_BACK
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
 
+    monkeypatch.setenv("AVDB_PACK_TRANSPORT", "never")
     vcf = str(tmp_path / "d.vcf")
     write_phase4_vcf(vcf, 3000)
     chunk = next(iter(VcfBatchReader(vcf, batch_size=1024, engine="native")))
@@ -345,6 +355,160 @@ def test_dispatch_runs_on_the_loaders_stream(cuda, tmp_path):
     loader.close()
 
 
+def test_packed_dispatch_runs_on_the_loaders_stream(cuda, tmp_path, monkeypatch):
+    """The default on the card: the tokenizer's pre-packed alleles go up,
+    one inflate, one ``annotate_bin`` and one pack launch on the loader's
+    own stream, and one ``[n, 10]`` pinned copy comes back whose columns
+    are the plain versions' on the chunk."""
+    from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.ops import pack
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    monkeypatch.delenv("AVDB_PACK_TRANSPORT", raising=False)
+    vcf = str(tmp_path / "d.vcf")
+    write_phase4_vcf(vcf, 3000)
+    chunk = next(iter(VcfBatchReader(vcf, batch_size=1024, engine="native")))
+    assert chunk.ref_packed is not None
+    loader = VcfLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
+                       log=lambda *a: None, device=cuda)
+    loader._dispatch_chunk(chunk)  # the first call also checks the kernels
+    before = dict(pack.LAUNCHES), LAUNCHES["annotate_bin"], dict(pack.CALLS)
+    handles = loader._dispatch_chunk(chunk)
+    assert LAUNCHES["annotate_bin"] == before[1] + 1
+    assert pack.LAUNCHES["inflate_alleles"] == before[0]["inflate_alleles"] + 1
+    assert pack.LAUNCHES["pack_outputs"] == before[0]["pack_outputs"] + 1
+    assert pack.CALLS == before[2]
+    handles["event"].synchronize()
+    (buf,) = handles["cols"].values()
+    assert buf.is_pinned() and buf.shape == (chunk.batch.n, pack.WIDTH)
+    cols = pack.unpack_outputs(buf.numpy())
+    want = annotate_bin_reference(*(torch.from_numpy(x) for x in (
+        chunk.batch.pos, chunk.batch.ref, chunk.batch.alt,
+        chunk.batch.ref_len, chunk.batch.alt_len)))
+    ok = ~want["host_fallback"].numpy()
+    np.testing.assert_array_equal(cols["h"], chunk.h_native)
+    for name in ("needs_digest", "host_fallback"):
+        np.testing.assert_array_equal(cols[name], want[name].numpy())
+    for name in ("bin_level", "leaf_bin"):
+        np.testing.assert_array_equal(cols[name][ok], want[name].numpy()[ok])
+    assert not cols["dup"].any()
+    loader.close()
+
+
+def test_transport_kernels_match_plain_versions(cuda):
+    """The three entry points of ``csrc/pack.cu`` against their plain
+    versions byte for byte: every packed byte value at W = 1 to 96 aligned
+    and off, the packs' hash, leaf, level and flag edges, and 65,536 and
+    1,048,576 rows (``chip_smoke.transport_kernel_checks``), one launch a
+    call."""
+    from annotatedvdb_tpu_torch.ops import pack
+    from chip_smoke import transport_kernel_checks
+
+    before = dict(pack.LAUNCHES)
+    checks, worst = transport_kernel_checks(torch, cuda)
+    assert worst == 0 and all(c["equal"] for c in checks)
+    for name in pack.LAUNCHES:
+        n = sum(c["kernel"] == name for c in checks)
+        assert n > 0 and pack.LAUNCHES[name] - before[name] >= n
+
+
+def test_transport_wrappers_refuse_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops import pack
+
+    h = torch.zeros(8, dtype=torch.int32, device=cuda)
+    b = torch.zeros(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="inputs on"):
+        pack.pack_outputs(h, None, b, h, b.cpu(), b)
+    with pytest.raises(TypeError, match="leaf_bin"):
+        pack.pack_outputs(h, None, b, h.to(torch.int64), b, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        pack.pack_vep_outputs(h, torch.zeros(16, dtype=torch.int32, device=cuda)[::2], b)
+    p = torch.zeros((8, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="packed columns"):
+        pack.inflate_alleles(p, p, 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        pack.inflate_alleles(p[:, :2], p[:, :2], 3)
+
+
+def test_transport_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
+    """A pack whose bytes are wrong on the card makes the transport probe
+    raise, and a load that wants the transport fails with it: no quiet
+    fallback to per-field copies."""
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.ops import pack
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    real = pack.pack_outputs
+
+    def wrong(*args):
+        out = real(*args)
+        out[:, 9] ^= 1
+        return out
+
+    monkeypatch.setattr(pack, "_VERIFIED", set())
+    monkeypatch.setattr(pack, "pack_outputs", wrong)
+    with pytest.raises(RuntimeError, match="packed transport probe mismatched on cuda:0"):
+        pack.transport_verified(cuda)
+    monkeypatch.delenv("AVDB_PACK_TRANSPORT", raising=False)
+    vcf = str(tmp_path / "w.vcf")
+    write_phase4_vcf(vcf, 2000)
+    loader = VcfLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
+                       log=lambda *a: None, device=cuda)
+    with pytest.raises(RuntimeError, match="probe mismatched"):
+        loader.load_file(vcf, commit=True)
+    loader.close()
+    assert loader.transport["fields"] == 0
+
+
+def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """``load-vcf`` on the card under ``AVDB_PACK_TRANSPORT`` auto, always
+    and never, and on the CPU: one store, byte for byte; on the card auto
+    and always launch one inflate and one pack a chunk (and one each in
+    the warmup), never launches neither; ``store_display_attributes`` and
+    the spill tier on the card write the CPU's stores
+    (``chip_smoke.display_spill_parity``)."""
+    import chip_smoke
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.ops import pack
+
+    for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE"):
+        monkeypatch.delenv(name, raising=False)
+    pack.transport_verified(cuda), pack.nibble_verified(cuda)
+    vcf = str(tmp_path / "m.vcf")
+    lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
+    out = {}
+    for plat, mode in (("cuda", "auto"), ("cuda", "always"), ("cuda", "never"),
+                       ("cpu", "auto")):
+        d = str(tmp_path / f"store_{plat}_{mode}")
+        monkeypatch.setenv("AVDB_PACK_TRANSPORT", mode)
+        before = dict(pack.LAUNCHES)
+        assert load_vcf(["--fileName", vcf, "--storeDir", d, "--commit",
+                         "--commitAfter", "4096", "--logAfter", "0",
+                         "--platform", plat]) == 0
+        with open(f"{d}/ledger.jsonl") as f:
+            chunks = sum('"checkpoint"' in line for line in f)
+        got = {k: pack.LAUNCHES[k] - before[k] for k in ("inflate_alleles", "pack_outputs")}
+        packs = plat == "cuda" and mode != "never"
+        assert got == ({"inflate_alleles": chunks + 1, "pack_outputs": chunks + 1}
+                       if packs else {"inflate_alleles": 0, "pack_outputs": 0}), (mode, got)
+        out[(plat, mode)] = store_bytes(d)
+    assert all(v == out[("cpu", "auto")] for v in out.values())
+    monkeypatch.delenv("AVDB_PACK_TRANSPORT")
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    os.makedirs(chip_smoke.WORK)
+    vep = str(tmp_path / "m.vep.json")
+    write_vep_json(vep, lines[:3000], 800, seed=4, n_novel=2)
+    small = str(tmp_path / "s.vcf")
+    with open(vcf) as src, open(small, "w") as dst:
+        dst.writelines(ln for k, ln in enumerate(src) if k < 3002)
+    res = chip_smoke.display_spill_parity("cuda", {"vcf6": small, "vep6": vep})
+    assert res["display_rows"] > 0 and not res["differ_display"]
+    assert not res["differ_spill"] and all(res["spill_mapped"].values())
+
+
 def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """The CLI's default configuration on the card and on the CPU, with
     64 KiB read windows so windows cut chunks: the same store bytes; on the
@@ -353,7 +517,8 @@ def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
     from annotatedvdb_tpu_torch.native import vcf as native_vcf
 
-    for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE"):
+    for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE",
+                 "AVDB_PACK_TRANSPORT"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(native_vcf, "READ_SIZE", 64 << 10)
     annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too

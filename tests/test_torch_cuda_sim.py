@@ -1,8 +1,8 @@
 """The port's CUDA sources run on the CPU through ``tests/cuda_sim.h``.
 
 ``csrc/export_pack.cu``, ``csrc/bits_spans.cu`` (both of its entry points:
-one group and a stack of groups) and ``csrc/lookup_multi.cu`` are
-compiled with
+one group and a stack of groups), ``csrc/lookup_multi.cu`` and
+``csrc/pack.cu`` (three entry points, three launches) are compiled with
 ``g++ -std=c++20`` against the header, which maps the CUDA surface they
 use onto C++ threads (one ``std::thread`` per CUDA thread, blocks one
 after another, warp ballots through a per-warp buffer between barriers),
@@ -13,7 +13,9 @@ and k-ary ballot searches included, are then called through their C entry
 points on numpy buffers and held exactly, on small edge inputs, against
 the pack's numpy twin ``export_pack_host`` and the plain versions
 ``bits_spans_reference``, ``bits_spans_stacked_reference`` and
-``lookup_in_sorted_multi_reference`` on CPU tensors.  The
+``lookup_in_sorted_multi_reference`` on CPU tensors, and the transport's
+inflate and packs against ``inflate_alleles_reference``,
+``pack_outputs_reference`` and ``pack_vep_outputs_reference``.  The
 simulated card has 3 SMs of 2 blocks, so the pack's grid strides.  This
 is no timing and no proof that ``nvcc`` accepts the source: the card runs
 the same comparisons (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -34,6 +36,7 @@ import torch
 from annotatedvdb_tpu_torch.ops import dedup as DD
 from annotatedvdb_tpu_torch.ops import export_pack as P
 from annotatedvdb_tpu_torch.ops import intervals as I
+from annotatedvdb_tpu_torch.ops import pack as PK
 from annotatedvdb_tpu_torch.ops.build import CSRC_DIR
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,16 +48,16 @@ UBSAN = ("-fsanitize=alignment",)
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);", re.S)
 
 
-def sim_source(text: str) -> str:
+def sim_source(text: str, launches: int = 1) -> str:
     """A kernel source with the header in place of the CUDA runtime and its
-    launches rewritten for the simulator."""
+    ``launches`` launches rewritten for the simulator."""
     def launch(m):
         grid, block = (x.strip() for x in m.group(2).split(",")[:2])
         return f"sim_launch(dim3({grid}), dim3({block}), {m.group(1)}, {m.group(3)});"
 
     text = text.replace("#include <cuda_runtime.h>", f'#include "{HEADER}"')
     out, n = LAUNCH.subn(launch, text)
-    assert n == 1, f"expected one launch, found {n}"
+    assert n == launches, f"expected {launches} launches, found {n}"
     return out
 
 
@@ -66,10 +69,10 @@ def libs(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel sources for the CPU")
     work = tmp_path_factory.mktemp("cuda_sim")
     out = {}
-    for name in ("export_pack", "bits_spans", "lookup_multi"):
+    for name in ("export_pack", "bits_spans", "lookup_multi", "pack"):
         with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
             src = work / f"{name}.cpp"
-            src.write_text(sim_source(f.read()))
+            src.write_text(sim_source(f.read(), launches=3 if name == "pack" else 1))
         so = work / f"lib{name}.so"
         proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *UBSAN,
                                "-o", str(so), str(src)], capture_output=True, text=True)
@@ -82,6 +85,9 @@ def libs(tmp_path_factory):
         [vp, i, i, vp, vp, i] + [vp] * 5)
     out["lookup_multi"].lookup_multi_launch.argtypes = (
         [vp] * 7 + [i] + [vp] * 7 + [i, i] + [vp] * 3)
+    out["pack"].inflate_alleles_launch.argtypes = [vp, vp, i, i, i, vp, vp, vp]
+    out["pack"].pack_outputs_launch.argtypes = [vp, vp, vp, i, vp, vp, vp, i, vp, vp]
+    out["pack"].pack_vep_outputs_launch.argtypes = [vp, vp, i, vp, i, vp, vp]
     return out
 
 
@@ -363,3 +369,119 @@ def test_lookup_multi_refuses_misaligned_pointers(libs):
     assert launch(ptrs, idx=_ptr(index) + 2) == 1
     assert launch(ptrs, m_=-1) == 1
     assert launch(ptrs) == 0
+
+
+# ------------------------------------------------------------------- pack
+
+
+def _inflate_sim(lib, ref_packed, alt_packed, width, offset):
+    """The kernel's ``(ref, alt)``: the packed matrices ``offset`` bytes and
+    the outputs ``offset + 1`` bytes past 64-byte alignment."""
+    n, cols = ref_packed.shape
+    rp, ap = (_buffer(n * cols, np.uint8, offset) for _ in range(2))
+    rp[:], ap[:] = ref_packed.ravel(), alt_packed.ravel()
+    ro, ao = (_buffer(n * width, np.uint8, offset + 1) for _ in range(2))
+    ro[:], ao[:] = 0xAB, 0xCD
+    rc = lib.inflate_alleles_launch(_ptr(rp), _ptr(ap), n, cols, width,
+                                    _ptr(ro), _ptr(ao), None)
+    assert rc == 0
+    return ro.reshape(n, width), ao.reshape(n, width)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3], ids=lambda v: f"base+{v}")
+@pytest.mark.parametrize("width", [1, 2, 7, 8, 16, 49, 96])
+def test_inflate_source_matches_plain_version(libs, capfd, width, offset):
+    """Every one of the 256 packed byte values in every column (codes 14 and
+    15 decode to 0), odd widths (the last high nibble dropped), more packed
+    columns than the width needs, and bases off alignment, exactly against
+    the plain version."""
+    from chip_smoke import pack_inflate_cases
+
+    for label, rp, ap, w in pack_inflate_cases(width):
+        got = _inflate_sim(libs["pack"], rp, ap, w, offset)
+        no_misaligned(capfd)
+        want = PK.inflate_alleles_reference(torch.from_numpy(rp), torch.from_numpy(ap), w)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x.numpy(), err_msg=label)
+
+
+def _pack_cols_sim(cols, offset):
+    """Each column copied ``offset`` bytes past 64-byte alignment when it is
+    a byte column (4-byte columns stay aligned, as torch allocates them)."""
+    out = []
+    for c in cols:
+        if c is None:
+            out.append(None)
+            continue
+        c = np.ascontiguousarray(c)
+        buf = _buffer(c.shape[0], c.dtype, 0 if c.itemsize == 4 else offset)
+        buf[:] = c
+        out.append(buf)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=lambda v: f"base+{v}")
+def test_pack_outputs_source_matches_plain_version(libs, capfd, offset):
+    """The smoke's edge rows (hash 0 and 0xFFFFFFFF, int32 ends of the leaf,
+    levels of 255 and above and negative as int32, int8 levels as the
+    kernel gives them, every flag combination, a null ``dup``) and random
+    rows at n = 1, 7 and 1,000 (the simulated grid strides), the output at
+    an odd address, exactly against the plain version."""
+    from chip_smoke import pack_outputs_cases
+
+    lib = libs["pack"]
+    for label, cols in pack_outputs_cases():
+        h, dup, level, leaf, nd, hf = _pack_cols_sim(cols, offset)
+        n = h.shape[0]
+        out = _buffer(n * 10, np.uint8, 1)
+        out[:] = 0xAB
+        rc = lib.pack_outputs_launch(
+            _ptr(h), None if dup is None else _ptr(dup), _ptr(level), level.itemsize,
+            _ptr(leaf), _ptr(nd), _ptr(hf), n, _ptr(out), None)
+        assert rc == 0
+        no_misaligned(capfd)
+        want = PK.pack_outputs_reference(*(None if c is None else torch.from_numpy(
+            np.ascontiguousarray(c)) for c in cols))
+        np.testing.assert_array_equal(out.reshape(n, 10), want.numpy(), err_msg=label)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=lambda v: f"base+{v}")
+def test_pack_vep_outputs_source_matches_plain_version(libs, capfd, offset):
+    """The VEP row on the same cases: prefix lengths of 255 and above as
+    int32, int8 prefixes, every flag, exactly against the plain version."""
+    from chip_smoke import pack_outputs_cases
+
+    lib = libs["pack"]
+    for label, (h, _dup, level, _leaf, _nd, hf) in pack_outputs_cases():
+        hs, ps, fs = _pack_cols_sim((h, level, hf), offset)
+        n = hs.shape[0]
+        out = _buffer(n * 6, np.uint8, 3)
+        rc = lib.pack_vep_outputs_launch(_ptr(hs), _ptr(ps), ps.itemsize, _ptr(fs), n,
+                                         _ptr(out), None)
+        assert rc == 0
+        no_misaligned(capfd)
+        want = PK.pack_vep_outputs_reference(*(torch.from_numpy(np.ascontiguousarray(c))
+                                              for c in (h, level, hf)))
+        np.testing.assert_array_equal(out.reshape(n, 6), want.numpy(), err_msg=label)
+
+
+def test_pack_refuses_bad_arguments(libs):
+    """Word columns off 4-byte alignment, a level width other than 1 or 4,
+    and too few packed columns for the width are refused before any
+    launch (cudaErrorInvalidValue)."""
+    lib = libs["pack"]
+    w32 = _buffer(9, np.int32, 0)
+    b8 = _buffer(9, np.uint8, 0)
+    out = _buffer(90, np.uint8, 0)
+    args = [_ptr(b8), _ptr(w32), 4, _ptr(w32), _ptr(b8), _ptr(b8), 8, _ptr(out), None]
+    assert lib.pack_outputs_launch(_ptr(w32), *args) == 0
+    assert lib.pack_outputs_launch(_ptr(w32) + 2, *args) == 1
+    assert lib.pack_outputs_launch(_ptr(w32), _ptr(b8), _ptr(w32) + 1, 4,
+                                   *args[3:]) == 1
+    assert lib.pack_outputs_launch(_ptr(w32), _ptr(b8), _ptr(b8), 2, *args[3:]) == 1
+    assert lib.pack_vep_outputs_launch(_ptr(w32) + 1, _ptr(b8), 1, _ptr(b8), 8,
+                                       _ptr(out), None) == 1
+    assert lib.inflate_alleles_launch(_ptr(b8), _ptr(b8), 1, 3, 7, _ptr(out),
+                                      _ptr(out), None) == 1
+    assert lib.inflate_alleles_launch(_ptr(b8), _ptr(b8), 1, 4, 7, _ptr(out),
+                                      _ptr(out), None) == 0

@@ -211,6 +211,8 @@ def test_subset_chunk_every_field(inputs, monkeypatch):
                 np.testing.assert_array_equal(x, y)
         elif isinstance(va, np.ndarray):
             np.testing.assert_array_equal(va, vb)
+        elif isinstance(va, bool):  # alleles_packable: a chunk-level flag
+            assert va == vb, f.name
         else:
             assert _plain(va) == _plain(vb), f.name
     assert sa.filter == [a.filter[i] for i in rows]
