@@ -3656,6 +3656,31 @@ def pack_outputs_cases() -> list:
             ("random-1000", r1000)]
 
 
+def write_bucket_vcf(path, seed=62) -> None:
+    """Four blocks of 600 lines whose longest alleles are at most 8, 16, 32
+    and past the width of 49 (mostly SNVs, an indel of 2-4 bases every
+    fifth line and of up to the block's bound every 25th), so that a
+    width-bucketed load's 256-row chunks upload at every bucket."""
+    rng = np.random.default_rng(seed)
+    bases = "ACGT"
+    pos = 1000
+    with open(path, "w") as f:
+        f.write(HEADER)
+        for top in (8, 16, 32, 70):
+            for k in range(600):
+                pos += int(rng.integers(1, 9))
+                ref = bases[int(rng.integers(4))]
+                alt = bases[(bases.index(ref) + 1) % 4]
+                if k % 5 == 0:
+                    n = int(rng.integers(2, top + 1)) if k % 25 == 0 else int(rng.integers(2, 5))
+                    body = "".join(bases[int(i)] for i in rng.integers(0, 4, n - 1))
+                    if k % 2:
+                        alt = ref + body
+                    else:
+                        ref, alt = ref + body, ref
+                f.write(f"{1 + k % 2}\t{pos}\trs{k}\t{ref}\t{alt}\t.\t.\tRS={k}\n")
+
+
 def transport_bound(kind, rows, width=WIDTH, level_bytes=1, flags=2) -> dict:
     """The least time the card could take for one call: each input byte
     read once and each output byte written once over the memory rate, or

@@ -509,6 +509,43 @@ def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     assert not res["differ_spill"] and all(res["spill_mapped"].values())
 
 
+def test_bucketed_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``AVDB_PACK_TRANSPORT=never`` on the card: the native engine's chunks
+    upload at the widths 8, 16, 32 and 49 (``chip_smoke.write_bucket_vcf``),
+    one ``annotate_bin`` launch each at its width and no transport launch,
+    and the store is the CPU's, byte for byte."""
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.ops import pack
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+    from chip_smoke import write_bucket_vcf
+
+    for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("AVDB_PACK_TRANSPORT", "never")
+    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    vcf = str(tmp_path / "b.vcf")
+    write_bucket_vcf(vcf)
+    out = {}
+    for plat in ("cuda", "cpu"):
+        d = str(tmp_path / f"store_{plat}")
+        store = VariantStore(width=49)
+        loader = VcfLoader(store, AlgorithmLedger(f"{d}.ledger.jsonl"), batch_size=256,
+                           log=lambda *a: None, device=plat)
+        launches, transport = LAUNCHES["annotate_bin"], dict(pack.LAUNCHES)
+        try:
+            loader.load_file(vcf, commit=True)
+        finally:
+            loader.close()
+        store.save(d)
+        assert set(loader.transport["widths"]) == {8, 16, 32, 49}, loader.transport
+        if plat == "cuda":
+            assert LAUNCHES["annotate_bin"] - launches == loader.transport["raw"] > 4
+            assert pack.LAUNCHES == transport
+        out[plat] = store_bytes(d)
+    assert out["cuda"] == out["cpu"]
+
+
 def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """The CLI's default configuration on the card and on the CPU, with
     64 KiB read windows so windows cut chunks: the same store bytes; on the

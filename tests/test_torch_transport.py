@@ -33,10 +33,10 @@ from annotatedvdb_tpu_torch.loaders import VcfLoader
 from annotatedvdb_tpu_torch.ops import pack
 from annotatedvdb_tpu_torch.store import AlgorithmLedger as TorchLedger
 from annotatedvdb_tpu_torch.store import VariantStore as TorchStore
+from chip_smoke import write_bucket_vcf
 from test_torch_load_vcf import COUNTER_KEYS, _assert_same_store, _write_vcf
 
 BATCH = 256
-BASES = "ACGT"
 
 
 def _with_symbolic(path, n_lines=1600, seed=61):
@@ -52,29 +52,6 @@ def _with_symbolic(path, n_lines=1600, seed=61):
                               f"1\t{pos}\t.\tA\tA[2:3000[\t.\t.\t.\n"]
     with open(path, "w") as f:
         f.writelines(lines)
-
-
-def _bucket_vcf(path, seed=62):
-    """Four blocks of 600 lines whose longest alleles are at most 8, 16,
-    32 and past the width of 49, so the native engine's chunks fall in
-    every bucket."""
-    rng = np.random.default_rng(seed)
-    pos = 1000
-    with open(path, "w") as f:
-        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
-        for top in (8, 16, 32, 70):
-            for k in range(600):
-                pos += int(rng.integers(1, 9))
-                ref = BASES[int(rng.integers(4))]
-                alt = BASES[(BASES.index(ref) + 1) % 4]
-                if k % 5 == 0:
-                    n = int(rng.integers(2, top + 1)) if k % 25 == 0 else int(rng.integers(2, 5))
-                    body = "".join(BASES[int(i)] for i in rng.integers(0, 4, n - 1))
-                    if k % 2:
-                        alt = ref + body
-                    else:
-                        ref, alt = ref + body, ref
-                f.write(f"{1 + k % 2}\t{pos}\trs{k}\t{ref}\t{alt}\t.\t.\tRS={k}\n")
 
 
 def _ref_load(vcf, store_dir, mp, engine, pipeline, wanted=False, width=49, **kw):
@@ -146,7 +123,7 @@ def test_bucketed_upload_matches_reference(tmp_path, monkeypatch):
     """The default on the CPU (no transport): the native engine's chunks
     upload at widths 8, 16, 32 and 49, and the store is the reference's."""
     vcf = str(tmp_path / "b.vcf")
-    _bucket_vcf(vcf)
+    write_bucket_vcf(vcf)
     ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
     c_ref = _ref_load(vcf, ref_dir, monkeypatch, "native", "overlapped")
     c_port, loader = _port_load(vcf, port_dir, monkeypatch, "native", "overlapped")
