@@ -686,9 +686,15 @@ def _run_aio(args, manager, registry, residency, max_wait_s, log, device,
                           file=sys.stderr)
                     os._exit(1)
                 host, port = server.server_address[:2]
-                print(f"worker {args._workerIndex} serving {args.storeDir} "
-                      f"(generation {snap.generation}, {snap.store.n} rows)"
-                      f" on http://{host}:{port}", flush=True)
+                # one write for the line and its newline: the fleet's
+                # workers share the supervisor's stdout, and with it
+                # unbuffered a print's two writes interleave with a
+                # sibling's line
+                sys.stdout.write(
+                    f"worker {args._workerIndex} serving {args.storeDir} "
+                    f"(generation {snap.generation}, {snap.store.n} rows)"
+                    f" on http://{host}:{port}\n")
+                sys.stdout.flush()
 
             threading.Thread(target=ready, daemon=True).start()
             server.serve_forever()

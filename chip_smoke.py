@@ -6037,10 +6037,13 @@ def wait_serving(proc, out_path, err_path, workers=1, timeout=300.0) -> tuple:
                                  f"{time.perf_counter() - t0:.1f} s: "
                                  + serve_diagnosis(proc, out_path, err_path))
         with open(out_path) as f:
-            lines = [ln for ln in f.readlines() if ln.endswith("\n")]
+            text = f.read()
+        lines = [ln + "\n" for ln in text.split("\n")[:-1]]
         banner = next((ln.strip() for ln in lines if ln.startswith("serving ")),
                       None)
-        ready = sum(ln.startswith("worker ") for ln in lines)
+        # the workers that printed their readiness, by index and wherever
+        # in the shared output their line landed
+        ready = len(set(re.findall(r"worker (\d+) serving ", text)))
         if banner is not None and (workers <= 1 or ready >= workers):
             port = int(re.search(r"http://[\d.]+:(\d+)", banner).group(1))
             return banner, port, time.perf_counter() - t0
