@@ -73,10 +73,10 @@ from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from annotatedvdb_tpu_torch.ops.pack import (
     encode_alleles_nibble,
+    ensure_nibble,
+    ensure_transport,
     inflate_alleles,
-    nibble_verified,
     pack_outputs,
-    transport_verified,
     transport_wanted,
     unpack_outputs,
 )
@@ -320,7 +320,7 @@ class VcfLoader:
         t0 = time.perf_counter()
         wanted = self.mesh is None and transport_wanted(self.device)
         if wanted:
-            nibble_verified(self.device)
+            ensure_nibble(self.device)
         will_pack = self._will_pack()
         if self.device.type == "cuda":
             from annotatedvdb_tpu_torch.io.synth import synthetic_batch
@@ -600,21 +600,24 @@ class VcfLoader:
     def _will_pack(self) -> bool:
         """Whether chunks fetch their outputs as one packed row each: a
         single-device load that stores no display attributes, with the
-        transport wanted on its device and its probe passed (the probe
-        raises when it fails)."""
-        return (self.mesh is None and not self.store_display_attributes
-                and transport_wanted(self.device)
-                and transport_verified(self.device))
+        transport wanted on its device.  Such a load first runs the
+        transport's probe, which raises when it fails."""
+        if (self.mesh is not None or self.store_display_attributes
+                or not transport_wanted(self.device)):
+            return False
+        ensure_transport(self.device)
+        return True
 
     def _nibble_alleles(self, chunk: VcfChunk):
         """The chunk's allele matrices nibble-packed for the upload, or None
         for a raw upload: the tokenizer's pre-packed matrices when present;
         a host encode unless the tokenizer found a byte outside the
         alphabet (``alleles_packable`` False) or the encode finds one; None
-        when the transport is not wanted (or on a mesh)."""
-        if self.mesh is not None or not (transport_wanted(self.device)
-                                         and nibble_verified(self.device)):
+        when the transport is not wanted (or on a mesh).  A packed upload
+        first runs the nibble probe, which raises when it fails."""
+        if self.mesh is not None or not transport_wanted(self.device):
             return None
+        ensure_nibble(self.device)
         if chunk.ref_packed is not None:
             return chunk.ref_packed, chunk.alt_packed
         if chunk.alleles_packable is False:

@@ -70,8 +70,8 @@ from annotatedvdb_tpu_torch.native import pyfast
 from annotatedvdb_tpu_torch.native import vep as native_vep
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from annotatedvdb_tpu_torch.ops.pack import (
+    ensure_transport,
     pack_vep_outputs,
-    transport_verified,
     unpack_vep_outputs,
 )
 from annotatedvdb_tpu_torch.oracle import normalize_alleles
@@ -592,9 +592,13 @@ class VepLoader:
     def _packs_identity(self) -> bool:
         """Whether identity batches come back as one packed ``[n, 6]`` row
         each: the prefix length rides one byte, so a store at most 255
-        wide, and the probe passed (it raises when it fails).  As in the
-        reference, ``AVDB_PACK_TRANSPORT`` is not consulted."""
-        return self.store.width <= 255 and transport_verified(self.device)
+        wide.  Such a store first runs the transport's probe, which raises
+        when it fails.  As in the reference, ``AVDB_PACK_TRANSPORT`` is not
+        consulted."""
+        if self.store.width > 255:
+            return False
+        ensure_transport(self.device)
+        return True
 
     def _batch_identity(self, batch: VariantBatch):
         """(hash [N] uint32, prefix_len [N], host_fallback [N]) for one
@@ -642,8 +646,13 @@ class VepLoader:
 
         build(["annotate_bin", "pack"] + (["lookup_multi"] if self.mesh else []))
         batch = synthetic_batch(next_pow2(self.batch_size), width=self.store.width)
-        got = self._batch_identity(batch)
-        self.identity_batches -= 1
+        # the warmup batch stays out of the measured stream's timer and count
+        timer, batches = self.identity_timer, self.identity_batches
+        self.identity_timer = StageTimer()
+        try:
+            got = self._batch_identity(batch)
+        finally:
+            self.identity_timer, self.identity_batches = timer, batches
         ann, h = annotate_hash_pipeline(*(torch.from_numpy(x) for x in batch))
         want = (to_uint32(h), ann.prefix_len.numpy(), ann.host_fallback.numpy())
         if packs:

@@ -24,8 +24,8 @@ The gates: :func:`transport_wanted` (``AVDB_PACK_TRANSPORT``: ``always``
 packs on every device, the CPU through the plain versions; ``never`` on
 none; any other value, ``0`` included, means auto: exactly on a CUDA
 device), decided per device and not latched, since one process may load
-on the card and on the CPU.  :func:`transport_verified` and
-:func:`nibble_verified` run the reference's 4-row probes once per device;
+on the card and on the CPU.  :func:`ensure_transport` and
+:func:`ensure_nibble` run the reference's 4-row probes once per device;
 where the reference latches False on any exception and quietly falls back
 to raw uploads and per-field copies, these raise: a probe that fails to
 build, launch or agree stops the load.
@@ -386,16 +386,15 @@ _VERIFIED: set = set()
 _VERIFY_LOCK = threading.Lock()
 
 
-def _once(kind: str, device, probe) -> bool:
-    """Runs ``probe(device)`` once per process and device; True after it
-    passed (it raises otherwise, and runs again at the next call)."""
+def _once(kind: str, device, probe) -> None:
+    """Runs ``probe(device)`` once per process and device (it raises when
+    it fails, and runs again at the next call)."""
     key = (kind, str(torch.device(device)))
     if key not in _VERIFIED:
         with _VERIFY_LOCK:
             if key not in _VERIFIED:
                 probe(torch.device(device))
                 _VERIFIED.add(key)
-    return True
 
 
 def _nibble_probe(device: torch.device) -> None:
@@ -436,13 +435,13 @@ def _transport_probe(device: torch.device) -> None:
         raise RuntimeError(f"packed transport probe mismatched on {device}")
 
 
-def nibble_verified(device) -> bool:
+def ensure_nibble(device) -> None:
     """The reference's probe that encode -> upload -> inflate gives back the
-    exact matrices on ``device``, run once per device: True, or raises."""
-    return _once("nibble", device, _nibble_probe)
+    exact matrices on ``device``, run once per device; raises when not."""
+    _once("nibble", device, _nibble_probe)
 
 
-def transport_verified(device) -> bool:
+def ensure_transport(device) -> None:
     """The reference's probe that pack -> copy back -> unpack is bit-exact on
-    ``device`` (both row formats), run once per device: True, or raises."""
-    return _once("transport", device, _transport_probe)
+    ``device`` (both row formats), run once per device; raises when not."""
+    _once("transport", device, _transport_probe)

@@ -121,12 +121,13 @@ each phase printing one JSON line:
               chunk, plus one of each in the CLI's ``warmup`` at the chunk
               shape); the loader's per-thread stage seconds, queue stalls,
               device idle fraction, warmup seconds and transport counts.
-              Then (4c) the transport's A/B: the first 500,000 lines in
-              turns under ``AVDB_PACK_TRANSPORT`` auto, never, never, auto
-              into fresh stores (walls, ``dispatch`` and ``annotate``
-              seconds, upload widths), and (4b) the same lines under
-              ``AVDB_PIPELINE=serial
-              AVDB_ASYNC_STORE=0``: all five stores byte-equal;
+              Then (4b) the same file under ``AVDB_PIPELINE=serial
+              AVDB_ASYNC_STORE=0`` into a second store, whose bytes must
+              be identical, and (4c) the transport's A/B: the first
+              500,000 lines in turns under ``AVDB_PACK_TRANSPORT`` auto,
+              never, never, auto into fresh stores (walls, ``dispatch``
+              and ``annotate`` seconds, upload widths): all four stores
+              byte-equal;
 5. reload   — 500,000 lines, half of them copies of phase-4 lines, probed
               on the card (``AVDB_DEVICE_LOOKUP=always``); the duplicate
               count must be the one the generator predicts;
@@ -2630,30 +2631,21 @@ def serve_inputs(i):
     return (pos, af, cadd, rank, s, e), padded
 
 
-def serve_kernel_phase(torch, device, pool=None) -> list:
+def serve_kernel_phase(torch, device, pool) -> list:
     """Phase 3 for the serving kernels (``bits_spans``, ``stats_panel``,
     ``windowed_stats``): each against its plain version on the card,
     exactly, on :func:`serve_edge_cases` and at the serving shape
     (:data:`SERVE_ROWS` rows padded to 4,194,304, :data:`SERVE_QUERIES`
-    intervals, windows 1, 7, 16 and 64); then, in a spawned process
-    (:func:`serve_kernel_timing`; ``pool``'s process when given), each
-    timed at that shape.  Returns the kernel table rows (launches filled
-    in after phase 11)."""
-    import concurrent.futures
-    import multiprocessing
-
+    intervals, windows 1, 7, 16 and 64); then, in ``pool``'s spawned
+    process (:func:`serve_kernel_timing`), each timed at that shape.
+    Returns the kernel table rows (launches filled in after phase 11)."""
     host, padded = serve_inputs(0)
     checks, worst = serve_kernel_checks(
         torch, device, serve_edge_cases() + [("serving", *padded, *host[4:])])
     bits_checks, bits_worst = bits_kernel_checks(torch, device, bits_edge_cases())
     checks += bits_checks
     worst = max(worst, bits_worst)
-    if pool is not None:
-        timing = pool.submit(serve_kernel_timing).result()
-    else:
-        with concurrent.futures.ProcessPoolExecutor(
-                1, mp_context=multiprocessing.get_context("spawn")) as own:
-            timing = own.submit(serve_kernel_timing).result()
+    timing = pool.submit(serve_kernel_timing).result()
     emit("serve_kernels", checks=checks, timing=timing)
     sources = {"bits_spans": ("bits_spans.cu", "annotatedvdb_tpu/ops/intervals.py:60"),
                "stats_panel": ("stats_panel.cu", "annotatedvdb_tpu/ops/stats.py:139"),
@@ -3480,21 +3472,17 @@ def export_stacks() -> list:
             ("stack-4-offset-1", stack(380, 4, EXPORT_BATCH_ROWS), 1)]
 
 
-def export_kernel_phase(torch, device, pool=None) -> dict:
+def export_kernel_phase(torch, device, pool) -> dict:
     """Phase 3 for ``export_pack``: against its plain version on the card,
     exactly, on :func:`export_edge_columns`, on 1,048,576 random rows, on
     random and store-shaped batches of 4,096 rows and on 8 and 4,097 rows,
     and on the stacks of :func:`export_stacks` at every vector of
-    :func:`export_stack_counts`; then, in a spawned process
-    (:func:`export_kernel_timing`; ``pool``'s process when given), its
-    time at one 4,096-row batch (the
+    :func:`export_stack_counts`; then, in ``pool``'s spawned process
+    (:func:`export_kernel_timing`), its time at one 4,096-row batch (the
     stream's launch), at a part of 37 such batches (the export's launch)
     and at 1,048,576 rows beside the plain version's and the bound.
     Returns the kernel table row, timed at the part (launches filled in
     after phase 12)."""
-    import concurrent.futures
-    import multiprocessing
-
     cases = [("edge", export_edge_columns()),
              ("random-1m", export_random_columns(1, BIG_ROWS)),
              ("random-4096", export_random_columns(2, EXPORT_BATCH_ROWS)),
@@ -3503,12 +3491,7 @@ def export_kernel_phase(torch, device, pool=None) -> dict:
              ("random-4097", export_random_columns(5, EXPORT_BATCH_ROWS + 1))]
     checks, worst = export_pack_checks(torch, device, cases)
     stacked, worst_stacked = export_stack_checks(torch, device, export_stacks())
-    if pool is not None:
-        timing = pool.submit(export_kernel_timing).result()
-    else:
-        with concurrent.futures.ProcessPoolExecutor(
-                1, mp_context=multiprocessing.get_context("spawn")) as own:
-            timing = own.submit(export_kernel_timing).result()
+    timing = pool.submit(export_kernel_timing).result()
     emit("export_kernel", checks=checks + stacked, timing=timing)
     t = timing["part"]
     return {
@@ -3762,8 +3745,8 @@ def transport_kernel_checks(torch, device) -> tuple:
         return err
 
     # the loads' 4-row probes, latched here so no later phase counts them
-    PK.transport_verified(device)
-    PK.nibble_verified(device)
+    PK.ensure_transport(device)
+    PK.ensure_nibble(device)
     checks, worst = [], 0
     for w in (1, 2, 7, 8, 16, 49, 96):
         for label, rp, ap, width in pack_inflate_cases(w):
@@ -4447,7 +4430,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         for name in counts:
             counts[name] = 0
     obs4 = os.path.join(WORK, "load4")
-    wall, loader, native_chunks, _mapping, busy = load(
+    wall, loader, native_chunks, mapping4, busy = load(
         store4, trace=True, obs=("--metricsOut", obs4 + ".prom",
                                  "--traceOut", obs4 + ".trace.json"))
     launched, hashed = dict(launches), dict(hash_calls)
@@ -4512,8 +4495,23 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             f"{launched['pack_outputs']} pack launches for {t['nibble']} "
             f"nibble uploads of {chunks} chunks (and the warmup's)")
 
-    # 4b-4c. the transport's A/B on the first 500,000 lines, then the same
-    # lines through the serial executor with synchronous store commits
+    # 4b. the same file, serial executor and synchronous store commits
+    store4s = os.path.join(WORK, "store.serial")
+    with environment(AVDB_PIPELINE="serial", AVDB_ASYNC_STORE="0"):
+        wall_s, loader_s, _n, mapping4s, _busy = load(store4s)
+    files4, files4s = store_bytes(store4), store_bytes(store4s)
+    differ = sorted(k for k in set(files4) | set(files4s)
+                    if files4.get(k) != files4s.get(k))
+    del files4, files4s
+    emit("load_serial", wall_s=wall_s, lines_per_s=counters["line"] / wall_s,
+         stage_seconds=dict(loader_s.timer.seconds), differ=differ,
+         mapping_equal=mapping4s == mapping4)
+    assert not differ and mapping4s == mapping4, (
+        f"serial and overlapped stores differ in {differ or ['mapping']}")
+    assert not loader_s.queue_stalls, loader_s.queue_stalls
+    shutil.rmtree(store4s)
+
+    # 4c. the transport's A/B on the first 500,000 lines
     transport_ab(platform, vcf4, inp.get("ab_lines", AB_LINES))
 
     # 5. reload, membership probed on the device
@@ -4832,17 +4830,14 @@ AB_MODES = ("auto", "never", "never", "auto")
 
 
 def transport_ab(platform, vcf, n_lines) -> list:
-    """Phases 4b-4c: the first ``n_lines`` lines of ``vcf`` through
+    """Phase 4c: the first ``n_lines`` lines of ``vcf`` through
     ``load-vcf --commit`` into fresh stores, in turns under
     ``AVDB_PACK_TRANSPORT`` ``auto`` (on the card: nibble uploads, one
     inflate and one pack a chunk, one copy back), ``never`` (raw uploads,
     width-bucketed where a chunk allows, four column copies), ``never``,
-    ``auto``, then once more under ``AVDB_PIPELINE=serial
-    AVDB_ASYNC_STORE=0`` (one thread, synchronous commits; no queue
-    stall may be recorded).  Emits each A/B run's wall, warmup, stage
-    seconds (``dispatch``, ``annotate``) and transport counts, and the
-    serial run's; all five stores and mapping sidecars must be
-    byte-equal."""
+    ``auto``.  Emits each run's wall, warmup, stage seconds
+    (``dispatch``, ``annotate``) and transport counts; all four stores and
+    mapping sidecars must be byte-equal."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.loaders import VcfLoader
 
@@ -4856,11 +4851,10 @@ def transport_ab(platform, vcf, n_lines) -> list:
                 n += 1
             dst.write(line)
     runs, files, mappings = [], [], []
-    serial = {"AVDB_PIPELINE": "serial", "AVDB_ASYNC_STORE": "0"}
-    for k, mode in enumerate(AB_MODES + ("serial",)):
+    for k, mode in enumerate(AB_MODES):
         d = os.path.join(WORK, f"ab.{k}.{mode}")
-        env = serial if mode == "serial" else {"AVDB_PACK_TRANSPORT": mode}
-        with environment(**env), captured_loaders(VcfLoader) as seen:
+        with environment(AVDB_PACK_TRANSPORT=mode), \
+                captured_loaders(VcfLoader) as seen:
             t0 = time.perf_counter()
             rc = load_vcf(["--fileName", head, "--storeDir", d, "--commit",
                            "--logAfter", "0", "--platform", platform])
@@ -4882,15 +4876,9 @@ def transport_ab(platform, vcf, n_lines) -> list:
     os.remove(head + ".mapping")
     differ = sorted({k for f in files[1:] for k in set(files[0]) | set(f)
                      if files[0].get(k) != f.get(k)})
-    serial_run = runs.pop()
     emit("transport_ab", lines=n, runs=runs, differ=differ)
-    emit("load_serial", lines=n, wall_s=serial_run["wall_s"],
-         lines_per_s=serial_run["lines_per_s"],
-         stage_seconds=serial_run["stage_seconds"], differ=differ,
-         mapping_equal=all(m == mappings[0] for m in mappings))
-    assert not differ, f"transport A/B and serial: the stores differ in {differ}"
+    assert not differ, f"transport A/B: the stores differ in {differ}"
     assert all(m == mappings[0] for m in mappings), "the mapping sidecars differ"
-    assert not serial_run["queue_stalls"], serial_run["queue_stalls"]
     for run in runs:
         packs = platform == "cuda" and run["mode"] == "auto"
         assert (run["transport"]["packed"] > 0) == packs \

@@ -450,7 +450,7 @@ def test_transport_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(pack, "_VERIFIED", set())
     monkeypatch.setattr(pack, "pack_outputs", wrong)
     with pytest.raises(RuntimeError, match="packed transport probe mismatched on cuda:0"):
-        pack.transport_verified(cuda)
+        pack.ensure_transport(cuda)
     monkeypatch.delenv("AVDB_PACK_TRANSPORT", raising=False)
     vcf = str(tmp_path / "w.vcf")
     write_phase4_vcf(vcf, 2000)
@@ -476,7 +476,8 @@ def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
 
     for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE"):
         monkeypatch.delenv(name, raising=False)
-    pack.transport_verified(cuda), pack.nibble_verified(cuda)
+    pack.ensure_transport(cuda)
+    pack.ensure_nibble(cuda)
     vcf = str(tmp_path / "m.vcf")
     lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
     out = {}
@@ -507,6 +508,30 @@ def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     res = chip_smoke.display_spill_parity("cuda", {"vcf6": small, "vep6": vep})
     assert res["display_rows"] > 0 and not res["differ_display"]
     assert not res["differ_spill"] and all(res["spill_mapped"].values())
+
+
+def test_vep_warmup_stays_out_of_the_identity_counts(cuda, tmp_path):
+    """``VepLoader.warmup`` on the card sends one identity batch at the
+    loader's batch shape through one ``annotate_bin`` and one
+    ``pack_vep_outputs`` launch, and leaves the identity batch count and
+    the identity timer's seconds and items as they were."""
+    from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
+    from annotatedvdb_tpu_torch.loaders import VepLoader
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.ops import pack
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    pack.ensure_transport(cuda)
+    loader = VepLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "l.jsonl")),
+                       ConsequenceRanker(), log=lambda *a: None, device=cuda)
+    launches, packs = LAUNCHES["annotate_bin"], pack.LAUNCHES["pack_vep_outputs"]
+    loader.warmup()
+    assert (LAUNCHES["annotate_bin"] - launches,
+            pack.LAUNCHES["pack_vep_outputs"] - packs) == (1, 1)
+    assert loader.identity_batches == 0
+    assert loader.identity_timer.seconds == {} and loader.identity_timer.items == {}
 
 
 def test_bucketed_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):

@@ -139,19 +139,21 @@ def test_probes_pass_on_the_cpu_and_raise_on_a_wrong_result(monkeypatch):
     are wrong makes the probe raise (no quiet fallback), and the failed
     probe is not latched."""
     monkeypatch.setattr(P, "_VERIFIED", set())
-    assert P.transport_verified("cpu") and P.nibble_verified("cpu")
+    P.ensure_transport("cpu")
+    P.ensure_nibble("cpu")
+    assert {("transport", "cpu"), ("nibble", "cpu")} <= P._VERIFIED
     monkeypatch.setattr(P, "_VERIFIED", set())
     real = P.pack_outputs_reference
     monkeypatch.setattr(P, "pack_outputs_reference",
                         lambda *a: real(*a).flip(0))
     with pytest.raises(RuntimeError, match="packed transport probe mismatched"):
-        P.transport_verified("cpu")
+        P.ensure_transport("cpu")
     assert ("transport", "cpu") not in P._VERIFIED
     real_inflate = P.inflate_alleles_reference
     monkeypatch.setattr(P, "inflate_alleles_reference",
                         lambda r, a, w: tuple(x.roll(1, 1) for x in real_inflate(r, a, w)))
     with pytest.raises(RuntimeError, match="nibble transport probe mismatched"):
-        P.nibble_verified("cpu")
+        P.ensure_nibble("cpu")
 
 
 def test_wrappers_check_their_arguments():

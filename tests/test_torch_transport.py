@@ -189,7 +189,7 @@ def _vep_pair(tmp_path, monkeypatch, width):
     _ref_load(vcf, ref_dir, monkeypatch, "python", "serial", width=width)
     _port_load(vcf, port_dir, monkeypatch, "python", "serial", width=width)
     c_ref = _ref_vep(vep, ref_dir, monkeypatch, "python")[0]
-    pack.transport_verified("cpu")  # the probe's own plain packs, once
+    pack.ensure_transport("cpu")  # the probe's own plain packs, once
     calls = pack.CALLS["cpu"]
     c_port, loader, _store = _torch_vep(vep, port_dir, monkeypatch, "python")
     return c_ref, c_port, loader, pack.CALLS["cpu"] - calls, (ref_dir, port_dir)
@@ -220,6 +220,7 @@ def test_vep_warmup_checks_the_identity_batch(tmp_path):
                        ConsequenceRanker(), log=lambda *a: None, device="cpu")
     loader.warmup()
     assert loader.identity_batches == 0
+    assert loader.identity_timer.seconds == {} and loader.identity_timer.items == {}
 
 
 def test_cli_run_record_with_warmup(tmp_path, monkeypatch):
