@@ -36,10 +36,15 @@ written is the same.
 The host<->device transport (``ops/pack.py``), as the reference's: when
 ``transport_wanted`` (``AVDB_PACK_TRANSPORT``; auto on a card) the
 alleles go up nibble-packed (the tokenizer's in-scan pack, else a host
-encode; a chunk with a byte outside the alphabet goes up raw) and one
-``inflate_alleles`` launch restores them, and, unless display attributes
-are stored, one ``pack_outputs`` launch folds the kernel's hash, bin and
-flags into one ``[n, 10]`` row fetched with one copy (``_will_pack``).
+encode; a chunk with a byte outside the alphabet goes up raw), and, unless
+display attributes are stored, the kernel's hash, bin and flags come back
+as one ``[n, 10]`` row a variant fetched with one copy (``_will_pack``).
+A nibble-packed chunk of such a load takes one launch of the kernel's
+packed entry (``models/pipeline.py::annotate_packed_fn``: packed alleles
+in, packed rows out); a raw chunk takes ``annotate_bin`` and one
+``pack_outputs`` launch; a load that stores display attributes inflates
+nibble-packed alleles with one ``inflate_alleles`` launch before
+``annotate_bin``.
 A load that does not pack slices a chunk's allele matrices to the
 power-of-two width (at least 8) that covers its longest allele when it
 carries the tokenizer's hash (the width-bucketed upload).
@@ -69,7 +74,11 @@ from annotatedvdb_tpu_torch.io.vcf import (
     rs_is_weird,
     rs_number,
 )
-from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+from annotatedvdb_tpu_torch.models.pipeline import (
+    annotate_hash_fn,
+    annotate_packed_fn,
+    packed_mismatches,
+)
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
 from annotatedvdb_tpu_torch.ops.pack import (
     encode_alleles_nibble,
@@ -312,8 +321,10 @@ class VcfLoader:
         """What the first chunk would otherwise pay, outside the measured
         stream.  On a card: the loader's kernel libraries built (one
         ``nvcc`` each, together), the annotate step's first-call check,
-        the transport probes and one inflate and one pack at the loader's
-        chunk shape, each held against the plain result on the host (a
+        the transport probes and the device step a nibble-packed chunk
+        takes, at the loader's chunk shape: one launch of the packed entry
+        where the load packs (after its own first-call check), else one
+        inflate, each held against its plain version on the host (a
         mismatch raises).  On the CPU nothing compiles: only the 4-row
         probes run, where the transport is wanted.  Its seconds land in
         :attr:`warmup_seconds`."""
@@ -324,8 +335,10 @@ class VcfLoader:
         will_pack = self._will_pack()
         if self.device.type == "cuda":
             from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+            from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+                annotate_bin_packed_reference,
+            )
             from annotatedvdb_tpu_torch.ops.build import build
-            from annotatedvdb_tpu_torch.ops.pack import pack_outputs_np
 
             build(["annotate_bin", "pack"]
                   + (["validate_ref"] if self.genome is not None else [])
@@ -333,26 +346,25 @@ class VcfLoader:
             if self.mesh is None:
                 annotate_hash_fn(self.device)
             if wanted:
-                batch = synthetic_batch(self.batch_size, width=self.store.width)
+                width = self.store.width
+                batch = synthetic_batch(self.batch_size, width=width)
                 enc = encode_alleles_nibble(batch.ref, batch.alt)
-                ref, alt = inflate_alleles(*(to_device(x, self.device) for x in enc),
-                                           self.store.width)
-                if not (np.array_equal(ref.cpu().numpy(), batch.ref)
-                        and np.array_equal(alt.cpu().numpy(), batch.alt)):
-                    raise RuntimeError("warmup: the chunk-shape inflate mismatched")
-            if will_pack:
-                rng = np.random.default_rng(7)
-                n = self.batch_size
-                cols = (rng.integers(-2**31, 2**31, n).astype(np.int32), None,
-                        rng.integers(0, 14, n).astype(np.int8),
-                        rng.integers(0, 2**17, n).astype(np.int32),
-                        rng.random(n) < 0.5, rng.random(n) < 0.5)
-                got = pack_outputs(*(None if c is None else to_device(c, self.device)
-                                     for c in cols)).cpu().numpy()
-                want = pack_outputs_np(cols[0].view(np.uint32), np.zeros(n, bool),
-                                       *cols[2:])
-                if not np.array_equal(got, want):
-                    raise RuntimeError("warmup: the chunk-shape pack mismatched")
+                if will_pack:
+                    args = [torch.from_numpy(x) for x in (
+                        batch.pos, *enc, batch.ref_len, batch.alt_len)]
+                    got = annotate_packed_fn(self.device)(
+                        *(to_device(x, self.device) for x in args), width).cpu()
+                    bad = packed_mismatches(
+                        annotate_bin_packed_reference(*args, width), got)
+                    if bad:
+                        raise RuntimeError(f"warmup: the chunk-shape packed step "
+                                           f"mismatched in {bad}")
+                else:
+                    ref, alt = inflate_alleles(*(to_device(x, self.device)
+                                                 for x in enc), width)
+                    if not (np.array_equal(ref.cpu().numpy(), batch.ref)
+                            and np.array_equal(alt.cpu().numpy(), batch.alt)):
+                        raise RuntimeError("warmup: the chunk-shape inflate mismatched")
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - t0
 
@@ -641,17 +653,21 @@ class VcfLoader:
 
     def _dispatch_chunk(self, chunk: VcfChunk) -> dict:
         """Enqueue the chunk's device step without waiting: on a card,
-        pinned non-blocking uploads (the alleles nibble-packed and inflated
-        by one ``inflate_alleles`` launch when the transport is wanted, else
-        raw at :meth:`_upload_width`), one ``annotate_bin`` launch, then
-        either one ``pack_outputs`` launch and one non-blocking copy of the
-        ``[n, 10]`` rows (:meth:`_will_pack`) or copies of the ``COPY_BACK``
-        columns (every annotate field with display attributes; the hash
-        when the chunk carries no tokenizer hash) into fresh pinned host
-        tensors, all on this loader's stream, then one event recorded
-        there.  The process stage waits on that event alone, never on the
-        device as a whole, so it does not queue behind the next chunk's
-        work.  On the CPU the plain versions run here and the event is
+        pinned non-blocking uploads of the positions, lengths and alleles
+        (the chromosome codes stay on the host: no step reads them), then,
+        for a chunk that goes up nibble-packed on a load that packs
+        (:meth:`_will_pack`), one launch of the packed entry and one
+        non-blocking copy of its ``[n, 10]`` rows.  Otherwise the alleles
+        go up nibble-packed and are inflated by one ``inflate_alleles``
+        launch when the transport is wanted, else raw at
+        :meth:`_upload_width`; then one ``annotate_bin`` launch and either
+        one ``pack_outputs`` launch and the copy of its rows or copies of
+        the ``COPY_BACK`` columns (every annotate field with display
+        attributes; the hash when the chunk carries no tokenizer hash) into
+        fresh pinned host tensors.  All of it on this loader's stream, then
+        one event recorded there.  The process stage waits on that event
+        alone, never on the device as a whole, so it does not queue behind
+        the next chunk's work.  On the CPU the plain versions run here and the event is
         None.  The lazy sidecar columns are never touched on this thread."""
         if self.mesh is not None:
             # the sharded step returns host arrays (its gather is the sync)
@@ -664,36 +680,43 @@ class VcfLoader:
         will_pack = self._will_pack()
         enc = self._nibble_alleles(chunk)
         width = batch.ref.shape[1]
+        fused = enc is not None and will_pack
         with torch.cuda.stream(self._stream) if on_card else contextlib.nullcontext():
-            # the first call checks the kernel against the plain version
-            # (raises on a mismatch, failing the load)
-            step = annotate_hash_fn(self.device)
-            chrom, pos, ref_len, alt_len = (
-                to_device(x, self.device)
-                for x in (batch.chrom, batch.pos, batch.ref_len, batch.alt_len))
+            # the first call checks the kernel entry against its plain
+            # version (raises on a mismatch, failing the load)
+            step = (annotate_packed_fn if fused else annotate_hash_fn)(self.device)
+            pos, ref_len, alt_len = (to_device(x, self.device)
+                                     for x in (batch.pos, batch.ref_len, batch.alt_len))
             if enc is not None:
                 self.transport["nibble"] += 1
-                ref, alt = inflate_alleles(to_device(enc[0], self.device),
-                                           to_device(enc[1], self.device), width)
-            else:
-                w = self._upload_width(chunk, will_pack)
-                self.transport["raw"] += 1
-                self.transport["widths"][w] = self.transport["widths"].get(w, 0) + 1
-                ref, alt = (to_device(m[:, :w], self.device)
-                            for m in (batch.ref, batch.alt))
-            ann, h = step(chrom, pos, ref, alt, ref_len, alt_len)
             if will_pack:
                 # the dup lane stays zero: in-batch dedup is the host's
                 self.transport["packed"] += 1
-                cols = {"packed": pack_outputs(h, None, ann.bin_level, ann.leaf_bin,
-                                               ann.needs_digest, ann.host_fallback)}
+            if fused:
+                cols = {"packed": step(pos, to_device(enc[0], self.device),
+                                       to_device(enc[1], self.device),
+                                       ref_len, alt_len, width)}
             else:
-                self.transport["fields"] += 1
-                names = (AnnotatedBatch._fields if self.store_display_attributes
-                         else COPY_BACK)
-                cols = {name: getattr(ann, name) for name in names}
-                if chunk.h_native is None:
-                    cols["h"] = h
+                if enc is not None:
+                    ref, alt = inflate_alleles(to_device(enc[0], self.device),
+                                               to_device(enc[1], self.device), width)
+                else:
+                    w = self._upload_width(chunk, will_pack)
+                    self.transport["raw"] += 1
+                    self.transport["widths"][w] = self.transport["widths"].get(w, 0) + 1
+                    ref, alt = (to_device(m[:, :w], self.device)
+                                for m in (batch.ref, batch.alt))
+                ann, h = step(None, pos, ref, alt, ref_len, alt_len)
+                if will_pack:
+                    cols = {"packed": pack_outputs(h, None, ann.bin_level, ann.leaf_bin,
+                                                   ann.needs_digest, ann.host_fallback)}
+                else:
+                    self.transport["fields"] += 1
+                    names = (AnnotatedBatch._fields if self.store_display_attributes
+                             else COPY_BACK)
+                    cols = {name: getattr(ann, name) for name in names}
+                    if chunk.h_native is None:
+                        cols["h"] = h
             if not on_card:
                 return {"cols": cols, "event": None}
             cols = {name: _pinned_copy(t) for name, t in cols.items()}

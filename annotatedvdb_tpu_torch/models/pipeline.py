@@ -15,6 +15,11 @@ the VCF insert load for every field, the VEP update load for the hash,
 Calls are asynchronous on CUDA: the kernel is enqueued on the current
 stream and the caller's host work overlaps it until a result is copied
 back.
+
+``annotate_packed_fn(device)`` returns the VCF load's step for a
+nibble-uploaded chunk that fetches packed rows: the kernel's packed entry
+(``ops/annotate_cuda.py::annotate_bin_packed``, one launch: packed alleles
+in, ``[n, 10]`` rows out) on a card, its plain composition on the CPU.
 """
 
 from __future__ import annotations
@@ -117,20 +122,79 @@ def verify_cuda_kernel(device: torch.device) -> None:
         )
 
 
+def verify_packed_kernel(device: torch.device) -> None:
+    """First-use check of the packed entry: the kernel on the card against
+    its plain composition on the host, on the nibble-packed probe batch of
+    :func:`verify_cuda_kernel` (257 rows at width 49).  The hash (bytes
+    0-3) and the flags (byte 9) must agree on every row, the leaf bin and
+    bin level (bytes 4-8) on every row whose host_fallback bit is clear.
+    Raises on a mismatch; an exception from the build or the launch
+    propagates unchanged."""
+    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        annotate_bin_packed,
+        annotate_bin_packed_reference,
+    )
+    from annotatedvdb_tpu_torch.ops.pack import encode_alleles_nibble
+
+    batch = synthetic_batch(257, width=49)
+    probe = [torch.from_numpy(x) for x in (
+        batch.pos, *encode_alleles_nibble(batch.ref, batch.alt),
+        batch.ref_len, batch.alt_len)]
+    want = annotate_bin_packed_reference(*probe, 49)
+    got = annotate_bin_packed(*(x.to(device) for x in probe), 49).cpu()
+    bad = packed_mismatches(want, got)
+    if bad:
+        raise RuntimeError(
+            f"annotate_bin packed entry disagrees with its plain composition "
+            f"on the probe batch in {bad}"
+        )
+
+
+def packed_mismatches(want: torch.Tensor, got: torch.Tensor) -> list:
+    """Names of the byte ranges of ``[n, 10]`` packed rows on which ``got``
+    breaks the selection contract against ``want`` (empty = parity): the
+    hash and the flags on every row, the leaf bin and bin level where
+    ``want``'s host_fallback bit is clear."""
+    ok = (want[:, 9] & 4) == 0
+    bad = [name for name, cols in (("allele_hash", slice(0, 4)), ("flags", slice(9, 10)))
+           if not torch.equal(want[:, cols], got[:, cols])]
+    bad += [name for name, cols in (("leaf_bin", slice(4, 8)), ("bin_level", slice(8, 9)))
+            if not torch.equal(want[ok, cols], got[ok, cols])]
+    return bad
+
+
 _VERIFIED: set = set()
 _VERIFY_LOCK = threading.Lock()
 
 
-def _verified(device: torch.device) -> torch.device:
-    """``device`` once :func:`verify_cuda_kernel` has passed on it (checked
-    once per process and device)."""
-    key = str(device)
+def _verified(device: torch.device, check=verify_cuda_kernel) -> torch.device:
+    """``device`` once ``check`` has passed on it (checked once per
+    process, device and check)."""
+    key = (check.__name__, str(device))
     if key not in _VERIFIED:
         with _VERIFY_LOCK:
             if key not in _VERIFIED:
-                verify_cuda_kernel(device)
+                check(device)
                 _VERIFIED.add(key)
     return device
+
+
+def annotate_packed_fn(device: torch.device):
+    """The packed step for ``device``: ``ops.annotate_cuda.
+    annotate_bin_packed``, which takes its plain composition on the CPU
+    and launches the kernel's packed entry on a CUDA device, there once
+    the entry has passed :func:`verify_packed_kernel`.  It takes ``(pos,
+    ref_packed, alt_packed, ref_len, alt_len, width)`` and returns ``[N,
+    10]`` uint8 packed rows."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_packed
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        _verified(device, verify_packed_kernel)
+    elif device.type != "cpu":
+        raise ValueError(f"no packed annotate step for device {device}")
+    return annotate_bin_packed
 
 
 def annotate_hash_fn(device: torch.device):

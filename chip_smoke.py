@@ -102,9 +102,20 @@ each phase printing one JSON line:
               W = 1, 2, 7, 8, 16, 49 and 96, aligned and three bytes off)
               and :func:`pack_outputs_cases` (hash, leaf and level edges,
               int32 and int8 levels, every flag) and at 65,536 and
-              1,048,576 rows, the loads' 4-row probes latched; then, in
-              the second process, their time at those shapes beside the
-              plain versions and the bound.  The
+              1,048,576 rows, the loads' 4-row probes latched.  Then the
+              annotate kernel's packed entry (``annotate_bin_packed``:
+              nibble-packed alleles in, the packed rows out) against the
+              three-kernel route it replaces (inflate, ``annotate_bin``,
+              pack) byte for byte and against its plain composition
+              under the selection contract, on
+              :func:`annotate_packed_cases` (W = 1, 2, 7, 8, 49, 96 and
+              192, ceil(W / 2) and three more packed columns, 0 to 257
+              rows and all 536, every packed byte value) and at 65,536
+              and 1,048,576 rows, from unaligned bases, its first-use
+              check latched; then, in the second process, the transport
+              kernels' time at those shapes beside the plain versions
+              and the bound, and the packed entry in turns with the
+              three-kernel route.  The
               seeded inputs of phases 3-10 are written by the second
               process beside the first kernel checks, which read none of
               them;
@@ -114,12 +125,13 @@ each phase printing one JSON line:
               native tokenizer, the overlapped executor and the async
               store writer must all run.  Every kernel launch counter and
               the plain hash's call counter are reset just before and read
-              just after (one ``annotate_bin`` launch per chunk; the card
-              path must never call the plain hash; the packed transport on
-              by default on the card: one ``inflate_alleles`` launch per
-              chunk uploaded nibble-packed and one ``pack_outputs`` per
-              chunk, plus one of each in the CLI's ``warmup`` at the chunk
-              shape); the loader's per-thread stage seconds, queue stalls,
+              just after (the card path must never call the plain hash;
+              the packed transport on by default on the card: one launch
+              of the annotate kernel's packed entry per chunk uploaded
+              nibble-packed, plus one in the CLI's ``warmup`` at the chunk
+              shape, and ``annotate_bin`` and ``pack_outputs`` once per
+              chunk uploaded raw; no ``inflate_alleles``); the loader's
+              per-thread stage seconds, queue stalls,
               device idle fraction, warmup seconds and transport counts.
               Then (4b) the same file under ``AVDB_PIPELINE=serial
               AVDB_ASYNC_STORE=0`` into a second store, whose bytes must
@@ -146,8 +158,9 @@ each phase printing one JSON line:
               SnpEff file over all of them and a METASEQ TSV of 781
               rows with 5% novel: the stores identical after each, the
               counters as predicted, and on the card the predicted
-              ``annotate_bin`` launches (one per chunk or batch hashed on
-              the device, one per insert of novel rows).  Then, in each
+              annotate launches (``annotate_bin`` once per chunk or batch
+              hashed on the device, the packed entry once per insert of
+              novel rows).  Then, in each
               configuration (the Python one also under
               ``AVDB_NATIVE_CADD=0``), ``load-cadd --commit`` against
               seeded BGZF tables over the lines' span, ``--buildIndex``
@@ -158,8 +171,9 @@ each phase printing one JSON line:
               after each, the predicted ``cadd_join`` launches, no plain
               join on the card.  The loads run with ``--refGenome`` (the
               GRCh38-shaped genome): card and CPU stores and ledgers
-              identical, one ``validate_ref`` and one ``annotate_bin``
-              launch per chunk, no plain version on the card; and after
+              identical, one ``validate_ref`` launch per inserting chunk
+              and one annotate launch per chunk (and the warmup's), no
+              plain version on the card; and after
               the last step ``install-schema --storeDir`` of each store:
               identical output trees, one ``annotate_bin`` launch per
               65,536-row egress window.  Then the crash check
@@ -211,7 +225,8 @@ each phase printing one JSON line:
               identities, 6% with ``LOF=`` and/or ``NMD=``; a METASEQ TSV
               of 12,500 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
-              predicts, the predicted ``annotate_bin`` launches, no plain
+              predicts, the predicted annotate launches (each insert one
+              of the packed entry), no plain
               hash on the card, stage seconds, wall, lines/s and the
               device's idle share (``torch.profiler``).  The first kernel
               step of a lookup hash (a TSV batch, 12,500 rows) and of a
@@ -244,7 +259,8 @@ each phase printing one JSON line:
               every counter reset just before and read just after:
               ``ref_mismatch`` and rows as the generator counts them by
               string comparison, one ``validate_ref`` launch per chunk
-              that inserts rows, one ``annotate_bin`` per chunk, no plain
+              that inserts rows, one annotate launch per chunk and the
+              warmup's, no plain
               version on the card, digest PKs on chr22's ``SQ.`` id;
               wall, lines/s, the genome's load and upload seconds, the
               validation's seconds and the device's idle share.  Then
@@ -3198,6 +3214,23 @@ def mesh_kernel_checks(torch, device) -> tuple:
     return checks, worst
 
 
+def dedup_bound(rows) -> dict:
+    """The in-batch dedup's bound on its inputs ``rows`` (the chained
+    sorts' keys ``chrom``, ``pos``, ``h``, then ``ref``, ``alt`` and the
+    lengths): each input read once and the ``[n]`` bool flags written once
+    over the memory rate, or three stable sorts' key compares (``n
+    log2 n`` each) and the neighbour compares of keys, lengths and allele
+    bytes over the 32-bit rate."""
+    n = int(rows[1].numel())
+    nbytes = sum(t.numel() * t.element_size() for t in rows) + n
+    ops = int(3 * n * np.log2(max(n, 2)) + n * (3 + 2 + 2 * rows[3].shape[1]))
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": n, "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def mesh_kernel_timing() -> dict:
     """The mesh's kernels timed at the phase shapes in the second process,
     while the first waits (no other phase holds the card):
@@ -3264,7 +3297,7 @@ def mesh_kernel_timing() -> dict:
              "call_ms": call_ms(torch, dedup.mark_batch_duplicates_multi,
                                 dedup_inputs, 10)} for _ in range(2)]
     timing["mark_batch_duplicates_multi"] = {
-        "rows": int(rows[1].numel()), "plain_ms": best(runs)["ms"],
+        **dedup_bound(rows), "plain_ms": best(runs)["ms"],
         "kernels": best(runs)["kernels"],
         "call_ms": min(r["call_ms"] for r in runs)}
     for name, (inputs, kernel, plain, library, bound) in shapes.items():
@@ -3579,6 +3612,22 @@ TRANSPORT_KERNELS = {"inflate_alleles": "annotatedvdb_tpu/ops/pack.py:124",
 INFLATE_BYTE_OPS = 4
 PACK_ROW_OPS = 6
 
+#: the annotate kernel's two entries (``ops/annotate_cuda.py``): where a
+#: path makes "one annotate launch a chunk", either entry's launch counts
+ANNOTATE_ENTRIES = ("annotate_bin", "annotate_bin_packed")
+#: launches of the packed entry in ``VcfLoader.warmup`` (the CLI's, at the
+#: chunk shape) on a card load that packs its outputs
+WARMUP_PACKED = 1
+#: the packed entry's checks: widths, and row counts (None: every row of
+#: :func:`annotate_packed_cases`)
+PACKED_WIDTHS = (1, 2, 7, 8, 49, 96, 192)
+PACKED_ROWS = (0, 1, 127, 128, 129, 257, None)
+
+
+def annotate_launches(counts) -> int:
+    """Launches of both annotate entries in a launch-count mapping."""
+    return sum(counts.get(name, 0) for name in ANNOTATE_ENTRIES)
+
 
 def pack_inflate_cases(width) -> list:
     """The inflate's edge inputs at ``width``: ``(label, ref_packed,
@@ -3605,6 +3654,40 @@ def pack_inflate_cases(width) -> list:
     one = tuple(rng.integers(0, 256, (1, cols), dtype=np.uint8) for _ in range(2))
     return [("every-byte", *every, width), ("encoded", *enc, width),
             ("extra-columns", *wide, width), ("one-row", *one, width)]
+
+
+def annotate_packed_cases(width, extra_cols=0) -> tuple:
+    """The packed annotate entry's inputs at ``width``: ``(pos, ref_packed,
+    alt_packed, ref_len, alt_len)`` with ``ceil(width / 2) + extra_cols``
+    packed columns (the extra ones random bytes, which a decode drops).
+    Rows: 257 seeded rows of every variant shape (SNVs and ~5% over-width
+    among them) encoded as the loader encodes them, then 256 rows whose
+    packed bytes run through every value 0-255 in every column (codes 14
+    and 15 included, which decode to 0) at seeded lengths of 1 to width + 3
+    (some over-width, some 1 / 1), then the edge rows of
+    :data:`EDGE_ROWS`.  The first ``n`` rows are a call of ``n`` rows."""
+    from annotatedvdb_tpu_torch.ops.pack import encode_alleles_nibble
+
+    cols = (width + 1) // 2
+    rng = np.random.default_rng(230 + width)
+    pos, ref, alt, rl, al = random_batch(width, 257, width)
+    rp, ap = encode_alleles_nibble(ref, alt)
+    r = np.arange(256)[:, None]
+    j = np.arange(cols)[None, :]
+    every = ((r + j) % 256).astype(np.uint8), ((7 * r + 3 * j) % 256).astype(np.uint8)
+    lens = rng.integers(1, width + 4, (2, 256)).astype(np.int32)
+    lens[:, ::9] = 1
+    epos, eref, ealt, erl, eal = edge_batch(width)
+    erp, eap = encode_alleles_nibble(eref, ealt)
+    out = (np.concatenate([pos, rng.integers(1, 51_000_000, 256).astype(np.int32), epos]),
+           np.concatenate([rp, every[0], erp]), np.concatenate([ap, every[1], eap]),
+           np.concatenate([rl, lens[0], erl]), np.concatenate([al, lens[1], eal]))
+    if extra_cols:
+        n = out[0].shape[0]
+        out = (out[0], *(np.concatenate(
+            [m, rng.integers(0, 256, (n, extra_cols), dtype=np.uint8)], 1)
+            for m in out[1:3]), *out[3:])
+    return tuple(np.ascontiguousarray(x) for x in out)
 
 
 def pack_outputs_cases() -> list:
@@ -3766,6 +3849,158 @@ def transport_kernel_checks(torch, device) -> tuple:
     return checks, worst
 
 
+def three_kernel_route(pos, ref_packed, alt_packed, ref_len, alt_len, width):
+    """The card's route for a nibble-uploaded chunk before the packed
+    entry: ``inflate_alleles``, ``annotate_bin``, ``pack_outputs`` (no dup
+    lane), three launches: ``[n, 10]`` rows."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+    from annotatedvdb_tpu_torch.ops.pack import inflate_alleles, pack_outputs
+
+    ref, alt = inflate_alleles(ref_packed, alt_packed, width)
+    out = annotate_bin(pos, ref, alt, ref_len, alt_len)
+    return pack_outputs(out["allele_hash"], None, out["bin_level"], out["leaf_bin"],
+                        out["needs_digest"], out["host_fallback"])
+
+
+def packed_inputs(rows, seed, width=WIDTH) -> tuple:
+    """``(pos, ref_packed, alt_packed, ref_len, alt_len)`` of
+    :func:`random_batch` rows, nibble-packed as the loader uploads them."""
+    from annotatedvdb_tpu_torch.ops.pack import encode_alleles_nibble
+
+    pos, ref, alt, rl, al = random_batch(seed, rows, width)
+    return (pos, *encode_alleles_nibble(ref, alt), rl, al)
+
+
+def annotate_packed_checks(torch, device) -> tuple:
+    """The packed entry on the card against the three-kernel route (every
+    byte) and against its plain composition (the selection contract) on
+    :func:`annotate_packed_cases` at :data:`PACKED_WIDTHS`, ``ceil(W / 2)``
+    and ``ceil(W / 2) + 3`` packed columns and :data:`PACKED_ROWS` rows,
+    then on 65,536 and 1,048,576 random rows at W = 49; every call at an
+    unaligned base (the packed matrices 3 and 7 bytes in, the int32
+    columns one element in).  Its first-use check runs first, so the
+    loads' counts never see it.  Returns the checks and the largest
+    absolute difference of any byte from the three-kernel route."""
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_packed_fn, packed_mismatches
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        annotate_bin_packed,
+        annotate_bin_packed_reference,
+    )
+
+    annotate_packed_fn(device)
+    checks, worst = [], 0
+
+    def compare(label, host, width):
+        args = [offset_copy(torch, np.ascontiguousarray(x), device, off)
+                for x, off in zip(host, (1, 3, 7, 1, 1))]
+        got = annotate_bin_packed(*args, width)
+        three = three_kernel_route(*args, width)
+        want = annotate_bin_packed_reference(*args, width)
+        torch.cuda.synchronize()
+        err = (int((got.to(torch.int64) - three.to(torch.int64)).abs().max())
+               if got.numel() else 0)
+        bad = packed_mismatches(want.cpu(), got.cpu())
+        checks.append({"kernel": "annotate_bin_packed", "inputs": label,
+                       "rows": int(got.shape[0]), "max_abs_err": err,
+                       "equal_three_kernels": err == 0, "plain_mismatched": bad,
+                       "host_fallback_rows": int(((want[:, 9] & 4) != 0).sum())})
+        if err or bad:
+            raise AssertionError(f"annotate_bin_packed disagrees on {label}: "
+                                 f"{err} from the three-kernel route, {bad} "
+                                 f"against its plain composition")
+        return err
+
+    for width in PACKED_WIDTHS:
+        for extra in (0, 3):
+            case = annotate_packed_cases(width, extra)
+            for n in PACKED_ROWS:
+                worst = max(worst, compare(f"w{width}-cols+{extra}-n{n or 'all'}",
+                                           [x[:n] for x in case], width))
+    for rows in (CHUNK_ROWS, BIG_ROWS):
+        worst = max(worst, compare(f"random-{rows}-w{WIDTH}",
+                                   packed_inputs(rows, 23), WIDTH))
+    return checks, worst
+
+
+def packed_bound(torch, pos, ref_packed, alt_packed, rl, al, width=WIDTH) -> dict:
+    """The packed entry's bound on these inputs (tensors, the plain
+    versions run where they lie): per row the packed bytes, three int32
+    scalars and a 10-byte row over the memory rate; the operations
+    :func:`annotate_bound` counts, the decode's per column and the row's
+    pack over the 32-bit rate."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import FIELDS, annotate_bin_reference
+    from annotatedvdb_tpu_torch.ops.pack import inflate_alleles_reference
+
+    n, cols = ref_packed.shape
+    ref, alt = inflate_alleles_reference(ref_packed, alt_packed, width)
+    prefix = annotate_bin_reference(pos, ref, alt, rl, al)["prefix_len"]
+    host = [x.cpu().numpy() for x in (pos, ref, alt, rl, al, prefix)]
+    ops = (annotate_bound(torch, FIELDS, *host[:5], host[5].astype(np.int64))["ops"]
+           + INFLATE_BYTE_OPS * 2 * n * width + PACK_ROW_OPS * n)
+    nbytes = n * (2 * cols + 12 + 10)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": n, "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def packed_kernel_timing(torch, device) -> dict:
+    """The packed entry in turns with the three-kernel route it replaces
+    (three, packed, packed, three), each profiled by kernel name, at
+    65,536 rows (ten input sets) and 1,048,576 rows (two), W = 49; the
+    plain composition profiled once a shape.  Beside each: the entry's
+    bound (:func:`packed_bound`) and share, the route's kernels' ms and
+    their sum."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        annotate_bin_packed,
+        annotate_bin_packed_reference,
+    )
+
+    def packed(*a):
+        annotate_bin_packed(*a, WIDTH)
+
+    def three(*a):
+        three_kernel_route(*a, WIDTH)
+
+    def plain(*a):
+        annotate_bin_packed_reference(*a, WIDTH)
+
+    route = ("inflate_kernel", "annotate_bin_kernel", "pack_outputs_kernel")
+    out = {}
+    for key, rows, n_sets, iters in (("chunk", CHUNK_ROWS, 10, (10, 200)),
+                                     ("1m", BIG_ROWS, 2, (2, 50))):
+        host = [packed_inputs(rows, 300 + i) for i in range(n_sets)]
+        sets = [[torch.from_numpy(x).to(device) for x in h] for h in host]
+        runs = []
+        for name, fn in (("three", three), ("packed", packed), ("packed", packed),
+                         ("three", three)):
+            runs.append({"route": name, "device": device_profile(torch, fn, sets, iters[1]),
+                         "call_ms": call_ms(torch, fn, sets, iters[1])})
+
+        def kernel_ms(name, kernels):
+            seen = [r["device"]["kernels"].get(k, {}).get("ms") for r in runs
+                    if r["route"] == name and r["device"] is not None for k in kernels]
+            return min(seen) if seen and all(seen) else None
+
+        ms = kernel_ms("packed", ("annotate_bin_packed_kernel",))
+        timed_by = "profiler"
+        if ms is None:
+            ms, timed_by = min(r["call_ms"] for r in runs if r["route"] == "packed"), "events"
+        by_kernel = {k: kernel_ms("three", (k,)) for k in route}
+        three_ms = (sum(by_kernel.values()) if all(by_kernel.values())
+                    else min(r["call_ms"] for r in runs if r["route"] == "three"))
+        bound = packed_bound(torch, *sets[0])
+        plain_ms = (device_ms(torch, plain, sets, iters[0])
+                    or call_ms(torch, plain, sets, iters[0]))
+        out[f"annotate_bin_packed/{key}"] = {
+            **bound, "ms": ms, "plain_ms": plain_ms, "bound_share": bound["bound_ms"] / ms,
+            "three_kernel_ms": three_ms, "three_kernels": by_kernel,
+            "three_over_packed": three_ms / ms, "timed_by": timed_by}
+        out[f"packed_runs/{key}"] = runs
+    return out
+
+
 def transport_kernel_timing() -> dict:
     """The three transport kernels timed in a spawned process at 65,536
     rows (the load's chunk; ten input sets) and 1,048,576 rows (two sets),
@@ -3773,8 +4008,10 @@ def transport_kernel_timing() -> dict:
     One call of ``kernels`` launches all three, so one profile a run gives
     each kernel's device ms by name; each plain version is profiled once
     (CUDA events a call where a profile lost events).  Beside each: the
-    bound, and the seconds the timing took (``seconds``).  No single
-    PyTorch call computes any of them (``library_ms`` null)."""
+    bound.  Then the annotate kernel's packed entry in turns with the
+    three-kernel route it replaces (:func:`packed_kernel_timing`), and the
+    seconds the timing took (``seconds``).  No single PyTorch call
+    computes any of them (``library_ms`` null)."""
     import torch
 
     from annotatedvdb_tpu_torch.ops import pack as PK
@@ -3812,13 +4049,15 @@ def transport_kernel_timing() -> dict:
                                     "bound_share": bound["bound_ms"] / ms,
                                     "timed_by": "profiler" if seen else "events"}
         out[f"runs/{key}"] = runs
+    out.update(packed_kernel_timing(torch, device))
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
-def transport_kernel_rows(checks, timing) -> list:
-    """The kernel table's rows of the three transport kernels, timed at the
-    load's chunk (65,536 rows; launches filled in after phases 4, 7, 8)."""
+def transport_kernel_rows(checks, timing, packed_checks) -> list:
+    """The kernel table's rows of the three transport kernels and of the
+    annotate kernel's packed entry, timed at the load's chunk (65,536
+    rows; launches filled in after phases 4, 7, 8)."""
     rows = []
     for kind, replaces in TRANSPORT_KERNELS.items():
         t, big = timing[f"{kind}/chunk"], timing[f"{kind}/1m"]
@@ -3832,6 +4071,19 @@ def transport_kernel_rows(checks, timing) -> list:
             "1m_ms": big["ms"], "1m_plain_ms": big["plain_ms"],
             "1m_bound_ms": big["bound_ms"],
         })
+    t, big = timing["annotate_bin_packed/chunk"], timing["annotate_bin_packed/1m"]
+    rows.append({
+        "name": "annotate_bin_packed", "route": "cuda",
+        "source": "annotatedvdb_tpu_torch/csrc/annotate_bin.cu",
+        "replaces": "annotatedvdb_tpu/ops/annotate_pallas.py:206",
+        "launches": None, "max_abs_err": max(c["max_abs_err"] for c in packed_checks),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "rows": t["rows"],
+        "three_kernel_ms": t["three_kernel_ms"],
+        "also_replaces": ["annotatedvdb_tpu/ops/pack.py:124", "annotatedvdb_tpu/ops/pack.py:32"],
+        "1m_ms": big["ms"], "1m_plain_ms": big["plain_ms"],
+        "1m_bound_ms": big["bound_ms"], "1m_three_kernel_ms": big["three_kernel_ms"],
+    })
     return rows
 
 
@@ -3855,23 +4107,26 @@ def captured_loaders(cls, method="load_file"):
 
 @contextlib.contextmanager
 def captured_steps():
-    """The inputs and outputs of the first fused-kernel step
-    (``annotate_hash_pipeline_cuda``) made inside ``lookup._device_hash``
-    (key ``"hash"``) and inside ``VcfLoader._load_chunk`` (key
-    ``"insert"``), kept on the card until :func:`step_mismatches` reads
-    them.  The steps themselves run unchanged."""
+    """The inputs and outputs of the first annotate-kernel step (either
+    entry: ``annotate_hash_pipeline_cuda`` or ``annotate_bin_packed``)
+    made inside ``lookup._device_hash`` (key ``"hash"``) and inside
+    ``VcfLoader._load_chunk`` (key ``"insert"``), kept on the card until
+    :func:`step_mismatches` reads them.  The steps themselves run
+    unchanged."""
     from annotatedvdb_tpu_torch.loaders import lookup
     from annotatedvdb_tpu_torch.loaders.vcf_loader import VcfLoader
     from annotatedvdb_tpu_torch.models import pipeline
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
 
     seen, tags = {}, []
-    step = pipeline.annotate_hash_pipeline_cuda
 
-    def traced(*args):
-        out = step(*args)
-        if tags and tags[-1] not in seen:
-            seen[tags[-1]] = (args, out)
-        return out
+    def traced(step):
+        def run(*args):
+            out = step(*args)
+            if tags and tags[-1] not in seen:
+                seen[tags[-1]] = (args, out)
+            return out
+        return run
 
     def tagged(original, tag):
         def wrapper(*args, **kwargs):
@@ -3882,7 +4137,10 @@ def captured_steps():
                 tags.pop()
         return wrapper
 
-    patches = [(pipeline, "annotate_hash_pipeline_cuda", traced),
+    patches = [(pipeline, "annotate_hash_pipeline_cuda",
+                traced(pipeline.annotate_hash_pipeline_cuda)),
+               (annotate_cuda, "annotate_bin_packed",
+                traced(annotate_cuda.annotate_bin_packed)),
                (lookup, "_device_hash", tagged(lookup._device_hash, "hash")),
                (VcfLoader, "_load_chunk", tagged(VcfLoader._load_chunk, "insert"))]
     raws = [(owner, name, owner.__dict__[name]) for owner, name, _ in patches]
@@ -3899,17 +4157,25 @@ def step_mismatches(torch, seen) -> dict:
     """For each step :func:`captured_steps` kept: its rows and the fields
     on which the card's outputs break the contract against the plain
     versions on the same inputs copied to the host (annotate fields under
-    ``parity_mismatches``, the hash exact on every row)."""
+    ``parity_mismatches``, the hash exact on every row; the packed entry's
+    rows under ``packed_mismatches``)."""
     from annotatedvdb_tpu_torch.models.pipeline import (
         annotate_hash_pipeline,
+        packed_mismatches,
         parity_mismatches,
     )
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_packed_reference
     from annotatedvdb_tpu_torch.types import AnnotatedBatch
 
     out = {}
-    for tag, (args, (ann, h)) in seen.items():
-        want, want_h = annotate_hash_pipeline(
-            *(None if a is None else a.cpu() for a in args))
+    for tag, (args, got) in seen.items():
+        host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        if torch.is_tensor(got):
+            bad = packed_mismatches(annotate_bin_packed_reference(*host), got.cpu())
+            out[tag] = {"rows": int(got.shape[0]), "differ": bad, "entry": "packed"}
+            continue
+        ann, h = got
+        want, want_h = annotate_hash_pipeline(*host)
         bad = parity_mismatches(want, AnnotatedBatch(*(x.cpu() for x in ann)))
         if not torch.equal(h.cpu(), want_h):
             bad.append("allele_hash")
@@ -4037,23 +4303,26 @@ def profile_kernels(trace_dir) -> dict:
 
 
 #: ``load-vcf`` through the CLI's ``main`` in a fresh interpreter (argv
-#: after ``-c``): the annotate step's own first-use check runs before the
-#: counters are zeroed, as phase 3 runs it before phase 4's; the capture
-#: is timed; the kernel counters are printed at the end
+#: after ``-c``): the annotate entries' own first-use checks run before
+#: the counters are zeroed, as phase 3 runs them before phase 4's; the
+#: capture is timed; the kernel counters are printed at the end (both
+#: annotate entries' launches together)
 FRESH_LOAD = """
 import json, sys
 import torch
 from chip_smoke import timed_device_trace
 from annotatedvdb_tpu_torch.cli.load_vcf import main
 from annotatedvdb_tpu_torch.genome import refgenome
-from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
 from annotatedvdb_tpu_torch.ops import annotate_cuda, hashing
 annotate_hash_fn(torch.device("cuda", 0))
-annotate_cuda.LAUNCHES["annotate_bin"] = 0
+annotate_packed_fn(torch.device("cuda", 0))
+for name in annotate_cuda.LAUNCHES:
+    annotate_cuda.LAUNCHES[name] = 0
 with timed_device_trace([]) as prof_s:
     rc = main(sys.argv[1:])
 print("COUNTERS " + json.dumps({
-    "rc": rc, "annotate_bin": annotate_cuda.LAUNCHES["annotate_bin"],
+    "rc": rc, "annotate": sum(annotate_cuda.LAUNCHES.values()),
     "validate_ref": refgenome.LAUNCHES["validate_ref"],
     "plain_validate_cuda": refgenome.CALLS.get("cuda", 0),
     "plain_hash_cuda": hashing.CALLS.get("cuda", 0), "profiler_s": prof_s[0]}))
@@ -4483,17 +4752,20 @@ def load_phases(torch, platform, inp, launches, hash_calls,
         f"load: the overlapped executor or the async writer did not run "
         f"({sorted(loader.queue_stalls)})")
     if device.type == "cuda":
-        # the default on the card packs every chunk: one inflate a chunk
-        # that went up nibble-packed and one pack a chunk, plus the
-        # warmup's one of each at the chunk shape (its probes ran in phase 3)
+        # the default on the card packs every chunk: one launch of the
+        # packed entry a chunk that went up nibble-packed, plus the
+        # warmup's one at the chunk shape; a raw chunk would take
+        # annotate_bin and one pack; no inflate (its probes ran in phase 3)
         t = loader.transport
         assert t["packed"] == chunks and t["nibble"] + t["raw"] == chunks, (
             f"load: transport {t} for {chunks} chunks")
-        assert (launched["inflate_alleles"], launched["pack_outputs"]) == (
-            t["nibble"] + 1, chunks + 1), (
-            f"load: {launched['inflate_alleles']} inflate / "
-            f"{launched['pack_outputs']} pack launches for {t['nibble']} "
-            f"nibble uploads of {chunks} chunks (and the warmup's)")
+        split = {name: launched[name] for name in (
+            "annotate_bin_packed", "annotate_bin", "inflate_alleles", "pack_outputs")}
+        assert split == {"annotate_bin_packed": t["nibble"] + WARMUP_PACKED,
+                         "annotate_bin": t["raw"], "inflate_alleles": 0,
+                         "pack_outputs": t["raw"]}, (
+            f"load: launches {split} for {t['nibble']} nibble and {t['raw']} "
+            f"raw uploads of {chunks} chunks (and the warmup's)")
 
     # 4b. the same file, serial executor and synchronous store commits
     store4s = os.path.join(WORK, "store.serial")
@@ -4571,7 +4843,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             os.makedirs(ranks)
             shutil.copy(DEFAULT_RANKING_FILE, os.path.join(ranks, "ranks.txt"))
             t0 = time.perf_counter()
-            before = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+            before = (annotate_launches(launches), refgenome.LAUNCHES["validate_ref"],
                       refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
             os.makedirs(top)
             # --profile on every CPU load and, on the card, on the default
@@ -4592,7 +4864,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                 prof_s = [fresh["profiler_s"]]
                 capture = in_process_capture(torch, device,
                                              os.path.join(top, "in_process"))
-                after = (before[0] + fresh["annotate_bin"],
+                after = (before[0] + fresh["annotate"],
                          before[1] + fresh["validate_ref"],
                          before[2] + fresh["plain_validate_cuda"],
                          before[3] + fresh["plain_hash_cuda"])
@@ -4605,7 +4877,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                 finally:
                     os.chdir(cwd)
                 assert rc == 0, f"phase 6 ({config}) load on {plat} exited {rc}"
-                after = (launches["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+                after = (annotate_launches(launches), refgenome.LAUNCHES["validate_ref"],
                          refgenome.CALLS.get("cuda", 0), hash_calls.get("cuda", 0))
             load6 = {"files": store_bytes(d), "chunks": len(ledger_records(d, "checkpoint")),
                      "inserting_chunks": inserting_chunks(d, 1),
@@ -4623,20 +4895,22 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                      "variant_total": prom_series(os.path.join(top, "load.prom"))
                      ['avdb_load_variant_total{loader="load-vcf"}']}
             if plat == "cuda":
+                # an annotate entry a chunk and the warmup's packed one
                 assert (load6["annotate_launches"], load6["validate_launches"]) == (
-                    load6["chunks"], load6["inserting_chunks"]), (
+                    load6["chunks"] + WARMUP_PACKED, load6["inserting_chunks"]), (
                     f"phase 6 ({config}) --refGenome load: {load6['annotate_launches']} "
-                    f"annotate_bin / {load6['validate_launches']} validate_ref launches "
+                    f"annotate / {load6['validate_launches']} validate_ref launches "
                     f"for {load6['chunks']} chunks, {load6['inserting_chunks']} inserting")
                 assert not any(load6["plain_cuda"].values()), (
                     f"phase 6 ({config}): plain versions on the card: {load6['plain_cuda']}")
             if plat == "cuda" and profiled:
+                # the capture starts after the warmup
                 traced = sum(n for k, n in load6["profile"]["kernels"].items()
                              if "annotate" in k)
-                assert traced == load6["annotate_launches"], (
+                assert traced == load6["annotate_launches"] - WARMUP_PACKED, (
                     f"phase 6 ({config}): --profile's trace holds {traced} "
-                    f"annotate_bin kernels for {load6['annotate_launches']} "
-                    f"launches ({load6['profile']['kernels']})")
+                    f"annotate kernels for {load6['annotate_launches']} "
+                    f"launches less the warmup's ({load6['profile']['kernels']})")
             with open(vcf6 + ".mapping", "rb") as f:
                 mapping = f.read()
             with captured_loaders(VepLoader) as vep_loaders, environment(**env):
@@ -4662,7 +4936,7 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             # then the three update legs on the same store, in turn
             updates = {}
             for name, spec in inp["updates6"].items():
-                before = launches["annotate_bin"]
+                before = annotate_launches(launches)
                 with environment(**env):
                     run = run_update(torch, plat, name, spec["path"], d)
                 got = {k: run["counters"].get(k, 0) for k in spec["want"]}
@@ -4670,10 +4944,10 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                     f"phase 6 ({config}) {name} on {plat}: {got}, predicted "
                     f"{spec['want']}")
                 want_l = update_launches_predicted(name, run, config == "default")
-                n_launched = launches["annotate_bin"] - before
+                n_launched = annotate_launches(launches) - before
                 if plat == "cuda":
                     assert n_launched == want_l, (
-                        f"phase 6 ({config}) {name}: annotate_bin launched "
+                        f"phase 6 ({config}) {name}: the annotate entries launched "
                         f"{n_launched} times, predicted {want_l}")
                 updates[name] = {"files": store_bytes(d), "launches": n_launched,
                                  "chunks": run["chunks"], "s": run["wall"],
@@ -5183,7 +5457,9 @@ def check_cadd_parity(dev, cpu, config, spec, platform) -> None:
 
 
 def update_launches_predicted(name, run, native) -> int:
-    """``annotate_bin`` launches an update run must make on the card: one
+    """Annotate launches an update run must make on the card (either
+    entry: ``annotate_bin_packed`` for an insert whose alleles go up
+    nibble-packed, ``annotate_bin`` for the rest): one
     per synchronous insert, made for each chunk or batch with novel rows,
     and one per chunk or batch hashed on the device (``lookup._device_hash``:
     without a tokenizer hash, that is under the Python engine and for every
@@ -5535,18 +5811,21 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
                 assert not rec["differ"], (
                     f"{name}: the {tag} step's kernel outputs ({rec['rows']} rows) "
                     f"disagree with the plain versions in {rec['differ']}")
-            assert launched["annotate_bin"] == want_l, (
-                f"{name}: annotate_bin launched {launched['annotate_bin']} times, "
-                f"predicted {want_l}")
+            assert annotate_launches(launched) == want_l, (
+                f"{name}: the annotate entries launched {annotate_launches(launched)} "
+                f"times, predicted {want_l}")
             assert not hashed.get("cuda"), (
                 f"{name}: the update called the plain allele_hash on the card "
                 f"{hashed['cuda']} times")
-            # each synchronous insert packs its outputs on the card, and
-            # inflates where its alleles went up nibble-packed
-            packed = launched.get("pack_outputs", run["inserts"])
-            assert packed == run["inserts"] >= launched.get("inflate_alleles", 0), (
-                f"{name}: {packed} pack / {launched.get('inflate_alleles')} inflate "
-                f"launches for {run['inserts']} inserts")
+            # each synchronous insert packs its outputs on the card: one
+            # launch of the packed entry where its alleles went up
+            # nibble-packed, a pack after annotate_bin where they went up
+            # raw, and never an inflate
+            packed = launched["annotate_bin_packed"] + launched["pack_outputs"]
+            assert packed == run["inserts"] and not launched["inflate_alleles"], (
+                f"{name}: {launched['annotate_bin_packed']} packed-entry / "
+                f"{launched['pack_outputs']} pack / {launched['inflate_alleles']} "
+                f"inflate launches for {run['inserts']} inserts")
         out[name] = dict(launched)
     return out
 
@@ -5647,9 +5926,9 @@ def refgenome_phase(torch, platform, inp) -> dict:
     fresh store against the GRCh38-shaped index, every launch and plain
     counter set to 0 just before and read just after (``ref_mismatch``
     and the inserted rows as the generator counts them, one
-    ``validate_ref`` launch per chunk that inserts rows, one
-    ``annotate_bin`` launch per chunk, no plain version of either on the
-    card, chr22's digest-PK rows built on its canonical ``SQ.`` sequence
+    ``validate_ref`` launch per chunk that inserts rows, one annotate
+    launch per chunk and the warmup's packed one, no plain version of
+    either on the card, chr22's digest-PK rows built on its canonical ``SQ.`` sequence
     id); then ``install-schema --storeDir`` of that store (COPY rows equal
     to store rows, one ``annotate_bin`` launch per 65,536-row window);
     then ``bin-references`` for GRCh38.  Raises AssertionError on any
@@ -5715,7 +5994,7 @@ def refgenome_phase(torch, platform, inp) -> dict:
             torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     assert rc == 0, f"phase 10 load exited {rc}"
-    annotated, validated = annotate_cuda.LAUNCHES["annotate_bin"], refgenome.LAUNCHES["validate_ref"]
+    annotated, validated = annotate_launches(annotate_cuda.LAUNCHES), refgenome.LAUNCHES["validate_ref"]
     plain = {"validate_ref": refgenome.CALLS.get("cuda", 0),
              "allele_hash": hashing.CALLS.get("cuda", 0)}
     busy = None
@@ -5768,9 +6047,9 @@ def refgenome_phase(torch, platform, inp) -> dict:
         f"phase 10: chr22's sequence id {loader.digester.sequence_id('22')}")
     assert digest_rows and not wrong_pk, f"phase 10: digest PKs differ: {wrong_pk[:3]}"
     if platform == "cuda":
-        assert (validated, annotated) == (inserting, chunks), (
-            f"phase 10: {validated} validate_ref / {annotated} annotate_bin launches "
-            f"for {inserting} inserting chunks / {chunks} chunks")
+        assert (validated, annotated) == (inserting, chunks + WARMUP_PACKED), (
+            f"phase 10: {validated} validate_ref / {annotated} annotate launches "
+            f"for {inserting} inserting chunks / {chunks} chunks and the warmup")
         assert not any(plain.values()), f"phase 10: plain versions on the card: {plain}"
 
     # install-schema of that store
@@ -7704,9 +7983,9 @@ CHAOS_LOAD_SPECS = ("store.save.pre_manifest:2:kill",
 #: 3,125 lines
 CHAOS_COMMIT_AFTER = 700
 
-#: a killed load's process: the CLI's ``main`` with each ``annotate_bin``
-#: launch's running count written unbuffered to a file (argv[1]), so the
-#: count outlives the SIGKILL
+#: a killed load's process: the CLI's ``main`` with the running count of
+#: both annotate entries' launches written unbuffered to a file (argv[1])
+#: at each launch, so the count outlives the SIGKILL
 CHAOS_LOAD_CHILD = """
 import os, sys
 from annotatedvdb_tpu_torch.ops import annotate_cuda
@@ -7714,7 +7993,7 @@ fd = os.open(sys.argv[1], os.O_WRONLY | os.O_CREAT | os.O_APPEND)
 class Counted(dict):
     def __setitem__(self, key, value):
         super().__setitem__(key, value)
-        os.write(fd, b"%d\\n" % value)
+        os.write(fd, b"%d\\n" % sum(self.values()))
 annotate_cuda.LAUNCHES = Counted(annotate_cuda.LAUNCHES)
 from annotatedvdb_tpu_torch.cli.load_vcf import main
 sys.exit(main(sys.argv[2:]))
@@ -7760,9 +8039,10 @@ def chaos_load_check(platform, vcf, launches) -> dict:
     card store must equal the CPU's byte for byte (the same crash, the
     same resume: ledgers without time stamps, the input path masked) and,
     less ``row_algorithm_id``, an uninterrupted card load at the same
-    interval.  On the card the resume launches ``annotate_bin`` once a
-    chunk past the last durable checkpoint; the killed process's launches
-    come from its count file.  Returns each spec's seconds and launches."""
+    interval.  On the card the resume launches an annotate entry once a
+    chunk past the last durable checkpoint (and the warmup's packed one, as
+    the uninterrupted load does); the killed process's launches come from
+    its count file (both entries together).  Returns each spec's seconds and launches."""
     import signal
 
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
@@ -7802,9 +8082,9 @@ def chaos_load_check(platform, vcf, launches) -> dict:
             f"chaos load {key} exited {rc}, not by SIGKILL: {err[-2000:]}")
     killed_s = time.perf_counter() - t0
     clean = setup("clean")
-    before = launches["annotate_bin"]
+    before = annotate_launches(launches)
     assert load_vcf(argv(clean, platform)) == 0
-    chunks = launches["annotate_bin"] - before
+    chunks = annotate_launches(launches) - before
     want = store_content(os.path.join(clean, "store"))
     out = {}
     for (spec, plat), d in runs.items():
@@ -7812,19 +8092,19 @@ def chaos_load_check(platform, vcf, launches) -> dict:
         durable = durable_checkpoints(store)
         with open(os.path.join(d, "launches")) as f:
             counts = f.read().split()
-        before = launches["annotate_bin"]
+        before = annotate_launches(launches)
         t = time.perf_counter()
         assert load_vcf(argv(d, plat)) == 0, f"chaos resume {spec} on {plat}"
         rec = {"durable_checkpoints": durable, "resume_s": time.perf_counter() - t,
                "killed_launches": int(counts[-1]) if counts else 0,
-               "resume_launches": launches["annotate_bin"] - before}
+               "resume_launches": annotate_launches(launches) - before}
         if plat == platform:
             assert store_content(store) == want, (
                 f"chaos {spec}: the resumed store's rows differ from an "
                 f"uninterrupted load's")
             if platform == "cuda":
                 assert rec["resume_launches"] == chunks - durable, (
-                    f"chaos {spec}: the resume launched annotate_bin "
+                    f"chaos {spec}: the resume launched the annotate entries "
                     f"{rec['resume_launches']} times, predicted {chunks - durable}")
         out[spec, plat] = rec
     for spec in CHAOS_LOAD_SPECS:
@@ -8298,18 +8578,20 @@ def mesh_chain(inp, store, workers, platform="cuda", counts=None) -> dict:
 
 
 def mesh_single_chain(inp, platform="cuda") -> dict:
-    """The single-device chain, with its ``annotate_bin`` launches (a chunk
-    each), then the host-only server's bodies for :func:`mesh_traffic` over
-    its store (an ``aio`` server on the CPU, the latency governor off)."""
+    """The single-device chain, with its annotate launches (a chunk each
+    and the warmup's packed one), then the host-only server's bodies for
+    :func:`mesh_traffic` over its store (an ``aio`` server on the CPU, the
+    latency governor off)."""
     from annotatedvdb_tpu_torch.ops import annotate_cuda
     from annotatedvdb_tpu_torch.serve.aio import build_aio_server
 
     if platform == "cuda":
         import torch
 
-        from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+        from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
 
-        annotate_hash_fn(torch.device("cuda", 0))  # its check, uncounted
+        annotate_hash_fn(torch.device("cuda", 0))  # their checks, uncounted
+        annotate_packed_fn(torch.device("cuda", 0))
     store = os.path.join(WORK, "mesh", "store_single")
     out = mesh_chain(inp, store, 1, platform,
                      counts={"annotate_cuda": annotate_cuda.LAUNCHES})
@@ -8385,15 +8667,16 @@ def mesh_phase(torch, inp, platform="cuda", single=None) -> dict:
             m, s1 = mesh_run[step], single_run[step]
             steps[step] = {"mesh_wall_s": m["wall_s"], "single_wall_s": s1["wall_s"],
                            "launches": m["launches"],
-                           "single_annotate_bin": s1["launches"]["annotate_cuda"]
-                           ["annotate_bin"], "printed": m["printed"]}
+                           "single_annotate": annotate_launches(
+                               s1["launches"]["annotate_cuda"]), "printed": m["printed"]}
             if m["digests"] != s1["digests"]:
                 raise AssertionError(f"mesh {step} store differs from the "
                                      f"single-device one")
             if m["printed"] != s1["printed"]:
                 raise AssertionError(f"mesh {step} printed {m['printed']}, "
                                      f"single {s1['printed']}")
-        chunks = steps["load"]["single_annotate_bin"]
+        # the single-device load's warmup launches the packed entry once
+        chunks = steps["load"]["single_annotate"] - (WARMUP_PACKED if on_card else 0)
         got = steps["load"]["launches"]["annotate_bin"]["annotate_bin"]
         if on_card and got != MESH_SHARDS * chunks:
             raise AssertionError(f"mesh load launched annotate_bin {got} times "
@@ -8612,11 +8895,20 @@ def main() -> int:
             # second process while this one waits
             t0 = time.perf_counter()
             transport_checks, transport_worst = transport_kernel_checks(torch, device)
+            packed_checks, packed_worst = annotate_packed_checks(torch, device)
             checks_s = time.perf_counter() - t0
             transport_timing = pool.submit(transport_kernel_timing).result()
             emit("transport_kernel", checks=transport_checks, worst=transport_worst,
-                 checks_s=checks_s, timing=transport_timing)
-            transport_rows = transport_kernel_rows(transport_checks, transport_timing)
+                 checks_s=checks_s, timing={k: v for k, v in transport_timing.items()
+                                            if "packed" not in k})
+            emit("packed_kernel", checks=len(packed_checks), worst=packed_worst,
+                 host_fallback_rows=sum(c["host_fallback_rows"] for c in packed_checks),
+                 blocks_per_sm={f"w{w}-cols{c}": annotate_cuda._library()
+                                .annotate_bin_packed_blocks_per_sm(w, c)
+                                for w, c in ((WIDTH, (WIDTH + 1) // 2), (192, 96))},
+                 timing={k: v for k, v in transport_timing.items() if "packed" in k})
+            transport_rows = transport_kernel_rows(transport_checks, transport_timing,
+                                                   packed_checks)
             # the mesh kernels' checks, then their timing in the second
             # process while this one waits, so no other phase shares the card
             mesh_checks = mesh_kernel_checks(torch, device)
@@ -8639,9 +8931,10 @@ def main() -> int:
                  waited_after_phase6_s=time.perf_counter() - t0)
             # phase 15's inputs, written by the second process meanwhile
             mesh_inputs = pool.submit(write_mesh_inputs, WORK)
-            if results["launches"]["annotate_bin"] != results["chunks"]:
-                return fail(f"annotate_bin launched {results['launches']['annotate_bin']}"
-                            f" times for {results['chunks']} chunks")
+            if annotate_launches(results["launches"]) != results["chunks"] + WARMUP_PACKED:
+                return fail(f"the annotate entries launched "
+                            f"{annotate_launches(results['launches'])} times for "
+                            f"{results['chunks']} chunks and the warmup")
             if results["plain_hash_calls"].get("cuda"):
                 return fail(f"the load called the plain allele_hash on the card "
                             f"{results['plain_hash_calls']['cuda']} times")
@@ -8737,8 +9030,9 @@ def main() -> int:
                     launches_stream=exported["stream"])
     for row in table[7:9]:
         row.update(launches=meshed["launches"][row["name"]])
-    # the transport's rows: phase 4's load (its warmup's call at the chunk
-    # shape included), phase 7's VEP update and phase 8's inserts
+    # the transport's rows and the packed entry's: phase 4's load (its
+    # warmup's call at the chunk shape included), phase 7's VEP update and
+    # phase 8's inserts
     for row in transport_rows:
         name = row["name"]
         by_phase = {"vcf_load": results["launches"][name],

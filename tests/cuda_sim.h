@@ -12,16 +12,27 @@
 // small (kSimSms SMs, kSimBlocksPerSm blocks each), so a grid sized to the
 // card runs its grid-stride loops several times even on small inputs.
 // Launches `k<<<grid, block, smem, stream>>>(args)` are rewritten by the
-// test into `sim_launch(grid, block, k, args)`.
+// test into `sim_launch(grid, block, k, args)`; a kernel with dynamic
+// shared memory reads `sim_dynamic_smem`, which the test's rewrite sizes
+// with `sim_dynamic_smem_alloc` before the launch.  Hopper's TMA bulk
+// copies and transaction-counting mbarriers, written in PTX in a source,
+// are emulated by the `sim_mbar_*` and `sim_bulk_copy` functions, which a
+// test substitutes for the source's own helpers: a copy is a memcpy that
+// completes its barrier's pending bytes at once.
 
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 #define __global__
@@ -30,6 +41,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -39,10 +51,19 @@ struct dim3 {
 struct alignas(16) int4 {
   int x, y, z, w;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 
 using cudaStream_t = void*;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorInvalidDevice = 101
+};
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 constexpr int kSimSms = 3;
 constexpr int kSimBlocksPerSm = 2;
@@ -59,6 +80,11 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 template <typename K>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
   *n = kSimBlocksPerSm;
+  return cudaSuccess;
+}
+
+template <typename K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 
@@ -91,6 +117,90 @@ inline int __clz(int x) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t shift) {
+  return static_cast<uint32_t>(((static_cast<uint64_t>(hi) << 32) | lo) >> (shift & 31));
+}
+// the documented selector: the low 3 bits of each of its four nibbles
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t src = x | (static_cast<uint64_t>(y) << 32);
+  uint32_t d = 0;
+  for (int i = 0; i < 4; ++i) {
+    d |= static_cast<uint32_t>((src >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  }
+  return d;
+}
+// PTX prmt.b32 in its generic mode: a selector nibble's high bit
+// replicates the selected byte's sign
+inline uint32_t sim_prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  const uint64_t src = a | (static_cast<uint64_t>(b) << 32);
+  uint32_t d = 0;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t nib = (sel >> (4 * i)) & 15;
+    uint32_t v = (src >> (8 * (nib & 7))) & 0xFF;
+    if (nib & 8) v = (v & 0x80) ? 0xFF : 0;
+    d |= v << (8 * i);
+  }
+  return d;
+}
+
+// The launch's dynamic shared memory (blocks run one at a time).
+inline uint8_t* sim_dynamic_smem = nullptr;
+inline size_t sim_dynamic_smem_bytes = 0;
+inline void sim_dynamic_smem_alloc(size_t bytes) {
+  std::free(sim_dynamic_smem);
+  const size_t rounded = (bytes + 127) / 128 * 128;
+  sim_dynamic_smem = static_cast<uint8_t*>(std::aligned_alloc(128, rounded + 128));
+  std::memset(sim_dynamic_smem, 0xA5, rounded + 128);  // never zeroed on a card
+  sim_dynamic_smem_bytes = bytes;
+}
+
+// An mbarrier of one arrival and a transaction count: the phases it
+// completed and the bytes its current phase still waits for.
+struct SimMbar {
+  std::atomic<uint32_t> done{0};
+  std::atomic<int64_t> pending{0};
+};
+inline SimMbar* sim_mbar(const void* bar) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, std::unique_ptr<SimMbar>> bars;
+  std::lock_guard<std::mutex> lock(mu);
+  auto& b = bars[bar];
+  if (!b) b = std::make_unique<SimMbar>();
+  return b.get();
+}
+inline void sim_mbar_init(const void* bar) {
+  SimMbar* b = sim_mbar(bar);
+  b->done = 0;
+  b->pending = 0;
+}
+// the arrival, expecting `bytes` (a phase of no bytes completes at once)
+inline void sim_mbar_expect(const void* bar, uint32_t bytes) {
+  SimMbar* b = sim_mbar(bar);
+  if (bytes == 0) {
+    b->done++;
+  } else {
+    b->pending += bytes;
+  }
+}
+// try_wait.parity: until the phase of that parity has completed
+inline void sim_mbar_wait(const void* bar, uint32_t parity) {
+  SimMbar* b = sim_mbar(bar);
+  while ((b->done.load() & 1u) == parity) std::this_thread::yield();
+}
+// cp.async.bulk into the dynamic shared memory: 16-byte aligned ends and
+// a size that is a multiple of 16, or a "runtime error" report
+inline void sim_bulk_copy(void* dst, const void* src, uint32_t bytes, const void* bar) {
+  const auto d = reinterpret_cast<uintptr_t>(dst), s = reinterpret_cast<uintptr_t>(src);
+  const auto lo = reinterpret_cast<uintptr_t>(sim_dynamic_smem);
+  if ((d | s | bytes) & 15u || d < lo || d + bytes > lo + sim_dynamic_smem_bytes) {
+    std::fprintf(stderr, "runtime error: bulk copy of %u bytes to %#zx misplaced\n",
+                 bytes, static_cast<size_t>(d - lo));
+  } else {
+    std::memcpy(dst, src, bytes);
+  }
+  SimMbar* b = sim_mbar(bar);
+  if ((b->pending -= bytes) == 0) b->done++;
+}
 
 inline void __syncthreads() { sim_self.block->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { sim_self.warp->bar.arrive_and_wait(); }

@@ -45,9 +45,15 @@ packs) are held against their plain versions byte for byte, their
 wrappers' refusals checked, a wrong pack shown to fail its probe and the
 load (no fallback), and the load's packed dispatch shown to run on the
 loader's stream; ``load-vcf`` under ``AVDB_PACK_TRANSPORT`` auto, always
-and never on the card writes the CPU's store with one inflate and one pack
-a chunk where it packs, and display attributes and the spill tier on the
-card write the CPU's stores.
+and never on the card writes the CPU's store with one launch of the
+annotate kernel's packed entry a chunk where it packs (no inflate, no
+pack), and display attributes and the spill tier on the card write the
+CPU's stores.  The packed entry is held against the three-kernel route it
+replaces byte for byte and against its plain composition under the
+selection contract (``chip_smoke.annotate_packed_checks``: W = 1 to 192,
+two column counts, 0 to 257 rows, every packed byte value, 65,536 and
+1,048,576 rows, unaligned bases), its wrapper's refusals checked, and a
+wrong entry shown to fail its first-use check and the load.
 The export's pack kernel (``csrc/export_pack.cu``) is held against its
 plain version byte for byte on edge rows, 1,048,576 random rows,
 store-shaped batches and stacks of batches (B = 4 mod 8, B not a multiple
@@ -87,6 +93,8 @@ from annotatedvdb_tpu_torch.ops.annotate_cuda import (
 )
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
+    WARMUP_PACKED,
+    annotate_launches,
     cadd_edge_cases,
     cadd_random_block,
     cadd_steps,
@@ -357,9 +365,10 @@ def test_dispatch_runs_on_the_loaders_stream(cuda, tmp_path, monkeypatch):
 
 def test_packed_dispatch_runs_on_the_loaders_stream(cuda, tmp_path, monkeypatch):
     """The default on the card: the tokenizer's pre-packed alleles go up,
-    one inflate, one ``annotate_bin`` and one pack launch on the loader's
-    own stream, and one ``[n, 10]`` pinned copy comes back whose columns
-    are the plain versions' on the chunk."""
+    one launch of the annotate kernel's packed entry on the loader's own
+    stream (no inflate, no ``annotate_bin``, no pack), and one ``[n, 10]``
+    pinned copy comes back whose columns are the plain versions' on the
+    chunk; no plain version runs on the card."""
     from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
     from annotatedvdb_tpu_torch.loaders import VcfLoader
     from annotatedvdb_tpu_torch.ops import pack
@@ -374,11 +383,10 @@ def test_packed_dispatch_runs_on_the_loaders_stream(cuda, tmp_path, monkeypatch)
                        AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
                        log=lambda *a: None, device=cuda)
     loader._dispatch_chunk(chunk)  # the first call also checks the kernels
-    before = dict(pack.LAUNCHES), LAUNCHES["annotate_bin"], dict(pack.CALLS)
+    before = dict(pack.LAUNCHES), dict(LAUNCHES), dict(pack.CALLS)
     handles = loader._dispatch_chunk(chunk)
-    assert LAUNCHES["annotate_bin"] == before[1] + 1
-    assert pack.LAUNCHES["inflate_alleles"] == before[0]["inflate_alleles"] + 1
-    assert pack.LAUNCHES["pack_outputs"] == before[0]["pack_outputs"] + 1
+    assert LAUNCHES == dict(before[1], annotate_bin_packed=before[1]["annotate_bin_packed"] + 1)
+    assert pack.LAUNCHES == before[0]
     assert pack.CALLS == before[2]
     handles["event"].synchronize()
     (buf,) = handles["cols"].values()
@@ -463,21 +471,127 @@ def test_transport_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
     assert loader.transport["fields"] == 0
 
 
+def test_packed_entry_matches_three_kernel_route(cuda):
+    """The annotate kernel's packed entry against the card's three-kernel
+    route (inflate, ``annotate_bin``, pack) byte for byte and against its
+    plain composition under the selection contract, at W = 1 to 192, both
+    column counts, 0 to 257 rows, every packed byte value, 65,536 and
+    1,048,576 rows, all from unaligned bases
+    (``chip_smoke.annotate_packed_checks``): one launch a call."""
+    from chip_smoke import PACKED_ROWS, PACKED_WIDTHS, annotate_packed_checks
+
+    before = LAUNCHES["annotate_bin_packed"]
+    checks, worst = annotate_packed_checks(torch, cuda)
+    assert worst == 0 and all(c["equal_three_kernels"] and not c["plain_mismatched"]
+                              for c in checks)
+    assert len(checks) == len(PACKED_WIDTHS) * 2 * len(PACKED_ROWS) + 2
+    assert sum(c["host_fallback_rows"] for c in checks) > 0
+    # a launch a call with rows (the first-use check's own probe included)
+    calls = sum(c["rows"] > 0 for c in checks)
+    assert LAUNCHES["annotate_bin_packed"] - before in (calls, calls + 1)
+
+
+def test_packed_entry_aligned_and_offset_outputs_agree(cuda):
+    """The same rows through the packed entry from aligned and from
+    unaligned inputs, at 65,536 and 129 rows: the same bytes, and the
+    columns ``unpack_outputs`` reads equal the plain fields."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_packed
+    from annotatedvdb_tpu_torch.ops.pack import inflate_alleles_np, unpack_outputs
+    from chip_smoke import packed_inputs
+
+    for rows in (65_536, 129):
+        host = packed_inputs(rows, 41)
+        aligned = annotate_bin_packed(*(torch.from_numpy(x).to(cuda) for x in host), 49)
+        shifted = annotate_bin_packed(*(_offset_copy(x, cuda, off) for x, off in
+                                        zip(host, (3, 5, 9, 1, 2))), 49)
+        torch.cuda.synchronize()
+        assert torch.equal(aligned, shifted)
+        cols = unpack_outputs(aligned.cpu().numpy())
+        ref, alt = inflate_alleles_np(host[1], host[2], 49)
+        want = annotate_bin_reference(*(torch.from_numpy(np.ascontiguousarray(x))
+                                        for x in (host[0], ref, alt, host[3], host[4])))
+        ok = ~want["host_fallback"].numpy()
+        np.testing.assert_array_equal(cols["h"], want["allele_hash"].numpy().view(np.uint32))
+        np.testing.assert_array_equal(cols["host_fallback"], want["host_fallback"].numpy())
+        np.testing.assert_array_equal(cols["needs_digest"], want["needs_digest"].numpy())
+        np.testing.assert_array_equal(cols["leaf_bin"][ok], want["leaf_bin"].numpy()[ok])
+        np.testing.assert_array_equal(cols["bin_level"][ok], want["bin_level"].numpy()[ok])
+        assert not cols["dup"].any()
+
+
+def test_packed_entry_refuses_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import MAX_WIDTH, annotate_bin_packed
+
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda)
+    p = torch.zeros((8, 25), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        annotate_bin_packed(i32, p, p.cpu(), i32, i32, 49)
+    with pytest.raises(TypeError, match="ref_len must be"):
+        annotate_bin_packed(i32, p, p, i32.to(torch.int64), i32, 49)
+    with pytest.raises(ValueError, match="contiguous"):
+        annotate_bin_packed(i32, p[:, ::2], p[:, ::2], i32, i32, 25)
+    with pytest.raises(ValueError, match="packed columns"):
+        annotate_bin_packed(i32, p, p, i32, i32, 51)
+    wide = torch.zeros((8, MAX_WIDTH + 1), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="packed columns"):
+        annotate_bin_packed(i32, wide, wide, i32, i32, MAX_WIDTH)
+    with pytest.raises(ValueError, match="allele width"):
+        annotate_bin_packed(i32, wide, wide, i32, i32, MAX_WIDTH + 1)
+    assert annotate_bin_packed(i32[:0], p[:0], p[:0], i32[:0], i32[:0], 49).shape == (0, 10)
+
+
+def test_packed_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
+    """A packed entry whose rows are wrong on the card fails its first-use
+    check, and a load on the card that packs fails with it (no fallback
+    to the three-kernel route); nothing is latched."""
+    from annotatedvdb_tpu_torch.loaders import VcfLoader
+    from annotatedvdb_tpu_torch.models import pipeline
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    real = annotate_cuda.annotate_bin_packed
+
+    def wrong(*args):
+        out = real(*args)
+        out[:, 0] ^= 1
+        return out
+
+    monkeypatch.setattr(pipeline, "_VERIFIED", set())
+    monkeypatch.setattr(annotate_cuda, "annotate_bin_packed", wrong)
+    with pytest.raises(RuntimeError, match="packed entry disagrees"):
+        pipeline.annotate_packed_fn(cuda)
+    assert ("verify_packed_kernel", str(cuda)) not in pipeline._VERIFIED
+    monkeypatch.delenv("AVDB_PACK_TRANSPORT", raising=False)
+    vcf = str(tmp_path / "w.vcf")
+    write_phase4_vcf(vcf, 2000)
+    loader = VcfLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "ledger.jsonl")),
+                       log=lambda *a: None, device=cuda)
+    with pytest.raises(RuntimeError, match="packed entry disagrees"):
+        loader.load_file(vcf, commit=True)
+    loader.close()
+    assert loader.transport["packed"] == 0
+
+
 def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     """``load-vcf`` on the card under ``AVDB_PACK_TRANSPORT`` auto, always
     and never, and on the CPU: one store, byte for byte; on the card auto
-    and always launch one inflate and one pack a chunk (and one each in
-    the warmup), never launches neither; ``store_display_attributes`` and
-    the spill tier on the card write the CPU's stores
-    (``chip_smoke.display_spill_parity``)."""
+    and always launch the packed entry once a chunk (and once in the
+    warmup) and no inflate, ``annotate_bin`` or pack, never launches
+    ``annotate_bin`` once a chunk and neither transport kernel;
+    ``store_display_attributes`` and the spill tier on the card write the
+    CPU's stores (``chip_smoke.display_spill_parity``)."""
     import chip_smoke
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
     from annotatedvdb_tpu_torch.ops import pack
 
     for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE"):
         monkeypatch.delenv(name, raising=False)
     pack.ensure_transport(cuda)
     pack.ensure_nibble(cuda)
+    annotate_hash_fn(cuda)  # the entries' once-per-process checks launch too
+    annotate_packed_fn(cuda)
     vcf = str(tmp_path / "m.vcf")
     lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
     out = {}
@@ -485,16 +599,22 @@ def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
                        ("cpu", "auto")):
         d = str(tmp_path / f"store_{plat}_{mode}")
         monkeypatch.setenv("AVDB_PACK_TRANSPORT", mode)
-        before = dict(pack.LAUNCHES)
+        before = dict(pack.LAUNCHES), dict(LAUNCHES)
         assert load_vcf(["--fileName", vcf, "--storeDir", d, "--commit",
                          "--commitAfter", "4096", "--logAfter", "0",
                          "--platform", plat]) == 0
         with open(f"{d}/ledger.jsonl") as f:
             chunks = sum('"checkpoint"' in line for line in f)
-        got = {k: pack.LAUNCHES[k] - before[k] for k in ("inflate_alleles", "pack_outputs")}
+        got = {**{k: pack.LAUNCHES[k] - before[0][k] for k in ("inflate_alleles", "pack_outputs")},
+               **{k: LAUNCHES[k] - before[1][k] for k in LAUNCHES}}
         packs = plat == "cuda" and mode != "never"
-        assert got == ({"inflate_alleles": chunks + 1, "pack_outputs": chunks + 1}
-                       if packs else {"inflate_alleles": 0, "pack_outputs": 0}), (mode, got)
+        want = dict.fromkeys(("inflate_alleles", "pack_outputs", "annotate_bin",
+                              "annotate_bin_packed"), 0)
+        if packs:
+            want["annotate_bin_packed"] = chunks + WARMUP_PACKED
+        elif plat == "cuda":
+            want["annotate_bin"] = chunks
+        assert got == want, (mode, got)
         out[(plat, mode)] = store_bytes(d)
     assert all(v == out[("cpu", "auto")] for v in out.values())
     monkeypatch.delenv("AVDB_PACK_TRANSPORT")
@@ -574,29 +694,33 @@ def test_bucketed_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """The CLI's default configuration on the card and on the CPU, with
     64 KiB read windows so windows cut chunks: the same store bytes; on the
-    card one kernel launch per chunk and no plain hash."""
+    card one launch of the packed entry per chunk (and the warmup's) and no
+    plain hash."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
     from annotatedvdb_tpu_torch.native import vcf as native_vcf
 
     for name in ("AVDB_INGEST_ENGINE", "AVDB_PIPELINE", "AVDB_ASYNC_STORE",
                  "AVDB_PACK_TRANSPORT"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(native_vcf, "READ_SIZE", 64 << 10)
-    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    annotate_hash_fn(cuda)  # their once-per-process checks launch the kernel too
+    annotate_packed_fn(cuda)
     vcf = str(tmp_path / "v.vcf")
     write_phase4_vcf(vcf, 20_000)
     out = {}
     for plat in ("cuda", "cpu"):
         d = str(tmp_path / f"store_{plat}")
-        calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+        calls, launches = dict(hashing.CALLS), dict(LAUNCHES)
         assert load_vcf(["--fileName", vcf, "--storeDir", d, "--commit",
                          "--commitAfter", "4096", "--logAfter", "0",
                          "--platform", plat]) == 0
         if plat == "cuda":
             with open(f"{d}/ledger.jsonl") as f:
                 chunks = sum('"checkpoint"' in line for line in f)
-            assert LAUNCHES["annotate_bin"] - launches == chunks > 20000 // 4096
+            assert LAUNCHES["annotate_bin_packed"] - launches["annotate_bin_packed"] \
+                == chunks + WARMUP_PACKED and chunks > 20000 // 4096
+            assert LAUNCHES["annotate_bin"] == launches["annotate_bin"]
             assert hashing.CALLS["cuda"] == calls["cuda"]
         out[plat] = store_bytes(d)
     assert out["cuda"] == out["cpu"]
@@ -635,17 +759,19 @@ def test_update_legs_on_card_match_cpu(cuda, tmp_path, monkeypatch, engine):
     """``update-qc`` (novel rows inserted), ``load-snpeff-lof`` and
     ``update-annotation`` on copies of one store, on the card and on the
     CPU: the same store bytes after each, the predicted counters, the
-    predicted ``annotate_bin`` launches and no plain hash on the card."""
+    predicted annotate launches (the packed entry for each insert) and no
+    plain hash on the card."""
     import shutil
 
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
 
     if engine == "python":
         monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
     else:
         monkeypatch.delenv("AVDB_INGEST_ENGINE", raising=False)
     annotate_hash_fn(cuda)
+    annotate_packed_fn(cuda)
     vcf = str(tmp_path / "v.vcf")
     lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
     base = str(tmp_path / "base")
@@ -663,12 +789,12 @@ def test_update_legs_on_card_match_cpu(cuda, tmp_path, monkeypatch, engine):
         shutil.copytree(base, d)
         out[plat] = []
         for name, (path, want) in specs.items():
-            calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+            calls, launches = dict(hashing.CALLS), annotate_launches(LAUNCHES)
             run = run_update(torch, plat, name, path, d)
             assert {k: run["counters"].get(k, 0) for k in want} == want
             predicted = update_launches_predicted(name, run, engine == "native")
             if plat == "cuda":
-                assert LAUNCHES["annotate_bin"] - launches == predicted
+                assert annotate_launches(LAUNCHES) - launches == predicted
                 assert hashing.CALLS["cuda"] == calls["cuda"]
             out[plat].append(store_bytes(d))
     assert out["cuda"] == out["cpu"]
@@ -902,9 +1028,10 @@ def test_ref_genome_load_on_card_matches_cpu(cuda, genome_inputs, tmp_path,
     """``load-vcf --refGenome`` on the card and on the CPU: the same store
     bytes and ledger records, ``ref_mismatch`` as the generator counts it;
     on the card one ``validate_ref`` launch per chunk that inserts rows,
-    one ``annotate_bin`` launch per chunk, no plain version of either."""
+    one annotate launch per chunk (the packed entry) and the warmup's, no
+    plain version of either."""
     from annotatedvdb_tpu_torch.genome import refgenome
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
     from annotatedvdb_tpu_torch.native import vcf as native_vcf
     from chip_smoke import inserting_chunks, ledger_records
 
@@ -913,18 +1040,20 @@ def test_ref_genome_load_on_card_matches_cpu(cuda, genome_inputs, tmp_path,
     else:
         monkeypatch.delenv("AVDB_INGEST_ENGINE", raising=False)
     monkeypatch.setattr(native_vcf, "READ_SIZE", 64 << 10)
-    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    annotate_hash_fn(cuda)  # their once-per-process checks launch the kernel too
+    annotate_packed_fn(cuda)
     out = {}
     for plat in ("cuda", "cpu"):
         d = str(tmp_path / f"store_{plat}")
-        before = (LAUNCHES["annotate_bin"], refgenome.LAUNCHES["validate_ref"],
+        before = (annotate_launches(LAUNCHES), refgenome.LAUNCHES["validate_ref"],
                   refgenome.CALLS["cuda"], hashing.CALLS["cuda"])
         _ref_genome_load(genome_inputs, d, plat)
         counters = ledger_records(d, "finish")[-1]["counters"]
         assert (counters["variant"], counters["ref_mismatch"]) == genome_inputs["want"]
         if plat == "cuda":
             chunks = len(ledger_records(d, "checkpoint"))
-            assert LAUNCHES["annotate_bin"] - before[0] == chunks > 20_000 // 4096
+            assert annotate_launches(LAUNCHES) - before[0] == chunks + WARMUP_PACKED
+            assert chunks > 20_000 // 4096
             assert refgenome.LAUNCHES["validate_ref"] - before[1] == \
                 inserting_chunks(d, 1) == chunks
             assert (refgenome.CALLS["cuda"], hashing.CALLS["cuda"]) == before[2:]
@@ -1915,21 +2044,29 @@ def test_mesh_steps_on_card_match_cpu(cuda, monkeypatch, tmp_path):
 def test_mesh_load_on_card_matches_single_device(cuda, monkeypatch, tmp_path):
     """``load-vcf --maxWorkers 4`` over four virtual shards of the card
     writes the single-device card load's store, with four ``annotate_bin``
-    launches a chunk."""
+    launches a chunk where the single-device load launches the packed
+    entry once a chunk (and once in its warmup)."""
     from annotatedvdb_tpu_torch.cli.load_vcf import main
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
 
     vcf = str(tmp_path / "in.vcf")
     write_phase4_vcf(vcf, 20_000, seed=8)
     _virtual_mesh(monkeypatch)
+    annotate_hash_fn(cuda)  # their once-per-process checks launch the kernel too
+    annotate_packed_fn(cuda)
     launches = {}
     for tag, workers in (("mesh", "4"), ("single", "1")):
-        before = LAUNCHES["annotate_bin"]
+        before = dict(LAUNCHES)
         assert main(["--fileName", vcf, "--storeDir", str(tmp_path / tag),
                      "--commit", "--commitAfter", "4096",
                      "--maxWorkers", workers]) == 0
-        launches[tag] = LAUNCHES["annotate_bin"] - before
-    chunks = launches["single"]
-    assert chunks >= 5 and launches["mesh"] == 4 * chunks
+        launches[tag] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    with open(tmp_path / "single" / "ledger.jsonl") as f:
+        chunks = sum('"checkpoint"' in line for line in f)
+    assert chunks >= 5
+    assert launches["mesh"] == {"annotate_bin": 4 * chunks, "annotate_bin_packed": 0}
+    assert launches["single"] == {"annotate_bin": 0,
+                                  "annotate_bin_packed": chunks + WARMUP_PACKED}
     assert store_bytes(str(tmp_path / "mesh")) == store_bytes(str(tmp_path / "single"))
 
 

@@ -1,8 +1,11 @@
 """The port's CUDA sources run on the CPU through ``tests/cuda_sim.h``.
 
 ``csrc/export_pack.cu``, ``csrc/bits_spans.cu`` (both of its entry points:
-one group and a stack of groups), ``csrc/lookup_multi.cu`` and
-``csrc/pack.cu`` (three entry points, three launches) are compiled with
+one group and a stack of groups), ``csrc/lookup_multi.cu``,
+``csrc/pack.cu`` (three entry points, three launches) and
+``csrc/annotate_bin.cu`` (two entry points; its PTX helpers for TMA bulk
+copies, mbarriers and byte permutes replaced by the header's emulations,
+its dynamic shared memory by a buffer of the launch's size) are compiled with
 ``g++ -std=c++20`` against the header, which maps the CUDA surface they
 use onto C++ threads (one ``std::thread`` per CUDA thread, blocks one
 after another, warp ballots through a per-warp buffer between barriers),
@@ -15,7 +18,11 @@ the pack's numpy twin ``export_pack_host`` and the plain versions
 ``bits_spans_reference``, ``bits_spans_stacked_reference`` and
 ``lookup_in_sorted_multi_reference`` on CPU tensors, and the transport's
 inflate and packs against ``inflate_alleles_reference``,
-``pack_outputs_reference`` and ``pack_vep_outputs_reference``.  The
+``pack_outputs_reference`` and ``pack_vep_outputs_reference``, and the
+annotate kernel's two entries against ``annotate_bin_reference`` (the
+selection contract) and ``annotate_bin_packed_reference``
+(``packed_mismatches``) over ragged tiles, unaligned bases and several
+tiles a block.  The
 simulated card has 3 SMs of 2 blocks, so the pack's grid strides.  This
 is no timing and no proof that ``nvcc`` accepts the source: the card runs
 the same comparisons (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -33,6 +40,8 @@ import numpy as np
 import pytest
 import torch
 
+from annotatedvdb_tpu_torch.models.pipeline import packed_mismatches
+from annotatedvdb_tpu_torch.ops import annotate_cuda as AC
 from annotatedvdb_tpu_torch.ops import dedup as DD
 from annotatedvdb_tpu_torch.ops import export_pack as P
 from annotatedvdb_tpu_torch.ops import intervals as I
@@ -485,3 +494,165 @@ def test_pack_refuses_bad_arguments(libs):
                                       _ptr(out), None) == 1
     assert lib.inflate_alleles_launch(_ptr(b8), _ptr(b8), 1, 4, 7, _ptr(out),
                                       _ptr(out), None) == 0
+
+
+# ------------------------------------------------------------ annotate_bin
+
+#: csrc/annotate_bin.cu's PTX helpers, by name, and the bodies that
+#: emulate them on the CPU (the fences in its kernels drop out)
+PTX_HELPERS = {
+    "smem_addr": "return 0;",
+    "mbar_init": "(void)count; sim_mbar_init(bar);",
+    "mbar_arrive_expect_tx": "sim_mbar_expect(bar, bytes);",
+    "mbar_wait": "sim_mbar_wait(bar, parity);",
+    "bulk_copy": "sim_bulk_copy(dst, src, bytes, bar);",
+    "prmt": "return sim_prmt(a, b, sel);",
+}
+#: a launch with dynamic shared memory: its size sizes the simulator's
+SMEM_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*((?:[^,()]|\([^()]*\))+),"
+                         r"\s*(static_cast<cudaStream_t>\(stream\))>>>\((\w+)\);")
+
+
+def annotate_sim_source(text: str) -> str:
+    """``csrc/annotate_bin.cu`` for the simulator: each PTX helper's body
+    replaced by its emulation, the fences dropped, the dynamic shared
+    memory the simulator's buffer sized at each launch."""
+    for name, body in PTX_HELPERS.items():
+        m = re.search(r"__device__ __forceinline__ [^\n]*\b%s\(" % name, text)
+        assert m, f"annotate_bin.cu has no helper {name}"
+        start = text.index("{", m.end())
+        depth, end = 0, start
+        for end in range(start, len(text)):
+            depth += {"{": 1, "}": -1}.get(text[end], 0)
+            if depth == 0:
+                break
+        text = text[:start] + "{\n  " + body + "\n}" + text[end + 1:]
+    text, fences = re.subn(r'asm volatile\("fence[^;]*;\\n" ::: "memory"\);', "", text)
+    assert fences == 4, fences  # two a kernel: after the barriers' init, before a refill
+    assert "asm" not in re.sub(r"//[^\n]*", "", text), "an unemulated PTX statement"
+    text = text.replace("extern __shared__ __align__(128) uint8_t smem[];",
+                        "uint8_t* smem = sim_dynamic_smem;")
+    text, n = SMEM_LAUNCH.subn(
+        lambda m: f"sim_dynamic_smem_alloc({m.group(4)}); "
+                  f"{m.group(1)}<<<{m.group(2)}, {m.group(3)}, 0, {m.group(5)}>>>({m.group(6)});",
+        text)
+    assert n == 2, n
+    return sim_source(text, launches=2)
+
+
+@pytest.fixture(scope="module")
+def annotate_lib(tmp_path_factory):
+    """``csrc/annotate_bin.cu`` built for the simulator, both entries
+    declared."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel sources for the CPU")
+    work = tmp_path_factory.mktemp("cuda_sim_annotate")
+    src = work / "annotate_bin.cpp"
+    with open(os.path.join(CSRC_DIR, "annotate_bin.cu")) as f:
+        src.write_text(annotate_sim_source(f.read()))
+    so = work / "libannotate_bin.so"
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", *UBSAN,
+                           "-o", str(so), str(src)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.annotate_bin_launch.argtypes = [vp] * 5 + [i, i, vp, vp]
+    lib.annotate_bin_packed_launch.argtypes = [vp] * 5 + [i, i, i, vp, vp]
+    return lib
+
+
+def _placed(x: np.ndarray, offset: int) -> np.ndarray:
+    buf = _buffer(x.size, x.dtype, offset * x.itemsize).reshape(x.shape)
+    buf[...] = x
+    return buf
+
+
+def _annotate_packed_sim(lib, case, width, offsets, out_offset):
+    """The packed entry's ``[n, 10]`` rows, each input ``offsets`` elements
+    and the output ``out_offset`` bytes past 64-byte alignment."""
+    args = [_placed(np.ascontiguousarray(x), off) for x, off in zip(case, offsets)]
+    n, cols = args[1].shape
+    out = _buffer(n * 10, np.uint8, out_offset)
+    out[:] = 0xAB
+    rc = lib.annotate_bin_packed_launch(*(_ptr(a) for a in args), n, cols, width,
+                                        _ptr(out), None)
+    assert rc == 0
+    return out.reshape(n, 10)
+
+
+@pytest.mark.parametrize("extra_cols", [0, 3], ids=["cols", "cols+3"])
+@pytest.mark.parametrize("width", [1, 7, 8, 49, 96, 192])
+def test_annotate_packed_source_matches_plain_version(annotate_lib, capfd, width,
+                                                      extra_cols):
+    """The packed entry on ``chip_smoke.annotate_packed_cases`` (every packed
+    byte value, codes 14 and 15, over-width and SNV rows, edge rows) at 1,
+    129 and 257 rows and all 536 (five tiles on the simulated card's six
+    block slots, then a block walking several tiles at 2,000 rows), the
+    packed matrices 3 and 7 bytes off alignment and the output aligned or
+    not (16-byte or byte stores): the plain composition's rows under the
+    selection contract, and the same rows from every placement."""
+    from chip_smoke import annotate_packed_cases
+
+    case = annotate_packed_cases(width, extra_cols)
+    for n in (1, 129, 257, None):
+        cut = [x[:n] for x in case]
+        want = AC.annotate_bin_packed_reference(*(torch.from_numpy(x) for x in cut), width)
+        outs = [_annotate_packed_sim(annotate_lib, cut, width, offsets, out_off)
+                for offsets, out_off in (((0, 0, 0, 0, 0), 0), ((1, 3, 7, 1, 1), 0),
+                                         ((0, 5, 2, 0, 0), 3))]
+        no_misaligned(capfd)
+        assert packed_mismatches(want, torch.from_numpy(outs[0].copy())) == [], (n,)
+        for got in outs[1:]:
+            np.testing.assert_array_equal(got, outs[0])
+    if width == 49:
+        big = [np.concatenate([x] * 4)[:2000] for x in case]
+        want = AC.annotate_bin_packed_reference(*(torch.from_numpy(x) for x in big), width)
+        got = _annotate_packed_sim(annotate_lib, big, width, (1, 3, 7, 1, 1), 0)
+        no_misaligned(capfd)
+        assert packed_mismatches(want, torch.from_numpy(got.copy())) == []
+
+
+@pytest.mark.parametrize("width", [1, 8, 49, 192])
+def test_annotate_fields_source_matches_plain_version(annotate_lib, capfd, width):
+    """The first entry on the smoke's edge rows and 300 random rows, ref and
+    alt off alignment: the 13 fields in the kernel's layout against
+    ``annotate_bin_reference`` under the selection contract."""
+    from chip_smoke import edge_batch, random_batch
+
+    words = [name for name, dtype in AC.FIELDS if dtype == torch.int32]
+    small = [name for name, dtype in AC.FIELDS if dtype != torch.int32]
+    for batch in (edge_batch(width), random_batch(width, 300, width)):
+        args = [_placed(np.ascontiguousarray(x), off)
+                for x, off in zip(batch, (0, 3, 5, 0, 0))]
+        n = args[0].shape[0]
+        out = _buffer(n * AC.ROW_BYTES, np.uint8, 0)
+        rc = annotate_lib.annotate_bin_launch(*(_ptr(a) for a in args), n, width,
+                                              _ptr(out), None)
+        assert rc == 0
+        no_misaligned(capfd)
+        want = AC.annotate_bin_reference(*(torch.from_numpy(np.ascontiguousarray(x))
+                                           for x in batch))
+        ok = ~want["host_fallback"].numpy()
+        w32 = out[:4 * len(words) * n].view(np.int32).reshape(len(words), n)
+        b8 = out[4 * len(words) * n:].reshape(len(small), n)
+        for name, dtype in AC.FIELDS:
+            got = (w32[words.index(name)] if name in words
+                   else b8[small.index(name)].view(np.int8 if dtype == torch.int8 else np.uint8))
+            ref = want[name].numpy().astype(got.dtype)
+            rows = slice(None) if name in AC.EVERY_ROW else ok
+            np.testing.assert_array_equal(got[rows], ref[rows], err_msg=name)
+
+
+def test_annotate_source_refuses_bad_arguments(annotate_lib):
+    """Too few or too many packed columns, a width outside 1..192 and no
+    rows are refused before any launch (cudaErrorInvalidValue)."""
+    lib = annotate_lib
+    i32 = _buffer(8, np.int32, 0)
+    packed = _buffer(8 * 193, np.uint8, 0)
+    out = _buffer(80, np.uint8, 0)
+    ptrs = [_ptr(i32), _ptr(packed), _ptr(packed), _ptr(i32), _ptr(i32)]
+    assert lib.annotate_bin_packed_launch(*ptrs, 8, 25, 49, _ptr(out), None) == 0
+    for n, cols, w in ((8, 24, 49), (8, 193, 192), (8, 97, 193), (8, 1, 0), (0, 25, 49)):
+        assert lib.annotate_bin_packed_launch(*ptrs, n, cols, w, _ptr(out), None) == 1, (n, cols, w)
+    assert lib.annotate_bin_launch(*ptrs, 8, 193, _ptr(out), None) == 1
