@@ -1,5 +1,6 @@
 // Fused annotate + bin-index + allele-hash kernel for Hopper (sm_90a), with
-// a second entry that also takes the packed transport's two device steps.
+// a second entry that also takes the packed transport's two device steps
+// and a third that computes only the VEP update's identity columns.
 //
 // Replaces annotatedvdb_tpu/ops/annotate_pallas.py::annotate_bin_pallas
 // (the Pallas TPU kernel, body `_kernel`) and, in the same pass, the XLA
@@ -16,10 +17,10 @@
 // bytes included, so over-width rows hash their truncated bytes exactly as
 // the plain version does.
 //
-// Two entries share the body:
+// Three entries share the staging ring and the identity parts of the body:
 // - annotate_bin_launch: [n, W] allele byte matrices in, the 13 fields out
-//   (raw uploads, display attributes, the VEP and update legs, the egress
-//   and the mesh);
+//   (raw uploads, display attributes, the egress, the mesh, and VEP stores
+//   wider than the identity row takes);
 // - annotate_bin_packed_launch: the nibble-packed [n, cols] matrices of the
 //   packed transport in (two 4-bit codes a byte, low nibble first, as
 //   csrc/pack.cu's inflate reads them) and the [n, 10] row of
@@ -29,7 +30,19 @@
 //   inflated matrices nor the 13 fields reach device memory.  It replaces,
 //   with the first entry's work, the reference's XLA programs
 //   annotatedvdb_tpu/ops/pack.py::inflate_alleles (:124) and pack_outputs
-//   (:32) on that path.
+//   (:32) on that path;
+// - annotate_bin_identity_launch: [n, W] allele byte matrices and the two
+//   lengths in (no position), the [n, 6] row of
+//   ops/pack.py::pack_vep_outputs out (hash, the shared prefix's low byte,
+//   host_fallback), so a VEP identity batch and an update leg's lookup hash
+//   take one launch where they took two (annotate_bin, pack_vep_outputs).
+//   Its body is the hash, the prefix scan and the width test alone: no
+//   inversion or motif scan, no end, class or bin.  It replaces, on that
+//   path, the reference's annotate step, allele_hash and the XLA program
+//   annotatedvdb_tpu/ops/pack.py::pack_vep_outputs (:214)
+//   (annotatedvdb_tpu/loaders/vep_loader.py:478-503).  All three outputs
+//   are exact on every row: the prefix scan stops at the width, so it is the
+//   plain version's on host_fallback rows too.
 //
 // Bound: memory.  Each row of the first entry reads 2W + 12 bytes (two
 // W-byte allele rows and three int32 scalars) and writes 37 bytes (eight
@@ -38,6 +51,8 @@
 // integer operations per row, so at W = 49 the card's 3.35 TB/s, not its
 // ALUs, is the limit.  The packed entry reads 2 cols + 12 bytes and writes
 // 10 a row: 72 at W = 49, 4.4x less than the three kernels it replaces.
+// The identity entry reads 2W + 8 and writes 6: 112 at W = 49, where
+// annotate_bin and pack_vep_outputs moved 147 + 15.
 //
 // Design: a persistent grid (as many blocks as fit on the SMs, rounded so
 // every block walks the same number of tiles) strides over tiles of
@@ -78,6 +93,12 @@
 // contiguous bytes with 16-byte stores (byte stores where `out` is not
 // 16-byte aligned, and for the last tile's ragged end).
 //
+// The identity entry runs the first entry's ring over the allele rows (the
+// position column is not read) and writes its 6-byte rows through two
+// alternating shared [T, 6] tiles, stored as the packed entry stores its
+// rows.  Its width limit is the row's: a prefix of at most 255 fits its
+// byte, and two stages of [128, 255] tiles fit in shared memory.
+//
 // Overflow: positions near INT32_MAX (pad rows carry POS_SENTINEL) make
 // sums such as pos + nr overflow.  They are computed in unsigned arithmetic
 // and reinterpreted, which is the two's-complement wrap jnp and torch give.
@@ -102,6 +123,11 @@ constexpr uint32_t kFnvPrime = 16777619u;
 // the packed entry's output row (ops/pack.py::pack_outputs) and its tile
 constexpr int kOutRow = 10;
 constexpr int kOutTile = kTileRows * kOutRow;
+// the identity entry's row (ops/pack.py::pack_vep_outputs), its tile, and
+// its width limit (the prefix's byte)
+constexpr int kVepRow = 6;
+constexpr int kVepTile = kTileRows * kVepRow;
+constexpr int kIdentityMaxWidth = 255;
 // nibble code -> byte, codes 0-7 and 8-15, one byte a code at shift
 // 8 (code & 7): 0 A C G T N a c / g t n * . - 0 0 (csrc/pack.cu's table)
 constexpr uint64_t kDecLo = 0x63614E5447434100ull;
@@ -143,6 +169,14 @@ struct PackedParams {
   uint32_t dec_base;    // where the decoded buffers start in shared memory
   uint32_t out_base;    // where the two output tiles start
   bool out_aligned;     // ring.out 16-byte aligned
+};
+
+// The identity entry's launch: the ring over the allele rows (`pos` null)
+// and where its two output tiles start.
+struct IdentityParams {
+  Params ring;
+  uint32_t out_base;
+  bool out_aligned;  // ring.out 16-byte aligned
 };
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
@@ -234,7 +268,9 @@ struct Held {
 };
 
 // Start staging `tile` into `stage`: the bulk copies (thread 0), the edge
-// bytes (threads 0..63) and every thread's row scalars.
+// bytes (threads 0..63) and every thread's row scalars (the position only
+// where kPos).
+template <bool kPos>
 __device__ __forceinline__ void stage_tile(const Params& p, uint8_t* smem,
                                            uint64_t* bars, int tile,
                                            int stage, Held& held,
@@ -280,7 +316,7 @@ __device__ __forceinline__ void stage_tile(const Params& p, uint8_t* smem,
   }
   if (t < rows) {
     const int row = row0 + t;
-    sc = {p.pos[row], p.rlen[row], p.alen[row]};
+    sc = {kPos ? p.pos[row] : 0, p.rlen[row], p.alen[row]};
   }
 }
 
@@ -316,6 +352,46 @@ __device__ __forceinline__ uint32_t fnv_row(uint32_t h, const uint8_t* smem,
   return h;
 }
 
+// The identity hash: FNV-1a over the lengths' low bytes, then every byte
+// of both `w`-byte rows at shared-memory byte offsets `ref_off` and
+// `alt_off`, pad bytes included.
+__device__ __forceinline__ uint32_t identity_hash(const uint8_t* smem,
+                                                  uint32_t ref_off,
+                                                  uint32_t alt_off, int w,
+                                                  int32_t rlen, int32_t alen) {
+  uint32_t h = fnv(kFnvOffset, static_cast<uint32_t>(rlen) & 0xFFu);
+  h = fnv(h, static_cast<uint32_t>(alen) & 0xFFu);
+  h = fnv_row(h, smem, ref_off, w);
+  return fnv_row(h, smem, alt_off, w);
+}
+
+// Left-normalization: the length of the two rows' shared leading run
+// within the width and both lengths, four bytes a step (the first
+// differing byte ends it); 0 for an SNV, which scans no byte.
+__device__ __forceinline__ int32_t shared_prefix(const uint8_t* smem,
+                                                 uint32_t ref_off,
+                                                 uint32_t alt_off, int w,
+                                                 int32_t rlen, int32_t alen) {
+  const int lim = rlen == 1 && alen == 1 ? 0 : min(w, min(rlen, alen));
+  int32_t prefix = 0;
+  while (prefix < lim) {
+    const uint32_t x =
+        word_at(smem, ref_off + prefix) ^ word_at(smem, alt_off + prefix);
+    const int same = x ? (__ffs(x) - 1) >> 3 : 4;
+    if (same < 4 || prefix + 4 >= lim) {
+      prefix = min(prefix + same, lim);
+      break;
+    }
+    prefix += 4;
+  }
+  return prefix;
+}
+
+// host_fallback: an allele longer than the width (truncated on the device).
+__device__ __forceinline__ bool over_width(int32_t rlen, int32_t alen, int w) {
+  return rlen > w || alen > w;
+}
+
 // One variant's outputs.
 struct Row {
   int32_t prefix, nr, na, end, loc_start, leaf, level;
@@ -337,30 +413,16 @@ __device__ __forceinline__ Row annotate_row(const uint8_t* smem,
   const int32_t alen = sc.alen;
 
   // ---- identity hash: lengths' low bytes, then every byte of both rows
-  uint32_t h = fnv(kFnvOffset, static_cast<uint32_t>(rlen) & 0xFFu);
-  h = fnv(h, static_cast<uint32_t>(alen) & 0xFFu);
-  h = fnv_row(h, smem, ref_off, w);
-  h = fnv_row(h, smem, alt_off, w);
+  const uint32_t h = identity_hash(smem, ref_off, alt_off, w, rlen, alen);
 
   const bool snv = rlen == 1 && alen == 1;
   const bool mnv = rlen == alen && !snv;
 
-  // ---- left-normalization: length of the shared leading run, four bytes
-  // a step (the first differing byte ends it)
+  // ---- left-normalization.  The guard repeats the helper's SNV rule: with
+  // it this kernel compiles to the instructions it had before the helper
+  // (without it, 1.0-1.8% slower in turns on the card)
   int32_t prefix = 0;
-  if (!snv) {
-    const int lim = min(w, min(rlen, alen));
-    while (prefix < lim) {
-      const uint32_t x =
-          word_at(smem, ref_off + prefix) ^ word_at(smem, alt_off + prefix);
-      const int same = x ? (__ffs(x) - 1) >> 3 : 4;
-      if (same < 4 || prefix + 4 >= lim) {
-        prefix = min(prefix + same, lim);
-        break;
-      }
-      prefix += 4;
-    }
-  }
+  if (!snv) prefix = shared_prefix(smem, ref_off, alt_off, w, rlen, alen);
 
   // ---- inversion: ref == reverse(alt), equal lengths.  Within the width,
   // four bytes of ref against four byte-reversed bytes of alt a step; past
@@ -447,7 +509,7 @@ __device__ __forceinline__ Row annotate_row(const uint8_t* smem,
   out.cls = cls;
   out.dup_motif = is_dup && ins_side;
   out.digest = wrap_add(rlen, alen) > kMaxPkSequenceLength;
-  out.fallback = rlen > w || alen > w;
+  out.fallback = over_width(rlen, alen, w);
   return out;
 }
 
@@ -487,7 +549,7 @@ __global__ void __launch_bounds__(kTileRows, 1024 / kTileRows)
   int tile = blockIdx.x;
   Held held;
   Scalars next = {0, 0, 0};
-  stage_tile(p, smem, bars, tile, 0, held, next);
+  stage_tile<true>(p, smem, bars, tile, 0, held, next);
   if (held.dst >= 0) smem[held.dst] = held.value;
   __syncthreads();
 
@@ -499,7 +561,7 @@ __global__ void __launch_bounds__(kTileRows, 1024 / kTileRows)
     // stage ^ 1 was last read in iteration k - 1, before its closing
     // barrier: refill it with the next tile while this one is scanned
     if (ahead < p.ntiles) {
-      stage_tile(p, smem, bars, ahead, stage ^ 1, held, next);
+      stage_tile<true>(p, smem, bars, ahead, stage ^ 1, held, next);
     }
     mbar_wait(&bars[stage], (phases >> stage) & 1u);
     phases ^= 1u << stage;
@@ -561,17 +623,19 @@ __device__ __forceinline__ void decode_row(uint8_t* smem, uint32_t poff,
   }
 }
 
-// The packed entry's store of a tile's `rows` output rows from shared
-// memory: 16 bytes a thread where `out` is 16-byte aligned (a tile starts
-// at a multiple of 1,280 bytes), bytes for the rest.
-__device__ __forceinline__ void store_tile(const PackedParams& p,
+// The store of a tile's `rows` output rows of kRow bytes from shared memory
+// to `out`: 16 bytes a thread where `out` is 16-byte aligned (a tile starts
+// at a multiple of 128 kRow bytes, itself a multiple of 16), bytes for the
+// rest.
+template <int kRow>
+__device__ __forceinline__ void store_tile(uint8_t* out, bool out_aligned,
                                            const uint8_t* otile, int row0,
                                            int rows) {
   const int t = threadIdx.x;
-  uint8_t* dst = p.ring.out + static_cast<size_t>(row0) * kOutRow;
-  const int bytes = rows * kOutRow;
+  uint8_t* dst = out + static_cast<size_t>(row0) * kRow;
+  const int bytes = rows * kRow;
   int done = 0;
-  if (p.out_aligned) {
+  if (out_aligned) {
     done = bytes & ~15;
     for (int i = t; 16 * i < done; i += kTileRows) {
       reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(otile)[i];
@@ -604,7 +668,7 @@ __global__ void __launch_bounds__(kTileRows, 1024 / kTileRows)
   int tile = blockIdx.x;
   Held held;
   Scalars next = {0, 0, 0};
-  stage_tile(p, smem, bars, tile, 0, held, next);
+  stage_tile<true>(p, smem, bars, tile, 0, held, next);
   if (held.dst >= 0) smem[held.dst] = held.value;
   __syncthreads();
 
@@ -614,7 +678,7 @@ __global__ void __launch_bounds__(kTileRows, 1024 / kTileRows)
     const Scalars cur = next;
     const int ahead = tile + gridDim.x;
     if (ahead < p.ntiles) {
-      stage_tile(p, smem, bars, ahead, stage ^ 1, held, next);
+      stage_tile<true>(p, smem, bars, ahead, stage ^ 1, held, next);
     }
     mbar_wait(&bars[stage], (phases >> stage) & 1u);
     phases ^= 1u << stage;
@@ -642,7 +706,66 @@ __global__ void __launch_bounds__(kTileRows, 1024 / kTileRows)
     if (ahead < p.ntiles && held.dst >= 0) smem[held.dst] = held.value;
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    store_tile(pp, otile, row0, rows);
+    store_tile<kOutRow>(p.out, pp.out_aligned, otile, row0, rows);
+  }
+}
+
+// The identity entry: annotate_bin_kernel's ring over the allele rows, the
+// identity parts of the body, and [n, 6] rows through shared tiles.
+__global__ void __launch_bounds__(kTileRows, 1024 / kTileRows)
+    annotate_bin_identity_kernel(const IdentityParams ip) {
+  const Params& p = ip.ring;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t bars[kStages];
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int tile = blockIdx.x;
+  Held held;
+  Scalars next = {0, 0, 0};
+  stage_tile<false>(p, smem, bars, tile, 0, held, next);
+  if (held.dst >= 0) smem[held.dst] = held.value;
+  __syncthreads();
+
+  uint32_t phases = 0;
+  for (int k = 0; tile < p.ntiles; ++k, tile += gridDim.x) {
+    const int stage = k & 1;
+    const Scalars cur = next;
+    const int ahead = tile + gridDim.x;
+    if (ahead < p.ntiles) {
+      stage_tile<false>(p, smem, bars, ahead, stage ^ 1, held, next);
+    }
+    mbar_wait(&bars[stage], (phases >> stage) & 1u);
+    phases ^= 1u << stage;
+
+    const int row0 = tile * kTileRows;
+    const int rows = min(kTileRows, p.n - row0);
+    // iteration k writes tile k & 1, as in the packed entry
+    uint8_t* otile = smem + ip.out_base + stage * kVepTile;
+    if (t < rows) {
+      const uint32_t base = stage * 2 * p.buf_bytes;
+      const uint32_t row_off = static_cast<uint32_t>(t) * p.w;
+      const uint32_t ref_off = base + p.ref_shift + row_off;
+      const uint32_t alt_off = base + p.buf_bytes + p.alt_shift + row_off;
+      const uint32_t h = identity_hash(smem, ref_off, alt_off, p.w, cur.rlen,
+                                       cur.alen);
+      const int32_t prefix =
+          shared_prefix(smem, ref_off, alt_off, p.w, cur.rlen, cur.alen);
+      // little-endian: hash, the prefix's low byte, host_fallback
+      uint16_t* o = reinterpret_cast<uint16_t*>(otile + kVepRow * t);
+      o[0] = static_cast<uint16_t>(h);
+      o[1] = static_cast<uint16_t>(h >> 16);
+      o[2] = static_cast<uint16_t>(
+          (prefix & 0xFF) | (over_width(cur.rlen, cur.alen, p.w) << 8));
+    }
+    if (ahead < p.ntiles && held.dst >= 0) smem[held.dst] = held.value;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    store_tile<kVepRow>(p.out, ip.out_aligned, otile, row0, rows);
   }
 }
 
@@ -668,6 +791,11 @@ size_t packed_smem_bytes(int w, int cols) {
          static_cast<size_t>(kStages) * kOutTile;
 }
 
+// The identity entry's shared memory: the ring, then its two output tiles.
+size_t identity_smem_bytes(int w) {
+  return smem_bytes(w) + static_cast<size_t>(kStages) * kVepTile;
+}
+
 constexpr int kMaxDevices = 64;
 int g_sms[kMaxDevices];
 bool g_smem_opt_in[kMaxDevices];
@@ -676,6 +804,8 @@ bool g_packed_opt_in[kMaxDevices];
 // the packed entry's blocks per SM for the last shared-memory size asked
 size_t g_packed_smem[kMaxDevices];
 int g_packed_per_sm[kMaxDevices];
+bool g_identity_opt_in[kMaxDevices];
+int g_identity_per_sm[kMaxDevices][kIdentityMaxWidth + 1];
 
 // The device's SM count (cached); 0 on error.
 int sm_count(int dev) {
@@ -699,6 +829,7 @@ int grid_for(int ntiles, int per_sm, int sms) {
 
 extern "C" int annotate_bin_tile_rows() { return kTileRows; }
 extern "C" int annotate_bin_max_width() { return kMaxWidth; }
+extern "C" int annotate_bin_identity_max_width() { return kIdentityMaxWidth; }
 
 // Blocks per SM the launch would use for width `w` on the current device
 // (0 on error).
@@ -844,5 +975,56 @@ extern "C" int annotate_bin_packed_launch(const void* pos,
   pp.out_aligned = (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
   annotate_bin_packed_kernel<<<grid, kTileRows, packed_smem_bytes(w, cols),
                                static_cast<cudaStream_t>(stream)>>>(pp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks per SM the identity entry would use at width `w` on the current
+// device (0 on error).
+extern "C" int annotate_bin_identity_blocks_per_sm(int w) {
+  if (w < 1 || w > kIdentityMaxWidth) return 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  // opt in once to the shared memory of the widest width (above the
+  // default 48 KB from W = 93 on)
+  if (!g_identity_opt_in[dev]) {
+    if (cudaFuncSetAttribute(
+            annotate_bin_identity_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(identity_smem_bytes(kIdentityMaxWidth))) !=
+        cudaSuccess) {
+      return 0;
+    }
+    g_identity_opt_in[dev] = true;
+  }
+  int& cached = g_identity_per_sm[dev][w];
+  if (cached == 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &cached, annotate_bin_identity_kernel, kTileRows,
+          identity_smem_bytes(w)) != cudaSuccess) {
+    cached = 0;
+  }
+  return cached;
+}
+
+// The identity entry on `stream`: `ref` and `alt` [n, w] allele bytes (w at
+// most kIdentityMaxWidth, any address), `rlen` and `alen` [n] int32, `out`
+// the [n, 6] rows.  Returns a cudaError_t (0 = ok).
+extern "C" int annotate_bin_identity_launch(const void* ref, const void* alt,
+                                            const void* rlen, const void* alen,
+                                            int n, int w, void* out,
+                                            void* stream) {
+  if (n <= 0 || w < 1 || w > kIdentityMaxWidth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  IdentityParams ip;
+  int grid = 0;
+  const int err = prepare(nullptr, ref, alt, rlen, alen, n, w, out,
+                          annotate_bin_identity_blocks_per_sm(w), &ip.ring,
+                          &grid);
+  if (err != 0) return err;
+  ip.out_base = static_cast<uint32_t>(smem_bytes(w));
+  ip.out_aligned = (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+  annotate_bin_identity_kernel<<<grid, kTileRows, identity_smem_bytes(w),
+                                 static_cast<cudaStream_t>(stream)>>>(ip);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,10 @@
 Port of ``annotatedvdb_tpu/loaders/lookup.py``: one definition of the
 identity rule used wherever a parsed chunk is joined against the store.
 The allele hash over the width-bounded alleles comes from the tokenizer
-(``h_native``) when the chunk carries it, else from the loaders' device
-step (``models/pipeline.py::annotate_hash_fn``: one ``annotate_bin``
-launch on a card, the plain versions on the CPU); rows over the width are
+(``h_native``) when the chunk carries it, else from the identity step
+(``models/pipeline.py::annotate_identity_fn``: one launch of the annotate
+kernel's identity entry on a card, the plain versions on the CPU; the hash
+bytes of its rows); rows over the width are
 re-hashed from their original strings (their device arrays are truncated,
 so the device hash would collide on shared prefixes); then one
 per-chromosome sorted-merge lookup against the shard.  Bare allele arrays
@@ -19,19 +20,19 @@ import torch
 
 from annotatedvdb_tpu_torch.io.vcf import VcfChunk
 from annotatedvdb_tpu_torch.loaders.vcf_loader import _fnv32_str
-from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
-from annotatedvdb_tpu_torch.ops.hashing import to_uint32
+from annotatedvdb_tpu_torch.models.pipeline import annotate_identity_fn
+from annotatedvdb_tpu_torch.ops.pack import unpack_vep_outputs
 from annotatedvdb_tpu_torch.runtime import to_device
 from annotatedvdb_tpu_torch.store import VariantStore
 
 
-def _device_hash(device, pos, ref, alt, ref_len, alt_len) -> np.ndarray:
-    """[N] uint32 allele hashes from the device step on ``device``."""
+def _device_hash(device, ref, alt, ref_len, alt_len) -> np.ndarray:
+    """[N] uint32 allele hashes from the identity step on ``device`` (the
+    hash never truncates; the rows' prefix byte is not read)."""
     device = torch.device(device)
-    args = [to_device(np.asarray(x), device)
-            for x in (pos, ref, alt, ref_len, alt_len)]
-    _ann, h = annotate_hash_fn(device)(None, *args)
-    return to_uint32(h)
+    args = [to_device(np.asarray(x), device) for x in (ref, alt, ref_len, alt_len)]
+    rows = annotate_identity_fn(device)(*args)
+    return unpack_vep_outputs(rows.cpu().numpy())["h"]
 
 
 def _override_over_width(h, width, ref_len, alt_len, refs, alts) -> np.ndarray:
@@ -69,8 +70,7 @@ def chunk_hashes(store: VariantStore, chunk: VcfChunk,
     if chunk.h_native is not None:
         h = chunk.h_native.copy()
     else:
-        h = _device_hash(device, batch.pos, batch.ref, batch.alt,
-                         batch.ref_len, batch.alt_len)
+        h = _device_hash(device, batch.ref, batch.alt, batch.ref_len, batch.alt_len)
     return _override_over_width(h, store.width, batch.ref_len, batch.alt_len,
                                 chunk.refs, chunk.alts)
 

@@ -25,11 +25,12 @@ whole lines; each block is one flush, through one of two transforms:
   A failed build of either library raises: there is no quiet fallback.
 - **python** (``AVDB_NATIVE_VEP=0``): ``json.loads`` and the host parser.
   A flush's per-alt rows form one identity batch (split at
-  ``2 * next_pow2(batch_size)`` rows): on the card ONE launch of the fused
-  ``annotate_bin`` kernel gives each row's allele hash, shared-prefix
-  length and host-fallback flag, and only those three columns come back,
-  in one copy after the launch; on the CPU the plain versions compute
-  them.  Under the default only the docs handed to this path launch.
+  ``2 * next_pow2(batch_size)`` rows): on the card ONE launch of the
+  annotate kernel's identity entry gives each row's allele hash,
+  shared-prefix length and host-fallback flag as one ``[n, 6]`` row, and
+  those rows come back in one copy after the launch; on the CPU the plain
+  versions compute them.  Under the default only the docs handed to this
+  path launch.
 
 Membership then runs per chromosome shard, and the updates deep-merge into
 the store's JSONB columns.  Each transform writes the store bytes of the
@@ -44,11 +45,11 @@ distributed_update_step``: one ``annotate_bin`` and one ``lookup_multi``
 launch per shard on the card); over-width rows are resolved on the host,
 as on the single-device path.  The bytes written are the same.
 
-On a card the identity batch comes back packed: one ``pack_vep_outputs``
-launch folds hash, prefix length and flag into one ``[n, 6]`` row per
-variant, fetched with one copy, whenever the store is at most 255 wide
-(the prefix rides one byte; wider stores copy the three columns).
-:meth:`VepLoader.warmup` builds and checks the kernels before a load.
+The identity batch comes back packed, one ``[n, 6]`` row per variant
+(``models/pipeline.py::annotate_identity_fn``), whenever the store is at
+most 255 wide: the prefix rides one byte.  A wider store takes the annotate
+step and copies the three columns.  :meth:`VepLoader.warmup` builds and
+checks the kernel before a load.
 """
 
 from __future__ import annotations
@@ -65,15 +66,12 @@ from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
 from annotatedvdb_tpu_torch.io.prefetch import ChunkPrefetcher
 from annotatedvdb_tpu_torch.io.vep import VepResultParser
 from annotatedvdb_tpu_torch.loaders.vcf_loader import _fnv32_str
-from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_identity_fn
 from annotatedvdb_tpu_torch.native import pyfast
 from annotatedvdb_tpu_torch.native import vep as native_vep
 from annotatedvdb_tpu_torch.ops.hashing import to_uint32
-from annotatedvdb_tpu_torch.ops.pack import (
-    ensure_transport,
-    pack_vep_outputs,
-    unpack_vep_outputs,
-)
+from annotatedvdb_tpu_torch.ops.annotate_cuda import IDENTITY_MAX_WIDTH
+from annotatedvdb_tpu_torch.ops.pack import unpack_vep_outputs
 from annotatedvdb_tpu_torch.oracle import normalize_alleles
 from annotatedvdb_tpu_torch.runtime import resolve_device, to_device
 from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
@@ -592,29 +590,29 @@ class VepLoader:
     def _packs_identity(self) -> bool:
         """Whether identity batches come back as one packed ``[n, 6]`` row
         each: the prefix length rides one byte, so a store at most 255
-        wide.  Such a store first runs the transport's probe, which raises
-        when it fails.  As in the reference, ``AVDB_PACK_TRANSPORT`` is not
+        wide.  As in the reference, ``AVDB_PACK_TRANSPORT`` is not
         consulted."""
-        if self.store.width > 255:
-            return False
-        ensure_transport(self.device)
-        return True
+        return self.store.width <= IDENTITY_MAX_WIDTH
 
     def _batch_identity(self, batch: VariantBatch):
         """(hash [N] uint32, prefix_len [N], host_fallback [N]) for one
         per-alt batch — the three identity outputs the update path
-        consumes.  On a card: one launch of the fused kernel and, when
-        :meth:`_packs_identity`, one ``pack_vep_outputs`` launch and one
-        copy of its ``[N, 6]`` rows into pinned host memory (else one copy
-        a column), then one synchronisation."""
+        consumes.  When :meth:`_packs_identity`: the identity step (on a
+        card one launch of the kernel's identity entry) and one copy of its
+        ``[N, 6]`` rows into pinned host memory; else the annotate step (on
+        a card one ``annotate_bin`` launch) and one copy a column.  Then one
+        synchronisation."""
+        packed = self._packs_identity()
         with self.identity_timer.stage("dispatch", items=batch.n):
-            args = [to_device(x, self.device) for x in batch[1:]]
-            ann, h = annotate_hash_fn(self.device)(None, *args)
-            self.identity_batches += 1
-            cols = (h, ann.prefix_len, ann.host_fallback)
-            packed = self._packs_identity()
             if packed:
-                cols = (pack_vep_outputs(*cols),)
+                args = [to_device(x, self.device)
+                        for x in (batch.ref, batch.alt, batch.ref_len, batch.alt_len)]
+                cols = (annotate_identity_fn(self.device)(*args),)
+            else:
+                args = [to_device(x, self.device) for x in batch[1:]]
+                ann, h = annotate_hash_fn(self.device)(None, *args)
+                cols = (h, ann.prefix_len, ann.host_fallback)
+            self.identity_batches += 1
         with self.identity_timer.stage("copy_back", items=batch.n):
             if self.device.type == "cuda":
                 host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
@@ -632,19 +630,19 @@ class VepLoader:
     def warmup(self) -> None:
         """What the first flush would otherwise pay: the C RawJson
         assembler built and, on a card, the kernel libraries built, the
-        annotate step's first-call check, the transport probe and one
-        identity batch at the loader's batch shape (held against the plain
-        version on the host; a mismatch raises).  On the CPU only the
-        4-row probe runs."""
+        identity step's (or, on a store wider than 255, the annotate
+        step's) first-call check and one identity batch at the loader's
+        batch shape (held against the plain version on the host; a
+        mismatch raises).  On the CPU only the assembler is built."""
         pyfast.load()
-        packs = self._packs_identity()
         if self.device.type != "cuda":
             return
         from annotatedvdb_tpu_torch.io.synth import synthetic_batch
         from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_pipeline
         from annotatedvdb_tpu_torch.ops.build import build
 
-        build(["annotate_bin", "pack"] + (["lookup_multi"] if self.mesh else []))
+        build(["annotate_bin"] + (["lookup_multi"] if self.mesh else []))
+        packs = self._packs_identity()
         batch = synthetic_batch(next_pow2(self.batch_size), width=self.store.width)
         # the warmup batch stays out of the measured stream's timer and count
         timer, batches = self.identity_timer, self.identity_batches

@@ -8,9 +8,10 @@ on a CUDA device one launch of the fused hand-written kernel
 (``ops/annotate_cuda.py``) computes both; on the CPU the plain-torch
 ``annotate_pipeline`` and ``ops/hashing.py::allele_hash``.  Either way the
 hash comes back as the uint32 values' bits in an int32 tensor
-(``ops.hashing.to_uint32`` reads it to the host).  Both loaders call it:
-the VCF insert load for every field, the VEP update load for the hash,
-``prefix_len`` and ``host_fallback``.
+(``ops.hashing.to_uint32`` reads it to the host).  The VCF insert load
+calls it for every field, and the VEP update load for the hash,
+``prefix_len`` and ``host_fallback`` where its store is wider than the
+identity step below takes.
 
 Calls are asynchronous on CUDA: the kernel is enqueued on the current
 stream and the caller's host work overlaps it until a result is copied
@@ -20,6 +21,12 @@ back.
 nibble-uploaded chunk that fetches packed rows: the kernel's packed entry
 (``ops/annotate_cuda.py::annotate_bin_packed``, one launch: packed alleles
 in, ``[n, 10]`` rows out) on a card, its plain composition on the CPU.
+
+``annotate_identity_fn(device)`` returns the identity step of the VEP
+update's batches and the update legs' lookup hashes: the kernel's identity
+entry (``ops/annotate_cuda.py::annotate_bin_identity``, one launch: allele
+matrices and lengths in, ``[n, 6]`` rows of hash, prefix byte and
+host_fallback out) on a card, its plain composition on the CPU.
 """
 
 from __future__ import annotations
@@ -164,6 +171,45 @@ def packed_mismatches(want: torch.Tensor, got: torch.Tensor) -> list:
     return bad
 
 
+def identity_mismatches(want: torch.Tensor, got: torch.Tensor) -> list:
+    """Names of the byte ranges of ``[n, 6]`` identity rows on which ``got``
+    breaks the selection contract against ``want`` (empty = parity): the
+    hash and host_fallback on every row, the prefix byte where ``want``'s
+    host_fallback is clear."""
+    ok = want[:, 5] == 0
+    bad = [name for name, cols in (("allele_hash", slice(0, 4)),
+                                   ("host_fallback", slice(5, 6)))
+           if not torch.equal(want[:, cols], got[:, cols])]
+    if not torch.equal(want[ok, 4], got[ok, 4]):
+        bad.append("prefix_len")
+    return bad
+
+
+def verify_identity_kernel(device: torch.device) -> None:
+    """First-use check of the identity entry: the kernel on the card
+    against its plain composition on the host, on the probe batch of
+    :func:`verify_cuda_kernel` (257 rows at width 49) under
+    :func:`identity_mismatches`.  Raises on a mismatch; an exception from
+    the build or the launch propagates unchanged."""
+    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        annotate_bin_identity,
+        annotate_bin_identity_reference,
+    )
+
+    batch = synthetic_batch(257, width=49)
+    probe = [torch.from_numpy(x) for x in (batch.ref, batch.alt, batch.ref_len,
+                                           batch.alt_len)]
+    want = annotate_bin_identity_reference(*probe)
+    got = annotate_bin_identity(*(x.to(device) for x in probe)).cpu()
+    bad = identity_mismatches(want, got)
+    if bad:
+        raise RuntimeError(
+            f"annotate_bin identity entry disagrees with its plain composition "
+            f"on the probe batch in {bad}"
+        )
+
+
 _VERIFIED: set = set()
 _VERIFY_LOCK = threading.Lock()
 
@@ -195,6 +241,22 @@ def annotate_packed_fn(device: torch.device):
     elif device.type != "cpu":
         raise ValueError(f"no packed annotate step for device {device}")
     return annotate_bin_packed
+
+
+def annotate_identity_fn(device: torch.device):
+    """The identity step for ``device``: ``ops.annotate_cuda.
+    annotate_bin_identity``, which takes its plain composition on the CPU
+    and launches the kernel's identity entry on a CUDA device, there once
+    the entry has passed :func:`verify_identity_kernel`.  It takes ``(ref,
+    alt, ref_len, alt_len)`` and returns ``[N, 6]`` uint8 rows."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_identity
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        _verified(device, verify_identity_kernel)
+    elif device.type != "cpu":
+        raise ValueError(f"no identity step for device {device}")
+    return annotate_bin_identity
 
 
 def annotate_hash_fn(device: torch.device):

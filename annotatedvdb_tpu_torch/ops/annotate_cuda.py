@@ -26,6 +26,16 @@ plain versions.  Against it, bytes 0-3 (the hash) and 9 (the flags) agree
 on every row and bytes 4-8 (leaf bin, bin level) on every row whose
 ``host_fallback`` bit is clear; against the card's three-kernel route every
 byte agrees.
+
+:func:`annotate_bin_identity` is its third entry, for the VEP update's
+identity batches and the update legs' lookup hashes: the ``[n, W]`` allele
+matrices and the two lengths in (no position), the ``[n, 6]`` rows of
+``ops/pack.py::pack_vep_outputs`` (hash, the shared prefix's low byte,
+host_fallback) out, in one launch where the card took two
+(``annotate_bin``, ``pack_vep_outputs``), with only the hash, the prefix
+scan and the width test in its body.  Its plain version
+:func:`annotate_bin_identity_reference` is the composition of those two
+plain versions; the two agree on every byte of every row.
 """
 
 from __future__ import annotations
@@ -38,18 +48,23 @@ from annotatedvdb_tpu_torch.ops.annotate import annotate_kernel
 from annotatedvdb_tpu_torch.ops.binindex import bin_index_kernel
 from annotatedvdb_tpu_torch.ops.hashing import allele_hash, hash_bits
 from annotatedvdb_tpu_torch.ops.pack import (
+    VEP_WIDTH as IDENTITY_ROW,
     WIDTH as PACKED_ROW,
     inflate_alleles_reference,
     pack_outputs_reference,
+    pack_vep_outputs_reference,
 )
 
 #: kernel launches by wrapper name — incremented only where a kernel entry
 #: is launched, so a run can show that its main path went through it
-LAUNCHES = {"annotate_bin": 0, "annotate_bin_packed": 0}
+LAUNCHES = {"annotate_bin": 0, "annotate_bin_packed": 0, "annotate_bin_identity": 0}
 
 #: widest allele matrix the kernel takes (``kMaxWidth`` in the source):
 #: two stages of [128, W] ref and alt tiles in shared memory
 MAX_WIDTH = 192
+#: widest allele matrix the identity entry takes (``kIdentityMaxWidth``):
+#: the row's prefix byte holds any prefix up to it
+IDENTITY_MAX_WIDTH = 255
 
 #: output fields, dtypes and order.  ``allele_hash`` holds the uint32
 #: hash's bits (``ops.hashing.to_uint32`` reads them back as uint32).
@@ -106,13 +121,21 @@ def _library() -> ctypes.CDLL:
         lib.annotate_bin_packed_launch.restype = ctypes.c_int
         lib.annotate_bin_packed_blocks_per_sm.argtypes = [ctypes.c_int] * 2
         lib.annotate_bin_packed_blocks_per_sm.restype = ctypes.c_int
-        for fn in ("annotate_bin_tile_rows", "annotate_bin_max_width"):
+        lib.annotate_bin_identity_launch.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        )
+        lib.annotate_bin_identity_launch.restype = ctypes.c_int
+        for fn in ("annotate_bin_tile_rows", "annotate_bin_max_width",
+                   "annotate_bin_identity_max_width"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ctypes.c_int
-        lib.annotate_bin_blocks_per_sm.argtypes = [ctypes.c_int]
-        lib.annotate_bin_blocks_per_sm.restype = ctypes.c_int
-        if lib.annotate_bin_max_width() != MAX_WIDTH:
-            raise RuntimeError("annotate_bin: library width limit disagrees "
+        for fn in ("annotate_bin_blocks_per_sm", "annotate_bin_identity_blocks_per_sm"):
+            getattr(lib, fn).argtypes = [ctypes.c_int]
+            getattr(lib, fn).restype = ctypes.c_int
+        if (lib.annotate_bin_max_width(), lib.annotate_bin_identity_max_width()) \
+                != (MAX_WIDTH, IDENTITY_MAX_WIDTH):
+            raise RuntimeError("annotate_bin: library width limits disagree "
                                "with the wrapper")
         _lib = lib
     return _lib
@@ -131,13 +154,13 @@ def annotate_bin_reference(pos, ref, alt, ref_len, alt_len) -> dict:
 def _check(fn, pos, ref, alt, ref_len, alt_len, names=("ref", "alt")) -> None:
     """One batch's tensors for entry ``fn``: one device, the dtypes, ranks
     and contiguity the kernel reads, ``alt`` shaped like ``ref`` (the two
-    matrices, named ``names``) and one row count."""
+    matrices, named ``names``) and one row count.  ``pos`` None: an entry
+    that reads no position."""
     dev = ref.device
-    for name, t, dtype, ndim in (
-        ("pos", pos, torch.int32, 1), (names[0], ref, torch.uint8, 2),
-        (names[1], alt, torch.uint8, 2), ("ref_len", ref_len, torch.int32, 1),
-        ("alt_len", alt_len, torch.int32, 1),
-    ):
+    columns = (("pos", pos, torch.int32, 1), (names[0], ref, torch.uint8, 2),
+               (names[1], alt, torch.uint8, 2), ("ref_len", ref_len, torch.int32, 1),
+               ("alt_len", alt_len, torch.int32, 1))
+    for name, t, dtype, ndim in columns[pos is None:]:
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, {names[0]} on {dev}")
         if t.dtype != dtype:
@@ -148,7 +171,7 @@ def _check(fn, pos, ref, alt, ref_len, alt_len, names=("ref", "alt")) -> None:
         raise ValueError(f"{fn}: {names[1]} {tuple(alt.shape)} != {names[0]} "
                          f"{tuple(ref.shape)}")
     n = ref.shape[0]
-    if pos.shape[0] != n or ref_len.shape[0] != n or alt_len.shape[0] != n:
+    if any(t.shape[0] != n for t in (pos, ref_len, alt_len) if t is not None):
         raise ValueError(f"{fn}: row counts disagree")
 
 
@@ -244,4 +267,50 @@ def annotate_bin_packed(pos, ref_packed, alt_packed, ref_len, alt_len,
     if rc != 0:
         raise RuntimeError(f"annotate_bin_packed: kernel launch failed (cudaError {rc})")
     LAUNCHES["annotate_bin_packed"] += 1
+    return out
+
+
+def annotate_bin_identity_reference(ref, alt, ref_len, alt_len) -> torch.Tensor:
+    """Plain torch identity step: the annotate step and the allele hash
+    (``models/pipeline.py::annotate_hash_pipeline``; positions 0, which no
+    identity column reads), then ``pack_vep_outputs_reference`` of the hash,
+    ``prefix_len`` and ``host_fallback``: ``[n, 6]`` uint8 rows."""
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_pipeline
+
+    ann, h = annotate_hash_pipeline(None, torch.zeros_like(ref_len), ref, alt,
+                                    ref_len, alt_len)
+    return pack_vep_outputs_reference(h, ann.prefix_len, ann.host_fallback)
+
+
+def annotate_bin_identity(ref, alt, ref_len, alt_len) -> torch.Tensor:
+    """The identity step for one batch: ``ref``/``alt`` [N, W] uint8 and
+    ``ref_len``/``alt_len`` [N] int32, all contiguous (any storage offset)
+    -> ``[N, 6]`` uint8 rows (``ops/pack.py::unpack_vep_outputs`` reads
+    them).
+
+    CPU tensors take :func:`annotate_bin_identity_reference` (any width);
+    CUDA tensors launch the kernel's identity entry once on the current
+    stream (no synchronisation; ``W <= IDENTITY_MAX_WIDTH``) or raise."""
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"annotate_bin_identity: unsupported device {ref.device}")
+    _check("annotate_bin_identity", None, ref, alt, ref_len, alt_len)
+    if ref.device.type == "cpu":
+        return annotate_bin_identity_reference(ref, alt, ref_len, alt_len)
+    n, w = ref.shape
+    if not 1 <= w <= IDENTITY_MAX_WIDTH:
+        raise ValueError(
+            f"annotate_bin_identity: allele width {w} outside "
+            f"1..{IDENTITY_MAX_WIDTH} (the row's prefix byte, and two stages "
+            "of [128, W] tiles in shared memory)"
+        )
+    out = torch.empty((n, IDENTITY_ROW), dtype=torch.uint8, device=ref.device)
+    if n == 0:
+        return out
+    rc = _library().annotate_bin_identity_launch(
+        ref.data_ptr(), alt.data_ptr(), ref_len.data_ptr(), alt_len.data_ptr(),
+        n, w, out.data_ptr(), torch.cuda.current_stream(ref.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"annotate_bin_identity: kernel launch failed (cudaError {rc})")
+    LAUNCHES["annotate_bin_identity"] += 1
     return out

@@ -13,8 +13,11 @@ a CPU tensor (no fallback between the two):
   bin level, leaf bin, needs-digest, host-fallback) in one ``[n, 10]``
   uint8 row, so the host copies one buffer back a chunk;
 - :func:`pack_vep_outputs`: the VEP update's hash, prefix length and
-  host-fallback flag in one ``[n, 6]`` row (callers gate it on a width of
-  at most 255: the prefix rides one byte).
+  host-fallback flag in one ``[n, 6]`` row (the prefix rides one byte).
+  The loaders take these rows from the annotate kernel's identity entry
+  (``ops/annotate_cuda.py::annotate_bin_identity``), whose plain version
+  composes :func:`pack_vep_outputs_reference`; the transport's probe
+  still runs this kernel.
 
 Rows are little-endian on both sides; :func:`unpack_outputs` and
 :func:`unpack_vep_outputs` slice the columns back out with numpy views.

@@ -115,7 +115,20 @@ each phase printing one JSON line:
               check latched; then, in the second process, the transport
               kernels' time at those shapes beside the plain versions
               and the bound, and the packed entry in turns with the
-              three-kernel route.  The
+              three-kernel route.  Then the annotate kernel's identity
+              entry (``annotate_bin_identity``: allele matrices and
+              lengths in, the VEP pack's ``[n, 6]`` rows out) against its
+              plain composition, every byte of every row, and against
+              the two-launch route it replaces (``annotate_bin``,
+              ``pack_vep_outputs``) where W <= 192, on
+              :func:`annotate_identity_cases` (W = 1, 7, 49, 192 and
+              255; shared leading runs across the scan's word steps and
+              up to the width, over-width, SNV, empty and noisy rows; 0
+              to 257 rows and all of them) and at 65,536 and 1,048,576
+              rows, from unaligned bases and into an unaligned output,
+              its first-use check latched; then, in the second process,
+              in turns with the two-launch route at 1, 16,384, 65,536
+              and 1,048,576 rows beside its bound and plain version.  The
               seeded inputs of phases 3-10 are written by the second
               process beside the first kernel checks, which read none of
               them;
@@ -158,9 +171,9 @@ each phase printing one JSON line:
               SnpEff file over all of them and a METASEQ TSV of 781
               rows with 5% novel: the stores identical after each, the
               counters as predicted, and on the card the predicted
-              annotate launches (``annotate_bin`` once per chunk or batch
-              hashed on the device, the packed entry once per insert of
-              novel rows).  Then, in each
+              annotate launches (the identity entry once per chunk or
+              batch hashed on the device, the packed entry once per
+              insert of novel rows).  Then, in each
               configuration (the Python one also under
               ``AVDB_NATIVE_CADD=0``), ``load-cadd --commit`` against
               seeded BGZF tables over the lines' span, ``--buildIndex``
@@ -199,9 +212,10 @@ each phase printing one JSON line:
               CLI's ``main``), counters reset just before and read just
               after, in the default configuration (the native C++
               transform): counters as predicted, every planted combo
-              learned, one ``annotate_bin`` and one ``pack_vep_outputs``
-              launch per identity batch (the docs the transformer hands
-              to the Python transform), no
+              learned, one launch of the annotate kernel's identity
+              entry per identity batch (the docs the transformer hands
+              to the Python transform) and no ``annotate_bin`` or
+              ``pack_vep_outputs``, no
               plain hash on the card, the transform's own counts, the
               device's idle share (``torch.profiler``) and how the store
               save splits between JSON encoding and the rest.  Before it,
@@ -210,8 +224,10 @@ each phase printing one JSON line:
               file over the first tenth of the lines, in the default
               configuration and under ``AVDB_NATIVE_VEP=0``, each onto a
               copy of the store made before phase 7: the two saved stores
-              must decode equal.  Then the kernel's time at the
-              identity-batch shape;
+              must decode equal, and the Python transform's load one
+              identity-entry launch per identity batch and no
+              ``annotate_bin`` or ``pack_vep_outputs`` (the entry's time
+              at a one-row batch is phase 3's);
 8. updates  — on a store of phase 4's first 125,000 lines, loaded for
               it with ``load-vcf`` (each update command loads and saves
               its whole store, and at phase 7's 2.27M rows those, not the
@@ -226,7 +242,8 @@ each phase printing one JSON line:
               of 12,500 rows (``other_annotation`` JSON, ``ref_snp_id``),
               5% new insertions.  Each: counters as the generator
               predicts, the predicted annotate launches (each insert one
-              of the packed entry), no plain
+              of the packed entry, each lookup hash one of the identity
+              entry), no plain
               hash on the card, stage seconds, wall, lines/s and the
               device's idle share (``torch.profiler``).  The first kernel
               step of a lookup hash (a TSV batch, 12,500 rows) and of a
@@ -3612,9 +3629,9 @@ TRANSPORT_KERNELS = {"inflate_alleles": "annotatedvdb_tpu/ops/pack.py:124",
 INFLATE_BYTE_OPS = 4
 PACK_ROW_OPS = 6
 
-#: the annotate kernel's two entries (``ops/annotate_cuda.py``): where a
-#: path makes "one annotate launch a chunk", either entry's launch counts
-ANNOTATE_ENTRIES = ("annotate_bin", "annotate_bin_packed")
+#: the annotate kernel's three entries (``ops/annotate_cuda.py``): where a
+#: path makes "one annotate launch a chunk", any entry's launch counts
+ANNOTATE_ENTRIES = ("annotate_bin", "annotate_bin_packed", "annotate_bin_identity")
 #: launches of the packed entry in ``VcfLoader.warmup`` (the CLI's, at the
 #: chunk shape) on a card load that packs its outputs
 WARMUP_PACKED = 1
@@ -3922,6 +3939,229 @@ def annotate_packed_checks(torch, device) -> tuple:
     return checks, worst
 
 
+#: the identity entry's checks (phase 3): widths, and row counts (None:
+#: every row of :func:`annotate_identity_cases`)
+IDENTITY_WIDTHS = (1, 7, 49, 192, 255)
+IDENTITY_ROWS = (0, 1, 127, 128, 129, 257, None)
+#: the identity entry's timing shapes at W = 49: a one-row VEP identity
+#: batch, 16,384 rows, the load's chunk and 1,048,576 rows, with the input
+#: sets and calls a run of each
+IDENTITY_TIMING = ((1, 10, 200), (16_384, 10, 200), (CHUNK_ROWS, 10, 200),
+                   (BIG_ROWS, 2, 50))
+#: integer operations of an identity row besides the hash's and the scan's
+#: (the SNV and width tests, the row's three stores)
+IDENTITY_ROW_OPS = 16
+
+
+def annotate_identity_cases(width) -> tuple:
+    """The identity entry's inputs at ``width``: ``(ref, alt, ref_len,
+    alt_len)``.  Rows: 257 seeded rows of every variant shape (SNVs and ~5%
+    over-width among them); for shared leading runs of 0-9, 15-17, 31-33,
+    width - 1 and width bases (the scan's four-byte steps and its stop at
+    the width): alleles that differ just past the run, one allele the run
+    and the other longer (both ways), equal alleles, and both over the
+    width; SNVs of equal bases; empty alleles; 32 rows whose bytes past
+    their lengths, and 8 whose every byte, are random values 0-255 (hashed,
+    never scanned past a length); then the edge rows of :data:`EDGE_ROWS`.
+    The first ``n`` rows are a call of ``n`` rows."""
+    rng = np.random.default_rng(240 + width)
+    _pos, ref, alt, rl, al = random_batch(240 + width, 257, width)
+    nxt = np.zeros(256, np.uint8)
+    nxt[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"CGTA", np.uint8)
+    pairs = []
+    for run in sorted({min(k, width) for k in
+                       (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 15, 16, 17, 31, 32, 33,
+                        width - 1, width)}):
+        a = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, width + 12)]
+        b = a.copy()
+        b[run] = nxt[a[run]]
+        pairs += [(a[:run + 1], b[:run + 1]), (a[:run], a[:run + 3]),
+                  (a[:run + 3], a[:run]), (a[:run], a[:run]),
+                  (a[:width + 5], b[:width + 2])]
+    pairs += [(np.frombuffer(x, np.uint8), np.frombuffer(y, np.uint8))
+              for x, y in ((b"A", b"A"), (b"C", b"C"), (b"", b"A"), (b"A", b""),
+                           (b"", b""))]
+    n = len(pairs)
+    sref, salt = np.zeros((n, width), np.uint8), np.zeros((n, width), np.uint8)
+    for i, (x, y) in enumerate(pairs):
+        sref[i, :min(x.size, width)] = x[:width]
+        salt[i, :min(y.size, width)] = y[:width]
+    slen = np.array([[x.size, y.size] for x, y in pairs], np.int32).T
+    col = np.arange(width)[None, :]
+    _p, gref, galt, grl, gal = random_batch(250 + width, 40, width)
+    noise = rng.integers(0, 256, (2, 40, width), dtype=np.uint8)
+    gref = np.where(col < grl[:, None], gref, noise[0]).astype(np.uint8)
+    galt = np.where(col < gal[:, None], galt, noise[1]).astype(np.uint8)
+    gref[32:], galt[32:] = noise[0, 32:], noise[1, 32:]
+    _e, eref, ealt, erl, eal = edge_batch(width)
+    out = (np.concatenate([ref, sref, gref, eref]), np.concatenate([alt, salt, galt, ealt]),
+           np.concatenate([rl, slen[0], grl, erl]), np.concatenate([al, slen[1], gal, eal]))
+    return tuple(np.ascontiguousarray(x) for x in out)
+
+
+def two_launch_route(pos, ref, alt, ref_len, alt_len):
+    """The card's route for a VEP identity batch before the identity entry:
+    ``annotate_bin``, then ``pack_vep_outputs`` of the hash, ``prefix_len``
+    and ``host_fallback``: two launches, ``[n, 6]`` rows."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin
+    from annotatedvdb_tpu_torch.ops.pack import pack_vep_outputs
+
+    out = annotate_bin(pos, ref, alt, ref_len, alt_len)
+    return pack_vep_outputs(out["allele_hash"], out["prefix_len"], out["host_fallback"])
+
+
+def identity_step(pos, ref, alt, ref_len, alt_len):
+    """:func:`two_launch_route`'s arguments through the identity entry (the
+    position unread): one launch, ``[n, 6]`` rows."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_identity
+
+    del pos
+    return annotate_bin_identity(ref, alt, ref_len, alt_len)
+
+
+def annotate_identity_checks(torch, device) -> tuple:
+    """The identity entry on the card against its plain composition, every
+    byte of every row (the prefix byte on host_fallback rows too), and
+    against the two-launch route it replaces where ``annotate_bin`` takes
+    the width (W <= 192), on :func:`annotate_identity_cases` at
+    :data:`IDENTITY_WIDTHS` and :data:`IDENTITY_ROWS` rows, then on 65,536
+    and 1,048,576 random rows at W = 49; every call at an unaligned base
+    (the allele matrices 3 and 7 bytes in, the lengths one element in), and
+    its rows also written by the library's entry into an output 3 bytes
+    off 16-byte alignment (byte stores).  Its first-use check runs first,
+    so the loads' counts never see it.  Returns the checks and the largest
+    absolute difference of any byte from the plain composition."""
+    from annotatedvdb_tpu_torch.models.pipeline import (
+        annotate_identity_fn,
+        identity_mismatches,
+    )
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        MAX_WIDTH,
+        annotate_bin_identity,
+        annotate_bin_identity_reference,
+    )
+
+    annotate_identity_fn(device)
+    checks, worst = [], 0
+
+    def compare(label, host):
+        args = [offset_copy(torch, np.ascontiguousarray(x), device, off)
+                for x, off in zip(host, (3, 7, 1, 1))]
+        n, w = args[0].shape
+        got = annotate_bin_identity(*args)
+        want = annotate_bin_identity_reference(*args)
+        shifted = torch.zeros(n * 6 + 16, dtype=torch.uint8, device=device)[3:3 + n * 6]
+        if n:
+            rc = annotate_cuda._library().annotate_bin_identity_launch(
+                *(a.data_ptr() for a in args), n, w, shifted.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+            assert rc == 0, f"annotate_bin_identity_launch: cudaError {rc}"
+        two = (two_launch_route(torch.zeros_like(args[2]), *args)
+               if w <= MAX_WIDTH else None)
+        torch.cuda.synchronize()
+        err = (int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+               if got.numel() else 0)
+        rec = {"kernel": "annotate_bin_identity", "inputs": label, "rows": n,
+               "max_abs_err": err, "equal_plain": torch.equal(got, want),
+               "plain_mismatched": identity_mismatches(want.cpu(), got.cpu()),
+               "equal_unaligned_out": torch.equal(shifted.view(n, 6), got),
+               "equal_two_launches": None if two is None else torch.equal(two, got),
+               "host_fallback_rows": int(want[:, 5].sum())}
+        checks.append(rec)
+        if not (rec["equal_plain"] and rec["equal_unaligned_out"]) \
+                or rec["equal_two_launches"] is False:
+            raise AssertionError(f"annotate_bin_identity disagrees on {label}: {rec}")
+        return err
+
+    for width in IDENTITY_WIDTHS:
+        case = annotate_identity_cases(width)
+        for n in IDENTITY_ROWS:
+            worst = max(worst, compare(f"w{width}-n{n if n is not None else 'all'}",
+                                       [x[:n] for x in case]))
+    for rows in (CHUNK_ROWS, BIG_ROWS):
+        worst = max(worst, compare(f"random-{rows}-w{WIDTH}",
+                                   random_batch(29, rows, WIDTH)[1:]))
+    return checks, worst
+
+
+def identity_bound(ref, alt, rl, al, prefix) -> dict:
+    """The identity entry's bound on these host arrays: per row both allele
+    rows and two int32 lengths in, a 6-byte row out, over the memory rate;
+    the hash's xor and multiply per byte, the scan's compares up to where
+    it stops and :data:`IDENTITY_ROW_OPS` over the 32-bit rate."""
+    n, w = ref.shape
+    nbytes = n * (2 * w + 8 + 6)
+    snv = (rl == 1) & (al == 1)
+    ops = int(2 * (2 * w + 2) * n + IDENTITY_ROW_OPS * n
+              + 2 * np.where(snv, 0, np.minimum(prefix.astype(np.int64) + 1, w)).sum())
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"rows": n, "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def queued_ms(torch, fn, inputs, iters, cycles=1 << 25) -> float:
+    """Device ms a call of ``fn``, its ``iters`` calls enqueued behind a
+    ``torch.cuda._sleep``: the host queues every launch while the card
+    sleeps, so the CUDA events time the calls back to back on the device
+    (their launch gaps there included), not the host's launch rate.  The
+    sleep doubles, up to six times, until the start event is still pending
+    once the last call is queued; raises when it never is (``fn`` waits on
+    the device)."""
+    _run(fn, inputs, 2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for _ in range(7):
+        torch.cuda._sleep(cycles)
+        start.record()
+        _run(fn, inputs, iters)
+        stop.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / iters
+        cycles *= 2
+    raise AssertionError(f"queued_ms: {iters} calls never queued ahead of the card")
+
+
+def identity_kernel_timing(torch, device) -> dict:
+    """The identity entry in turns with the two-launch route it replaces
+    (two, identity, identity, two), each by :func:`queued_ms` (a profile
+    of this long-running process can lose events, and at one row CUDA
+    events around unqueued calls time the host), at the shapes of
+    :data:`IDENTITY_TIMING` (W = 49); the plain composition, which waits
+    on the card and so cannot be queued, profiled once a shape (CUDA
+    events a call where the profile lost events).
+    Beside each: the entry's bound (:func:`identity_bound`) and share."""
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_identity_reference
+
+    def plain(pos, *args):
+        return annotate_bin_identity_reference(*args)
+
+    out = {}
+    for rows, n_sets, iters in IDENTITY_TIMING:
+        host = [random_batch(320 + i, rows, WIDTH) for i in range(n_sets)]
+        sets = [[torch.from_numpy(x).to(device) for x in h] for h in host]
+        runs = [{"route": name, "ms": queued_ms(torch, fn, sets, iters)}
+                for name, fn in (("two", two_launch_route), ("identity", identity_step),
+                                 ("identity", identity_step), ("two", two_launch_route))]
+        ms = min(r["ms"] for r in runs if r["route"] == "identity")
+        two_ms = min(r["ms"] for r in runs if r["route"] == "two")
+        prefix = plain(*sets[0])[:, 4].cpu().numpy()
+        bound = identity_bound(*host[0][1:], prefix)
+        plain_iters = max(2, iters // 10)
+        plain_ms = (device_ms(torch, plain, sets, plain_iters)
+                    or call_ms(torch, plain, sets, plain_iters))
+        out[f"annotate_bin_identity/{rows}"] = {
+            **bound, "ms": ms, "plain_ms": plain_ms, "bound_share": bound["bound_ms"] / ms,
+            "two_launch_ms": two_ms, "two_over_identity": two_ms / ms,
+            "timed_by": "queued events", "runs": runs}
+    return out
+
+
 def packed_bound(torch, pos, ref_packed, alt_packed, rl, al, width=WIDTH) -> dict:
     """The packed entry's bound on these inputs (tensors, the plain
     versions run where they lie): per row the packed bytes, three int32
@@ -4009,9 +4249,11 @@ def transport_kernel_timing() -> dict:
     each kernel's device ms by name; each plain version is profiled once
     (CUDA events a call where a profile lost events).  Beside each: the
     bound.  Then the annotate kernel's packed entry in turns with the
-    three-kernel route it replaces (:func:`packed_kernel_timing`), and the
-    seconds the timing took (``seconds``).  No single PyTorch call
-    computes any of them (``library_ms`` null)."""
+    three-kernel route it replaces (:func:`packed_kernel_timing`), its
+    identity entry in turns with the two-launch route it replaces
+    (:func:`identity_kernel_timing`), and the seconds the timing took
+    (``seconds``).  No single PyTorch call computes any of them
+    (``library_ms`` null)."""
     import torch
 
     from annotatedvdb_tpu_torch.ops import pack as PK
@@ -4050,14 +4292,15 @@ def transport_kernel_timing() -> dict:
                                     "timed_by": "profiler" if seen else "events"}
         out[f"runs/{key}"] = runs
     out.update(packed_kernel_timing(torch, device))
+    out.update(identity_kernel_timing(torch, device))
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
-def transport_kernel_rows(checks, timing, packed_checks) -> list:
+def transport_kernel_rows(checks, timing, packed_checks, identity_checks) -> list:
     """The kernel table's rows of the three transport kernels and of the
-    annotate kernel's packed entry, timed at the load's chunk (65,536
-    rows; launches filled in after phases 4, 7, 8)."""
+    annotate kernel's packed and identity entries, timed at the load's
+    chunk (65,536 rows; launches filled in after phases 4, 7, 8)."""
     rows = []
     for kind, replaces in TRANSPORT_KERNELS.items():
         t, big = timing[f"{kind}/chunk"], timing[f"{kind}/1m"]
@@ -4084,6 +4327,23 @@ def transport_kernel_rows(checks, timing, packed_checks) -> list:
         "1m_ms": big["ms"], "1m_plain_ms": big["plain_ms"],
         "1m_bound_ms": big["bound_ms"], "1m_three_kernel_ms": big["three_kernel_ms"],
     })
+    t, big = timing[f"annotate_bin_identity/{CHUNK_ROWS}"], timing[f"annotate_bin_identity/{BIG_ROWS}"]
+    one = timing["annotate_bin_identity/1"]
+    rows.append({
+        "name": "annotate_bin_identity", "route": "cuda",
+        "source": "annotatedvdb_tpu_torch/csrc/annotate_bin.cu",
+        "replaces": "annotatedvdb_tpu/ops/annotate_pallas.py:206",
+        "launches": None, "max_abs_err": max(c["max_abs_err"] for c in identity_checks),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "rows": t["rows"],
+        "two_launch_ms": t["two_launch_ms"], "timed_by": t["timed_by"],
+        "also_replaces": ["annotatedvdb_tpu/ops/hashing.py:31",
+                          "annotatedvdb_tpu/ops/pack.py:214"],
+        "1m_ms": big["ms"], "1m_plain_ms": big["plain_ms"],
+        "1m_bound_ms": big["bound_ms"], "1m_two_launch_ms": big["two_launch_ms"],
+        "vep_batch_rows": 1, "vep_batch_ms": one["ms"], "vep_batch_bound_ms": one["bound_ms"],
+        "vep_batch_two_launch_ms": one["two_launch_ms"],
+    })
     return rows
 
 
@@ -4107,9 +4367,10 @@ def captured_loaders(cls, method="load_file"):
 
 @contextlib.contextmanager
 def captured_steps():
-    """The inputs and outputs of the first annotate-kernel step (either
-    entry: ``annotate_hash_pipeline_cuda`` or ``annotate_bin_packed``)
-    made inside ``lookup._device_hash`` (key ``"hash"``) and inside
+    """The inputs and outputs of the first annotate-kernel step (any
+    entry: ``annotate_hash_pipeline_cuda``, ``annotate_bin_packed`` or
+    ``annotate_bin_identity``) made inside ``lookup._device_hash`` (key
+    ``"hash"``) and inside
     ``VcfLoader._load_chunk`` (key ``"insert"``), kept on the card until
     :func:`step_mismatches` reads them.  The steps themselves run
     unchanged."""
@@ -4141,6 +4402,8 @@ def captured_steps():
                 traced(pipeline.annotate_hash_pipeline_cuda)),
                (annotate_cuda, "annotate_bin_packed",
                 traced(annotate_cuda.annotate_bin_packed)),
+               (annotate_cuda, "annotate_bin_identity",
+                traced(annotate_cuda.annotate_bin_identity)),
                (lookup, "_device_hash", tagged(lookup._device_hash, "hash")),
                (VcfLoader, "_load_chunk", tagged(VcfLoader._load_chunk, "insert"))]
     raws = [(owner, name, owner.__dict__[name]) for owner, name, _ in patches]
@@ -4158,18 +4421,28 @@ def step_mismatches(torch, seen) -> dict:
     on which the card's outputs break the contract against the plain
     versions on the same inputs copied to the host (annotate fields under
     ``parity_mismatches``, the hash exact on every row; the packed entry's
-    rows under ``packed_mismatches``)."""
+    rows under ``packed_mismatches``, the identity entry's under
+    ``identity_mismatches``)."""
     from annotatedvdb_tpu_torch.models.pipeline import (
         annotate_hash_pipeline,
+        identity_mismatches,
         packed_mismatches,
         parity_mismatches,
     )
-    from annotatedvdb_tpu_torch.ops.annotate_cuda import annotate_bin_packed_reference
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        IDENTITY_ROW,
+        annotate_bin_identity_reference,
+        annotate_bin_packed_reference,
+    )
     from annotatedvdb_tpu_torch.types import AnnotatedBatch
 
     out = {}
     for tag, (args, got) in seen.items():
         host = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        if torch.is_tensor(got) and got.shape[1] == IDENTITY_ROW:
+            bad = identity_mismatches(annotate_bin_identity_reference(*host), got.cpu())
+            out[tag] = {"rows": int(got.shape[0]), "differ": bad, "entry": "identity"}
+            continue
         if torch.is_tensor(got):
             bad = packed_mismatches(annotate_bin_packed_reference(*host), got.cpu())
             out[tag] = {"rows": int(got.shape[0]), "differ": bad, "entry": "packed"}
@@ -5377,7 +5650,7 @@ def cadd_steps(torch, plat, d, inp, config, qc_alg, index_built) -> dict:
     it reads only the tables), ``load-cadd --fileName`` of the first lines
     with ``--updateExisting`` (indexed seeks), ``export-vcf`` and ``undo``
     of the QC update.  Per step: the store's bytes, the ``cadd_join`` and
-    ``annotate_bin`` launches and the plain-join calls on the card; the
+    annotate-entry launches and the plain-join calls on the card; the
     export's files."""
     from annotatedvdb_tpu_torch.ops import annotate_cuda
 
@@ -5391,7 +5664,7 @@ def cadd_steps(torch, plat, d, inp, config, qc_alg, index_built) -> dict:
                        plain_cuda=run["plain_calls"].get("cuda", 0),
                        counters=run.get("counters"))
         if annotate_before is not None:
-            rec["annotate_launches"] = (annotate_cuda.LAUNCHES["annotate_bin"]
+            rec["annotate_launches"] = (annotate_launches(annotate_cuda.LAUNCHES)
                                         - annotate_before)
         out[step] = rec
 
@@ -5400,7 +5673,7 @@ def cadd_steps(torch, plat, d, inp, config, qc_alg, index_built) -> dict:
         t0 = time.perf_counter()
         run_load_cadd(torch, plat, d, db, "--buildIndex")
         out["build-index"] = {"s": time.perf_counter() - t0}
-    before = annotate_cuda.LAUNCHES["annotate_bin"]
+    before = annotate_launches(annotate_cuda.LAUNCHES)
     record("load-cadd-file", run_load_cadd(
         torch, plat, d, db, "--fileName", inp["head6"], "--updateExisting",
         "--commit"), annotate_before=before)
@@ -5418,8 +5691,9 @@ def check_cadd_parity(dev, cpu, config, spec, platform) -> None:
     """Phase 6's CADD steps, card against CPU: the store bytes after each
     step and the export files identical; on the card, ``cadd_join``
     launched as predicted by the whole-store join and never by the indexed
-    one, ``annotate_bin`` once for the subset VCF's one chunk under the
-    Python tokenizer (none under the native one), no plain join.  Emits
+    one, the annotate kernel's identity entry once for the subset VCF's
+    one chunk under the Python tokenizer (none under the native one), no
+    plain join.  Emits
     ``parity_cadd``; raises AssertionError on any failed check."""
     python = config != "default"
     steps = {}
@@ -5695,13 +5969,9 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
         f"vep: the default configuration did not run the native transform: {stats}")
     assert batches > 0
     if device.type == "cuda":
-        assert launched["annotate_bin"] == batches, (
-            f"vep: annotate_bin launched {launched['annotate_bin']} times for "
-            f"{batches} identity batches")
-        # a store 49 wide packs each identity batch's three columns
-        assert launched.get("pack_vep_outputs", batches) == batches, (
-            f"vep: pack_vep_outputs launched {launched['pack_vep_outputs']} "
-            f"times for {batches} identity batches")
+        # a store 49 wide takes one launch of the identity entry a batch,
+        # and neither annotate_bin nor pack_vep_outputs
+        identity_launches_check("vep", launched, batches)
         assert not hashed.get("cuda"), (
             f"vep: the load called the plain allele_hash on the card "
             f"{hashed['cuda']} times")
@@ -5716,7 +5986,7 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
     with environment(AVDB_NATIVE_VEP="0"):
         py = run_load_vep(torch, platform, prep["store_python"], prep["vep7b"])
     py_loader = py["loader"]
-    py_launched = launches["annotate_bin"] - before["annotate_bin"]
+    py_launched = {k: launches[k] - before[k] for k in launches}
     got_default = {k: default["loader"].counters.get(k, 0) for k in want_b}
     got_py = {k: py_loader.counters.get(k, 0) for k in want_b}
     learned = sorted(default["loader"].parser.ranker.added)
@@ -5740,9 +6010,7 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
     assert default["loader"].transform_stats["native_rows"] > 0
     assert py_loader.transform_stats["native_rows"] == 0
     if device.type == "cuda":
-        assert py_launched == py_loader.identity_batches, (
-            f"vep (python): annotate_bin launched {py_launched} times for "
-            f"{py_loader.identity_batches} identity batches")
+        identity_launches_check("vep (python)", py_launched, py_loader.identity_batches)
     assert not differ, (
         f"vep: the native and Python transforms' stores decode differently "
         f"in {differ}")
@@ -5750,6 +6018,17 @@ def vep_phase(torch, platform, prep, launches, hash_calls) -> dict:
         shutil.rmtree(d)
     return {"launches": launched, "identity_batches": batches,
             "rows_per_batch": rows / batches}
+
+
+def identity_launches_check(label, launched, batches) -> None:
+    """A VEP update of a store at most 255 wide on the card: one launch of
+    the identity entry an identity batch, no ``annotate_bin`` and no
+    ``pack_vep_outputs``.  Raises AssertionError otherwise."""
+    got = {k: launched[k] for k in ("annotate_bin_identity", "annotate_bin",
+                                    "pack_vep_outputs")}
+    assert got == {"annotate_bin_identity": batches, "annotate_bin": 0,
+                   "pack_vep_outputs": 0}, (
+        f"{label}: launches {got} for {batches} identity batches")
 
 
 def load_update_store(vcf, platform="cuda") -> str:
@@ -5826,6 +6105,10 @@ def update_phase(torch, platform, store_dir, updates, launches, hash_calls) -> d
                 f"{name}: {launched['annotate_bin_packed']} packed-entry / "
                 f"{launched['pack_outputs']} pack / {launched['inflate_alleles']} "
                 f"inflate launches for {run['inserts']} inserts")
+            # each lookup hash takes one launch of the identity entry
+            assert launched["annotate_bin_identity"] == run["hash_steps"], (
+                f"{name}: {launched['annotate_bin_identity']} identity-entry "
+                f"launches for {run['hash_steps']} device hash steps")
         out[name] = dict(launched)
     return out
 
@@ -6080,7 +6363,8 @@ def refgenome_phase(torch, platform, inp) -> dict:
          last=lines[-1], printed=printed[-1:])
     assert len(lines) == 395_448 and printed[-1] == (
         "generated 395448 bins for 25 chromosomes"), printed
-    return {"launches": validated, "annotate_launches": annotated}
+    return {"launches": validated, "annotate_launches": annotated,
+            "egress_launches": pg["launches"]}
 
 
 # ------------------------------------------------- query server (phase 11)
@@ -7130,45 +7414,6 @@ def doctor_phase(torch, platform, store9, store6, engine) -> dict:
     assert rows_repaired < rows6, (rows_repaired, rows6)
     assert rc_replay == 0 and replayed == "".join(made["bad"]), replay_err
     return {"stats_launches": stats_launches}
-
-
-def vep_kernel_timing(torch, device, rows) -> dict:
-    """``annotate_bin`` at the VEP load's identity-batch shape: ten
-    load-like input sets (``io/synth.py``, 85% SNVs) of ``rows`` rows at
-    W = 49, device ms (profiler) and call ms (CUDA events), kernel and
-    plain version in turns, beside the bound."""
-    from annotatedvdb_tpu_torch.io.synth import synthetic_batch
-    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
-        FIELDS,
-        annotate_bin,
-        annotate_bin_reference,
-    )
-
-    sets = [[torch.from_numpy(np.ascontiguousarray(x)).to(device)
-             for x in synthetic_batch(rows, width=WIDTH, seed=20 + i)[1:]]
-            for i in range(10)]
-    runs = {}
-    for name, fn, iters in (("plain", annotate_bin_reference, 20),
-                            ("kernel", annotate_bin, 200),
-                            ("kernel", annotate_bin, 200),
-                            ("plain", annotate_bin_reference, 20)):
-        runs.setdefault(name, []).append({
-            "device_ms": device_ms(torch, fn, sets, iters),
-            "call_ms": call_ms(torch, fn, sets, iters)})
-
-    def best(rs):
-        dev = [r["device_ms"] for r in rs if r["device_ms"] is not None]
-        return min(dev) if dev else min(r["call_ms"] for r in rs)
-
-    host = [x.cpu().numpy() for x in sets[0]]
-    prefix = annotate_bin_reference(*sets[0])["prefix_len"].cpu().numpy()
-    bound = annotate_bound(torch, FIELDS, *host, prefix.astype(np.int64))
-    ms = best(runs["kernel"])
-    out = {**bound, "ms": ms, "plain_ms": best(runs["plain"]),
-           "call_ms": min(r["call_ms"] for r in runs["kernel"]),
-           "bound_share": bound["bound_ms"] / ms, "timing_runs": runs}
-    emit("vep_kernel", **out)
-    return out
 
 
 # ------------------------------------------------- write path (phase 14)
@@ -8896,19 +9141,28 @@ def main() -> int:
             t0 = time.perf_counter()
             transport_checks, transport_worst = transport_kernel_checks(torch, device)
             packed_checks, packed_worst = annotate_packed_checks(torch, device)
+            identity_checks, identity_worst = annotate_identity_checks(torch, device)
             checks_s = time.perf_counter() - t0
             transport_timing = pool.submit(transport_kernel_timing).result()
             emit("transport_kernel", checks=transport_checks, worst=transport_worst,
                  checks_s=checks_s, timing={k: v for k, v in transport_timing.items()
-                                            if "packed" not in k})
+                                            if "packed" not in k and "identity" not in k})
             emit("packed_kernel", checks=len(packed_checks), worst=packed_worst,
                  host_fallback_rows=sum(c["host_fallback_rows"] for c in packed_checks),
                  blocks_per_sm={f"w{w}-cols{c}": annotate_cuda._library()
                                 .annotate_bin_packed_blocks_per_sm(w, c)
                                 for w, c in ((WIDTH, (WIDTH + 1) // 2), (192, 96))},
                  timing={k: v for k, v in transport_timing.items() if "packed" in k})
+            emit("identity_kernel", checks=len(identity_checks), worst=identity_worst,
+                 host_fallback_rows=sum(c["host_fallback_rows"] for c in identity_checks),
+                 two_launch_checks=sum(c["equal_two_launches"] is not None
+                                       for c in identity_checks),
+                 blocks_per_sm={f"w{w}": annotate_cuda._library()
+                                .annotate_bin_identity_blocks_per_sm(w)
+                                for w in (WIDTH, 192, 255)},
+                 timing={k: v for k, v in transport_timing.items() if "identity" in k})
             transport_rows = transport_kernel_rows(transport_checks, transport_timing,
-                                                   packed_checks)
+                                                   packed_checks, identity_checks)
             # the mesh kernels' checks, then their timing in the second
             # process while this one waits, so no other phase shares the card
             mesh_checks = mesh_kernel_checks(torch, device)
@@ -8949,8 +9203,6 @@ def main() -> int:
             reset()
             vep = vep_phase(torch, "cuda", results, launches=launches,
                             hash_calls=hashing.CALLS)
-            vep_kernel = vep_kernel_timing(torch, device,
-                                           max(1, round(vep["rows_per_batch"])))
             # 8. the update legs on a store of phase 4's first 125,000
             # lines, loaded for them (counters reset inside, just before
             # each command)
@@ -9008,15 +9260,15 @@ def main() -> int:
                   "serve": served["chaos"]["seconds"],
                   "export": chaos_export["seconds"]})
     emit("smoke", seconds=time.perf_counter() - t_start)
-    vcf_launches = results["launches"]["annotate_bin"]
-    vep_launches = vep["launches"]["annotate_bin"]
-    upd_launches = {name: n["annotate_bin"] for name, n in upd.items()}
-    table[0].update(launches=vcf_launches + vep_launches + sum(upd_launches.values()),
-                    launches_vcf_load=vcf_launches, launches_vep_load=vep_launches,
-                    launches_update_qc=upd_launches["qc"], launches_lof=upd_launches["lof"],
-                    launches_tsv=upd_launches["tsv"],
-                    vep_batch_rows=vep_kernel["rows"], vep_batch_ms=vep_kernel["ms"],
-                    vep_batch_bound_ms=vep_kernel["bound_ms"])
+    # annotate_bin: the loads' raw chunks and wide VEP stores (none on the
+    # smoke's inputs), phase 10's egress windows and phase 15's mesh steps
+    by_phase = {"vcf_load": results["launches"]["annotate_bin"],
+                "vep_load": vep["launches"]["annotate_bin"],
+                **{f"update_{name}": n["annotate_bin"] for name, n in upd.items()},
+                "install_schema": ref10["egress_launches"],
+                "mesh": meshed["launches"]["annotate_bin"]}
+    table[0].update(launches=sum(by_phase.values()),
+                    **{f"launches_{k}": n for k, n in by_phase.items()})
     table[1].update(launches=cadd["launches"])
     table[2].update(launches=ref10["launches"])
     for row in table[3:6]:

@@ -53,7 +53,15 @@ replaces byte for byte and against its plain composition under the
 selection contract (``chip_smoke.annotate_packed_checks``: W = 1 to 192,
 two column counts, 0 to 257 rows, every packed byte value, 65,536 and
 1,048,576 rows, unaligned bases), its wrapper's refusals checked, and a
-wrong entry shown to fail its first-use check and the load.
+wrong entry shown to fail its first-use check and the load.  The identity
+entry is held against its plain composition on every byte and against
+the two-launch route it replaces (``chip_smoke.annotate_identity_checks``:
+W = 1 to 255, 0 to 257 rows, shared runs, over-width, SNV and empty rows,
+65,536 and 1,048,576 rows, unaligned bases and output), its wrapper's
+refusals checked, and a wrong entry shown to fail its first-use check and
+the VEP update; the VEP update and the update legs' lookup hashes take it
+on the card, one launch a batch, with no ``annotate_bin`` or
+``pack_vep_outputs``.
 The export's pack kernel (``csrc/export_pack.cu``) is held against its
 plain version byte for byte on edge rows, 1,048,576 random rows,
 store-shaped batches and stacks of batches (B = 4 mod 8, B not a multiple
@@ -278,7 +286,8 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch, config):
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
     from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
     from annotatedvdb_tpu_torch.loaders import VepLoader
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_identity_fn
+    from annotatedvdb_tpu_torch.ops import pack
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
     from annotatedvdb_tpu_torch.utils.quarantine import QuarantineSink
 
@@ -286,7 +295,7 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch, config):
         monkeypatch.setenv("AVDB_NATIVE_VEP", "0")
     else:
         monkeypatch.delenv("AVDB_NATIVE_VEP", raising=False)
-    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
+    annotate_identity_fn(cuda)  # its once-per-process check launches the entry too
     vcf, vep = str(tmp_path / "v.vcf"), str(tmp_path / "v.vep.json")
     lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
     want, novel = write_vep_json(vep, lines, 5_000, seed=9, n_novel=3)
@@ -302,7 +311,8 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch, config):
         loader = VepLoader(store, AlgorithmLedger(f"{d}/ledger.jsonl"),
                            ConsequenceRanker(), datasource="dbSNP",
                            log=lambda *a: None, quarantine=sink, device=plat)
-        calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+        calls, launches = dict(hashing.CALLS), dict(LAUNCHES)
+        packs = pack.LAUNCHES["pack_vep_outputs"]
         counters = loader.load_file(vep, commit=True)
         sink.close()
         store.save(d)
@@ -311,7 +321,11 @@ def test_vep_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch, config):
         assert sorted(loader.parser.ranker.added) == sorted(novel)
         assert (loader.transform_stats["native_rows"] > 0) == (config == "native")
         if plat == "cuda":
-            assert LAUNCHES["annotate_bin"] - launches == loader.identity_batches > 0
+            got = {k: LAUNCHES[k] - launches[k] for k in LAUNCHES}
+            assert got == {"annotate_bin": 0, "annotate_bin_packed": 0,
+                           "annotate_bin_identity": loader.identity_batches}
+            assert loader.identity_batches > 0
+            assert pack.LAUNCHES["pack_vep_outputs"] == packs
             assert hashing.CALLS["cuda"] == calls["cuda"]
             assert set(loader.probe_stats) == {"device"}
         out[plat] = (store_bytes(d), loader.transform_stats)
@@ -573,6 +587,80 @@ def test_packed_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
     assert loader.transport["packed"] == 0
 
 
+def test_identity_entry_matches_plain_version(cuda):
+    """The annotate kernel's identity entry against its plain composition
+    on every byte and against the two-launch route (``annotate_bin``,
+    ``pack_vep_outputs``) where ``annotate_bin`` takes the width, at W = 1
+    to 255, 0 to 257 rows, shared runs, over-width, SNV and empty rows,
+    65,536 and 1,048,576 rows, all from unaligned bases and also into an
+    unaligned output (``chip_smoke.annotate_identity_checks``): one launch
+    a call."""
+    from chip_smoke import IDENTITY_ROWS, IDENTITY_WIDTHS, annotate_identity_checks
+
+    before = LAUNCHES["annotate_bin_identity"]
+    checks, worst = annotate_identity_checks(torch, cuda)
+    assert worst == 0 and all(c["equal_plain"] and c["equal_unaligned_out"]
+                              and c["equal_two_launches"] is not False
+                              and not c["plain_mismatched"] for c in checks)
+    assert len(checks) == len(IDENTITY_WIDTHS) * len(IDENTITY_ROWS) + 2
+    assert sum(c["equal_two_launches"] is not None for c in checks) > len(checks) // 2
+    assert sum(c["host_fallback_rows"] for c in checks) > 0
+    # a launch a call with rows (the first-use check's own probe included)
+    calls = sum(c["rows"] > 0 for c in checks)
+    assert LAUNCHES["annotate_bin_identity"] - before in (calls, calls + 1)
+
+
+def test_identity_entry_refuses_bad_inputs(cuda):
+    from annotatedvdb_tpu_torch.ops.annotate_cuda import (
+        IDENTITY_MAX_WIDTH,
+        annotate_bin_identity,
+    )
+
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda)
+    m = torch.zeros((8, 49), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        annotate_bin_identity(m, m.cpu(), i32, i32)
+    with pytest.raises(TypeError, match="alt_len must be"):
+        annotate_bin_identity(m, m, i32, i32.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        annotate_bin_identity(m[:, ::2], m[:, ::2], i32, i32)
+    wide = torch.zeros((8, IDENTITY_MAX_WIDTH + 1), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="allele width"):
+        annotate_bin_identity(wide, wide, i32, i32)
+    assert annotate_bin_identity(m[:0], m[:0], i32[:0], i32[:0]).shape == (0, 6)
+
+
+def test_identity_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
+    """An identity entry whose rows are wrong on the card fails its
+    first-use check, and a VEP update on the card fails with it (no
+    fallback to the two-launch route); nothing is latched."""
+    from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
+    from annotatedvdb_tpu_torch.loaders import VepLoader
+    from annotatedvdb_tpu_torch.models import pipeline
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
+    from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
+
+    real = annotate_cuda.annotate_bin_identity
+
+    def wrong(*args):
+        out = real(*args)
+        out[:, 5] ^= 1
+        return out
+
+    monkeypatch.setattr(pipeline, "_VERIFIED", set())
+    monkeypatch.setattr(annotate_cuda, "annotate_bin_identity", wrong)
+    with pytest.raises(RuntimeError, match="identity entry disagrees"):
+        pipeline.annotate_identity_fn(cuda)
+    assert ("verify_identity_kernel", str(cuda)) not in pipeline._VERIFIED
+    loader = VepLoader(VariantStore(width=49),
+                       AlgorithmLedger(str(tmp_path / "l.jsonl")),
+                       ConsequenceRanker(), log=lambda *a: None, device=cuda)
+    batches = loader.identity_batches
+    with pytest.raises(RuntimeError, match="identity entry disagrees"):
+        loader.warmup()
+    assert loader.identity_batches == batches
+
+
 def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     """``load-vcf`` on the card under ``AVDB_PACK_TRANSPORT`` auto, always
     and never, and on the CPU: one store, byte for byte; on the card auto
@@ -609,7 +697,7 @@ def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
                **{k: LAUNCHES[k] - before[1][k] for k in LAUNCHES}}
         packs = plat == "cuda" and mode != "never"
         want = dict.fromkeys(("inflate_alleles", "pack_outputs", "annotate_bin",
-                              "annotate_bin_packed"), 0)
+                              "annotate_bin_packed", "annotate_bin_identity"), 0)
         if packs:
             want["annotate_bin_packed"] = chunks + WARMUP_PACKED
         elif plat == "cuda":
@@ -632,24 +720,24 @@ def test_transport_modes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
 
 def test_vep_warmup_stays_out_of_the_identity_counts(cuda, tmp_path):
     """``VepLoader.warmup`` on the card sends one identity batch at the
-    loader's batch shape through one ``annotate_bin`` and one
-    ``pack_vep_outputs`` launch, and leaves the identity batch count and
-    the identity timer's seconds and items as they were."""
+    loader's batch shape through one launch of the identity entry (no
+    ``annotate_bin``, no ``pack_vep_outputs``), and leaves the identity
+    batch count and the identity timer's seconds and items as they were."""
     from annotatedvdb_tpu_torch.conseq import ConsequenceRanker
     from annotatedvdb_tpu_torch.loaders import VepLoader
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_identity_fn
     from annotatedvdb_tpu_torch.ops import pack
     from annotatedvdb_tpu_torch.store import AlgorithmLedger, VariantStore
 
-    annotate_hash_fn(cuda)  # its once-per-process check launches the kernel too
-    pack.ensure_transport(cuda)
+    annotate_identity_fn(cuda)  # its once-per-process check launches the entry too
     loader = VepLoader(VariantStore(width=49),
                        AlgorithmLedger(str(tmp_path / "l.jsonl")),
                        ConsequenceRanker(), log=lambda *a: None, device=cuda)
-    launches, packs = LAUNCHES["annotate_bin"], pack.LAUNCHES["pack_vep_outputs"]
+    launches, packs = dict(LAUNCHES), pack.LAUNCHES["pack_vep_outputs"]
     loader.warmup()
-    assert (LAUNCHES["annotate_bin"] - launches,
-            pack.LAUNCHES["pack_vep_outputs"] - packs) == (1, 1)
+    assert ({k: LAUNCHES[k] - launches[k] for k in LAUNCHES},
+            pack.LAUNCHES["pack_vep_outputs"] - packs) == (
+        {"annotate_bin": 0, "annotate_bin_packed": 0, "annotate_bin_identity": 1}, 0)
     assert loader.identity_batches == 0
     assert loader.identity_timer.seconds == {} and loader.identity_timer.items == {}
 
@@ -728,15 +816,15 @@ def test_default_vcf_load_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 
 def test_chunk_hashes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     """A Python-engine chunk (no tokenizer hash) hashed on the card by one
-    ``annotate_bin`` launch: equal to the CPU's hash on every row, the
+    launch of the identity entry: equal to the CPU's hash on every row, the
     over-width override included; no plain hash on the card."""
     from annotatedvdb_tpu_torch.io.vcf import VcfBatchReader
     from annotatedvdb_tpu_torch.loaders.lookup import chunk_hashes
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_identity_fn
     from annotatedvdb_tpu_torch.store import VariantStore
 
     monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
-    annotate_hash_fn(cuda)
+    annotate_identity_fn(cuda)
     vcf = str(tmp_path / "h.vcf")
     write_phase4_vcf(vcf, 30_000)
     store = VariantStore(width=49)
@@ -745,9 +833,10 @@ def test_chunk_hashes_on_card_match_cpu(cuda, tmp_path, monkeypatch):
         if not chunk.batch.n:
             continue
         assert chunk.h_native is None
-        calls, launches = dict(hashing.CALLS), LAUNCHES["annotate_bin"]
+        calls, launches = dict(hashing.CALLS), dict(LAUNCHES)
         got = chunk_hashes(store, chunk, device=cuda)
-        assert LAUNCHES["annotate_bin"] == launches + 1
+        assert {k: LAUNCHES[k] - launches[k] for k in LAUNCHES} == {
+            "annotate_bin": 0, "annotate_bin_packed": 0, "annotate_bin_identity": 1}
         assert hashing.CALLS["cuda"] == calls["cuda"]
         np.testing.assert_array_equal(got, chunk_hashes(store, chunk, device="cpu"))
         over += int((chunk.batch.ref_len > 49).sum())
@@ -764,7 +853,11 @@ def test_update_legs_on_card_match_cpu(cuda, tmp_path, monkeypatch, engine):
     import shutil
 
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_packed_fn
+    from annotatedvdb_tpu_torch.models.pipeline import (
+        annotate_hash_fn,
+        annotate_identity_fn,
+        annotate_packed_fn,
+    )
 
     if engine == "python":
         monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
@@ -772,6 +865,7 @@ def test_update_legs_on_card_match_cpu(cuda, tmp_path, monkeypatch, engine):
         monkeypatch.delenv("AVDB_INGEST_ENGINE", raising=False)
     annotate_hash_fn(cuda)
     annotate_packed_fn(cuda)
+    annotate_identity_fn(cuda)
     vcf = str(tmp_path / "v.vcf")
     lines, _rows, _dups = write_phase4_vcf(vcf, 20_000)
     base = str(tmp_path / "base")
@@ -874,9 +968,10 @@ def test_cadd_steps_on_card_match_cpu(cuda, tmp_path, monkeypatch, config):
 
     import chip_smoke
     from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
-    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn
+    from annotatedvdb_tpu_torch.models.pipeline import annotate_hash_fn, annotate_identity_fn
 
-    annotate_hash_fn(cuda)  # its one-time check launches annotate_bin
+    annotate_hash_fn(cuda)  # their one-time checks launch the entries
+    annotate_identity_fn(cuda)
     monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
     if config == "python":
         monkeypatch.setenv("AVDB_INGEST_ENGINE", "python")
@@ -2064,8 +2159,9 @@ def test_mesh_load_on_card_matches_single_device(cuda, monkeypatch, tmp_path):
     with open(tmp_path / "single" / "ledger.jsonl") as f:
         chunks = sum('"checkpoint"' in line for line in f)
     assert chunks >= 5
-    assert launches["mesh"] == {"annotate_bin": 4 * chunks, "annotate_bin_packed": 0}
-    assert launches["single"] == {"annotate_bin": 0,
+    assert launches["mesh"] == {"annotate_bin": 4 * chunks, "annotate_bin_packed": 0,
+                                "annotate_bin_identity": 0}
+    assert launches["single"] == {"annotate_bin": 0, "annotate_bin_identity": 0,
                                   "annotate_bin_packed": chunks + WARMUP_PACKED}
     assert store_bytes(str(tmp_path / "mesh")) == store_bytes(str(tmp_path / "single"))
 

@@ -3,7 +3,7 @@
 ``csrc/export_pack.cu``, ``csrc/bits_spans.cu`` (both of its entry points:
 one group and a stack of groups), ``csrc/lookup_multi.cu``,
 ``csrc/pack.cu`` (three entry points, three launches) and
-``csrc/annotate_bin.cu`` (two entry points; its PTX helpers for TMA bulk
+``csrc/annotate_bin.cu`` (three entry points; its PTX helpers for TMA bulk
 copies, mbarriers and byte permutes replaced by the header's emulations,
 its dynamic shared memory by a buffer of the launch's size) are compiled with
 ``g++ -std=c++20`` against the header, which maps the CUDA surface they
@@ -19,10 +19,10 @@ the pack's numpy twin ``export_pack_host`` and the plain versions
 ``lookup_in_sorted_multi_reference`` on CPU tensors, and the transport's
 inflate and packs against ``inflate_alleles_reference``,
 ``pack_outputs_reference`` and ``pack_vep_outputs_reference``, and the
-annotate kernel's two entries against ``annotate_bin_reference`` (the
-selection contract) and ``annotate_bin_packed_reference``
-(``packed_mismatches``) over ragged tiles, unaligned bases and several
-tiles a block.  The
+annotate kernel's three entries against ``annotate_bin_reference`` (the
+selection contract), ``annotate_bin_packed_reference``
+(``packed_mismatches``) and ``annotate_bin_identity_reference`` (every
+byte) over ragged tiles, unaligned bases and several tiles a block.  The
 simulated card has 3 SMs of 2 blocks, so the pack's grid strides.  This
 is no timing and no proof that ``nvcc`` accepts the source: the card runs
 the same comparisons (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -528,7 +528,7 @@ def annotate_sim_source(text: str) -> str:
                 break
         text = text[:start] + "{\n  " + body + "\n}" + text[end + 1:]
     text, fences = re.subn(r'asm volatile\("fence[^;]*;\\n" ::: "memory"\);', "", text)
-    assert fences == 4, fences  # two a kernel: after the barriers' init, before a refill
+    assert fences == 6, fences  # two a kernel: after the barriers' init, before a refill
     assert "asm" not in re.sub(r"//[^\n]*", "", text), "an unemulated PTX statement"
     text = text.replace("extern __shared__ __align__(128) uint8_t smem[];",
                         "uint8_t* smem = sim_dynamic_smem;")
@@ -536,13 +536,13 @@ def annotate_sim_source(text: str) -> str:
         lambda m: f"sim_dynamic_smem_alloc({m.group(4)}); "
                   f"{m.group(1)}<<<{m.group(2)}, {m.group(3)}, 0, {m.group(5)}>>>({m.group(6)});",
         text)
-    assert n == 2, n
-    return sim_source(text, launches=2)
+    assert n == 3, n
+    return sim_source(text, launches=3)
 
 
 @pytest.fixture(scope="module")
 def annotate_lib(tmp_path_factory):
-    """``csrc/annotate_bin.cu`` built for the simulator, both entries
+    """``csrc/annotate_bin.cu`` built for the simulator, its three entries
     declared."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -559,6 +559,7 @@ def annotate_lib(tmp_path_factory):
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.annotate_bin_launch.argtypes = [vp] * 5 + [i, i, vp, vp]
     lib.annotate_bin_packed_launch.argtypes = [vp] * 5 + [i, i, i, vp, vp]
+    lib.annotate_bin_identity_launch.argtypes = [vp] * 4 + [i, i, vp, vp]
     return lib
 
 
@@ -644,9 +645,52 @@ def test_annotate_fields_source_matches_plain_version(annotate_lib, capfd, width
             np.testing.assert_array_equal(got[rows], ref[rows], err_msg=name)
 
 
+def _annotate_identity_sim(lib, case, offsets, out_offset):
+    """The identity entry's ``[n, 6]`` rows, each input ``offsets``
+    elements and the output ``out_offset`` bytes past 64-byte alignment."""
+    args = [_placed(np.ascontiguousarray(x), off) for x, off in zip(case, offsets)]
+    n, w = args[0].shape
+    out = _buffer(n * 6, np.uint8, out_offset)
+    out[:] = 0xAB
+    rc = lib.annotate_bin_identity_launch(*(_ptr(a) for a in args), n, w, _ptr(out), None)
+    assert rc == 0
+    return out.reshape(n, 6)
+
+
+@pytest.mark.parametrize("width", [1, 7, 49, 192, 255])
+def test_annotate_identity_source_matches_plain_version(annotate_lib, capfd, width):
+    """The identity entry on ``chip_smoke.annotate_identity_cases`` (shared
+    leading runs across the scan's word steps and up to the width, over-width,
+    SNV, empty and noisy rows, the edge rows) at 1, 129 and 257 rows and all
+    of them, the allele matrices 3 and 7 bytes off alignment and the output
+    aligned or not (16-byte or byte stores): the plain composition's rows,
+    every byte of every row (the prefix byte on host_fallback rows too), and
+    the same rows from every placement; then 2,000 rows at W = 49 (a block
+    walking several tiles)."""
+    from chip_smoke import annotate_identity_cases, random_batch
+
+    case = annotate_identity_cases(width)
+    for n in (1, 129, 257, None):
+        cut = [x[:n] for x in case]
+        want = AC.annotate_bin_identity_reference(*(torch.from_numpy(x) for x in cut))
+        outs = [_annotate_identity_sim(annotate_lib, cut, offsets, out_off)
+                for offsets, out_off in (((0, 0, 0, 0), 0), ((3, 7, 1, 1), 0),
+                                         ((5, 2, 0, 0), 3))]
+        no_misaligned(capfd)
+        for got in outs:
+            np.testing.assert_array_equal(got, want.numpy(), err_msg=f"n={n}")
+    if width == 49:
+        big = random_batch(31, 2000, width)[1:]
+        want = AC.annotate_bin_identity_reference(*(torch.from_numpy(x) for x in big))
+        got = _annotate_identity_sim(annotate_lib, big, (3, 7, 1, 1), 0)
+        no_misaligned(capfd)
+        np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_annotate_source_refuses_bad_arguments(annotate_lib):
-    """Too few or too many packed columns, a width outside 1..192 and no
-    rows are refused before any launch (cudaErrorInvalidValue)."""
+    """Too few or too many packed columns, a width outside 1..192 (the
+    identity entry: 1..255) and no rows are refused before any launch
+    (cudaErrorInvalidValue)."""
     lib = annotate_lib
     i32 = _buffer(8, np.int32, 0)
     packed = _buffer(8 * 193, np.uint8, 0)
@@ -656,3 +700,8 @@ def test_annotate_source_refuses_bad_arguments(annotate_lib):
     for n, cols, w in ((8, 24, 49), (8, 193, 192), (8, 97, 193), (8, 1, 0), (0, 25, 49)):
         assert lib.annotate_bin_packed_launch(*ptrs, n, cols, w, _ptr(out), None) == 1, (n, cols, w)
     assert lib.annotate_bin_launch(*ptrs, 8, 193, _ptr(out), None) == 1
+    wide = _buffer(8 * 256, np.uint8, 0)
+    rows = [_ptr(wide), _ptr(wide), _ptr(i32), _ptr(i32)]
+    assert lib.annotate_bin_identity_launch(*rows, 8, 255, _ptr(out), None) == 0
+    for n, w in ((8, 256), (8, 0), (0, 49), (-1, 49)):
+        assert lib.annotate_bin_identity_launch(*rows, n, w, _ptr(out), None) == 1, (n, w)

@@ -145,17 +145,30 @@ def test_empty_native_chunk_has_site_columns(tmp_path, monkeypatch):
 @pytest.mark.parametrize("engine", ["native", "python"])
 def test_chunk_hashes_match_reference(inputs, monkeypatch, engine):
     """Hashes equal the reference's on every row, over-width rows
-    included: ``h_native`` (native) or the device step (Python engine)."""
+    included: ``h_native`` (native) or the identity step, once a chunk
+    (Python engine)."""
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
+
     set_engine(monkeypatch, engine)
+    steps = []
+    real = annotate_cuda.annotate_bin_identity_reference
+
+    def step(*args):
+        steps.append(args[0].shape[0])
+        return real(*args)
+
+    monkeypatch.setattr(annotate_cuda, "annotate_bin_identity_reference", step)
     ref_store, store = VariantStore(width=49), TorchStore(width=49)
-    over = 0
+    over, rows = 0, []
     for a, b in zip(_chunks(VcfBatchReader, inputs["qc"]),
                     _chunks(RefReader, inputs["qc"])):
         assert (a.h_native is None) == (engine == "python")
         np.testing.assert_array_equal(chunk_hashes(store, a, device="cpu"),
                                       ref_chunk_hashes(ref_store, b))
         over += int(((a.batch.ref_len > 49) | (a.batch.alt_len > 49)).sum())
+        rows.append(a.batch.n)
     assert over >= 2
+    assert steps == (rows if engine == "python" else [])
 
 
 def test_identity_hashes_match_reference(inputs, monkeypatch):

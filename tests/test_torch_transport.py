@@ -198,16 +198,27 @@ def _vep_pair(tmp_path, monkeypatch, width):
 @pytest.mark.parametrize("width", [49, 300])
 def test_vep_identity_rows_match_reference(tmp_path, monkeypatch, width):
     """The Python VEP transform's identity batches: packed into ``[n, 6]``
-    rows (one plain pack a batch on the CPU) at width 49, three columns at
-    width 300 (the prefix would not fit its byte); the stores are the
-    reference's either way."""
+    rows (one plain pack a batch on the CPU) by the identity step (its
+    plain composition, once a batch) at width 49, three columns of the
+    annotate step at width 300 (the prefix would not fit its byte); the
+    stores are the reference's either way."""
+    from annotatedvdb_tpu_torch.ops import annotate_cuda
     from test_torch_vep import _assert_same_store as same_vep_store
 
+    steps = []
+    real = annotate_cuda.annotate_bin_identity_reference
+
+    def step(*args):
+        steps.append(args[0].shape[1])
+        return real(*args)
+
+    monkeypatch.setattr(annotate_cuda, "annotate_bin_identity_reference", step)
     c_ref, c_port, loader, packs, dirs = _vep_pair(tmp_path, monkeypatch, width)
     assert {k: c_port.get(k) for k in c_ref} == c_ref
     same_vep_store(*dirs)
     assert loader.identity_batches > 0
     assert packs == (loader.identity_batches if width <= 255 else 0)
+    assert steps == ([width] * loader.identity_batches if width <= 255 else [])
 
 
 def test_vep_warmup_checks_the_identity_batch(tmp_path):
