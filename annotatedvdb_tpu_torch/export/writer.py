@@ -16,8 +16,8 @@ manifest commits last through ``utils.io.replace_manifest``, so a kill at
 any instant leaves a committed prefix of the corpus or prunable
 ``*.export.tmp*`` debris, never a torn part.  The ``export.commit`` fault
 point fires on each staged part temp after its body and on the manifest
-temp through ``replace_manifest``'s ``pre_sync`` hook.  Not ported: the
-reference's ``AVDB_IO_TRACE`` file wrapper.
+temp through ``replace_manifest``'s ``pre_sync`` hook.  Part temps open
+through ``utils.io.open``, so ``AVDB_IO_TRACE=1`` records their writes.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def write_part(out_dir: str, n: int, arrays: dict) -> dict:
     digest = hashlib.sha256()
     header = (json.dumps({"corpus": 1, "names": list(arrays)}) + "\n").encode()
     total = len(header)
-    with open(tmp, "wb", buffering=1 << 20) as f:
+    with tio.open(tmp, "wb", buffering=1 << 20) as f:
         f.write(header)
         digest.update(header)
         for name in arrays:

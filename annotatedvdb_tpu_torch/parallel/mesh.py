@@ -108,7 +108,8 @@ class Mesh:
 def virtual_devices_from_env() -> int | None:
     """``AVDBC_VIRTUAL_DEVICES`` as a shard count, or None when unset/empty.
     A malformed value raises."""
-    spec = os.environ.get(VIRTUAL_DEVICES_ENV, "").strip()
+    # the literal name, so the env-drift rule (AVDB4xx) sees the read
+    spec = os.environ.get("AVDBC_VIRTUAL_DEVICES", "").strip()
     if not spec:
         return None
     try:

@@ -139,6 +139,7 @@ from annotatedvdb_tpu_torch.serve.http import (
     parse_region_params,
     parse_regions_body,
     parse_stats_body,
+    parse_upsert_body,  # noqa: F401 (run by ServeContext.upsert_execute, as on the threaded front end)
     readyz_payload,
     repl_file_response,
     repl_manifest_payload,

@@ -150,7 +150,7 @@ class _Pending:
         if self.callback is not None:
             try:
                 self.callback(self)
-            except Exception:  # a waiter's hook must never take down the drain thread
+            except Exception:  # avdb: noqa[AVDB602] -- a waiter's completion hook must never take down the shared drain thread
                 pass
 
 

@@ -181,11 +181,12 @@ class MeshExecutor:
         self._bulk: _BulkState | None = None
         #: guarded by self._lock
         self._spans: _SpanState | None = None
-        #: guarded by self._lock — monotonic stamp of the last started
-        #: build per state kind (the rebuild rate limiter's input); -inf
-        #: until the first, which is never a rebuild (``time.monotonic``
-        #: counts from boot, so a 0.0 stamp would hold back a young
-        #: host's first build for ``rebuild_min_s``)
+        #: monotonic stamp of the last started build per state kind (the
+        #: rebuild rate limiter's input); -inf until the first, which is
+        #: never a rebuild (``time.monotonic`` counts from boot, so a 0.0
+        #: stamp would hold back a young host's first build for
+        #: ``rebuild_min_s``)
+        #: guarded by self._lock
         self._last_build = {"bulk": NEVER_BUILT, "spans": NEVER_BUILT}
         if registry is not None:
             self._m_devices = registry.gauge(

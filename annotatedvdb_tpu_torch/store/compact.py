@@ -503,7 +503,7 @@ def _merge_label_to_temp(store_dir: str, label: str, glist: list,
     fsync_data = tio.fsync_wanted()
     stage = BoundedStage(payload(), depth=4, name=f"compact-{label}")
     try:
-        with open(tmp_npz, "wb", buffering=1 << 20) as raw_f:
+        with tio.open(tmp_npz, "wb", buffering=1 << 20) as raw_f:
             f = _CrcWriter(raw_f)
             first = True
             for blob in stage:
@@ -523,7 +523,7 @@ def _merge_label_to_temp(store_dir: str, label: str, glist: list,
 
     present = [c for c in OBJECT_COLUMNS
                if any(p.obj[c] is not None for p in parts)]
-    with open(tmp_jsonl, "wb") as raw_f:
+    with tio.open(tmp_jsonl, "wb") as raw_f:
         f = _CrcWriter(raw_f)
         if present and n_out:
             # zlib-compressed JSONB sidecar: the reader sniffs the leading

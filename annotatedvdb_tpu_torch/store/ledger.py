@@ -82,7 +82,7 @@ class AlgorithmLedger:
                 faults.fire("ledger.append")
                 d, base = os.path.split(self.path)
                 tmp = os.path.join(d, f".{base}.tmp{os.getpid()}")
-                with open(tmp, "w") as out:
+                with tio.open(tmp, "w") as out:
                     for e in self._entries:
                         out.write(json.dumps(e) + "\n")
                     out.flush()
@@ -90,7 +90,7 @@ class AlgorithmLedger:
                 tio.replace(tmp, self.path)
                 self._heal_before_append = False
                 return
-            with open(self.path, "a") as f:
+            with tio.open(self.path, "a") as f:
                 line = json.dumps(entry) + "\n"
                 # crash point, BEFORE the write: raise/kill model a death in
                 # which this record never landed; torn_write writes half the

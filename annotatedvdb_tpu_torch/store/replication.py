@@ -387,7 +387,7 @@ def _atomic_write(path: str, blob: bytes) -> None:
         os.path.dirname(path),
         f".{os.path.basename(path)}.tmp{os.getpid()}",
     )
-    with open(tmp, "wb") as f:
+    with tio.open(tmp, "wb") as f:
         f.write(blob)
         f.flush()
         tio.fsync(f)
@@ -510,7 +510,7 @@ class ReplicaTailer:
         (and CRC when given) at the end — a mismatch means the leader
         committed mid-sync; the cycle retries with a fresh cut."""
         got = 0
-        with open(dest_tmp, "wb") as f:
+        with tio.open(dest_tmp, "wb") as f:
             while got < total:
                 blob = self._fetch_range(
                     route, name, got, min(self.chunk_bytes, total - got)
@@ -666,7 +666,7 @@ class ReplicaTailer:
                                  total - have)
         if not blob:
             return
-        with open(path, "r+b" if os.path.exists(path) else "wb") as f:
+        with tio.open(path, "r+b" if os.path.exists(path) else "wb") as f:
             f.seek(have)
             f.truncate()
             f.write(blob)
@@ -783,7 +783,7 @@ class ReplicaTailer:
                 continue
             path = os.path.join(self.store_dir, fname)
             if self.persist:
-                with open(path, "ab") as f:
+                with tio.open(path, "ab") as f:
                     if f.tell() != have:
                         # mirror drifted (manual edit, lost truncate):
                         # rebuild this stream from scratch next cycle

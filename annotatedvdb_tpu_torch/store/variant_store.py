@@ -1302,7 +1302,7 @@ class VariantStore:
             "ref": ref, "alt": alt,
             **{name: seg.cols[name] for name, _ in _NUMERIC_COLUMNS},
         }
-        with open(tmp, "wb", buffering=1 << 20) as raw_f:
+        with tio.open(tmp, "wb", buffering=1 << 20) as raw_f:
             # integrity record accumulates on the bytes in hand (see
             # _CrcWriter) — no post-hoc re-read pass
             f = _CrcWriter(raw_f)
@@ -1324,7 +1324,7 @@ class VariantStore:
         npz_rec = {"bytes": f.nbytes, "crc32": f.crc}
         tio.replace(tmp, os.path.join(path, stem + ".npz"))
         atmp = os.path.join(path, f".{stem}.tmp{os.getpid()}.ann.jsonl")
-        with open(atmp, "wb") as raw_f:
+        with tio.open(atmp, "wb") as raw_f:
             f = _CrcWriter(raw_f)
             present = [(c, seg.obj[c]) for c in OBJECT_COLUMNS
                        if seg.obj[c] is not None]

@@ -147,7 +147,7 @@ class WriteAheadLog:
         a ``*.wal.tmp`` (attributed by fsck), never a half-headed WAL."""
         path = self._path(seq)
         tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
+        with tio.open(tmp, "wb") as f:
             f.write((json.dumps(
                 {"wal": 1, "name": self.name, "seq": seq}
             ) + "\n").encode())
@@ -172,7 +172,7 @@ class WriteAheadLog:
                 path = self._path(self._seq)
                 if not os.path.exists(path):
                     self._create(self._seq)
-                self._f = open(path, "ab")
+                self._f = tio.open(path, "ab")
             f = self._f
             pre = f.tell()
             # crash point BEFORE the write: raise/eio/kill model a death in

@@ -5186,6 +5186,11 @@ def load_phases(torch, platform, inp, launches, hash_calls,
                     f"launches less the warmup's ({load6['profile']['kernels']})")
             with open(vcf6 + ".mapping", "rb") as f:
                 mapping = f.read()
+            if config == "default" and plat == platform:
+                traced_leg(plat, ["--fileName", vcf6, "--storeDir", "store",
+                                  "--commit", "--logAfter", "0", "--platform",
+                                  plat, "--refGenome", inp["genome"]["index"]],
+                           load6["files"], vcf6)
             with captured_loaders(VepLoader) as vep_loaders, environment(**env):
                 rc = load_vep(["--fileName", inp["vep6"], "--storeDir", d,
                                "--commit", "--logAfter", "0", "--datasource",
@@ -5293,6 +5298,125 @@ def load_phases(torch, platform, inp, launches, hash_calls,
             "novel": inp["novel7"], "vep_seconds": inp["vep_seconds"],
             "vep7b": inp["vep7b"], "want7b": inp["want7b"],
             "novel7b": inp["novel7b"]}
+
+
+#: the traced leg's serving mix over phase 6's store: points, one bulk,
+#: one ``/regions`` batch and one ``/stats/region`` batch wide enough for
+#: the device path (the engine's minimums: 32 and 16 intervals a group)
+TRACED_POINTS, TRACED_BULK, TRACED_INTERVALS = 16, 200, 48
+
+
+def traced_leg(platform, argv, want_files, vcf) -> dict:
+    """Phase 6's traced leg: the phase-6 VCF loaded again in this process
+    on ``platform`` with ``argv`` (the default configuration's load, run
+    from a directory of its own) under ``AVDB_IO_TRACE=1 AVDB_FSYNC=1``;
+    its store must equal ``want_files`` (the untraced load's
+    :func:`store_bytes`).  Then that store served in-process by the
+    threaded front end, built under ``AVDB_LOCK_TRACE=1`` (tracing stays
+    armed): points, a bulk, one ``/regions`` batch (``bits_spans`` on the
+    card) and one ``/stats/region`` batch (``stats_panel``), an upsert and
+    its flush.  Any I/O-order violation or lock-order cycle fails; both
+    tracers are disarmed, reset and the environment restored before it
+    returns."""
+    from annotatedvdb_tpu_torch.analysis import iotrace, lockorder
+    from annotatedvdb_tpu_torch.cli.load_vcf import main as load_vcf
+    from annotatedvdb_tpu_torch.obs.metrics import MetricsRegistry
+    from annotatedvdb_tpu_torch.ops import intervals, stats
+    from annotatedvdb_tpu_torch.serve import http
+    from annotatedvdb_tpu_torch.serve.snapshot import (
+        MemtableSnapshots,
+        SnapshotManager,
+    )
+    from annotatedvdb_tpu_torch.store import memtable, wal
+
+    t0 = time.perf_counter()
+    top = os.path.join(WORK, f"p6.traced.{platform}")
+    store = os.path.join(top, "store")
+    os.makedirs(top)
+    with open(vcf) as f:
+        sites = vcf_sites([ln for ln in f if not ln.startswith("#")])
+    ids = [f"{c}:{p}:{r}:{alts[0]}" for c, p, r, alts in sites if alts]
+    pos = [p for _c, p, _r, _a in sites]
+    lo, hi = pos[0], pos[-1]
+    step = max(1, (hi - lo) // TRACED_INTERVALS)
+    specs = [f"22:{lo + i * step}-{lo + i * step + step // 2}"
+             for i in range(TRACED_INTERVALS)]
+    for rec in (iotrace.RECORDER, lockorder.RECORDER):
+        rec.reset()
+    try:
+        with environment(AVDB_IO_TRACE="1", AVDB_FSYNC="1"):
+            cwd = os.getcwd()
+            os.chdir(top)
+            try:
+                rc = load_vcf(argv)
+            finally:
+                os.chdir(cwd)
+            assert rc == 0, f"phase 6 traced load on {platform} exited {rc}"
+            load_s = time.perf_counter() - t0
+            got = store_bytes(store)
+            differ = sorted(k for k in set(got) | set(want_files)
+                            if got.get(k) != want_files.get(k))
+            assert not differ, (
+                f"phase 6: the traced store differs from the untraced one "
+                f"in {differ}")
+            before = (intervals.LAUNCHES["bits_spans"], stats.LAUNCHES["stats_panel"])
+            with environment(AVDB_LOCK_TRACE="1", AVDB_MEMTABLE_BYTES="0",
+                             AVDB_MEMTABLE_FLUSH_S="0"):
+                mgr = SnapshotManager(store, ttl_s=0.0, log=lambda m: None)
+                mem = memtable.Memtable(
+                    width=WIDTH, store_dir=store,
+                    wal=wal.WriteAheadLog(store, "serve-w0", log=lambda m: None),
+                    log=lambda m: None)
+                srv = http.build_server(manager=MemtableSnapshots(mgr, mem), port=0,
+                                        memtable=mem, registry=MetricsRegistry(),
+                                        device=platform)
+                threading.Thread(target=srv.serve_forever, daemon=True).start()
+                try:
+                    conn = _Conn(srv.server_address[1])
+                    try:
+                        calls = [("GET", f"/variant/{i}", None)
+                                 for i in ids[:TRACED_POINTS]]
+                        calls += [
+                            ("POST", "/variants", {"ids": ids[:TRACED_BULK]}),
+                            ("POST", "/regions", {"regions": specs, "limit": 3}),
+                            ("POST", "/stats/region", {"regions": specs[:32],
+                                                       "windows": 4}),
+                            ("POST", "/variants/upsert",
+                             {"variants": [{"id": f"22:{hi + 7}:A:G", "ref_snp": 7}]}),
+                            ("GET", f"/variant/22:{hi + 7}:A:G", None)]
+                        for method, path, body in calls:
+                            st, raw, _s = conn.call(method, path, body)
+                            assert st == 200, f"traced {method} {path}: {st} {raw[:300]!r}"
+                    finally:
+                        conn.close()
+                    flushed = mem.flush(mgr)
+                    assert flushed["status"] == "flushed", flushed
+                finally:
+                    srv.shutdown()
+                    srv.server_close()
+                    srv.ctx.batcher.close()
+                    mem.wal.close(remove_if_empty=True)
+        launched = {"bits_spans": intervals.LAUNCHES["bits_spans"] - before[0],
+                    "stats_panel": stats.LAUNCHES["stats_panel"] - before[1]}
+        io, locks = iotrace.RECORDER.report(), lockorder.RECORDER.report()
+    finally:
+        for rec in (iotrace.RECORDER, lockorder.RECORDER):
+            rec.reset()
+    out = {"io_events": io["events"], "io_violations": len(io["violations"]),
+           "locks": len(locks["locks"]), "lock_edges": len(locks["edges"]),
+           "cycles": len(locks["cycles"]), "seconds": time.perf_counter() - t0,
+           "load_s": load_s, "store_files": len(got), "requests": len(calls),
+           "launches": launched, "lock_names": locks["locks"],
+           "edges": sorted(locks["edges"])}
+    emit("traced", **out)
+    assert not io["violations"], f"phase 6 traced leg: I/O-order violations {io['violations']}"
+    assert not locks["cycles"], f"phase 6 traced leg: lock-order cycles {locks['cycles']}"
+    assert io["events"] > 0 and locks["locks"], (io["events"], locks["locks"])
+    if platform == "cuda":
+        assert launched["bits_spans"] > 0 and launched["stats_panel"] > 0, (
+            f"phase 6 traced leg: the serving kernels did not launch: {launched}")
+    shutil.rmtree(top)
+    return out
 
 
 def display_spill_parity(platform, inp) -> dict:

@@ -588,7 +588,8 @@ def test_packed_probe_raises_on_a_wrong_kernel(cuda, tmp_path, monkeypatch):
 
 
 def test_identity_entry_matches_plain_version(cuda):
-    """The annotate kernel's identity entry against its plain composition
+    """The annotate kernel's identity entry (``annotate_bin_identity``)
+    against its plain composition (``annotate_bin_identity_reference``)
     on every byte and against the two-launch route (``annotate_bin``,
     ``pack_vep_outputs``) where ``annotate_bin`` takes the width, at W = 1
     to 255, 0 to 257 rows, shared runs, over-width, SNV and empty rows,
